@@ -14,12 +14,28 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    versions on the card, at the main path's shapes and at ragged ones, each
    timed beside its plain version, one PyTorch library call computing the
    same function, and its bound (bytes or operations over the H100's peak);
-3. main path: ``LightGBMClassifier(numLeaves=31, maxBin=255,
+3. dense main path: ``LightGBMClassifier(numLeaves=31, maxBin=255,
    numIterations=20).fit`` on a seeded synthetic HIGGS-shaped dataset
    (2,097,152 rows x 28 features) on the card, then ``.transform`` of 65,536
-   rows. Both kernels must have launched during it. The scores are held
+   rows. K1 and K2 must have launched during it. The scores are held
    against the host f64 traversal of the same model, and the first three
-   trees against a refit on the CPU.
+   trees against a refit on the CPU;
+4. sparse data: the reference benchmark's text-shaped CSR (1,000,000 rows x
+   2^18 hashed features, ~50 token counts per row, seeded), with the host
+   costs of the sparse path timed apart: ``rows_to_csr`` over the rows,
+   ``SparseDataset.from_csr`` and the bin-sorted layout;
+5. K4 (flat sparse histogram) against its plain version at that dataset's
+   layout (~49.7M entries, ~1.31M flat bins, 50% row mask) and at ragged
+   shapes, timed the same way;
+6. sparse main path: ``LightGBMClassifier(numLeaves=31, numIterations=10,
+   learningRate=0.1, minDataInLeaf=20).fit`` on a DataFrame of those sparse
+   rows (its boosting loop timed apart from the in-fit host build through
+   the ``TrainRecorder`` series), then ``.transform`` of 65,536 rows. K4
+   must have launched; the scores must equal the CPU ``predict_csr`` of the
+   same model and the train accuracy exceed 0.7. The root split of the full-width dataset is searched
+   with the reference's f32 prefix formula and the port's f64 one; the
+   reference benchmark's anchor shape (100,000 x 2^12) is refit for 3
+   iterations on the card and on the CPU, first tree identical.
 
 Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``, after a ``{"kernels": [...]}`` line.
@@ -28,6 +44,7 @@ Any failure raises and exits non-zero. The last line of standard output is
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -40,6 +57,12 @@ F_MAIN = 28
 BINS_MAIN = 256
 N_SCORE = 65_536
 SEED = 20_240_601
+# the reference's sparse benchmark point (tools/bench_gbdt_sparse.py)
+N_SPARSE = 1_000_000
+W_SPARSE = 1 << 18
+NNZ_SPARSE = 50
+ITERS_SPARSE = 10
+DEVICE = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -351,6 +374,322 @@ def main_path(torch, profile: bool) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# sparse (CSR) path
+# ---------------------------------------------------------------------------
+
+
+def make_csr_text(n_rows: int, width: int, avg_nnz: int, seed: int):
+    """Seeded copy of the reference benchmark's text-shaped CSR
+    (tools/bench_gbdt_sparse.py make_csr_text): ~avg_nnz token counts (1-4)
+    per row, token ids skewed toward low ids (width * r^3), label from 8
+    signal tokens plus noise."""
+    rng = np.random.default_rng(seed)
+    nnz_per_row = rng.poisson(avg_nnz, n_rows).clip(1)
+    total = int(nnz_per_row.sum())
+    row_of = np.repeat(np.arange(n_rows, dtype=np.int64), nnz_per_row)
+    idx = (width * rng.random(total) ** 3).astype(np.int64).clip(0, width - 1)
+    key = np.unique(row_of * width + idx)   # sorted, distinct per row
+    row_of = key // width
+    idx = key % width
+    vals = 1.0 + rng.integers(0, 4, len(key)).astype(np.float64)
+    indptr = np.searchsorted(row_of, np.arange(n_rows + 1))
+    signal = (width * np.linspace(0.01, 0.6, 8) ** 3).astype(np.int64)
+    sig_val = np.zeros(n_rows)
+    for j, s in enumerate(signal):
+        hit = idx == s       # at most one entry per row: bincount == add.at
+        sig_val += np.bincount(row_of[hit], minlength=n_rows,
+                               weights=(1.0 if j % 2 == 0 else -1.0) * vals[hit])
+    y = (sig_val + rng.normal(0, 0.5, n_rows) > 0).astype(np.float64)
+    return indptr, idx, vals, y
+
+
+def sparse_data() -> dict:
+    """The full-width sparse dataset as sparse rows, with the host costs of
+    the sparse path timed on their own."""
+    from mmlspark_tpu_torch.gbdt import sparse
+
+    t0 = time.perf_counter()
+    indptr, idx, vals, y = make_csr_text(N_SPARSE, W_SPARSE, NNZ_SPARSE, 0)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = np.empty(N_SPARSE, dtype=object)
+    for i in range(N_SPARSE):
+        a, b = indptr[i], indptr[i + 1]
+        rows[i] = {"indices": idx[a:b], "values": vals[a:b], "size": W_SPARSE}
+    rows_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csr = sparse.rows_to_csr(rows)
+    csr_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = sparse.SparseDataset.from_csr(*csr, max_bin=255)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    order, _, bin_end = sparse._bin_sorted_layout(ds.bin_of_nnz, ds.total_bins)
+    layout_s = time.perf_counter() - t0
+    log({"phase": "sparse_data", "rows": N_SPARSE, "width": W_SPARSE,
+         "nnz": int(len(idx)), "total_bins": ds.total_bins,
+         "positives": float(y.mean()), "generate_seconds": gen_s,
+         "row_dicts_seconds": rows_s, "host_rows_to_csr_seconds": csr_s,
+         "host_from_csr_seconds": build_s,
+         "host_bin_sorted_layout_seconds": layout_s})
+    return {"rows": rows, "y": y, "csr": (indptr, idx, vals), "ds": ds,
+            "order": order, "bin_end": bin_end}
+
+
+def sparse_hist_inputs(torch, nnz, tb, empty_every, gen):
+    """Bin-sorted entries over ``tb`` skewed bins (every ``empty_every``-th
+    empty), stats masked at 50%, on the card."""
+    rng = np.random.default_rng(int(torch.randint(0, 2**31, (1,), generator=gen)))
+    weights = rng.random(tb) ** 4 + 1e-4
+    if empty_every:
+        weights[::empty_every] = 0.0
+    ids = np.sort(rng.choice(tb, size=nnz, p=weights / weights.sum()))
+    bin_end = np.searchsorted(ids, np.arange(tb), side="right").astype(np.int32)
+    m = (rng.random(nnz) < 0.5).astype(np.float32)
+    data = np.stack([rng.standard_normal(nnz) * m, (rng.random(nnz) + 0.1) * m, m])
+    dev = torch.device(DEVICE)
+    return (torch.from_numpy(data.astype(np.float32)).to(dev),
+            torch.from_numpy(bin_end).to(dev))
+
+
+def check_sparse_hist(torch, shk, data, bin_end, what) -> float:
+    """K4 vs its plain version: count exact, grad/hess within 1e-5 of the
+    bin's sum of |v| + 1e-6. Returns the max abs error of grad/hess."""
+    k = shk.sparse_histogram_cuda(data, bin_end)
+    p = shk.sparse_histogram_plain(data, bin_end)
+    scale = shk.sparse_histogram_plain(data.abs(), bin_end)
+    torch.cuda.synchronize()
+    nnz, tb = data.shape[1], bin_end.shape[0]
+    if tuple(k.shape) != (3, tb) or not torch.equal(k[2], p[2]):
+        fail(f"sparse_hist count channel differs ({what}: nnz={nnz} tb={tb})")
+    err = (k[:2] - p[:2]).abs()
+    if not bool((err <= 1e-5 * scale[:2] + 1e-6).all()):
+        fail(f"sparse_hist grad/hess beyond tolerance ({what}: nnz={nnz} "
+             f"tb={tb}): max err {err.max().item()}")
+    e = err.max().item() if err.numel() else 0.0
+    log({"phase": "kernels", "kernel": "sparse_hist", "case": what, "nnz": nnz,
+         "bins": tb, "count_exact": True, "max_abs_err": e})
+    return e
+
+
+def sparse_kernel_phase(torch, data: dict) -> dict:
+    from mmlspark_tpu_torch.gbdt import sparse_hist_kernel as shk
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    dev = torch.device(DEVICE)
+    ds = data["ds"]
+    n, tb = ds.num_rows, ds.total_bins
+    rows_bs = torch.as_tensor(ds.row_of_nnz[data["order"]].astype(np.int64),
+                              device=dev)
+    bin_end = torch.as_tensor(data["bin_end"].astype(np.int32), device=dev)
+    grad = torch.randn(n, generator=gen).to(dev)
+    hess = torch.rand(n, generator=gen).to(dev)
+    m = (torch.rand(n, generator=gen) < 0.5).to(dev)[rows_bs].to(torch.float32)
+    stats = torch.stack([grad[rows_bs] * m, hess[rows_bs] * m, m]).contiguous()
+    del rows_bs
+    err = check_sparse_hist(torch, shk, stats, bin_end, "main")
+    for nnz, tb_r, empty, what in ((0, 5, 0, "nnz 0"), (1, 1, 0, "nnz 1"),
+                                   (1, 9, 0, "nnz 1, empty bins"),
+                                   (300_001, 1, 0, "one bin"),
+                                   (123_457, 7_777, 3, "empty bins, ragged tb"),
+                                   (2_049, 4_001, 2, "more bins than entries")):
+        check_sparse_hist(torch, shk, *sparse_hist_inputs(torch, nnz, tb_r, empty,
+                                                          gen), what)
+    nnz = stats.shape[1]
+    ids = shk.bin_ids(bin_end)
+    ms = time_ms(torch, lambda: shk.sparse_histogram_cuda(stats, bin_end))
+    plain = time_ms(torch, lambda: shk.sparse_histogram_plain(stats, bin_end), 5)
+    lib = time_ms(torch, lambda: torch.zeros(3, tb, device=dev)
+                  .index_add_(1, ids, stats), 5)
+    t_bound, by = bound_ms(12 * nnz + 4 * tb + 12 * tb, 3 * nnz)
+    row = dict(name="sparse_hist", route="cuda",
+               source="mmlspark_tpu_torch/csrc/sparse_hist.cu",
+               replaces="mmlspark_tpu/gbdt/pallas_sparse.py:269",
+               max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=t_bound,
+               bound_by=by, library_ms=lib,
+               library_call="Tensor.index_add_ over the flat bin ids (f32, one "
+                            "call, ids prepared outside the timing)",
+               shape=dict(nnz=nnz, bins=tb, row_mask=0.5))
+    log(dict(phase="kernels", **row))
+    del stats, ids
+    torch.cuda.empty_cache()
+    return row
+
+
+def root_split_check(torch, ds, y) -> dict:
+    """The split search of the full-width dataset at iteration 0 with the
+    reference's formula (f32 prefix over all flat bins) and the port's (f64
+    segmented scan): the root's (bin, gain) both ways and the port's gain at
+    the reference's bin, the error of the reference's left hessian sums over
+    every bin, and the whole first tree grown with each. Recorded, not
+    gated: a disagreement is the reference's fault."""
+    from mmlspark_tpu_torch.gbdt import GrowerConfig, booster, sparse
+
+    dev = torch.device(DEVICE)
+    d = sparse.device_arrays(ds, dev)
+    base = booster.init_score("binary", y)
+    scores = torch.full((ds.num_rows,), float(base[0]), device=dev)
+    labels = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    g, h = booster.grad_hess("binary", scores, labels)
+    mask = torch.ones(ds.num_rows, dtype=torch.bool, device=dev)
+    gb, hb = sparse._entry_gh(d, g, h)
+    hist = sparse._zero_completed(d, sparse._flat_histogram(d, gb, hb, mask),
+                                  sparse._masked_totals(g, h, mask))[None]
+    args = (0.0, 0.0, 1e-3, 20)
+    faithful = sparse._find_best_split_flat(d, hist, *args, faithful=True)[0]
+    port = sparse._find_best_split_flat(d, hist, *args)[0]
+    # within-feature left hessian sums of every flat bin, both ways
+    h32 = hist[0]
+    cs = sparse._prefix_sum(h32)[:, 1:]
+    fs = d["feat_start_of_bin"]
+    hl_f = (cs - (cs[:, fs] - h32[:, fs]))[1].double()
+    hl_p = sparse._segmented_cumsum(d, h32.double())[1]
+    hl_err = (hl_f - hl_p).abs()
+    b_f = int(faithful[0])
+    only = torch.zeros(ds.total_bins, dtype=torch.bool, device=dev)
+    only[b_f] = True
+    at_f = sparse._find_best_split_flat(d, hist, *args, bin_mask=only)[0]
+    names = ("bin", "gain", "GL", "HL", "CL", "GR", "HR", "CR")
+    out = {"faithful": dict(zip(names, faithful.tolist())),
+           "port_f64": dict(zip(names, port.tolist())),
+           "port_f64_at_faithful_bin": dict(zip(names, at_f.tolist())),
+           "same_bin": b_f == int(port[0]),
+           "left_hess_abs_err_max": hl_err.max().item(),
+           "left_hess_abs_err_last_feature_bins": hl_err[-8:].tolist(),
+           "bins_left_hess_err_over_1": int((hl_err > 1.0).sum())}
+    # the whole first tree, grown once with each formula
+    cfg = GrowerConfig(num_leaves=31, min_data_in_leaf=20)
+    port_tree, port_rows = sparse.grow_tree_sparse(ds, d, g, h, cfg)
+    exact = sparse._find_best_split_flat
+    sparse._find_best_split_flat = functools.partial(exact, faithful=True)
+    try:
+        ref_tree, ref_rows = sparse.grow_tree_sparse(ds, d, g, h, cfg)
+    finally:
+        sparse._find_best_split_flat = exact
+
+    def loss(rows) -> float:
+        """sum over leaves of -G^2 / 2H, from f64 row sums (lower = better)"""
+        gh = torch.zeros(2, 2 * cfg.num_leaves - 1, dtype=torch.float64, device=dev)
+        gh.index_add_(1, rows.long(), torch.stack([g, h]).double())
+        keep = gh[1] > 0
+        return float((-0.5 * gh[0][keep] ** 2 / gh[1][keep]).sum())
+
+    internal = port_tree.feature >= 0
+    n_same = min(len(port_tree.feature), len(ref_tree.feature))
+    diff = first_diff(ref_tree, port_tree)
+    if diff and "cuda" in diff:
+        diff["faithful"], diff["port_f64"] = diff.pop("cuda"), diff.pop("cpu")
+    out["first_tree"] = {
+        "first_diff": diff,
+        "splits_with_other_feature_or_bin": int(
+            ((port_tree.feature[:n_same] != ref_tree.feature[:n_same])
+             | (port_tree.threshold_bin[:n_same]
+                != ref_tree.threshold_bin[:n_same]))[internal[:n_same]].sum()),
+        "splits": int(internal.sum()),
+        "exact_loss_faithful": loss(ref_rows), "exact_loss_port_f64": loss(port_rows)}
+    log(dict(phase="sparse_root_split", **out))
+    return out
+
+
+def sparse_main_path(torch, data: dict) -> int:
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.gbdt import LightGBMClassifier
+    from mmlspark_tpu_torch.gbdt import sparse
+    from mmlspark_tpu_torch.gbdt import sparse_hist_kernel as shk
+    from mmlspark_tpu_torch.obs.metrics import TrainRecorder, default_registry
+
+    rows, y = data["rows"], data["y"]
+    df = DataFrame.from_dict({"features": rows, "label": y})
+    small = DataFrame.from_dict({"features": rows[:N_SCORE], "label": y[:N_SCORE]})
+    est = LightGBMClassifier(numLeaves=31, numIterations=ITERS_SPARSE,
+                             learningRate=0.1, minDataInLeaf=20)
+    # the boosting loop's own seconds inside the fit (train_sparse records
+    # every iteration): the rest of the fit is the host build of the CSR
+    # dataset and its device layout
+    steps = default_registry().histogram(
+        "mmlspark_train_step_seconds", labelnames=("engine",),
+        buckets=TrainRecorder.STEP_BUCKETS).labels(engine="gbdt_sparse")
+    before = steps.value
+    shk.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = est.fit(df)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    loop_s = steps.value["sum"] - before["sum"]
+    t1 = time.perf_counter()
+    scored = model.transform(small)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t1
+    launches = shk.launches
+    nnz = int(len(data["csr"][1]))
+    log({"phase": "sparse_main", "fit_seconds": fit_s,
+         "fit_rows_per_s": N_SPARSE * ITERS_SPARSE / fit_s,
+         "fit_nnz_per_s": nnz * ITERS_SPARSE / fit_s,
+         "boosting_loop_seconds": loop_s,
+         "boosting_loop_iterations": steps.value["count"] - before["count"],
+         "transform_rows": N_SCORE, "transform_seconds": score_s,
+         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "launches": {"sparse_hist": launches}})
+    if launches < 1:
+        fail("K4 never launched on the sparse main path")
+
+    booster = model.booster
+    raw = np.stack(list(scored.column("rawPrediction")))[:, 1]
+    if raw.shape != (N_SCORE,) or not np.isfinite(raw).all():
+        fail(f"sparse scores: shape {raw.shape} or non-finite values")
+    indptr, idx, vals = data["csr"]
+    cut = int(indptr[N_SCORE])
+    cpu = sparse.predict_csr(booster.trees, indptr[:N_SCORE + 1], idx[:cut],
+                             vals[:cut], 1, device="cpu")[:, 0] + booster.base_score[0]
+    diff = float(np.abs(raw - cpu).max())
+    full = sparse.predict_csr(booster.trees, indptr, idx, vals, 1)[:, 0] \
+        + booster.base_score[0]
+    acc = float(((full > 0) == (y > 0.5)).mean())
+    leaves = [t.num_leaves for g in booster.trees for t in g]
+    log({"phase": "sparse_main", "max_abs_diff_vs_cpu_predict_csr": diff,
+         "train_accuracy": acc, "trees": len(booster.trees), "leaves": leaves,
+         "boosting_loop_ms_per_split":
+             loop_s * 1e3 / max(sum(leaves) - len(leaves), 1)})
+    if diff > 1e-12:
+        fail(f"sparse transform differs from the CPU predict_csr by {diff}")
+    if acc <= 0.7:
+        fail(f"sparse train accuracy {acc} is not above 0.7")
+    root_split_check(torch, data["ds"], y)
+    return launches
+
+
+def sparse_anchor(torch) -> None:
+    """The reference benchmark's anchor shape, 3 iterations on the card and
+    on the CPU: first tree identical, 3-tree raw scores within 1e-3."""
+    from mmlspark_tpu_torch.gbdt import TrainParams, sparse
+
+    indptr, idx, vals, y = make_csr_text(100_000, 1 << 12, 50, 1)
+    ds = sparse.SparseDataset.from_csr(indptr, idx, vals, 1 << 12)
+    params = TrainParams(objective="binary", num_iterations=3, num_leaves=31,
+                         learning_rate=0.1, min_data_in_leaf=20, seed=0)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        b = sparse.train_sparse(params, ds, y, device=dev)
+        out[dev] = (b, time.perf_counter() - t0)
+    (bc, cuda_s), (bp, cpu_s) = out[DEVICE], out["cpu"]
+    diffs = [first_diff(bc.trees[i][0], bp.trees[i][0]) for i in range(3)]
+    raw = [sparse.predict_csr(b.trees, indptr, idx, vals, 1, device="cpu")[:, 0]
+           for b in (bc, bp)]
+    d3 = float(np.abs(raw[0] - raw[1]).max())
+    log({"phase": "sparse_anchor", "rows": 100_000, "width": 1 << 12,
+         "nnz": int(len(idx)), "cuda_fit_seconds": cuda_s,
+         "cpu_fit_seconds": cpu_s, "first_diff_per_tree": diffs,
+         "max_abs_diff_3_trees": d3})
+    if diffs[0] is not None:
+        fail(f"anchor tree 1 differs between the CUDA and CPU fits: {diffs[0]}")
+    if d3 > 1e-3:
+        fail(f"anchor 3-tree raw scores differ by {d3}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -369,10 +708,15 @@ def main() -> int:
     hdr = header(torch)
     kernels = kernel_phase(torch)
     launches = main_path(torch, args.profile)
+    data = sparse_data()
+    kernels["sparse_hist"] = sparse_kernel_phase(torch, data)
+    launches["sparse_hist"] = sparse_main_path(torch, data)
+    del data
+    sparse_anchor(torch)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []
-    for name in ("hist", "select"):
+    for name in ("hist", "select", "sparse_hist"):
         row = dict(kernels[name], launches=launches[name])
         rows.append({k: row[k] for k in keys})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})

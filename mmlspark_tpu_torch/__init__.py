@@ -6,9 +6,10 @@ pipelines on NVIDIA GPUs through PyTorch and hand-written CUDA kernels
 CUDA unless the caller asks for the CPU (``runtime.use_device("cpu")`` or
 ``device="cpu"``).
 
-Ported so far: the dense LightGBM-equivalent GBDT fit -> transform
+Ported so far: the LightGBM-equivalent GBDT fit -> transform
 (``mmlspark_tpu_torch.gbdt``) over the columnar DataFrame
-(``mmlspark_tpu_torch.core``).
+(``mmlspark_tpu_torch.core``), on dense feature vectors and on sparse (CSR)
+rows.
 """
 
 __version__ = "0.1.0"

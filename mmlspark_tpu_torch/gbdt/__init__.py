@@ -1,5 +1,6 @@
 """LightGBM-equivalent GBDT on PyTorch, with the histogram (K1) and row-select
-(K2) CUDA kernels on its training path."""
+(K2) CUDA kernels on its dense training path and the flat sparse histogram
+(K4) on its sparse (CSR) one."""
 
 from .binning import BinMapper
 from .booster import Booster, TrainParams, train

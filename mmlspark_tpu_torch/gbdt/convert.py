@@ -4,8 +4,10 @@
 ``Booster.to_string()`` writes (JSON, format ``mmlspark_tpu.gbdt.v1``);
 ``booster_from_arrays`` builds the same content from numpy arrays. Either
 way the port scores a model the JAX package trained — the tests hold the
-port's scoring to the reference's on identical trees this way. Neither
-imports the reference: the format is plain JSON.
+port's scoring to the reference's on identical trees this way. Sparse fits
+emit the same trees (raw thresholds), so both carry them too.
+``sparse_dataset_from_reference`` carries a reference ``SparseDataset``
+(its numpy fields) into the port's. None of them imports the reference.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 
 from .binning import BinMapper
 from .booster import Booster, TrainParams
+from .sparse import SparseDataset
 from .tree import Tree
 
 _TREE_FIELDS = ("feature", "threshold", "threshold_bin", "default_left",
@@ -60,3 +63,11 @@ def booster_from_arrays(params: Dict, base_score: Sequence[float],
         groups.append(out)
     return Booster(tp, mapper, trees=groups,
                    base_score=np.asarray(base_score, dtype=np.float64))
+
+
+def sparse_dataset_from_reference(ds) -> SparseDataset:
+    """A reference ``SparseDataset`` (any object with its numpy fields) ->
+    the port's, with the same arrays."""
+    fields = [f.name for f in dataclasses.fields(SparseDataset)]
+    return SparseDataset(**{k: (np.array(getattr(ds, k)) if k != "num_features"
+                                else int(ds.num_features)) for k in fields})

@@ -6,10 +6,12 @@ camelCase param surface (LightGBMParams), ``fit`` over the DataFrame into
 traversal with the f64 host finalize. Both run on CUDA unless the caller
 wraps them in ``runtime.use_device("cpu")``.
 
-The Ranker, the fused-pipeline hook (``device_fn``), sparse (CSR) feature
-columns, LightGBM text-model interchange (``modelString``,
-``save_native_model``) and the options ``train`` does not take yet wait for
-later slices and raise ``NotImplementedError``.
+Sparse-row feature columns (``{"indices", "values", "size"}``) fit through
+``sparse.train_sparse`` and score through ``sparse.predict_csr``, never
+densified. The Ranker, the fused-pipeline hook (``device_fn``), LightGBM
+text-model interchange (``modelString``, ``save_native_model``) and the
+options ``train`` does not take yet wait for later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,9 +34,10 @@ from ..core.params import (
 )
 from ..core.pipeline import Estimator, Model
 from ..core.schema import ColType, Schema
-from ..parallel.batching import is_sparse_row, stack_rows
+from ..parallel.batching import is_sparse_row, sparse_width, stack_rows
 from ..runtime import default_device
 from .booster import Booster, TrainParams, train
+from .sparse import SparseDataset, predict_csr, rows_to_csr, train_sparse
 
 
 class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
@@ -150,8 +153,15 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
         fcol = data[self.get_or_throw("featuresCol")]
         first = next((v for v in fcol if v is not None), None)
         if is_sparse_row(first):
-            raise NotImplementedError(
-                "sparse (CSR) feature columns are not ported yet (ROADMAP A6)")
+            return self._fit_booster_sparse(data, objective, num_class)
+        self._later_options()
+        X = stack_rows(fcol, np.float64)
+        y, w, init_scores = self._label_weight_init(data)
+        return train(self._train_params(objective, num_class), X, y,
+                     weights=w, init_scores=init_scores, log=self._make_log(),
+                     device=default_device())
+
+    def _later_options(self) -> None:
         if self.get("modelString"):
             raise NotImplementedError(
                 "modelString (LightGBM text models) is not ported yet "
@@ -160,7 +170,8 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             raise NotImplementedError(
                 "validation sets and early stopping are not ported yet "
                 "(ROADMAP A2)")
-        X = stack_rows(fcol, np.float64)
+
+    def _label_weight_init(self, data):
         y = np.asarray(data[self.get_or_throw("labelCol")], dtype=np.float64)
         w = None
         if self.get("weightCol"):
@@ -169,9 +180,27 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
         if self.get("initScoreCol"):
             init_scores = np.asarray(data[self.get("initScoreCol")],
                                      dtype=np.float64)
-        return train(self._train_params(objective, num_class), X, y,
-                     weights=w, init_scores=init_scores, log=self._make_log(),
-                     device=default_device())
+        return y, w, init_scores
+
+    def _fit_booster_sparse(self, data, objective: str,
+                            num_class: int) -> Booster:
+        """CSR training for sparse-row features (TextFeaturizer / VW
+        featurizer output): never densifies, so 2^18-wide hashed spaces
+        train in O(nnz) memory (the reference's ``_fit_booster_sparse``;
+        bins capped at 255 per feature as there)."""
+        y, w, init_scores = self._label_weight_init(data)
+        if self.get("categoricalSlotIndexes"):
+            raise ValueError(
+                "categoricalSlotIndexes is not supported with sparse "
+                "features — hashTF/count spaces are numeric; densify "
+                "explicitly (FastVectorAssembler) for categorical slots")
+        self._later_options()
+        params = self._train_params(objective, num_class)
+        col = list(data[self.get_or_throw("featuresCol")])
+        ds = SparseDataset.from_rows(col, num_features=sparse_width(col),
+                                     max_bin=min(params.max_bin, 255))
+        return train_sparse(params, ds, y, weights=w, init_scores=init_scores,
+                            log=self._make_log(), device=default_device())
 
 
 class _LightGBMModelBase(Model, HasFeaturesCol):
@@ -208,8 +237,15 @@ class _LightGBMModelBase(Model, HasFeaturesCol):
         col = part[self.get_or_throw("featuresCol")]
         first = next((v for v in col if v is not None), None)
         if is_sparse_row(first):
-            raise NotImplementedError(
-                "sparse (CSR) feature columns are not ported yet (ROADMAP A6)")
+            # CSR predict, never densified (PredictForCSRSingle parity)
+            b = self.booster
+            n_iter = b.best_iteration if b.best_iteration > 0 \
+                else len(b.trees)
+            indptr, indices, values, _ = rows_to_csr(col, filter_zeros=False)
+            raw = predict_csr(b.trees[:n_iter], indptr, indices, values,
+                              max(b.params.num_class, 1),
+                              device=default_device())
+            return raw + b.base_score[None, :]
         X = stack_rows(col, np.float32)
         raw = self._ensemble().predict_raw(X)
         return raw + self.booster.base_score[None, :]

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from mmlspark_tpu_torch.gbdt import hist_kernel, select_kernel
+from mmlspark_tpu_torch.gbdt import hist_kernel, select_kernel, sparse_hist_kernel
 
 
 @pytest.fixture
@@ -49,3 +49,33 @@ def test_select_kernel_bitwise_matches_plain(cuda_device, density):
     a = select_kernel.select_rows_cuda(bins, grad, hess, mask, cap)
     b = select_kernel.select_rows_plain(bins, grad, hess, mask, cap)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _sparse_hist_inputs(nnz, tb, empty_every, device, seed=0):
+    """Bin-sorted entries over ``tb`` skewed bins (every ``empty_every``-th
+    empty), stats masked at 50%: [3, nnz] f32 and the int32 bin ends."""
+    rng = np.random.default_rng(seed)
+    weights = rng.random(tb) ** 4 + 1e-4
+    if empty_every:
+        weights[::empty_every] = 0.0
+    ids = np.sort(rng.choice(tb, size=nnz, p=weights / weights.sum()))
+    bin_end = np.searchsorted(ids, np.arange(tb), side="right").astype(np.int32)
+    m = (rng.random(nnz) < 0.5).astype(np.float32)
+    data = np.stack([rng.standard_normal(nnz) * m, (rng.random(nnz) + 0.1) * m, m])
+    return (torch.from_numpy(data.astype(np.float32)).to(device),
+            torch.from_numpy(bin_end).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nnz,tb,empty", [(1_000_003, 50_001, 0), (1, 1, 0),
+                                          (0, 5, 0), (70_000, 1, 0),
+                                          (123_457, 7_777, 3), (2049, 4000, 2)])
+def test_sparse_hist_kernel_matches_plain(cuda_device, nnz, tb, empty):
+    data, bin_end = _sparse_hist_inputs(nnz, tb, empty, cuda_device)
+    k = sparse_hist_kernel.sparse_histogram_cuda(data, bin_end)
+    p = sparse_hist_kernel.sparse_histogram_plain(data, bin_end)
+    scale = sparse_hist_kernel.sparse_histogram_plain(data.abs(), bin_end)
+    assert k.shape == (3, tb)
+    assert torch.equal(k[2], p[2])
+    # both accumulate in f64 and round once: equal up to a rounding tie
+    assert bool(((k - p).abs() <= 1e-5 * scale + 1e-6).all())

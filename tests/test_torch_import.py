@@ -42,6 +42,8 @@ def test_clean_import_pulls_in_no_jax_and_no_reference():
     for mod in ("mmlspark_tpu_torch.gbdt.stages", "mmlspark_tpu_torch.gbdt.tree",
                 "mmlspark_tpu_torch.gbdt.hist_kernel",
                 "mmlspark_tpu_torch.gbdt.select_kernel",
+                "mmlspark_tpu_torch.gbdt.sparse",
+                "mmlspark_tpu_torch.gbdt.sparse_hist_kernel",
                 "mmlspark_tpu_torch.gbdt.convert", "mmlspark_tpu_torch.runtime"):
         assert mod in out["imported"]
 
@@ -56,6 +58,7 @@ def test_source_has_no_jax_or_reference_import():
     assert offenders == []
     assert (PKG / "csrc" / "hist.cu").exists()
     assert (PKG / "csrc" / "select.cu").exists()
+    assert (PKG / "csrc" / "sparse_hist.cu").exists()
 
 
 @pytest.fixture

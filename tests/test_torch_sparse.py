@@ -1,0 +1,531 @@
+"""The port's sparse (CSR) GBDT path against the JAX reference, on the CPU.
+
+Inputs are made with numpy from a seed and go through the reference
+(``mmlspark_tpu.gbdt.sparse``) and the port (``mmlspark_tpu_torch.gbdt.sparse``
+on ``device="cpu"``, where K4's wrapper runs its plain version).
+
+Tolerances, and why:
+  - dataset layout, routing, integer prefixes, counts: exact;
+  - K4's plain version against the reference's Pallas kernel (interpret
+    mode, f32 sums per 512-entry chunk): count exact, g/h within
+    1e-5 * sum|v| over the bin's entries + 1e-6;
+  - against the reference's default prefix-sum histogram (bin sums as
+    differences of ONE f32 prefix over all entries, off by ~1e-4 already at
+    a few thousand entries): the reference's own declared tolerance for its
+    histogram variants, ``hist.csr``'s allclose(rtol=2e-3, atol=2e-3);
+  - trees: feature, threshold_bin, left, right, default_left and count
+    identical; leaf values within ``hist.csr``'s tolerance of the
+    reference's, and within rtol 1e-5 of an f64 recomputation from the rows
+    each leaf holds (the port sums exactly and rounds once).
+
+The fixtures are text-shaped (token counts 1-4, a few levels per feature),
+the data the sparse path exists for. Continuous values with a bin per
+distinct value give nodes whose rows leave adjacent bins empty; candidates
+across those bins tie exactly, and the reference's f32 prefix noise breaks
+such ties at random (ROADMAP §C), so they cannot be held to identical
+thresholds.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from mmlspark_tpu.core.dataframe import DataFrame as RefDataFrame
+from mmlspark_tpu.gbdt import pallas_sparse
+from mmlspark_tpu.gbdt import sparse as ref_sparse
+from mmlspark_tpu.gbdt import stages as ref_stages
+from mmlspark_tpu.gbdt.booster import TrainParams as RefTrainParams
+from mmlspark_tpu.gbdt.tree import GrowerConfig as RefGrowerConfig
+from mmlspark_tpu_torch.core.dataframe import DataFrame
+from mmlspark_tpu_torch.gbdt import convert, sparse, sparse_hist_kernel, stages
+from mmlspark_tpu_torch.gbdt.booster import TrainParams
+from mmlspark_tpu_torch.gbdt.tree import GrowerConfig
+from mmlspark_tpu_torch.runtime import use_device
+
+from test_gbdt_sparse import dense_to_csr, sparse_rows, synth_sparse
+
+HIST_CSR_TOL = 2e-3      # mmlspark_tpu/core/kernels.py _HIST_TOL (hist.csr)
+STRUCT = ("feature", "threshold_bin", "left", "right", "default_left", "count")
+
+
+def make_csr_text(n_rows, width, avg_nnz, seed=0):
+    """The reference benchmark's text-shaped CSR (tools/bench_gbdt_sparse.py
+    make_csr_text): skewed token ids, counts 1-4, label from 8 signal
+    tokens plus noise."""
+    rng = np.random.default_rng(seed)
+    nnz_per_row = rng.poisson(avg_nnz, n_rows).clip(1)
+    row_of = np.repeat(np.arange(n_rows, dtype=np.int64), nnz_per_row)
+    idx = (width * rng.random(int(nnz_per_row.sum())) ** 3).astype(np.int64)
+    key = np.unique(row_of * width + idx.clip(0, width - 1))
+    row_of, idx = key // width, key % width
+    vals = 1.0 + rng.integers(0, 4, len(key)).astype(np.float64)
+    indptr = np.searchsorted(row_of, np.arange(n_rows + 1))
+    signal = (width * np.linspace(0.01, 0.6, 8) ** 3).astype(np.int64)
+    sig = np.zeros(n_rows)
+    for j, s in enumerate(signal):
+        hit = idx == s
+        np.add.at(sig, row_of[hit], (1.0 if j % 2 == 0 else -1.0) * vals[hit])
+    y = (sig + rng.normal(0, 0.5, n_rows) > 0).astype(np.float64)
+    return indptr, idx, vals, y
+
+
+def _datasets(n=2000, width=1 << 10, avg=20, seed=1, max_bin=255):
+    indptr, idx, vals, y = make_csr_text(n, width, avg, seed)
+    rds = ref_sparse.SparseDataset.from_csr(indptr, idx, vals, width, max_bin)
+    return (indptr, idx, vals, y), rds, convert.sparse_dataset_from_reference(rds)
+
+
+def _abs_bin_sums(ids, vals, tb):
+    return np.bincount(ids, weights=np.abs(vals.astype(np.float64)),
+                       minlength=tb)
+
+
+def _assert_same_tree(a, b, where=""):
+    for fld in STRUCT:
+        np.testing.assert_array_equal(getattr(a, fld), getattr(b, fld),
+                                      err_msg=f"{where} {fld}")
+    np.testing.assert_array_equal(a.threshold, b.threshold, err_msg=where)
+    np.testing.assert_allclose(b.value, a.value, rtol=HIST_CSR_TOL,
+                               atol=HIST_CSR_TOL, err_msg=where)
+
+
+def _assert_same_forest(ref, port):
+    assert len(ref.trees) == len(port.trees)
+    for i, (gr, gp) in enumerate(zip(ref.trees, port.trees)):
+        assert len(gr) == len(gp)
+        for k, (a, b) in enumerate(zip(gr, gp)):
+            _assert_same_tree(a, b, f"iteration {i} class {k}")
+
+
+# ---------------------------------------------------------------- dataset
+
+
+@pytest.mark.parametrize("case", ["text", "signed", "capped", "rows"])
+def test_sparse_dataset_fields_match(case):
+    if case == "text":
+        (indptr, idx, vals, _), rds, _ = _datasets(800, 1 << 9, 12, seed=4)
+        pds = sparse.SparseDataset.from_csr(indptr, idx, vals, 1 << 9, 255)
+    elif case in ("signed", "capped"):
+        X, _ = synth_sparse(300, 12, density=0.3, seed=7)
+        mb = 255 if case == "signed" else 16
+        indptr, idx, vals = dense_to_csr(X)
+        rds = ref_sparse.SparseDataset.from_csr(indptr, idx, vals, 12, mb)
+        pds = sparse.SparseDataset.from_csr(indptr, idx, vals, 12, mb)
+    else:
+        X, _ = synth_sparse(200, 9, density=0.25, seed=2)
+        X[5] = 0.0                                  # an empty row
+        rows = sparse_rows(X, size=12)              # declared width > data
+        rds = ref_sparse.SparseDataset.from_rows(rows, max_bin=32)
+        pds = sparse.SparseDataset.from_rows(rows, max_bin=32)
+    for f in dataclasses.fields(ref_sparse.SparseDataset):
+        r, p = getattr(rds, f.name), getattr(pds, f.name)
+        if f.name == "num_features":
+            assert r == p
+        else:
+            assert np.asarray(r).dtype == np.asarray(p).dtype, f.name
+            np.testing.assert_array_equal(r, p, err_msg=f.name)
+    assert rds.bin_upper_value(0, 0) == pds.bin_upper_value(0, 0)
+
+
+def test_device_arrays_match_reference_layout():
+    _, rds, pds = _datasets(600, 1 << 8, 10, seed=3)
+    rdev = ref_sparse._device_arrays(rds)
+    pdev = sparse.device_arrays(pds, "cpu")
+    for key in ("bin_of_nnz", "feat_of_nnz", "row_of_nnz_bs", "bin_end",
+                "is_zero_bin", "feat_of_bin", "feat_start_of_bin",
+                "feat_end_of_bin", "is_last_bin"):
+        np.testing.assert_array_equal(np.asarray(rdev[key]), pdev[key].numpy(),
+                                      err_msg=key)
+    np.testing.assert_array_equal(np.asarray(rdev["indptr_dev"]),
+                                  pdev["indptr"].numpy())
+    assert pdev["route_steps"] == rdev["route_steps"]
+    assert pdev["bin_of_nnz"].dtype == torch.int32
+    longest = int(np.diff(pds.feat_offset).max())
+    assert 2 ** pdev["scan_steps"] >= longest > 2 ** (pdev["scan_steps"] - 1)
+
+
+# ------------------------------------------------------------------- K4
+
+
+def _hist_case(nnz, tb, seed, empty_every=0):
+    """Bin-sorted entries over ``tb`` bins (every ``empty_every``-th bin
+    empty), stats masked at 50%."""
+    rng = np.random.default_rng(seed)
+    weights = rng.random(tb) ** 4 + 1e-3        # skewed bin sizes
+    if empty_every:
+        weights[::empty_every] = 0.0
+    ids = np.sort(rng.choice(tb, size=nnz, p=weights / weights.sum()))
+    bin_end = np.searchsorted(ids, np.arange(tb), side="right")
+    m = (rng.random(nnz) < 0.5).astype(np.float32)
+    g = rng.standard_normal(nnz).astype(np.float32)
+    h = (rng.random(nnz) + 0.1).astype(np.float32)
+    data = np.stack([g * m, h * m, m]).astype(np.float32)
+    return ids.astype(np.int32), bin_end.astype(np.int32), data
+
+
+@pytest.mark.parametrize("nnz,tb,empty", [(1, 1, 0), (5, 9, 2), (4000, 300, 0),
+                                          (6000, 777, 3), (3000, 1, 0)])
+def test_sparse_hist_plain_matches_pallas_kernel(nnz, tb, empty):
+    ids, bin_end, data = _hist_case(nnz, tb, seed=nnz + tb, empty_every=empty)
+    got = sparse_hist_kernel.sparse_histogram(torch.from_numpy(data),
+                                              torch.from_numpy(bin_end)).numpy()
+    assert got.shape == (3, tb) and got.dtype == np.float32
+    ref = np.asarray(pallas_sparse.sparse_histogram_mxu(
+        jnp.asarray(ids), jnp.asarray(data), tb, interpret=True))
+    np.testing.assert_array_equal(got[2], ref[2])
+    for ch in (0, 1):
+        tol = 1e-5 * _abs_bin_sums(ids, data[ch], tb) + 1e-6
+        assert (np.abs(got[ch] - ref[ch]) <= tol).all(), ch
+    exact = np.stack([np.bincount(ids, weights=data[c].astype(np.float64),
+                                  minlength=tb) for c in range(3)])
+    np.testing.assert_array_equal(got, exact.astype(np.float32))
+
+
+def test_sparse_hist_empty_stream_and_device_guard():
+    data = torch.zeros(3, 0)
+    out = sparse_hist_kernel.sparse_histogram(data, torch.zeros(4, dtype=torch.int32))
+    assert out.shape == (3, 4) and not out.any()
+    before = sparse_hist_kernel.launches
+    _, bin_end, d = _hist_case(500, 40, seed=1)
+    sparse_hist_kernel.sparse_histogram(torch.from_numpy(d), torch.from_numpy(bin_end))
+    assert sparse_hist_kernel.launches == before     # CPU: plain, no launch
+    with pytest.raises(ValueError, match="device"):
+        sparse_hist_kernel.sparse_histogram(torch.zeros(3, 2, device="meta"),
+                                            torch.zeros(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_flat_histogram_matches_reference_prefix_form(masked):
+    _, rds, pds = _datasets(1500, 1 << 9, 15, seed=5)
+    rdev = ref_sparse._device_arrays(rds)
+    pdev = sparse.device_arrays(pds, "cpu")
+    rng = np.random.default_rng(6)
+    g = rng.standard_normal(1500).astype(np.float32)
+    h = (rng.random(1500) + 0.2).astype(np.float32)
+    mask = rng.random(1500) < 0.6 if masked else np.ones(1500, bool)
+    gb, hb = ref_sparse._entry_gh(rdev, jnp.asarray(g), jnp.asarray(h))
+    ref = np.asarray(ref_sparse._flat_histogram(rdev, gb, hb, jnp.asarray(mask)))
+    pg, ph = sparse._entry_gh(pdev, torch.from_numpy(g), torch.from_numpy(h))
+    got = sparse._flat_histogram(pdev, pg, ph, torch.from_numpy(mask)).numpy()
+    np.testing.assert_array_equal(got[2], ref[2])
+    np.testing.assert_allclose(got, ref, rtol=HIST_CSR_TOL, atol=HIST_CSR_TOL)
+    tot = np.array([(g * mask).sum(), (h * mask).sum(), mask.sum()], np.float32)
+    rz = np.asarray(ref_sparse._zero_completed(rdev, jnp.asarray(ref),
+                                               jnp.asarray(tot)))
+    pz = sparse._zero_completed(pdev, torch.from_numpy(got),
+                                torch.from_numpy(tot)).numpy()
+    np.testing.assert_array_equal(pz[2], rz[2])
+    np.testing.assert_allclose(pz, rz, rtol=HIST_CSR_TOL, atol=HIST_CSR_TOL)
+    # every present feature's bins now sum to the node totals
+    fo = pds.feat_offset
+    present = np.nonzero(np.diff(fo))[0]
+    feat_tot = np.add.reduceat(pz.astype(np.float64), fo[present], axis=1)
+    np.testing.assert_allclose(feat_tot, np.repeat(tot[:, None], len(present), 1),
+                               rtol=1e-5, atol=1e-3)
+
+
+# ------------------------------------------------------- prefix and split
+
+
+@pytest.mark.parametrize("n", [700, (1 << 18) + 300])
+def test_prefix_sum_matches_reference(n):
+    rng = np.random.default_rng(n)
+    data = np.stack([rng.standard_normal(n), rng.random(n),
+                     rng.integers(0, 3, n)]).astype(np.float32)
+    r_cs, r_ci = ref_sparse._prefix_sum(jnp.asarray(data), int_channel=2)
+    p_cs, p_ci = sparse._prefix_sum(torch.from_numpy(data), int_channel=2)
+    assert p_cs.shape == (3, n + 1) and p_ci.dtype == torch.int64
+    np.testing.assert_array_equal(np.asarray(r_ci), p_ci.numpy())
+    if n < (1 << 18):        # jnp.cumsum: the port reproduces XLA's CPU order
+        np.testing.assert_array_equal(np.asarray(r_cs), p_cs.numpy())
+    else:                    # blocked product: another f32 summation order
+        scale = np.abs(np.asarray(r_cs)).max(axis=1, keepdims=True)
+        np.testing.assert_allclose(p_cs.numpy(), np.asarray(r_cs), rtol=0,
+                                   atol=float(1e-6 * scale.max()))
+
+
+def test_segmented_cumsum_is_per_feature_cumsum():
+    _, _, pds = _datasets(500, 1 << 8, 12, seed=8)
+    pdev = sparse.device_arrays(pds, "cpu")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 3, pds.total_bins)))
+    got = sparse._segmented_cumsum(pdev, x).numpy()
+    fo = pds.feat_offset
+    for f in np.nonzero(np.diff(fo))[0][::7]:
+        seg = x.numpy()[..., fo[f]:fo[f + 1]]
+        np.testing.assert_allclose(got[..., fo[f]:fo[f + 1]], np.cumsum(seg, -1),
+                                   rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("l1,l2,mdl,masked", [(0.0, 0.0, 20, False),
+                                              (0.1, 1.0, 5, True)])
+def test_find_best_split_flat_matches(l1, l2, mdl, masked):
+    _, rds, pds = _datasets(1200, 1 << 9, 15, seed=9)
+    rdev = ref_sparse._device_arrays(rds)
+    pdev = sparse.device_arrays(pds, "cpu")
+    rng = np.random.default_rng(10)
+    g = rng.standard_normal(1200).astype(np.float32)
+    h = (rng.random(1200) + 0.2).astype(np.float32)
+    gb, hb = ref_sparse._entry_gh(rdev, jnp.asarray(g), jnp.asarray(h))
+    tot = jnp.asarray(np.array([g.sum(), h.sum(), 1200], np.float32))
+    hist = ref_sparse._zero_completed(
+        rdev, ref_sparse._flat_histogram(rdev, gb, hb, jnp.ones(1200, bool)),
+        tot)
+    bm = None
+    if masked:
+        fm = rng.random(pds.num_features) < 0.5
+        bm = fm[np.repeat(np.arange(pds.num_features), np.diff(pds.feat_offset))]
+    r = ref_sparse._find_best_split_flat(
+        rdev, hist, np.float32(l1), np.float32(l2), np.float32(1e-3), mdl,
+        None if bm is None else jnp.asarray(bm))
+    r = np.concatenate([[float(r[0]), float(r[1])], np.asarray(r[2]),
+                        np.asarray(r[3])])
+    h_t = torch.tensor(np.asarray(hist))[None]
+    bm_t = None if bm is None else torch.from_numpy(bm)
+    faithful = sparse._find_best_split_flat(pdev, h_t, l1, l2, 1e-3, mdl, bm_t,
+                                            faithful=True)[0].numpy()
+    np.testing.assert_array_equal(faithful.astype(np.float32),
+                                  r.astype(np.float32))
+    port = sparse._find_best_split_flat(pdev, h_t, l1, l2, 1e-3, mdl,
+                                        bm_t)[0].numpy()
+    # exact within-feature sums against the reference's f32 prefix
+    # differences: same bin, sums and gain within hist.csr's tolerance
+    assert port[0] == r[0]
+    np.testing.assert_allclose(port[1:], r[1:], rtol=HIST_CSR_TOL,
+                               atol=HIST_CSR_TOL)
+
+
+# ------------------------------------------------------------------ grower
+
+
+def _leaf_truth(tree, rows, g, h, mask, l1, l2):
+    """f64 leaf values recomputed from the rows each leaf holds."""
+    out = {}
+    for leaf in np.nonzero(tree.feature < 0)[0]:
+        sel = (rows == leaf) & mask
+        G, H = g[sel].astype(np.float64).sum(), h[sel].astype(np.float64).sum()
+        out[leaf] = -np.sign(G) * max(abs(G) - l1, 0.0) / (H + l2)
+    return out
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_grow_tree_sparse_matches_reference(fused):
+    _, rds, pds = _datasets(2500, 1 << 10, 20, seed=11)
+    rdev = ref_sparse._device_arrays(rds)
+    pdev = sparse.device_arrays(pds, "cpu")
+    rng = np.random.default_rng(12)
+    n = pds.num_rows
+    g = rng.standard_normal(n).astype(np.float32)
+    h = (rng.random(n) + 0.1).astype(np.float32)
+    mask = rng.random(n) < 0.8
+    bm = np.repeat(rng.random(pds.num_features) < 0.7, np.diff(pds.feat_offset))
+    # the reference's host loop compiles every split: fewer leaves there
+    kw = dict(num_leaves=15 if fused else 6, min_data_in_leaf=20,
+              lambda_l1=0.05, lambda_l2=1.0)
+    rt, rrows = ref_sparse.grow_tree_sparse(
+        rds, rdev, jnp.asarray(g), jnp.asarray(h), RefGrowerConfig(**kw),
+        row_mask=jnp.asarray(mask), bin_mask=jnp.asarray(bm), use_fused=fused)
+    pt, prows = sparse.grow_tree_sparse(
+        pds, pdev, torch.from_numpy(g), torch.from_numpy(h), GrowerConfig(**kw),
+        row_mask=torch.from_numpy(mask), bin_mask=torch.from_numpy(bm))
+    assert pt.num_leaves == kw["num_leaves"]
+    _assert_same_tree(rt, pt)
+    np.testing.assert_allclose(pt.gain, rt.gain, rtol=HIST_CSR_TOL)
+    np.testing.assert_array_equal(np.asarray(rrows), prows.numpy())
+    for leaf, v in _leaf_truth(pt, prows.numpy(), g, h, mask, 0.05, 1.0).items():
+        np.testing.assert_allclose(pt.value[leaf], v, rtol=1e-5, atol=1e-9)
+
+
+def test_route_rows_matches_reference():
+    _, rds, pds = _datasets(700, 1 << 8, 12, seed=13)
+    rdev = ref_sparse._device_arrays(rds)
+    pdev = sparse.device_arrays(pds, "cpu")
+    rng = np.random.default_rng(14)
+    node = rng.integers(0, 3, pds.num_rows).astype(np.int32)
+    for f in (0, 3, 40, 200):
+        nb = int(pds.feat_offset[f + 1] - pds.feat_offset[f])
+        for t in sorted({0, nb // 2, max(nb - 2, 0)}):
+            r = ref_sparse._route_rows(rdev, jnp.asarray(node), np.int32(1),
+                                       np.int32(f), np.int32(t), np.int32(5),
+                                       np.int32(6))
+            b = int(pds.feat_offset[f]) + t
+            p = sparse._route_rows(pdev, torch.from_numpy(node), 1, f, b, 5, 6,
+                                   bool(pds.zero_local[f] <= t))
+            np.testing.assert_array_equal(np.asarray(r), p.numpy())
+
+
+def test_state_gate_raises_for_the_unported_host_loop(monkeypatch):
+    _, _, pds = _datasets(300, 1 << 7, 8, seed=15)
+    pdev = sparse.device_arrays(pds, "cpu")
+    monkeypatch.setattr(sparse, "_FUSED_SPARSE_BUDGET", 1024)
+    g = torch.zeros(pds.num_rows)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        sparse.grow_tree_sparse(pds, pdev, g, g + 1.0, GrowerConfig())
+
+
+# ---------------------------------------------------------------- training
+
+
+_TRAIN = {
+    "binary": dict(objective="binary"),
+    "multiclass": dict(objective="multiclass", num_class=3),
+    "regression": dict(objective="regression", lambda_l2=0.5),
+    "bagging_ff": dict(objective="binary", bagging_fraction=0.7, bagging_freq=1,
+                       feature_fraction=0.6),
+    "pos_neg_bagging": dict(objective="binary", pos_bagging_fraction=0.8,
+                            neg_bagging_fraction=0.5, bagging_freq=2, seed=7),
+}
+
+
+@pytest.mark.parametrize("case", list(_TRAIN))
+def test_train_sparse_matches_reference(case):
+    (_, _, _, y), rds, pds = _datasets(2000, 1 << 10, 20, seed=1)
+    rng = np.random.default_rng(16)
+    kw = dict(num_iterations=4, num_leaves=15, min_data_in_leaf=20,
+              learning_rate=0.2, **_TRAIN[case])
+    if case == "multiclass":
+        y = (y + (rng.random(len(y)) < 0.3)).astype(np.float64)
+    elif case == "regression":
+        y = 2.0 * y + rng.standard_normal(len(y))
+    rb = ref_sparse.train_sparse(RefTrainParams(**kw), rds, y)
+    pb = sparse.train_sparse(TrainParams(**kw), pds, y, device="cpu")
+    _assert_same_forest(rb, pb)
+    np.testing.assert_allclose(pb.base_score, rb.base_score, rtol=0, atol=0)
+
+
+def test_train_sparse_weights_and_init_scores_match():
+    (_, _, _, y), rds, pds = _datasets(1500, 1 << 9, 18, seed=17)
+    rng = np.random.default_rng(18)
+    w = rng.random(len(y)) + 0.5
+    init = rng.standard_normal(len(y)) * 0.3
+    kw = dict(objective="binary", num_iterations=3, num_leaves=7,
+              min_data_in_leaf=20)
+    rb = ref_sparse.train_sparse(RefTrainParams(**kw), rds, y, weights=w,
+                                 init_scores=init)
+    pb = sparse.train_sparse(TrainParams(**kw), pds, y, weights=w,
+                             init_scores=init, device="cpu")
+    _assert_same_forest(rb, pb)
+
+
+def test_train_sparse_records_each_iteration():
+    from mmlspark_tpu_torch.obs import metrics
+
+    _, _, pds = _datasets(300, 1 << 7, 8, seed=25)
+    prev = metrics.set_default_registry(metrics.MetricsRegistry())
+    try:
+        sparse.train_sparse(TrainParams(objective="binary", num_iterations=3,
+                                        num_leaves=4), pds,
+                            (np.arange(300) % 2).astype(float), device="cpu")
+        steps = metrics.default_registry().histogram(
+            "mmlspark_train_step_seconds", labelnames=("engine",))
+        got = steps.labels(engine="gbdt_sparse").value
+    finally:
+        metrics.set_default_registry(prev)
+    assert got["count"] == 3 and got["sum"] > 0
+
+
+@pytest.mark.parametrize("kw,err", [
+    ({"boosting_type": "goss"}, NotImplementedError),
+    ({"boosting_type": "dart"}, NotImplementedError),
+    ({"boosting_type": "rf"}, NotImplementedError),
+    ({"objective": "lambdarank"}, NotImplementedError),
+    ({"early_stopping_round": 3}, NotImplementedError),
+    ({"categorical_feature": (0,)}, ValueError),
+])
+def test_train_sparse_later_slices_raise(kw, err):
+    _, _, pds = _datasets(200, 1 << 6, 5, seed=19)
+    with pytest.raises(err):
+        sparse.train_sparse(TrainParams(**kw), pds, np.zeros(200), device="cpu")
+
+
+# -------------------------------------------------------------- prediction
+
+
+@pytest.fixture
+def numpy_csr_predict(monkeypatch):
+    monkeypatch.setenv("MMLSPARK_TPU_NO_NATIVE_CSR_PREDICT", "1")
+
+
+@pytest.mark.parametrize("num_class", [1, 3])
+def test_predict_csr_matches_reference(numpy_csr_predict, num_class):
+    (indptr, idx, vals, y), rds, _ = _datasets(1200, 1 << 9, 15, seed=20)
+    obj = "binary" if num_class == 1 else "multiclass"
+    if num_class == 3:
+        y = (y + (np.random.default_rng(0).random(len(y)) < 0.4)).astype(float)
+    rb = ref_sparse.train_sparse(RefTrainParams(
+        objective=obj, num_class=num_class, num_iterations=4, num_leaves=9), rds, y)
+    pb = convert.booster_from_reference(rb.to_string())
+    # score other rows, with an out-of-range feature id and an empty row
+    (q_ptr, q_idx, q_val, _), _, _ = _datasets(300, 1 << 10, 15, seed=21)
+    q_ptr = np.concatenate([q_ptr, [q_ptr[-1]]])
+    for csr in ((indptr, idx, vals), (q_ptr, q_idx, q_val)):
+        ref = ref_sparse.predict_csr(rb.trees, *csr, num_class)
+        got = sparse.predict_csr(pb.trees, *csr, num_class, device="cpu")
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
+    with pytest.raises(ValueError, match="categorical"):
+        t = pb.trees[0][0]
+        cat = dataclasses.replace(t, cat_sets=[None] * len(t.feature))
+        sparse.predict_csr([[cat]], indptr, idx, vals, 1, device="cpu")
+
+
+# ------------------------------------------------------------------ stages
+
+
+def _sparse_frames(X, y, width):
+    rows = sparse_rows(X, size=width)
+    return (RefDataFrame.from_dict({"features": rows, "label": y}, num_partitions=2),
+            DataFrame.from_dict({"features": rows, "label": y}, num_partitions=2))
+
+
+@pytest.mark.parametrize("estimator", ["LightGBMClassifier", "LightGBMRegressor"])
+def test_stage_fit_transform_on_sparse_rows(numpy_csr_predict, estimator):
+    rng = np.random.default_rng(22)
+    X = rng.integers(1, 5, (800, 40)) * (rng.random((800, 40)) < 0.25)
+    X = X.astype(np.float64)
+    y = ((X[:, 0] - X[:, 1] + X[:, 2] + rng.normal(0, 0.5, 800)) > 0.5)
+    y = y.astype(np.float64) if estimator == "LightGBMClassifier" \
+        else X[:, 0] * 2.0 - X[:, 3] + rng.normal(0, 0.1, 800)
+    rdf, pdf = _sparse_frames(X, y, 48)
+    params = dict(numIterations=5, numLeaves=9, minDataInLeaf=10, maxBin=300)
+    rmodel = getattr(ref_stages, estimator)(**params).fit(rdf)
+    with use_device("cpu"):
+        pmodel = getattr(stages, estimator)(**params).fit(pdf)
+        pout = pmodel.transform(pdf)
+    _assert_same_forest(rmodel.booster, pmodel.booster)
+    rout = rmodel.transform(rdf)
+    col = "rawPrediction" if estimator == "LightGBMClassifier" else "prediction"
+    np.testing.assert_allclose(np.stack(list(pout.column(col))),
+                               np.stack(list(rout.column(col))),
+                               rtol=HIST_CSR_TOL, atol=HIST_CSR_TOL)
+    # scoring the carried-across reference model is exact
+    carried = type(pmodel)(booster=convert.booster_from_reference(
+        rmodel.booster.to_string()), featuresCol="features")
+    with use_device("cpu"):
+        c_out = carried.transform(pdf)
+    np.testing.assert_allclose(np.stack(list(c_out.column(col))),
+                               np.stack(list(rout.column(col))), rtol=0,
+                               atol=1e-12)
+
+
+def test_stage_categorical_slots_raise_the_reference_error():
+    X, y = synth_sparse(200, 10, seed=23)
+    rdf, pdf = _sparse_frames(X, y, 10)
+    with pytest.raises(ValueError) as ref_err:
+        ref_stages.LightGBMClassifier(categoricalSlotIndexes=[1]).fit(rdf)
+    with use_device("cpu"), pytest.raises(ValueError) as port_err:
+        stages.LightGBMClassifier(categoricalSlotIndexes=[1]).fit(pdf)
+    assert str(port_err.value) == str(ref_err.value)
+    with use_device("cpu"), pytest.raises(NotImplementedError):
+        stages.LightGBMClassifier(modelString="{}").fit(pdf)
+
+
+def test_sparse_fit_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without CUDA")
+    X, y = synth_sparse(100, 6, seed=24)
+    _, pdf = _sparse_frames(X, y, 6)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stages.LightGBMClassifier(numIterations=2).fit(pdf)
