@@ -35,7 +35,24 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    same model and the train accuracy exceed 0.7. The root split of the full-width dataset is searched
    with the reference's f32 prefix formula and the port's f64 one; the
    reference benchmark's anchor shape (100,000 x 2^12) is refit for 3
-   iterations on the card and on the CPU, first tree identical.
+   iterations on the card and on the CPU, first tree identical;
+7. K3 (CSR gather) against its plain version, bitwise: on the real 256-row
+   CSR batches the fused executor stages from the sparse rows with the
+   sparse model's used columns, on all 65,536 rows at once, and at ragged
+   shapes (empty rows, a padded row and nnz tail, used ids past the width,
+   an all-leaf forest, no entries), timed beside its plain version, a
+   PyTorch sparse-tensor call and its bound, and timed once more with the
+   host's cost of issuing it hidden (the kernel's own device time);
+8. fused scoring: ``PipelineModel([model]).fuse()`` on both models. Sparse:
+   with ``layout="csr"`` and ``forest.csr`` over the same 65,536 rows the
+   sparse path scored unfused — no fallback, 256 CSR batches and no
+   densify, 256 K3 launches, within 1e-6 of the unfused transform, and the
+   ``forest.gather``/``forest.gemm`` variants bit-identical; dense: the
+   65,536 HIGGS-shaped rows bitwise-equal to the unfused transform; and at
+   the anchor's 2^12 width the CSR-staged output bitwise-equal to the same
+   rows sent as dense arrays. Fused and unfused seconds, the host CSR
+   staging's share, the transfer ring's decomposition and the cache's hits
+   and misses are printed.
 
 Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``, after a ``{"kernels": [...]}`` line.
@@ -49,6 +66,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -97,6 +115,36 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(torch, fn, iters: int = 200, warmup: int = 3):
+    """Mean device time of ``fn`` with the host's cost of issuing it hidden:
+    a spin kernel holds the stream while the host queues all ``iters``
+    calls, so the events bracket only their device work. The spin grows
+    until it outlasts the queueing (the start event must still be
+    pending once every call is queued). None where this torch has no spin
+    kernel."""
+    spin = getattr(torch.cuda, "_sleep", None)
+    if spin is None:
+        return None
+    for _ in range(warmup):
+        fn()
+    cycles = 1 << 24          # ~8 ms at the H100's boost clock
+    for _ in range(5):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        spin(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    fail("the spin kernel never outlasted the host's queueing")
 
 
 def auc(scores: np.ndarray, labels: np.ndarray) -> float:
@@ -272,7 +320,7 @@ def first_diff(a, b):
     return None
 
 
-def main_path(torch, profile: bool) -> dict:
+def main_path(torch, profile: bool):
     from mmlspark_tpu_torch.core.dataframe import DataFrame
     from mmlspark_tpu_torch.gbdt import LightGBMClassifier, predict_ensemble
     from mmlspark_tpu_torch.gbdt import hist_kernel as hk
@@ -371,7 +419,7 @@ def main_path(torch, profile: bool) -> dict:
         fail(f"tree 1 differs between the CUDA and CPU fits: {diffs[0]}")
     if d3 > 1e-3:
         fail(f"3-tree raw scores differ by {d3}")
-    return launches
+    return launches, model, X[:N_SCORE].copy()
 
 
 # ---------------------------------------------------------------------------
@@ -592,7 +640,7 @@ def root_split_check(torch, ds, y) -> dict:
     return out
 
 
-def sparse_main_path(torch, data: dict) -> int:
+def sparse_main_path(torch, data: dict):
     from mmlspark_tpu_torch.core.dataframe import DataFrame
     from mmlspark_tpu_torch.gbdt import LightGBMClassifier
     from mmlspark_tpu_torch.gbdt import sparse
@@ -658,12 +706,13 @@ def sparse_main_path(torch, data: dict) -> int:
     if acc <= 0.7:
         fail(f"sparse train accuracy {acc} is not above 0.7")
     root_split_check(torch, data["ds"], y)
-    return launches
+    return launches, model
 
 
-def sparse_anchor(torch) -> None:
+def sparse_anchor(torch):
     """The reference benchmark's anchor shape, 3 iterations on the card and
-    on the CPU: first tree identical, 3-tree raw scores within 1e-3."""
+    on the CPU: first tree identical, 3-tree raw scores within 1e-3.
+    Returns the card's booster and the anchor's CSR arrays."""
     from mmlspark_tpu_torch.gbdt import TrainParams, sparse
 
     indptr, idx, vals, y = make_csr_text(100_000, 1 << 12, 50, 1)
@@ -688,6 +737,297 @@ def sparse_anchor(torch) -> None:
         fail(f"anchor tree 1 differs between the CUDA and CPU fits: {diffs[0]}")
     if d3 > 1e-3:
         fail(f"anchor 3-tree raw scores differ by {d3}")
+    return bc, (indptr, idx, vals)
+
+
+# ---------------------------------------------------------------------------
+# K3 and the fused scoring pipeline
+# ---------------------------------------------------------------------------
+
+
+def fused_batches(model, rows):
+    """The CSR batches ``PipelineModel([model]).fuse()`` stages for
+    ``rows`` with the layout knob at "csr" (the executor's own prep and
+    batching), as host arrays."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.fusion import SegmentExecutor, plan
+
+    df = DataFrame.from_dict({"features": rows})
+    ex = SegmentExecutor(plan([model], df.schema)[0], layout="csr")
+    state = ex._prep_partition(dict(df.partitions[0]))
+    if "features" not in state.get("csr", {}):
+        fail("the executor did not stage the sparse rows as CSR")
+    return state["csr"]["features"], list(ex._batches(state))
+
+
+def gather_args(torch, arrays, used):
+    dev = torch.device(DEVICE)
+    return ([torch.as_tensor(arrays[f"features:{k}"]).to(dev)
+             for k in ("indptr", "indices", "values")]
+            + [int(arrays["features:width"]), used])
+
+
+def check_gather(torch, gk, args, what) -> None:
+    """K3 vs its plain version: bitwise (the f32 bits of every cell)."""
+    k = gk.csr_gather_cuda(*args)
+    p = gk.csr_gather_plain(*args)
+    torch.cuda.synchronize()
+    n, u = args[0].shape[0] - 1, args[4].shape[0]
+    if tuple(k.shape) != (n, u) or not torch.equal(k.view(torch.int32),
+                                                   p.view(torch.int32)):
+        fail(f"csr_gather differs from its plain version ({what}: rows={n} "
+             f"used={u})")
+    log({"phase": "kernels", "kernel": "csr_gather", "case": what, "rows": n,
+         "used": u, "nnz": int(args[0][-1]), "nnz_staged": args[1].shape[0],
+         "bitwise": True})
+
+
+def library_gather(torch, args):
+    """One PyTorch sparse-tensor call computing the gather on the same
+    batch (the first of these that runs here), for the library yardstick."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # sparse tensors: beta
+        return _library_gather(torch, args)
+
+
+def _library_gather(torch, args):
+    indptr, indices, values, width, used = args
+    n, nnz = indptr.shape[0] - 1, int(indptr[-1])
+    csr = torch.sparse_csr_tensor(indptr.long(), indices[:nnz].long(),
+                                  values[:nnz], size=(n, width))
+    used64 = used.long()
+
+    def one_hot():
+        sel = torch.zeros(width, used.shape[0], device=used.device)
+        sel[used64, torch.arange(used.shape[0], device=used.device)] = 1.0
+        return sel
+
+    # (name, inputs prepared outside the timing, the timed call)
+    cands = [("sparse CSR index_select(1, used) + to_dense", lambda: csr,
+              lambda x: x.index_select(1, used64).to_dense()),
+             ("sparse COO index_select(1, used) + to_dense", csr.to_sparse_coo,
+              lambda x: x.index_select(1, used64).to_dense()),
+             ("torch.sparse.mm(CSR, dense one-hot [width, U])", one_hot,
+              lambda x: torch.sparse.mm(csr, x))]
+    tried = []
+    for name, prep, call in cands:
+        try:
+            x = prep()
+            out = call(x)
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError, TypeError) as e:
+            tried.append(f"{name}: {str(e).splitlines()[0][:120]}")
+            continue
+        return name, functools.partial(call, x), out, tried
+    return None, None, None, tried
+
+
+def gather_kernel_phase(torch, model, rows) -> dict:
+    from mmlspark_tpu_torch.gbdt import gather_kernel as gk
+    from mmlspark_tpu_torch.parallel.batching import pad_batch
+
+    dev = torch.device(DEVICE)
+    used_np = gk.used_features(model._ensemble())
+    used = torch.as_tensor(used_np.astype(np.int32), device=dev)
+    (indptr, indices, values, width), batches = fused_batches(model, rows)
+    main_args = gather_args(torch, batches[0].arrays, used)
+    check_gather(torch, gk, main_args, "fused batch 0 (256 rows)")
+    check_gather(torch, gk, gather_args(torch, batches[-1].arrays, used),
+                 "fused batch 255")
+    # all rows at once: the partition's whole triple, nnz padded as a
+    # batch would be
+    nnz = int(indptr[-1])
+    pad = 1 << (nnz - 1).bit_length()
+    whole = {"features:indptr": indptr, "features:width": width,
+             "features:indices": pad_batch(indices, pad),
+             "features:values": pad_batch(values, pad)}
+    big_args = gather_args(torch, whole, used)
+    check_gather(torch, gk, big_args, "65,536 rows at once")
+    empty = {"indices": np.zeros(0, np.int64), "values": np.zeros(0), "size": width}
+    holes = rows[:256].copy()
+    holes[::3] = [empty] * len(holes[::3])
+    cases = [("empty rows", fused_batches(model, holes)[1][0].arrays, used),
+             ("padded rows and nnz tail",
+              fused_batches(model, rows[:1000])[1][-1].arrays, used),
+             ("used ids past the width", batches[0].arrays,
+              torch.cat([used, torch.tensor([width - 1, width, width + 5],
+                                            dtype=torch.int32, device=dev)])),
+             ("all-leaf forest (used = [0])", batches[0].arrays, used[:1] * 0),
+             ("no entries", fused_batches(model, np.array(
+                 [empty] * 256, dtype=object))[1][0].arrays, used)]
+    for what, arrays, u in cases:
+        check_gather(torch, gk, gather_args(torch, arrays, u), what)
+
+    b_nnz = int(main_args[0][-1])
+    n_rows, n_used = main_args[0].shape[0] - 1, used.shape[0]
+    ms = time_ms(torch, lambda: gk.csr_gather_cuda(*main_args), 200)
+    plain = time_ms(torch, lambda: gk.csr_gather_plain(*main_args), 20)
+    big_ms = time_ms(torch, lambda: gk.csr_gather_cuda(*big_args), 20)
+    # the same launches with the wrapper's host cost hidden: the kernel's
+    # own device time
+    queued = queued_ms(torch, lambda: gk.csr_gather_cuda(*main_args))
+    big_queued = queued_ms(torch, lambda: gk.csr_gather_cuda(*big_args), 20)
+    lib_name, lib_fn, lib_out, tried = library_gather(torch, main_args)
+    lib = time_ms(torch, lib_fn, 20) if lib_fn is not None else None
+    k = gk.csr_gather_cuda(*main_args)
+    lib_equal = bool(torch.equal(lib_out, k)) if lib_out is not None else None
+    # bytes the function must move: offsets, the batch's entries (index +
+    # value), the used ids, the [N, U] f32 output
+    t_bound, by = bound_ms(4 * (n_rows + 1) + 8 * b_nnz + 4 * n_used
+                           + 4 * n_rows * n_used, 0)
+    big_rows, big_nnz = big_args[0].shape[0] - 1, int(big_args[0][-1])
+    row = dict(name="csr_gather", route="cuda",
+               source="mmlspark_tpu_torch/csrc/csr_gather.cu",
+               replaces="mmlspark_tpu/gbdt/pallas_sparse.py:151",
+               max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=t_bound,
+               bound_by=by, library_ms=lib, device_only_ms=queued,
+               library_call=lib_name,
+               library_equal=lib_equal, library_refused=tried,
+               shape=dict(rows=n_rows, used=n_used, nnz=b_nnz,
+                          nnz_staged=main_args[1].shape[0], width=width),
+               all_rows=dict(rows=big_rows, nnz=big_nnz, ms=big_ms,
+                             device_only_ms=big_queued,
+                             bound_ms=bound_ms(4 * (big_rows + 1) + 8 * big_nnz
+                                               + 4 * n_used
+                                               + 4 * big_rows * n_used, 0)[0]))
+    log(dict(phase="kernels", **row))
+    return row
+
+
+def _raw(df) -> np.ndarray:
+    return np.stack(list(df.column("rawPrediction")))
+
+
+def fused_sparse(torch, model, rows, smi) -> int:
+    """The fused CSR scoring path over the sparse rows; returns K3's
+    launches in it."""
+    from mmlspark_tpu_torch.core import fusion
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.gbdt import gather_kernel as gk
+
+    label = "LightGBMClassificationModel"
+    df = DataFrame.from_dict({"features": rows})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    unfused = _raw(model.transform(df))
+    unfused_s = time.perf_counter() - t0
+    fused = PipelineModel([model]).fuse()
+    fused.set_tuning(layout={label: "csr"},
+                     kernel_variants={label: {"*": "forest.csr"}})
+    staging = [0.0]
+    orig = fusion._csr_from_rows
+
+    def timed_csr_from_rows(col, width):
+        t = time.perf_counter()
+        try:
+            return orig(col, width)
+        finally:
+            staging[0] += time.perf_counter() - t
+
+    fusion._csr_from_rows = timed_csr_from_rows
+    try:
+        gk.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scored = fused.transform(df)
+        torch.cuda.synchronize()
+        fused_s = time.perf_counter() - t0
+        launches = gk.launches
+    finally:
+        fusion._csr_from_rows = orig
+    st = fused.fusion_stats()
+    seg = st["per_segment"].get(label, {})
+    raw = _raw(scored)
+    diff = float(np.abs(raw - unfused).max())
+    variants = {}
+    for vid in ("forest.gather", "forest.gemm", "forest.csr"):
+        fused.set_tuning(kernel_variants={label: {"*": vid}})
+        t0 = time.perf_counter()
+        out = _raw(fused.transform(df))
+        torch.cuda.synchronize()
+        variants[vid] = {"seconds": time.perf_counter() - t0,
+                         "bitwise_vs_first_run": bool(np.array_equal(out, raw))}
+    log({"phase": "fused_sparse", "card": smi, "rows": len(rows),
+         "fused_seconds": fused_s, "unfused_seconds": unfused_s,
+         "host_csr_from_rows_seconds": staging[0],
+         "host_csr_from_rows_share": staging[0] / fused_s,
+         "k3_launches": launches, "max_abs_diff_vs_unfused": diff,
+         "fallbacks": st["fallbacks"], "ring": seg,
+         "compile_cache": st["compile_cache"],
+         "segment_costs": st["segment_costs"], "variants": variants})
+    if st["fallbacks"]:
+        fail(f"fused sparse transform fell back: {st['fallbacks']}")
+    if seg.get("csr_batches") != N_SCORE // 256 or "densifies" in seg:
+        fail(f"expected {N_SCORE // 256} CSR batches and no densify, got {seg}")
+    if launches != N_SCORE // 256:
+        fail(f"K3 launched {launches} times in the fused sparse transform")
+    if diff > 1e-6:
+        fail(f"fused CSR scores differ from the unfused transform by {diff}")
+    bad = [v for v, r in variants.items() if not r["bitwise_vs_first_run"]]
+    if bad:
+        fail(f"forest variants {bad} differ from forest.csr")
+    return launches
+
+
+def fused_dense(torch, model, X, smi) -> None:
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+
+    df = DataFrame.from_dict({"features": X})
+    cols = ("rawPrediction", "probability", "prediction")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    unfused = model.transform(df)
+    unfused_s = time.perf_counter() - t0
+    fused = PipelineModel([model]).fuse()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fused.transform(df)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    st = fused.fusion_stats()
+    same = {c: bool(np.array_equal(np.stack(list(unfused.column(c))),
+                                   np.stack(list(out.column(c))))) for c in cols}
+    log({"phase": "fused_dense", "card": smi, "rows": len(X),
+         "fused_seconds": fused_s, "unfused_seconds": unfused_s,
+         "bitwise": same, "fallbacks": st["fallbacks"],
+         "ring": st["per_segment"].get("LightGBMClassificationModel"),
+         "compile_cache": st["compile_cache"]})
+    if st["fallbacks"] or not all(same.values()):
+        fail(f"fused dense scores are not the unfused ones bit for bit: {same}, "
+             f"fallbacks {st['fallbacks']}")
+
+
+def fused_anchor(torch, booster, csr, n: int = 8192) -> None:
+    """At the anchor's 2^12 width, the CSR-staged fused output against the
+    same rows sent as dense arrays (2^18 cannot be densified: 68 GB)."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.gbdt import LightGBMClassificationModel
+
+    indptr, idx, vals = csr
+    width = 1 << 12
+    rows = np.empty(n, dtype=object)
+    dense = np.zeros((n, width), dtype=np.float32)
+    for i in range(n):
+        a, b = indptr[i], indptr[i + 1]
+        rows[i] = {"indices": idx[a:b], "values": vals[a:b], "size": width}
+        dense[i, idx[a:b]] = vals[a:b]
+    label = "LightGBMClassificationModel"
+    fused = PipelineModel([LightGBMClassificationModel(booster=booster)]).fuse()
+    fused.set_tuning(layout={label: "csr"},
+                     kernel_variants={label: {"*": "forest.csr"}})
+    via_csr = fused.transform(DataFrame.from_dict({"features": rows}))
+    seg = fused.fusion_stats()["per_segment"][label]
+    via_dense = fused.transform(DataFrame.from_dict({"features": dense}))
+    same = {c: bool(np.array_equal(np.stack(list(via_csr.column(c))),
+                                   np.stack(list(via_dense.column(c)))))
+            for c in ("rawPrediction", "probability", "prediction")}
+    log({"phase": "fused_anchor", "rows": n, "width": width,
+         "csr_batches": seg.get("csr_batches"), "bitwise": same})
+    if seg.get("csr_batches") != n // 256 or not all(same.values()):
+        fail(f"anchor: CSR-staged and dense fused outputs differ: {same}, {seg}")
 
 
 def main() -> int:
@@ -706,21 +1046,27 @@ def main() -> int:
         fail("TF32 matmuls are on; the forest sums need full f32")
     t_start = time.perf_counter()
     hdr = header(torch)
+    smi = hdr["smi"].splitlines()[0]
     kernels = kernel_phase(torch)
-    launches = main_path(torch, args.profile)
+    launches, dense_model, X_score = main_path(torch, args.profile)
     data = sparse_data()
     kernels["sparse_hist"] = sparse_kernel_phase(torch, data)
-    launches["sparse_hist"] = sparse_main_path(torch, data)
+    launches["sparse_hist"], sparse_model = sparse_main_path(torch, data)
+    rows = data["rows"][:N_SCORE]
     del data
-    sparse_anchor(torch)
+    anchor = sparse_anchor(torch)
+    kernels["csr_gather"] = gather_kernel_phase(torch, sparse_model, rows)
+    launches["csr_gather"] = fused_sparse(torch, sparse_model, rows, smi)
+    fused_dense(torch, dense_model, X_score, smi)
+    fused_anchor(torch, *anchor)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []
-    for name in ("hist", "select", "sparse_hist"):
+    for name in ("hist", "select", "csr_gather", "sparse_hist"):
         row = dict(kernels[name], launches=launches[name])
         rows.append({k: row[k] for k in keys})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
-    log(hdr["smi"].splitlines()[0])
+    log(smi)
     log({"kernels": rows})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Pipeline stage contract: Transformer / Estimator / Model / Pipeline.
 
-Copy of the reference's ``mmlspark_tpu/core/pipeline.py`` minus the pieces
-that need modules the port has not taken over yet: stage persistence
-(``core/serialize.py``) and ``PipelineModel.fuse`` (``core/fusion.py``).
+Copy of the reference's ``mmlspark_tpu/core/pipeline.py`` minus stage
+persistence (``core/serialize.py``), which the port has not taken over yet.
+``PipelineModel.fuse()`` returns the fused runner of ``core/fusion.py``, and
+``PipelineStage.device_fn`` is the hook a stage joins it through.
 
 Re-design of SparkML's stage algebra that the whole reference is expressed in
 (SURVEY §1: "Everything is expressed as SparkML Transformer/Estimator stages operating
@@ -63,6 +64,15 @@ class PipelineStage(Params):
     def transform_schema(self, schema: Schema) -> Schema:
         """Schema-only validation/propagation hook. Default: identity."""
         return schema
+
+    def device_fn(self, schema: Schema):
+        """Device-stage contract hook (core/device_stage.py): return a
+        ``DeviceFn`` describing this stage as a program over batched device
+        tensors so the fusion planner (core/fusion.py) can run it in one
+        program with its neighbors, or None (default) for host-only stages.
+        Implementations must keep the bitwise contract: fused output ==
+        unfused output on every partition the DeviceFn accepts."""
+        return None
 
 
 class Transformer(PipelineStage):
@@ -160,10 +170,25 @@ class PipelineModel(Model):
     def stages(self) -> List[Transformer]:
         return self._stages
 
-    def transform(self, df: DataFrame) -> DataFrame:
+    def transform(self, df: DataFrame, fused: bool = False) -> DataFrame:
+        if fused:
+            return self.fuse().transform(df)
         for s in self._stages:
             df = s.transform(df)
         return df
+
+    def fuse(self) -> "PipelineModel":
+        """Run adjacent device-capable stages as one device program per
+        batch (core/fusion.py). Returns a FusedPipelineModel whose transform
+        is bitwise-identical to this chain but keeps intermediates on the
+        device across stage boundaries; host-only stages still run
+        per-stage. The fused runner is cached — repeated fuse() calls share
+        its plans and the compile cache."""
+        if getattr(self, "_fused_runner", None) is None:
+            from .fusion import FusedPipelineModel
+
+            self._fused_runner = FusedPipelineModel(self._stages)
+        return self._fused_runner
 
     def transform_schema(self, schema: Schema) -> Schema:
         for s in self._stages:

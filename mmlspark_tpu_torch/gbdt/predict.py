@@ -8,22 +8,28 @@ ops:
 - **GEMM forest** (default): per row, comparison signs s_i = +-1 for every
   internal node of every tree (one gather + compare), then one matmul
   against the +-1/0 path matrix C[i, l]; a leaf is reached iff (S @ C)[l]
-  equals its path length. Leaf values arrive through a second product.
+  equals its path length, and its value is picked by that mask.
 - **Gather loop**: bounded per-depth gathers over the padded node arrays.
 
-The products are f32. ``contrib @ class_onehot`` must stay full f32: with
-TF32 the leaf sums would round to ~10 mantissa bits. PyTorch's default
-(``torch.backends.cuda.matmul.allow_tf32 = False``) is what the port relies
-on, and ``_full_f32`` holds it for the duration of a traversal.
+The sign/path product is f32 and must stay full f32 (with TF32 its small
+integer sums would still be exact, but PyTorch's default,
+``torch.backends.cuda.matmul.allow_tf32 = False``, is what the port relies
+on, and ``_full_f32`` holds it for the duration of a traversal). The sum of
+the trees' leaf values per class, which the reference takes as
+``contrib @ class_onehot``, is taken in one fixed pairwise order
+(``_class_sums``), so a row's score has the same bits in a batch of any
+size.
 
-Scoring is a plain loop over row chunks; the reference's transfer ring
-waits for the fusion slice. Categorical set nodes are not scored here yet.
+``predict_raw`` is a plain loop over row chunks; the fused pipeline
+(``core/fusion.py``) scores through ``device_forward`` over its transfer
+ring. Categorical set nodes are not scored here yet.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, List
+import functools
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,9 +97,15 @@ def _tree_depth(tree: Tree) -> int:
 
 
 class DeviceEnsemble:
-    """All trees padded into one set of device tensors; one traversal scores
-    the forest. ``impl`` picks the traversal: ``"gemm"`` (default) or
-    ``"gather"``; both are exact, so both give the same scores."""
+    """All trees padded into one set of tensors; one traversal scores the
+    forest. ``impl`` picks the default traversal: ``"gemm"`` (the default,
+    unless the path matrix would pass 2^27 cells, as in the reference) or
+    ``"gather"``; both are exact, so both give the same scores.
+
+    The host layouts of both traversals are built at construction; their
+    device tensors are built on first use. ``remap_ensemble``
+    (``gather_kernel.py``) derives an ensemble over compacted columns by
+    rewriting the host feature ids."""
 
     #: max rows per traversal call
     GEMM_ROW_CHUNK = 1 << 16
@@ -111,42 +123,38 @@ class DeviceEnsemble:
         self.num_class = num_class
         self.num_trees = len(trees)
         self.row_chunk = self.GEMM_ROW_CHUNK
+        self._dev: Dict[str, Tuple[torch.Tensor, ...]] = {}
+        self._gemm = None
         if not trees:
             return
-        dev = self.device
         class_of_tree = np.array(
             [k for g in tree_groups for k in range(len(g))], dtype=np.int64)
-        self.class_onehot = torch.nn.functional.one_hot(
-            torch.as_tensor(class_of_tree), num_class).to(
-                device=dev, dtype=torch.float32)
-        if impl == "gemm":
-            self._build_gemm(trees)
-        else:
-            self._build_gather(trees)
-
-    def _build_gather(self, trees: List[Tree]) -> None:
+        self._class_order = _class_order(class_of_tree, num_class)
         T, m = self.num_trees, max(len(t.feature) for t in trees)
-        dev = self.device
-
-        def put(vals, fill, dtype):
-            return torch.as_tensor(pad_soa(vals, fill, dtype, T, m),
-                                   device=dev)
-
         self.depth = max(max(_tree_depth(t) for t in trees), 1)
-        self.feature = put([t.feature for t in trees], -1, np.int64)
-        self.threshold = put([t.threshold for t in trees], 0.0, np.float32)
-        self.default_left = put([t.default_left for t in trees], True, bool)
-        self.left = put([t.left for t in trees], 0, np.int64)
-        self.right = put([t.right for t in trees], 0, np.int64)
-        self.value = put([np.asarray(t.value) * t.shrinkage for t in trees],
-                         0.0, np.float32)
+        self.feature = pad_soa([t.feature for t in trees], -1, np.int64, T, m)
+        self.threshold = pad_soa([t.threshold for t in trees], 0.0,
+                                 np.float32, T, m)
+        self.default_left = pad_soa([t.default_left for t in trees], True,
+                                    bool, T, m)
+        self.left = pad_soa([t.left for t in trees], 0, np.int64, T, m)
+        self.right = pad_soa([t.right for t in trees], 0, np.int64, T, m)
+        self.value = pad_soa([np.asarray(t.value) * t.shrinkage for t in trees],
+                             0.0, np.float32, T, m)
+        self._build_gemm(trees)
+        if self._gemm is None:
+            self.impl = "gather"
 
     def _build_gemm(self, trees: List[Tree]) -> None:
         """Per-tree padded GEMM layout: comparison-sign x path-matrix
-        forest evaluation (module docstring). Host-built once."""
+        forest evaluation (module docstring). Host-built once; skipped, as
+        in the reference, when the [T, I, L] path matrix would pass 2^27
+        cells."""
         T = self.num_trees
         i_max = max(max(int((t.feature >= 0).sum()) for t in trees), 1)
         l_max = max(max(t.num_leaves for t in trees), 1)
+        if T * i_max * l_max > 1 << 27:
+            return
         # activations scale with rows x T x (I + L): bound one call at ~1.5 GB
         per_row = T * (6 * i_max + 8 * l_max)
         chunk = int(1.5e9 // max(per_row, 1))
@@ -180,49 +188,97 @@ class DeviceEnsemble:
                     ii = int_index[int(nid)]
                     stack.append((int(t.left[nid]), path + [(ii, 1.0)]))
                     stack.append((int(t.right[nid]), path + [(ii, -1.0)]))
-        dev = self.device
-        self.g_feat = torch.as_tensor(feat, device=dev)
-        self.g_thr = torch.as_tensor(thr, device=dev)
-        self.g_dl = torch.as_tensor(dl, device=dev)
-        self.g_ivalid = torch.as_tensor(ivalid, device=dev)
-        self.g_C = torch.as_tensor(C, device=dev)
-        self.g_plen = torch.as_tensor(plen, device=dev)
-        self.g_lval = torch.as_tensor(lval, device=dev)
+        self._gemm = (feat, thr, dl, ivalid, C, plen, lval)
+
+    def _tensors(self, layout: str) -> Tuple[torch.Tensor, ...]:
+        """The device tensors of one layout (``"gemm"``, ``"gather"`` or
+        ``"classes"``), moved from the host arrays on first use."""
+        if layout not in self._dev:
+            if layout == "gemm":
+                host = self._gemm
+            elif layout == "gather":
+                host = (self.feature, self.threshold, self.default_left,
+                        self.left, self.right, self.value)
+            else:
+                host = (self._class_order,)
+            self._dev[layout] = tuple(torch.as_tensor(a, device=self.device)
+                                      for a in host)
+        return self._dev[layout]
+
+    def _class_sums(self, contrib: torch.Tensor) -> torch.Tensor:
+        """[N, T] per-tree leaf values -> [N, K] class sums, added in one
+        fixed order: the trees of each class, zero-padded to a power of two,
+        summed pairwise by halving. Every step is an elementwise add, so a
+        row's sum has the same bits whatever the batch shape (a matmul
+        against a class one-hot may pick another reduction order for
+        another N), and the fused 256-row batches agree bitwise with the
+        unfused 65,536-row chunks."""
+        (order,) = self._tensors("classes")
+        padded = torch.cat([contrib, contrib.new_zeros(contrib.shape[0], 1)],
+                           dim=1)
+        c = padded[:, order]                               # [N, K, P]
+        while c.shape[2] > 1:
+            half = c.shape[2] // 2
+            c = c[:, :, :half] + c[:, :, half:]
+        return c[:, :, 0]
 
     def _forward_gemm(self, X: torch.Tensor) -> torch.Tensor:
-        x_sel = X[:, self.g_feat]                          # [N, T, I]
+        feat, thr, dl, ivalid, C, plen, lval = self._tensors("gemm")
+        x_sel = X[:, feat]                                 # [N, T, I]
         s = torch.where(torch.isnan(x_sel),
-                        torch.where(self.g_dl[None], 1.0, -1.0),
-                        torch.where(x_sel <= self.g_thr[None], 1.0, -1.0))
-        s = s * self.g_ivalid[None]                       # pad ints -> 0
+                        torch.where(dl[None], 1.0, -1.0),
+                        torch.where(x_sel <= thr[None], 1.0, -1.0))
+        s = s * ivalid[None]                               # pad ints -> 0
         # z[n, t, l] = sum_i s * C: small integers, exact in f32
-        z = torch.einsum("nti,til->ntl", s, self.g_C)
-        reach = (z == self.g_plen[None]).to(torch.float32)
-        contrib = torch.sum(reach * self.g_lval[None], dim=2)   # [N, T]
-        return contrib @ self.class_onehot                 # [N, K]
+        z = torch.einsum("nti,til->ntl", s, C)
+        reach = (z == plen[None]).to(torch.float32)
+        # one leaf per tree is reached: a sum of one value and zeros, exact
+        contrib = torch.sum(reach * lval[None], dim=2)    # [N, T]
+        return self._class_sums(contrib)                   # [N, K]
 
     def _forward_gather(self, X: torch.Tensor) -> torch.Tensor:
+        feature, threshold, default_left, left, right, value = \
+            self._tensors("gather")
         n, t = X.shape[0], self.num_trees
         node = torch.zeros((n, t), dtype=torch.int64, device=X.device)
         t_idx = torch.arange(t, device=X.device)[None, :]
         for _ in range(self.depth):
-            f = self.feature[t_idx, node]                  # [N, T]
+            f = feature[t_idx, node]                       # [N, T]
             x = torch.gather(X, 1, torch.clamp(f, min=0))
             go_left = torch.where(torch.isnan(x),
-                                  self.default_left[t_idx, node],
-                                  x <= self.threshold[t_idx, node])
-            nxt = torch.where(go_left, self.left[t_idx, node],
-                              self.right[t_idx, node])
+                                  default_left[t_idx, node],
+                                  x <= threshold[t_idx, node])
+            nxt = torch.where(go_left, left[t_idx, node], right[t_idx, node])
             node = torch.where(f == -1, node, nxt)
-        return self.value[t_idx, node] @ self.class_onehot
+        return self._class_sums(value[t_idx, node])
+
+    def _forward(self, impl: str, X: torch.Tensor) -> torch.Tensor:
+        with _full_f32():
+            if impl == "gemm":
+                return self._forward_gemm(X)
+            return self._forward_gather(X)
 
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         """[N, F] f32 tensor on the ensemble's device -> [N, K] f32 raw
-        scores."""
-        with _full_f32():
-            if self.impl == "gemm":
-                return self._forward_gemm(X)
-            return self._forward_gather(X)
+        scores, through the default traversal."""
+        return self._forward(self.impl, X)
+
+    def device_forward(self, params=None
+                       ) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+        """The forest traversal ``X [N, F] f32 -> [N, K] f32`` for pipeline
+        fusion, or None for an empty forest: the same torch ops
+        ``predict_raw`` runs, so a fused segment's scores are
+        bitwise-equal to the unfused ones.
+
+        ``params`` (a kernel-variant params dict, see ``core.kernels``)
+        selects the traversal: ``{"impl": "gather"}`` forces the gather
+        loop; ``{"impl": "gemm"}`` and None keep the default routing. Both
+        are exact, so every variant gives the same bits."""
+        if self.num_trees == 0:
+            return None
+        impl = "gather" if params and params.get("impl") == "gather" \
+            else self.impl
+        return functools.partial(self._forward, impl)
 
     def predict_raw(self, X: np.ndarray) -> np.ndarray:
         """[N, F] floats -> [N, num_class] summed tree outputs (f64 host
@@ -238,3 +294,16 @@ class DeviceEnsemble:
             outs.append(self.forward(xc).double().cpu().numpy())
         return (np.concatenate(outs, axis=0) if outs
                 else np.zeros((0, self.num_class), dtype=np.float64))
+
+
+def _class_order(class_of_tree: np.ndarray, num_class: int) -> np.ndarray:
+    """[K, P] tree indices of each class in tree order, padded to a power of
+    two P with index T (the zero column ``_class_sums`` appends)."""
+    T = len(class_of_tree)
+    per_class = [np.flatnonzero(class_of_tree == k) for k in range(num_class)]
+    width = max(max(len(ix) for ix in per_class), 1)
+    p = 1 << (width - 1).bit_length()
+    order = np.full((num_class, p), T, dtype=np.int64)
+    for k, ix in enumerate(per_class):
+        order[k, :len(ix)] = ix
+    return order

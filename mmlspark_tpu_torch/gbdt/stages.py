@@ -8,10 +8,19 @@ wraps them in ``runtime.use_device("cpu")``.
 
 Sparse-row feature columns (``{"indices", "values", "size"}``) fit through
 ``sparse.train_sparse`` and score through ``sparse.predict_csr``, never
-densified. The Ranker, the fused-pipeline hook (``device_fn``), LightGBM
-text-model interchange (``modelString``, ``save_native_model``) and the
-options ``train`` does not take yet wait for later slices and raise
-``NotImplementedError``.
+densified.
+
+The models join a fused pipeline (``PipelineModel.fuse()``,
+``core/fusion.py``) through ``device_fn``: the forest traversal runs on the
+device per batch and the f64 objective math stays in the host finalize, so
+fused scores are bitwise-equal to ``transform``'s. With the executor's
+``layout`` knob at ``"csr"``, sparse rows arrive as CSR triples and
+``sparse_fn`` gathers the forest's used columns with K3
+(``gather_kernel.csr_gather``) and traverses a forest remapped onto them.
+
+The Ranker, LightGBM text-model interchange (``modelString``,
+``save_native_model``) and the options ``train`` does not take yet wait for
+later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..core.dataframe import DataFrame
 from ..core.params import (
@@ -250,6 +260,89 @@ class _LightGBMModelBase(Model, HasFeaturesCol):
         raw = self._ensemble().predict_raw(X)
         return raw + self.booster.base_score[None, :]
 
+    # -- pipeline fusion ---------------------------------------------------
+    def _device_scores(self):
+        """(featuresCol, raw env key, fn, sparse_fn, ensemble) for fusion,
+        or None for an empty forest. ``fn`` runs the SAME forest traversal
+        ``predict_raw`` does, on a staged [B, F] batch.
+
+        The traversal (``forest.gemm`` vs ``forest.gather`` kernel
+        variants — both exact, see ``DeviceEnsemble.device_forward``)
+        resolves from the variant registry when the program runs: the
+        executor activates the chosen variant around every call, and each
+        variant's program lands under its own ``variant=<id>;`` cache key."""
+        from ..core import kernels as _kernels
+        from ..core.device_stage import FusionUnsupported
+        from . import gather_kernel
+
+        ens = self._ensemble()
+        fwd = ens.device_forward()
+        if fwd is None:
+            return None
+        feats = self.get_or_throw("featuresCol")
+        raw_key = f"__gbdt_raw__{self.uid}"
+
+        def fn(params, env):
+            var = _kernels.active("forest")
+            f = ens.device_forward(var.params) if var is not None else fwd
+            X = env[feats]
+            if X.dim() != 2:
+                raise FusionUnsupported(
+                    f"features must be [N, F], got {tuple(X.shape)}")
+            return {raw_key: f(X.to(torch.float32))}
+
+        # CSR capability: when the executor's layout knob stages the
+        # features column as a CSR triple, this body replaces the [N, width]
+        # densify with K3's [N, U] gather of the forest's used columns and
+        # traverses a position-remapped ensemble — bitwise-equal raw scores
+        # to fn over the densified matrix (the gather clamps out-of-range
+        # ids like the dense read, and leaf markers / GEMM pad slots stay
+        # inert under the remap).
+        cell: dict = {}
+
+        def sparse_fn(params, env):
+            if "remap" not in cell:
+                used = gather_kernel.used_features(ens)
+                cell["remap"] = (
+                    torch.as_tensor(used.astype(np.int32), device=ens.device),
+                    gather_kernel.remap_ensemble(ens, used))
+            used_t, rens = cell["remap"]
+            var = _kernels.active("forest")
+            f = rens.device_forward(var.params if var is not None else None)
+            x_used = gather_kernel.csr_gather(
+                env[f"{feats}:indptr"], env[f"{feats}:indices"],
+                env[f"{feats}:values"], env[f"{feats}:width"], used_t)
+            return {raw_key: f(x_used)}
+
+        return feats, raw_key, fn, sparse_fn, ens
+
+    def _score_device_fn(self, finalize, extra_out_cols, **stitch_caps):
+        """The terminal DeviceFn shared by the model subclasses: forest
+        scores on the device, f64 base-score/objective math in the host
+        finalize (bitwise-identical to the unfused transform).
+        ``stitch_caps`` passes the optional device-finalizer fields
+        (device_finalize & co — see DeviceFn) through."""
+        from ..core.device_stage import DeviceFn
+
+        base = self._device_scores()
+        if base is None:
+            return None
+        feats, raw_key, fn, sparse_fn, ens = base
+        return DeviceFn(
+            # the ensemble's identity keys the cached program: the program
+            # closes over it (and its device), and keeps it alive
+            key=(type(self).__name__, self.uid, feats, id(ens)),
+            in_cols=(feats,), out_cols=tuple(extra_out_cols), fn=fn,
+            device_outputs=(raw_key,), finalize=finalize,
+            **stitch_caps,
+            # nulls and sparse rows take the unfused path (CSR predict),
+            # identically to the per-stage chain — UNLESS the executor's
+            # layout knob stages the features column as a CSR triple, which
+            # this capability pair opts into
+            null_policy="fallback", reject_sparse=True,
+            sparse_cols=(feats,), sparse_fn=sparse_fn,
+            terminal=True, heavy=True)
+
 
 class LightGBMClassifier(Estimator, _LightGBMParams):
     """Binary/multiclass GBDT classifier."""
@@ -317,6 +410,66 @@ class LightGBMClassificationModel(_LightGBMModelBase):
 
         return df.map_partitions(score)
 
+    def device_fn(self, schema: Schema):
+        raw_key = f"__gbdt_raw__{self.uid}"
+        proba_key = f"__gbdt_proba__{self.uid}"
+        pred_key = f"__gbdt_pred__{self.uid}"
+        binary = self.booster.params.objective == "binary"
+        base = self.booster.base_score
+        base32: dict = {}   # device -> [K] f32 base score
+
+        def finalize(outs, ctx):
+            raw = np.asarray(outs[raw_key], dtype=np.float64) \
+                + base[None, :]
+            return self._score_columns(raw)
+
+        def device_finalize(params, env):
+            # the host f64 objective math as an f32 device shim, run in the
+            # fused program when the stitch knob names this stage; its
+            # deviation from the f64 path is declared (finalize_tolerance)
+            raw = env[raw_key]
+            if raw.device not in base32:
+                base32[raw.device] = torch.as_tensor(
+                    base, dtype=torch.float32, device=raw.device)
+            raw32 = raw + base32[raw.device][None, :]
+            if binary:
+                p1 = 1.0 / (1.0 + torch.exp(-raw32[:, 0]))
+                proba = torch.stack([1.0 - p1, p1], dim=1)
+            else:
+                e = torch.exp(raw32 - raw32.max(dim=1, keepdim=True).values)
+                proba = e / e.sum(dim=1, keepdim=True)
+            pred = torch.argmax(proba, dim=1).to(torch.float32)
+            return {proba_key: proba, pred_key: pred}
+
+        def finalize_stitched(outs, ctx):
+            # rawPrediction stays BITWISE: rebuilt from the same f64 raw
+            # readback the host finalize uses; only proba/pred come from
+            # the device f32 shim
+            raw = np.asarray(outs[raw_key], dtype=np.float64) \
+                + base[None, :]
+            rawcol = (np.stack([-raw[:, 0], raw[:, 0]], axis=1)
+                      if binary else raw)
+            proba = np.asarray(outs[proba_key], dtype=np.float64)
+            pred = np.asarray(outs[pred_key], dtype=np.float64)
+            n = len(pred)
+            raw_obj = np.empty(n, dtype=object)
+            proba_obj = np.empty(n, dtype=object)
+            for i in range(n):
+                raw_obj[i] = rawcol[i]
+                proba_obj[i] = proba[i]
+            return {self.get("rawPredictionCol"): raw_obj,
+                    self.get("probabilityCol"): proba_obj,
+                    self.get("predictionCol"): pred}
+
+        return self._score_device_fn(
+            finalize, (self.get("rawPredictionCol"),
+                       self.get("probabilityCol"), self.get("predictionCol")),
+            stitchable=True,
+            device_finalize=device_finalize,
+            device_finalize_outputs=(proba_key, pred_key),
+            finalize_stitched=finalize_stitched,
+            finalize_tolerance=1e-5)
+
     def transform_schema(self, schema: Schema) -> Schema:
         out = schema.copy()
         out.types[self.get("rawPredictionCol")] = ColType.VECTOR
@@ -361,6 +514,15 @@ class LightGBMRegressionModel(_LightGBMModelBase):
             return part
 
         return df.map_partitions(score)
+
+    def device_fn(self, schema: Schema):
+        def finalize(outs, ctx):
+            raw_key = next(iter(outs))
+            raw = np.asarray(outs[raw_key], dtype=np.float64) \
+                + self.booster.base_score[None, :]
+            return {self.get("predictionCol"): self._prediction_column(raw)}
+
+        return self._score_device_fn(finalize, (self.get("predictionCol"),))
 
     def transform_schema(self, schema: Schema) -> Schema:
         out = schema.copy()

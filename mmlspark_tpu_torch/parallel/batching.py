@@ -1,14 +1,52 @@
-"""Row stacking helpers for dense consumers.
+"""Row stacking and static-shape batching helpers.
 
-Copy of ``stack_rows``, ``is_sparse_row``, ``sparse_width`` and
-``densify_sparse`` from the reference's ``mmlspark_tpu/parallel/batching.py``
-(the rest of that module — device prefetchers and batchers — waits for the
-serving slice).
+Copy of ``stack_rows``, ``is_sparse_row``, ``sparse_width``,
+``densify_sparse``, ``Batch``, ``next_bucket`` and ``pad_batch`` from the
+reference's ``mmlspark_tpu/parallel/batching.py`` (the rest of that module —
+device prefetchers and batchers — waits for the serving slice).
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Dict, Optional, Sequence
+
 import numpy as np
+
+
+def next_bucket(n: int, buckets: Optional[Sequence[int]] = None,
+                multiple: int = 8) -> int:
+    """Smallest allowed static size >= n. Default: next power of two >=
+    max(n, multiple). ``buckets`` (an ascending bucket set, the fused
+    executor's ``buckets`` knob) overrides the power-of-two policy."""
+    if n <= 0:
+        return multiple
+    if buckets:
+        for b in buckets:
+            if b >= n:
+                return b
+        return buckets[-1]
+    return max(multiple, 1 << (n - 1).bit_length())
+
+
+def pad_batch(arr: np.ndarray, target: int, pad_value: float = 0.0) -> np.ndarray:
+    """Pad leading dim of ``arr`` up to ``target`` rows with ``pad_value``."""
+    n = arr.shape[0]
+    if n == target:
+        return arr
+    if n > target:
+        raise ValueError(f"batch of {n} rows exceeds target {target}")
+    pad_width = [(0, target - n)] + [(0, 0)] * (arr.ndim - 1)
+    return np.pad(arr, pad_width, constant_values=pad_value)
+
+
+@dataclasses.dataclass
+class Batch:
+    """One padded, static-shape batch: host arrays + validity mask."""
+
+    arrays: Dict[str, np.ndarray]
+    mask: np.ndarray          # [B] bool, True = real row
+    num_valid: int
 
 
 def is_sparse_row(v) -> bool:

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from mmlspark_tpu_torch.gbdt import hist_kernel, select_kernel, sparse_hist_kernel
+from mmlspark_tpu_torch.gbdt import (gather_kernel, hist_kernel, select_kernel,
+                                     sparse_hist_kernel)
 
 
 @pytest.fixture
@@ -79,3 +80,44 @@ def test_sparse_hist_kernel_matches_plain(cuda_device, nnz, tb, empty):
     assert torch.equal(k[2], p[2])
     # both accumulate in f64 and round once: equal up to a rounding tie
     assert bool(((k - p).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+def _csr_batch(rows, width, avg_nnz, pad_rows, seed=0):
+    """A CSR-staged batch as the fused executor ships it: sorted distinct
+    indices per row (some rows empty), values with explicit 0.0, -0.0 and
+    NaN, padded rows repeating the last offset, nnz zero-padded to a power
+    of two."""
+    rng = np.random.default_rng(seed)
+    counts = rng.poisson(avg_nnz, rows)
+    counts[::7] = 0
+    idx = [np.sort(rng.choice(width, min(c, width), replace=False)) for c in counts]
+    indptr = np.concatenate([[0], np.cumsum([len(i) for i in idx])]).astype(np.int32)
+    indices = np.concatenate(idx + [np.zeros(0, np.int64)]).astype(np.int32)
+    values = rng.integers(1, 5, len(indices)).astype(np.float32)
+    values[::11] = 0.0
+    values[1::13] = -0.0
+    values[2::17] = np.nan
+    nnz = len(indices)
+    pad = (1 << max(nnz, 1).bit_length()) - nnz
+    indptr = np.concatenate([indptr, np.full(pad_rows, indptr[-1], np.int32)])
+    return [indptr, np.pad(indices, (0, pad)), np.pad(values, (0, pad))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width,avg,pad_rows,used", [
+    (256, 1 << 18, 50, 0, "forest"), (200, 1 << 12, 40, 56, "forest"),
+    (65_536, 1 << 18, 50, 0, "forest"), (33, 100, 5, 0, "clamped"),
+    (9, 50, 3, 0, "one"), (16, 40, 0, 0, "forest")])
+def test_csr_gather_kernel_bitwise_matches_plain(cuda_device, rows, width, avg,
+                                                 pad_rows, used):
+    arrays = _csr_batch(rows, width, avg, pad_rows)
+    rng = np.random.default_rng(1)
+    ids = {"forest": np.sort(rng.choice(width, min(300, width), replace=False)),
+           "clamped": np.array([0, 7, width - 1, width, width + 9]),
+           "one": np.array([0])}[used].astype(np.int32)
+    t = [torch.from_numpy(a).to(cuda_device) for a in arrays + [ids]]
+    k = gather_kernel.csr_gather_cuda(t[0], t[1], t[2], width, t[3])
+    p = gather_kernel.csr_gather_plain(t[0], t[1], t[2], width, t[3])
+    torch.cuda.synchronize()
+    assert k.shape == (rows + pad_rows, len(ids))
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))

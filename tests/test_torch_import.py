@@ -44,8 +44,24 @@ def test_clean_import_pulls_in_no_jax_and_no_reference():
                 "mmlspark_tpu_torch.gbdt.select_kernel",
                 "mmlspark_tpu_torch.gbdt.sparse",
                 "mmlspark_tpu_torch.gbdt.sparse_hist_kernel",
-                "mmlspark_tpu_torch.gbdt.convert", "mmlspark_tpu_torch.runtime"):
+                "mmlspark_tpu_torch.gbdt.convert", "mmlspark_tpu_torch.runtime",
+                "mmlspark_tpu_torch.gbdt.gather_kernel",
+                "mmlspark_tpu_torch.core.fusion",
+                "mmlspark_tpu_torch.core.device_stage",
+                "mmlspark_tpu_torch.core.kernels",
+                "mmlspark_tpu_torch.parallel.ingest"):
         assert mod in out["imported"]
+
+
+def test_fused_pipeline_import_pulls_in_no_jax_and_no_reference():
+    probe = ("import json, sys; import mmlspark_tpu_torch.core.fusion; "
+             "print(json.dumps(sorted(k for k in sys.modules if k in "
+             "('jax', 'jaxlib', 'mmlspark_tpu') or k.startswith(('jax.', "
+             "'jaxlib.', 'mmlspark_tpu.')))))")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 _IMPORT_RE = re.compile(
@@ -59,6 +75,7 @@ def test_source_has_no_jax_or_reference_import():
     assert (PKG / "csrc" / "hist.cu").exists()
     assert (PKG / "csrc" / "select.cu").exists()
     assert (PKG / "csrc" / "sparse_hist.cu").exists()
+    assert (PKG / "csrc" / "csr_gather.cu").exists()
 
 
 @pytest.fixture
