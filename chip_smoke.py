@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # build, check, run; exit 0 only if all pass
     python3 chip_smoke.py --profile  # also print a torch.profiler breakdown of the fit
+    python3 chip_smoke.py --only transformer  # header + phases 9-11 alone
 
 Run from the root of a checkout. It uses ``mmlspark_tpu_torch`` only (no JAX,
 nothing of ``mmlspark_tpu``) and needs one CUDA device:
@@ -52,10 +53,38 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    the anchor's 2^12 width the CSR-staged output bitwise-equal to the same
    rows sent as dense arrays. Fused and unfused seconds, the host CSR
    staging's share, the transfer ring's decomposition and the cache's hits
-   and misses are printed.
+   and misses are printed;
+9. attn_kernel: K5 (flash attention, ``csrc/flash_attn.cu``) against its
+   plain version (the reference's XLA path) on bf16 [B, T, H, D] inputs:
+   B=4, H=8, D=64 at T=2048 and 8192, causal and not (the reference's flash
+   A/B points); one main-path batch (B=64, T=2048, H=8, D=64); D=128 and
+   D=256 at T=1024, causal and not; B=1, H=1, T=1024. Max |K5 - plain| must
+   be <= 0.05 (the reference's own flash-vs-XLA bound) and, at T=8192, K5's
+   error against an f64 recomputation on one (b, h) slice no more than 1.5x
+   the plain version's. Each case logs ms, plain_ms, library_ms
+   (``scaled_dot_product_attention`` on [B, H, T, D], timed only), bound_ms
+   and bound_by (4*B*H*Tq*Tk*D flops, halved under causal masking, over the
+   spec 989 TFLOP/s bf16 peak, against 8 bytes per element over 3.35 TB/s);
+10. transformer_main: the reference's sequence-benchmark encoder
+   (``tools/bench_seq.py:41``: dim 512, depth 4, 8 heads, vocab 32,000,
+   seed 0) at seq_len 2048 served through
+   ``DNNModel(inputCol="tokens", outputCol="emb", batchSize=64).transform``
+   over 256 rows of uniform token ids (numpy ``default_rng(0)``) in 2
+   partitions: 4 batches, 524,288 tokens, K5 launched exactly 16 times.
+   The output must be finite and every row's cosine >= 0.999 against the
+   same transform with ``MMLSPARK_TPU_NO_FLASH=1`` (plain attention on the
+   card) and, for the first 2 rows, against the port on the CPU. Logs the
+   first and a second transform's seconds, tokens/s, the transfer ring's
+   per-batch decomposition and peak device memory;
+11. transformer_fused: ``PipelineModel([dnn]).fuse()`` on the same rows
+   (executor batch 64), bitwise-equal to the unfused output, with its
+   seconds and ``fusion_stats()``.
 
 Any failure raises and exits non-zero. The last line of standard output is
-``{"ok": true, "device": {...}}``, after a ``{"kernels": [...]}`` line.
+``{"ok": true, "device": {...}}``, after a ``{"kernels": [...]}`` line that
+lists K1-K5 (hist, select, csr_gather, sparse_hist, flash_attn), each with
+its launches on its main path, error against its plain version, ms,
+plain_ms, bound_ms, bound_by and library_ms.
 """
 
 from __future__ import annotations
@@ -82,9 +111,20 @@ NNZ_SPARSE = 50
 ITERS_SPARSE = 10
 DEVICE = "cuda"
 
-# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
+# the reference's sequence benchmark model (tools/bench_seq.py:41) at its
+# flash A/B length (bench_seq.py:94): 2048 tokens, so the flash gate is on
+SEQ_LEN = 2048
+SEQ_DIM = 512
+SEQ_DEPTH = 4
+SEQ_HEADS = 8
+SEQ_VOCAB = 32_000
+SEQ_ROWS = 256
+SEQ_BATCH = 64
+
+# H100 SXM peaks (NVIDIA data sheet, spec; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 
 def log(obj) -> None:
@@ -95,9 +135,9 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1030,10 +1070,243 @@ def fused_anchor(torch, booster, csr, n: int = 8192) -> None:
         fail(f"anchor: CSR-staged and dense fused outputs differ: {same}, {seg}")
 
 
+# ---------------------------------------------------------------------------
+# K5 and the transformer serving path
+# ---------------------------------------------------------------------------
+
+
+def attn_inputs(torch, b, t, h, d, gen):
+    dev = torch.device(DEVICE)
+    return [torch.randn(b, t, h, d, generator=gen).to(dev).to(torch.bfloat16)
+            for _ in range(3)]
+
+
+def f64_errors(torch, q, k, v, outs, causal):
+    """Max |o - exact| of each output on the (b, h) = (0, 0) slice, against
+    attention recomputed in f64 from the same bf16 inputs."""
+    qs, ks, vs = (x[0, :, 0].double() for x in (q, k, v))
+    s = qs @ ks.T / (qs.shape[-1] ** 0.5)
+    if causal:
+        t = s.shape[0]
+        s = s.masked_fill(torch.ones(t, t, dtype=torch.bool, device=s.device)
+                          .triu(1), float("-inf"))
+    exact = torch.softmax(s, dim=-1) @ vs
+    return [(o[0, :, 0].double() - exact).abs().max().item() for o in outs]
+
+
+def attn_kernel_phase(torch) -> dict:
+    """K5 against its plain version (<= 0.05, the reference's own flash vs
+    XLA bound) at the reference's A/B points, one main-path batch, D = 128
+    and 256 and one head; at T = 8192 both against f64 on one (b, h) slice
+    (K5 no worse than 1.5x the plain version)."""
+    from mmlspark_tpu_torch.models import flash_kernel as fk
+
+    F = torch.nn.functional
+    gen = torch.Generator().manual_seed(SEED + 5)
+    cases = [(4, 2048, 8, 64, False), (4, 2048, 8, 64, True),
+             (4, 8192, 8, 64, False), (4, 8192, 8, 64, True),
+             (SEQ_BATCH, SEQ_LEN, SEQ_HEADS, SEQ_DIM // SEQ_HEADS, False),
+             (4, 1024, 8, 128, False), (4, 1024, 8, 128, True),
+             (4, 1024, 8, 256, False), (4, 1024, 8, 256, True),
+             (1, 1024, 1, 64, False)]
+    main = None
+    for b, t, h, d, causal in cases:
+        q, k, v = attn_inputs(torch, b, t, h, d, gen)
+        o = fk.flash_attention_cuda(q, k, v, causal)
+        p = fk.flash_attention_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = (o.float() - p.float()).abs().max().item()
+        row = {"phase": "attn_kernel", "b": b, "t": t, "h": h, "d": d,
+               "causal": causal, "max_abs_err_vs_plain": err}
+        if err > 0.05 or not torch.isfinite(o).all():
+            fail(f"K5 differs from its plain version by {err} at {row}")
+        if t == 8192:
+            k5_err, plain_err = f64_errors(torch, q, k, v, (o, p), causal)
+            row.update(k5_err_vs_f64=k5_err, plain_err_vs_f64=plain_err)
+            if k5_err > 1.5 * plain_err:
+                fail(f"K5's f64 error {k5_err} exceeds 1.5x the plain "
+                     f"version's {plain_err} at {row}")
+        del o, p
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        long = t >= 8192 or b >= 64
+        row["ms"] = time_ms(torch, lambda: fk.flash_attention_cuda(q, k, v, causal),
+                            10 if long else 20)
+        row["plain_ms"] = time_ms(torch, lambda: fk.flash_attention_plain(
+            q, k, v, causal), 2 if long else 5, 1)
+        row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), 10 if long else 20)
+        flops = 4 * b * h * t * t * d / (2 if causal else 1)
+        row["bound_ms"], row["bound_by"] = bound_ms(4 * b * t * h * d * 2, flops,
+                                                    BF16_OPS_PER_S)
+        row["tflops"] = flops / row["ms"] / 1e9
+        log(row)
+        if (b, t, causal) == (SEQ_BATCH, SEQ_LEN, False):
+            main = row
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    k5 = dict(name="flash_attn", route="cuda",
+              source="mmlspark_tpu_torch/csrc/flash_attn.cu",
+              replaces="mmlspark_tpu/models/attention.py:41",
+              max_abs_err=main["max_abs_err_vs_plain"], ms=main["ms"],
+              plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+              bound_by=main["bound_by"], library_ms=main["library_ms"],
+              library_call="torch.nn.functional.scaled_dot_product_attention "
+                           "on bf16 [B, H, T, D] (layout prepared outside "
+                           "the timing)",
+              shape=dict(b=SEQ_BATCH, t=SEQ_LEN, h=SEQ_HEADS,
+                         d=SEQ_DIM // SEQ_HEADS, causal=False),
+              bound_peak="989 TFLOP/s bf16 dense (spec), 3.35 TB/s")
+    log(dict(phase="kernels", **k5))
+    return k5
+
+
+def _emb(df) -> np.ndarray:
+    return np.stack(list(df.column("emb")))
+
+
+def row_cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    a = a.reshape(len(a), -1).astype(np.float64)
+    b = b.reshape(len(b), -1).astype(np.float64)
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
+def transformer_main(torch, smi):
+    """The main path: the reference's sequence-benchmark encoder served
+    through ``DNNModel`` over 256 rows of 2048 token ids in 2 partitions
+    (4 batches of 64). K5 must launch exactly depth x batches = 16 times;
+    the output is held against plain attention on the card and, for the
+    first 2 rows, against the port on the CPU (cosine >= 0.999 per row)."""
+    import os
+
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.models import DNNModel, transformer_encoder
+    from mmlspark_tpu_torch.models import flash_kernel as fk
+    from mmlspark_tpu_torch.runtime import use_device
+
+    t0 = time.perf_counter()
+    model = transformer_encoder(seq_len=SEQ_LEN, dim=SEQ_DIM, depth=SEQ_DEPTH,
+                                num_heads=SEQ_HEADS, vocab_size=SEQ_VOCAB, seed=0)
+    ids = np.random.default_rng(0).integers(0, SEQ_VOCAB, (SEQ_ROWS, SEQ_LEN))
+    df = DataFrame.from_dict({"tokens": ids}, num_partitions=2)
+    stage = DNNModel(inputCol="tokens", outputCol="emb", batchSize=SEQ_BATCH)
+    stage.set_model(model)
+    log({"phase": "transformer_main", "setup_seconds": time.perf_counter() - t0,
+         "params": model.num_params(), "rows": SEQ_ROWS,
+         "tokens": SEQ_ROWS * SEQ_LEN})
+    fk.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = stage.transform(df)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = fk.launches
+    out = _emb(res)
+    ring1 = stage.last_ingest_stats.summary()
+    t0 = time.perf_counter()
+    res = stage.transform(df)
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    again = _emb(res)
+    del res
+    ring2 = stage.last_ingest_stats.summary()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log({"phase": "transformer_main", "card": smi, "first_transform_seconds": first_s,
+         "second_transform_seconds": second_s,
+         "tokens_per_s_second": SEQ_ROWS * SEQ_LEN / second_s,
+         "k5_launches": launches, "peak_device_gb": peak_gb,
+         "second_bitwise_first": bool(np.array_equal(out, again)),
+         "ring_first": ring1, "ring_second": ring2})
+    del again
+    # where one batch's time goes, each part alone: the forward on the card
+    # (CUDA events) and the readback of its [64, 2048, 512] f32 output
+    x = torch.from_numpy(ids[:SEQ_BATCH]).to(DEVICE)
+    params = model.device_params(x.device)
+    forward_ms = time_ms(torch, lambda: model.apply(x, params=params), 3, 1)
+    y = model.apply(x, params=params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y.cpu().numpy()
+    readback_ms = (time.perf_counter() - t0) * 1e3
+    log({"phase": "transformer_batch", "card": smi, "rows": SEQ_BATCH,
+         "forward_ms": forward_ms, "readback_ms": readback_ms,
+         "readback_gb_per_s": y.numel() * 4 / readback_ms / 1e6})
+    del x, y
+    if launches != SEQ_DEPTH * SEQ_ROWS // SEQ_BATCH:
+        fail(f"K5 launched {launches} times on the main path, expected "
+             f"{SEQ_DEPTH * SEQ_ROWS // SEQ_BATCH}")
+    if out.shape != (SEQ_ROWS, SEQ_LEN, SEQ_DIM) or not np.isfinite(out).all():
+        fail(f"transformer output: shape {out.shape} or non-finite values")
+
+    os.environ["MMLSPARK_TPU_NO_FLASH"] = "1"
+    try:
+        t0 = time.perf_counter()
+        plain = _emb(stage.transform(df))
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        del os.environ["MMLSPARK_TPU_NO_FLASH"]
+    cos = row_cosines(out, plain)
+    diff = np.abs(out - plain)
+    cpu_stage = DNNModel(inputCol="tokens", outputCol="emb", batchSize=2)
+    cpu_stage.set_model(model)
+    t0 = time.perf_counter()
+    with use_device("cpu"):
+        cpu = _emb(cpu_stage.transform(DataFrame.from_dict({"tokens": ids[:2]})))
+    cpu_s = time.perf_counter() - t0
+    cos_cpu = row_cosines(out[:2], cpu)
+    log({"phase": "transformer_main", "no_flash_transform_seconds": plain_s,
+         "cos_vs_plain_min": float(cos.min()), "max_abs_diff_vs_plain": float(diff.max()),
+         "mean_abs_diff_vs_plain": float(diff.mean()), "cpu_seconds_2_rows": cpu_s,
+         "cos_vs_cpu_min": float(cos_cpu.min()),
+         "max_abs_diff_vs_cpu": float(np.abs(out[:2] - cpu).max())})
+    if cos.min() < 0.999:
+        fail(f"a row's cosine against plain attention is {cos.min()}")
+    if cos_cpu.min() < 0.999:
+        fail(f"a row's cosine against the CPU port is {cos_cpu.min()}")
+    return launches, stage, df, out
+
+
+def transformer_fused(torch, stage, df, unfused, smi) -> int:
+    """``PipelineModel([dnn]).fuse()`` over the same rows, batch size 64:
+    bitwise-equal to the unfused transform."""
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.models import flash_kernel as fk
+
+    fused = PipelineModel([stage]).fuse()
+    fk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fused.transform(df)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    out = _emb(res)
+    del res
+    launches = fk.launches
+    st = fused.fusion_stats()
+    same = bool(np.array_equal(out, unfused))
+    log({"phase": "transformer_fused", "card": smi, "fused_seconds": fused_s,
+         "k5_launches": launches, "bitwise_vs_unfused": same,
+         "max_abs_diff_vs_unfused": float(np.abs(out - unfused).max()),
+         "fusion_stats": st})
+    if st["fallbacks"] or st["n_fused_segments"] != 1:
+        fail(f"fused transformer: fallbacks {st['fallbacks']}, "
+             f"{st['n_fused_segments']} fused segments")
+    if launches != SEQ_DEPTH * SEQ_ROWS // SEQ_BATCH:
+        fail(f"K5 launched {launches} times in the fused transform, expected "
+             f"{SEQ_DEPTH * SEQ_ROWS // SEQ_BATCH}")
+    if not same:
+        fail("the fused transformer output is not the unfused one bit for bit")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile the main-path fit with torch.profiler")
+    ap.add_argument("--only", choices=("transformer",),
+                    help="run the header and the transformer phases alone "
+                         "(a quick check; the kernels line then lists K5 only)")
     args = ap.parse_args()
     import torch
 
@@ -1043,28 +1316,36 @@ def main() -> int:
     import mmlspark_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     if torch.backends.cuda.matmul.allow_tf32:
-        fail("TF32 matmuls are on; the forest sums need full f32")
+        fail("TF32 matmuls are on; the forest sums and the f32 products need "
+             "full f32")
     t_start = time.perf_counter()
     hdr = header(torch)
     smi = hdr["smi"].splitlines()[0]
-    kernels = kernel_phase(torch)
-    launches, dense_model, X_score = main_path(torch, args.profile)
-    data = sparse_data()
-    kernels["sparse_hist"] = sparse_kernel_phase(torch, data)
-    launches["sparse_hist"], sparse_model = sparse_main_path(torch, data)
-    rows = data["rows"][:N_SCORE]
-    del data
-    anchor = sparse_anchor(torch)
-    kernels["csr_gather"] = gather_kernel_phase(torch, sparse_model, rows)
-    launches["csr_gather"] = fused_sparse(torch, sparse_model, rows, smi)
-    fused_dense(torch, dense_model, X_score, smi)
-    fused_anchor(torch, *anchor)
+    kernels, launches = {}, {}
+    if args.only is None:
+        kernels = kernel_phase(torch)
+        launches, dense_model, X_score = main_path(torch, args.profile)
+        data = sparse_data()
+        kernels["sparse_hist"] = sparse_kernel_phase(torch, data)
+        launches["sparse_hist"], sparse_model = sparse_main_path(torch, data)
+        rows = data["rows"][:N_SCORE]
+        del data
+        anchor = sparse_anchor(torch)
+        kernels["csr_gather"] = gather_kernel_phase(torch, sparse_model, rows)
+        launches["csr_gather"] = fused_sparse(torch, sparse_model, rows, smi)
+        fused_dense(torch, dense_model, X_score, smi)
+        fused_anchor(torch, *anchor)
+        del dense_model, sparse_model, rows, anchor, X_score
+    kernels["flash_attn"] = attn_kernel_phase(torch)
+    launches["flash_attn"], stage, df, out = transformer_main(torch, smi)
+    transformer_fused(torch, stage, df, out, smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []
-    for name in ("hist", "select", "csr_gather", "sparse_hist"):
-        row = dict(kernels[name], launches=launches[name])
-        rows.append({k: row[k] for k in keys})
+    for name in ("hist", "select", "csr_gather", "sparse_hist", "flash_attn"):
+        if name in kernels:
+            row = dict(kernels[name], launches=launches[name])
+            rows.append({k: row[k] for k in keys})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log(smi)
     log({"kernels": rows})

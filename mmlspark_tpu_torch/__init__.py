@@ -9,7 +9,8 @@ CUDA unless the caller asks for the CPU (``runtime.use_device("cpu")`` or
 Ported so far: the LightGBM-equivalent GBDT fit -> transform
 (``mmlspark_tpu_torch.gbdt``) over the columnar DataFrame
 (``mmlspark_tpu_torch.core``), on dense feature vectors and on sparse (CSR)
-rows.
+rows, with fused scoring (``core.fusion``); and transformer-encoder serving
+through the ``DNNModel`` stage (``mmlspark_tpu_torch.models``).
 """
 
 __version__ = "0.1.0"

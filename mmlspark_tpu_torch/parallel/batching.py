@@ -1,15 +1,16 @@
 """Row stacking and static-shape batching helpers.
 
 Copy of ``stack_rows``, ``is_sparse_row``, ``sparse_width``,
-``densify_sparse``, ``Batch``, ``next_bucket`` and ``pad_batch`` from the
-reference's ``mmlspark_tpu/parallel/batching.py`` (the rest of that module —
-device prefetchers and batchers — waits for the serving slice).
+``densify_sparse``, ``Batch``, ``next_bucket``, ``pad_batch``,
+``Minibatcher``, ``_crop`` and ``concat_outputs`` from the reference's
+``mmlspark_tpu/parallel/batching.py`` (the rest of that module — device
+prefetchers and batchers — waits for the serving slice).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -104,3 +105,82 @@ def stack_rows(col: np.ndarray, dtype=np.float32) -> np.ndarray:
     if len(shapes) > 1:
         raise ValueError(f"Ragged rows (shapes {shapes}); resize/pad before batching")
     return np.stack(rows)
+
+
+class Minibatcher:
+    """FixedMiniBatchTransformer-equivalent over column dicts.
+
+    With ``bucket=True`` the final short batch is padded (with
+    ``pad_value``) to a bucket size so batch shapes repeat across
+    partitions; per-row outputs are later cropped by ``num_valid``.
+    ``preserve_int``: integer columns keep their dtype instead of casting to
+    ``dtype`` (token ids must reach the embedding as ints).
+    """
+
+    def __init__(self, batch_size: int = 32, bucket: bool = True,
+                 dtype=np.float32, pad_value: float = 0.0,
+                 preserve_int: bool = False):
+        if batch_size <= 0:
+            raise ValueError("batch_size must be positive")
+        self.batch_size = batch_size
+        self.bucket = bucket
+        self.dtype = dtype
+        self.pad_value = pad_value
+        self.preserve_int = preserve_int
+
+    def _col_dtype(self, col):
+        if not self.preserve_int:
+            return self.dtype
+        if getattr(col, "dtype", None) is not None and col.dtype != object:
+            return None if np.issubdtype(col.dtype, np.integer) else self.dtype
+        probe = next((v for v in col if v is not None), None)
+        if probe is not None and np.issubdtype(np.asarray(probe).dtype,
+                                               np.integer):
+            return None
+        return self.dtype
+
+    def batches(self, part: Dict[str, np.ndarray], cols: Sequence[str]
+                ) -> Iterator[Batch]:
+        n = len(next(iter(part.values()))) if part else 0
+        dense = {c: stack_rows(part[c], self._col_dtype(part[c]))
+                 for c in cols}
+        for start in range(0, n, self.batch_size):
+            stop = min(start + self.batch_size, n)
+            m = stop - start
+            target = self.batch_size if (m == self.batch_size or not self.bucket) \
+                else next_bucket(m)
+            target = min(target, self.batch_size) if m < self.batch_size else target
+            arrays = {c: pad_batch(dense[c][start:stop], target, self.pad_value)
+                      for c in cols}
+            mask = np.zeros(target, dtype=bool)
+            mask[:m] = True
+            yield Batch(arrays, mask, m)
+
+    def map_batches(self, part: Dict[str, np.ndarray], cols: Sequence[str],
+                    fn: Callable[[Dict[str, np.ndarray]], Any]) -> List[Any]:
+        """Apply ``fn`` per padded batch, crop each output's leading dim to
+        num_valid."""
+        return [_crop(fn(b.arrays), b.num_valid)
+                for b in self.batches(part, cols)]
+
+
+def _crop(res: Any, n: int) -> Any:
+    if isinstance(res, dict):
+        return {k: _crop(v, n) for k, v in res.items()}
+    if isinstance(res, (list, tuple)):
+        return type(res)(_crop(v, n) for v in res)
+    return np.asarray(res)[:n]
+
+
+def concat_outputs(outs: List[Any]) -> Any:
+    """FlattenBatch parity: merge per-batch outputs back into full-length
+    columns."""
+    if not outs:
+        return outs
+    first = outs[0]
+    if isinstance(first, dict):
+        return {k: concat_outputs([o[k] for o in outs]) for k in first}
+    if isinstance(first, (list, tuple)) and not isinstance(first, np.ndarray):
+        return type(first)(concat_outputs([o[i] for o in outs])
+                           for i in range(len(first)))
+    return np.concatenate([np.asarray(o) for o in outs], axis=0)

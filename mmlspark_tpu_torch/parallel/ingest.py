@@ -1,8 +1,13 @@
 """Host -> device ingest: staging, the transfer ring, and its accounting.
 
-Counterpart of ``BatchTiming``, ``IngestStats``, ``rows_to_batch``,
-``timed_stage``, ``TransferRing`` and ``_h2d_aliases_host`` in the
-reference's ``mmlspark_tpu/parallel/ingest.py``, on CUDA streams and events:
+Counterpart of ``PreprocessSpec``, ``BatchTiming``, ``IngestStats``,
+``rows_to_batch``, ``timed_stage``, ``TransferRing`` and
+``_h2d_aliases_host`` in the reference's ``mmlspark_tpu/parallel/ingest.py``,
+on CUDA streams and events:
+
+- ``PreprocessSpec`` describes a model input's cast/scale/offset/transpose;
+  ``apply_device`` runs it on a batch tensor ahead of the forward, so the
+  wire carries the raw dtype.
 
 - ``stage_array`` puts one host batch array on the device. Where the device
   keeps its own copy (CUDA), the array goes through a pinned host buffer
@@ -29,6 +34,82 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+# ---------------------------------------------------------------------------
+# PreprocessSpec: host preprocessing moved onto the device
+# ---------------------------------------------------------------------------
+
+
+_TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+                 "float16": torch.float16, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class PreprocessSpec:
+    """Device-side preprocessing of a model's input batch.
+
+    Describes what the host used to do to each row before batching —
+    ``astype(dtype) * scale + offset`` and an optional per-row axes
+    transpose (NHWC -> NCHW for ONNX imports) — so the wire carries the raw
+    decoded dtype (uint8 pixels: 4x fewer host-to-device bytes) and the work
+    runs on the device, ahead of the forward. Hashable, so program caches
+    can key on it.
+
+    ``transpose`` is the PER-ROW axes permutation (e.g. ``(2, 0, 1)`` for
+    HWC -> CHW); the batched op shifts it past the leading batch dim.
+    ``dtype``: compute dtype after the cast.
+    """
+
+    scale: float = 1.0
+    offset: float = 0.0
+    transpose: Optional[Tuple[int, ...]] = None
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.transpose is not None:
+            object.__setattr__(self, "transpose",
+                               tuple(int(a) for a in self.transpose))
+
+    def cache_key(self) -> Tuple:
+        """Pure-literal tuple form for program-cache keys."""
+        return ("PreprocessSpec", float(self.scale), float(self.offset),
+                self.transpose, self.dtype)
+
+    def _batch_axes(self, ndim: int) -> Tuple[int, ...]:
+        perm = self.transpose
+        if perm is None or len(perm) != ndim - 1:
+            raise ValueError(
+                f"transpose {perm} does not match per-row rank {ndim - 1}")
+        return (0,) + tuple(a + 1 for a in perm)
+
+    def apply_device(self, x: torch.Tensor) -> torch.Tensor:
+        """Batched [B, ...] op on a tensor, on its device. The scale and
+        offset are rounded to ``dtype`` first, as the reference's
+        ``dt(self.scale)`` is."""
+        dt = _TORCH_DTYPES[self.dtype]
+        y = x.to(dt)
+        if self.scale != 1.0:
+            y = y * torch.tensor(self.scale, dtype=dt)
+        if self.offset != 0.0:
+            y = y + torch.tensor(self.offset, dtype=dt)
+        if self.transpose is not None:
+            y = y.permute(self._batch_axes(y.dim()))
+        return y
+
+    def apply_host(self, x: np.ndarray) -> np.ndarray:
+        """Numpy version of ``apply_device`` on a [B, ...] batch (a uint8 ->
+        f32 cast and an f32 multiply are exact, so the two agree
+        bitwise)."""
+        dt = np.dtype(self.dtype).type
+        y = x.astype(dt)
+        if self.scale != 1.0:
+            y = y * dt(self.scale)
+        if self.offset != 0.0:
+            y = y + dt(self.offset)
+        if self.transpose is not None:
+            y = np.transpose(y, self._batch_axes(y.ndim))
+        return y
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,7 @@ import torch
 
 from mmlspark_tpu_torch.gbdt import (gather_kernel, hist_kernel, select_kernel,
                                      sparse_hist_kernel)
+from mmlspark_tpu_torch.models import flash_kernel
 
 
 @pytest.fixture
@@ -121,3 +122,42 @@ def test_csr_gather_kernel_bitwise_matches_plain(cuda_device, rows, width, avg,
     torch.cuda.synchronize()
     assert k.shape == (rows + pad_rows, len(ids))
     assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+
+def _bf16(rng, shape, device):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        device).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,h,d,causal", [
+    (2, 256, 256, 4, 64, False), (2, 256, 256, 4, 64, True),
+    (1, 1024, 1024, 2, 128, False), (1, 1024, 1024, 2, 128, True),
+    (1, 512, 512, 2, 256, True), (3, 128, 256, 1, 64, False),
+    (1, 64, 64, 1, 256, False)])
+def test_flash_kernel_matches_plain(cuda_device, b, tq, tk, h, d, causal):
+    """K5 against its plain version within the reference's own flash-vs-XLA
+    bound (0.05, tests/test_attention.py), on bf16 normal(0, 1) inputs."""
+    rng = np.random.default_rng(3)
+    q = _bf16(rng, (b, tq, h, d), cuda_device)
+    k, v = (_bf16(rng, (b, tk, h, d), cuda_device) for _ in range(2))
+    o = flash_kernel.flash_attention_cuda(q, k, v, causal)
+    p = flash_kernel.flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert o.shape == p.shape and o.dtype == torch.bfloat16
+    assert (o.float() - p.float()).abs().max().item() <= 0.05
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_views(cuda_device):
+    """q, k, v as views into one packed [B, T, 3, H, D] tensor: the kernel
+    reads them through their strides, no copies."""
+    rng = np.random.default_rng(4)
+    qkv = _bf16(rng, (2, 256, 3, 4, 64), cuda_device)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    o = flash_kernel.flash_attention_cuda(q, k, v, True)
+    p = flash_kernel.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                           v.contiguous(), True)
+    torch.cuda.synchronize()
+    assert (o.float() - p.float()).abs().max().item() <= 0.05

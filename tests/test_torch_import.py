@@ -49,12 +49,19 @@ def test_clean_import_pulls_in_no_jax_and_no_reference():
                 "mmlspark_tpu_torch.core.fusion",
                 "mmlspark_tpu_torch.core.device_stage",
                 "mmlspark_tpu_torch.core.kernels",
-                "mmlspark_tpu_torch.parallel.ingest"):
+                "mmlspark_tpu_torch.parallel.ingest",
+                "mmlspark_tpu_torch.models.module",
+                "mmlspark_tpu_torch.models.attention",
+                "mmlspark_tpu_torch.models.flash_kernel",
+                "mmlspark_tpu_torch.models.dnn_model",
+                "mmlspark_tpu_torch.models.convert"):
         assert mod in out["imported"]
 
 
-def test_fused_pipeline_import_pulls_in_no_jax_and_no_reference():
-    probe = ("import json, sys; import mmlspark_tpu_torch.core.fusion; "
+@pytest.mark.parametrize("module", ["mmlspark_tpu_torch.core.fusion",
+                                    "mmlspark_tpu_torch.models"])
+def test_fused_pipeline_import_pulls_in_no_jax_and_no_reference(module):
+    probe = (f"import json, sys; import {module}; "
              "print(json.dumps(sorted(k for k in sys.modules if k in "
              "('jax', 'jaxlib', 'mmlspark_tpu') or k.startswith(('jax.', "
              "'jaxlib.', 'mmlspark_tpu.')))))")
@@ -76,6 +83,7 @@ def test_source_has_no_jax_or_reference_import():
     assert (PKG / "csrc" / "select.cu").exists()
     assert (PKG / "csrc" / "sparse_hist.cu").exists()
     assert (PKG / "csrc" / "csr_gather.cu").exists()
+    assert (PKG / "csrc" / "flash_attn.cu").exists()
 
 
 @pytest.fixture
