@@ -23,12 +23,19 @@
 //
 // Design (simple, right first; wgmma, TMA and warp specialisation are later
 // work):
-//   - one CTA of 4 warps per (64-query tile, head, batch); each warp owns 16
-//     query rows, and each thread two rows (g and g + 8 of its warp's 16);
-//   - the CTA's Q tile and, in turn, each 64-key tile of K and V sit in
-//     shared memory, rows padded by 16 bytes so the fragment loads hit 32
-//     distinct banks; at D = 256 the three tiles need 99 KB, which the
-//     launch opts into (cudaFuncAttributeMaxDynamicSharedMemorySize);
+//   - one CTA of 4 warps per (64-query tile, head and chunk of output
+//     columns, batch); each warp owns 16 query rows, and each thread two
+//     rows (g and g + 8 of its warp's 16);
+//   - a CTA writes DV of the D output columns: DV = D up to D = 256, and
+//     D / 2 at D = 384 and 512, where the f32 accumulator of all D columns
+//     would not fit in a thread's registers. Each of the two CTAs of such a
+//     row tile computes the whole of S = Q K^T (the second time is the price
+//     of the split) and its half of P V;
+//   - the CTA's Q tile and, in turn, each 64-key tile of K and DV columns of
+//     V sit in shared memory, rows padded by 16 bytes so the fragment loads
+//     hit 32 distinct banks; at D = 256 the three tiles need 99 KB and at
+//     D = 512 163 KB, which the launch opts into
+//     (cudaFuncAttributeMaxDynamicSharedMemorySize);
 //   - S = Q K^T and O += P V run on the tensor cores as
 //     mma.sync.m16n8k16 with bf16 operands and f32 accumulators;
 //   - the softmax is online: a running row max m and sum l in f32, the
@@ -102,6 +109,11 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
+// the output columns one CTA writes (see the design note above)
+__host__ __device__ constexpr int chunk_cols(int d) {
+  return d <= 256 ? d : d / 2;
+}
+
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
@@ -109,7 +121,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, int tk, Strides qs, Strides ks,
                  Strides vs, Strides os, float scale_log2) {
+  constexpr int DV = chunk_cols(D);
+  constexpr int kColChunks = D / DV;
   constexpr int kRow = D + kPad;
+  constexpr int kRowV = DV + kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sK = sQ + kBlockM * kRow;
@@ -121,18 +136,19 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = lane >> 2;  // row within the mma tile
   const int t = lane & 3;   // column pair within the mma tile
   const int qt = blockIdx.x;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y / kColChunks;
+  const int col0 = (blockIdx.y % kColChunks) * DV;  // first output column
   const int b = blockIdx.z;
   const int64_t q0 = (int64_t)qt * kBlockM;
 
   const __nv_bfloat16* qb = q + b * qs.b + q0 * qs.t + h * qs.h;
   const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
+  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h + col0;
   load_tile<D>(sQ, qb, qs.t, tid);
 
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DV / 8; ++n) {
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   }
   float m_run[2] = {-INFINITY, -INFINITY};  // running max, log2 units
@@ -144,7 +160,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < n_tiles; ++j) {
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile<D>(sK, kb + (int64_t)j * kBlockN * ks.t, ks.t, tid);
-    load_tile<D>(sV, vb + (int64_t)j * kBlockN * vs.t, vs.t, tid);
+    load_tile<DV>(sV, vb + (int64_t)j * kBlockN * vs.t, vs.t, tid);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows and the tile's 64 keys
@@ -214,7 +230,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       l_run[r] = l_run[r] * corr[r] + rs[r];
     }
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       acc[n][0] *= corr[0];
       acc[n][1] *= corr[0];
       acc[n][2] *= corr[1];
@@ -229,12 +245,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                              pack_f32(s[2 * kk][2], s[2 * kk][3]),
                              pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                              pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const __nv_bfloat16* vrow = sV + (kk * 16 + 2 * t) * kRow + g;
+      const __nv_bfloat16* vrow = sV + (kk * 16 + 2 * t) * kRowV + g;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
+      for (int n = 0; n < DV / 8; ++n) {
         const __nv_bfloat16* vp = vrow + n * 8;
-        mma_bf16(acc[n], a, ld_two(vp, vp + kRow),
-                 ld_two(vp + 8 * kRow, vp + 9 * kRow));
+        mma_bf16(acc[n], a, ld_two(vp, vp + kRowV),
+                 ld_two(vp + 8 * kRowV, vp + 9 * kRowV));
       }
     }
   }
@@ -242,10 +258,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   // divide by l once, round to bf16, store this thread's two rows
   const float inv0 = l_run[0] > 0.f ? 1.f / l_run[0] : 0.f;
   const float inv1 = l_run[1] > 0.f ? 1.f / l_run[1] : 0.f;
-  __nv_bfloat16* o0 = o + b * os.b + (q0 + row_a) * os.t + h * os.h;
+  __nv_bfloat16* o0 = o + b * os.b + (q0 + row_a) * os.t + h * os.h + col0;
   __nv_bfloat16* o1 = o0 + 8 * os.t;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DV / 8; ++n) {
     const int col = n * 8 + 2 * t;
     *reinterpret_cast<uint32_t*>(o0 + col) =
         pack_f32(acc[n][0] * inv0, acc[n][1] * inv0);
@@ -258,12 +274,14 @@ template <int D, bool kCausal>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
            int heads, int tq, int tk, const Strides (&st)[4], float sm_scale,
            cudaStream_t stream) {
-  const int smem = 3 * kBlockM * (D + kPad) * (int)sizeof(__nv_bfloat16);
+  constexpr int DV = chunk_cols(D);
+  const int smem = (2 * (D + kPad) + DV + kPad) * kBlockM *
+                   (int)sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D, kCausal>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tq / kBlockM, heads, batch);
+  const dim3 grid(tq / kBlockM, heads * (D / DV), batch);
   flash_fwd_kernel<D, kCausal><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
@@ -287,7 +305,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int batch,
 // q, k, v, o: bf16 [B, T, H, D] with the given element strides (batch, time,
 // head per tensor, in that order: q, k, v, o; the last dimension is
 // contiguous). Tq and Tk are multiples of 64, causal needs Tq == Tk, and D
-// is 64, 128 or 256. Returns a cudaError_t code.
+// is 64, 128, 256, 384 or 512. Returns a cudaError_t code.
 extern "C" int mmlspark_flash_attn_fwd(const void* q, const void* k,
                                        const void* v, void* o, int batch,
                                        int heads, int tq, int tk, int head_dim,
@@ -311,6 +329,12 @@ extern "C" int mmlspark_flash_attn_fwd(const void* q, const void* k,
                            sm_scale, s);
     case 256:
       return launch_d<256>(q, k, v, o, batch, heads, tq, tk, causal, st,
+                           sm_scale, s);
+    case 384:
+      return launch_d<384>(q, k, v, o, batch, heads, tq, tk, causal, st,
+                           sm_scale, s);
+    case 512:
+      return launch_d<512>(q, k, v, o, batch, heads, tq, tk, causal, st,
                            sm_scale, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -13,7 +13,7 @@ from .attention import (
     transformer_block,
     transformer_encoder,
 )
-from .convert import load_jax_params, params_numpy
+from .convert import load_jax_params
 from .dnn_model import DNNModel
 from .module import (
     Dense,
@@ -29,5 +29,4 @@ from .module import (
 __all__ = ["DNNModel", "Dense", "Embed", "Fn", "FunctionModel", "LayerNorm",
            "Module", "MultiHeadAttention", "Residual", "Sequential",
            "dense_attention", "flash_route", "load_jax_params", "matmul_dtype",
-           "matmul_precision", "params_numpy", "transformer_block",
-           "transformer_encoder"]
+           "matmul_precision", "transformer_block", "transformer_encoder"]

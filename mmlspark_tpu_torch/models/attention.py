@@ -7,9 +7,11 @@ reference's ``_flash_dispatch``) lets it, it runs K5, the hand-written
 flash-attention kernel (``flash_kernel.py``, ``csrc/flash_attn.cu``);
 everywhere else it runs K5's plain version, the reference's XLA path. The
 gate keeps the reference's conditions, with "the backend is a TPU" read as
-"the tensors are on a CUDA device", and one more: the kernel is built for
-head dims up to 256, so a multiple of 128 above that stays on the plain
-path (ROADMAP B5).
+"the tensors are on a CUDA device", and two differences (ROADMAP B5): the
+shortest key length that takes the kernel was measured on the H100, not
+taken from the TPU, and the kernel is built for head dims up to 512, so a
+call the reference would send to its flash kernel with a larger head dim
+raises ``NotImplementedError`` rather than running the plain version.
 
 The modules mirror the reference's, as ``nn.Module`` layers whose
 parameters carry its key names (see ``module.py``): ``LayerNorm``
@@ -50,14 +52,23 @@ def _kernel_device(q: torch.Tensor) -> bool:
     return q.device.type == "cuda"
 
 
+#: the shortest key length that takes K5 unless ``MMLSPARK_TPU_FLASH_MIN_T``
+#: says otherwise. The reference's 1024 was the TPU's crossover; on the H100
+#: the kernel beats its plain version at every length the gate admits
+#: (``chip_smoke.py``'s attn_kernel phase times both from T = 128 up and
+#: fails if that stops holding), so the card needs no length condition.
+FLASH_MIN_T_DEFAULT = 0
+
+
 def flash_route(q: torch.Tensor, k: torch.Tensor, causal: bool,
                 q_offset: int = 0, k_offset: int = 0) -> bool:
     """Does this call go to K5? The reference's ``_flash_dispatch``
     conditions: bf16 ``q`` on the kernel's device, no shard offsets,
     full-square causal only, Tq and Tk multiples of 128, head dim 64 or a
-    multiple of 128 (here at most 256, the kernel's largest), and
-    Tk >= ``MMLSPARK_TPU_FLASH_MIN_T`` (default 1024, a threshold derived on
-    the TPU and kept as it is). ``MMLSPARK_TPU_NO_FLASH=1`` turns it off."""
+    multiple of 128, and Tk >= ``MMLSPARK_TPU_FLASH_MIN_T`` (default
+    ``FLASH_MIN_T_DEFAULT``). ``MMLSPARK_TPU_NO_FLASH=1`` turns it off. A
+    call that passes with a head dim the kernel is not built for raises
+    ``NotImplementedError``: there is no quiet route around the kernel."""
     if os.environ.get("MMLSPARK_TPU_NO_FLASH", "") not in ("", "0"):
         return False
     if q.dtype != torch.bfloat16 or not _kernel_device(q):
@@ -68,10 +79,16 @@ def flash_route(q: torch.Tensor, k: torch.Tensor, causal: bool,
     tk = k.shape[1]
     if causal and tq != tk:
         return False
-    if tq % 128 or tk % 128 or (d != 64 and d % 128) or d > 256:
+    if tq % 128 or tk % 128 or (d != 64 and d % 128):
         return False
-    min_t = int(os.environ.get("MMLSPARK_TPU_FLASH_MIN_T", "1024"))
-    return tk >= min_t
+    if tk < int(os.environ.get("MMLSPARK_TPU_FLASH_MIN_T",
+                               FLASH_MIN_T_DEFAULT)):
+        return False
+    if d not in flash_kernel.HEAD_DIMS:
+        raise NotImplementedError(
+            f"K5 is built for head dims {flash_kernel.HEAD_DIMS}, not {d} "
+            "(ROADMAP B5)")
+    return True
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

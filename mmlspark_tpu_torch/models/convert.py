@@ -8,9 +8,6 @@ shapes. ``Dense`` keeps the reference's ``[in, out]`` kernel layout, and so
 do the attention projections, so no weight is transposed. A missing key, an
 extra key or a shape that differs raises; values are cast to the port
 parameter's dtype.
-
-``params_numpy(model)`` is the inverse: the port's parameters as the same
-nested dicts of numpy arrays.
 """
 
 from __future__ import annotations
@@ -55,13 +52,3 @@ def load_jax_params(model: FunctionModel, params: Mapping[str, Any]
             p.copy_(torch.from_numpy(np.array(flat[name])).to(p.dtype))
     return model
 
-
-def params_numpy(model: FunctionModel) -> Dict[str, Any]:
-    """The model's parameters as nested dicts of numpy arrays, keyed like
-    the reference's params pytree."""
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        return node.detach().cpu().numpy()
-
-    return walk(model.params)

@@ -13,13 +13,14 @@ batches in flight), and the parameters go to the device through
 
 What waits: ``useMesh=True`` (sharded eval over a mesh, ROADMAP A9) and a
 multi-input ``feedDict`` (``GraphModule``/ONNX, A7) raise
-``NotImplementedError``. ``donateInputs`` is accepted and does nothing: the
-staged batch is freed once its forward has run, so there is no buffer to
-donate.
+``NotImplementedError``. ``donateInputs`` is accepted and does nothing but
+warn: the staged batch is freed once its forward has run, so there is no
+buffer to donate.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -29,7 +30,7 @@ from ..core.dataframe import DataFrame
 from ..core.params import ComplexParam, HasBatchSize, HasInputCol, HasOutputCol, Param
 from ..core.pipeline import Model
 from ..core.schema import ColType, Schema
-from ..parallel.batching import Minibatcher, concat_outputs
+from ..parallel.batching import Minibatcher, _crop, concat_outputs
 from ..parallel.ingest import IngestStats, PreprocessSpec, TransferRing, stage_array
 from .module import FunctionModel
 
@@ -72,7 +73,8 @@ class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
                       2, lambda v: v > 0, int)
     donateInputs = Param("donateInputs",
                          "Accepted for the reference's surface; no effect "
-                         "here (the staged batch is freed after its forward)",
+                         "here but a warning (the staged batch is freed "
+                         "after its forward)",
                          None, ptype=bool)
     useMesh = Param("useMesh",
                     "Shard eval batches over a device mesh: not ported yet "
@@ -214,6 +216,10 @@ class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
         device = default_device()
         if self.get("useMesh"):
             raise NotImplementedError(_MESH_TODO)
+        if self.get("donateInputs"):
+            warnings.warn("DNNModel: donateInputs has no effect in the "
+                          "PyTorch port (the staged batch is freed after its "
+                          "forward)", stacklevel=2)
         model = self.get_model()
         in_col, out_cols, taps = self._plan(model)
         spec: Optional[PreprocessSpec] = self.get("preprocess")
@@ -236,8 +242,8 @@ class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
         def fetch(handle) -> Tuple[np.ndarray, ...]:
             # crop the bucket padding before the readback
             ys, num_valid = handle
-            return tuple(y[:num_valid].to(torch.float32).cpu().numpy()
-                         for y in ys)
+            return tuple(y.to(torch.float32).cpu().numpy()
+                         for y in _crop(ys, num_valid))
 
         def eval_partition(part):
             col = part[in_col]

@@ -38,8 +38,9 @@ from .. import _kernels
 #: kernel launches since the counter was last set to 0
 launches = 0
 
-#: head dims the kernel is built for
-HEAD_DIMS = (64, 128, 256)
+#: head dims the kernel is built for (the Q and K tiles of 64 rows must fit
+#: in shared memory)
+HEAD_DIMS = (64, 128, 256, 384, 512)
 #: query and key lengths must be multiples of the kernel's 64-row tiles
 TILE = 64
 #: score elements per chunk of the plain version (2^28 f32 = 1 GiB)

@@ -10,7 +10,7 @@ prefetchers and batchers — waits for the serving slice).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
+from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -156,20 +156,15 @@ class Minibatcher:
             mask[:m] = True
             yield Batch(arrays, mask, m)
 
-    def map_batches(self, part: Dict[str, np.ndarray], cols: Sequence[str],
-                    fn: Callable[[Dict[str, np.ndarray]], Any]) -> List[Any]:
-        """Apply ``fn`` per padded batch, crop each output's leading dim to
-        num_valid."""
-        return [_crop(fn(b.arrays), b.num_valid)
-                for b in self.batches(part, cols)]
-
 
 def _crop(res: Any, n: int) -> Any:
+    """The first ``n`` rows of every array or tensor in ``res`` (dicts and
+    sequences of them): a padded batch's outputs without the padding."""
     if isinstance(res, dict):
         return {k: _crop(v, n) for k, v in res.items()}
     if isinstance(res, (list, tuple)):
         return type(res)(_crop(v, n) for v in res)
-    return np.asarray(res)[:n]
+    return res[:n] if hasattr(res, "shape") else np.asarray(res)[:n]
 
 
 def concat_outputs(outs: List[Any]) -> Any:

@@ -23,8 +23,30 @@ Tolerances, and why:
     ``CSR_VS_HOST_ATOL``;
   - the stitched classifier's probability: 1e-5, its declared
     ``finalize_tolerance``.
+
+The model layer (``mmlspark_tpu_torch.models``) and the ``DNNModel`` stage,
+served unfused and fused, against the reference's: every module is built by
+the reference (``mmlspark_tpu.models``) with its own init, its weights
+carried into the port with ``models.load_jax_params``, and fed the same
+numpy inputs made from a seed. Tolerances, and why:
+  - f32 (``matmul_precision("float32")`` on both sides): 1e-5 absolute, f32
+    sums in another order;
+  - the bf16 default: each product's operands are rounded to bf16 on both
+    sides and multiplied in f32, so the results differ only where a sum in
+    another order rounds to another bf16 value before the next layer
+    (measured here: no such flip, every difference <= 1.2e-6). Dense 1e-5
+    (no intermediate rounding); MHA 1e-3; a transformer block, the
+    encoder's taps and the DNNModel slice 2e-2, room for one flip of a bf16
+    intermediate of magnitude <= 4 (one ulp: 1.6e-2); LayerNorm of a bf16
+    input one bf16 ulp (measured: equal);
+  - Embed, the weights round trip, Minibatcher batches and PreprocessSpec:
+    bitwise;
+  - the port's fused DNNModel against its unfused one: bitwise (the same
+    torch ops on batches of the same size).
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -38,13 +60,25 @@ from mmlspark_tpu.core.pipeline import Transformer as RefTransformer
 from mmlspark_tpu.gbdt import pallas_sparse
 from mmlspark_tpu.gbdt import predict as ref_predict
 from mmlspark_tpu.gbdt import stages as ref_stages
+from mmlspark_tpu.models import DNNModel as RefDNNModel
+from mmlspark_tpu.models import attention as ref_attention
+from mmlspark_tpu.models import module as ref_module
+from mmlspark_tpu.parallel import batching as ref_batching
+from mmlspark_tpu.parallel.ingest import PreprocessSpec as RefPreprocessSpec
 from mmlspark_tpu_torch.core import faults, kernels
 from mmlspark_tpu_torch.core.dataframe import DataFrame
 from mmlspark_tpu_torch.core.device_stage import CompileCache
 from mmlspark_tpu_torch.core.fusion import (FusedPipelineModel, SegmentExecutor,
                                             _HostFallback, _stack_col, plan)
 from mmlspark_tpu_torch.core.pipeline import PipelineModel, Transformer
+from mmlspark_tpu_torch.core.schema import ColType
 from mmlspark_tpu_torch.gbdt import convert, gather_kernel, predict, stages
+from mmlspark_tpu_torch.models import (DNNModel, Dense, Embed, FunctionModel,
+                                       LayerNorm, MultiHeadAttention, attention,
+                                       load_jax_params, matmul_precision,
+                                       transformer_block, transformer_encoder)
+from mmlspark_tpu_torch.parallel import batching
+from mmlspark_tpu_torch.parallel.ingest import PreprocessSpec
 from mmlspark_tpu_torch.runtime import use_device
 
 N_ROWS, N_FEATURES, DENSITY = 200, 32, 0.15
@@ -448,3 +482,459 @@ def test_pipeline_fuse_entry_point(models):
         b = _column(pm.transform(models["dense_port"]), "prediction")
     np.testing.assert_array_equal(a, b)
     assert fused.fusion_stats()["segments"][0]["batch_size"] == 256
+
+
+# ---------------------------------------------------------------------------
+# the model layer and DNNModel (transformer encoders)
+# ---------------------------------------------------------------------------
+
+
+F32_TOL = 1e-5
+DENSE_BF16_TOL = 1e-5
+MHA_BF16_TOL = 1e-3
+DEEP_BF16_TOL = 2e-2
+
+ENC = dict(seq_len=16, dim=32, depth=2, num_heads=2, vocab_size=50,
+           num_classes=5)
+TAPS = ["block0", "block0/mlp/body/fc1", "ln_f"]
+
+
+def _np_params(tree, rng):
+    """The reference's params as numpy, LayerNorm/bias leaves made
+    non-trivial (the reference inits them to ones and zeros)."""
+    def walk(node):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif k == "scale":
+                out[k] = (1.0 + 0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+            elif k == "bias":
+                out[k] = (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+            else:
+                out[k] = np.asarray(v, dtype=np.float32)
+        return out
+    return walk(tree)
+
+
+def _pair(ref_mod, port_mod, in_shape, seed=0):
+    """(reference params, port module with the same weights)."""
+    params, _ = ref_mod.init(jax.random.key(seed), in_shape)
+    params = _np_params(params, np.random.default_rng(seed))
+    port_mod.init(torch.Generator().manual_seed(seed), in_shape)
+    load_jax_params(FunctionModel(port_mod, in_shape), params)
+    return params, port_mod
+
+
+def _x(shape, seed=1):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _run(ref_mod, params, port_mod, x, f32):
+    """Both forwards on ``x``; ``f32`` selects matmul_precision("float32")."""
+    if f32:
+        with ref_module.matmul_precision("float32"):
+            ref = np.asarray(ref_mod.apply(params, jnp.asarray(x)))
+        with matmul_precision("float32"), torch.inference_mode():
+            got = port_mod(torch.from_numpy(x)).numpy()
+    else:
+        ref = np.asarray(ref_mod.apply(params, jnp.asarray(x)))
+        with torch.inference_mode():
+            got = port_mod(torch.from_numpy(x)).numpy()
+    assert got.dtype == ref.dtype
+    return ref, got
+
+
+@pytest.mark.parametrize("f32", [True, False])
+def test_layernorm_matches_reference(f32):
+    params, port = _pair(ref_attention.LayerNorm(), LayerNorm(), (8, 16))
+    ref, got = _run(ref_attention.LayerNorm(), params, port, _x((3, 8, 16)), f32)
+    np.testing.assert_allclose(got, ref, atol=F32_TOL, rtol=0)
+
+
+def test_layernorm_preserves_bf16():
+    params, port = _pair(ref_attention.LayerNorm(), LayerNorm(), (8, 16))
+    x = _x((3, 8, 16))
+    ref = ref_attention.LayerNorm().apply(params,
+                                          jnp.asarray(x).astype(jnp.bfloat16))
+    with torch.inference_mode():
+        got = port(torch.from_numpy(x).to(torch.bfloat16))
+    assert ref.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    ref = np.asarray(ref.astype(jnp.float32))
+    got = got.float().numpy()
+    # one bf16 ulp of each value: the f32 statistics differ in order only
+    np.testing.assert_allclose(got, ref, rtol=2.0 ** -8, atol=1e-6)
+
+
+@pytest.mark.parametrize("f32", [True, False])
+def test_dense_matches_reference(f32):
+    params, port = _pair(ref_module.Dense(12), Dense(12), (8, 16))
+    ref, got = _run(ref_module.Dense(12), params, port, _x((3, 8, 16)), f32)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, atol=F32_TOL if f32 else DENSE_BF16_TOL,
+                               rtol=0)
+
+
+def test_embed_matches_reference_nan_rows_and_wrap():
+    """Ids >= vocab give a NaN row, negative ids wrap once, ids are cast to
+    int32 first (2^32 + 1 reads row 1)."""
+    params, port = _pair(ref_attention.Embed(7, 5), Embed(7, 5), (4,))
+    ids = np.array([[0, 6, 7, 100], [-1, -7, -8, 2 ** 32 + 1]], dtype=np.int64)
+    ref = np.asarray(ref_attention.Embed(7, 5).apply(params, jnp.asarray(ids)))
+    with torch.inference_mode():
+        got = port(torch.from_numpy(ids)).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    assert np.isnan(got[0, 2]).all() and np.isnan(got[1, 2]).all()
+    np.testing.assert_array_equal(got[1, 0], params["table"][6])
+    np.testing.assert_array_equal(np.nan_to_num(got), np.nan_to_num(ref))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("f32", [True, False])
+def test_mha_matches_reference(causal, f32):
+    ref_mod = ref_attention.MultiHeadAttention(2, causal=causal)
+    params, port = _pair(ref_mod, MultiHeadAttention(2, causal=causal), (16, 32))
+    ref, got = _run(ref_mod, params, port, _x((2, 16, 32)), f32)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, atol=F32_TOL if f32 else MHA_BF16_TOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("f32", [True, False])
+def test_transformer_block_matches_reference(f32):
+    ref_mod = ref_attention.transformer_block(32, 2)
+    params, port = _pair(ref_mod, transformer_block(32, 2), (16, 32))
+    assert port.layer_paths() == ref_mod.layer_paths()
+    ref, got = _run(ref_mod, params, port, _x((2, 16, 32)), f32)
+    np.testing.assert_allclose(got, ref, atol=F32_TOL if f32 else DEEP_BF16_TOL,
+                               rtol=0)
+
+
+def _encoders(**kw):
+    """(reference FunctionModel, port FunctionModel with its weights)."""
+    cfg = dict(ENC, **kw)
+    ref = ref_attention.transformer_encoder(**cfg, seed=0)
+    port = transformer_encoder(**cfg, seed=1)
+    params = jax.tree.map(np.asarray, ref.params)
+    load_jax_params(port, params)
+    return ref, port
+
+
+def _tokens(n, seed=2, t=ENC["seq_len"], vocab=ENC["vocab_size"]):
+    return np.random.default_rng(seed).integers(0, vocab, (n, t))
+
+
+@pytest.mark.parametrize("f32", [True, False])
+def test_transformer_encoder_matches_reference_with_taps(f32):
+    ref, port = _encoders()
+    assert port.module.layer_paths() == ref.module.layer_paths()
+    assert port.layer_names == ref.layer_names
+    assert port.output_names() == ref.output_names()
+    ids = _tokens(3)
+    taps = TAPS + [None]
+    if f32:
+        with ref_module.matmul_precision("float32"):
+            want = ref.apply_taps(jnp.asarray(ids), taps)
+        with matmul_precision("float32"):
+            got = port.apply_taps(torch.from_numpy(ids), taps)
+    else:
+        want = ref.apply_taps(jnp.asarray(ids), taps)
+        got = port.apply_taps(torch.from_numpy(ids), taps)
+    assert set(got) == set(want)
+    for t in taps:
+        np.testing.assert_allclose(got[t].numpy(), np.asarray(want[t]),
+                                   atol=F32_TOL if f32 else DEEP_BF16_TOL,
+                                   rtol=0, err_msg=str(t))
+    assert got[None].shape == (3, 16, 5)
+
+
+def test_function_model_addressing():
+    ref, port = _encoders()
+    for node in (None, "OUTPUT_0", "OUTPUT_2", "block1", "block0/attn/body/attn",
+                 "transformer"):
+        assert port.resolve_output(node) == ref.resolve_output(node)
+    assert port.argument_names() == ref.argument_names() == ["ARGUMENT_0"]
+    assert port.resolve_input("ARGUMENT_0") == "ARGUMENT_0"
+    for bad in ("block9", "block0/mlp/fc1"):
+        with pytest.raises(KeyError):
+            port.resolve_output(bad)
+    with pytest.raises(KeyError):
+        port.resolve_input("ARGUMENT_1")
+    ids = torch.from_numpy(_tokens(2))
+    with matmul_precision("float32"):
+        one = port.apply(ids, tap="block0/mlp/body/fc1")
+        both = port.apply_taps(ids, ["block0/mlp/body/fc1"])
+    assert torch.equal(one, both["block0/mlp/body/fc1"])
+    assert one.shape == (2, 16, 128)
+
+
+def test_cache_token_is_the_architecture_not_the_weights():
+    a = transformer_encoder(**ENC, seed=0)
+    b = transformer_encoder(**ENC, seed=1)
+    assert a.cache_token() == b.cache_token()
+    assert a.cache_token() != transformer_encoder(**dict(ENC, depth=3)).cache_token()
+    assert a.cache_token() != transformer_encoder(
+        **dict(ENC, num_heads=4)).cache_token()
+    assert not torch.equal(a.params["embed"]["table"], b.params["embed"]["table"])
+
+
+def test_device_params_follow_in_place_updates():
+    m = transformer_encoder(**ENC, seed=0)
+    first = m.device_params("cpu")
+    # on its own device a parameter is used in place, not copied
+    table = dict(m.module.named_parameters())["embed.table"]
+    assert first["embed.table"].data_ptr() == table.data_ptr()
+    assert m.device_params("cpu") is first
+    ref, _ = _encoders()
+    load_jax_params(m, jax.tree.map(np.asarray, ref.params))
+    again = m.device_params("cpu")
+    assert again is not first
+    np.testing.assert_array_equal(again["embed.table"].detach().numpy(),
+                                  np.asarray(ref.params["embed"]["table"]))
+
+
+def test_weights_round_trip_and_mismatches_raise():
+    ref = ref_attention.transformer_encoder(**ENC, seed=0)
+    params = jax.tree.map(np.asarray, ref.params)
+    port = transformer_encoder(**ENC, seed=5)
+    load_jax_params(port, params)
+    back = jax.tree.map(lambda t: t.detach().numpy(), port.params)
+    assert jax.tree.structure(back) == jax.tree.structure(params)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
+        np.testing.assert_array_equal(a, b)
+    missing = jax.tree.map(lambda a: a, params)
+    del missing["block1"]["mlp"]["body"]["fc2"]["bias"]
+    with pytest.raises(KeyError, match="missing"):
+        load_jax_params(port, missing)
+    extra = jax.tree.map(lambda a: a, params)
+    extra["head"]["scale"] = np.ones(5, np.float32)
+    with pytest.raises(KeyError, match="extra"):
+        load_jax_params(port, extra)
+    shaped = jax.tree.map(lambda a: a, params)
+    shaped["head"]["kernel"] = shaped["head"]["kernel"].T
+    with pytest.raises(ValueError, match="head.kernel"):
+        load_jax_params(port, shaped)
+    # a raise leaves the weights as they were
+    np.testing.assert_array_equal(port.params["head"]["kernel"].detach().numpy(),
+                                  params["head"]["kernel"])
+
+
+# ---------------------------------------------------------------------------
+# the slice: DNNModel over a DataFrame
+# ---------------------------------------------------------------------------
+
+
+def _token_rows():
+    rows = list(_tokens(7, seed=3))
+    rows[4] = None
+    return rows
+
+
+def _stack(col):
+    return [None if v is None else np.asarray(v) for v in col]
+
+
+def _slice_outputs(stage_kw, f32):
+    """(reference columns, port columns, port stage, port frame) of one
+    DNNModel configuration over a 2-partition frame with a null row."""
+    ref, port = _encoders()
+    rows = _token_rows()
+    cols = list(stage_kw.get("fetch", {}) or [stage_kw.get("out", "out")])
+    ref_stage = RefDNNModel(inputCol="tokens", batchSize=3)
+    stage = DNNModel(inputCol="tokens", batchSize=3)
+    for s, m in ((ref_stage, ref), (stage, port)):
+        s.set_model(m)
+        if "fetch" in stage_kw:
+            s.set_fetch_dict(stage_kw["fetch"])
+        else:
+            s.set("outputCol", "out")
+            if "node" in stage_kw:
+                s.set_output_node(stage_kw["node"])
+    ref_df = RefDataFrame.from_dict({"tokens": rows}, num_partitions=2)
+    df = DataFrame.from_dict({"tokens": rows}, num_partitions=2)
+    if f32:
+        with ref_module.matmul_precision("float32"):
+            want = ref_stage.transform(ref_df)
+        with matmul_precision("float32"), use_device("cpu"):
+            got = stage.transform(df)
+    else:
+        want = ref_stage.transform(ref_df)
+        with use_device("cpu"):
+            got = stage.transform(df)
+    return ({c: _stack(want.column(c)) for c in cols},
+            {c: _stack(got.column(c)) for c in cols}, stage, df)
+
+
+SLICE_CASES = [{}, {"node": "block1/mlp/body/fc1"}, {"node": "OUTPUT_2"},
+               {"fetch": {"logits": "OUTPUT_0", "hidden": "ln_f"}}]
+
+
+@pytest.mark.parametrize("f32", [True, False])
+@pytest.mark.parametrize("case", SLICE_CASES)
+def test_dnn_model_slice_matches_reference(case, f32):
+    want, got, stage, df = _slice_outputs(case, f32)
+    for c in want:
+        assert len(got[c]) == 7 and got[c][4] is None and want[c][4] is None
+        w = np.stack([v for v in want[c] if v is not None])
+        g = np.stack([v for v in got[c] if v is not None])
+        assert g.dtype == np.float32 and g.shape == w.shape
+        np.testing.assert_allclose(g, w, atol=F32_TOL if f32 else DEEP_BF16_TOL,
+                                   rtol=0, err_msg=c)
+    st = stage.last_ingest_stats.summary()
+    # 4 + 3 rows, one null: batches of 3 + 1 (padded to 3) and 3
+    assert st["n_batches"] == 3 and st["rows"] == 6
+    # the port's fused pipeline serves the same model, bitwise
+    with use_device("cpu"), matmul_precision("float32" if f32 else "bfloat16"):
+        fused = PipelineModel([stage]).fuse()
+        out = fused.transform(df)
+    stats = fused.fusion_stats()
+    assert stats["fallbacks"] == [] and stats["n_fused_segments"] == 1
+    for c in got:
+        f = _stack(out.column(c))
+        assert f[4] is None
+        for a, b in zip(f, got[c]):
+            if a is not None:
+                np.testing.assert_array_equal(a, b)
+
+
+def test_fused_program_cache_keeps_each_models_weights():
+    """Two encoders of one architecture share the fused program cache (the
+    key is the architecture, as the reference's): each still scores with
+    its own weights, the same as its unfused transform."""
+    df = DataFrame.from_dict({"tokens": list(_tokens(4))})
+    outs = []
+    for seed in (0, 1):
+        m = transformer_encoder(**ENC, seed=seed)
+        stage = DNNModel(inputCol="tokens", outputCol="o", batchSize=4)
+        stage.set_model(m)
+        with use_device("cpu"):
+            fused = PipelineModel([stage]).fuse()
+            got = np.stack(list(fused.transform(df).column("o")))
+            want = np.stack(list(stage.transform(df).column("o")))
+        np.testing.assert_array_equal(got, want)
+        outs.append((got, fused.fusion_stats()["compile_cache"]))
+    assert not np.array_equal(outs[0][0], outs[1][0])
+    assert outs[1][1]["hits"] > outs[0][1]["hits"]
+
+
+def test_dnn_model_transform_schema_and_params():
+    _, port = _encoders()
+    stage = DNNModel(inputCol="tokens", outputCol="emb").set_model(port)
+    assert stage.get("batchSize") == 64 and stage.get("ringDepth") == 2
+    df = DataFrame.from_dict({"tokens": list(_tokens(2))})
+    assert stage.transform_schema(df.schema).types["emb"] == ColType.VECTOR
+    stage.set_output_node_index(1)
+    assert stage.get("outputNode") == "OUTPUT_1"
+    fed = DNNModel(outputCol="emb").set_model(port).set_output_node_index(1)
+    fed.set_feed_dict("ARGUMENT_0", "tokens")   # the primary input by name
+    fed.set("donateInputs", True)   # accepted, no effect but a warning
+    with use_device("cpu"):
+        out = stage.transform(df)
+        with pytest.warns(UserWarning, match="donateInputs"):
+            out_fed = fed.transform(df)
+    assert np.asarray(out.column("emb")[0]).shape == (16, 5)
+    for a, b in zip(out.column("emb"), out_fed.column("emb")):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_dnn_model_preprocess_runs_on_the_batch():
+    """A PreprocessSpec (cast + scale) ahead of an embedding-free encoder
+    equals the host-preprocessed input."""
+    m = transformer_encoder(seq_len=8, dim=16, depth=1, num_heads=2, seed=0)
+    rng = np.random.default_rng(0)
+    raw = rng.integers(0, 255, (5, 8, 16)).astype(np.uint8)
+    spec = PreprocessSpec(scale=1 / 255.0, offset=-0.5)
+    stage = DNNModel(inputCol="x", outputCol="y", batchSize=4).set_model(m)
+    stage.set_preprocess(spec)
+    plain = DNNModel(inputCol="x", outputCol="y", batchSize=4).set_model(m)
+    with use_device("cpu"):
+        a = stage.transform(DataFrame.from_dict({"x": list(raw)}))
+        b = plain.transform(DataFrame.from_dict(
+            {"x": list(spec.apply_host(raw))}))
+    for u, v in zip(a.column("y"), b.column("y")):
+        np.testing.assert_array_equal(u, v)
+
+
+def test_dnn_model_unported_paths_raise():
+    _, port = _encoders()
+    df = DataFrame.from_dict({"tokens": list(_tokens(2))})
+    stage = DNNModel(inputCol="tokens", outputCol="o", useMesh=True)
+    stage.set_model(port)
+    assert stage.device_fn(df.schema) is None
+    with use_device("cpu"), pytest.raises(NotImplementedError, match="A9"):
+        stage.transform(df)
+    port.module.input_names = ["ids", "mask"]
+    multi = DNNModel(outputCol="o").set_model(port)
+    multi.set_feed_dict({"ids": "tokens", "mask": "tokens"})
+    assert multi.device_fn(df.schema) is None
+    with use_device("cpu"), pytest.raises(NotImplementedError, match="A7"):
+        multi.transform(df)
+    with pytest.raises(NotImplementedError, match="A9"):
+        transformer_encoder(**ENC, ring_axis="seq", ring_axis_size=2)
+    with pytest.raises(NotImplementedError, match="A9"):
+        transformer_block(32, 2, moe_experts=4)
+    for make in (lambda: attention.LSTM(8), lambda: attention.BiLSTM(8),
+                 lambda: attention.bilstm_tagger(8, 10, 4, 4, 3)):
+        with pytest.raises(NotImplementedError, match="A7"):
+            make()
+
+
+def test_dnn_model_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without CUDA")
+    _, port = _encoders()
+    stage = DNNModel(inputCol="tokens", outputCol="o").set_model(port)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stage.transform(DataFrame.from_dict({"tokens": list(_tokens(2))}))
+
+
+# ---------------------------------------------------------------------------
+# batching and preprocessing helpers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,batch", [(7, 3), (10, 4), (5, 8), (9, 8)])
+def test_minibatcher_matches_reference(n, batch):
+    rng = np.random.default_rng(n)
+    ints = np.empty(n, dtype=object)
+    for i in range(n):
+        ints[i] = rng.integers(0, 9, 4)
+    part = {"ids": ints, "x": rng.standard_normal((n, 3))}
+    kw = dict(bucket=True, dtype=np.float32, preserve_int=True)
+    ref = list(ref_batching.Minibatcher(batch, **kw).batches(part, ["ids", "x"]))
+    got = list(batching.Minibatcher(batch, **kw).batches(part, ["ids", "x"]))
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        assert a.num_valid == b.num_valid
+        np.testing.assert_array_equal(a.mask, b.mask)
+        for c in ("ids", "x"):
+            assert a.arrays[c].dtype == b.arrays[c].dtype
+            np.testing.assert_array_equal(a.arrays[c], b.arrays[c])
+    assert got[0].arrays["ids"].dtype == np.int64   # preserve_int
+    outs = [batching._crop({"y": b.arrays["x"] * 2, "z": (b.arrays["x"],)},
+                           b.num_valid)
+            for b in batching.Minibatcher(batch, **kw).batches(part, ["x"])]
+    ref_outs = ref_batching.Minibatcher(batch, **kw).map_batches(
+        part, ["x"], lambda arrs: {"y": arrs["x"] * 2, "z": (arrs["x"],)})
+    got_cat = batching.concat_outputs(outs)
+    ref_cat = ref_batching.concat_outputs(ref_outs)
+    np.testing.assert_array_equal(got_cat["y"], ref_cat["y"])
+    np.testing.assert_array_equal(got_cat["z"][0], ref_cat["z"][0])
+    assert got_cat["y"].shape == (n, 3)
+
+
+@pytest.mark.parametrize("kw", [dict(scale=1 / 255.0), dict(offset=-0.5),
+                                dict(scale=2.0, transpose=(2, 0, 1)),
+                                dict(dtype="float64", scale=0.1)])
+def test_preprocess_spec_matches_reference(kw):
+    x = np.random.default_rng(0).integers(0, 255, (3, 4, 5, 2)).astype(np.uint8)
+    ref = RefPreprocessSpec(**kw)
+    spec = PreprocessSpec(**kw)
+    assert spec.cache_key() == ref.cache_key()
+    host = spec.apply_host(x)
+    np.testing.assert_array_equal(host, ref.apply_host(x))
+    if spec.dtype == "float32":   # the reference's device op needs x64 for f64
+        np.testing.assert_array_equal(
+            host, np.asarray(ref.apply_device(jnp.asarray(x))))
+    dev = spec.apply_device(torch.from_numpy(x))
+    np.testing.assert_array_equal(dev.numpy(), host)

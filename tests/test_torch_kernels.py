@@ -1,26 +1,54 @@
 """The port's kernel modules against the JAX reference, on the CPU.
 
-K1 (``mmlspark_tpu_torch.gbdt.hist_kernel``) and K2 (``select_kernel``) are
-CUDA kernels; on a CPU tensor their wrappers run the plain PyTorch version,
-which is what these tests hold against the reference's Pallas kernels (run
-in interpret mode) and its XLA formulations. The same inputs, made with
-numpy from a seed, go through both. The CUDA kernels themselves are held
-against the plain versions by ``tests/test_torch_cuda.py`` (skipped without a
-card) and by ``chip_smoke.py`` on the card.
+K1 (``mmlspark_tpu_torch.gbdt.hist_kernel``), K2 (``select_kernel``) and K5
+(``mmlspark_tpu_torch.models.flash_kernel``) are CUDA kernels; on a CPU
+tensor their wrappers run the plain PyTorch version, which is what these
+tests hold against the reference's Pallas kernels (run in interpret mode;
+for K5, JAX's library flash-attention kernel) and its XLA formulations. The
+same inputs, made with numpy from a seed, go through both. The CUDA kernels
+themselves are held against the plain versions by
+``tests/test_torch_cuda.py`` (skipped without a card) and by
+``chip_smoke.py`` on the card.
 
-Tolerances: the count channel is exact (integer sums below 2^24); grad and
-hess sums differ from the reference's by summation order only (the port
-accumulates in f64 and rounds once, the reference adds in f32), so
-|port - ref| <= 1e-5 * sum|v| over the bin's rows + 1e-6.
+Tolerances, and why:
+  - K1: the count channel is exact (integer sums below 2^24); grad and hess
+    sums differ from the reference's by summation order only (the port
+    accumulates in f64 and rounds once, the reference adds in f32), so
+    |port - ref| <= 1e-5 * sum|v| over the bin's rows + 1e-6;
+  - K5's plain version against the Pallas flash kernel (bf16, normal(0,
+    1)): max |d| <= 0.02 (measured 0.0156, one bf16 ulp of the output); the
+    Pallas kernel within 0.01 of an f64 recomputation (measured 0.0071).
+    The plain version is the reference's XLA path, whose own error against
+    f64 reaches 0.0122 on causal rows that see few keys (its probabilities
+    are rounded to bf16 after normalising): it is held within 0.0125 of f64
+    and within 0.001 of the XLA path's own error;
+  - K5's plain version against the reference's ``dense_attention`` (its
+    XLA path): 0.02 in bf16 (the same rounding steps; the f32 sums differ
+    in order), 1e-5 in f32, the offset and all-masked cases included;
+  - K5's gate: the same decision as the reference's ``_flash_dispatch`` on
+    the reference's own gate shapes.
 """
 
+import math
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas.ops.tpu.flash_attention import flash_attention
 
 from mmlspark_tpu.gbdt import histogram as ref_hist
 from mmlspark_tpu.gbdt import pallas_hist, pallas_select
+from mmlspark_tpu.models import attention as ref_attention
+from mmlspark_tpu.models.module import matmul_precision as ref_precision
+from mmlspark_tpu_torch.core.dataframe import DataFrame
 from mmlspark_tpu_torch.gbdt import hist_kernel, select_kernel
+from mmlspark_tpu_torch.models import (DNNModel, attention, dense_attention,
+                                       flash_kernel, flash_route,
+                                       transformer_encoder)
+from mmlspark_tpu_torch.runtime import use_device
 
 
 def _hist_inputs(n, f, b, seed=0):
@@ -99,3 +127,243 @@ def test_select_gate_is_the_reference_gate():
     assert select_kernel.use_select(500_000)
     assert pallas_select.use_select(499_999, interpret=True) is False
     assert pallas_select.use_select(500_000, interpret=True) is True
+
+
+# ---------------------------------------------------------------------------
+# K5: the attention's plain version and its gate
+# ---------------------------------------------------------------------------
+
+
+PALLAS_TOL = 0.02       # plain vs the Pallas kernel, bf16
+F64_TOL = 0.01          # the Pallas kernel vs an f64 recomputation
+XLA_F64_TOL = 0.0125    # the XLA path (and so the plain version) vs f64
+XLA_BF16_TOL = 0.02     # plain vs the reference's XLA path, bf16
+XLA_F32_TOL = 1e-5      # the same in f32
+
+
+def _qkv(shape, seed, tk=None):
+    """q [B, T, H, D] and k/v [B, Tk, H, D], f32 normal(0, 1)."""
+    rng = np.random.default_rng(seed)
+    b, t, h, d = shape
+    kshape = (b, tk or t, h, d)
+    return (rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(kshape).astype(np.float32),
+            rng.standard_normal(kshape).astype(np.float32))
+
+
+def _bf16_np(a):
+    """f32 array -> its bf16 rounding, as f32 (exact in both frameworks)."""
+    return np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+def _port(arrs, dtype=torch.bfloat16):
+    return [torch.from_numpy(a).to(dtype) for a in arrs]
+
+
+def _f64_attention(q, k, v, causal):
+    """Exact attention in f64 on [B, T, H, D] inputs."""
+    q, k, v = (np.asarray(a, np.float64) for a in (q, k, v))
+    s = np.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    if causal:
+        t = q.shape[1]
+        s = np.where(np.triu(np.ones((t, t), bool), 1), -np.inf, s)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    return np.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _pallas(q, k, v, causal):
+    """JAX's library flash-attention kernel (what the reference's
+    ``_flash_dispatch`` calls on a TPU), in TPU interpret mode."""
+    tr = [jnp.asarray(a).astype(jnp.bfloat16).transpose(0, 2, 1, 3)
+          for a in (q, k, v)]
+    with pltpu.force_tpu_interpret_mode():
+        o = flash_attention(*tr, causal=causal,
+                            sm_scale=1.0 / math.sqrt(q.shape[-1]))
+    return np.asarray(o.transpose(0, 2, 1, 3).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("shape,causal", [
+    ((2, 256, 4, 64), False), ((2, 256, 4, 64), True),
+    ((1, 1024, 2, 64), False), ((1, 1024, 2, 64), True),
+    ((1, 256, 1, 128), False), ((1, 256, 1, 128), True)])
+def test_plain_matches_pallas_flash_kernel(shape, causal):
+    q, k, v = _qkv(shape, seed=3)
+    ref = _pallas(q, k, v, causal)
+    got = flash_kernel.flash_attention_plain(*_port((q, k, v)), causal)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == shape
+    got = got.float().numpy()
+    assert np.abs(got - ref).max() <= PALLAS_TOL
+    exact = _f64_attention(*(_bf16_np(a) for a in (q, k, v)), causal)
+    xla = ref_attention.dense_attention(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
+        causal=causal)
+    xla_err = np.abs(np.asarray(xla.astype(jnp.float32)) - exact).max()
+    assert np.abs(ref - exact).max() <= F64_TOL
+    assert np.abs(got - exact).max() <= min(XLA_F64_TOL, xla_err + 1e-3)
+
+
+@pytest.mark.parametrize("shape,tk,causal", [
+    ((2, 32, 2, 8), None, False), ((2, 32, 2, 8), None, True),
+    ((1, 64, 2, 64), None, True), ((1, 16, 2, 16), 48, False),
+    ((1, 128, 1, 128), None, False)])
+def test_plain_matches_reference_dense_attention_bf16(shape, tk, causal):
+    q, k, v = _qkv(shape, seed=7, tk=tk)
+    ref = ref_attention.dense_attention(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
+        causal=causal)
+    assert ref.dtype == jnp.bfloat16
+    got = dense_attention(*_port((q, k, v)), causal=causal)
+    assert got.dtype == torch.bfloat16
+    diff = np.abs(got.float().numpy() - np.asarray(ref.astype(jnp.float32)))
+    assert diff.max() <= XLA_BF16_TOL
+
+
+@pytest.mark.parametrize("shape,tk,causal,q_off,k_off", [
+    ((2, 32, 2, 8), None, False, 0, 0), ((2, 32, 2, 8), None, True, 0, 0),
+    ((1, 4, 1, 4), None, True, 0, 100),      # every query before every key
+    ((1, 4, 1, 4), 8, True, 4, 0),           # second query block of 8
+    ((1, 8, 2, 4), None, True, 3, 5)])
+def test_plain_matches_reference_dense_attention_f32(shape, tk, causal,
+                                                     q_off, k_off):
+    q, k, v = _qkv(shape, seed=5, tk=tk)
+    with ref_precision("float32"):
+        ref = np.asarray(ref_attention.dense_attention(
+            *(jnp.asarray(a) for a in (q, k, v)), causal=causal,
+            q_offset=q_off, k_offset=k_off))
+    got = dense_attention(*_port((q, k, v), torch.float32), causal=causal,
+                          q_offset=q_off, k_offset=k_off)
+    assert got.dtype == torch.float32
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), ref, atol=XLA_F32_TOL, rtol=0)
+    if k_off == 100:
+        assert not got.numpy().any()
+
+
+def test_offset_blocks_recompose_full_causal():
+    """Two-block streaming with offsets == full causal attention (the
+    reference's own check, tests/test_attention.py)."""
+    q, k, v = _port(_qkv((1, 8, 1, 4), seed=6), torch.float32)
+    want = dense_attention(q, k, v, causal=True)
+    got = dense_attention(q[:, 4:], k, v, causal=True, q_offset=4)
+    np.testing.assert_allclose(got.numpy(), want[:, 4:].numpy(), atol=1e-6)
+
+
+# (B, T, H, D, dtype, causal, q_offset, Tk) — the reference's gate shapes
+# (tests/test_attention.py) and its other conditions
+GATE_CASES = [
+    ((1, 96, 2, 64), "bfloat16", False, 0, None),    # T % 128
+    ((1, 128, 2, 48), "bfloat16", False, 0, None),   # head dim
+    ((1, 128, 2, 64), "bfloat16", False, 4, None),   # shard offset
+    ((1, 128, 2, 64), "bfloat16", False, 0, None),   # accepted
+    ((1, 128, 2, 64), "float32", False, 0, None),    # f32 stays exact
+    ((1, 128, 1, 64), "bfloat16", True, 0, 256),     # causal, Tq != Tk
+    ((1, 128, 1, 64), "bfloat16", False, 0, 256),    # cross, accepted
+    ((1, 128, 1, 128), "bfloat16", True, 0, None),   # D = 128, accepted
+    ((1, 256, 1, 64), "bfloat16", True, 0, 32),      # Tk % 128
+]
+
+
+def _gate_pair(monkeypatch, shape, dtype, causal, q_off, tk):
+    """(reference routes to its flash kernel, port routes to K5) for one
+    case, with the reference on a pretended TPU and the port's device test
+    accepting CPU tensors."""
+    q, k, v = _qkv(shape, seed=1, tk=tk)
+    jq, jk, jv = (jnp.asarray(a).astype(getattr(jnp, dtype)) for a in (q, k, v))
+    with pltpu.force_tpu_interpret_mode():
+        ref = ref_attention._flash_dispatch(jq, jk, jv, causal, q_off, 0)
+    pq, pk = _port((q, k), getattr(torch, dtype))
+    return ref is not None, flash_route(pq, pk, causal, q_off, 0)
+
+
+@pytest.mark.parametrize("case", GATE_CASES)
+def test_gate_matches_reference_flash_dispatch(monkeypatch, case):
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(attention, "_kernel_device", lambda q: True)
+    monkeypatch.setenv("MMLSPARK_TPU_FLASH_MIN_T", "64")
+    ref, port = _gate_pair(monkeypatch, *case)
+    assert port == ref
+
+
+def test_gate_kill_switch_and_min_length(monkeypatch):
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(attention, "_kernel_device", lambda q: True)
+    case = ((1, 128, 2, 64), "bfloat16", False, 0, None)
+    monkeypatch.setenv("MMLSPARK_TPU_FLASH_MIN_T", "256")
+    assert _gate_pair(monkeypatch, *case) == (False, False)
+    monkeypatch.setenv("MMLSPARK_TPU_FLASH_MIN_T", "128")
+    assert _gate_pair(monkeypatch, *case) == (True, True)
+    monkeypatch.setenv("MMLSPARK_TPU_NO_FLASH", "1")
+    assert _gate_pair(monkeypatch, *case) == (False, False)
+
+
+def test_gate_keeps_cpu_tensors_on_the_plain_path(monkeypatch):
+    """Without a CUDA device the gate never routes (the reference: not a
+    TPU backend). On the kernel's device it routes every length the
+    reference's conditions admit (no length threshold by default), head
+    dims up to 512 included, and raises for a larger one rather than run
+    the plain version."""
+    q, k, _ = _port(_qkv((1, 128, 2, 64), seed=0))
+    assert not flash_route(q, k, False)
+    monkeypatch.setattr(attention, "_kernel_device", lambda q: True)
+    assert flash_route(q, k, False)
+    for d in (384, 512):
+        q, k, _ = _port(_qkv((1, 128, 1, d), seed=0))
+        assert flash_route(q, k, True)
+    q, k, _ = _port(_qkv((1, 128, 1, 640), seed=0))
+    with pytest.raises(NotImplementedError, match="B5"):
+        flash_route(q, k, False)
+    monkeypatch.setenv("MMLSPARK_TPU_NO_FLASH", "1")
+    assert not flash_route(q, k, False)
+
+
+def test_wrapper_checks_kernel_inputs():
+    q, k, v = _port(_qkv((1, 128, 2, 64), seed=0))
+    with pytest.raises(TypeError):
+        flash_kernel._check_inputs(q.float(), k, v, False)
+    with pytest.raises(ValueError):
+        flash_kernel._check_inputs(q[:, :100], k, v, False)
+    with pytest.raises(ValueError):
+        flash_kernel._check_inputs(q, k[:, :64], v[:, :64], True)
+    with pytest.raises(ValueError):
+        flash_kernel._check_inputs(q[..., :48].contiguous(), k, v, False)
+    flash_kernel._check_inputs(q, k, v, True)
+    # a CPU tensor runs the plain version, another device raises
+    assert torch.equal(flash_kernel.flash_attention(q, k, v, True),
+                       flash_kernel.flash_attention_plain(q, k, v, True))
+    with pytest.raises(ValueError):
+        flash_kernel.flash_attention(q.to("meta"), k, v)
+
+
+def test_gate_routes_through_k5_with_no_fallback(monkeypatch):
+    """With the gate forced to route CPU tensors to a K5 wrapper that
+    raises, DNNModel.transform raises: no fallback hides the kernel."""
+    monkeypatch.setenv("MMLSPARK_TPU_FLASH_MIN_T", "128")
+    model = transformer_encoder(seq_len=128, dim=64, depth=1, num_heads=1,
+                                vocab_size=30, seed=0)
+    rng = np.random.default_rng(0)
+    df = DataFrame.from_dict({"tokens": [rng.integers(0, 30, 128)
+                                         for _ in range(3)]})
+    stage = DNNModel(inputCol="tokens", outputCol="emb", batchSize=4)
+    stage.set_model(model)
+    with use_device("cpu"):
+        want = np.stack(list(stage.transform(df).column("emb")))
+    calls = []
+
+    def routed(q, k, v, causal=False):
+        calls.append(tuple(q.shape))
+        return flash_kernel.flash_attention_plain(q, k, v, causal)
+
+    monkeypatch.setattr(attention, "_kernel_device", lambda q: True)
+    monkeypatch.setattr(flash_kernel, "flash_attention", routed)
+    with use_device("cpu"):
+        got = np.stack(list(stage.transform(df).column("emb")))
+    assert calls == [(4, 128, 1, 64)]
+    np.testing.assert_array_equal(got, want)
+
+    def broken(q, k, v, causal=False):
+        raise RuntimeError("flash_attn kernel launch: CUDA error 98")
+
+    monkeypatch.setattr(flash_kernel, "flash_attention", broken)
+    with use_device("cpu"), pytest.raises(RuntimeError, match="flash_attn"):
+        stage.transform(df)

@@ -52,7 +52,7 @@ PACKAGES=(
   "tests/test_sparse_e2e.py"
   "tests/test_pipeline_mesh.py"
   "tests/test_multimodel.py"
-  "tests/test_torch_kernels.py tests/test_torch_gbdt.py tests/test_torch_import.py tests/test_torch_cuda.py tests/test_torch_sparse.py tests/test_torch_fusion.py tests/test_torch_attention.py tests/test_torch_models.py"
+  "tests/test_torch_kernels.py tests/test_torch_gbdt.py tests/test_torch_import.py tests/test_torch_cuda.py tests/test_torch_sparse.py tests/test_torch_fusion.py"
   "tests/test_multiprocess.py"
   "tests/test_examples.py"
 )
