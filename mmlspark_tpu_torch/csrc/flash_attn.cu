@@ -1,4 +1,4 @@
-// K5: flash-attention forward for Hopper, bf16 in, f32 accumulate.
+// K5: flash-attention forward for Hopper (sm_90a), bf16 in, f32 accumulate.
 //
 // Replaces the TPU route mmlspark_tpu/models/attention.py:_flash_dispatch,
 // which calls the library kernel jax.experimental.pallas.ops.tpu.
@@ -10,68 +10,212 @@
 // (the reference transposes to [B, H, T, D] for the library kernel; nothing
 // here needs that), non-causal or full-square causal (Tq == Tk, key j
 // visible to query i when j <= i), output bf16 [B, Tq, H, D].
-// sm_scale = 1/sqrt(D) multiplies the f32 scores, as the library kernel
-// does (the reference's XLA path scales k in bf16 instead, which rounds at
-// D = 128; both are within the reference's 0.05 bound).
+// The numeric contract: the scores are f32, scaled by sm_scale * log2(e)
+// (sm_scale = 1/sqrt(D) multiplies the f32 scores, as the library kernel
+// does); the softmax is online, a running row max and sum in f32 with the
+// accumulator rescaled per key tile; P is rounded to bf16 unnormalised
+// before P V, and the output is divided by the row sum once at the end.
 //
 // Bound on the H100: operations. Per (b, h) the two products are
 // 4 * Tq * Tk * D flops (halved under causal masking) against 2 bytes per
 // element of q, k, v and o: at T = 2048, D = 64 that is ~2,000 flops per
-// byte, far above the card's ~295 (989 TFLOP/s bf16 / 3.35 TB/s). The
-// softmax's exponentials (one per score) ride the SFU beside the tensor
-// cores.
+// byte, far above the card's ~295 (989 TFLOP/s bf16 / 3.35 TB/s). At
+// D = 64 the softmax's exponentials (one per score, 256 flops of product
+// each) take as many SFU cycles as the products take tensor-core cycles,
+// so they have to run beside the products, not between them.
 //
-// Design (simple, right first; wgmma, TMA and warp specialisation are later
-// work):
-//   - one CTA of 4 warps per (64-query tile, head and chunk of output
-//     columns, batch); each warp owns 16 query rows, and each thread two
-//     rows (g and g + 8 of its warp's 16);
-//   - a CTA writes DV of the D output columns: DV = D up to D = 256, and
-//     D / 2 at D = 384 and 512, where the f32 accumulator of all D columns
-//     would not fit in a thread's registers. Each of the two CTAs of such a
-//     row tile computes the whole of S = Q K^T (the second time is the price
-//     of the split) and its half of P V;
-//   - the CTA's Q tile and, in turn, each 64-key tile of K and DV columns of
-//     V sit in shared memory, rows padded by 16 bytes so the fragment loads
-//     hit 32 distinct banks; at D = 256 the three tiles need 99 KB and at
-//     D = 512 163 KB, which the launch opts into
-//     (cudaFuncAttributeMaxDynamicSharedMemorySize);
-//   - S = Q K^T and O += P V run on the tensor cores as
-//     mma.sync.m16n8k16 with bf16 operands and f32 accumulators;
-//   - the softmax is online: a running row max m and sum l in f32, the
-//     accumulator rescaled by exp(m_old - m_new) per tile; P is rounded to
-//     bf16 before P V, as the reference's XLA path rounds its probabilities
-//     (attention.py:120), and the output is divided by l once at the end;
-//   - under causal masking the K/V tiles wholly above the diagonal are
-//     skipped and the diagonal tile is masked element by element.
+// Design (flash_fwd_sm90, every head dim):
+//   - one CTA per (64 * kWG query rows, head, batch): kWG consumer
+//     warpgroups of 64 rows each (3 at D = 64, 2 above, where the output
+//     accumulator is larger) and one producer warpgroup, of which one
+//     thread works; setmaxnreg moves registers from the producer (24 a
+//     thread) to the consumers (160 with three, 240 with two). Each K/V
+//     tile read from L2 serves 192 or 128 queries;
+//   - the producer loads the CTA's Q once, then K and V tiles of kN keys
+//     (kN = 128 at D = 64 and 128, 64 at D = 256, 32 at D = 384 and 512)
+//     into a ring of kStages shared-memory stages (as many as fit beside Q,
+//     at most 3: 2 at D = 256 and 512), each with mbarriers: a full barrier
+//     for K and one for V (TMA completes them), and a free barrier for
+//     each, on which every consumer warp arrives once its products have
+//     read the tile: K right after S = Q K^T, V after P V a softmax later,
+//     so the next K loads while P V still reads V. The loads are TMA
+//     (cp.async.bulk.tensor.4d) through CUtensorMaps over the strided
+//     [B, T, H, D] views (D innermost, then T, H, B), passed as
+//     __grid_constant__ kernel parameters and built on the host with
+//     cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so
+//     the library needs no -lcuda. A box is 64 columns (128 bytes) wide,
+//     128-byte swizzled, so a tile of D columns is D/64 boxes;
+//   - S = Q K^T is wgmma.mma_async m64nNk16 (N = kN) with both operands
+//     K-major in shared memory; O += P V is m64nDk16 (N = kDV, the output
+//     columns of the CTA) with P, converted to
+//     bf16 in registers, as A (the f32 accumulator layout of S is the A
+//     fragment layout) and V read N-major ("transposed") from the same
+//     swizzled tiles;
+//   - within a warpgroup the products of one tile overlap the softmax of
+//     another: S_j = Q K_j^T and O += P_{j-1} V_{j-1} are issued together,
+//     the softmax of S_j runs while P_{j-1} V_{j-1} is in flight, and O is
+//     rescaled once it lands; the consumer warpgroups take turns to issue
+//     their products (named barriers), so one's softmax runs under the
+//     other's products;
+//   - ragged lengths: TMA zero-fills rows past Tq and Tk, keys past Tk get
+//     a score of -inf, and the output goes back by TMA store, which drops
+//     rows past Tq;
+//   - causal masking: key tiles wholly above a warpgroup's diagonal are not
+//     computed (their stages are still waited for and released), the tiles
+//     that cross it are masked element by element, and the CTAs with the
+//     most tiles start first;
+//   - the output is divided by l, rounded to bf16 and written into the
+//     warpgroup's own (no longer needed) Q tile in the TMA box layout, then
+//     stored with one TMA store per 64 columns;
+//   - at D = 384 and 512 a CTA writes half the output columns (kDV = D/2):
+//     an f32 accumulator of all D columns would take 192-256 registers a
+//     thread. The two CTAs of a row tile each compute all of S = Q K^T and
+//     half of P V, loading only their half of V; with 32-key tiles, Q
+//     (96-128 KB) and two or three K/V stages fit in shared memory.
 // No atomics: every output element has one writer, and the result does not
 // depend on the order the CTAs run in.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
-constexpr int kBlockM = 64;  // query rows per CTA, 16 per warp
-constexpr int kBlockN = 64;  // keys per K/V tile
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kPad = 8;  // bf16 elements of padding per shared-memory row
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {  // in elements
   int64_t b, t, h;
 };
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__host__ __device__ constexpr int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+// ---------------------------------------------------------------- PTX helpers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait for the phase with the given parity to complete. A wait that lasts
+// ~10 s traps (a launch error) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  long long t0 = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "%2; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > (1ll << 34)) {
+      __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1, int c2,
+                                         int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across this point
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) asm volatile("" : "+r"(r[i][c])::"memory");
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile (rows of 128
+// bytes, 8-row atoms of 1024 bytes): start address, leading and stride
+// byte offsets (16-byte units), layout type 1 = 128B swizzle
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // two f32 -> one bf16x2 register, ``lo`` in the low half
@@ -80,239 +224,420 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// two adjacent bf16 in shared memory as one register
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// ----------------------------------------------------------------- the kernel
 
-// two bf16 from separate addresses as one register, ``lo`` in the low half
-__device__ __forceinline__ uint32_t ld_two(const __nv_bfloat16* lo,
-                                           const __nv_bfloat16* hi) {
-  const uint32_t a = *reinterpret_cast<const uint16_t*>(lo);
-  const uint32_t b = *reinterpret_cast<const uint16_t*>(hi);
-  return a | (b << 16);
-}
-
-// 64 rows of one head (D bf16 each, ``row_stride`` apart in global memory)
-// into shared memory [64][D + kPad], 16 bytes per thread per step
 template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int64_t row_stride, int tid) {
-  constexpr int kChunks = D / 8;
-#pragma unroll 4
-  for (int c = tid; c < kBlockN * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + col) =
-        *reinterpret_cast<const uint4*>(src + r * row_stride + col);
+struct Sm90Cfg {
+  static constexpr int kDV = D <= 256 ? D : D / 2;  // output columns per CTA
+  static constexpr int kColSplit = D / kDV;
+  static constexpr int kWG = D == 64 ? 3 : 2;       // consumer warpgroups
+  static constexpr int kM = 64 * kWG;               // query rows per CTA
+  static constexpr int kN = D <= 128 ? 128 : D == 256 ? 64 : 32;  // keys
+  static constexpr int kChunks = D / 64;     // 64-column TMA boxes of Q, K
+  static constexpr int kVChunks = kDV / 64;  // and of V and O
+  static constexpr int kThreads = 128 * (kWG + 1);
+  static constexpr int kQBytes = 64 * D * 2;      // one warpgroup's Q rows
+  static constexpr int kKBytes = kN * D * 2;      // one K tile
+  static constexpr int kVBytes = kN * kDV * 2;    // one V tile
+  // as many stages as fit (at most 3) beside Q in 227 KB, with 1 KB of
+  // alignment slack and room for the barriers
+  static constexpr int kFit =
+      (232448 - 1024 - 256 - kWG * kQBytes) / (kKBytes + kVBytes);
+  static constexpr int kStages = kFit < 3 ? kFit : 3;
+  static constexpr int kSmem =
+      kWG * kQBytes + kStages * (kKBytes + kVBytes) + 1024;
+  static_assert(kStages >= 2, "a K/V ring needs two stages");
+  // 65,536 registers: 24 a producer thread, the rest to the consumers
+  static constexpr int kConsumerRegs = kWG == 2 ? 240 : 160;
+  static constexpr int kProducerRegs = 24;
+};
+
+// The consumer warpgroups take turns to issue their products, in order
+// 0, 1, .., kWG - 1, 0, ..: warpgroup w waits at named barrier 1 + w for
+// the previous one's pass. So one warpgroup's softmax runs under another's
+// products instead of all of them contending for the tensor cores at once.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;" ::"r"(1 + wg) : "memory");
+}
+
+template <int kWG>
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(1 + (wg + 1) % kWG) : "memory");
+}
+
+// scale, mask, online max and sum of one S tile; leaves exp2 of the scaled,
+// shifted scores in ``s`` and the factor the accumulator must be rescaled
+// by in ``corr``. m_run is kept in unscaled score units; l_run holds this
+// thread's share of each row's sum (its quad is summed at the end).
+template <int kN, bool kCausal>
+__device__ __forceinline__ void online_softmax(float (&s)[kN / 2],
+                                               float (&m_run)[2],
+                                               float (&l_run)[2],
+                                               float (&corr)[2], int n0,
+                                               int row0, int row_first, int tk,
+                                               float scale_log2, int lane) {
+  const bool need_mask =
+      n0 + kN > tk || (kCausal && n0 + kN - 1 > row_first);
+  if (need_mask) {
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) {
+      const int key = n0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      const int row = row0 + 8 * ((i >> 1) & 1);
+      if (key >= tk || (kCausal && key > row)) s[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) {
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  }
+  float msc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_run[r], mx[r]);
+    // a row with no visible key yet keeps exp2 finite: exp2(-inf) = 0
+    msc[r] = m_new == -INFINITY ? 0.f : m_new * scale_log2;
+    corr[r] = ex2(m_run[r] * scale_log2 - msc[r]);
+    m_run[r] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) {
+    const float p = ex2(fmaf(s[i], scale_log2, -msc[(i >> 1) & 1]));
+    s[i] = p;
+    rs[(i >> 1) & 1] += p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + rs[r];
+}
+
+// P rounded to bf16, as the A operand of P V: keys 16kk..16kk+15
+template <int kN>
+__device__ __forceinline__ void pack_p(const float (&s)[kN / 2],
+                                       uint32_t (&p)[kN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kN / 16; ++kk) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      p[kk][c] = pack_f32(s[8 * kk + 2 * c], s[8 * kk + 2 * c + 1]);
+    }
   }
 }
 
-// the output columns one CTA writes (see the design note above)
-__host__ __device__ constexpr int chunk_cols(int d) {
-  return d <= 256 ? d : d / 2;
+template <int kN, int kChunks>
+__device__ __forceinline__ void issue_qk(float (&s)[kN / 2],
+                                         const uint8_t* sq,
+                                         const uint8_t* sk) {
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss<kN>(s, desc_sw128(sq + c * 8192 + kk * 32, 16, 1024),
+                   desc_sw128(sk + c * kN * 128 + kk * 32, 16, 1024),
+                   (c | kk) != 0);
+    }
+  }
+  wgmma_commit();
+}
+
+template <int DV, int kN>
+__device__ __forceinline__ void issue_pv(float (&o)[DV / 2],
+                                         const uint32_t (&p)[kN / 16][4],
+                                         const uint8_t* sv) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kN / 16; ++kk) {
+    // 16 keys = two 8-row atoms; the DV columns are DV/64 boxes kN*128 apart
+    wgmma_rs<DV>(o, p[kk], desc_sw128(sv + kk * 2048, kN * 128, 1024), 1);
+  }
+  wgmma_commit();
 }
 
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int tk, Strides qs, Strides ks,
-                 Strides vs, Strides os, float scale_log2) {
-  constexpr int DV = chunk_cols(D);
-  constexpr int kColChunks = D / DV;
-  constexpr int kRow = D + kPad;
-  constexpr int kRowV = DV + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kBlockM * kRow;
-  __nv_bfloat16* sV = sK + kBlockN * kRow;
+__global__ void __launch_bounds__(Sm90Cfg<D>::kThreads, 1)
+    flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_o, int tq, int tk,
+                   float scale_log2) {
+  using C = Sm90Cfg<D>;
+  constexpr int kN = C::kN;
+  constexpr int kStages = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q;
+  __shared__ __align__(8) uint64_t bar_k[kStages];
+  __shared__ __align__(8) uint64_t bar_v[kStages];
+  __shared__ __align__(8) uint64_t bar_ek[kStages];  // K stage read
+  __shared__ __align__(8) uint64_t bar_ev[kStages];  // V stage read
+  // 128-byte swizzled tiles need 1024-byte alignment
+  uint8_t* sq = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sk = sq + C::kWG * C::kQBytes;  // [stage][chunk][kN][64]
+  uint8_t* sv = sk + kStages * C::kKBytes;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // row within the mma tile
-  const int t = lane & 3;   // column pair within the mma tile
-  const int qt = blockIdx.x;
-  const int h = blockIdx.y / kColChunks;
-  const int col0 = (blockIdx.y % kColChunks) * DV;  // first output column
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  // causal: the longest rows first
+  const int m_block = kCausal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y / C::kColSplit;
+  const int col0 = (blockIdx.y % C::kColSplit) * C::kDV;  // first output col
   const int b = blockIdx.z;
-  const int64_t q0 = (int64_t)qt * kBlockM;
+  const int q0 = m_block * C::kM;
+  const int n_tiles = kCausal ? min(ceil_div(tk, kN), ceil_div(q0 + C::kM, kN))
+                              : ceil_div(tk, kN);
 
-  const __nv_bfloat16* qb = q + b * qs.b + q0 * qs.t + h * qs.h;
-  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h + col0;
-  load_tile<D>(sQ, qb, qs.t, tid);
-
-  float acc[DV / 8][4];
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
 #pragma unroll
-  for (int n = 0; n < DV / 8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bar_k[s], 1);
+      mbar_init(&bar_v[s], 1);
+      mbar_init(&bar_ek[s], C::kWG * 4);  // one arrival per consumer warp
+      mbar_init(&bar_ev[s], C::kWG * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  float m_run[2] = {-INFINITY, -INFINITY};  // running max, log2 units
-  float l_run[2] = {0.f, 0.f};              // running sum of exp
-  const int row_a = warp * 16 + g;          // this thread's rows: row_a, +8
-  // causal: Tq == Tk, so query tile qt sees key tiles 0..qt
-  const int n_tiles = kCausal ? qt + 1 : tk / kBlockN;
+  __syncthreads();
 
-  for (int j = 0; j < n_tiles; ++j) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(sK, kb + (int64_t)j * kBlockN * ks.t, ks.t, tid);
-    load_tile<DV>(sV, vb + (int64_t)j * kBlockN * vs.t, vs.t, tid);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const __nv_bfloat16* qa = sQ + row_a * kRow + kk * 16 + 2 * t;
-      const uint32_t a[4] = {ld_pair(qa), ld_pair(qa + 8 * kRow),
-                             ld_pair(qa + 8), ld_pair(qa + 8 * kRow + 8)};
-#pragma unroll
-      for (int n = 0; n < kBlockN / 8; ++n) {
-        const __nv_bfloat16* kp = sK + (n * 8 + g) * kRow + kk * 16 + 2 * t;
-        mma_bf16(s[n], a, ld_pair(kp), ld_pair(kp + 8));
-      }
-    }
-
-    // scale (log2 units), mask the diagonal tile, row max over the tile
-    const bool diag = kCausal && j == qt;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = s[n][c] * scale_log2;
-        if (diag) {
-          const int key = n * 8 + 2 * t + (c & 1);
-          const int row = row_a + ((c >> 1) << 3);
-          if (key > row) x = -INFINITY;
+  if (wg == C::kWG) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<C::kProducerRegs>();
+    if (tid == 0) {
+      mbar_expect_tx(&bar_q, C::kWG * C::kQBytes);
+      for (int w = 0; w < C::kWG; ++w) {
+        for (int c = 0; c < C::kChunks; ++c) {
+          tma_load(sq + w * C::kQBytes + c * 8192, &tm_q, &bar_q, c * 64,
+                   q0 + 64 * w, h, b);
         }
-        s[n][c] = x;
-        mx[c >> 1] = fmaxf(mx[c >> 1], x);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        const uint32_t free_parity = ((j / kStages) & 1) ^ 1;
+        uint8_t* dk = sk + st * C::kKBytes;
+        uint8_t* dv = sv + st * C::kVBytes;
+        mbar_wait(&bar_ek[st], free_parity);
+        mbar_expect_tx(&bar_k[st], C::kKBytes);
+        for (int c = 0; c < C::kChunks; ++c) {
+          tma_load(dk + c * kN * 128, &tm_k, &bar_k[st], c * 64, j * kN, h, b);
+        }
+        mbar_wait(&bar_ev[st], free_parity);
+        mbar_expect_tx(&bar_v[st], C::kVBytes);
+        for (int c = 0; c < C::kVChunks; ++c) {
+          tma_load(dv + c * kN * 128, &tm_v, &bar_v[st], col0 + c * 64,
+                   j * kN, h, b);
+        }
       }
     }
-    // a row's 64 scores sit in the 4 threads of its group
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-    float m_use[2], corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      // a row with no visible key yet keeps exp() finite: exp(-inf) = 0
-      m_use[r] = m_new == -INFINITY ? 0.f : m_new;
-      corr[r] = exp2f(m_run[r] - m_use[r]);
-      m_run[r] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < kBlockN / 8; ++n) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = exp2f(s[n][c] - m_use[c >> 1]);
-        s[n][c] = p;
-        rs[c >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l_run[r] = l_run[r] * corr[r] + rs[r];
-    }
-#pragma unroll
-    for (int n = 0; n < DV / 8; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    setmaxnreg_inc<C::kConsumerRegs>();
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int row_first = q0 + 64 * wg;               // this warpgroup's rows
+    const int row0 = row_first + 16 * warp + lane / 4;  // this thread's: +0, +8
+    // under causal masking the later tiles lie wholly above this
+    // warpgroup's diagonal: waited for and released, not computed
+    const int n_comp =
+        kCausal ? min(n_tiles, (row_first + 63) / kN + 1) : n_tiles;
+    uint8_t* sqw = sq + wg * C::kQBytes;
 
-    // O += P V: the S accumulators of key columns 16kk..16kk+15 are the A
-    // operand's layout, rounded to bf16
+    constexpr int kDV = C::kDV;
+    float o[kDV / 2];
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t a[4] = {pack_f32(s[2 * kk][0], s[2 * kk][1]),
-                             pack_f32(s[2 * kk][2], s[2 * kk][3]),
-                             pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const __nv_bfloat16* vrow = sV + (kk * 16 + 2 * t) * kRowV + g;
+    for (int i = 0; i < kDV / 2; ++i) o[i] = 0.f;
+    float s[kN / 2];
 #pragma unroll
-      for (int n = 0; n < DV / 8; ++n) {
-        const __nv_bfloat16* vp = vrow + n * 8;
-        mma_bf16(acc[n], a, ld_two(vp, vp + kRowV),
-                 ld_two(vp + 8 * kRowV, vp + 9 * kRowV));
+    for (int i = 0; i < kN / 2; ++i) s[i] = 0.f;
+    uint32_t p[kN / 16][4];
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};
+    float corr[2];
+
+    if (wg == C::kWG - 1) turn_pass<C::kWG>(wg);  // warpgroup 0 goes first
+    mbar_wait(&bar_q, 0);
+    mbar_wait(&bar_k[0], 0);
+    turn_wait(wg);
+    issue_qk<kN, C::kChunks>(s, sqw, sk);
+    turn_pass<C::kWG>(wg);
+    wgmma_wait<0>();
+    fence_regs(s);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&bar_ek[0]);
+    online_softmax<kN, kCausal>(s, m_run, l_run, corr, 0, row0, row_first, tk,
+                                scale_log2, lane);
+    pack_p<kN>(s, p);
+
+    for (int j = 1; j < n_comp; ++j) {
+      const int st = j % kStages;
+      const int pst = (j - 1) % kStages;
+      mbar_wait(&bar_k[st], (j / kStages) & 1);
+      turn_wait(wg);
+      issue_qk<kN, C::kChunks>(s, sqw, sk + st * C::kKBytes);
+      mbar_wait(&bar_v[pst], ((j - 1) / kStages) & 1);
+      issue_pv<kDV, kN>(o, p, sv + pst * C::kVBytes);
+      turn_pass<C::kWG>(wg);
+      wgmma_wait<1>();  // S_j has landed; P_{j-1} V_{j-1} may still run
+      fence_regs(s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bar_ek[st]);
+      online_softmax<kN, kCausal>(s, m_run, l_run, corr, j * kN, row0,
+                                  row_first, tk, scale_log2, lane);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(p);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bar_ev[pst]);
+#pragma unroll
+      for (int i = 0; i < kDV / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      pack_p<kN>(s, p);
+    }
+    {
+      const int last = n_comp - 1;
+      const int st = last % kStages;
+      mbar_wait(&bar_v[st], (last / kStages) & 1);
+      turn_wait(wg);
+      issue_pv<kDV, kN>(o, p, sv + st * C::kVBytes);
+      turn_pass<C::kWG>(wg);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(p);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bar_ev[st]);
+    }
+    for (int j = n_comp; j < n_tiles; ++j) {
+      const int st = j % kStages;
+      mbar_wait(&bar_k[st], (j / kStages) & 1);
+      mbar_wait(&bar_v[st], (j / kStages) & 1);
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(&bar_ek[st]);
+        mbar_arrive(&bar_ev[st]);
+      }
+      turn_wait(wg);  // every warpgroup takes as many turns
+      turn_pass<C::kWG>(wg);
+    }
+    if (wg == 0) turn_wait(wg);  // the last warpgroup's last pass
+
+    // divide by l once, round to bf16 and stage the rows in this
+    // warpgroup's Q tile, in the TMA box layout (row rr of a 64-column box
+    // at rr * 128 bytes, 16-byte unit u at (u ^ rr % 8) * 16)
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[r] = l > 0.f ? 1.f / l : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kDV / 8; ++i) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int rr = 16 * warp + lane / 4 + 8 * hf;
+        uint8_t* dst = sqw + (i / 8) * 8192 + rr * 128 +
+                       (((i % 8) ^ (rr % 8)) * 16) + (lane & 3) * 4;
+        *reinterpret_cast<uint32_t*>(dst) =
+            pack_f32(o[4 * i + 2 * hf] * inv[hf],
+                     o[4 * i + 2 * hf + 1] * inv[hf]);
       }
     }
-  }
-
-  // divide by l once, round to bf16, store this thread's two rows
-  const float inv0 = l_run[0] > 0.f ? 1.f / l_run[0] : 0.f;
-  const float inv1 = l_run[1] > 0.f ? 1.f / l_run[1] : 0.f;
-  __nv_bfloat16* o0 = o + b * os.b + (q0 + row_a) * os.t + h * os.h + col0;
-  __nv_bfloat16* o1 = o0 + 8 * os.t;
-#pragma unroll
-  for (int n = 0; n < DV / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(o0 + col) =
-        pack_f32(acc[n][0] * inv0, acc[n][1] * inv0);
-    *reinterpret_cast<uint32_t*>(o1 + col) =
-        pack_f32(acc[n][2] * inv1, acc[n][3] * inv1);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(8 + wg) : "memory");
+    if (tid == 0) {
+      for (int c = 0; c < C::kVChunks; ++c) {
+        tma_store(&tm_o, sqw + c * 8192, col0 + c * 64, row_first, h, b);
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    }
   }
 }
 
-template <int D, bool kCausal>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int heads, int tq, int tk, const Strides (&st)[4], float sm_scale,
-           cudaStream_t stream) {
-  constexpr int DV = chunk_cols(D);
-  const int smem = (2 * (D + kPad) + DV + kPad) * kBlockM *
-                   (int)sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, kCausal>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tq / kBlockM, heads * (D / DV), batch);
-  flash_fwd_kernel<D, kCausal><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      tk, st[0], st[1], st[2], st[3], sm_scale * kLog2e);
-  return (int)cudaGetLastError();
+// ------------------------------------------------------------------ host side
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded (no -lcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a 4-D map over one strided bf16 [B, T, H, D] tensor, in TMA's order
+// (D, T, H, B), boxes of 64 columns x ``rows`` rows, 128-byte swizzled;
+// reads past T come back as zeros and stores past T are dropped
+bool make_map(CUtensorMap* map, const void* ptr, int batch, int t, int heads,
+              int d, const Strides& st, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.t * 2, (cuuint64_t)st.h * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
-int launch_d(const void* q, const void* k, const void* v, void* o, int batch,
-             int heads, int tq, int tk, int causal, const Strides (&st)[4],
-             float sm_scale, cudaStream_t stream) {
-  return causal ? launch<D, true>(q, k, v, o, batch, heads, tq, tk, st,
-                                  sm_scale, stream)
-                : launch<D, false>(q, k, v, o, batch, heads, tq, tk, st,
-                                   sm_scale, stream);
+int launch(const void* q, const void* k, const void* v, void* o, int batch,
+           int heads, int tq, int tk, int causal, const Strides (&st)[4],
+           float sm_scale, cudaStream_t stream) {
+  using C = Sm90Cfg<D>;
+  CUtensorMap mq, mk, mv, mo;
+  if (!make_map(&mq, q, batch, tq, heads, D, st[0], 64) ||
+      !make_map(&mk, k, batch, tk, heads, D, st[1], C::kN) ||
+      !make_map(&mv, v, batch, tk, heads, D, st[2], C::kN) ||
+      !make_map(&mo, o, batch, tq, heads, D, st[3], 64)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto* kernel = causal ? flash_fwd_sm90<D, true> : flash_fwd_sm90<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(ceil_div(tq, C::kM), heads * C::kColSplit, batch);
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(mq, mk, mv, mo, tq, tk,
+                                                  sm_scale * kLog2e);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, o: bf16 [B, T, H, D] with the given element strides (batch, time,
 // head per tensor, in that order: q, k, v, o; the last dimension is
-// contiguous). Tq and Tk are multiples of 64, causal needs Tq == Tk, and D
-// is 64, 128, 256, 384 or 512. Returns a cudaError_t code.
+// contiguous, the strides multiples of 8 and the base 16-byte aligned). Tq
+// and Tk are multiples of 64, causal needs Tq == Tk, and D is 64, 128, 256,
+// 384 or 512. Returns a cudaError_t code.
 extern "C" int mmlspark_flash_attn_fwd(const void* q, const void* k,
                                        const void* v, void* o, int batch,
                                        int heads, int tq, int tk, int head_dim,
                                        int causal, const int64_t* strides,
                                        float sm_scale, void* stream) {
   if (batch <= 0 || heads <= 0 || tq <= 0) return (int)cudaGetLastError();
-  if (tq % kBlockM || tk <= 0 || tk % kBlockN || (causal && tq != tk)) {
+  if (tq % 64 || tk <= 0 || tk % 64 || (causal && tq != tk)) {
     return (int)cudaErrorInvalidValue;
   }
   Strides st[4];
@@ -322,20 +647,20 @@ extern "C" int mmlspark_flash_attn_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return launch_d<64>(q, k, v, o, batch, heads, tq, tk, causal, st,
-                          sm_scale, s);
+      return launch<64>(q, k, v, o, batch, heads, tq, tk, causal, st,
+                       sm_scale, s);
     case 128:
-      return launch_d<128>(q, k, v, o, batch, heads, tq, tk, causal, st,
-                           sm_scale, s);
+      return launch<128>(q, k, v, o, batch, heads, tq, tk, causal, st,
+                        sm_scale, s);
     case 256:
-      return launch_d<256>(q, k, v, o, batch, heads, tq, tk, causal, st,
-                           sm_scale, s);
+      return launch<256>(q, k, v, o, batch, heads, tq, tk, causal, st,
+                        sm_scale, s);
     case 384:
-      return launch_d<384>(q, k, v, o, batch, heads, tq, tk, causal, st,
-                           sm_scale, s);
+      return launch<384>(q, k, v, o, batch, heads, tq, tk, causal, st,
+                        sm_scale, s);
     case 512:
-      return launch_d<512>(q, k, v, o, batch, heads, tq, tk, causal, st,
-                           sm_scale, s);
+      return launch<512>(q, k, v, o, batch, heads, tq, tk, causal, st,
+                        sm_scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

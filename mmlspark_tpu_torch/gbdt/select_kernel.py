@@ -4,17 +4,20 @@ Replaces the TPU kernel ``mmlspark_tpu/gbdt/pallas_select.py:_select_kernel``
 (``select_rows``): a stable compaction of the masked rows of feature-major
 bins, grad and hess into ``cap``-wide buffers, zero past the count,
 bit-exact. The TPU kernel reformulates it as one-hot MXU contractions; on
-Hopper it is per-tile counts, a scan of the counts and a ballot/popc
-scatter that writes the [F, cap] output directly (see the source).
+Hopper it is two launches: per-block counts of the mask, then per block a
+ballot compaction of its selected row indices into shared memory, copies
+by the whole block from that list into the [F, cap] outputs, and the
+block's share of the zero tail (see the source). The outputs are allocated
+empty: the kernel writes every element once.
 
-Bound on the H100: bytes — the mask, the selected rows' bins, grad and hess
-read once and written once: ~72 us at N = 2M, F = 28 with half the rows
-selected, against 3.35 TB/s.
+Bound on the H100: bytes — the mask and the selected rows' bins, grad and
+hess read once, the [F + 2, cap] outputs written once: ~61 us at N = 2M,
+F = 28, 30% of the rows selected and cap = 1M, against 3.35 TB/s.
 
 ``select_rows`` is the wrapper: a CPU tensor takes ``select_rows_plain``, a
 CUDA tensor launches the kernel (there is no fallback), anything else
 raises. ``launches`` counts kernel launches (one per wrapper call; the
-call runs the count, scan and scatter launches of one compaction).
+call runs the ``LAUNCHES_PER_CALL`` CUDA launches of one compaction).
 """
 
 from __future__ import annotations
@@ -28,6 +31,13 @@ from .. import _kernels
 
 #: kernel launches since the counter was last set to 0
 launches = 0
+
+#: CUDA launches in one compaction: the count kernel and the scatter kernel
+LAUNCHES_PER_CALL = 2
+#: rows per chunk of the scatter kernel, and the most row blocks it takes
+#: (each block sums the counts of the blocks before it)
+CHUNK_ROWS = 2048
+MAX_BLOCKS = 1024
 
 #: mask width from which the grower compacts through the kernel — the
 #: reference's ``use_select`` gate (pallas_select.py), kept until a
@@ -81,15 +91,23 @@ def _check_inputs(bins_fm, grad, hess, mask) -> None:
         raise ValueError("bins must be contiguous")
 
 
-def _lib():
-    lib = _kernels.lib("select")
-    if lib.mmlspark_select.argtypes is None:
-        lib.mmlspark_select.argtypes = [ctypes.c_void_p] * 9 + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
-        lib.mmlspark_select.restype = ctypes.c_int
-        lib.mmlspark_select_tiles.argtypes = [ctypes.c_int64]
-        lib.mmlspark_select_tiles.restype = ctypes.c_int64
-    return lib
+def row_blocks(n: int) -> Tuple[int, int]:
+    """(rows per block, blocks) of the kernel's grid for ``n`` rows: whole
+    chunks of ``CHUNK_ROWS``, at most ``MAX_BLOCKS`` blocks, at least one
+    (it writes the zero outputs of an empty mask too)."""
+    chunks = max(1, -(-n // CHUNK_ROWS))
+    per = -(-chunks // MAX_BLOCKS)
+    return per * CHUNK_ROWS, -(-chunks // per)
+
+
+def _fn():
+    fn = _kernels.lib("select").mmlspark_select
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def select_rows_cuda(bins_fm: torch.Tensor, grad: torch.Tensor,
@@ -101,17 +119,15 @@ def select_rows_cuda(bins_fm: torch.Tensor, grad: torch.Tensor,
     _check_inputs(bins_fm, grad, hess, mask)
     f, n = bins_fm.shape
     dev = bins_fm.device
-    lib = _lib()
-    n_tiles = int(lib.mmlspark_select_tiles(n))
-    counts = torch.empty(max(n_tiles, 1), dtype=torch.int32, device=dev)
-    offsets = torch.empty_like(counts)
-    bins_c = torch.zeros(f, cap, dtype=torch.int32, device=dev)
-    grad_c = torch.zeros(cap, dtype=torch.float32, device=dev)
-    hess_c = torch.zeros(cap, dtype=torch.float32, device=dev)
+    rows_per_block, n_blocks = row_blocks(n)
+    counts = torch.empty(n_blocks, dtype=torch.int32, device=dev)
+    bins_c = torch.empty(f, cap, dtype=torch.int32, device=dev)
+    grad_c = torch.empty(cap, dtype=torch.float32, device=dev)
+    hess_c = torch.empty(cap, dtype=torch.float32, device=dev)
     p = _kernels.ptr
-    code = lib.mmlspark_select(
-        p(bins_fm), p(grad), p(hess), p(mask), p(counts), p(offsets),
-        p(bins_c), p(grad_c), p(hess_c), n, f, cap,
+    code = _fn()(
+        p(bins_fm), p(grad), p(hess), p(mask), p(counts), p(bins_c),
+        p(grad_c), p(hess_c), n, f, cap, rows_per_block, n_blocks,
         _kernels.stream_ptr(dev))
     launches += 1
     _kernels.check(code, "select kernel launch")

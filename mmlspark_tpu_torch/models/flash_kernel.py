@@ -17,8 +17,11 @@ version of K5 and the port's attention everywhere the gate
 batch so that its ``[b, H, Tq, Tk]`` score tensor stays near 1 GiB.
 
 Bound on the H100: operations (4 * B * H * Tq * Tk * D flops, halved under
-causal masking, against 8 bytes per element of q, k, v and o); see the
-source for the design.
+causal masking, against 8 bytes per element of q, k, v and o). The kernel
+is a Hopper design: TMA loads of K/V tiles into a ring of shared-memory
+stages by a producer warp, ``wgmma`` for both products in two or three
+consumer warpgroups of 64 query rows (at head dims 384 and 512 a CTA
+writes half the output columns). See the source for the design.
 
 ``flash_attention`` is the wrapper: a CUDA tensor launches the kernel
 (there is no fallback: a build or launch failure propagates), a CPU tensor
@@ -38,10 +41,11 @@ from .. import _kernels
 #: kernel launches since the counter was last set to 0
 launches = 0
 
-#: head dims the kernel is built for (the Q and K tiles of 64 rows must fit
-#: in shared memory)
+#: head dims the kernel is built for
 HEAD_DIMS = (64, 128, 256, 384, 512)
-#: query and key lengths must be multiples of the kernel's 64-row tiles
+#: query and key lengths must be multiples of 64 (the Hopper kernel's
+#: query tiles are 192 or 128 rows and its key tiles 128 or 64; a partial
+#: last tile is masked)
 TILE = 64
 #: score elements per chunk of the plain version (2^28 f32 = 1 GiB)
 _PLAIN_CHUNK_ELEMENTS = 1 << 28
@@ -91,7 +95,8 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             f"{tuple(x.shape)}")
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        if x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3]) \
+        # the kernel's TMA tensor maps take positive strides of 16 bytes
+        if x.stride(3) != 1 or any(s % 8 or s <= 0 for s in x.stride()[:3]) \
                 or x.data_ptr() % 16:
             raise ValueError(f"{name} needs a contiguous last dim and 16-byte "
                              f"aligned rows, got strides {x.stride()}")

@@ -53,6 +53,24 @@ def test_select_kernel_bitwise_matches_plain(cuda_device, density):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,density,cap", [
+    (300_001, 28, 0.5, None),      # count exactly cap: no zero tail
+    (5_001, 28, 0.0, 4_096),       # count 0, n not a multiple of a chunk
+    (100_003, 1, 0.4, 100_352),    # one feature
+    (100_003, 65, 0.4, 100_352),   # more features than warps, unevenly
+    (2_500_000, 3, 0.7, 2_500_000)])  # row blocks of more than one chunk
+def test_select_kernel_edges_bitwise_match_plain(cuda_device, n, f, density,
+                                                 cap):
+    bins, grad, hess, mask = _inputs(n, f, 256, density, cuda_device, seed=2)
+    if cap is None:
+        cap = int(mask.sum())
+    a = select_kernel.select_rows_cuda(bins, grad, hess, mask, cap)
+    b = select_kernel.select_rows_plain(bins, grad, hess, mask, cap)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def _sparse_hist_inputs(nnz, tb, empty_every, device, seed=0):
     """Bin-sorted entries over ``tb`` skewed bins (every ``empty_every``-th
     empty), stats masked at 50%: [3, nnz] f32 and the int32 bin ends."""
@@ -189,3 +207,41 @@ def test_flash_kernel_reads_strided_views(cuda_device):
                                            v.contiguous(), True)
     torch.cuda.synchronize()
     _assert_k5_close(o, p, q, k, v, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,h,d,causal", [
+    (1, 192, 320, 2, 64, False), (1, 320, 320, 2, 64, True),
+    (2, 192, 192, 2, 64, True), (1, 320, 192, 2, 128, False),
+    (1, 192, 192, 2, 128, True), (1, 192, 320, 1, 256, False),
+    (1, 320, 320, 1, 256, True), (1, 192, 320, 2, 384, False),
+    (1, 320, 320, 1, 512, True)])
+def test_flash_kernel_ragged_tiles(cuda_device, b, tq, tk, h, d, causal):
+    """Tq and Tk multiples of 64 but not of the kernel's query tile (192
+    rows at D = 64, 128 above) or key tile (128 keys at D <= 128):
+    zero-filled loads, keys past Tk masked, rows past Tq not stored, and at
+    D = 384 and 512 the two column halves (``_assert_k5_close``)."""
+    rng = np.random.default_rng(5)
+    q = _bf16(rng, (b, tq, h, d), cuda_device)
+    k, v = (_bf16(rng, (b, tk, h, d), cuda_device) for _ in range(2))
+    o = flash_kernel.flash_attention_cuda(q, k, v, causal)
+    p = flash_kernel.flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert o.shape == p.shape
+    _assert_k5_close(o, p, q, k, v, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_reads_strided_views_d128(cuda_device, causal):
+    """D = 128 (two TMA boxes per row) on views into one packed
+    [B, T, 3, H, D] tensor, and an output in the right place when the
+    views start mid-allocation."""
+    rng = np.random.default_rng(6)
+    qkv = _bf16(rng, (2, 320, 3, 3, 128), cuda_device)
+    q, k, v = qkv.unbind(2)
+    o = flash_kernel.flash_attention_cuda(q, k, v, causal)
+    p = flash_kernel.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                           v.contiguous(), causal)
+    torch.cuda.synchronize()
+    _assert_k5_close(o, p, q, k, v, causal)

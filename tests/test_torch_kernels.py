@@ -26,7 +26,11 @@ Tolerances, and why:
     XLA path): 0.02 in bf16 (the same rounding steps; the f32 sums differ
     in order), 1e-5 in f32, the offset and all-masked cases included;
   - K5's gate: the same decision as the reference's ``_flash_dispatch`` on
-    the reference's own gate shapes.
+    the reference's own gate shapes;
+  - K5's tiled arithmetic, emulated in f32 key tile by key tile (test code
+    only): the chip's gates on the kernel, <= 4 bf16 ulps of sum_j p_j |v_j|
+    from the plain version per element and <= 1.5x the plain version's max
+    and rms error against f64, at each key-tile width the kernel uses.
 """
 
 import math
@@ -120,6 +124,19 @@ def test_wrappers_take_plain_path_on_cpu_without_launching():
     hist_kernel.histogram(*t, 33)
     select_kernel.select_rows(*t, 1024)
     assert (hist_kernel.launches, select_kernel.launches) == (h0, s0)
+
+
+@pytest.mark.parametrize("n", [0, 1, 2048, 2049, 300_001, 2_097_152,
+                               2_500_000, 2**31 - 1])
+def test_select_grid_covers_the_rows(n):
+    """K2's grid, sized in Python: whole 2048-row chunks per block, 1 to
+    1024 blocks (each block sums the counts of those before it), covering
+    every row and no block wholly past the end (an empty mask still gets
+    one block, which writes the zero outputs)."""
+    rows, blocks = select_kernel.row_blocks(n)
+    assert rows % select_kernel.CHUNK_ROWS == 0 and rows > 0
+    assert 1 <= blocks <= select_kernel.MAX_BLOCKS
+    assert rows * blocks >= n and (blocks == 1 or rows * (blocks - 1) < n)
 
 
 def test_select_gate_is_the_reference_gate():
@@ -317,6 +334,76 @@ def test_gate_keeps_cpu_tensors_on_the_plain_path(monkeypatch):
     assert not flash_route(q, k, False)
 
 
+
+def _k5_tiled(q, k, v, causal, kn, rescale=True):
+    """K5's arithmetic (``csrc/flash_attn.cu``) on the CPU, key tile by key
+    tile of ``kn`` keys: f32 scores of the bf16 inputs, keys past Tk (the
+    kernel's zero-filled loads) and, under causal masking, keys after the
+    query masked to -inf; a running row max m in score units; p = exp2(s *
+    c - m * c) with c = log2(e) / sqrt(D), one rounding as the kernel's fma;
+    the accumulator and the row sum l rescaled by exp2(m_old * c - m * c)
+    per tile, l summed from the unrounded p, P rounded to bf16 unnormalised
+    before P V; the output divided by l once and rounded to bf16.
+    ``rescale=False`` leaves the per-tile rescale out: the fault the ulp
+    gate exists to catch."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    c = math.log2(math.e) / math.sqrt(d)
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # [B, H, T, D]
+    pad = -tk % kn
+    kf = torch.nn.functional.pad(kf, (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(vf, (0, 0, 0, pad))
+    m = torch.full((b, h, tq, 1), -math.inf)
+    l = torch.zeros(b, h, tq, 1)
+    o = torch.zeros(b, h, tq, d)
+    rows = torch.arange(tq)[:, None]
+    for n0 in range(0, tk + pad, kn):
+        keys = torch.arange(n0, n0 + kn)[None, :]
+        s = qf @ kf[:, :, n0:n0 + kn].transpose(-1, -2)
+        hidden = (keys >= tk) | ((keys > rows) if causal else False)
+        s = s.masked_fill(hidden, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        msc = torch.where(m_new == -math.inf, 0.0, m_new * c)
+        corr = torch.exp2(m * c - msc) if rescale else torch.ones_like(m)
+        p = torch.exp2((s.double() * c - msc.double()).float())
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + p.to(torch.bfloat16).float() @ vf[:, :, n0:n0 + kn]
+        m = m_new
+    out = torch.where(l > 0, o / l, torch.zeros_like(o))
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("kn", [64, 128])
+@pytest.mark.parametrize("shape,tk,causal", [
+    ((2, 256, 2, 64), None, False), ((2, 256, 2, 64), None, True),
+    ((1, 192, 2, 128), None, True), ((1, 64, 2, 128), 320, False),
+    ((1, 320, 1, 256), None, True)])
+def test_k5_tiled_arithmetic_within_chip_gates(shape, tk, causal, kn):
+    """The chip's gates on K5 hold for its tile-by-tile arithmetic at each
+    key-tile width, causal rows that see few keys included: the headroom of
+    a new tile width, shown before any chip run."""
+    q, k, v = _port(_qkv(shape, seed=11, tk=tk))
+    got = _k5_tiled(q, k, v, causal, kn)
+    plain = flash_kernel.flash_attention_plain(q, k, v, causal)
+    exact = _f64_attention(q.float().numpy(), k.float().numpy(),
+                           v.float().numpy(), causal)
+    scale = _f64_attention(q.float().numpy(), k.float().numpy(),
+                           np.abs(v.float().numpy()), causal)
+    got, plain = got.double().numpy(), plain.double().numpy()
+    _, e = np.frexp(scale.astype(np.float32))
+    ulps = np.abs(got - plain) / np.ldexp(1.0, e - 8)
+    assert ulps.max() <= 4.0
+    k5_err, plain_err = got - exact, plain - exact
+    assert np.abs(k5_err).max() <= 1.5 * np.abs(plain_err).max()
+    assert np.square(k5_err).mean() <= 1.5 ** 2 * np.square(plain_err).mean()
+    # the emulation is K5's arithmetic, not the plain version's: dropping
+    # the per-tile rescale moves it far past the ulp gate
+    if kn < (tk or shape[1]):
+        broken = _k5_tiled(q, k, v, causal, kn, rescale=False)
+        broken = broken.double().numpy()
+        assert (np.abs(broken - plain) / np.ldexp(1.0, e - 8)).max() > 4.0
+
+
 def test_wrapper_checks_kernel_inputs():
     q, k, v = _port(_qkv((1, 128, 2, 64), seed=0))
     with pytest.raises(TypeError):
@@ -327,6 +414,9 @@ def test_wrapper_checks_kernel_inputs():
         flash_kernel._check_inputs(q, k[:, :64], v[:, :64], True)
     with pytest.raises(ValueError):
         flash_kernel._check_inputs(q[..., :48].contiguous(), k, v, False)
+    with pytest.raises(ValueError):   # a broadcast batch: stride 0
+        flash_kernel._check_inputs(q.expand(2, -1, -1, -1), k.expand(2, -1, -1, -1),
+                                   v.expand(2, -1, -1, -1), False)
     flash_kernel._check_inputs(q, k, v, True)
     # a CPU tensor runs the plain version, another device raises
     assert torch.equal(flash_kernel.flash_attention(q, k, v, True),
