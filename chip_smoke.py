@@ -14,27 +14,35 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    versions on the card, at the main path's shapes and at ragged ones, each
    timed beside its plain version, one PyTorch library call computing the
    same function, and its bound (bytes or operations over the H100's peak);
-   K2 also with the host's cost of issuing it hidden (its device-only
-   time) and its CUDA launches per call;
+   both also with the host's cost of issuing them hidden (their device-only
+   time) and their CUDA launches per call; K1 also beside its sector floor
+   (the 32-byte sectors that hold a selected row), and whether two calls
+   agree bit for bit (logged);
 3. dense main path: ``LightGBMClassifier(numLeaves=31, maxBin=255,
    numIterations=20).fit`` on a seeded synthetic HIGGS-shaped dataset
    (2,097,152 rows x 28 features) on the card, then ``.transform`` of 65,536
-   rows. K1 and K2 must have launched during it. The scores are held
-   against the host f64 traversal of the same model, and the first three
-   trees against a refit on the CPU;
+   rows. K1 and K2 must have launched during it; K1's device time over
+   the fit is summed from CUDA events around its calls. The scores are
+   held against the host f64 traversal of the same model, and the first
+   three trees against a refit on the CPU. Then K1 on the fit's own data,
+   checked and timed: the binned matrix at the root (every row) and the
+   K2-compacted tier buffer of the first tree's smaller root child;
 4. sparse data: the reference benchmark's text-shaped CSR (1,000,000 rows x
    2^18 hashed features, ~50 token counts per row, seeded), with the host
    costs of the sparse path timed apart: ``rows_to_csr`` over the rows,
    ``SparseDataset.from_csr`` and the bin-sorted layout;
 5. K4 (flat sparse histogram) against its plain version at that dataset's
    layout (~49.7M entries, ~1.31M flat bins, 50% row mask) and at ragged
-   shapes, timed the same way;
+   shapes, timed the same way; two calls on the main-path input must agree
+   bit for bit;
 6. sparse main path: ``LightGBMClassifier(numLeaves=31, numIterations=10,
    learningRate=0.1, minDataInLeaf=20).fit`` on a DataFrame of those sparse
    rows (its boosting loop timed apart from the in-fit host build through
    the ``TrainRecorder`` series), then ``.transform`` of 65,536 rows. K4
    must have launched; the scores must equal the CPU ``predict_csr`` of the
-   same model and the train accuracy exceed 0.7. The root split of the full-width dataset is searched
+   same model and the train accuracy exceed 0.7. A split's flat histogram
+   on the full-width dataset is timed in parts: the row-mask gather and
+   [3, nnz] stack, and K4. The root split of the full-width dataset is searched
    with the reference's f32 prefix formula and the port's f64 one; the
    reference benchmark's anchor shape (100,000 x 2^12) is refit for 3
    iterations on the card and on the CPU, first tree identical;
@@ -71,7 +79,9 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    timed only), bound_ms and bound_by (4*B*H*Tq*Tk*D flops, halved under
    causal masking, over the spec 989 TFLOP/s bf16 peak, against 8 bytes
    per element over 3.35 TB/s) and K5's ms over library_ms; at the
-   main-path batch that ratio must not pass ``K5_LIBRARY_RATIO_MAX``;
+   main-path batch that ratio must not pass ``K5_LIBRARY_RATIO_MAX``; and
+   a batch past grid.z's cap (B=65,537, T=128, H=1, D=64), held on its
+   first and last 64 rows to the same per-element gates;
 10. transformer_main: the reference's sequence-benchmark encoder
    (``tools/bench_seq.py:41``: dim 512, depth 4, 8 heads, vocab 32,000,
    seed 0) at seq_len 2048 served through
@@ -84,7 +94,7 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    within ``COS_GAP_MAX`` and the max and mean |difference| within
    ``OUT_MAX_DIFF`` and ``OUT_MEAN_DIFF``. Logs the first and a second
    transform's seconds, tokens/s, the transfer ring's per-batch
-   decomposition and peak device memory;
+   decomposition (the readback on its own stream) and peak device memory;
 11. transformer_fused: ``PipelineModel([dnn]).fuse()`` on the same rows
    (executor batch 64), bitwise-equal to the unfused output, with its
    seconds and ``fusion_stats()``.
@@ -328,14 +338,26 @@ def kernel_phase(torch) -> dict:
     plain = time_ms(torch, lambda: hk.histogram_plain(bins, grad, hess, mask, b), 5)
     lib = time_ms(torch, lambda: torch.zeros(f * b * 3, device=bins.device)
                   .index_add_(0, flat_idx, flat_vals), 5)
+    # the kernel's own device time: the host's cost of issuing it hidden
+    device_ms = queued_ms(torch, lambda: hk.histogram_cuda(bins, grad, hess, mask, b))
     cnt = int(mask.sum())
     t_bound, by = bound_ms(cnt * f * 4 + n + cnt * 8 + f * b * 12, 3 * cnt * f)
+    # memory moves 32-byte sectors of 8 rows: the sectors of bins that hold a
+    # selected row, and grad/hess likewise
+    sectors = (mask.view(-1, 8).any(dim=1).sum().item() * 32 * (f + 2)
+               + n + f * b * 12)
+    # the in-block f64 adds land in atomic order: two calls may differ in
+    # the last bit of a cell at a rounding tie (logged, not gated)
+    again = [hk.histogram_cuda(bins, grad, hess, mask, b) for _ in range(2)]
     del flat_idx, flat_vals
     out["hist"] = dict(name="hist", route="cuda",
                        source="mmlspark_tpu_torch/csrc/hist.cu",
                        replaces="mmlspark_tpu/gbdt/pallas_hist.py:65",
                        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=t_bound,
-                       bound_by=by, library_ms=lib,
+                       bound_by=by, library_ms=lib, device_only_ms=device_ms,
+                       launches_per_call=hk.LAUNCHES_PER_CALL,
+                       sector_floor_ms=sectors / HBM_BYTES_PER_S * 1e3,
+                       bitwise_run_to_run=bool(torch.equal(*again)),
                        library_call="Tensor.index_add_ (one call, flat index "
                                     "and values prepared outside the timing)",
                        shape=dict(n=n, f=f, bins=b, selected=cnt))
@@ -413,6 +435,21 @@ def main_path(torch, profile: bool):
 
     hk.launches = 0
     sk.launches = 0
+    # K1's device time over the fit: CUDA events around every call (two
+    # records a call, queued without a wait)
+    k1_events = []
+    k1_cuda = hk.histogram_cuda
+
+    def k1_timed(*a):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        res = k1_cuda(*a)
+        ev[1].record()
+        k1_events.append(ev)
+        return res
+
+    hk.histogram_cuda = k1_timed
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if profile:
@@ -425,6 +462,8 @@ def main_path(torch, profile: bool):
         model = est.fit(df)
         torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
+    hk.histogram_cuda = k1_cuda
+    k1_fit_ms = sum(a.elapsed_time(b) for a, b in k1_events)
     t1 = time.perf_counter()
     scored = model.transform(small)
     torch.cuda.synchronize()
@@ -432,7 +471,8 @@ def main_path(torch, profile: bool):
     launches = {"hist": hk.launches, "select": sk.launches}
     log({"phase": "main", "fit_seconds": fit_s, "fit_rows_per_s": N_MAIN / fit_s,
          "transform_rows": N_SCORE, "transform_seconds": score_s,
-         "launches": launches})
+         "launches": launches, "k1_device_ms_in_fit": k1_fit_ms,
+         "k1_calls_in_fit": len(k1_events)})
     if profile:
         rows = []
         for ev in p.key_averages():
@@ -495,7 +535,61 @@ def main_path(torch, profile: bool):
         fail(f"tree 1 differs between the CUDA and CPU fits: {diffs[0]}")
     if d3 > 1e-3:
         fail(f"3-tree raw scores differ by {d3}")
+    hist_on_path(torch, booster, X, y)
     return launches, model, X[:N_SCORE].copy()
+
+
+def hist_on_path(torch, booster, X, y) -> None:
+    """K1 on the dense fit's own data: the binned [28, 2,097,152] matrix at
+    the root (every row, the five three-level b-tags included), and the
+    K2-compacted tier buffer of the first tree's smaller root child, with
+    the gradients of the first iteration; each checked against its plain
+    version and timed."""
+    from mmlspark_tpu_torch.gbdt import booster as bst
+    from mmlspark_tpu_torch.gbdt import hist_kernel as hk
+    from mmlspark_tpu_torch.gbdt import select_kernel as sk
+    from mmlspark_tpu_torch.gbdt.tree import pick_tier, tier_caps
+
+    dev = torch.device(DEVICE)
+    mapper = booster.bin_mapper
+    b = mapper.max_num_bins
+    bins = torch.from_numpy(mapper.transform_fm(X, dtype=np.uint8)).to(dev) \
+        .to(torch.int32).contiguous()
+    n, f = X.shape[0], X.shape[1]
+    scores = torch.full((n,), float(booster.base_score[0]), device=dev)
+    g, h = bst.grad_hess("binary", scores,
+                         torch.as_tensor(y, dtype=torch.float32, device=dev))
+    root = booster.trees[0][0]
+    left = bins[int(root.feature[0])] <= int(root.threshold_bin[0])
+    small = left if int(left.sum()) * 2 <= n else ~left
+    count = int(small.sum())
+    caps = tier_caps(n, True)
+    tidx = pick_tier(caps, count)
+    cap = caps[tidx - 1] if tidx else n
+    b_c, g_c, h_c = sk.select_rows_cuda(bins, g, h, small, cap)
+    valid = torch.arange(cap, device=dev) < count
+    out = {}
+    for what, args, rows in (
+            ("root", (bins, g, h, torch.ones(n, dtype=torch.bool, device=dev)), n),
+            ("tier", (b_c, g_c, h_c, valid), count)):
+        k = hk.histogram_cuda(*args, b)
+        p = hk.histogram_plain(*args, b)
+        scale = hk.histogram_plain(args[0], args[1].abs(), args[2].abs(),
+                                   args[3], b)
+        err = (k[..., :2] - p[..., :2]).abs()
+        if not torch.equal(k[..., 2], p[..., 2]) or \
+                not bool((err <= 1e-5 * scale[..., :2] + 1e-6).all()):
+            fail(f"K1 on the dense fit's {what} data differs from its plain "
+                 f"version: max err {err.max().item()}")
+        width = args[0].shape[1]
+        out[what] = {"rows": width, "selected": rows, "bins": b,
+                     "ms": time_ms(torch, lambda: hk.histogram_cuda(*args, b)),
+                     "device_only_ms": queued_ms(
+                         torch, lambda: hk.histogram_cuda(*args, b), 50),
+                     "bound_ms": bound_ms(rows * (f * 4 + 8) + width
+                                          + f * b * 12, 0)[0],
+                     "max_abs_err": err.max().item()}
+    log({"phase": "hist_on_path", "tier_cap": cap, **out})
 
 
 # ---------------------------------------------------------------------------
@@ -621,8 +715,14 @@ def sparse_kernel_phase(torch, data: dict) -> dict:
         check_sparse_hist(torch, shk, *sparse_hist_inputs(torch, nnz, tb_r, empty,
                                                           gen), what)
     nnz = stats.shape[1]
+    # the design sums every bin in one fixed order: two calls agree bit for bit
+    first, second = (shk.sparse_histogram_cuda(stats, bin_end) for _ in range(2))
+    if not torch.equal(first, second):
+        fail("two K4 calls on the main-path input differ")
+    del first, second
     ids = shk.bin_ids(bin_end)
     ms = time_ms(torch, lambda: shk.sparse_histogram_cuda(stats, bin_end))
+    device_ms = queued_ms(torch, lambda: shk.sparse_histogram_cuda(stats, bin_end), 50)
     plain = time_ms(torch, lambda: shk.sparse_histogram_plain(stats, bin_end), 5)
     lib = time_ms(torch, lambda: torch.zeros(3, tb, device=dev)
                   .index_add_(1, ids, stats), 5)
@@ -631,7 +731,8 @@ def sparse_kernel_phase(torch, data: dict) -> dict:
                source="mmlspark_tpu_torch/csrc/sparse_hist.cu",
                replaces="mmlspark_tpu/gbdt/pallas_sparse.py:269",
                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=t_bound,
-               bound_by=by, library_ms=lib,
+               bound_by=by, library_ms=lib, device_only_ms=device_ms,
+               launches_per_call=shk.LAUNCHES_PER_CALL, bitwise_run_to_run=True,
                library_call="Tensor.index_add_ over the flat bin ids (f32, one "
                             "call, ids prepared outside the timing)",
                shape=dict(nnz=nnz, bins=tb, row_mask=0.5))
@@ -660,6 +761,7 @@ def root_split_check(torch, ds, y) -> dict:
     gb, hb = sparse._entry_gh(d, g, h)
     hist = sparse._zero_completed(d, sparse._flat_histogram(d, gb, hb, mask),
                                   sparse._masked_totals(g, h, mask))[None]
+    split_surroundings(torch, d, gb, hb, ds.num_rows)
     args = (0.0, 0.0, 1e-3, 20)
     faithful = sparse._find_best_split_flat(d, hist, *args, faithful=True)[0]
     port = sparse._find_best_split_flat(d, hist, *args)[0]
@@ -714,6 +816,38 @@ def root_split_check(torch, ds, y) -> dict:
         "exact_loss_faithful": loss(ref_rows), "exact_loss_port_f64": loss(port_rows)}
     log(dict(phase="sparse_root_split", **out))
     return out
+
+
+def split_surroundings(torch, d, gb, hb, n_rows: int) -> None:
+    """Where a split's flat histogram spends its device time on the
+    full-width dataset: the [nnz] gather of the node's row mask and the
+    masked [3, nnz] stack that ``sparse._flat_histogram`` builds, beside K4
+    on that stack, for a node holding half the rows."""
+    from mmlspark_tpu_torch.gbdt import sparse
+    from mmlspark_tpu_torch.gbdt import sparse_hist_kernel as shk
+
+    dev = gb.device
+    gen = torch.Generator().manual_seed(SEED + 6)
+    node = (torch.rand(n_rows, generator=gen) < 0.5).to(dev)
+    rows = d["row_of_nnz_bs"]
+
+    def stack():
+        m = node.index_select(0, rows).to(torch.float32)
+        return torch.stack([gb * m, hb * m, m])
+
+    data = stack()
+    nnz, tb = data.shape[1], d["bin_end"].shape[0]
+    out = {"nnz": nnz, "bins": tb,
+           "mask_gather_stack_ms": time_ms(torch, stack),
+           "k4_ms": time_ms(torch, lambda: shk.sparse_histogram_cuda(
+               data, d["bin_end"])),
+           "flat_histogram_ms": time_ms(torch, lambda: sparse._flat_histogram(
+               d, gb, hb, node)),
+           # what a fused gather-and-stack must move: the row ids and the
+           # node mask's gathered bytes, grad/hess in, the [3, nnz] stack out
+           "mask_gather_stack_bound_ms": bound_ms(
+               nnz * (rows.element_size() + 1 + 8 + 12), 0)[0]}
+    log({"phase": "sparse_split", **out})
 
 
 def sparse_main_path(torch, data: dict):
@@ -1221,6 +1355,7 @@ def attn_kernel_phase(torch) -> dict:
                         f"version ({row['plain_ms']} ms) at a length the "
                         f"gate sends to it (FLASH_MIN_T_DEFAULT={min_t})")
         bad += [f"{m} at b={b} t={t} h={h} d={d} causal={causal}" for m in msgs]
+    bad += attn_big_batch(torch, fk, gen)
     log({"phase": "attn_kernel", "card_limits": {
         "max_ulps_vs_plain": max(r["max_ulps_vs_plain"] for r in rows),
         "max_f64_err_ratio": max(r["k5_err_vs_f64"] / r["plain_err_vs_f64"]
@@ -1253,6 +1388,35 @@ def attn_kernel_phase(torch) -> dict:
               bound_peak="989 TFLOP/s bf16 dense (spec), 3.35 TB/s")
     log(dict(phase="kernels", **k5))
     return k5
+
+
+def attn_big_batch(torch, fk, gen) -> list:
+    """K5 on a batch past grid.z's 65,535 cap (B=65,537, T=128, H=1, D=64),
+    held on its first and last 64 rows against the plain version and exact
+    f64 attention with the per-case gates; returns the failures."""
+    b, t, h, d = 65_537, 128, 1, 64
+    q, k, v = attn_inputs(torch, b, t, h, d, gen)
+    o = fk.flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    row = {"phase": "attn_kernel", "case": "batch past the grid.z cap", "b": b,
+           "t": t, "h": h, "d": d, "finite": bool(torch.isfinite(o).all()),
+           "ms": time_ms(torch, lambda: fk.flash_attention_cuda(q, k, v), 5)}
+    bad = []
+    for lo in (0, b - 64):
+        sl = slice(lo, lo + 64)
+        p = fk.flash_attention_plain(q[sl], k[sl], v[sl])
+        scale = attention_f64(torch, q[sl], k[sl], v[sl].abs(), False)
+        err = (o[sl].float() - p.float()).abs().max().item()
+        ulps = bf16_ulps(torch, o[sl], p, scale)
+        row[f"rows_{lo}_max_abs_err_vs_plain"] = err
+        row[f"rows_{lo}_max_ulps_vs_plain"] = ulps
+        if not row["finite"] or err > 0.05 or ulps > ULPS_MAX:
+            bad.append(f"K5 at B={b} rows {lo}+64: {err} from its plain "
+                       f"version, {ulps} ulps (bounds 0.05, {ULPS_MAX})")
+    log(row)
+    del q, k, v, o
+    torch.cuda.empty_cache()
+    return bad
 
 
 def _emb(df) -> np.ndarray:
@@ -1312,6 +1476,8 @@ def transformer_main(torch, smi):
          "tokens_per_s_second": SEQ_ROWS * SEQ_LEN / second_s,
          "k5_launches": launches, "peak_device_gb": peak_gb,
          "second_bitwise_first": bool(np.array_equal(out, again)),
+         "readback_ms_per_batch_first": ring1.get("readback_ms_per_batch"),
+         "readback_ms_per_batch_second": ring2.get("readback_ms_per_batch"),
          "ring_first": ring1, "ring_second": ring2})
     del again
     # where one batch's time goes, each part alone: the forward on the card

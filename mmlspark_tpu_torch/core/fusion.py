@@ -419,6 +419,7 @@ class SegmentExecutor:
                  kernel_variants=None, stitch=None,
                  layout: Optional[str] = None,
                  device: Optional[torch.device] = None):
+        from ..parallel.ingest import ReadbackSlots
         from ..runtime import resolve_device
 
         self.segment = segment
@@ -444,6 +445,9 @@ class SegmentExecutor:
         # sparse layout knob: "csr" stages capable sparse columns as
         # (indptr, indices, values) triples instead of densifying them
         self.layout = str(layout) if layout else None
+        # the ring's host buffers for the readback, reused across partitions
+        # and transforms
+        self._slots = ReadbackSlots(pin=self.device.type == "cuda")
         # device finalizers: every stage the PLAN stitched the segment
         # across, plus any stage the stitch knob names directly
         self._transpiled: Tuple[int, ...] = tuple(
@@ -754,9 +758,9 @@ class SegmentExecutor:
         return step
 
     @staticmethod
-    def _fetch(handle) -> Tuple[np.ndarray, ...]:
+    def _fetch(handle) -> Tuple[torch.Tensor, ...]:
         ys, m = handle
-        return tuple(y[:m].cpu().numpy() for y in ys)
+        return tuple(y[:m] for y in ys)
 
     def _run_partition(self, part: Dict[str, np.ndarray], params,
                        stats) -> Dict[str, np.ndarray]:
@@ -770,7 +774,7 @@ class SegmentExecutor:
                                 step=self._make_step(params, state),
                                 fetch=self._fetch,
                                 depth=self.segment.ring_depth(), stats=stats,
-                                device=self.device)
+                                device=self.device, slots=self._slots)
             try:
                 for out in ring:
                     for k, y in zip(state["keys"], out):

@@ -362,7 +362,7 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::kThreads, 1)
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    const __grid_constant__ CUtensorMap tm_o, int tq, int tk,
-                   float scale_log2) {
+                   int heads, float scale_log2) {
   using C = Sm90Cfg<D>;
   constexpr int kN = C::kN;
   constexpr int kStages = C::kStages;
@@ -379,11 +379,19 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::kThreads, 1)
 
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
+  // a 1-D grid over (batch, head x column split, query block), query blocks
+  // fastest: the launch order of a (query block, head, batch) grid without
+  // grid.z's 65,535 cap on the batch; grid.x takes 2^31 - 1 blocks
+  // (flash_kernel.launch_grid and grid_decode mirror this)
+  const int m_blocks = ceil_div(tq, C::kM);
+  const int hc = heads * C::kColSplit;
+  const int m_raw = (int)(blockIdx.x % (unsigned)m_blocks);
+  const int hy = (int)((blockIdx.x / (unsigned)m_blocks) % (unsigned)hc);
+  const int b = (int)(blockIdx.x / ((unsigned)m_blocks * (unsigned)hc));
   // causal: the longest rows first
-  const int m_block = kCausal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int h = blockIdx.y / C::kColSplit;
-  const int col0 = (blockIdx.y % C::kColSplit) * C::kDV;  // first output col
-  const int b = blockIdx.z;
+  const int m_block = kCausal ? m_blocks - 1 - m_raw : m_raw;
+  const int h = hy / C::kColSplit;
+  const int col0 = (hy % C::kColSplit) * C::kDV;  // first output col
   const int q0 = m_block * C::kM;
   const int n_tiles = kCausal ? min(ceil_div(tk, kN), ceil_div(q0 + C::kM, kN))
                               : ceil_div(tk, kN);
@@ -618,9 +626,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(ceil_div(tq, C::kM), heads * C::kColSplit, batch);
-  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(mq, mk, mv, mo, tq, tk,
-                                                  sm_scale * kLog2e);
+  const int64_t blocks =
+      (int64_t)ceil_div(tq, C::kM) * heads * C::kColSplit * batch;
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)blocks, C::kThreads, C::kSmem, stream>>>(
+      mq, mk, mv, mo, tq, tk, heads, sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }
 

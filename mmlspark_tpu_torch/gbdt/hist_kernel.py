@@ -13,19 +13,27 @@ accumulation loses them at that scale).
 
 Bound on the H100: bytes. The kernel must read the selected rows' bins
 (4*F bytes each), grad and hess (8 bytes each) and the mask (1 byte per
-row), and write 12*F*B bytes: ~36 us at N = 1M, F = 28 against 3.35 TB/s.
-The design keeps a privatized shared-memory histogram per block (one tile
-of rows, a group of features) filled with shared atomics, which are the
-likely limit; see the source for the rest.
+row), and write 12*F*B bytes: ~38 us at 1M selected of N = 2M rows, F = 28
+against 3.35 TB/s. The Hopper design keeps each block's whole feature
+group in up to 227 KB of shared memory (f64 grad/hess, u32 counts), warps
+take (feature, 128-row) units with 16-byte loads, lanes that share a bin
+add once where a unit's bins repeat (``__match_any_sync``), and each block
+writes an f64 partial that a second launch sums in block order into the
+f32 output: ``LAUNCHES_PER_CALL`` launches, no memset, no global atomics.
+The f64 shared-memory adds (compare-and-swap loops on this card) and their
+bank conflicts bound it, not HBM. The grid is sized here, in
+``launch_geometry``; see the source for the rest.
 
 ``histogram`` is the wrapper: a CPU tensor takes ``histogram_plain``, a CUDA
 tensor launches the kernel (there is no fallback), anything else raises.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches (one per wrapper call; the call runs
+the ``LAUNCHES_PER_CALL`` CUDA launches of one histogram).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -33,6 +41,66 @@ from .. import _kernels
 
 #: kernel launches since the counter was last set to 0
 launches = 0
+
+#: CUDA launches in one call on the shared-memory path: the block partials
+#: and their reduction (the global path adds a memset)
+LAUNCHES_PER_CALL = 2
+#: threads of a block, and rows of a warp's unit (4 a lane)
+THREADS = 1024
+UNIT_ROWS = 128
+#: dynamic shared memory a block may opt into on the H100 (227 KB), and
+#: what one SM holds for its blocks (228 KB, 1 KB reserved a block)
+SMEM_BLOCK_MAX = 232_448
+SMEM_SM = 233_472
+#: bytes of one (feature, bin) cell: f64 grad, f64 hess, u32 count
+CELL_BYTES = 20
+#: the aggregating warps' staging of their lanes' (grad, hess), 8 B a lane
+AGG_BYTES = THREADS * 8
+#: SMs of the H100 SXM, and units a warp takes at least before the rows are
+#: split over another block
+SMS = 132
+UNITS_PER_WARP = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """K1's launch: ``row_blocks`` x ``groups`` blocks of ``THREADS``, each
+    ``rows_per_block`` rows (a multiple of 4) and ``feat_per_block``
+    features with ``smem_bytes`` of dynamic shared memory; ``scratch`` f64
+    values of block partials. ``feat_per_block == 0``: the global path
+    (one feature's histogram does not fit a block), ``row_blocks`` blocks
+    of 256 threads adding into ``scratch`` = F * B * 3 doubles."""
+
+    feat_per_block: int
+    groups: int
+    row_blocks: int
+    rows_per_block: int
+    smem_bytes: int
+    scratch: int
+
+
+def launch_geometry(n: int, f: int, b: int) -> Geometry:
+    """Size K1's grid for ``n`` rows, ``f`` features and ``b`` bins: as many
+    features a block as fit its shared memory (balanced over the groups),
+    and the rows split over enough blocks to fill the card (``SMS`` times
+    the blocks an SM holds, over the groups) while every warp keeps
+    ``UNITS_PER_WARP`` units of work."""
+    cells = f * b * 3
+    fit = (SMEM_BLOCK_MAX - AGG_BYTES) // (b * CELL_BYTES)
+    if fit < 1:
+        blocks = max(1, min(-(-n // 256), SMS * 8))
+        rows = (-(-max(n, 1) // blocks) + 3) // 4 * 4
+        return Geometry(0, 1, -(-max(n, 1) // rows), rows, 0, cells)
+    groups = -(-f // min(fit, f))
+    fpb = -(-f // groups)
+    smem = (fpb * b * CELL_BYTES + 15) // 16 * 16 + AGG_BYTES
+    per_sm = max(1, min(2048 // THREADS, SMEM_SM // (smem + 1024)))
+    units = -(-max(n, 1) // UNIT_ROWS) * fpb
+    want = -(-units // (THREADS // 32 * UNITS_PER_WARP))
+    row_blocks = max(1, min(-(-SMS * per_sm // groups), want))
+    rows = (-(-max(n, 1) // row_blocks) + 3) // 4 * 4
+    row_blocks = -(-max(n, 1) // rows)
+    return Geometry(fpb, groups, row_blocks, rows, smem, row_blocks * cells)
 
 
 def histogram_plain(bins_fm: torch.Tensor, grad: torch.Tensor,
@@ -78,8 +146,9 @@ def _check_inputs(bins_fm, grad, hess, row_mask) -> None:
 def _fn():
     fn = _kernels.lib("hist").mmlspark_hist
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -91,15 +160,20 @@ def histogram_cuda(bins_fm: torch.Tensor, grad: torch.Tensor,
     global launches
     _check_inputs(bins_fm, grad, hess, row_mask)
     f, n = bins_fm.shape
-    acc = torch.zeros(f, num_bins, 3, dtype=torch.float64,
-                      device=bins_fm.device)
-    fn = _fn()
-    code = fn(_kernels.ptr(bins_fm), _kernels.ptr(grad), _kernels.ptr(hess),
-              _kernels.ptr(row_mask), _kernels.ptr(acc), n, f, num_bins,
-              _kernels.stream_ptr(bins_fm.device))
+    dev = bins_fm.device
+    out = torch.empty(f, num_bins, 3, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out.zero_()
+    geo = launch_geometry(n, f, num_bins)
+    scratch = torch.empty(geo.scratch, dtype=torch.float64, device=dev)
+    p = _kernels.ptr
+    code = _fn()(p(bins_fm), p(grad), p(hess), p(row_mask), p(out),
+                 p(scratch), n, f, num_bins, geo.feat_per_block,
+                 geo.row_blocks, geo.rows_per_block, geo.smem_bytes,
+                 _kernels.stream_ptr(dev))
     launches += 1
     _kernels.check(code, "hist kernel launch")
-    return acc.float()
+    return out
 
 
 def histogram(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,

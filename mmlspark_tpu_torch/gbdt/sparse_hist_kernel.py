@@ -17,27 +17,153 @@ more accurate than the reference's prefix differences: at 50M entries the
 f32 prefix of the hessians passes 10^7, where one ulp is 1.
 
 Bound on the H100: bytes. The function must read 12*nnz bytes of stats and
-4*TB of bin offsets and write 12*TB: ~0.19 ms at 49.7M entries and 1.31M
-bins against 3.35 TB/s. The kernel tiles the entry stream (never the bins,
-which are heavily skewed in text data), reduces each segment run in f64
-registers and a warp shuffle scan, and adds runs with f64 atomics; see the
-source.
+4*TB of bin offsets and write 12*TB: ~0.18 ms at 49.7M entries and 1.31M
+bins against 3.35 TB/s. The kernel is a merge-path segmented reduction:
+the path of the TB bin-end markers merged with the nnz entries is cut into
+``shares`` equal shares, one persistent block each, so skewed bins and
+runs of empty bins cost the same; each block sums its bins in f64 in a
+fixed order and writes those it holds whole straight to the f32 output,
+and a second launch adds up the bins that cross shares, in share order.
+The result is bitwise the same from run to run. ``merge_path_search``,
+``shares``, ``tile_end`` and ``partitioned_histogram`` are the kernel's
+arithmetic in Python, for the tests; see the source for the rest.
 
 ``sparse_histogram`` is the wrapper: a CPU tensor takes
 ``sparse_histogram_plain``, a CUDA tensor launches the kernel (there is no
-fallback), anything else raises. ``launches`` counts kernel launches.
+fallback), anything else raises. ``launches`` counts kernel launches (one
+per wrapper call; the call runs the ``LAUNCHES_PER_CALL`` CUDA launches of
+one histogram).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import _kernels
 
 #: kernel launches since the counter was last set to 0
 launches = 0
+
+#: CUDA launches in one call: the shares and the carries across them
+LAUNCHES_PER_CALL = 2
+#: threads of a block, path items a thread takes in a tile, items a tile,
+#: and the bin ends staged for a tile (it takes one fewer markers at most)
+THREADS = 256
+ITEMS_PER_THREAD = 23
+TILE = THREADS * ITEMS_PER_THREAD
+END_WINDOW = TILE // 8 + 2
+#: SMs of the H100 SXM and persistent blocks on each
+SMS = 132
+BLOCKS_PER_SM = 3
+
+
+def shares(nnz: int, tb: int) -> Tuple[int, int]:
+    """(blocks, path items a block) of K4's grid for ``nnz`` entries and
+    ``tb`` bins: at most ``SMS * BLOCKS_PER_SM`` blocks and at least one
+    tile a block, the ``nnz + tb`` items of the path split evenly."""
+    total = nnz + tb
+    blocks = max(1, min(SMS * BLOCKS_PER_SM, -(-total // TILE)))
+    share = max(1, -(-total // blocks))
+    return -(-total // share) if total else 1, share
+
+
+def merge_path_search(bin_end, nnz: int, diag: int, ti: int = 0,
+                      tj: int = 0, cap: Optional[int] = None) -> int:
+    """Bin-end markers among the first ``diag`` items of the merge path that
+    starts at (marker ``ti``, entry ``tj``), or ``cap`` if that many or
+    more: marker b comes before entry j when ``bin_end[b] <= j``. The
+    kernel's binary search, over a sequence of ints."""
+    tb = len(bin_end)
+    lo, hi = max(0, diag - (nnz - tj)), min(diag, tb - ti)
+    if cap is not None:
+        hi = min(hi, cap)
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if bin_end[ti + mid] <= tj + diag - mid - 1:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def tile_end(bin_end, nnz: int, ti: int, tj: int, items: int
+             ) -> Tuple[int, int]:
+    """Where a tile that starts at (``ti``, ``tj``) with ``items`` path items
+    left in its share ends: after ``TILE`` items, or right after its
+    ``END_WINDOW - 1``-th marker (the last staged) if the path gets there
+    first."""
+    d = min(TILE, items)
+    markers = END_WINDOW - 1
+    x = merge_path_search(bin_end, nnz, d, ti, tj, cap=markers)
+    if x >= markers and markers < min(d, len(bin_end) - ti):
+        return ti + markers, bin_end[ti + markers - 1]
+    return ti + x, tj + d - x
+
+
+def partitioned_histogram(data, bin_end) -> Tuple[np.ndarray, list]:
+    """K4's reduction, share by share, tile by tile and thread by thread
+    (numpy, f64 runs, each bin rounded to f32 once) -> ([3, TB] f32, the
+    share carries [(head bin or -1, tail bin)]). Sums take the same
+    operands as the kernel; the scan across a tile's threads adds them in
+    thread order, where the kernel adds them in a shuffle tree."""
+    data = np.asarray(data, dtype=np.float32)
+    bin_end = [int(v) for v in np.asarray(bin_end)]
+    nnz, tb = data.shape[1], len(bin_end)
+    out = np.full((3, tb), np.nan, dtype=np.float32)
+    n_shares, share = shares(nnz, tb)
+    heads, tails = [], []
+    for p in range(n_shares):
+        d0, d1 = min(p * share, nnz + tb), min((p + 1) * share, nnz + tb)
+        i0 = merge_path_search(bin_end, nnz, d0)
+        ti, tj = i0, d0 - i0
+        carry = np.zeros(3)
+        head = None
+        dt = d0
+        while dt < d1:
+            nti, ntj = tile_end(bin_end, nnz, ti, tj, d1 - dt)
+            n_items = nti - ti + ntj - tj
+            for t in range(THREADS):
+                a = min(n_items, t * ITEMS_PER_THREAD)
+                b = min(n_items, a + ITEMS_PER_THREAD)
+                x = merge_path_search(bin_end, nnz, a, ti, tj)
+                i, j = ti + x, tj + a - x
+                run, cut = np.zeros(3), False
+                for _ in range(a, b):
+                    if i < tb and (j >= nnz or bin_end[i] <= j):
+                        if not cut:          # the thread's first bin
+                            v = carry + run
+                            if i == i0:
+                                head = (i, v)
+                            else:
+                                out[:, i] = v.astype(np.float32)
+                            cut = True
+                        else:
+                            out[:, i] = run.astype(np.float32)
+                        run = np.zeros(3)
+                        i += 1
+                    else:
+                        run = run + data[:, j].astype(np.float64)
+                        j += 1
+                carry = run if cut else carry + run
+            ti, tj, dt = nti, ntj, dt + n_items
+        heads.append(head)
+        tails.append((ti, carry))
+    for p, head in enumerate(heads):          # the carry launch
+        if head is None:
+            continue
+        q = p
+        while q > 0 and tails[q - 1][0] == head[0]:
+            q -= 1
+        v = np.zeros(3)
+        for r in range(q, p):
+            v = v + tails[r][1]
+        out[:, head[0]] = (v + head[1]).astype(np.float32)
+    carries = [(h[0] if h else -1, t[0]) for h, t in zip(heads, tails)]
+    return out, carries
 
 
 def bin_ids(bin_end: torch.Tensor) -> torch.Tensor:
@@ -76,13 +202,19 @@ def _check_inputs(data: torch.Tensor, bin_end: torch.Tensor) -> None:
                          f"{data.device}")
     if not (data.is_contiguous() and bin_end.is_contiguous()):
         raise ValueError("stats and bin_end must be contiguous")
+    if data.shape[1] + bin_end.shape[0] >= 1 << 31:
+        raise ValueError("the kernel takes fewer than 2^31 entries and bins")
+    # the kernel's 16-byte copies start from the aligned base
+    if (data.numel() and data.data_ptr() % 16) or \
+            (bin_end.numel() and bin_end.data_ptr() % 16):
+        raise ValueError("stats and bin_end must be 16-byte aligned")
 
 
 def _fn():
     fn = _kernels.lib("sparse_hist").mmlspark_sparse_hist
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -94,14 +226,18 @@ def sparse_histogram_cuda(data: torch.Tensor,
     global launches
     _check_inputs(data, bin_end)
     nnz, tb = data.shape[1], bin_end.shape[0]
-    acc = torch.zeros(3, tb, dtype=torch.float64, device=data.device)
-    if nnz and tb:
-        code = _fn()(_kernels.ptr(data), _kernels.ptr(bin_end),
-                     _kernels.ptr(acc), nnz, tb,
-                     _kernels.stream_ptr(data.device))
+    dev = data.device
+    out = torch.empty(3, tb, dtype=torch.float32, device=dev)
+    if tb:
+        blocks, share = shares(nnz, tb)
+        keys = torch.empty(2 * blocks, dtype=torch.int32, device=dev)
+        vals = torch.empty(6 * blocks, dtype=torch.float64, device=dev)
+        p = _kernels.ptr
+        code = _fn()(p(data), p(bin_end), p(out), p(keys), p(vals), nnz, tb,
+                     blocks, share, _kernels.stream_ptr(dev))
         launches += 1
         _kernels.check(code, "sparse_hist kernel launch")
-    return acc.float()
+    return out
 
 
 def sparse_histogram(data: torch.Tensor, bin_end: torch.Tensor) -> torch.Tensor:

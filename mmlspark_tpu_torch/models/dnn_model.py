@@ -31,7 +31,8 @@ from ..core.params import ComplexParam, HasBatchSize, HasInputCol, HasOutputCol,
 from ..core.pipeline import Model
 from ..core.schema import ColType, Schema
 from ..parallel.batching import Minibatcher, _crop, concat_outputs
-from ..parallel.ingest import IngestStats, PreprocessSpec, TransferRing, stage_array
+from ..parallel.ingest import (IngestStats, PreprocessSpec, ReadbackSlots,
+                               TransferRing, stage_array)
 from .module import FunctionModel
 
 _MESH_TODO = "sharded eval over a mesh (useMesh=True) waits for ROADMAP A9"
@@ -228,6 +229,7 @@ class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
         stats = IngestStats()
         self._last_ingest_stats = stats
         params = model.device_params(device)   # resident once per transform
+        slots = ReadbackSlots(pin=device.type == "cuda")   # for every ring
 
         def put(batch) -> Tuple[torch.Tensor, int]:
             return stage_array(batch.arrays[in_col], device), batch.num_valid
@@ -239,11 +241,11 @@ class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
             acts = model.apply_taps(x, list(taps), params=params)
             return tuple(acts[t] for t in taps), num_valid
 
-        def fetch(handle) -> Tuple[np.ndarray, ...]:
-            # crop the bucket padding before the readback
+        def fetch(handle) -> Tuple[torch.Tensor, ...]:
+            # crop the bucket padding before the readback; the cast runs on
+            # the ring's readback stream
             ys, num_valid = handle
-            return tuple(y.to(torch.float32).cpu().numpy()
-                         for y in _crop(ys, num_valid))
+            return tuple(y.to(torch.float32) for y in _crop(ys, num_valid))
 
         def eval_partition(part):
             col = part[in_col]
@@ -259,7 +261,7 @@ class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
                                                     [in_col]),
                                     put=put, step=step, fetch=fetch,
                                     depth=self.get("ringDepth"), stats=stats,
-                                    device=device)
+                                    device=device, slots=slots)
                 outs = list(ring)
                 for ci, c in enumerate(out_cols):
                     full = concat_outputs([o[ci] for o in outs])

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
@@ -49,6 +50,25 @@ HEAD_DIMS = (64, 128, 256, 384, 512)
 TILE = 64
 #: score elements per chunk of the plain version (2^28 f32 = 1 GiB)
 _PLAIN_CHUNK_ELEMENTS = 1 << 28
+#: the most blocks a 1-D CUDA grid takes
+MAX_GRID_BLOCKS = (1 << 31) - 1
+
+
+def launch_grid(b: int, tq: int, h: int, d: int) -> Tuple[int, int, int]:
+    """K5's 1-D grid for a [B, Tq, H, D] query: (query blocks, head x
+    column-split slots, total blocks). A CTA takes 192 query rows at D=64
+    and 128 above (3 or 2 consumer warpgroups), and half the output columns
+    at D=384 and 512 (``Sm90Cfg`` in the source)."""
+    m_blocks = -(-tq // (192 if d == 64 else 128))
+    hc = h * (2 if d > 256 else 1)
+    return m_blocks, hc, m_blocks * hc * b
+
+
+def grid_decode(block, m_blocks: int, hc: int):
+    """Block index -> (batch, head x column-split slot, query block), query
+    blocks fastest, as the kernel decodes ``blockIdx.x`` (works on ints and
+    on numpy arrays)."""
+    return block // (m_blocks * hc), (block // m_blocks) % hc, block % m_blocks
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -112,6 +132,10 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"of {TILE}")
     if causal and tq != tk:
         raise ValueError(f"causal masking needs Tq == Tk, got {tq}, {tk}")
+    blocks = launch_grid(b, tq, h, d)[2]
+    if blocks > MAX_GRID_BLOCKS:
+        raise ValueError(f"B={b}, Tq={tq}, H={h} needs {blocks} CTAs, more "
+                         f"than a grid takes ({MAX_GRID_BLOCKS})")
 
 
 def _fn():

@@ -15,9 +15,13 @@ on CUDA streams and events:
   alias the host memory (the CPU), the array is used as it is.
 - ``TransferRing`` runs ``put`` (staging) for each batch on a copy stream of
   its own, makes the compute stream wait for the copy with a CUDA event,
-  dispatches ``step`` on the compute stream, keeps at most ``depth`` steps
-  in flight, and drains them in order (``fetch``, the readback). The host
-  prepares batch i+1 and stages it while the card still runs batch i.
+  dispatches ``step`` on the compute stream, and starts the batch's
+  readback on a readback stream that waits only for that batch's done
+  event, into reused host buffers (``ReadbackSlots``, pinned on CUDA). It
+  keeps at most ``depth`` steps in flight and drains them in order. The
+  host prepares batch i+1 and stages it while the card still runs batch i,
+  and batch i's copy to the host runs beside batch i+1's forward instead
+  of queueing behind it.
 
 The reference's ring stages on a background thread (``DevicePrefetcher``)
 because ``jax.device_put`` blocks; here the copy is asynchronous on its own
@@ -28,6 +32,7 @@ and the deposit path wait for a later slice.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from collections import deque
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
@@ -130,7 +135,11 @@ class BatchTiming:
     ``dispatch_s`` — host cost of enqueueing the step.
     ``compute_s``  — residual wait for the step's outputs at drain time
                    (0 when compute fully hid behind later batches' ingest).
-    ``readback_s`` — device->host fetch of the outputs.
+    ``readback_s`` — device->host fetch of the outputs alone: on CUDA the
+                   readback stream's own time for the batch (``fetch``'s
+                   device work and the copy into the pinned slot, CUDA
+                   events read at drain) plus the host's copy out of the
+                   slot; elsewhere the host time of both.
     ``bytes_in`` — bytes staged for this batch.
     ``rows``     — valid rows in the batch.
     ``padded_rows`` — the static bucket size the batch was padded to (0 =
@@ -458,6 +467,42 @@ def timed_stage(put: Callable, item: Any,
 # ---------------------------------------------------------------------------
 
 
+class ReadbackSlots:
+    """Host buffers the ring's readback lands in: one per (ring slot, output
+    index), grown when an output outgrows it and otherwise reused from batch
+    to batch and from ring to ring. Pinned for a CUDA device, where the
+    copy into them runs asynchronously on the readback stream. The ring
+    copies each output out of its slot before it yields it, so no array it
+    yields aliases a buffer that a later batch overwrites."""
+
+    def __init__(self, pin: bool):
+        self.pin = pin
+        self._bufs: Dict[Tuple[int, int], torch.Tensor] = {}
+
+    def view(self, slot: int, index: int, like: torch.Tensor) -> torch.Tensor:
+        """A host tensor of ``like``'s shape and dtype over the buffer of
+        (``slot``, ``index``)."""
+        nbytes = like.numel() * like.element_size()
+        buf = self._bufs.get((slot, index))
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                              pin_memory=self.pin)
+            self._bufs[(slot, index)] = buf
+        return buf[:nbytes].view(like.dtype).view(like.shape)
+
+
+@dataclasses.dataclass
+class _Readback:
+    """One batch's readback in flight: the slot views its outputs land in,
+    what must outlive the copy (the step's handle and ``fetch``'s tensors),
+    and the (start, end) events on the readback stream (None off CUDA)."""
+
+    views: Tuple[torch.Tensor, ...]
+    keep: Any
+    events: Any = None
+    host_s: float = 0.0
+
+
 class TransferRing:
     """``depth``-slot host -> device -> compute -> host pipeline over an
     iterator of batches, draining results IN ORDER.
@@ -466,17 +511,23 @@ class TransferRing:
                          on the ring's copy stream when the device is CUDA).
       - ``step(staged)`` enqueue the computation on the compute stream;
                          returns a handle. Must not block.
-      - ``fetch(handle)`` readback -> the item the ring yields; runs once
-                         the step's done event has completed.
+      - ``fetch(handle)`` handle -> a tuple of tensors to read back (a crop,
+                         a cast); on CUDA it runs on the ring's readback
+                         stream, after the step's done event. Must not block.
 
-    ``depth`` bounds dispatched-but-undrained steps. A step's failure (an
-    exception out of ``step`` or ``fetch``) propagates to the caller.
+    The ring copies ``fetch``'s tensors into ``slots`` (pinned host buffers
+    on CUDA, one per ring slot and output, reused) as soon as the step is
+    enqueued, and yields one tuple of numpy arrays per batch, copied out of
+    the slots. ``depth`` bounds dispatched-but-undrained steps. A step's
+    failure (an exception out of ``step`` or ``fetch``) propagates to the
+    caller.
     """
 
     def __init__(self, it: Iterator, put: Callable, step: Callable,
                  fetch: Callable, depth: int = 2,
                  stats: Optional[IngestStats] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 slots: Optional[ReadbackSlots] = None):
         if depth <= 0:
             raise ValueError("depth must be positive")
         self.depth = depth
@@ -487,12 +538,14 @@ class TransferRing:
         dev = torch.device(device) if device is not None else None
         self._cuda = dev is not None and dev.type == "cuda"
         self._stream = torch.cuda.Stream(dev) if self._cuda else None
+        self._readback = torch.cuda.Stream(dev) if self._cuda else None
+        self.slots = slots if slots is not None else ReadbackSlots(self._cuda)
 
     def __iter__(self):
         inflight: "deque" = deque()
         wall0 = time.perf_counter()
         try:
-            while True:
+            for n in itertools.count():
                 tq = time.perf_counter()
                 try:
                     item = next(self._it)
@@ -508,7 +561,8 @@ class TransferRing:
                     done = torch.cuda.Event()
                     done.record()
                 timing.dispatch_s = time.perf_counter() - td
-                inflight.append((handle, timing, done))
+                pending = self._start_readback(handle, done, n % self.depth)
+                inflight.append((pending, timing, done))
                 self.stats.note_occupancy(len(inflight))
                 if len(inflight) >= self.depth:
                     yield self._drain(inflight)
@@ -517,15 +571,48 @@ class TransferRing:
         finally:
             self.stats.add_wall(time.perf_counter() - wall0)
 
+    def _start_readback(self, handle, done, slot: int) -> _Readback:
+        """Queue ``fetch`` and the copies into ``slot``'s host buffers: on
+        CUDA on the readback stream, behind ``done`` and nothing else. The
+        handle and ``fetch``'s tensors are held until the copy's end event
+        has completed, so the allocator cannot hand their memory to another
+        stream while the copy still reads it."""
+        if not self._cuda:
+            t0 = time.perf_counter()
+            ys = tuple(self._fetch(handle))
+            views = tuple(self.slots.view(slot, i, y) for i, y in enumerate(ys))
+            for v, y in zip(views, ys):
+                v.copy_(y)
+            return _Readback(views, None, host_s=time.perf_counter() - t0)
+        rs = self._readback
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(rs):
+            rs.wait_event(done)
+            start.record(rs)
+            ys = tuple(self._fetch(handle))
+            views = tuple(self.slots.view(slot, i, y) for i, y in enumerate(ys))
+            for v, y in zip(views, ys):
+                v.copy_(y, non_blocking=True)
+            end.record(rs)
+        return _Readback(views, (handle, ys), (start, end))
+
     def _drain(self, inflight: "deque"):
-        handle, timing, done = inflight.popleft()
+        pending, timing, done = inflight.popleft()
         t0 = time.perf_counter()
         if done is not None:
             done.synchronize()
         t1 = time.perf_counter()
         timing.compute_s = t1 - t0
         timing.resolve_h2d()
-        out = self._fetch(handle)
-        timing.readback_s = time.perf_counter() - t1
+        device_s = 0.0
+        if pending.events is not None:
+            start, end = pending.events
+            end.synchronize()
+            device_s = start.elapsed_time(end) / 1e3
+        t2 = time.perf_counter()
+        out = tuple(v.numpy().copy() for v in pending.views)
+        timing.readback_s = (device_s + pending.host_s
+                             + time.perf_counter() - t2)
         self.stats.record(timing)
         return out

@@ -13,6 +13,7 @@ import torch
 from mmlspark_tpu_torch.gbdt import (gather_kernel, hist_kernel, select_kernel,
                                      sparse_hist_kernel)
 from mmlspark_tpu_torch.models import flash_kernel
+from mmlspark_tpu_torch.parallel import ingest
 
 
 @pytest.fixture
@@ -41,6 +42,48 @@ def test_hist_kernel_matches_plain(cuda_device, n, f, b):
     assert torch.equal(k[..., 2], p[..., 2])
     # both accumulate in f64 and round once: equal up to a rounding tie
     assert bool(((k - p).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+def _assert_hist_close(k, p, scale):
+    assert torch.equal(k[..., 2], p[..., 2])
+    assert bool(((k - p).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [1, 3])
+def test_hist_kernel_contended_bins(cuda_device, levels):
+    """Every row of a feature in one bin, or in three (the b-tags of
+    HIGGS-shaped data): the warps aggregate lanes that share a bin; F = 28
+    and B = 256 take one block's shared memory."""
+    n, f, b = 300_001, 28, 256
+    bins, grad, hess, mask = _inputs(n, f, b, 0.7, cuda_device, seed=4)
+    bins[::3] = torch.randint(0, levels, (len(range(0, f, 3)), n),
+                              dtype=torch.int32, device=cuda_device)
+    assert hist_kernel.launch_geometry(n, f, b).groups == 1
+    k = hist_kernel.histogram_cuda(bins, grad, hess, mask, b)
+    _assert_hist_close(k, hist_kernel.histogram_plain(bins, grad, hess, mask, b),
+                       hist_kernel.histogram_plain(bins, grad.abs(), hess.abs(),
+                                                   mask, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,b,offset", [(100_003, 28, 2048, 0),
+                                          (100_003, 28, 2049, 0),
+                                          (20_001, 3, 20_000, 0),
+                                          (70_001, 5, 256, 1),
+                                          (70_002, 7, 17, 3)])
+def test_hist_kernel_wide_bins_and_ragged_rows(cuda_device, n, f, b, offset):
+    """B = 2048 and 2049 (fewer features a block), 20,000 (the global
+    path), and N not a multiple of 4 with grad, hess and the mask starting
+    ``offset`` values into their buffers (no 16-byte loads there)."""
+    bins, grad, hess, mask = _inputs(n + offset, f, b, 0.5, cuda_device, seed=5)
+    bins = bins[:, offset:].contiguous()
+    grad, hess, mask = grad[offset:], hess[offset:], mask[offset:]
+    assert grad.is_contiguous() and (offset == 0 or grad.data_ptr() % 16)
+    k = hist_kernel.histogram_cuda(bins, grad, hess, mask, b)
+    _assert_hist_close(k, hist_kernel.histogram_plain(bins, grad, hess, mask, b),
+                       hist_kernel.histogram_plain(bins, grad.abs(), hess.abs(),
+                                                   mask, b))
 
 
 @pytest.mark.cuda
@@ -99,6 +142,25 @@ def test_sparse_hist_kernel_matches_plain(cuda_device, nnz, tb, empty):
     assert torch.equal(k[2], p[2])
     # both accumulate in f64 and round once: equal up to a rounding tie
     assert bool(((k - p).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nnz,tb,empty", [(2_000_003, 60_001, 0),
+                                          (1_000_000, 1, 0), (5_000, 90_000, 0)])
+def test_sparse_hist_kernel_bitwise_from_call_to_call(cuda_device, nnz, tb,
+                                                      empty):
+    """K4 sums every bin in one fixed order: repeated calls agree bit for
+    bit, a single bin of 10^6 entries included, and more bins than entries
+    (tiles cut short at their staged bin ends)."""
+    data, bin_end = _sparse_hist_inputs(nnz, tb, empty, cuda_device, seed=7)
+    first = sparse_hist_kernel.sparse_histogram_cuda(data, bin_end)
+    for _ in range(3):
+        assert torch.equal(sparse_hist_kernel.sparse_histogram_cuda(data, bin_end),
+                           first)
+    p = sparse_hist_kernel.sparse_histogram_plain(data, bin_end)
+    scale = sparse_hist_kernel.sparse_histogram_plain(data.abs(), bin_end)
+    assert torch.equal(first[2], p[2])
+    assert bool(((first - p).abs() <= 1e-5 * scale + 1e-6).all())
 
 
 def _csr_batch(rows, width, avg_nnz, pad_rows, seed=0):
@@ -245,3 +307,51 @@ def test_flash_kernel_reads_strided_views_d128(cuda_device, causal):
                                            v.contiguous(), causal)
     torch.cuda.synchronize()
     _assert_k5_close(o, p, q, k, v, causal)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_batch_past_grid_z_cap(cuda_device):
+    """B = 65,537 > 65,535 (grid.z's cap): the batch rides the 1-D grid;
+    the first and last rows are held to the plain version."""
+    rng = np.random.default_rng(8)
+    q, k, v = (_bf16(rng, (65_537, 128, 1, 64), cuda_device) for _ in range(3))
+    o = flash_kernel.flash_attention_cuda(q, k, v)
+    for sl in (slice(0, 16), slice(65_521, 65_537)):
+        p = flash_kernel.flash_attention_plain(q[sl], k[sl], v[sl])
+        torch.cuda.synchronize()
+        _assert_k5_close(o[sl], p, q[sl], k[sl], v[sl], False)
+
+
+def _ring_run(device, depth, n_batches=6):
+    """TransferRing over ``n_batches`` [64, 512] batches whose step is a
+    matmul on the card and whose fetch casts on the readback stream; the
+    yielded arrays as they came, and copies taken at yield time."""
+    rng = np.random.default_rng(9)
+    batches = [rng.standard_normal((64, 512)).astype(np.float32)
+               for _ in range(n_batches)]
+    w = torch.from_numpy(rng.standard_normal((512, 512)).astype(np.float32)
+                         ).to(device)
+    ring = ingest.TransferRing(
+        iter(batches), put=lambda a: ingest.stage_array(a, device),
+        step=lambda x: x @ w, fetch=lambda y: (y.double(), y[:3]), depth=depth,
+        device=device)
+    seen, at_yield = [], []
+    for out in ring:
+        seen.append(out)
+        at_yield.append(tuple(a.copy() for a in out))
+    return seen, at_yield, ring.stats.summary()
+
+
+@pytest.mark.cuda
+def test_ring_readback_stream_keeps_order_and_bits(cuda_device):
+    """The readback on its own stream into reused pinned slots: batches in
+    order, bitwise the outputs of an unpipelined ring (depth 1), and an
+    earlier batch's arrays unchanged after the ring has moved on."""
+    seen, at_yield, stats = _ring_run(cuda_device, depth=3)
+    serial, _, _ = _ring_run(cuda_device, depth=1)
+    assert len(seen) == len(serial) == 6
+    for got, want, first in zip(seen, serial, at_yield):
+        for a, b, c in zip(got, want, first):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, c)
+    assert stats["n_batches"] == 6 and stats["readback_s"] > 0

@@ -938,3 +938,33 @@ def test_preprocess_spec_matches_reference(kw):
             host, np.asarray(ref.apply_device(jnp.asarray(x))))
     dev = spec.apply_device(torch.from_numpy(x))
     np.testing.assert_array_equal(dev.numpy(), host)
+
+
+def test_ring_yields_arrays_apart_from_its_readback_slots():
+    """The ring copies each batch's outputs into its readback slots (one per
+    ring slot and output, reused) and yields copies of them: an earlier
+    batch's arrays keep their values after later batches overwrite the
+    slots, and match an unpipelined ring's."""
+    from mmlspark_tpu_torch.parallel.ingest import ReadbackSlots, TransferRing
+
+    rng = np.random.default_rng(0)
+    batches = [rng.standard_normal((8, 5)).astype(np.float32) for _ in range(7)]
+
+    def run(depth, slots):
+        ring = TransferRing(iter(batches), put=torch.from_numpy,
+                            step=lambda x: x * 2.0 + 1.0,
+                            fetch=lambda y: (y, y[:2].double()), depth=depth,
+                            slots=slots)
+        return list(ring)
+
+    slots = ReadbackSlots(pin=False)
+    outs = run(2, slots)
+    assert len(slots._bufs) == 2 * 2          # depth x outputs, reused
+    bufs = [b.numpy() for b in slots._bufs.values()]
+    for out, x in zip(outs, batches):
+        np.testing.assert_array_equal(out[0], x * 2.0 + 1.0)
+        np.testing.assert_array_equal(out[1], (x[:2] * 2.0 + 1.0).astype(np.float64))
+        assert not any(np.shares_memory(a, b) for a in out for b in bufs)
+    for a, b in zip(outs, run(1, None)):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)

@@ -139,6 +139,58 @@ def test_select_grid_covers_the_rows(n):
     assert rows * blocks >= n and (blocks == 1 or rows * (blocks - 1) < n)
 
 
+@pytest.mark.parametrize("b", [2, 17, 256, 1024, 2048, 2049, 20000])
+@pytest.mark.parametrize("f", [1, 28, 65, 200])
+def test_hist_launch_geometry(f, b):
+    """K1's grid, sized in Python: a block's feature group fits the 227 KB
+    a block may opt into, the groups cover every feature once, the row
+    blocks every row once in whole 4-row quads, and the scratch holds one
+    f64 partial per row block; a histogram too wide for one feature a block
+    takes the global path."""
+    for n in (1, 1537, 131_072, 2_097_152):
+        geo = hist_kernel.launch_geometry(n, f, b)
+        if b * hist_kernel.CELL_BYTES + hist_kernel.AGG_BYTES \
+                > hist_kernel.SMEM_BLOCK_MAX:
+            assert geo.feat_per_block == 0 and geo.scratch == f * b * 3
+        else:
+            fpb, groups = geo.feat_per_block, geo.groups
+            assert 1 <= fpb <= f and fpb * groups >= f > fpb * (groups - 1)
+            assert geo.smem_bytes <= hist_kernel.SMEM_BLOCK_MAX
+            assert geo.smem_bytes >= fpb * b * hist_kernel.CELL_BYTES
+            assert geo.scratch == geo.row_blocks * f * b * 3
+            if f == 28 and b == 256:   # the dense main path: one group
+                assert groups == 1
+            assert geo.row_blocks * groups <= 2 * hist_kernel.SMS
+        rows, blocks = geo.rows_per_block, geo.row_blocks
+        assert rows % 4 == 0 and blocks >= 1
+        assert rows * blocks >= n > rows * (blocks - 1)
+
+
+@pytest.mark.parametrize("b,tq,h,d", [(1, 64, 1, 64), (3, 2048, 8, 64),
+                                      (5, 1024, 3, 384), (2, 640, 2, 512),
+                                      (65_537, 128, 1, 64),
+                                      (1 << 20, 128, 1, 64)])
+def test_flash_grid_decode_covers_every_block(b, tq, h, d):
+    """K5's 1-D grid: every (batch, head x column split, query block) once,
+    query blocks fastest (the order of the 3-D grid it replaces), and a
+    batch past grid.z's 65,535 cap."""
+    m_blocks, hc, total = flash_kernel.launch_grid(b, tq, h, d)
+    assert m_blocks * (192 if d == 64 else 128) >= tq
+    assert hc == h * (2 if d > 256 else 1)
+    assert total == m_blocks * hc * b <= flash_kernel.MAX_GRID_BLOCKS
+    block = np.arange(total, dtype=np.int64)
+    bi, hy, m = flash_kernel.grid_decode(block, m_blocks, hc)
+    assert bi.min() == 0 and bi.max() == b - 1
+    np.testing.assert_array_equal((bi * hc + hy) * m_blocks + m, block)
+    assert ((hy >= 0) & (hy < hc) & (m >= 0) & (m < m_blocks)).all()
+
+
+def test_flash_grid_limit_raises():
+    m_blocks, hc, total = flash_kernel.launch_grid(1 << 24, 8192, 16, 512)
+    assert total > flash_kernel.MAX_GRID_BLOCKS
+    assert flash_kernel.launch_grid(65_537, 128, 1, 64)[2] == 65_537
+
+
 def test_select_gate_is_the_reference_gate():
     assert not select_kernel.use_select(499_999)
     assert select_kernel.use_select(500_000)

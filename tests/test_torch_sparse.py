@@ -184,6 +184,91 @@ def test_sparse_hist_plain_matches_pallas_kernel(nnz, tb, empty):
     np.testing.assert_array_equal(got, exact.astype(np.float32))
 
 
+_PATH_CASES = [(6000, 777, 0), (3000, 1, 0), (4000, 900, 2), (0, 50, 0),
+               (300, 2000, 0), (5000, 40, 3)]
+
+
+@pytest.fixture(params=["kernel tiles", "small tiles"])
+def k4_tiles(request, monkeypatch):
+    """K4's tile and grid constants as the kernel has them, or cut so that
+    a few thousand entries span many shares, tiles and threads."""
+    if request.param == "small tiles":
+        monkeypatch.setattr(sparse_hist_kernel, "THREADS", 4)
+        monkeypatch.setattr(sparse_hist_kernel, "ITEMS_PER_THREAD", 3)
+        monkeypatch.setattr(sparse_hist_kernel, "TILE", 12)
+        monkeypatch.setattr(sparse_hist_kernel, "END_WINDOW", 3)
+        monkeypatch.setattr(sparse_hist_kernel, "SMS", 8)
+    return request.param
+
+
+def _walk(bin_end, nnz, i, j, items):
+    """The merge path walked one item at a time from (marker i, entry j):
+    (markers, entries, end coordinate)."""
+    markers, entries = [], []
+    for _ in range(items):
+        if i < len(bin_end) and (j >= nnz or bin_end[i] <= j):
+            markers.append(i)
+            i += 1
+        else:
+            entries.append(j)
+            j += 1
+    return markers, entries, (i, j)
+
+
+@pytest.mark.parametrize("nnz,tb,empty", _PATH_CASES)
+def test_merge_path_partition_covers_every_item_once(k4_tiles, nnz, tb, empty):
+    """K4's shares: the binary search lands where the walk does, the shares
+    abut, every bin-end marker and every entry falls in exactly one share,
+    and the carries run in share order (a share's head is the bin open at
+    its start, its tail the bin open at its end, the next share's start)."""
+    _, bin_end, data = _hist_case(nnz, tb, seed=nnz + tb + 1, empty_every=empty)
+    be = [int(v) for v in bin_end]
+    n_shares, share = sparse_hist_kernel.shares(nnz, tb)
+    assert n_shares * share >= nnz + tb > (n_shares - 1) * share
+    markers, entries, pos = [], [], (0, 0)
+    starts = []
+    for p in range(n_shares):
+        d0, d1 = p * share, min((p + 1) * share, nnz + tb)
+        i0 = sparse_hist_kernel.merge_path_search(be, nnz, d0)
+        assert (i0, d0 - i0) == pos
+        starts.append(i0)
+        m, e, pos = _walk(be, nnz, *pos, d1 - d0)
+        markers += m
+        entries += e
+    assert markers == list(range(tb)) and entries == list(range(nnz))
+    _, carries = sparse_hist_kernel.partitioned_histogram(data, bin_end)
+    assert len(carries) == n_shares
+    for p, (head, tail) in enumerate(carries):
+        assert head in (-1, starts[p])
+        assert tail == (starts[p + 1] if p + 1 < n_shares else tb)
+    if k4_tiles == "small tiles" and nnz + tb > 100:
+        assert n_shares > 1
+
+
+@pytest.mark.parametrize("nnz,tb,empty", _PATH_CASES)
+def test_partitioned_reduction_matches_plain_and_pallas(k4_tiles, nnz, tb,
+                                                        empty):
+    """K4's partitioned f64 reduction (shares, tiles, thread runs, the
+    block scan and the carries across shares), emulated in numpy, against
+    the plain version and the reference's Pallas kernel in interpret mode:
+    every bin written, counts exact, g/h within 1e-5 * sum|v| + 1e-6."""
+    ids, bin_end, data = _hist_case(nnz, tb, seed=nnz + tb + 2,
+                                    empty_every=empty)
+    got, _ = sparse_hist_kernel.partitioned_histogram(data, bin_end)
+    assert not np.isnan(got).any()
+    plain = sparse_hist_kernel.sparse_histogram_plain(
+        torch.from_numpy(data), torch.from_numpy(bin_end)).numpy()
+    refs = [plain]
+    if nnz:
+        refs.append(np.asarray(pallas_sparse.sparse_histogram_mxu(
+            jnp.asarray(ids), jnp.asarray(data), tb, interpret=True)))
+    for ref in refs:
+        np.testing.assert_array_equal(got[2], ref[2])
+        for ch in (0, 1):
+            tol = 1e-5 * _abs_bin_sums(ids, data[ch], tb) + 1e-6
+            assert (np.abs(got[ch] - ref[ch]) <= tol).all(), ch
+
+
 def test_sparse_hist_empty_stream_and_device_guard():
     data = torch.zeros(3, 0)
     out = sparse_hist_kernel.sparse_histogram(data, torch.zeros(4, dtype=torch.int32))
