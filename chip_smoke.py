@@ -48,11 +48,16 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    iterations on the card and on the CPU, first tree identical;
 7. K3 (CSR gather) against its plain version, bitwise: on the real 256-row
    CSR batches the fused executor stages from the sparse rows with the
-   sparse model's used columns, on all 65,536 rows at once, and at ragged
-   shapes (empty rows, a padded row and nnz tail, used ids past the width,
-   an all-leaf forest, no entries), timed beside its plain version, a
-   PyTorch sparse-tensor call and its bound, and timed once more with the
-   host's cost of issuing it hidden (the kernel's own device time);
+   sparse model's used columns, on all 65,536 rows at once (two calls bit
+   for bit equal), and at ragged shapes (empty rows, a padded row and nnz
+   tail, used ids past the width, an all-leaf forest, no entries, used ids
+   shuffled with duplicates, rows longer than a warp's window, 30,000 used
+   ids, one row), timed beside its plain version, a PyTorch sparse-tensor
+   call and its bound, and timed once more with the host's cost of issuing
+   it hidden (the kernel's own device time), beside an empty launch's
+   (``torch.cuda._sleep(1)``) time both ways; then at the executor's batch
+   sizes up to the whole partition (256 to 65,536 rows), each with its
+   bytes bound and the device-only time of other launch geometries;
 8. fused scoring: ``PipelineModel([model]).fuse()`` on both models. Sparse:
    with ``layout="csr"`` and ``forest.csr`` over the same 65,536 rows the
    sparse path scored unfused — no fallback, 256 CSR batches and no
@@ -166,6 +171,12 @@ OUT_MEAN_DIFF = 0.005
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+
+# K3 timed at the fused executor's bucketed batch sizes, up to the whole
+# scored partition (N_SCORE rows), and at these rows a warp beside its own
+# geometry
+GATHER_BATCHES = (256, 1024, 4096, 16_384, 65_536)
+GATHER_SWEEP_ROWS = (1, 2, 4, 8, 16)
 
 
 def log(obj) -> None:
@@ -1032,30 +1043,93 @@ def _library_gather(torch, args):
     return None, None, None, tried
 
 
+def rows_prefix(indptr, indices, values, width, n):
+    """The first ``n`` rows of a partition's CSR triple as one batch, nnz
+    padded to a power of two as the executor pads a batch's."""
+    from mmlspark_tpu_torch.parallel.batching import next_bucket, pad_batch
+
+    nnz = int(indptr[n])
+    pad = next_bucket(max(nnz, 1))
+    return {"features:indptr": indptr[:n + 1], "features:width": width,
+            "features:indices": pad_batch(indices[:nnz], pad),
+            "features:values": pad_batch(values[:nnz], pad)}
+
+
+def gather_bound(n_rows, nnz, n_used):
+    """Bytes the gather must move: offsets, the batch's entries (index +
+    value), the used ids, the [N, U] f32 output."""
+    return bound_ms(4 * (n_rows + 1) + 8 * nnz + 4 * n_used
+                    + 4 * n_rows * n_used, 0)
+
+
+def gather_batch_sizes(torch, gk, triple, used) -> list:
+    """K3 at the executor's bucketed batch sizes up to the whole partition,
+    cut from the same rows: the wrapper's ms, device-only ms and the bytes
+    bound at each, and the device-only ms at other rows a warp beside
+    launch_geometry's choice."""
+    out = []
+    for n in GATHER_BATCHES:
+        args = gather_args(torch, rows_prefix(*triple, n), used)
+        check_gather(torch, gk, args, f"first {n:,} rows")
+        nnz, u = int(args[0][-1]), used.shape[0]
+        geo = gk.launch_geometry(n, u)
+        sweep = {}
+        orig = gk.launch_geometry
+        try:
+            for rpw in GATHER_SWEEP_ROWS:
+                gk.launch_geometry = lambda n_, u_: (rpw, None, None)
+                sweep[rpw] = queued_ms(torch, lambda: gk.csr_gather_cuda(*args),
+                                       50)
+        finally:
+            gk.launch_geometry = orig
+        row = dict(rows=n, nnz=nnz, nnz_staged=args[1].shape[0],
+                   geometry=dict(zip(("rows_per_warp", "grid_x", "grid_y"),
+                                     geo)),
+                   ms=time_ms(torch, lambda: gk.csr_gather_cuda(*args), 50),
+                   device_only_ms=queued_ms(
+                       torch, lambda: gk.csr_gather_cuda(*args), 50),
+                   bound_ms=gather_bound(n, nnz, u)[0],
+                   device_only_ms_by_rows_per_warp=sweep)
+        row["device_only_over_bound"] = row["device_only_ms"] / row["bound_ms"]
+        log(dict(phase="kernels", kernel="csr_gather", case="batch size", **row))
+        out.append(row)
+    return out
+
+
 def gather_kernel_phase(torch, model, rows) -> dict:
     from mmlspark_tpu_torch.gbdt import gather_kernel as gk
-    from mmlspark_tpu_torch.parallel.batching import pad_batch
 
     dev = torch.device(DEVICE)
     used_np = gk.used_features(model._ensemble())
     used = torch.as_tensor(used_np.astype(np.int32), device=dev)
-    (indptr, indices, values, width), batches = fused_batches(model, rows)
+    triple, batches = fused_batches(model, rows)
+    indptr, width = triple[0], triple[3]
     main_args = gather_args(torch, batches[0].arrays, used)
     check_gather(torch, gk, main_args, "fused batch 0 (256 rows)")
     check_gather(torch, gk, gather_args(torch, batches[-1].arrays, used),
                  "fused batch 255")
     # all rows at once: the partition's whole triple, nnz padded as a
     # batch would be
-    nnz = int(indptr[-1])
-    pad = 1 << (nnz - 1).bit_length()
-    whole = {"features:indptr": indptr, "features:width": width,
-             "features:indices": pad_batch(indices, pad),
-             "features:values": pad_batch(values, pad)}
-    big_args = gather_args(torch, whole, used)
+    big_args = gather_args(torch, rows_prefix(*triple, len(indptr) - 1), used)
     check_gather(torch, gk, big_args, "65,536 rows at once")
     empty = {"indices": np.zeros(0, np.int64), "values": np.zeros(0), "size": width}
     holes = rows[:256].copy()
     holes[::3] = [empty] * len(holes[::3])
+    rng = np.random.default_rng(SEED)
+    # rows longer than a warp's window (STAGE_ENTRIES): 600-4,096 entries,
+    # lengths a text row reaches, and a row of the 2^12-wide anchor can hold
+    long_rows = rows[:256].copy()
+    for i, k in ((0, 600), (7, 3000), (8, 1300), (255, 4096)):
+        idx = np.sort(rng.choice(width, k, replace=False))
+        long_rows[i] = {"indices": idx, "values": rng.integers(1, 5, k)
+                        .astype(np.float64), "size": width}
+    shuffled = torch.as_tensor(rng.permutation(np.concatenate(
+        [used_np, used_np[::3], [width - 1, width, width + 5]])).astype(np.int32),
+        device=dev)
+    wide = torch.as_tensor(np.sort(rng.choice(width, 30_000, replace=False))
+                           .astype(np.int32), device=dev)
+    one_row = dict(batches[0].arrays)
+    one_row["features:indptr"] = one_row["features:indptr"][:2]
     cases = [("empty rows", fused_batches(model, holes)[1][0].arrays, used),
              ("padded rows and nnz tail",
               fused_batches(model, rows[:1000])[1][-1].arrays, used),
@@ -1064,43 +1138,52 @@ def gather_kernel_phase(torch, model, rows) -> dict:
                                             dtype=torch.int32, device=dev)])),
              ("all-leaf forest (used = [0])", batches[0].arrays, used[:1] * 0),
              ("no entries", fused_batches(model, np.array(
-                 [empty] * 256, dtype=object))[1][0].arrays, used)]
+                 [empty] * 256, dtype=object))[1][0].arrays, used),
+             ("shuffled used with duplicates", batches[0].arrays, shuffled),
+             ("rows longer than the window",
+              fused_batches(model, long_rows)[1][0].arrays, used),
+             ("30,000 used ids", batches[0].arrays, wide),
+             ("one row", one_row, used)]
     for what, arrays, u in cases:
         check_gather(torch, gk, gather_args(torch, arrays, u), what)
+    k1 = gk.csr_gather_cuda(*big_args)
+    k2 = gk.csr_gather_cuda(*big_args)
+    if not torch.equal(k1.view(torch.int32), k2.view(torch.int32)):
+        fail("two K3 calls on the same 65,536 rows differ")
 
     b_nnz = int(main_args[0][-1])
     n_rows, n_used = main_args[0].shape[0] - 1, used.shape[0]
     ms = time_ms(torch, lambda: gk.csr_gather_cuda(*main_args), 200)
     plain = time_ms(torch, lambda: gk.csr_gather_plain(*main_args), 20)
-    big_ms = time_ms(torch, lambda: gk.csr_gather_cuda(*big_args), 20)
     # the same launches with the wrapper's host cost hidden: the kernel's
     # own device time
     queued = queued_ms(torch, lambda: gk.csr_gather_cuda(*main_args))
-    big_queued = queued_ms(torch, lambda: gk.csr_gather_cuda(*big_args), 20)
+    # the least any launch costs on this card and host: an empty kernel
+    empty_launch = dict(ms=time_ms(torch, lambda: torch.cuda._sleep(1), 200),
+                        device_only_ms=queued_ms(
+                            torch, lambda: torch.cuda._sleep(1)))
     lib_name, lib_fn, lib_out, tried = library_gather(torch, main_args)
     lib = time_ms(torch, lib_fn, 20) if lib_fn is not None else None
     k = gk.csr_gather_cuda(*main_args)
     lib_equal = bool(torch.equal(lib_out, k)) if lib_out is not None else None
-    # bytes the function must move: offsets, the batch's entries (index +
-    # value), the used ids, the [N, U] f32 output
-    t_bound, by = bound_ms(4 * (n_rows + 1) + 8 * b_nnz + 4 * n_used
-                           + 4 * n_rows * n_used, 0)
-    big_rows, big_nnz = big_args[0].shape[0] - 1, int(big_args[0][-1])
+    t_bound, by = gather_bound(n_rows, b_nnz, n_used)
+    sizes = gather_batch_sizes(torch, gk, triple, used)
     row = dict(name="csr_gather", route="cuda",
                source="mmlspark_tpu_torch/csrc/csr_gather.cu",
                replaces="mmlspark_tpu/gbdt/pallas_sparse.py:151",
                max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=t_bound,
                bound_by=by, library_ms=lib, device_only_ms=queued,
+               empty_launch=empty_launch,
+               geometry=gk.launch_geometry(n_rows, n_used),
                library_call=lib_name,
                library_equal=lib_equal, library_refused=tried,
                shape=dict(rows=n_rows, used=n_used, nnz=b_nnz,
                           nnz_staged=main_args[1].shape[0], width=width),
-               all_rows=dict(rows=big_rows, nnz=big_nnz, ms=big_ms,
-                             device_only_ms=big_queued,
-                             bound_ms=bound_ms(4 * (big_rows + 1) + 8 * big_nnz
-                                               + 4 * n_used
-                                               + 4 * big_rows * n_used, 0)[0]))
-    log(dict(phase="kernels", **row))
+               all_rows=sizes[-1],
+               batch_sizes={r["rows"]: {key: r[key] for key in (
+                   "ms", "device_only_ms", "bound_ms")} for r in sizes})
+    log(dict(phase="kernels", **{k_: v for k_, v in row.items()
+                                 if k_ != "all_rows"}))
     return row
 
 

@@ -24,14 +24,23 @@ not have. On CPU tensors it runs ``csr_gather_plain``, one global
 ``searchsorted`` over ``row * width + index`` keys as in the reference's XLA
 formulation; anything else raises. ``launches`` counts kernel launches.
 
-Bound on the H100: bytes, ~0.4 MB per 256-row batch of text rows, so a launch
-is bound by its latency; see the source.
+Bound on the H100: the launch's latency at the executor's 256-row batch
+(~0.16 MB of bytes), bytes over a whole partition; see the source. The
+kernel stages the used ids and each warp's rows of entries in shared memory
+and finds each used id in a row's indices there by a branchless binary
+search, up to four at a time a lane; ``launch_geometry`` sizes its grid
+(one row a warp for a small batch, more for a large one). The wrapper's
+own cost is most of a call at the executor's batch, so ``csr_gather_cuda``
+checks its inputs with one expression and passes raw pointers and the raw
+stream, packed into one argument, to a ``ctypes`` function bound on first
+use.
 """
 
 from __future__ import annotations
 
 import copy
 import ctypes
+import struct
 
 import numpy as np
 import torch
@@ -40,6 +49,18 @@ from .. import _kernels
 
 #: kernel launches since the counter was last set to 0
 launches = 0
+
+#: the kernel's shape, as in csrc/csr_gather.cu: warps a block, entries a
+#: warp's shared-memory window holds, and used ids a block stages
+WARPS_PER_BLOCK = 4
+STAGE_ENTRIES = 512
+USED_CHUNK = 512
+#: H100 SXM streaming multiprocessors; a batch of at most ``SMS *
+#: ROWS_PER_SM`` rows takes one row a warp, a larger one more rows a warp,
+#: up to ``ROWS_PER_WARP_CAP``
+SMS = 132
+ROWS_PER_SM = 16
+ROWS_PER_WARP_CAP = 4
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +141,18 @@ def csr_gather_plain(indptr: torch.Tensor, indices: torch.Tensor,
     return x.reshape(n, u)
 
 
+def launch_geometry(n_rows: int, n_used: int) -> tuple:
+    """(rows a warp, grid x, grid y) of K3's launch for ``n_rows`` rows and
+    ``n_used`` used ids; the C entry point takes the first and derives the
+    same grid. A small batch is bound by latency: one row a warp, so each
+    warp's chain of round trips is short and the blocks spread over the
+    card. A large one is bound by bytes: several rows a warp, so each round
+    trip moves several rows' entries."""
+    rpw = min(ROWS_PER_WARP_CAP, max(1, -(-n_rows // (SMS * ROWS_PER_SM))))
+    return (rpw, -(-n_rows // (WARPS_PER_BLOCK * rpw)),
+            -(-n_used // USED_CHUNK))
+
+
 def _check_inputs(indptr, indices, values, used) -> None:
     for name, t, dt in (("indptr", indptr, torch.int32),
                         ("indices", indices, torch.int32),
@@ -138,16 +171,28 @@ def _check_inputs(indptr, indices, values, used) -> None:
                          f"indices")
     if indptr.shape[0] < 1 or used.shape[0] < 1:
         raise ValueError("indptr and used must not be empty")
+    if indptr.device.type != "cuda":
+        raise ValueError(f"the kernel takes CUDA tensors, got {indptr.device}")
 
 
-def _fn():
+_I32, _F32 = torch.int32, torch.float32
+#: the launch's arguments as the C entry point reads them (``GatherArgs``):
+#: pointers to indptr, indices, values, used and out, the stream, nnz, then
+#: rows, used ids, width, rows a warp and two pads. One packed block,
+#: because ctypes converts every argument of every call, and a dozen cost
+#: the host more than the kernel takes on the card
+_ARGS = struct.Struct("<6Qq6i")
+#: (C entry point, raw current-stream getter), bound on the first launch
+_bound = None
+
+
+def _bind():
+    global _bound
     fn = _kernels.lib("csr_gather").mmlspark_csr_gather
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    fn.argtypes = [ctypes.c_char_p]
+    fn.restype = ctypes.c_int
+    _bound = (fn, torch._C._cuda_getCurrentRawStream)
+    return _bound
 
 
 def csr_gather_cuda(indptr: torch.Tensor, indices: torch.Tensor,
@@ -155,15 +200,28 @@ def csr_gather_cuda(indptr: torch.Tensor, indices: torch.Tensor,
                     ) -> torch.Tensor:
     """Launch K3 on PyTorch's current stream; returns [N, U] f32."""
     global launches
-    _check_inputs(indptr, indices, values, used)
-    w = _width(width)
-    n, u = indptr.shape[0] - 1, used.shape[0]
-    out = torch.empty((n, u), dtype=torch.float32, device=indptr.device)
+    dev = indptr.device
+    # the conditions of _check_inputs in one expression; it names the fault
+    if not (dev.type == "cuda" and indptr.dtype is _I32
+            and indices.dtype is _I32 and values.dtype is _F32
+            and used.dtype is _I32 and indptr.dim() == 1
+            and indices.dim() == 1 and values.dim() == 1 and used.dim() == 1
+            and indices.device == dev and values.device == dev
+            and used.device == dev and indptr.is_contiguous()
+            and indices.is_contiguous() and values.is_contiguous()
+            and used.is_contiguous() and values.numel() == indices.numel()
+            and indptr.numel() >= 1 and used.numel() >= 1):
+        _check_inputs(indptr, indices, values, used)
+    w = width if type(width) is int and width > 0 else _width(width)
+    n, u = indptr.numel() - 1, used.numel()
+    out = torch.empty((n, u), dtype=_F32, device=dev)
     if n:
-        code = _fn()(_kernels.ptr(indptr), _kernels.ptr(indices),
-                     _kernels.ptr(values), _kernels.ptr(used),
-                     _kernels.ptr(out), n, u, indices.shape[0], w,
-                     _kernels.stream_ptr(indptr.device))
+        fn, stream = _bound or _bind()
+        code = fn(_ARGS.pack(indptr.data_ptr(), indices.data_ptr(),
+                             values.data_ptr(), used.data_ptr(),
+                             out.data_ptr(), stream(dev.index),
+                             indices.numel(), n, u, w,
+                             launch_geometry(n, u)[0], 0, 0))
         launches += 1
         _kernels.check(code, "csr_gather kernel launch")
     return out

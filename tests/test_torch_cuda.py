@@ -184,24 +184,66 @@ def _csr_batch(rows, width, avg_nnz, pad_rows, seed=0):
     return [indptr, np.pad(indices, (0, pad)), np.pad(values, (0, pad))]
 
 
+def _used_ids(kind, width, seed=1):
+    rng = np.random.default_rng(seed)
+    forest = np.sort(rng.choice(width, min(300, width), replace=False))
+    if kind == "shuffled":   # no order, duplicates, ids past the width
+        return rng.permutation(np.concatenate(
+            [forest, forest[::7], [width - 1, width, width + 9]])).astype(np.int32)
+    if kind == "30k":        # a forest of ~1,000 trees
+        return np.sort(rng.choice(width, 30_000, replace=False)).astype(np.int32)
+    return {"forest": forest, "clamped": np.array([0, 7, width - 1, width, width + 9]),
+            "one": np.array([0])}[kind].astype(np.int32)
+
+
+def _gather_pair(device, rows, width, avg, pad_rows, used):
+    arrays = _csr_batch(rows, width, avg, pad_rows)
+    t = [torch.from_numpy(a).to(device) for a in arrays + [_used_ids(used, width)]]
+    return t[0], t[1], t[2], width, t[3]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,width,avg,pad_rows,used", [
     (256, 1 << 18, 50, 0, "forest"), (200, 1 << 12, 40, 56, "forest"),
     (65_536, 1 << 18, 50, 0, "forest"), (33, 100, 5, 0, "clamped"),
-    (9, 50, 3, 0, "one"), (16, 40, 0, 0, "forest")])
+    (9, 50, 3, 0, "one"), (16, 40, 0, 0, "forest"),
+    (256, 1 << 18, 50, 0, "shuffled"), (65_536, 1 << 18, 50, 0, "shuffled"),
+    (64, 1 << 12, 3000, 0, "forest"), (16_384, 1 << 12, 600, 0, "shuffled"),
+    (256, 1 << 18, 50, 0, "30k"), (1, 1 << 18, 50, 0, "forest")])
 def test_csr_gather_kernel_bitwise_matches_plain(cuda_device, rows, width, avg,
                                                  pad_rows, used):
-    arrays = _csr_batch(rows, width, avg, pad_rows)
-    rng = np.random.default_rng(1)
-    ids = {"forest": np.sort(rng.choice(width, min(300, width), replace=False)),
-           "clamped": np.array([0, 7, width - 1, width, width + 9]),
-           "one": np.array([0])}[used].astype(np.int32)
-    t = [torch.from_numpy(a).to(cuda_device) for a in arrays + [ids]]
-    k = gather_kernel.csr_gather_cuda(t[0], t[1], t[2], width, t[3])
-    p = gather_kernel.csr_gather_plain(t[0], t[1], t[2], width, t[3])
+    # rows of 600 and 3,000 entries are longer than a warp's window
+    # (STAGE_ENTRIES); 30,000 used ids span 30 blocks' chunks
+    args = _gather_pair(cuda_device, rows, width, avg, pad_rows, used)
+    k = gather_kernel.csr_gather_cuda(*args)
+    p = gather_kernel.csr_gather_plain(*args)
     torch.cuda.synchronize()
-    assert k.shape == (rows + pad_rows, len(ids))
+    assert k.shape == (rows + pad_rows, args[4].shape[0])
     assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rpw", [1, 2, 5, 31])
+def test_csr_gather_kernel_any_geometry(cuda_device, monkeypatch, rpw):
+    # every tile the C entry point takes gives the same bits, not only
+    # launch_geometry's choice: up to 31 rows a warp
+    monkeypatch.setattr(gather_kernel, "launch_geometry",
+                        lambda n, u: (rpw, None, None))
+    for case in [(4_099, 1 << 18, 50, 3, "shuffled"), (700, 1 << 12, 300, 0, "forest")]:
+        args = _gather_pair(cuda_device, *case)
+        k = gather_kernel.csr_gather_cuda(*args)
+        p = gather_kernel.csr_gather_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_csr_gather_kernel_bitwise_from_call_to_call(cuda_device):
+    args = _gather_pair(cuda_device, 65_536, 1 << 18, 50, 0, "shuffled")
+    first = gather_kernel.csr_gather_cuda(*args)
+    second = gather_kernel.csr_gather_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
 
 
 def _bf16(rng, shape, device):

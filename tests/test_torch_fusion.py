@@ -228,13 +228,45 @@ def _gather_cases():
     return [pytest.param(*c[1:], id=c[0]) for c in cases]
 
 
+def _shuffled_case():
+    """The plain case with ``used`` in no order, with duplicates and with
+    ids past the width (which clamp onto a duplicate of the last column)."""
+    X = _sparse_matrix(n=24, width=40, density=0.2, seed=3)
+    X[[0, 5, 23]] = 0.0
+    used = np.random.default_rng(4).permutation(
+        [3, 17, 17, 39, 0, 45, 3, 40, 22, 8, 39])
+    return pytest.param(*_csr_of(X), 40, used, id="shuffled used, duplicates")
+
+
+def _k3_design_cases():
+    """Inputs that reach the parts of K3's design the wire cases do not: a
+    row longer than a warp's window, more used ids than a block stages, and
+    no rows at all."""
+    rng = np.random.default_rng(5)
+    X = np.zeros((7, 2048), np.float32)
+    for r, k in enumerate([20, 1300, 0, 33, 600, 512, 9]):
+        cols = rng.choice(2048, k, replace=False)
+        X[r, cols] = rng.integers(1, 5, k)
+    long_used = np.concatenate([rng.choice(2048, 300), [2047, 2048, 5000]])
+    Y = _sparse_matrix(n=6, width=4096, density=0.1, seed=6)
+    big_used = np.concatenate([rng.choice(4096, 1500), [4095, 4100]])
+    zero = (np.zeros(1, np.int32), np.zeros(4, np.int32),
+            np.zeros(4, np.float32))
+    return [pytest.param(*_csr_of(X), 2048, rng.permutation(long_used),
+                         id="rows longer than the window"),
+            pytest.param(*_csr_of(Y), 4096, big_used,
+                         id="used past one block's chunk"),
+            pytest.param(*zero, 40, np.array([1, 2]), id="0 rows")]
+
+
 def _port_gather(indptr, indices, values, width, used):
     t = [torch.from_numpy(np.asarray(a)) for a in (indptr, indices, values)]
     return gather_kernel.csr_gather(*t, width, torch.from_numpy(
         np.asarray(used, dtype=np.int32))).numpy()
 
 
-@pytest.mark.parametrize("indptr,indices,values,width,used", _gather_cases())
+@pytest.mark.parametrize("indptr,indices,values,width,used",
+                         _gather_cases() + [_shuffled_case()])
 def test_k3_plain_bitwise_equals_reference(indptr, indices, values, width, used):
     got = _port_gather(indptr, indices, values, width, used)
     xla = np.asarray(pallas_sparse.csr_gather_xla(indptr, indices, values,
@@ -243,6 +275,119 @@ def test_k3_plain_bitwise_equals_reference(indptr, indices, values, width, used)
         indptr, indices, values, width, used, interpret=True))
     np.testing.assert_array_equal(_bits(got), _bits(xla))
     np.testing.assert_array_equal(_bits(got), _bits(pallas))
+
+
+def _k3_emulate(indptr, indices, values, width, used, rows_per_warp=None,
+                warps=gather_kernel.WARPS_PER_BLOCK,
+                stage=gather_kernel.STAGE_ENTRIES,
+                chunk=gather_kernel.USED_CHUNK):
+    """K3's index arithmetic (``csrc/csr_gather.cu``) in numpy: the grid,
+    block -> warp -> tile of rows, the block's chunk of clamped used ids,
+    each warp's window of staged entries (the tile's first, then restarted
+    at a row that runs past it), a row's pieces and which piece decides
+    each used id, and the branchless search of a piece (the last position
+    whose index is <= the id, in steps that depend on the piece's length
+    only). The lanes of a warp and their groups of used ids are one vector.
+    ``rows_per_warp`` and ``warps`` (a block) default to the kernel's.
+    Returns the [N, U] f32 result and how many times each cell was
+    written."""
+    n, u, nnz = len(indptr) - 1, len(used), len(indices)
+    rpw = rows_per_warp or gather_kernel.launch_geometry(n, u)[0]
+    out = np.zeros((max(n, 0), u), np.uint32)
+    writes = np.zeros(out.shape, np.int64)
+    if n <= 0:
+        return out.view(np.float32), writes
+    ip = np.asarray(indptr, np.int64)
+    idx = np.asarray(indices, np.int64)
+    val = _bits(values)
+    grid_x, grid_y = -(-n // (warps * rpw)), -(-u // chunk)
+    for by in range(grid_y):
+        c0 = by * chunk
+        q = np.minimum(np.asarray(used[c0:c0 + chunk], np.int64), width - 1)
+        for bx in range(grid_x):
+            for warp in range(warps):
+                row0 = (bx * warps + warp) * rpw
+                rows = max(0, min(rpw, n - row0))
+                if rows == 0:
+                    continue
+                off = np.clip(ip[row0:row0 + rows + 1], 0, nnz)
+                tile_hi, cur = off[rows], off[0]
+                # the first window, staged while the block stages the ids
+                win_lo, win_hi = cur, cur + max(0, min(stage, tile_hi - cur))
+                for r in range(rows):
+                    b = max(off[r + 1], cur)
+                    pos, prev = cur, -np.inf
+                    while True:                     # the row's pieces
+                        if b > win_hi:              # restart the window
+                            win_lo = pos
+                            win_hi = pos + min(stage, max(tile_hi, b) - pos)
+                        s_idx = idx[win_lo:win_hi]
+                        s_val = val[win_lo:win_hi]
+                        last = b <= win_hi
+                        lo, ln = pos - win_lo, min(b, win_hi) - pos
+                        top = np.inf if last else s_idx[lo + ln - 1]
+                        at = np.full(len(q), lo)
+                        held = np.full(len(q), s_idx[lo] if ln else 0)
+                        m = ln
+                        while m > 1:
+                            half = m >> 1
+                            step = s_idx[at + half]
+                            move = step <= q
+                            at[move] += half
+                            held[move] = step[move]
+                            m -= half
+                        j = np.flatnonzero((q > prev) & (q <= top))
+                        hit = (ln > 0) & (held[j] == q[j])
+                        cells = np.zeros(len(j), np.uint32)
+                        cells[hit] = s_val[at[j][hit]]
+                        out[row0 + r, c0 + j] = cells
+                        writes[row0 + r, c0 + j] += 1
+                        if last:
+                            break
+                        prev, pos = top, win_hi
+                    cur = b
+    return out.view(np.float32), writes
+
+
+@pytest.mark.parametrize("shape", ["card", "tiny"])
+@pytest.mark.parametrize("indptr,indices,values,width,used",
+                         _gather_cases() + [_shuffled_case()]
+                         + _k3_design_cases())
+def test_k3_design_emulation_bitwise_equals_plain_and_reference(
+        indptr, indices, values, width, used, shape):
+    # "card": the kernel's own window, chunk and launch_geometry; "tiny": a
+    # window of 8 entries, chunks of 16 used ids and tiles of 3 rows in
+    # blocks of 2 warps, so every case has rows in several pieces, tiles in
+    # several windows and several used chunks
+    kw = {} if shape == "card" else dict(rows_per_warp=3, warps=2, stage=8,
+                                         chunk=16)
+    got, writes = _k3_emulate(indptr, indices, values, width, used, **kw)
+    plain = _port_gather(indptr, indices, values, width, used)
+    xla = np.asarray(pallas_sparse.csr_gather_xla(indptr, indices, values,
+                                                  width, used))
+    assert got.shape == plain.shape == xla.shape
+    assert (writes == 1).all()       # every cell written, and only once
+    np.testing.assert_array_equal(_bits(got), _bits(plain))
+    np.testing.assert_array_equal(_bits(got), _bits(xla))
+
+
+@pytest.mark.parametrize("n", [1, 200, 256, 1024, 4096, 16384, 65536, 200_000])
+@pytest.mark.parametrize("u", [1, 55, 1024, 30_000])
+def test_k3_launch_geometry(n, u):
+    rpw, grid_x, grid_y = gather_kernel.launch_geometry(n, u)
+    warps = gather_kernel.WARPS_PER_BLOCK
+    # the C entry point's limits: a lane loads each of a tile's offsets,
+    # grid.y's cap
+    assert 1 <= rpw <= 31 and grid_y <= 65535
+    assert (grid_x - 1) * warps * rpw < n <= grid_x * warps * rpw
+    assert (grid_y - 1) * gather_kernel.USED_CHUNK < u
+    assert u <= grid_y * gather_kernel.USED_CHUNK
+    # from the executor's batch up, the blocks cover more than a quarter of
+    # the card's SMs; each tile's entries fit a window at the text rows'
+    # ~50 entries a row
+    if n >= 256:
+        assert grid_x * grid_y >= gather_kernel.SMS // 4
+    assert rpw * 50 <= gather_kernel.STAGE_ENTRIES
 
 
 def test_k3_plain_copies_stored_bits():
