@@ -27,6 +27,25 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    three trees against a refit on the CPU. Then K1 on the fit's own data,
    checked and timed: the binned matrix at the root (every row) and the
    K2-compacted tier buffer of the first tree's smaller root child;
+3b. dense_variants: on the same data, ``boostingType`` goss (topRate 0.2,
+   otherRate 0.1), dart (dropRate 0.1, maxDrop 50) and rf (baggingFraction
+   0.9, baggingFreq 1) through ``LightGBMClassifier.fit``: fit seconds, K1
+   and K2 launches and K1's device time, GOSS's selected rows and host
+   seconds per iteration (and its fetch, argsort and random draw timed
+   apart); each model's transform against the host f64 traversal and its
+   train AUC; the first three trees refit on the card and on the CPU over
+   the first 262,144 rows (for GOSS, how many selected rows differ at each
+   iteration, and the trees held only while the selections agree);
+3c. ranker_main: ``LightGBMRanker`` on seeded MSLR-WEB30K-shaped data
+   (2,097,152 rows x 136 features, relevance 0-4, queries of 1-1,251
+   documents; 10% of the queries flagged by ``validationIndicatorCol``,
+   ``earlyStoppingRound=5``, 20 iterations), then ``.transform`` and a
+   fused transform of 65,536 rows: the LambdaRank gradient's time per
+   iteration, the valid NDCG@10 per iteration and the best iteration, K1 and
+   K2 launches, peak device memory; the card's iteration-0 g and h against
+   the CPU's (``LAMBDARANK_RTOL``/``ATOL``) and the first tree against a CPU
+   refit on the first whole queries of 131,072 rows, the transform against
+   the host traversal, the fused transform bit for bit;
 4. sparse data: the reference benchmark's text-shaped CSR (1,000,000 rows x
    2^18 hashed features, ~50 token counts per row, seeded), with the host
    costs of the sparse path timed apart: ``rows_to_csr`` over the rows,
@@ -46,6 +65,13 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    with the reference's f32 prefix formula and the port's f64 one; the
    reference benchmark's anchor shape (100,000 x 2^12) is refit for 3
    iterations on the card and on the CPU, first tree identical;
+6b. sparse_variants: ``train_sparse`` with goss and dart (31 leaves, 10
+   iterations) on the same full-width dataset: loop seconds and K4
+   launches, the card's ``predict_csr`` against the CPU's; at the anchor
+   shape, goss and dart refit on the card and the CPU for 2 iterations
+   (first tree identical), and through the stage entry point one fit with
+   ``validationIndicatorCol`` and ``earlyStoppingRound=3`` and one with
+   ``numBatches=2`` (identical first trees, same best iteration);
 7. K3 (CSR gather) against its plain version, bitwise: on the real 256-row
    CSR batches the fused executor stages from the sparse rows with the
    sparse model's used columns, on all 65,536 rows at once (two calls bit
@@ -108,7 +134,9 @@ Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``, after a ``{"kernels": [...]}`` line that
 lists K1-K5 (hist, select, csr_gather, sparse_hist, flash_attn), each with
 its launches on its main path, error against its plain version, ms,
-plain_ms, bound_ms, bound_by and library_ms.
+plain_ms, bound_ms, bound_by and library_ms, and its launches on the new
+paths (``launches_on_new_paths``: dense_variants, ranker_main,
+sparse_variants).
 """
 
 from __future__ import annotations
@@ -116,6 +144,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -431,7 +460,7 @@ def first_diff(a, b):
 
 def main_path(torch, profile: bool):
     from mmlspark_tpu_torch.core.dataframe import DataFrame
-    from mmlspark_tpu_torch.gbdt import LightGBMClassifier, predict_ensemble
+    from mmlspark_tpu_torch.gbdt import LightGBMClassifier
     from mmlspark_tpu_torch.gbdt import hist_kernel as hk
     from mmlspark_tpu_torch.gbdt import select_kernel as sk
     from mmlspark_tpu_torch.runtime import use_device
@@ -446,35 +475,20 @@ def main_path(torch, profile: bool):
 
     hk.launches = 0
     sk.launches = 0
-    # K1's device time over the fit: CUDA events around every call (two
-    # records a call, queued without a wait)
-    k1_events = []
-    k1_cuda = hk.histogram_cuda
-
-    def k1_timed(*a):
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        res = k1_cuda(*a)
-        ev[1].record()
-        k1_events.append(ev)
-        return res
-
-    hk.histogram_cuda = k1_timed
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if profile:
-        from torch.profiler import ProfilerActivity, profile as prof
+    with Timed(torch, hk, "histogram_cuda") as k1, PathInputs() as inputs:
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as prof
 
-        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            with prof(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as p:
+                model = est.fit(df)
+                torch.cuda.synchronize()
+        else:
             model = est.fit(df)
             torch.cuda.synchronize()
-    else:
-        model = est.fit(df)
-        torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    hk.histogram_cuda = k1_cuda
-    k1_fit_ms = sum(a.elapsed_time(b) for a, b in k1_events)
     t1 = time.perf_counter()
     scored = model.transform(small)
     torch.cuda.synchronize()
@@ -482,8 +496,8 @@ def main_path(torch, profile: bool):
     launches = {"hist": hk.launches, "select": sk.launches}
     log({"phase": "main", "fit_seconds": fit_s, "fit_rows_per_s": N_MAIN / fit_s,
          "transform_rows": N_SCORE, "transform_seconds": score_s,
-         "launches": launches, "k1_device_ms_in_fit": k1_fit_ms,
-         "k1_calls_in_fit": len(k1_events)})
+         "launches": launches, "k1_device_ms_in_fit": k1.device_ms(),
+         "k1_calls_in_fit": k1.calls})
     if profile:
         rows = []
         for ev in p.key_averages():
@@ -505,29 +519,11 @@ def main_path(torch, profile: bool):
         fail(f"a kernel of the main path never launched: {launches}")
 
     booster = model.booster
-    raw = np.stack(list(scored.column("rawPrediction")))[:, 1]
-    proba = np.stack(list(scored.column("probability")))
-    if raw.shape != (N_SCORE,) or proba.shape != (N_SCORE, 2):
-        fail(f"unexpected output shapes {raw.shape} {proba.shape}")
-    if not (np.isfinite(raw).all() and np.isfinite(proba).all()):
-        fail("non-finite scores")
-    # the host f64 traversal of the same model, comparing features and
-    # thresholds as f32 values the way the device traversal does
-    trees32 = [[t.__class__(**{**t.__dict__, "threshold": t.threshold.astype(
-        np.float32).astype(np.float64)}) for t in g] for g in booster.trees]
-    X32 = X[:N_SCORE].astype(np.float32).astype(np.float64)
-    host = predict_ensemble(trees32, X32, 1)[:, 0] + booster.base_score[0]
-    diff = float(np.abs(raw - host).max())
-    host64 = booster.raw_predict(X[:N_SCORE])
-    train_auc = auc(raw, y[:N_SCORE])
-    log({"phase": "main", "train_auc_65536": train_auc,
-         "max_abs_diff_vs_host_f64": diff,
-         "max_abs_diff_vs_host_f64_unrounded": float(np.abs(raw - host64).max()),
+    log({"phase": "main", **check_dense_scores(scored, booster, X, y, "main"),
+         "max_abs_diff_vs_host_f64_unrounded": float(np.abs(
+             np.stack(list(scored.column("rawPrediction")))[:, 1]
+             - booster.raw_predict(X[:N_SCORE])).max()),
          "trees": len(booster.trees)})
-    if diff > 1e-5:
-        fail(f"device scores differ from the host f64 traversal by {diff}")
-    if train_auc < 0.6:
-        fail(f"train AUC {train_auc} is not learning")
 
     # CPU refit of the first 3 iterations on the same data
     t0 = time.perf_counter()
@@ -546,43 +542,142 @@ def main_path(torch, profile: bool):
         fail(f"tree 1 differs between the CUDA and CPU fits: {diffs[0]}")
     if d3 > 1e-3:
         fail(f"3-tree raw scores differ by {d3}")
-    hist_on_path(torch, booster, X, y)
-    return launches, model, X[:N_SCORE].copy()
+    hist_on_path(torch, inputs, "main")
+    del inputs
+    return launches, model, X, y
 
 
-def hist_on_path(torch, booster, X, y) -> None:
-    """K1 on the dense fit's own data: the binned [28, 2,097,152] matrix at
-    the root (every row, the five three-level b-tags included), and the
-    K2-compacted tier buffer of the first tree's smaller root child, with
-    the gradients of the first iteration; each checked against its plain
-    version and timed."""
-    from mmlspark_tpu_torch.gbdt import booster as bst
+class Timed:
+    """While active, CUDA events around every call of ``module.name`` (two
+    records a call, queued without a wait): the device time between them,
+    summed, and the host's seconds in the calls."""
+
+    def __init__(self, torch, module, name: str):
+        self.torch, self.module, self.name = torch, module, name
+        self.events, self.host_s = [], []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def timed(*a, **kw):
+            ev = (self.torch.cuda.Event(enable_timing=True),
+                  self.torch.cuda.Event(enable_timing=True))
+            t0 = time.perf_counter()
+            ev[0].record()
+            res = self.orig(*a, **kw)
+            ev[1].record()
+            self.host_s.append(time.perf_counter() - t0)
+            self.events.append(ev)
+            return res
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+    @property
+    def calls(self) -> int:
+        return len(self.events)
+
+    def per_call_ms(self) -> list:
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+    def device_ms(self) -> float:
+        return float(sum(self.per_call_ms()))
+
+
+def host_raw32(booster, X: np.ndarray) -> np.ndarray:
+    """The host f64 traversal of the trees the model scores with (up to its
+    best iteration), comparing features and thresholds as f32 values the
+    way the device traversal does; base score included, class 0."""
+    from mmlspark_tpu_torch.gbdt import predict_ensemble
+
+    n_iter = booster.best_iteration if booster.best_iteration > 0 \
+        else len(booster.trees)
+    trees32 = [[t.__class__(**{**t.__dict__, "threshold": t.threshold.astype(
+        np.float32).astype(np.float64)}) for t in g]
+        for g in booster.trees[:n_iter]]
+    X32 = X.astype(np.float32).astype(np.float64)
+    return predict_ensemble(trees32, X32, 1)[:, 0] + booster.base_score[0]
+
+
+def check_dense_scores(scored, booster, X, y, what: str) -> dict:
+    """A binary classifier's transform of the first N_SCORE rows: shapes,
+    finite, within 1e-5 of the host f64 traversal, train AUC >= 0.6."""
+    raw = np.stack(list(scored.column("rawPrediction")))[:, 1]
+    proba = np.stack(list(scored.column("probability")))
+    if raw.shape != (N_SCORE,) or proba.shape != (N_SCORE, 2):
+        fail(f"{what}: unexpected output shapes {raw.shape} {proba.shape}")
+    if not (np.isfinite(raw).all() and np.isfinite(proba).all()):
+        fail(f"{what}: non-finite scores")
+    diff = float(np.abs(raw - host_raw32(booster, X[:N_SCORE])).max())
+    train_auc = auc(raw, y[:N_SCORE])
+    if diff > 1e-5:
+        fail(f"{what}: device scores differ from the host f64 traversal "
+             f"by {diff}")
+    if train_auc < 0.6:
+        fail(f"{what}: train AUC {train_auc} is not learning")
+    return {"train_auc_65536": train_auc, "max_abs_diff_vs_host_f64": diff}
+
+
+class PathInputs:
+    """While active, keeps the arguments of the grower's first histogram
+    (the first tree's root: the fit's own binned [F, N] matrix, its
+    gradients and its row mask) and of its first K2 compaction (a small
+    child's rows under that mask, and the tier's width)."""
+
+    def __init__(self):
+        self.args = {}
+
+    def __enter__(self):
+        from mmlspark_tpu_torch.gbdt import histogram as H
+        from mmlspark_tpu_torch.gbdt import select_kernel as sk
+
+        self.orig = [(H, "compute_histogram", H.compute_histogram),
+                     (sk, "select_rows", sk.select_rows)]
+        for mod, name, fn in self.orig:
+            setattr(mod, name, self._keep(name, fn))
+        return self
+
+    def _keep(self, name, fn):
+        def rec(*a):
+            self.args.setdefault(name, a)
+            return fn(*a)
+        return rec
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.orig:
+            setattr(mod, name, fn)
+
+
+def hist_on_path(torch, inputs: PathInputs, what: str) -> None:
+    """K1 and K2 on a fit's own inputs (``PathInputs``): K1 on the root's
+    binned matrix, gradients and row mask; K2 on the first compaction's
+    inputs, bit for bit against its plain version; K1 on the compacted
+    tier buffer. Each K1 call is checked against its plain version and
+    timed."""
     from mmlspark_tpu_torch.gbdt import hist_kernel as hk
     from mmlspark_tpu_torch.gbdt import select_kernel as sk
-    from mmlspark_tpu_torch.gbdt.tree import pick_tier, tier_caps
 
-    dev = torch.device(DEVICE)
-    mapper = booster.bin_mapper
-    b = mapper.max_num_bins
-    bins = torch.from_numpy(mapper.transform_fm(X, dtype=np.uint8)).to(dev) \
-        .to(torch.int32).contiguous()
-    n, f = X.shape[0], X.shape[1]
-    scores = torch.full((n,), float(booster.base_score[0]), device=dev)
-    g, h = bst.grad_hess("binary", scores,
-                         torch.as_tensor(y, dtype=torch.float32, device=dev))
-    root = booster.trees[0][0]
-    left = bins[int(root.feature[0])] <= int(root.threshold_bin[0])
-    small = left if int(left.sum()) * 2 <= n else ~left
+    if "select_rows" not in inputs.args:
+        fail(f"{what}: the fit made no K2 compaction")
+        return
+    bins, g, h, mask, b = inputs.args["compute_histogram"]
+    f = bins.shape[0]
+    s_bins, s_g, s_h, small, cap = inputs.args["select_rows"]
     count = int(small.sum())
-    caps = tier_caps(n, True)
-    tidx = pick_tier(caps, count)
-    cap = caps[tidx - 1] if tidx else n
-    b_c, g_c, h_c = sk.select_rows_cuda(bins, g, h, small, cap)
-    valid = torch.arange(cap, device=dev) < count
+    compacted = sk.select_rows_cuda(s_bins, s_g, s_h, small, cap)
+    plain = sk.select_rows_plain(s_bins, s_g, s_h, small, cap)
+    k2_bitwise = all(torch.equal(a, p) for a, p in zip(compacted, plain))
+    if not k2_bitwise:
+        fail(f"K2 on the {what} fit's small child differs from its plain "
+             f"version")
+    valid = torch.arange(cap, device=bins.device) < count
     out = {}
-    for what, args, rows in (
-            ("root", (bins, g, h, torch.ones(n, dtype=torch.bool, device=dev)), n),
-            ("tier", (b_c, g_c, h_c, valid), count)):
+    for part, args, rows in (("root", (bins, g, h, mask), int(mask.sum())),
+                             ("tier", (*compacted, valid), count)):
         k = hk.histogram_cuda(*args, b)
         p = hk.histogram_plain(*args, b)
         scale = hk.histogram_plain(args[0], args[1].abs(), args[2].abs(),
@@ -590,17 +685,18 @@ def hist_on_path(torch, booster, X, y) -> None:
         err = (k[..., :2] - p[..., :2]).abs()
         if not torch.equal(k[..., 2], p[..., 2]) or \
                 not bool((err <= 1e-5 * scale[..., :2] + 1e-6).all()):
-            fail(f"K1 on the dense fit's {what} data differs from its plain "
-                 f"version: max err {err.max().item()}")
+            fail(f"K1 on the {what} fit's {part} data differs from its "
+                 f"plain version: max err {err.max().item()}")
         width = args[0].shape[1]
-        out[what] = {"rows": width, "selected": rows, "bins": b,
+        out[part] = {"rows": width, "selected": rows, "bins": b,
                      "ms": time_ms(torch, lambda: hk.histogram_cuda(*args, b)),
                      "device_only_ms": queued_ms(
                          torch, lambda: hk.histogram_cuda(*args, b), 50),
                      "bound_ms": bound_ms(rows * (f * 4 + 8) + width
                                           + f * b * 12, 0)[0],
                      "max_abs_err": err.max().item()}
-    log({"phase": "hist_on_path", "tier_cap": cap, **out})
+    log({"phase": "hist_on_path", "path": what, "features": f,
+         "tier_cap": cap, "k2_bitwise": k2_bitwise, **out})
 
 
 # ---------------------------------------------------------------------------
@@ -1650,6 +1746,502 @@ def transformer_fused(torch, stage, df, unfused, smi) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the rest of the training surface: goss, dart, rf, LambdaRank, validation
+# and early stopping, numBatches, dense and CSR
+# ---------------------------------------------------------------------------
+
+
+class GossLog:
+    """While active, records every dense GOSS selection: its host seconds
+    (the gradient's fetch, the argsort and the random draw) and selected
+    rows, and with ``keep`` the row masks themselves."""
+
+    def __init__(self, keep: bool = False):
+        self.keep = keep
+        self.seconds, self.selected, self.masks = [], [], []
+
+    def __enter__(self):
+        from mmlspark_tpu_torch.gbdt import booster as bst
+
+        self.bst, self.orig = bst, bst.goss_sample
+
+        def rec(*a, **kw):
+            t0 = time.perf_counter()
+            mask, amp = self.orig(*a, **kw)
+            self.seconds.append(time.perf_counter() - t0)
+            self.selected.append(int(mask.sum()))
+            if self.keep:
+                self.masks.append(mask.copy())
+            return mask, amp
+
+        bst.goss_sample = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.bst.goss_sample = self.orig
+
+
+def refit_compare(torch, est_fn, df, n_trees: int, what: str, goss=False):
+    """The same estimator on the card and on the CPU over ``df``; returns
+    the card's and the CPU's boosters, the first difference of each of the
+    first ``n_trees`` trees, the seconds of each fit, and for GOSS how many
+    rows the two selections differ in at each iteration."""
+    from mmlspark_tpu_torch.runtime import use_device
+
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        with use_device(dev), GossLog(keep=goss) as gl:
+            t0 = time.perf_counter()
+            out[dev] = (est_fn().fit(df).booster, time.perf_counter() - t0, gl)
+    (bc, cuda_s, gc), (bp, cpu_s, gp) = out[DEVICE], out["cpu"]
+    diffs = [first_diff(bc.trees[i][0], bp.trees[i][0])
+             for i in range(min(n_trees, len(bc.trees), len(bp.trees)))]
+    info = {"cuda_fit_seconds": cuda_s, "cpu_fit_seconds": cpu_s,
+            "first_diff_per_tree": diffs}
+    if goss:
+        info["goss_rows_differing_per_iteration"] = [
+            int((a != b).sum()) for a, b in zip(gc.masks, gp.masks)]
+    if not diffs or diffs[0] is not None:
+        fail(f"{what}: tree 1 differs between the card's and the CPU's fit: "
+             f"{diffs[:1]}")
+    return bc, bp, info
+
+
+# dense variants on the main path's data (the reference's bench points:
+# GOSS tools/bench_gbdt_train.py, rf tests/test_benchmarks.py)
+DENSE_VARIANTS = {
+    "goss": dict(boostingType="goss", topRate=0.2, otherRate=0.1),
+    "dart": dict(boostingType="dart", dropRate=0.1, maxDrop=50),
+    "rf": dict(boostingType="rf", baggingFraction=0.9, baggingFreq=1),
+}
+# rows of the card-against-CPU refits of the new paths: a CPU refit of the
+# full 2,097,152 rows costs minutes
+N_CUT = 262_144
+ITERS_REFIT = 3
+
+
+def dense_variants(torch, X, y, smi) -> dict:
+    """goss, dart and rf through ``LightGBMClassifier.fit`` at the main
+    path's width (20 iterations, 31 leaves, 255 bins): fit seconds, K1 and
+    K2 launches and K1's device time, GOSS's selected rows and host seconds
+    per iteration; each model's transform against the host f64 traversal
+    and its train AUC, K1 and K2 on the fit's own first-tree inputs against
+    their plain versions (``hist_on_path``: the GOSS and bagging row masks
+    included), and a refit of the first trees on the card and the CPU over
+    the first N_CUT rows. Returns each kernel's launches."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.gbdt import LightGBMClassifier
+    from mmlspark_tpu_torch.gbdt import hist_kernel as hk
+    from mmlspark_tpu_torch.gbdt import select_kernel as sk
+
+    df = DataFrame.from_dict({"features": X, "label": y})
+    small = DataFrame.from_dict({"features": X[:N_SCORE]})
+    cut = DataFrame.from_dict({"features": X[:N_CUT], "label": y[:N_CUT]})
+    base = dict(numLeaves=31, maxBin=255)
+    launches = {"hist": 0, "select": 0}
+    for name, extra in DENSE_VARIANTS.items():
+        hk.launches = sk.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with Timed(torch, hk, "histogram_cuda") as k1, GossLog() as gl, \
+                PathInputs() as inputs:
+            model = LightGBMClassifier(numIterations=20, **base, **extra).fit(df)
+            torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        got = {"hist": hk.launches, "select": sk.launches}
+        for k in launches:
+            launches[k] += got[k]
+        info = {"phase": "dense_variants", "variant": name, "card": smi,
+                "rows": len(y), "fit_seconds": fit_s, "launches": got,
+                "k1_device_ms_in_fit": k1.device_ms(),
+                "k1_calls_in_fit": k1.calls,
+                **check_dense_scores(model.transform(small), model.booster,
+                                     X, y, name)}
+        if name == "goss":
+            info.update(goss_selected_per_iteration=gl.selected,
+                        goss_host_seconds_per_iteration=gl.seconds)
+        log(info)
+        if got["hist"] < 1 or got["select"] < 1:
+            fail(f"{name}: a kernel of the dense path never launched: {got}")
+        hist_on_path(torch, inputs, name)
+        del inputs
+        if name == "goss":
+            goss_parts(torch, model.booster, X, y)
+        # the card against the CPU, on a cut: GOSS's selections can part
+        # from iteration 1 on (Kahan f32 scores on the card, exact f64 on
+        # the CPU: |g| differs by ulps and can reorder ties); its trees are
+        # held to the CPU's only while the selections agree
+        bc, bp, ref = refit_compare(
+            torch, lambda: LightGBMClassifier(numIterations=ITERS_REFIT,
+                                              **base, **extra),
+            cut, ITERS_REFIT, name, goss=name == "goss")
+        held = ITERS_REFIT
+        if name == "goss":
+            parted = [i for i, d in enumerate(
+                ref["goss_rows_differing_per_iteration"]) if d]
+            held = parted[0] if parted else ITERS_REFIT
+        log({"phase": "dense_variants", "variant": name, "refit_rows": N_CUT,
+             "trees_held": held, **ref})
+        bad = [d for d in ref["first_diff_per_tree"][:held] if d is not None]
+        if bad:
+            fail(f"{name}: the card's trees part from the CPU's: {bad[0]}")
+    return launches
+
+
+def goss_parts(torch, booster, X, y) -> None:
+    """GOSS's host work at the main path's width, piece by piece, on the
+    gradient at the fitted model's scores (the last iteration's |g| has many
+    distinct values; the first one's has two): the fetch, the argsort, the
+    random draw and the amplification's upload (the per-iteration cost
+    ``goss_host_seconds`` sums)."""
+    from mmlspark_tpu_torch.gbdt import DeviceEnsemble
+    from mmlspark_tpu_torch.gbdt import booster as bst
+
+    dev = torch.device(DEVICE)
+    n = len(y)
+    raw = DeviceEnsemble(booster.trees, 1, device=dev).predict_raw(X)[:, 0] \
+        + booster.base_score[0]
+    g, _ = bst.grad_hess("binary", torch.as_tensor(raw, dtype=torch.float32,
+                                                   device=dev),
+                         torch.as_tensor(y, dtype=torch.float32, device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_abs = np.abs(g.cpu().numpy())
+    t1 = time.perf_counter()
+    order = np.argsort(-g_abs)
+    t2 = time.perf_counter()
+    rest = order[int(n * 0.2):]
+    np.random.default_rng(0).choice(len(rest), size=int(n * 0.1),
+                                    replace=False)
+    t3 = time.perf_counter()
+    amp = np.ones(n, dtype=np.float32)
+    amp[rest] = 4.0
+    torch.as_tensor(amp, device=dev)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    log({"phase": "dense_variants", "goss_host_parts_rows": n,
+         "distinct_abs_g": int(len(np.unique(g_abs))),
+         "fetch_seconds": t1 - t0, "argsort_seconds": t2 - t1,
+         "choice_seconds": t3 - t2, "amplify_upload_seconds": t4 - t3})
+
+
+def mslr_like(n: int, seed: int):
+    """Seeded synthetic stand-in shaped like MSLR-WEB30K (Microsoft
+    Research's learning-to-rank set; its Fold1 is the usual LightGBM
+    lambdarank benchmark): 136 dense features (term counts, BM25/LMIR-like
+    scores, quality scores, a few few-level ones), relevance 0-4 skewed to 0
+    (about 51/33/13/2/1%), query sizes from 1 to 1,251 (lognormal, mean
+    ~120), rows sorted by query. Returns (X [n, 136] f64, relevance, query
+    ids)."""
+    rng = np.random.default_rng(seed)
+    sizes = np.clip(rng.lognormal(np.log(90.0), 0.8, n // 30 + 16)
+                    .astype(np.int64), 1, 1251)
+    cum = np.cumsum(sizes)
+    m = int(np.searchsorted(cum, n)) + 1
+    sizes = sizes[:m]
+    sizes[-1] -= int(cum[m - 1]) - n
+    qid = np.repeat(np.arange(m, dtype=np.int64), sizes)
+    X = np.empty((F_RANK, n), dtype=np.float64)      # feature-major
+    X[:25] = rng.poisson(rng.uniform(0.2, 6.0, (25, 1)), (25, n))
+    X[25:50] = rng.lognormal(0.0, 0.8, (25, n))
+    X[50:100] = rng.standard_normal((50, n), dtype=np.float32)
+    X[100:130] = rng.random((30, n), dtype=np.float32)
+    X[130:] = rng.integers(0, 21, (F_RANK - 130, n))
+    qual = (0.6 * np.log1p(X[3]) + 0.5 * X[30] + 0.4 * X[55] - 0.3 * X[60]
+            + 0.8 * X[105] + 0.05 * X[131]
+            + rng.standard_normal(m)[qid] * 0.7 + rng.standard_normal(n))
+    rel = np.searchsorted(np.quantile(qual, [0.514, 0.839, 0.973, 0.992]),
+                          qual).astype(np.float64)
+    return X.T, rel, qid
+
+
+N_RANK = 2_097_152
+F_RANK = 136
+# rows of the ranker's card-against-CPU checks (whole queries)
+N_RANK_CUT = 131_072
+# the card's LambdaRank g and h against the CPU's on the same scores: the
+# [m, G, G] pairwise sums reduce in another order on each device
+LAMBDARANK_RTOL, LAMBDARANK_ATOL = 1e-5, 1e-6
+
+
+class LogLines(logging.Handler):
+    """Collects the fit's log lines (the stages log through
+    ``logging.getLogger("mmlspark_tpu_torch.gbdt")`` at verbosity >= 0)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        lg = logging.getLogger("mmlspark_tpu_torch.gbdt")
+        self.prev = lg.level
+        lg.setLevel(logging.INFO)
+        lg.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        lg = logging.getLogger("mmlspark_tpu_torch.gbdt")
+        lg.removeHandler(self)
+        lg.setLevel(self.prev)
+
+
+def ranker_main(torch, smi) -> dict:
+    """``LightGBMRanker`` on MSLR-WEB30K-shaped data (2,097,152 x 136, 10%
+    of the queries flagged as validation rows, early stopping after 5
+    rounds, 20 iterations, 31 leaves, 255 bins), then ``.transform`` and a
+    fused transform of the first N_SCORE rows. Logs the fit's seconds, the
+    LambdaRank gradient's seconds per iteration, the valid NDCG@10 per
+    iteration and the best iteration, K1 and K2 launches and peak device
+    memory. Gates: K1 (136 features: several feature groups) and K2 on the
+    fit's own first-tree inputs against their plain versions
+    (``hist_on_path``), the card's iteration-0 g and h against the CPU's,
+    the first tree against a CPU refit (both on the first whole queries of
+    N_RANK_CUT rows), the transform against the host traversal, and the
+    fused transform bit for bit against the unfused one."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.gbdt import LightGBMRanker
+    from mmlspark_tpu_torch.gbdt import booster as bst
+    from mmlspark_tpu_torch.gbdt import hist_kernel as hk
+    from mmlspark_tpu_torch.gbdt import select_kernel as sk
+
+    t0 = time.perf_counter()
+    X, rel, qid = mslr_like(N_RANK, SEED)
+    n_q = int(qid[-1]) + 1
+    is_val = (np.random.default_rng(SEED + 1).random(n_q) < 0.1)[qid]
+    df = DataFrame.from_dict({"features": X, "label": rel, "query": qid,
+                              "isVal": is_val})
+    sizes = np.bincount(qid)
+    pairs = sum(m * gb * gb for gb, _, _, _, m in
+                bst.segment_groups(qid[~is_val]).buckets if gb > 1)
+    log({"phase": "ranker_main", "card": smi, "rows": N_RANK,
+         "features": F_RANK, "queries": n_q, "valid_rows": int(is_val.sum()),
+         "query_size_mean": float(sizes.mean()),
+         "query_size_max": int(sizes.max()),
+         "lambdarank_pair_elements_per_iteration": int(pairs),
+         "relevance_shares": np.bincount(rel.astype(np.int64), minlength=5)
+         .tolist(), "data_seconds": time.perf_counter() - t0})
+    est = LightGBMRanker(groupCol="query", validationIndicatorCol="isVal",
+                         earlyStoppingRound=5, numIterations=20, numLeaves=31,
+                         maxBin=255, verbosity=0)
+    hk.launches = sk.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with Timed(torch, bst, "grad_hess") as gh, LogLines() as lines, \
+            PathInputs() as inputs:
+        model = est.fit(df)
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {"hist": hk.launches, "select": sk.launches}
+    booster = model.booster
+    ndcg = [float(ln.split("=")[1]) for ln in lines.lines
+            if "valid ndcg=" in ln]
+    log({"phase": "ranker_main", "fit_seconds": fit_s, "launches": launches,
+         "lambdarank_device_ms_per_iteration": gh.per_call_ms(),
+         "lambdarank_host_seconds_per_iteration": gh.host_s,
+         "valid_ndcg10_per_iteration": ndcg,
+         "best_iteration": booster.best_iteration,
+         "trees": len(booster.trees),
+         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if launches["hist"] < 1 or launches["select"] < 1:
+        fail(f"a kernel of the ranking path never launched: {launches}")
+    if len(ndcg) != len(booster.trees) or not all(0 < v <= 1 for v in ndcg):
+        fail(f"valid NDCG per iteration is off: {ndcg}")
+    hist_on_path(torch, inputs, "ranker")
+    del inputs
+
+    small = DataFrame.from_dict({"features": X[:N_SCORE]})
+    t0 = time.perf_counter()
+    unfused = np.asarray(model.transform(small).column("prediction"),
+                         dtype=np.float64)
+    score_s = time.perf_counter() - t0
+    diff = float(np.abs(unfused - host_raw32(booster, X[:N_SCORE])).max())
+    fused = PipelineModel([model]).fuse()
+    out = np.asarray(fused.transform(small).column("prediction"),
+                     dtype=np.float64)
+    st = fused.fusion_stats()
+    bitwise = bool(np.array_equal(out, unfused))
+    log({"phase": "ranker_main", "transform_rows": N_SCORE,
+         "transform_seconds": score_s, "max_abs_diff_vs_host_f64": diff,
+         "fused_bitwise": bitwise, "fallbacks": st["fallbacks"]})
+    if not np.isfinite(unfused).all() or diff > 1e-5:
+        fail(f"ranker transform differs from the host traversal by {diff}")
+    if st["fallbacks"] or not bitwise:
+        fail(f"fused ranker scores are not the unfused ones bit for bit "
+             f"(fallbacks {st['fallbacks']})")
+
+    # the card against the CPU on the first whole queries of N_RANK_CUT rows
+    n_cut = int(np.searchsorted(qid, qid[N_RANK_CUT]))
+    gh_err = {}
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        seg = bst.segment_groups(qid[:n_cut], dev)
+        g, h = bst.grad_hess("lambdarank", torch.zeros(n_cut, device=dev),
+                             torch.as_tensor(rel[:n_cut], dtype=torch.float32,
+                                             device=dev), group_segments=seg)
+        out[dev] = (g.cpu().double().numpy(), h.cpu().double().numpy())
+    for k, name in enumerate(("g", "h")):
+        a, b = out[DEVICE][k], out["cpu"][k]
+        err = np.abs(a - b)
+        gh_err[name] = {"max_abs_err": float(err.max()),
+                        "ok": bool((err <= LAMBDARANK_ATOL
+                                    + LAMBDARANK_RTOL * np.abs(b)).all())}
+    cut = DataFrame.from_dict({"features": X[:n_cut], "label": rel[:n_cut],
+                               "query": qid[:n_cut]})
+    _, _, ref = refit_compare(
+        torch, lambda: LightGBMRanker(groupCol="query", numIterations=1,
+                                      numLeaves=31, maxBin=255),
+        cut, 1, "ranker")
+    log({"phase": "ranker_main", "refit_rows": n_cut,
+         "iteration0_grad_hess_vs_cpu": gh_err,
+         "tolerance": {"rtol": LAMBDARANK_RTOL, "atol": LAMBDARANK_ATOL},
+         **ref})
+    if not all(v["ok"] for v in gh_err.values()):
+        fail(f"the card's LambdaRank g/h differ from the CPU's: {gh_err}")
+    return launches
+
+
+SPARSE_VARIANTS = {
+    "goss": dict(boosting_type="goss", top_rate=0.2, other_rate=0.1),
+    "dart": dict(boosting_type="dart", drop_rate=0.1, max_drop=50),
+}
+
+
+def sparse_variants(torch, data: dict, smi) -> dict:
+    """``train_sparse`` with goss and dart (31 leaves, 10 iterations) on the
+    full-width sparse dataset the main path built: loop seconds and K4
+    launches; the card's ``predict_csr`` of each model against the CPU's on
+    the first N_SCORE rows, and the train accuracy there. Returns K4's
+    launches."""
+    from mmlspark_tpu_torch.gbdt import TrainParams, sparse
+    from mmlspark_tpu_torch.gbdt import sparse_hist_kernel as shk
+    from mmlspark_tpu_torch.obs.metrics import TrainRecorder, default_registry
+
+    ds, y = data["ds"], data["y"]
+    indptr, idx, vals = data["csr"]
+    cut = int(indptr[N_SCORE])
+    steps = default_registry().histogram(
+        "mmlspark_train_step_seconds", labelnames=("engine",),
+        buckets=TrainRecorder.STEP_BUCKETS).labels(engine="gbdt_sparse")
+    launches = 0
+    for name, kw in SPARSE_VARIANTS.items():
+        params = TrainParams(objective="binary", num_iterations=ITERS_SPARSE,
+                             num_leaves=31, learning_rate=0.1,
+                             min_data_in_leaf=20, **kw)
+        shk.launches = 0
+        before = steps.value["sum"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = sparse.train_sparse(params, ds, y, device=DEVICE)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        loop_s = steps.value["sum"] - before
+        got = shk.launches
+        launches += got
+        q = (indptr[:N_SCORE + 1], idx[:cut], vals[:cut])
+        card = sparse.predict_csr(b.trees, *q, 1, device=DEVICE)[:, 0]
+        cpu = sparse.predict_csr(b.trees, *q, 1, device="cpu")[:, 0]
+        diff = float(np.abs(card - cpu).max())
+        acc = float(((card + b.base_score[0] > 0) == (y[:N_SCORE] > 0.5))
+                    .mean())
+        log({"phase": "sparse_variants", "variant": name, "card": smi,
+             "rows": ds.num_rows, "width": ds.num_features,
+             "train_sparse_seconds": fit_s, "loop_seconds": loop_s,
+             "launches": {"sparse_hist": got},
+             "trees": len(b.trees),
+             "leaves": [t.num_leaves for g in b.trees for t in g],
+             "max_abs_diff_card_vs_cpu_predict_csr": diff,
+             "train_accuracy_65536": acc})
+        if got < 1:
+            fail(f"sparse {name}: K4 never launched")
+        if diff > 1e-12 or not np.isfinite(card).all():
+            fail(f"sparse {name}: the card's predict_csr differs from the "
+                 f"CPU's by {diff}")
+        if acc <= 0.7:
+            fail(f"sparse {name}: train accuracy {acc} is not above 0.7")
+    return {"sparse_hist": launches}
+
+
+# the reference benchmark's anchor shape (tools/bench_gbdt_sparse.py)
+N_ANCHOR, W_ANCHOR = 100_000, 1 << 12
+
+
+def anchor_variants(torch, smi) -> int:
+    """At the reference benchmark's anchor shape (100,000 x 2^12), the
+    card against the CPU: goss and dart through ``train_sparse`` (2
+    iterations, both trees identical: DART's second iteration drops the
+    first tree and adds it back rescaled), and through the stage entry point a
+    fit with ``validationIndicatorCol`` (10% of the rows, 30% of their
+    labels flipped so the metric turns within a few iterations) and
+    ``earlyStoppingRound=3``, and one with ``numBatches=2``: identical first
+    trees and the same best iteration. Returns K4's launches."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.gbdt import LightGBMClassifier, TrainParams, sparse
+    from mmlspark_tpu_torch.gbdt import sparse_hist_kernel as shk
+    from mmlspark_tpu_torch.runtime import use_device
+
+    n, w = N_ANCHOR, W_ANCHOR
+    indptr, idx, vals, y = make_csr_text(n, w, 50, 1)
+    ds = sparse.SparseDataset.from_csr(indptr, idx, vals, w)
+    shk.launches = 0
+    for name, kw in SPARSE_VARIANTS.items():
+        params = TrainParams(objective="binary", num_iterations=2,
+                             num_leaves=31, learning_rate=0.1,
+                             min_data_in_leaf=20, **kw)
+        out = {}
+        for dev in (DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            out[dev] = (sparse.train_sparse(params, ds, y, device=dev),
+                        time.perf_counter() - t0)
+        diffs = [first_diff(out[DEVICE][0].trees[i][0],
+                            out["cpu"][0].trees[i][0]) for i in range(2)]
+        log({"phase": "sparse_variants", "variant": name, "anchor_rows": n,
+             "width": w, "cuda_fit_seconds": out[DEVICE][1],
+             "cpu_fit_seconds": out["cpu"][1], "first_diff_per_tree": diffs})
+        bad = [(i + 1, d) for i, d in enumerate(diffs) if d is not None]
+        if bad:
+            fail(f"anchor {name}: tree {bad[0][0]} differs between the card's "
+                 f"and the CPU's fit: {bad[0][1]}")
+
+    rng = np.random.default_rng(5)
+    is_val = rng.random(n) < 0.1
+    y_flip = np.where(is_val & (rng.random(n) < 0.3), 1.0 - y, y)
+    rows = np.empty(n, dtype=object)
+    for i in range(n):
+        a, b = indptr[i], indptr[i + 1]
+        rows[i] = {"indices": idx[a:b], "values": vals[a:b], "size": w}
+    df = DataFrame.from_dict({"features": rows, "label": y_flip,
+                              "isVal": is_val})
+    fits = {"validation": dict(validationIndicatorCol="isVal",
+                               earlyStoppingRound=3, numIterations=10,
+                               learningRate=0.3),
+            "num_batches": dict(numBatches=2, numIterations=1)}
+    for name, kw in fits.items():
+        out = {}
+        for dev in (DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            with use_device(dev):
+                out[dev] = (LightGBMClassifier(numLeaves=31, **kw).fit(df)
+                            .booster, time.perf_counter() - t0)
+        bc, bp = out[DEVICE][0], out["cpu"][0]
+        diff = first_diff(bc.trees[0][0], bp.trees[0][0])
+        log({"phase": "sparse_variants", "stage_fit": name, "anchor_rows": n,
+             "cuda_fit_seconds": out[DEVICE][1],
+             "cpu_fit_seconds": out["cpu"][1], "trees": [len(bc.trees),
+                                                         len(bp.trees)],
+             "best_iteration": [bc.best_iteration, bp.best_iteration],
+             "first_diff_tree_1": diff})
+        if diff is not None or bc.best_iteration != bp.best_iteration:
+            fail(f"anchor stage fit {name}: the card and the CPU part: "
+                 f"{diff}, best {bc.best_iteration} / {bp.best_iteration}")
+    return shk.launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1669,13 +2261,21 @@ def main() -> int:
     hdr = header(torch)
     smi = hdr["smi"].splitlines()[0]
     kernels = kernel_phase(torch)
-    launches, dense_model, X_score = main_path(torch, args.profile)
+    launches, dense_model, X, y = main_path(torch, args.profile)
+    X_score = X[:N_SCORE].copy()
+    paths = {"main": dict(launches)}
+    paths["dense_variants"] = dense_variants(torch, X, y, smi)
+    del X, y
+    paths["ranker_main"] = ranker_main(torch, smi)
     data = sparse_data()
     kernels["sparse_hist"] = sparse_kernel_phase(torch, data)
     launches["sparse_hist"], sparse_model = sparse_main_path(torch, data)
+    paths["main"]["sparse_hist"] = launches["sparse_hist"]
+    paths["sparse_variants"] = sparse_variants(torch, data, smi)
     rows = data["rows"][:N_SCORE]
     del data
     anchor = sparse_anchor(torch)
+    paths["sparse_variants"]["sparse_hist"] += anchor_variants(torch, smi)
     kernels["csr_gather"] = gather_kernel_phase(torch, sparse_model, rows)
     launches["csr_gather"] = fused_sparse(torch, sparse_model, rows, smi)
     fused_dense(torch, dense_model, X_score, smi)
@@ -1689,7 +2289,9 @@ def main() -> int:
     rows = []
     for name in ("hist", "select", "csr_gather", "sparse_hist", "flash_attn"):
         row = dict(kernels[name], launches=launches[name])
-        rows.append({k: row[k] for k in keys})
+        rows.append({**{k: row[k] for k in keys}, "launches_on_new_paths": {
+            p: c[name] for p, c in paths.items()
+            if p != "main" and name in c}})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log(smi)
     log({"kernels": rows})

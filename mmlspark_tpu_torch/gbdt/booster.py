@@ -1,26 +1,36 @@
-"""Boosting engine: objectives, metrics, persistence and the gbdt fit loop.
+"""Boosting engine: objectives, metrics, persistence and the fit loop.
 
-Counterpart of the reference's ``mmlspark_tpu/gbdt/booster.py`` on the dense
-per-tree path: ``TrainParams``, ``grad_hess`` (every objective except
-lambdarank), ``init_score``, ``eval_metric``, ``Booster`` with
-``to_string``/``from_string`` in the reference's JSON model format, and
-``train()`` for ``boosting_type="gbdt"`` with bagging and feature fraction.
+Counterpart of the reference's ``mmlspark_tpu/gbdt/booster.py`` on its
+per-iteration host loop: ``TrainParams``, ``grad_hess`` (every objective,
+LambdaRank included), ``init_score``, ``eval_metric`` (NDCG included),
+``Booster`` with ``to_string``/``from_string`` in the reference's JSON model
+format, and ``train()`` for every boosting type (``gbdt``, ``rf``, ``dart``,
+``goss``), bagging and feature fraction, ranking groups, a validation set
+with early stopping and continued training from an in-memory
+``init_model``.
 
-Two places are mirrored exactly, because tree parity depends on them:
+Three places are mirrored exactly, because tree parity depends on them:
 
   - rows are padded to a multiple of 512 (NaN features, zero label/weight,
-    excluded by ``pad_mask``); the padded row count sets the grower's tier
-    capacities;
+    group id -1, excluded by ``pad_mask``); the padded row count sets the
+    grower's tier capacities;
   - scores: on CUDA the running scores stay on the device as Kahan-
-    compensated f32 (``_add_leaf_values``); on the CPU they are exact f64 on
-    the host and re-uploaded as f32 every iteration.
+    compensated f32 (``_add_leaf_values``); on the CPU, and for ``dart`` on
+    any device (it rewrites scores when it drops and re-adds trees), they
+    are exact f64 on the host and re-uploaded as f32 every iteration;
+  - the host's random draws (bagging, feature fraction, GOSS's sample, DART's
+    drops) come from one ``np.random.Generator`` in the reference's order,
+    and GOSS ranks rows with the reference's ``np.argsort`` over the same
+    f32 gradients.
 
-Bagging and feature-fraction masks are drawn on the host from one
-``np.random.Generator`` in the reference's order. dart, goss, rf,
-lambdarank, validation/early stopping, checkpointing, categorical features,
-continued training from an ``init_model`` and the whole-run scan and native
-engines are not ported yet: asking for them raises ``NotImplementedError``
-(``init_model`` is not a parameter yet).
+LambdaRank runs as plain torch ops on the device: groups bucketed by
+power-of-two size, each bucket's ``[m, G, G]`` pairwise tensors taken in
+chunks of at most ``_LAMBDARANK_PAIR_BUDGET`` elements; its sums reduce in
+torch's order, so g and h agree with the reference's within ulps.
+
+Not ported yet: categorical set splits (ROADMAP A2), checkpointed training
+(A2), a mesh (A9), and the whole-run scan and native engines (A2): asking
+for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,9 +58,10 @@ ROW_MULTIPLE = 512
 class TrainParams:
     """Native-param-string equivalent (the reference's TrainParams)."""
 
-    # regression|regression_l1|quantile|huber|poisson|binary|multiclass
+    # regression|regression_l1|quantile|huber|poisson|binary|multiclass|
+    # lambdarank
     objective: str = "regression"
-    boosting_type: str = "gbdt"            # gbdt (rf|dart|goss: later)
+    boosting_type: str = "gbdt"            # gbdt|rf|dart|goss
     num_iterations: int = 100
     learning_rate: float = 0.1
     num_leaves: int = 31
@@ -136,10 +147,12 @@ def xla_exp(x: torch.Tensor) -> torch.Tensor:
 
 
 def grad_hess(objective: str, scores: torch.Tensor, labels: torch.Tensor,
-              weights: Optional[torch.Tensor] = None, alpha: float = 0.9
+              weights: Optional[torch.Tensor] = None, alpha: float = 0.9,
+              groups=None, group_segments: Optional["GroupSegments"] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (grad, hess), shape [N] (or [N, K] multiclass), in the
-    reference's f32 operation order."""
+    reference's f32 operation order. LambdaRank takes the rows' group ids
+    (``groups``) or their precomputed ``group_segments``, and no weights."""
     if objective == "binary":
         p = 1.0 / (1.0 + xla_exp(-scores))
         g = p - labels
@@ -171,14 +184,141 @@ def grad_hess(objective: str, scores: torch.Tensor, labels: torch.Tensor,
         g = xla_exp(scores) - labels
         h = xla_exp(scores)
     elif objective == "lambdarank":
-        raise NotImplementedError(
-            "the lambdarank objective is not ported yet (ROADMAP A2)")
+        return _lambdarank_grad_hess(scores, labels, groups,
+                                     segments=group_segments)
     else:
         raise ValueError(f"Unknown objective {objective!r}")
     if weights is not None:
         w = weights if g.dim() == 1 else weights[:, None]
         g, h = g * w, h * w
     return g, h
+
+
+class GroupSegments:
+    """Contiguous ``group_ids`` runs, bucketed by padded (power-of-two)
+    group size; computed once per dataset and reused every iteration (the
+    group layout never changes)."""
+
+    __slots__ = ("n", "buckets")
+
+    def __init__(self, n, buckets):
+        self.n = n
+        # buckets: list of (Gb, rows, loc_g, loc_slot, m): see segment_groups
+        self.buckets = buckets
+
+
+def segment_groups(group_ids, device: DeviceLike = "cpu") -> GroupSegments:
+    """Segment rows into contiguous groups and bucket the groups by size
+    class; each bucket's index tensors live on ``device``.
+
+    Raises if a group id appears in two non-adjacent runs: that silently
+    breaks pairwise ranking, so the rows must be sorted by group first."""
+    gi = np.asarray(group_ids)
+    n = len(gi)
+    change = np.nonzero(gi[1:] != gi[:-1])[0] + 1
+    starts = np.concatenate([[0], change]).astype(np.int64)
+    counts = np.diff(np.concatenate([starts, [n]])).astype(np.int64)
+    run_ids = gi[starts]
+    if len(np.unique(run_ids)) != len(run_ids):
+        raise ValueError(
+            "lambdarank requires rows grouped contiguously by group id; a "
+            "group id reappears after a different group — sort the dataset "
+            "by the group column first")
+
+    by_size: dict = {}
+    for g in range(len(starts)):
+        c = int(counts[g])
+        gb = 1 if c <= 1 else 1 << int(np.ceil(np.log2(c)))
+        by_size.setdefault(gb, []).append(g)
+
+    dev = torch.device(device)
+    buckets = []
+    for gb, glist in sorted(by_size.items()):
+        bcounts = counts[glist]
+        rows = np.concatenate(
+            [np.arange(starts[g], starts[g] + counts[g]) for g in glist])
+        loc_g = np.repeat(np.arange(len(glist), dtype=np.int64), bcounts)
+        loc_slot = np.concatenate(
+            [np.arange(c, dtype=np.int64) for c in bcounts])
+        buckets.append((gb, torch.as_tensor(rows, device=dev),
+                        torch.as_tensor(loc_g, device=dev),
+                        torch.as_tensor(loc_slot, device=dev), len(glist)))
+    return GroupSegments(n, buckets)
+
+
+# Bound on pairwise-tensor elements materialized at once (f32 [chunk, Gb, Gb];
+# 2**24 elements = 64 MB per tensor, ~6 live tensors => a few hundred MB peak).
+_LAMBDARANK_PAIR_BUDGET = 1 << 24
+
+
+def _lambdarank_bucket(s_pad: torch.Tensor, l_pad: torch.Tensor,
+                       valid: torch.Tensor, sigma: float = 1.0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pairwise LambdaRank lambdas for one [m, G] padded bucket of groups."""
+    m, G = s_pad.shape
+    dev = s_pad.device
+    gains = torch.where(valid, torch.pow(2.0, l_pad) - 1.0, 0.0)
+    # within-group rank by current score (invalid slots sort last: score
+    # -inf); stable, as jnp.argsort: at iteration 0 every score ties
+    order = torch.argsort(-s_pad, dim=1, stable=True)
+    iota = torch.arange(G, dtype=torch.int32, device=dev)
+    rank_of = torch.empty((m, G), dtype=torch.int32, device=dev)
+    rank_of.scatter_(1, order, iota.expand(m, G).contiguous())
+    disc = 1.0 / torch.log2(rank_of.to(torch.float32) + 2.0)
+    # ideal DCG per group (labels sorted descending)
+    ideal_gains = torch.flip(torch.sort(gains, dim=1).values, (1,))
+    idcg = torch.sum(ideal_gains / torch.log2(iota.to(torch.float32) + 2.0),
+                     dim=1, keepdim=True)
+    inv_idcg = torch.where(idcg > 0, 1.0 / idcg, 0.0)[..., None]
+
+    pair_ok = valid[:, :, None] & valid[:, None, :]
+    better = (l_pad[:, :, None] > l_pad[:, None, :]) & pair_ok
+    s_diff = torch.where(pair_ok, s_pad[:, :, None] - s_pad[:, None, :], 0.0)
+    rho = 1.0 / (1.0 + xla_exp(sigma * s_diff))     # P(i beats j but doesn't)
+    delta = torch.abs((gains[:, :, None] - gains[:, None, :])
+                      * (disc[:, :, None] - disc[:, None, :])) * inv_idcg
+    lam = torch.where(better, -sigma * rho * delta, 0.0)
+    h_pair = torch.where(better, sigma * sigma * rho * (1 - rho) * delta, 0.0)
+    g_pad = torch.sum(lam, dim=2) - torch.sum(lam, dim=1)
+    h_pad = torch.sum(h_pair, dim=2) + torch.sum(h_pair, dim=1)
+    return g_pad, h_pad
+
+
+def _lambdarank_grad_hess(scores: torch.Tensor, labels: torch.Tensor,
+                          group_ids, sigma: float = 1.0,
+                          segments: Optional[GroupSegments] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pairwise LambdaRank with |ΔNDCG| weighting (LightGBM semantics).
+
+    Groups (contiguous ``group_ids`` runs) are bucketed by power-of-two
+    padded size, so a few singleton-heavy queries never inflate the padding
+    of the rest; within a bucket the [m, G, G] pairwise tensors are taken at
+    most ``_LAMBDARANK_PAIR_BUDGET`` elements at a time (a loop over group
+    chunks, the reference's ``lax.map``)."""
+    seg = segments if segments is not None else segment_groups(
+        group_ids, scores.device)
+    dev = scores.device
+    g_out = torch.zeros(seg.n, dtype=torch.float32, device=dev)
+    h_out = torch.full((seg.n,), 1e-16, dtype=torch.float32, device=dev)
+    for gb, rows, loc_g, loc_slot, m in seg.buckets:
+        if gb <= 1:
+            continue  # singleton groups: no pairs, keep (0, 1e-16)
+        chunk = max(1, min(m, _LAMBDARANK_PAIR_BUDGET // (gb * gb)))
+        s_pad = torch.full((m, gb), float("-inf"), dtype=torch.float32,
+                           device=dev)
+        l_pad = torch.zeros((m, gb), dtype=torch.float32, device=dev)
+        valid = torch.zeros((m, gb), dtype=torch.bool, device=dev)
+        s_pad[loc_g, loc_slot] = scores[rows]
+        l_pad[loc_g, loc_slot] = labels[rows]
+        valid[loc_g, loc_slot] = True
+        parts = [_lambdarank_bucket(s_pad[a:a + chunk], l_pad[a:a + chunk],
+                                    valid[a:a + chunk], sigma)
+                 for a in range(0, m, chunk)]
+        g_pad = torch.cat([p[0] for p in parts])
+        h_pad = torch.cat([p[1] for p in parts])
+        g_out[rows] = g_pad[loc_g, loc_slot]
+        h_out[rows] = torch.clamp(h_pad[loc_g, loc_slot], min=1e-16)
+    return g_out, h_out
 
 
 def init_score(objective: str, labels: np.ndarray, num_class: int = 1,
@@ -210,7 +350,8 @@ def init_score(objective: str, labels: np.ndarray, num_class: int = 1,
 # ---------------------------------------------------------------------------
 
 
-def eval_metric(metric: str, scores: np.ndarray, labels: np.ndarray) -> float:
+def eval_metric(metric: str, scores: np.ndarray, labels: np.ndarray,
+                groups: Optional[np.ndarray] = None) -> float:
     eps = 1e-15
     if metric == "binary_logloss":
         p = np.clip(1 / (1 + np.exp(-scores)), eps, 1 - eps)
@@ -244,13 +385,45 @@ def eval_metric(metric: str, scores: np.ndarray, labels: np.ndarray) -> float:
         return float(np.sqrt(np.mean((scores - labels) ** 2)))
     if metric in ("l1", "mae"):
         return float(np.mean(np.abs(scores - labels)))
+    if metric == "ndcg":
+        return _ndcg(scores, labels, groups)
     raise ValueError(f"Unknown metric {metric!r}")
+
+
+def _ndcg(scores: np.ndarray, labels: np.ndarray,
+          groups: Optional[np.ndarray], k: int = 10) -> float:
+    """Mean NDCG@k over the groups, in ascending group id order (the
+    reference's ``_ndcg``). Each group's rows are found through one stable
+    argsort of the group ids instead of a mask per group: the same
+    sub-arrays in the same row order, so the same ``np.argsort`` ties and
+    the same value, in O(rows log rows)."""
+    if groups is None:
+        groups = np.zeros(len(scores), dtype=np.int64)
+    groups = np.asarray(groups)
+    perm = np.argsort(groups, kind="stable")
+    gs = groups[perm]
+    starts = np.concatenate([[0], np.nonzero(gs[1:] != gs[:-1])[0] + 1,
+                             [len(gs)]]) if len(gs) else np.zeros(1, np.int64)
+    vals = []
+    for a, b in zip(starts[:-1], starts[1:]):
+        rows = perm[a:b]
+        s, l = scores[rows], labels[rows]
+        order = np.argsort(-s)[:k]
+        dcg = np.sum((2 ** l[order] - 1) / np.log2(np.arange(len(order)) + 2))
+        ideal = np.argsort(-l)[:k]
+        idcg = np.sum((2 ** l[ideal] - 1) / np.log2(np.arange(len(ideal)) + 2))
+        vals.append(dcg / idcg if idcg > 0 else 1.0)
+    return float(np.mean(vals)) if vals else 1.0
+
+
+_HIGHER_BETTER = {"auc", "ndcg"}
 
 
 def default_metric(objective: str) -> str:
     return {
         "binary": "binary_logloss",
         "multiclass": "multi_logloss",
+        "lambdarank": "ndcg",
         "regression_l1": "l1",
         "l1": "l1",
         "mae": "l1",
@@ -327,23 +500,124 @@ class Booster:
 # ---------------------------------------------------------------------------
 
 
-def _unsupported(params: TrainParams, groups, valid, checkpoint, mesh) -> None:
+def _unsupported(params: TrainParams, checkpoint, mesh) -> None:
     """Raise for every option a later slice of the port owns."""
     later = None
-    if params.boosting_type != "gbdt":
-        later = f"boosting_type={params.boosting_type!r} (ROADMAP A2)"
-    elif params.objective == "lambdarank" or groups is not None:
-        later = "lambdarank / ranking groups (ROADMAP A2)"
-    elif params.categorical_feature:
+    if params.categorical_feature:
         later = "categorical set splits (ROADMAP A2)"
-    elif valid is not None or params.early_stopping_round > 0:
-        later = "validation sets and early stopping (ROADMAP A2)"
     elif checkpoint is not None:
         later = "checkpointed training (ROADMAP A2)"
     elif mesh is not None:
         later = "sharded multi-device training (ROADMAP A9)"
     if later:
         raise NotImplementedError(f"{later} is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Host draws shared by the dense and sparse loops (the reference's order)
+# ---------------------------------------------------------------------------
+
+
+def dart_drops(params: TrainParams, rng: np.random.Generator,
+               n_trees: int) -> List[int]:
+    """The iterations DART drops before growing the next tree."""
+    if params.uniform_drop:
+        drop_mask = rng.random(n_trees) < params.drop_rate
+        return list(np.where(drop_mask)[0][: params.max_drop])
+    n_drop = min(max(1, int(n_trees * params.drop_rate)), params.max_drop)
+    return list(rng.choice(n_trees, size=n_drop, replace=False))
+
+
+def goss_sample(g: torch.Tensor, n_real: int, n: int, params: TrainParams,
+                rng: np.random.Generator) -> Tuple[np.ndarray, torch.Tensor]:
+    """GOSS: the ``top_rate`` share of the first ``n_real`` rows by |g|
+    (summed over classes) plus a random ``other_rate`` share of the rest,
+    whose gradients are amplified. Returns the [n] row mask and the [n] f32
+    amplification on ``g``'s device. The ranking is the reference's
+    ``np.argsort`` (numpy's default sort) over the f32 |g| fetched to the
+    host: another sort kind or dtype breaks its ties another way."""
+    g_abs = np.abs(g.cpu().numpy())
+    if g_abs.ndim == 2:
+        g_abs = g_abs.sum(axis=1)
+    g_abs = g_abs[:n_real]
+    top_n = int(n_real * params.top_rate)
+    other_n = int(n_real * params.other_rate)
+    order = np.argsort(-g_abs)
+    row_mask = np.zeros(n, dtype=bool)
+    row_mask[order[:top_n]] = True
+    rest = order[top_n:]
+    picked = rng.choice(len(rest), size=min(other_n, len(rest)),
+                        replace=False)
+    row_mask[rest[picked]] = True
+    amp = np.ones(n, dtype=np.float32)
+    amp[rest] = (1.0 - params.top_rate) / max(params.other_rate, 1e-12)
+    return row_mask, torch.as_tensor(amp, device=g.device)
+
+
+def bagging_draw(params: TrainParams, rng: np.random.Generator, n: int,
+                 y: np.ndarray, it: int, is_rf: bool) -> Optional[np.ndarray]:
+    """A new [n] bagging mask at this iteration (every ``bagging_freq``
+    iterations; rf bags whenever a fraction is set), or None to keep the
+    last one."""
+    pos_neg = (params.pos_bagging_fraction < 1.0
+               or params.neg_bagging_fraction < 1.0)
+    if not ((params.bagging_fraction < 1.0 or pos_neg)
+            and (is_rf or params.bagging_freq > 0)
+            and it % max(params.bagging_freq, 1) == 0):
+        return None
+    if pos_neg:
+        # class-aware bagging (binary): per-class keep fractions, which
+        # override the uniform fraction as in LightGBM
+        frac = np.where(np.asarray(y) > 0.5, params.pos_bagging_fraction,
+                        params.neg_bagging_fraction)
+        return rng.random(n) < frac
+    return rng.random(n) < params.bagging_fraction
+
+
+def feature_draw(params: TrainParams, rng: np.random.Generator,
+                 num_f: int) -> Optional[np.ndarray]:
+    """This iteration's [num_f] feature-fraction mask, or None."""
+    if params.feature_fraction >= 1.0:
+        return None
+    m = np.zeros(num_f, dtype=bool)
+    n_feat = max(1, int(num_f * params.feature_fraction))
+    m[rng.choice(num_f, size=n_feat, replace=False)] = True
+    return m
+
+
+def rf_average(booster: "Booster") -> None:
+    """rf: every tree's shrinkage becomes 1/T at the end of the fit."""
+    if booster.trees:
+        inv = 1.0 / len(booster.trees)
+        for group in booster.trees:
+            for t in group:
+                t.shrinkage = inv
+
+
+class EarlyStopping:
+    """Best-so-far bookkeeping of the validation metric."""
+
+    def __init__(self, metric: str, rounds: int):
+        self.higher_better = metric in _HIGHER_BETTER
+        self.rounds = rounds
+        self.best_val = -np.inf if self.higher_better else np.inf
+        self.best_iter = -1
+        self.no_improve = 0
+
+    def update(self, value: float, n_trees: int) -> bool:
+        """Record this iteration's value; True when the fit should stop."""
+        improved = (value > self.best_val if self.higher_better
+                    else value < self.best_val)
+        if improved:
+            self.best_val, self.best_iter, self.no_improve = value, n_trees, 0
+        else:
+            self.no_improve += 1
+        return self.rounds > 0 and self.no_improve >= self.rounds
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
 
 
 def _add_leaf_values(score: torch.Tensor, comp: torch.Tensor,
@@ -372,24 +646,38 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
           weights: Optional[np.ndarray] = None,
           groups: Optional[np.ndarray] = None,
           valid: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+          valid_groups: Optional[np.ndarray] = None,
           init_scores: Optional[np.ndarray] = None,
+          init_model: Optional[Booster] = None,
           log: Optional[Callable[[str], None]] = None,
           mesh=None, checkpoint=None,
           device: DeviceLike = None) -> Booster:
-    """Bin, boost and return a Booster. Runs on ``device`` (default: CUDA,
-    or the device ``runtime.use_device`` asked for)."""
-    _unsupported(params, groups, valid, checkpoint, mesh)
+    """Bin, boost, early-stop; returns a Booster. Runs on ``device``
+    (default: CUDA, or the device ``runtime.use_device`` asked for).
+
+    ``groups``: per-row query ids for lambdarank (rows of a query
+    contiguous). ``valid``: an (X, y) holdout scored after every iteration
+    (``valid_groups`` its query ids); with ``early_stopping_round`` > 0 the
+    fit stops after that many iterations without improvement and
+    ``best_iteration`` marks the best. ``init_model``: a Booster whose bin
+    mapper, base score and trees the fit continues from."""
+    _unsupported(params, checkpoint, mesh)
     dev = resolve_device(device)
-    fast_scores = dev.type == "cuda"
+    is_rf = params.boosting_type == "rf"
+    is_dart = params.boosting_type == "dart"
+    is_goss = params.boosting_type == "goss"
+    fast_scores = dev.type == "cuda" and not is_dart
 
     # Pad rows to a multiple of 512: NaN features (bin 0), zero label and
-    # weight, excluded from training through pad_mask
+    # weight, group -1, excluded from training through pad_mask
     pad = (-len(y)) % ROW_MULTIPLE
     if pad:
         X = np.concatenate([X, np.full((pad, X.shape[1]), np.nan)])
         y = np.concatenate([y, np.zeros(pad)])
         if weights is not None:
             weights = np.concatenate([weights, np.zeros(pad)])
+        if groups is not None:
+            groups = np.concatenate([groups, np.full(pad, -1)])
     pad_mask = np.ones(len(y), dtype=bool)
     if pad:
         pad_mask[-pad:] = False
@@ -400,9 +688,12 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
     objective = params.objective
     rng = np.random.default_rng(params.seed or params.bagging_seed)
 
-    mapper = BinMapper.fit(X[:n_real], params.max_bin,
-                           params.categorical_feature, seed=params.seed,
-                           max_bin_by_feature=params.max_bin_by_feature)
+    if init_model is not None and init_model.bin_mapper is not None:
+        mapper = init_model.bin_mapper
+    else:
+        mapper = BinMapper.fit(X[:n_real], params.max_bin,
+                               params.categorical_feature, seed=params.seed,
+                               max_bin_by_feature=params.max_bin_by_feature)
     num_bins = mapper.max_num_bins
     # feature-major [F, N] bins: shipped as uint8 when they fit (4x fewer
     # host-to-device bytes) and widened to int32 on the device
@@ -412,6 +703,9 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
     labels = torch.as_tensor(y, dtype=torch.float32, device=dev)
     w_dev = (torch.as_tensor(weights, dtype=torch.float32, device=dev)
              if weights is not None else None)
+    # the lambdarank group layout is static across boosting: segment once
+    group_seg = (segment_groups(groups, dev)
+                 if groups is not None and objective == "lambdarank" else None)
 
     if init_scores is not None:
         # per-row init score: boosting starts from it, but it is not part of
@@ -428,8 +722,21 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
                           k, alpha=params.alpha)
         scores = np.tile(base, (n, 1)).astype(np.float64)
     booster = Booster(params, mapper, base_score=base)
+    if init_model is not None:
+        booster.trees = [list(g) for g in init_model.trees]
+        booster.base_score = init_model.base_score
+        if init_model.trees:
+            # seed from every inherited tree (all of them are carried into
+            # the merged model), not the early-stopped prefix
+            scores = init_model.raw_predict(
+                X, num_iteration=len(init_model.trees)).reshape(n, -1)
 
     metric = params.metric or default_metric(objective)
+    stopper = EarlyStopping(metric, params.early_stopping_round)
+    holdout = _Holdout(valid, k) if valid is not None else None
+    if holdout is not None:
+        holdout.extend(booster.trees)
+
     config = GrowerConfig(
         num_leaves=params.num_leaves, max_depth=params.max_depth,
         min_data_in_leaf=params.min_data_in_leaf,
@@ -437,12 +744,14 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
         min_gain_to_split=params.min_gain_to_split,
         lambda_l1=params.lambda_l1, lambda_l2=params.lambda_l2,
         max_delta_step=params.max_delta_step)
-    lr = params.learning_rate
+    lr = 1.0 if is_rf else params.learning_rate
     bag_mask = np.ones(n, dtype=bool)  # persists across iters (bagging_freq)
     max_nodes = 2 * params.num_leaves - 1
+    y_real = np.asarray(y[:n_real], dtype=np.float64)
+    groups_real = groups[:n_real] if groups is not None else None
 
-    # CUDA keeps the running scores on the device (Kahan f32); the CPU keeps
-    # exact f64 scores on the host
+    # CUDA keeps the running scores on the device (Kahan f32); the CPU, and
+    # dart everywhere, keep exact f64 scores on the host
     score_dev = comp_dev = None
     if fast_scores:
         score_dev = torch.as_tensor(scores[:, 0] if k == 1 else scores,
@@ -461,38 +770,40 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
     for it in range(params.num_iterations):
         it_t0 = time.perf_counter()
         _faults.fire(_faults.TRAIN_STEP, iteration=it)
+        # ----- dart: drop a subset of the existing trees from the scores
+        dropped: List[int] = []
+        if is_dart and booster.trees:
+            dropped = dart_drops(params, rng, len(booster.trees))
+            for di in dropped:
+                for kk in range(k):
+                    scores[:, kk] -= _tree_contrib(booster.trees[di][kk], X)
+
         if not fast_scores:
             score_dev = torch.as_tensor(scores[:, 0] if k == 1 else scores,
                                         dtype=torch.float32, device=dev)
-        g, h = grad_hess(objective, score_dev, labels, w_dev, params.alpha)
+        g, h = grad_hess(objective, score_dev, labels, w_dev, params.alpha,
+                         groups, group_segments=group_seg)
 
-        # ----- bagging (resample every bagging_freq iterations)
+        # ----- bagging / goss row selection
         row_mask = bag_mask
-        if ((params.bagging_fraction < 1.0
-             or params.pos_bagging_fraction < 1.0
-             or params.neg_bagging_fraction < 1.0)
-                and params.bagging_freq > 0
-                and it % max(params.bagging_freq, 1) == 0):
-            if (params.pos_bagging_fraction < 1.0
-                    or params.neg_bagging_fraction < 1.0):
-                pos = np.asarray(y) > 0.5
-                frac = np.where(pos, params.pos_bagging_fraction,
-                                params.neg_bagging_fraction)
-                bag_mask = rng.random(n) < frac
-            else:
-                bag_mask = rng.random(n) < params.bagging_fraction
-            row_mask = bag_mask
+        if is_goss:
+            row_mask, amp = goss_sample(g, n_real, n, params, rng)
+            if g.dim() == 2:
+                amp = amp[:, None]
+            g, h = g * amp, h * amp
+        else:
+            drawn = bagging_draw(params, rng, n, y, it, is_rf)
+            if drawn is not None:
+                bag_mask = row_mask = drawn
 
         # ----- feature subsampling
-        feature_mask = None
-        if params.feature_fraction < 1.0:
-            m = np.zeros(num_f, dtype=bool)
-            n_feat = max(1, int(num_f * params.feature_fraction))
-            m[rng.choice(num_f, size=n_feat, replace=False)] = True
-            feature_mask = torch.as_tensor(m, device=dev)
+        fm = feature_draw(params, rng, num_f)
+        feature_mask = torch.as_tensor(fm, device=dev) if fm is not None \
+            else None
 
         row_mask = row_mask & pad_mask
         mask_dev = torch.as_tensor(row_mask, device=dev)
+        shrink = lr / (len(dropped) + lr) if dropped else lr  # dart's scale
         group: List[Tree] = []
         for kk in range(k):
             gk = g if g.dim() == 1 else g[:, kk].contiguous()
@@ -500,24 +811,91 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
             tree, leaf_of_row = grow_tree(bins_dev, gk, hk, mask_dev,
                                           num_bins, config, mapper,
                                           feature_mask)
-            tree.shrinkage = lr
+            tree.shrinkage = shrink
             group.append(tree)
             if fast_scores:
                 vals = np.zeros(max(max_nodes, len(tree.value)),
                                 dtype=np.float32)
-                vals[: len(tree.value)] = tree.value * lr
+                vals[: len(tree.value)] = tree.value * shrink
                 score_dev, comp_dev = _add_leaf_values(
                     score_dev, comp_dev, torch.as_tensor(vals, device=dev),
                     leaf_of_row, kk if k > 1 else None)
             else:
-                scores[:, kk] += tree.value[leaf_of_row.numpy()] * lr
+                scores[:, kk] += tree.value[leaf_of_row.cpu().numpy()] * shrink
+        if dropped:
+            # scale the dropped trees and add them back
+            factor = len(dropped) / (len(dropped) + lr)
+            for di in dropped:
+                for kk in range(k):
+                    booster.trees[di][kk].shrinkage *= factor
+                    scores[:, kk] += _tree_contrib(booster.trees[di][kk], X)
         booster.trees.append(group)
 
-        if (params.train_metric or (it + 1) % 10 == 0) and log:
+        # ----- eval + early stopping
+        if params.train_metric and log:
+            host_sc = _host_scores()[:n_real]
+            tm = eval_metric(metric, host_sc[:, 0] if k == 1 else host_sc,
+                             y_real, groups_real)
+            recorder.metric(f"train_{metric}", tm)
+            log(f"[{it + 1}] train {metric}={tm:.6f}")
+        if holdout is not None:
+            holdout.extend([group])
+            m = eval_metric(metric, holdout.raw(booster),
+                            np.asarray(holdout.y, dtype=np.float64),
+                            valid_groups)
+            recorder.metric(f"valid_{metric}", m)
+            stop = stopper.update(m, len(booster.trees))
+            if log:
+                log(f"[{it + 1}] valid {metric}={m:.6f}")
+            if stop:
+                booster.best_iteration = stopper.best_iter
+                if log:
+                    log(f"early stopping at iteration {it + 1}, "
+                        f"best {stopper.best_iter}")
+                recorder.step(time.perf_counter() - it_t0, examples=n_real)
+                break
+        elif log and not params.train_metric and (it + 1) % 10 == 0:
             host_sc = _host_scores()[:n_real]
             m = eval_metric(metric, host_sc[:, 0] if k == 1 else host_sc,
-                            np.asarray(y[:n_real], dtype=np.float64))
+                            y_real, groups_real)
             recorder.metric(f"train_{metric}", m)
             log(f"[{it + 1}] train {metric}={m:.6f}")
         recorder.step(time.perf_counter() - it_t0, examples=n_real)
+
+    if is_rf:
+        rf_average(booster)
     return booster
+
+
+def _tree_contrib(tree: Tree, X: np.ndarray) -> np.ndarray:
+    from .predict import predict_single_tree
+
+    return predict_single_tree(tree, X)
+
+
+class _Holdout:
+    """The validation rows' raw scores, as ``Booster.raw_predict`` gives
+    them with every tree, bit for bit: each tree's leaf per row is found once
+    and its contribution (value times the tree's current shrinkage, which
+    dart rescales) re-added in tree order."""
+
+    def __init__(self, valid: Tuple[np.ndarray, np.ndarray], k: int):
+        self.X, self.y = valid
+        self.k = k
+        self.leaves: List[List[np.ndarray]] = []
+
+    def extend(self, groups: List[List[Tree]]) -> None:
+        from .predict import leaf_nodes
+
+        for group in groups:
+            self.leaves.append([leaf_nodes(t, self.X) for t in group])
+
+    def raw(self, booster: "Booster") -> np.ndarray:
+        nv = self.X.shape[0]
+        out = np.zeros((nv, self.k), dtype=np.float64)
+        for group, leaves in zip(booster.trees, self.leaves):
+            for kk, (t, node) in enumerate(zip(group, leaves)):
+                out[:, kk] += t.value[node] * t.shrinkage
+        sc = np.tile(booster.base_score, (nv, 1)).astype(np.float64)
+        sc += out
+        return sc[:, 0] if self.k == 1 else sc

@@ -40,6 +40,11 @@ from .tree import Tree
 
 def predict_single_tree(tree: Tree, X: np.ndarray) -> np.ndarray:
     """Host path: [N,F] raw floats -> [N] contributions (incl. shrinkage)."""
+    return tree.value[leaf_nodes(tree, X)] * tree.shrinkage
+
+
+def leaf_nodes(tree: Tree, X: np.ndarray) -> np.ndarray:
+    """Host path: [N,F] raw floats -> [N] node id of each row's leaf."""
     if tree.cat_sets is not None:
         raise NotImplementedError(
             "categorical set splits are not ported yet (ROADMAP A2)")
@@ -54,7 +59,7 @@ def predict_single_tree(tree: Tree, X: np.ndarray) -> np.ndarray:
                            x <= tree.threshold[cur])
         node[active] = np.where(go_left, tree.left[cur], tree.right[cur])
         active = tree.feature[node] != -1
-    return tree.value[node] * tree.shrinkage
+    return node
 
 
 def predict_ensemble(tree_groups: List[List[Tree]], X: np.ndarray,

@@ -20,10 +20,13 @@ feature spaces (2^18+ columns), without ever densifying.
     (``_grow_tree_sparse_body``) as a Python loop over device tensors, with
     one host read per split; node ids in split order.
   - ``train_sparse``: the reference's host-orchestrated boosting loop for
-    ``gbdt`` (bagging, pos/neg bagging, feature fraction, weights, init
-    scores; binary, multiclass and regression objectives).
-  - ``predict_csr``: depth-stepped traversal, each row resolving the split
-    feature through its own CSR row (absent -> 0.0), in f64 on the device.
+    every boosting type (gbdt, rf, dart, goss), bagging, feature fraction,
+    weights, init scores, every objective (lambdarank included), a CSR
+    validation set with early stopping, and an in-memory ``init_model``.
+  - ``predict_csr`` / ``CsrRows``: depth-stepped traversal, each row
+    resolving the split feature through its own CSR row (absent -> 0.0), in
+    f64 on the device; ``CsrRows`` stages the rows once for the loop's
+    repeated scoring (DART's drops, the validation set).
 
 Where the port's arithmetic differs from the reference's, on purpose: the
 reference takes within-feature sums as differences of one f32 prefix over
@@ -38,9 +41,8 @@ holds against the port's at full width. ROADMAP §C has the numbers.
 
 Not ported yet (ROADMAP A6): the whole-run scan (``_train_scan_sparse``,
 with selected-row compaction, exact top-k GOSS and the lazy full-row
-traversal), goss/dart/rf, lambdarank, validation, ``init_model``, the
-sharded grower, the per-split host loop the reference runs above the 2 GiB
-state gate, and the native C++ CSR predict.
+traversal), the sharded grower, the per-split host loop the reference runs
+above the 2 GiB state gate, and the native C++ CSR predict.
 """
 
 from __future__ import annotations
@@ -54,8 +56,9 @@ import torch
 
 from ..parallel.batching import sparse_width
 from ..runtime import DeviceLike, default_device, resolve_device
-from .booster import (Booster, default_metric, eval_metric, grad_hess,
-                      init_score)
+from .booster import (Booster, EarlyStopping, bagging_draw, dart_drops,
+                      default_metric, eval_metric, feature_draw, goss_sample,
+                      grad_hess, init_score, rf_average, segment_groups)
 from .histogram import _f32, _leaf_objective, xla_cumsum
 from .predict import _tree_depth
 from .sparse_hist_kernel import sparse_histogram
@@ -652,45 +655,41 @@ def grow_tree_sparse(ds: SparseDataset, dev: Dict, grad: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _unsupported(params, groups, valid, init_model, mesh) -> None:
+def _unsupported(mesh) -> None:
     """Raise for every option a later slice of the port owns."""
-    later = None
-    if params.boosting_type != "gbdt":
-        later = f"sparse boosting_type={params.boosting_type!r} (ROADMAP A6)"
-    elif params.objective == "lambdarank" or groups is not None:
-        later = "lambdarank / ranking groups on sparse features (ROADMAP A6)"
-    elif valid is not None or params.early_stopping_round > 0:
-        later = "sparse validation sets and early stopping (ROADMAP A6)"
-    elif init_model is not None:
-        later = "continued sparse training from init_model (ROADMAP A6)"
-    elif mesh is not None:
-        later = "sharded sparse training (ROADMAP A6, A9)"
-    if later:
-        raise NotImplementedError(f"{later} is not ported yet")
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded sparse training (ROADMAP A6, A9) is not ported yet")
 
 
 def train_sparse(params, ds: SparseDataset, y: np.ndarray,
                  weights: Optional[np.ndarray] = None,
                  groups: Optional[np.ndarray] = None,
                  valid: Optional[Tuple] = None,
+                 valid_groups: Optional[np.ndarray] = None,
                  init_scores: Optional[np.ndarray] = None,
                  init_model=None, log=None, mesh=None,
                  device: DeviceLike = None) -> Booster:
     """Boosting over a SparseDataset; returns an ordinary Booster (no bin
     mapper: the trees carry raw thresholds). The reference's
-    host-orchestrated loop for ``gbdt``: scores stay exact f64 on the host
-    and go to the device as f32 each iteration; bagging and feature
-    fraction draw from ``np.random.default_rng(seed or bagging_seed)`` in
-    the reference's order. Each iteration's wall time goes to the
-    ``TrainRecorder`` series under engine ``gbdt_sparse``. Runs on
-    ``device`` (default: CUDA, or the device ``runtime.use_device`` asked
-    for)."""
+    host-orchestrated loop: scores stay exact f64 on the host and go to the
+    device as f32 each iteration; every boosting type (DART drops and
+    re-adds trees through ``predict_csr``), lambdarank ``groups``, weights,
+    init scores and continued training from an in-memory ``init_model``;
+    bagging, feature fraction, GOSS's sample and DART's drops draw from
+    ``np.random.default_rng(seed or bagging_seed)`` in the reference's
+    order. ``valid``: an optional ((indptr, indices, values), y) CSR holdout
+    scored after every iteration (``valid_groups`` its query ids), with
+    early stopping after ``early_stopping_round`` iterations without
+    improvement. Each iteration's wall time goes to the ``TrainRecorder``
+    series under engine ``gbdt_sparse``. Runs on ``device`` (default: CUDA,
+    or the device ``runtime.use_device`` asked for)."""
     if params.categorical_feature:
         raise ValueError(
             "categorical_feature is not supported on the sparse path "
             "(set splits need the dense bin space; sparse features are "
             "numeric TF counts) — densify for categorical slots")
-    _unsupported(params, groups, valid, init_model, mesh)
+    _unsupported(mesh)
     dev_t = resolve_device(device)
     k = max(params.num_class, 1)
     n = ds.num_rows
@@ -698,7 +697,17 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
     labels = torch.as_tensor(y, dtype=torch.float32, device=dev_t)
     w_dev = (torch.as_tensor(weights, dtype=torch.float32, device=dev_t)
              if weights is not None else None)
+    group_seg = (segment_groups(groups, dev_t)
+                 if groups is not None and params.objective == "lambdarank"
+                 else None)
     rng = np.random.default_rng(params.seed or params.bagging_seed)
+    train_rows = None      # CsrRows of the training set, staged on first use
+
+    def _train_rows() -> CsrRows:
+        nonlocal train_rows
+        if train_rows is None:
+            train_rows = CsrRows(ds.indptr, ds.indices, ds.values, dev_t)
+        return train_rows
 
     if init_scores is not None:
         base = np.zeros(k, dtype=np.float64)
@@ -710,6 +719,13 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
                           k, alpha=params.alpha)
         scores = np.tile(base, (n, 1)).astype(np.float64)
     booster = Booster(params, None, base_score=base)
+    if init_model is not None:
+        booster.trees = [list(g) for g in init_model.trees]
+        booster.base_score = init_model.base_score
+        base = booster.base_score
+        if init_model.trees:
+            scores = (np.tile(base, (n, 1))
+                      + _train_rows().predict(init_model.trees, k))
     config = GrowerConfig(
         num_leaves=params.num_leaves, max_depth=params.max_depth,
         min_data_in_leaf=params.min_data_in_leaf,
@@ -717,8 +733,19 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
         min_gain_to_split=params.min_gain_to_split,
         lambda_l1=params.lambda_l1, lambda_l2=params.lambda_l2,
         max_delta_step=params.max_delta_step)
-    lr = params.learning_rate
+    is_rf = params.boosting_type == "rf"
+    is_dart = params.boosting_type == "dart"
+    is_goss = params.boosting_type == "goss"
+    lr = 1.0 if is_rf else params.learning_rate
     metric = params.metric or default_metric(params.objective)
+    stopper = EarlyStopping(metric, params.early_stopping_round)
+    val_rows = val_y = val_scores = None
+    if valid is not None:
+        val_csr, val_y = valid
+        val_rows = CsrRows(*val_csr, device=dev_t)
+        val_scores = np.tile(base, (val_rows.n, 1)).astype(np.float64)
+        if init_model is not None and init_model.trees:
+            val_scores += val_rows.predict(init_model.trees, k)
 
     from ..obs.metrics import TrainRecorder
 
@@ -726,36 +753,40 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
     bag_mask = np.ones(n, dtype=bool)
     for it in range(params.num_iterations):
         it_t0 = time.perf_counter()
+        dropped: List[int] = []
+        if is_dart and booster.trees:
+            dropped = dart_drops(params, rng, len(booster.trees))
+            for di in dropped:
+                scores -= _train_rows().predict([booster.trees[di]], k)
+                if val_rows is not None:
+                    # keep the holdout scores in lockstep (the dropped
+                    # trees are rescaled below)
+                    val_scores -= val_rows.predict([booster.trees[di]], k)
+
         score_dev = torch.as_tensor(scores[:, 0] if k == 1 else scores,
                                     dtype=torch.float32, device=dev_t)
         g, h = grad_hess(params.objective, score_dev, labels, w_dev,
-                         params.alpha)
+                         params.alpha, groups, group_segments=group_seg)
 
         row_mask = bag_mask
-        if ((params.bagging_fraction < 1.0
-             or params.pos_bagging_fraction < 1.0
-             or params.neg_bagging_fraction < 1.0)
-                and params.bagging_freq > 0
-                and it % max(params.bagging_freq, 1) == 0):
-            if (params.pos_bagging_fraction < 1.0
-                    or params.neg_bagging_fraction < 1.0):
-                pos = np.asarray(y) > 0.5
-                frac = np.where(pos, params.pos_bagging_fraction,
-                                params.neg_bagging_fraction)
-                bag_mask = rng.random(n) < frac
-            else:
-                bag_mask = rng.random(n) < params.bagging_fraction
-            row_mask = bag_mask
+        if is_goss:
+            row_mask, amp = goss_sample(g, n, n, params, rng)
+            if g.dim() == 2:
+                amp = amp[:, None]
+            g, h = g * amp, h * amp
+        else:
+            drawn = bagging_draw(params, rng, n, y, it, is_rf)
+            if drawn is not None:
+                bag_mask = row_mask = drawn
 
         bin_mask = None
-        if params.feature_fraction < 1.0:
-            m = np.zeros(ds.num_features, dtype=bool)
-            n_feat = max(1, int(ds.num_features * params.feature_fraction))
-            m[rng.choice(ds.num_features, size=n_feat, replace=False)] = True
-            bin_mask = torch.as_tensor(m, device=dev_t).index_select(
+        fm = feature_draw(params, rng, ds.num_features)
+        if fm is not None:
+            bin_mask = torch.as_tensor(fm, device=dev_t).index_select(
                 0, dev["feat_of_bin"])
 
         mask_dev = torch.as_tensor(row_mask, device=dev_t)
+        shrink = lr / (len(dropped) + lr) if dropped else lr  # dart's scale
         group: List[Tree] = []
         for kk in range(k):
             gk = g if g.dim() == 1 else g[:, kk].contiguous()
@@ -763,17 +794,46 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
             tree, leaf_of_row = grow_tree_sparse(ds, dev, gk, hk, config,
                                                  row_mask=mask_dev,
                                                  bin_mask=bin_mask)
-            tree.shrinkage = lr
+            tree.shrinkage = shrink
             group.append(tree)
-            scores[:, kk] += tree.value[leaf_of_row.cpu().numpy()] * lr
+            scores[:, kk] += tree.value[leaf_of_row.cpu().numpy()] * shrink
+        if dropped:
+            factor = len(dropped) / (len(dropped) + lr)
+            for di in dropped:
+                for kk in range(k):
+                    booster.trees[di][kk].shrinkage *= factor
+                scores += _train_rows().predict([booster.trees[di]], k)
+                if val_rows is not None:
+                    val_scores += val_rows.predict([booster.trees[di]], k)
         booster.trees.append(group)
 
-        if log and (it + 1) % 10 == 0:
+        # eval + early stopping on the CSR holdout
+        if val_rows is not None:
+            val_scores += val_rows.predict([group], k)
+            vs = val_scores[:, 0] if k == 1 else val_scores
+            m = eval_metric(metric, vs, np.asarray(val_y, dtype=np.float64),
+                            valid_groups)
+            recorder.metric(f"valid_{metric}", m)
+            stop = stopper.update(m, len(booster.trees))
+            if log:
+                log(f"[{it + 1}] valid {metric}={m:.6f}")
+            if stop:
+                booster.best_iteration = stopper.best_iter
+                if log:
+                    log(f"early stopping at iteration {it + 1}, "
+                        f"best {stopper.best_iter}")
+                recorder.step(time.perf_counter() - it_t0, examples=n)
+                break
+        elif log and (it + 1) % 10 == 0:
             sc = scores[:, 0] if k == 1 else scores
-            m = eval_metric(metric, sc, np.asarray(y, dtype=np.float64))
+            m = eval_metric(metric, sc, np.asarray(y, dtype=np.float64),
+                            groups)
             recorder.metric(f"train_{metric}", m)
             log(f"[{it + 1}] train {metric}={m:.6f}")
         recorder.step(time.perf_counter() - it_t0, examples=n)
+
+    if is_rf:
+        rf_average(booster)
     return booster
 
 
@@ -786,52 +846,73 @@ def predict_csr(tree_groups: List[List[Tree]], indptr, indices, values,
                 num_class: int, device: DeviceLike = None) -> np.ndarray:
     """[CSR rows] -> [N, num_class] f64 raw score deltas (the reference's
     numpy ``predict_csr`` on f64 tensors on ``device``, default
-    ``default_device()``).
+    ``default_device()``)."""
+    return CsrRows(indptr, indices, values, device).predict(tree_groups,
+                                                           num_class)
+
+
+class CsrRows:
+    """CSR rows staged on a device once, for repeated traversals (DART's
+    drops and the validation scores score the same rows every iteration).
 
     Each tree is walked for its depth in steps over all rows; a row's value
     of the split feature is found by ONE global ``searchsorted`` over the
     composite int64 key ``row * width + feature`` (CSR rows are sorted, so
     the keys ascend), absent -> 0.0. Contributions add in f64 in tree order,
     as the reference's."""
-    for group in tree_groups:
-        for tree in group:
-            if tree.cat_sets is not None:
-                raise ValueError(
-                    "categorical set splits cannot be evaluated on sparse "
-                    "CSR rows (sparse features are numeric); densify for "
-                    "categorical models")
-    dev = resolve_device(device) if device is not None else default_device()
-    indptr = np.asarray(indptr, dtype=np.int64)
-    indices = np.asarray(indices, dtype=np.int64)
-    n = len(indptr) - 1
-    width = int(indices.max()) + 2 if len(indices) else 1
-    row_of = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
-    key = torch.as_tensor(row_of * width + indices, device=dev)
-    vals = torch.as_tensor(np.asarray(values, dtype=np.float64), device=dev)
-    rows = torch.arange(n, dtype=torch.int64, device=dev)
-    out = torch.zeros(n, num_class, dtype=torch.float64, device=dev)
 
-    def lookup(feats: torch.Tensor) -> torch.Tensor:
-        if key.shape[0] == 0:
-            return torch.zeros(n, dtype=torch.float64, device=dev)
-        q = rows * width + torch.clamp(feats, 0, width - 1)
-        pos = torch.clamp(torch.searchsorted(key, q), max=key.shape[0] - 1)
-        hit = (feats < width) & (key[pos] == q)
-        return torch.where(hit, vals[pos], 0.0)
+    def __init__(self, indptr, indices, values, device: DeviceLike = None):
+        dev = resolve_device(device) if device is not None \
+            else default_device()
+        indptr = np.asarray(indptr, dtype=np.int64)
+        indices = np.asarray(indices, dtype=np.int64)
+        n = len(indptr) - 1
+        width = int(indices.max()) + 2 if len(indices) else 1
+        row_of = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+        self.n, self.width, self.device = n, width, dev
+        self.key = torch.as_tensor(row_of * width + indices, device=dev)
+        self.vals = torch.as_tensor(np.asarray(values, dtype=np.float64),
+                                    device=dev)
+        self.rows = torch.arange(n, dtype=torch.int64, device=dev)
 
-    for group in tree_groups:
-        for kcls, tree in enumerate(group):
-            feat = torch.as_tensor(tree.feature, dtype=torch.int64, device=dev)
-            thr = torch.as_tensor(tree.threshold, dtype=torch.float64,
-                                  device=dev)
-            lft = torch.as_tensor(tree.left, dtype=torch.int64, device=dev)
-            rgt = torch.as_tensor(tree.right, dtype=torch.int64, device=dev)
-            node = torch.zeros(n, dtype=torch.int64, device=dev)
-            for _ in range(_tree_depth(tree) - 1):
-                f = feat[node]
-                x = lookup(f)
-                nxt = torch.where(x <= thr[node], lft[node], rgt[node])
-                node = torch.where(f >= 0, nxt, node)
-            val = torch.as_tensor(tree.value, dtype=torch.float64, device=dev)
-            out[:, kcls] += val[node] * tree.shrinkage
-    return out.cpu().numpy()
+    def _lookup(self, feats: torch.Tensor) -> torch.Tensor:
+        if self.key.shape[0] == 0:
+            return torch.zeros(self.n, dtype=torch.float64,
+                               device=self.device)
+        q = self.rows * self.width + torch.clamp(feats, 0, self.width - 1)
+        pos = torch.clamp(torch.searchsorted(self.key, q),
+                          max=self.key.shape[0] - 1)
+        hit = (feats < self.width) & (self.key[pos] == q)
+        return torch.where(hit, self.vals[pos], 0.0)
+
+    def predict(self, tree_groups: List[List[Tree]],
+                num_class: int) -> np.ndarray:
+        """[N, num_class] f64 raw score deltas of ``tree_groups``."""
+        for group in tree_groups:
+            for tree in group:
+                if tree.cat_sets is not None:
+                    raise ValueError(
+                        "categorical set splits cannot be evaluated on "
+                        "sparse CSR rows (sparse features are numeric); "
+                        "densify for categorical models")
+        dev = self.device
+        out = torch.zeros(self.n, num_class, dtype=torch.float64, device=dev)
+        for group in tree_groups:
+            for kcls, tree in enumerate(group):
+                feat = torch.as_tensor(tree.feature, dtype=torch.int64,
+                                       device=dev)
+                thr = torch.as_tensor(tree.threshold, dtype=torch.float64,
+                                      device=dev)
+                lft = torch.as_tensor(tree.left, dtype=torch.int64, device=dev)
+                rgt = torch.as_tensor(tree.right, dtype=torch.int64,
+                                      device=dev)
+                node = torch.zeros(self.n, dtype=torch.int64, device=dev)
+                for _ in range(_tree_depth(tree) - 1):
+                    f = feat[node]
+                    x = self._lookup(f)
+                    nxt = torch.where(x <= thr[node], lft[node], rgt[node])
+                    node = torch.where(f >= 0, nxt, node)
+                val = torch.as_tensor(tree.value, dtype=torch.float64,
+                                      device=dev)
+                out[:, kcls] += val[node] * tree.shrinkage
+        return out.cpu().numpy()

@@ -1,10 +1,12 @@
-"""LightGBM-parity pipeline stages: Classifier / Regressor (+ Models).
+"""LightGBM-parity pipeline stages: Classifier / Regressor / Ranker (+ Models).
 
 Counterpart of the reference's ``mmlspark_tpu/gbdt/stages.py``: the same
 camelCase param surface (LightGBMParams), ``fit`` over the DataFrame into
 ``booster.train`` and ``transform`` through the ``DeviceEnsemble`` forest
 traversal with the f64 host finalize. Both run on CUDA unless the caller
-wraps them in ``runtime.use_device("cpu")``.
+wraps them in ``runtime.use_device("cpu")``. ``fit`` splits off the rows
+``validationIndicatorCol`` flags as the early-stopping holdout, and with
+``numBatches`` > 1 trains batch after batch, each continuing the last.
 
 Sparse-row feature columns (``{"indices", "values", "size"}``) fit through
 ``sparse.train_sparse`` and score through ``sparse.predict_csr``, never
@@ -18,9 +20,8 @@ fused scores are bitwise-equal to ``transform``'s. With the executor's
 ``sparse_fn`` gathers the forest's used columns with K3
 (``gather_kernel.csr_gather``) and traverses a forest remapped onto them.
 
-The Ranker, LightGBM text-model interchange (``modelString``,
-``save_native_model``) and the options ``train`` does not take yet wait for
-later slices and raise ``NotImplementedError``.
+LightGBM text-model interchange (``modelString``, ``save_native_model``)
+waits for a later slice and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from ..core.dataframe import DataFrame
 from ..core.params import (
     ComplexParam,
     HasFeaturesCol,
+    HasGroupCol,
     HasInitScoreCol,
     HasLabelCol,
     HasValidationIndicatorCol,
@@ -71,12 +73,14 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
     baggingSeed = Param("baggingSeed", "Bagging seed", 3, ptype=int)
     featureFraction = Param("featureFraction", "Feature subsample per tree", 1.0,
                             ptype=float)
-    boostingType = Param("boostingType", "gbdt (rf|dart|goss: not ported yet)",
-                         "gbdt",
+    boostingType = Param("boostingType", "gbdt|rf|dart|goss", "gbdt",
                          lambda v: v in ("gbdt", "rf", "dart", "goss"), str)
     earlyStoppingRound = Param("earlyStoppingRound",
                                "Stop if no valid improvement for N rounds (0 = off)",
                                0, ptype=int)
+    numBatches = Param("numBatches",
+                       "Split the data into batches, each continuing the "
+                       "model of the last", 0, ptype=int)
     categoricalSlotIndexes = Param("categoricalSlotIndexes",
                                    "Feature indexes treated as categorical", None,
                                    ptype=(list, tuple))
@@ -86,8 +90,12 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
     seed = Param("seed", "Master random seed", 0, ptype=int)
     objective = Param("objective", "Objective override", None, ptype=str)
     alpha = Param("alpha", "Quantile/huber parameter", 0.9, ptype=float)
+    dropRate = Param("dropRate", "DART tree drop rate", 0.1, ptype=float)
+    maxDrop = Param("maxDrop", "DART max dropped trees", 50, ptype=int)
+    topRate = Param("topRate", "GOSS top-gradient keep rate", 0.2, ptype=float)
+    otherRate = Param("otherRate", "GOSS random keep rate", 0.1, ptype=float)
     metric = Param("metric", "Eval metric override (auc, binary_logloss, l1, "
-                   "l2, rmse, ...; empty = objective default)", "",
+                   "l2, rmse, ndcg, ...; empty = objective default)", "",
                    ptype=str)
     isProvideTrainingMetric = Param(
         "isProvideTrainingMetric", "Log the training metric during fit",
@@ -125,6 +133,10 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             early_stopping_round=self.get("earlyStoppingRound"),
             num_class=num_class,
             alpha=self.get("alpha"),
+            drop_rate=self.get("dropRate"),
+            max_drop=self.get("maxDrop"),
+            top_rate=self.get("topRate"),
+            other_rate=self.get("otherRate"),
             categorical_feature=tuple(self.get("categoricalSlotIndexes") or ()),
             metric=self.get("metric") or "",
             max_delta_step=self.get("maxDeltaStep"),
@@ -157,29 +169,67 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
                     ("estimator",)).labels(estimator=est).inc()
         return booster
 
-    def _fit_booster(self, df: DataFrame, objective: str,
-                     num_class: int = 1) -> Booster:
+    def _fit_booster(self, df: DataFrame, objective: str, num_class: int = 1,
+                     groups: Optional[np.ndarray] = None) -> Booster:
         data = df.collect()
         fcol = data[self.get_or_throw("featuresCol")]
         first = next((v for v in fcol if v is not None), None)
         if is_sparse_row(first):
-            return self._fit_booster_sparse(data, objective, num_class)
+            return self._fit_booster_sparse(data, objective, num_class, groups)
         self._later_options()
         X = stack_rows(fcol, np.float64)
         y, w, init_scores = self._label_weight_init(data)
-        return train(self._train_params(objective, num_class), X, y,
-                     weights=w, init_scores=init_scores, log=self._make_log(),
-                     device=default_device())
+        X, y, w, init_scores, groups, valid, valid_groups = \
+            self._split_valid(data, X, y, w, init_scores, groups)
+        params = self._train_params(objective, num_class)
+        log = self._make_log()
+        dev = default_device()
+
+        def fit(sl, init):
+            return train(params, X[sl], y[sl], weights=_cut(w, sl),
+                         groups=_cut(groups, sl), valid=valid,
+                         valid_groups=valid_groups,
+                         init_scores=_cut(init_scores, sl), init_model=init,
+                         log=log, device=dev)
+
+        return self._fit_batches(len(y), fit)
+
+    def _fit_batches(self, n: int, fit) -> Booster:
+        """One fit over all ``n`` rows, or with ``numBatches`` > 1 one fit a
+        batch of rows, each continuing the model of the last (the
+        reference's incremental training)."""
+        n_batches = self.get("numBatches")
+        if not n_batches or n_batches <= 1:
+            return fit(slice(0, n), None)
+        booster = None
+        bounds = np.linspace(0, n, n_batches + 1).astype(int)
+        for b in range(n_batches):
+            booster = fit(slice(bounds[b], bounds[b + 1]), booster)
+        return booster
+
+    def _split_valid(self, data, X, y, w, init_scores, groups):
+        """Split off the rows ``validationIndicatorCol`` flags: returns the
+        training rows' (X, y, w, init_scores, groups), the holdout (X, y) or
+        None, and the holdout's groups. ``X`` may be a list of sparse rows."""
+        if not self.get("validationIndicatorCol"):
+            return X, y, w, init_scores, groups, None, None
+        vm = np.asarray(data[self.get("validationIndicatorCol")], dtype=bool)
+        keep = ~vm
+        if isinstance(X, list):
+            val_X = [v for v, m in zip(X, vm) if m]
+            X = [v for v, m in zip(X, vm) if not m]
+        else:
+            val_X, X = X[vm], X[keep]
+        valid = (val_X, y[vm])
+        valid_groups = groups[vm] if groups is not None else None
+        return (X, y[keep], _cut(w, keep), _cut(init_scores, keep),
+                _cut(groups, keep), valid, valid_groups)
 
     def _later_options(self) -> None:
         if self.get("modelString"):
             raise NotImplementedError(
                 "modelString (LightGBM text models) is not ported yet "
                 "(ROADMAP A3)")
-        if self.get("validationIndicatorCol"):
-            raise NotImplementedError(
-                "validation sets and early stopping are not ported yet "
-                "(ROADMAP A2)")
 
     def _label_weight_init(self, data):
         y = np.asarray(data[self.get_or_throw("labelCol")], dtype=np.float64)
@@ -192,12 +242,13 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
                                      dtype=np.float64)
         return y, w, init_scores
 
-    def _fit_booster_sparse(self, data, objective: str,
-                            num_class: int) -> Booster:
+    def _fit_booster_sparse(self, data, objective: str, num_class: int,
+                            groups: Optional[np.ndarray] = None) -> Booster:
         """CSR training for sparse-row features (TextFeaturizer / VW
         featurizer output): never densifies, so 2^18-wide hashed spaces
         train in O(nnz) memory (the reference's ``_fit_booster_sparse``;
-        bins capped at 255 per feature as there)."""
+        bins capped at 255 per feature as there), with validation rows and
+        ``numBatches`` as on the dense path."""
         y, w, init_scores = self._label_weight_init(data)
         if self.get("categoricalSlotIndexes"):
             raise ValueError(
@@ -207,10 +258,30 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
         self._later_options()
         params = self._train_params(objective, num_class)
         col = list(data[self.get_or_throw("featuresCol")])
-        ds = SparseDataset.from_rows(col, num_features=sparse_width(col),
-                                     max_bin=min(params.max_bin, 255))
-        return train_sparse(params, ds, y, weights=w, init_scores=init_scores,
-                            log=self._make_log(), device=default_device())
+        width = sparse_width(col)
+        col, y, w, init_scores, groups, valid, valid_groups = \
+            self._split_valid(data, col, y, w, init_scores, groups)
+        if valid is not None:
+            indptr, indices, values, _ = rows_to_csr(valid[0], width)
+            valid = ((indptr, indices, values), valid[1])
+        max_bin = min(params.max_bin, 255)
+        log = self._make_log()
+        dev = default_device()
+
+        def fit(sl, init):
+            ds = SparseDataset.from_rows(col[sl], num_features=width,
+                                         max_bin=max_bin)
+            return train_sparse(params, ds, y[sl], weights=_cut(w, sl),
+                                groups=_cut(groups, sl), valid=valid,
+                                valid_groups=valid_groups,
+                                init_scores=_cut(init_scores, sl),
+                                init_model=init, log=log, device=dev)
+
+        return self._fit_batches(len(y), fit)
+
+
+def _cut(a: Optional[np.ndarray], sel) -> Optional[np.ndarray]:
+    return a[sel] if a is not None else None
 
 
 class _LightGBMModelBase(Model, HasFeaturesCol):
@@ -521,6 +592,51 @@ class LightGBMRegressionModel(_LightGBMModelBase):
             raw = np.asarray(outs[raw_key], dtype=np.float64) \
                 + self.booster.base_score[None, :]
             return {self.get("predictionCol"): self._prediction_column(raw)}
+
+        return self._score_device_fn(finalize, (self.get("predictionCol"),))
+
+    def transform_schema(self, schema: Schema) -> Schema:
+        out = schema.copy()
+        out.types[self.get("predictionCol")] = ColType.FLOAT64
+        return out
+
+
+class LightGBMRanker(Estimator, _LightGBMParams, HasGroupCol):
+    """LambdaRank GBDT over query groups (the reference's LightGBMRanker):
+    ``groupCol`` holds each row's query id, and the rows of a query must be
+    contiguous."""
+
+    predictionCol = Param("predictionCol", "Prediction column", "prediction", ptype=str)
+
+    def fit(self, df: DataFrame) -> "LightGBMRankerModel":
+        raw_groups = df.column(self.get_or_throw("groupCol"))
+        _, groups = np.unique(np.asarray([str(g) for g in raw_groups]),
+                              return_inverse=True)
+        booster = self._timed_fit(lambda: self._fit_booster(
+            df, "lambdarank", groups=groups.astype(np.int64)))
+        return LightGBMRankerModel(
+            booster=booster,
+            featuresCol=self.get("featuresCol"),
+            predictionCol=self.get("predictionCol"),
+        )
+
+
+class LightGBMRankerModel(_LightGBMModelBase):
+    predictionCol = Param("predictionCol", "Prediction column", "prediction", ptype=str)
+
+    def transform(self, df: DataFrame) -> DataFrame:
+        def score(part):
+            part[self.get("predictionCol")] = self._raw_scores(part)[:, 0]
+            return part
+
+        return df.map_partitions(score)
+
+    def device_fn(self, schema: Schema):
+        def finalize(outs, ctx):
+            raw_key = next(iter(outs))
+            raw = np.asarray(outs[raw_key], dtype=np.float64) \
+                + self.booster.base_score[None, :]
+            return {self.get("predictionCol"): raw[:, 0]}
 
         return self._score_device_fn(finalize, (self.get("predictionCol"),))
 

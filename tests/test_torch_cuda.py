@@ -397,3 +397,56 @@ def test_ring_readback_stream_keeps_order_and_bits(cuda_device):
             np.testing.assert_array_equal(a, b)
             np.testing.assert_array_equal(a, c)
     assert stats["n_batches"] == 6 and stats["readback_s"] > 0
+
+
+@pytest.mark.cuda
+def test_goss_fit_launches_k2_and_grows_the_cpu_first_tree(cuda_device):
+    """GOSS at 524,288 rows: the grower compacts the small child through K2
+    (>= select_kernel.MIN_ROWS rows), and the first tree, grown from the
+    base score's tied gradients, equals a CPU refit's."""
+    from mmlspark_tpu_torch.gbdt import booster
+
+    rng = np.random.default_rng(7)
+    n = 524_288
+    X = rng.standard_normal((n, 8))
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + rng.logistic(size=n) > 0)
+    params = booster.TrainParams(objective="binary", boosting_type="goss",
+                                 num_iterations=2, num_leaves=31)
+    select_kernel.launches = 0
+    hist_kernel.launches = 0
+    card = booster.train(params, X, y.astype(np.float64), device="cuda")
+    assert select_kernel.launches > 0 and hist_kernel.launches > 0
+    cpu = booster.train(params, X, y.astype(np.float64), device="cpu")
+    a, b = card.trees[0][0], cpu.trees[0][0]
+    for fld in ("feature", "threshold_bin", "left", "right", "default_left",
+                "count"):
+        np.testing.assert_array_equal(getattr(a, fld), getattr(b, fld))
+    np.testing.assert_allclose(a.value, b.value, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [[2] * 50 + [1] * 7, [3, 17, 100, 120, 1],
+                                   [1251, 700, 64, 200, 5]])
+def test_lambdarank_gradient_card_matches_cpu(cuda_device, sizes):
+    """LambdaRank's g and h on the card against the CPU on the same f32
+    scores, at buckets of 2 to 2,048 (the 2,048 bucket in chunks of 4
+    groups): the pairwise sums reduce in another order on each device, so
+    within rtol 1e-5 and atol 1e-6."""
+    from mmlspark_tpu_torch.gbdt import booster
+
+    rng = np.random.default_rng(len(sizes))
+    groups = np.repeat(np.arange(len(sizes)), sizes)
+    n = len(groups)
+    labels = np.minimum(rng.geometric(0.55, n) - 1, 4).astype(np.float32)
+    for scores in (np.zeros(n, np.float32),
+                   rng.standard_normal(n).astype(np.float32)):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            seg = booster.segment_groups(groups, dev)
+            g, h = booster.grad_hess(
+                "lambdarank", torch.from_numpy(scores).to(dev),
+                torch.from_numpy(labels).to(dev), group_segments=seg)
+            out[dev] = (g.cpu().numpy(), h.cpu().numpy())
+        for k in range(2):
+            np.testing.assert_allclose(out["cuda"][k], out["cpu"][k],
+                                       rtol=1e-5, atol=1e-6)

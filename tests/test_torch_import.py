@@ -120,13 +120,25 @@ def test_entry_points_raise_without_cuda(no_cuda):
     assert len(out.column("prediction")) == 200
 
 
-def test_later_slices_raise_not_implemented():
-    from mmlspark_tpu_torch.gbdt import TrainParams, train
+@pytest.mark.parametrize("option", ["categorical", "checkpoint", "mesh",
+                                    "modelString"])
+def test_later_slices_raise_not_implemented(option):
+    """What a later slice still owns: categorical set splits, checkpointed
+    training, a mesh and LightGBM text models (``modelString``)."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.gbdt import LightGBMClassifier, TrainParams, train
+    from mmlspark_tpu_torch.runtime import use_device
 
     X = np.zeros((64, 2))
     y = np.zeros(64)
-    for kw in ({"boosting_type": "dart"}, {"boosting_type": "goss"},
-               {"boosting_type": "rf"}, {"objective": "lambdarank"},
-               {"categorical_feature": (0,)}):
-        with pytest.raises(NotImplementedError):
-            train(TrainParams(**kw), X, y, device="cpu")
+    if option == "modelString":
+        df = DataFrame.from_dict({"features": [r for r in X], "label": y})
+        with use_device("cpu"), pytest.raises(NotImplementedError,
+                                              match="ROADMAP A3"):
+            LightGBMClassifier(modelString="tree").fit(df)
+        return
+    kw = {"categorical": ({"categorical_feature": (0,)}, {}),
+          "checkpoint": ({}, {"checkpoint": object()}),
+          "mesh": ({}, {"mesh": object()})}[option]
+    with pytest.raises(NotImplementedError):
+        train(TrainParams(**kw[0]), X, y, device="cpu", **kw[1])
