@@ -46,6 +46,29 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    the CPU's (``LAMBDARANK_RTOL``/``ATOL``) and the first tree against a CPU
    refit on the first whole queries of 131,072 rows, the transform against
    the host traversal, the fused transform bit for bit;
+3d. categorical_main: ``LightGBMClassifier`` with six categorical
+   slots (``categoricalSlotIndexes``; catSmooth 10, catL2 10,
+   maxCatThreshold 32) on seeded rows shaped like the airline on-time
+   benchmark of szilard/benchm-ml (``dep_delayed_15min``: Month,
+   DayofMonth, DayOfWeek, UniqueCarrier, Origin and Dest of 12, 31, 7, 22,
+   300 and 300 values, DepTime and Distance; 2,097,152 rows cut from its
+   10M; about 19% positive), 20 iterations, 31 leaves, maxBin 255: fit
+   seconds, K1 and K2 launches and K1's device time, peak device memory,
+   and the holdout AUC (262,144 more rows) against the same fit without
+   categorical slots. Gates: (a) K1 and K2 on the fit's first-tree inputs
+   (``hist_on_path``); (b) a set split of >= 2 categories in the first
+   tree; (c) the first 3 trees equal a CPU refit on 262,144 rows
+   (features, bins, bin words, category sets; leaf values rtol 1e-5); (d)
+   the card's ``DeviceEnsemble`` within rtol 1e-5, atol 1e-5 of the host
+   traversal on 65,536 rows; (e) the fused transform bit for bit; (f)
+   ``save_native_model`` -> ``load_native_model_from_file`` of this model
+   and the dense main model within 1e-9 on the host and 1e-5 on the card
+   (bitwise logged), LightGBM text re-exported byte-identical; (g) stage
+   ``save`` -> ``load`` -> transform bit for bit; (h) a ``modelString``
+   continuation (10 + 10 iterations, LightGBM text) with the CPU's first
+   continued tree; (i) a checkpointed fit (bagging 0.8, 9 iterations, every
+   3) preempted at its 6th iteration and resumed gives the uninterrupted
+   fit's ``to_string()``;
 4. sparse data: the reference benchmark's text-shaped CSR (1,000,000 rows x
    2^18 hashed features, ~50 token counts per row, seeded), with the host
    costs of the sparse path timed apart: ``rows_to_csr`` over the rows,
@@ -136,7 +159,7 @@ lists K1-K5 (hist, select, csr_gather, sparse_hist, flash_attn), each with
 its launches on its main path, error against its plain version, ms,
 plain_ms, bound_ms, bound_by and library_ms, and its launches on the new
 paths (``launches_on_new_paths``: dense_variants, ranker_main,
-sparse_variants).
+categorical_main, sparse_variants).
 """
 
 from __future__ import annotations
@@ -2106,6 +2129,320 @@ def ranker_main(torch, smi) -> dict:
     return launches
 
 
+# the airline on-time benchmark's shape (szilard/benchm-ml: ASA Data Expo
+# 2009 flights, dep_delayed_15min, run through LightGBM with its categorical
+# features): six categorical columns with their cardinalities, DepTime
+# (hhmm) and Distance (miles); Origin and Dest have more categories than
+# maxBin=255 holds, so the binning keeps 254 of them (the lowest ids, here
+# the most frequent) and bins the rest as missing
+N_CAT = 2_097_152
+N_CAT_HOLDOUT = 262_144
+CAT_COLUMNS = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
+               ("UniqueCarrier", 22), ("Origin", 300), ("Dest", 300))
+CAT_NUMERIC = ("DepTime", "Distance")
+CAT_ITERS_CONTINUED = 10
+CAT_CKPT_ITERS, CAT_CKPT_EVERY, CAT_CKPT_FAULT_AT = 9, 3, 6
+
+
+def airline_like(n: int, seed: int):
+    """Seeded rows shaped like the airline benchmark: categories as
+    non-negative integer ids (Origin and Dest Zipf-skewed, as airports
+    are), DepTime an hhmm integer, Distance integer miles. The label (about
+    19% positive) has a seeded logit offset per category value, so it is
+    not monotone in the ids and a set split is needed. Returns (X [n, 8]
+    f64, y)."""
+    rng = np.random.default_rng(seed)
+    offsets = np.random.default_rng(seed ^ 0x5EED)
+    X = np.empty((n, len(CAT_COLUMNS) + 2), dtype=np.float64)
+    logit = np.full(n, -1.9)
+    for j, (_, k) in enumerate(CAT_COLUMNS):
+        if k >= 300:
+            p = 1.0 / np.arange(1, k + 1) ** 0.9
+            ids = rng.choice(k, size=n, p=p / p.sum())
+        else:
+            ids = rng.integers(0, k, n)
+        X[:, j] = ids
+        logit += offsets.normal(0.0, 0.45 if k < 300 else 0.6, k)[ids]
+    minutes = np.clip(rng.normal(800, 280, n), 300, 1439).astype(np.int64)
+    X[:, 6] = minutes // 60 * 100 + minutes % 60
+    X[:, 7] = np.round(rng.lognormal(6.4, 0.6, n)).clip(30, 4983)
+    logit += 0.0012 * (minutes - 800) + 0.0001 * (X[:, 7] - 700)
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-logit))).astype(np.float64)
+    return X, y
+
+
+def cat_trees_differ(a, b):
+    """The first field where two trees part: structure, bins, set words
+    and category sets equal, leaf values within rtol 1e-5
+    (``refit_compare``'s rule), or None."""
+    d = first_diff(a, b)
+    if d is not None:
+        return d
+    if (a.cat_bin_words is None) != (b.cat_bin_words is None) or (
+            a.cat_bin_words is not None
+            and not np.array_equal(a.cat_bin_words, b.cat_bin_words)):
+        return {"field": "cat_bin_words"}
+    for i, (s, t) in enumerate(zip(a.cat_sets or [], b.cat_sets or [])):
+        if (s is None) != (t is None) or (s is not None
+                                          and not np.array_equal(s, t)):
+            return {"field": "cat_sets", "node": i}
+    if not np.allclose(a.value, b.value, rtol=1e-5, atol=0):
+        return {"field": "value", "max_abs_diff": float(
+            np.abs(a.value - b.value).max())}
+    return None
+
+
+def categorical_main(torch, dense_model, X_dense, smi) -> dict:
+    """``LightGBMClassifier`` with six categorical slots on airline-shaped
+    rows (N_CAT x 8, 20 iterations, 31 leaves, maxBin 255, catSmooth 10,
+    catL2 10, maxCatThreshold 32), then the slice's own gates: (a) K1 and
+    K2 on the fit's first-tree inputs; (b) a set split of >= 2 categories
+    in the first tree; (c) the first 3 trees against a CPU refit on
+    N_CUT rows; (d) the card's ``DeviceEnsemble`` against the host
+    traversal; (e) the fused transform bit for bit; (f) LightGBM text out
+    and back for this model and the dense main model, re-export stable;
+    (g) stage save, load and transform bit for bit; (h) a ``modelString``
+    continuation's first tree against the CPU's; (i) a checkpointed fit
+    preempted and resumed against an uninterrupted one. Logs fit seconds,
+    launches, K1's device time, holdout AUC against the same fit without
+    categorical slots, transform seconds and peak memory. Returns K1's and
+    K2's launches in the main fit."""
+    import os
+    import tempfile
+
+    from mmlspark_tpu_torch.core import faults
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel, PipelineStage
+    from mmlspark_tpu_torch.gbdt import (DeviceEnsemble, LightGBMClassificationModel,
+                                         LightGBMClassifier, booster as bst,
+                                         predict_ensemble)
+    from mmlspark_tpu_torch.gbdt import hist_kernel as hk
+    from mmlspark_tpu_torch.gbdt import lgbm_format
+    from mmlspark_tpu_torch.gbdt import select_kernel as sk
+    from mmlspark_tpu_torch.gbdt.checkpoint import CheckpointConfig, load_checkpoint
+    from mmlspark_tpu_torch.runtime import use_device
+
+    t0 = time.perf_counter()
+    X_all, y_all = airline_like(N_CAT + N_CAT_HOLDOUT, SEED + 9)
+    X, y = X_all[:N_CAT], y_all[:N_CAT]
+    Xh, yh = X_all[N_CAT:], y_all[N_CAT:]
+    df = DataFrame.from_dict({"features": X, "label": y})
+    cat_slots = list(range(len(CAT_COLUMNS)))
+    base = dict(numLeaves=31, maxBin=255, catSmooth=10.0, catL2=10.0,
+                maxCatThreshold=32)
+    log({"phase": "categorical_main", "card": smi, "rows": N_CAT,
+         "features": [c for c, _ in CAT_COLUMNS] + list(CAT_NUMERIC),
+         "cardinalities": [k for _, k in CAT_COLUMNS],
+         "positives": float(y.mean()), "data_seconds": time.perf_counter() - t0})
+
+    hk.launches = sk.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with Timed(torch, hk, "histogram_cuda") as k1, PathInputs() as inputs:
+        model = LightGBMClassifier(numIterations=20, categoricalSlotIndexes=cat_slots,
+                                   **base).fit(df)
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {"hist": hk.launches, "select": sk.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    booster = model.booster
+    t0 = time.perf_counter()
+    plain = LightGBMClassifier(numIterations=20, **base).fit(df)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    auc_cat = auc(booster.raw_predict(Xh), yh)
+    auc_plain = auc(plain.booster.raw_predict(Xh), yh)
+    t0_tree = booster.trees[0][0]
+    set_sizes = [len(s) for s in (t0_tree.cat_sets or []) if s is not None]
+    log({"phase": "categorical_main", "fit_seconds": fit_s,
+         "fit_rows_per_s": N_CAT / fit_s, "launches": launches,
+         "k1_device_ms_in_fit": k1.device_ms(), "k1_calls_in_fit": k1.calls,
+         "peak_device_gb": peak_gb, "holdout_rows": N_CAT_HOLDOUT,
+         "holdout_auc": auc_cat, "holdout_auc_without_categorical_slots": auc_plain,
+         "fit_seconds_without_categorical_slots": plain_s,
+         "first_tree_set_sizes": set_sizes,
+         "set_nodes": sum(t.cat_sets is not None and sum(
+             s is not None for s in t.cat_sets) for g in booster.trees for t in g)})
+    if launches["hist"] < 1 or launches["select"] < 1:
+        fail(f"a kernel of the categorical path never launched: {launches}")
+    # (a) K1 and K2 on this fit's own first-tree inputs
+    hist_on_path(torch, inputs, "categorical_main")
+    del inputs
+    # (b) a set split with >= 2 categories on the left in the first tree
+    if not set_sizes or max(set_sizes) < 2:
+        fail(f"the first categorical tree has no set split of >= 2 "
+             f"categories: {set_sizes}")
+
+    # (c) the card's first 3 trees against a CPU refit on a cut
+    cut = DataFrame.from_dict({"features": X[:N_CUT], "label": y[:N_CUT]})
+    fits = {}
+    for dev in (DEVICE, "cpu"):
+        with use_device(dev):
+            t0 = time.perf_counter()
+            fits[dev] = (LightGBMClassifier(numIterations=ITERS_REFIT,
+                                            categoricalSlotIndexes=cat_slots,
+                                            **base).fit(cut).booster,
+                         time.perf_counter() - t0)
+    diffs = [cat_trees_differ(fits[DEVICE][0].trees[i][0], fits["cpu"][0].trees[i][0])
+             for i in range(ITERS_REFIT)]
+    log({"phase": "categorical_main", "refit_rows": N_CUT,
+         "cuda_fit_seconds": fits[DEVICE][1], "cpu_fit_seconds": fits["cpu"][1],
+         "first_diff_per_tree": diffs})
+    if any(d is not None for d in diffs):
+        fail(f"categorical: the card's first {ITERS_REFIT} trees part from "
+             f"the CPU's: {diffs}")
+
+    # (d) the card's traversal against the host f64 one; (e) fused = unfused
+    Xs = X[:N_SCORE]
+    ens = DeviceEnsemble(booster.trees, 1, device=DEVICE)
+    dev_raw = ens.predict_raw(Xs.astype(np.float32))[:, 0]
+    host_raw = predict_ensemble(booster.trees, Xs, 1)[:, 0]
+    d_err = np.abs(dev_raw - host_raw)
+    small = DataFrame.from_dict({"features": Xs})
+    cols = ("rawPrediction", "probability", "prediction")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    unfused = model.transform(small)
+    unfused_s = time.perf_counter() - t0
+    fused = PipelineModel([model]).fuse()
+    fused.transform(small)                       # plans and warms the program
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fused.transform(small)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    st = fused.fusion_stats()
+    same = {c: bool(np.array_equal(np.stack(list(unfused.column(c))),
+                                   np.stack(list(out.column(c))))) for c in cols}
+    log({"phase": "categorical_main", "transform_rows": N_SCORE,
+         "gather_cat_table": list(ens.cat_vals.shape),
+         "host_fallback": ens.cat_host_fallback,
+         "device_vs_host_max_abs_err": float(d_err.max()),
+         "unfused_seconds": unfused_s, "fused_seconds": fused_s,
+         "fused_bitwise": same, "fallbacks": st["fallbacks"]})
+    if ens.cat_host_fallback or not bool(
+            (d_err <= 1e-5 + 1e-5 * np.abs(host_raw)).all()):
+        fail(f"categorical: the card's traversal differs from the host's by "
+             f"{float(d_err.max())} (host fallback {ens.cat_host_fallback})")
+    if st["fallbacks"] or not all(same.values()):
+        fail(f"categorical: fused scores are not the unfused ones: {same}, "
+             f"fallbacks {st['fallbacks']}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cat_")
+    # (f) LightGBM text out and back, for both models
+    text_info = {}
+    for name, m, Xq in (("categorical", model, Xs), ("dense_main", dense_model,
+                                                     X_dense)):
+        path = os.path.join(tmp, f"{name}.txt")
+        m.save_native_model(path)
+        loaded = LightGBMClassificationModel.load_native_model_from_file(
+            path, featuresCol="features")
+        want = m.booster.raw_predict(Xq)
+        got = loaded.booster.raw_predict(Xq)
+        q = DataFrame.from_dict({"features": Xq})
+        card_want = np.stack(list(m.transform(q).column("rawPrediction")))[:, 1]
+        card_got = np.stack(list(loaded.transform(q).column("rawPrediction")))[:, 1]
+        t2 = lgbm_format.to_lightgbm_string(loaded.booster)
+        t3 = lgbm_format.to_lightgbm_string(lgbm_format.from_lightgbm_string(t2))
+        with open(path) as f:
+            t1 = f.read()
+        text_info[name] = {
+            "bytes": len(t1), "max_abs_err_host": float(np.abs(got - want).max()),
+            "host_bitwise": bool(np.array_equal(got, want)),
+            "card_max_abs_err": float(np.abs(card_got - card_want).max()),
+            "card_bitwise": bool(np.array_equal(card_got, card_want)),
+            "reexport_identical": t3 == t2,
+            "export_deterministic": lgbm_format.to_lightgbm_string(m.booster) == t1}
+        if not np.allclose(got, want, rtol=1e-9, atol=1e-9):
+            fail(f"{name}: the LightGBM text model scores "
+                 f"{text_info[name]['max_abs_err_host']} off the model")
+        if not np.allclose(card_got, card_want, rtol=1e-5, atol=1e-5):
+            fail(f"{name}: the loaded text model's card scores are "
+                 f"{text_info[name]['card_max_abs_err']} off")
+        if t3 != t2 or not text_info[name]["export_deterministic"]:
+            fail(f"{name}: re-exported LightGBM text is not byte-identical")
+    # (g) stage save -> load -> transform on the card, bit for bit
+    model.save(os.path.join(tmp, "stage"))
+    again = PipelineStage.load(os.path.join(tmp, "stage")).transform(small)
+    saved_same = {c: bool(np.array_equal(np.stack(list(unfused.column(c))),
+                                         np.stack(list(again.column(c)))))
+                  for c in cols}
+    log({"phase": "categorical_main", "text_models": text_info,
+         "stage_save_load_bitwise": saved_same})
+    if not all(saved_same.values()):
+        fail(f"categorical: a saved and loaded stage scores otherwise: "
+             f"{saved_same}")
+
+    # (h) a modelString continuation, card against CPU, on the cut
+    with use_device(DEVICE):
+        first = LightGBMClassifier(numIterations=CAT_ITERS_CONTINUED,
+                                   categoricalSlotIndexes=cat_slots,
+                                   **base).fit(cut)
+    text = lgbm_format.to_lightgbm_string(first.booster)
+    cont = {}
+    for dev in (DEVICE, "cpu"):
+        with use_device(dev):
+            t0 = time.perf_counter()
+            cont[dev] = (LightGBMClassifier(
+                numIterations=CAT_ITERS_CONTINUED, modelString=text,
+                categoricalSlotIndexes=cat_slots, **base).fit(cut).booster,
+                time.perf_counter() - t0)
+    k = CAT_ITERS_CONTINUED
+    cdiff = cat_trees_differ(cont[DEVICE][0].trees[k][0], cont["cpu"][0].trees[k][0])
+    log({"phase": "categorical_main", "continued_trees": len(cont[DEVICE][0].trees),
+         "continued_cuda_seconds": cont[DEVICE][1],
+         "continued_cpu_seconds": cont["cpu"][1],
+         "first_continued_tree_diff": cdiff})
+    if len(cont[DEVICE][0].trees) != 2 * k or cdiff is not None:
+        fail(f"categorical: the modelString continuation parts from the "
+             f"CPU's: {cdiff}")
+
+    # (i) a checkpointed fit preempted and resumed, against an uninterrupted one
+    params = bst.TrainParams(
+        objective="binary", num_iterations=CAT_CKPT_ITERS, num_leaves=31,
+        max_bin=255, bagging_fraction=0.8, bagging_freq=1, seed=7,
+        categorical_feature=tuple(cat_slots))
+    Xc, yc = X[:N_CUT], y[:N_CUT]
+    t0 = time.perf_counter()
+    full = bst.train(params, Xc, yc, device=DEVICE, checkpoint=CheckpointConfig(
+        os.path.join(tmp, "full.ckpt"), every_k=CAT_CKPT_EVERY))
+    full_s = time.perf_counter() - t0
+    calls = [0]
+
+    def preempt(point, **ctx):
+        if point == faults.TRAIN_STEP:
+            calls[0] += 1
+            if calls[0] == CAT_CKPT_FAULT_AT:
+                raise faults.InjectedFault("preempted")
+
+    ckpt = os.path.join(tmp, "interrupted.ckpt")
+    prev = faults.install(preempt)
+    try:
+        bst.train(params, Xc, yc, device=DEVICE, checkpoint=CheckpointConfig(
+            ckpt, every_k=CAT_CKPT_EVERY))
+        fail("the injected preemption did not stop the fit")
+    except faults.InjectedFault:
+        pass
+    finally:
+        faults.install(prev)
+    at = load_checkpoint(ckpt)["iteration"]
+    t0 = time.perf_counter()
+    resumed = bst.train(params, Xc, yc, device=DEVICE, checkpoint=CheckpointConfig(
+        ckpt, every_k=CAT_CKPT_EVERY))
+    resume_s = time.perf_counter() - t0
+    identical = resumed.to_string() == full.to_string()
+    log({"phase": "categorical_main", "checkpoint_rows": N_CUT,
+         "checkpoint_iterations": CAT_CKPT_ITERS, "checkpoint_every": CAT_CKPT_EVERY,
+         "preempted_at_call": CAT_CKPT_FAULT_AT, "resumed_from": at,
+         "uninterrupted_seconds": full_s, "resume_seconds": resume_s,
+         "resumed_identical": identical})
+    if at != 3 or not identical:
+        fail(f"categorical: the resumed fit (from iteration {at}) is not the "
+             f"uninterrupted one")
+    return launches
+
+
 SPARSE_VARIANTS = {
     "goss": dict(boosting_type="goss", top_rate=0.2, other_rate=0.1),
     "dart": dict(boosting_type="dart", drop_rate=0.1, max_drop=50),
@@ -2267,6 +2604,7 @@ def main() -> int:
     paths["dense_variants"] = dense_variants(torch, X, y, smi)
     del X, y
     paths["ranker_main"] = ranker_main(torch, smi)
+    paths["categorical_main"] = categorical_main(torch, dense_model, X_score, smi)
     data = sparse_data()
     kernels["sparse_hist"] = sparse_kernel_phase(torch, data)
     launches["sparse_hist"], sparse_model = sparse_main_path(torch, data)

@@ -1,14 +1,15 @@
 """Pipeline stage contract: Transformer / Estimator / Model / Pipeline.
 
-Copy of the reference's ``mmlspark_tpu/core/pipeline.py`` minus stage
-persistence (``core/serialize.py``), which the port has not taken over yet.
-``PipelineModel.fuse()`` returns the fused runner of ``core/fusion.py``, and
-``PipelineStage.device_fn`` is the hook a stage joins it through.
+Copy of the reference's ``mmlspark_tpu/core/pipeline.py``.
+``PipelineModel.fuse()`` returns the fused runner of ``core/fusion.py``,
+``PipelineStage.device_fn`` is the hook a stage joins it through, and
+``PipelineStage.save``/``load`` persist a stage (``core/serialize.py``).
 
 Re-design of SparkML's stage algebra that the whole reference is expressed in
 (SURVEY §1: "Everything is expressed as SparkML Transformer/Estimator stages operating
 on DataFrames"). Stages carry typed params (core/params.py), operate column-to-column
-on the partitioned columnar DataFrame (core/dataframe.py).
+on the partitioned columnar DataFrame (core/dataframe.py), and persist via
+core/serialize.py (ComplexParamsWritable parity).
 
 Class registry: every concrete stage subclass auto-registers by qualified name so
 save/load can reconstruct stages from metadata (reference: Spark's
@@ -73,6 +74,16 @@ class PipelineStage(Params):
         Implementations must keep the bitwise contract: fused output ==
         unfused output on every partition the DeviceFn accepts."""
         return None
+
+    # persistence (implemented in serialize.py to avoid circular imports)
+    def save(self, path: str, overwrite: bool = True) -> None:
+        from .serialize import save_stage
+        save_stage(self, path, overwrite=overwrite)
+
+    @staticmethod
+    def load(path: str) -> "PipelineStage":
+        from .serialize import load_stage
+        return load_stage(path)
 
 
 class Transformer(PipelineStage):

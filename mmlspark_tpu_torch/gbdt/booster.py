@@ -5,9 +5,11 @@ per-iteration host loop: ``TrainParams``, ``grad_hess`` (every objective,
 LambdaRank included), ``init_score``, ``eval_metric`` (NDCG included),
 ``Booster`` with ``to_string``/``from_string`` in the reference's JSON model
 format, and ``train()`` for every boosting type (``gbdt``, ``rf``, ``dart``,
-``goss``), bagging and feature fraction, ranking groups, a validation set
-with early stopping and continued training from an in-memory
-``init_model``.
+``goss``), bagging and feature fraction, ranking groups, categorical set
+splits (``categorical_feature``), a validation set with early stopping,
+continued training from an ``init_model`` and checkpointed training that
+resumes after a crash (``checkpoint=CheckpointConfig(...)``,
+``checkpoint.py``).
 
 Three places are mirrored exactly, because tree parity depends on them:
 
@@ -28,9 +30,8 @@ power-of-two size, each bucket's ``[m, G, G]`` pairwise tensors taken in
 chunks of at most ``_LAMBDARANK_PAIR_BUDGET`` elements; its sums reduce in
 torch's order, so g and h agree with the reference's within ulps.
 
-Not ported yet: categorical set splits (ROADMAP A2), checkpointed training
-(A2), a mesh (A9), and the whole-run scan and native engines (A2): asking
-for them raises ``NotImplementedError``.
+Not ported yet: a mesh (ROADMAP A9), and the whole-run scan and native
+engines (A2): asking for a mesh raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ import torch
 from ..core import faults as _faults
 from ..runtime import DeviceLike, resolve_device
 from .binning import BinMapper
+from .checkpoint import check_params_match, load_checkpoint, save_checkpoint
 from .tree import GrowerConfig, Tree, grow_tree
 
 MODEL_FORMAT = "mmlspark_tpu.gbdt.v1"
@@ -465,6 +467,33 @@ class Booster:
                 [self.trees[i] for i in range(n_iter)], X, k)
         return scores[:, 0] if k == 1 else scores
 
+    def predict_proba(self, X: np.ndarray,
+                      num_iteration: int = -1) -> np.ndarray:
+        raw = self.raw_predict(X, num_iteration)
+        if self.params.objective == "binary":
+            p = 1 / (1 + np.exp(-raw))
+            return np.stack([1 - p, p], axis=1)
+        if self.params.objective == "multiclass":
+            e = np.exp(raw - raw.max(axis=1, keepdims=True))
+            return e / e.sum(axis=1, keepdims=True)
+        return raw
+
+    def feature_importances(self, importance_type: str = "split"
+                            ) -> np.ndarray:
+        """Per feature: the number of splits on it, or with ``"gain"`` their
+        summed gains."""
+        num_f = self.bin_mapper.num_features if self.bin_mapper else 0
+        imp = np.zeros(num_f, dtype=np.float64)
+        for group in self.trees:
+            for tree in group:
+                internal = tree.feature >= 0
+                if importance_type == "gain":
+                    np.add.at(imp, tree.feature[internal],
+                              tree.gain[internal])
+                else:
+                    np.add.at(imp, tree.feature[internal], 1.0)
+        return imp
+
     def to_string(self) -> str:
         return json.dumps({
             "format": MODEL_FORMAT,
@@ -500,17 +529,11 @@ class Booster:
 # ---------------------------------------------------------------------------
 
 
-def _unsupported(params: TrainParams, checkpoint, mesh) -> None:
+def _unsupported(mesh) -> None:
     """Raise for every option a later slice of the port owns."""
-    later = None
-    if params.categorical_feature:
-        later = "categorical set splits (ROADMAP A2)"
-    elif checkpoint is not None:
-        later = "checkpointed training (ROADMAP A2)"
-    elif mesh is not None:
-        later = "sharded multi-device training (ROADMAP A9)"
-    if later:
-        raise NotImplementedError(f"{later} is not ported yet")
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded multi-device training (ROADMAP A9) is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -660,8 +683,12 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
     (``valid_groups`` its query ids); with ``early_stopping_round`` > 0 the
     fit stops after that many iterations without improvement and
     ``best_iteration`` marks the best. ``init_model``: a Booster whose bin
-    mapper, base score and trees the fit continues from."""
-    _unsupported(params, checkpoint, mesh)
+    mapper, base score and trees the fit continues from. ``checkpoint``: a
+    ``checkpoint.CheckpointConfig``; the fit saves its model and loop state
+    atomically every ``every_k`` iterations and at the end, and resumes from
+    the saved file when there is one, repeating the iterations an
+    uninterrupted fit would run."""
+    _unsupported(mesh)
     dev = resolve_device(device)
     is_rf = params.boosting_type == "rf"
     is_dart = params.boosting_type == "dart"
@@ -733,9 +760,6 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
 
     metric = params.metric or default_metric(objective)
     stopper = EarlyStopping(metric, params.early_stopping_round)
-    holdout = _Holdout(valid, k) if valid is not None else None
-    if holdout is not None:
-        holdout.extend(booster.trees)
 
     config = GrowerConfig(
         num_leaves=params.num_leaves, max_depth=params.max_depth,
@@ -744,19 +768,63 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
         min_gain_to_split=params.min_gain_to_split,
         lambda_l1=params.lambda_l1, lambda_l2=params.lambda_l2,
         max_delta_step=params.max_delta_step)
+    # categorical SET splits on the flagged features
+    cat_args = None
+    if params.categorical_feature:
+        cat_mask = np.zeros(num_f, dtype=bool)
+        cat_mask[list(params.categorical_feature)] = True
+        cat_args = (torch.as_tensor(cat_mask, device=dev), params.cat_smooth,
+                    params.cat_l2, params.max_cat_threshold)
     lr = 1.0 if is_rf else params.learning_rate
     bag_mask = np.ones(n, dtype=bool)  # persists across iters (bagging_freq)
     max_nodes = 2 * params.num_leaves - 1
     y_real = np.asarray(y[:n_real], dtype=np.float64)
     groups_real = groups[:n_real] if groups is not None else None
 
+    # ----- checkpoint resume: the model and the loop state (scores, the
+    # random stream, the bagging mask, early stopping), so iterations
+    # start_it.. repeat those of an uninterrupted fit
+    start_it, kahan = 0, None
+    if checkpoint is not None and checkpoint.resume:
+        ck = load_checkpoint(checkpoint.path)
+        if ck is not None:
+            check_params_match(ck["params"], dataclasses.asdict(params),
+                               checkpoint.path)
+            restored = Booster.from_string(ck["model"])
+            booster.trees = restored.trees
+            booster.base_score = restored.base_score
+            if ck["scores"].shape != (n, k):
+                raise ValueError(
+                    f"checkpoint {checkpoint.path!r} scores shape "
+                    f"{ck['scores'].shape} does not match this dataset "
+                    f"({(n, k)}); resume requires the same data")
+            scores = ck["scores"]
+            kahan = ck.get("kahan")
+            rng.bit_generator.state = ck["rng_state"]
+            bag_mask = ck["bag_mask"].astype(bool)
+            stopper.best_val = ck["best_val"]
+            stopper.best_iter = ck["best_iter"]
+            stopper.no_improve = ck["rounds_no_improve"]
+            start_it = int(ck["iteration"])
+
+    holdout = _Holdout(valid, k) if valid is not None else None
+    if holdout is not None:
+        holdout.extend(booster.trees)
+
     # CUDA keeps the running scores on the device (Kahan f32); the CPU, and
     # dart everywhere, keep exact f64 scores on the host
     score_dev = comp_dev = None
     if fast_scores:
-        score_dev = torch.as_tensor(scores[:, 0] if k == 1 else scores,
-                                    dtype=torch.float32, device=dev)
-        comp_dev = torch.zeros_like(score_dev)
+        if kahan is not None:
+            # a resumed card fit: the saved (score, compensation) pair
+            score_dev = torch.as_tensor(kahan[0].reshape(
+                (n,) if k == 1 else (n, k)), device=dev)
+            comp_dev = torch.as_tensor(kahan[1].reshape(score_dev.shape),
+                                       device=dev)
+        else:
+            score_dev = torch.as_tensor(scores[:, 0] if k == 1 else scores,
+                                        dtype=torch.float32, device=dev)
+            comp_dev = torch.zeros_like(score_dev)
 
     def _host_scores() -> np.ndarray:
         if not fast_scores:
@@ -767,7 +835,7 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
     from ..obs.metrics import TrainRecorder
 
     recorder = TrainRecorder("gbdt")
-    for it in range(params.num_iterations):
+    for it in range(start_it, params.num_iterations):
         it_t0 = time.perf_counter()
         _faults.fire(_faults.TRAIN_STEP, iteration=it)
         # ----- dart: drop a subset of the existing trees from the scores
@@ -810,7 +878,7 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
             hk = h if h.dim() == 1 else h[:, kk].contiguous()
             tree, leaf_of_row = grow_tree(bins_dev, gk, hk, mask_dev,
                                           num_bins, config, mapper,
-                                          feature_mask)
+                                          feature_mask, cat_args=cat_args)
             tree.shrinkage = shrink
             group.append(tree)
             if fast_scores:
@@ -860,6 +928,22 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
                             y_real, groups_real)
             recorder.metric(f"train_{metric}", m)
             log(f"[{it + 1}] train {metric}={m:.6f}")
+
+        # ----- atomic checkpoint every k iterations (and at the end)
+        if checkpoint is not None and (
+                (it + 1) % max(checkpoint.every_k, 1) == 0
+                or it + 1 == params.num_iterations):
+            ck_t0 = time.perf_counter()
+            save_checkpoint(
+                checkpoint.path, params_dict=dataclasses.asdict(params),
+                model_string=booster.to_string(), iteration=it + 1,
+                scores=_host_scores(), rng_state=rng.bit_generator.state,
+                bag_mask=bag_mask, best_val=stopper.best_val,
+                best_iter=stopper.best_iter,
+                rounds_no_improve=stopper.no_improve,
+                kahan=(torch.stack([score_dev, comp_dev]).cpu().numpy()
+                       if fast_scores else None))
+            recorder.checkpoint(time.perf_counter() - ck_t0)
         recorder.step(time.perf_counter() - it_t0, examples=n_real)
 
     if is_rf:

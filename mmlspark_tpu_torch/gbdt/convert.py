@@ -4,7 +4,9 @@
 ``Booster.to_string()`` writes (JSON, format ``mmlspark_tpu.gbdt.v1``);
 ``booster_from_arrays`` builds the same content from numpy arrays. Either
 way the port scores a model the JAX package trained — the tests hold the
-port's scoring to the reference's on identical trees this way. Sparse fits
+port's scoring to the reference's on identical trees this way. Categorical
+models carry across too: their trees' ``cat_sets`` / ``cat_bin_words`` and
+the bin mapper's categorical features and category values. Sparse fits
 emit the same trees (raw thresholds), so both carry them too.
 ``sparse_dataset_from_reference`` carries a reference ``SparseDataset``
 (its numpy fields) into the port's. None of them imports the reference.
@@ -13,7 +15,7 @@ emit the same trees (raw thresholds), so both carry them too.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -33,13 +35,20 @@ def booster_from_reference(model_string: str) -> Booster:
 
 def booster_from_arrays(params: Dict, base_score: Sequence[float],
                         bin_edges: List[np.ndarray],
-                        trees: List[List[Dict[str, np.ndarray]]]) -> Booster:
+                        trees: List[List[Dict[str, np.ndarray]]],
+                        categorical: Optional[Sequence[bool]] = None,
+                        categories: Optional[Dict[int, np.ndarray]] = None
+                        ) -> Booster:
     """Build a Booster from arrays: ``params`` (TrainParams fields; unknown
     keys are ignored), ``base_score`` [K], per-feature ascending
-    ``bin_edges`` (numerical features), and ``trees[iteration][class]``
-    dicts with the Tree node arrays (``feature``, ``threshold``,
-    ``threshold_bin``, ``default_left``, ``left``, ``right``, ``value``,
-    ``gain``, ``count``; optional ``shrinkage`` and ``weight``)."""
+    ``bin_edges`` (empty for a categorical feature), and
+    ``trees[iteration][class]`` dicts with the Tree node arrays
+    (``feature``, ``threshold``, ``threshold_bin``, ``default_left``,
+    ``left``, ``right``, ``value``, ``gain``, ``count``; optional
+    ``shrinkage``, ``weight``, and for set splits ``cat_sets`` (per node a
+    list of category values or None) and ``cat_bin_words`` ([nodes, CW]
+    u32)). ``categorical``: which features are categorical (default none);
+    ``categories``: feature -> its sorted category values."""
     known = {f.name for f in dataclasses.fields(TrainParams)}
     p = {k: v for k, v in params.items() if k in known}
     for key in ("categorical_feature", "max_bin_by_feature"):
@@ -47,8 +56,16 @@ def booster_from_arrays(params: Dict, base_score: Sequence[float],
             p[key] = tuple(p[key])
     tp = TrainParams(**p)
     edges = [np.asarray(e, dtype=np.float64) for e in bin_edges]
-    mapper = BinMapper(edges=edges, categorical=[False] * len(edges),
-                       categories={}, max_bin=tp.max_bin)
+    cat = list(categorical) if categorical is not None \
+        else [False] * len(edges)
+    if len(cat) != len(edges):
+        raise ValueError(f"{len(cat)} categorical flags for {len(edges)} "
+                         f"features")
+    mapper = BinMapper(
+        edges=edges, categorical=[bool(c) for c in cat],
+        categories={int(f): np.asarray(v, dtype=np.int64)
+                    for f, v in (categories or {}).items()},
+        max_bin=tp.max_bin)
     groups = []
     for group in trees:
         out = []
@@ -56,8 +73,9 @@ def booster_from_arrays(params: Dict, base_score: Sequence[float],
             missing = [f for f in _TREE_FIELDS if f not in d]
             if missing:
                 raise KeyError(f"tree arrays lack {missing}")
-            t = Tree.from_dict({k: np.asarray(v).tolist() for k, v in d.items()
-                                if k != "shrinkage"})
+            t = Tree.from_dict({
+                k: (v if k == "cat_sets" else np.asarray(v).tolist())
+                for k, v in d.items() if k != "shrinkage"})
             t.shrinkage = float(d.get("shrinkage", 1.0))
             out.append(t)
         groups.append(out)

@@ -22,13 +22,24 @@ size.
 
 ``predict_raw`` is a plain loop over row chunks; the fused pipeline
 (``core/fusion.py``) scores through ``device_forward`` over its transfer
-ring. Categorical set nodes are not scored here yet.
+ring.
+
+Categorical SET nodes (LightGBM semantics: the value truncated to an integer
+and tested for membership; members go left, everything else, NaN and unseen
+categories included, right) are scored on the host by ``leaf_nodes`` and on
+the device by the gather loop over a padded ``[T, m, S]`` f32 table of each
+node's category values (NaN fill, which compares false); a set is not a
+sign comparison, so a categorical forest has no GEMM form. Where the table
+would be large (a set of more than 256 values, or more than 2^27 cells, as
+imported LightGBM models can carry), the ensemble scores on the host
+instead, as the reference does, and says so in the log.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import logging
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -44,12 +55,12 @@ def predict_single_tree(tree: Tree, X: np.ndarray) -> np.ndarray:
 
 
 def leaf_nodes(tree: Tree, X: np.ndarray) -> np.ndarray:
-    """Host path: [N,F] raw floats -> [N] node id of each row's leaf."""
-    if tree.cat_sets is not None:
-        raise NotImplementedError(
-            "categorical set splits are not ported yet (ROADMAP A2)")
+    """Host path: [N,F] raw floats -> [N] node id of each row's leaf. A set
+    node sends a row left iff its value, truncated to an integer, is in the
+    set (NaN never is)."""
     n = X.shape[0]
     node = np.zeros(n, dtype=np.int64)
+    has_cat = tree.cat_sets is not None
     active = tree.feature[node] != -1
     while active.any():
         cur = node[active]
@@ -57,6 +68,17 @@ def leaf_nodes(tree: Tree, X: np.ndarray) -> np.ndarray:
         x = X[active, f]
         go_left = np.where(np.isnan(x), tree.default_left[cur],
                            x <= tree.threshold[cur])
+        if has_cat:
+            for nid in np.unique(cur):
+                cset = tree.cat_sets[nid]
+                if cset is None:
+                    continue
+                sel = cur == nid
+                xv = x[sel]
+                ok = ~np.isnan(xv)
+                member = np.zeros(len(xv), dtype=bool)
+                member[ok] = np.isin(xv[ok].astype(np.int64), cset)
+                go_left[sel] = member
         node[active] = np.where(go_left, tree.left[cur], tree.right[cur])
         active = tree.feature[node] != -1
     return node
@@ -115,14 +137,15 @@ class DeviceEnsemble:
     #: max rows per traversal call
     GEMM_ROW_CHUNK = 1 << 16
 
+    #: a categorical forest scores on the host past these table sizes
+    CAT_SET_MAX = 256
+    CAT_CELLS_MAX = 1 << 27
+
     def __init__(self, tree_groups: List[List[Tree]], num_class: int,
                  device: DeviceLike = None, impl: str = "gemm"):
         if impl not in ("gemm", "gather"):
             raise ValueError(f"impl must be 'gemm' or 'gather', got {impl!r}")
         trees = [t for g in tree_groups for t in g]
-        if any(t.cat_sets is not None for t in trees):
-            raise NotImplementedError(
-                "categorical set splits are not ported yet (ROADMAP A2)")
         self.device = resolve_device(device)
         self.impl = impl
         self.num_class = num_class
@@ -130,6 +153,9 @@ class DeviceEnsemble:
         self.row_chunk = self.GEMM_ROW_CHUNK
         self._dev: Dict[str, Tuple[torch.Tensor, ...]] = {}
         self._gemm = None
+        self.cat_vals = self.is_cat = None
+        self.cat_host_fallback = False
+        self._tree_groups = tree_groups
         if not trees:
             return
         class_of_tree = np.array(
@@ -146,9 +172,43 @@ class DeviceEnsemble:
         self.right = pad_soa([t.right for t in trees], 0, np.int64, T, m)
         self.value = pad_soa([np.asarray(t.value) * t.shrinkage for t in trees],
                              0.0, np.float32, T, m)
+        if any(t.cat_sets is not None for t in trees):
+            self._build_cat(trees, m)
+            self.impl = "gather"
+            return
         self._build_gemm(trees)
         if self._gemm is None:
             self.impl = "gather"
+
+    def _build_cat(self, trees: List[Tree], m: int) -> None:
+        """The [T, m, S] f32 category values of every set node (NaN fill)
+        and the [T, m] set-node flags; or, past ``CAT_SET_MAX`` values in
+        one set or ``CAT_CELLS_MAX`` cells, the host traversal. The row
+        chunk keeps the gather's [rows, T, S] membership test near 1.5 GB."""
+        T = self.num_trees
+        smax = max((len(s) for t in trees if t.cat_sets is not None
+                    for s in t.cat_sets if s is not None), default=1)
+        if smax > self.CAT_SET_MAX or T * m * smax > self.CAT_CELLS_MAX:
+            self.cat_host_fallback = True
+            logging.getLogger(__name__).warning(
+                "categorical forest scored on the host: its largest set "
+                "holds %d values over %d trees x %d nodes (device table "
+                "limits: %d values, %d cells)", smax, T, m,
+                self.CAT_SET_MAX, self.CAT_CELLS_MAX)
+            return
+        cv = np.full((T, m, smax), np.nan, dtype=np.float32)
+        ic = np.zeros((T, m), dtype=bool)
+        for i, t in enumerate(trees):
+            if t.cat_sets is None:
+                continue
+            for nid, cset in enumerate(t.cat_sets):
+                if cset is not None:
+                    cv[i, nid, :len(cset)] = cset
+                    ic[i, nid] = True
+        self.cat_vals, self.is_cat = cv, ic
+        chunk = int(1.5e9 // max(T * smax * 8, 1))
+        self.row_chunk = max(256, min(self.GEMM_ROW_CHUNK,
+                                      (chunk // 256) * 256))
 
     def _build_gemm(self, trees: List[Tree]) -> None:
         """Per-tree padded GEMM layout: comparison-sign x path-matrix
@@ -204,6 +264,8 @@ class DeviceEnsemble:
             elif layout == "gather":
                 host = (self.feature, self.threshold, self.default_left,
                         self.left, self.right, self.value)
+            elif layout == "cat":
+                host = (self.cat_vals, self.is_cat)
             else:
                 host = (self._class_order,)
             self._dev[layout] = tuple(torch.as_tensor(a, device=self.device)
@@ -245,6 +307,7 @@ class DeviceEnsemble:
         feature, threshold, default_left, left, right, value = \
             self._tensors("gather")
         n, t = X.shape[0], self.num_trees
+        cat = self._tensors("cat") if self.cat_vals is not None else None
         node = torch.zeros((n, t), dtype=torch.int64, device=X.device)
         t_idx = torch.arange(t, device=X.device)[None, :]
         for _ in range(self.depth):
@@ -253,6 +316,12 @@ class DeviceEnsemble:
             go_left = torch.where(torch.isnan(x),
                                   default_left[t_idx, node],
                                   x <= threshold[t_idx, node])
+            if cat is not None:
+                # set membership: truncated value equal to one of the node's
+                # values (NaN fill and NaN inputs compare false -> right)
+                member = torch.any(torch.trunc(x)[:, :, None]
+                                   == cat[0][t_idx, node], dim=-1)
+                go_left = torch.where(cat[1][t_idx, node], member, go_left)
             nxt = torch.where(go_left, left[t_idx, node], right[t_idx, node])
             node = torch.where(f == -1, node, nxt)
         return self._class_sums(value[t_idx, node])
@@ -278,8 +347,9 @@ class DeviceEnsemble:
         ``params`` (a kernel-variant params dict, see ``core.kernels``)
         selects the traversal: ``{"impl": "gather"}`` forces the gather
         loop; ``{"impl": "gemm"}`` and None keep the default routing. Both
-        are exact, so every variant gives the same bits."""
-        if self.num_trees == 0:
+        are exact, so every variant gives the same bits. None too for a
+        categorical forest scored on the host (``cat_host_fallback``)."""
+        if self.num_trees == 0 or self.cat_host_fallback:
             return None
         impl = "gather" if params and params.get("impl") == "gather" \
             else self.impl
@@ -291,6 +361,9 @@ class DeviceEnsemble:
         n = X.shape[0]
         if self.num_trees == 0:
             return np.zeros((n, self.num_class), dtype=np.float64)
+        if self.cat_host_fallback:
+            return predict_ensemble(self._tree_groups, np.asarray(X),
+                                    self.num_class)
         Xf = np.ascontiguousarray(X, dtype=np.float32)
         outs = []
         for r0 in range(0, n, self.row_chunk):

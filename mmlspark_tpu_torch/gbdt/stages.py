@@ -7,6 +7,10 @@ traversal with the f64 host finalize. Both run on CUDA unless the caller
 wraps them in ``runtime.use_device("cpu")``. ``fit`` splits off the rows
 ``validationIndicatorCol`` flags as the early-stopping holdout, and with
 ``numBatches`` > 1 trains batch after batch, each continuing the last.
+``categoricalSlotIndexes`` / ``categoricalSlotNames`` (resolved against the
+features column's ``slot_names`` metadata) flag categorical features, split
+by category set on dense rows; sparse rows refuse them, as the reference
+does.
 
 Sparse-row feature columns (``{"indices", "values", "size"}``) fit through
 ``sparse.train_sparse`` and score through ``sparse.predict_csr``, never
@@ -20,15 +24,20 @@ fused scores are bitwise-equal to ``transform``'s. With the executor's
 ``sparse_fn`` gathers the forest's used columns with K3
 (``gather_kernel.csr_gather``) and traverses a forest remapped onto them.
 
-LightGBM text-model interchange (``modelString``, ``save_native_model``)
-waits for a later slice and raises ``NotImplementedError``.
+LightGBM text-model interchange: ``save_native_model`` writes the LightGBM
+``v3`` text (``lgbm_format.py``), ``load_native_model_from_string`` /
+``_from_file`` read it, and ``modelString`` (LightGBM text or the Booster's
+JSON) seeds a fit that continues it. A model stage persists through
+``PipelineStage.save``/``load`` with its Booster as the JSON string.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
+import os
 import time
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -49,6 +58,8 @@ from ..core.schema import ColType, Schema
 from ..parallel.batching import is_sparse_row, sparse_width, stack_rows
 from ..runtime import default_device
 from .booster import Booster, TrainParams, train
+from .lgbm_format import (from_lightgbm_string, parse_model_string,
+                          to_lightgbm_string)
 from .sparse import SparseDataset, predict_csr, rows_to_csr, train_sparse
 
 
@@ -111,6 +122,19 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
     maxBinByFeature = Param("maxBinByFeature",
                             "Per-feature bin caps overriding maxBin", None,
                             ptype=(list, tuple))
+    categoricalSlotNames = Param(
+        "categoricalSlotNames",
+        "Feature slot names treated as categorical, resolved against the "
+        "features column's slot_names metadata", None, ptype=(list, tuple))
+    catSmooth = Param("catSmooth",
+                      "Categorical gradient-statistic smoothing "
+                      "(LightGBM cat_smooth)", 10.0, ptype=float)
+    catL2 = Param("catL2", "Extra L2 for categorical set splits "
+                  "(LightGBM cat_l2)", 10.0, ptype=float)
+    maxCatThreshold = Param("maxCatThreshold",
+                            "Max categories on the left side of a set "
+                            "split (LightGBM max_cat_threshold)", 32,
+                            lambda v: v > 0, int)
 
     def _train_params(self, objective: str, num_class: int = 1) -> TrainParams:
         return TrainParams(
@@ -138,6 +162,9 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             top_rate=self.get("topRate"),
             other_rate=self.get("otherRate"),
             categorical_feature=tuple(self.get("categoricalSlotIndexes") or ()),
+            cat_smooth=self.get("catSmooth"),
+            cat_l2=self.get("catL2"),
+            max_cat_threshold=self.get("maxCatThreshold"),
             metric=self.get("metric") or "",
             max_delta_step=self.get("maxDeltaStep"),
             pos_bagging_fraction=self.get("posBaggingFraction"),
@@ -176,12 +203,12 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
         first = next((v for v in fcol if v is not None), None)
         if is_sparse_row(first):
             return self._fit_booster_sparse(data, objective, num_class, groups)
-        self._later_options()
         X = stack_rows(fcol, np.float64)
         y, w, init_scores = self._label_weight_init(data)
         X, y, w, init_scores, groups, valid, valid_groups = \
             self._split_valid(data, X, y, w, init_scores, groups)
-        params = self._train_params(objective, num_class)
+        params = self._with_slot_names(self._train_params(objective, num_class),
+                                       df)
         log = self._make_log()
         dev = default_device()
 
@@ -194,14 +221,45 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
 
         return self._fit_batches(len(y), fit)
 
+    def _with_slot_names(self, params: TrainParams, df: DataFrame
+                         ) -> TrainParams:
+        """``categoricalSlotNames`` resolved to feature indexes through the
+        features column's ``slot_names`` metadata, joined with
+        ``categoricalSlotIndexes``."""
+        names = self.get("categoricalSlotNames")
+        if not names:
+            return params
+        slot_names = df.schema.metadata.get(
+            self.get_or_throw("featuresCol"), {}).get("slot_names")
+        if not slot_names:
+            raise ValueError(
+                "categoricalSlotNames requires slot_names metadata on the "
+                "features column; use categoricalSlotIndexes otherwise")
+        lut = {nm: i for i, nm in enumerate(slot_names)}
+        missing = [nm for nm in names if nm not in lut]
+        if missing:
+            raise KeyError(f"categoricalSlotNames not found in slot_names "
+                           f"metadata: {missing}")
+        return dataclasses.replace(params, categorical_feature=tuple(sorted(
+            set(params.categorical_feature) | {lut[nm] for nm in names})))
+
+    def _init_model(self) -> Optional[Booster]:
+        """The Booster ``modelString`` holds (LightGBM text or the Booster's
+        JSON), which the fit continues; None without one."""
+        if self.get("modelString"):
+            return parse_model_string(self.get("modelString"))
+        return None
+
     def _fit_batches(self, n: int, fit) -> Booster:
         """One fit over all ``n`` rows, or with ``numBatches`` > 1 one fit a
         batch of rows, each continuing the model of the last (the
-        reference's incremental training)."""
+        reference's incremental training); the first continues the
+        ``modelString`` model, if any."""
         n_batches = self.get("numBatches")
+        init = self._init_model()
         if not n_batches or n_batches <= 1:
-            return fit(slice(0, n), None)
-        booster = None
+            return fit(slice(0, n), init)
+        booster = init
         bounds = np.linspace(0, n, n_batches + 1).astype(int)
         for b in range(n_batches):
             booster = fit(slice(bounds[b], bounds[b + 1]), booster)
@@ -225,12 +283,6 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
         return (X, y[keep], _cut(w, keep), _cut(init_scores, keep),
                 _cut(groups, keep), valid, valid_groups)
 
-    def _later_options(self) -> None:
-        if self.get("modelString"):
-            raise NotImplementedError(
-                "modelString (LightGBM text models) is not ported yet "
-                "(ROADMAP A3)")
-
     def _label_weight_init(self, data):
         y = np.asarray(data[self.get_or_throw("labelCol")], dtype=np.float64)
         w = None
@@ -250,12 +302,12 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
         bins capped at 255 per feature as there), with validation rows and
         ``numBatches`` as on the dense path."""
         y, w, init_scores = self._label_weight_init(data)
-        if self.get("categoricalSlotIndexes"):
-            raise ValueError(
-                "categoricalSlotIndexes is not supported with sparse "
-                "features — hashTF/count spaces are numeric; densify "
-                "explicitly (FastVectorAssembler) for categorical slots")
-        self._later_options()
+        for unsupported in ("categoricalSlotNames", "categoricalSlotIndexes"):
+            if self.get(unsupported):
+                raise ValueError(
+                    f"{unsupported} is not supported with sparse features — "
+                    f"hashTF/count spaces are numeric; densify explicitly "
+                    f"(FastVectorAssembler) for categorical slots")
         params = self._train_params(objective, num_class)
         col = list(data[self.get_or_throw("featuresCol")])
         width = sparse_width(col)
@@ -331,6 +383,34 @@ class _LightGBMModelBase(Model, HasFeaturesCol):
         raw = self._ensemble().predict_raw(X)
         return raw + self.booster.base_score[None, :]
 
+    # -- native model API (the reference's saveNativeModel & co) ----------
+    def save_native_model(self, path: str, overwrite: bool = True) -> None:
+        """Write the model as LightGBM ``v3`` text (any LightGBM runtime
+        loads it)."""
+        if os.path.exists(path) and not overwrite:
+            raise FileExistsError(path)
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            f.write(to_lightgbm_string(self.booster))
+
+    @classmethod
+    def load_native_model_from_string(cls, text: str, **kwargs):
+        """A scoring model from a LightGBM text model string."""
+        return cls(booster=from_lightgbm_string(text), **kwargs)
+
+    @classmethod
+    def load_native_model_from_file(cls, path: str, **kwargs):
+        """A scoring model from a LightGBM text model file."""
+        with open(path) as f:
+            return cls.load_native_model_from_string(f.read(), **kwargs)
+
+    def get_feature_importances(self, importance_type: str = "split"
+                                ) -> List[float]:
+        return list(self.booster.feature_importances(importance_type))
+
+    def get_model_string(self) -> str:
+        return self.get_or_throw("model")
+
     # -- pipeline fusion ---------------------------------------------------
     def _device_scores(self):
         """(featuresCol, raw env key, fn, sparse_fn, ensemble) for fusion,
@@ -372,6 +452,11 @@ class _LightGBMModelBase(Model, HasFeaturesCol):
         cell: dict = {}
 
         def sparse_fn(params, env):
+            if ens.cat_vals is not None:
+                # set membership reads raw category values; the unfused
+                # sparse path (predict_csr) refuses categorical models, and
+                # so does this one
+                raise FusionUnsupported("categorical splits need dense rows")
             if "remap" not in cell:
                 used = gather_kernel.used_features(ens)
                 cell["remap"] = (

@@ -1,7 +1,8 @@
 """Leaf-wise (best-first) tree growth over binned features, in PyTorch.
 
 Counterpart of the reference's ``mmlspark_tpu/gbdt/tree.py``: ``Tree``,
-``GrowerConfig``, ``build_thresholds`` and the whole-tree grower
+``GrowerConfig``, ``cat_sets_from_words``, ``build_thresholds``,
+``predict_tree_binned`` and the whole-tree grower
 (``_grow_tree_device_body``). The reference grows a tree inside one jitted
 ``lax.while_loop``; here the loop is Python over device tensors:
 
@@ -18,8 +19,13 @@ small child over a compacted tier buffer, filled by K2 on CUDA at mask
 widths of 500k rows or more, else by ``nonzero`` + ``index_select``),
 derives the sibling by subtraction and evaluates both children. The tier
 arithmetic is the reference's exactly: it decides which rows are summed.
-Categorical set splits, the per-split host grower and the row-sharded
-grower wait for later slices.
+
+With ``cat_args`` the features it flags split by category SET
+(``histogram.cat_best_subset``): a set node routes its rows by the bin
+bitset the search returns (``partition_rows_cat``) and keeps it in
+``Tree.cat_bin_words`` beside the category values it stands for
+(``Tree.cat_sets``). The per-split host grower and the row-sharded grower
+wait for later slices.
 """
 
 from __future__ import annotations
@@ -49,8 +55,10 @@ class Tree:
     count: np.ndarray          # i32 [nodes], training rows through the node
     shrinkage: float = 1.0
     weight: Optional[np.ndarray] = None  # f64 [nodes], hessian sums
-    # categorical SET splits of the reference's model format; the port reads
-    # and writes them but does not grow or score them yet
+    # categorical SET splits: membership sends a row LEFT. Two views of one
+    # set: cat_sets, per node the sorted int64 category VALUES (raw-value
+    # scoring, LightGBM interchange) or None; cat_bin_words, [nodes, CW]
+    # u32 bitsets over BIN ids (binned routing; None for imported models)
     cat_sets: Optional[list] = None
     cat_bin_words: Optional[np.ndarray] = None
 
@@ -117,12 +125,55 @@ class GrowerConfig:
     max_delta_step: float = 0.0         # clamp |leaf value| (0 = off)
 
 
-def build_thresholds(feature, tbin, bin_mapper) -> np.ndarray:
-    """Raw-value thresholds per node: the bin's upper value for splits, 0.0
-    for leaves."""
+def cat_sets_from_words(words: Optional[np.ndarray], feature: np.ndarray,
+                        bin_mapper) -> Tuple[Optional[list],
+                                             Optional[np.ndarray]]:
+    """[nodes, CW] u32 bin bitsets -> (per node the sorted category VALUES
+    of its set or None, the words themselves); (None, None) when no node
+    has a set."""
+    if words is None or not words.any():
+        return None, None
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    sets: list = [None] * len(feature)
+    for nid in range(len(feature)):
+        w = words[nid]
+        if not w.any():
+            continue
+        bits = np.unpackbits(w.view(np.uint8), bitorder="little")
+        bins_in = np.nonzero(bits)[0]            # bin ids (>= 1 always)
+        cats = bin_mapper.categories[int(feature[nid])]
+        sets[nid] = np.sort(cats[bins_in - 1]).astype(np.int64)
+    return sets, words
+
+
+def build_thresholds(feature, tbin, cat_sets, bin_mapper) -> np.ndarray:
+    """Raw-value thresholds per node: the bin's upper value for numerical
+    splits, 0.0 for leaves and categorical set nodes (a set routes by
+    membership, not by a threshold)."""
     return np.array(
-        [bin_mapper.bin_upper_value(int(f), int(t)) if f >= 0 else 0.0
-         for f, t in zip(feature, tbin)], dtype=np.float64)
+        [bin_mapper.bin_upper_value(int(f), int(t))
+         if f >= 0 and (cat_sets is None or cat_sets[i] is None) else 0.0
+         for i, (f, t) in enumerate(zip(feature, tbin))], dtype=np.float64)
+
+
+def predict_tree_binned(tree: Tree, bins: np.ndarray) -> np.ndarray:
+    """One tree on binned [N, F] features, on the host (a reference for
+    tests): set nodes route by their bin bitset."""
+    node = np.zeros(bins.shape[0], dtype=np.int64)
+    active = tree.feature[node] != -1
+    while active.any():
+        cur = node[active]
+        b = bins[active, tree.feature[cur]]
+        go_left = np.where(b == 0, tree.default_left[cur],
+                           b <= tree.threshold_bin[cur])
+        if tree.cat_bin_words is not None:
+            w = tree.cat_bin_words[cur]                     # [A, CW]
+            bit = (w[np.arange(len(b)), b >> 5]
+                   >> (b & 31).astype(np.uint32)) & 1
+            go_left = np.where(w.any(axis=1), bit == 1, go_left)
+        node[active] = np.where(go_left, tree.left[cur], tree.right[cur])
+        active = tree.feature[node] != -1
+    return tree.value[node] * tree.shrinkage
 
 
 def tier_caps(n_rows: int, use_select: bool) -> Tuple[int, ...]:
@@ -178,14 +229,16 @@ def _small_child_hist(bins_fm, grad, hess, small_mask, small_cnt: int,
 def grow_tree(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               row_mask: torch.Tensor, num_bins: int, config: GrowerConfig,
               bin_mapper, feature_mask: Optional[torch.Tensor] = None,
-              node_of_row: Optional[torch.Tensor] = None
+              node_of_row: Optional[torch.Tensor] = None, cat_args=None
               ) -> Tuple[Tree, torch.Tensor]:
     """Grow one tree; returns (tree, node_of_row) with ``node_of_row`` the
     device tensor mapping every masked-in row to its final node id.
 
     ``bins_fm``: [F, N] int32 on the device (feature-major);
     ``grad``/``hess``: [N] f32; ``row_mask``: [N] bool (bagging subset);
-    ``feature_mask``: [F] bool or None."""
+    ``feature_mask``: [F] bool or None; ``cat_args``: None, or (cat_mask
+    [F] bool tensor, cat_smooth, cat_l2, max_cat_threshold) to split the
+    flagged features by category set."""
     dev = bins_fm.device
     n = int(bins_fm.shape[1])
     if node_of_row is None:
@@ -200,7 +253,10 @@ def grow_tree(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
     root_hist = H.compute_histogram(bins_fm, grad, hess, row_mask, num_bins)
     root_sums = H.total_sums(grad, hess, row_mask)
-    s0 = H.find_best_split(root_hist, l1, l2, msh, mdl, feature_mask)
+    cw = (num_bins + 31) // 32
+    width = 10 + (cw if cat_args is not None else 0)   # packed SplitInfo
+    s0 = H.find_best_split(root_hist, l1, l2, msh, mdl, feature_mask,
+                           cat_args)
     host = torch.cat([root_sums.to(torch.float64), s0.packed()]).cpu().numpy()
 
     # host node tables (the reference's device state dict)
@@ -213,7 +269,8 @@ def grow_tree(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     sums = np.zeros((M, 3), np.float32)
     depth = np.zeros(M, np.int32)
     cand_gain = np.full(M, neg_inf, np.float32)
-    cand = np.zeros((M, 10), np.float64)    # packed SplitInfo per node
+    cand = np.zeros((M, width), np.float64)  # packed SplitInfo per node
+    cat_words = np.zeros((M, width - 10), np.uint32)
     hists: List[Optional[torch.Tensor]] = [None] * M
 
     sums[0] = host[:3]
@@ -244,8 +301,14 @@ def grow_tree(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         lid, rid = n_nodes, n_nodes + 1
         dchild = int(depth[leaf]) + 1
 
-        node_of_row = H.partition_rows(bins_fm[f], node_of_row, leaf, t, dl,
-                                       lid, rid)
+        words = cand[leaf, 10:].astype(np.uint32)
+        if words.any():
+            node_of_row = H.partition_rows_cat(
+                bins_fm[f], node_of_row, leaf, t, dl, lid, rid,
+                torch.as_tensor(words.astype(np.int64), device=dev))
+        else:
+            node_of_row = H.partition_rows(bins_fm[f], node_of_row, leaf, t,
+                                           dl, lid, rid)
         small_is_left = bool(lsum[2] <= rsum[2])
         small_id, big_id = (lid, rid) if small_is_left else (rid, lid)
         small_mask = row_mask & (node_of_row == small_id)
@@ -255,7 +318,8 @@ def grow_tree(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         big_hist = H.subtract_histogram(hists[leaf], small_hist)
         hists[leaf] = None
         pair = H.find_best_split_pair(torch.stack([small_hist, big_hist]),
-                                      l1, l2, msh, mdl, feature_mask)
+                                      l1, l2, msh, mdl, feature_mask,
+                                      cat_args)
         s_small, s_big = pair.packed().cpu().numpy()
 
         small_sums, big_sums = (lsum, rsum) if small_is_left else (rsum, lsum)
@@ -264,6 +328,7 @@ def grow_tree(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
         feature[leaf], threshold_bin[leaf], default_left[leaf] = f, t, dl
         left[leaf], right[leaf] = lid, rid
+        cat_words[leaf] = words
         gain[leaf] = cand_gain[leaf]
         cand_gain[leaf] = neg_inf
         sums[lid], sums[rid] = lsum, rsum
@@ -282,9 +347,11 @@ def grow_tree(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         value = np.clip(value, -config.max_delta_step, config.max_delta_step)
     # an unsplit root keeps 0.0 (it is never anyone's child)
     value[0] = 0.0 if nn == 1 else value[0]
+    cat_sets, words_np = cat_sets_from_words(
+        cat_words[:nn] if cat_args is not None else None, feature, bin_mapper)
     tree = Tree(
         feature=feature,
-        threshold=build_thresholds(feature, tbin, bin_mapper),
+        threshold=build_thresholds(feature, tbin, cat_sets, bin_mapper),
         threshold_bin=tbin,
         default_left=default_left[:nn].copy(),
         left=left[:nn].copy(),
@@ -293,5 +360,7 @@ def grow_tree(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         gain=gain[:nn].copy(),
         count=s64[:, 2].astype(np.int32),
         weight=s64[:, 1],
+        cat_sets=cat_sets,
+        cat_bin_words=words_np,
     )
     return tree, node_of_row

@@ -294,6 +294,13 @@ class FunctionModel:
     _device_params: Dict[str, Tuple[Tuple, Dict[str, torch.Tensor]]] = \
         dataclasses.field(default_factory=dict, init=False, repr=False)
 
+    def __getstate__(self):
+        # a saved stage pickles the module and its weights, never the
+        # per-device copies
+        state = dict(self.__dict__)
+        state["_device_params"] = {}
+        return state
+
     @property
     def params(self) -> Dict[str, Any]:
         """The parameters as nested dicts, keyed like the reference's

@@ -450,3 +450,106 @@ def test_lambdarank_gradient_card_matches_cpu(cuda_device, sizes):
         for k in range(2):
             np.testing.assert_allclose(out["cuda"][k], out["cpu"][k],
                                        rtol=1e-5, atol=1e-6)
+
+
+def _cat_rows(n, seed=0):
+    """Seeded rows with three categorical columns (12, 40 and 300 values,
+    the last past maxBin) and one numeric, the label set by a per-category
+    offset (not monotone in the ids)."""
+    rng = np.random.default_rng(seed)
+    X = np.empty((n, 4))
+    logit = np.full(n, -1.0)
+    for j, k in enumerate((12, 40, 300)):
+        X[:, j] = rng.integers(0, k, n)
+        logit += rng.normal(0, 0.8, k)[X[:, j].astype(np.int64)]
+    X[:, 3] = rng.integers(0, 2400, n)
+    logit += 0.0008 * (X[:, 3] - 1200)
+    y = (rng.random(n) < 1 / (1 + np.exp(-logit))).astype(np.float64)
+    return X, y
+
+
+def _same_cat_tree(a, b):
+    for fld in ("feature", "threshold_bin", "left", "right", "default_left",
+                "count"):
+        np.testing.assert_array_equal(getattr(a, fld), getattr(b, fld))
+    np.testing.assert_array_equal(a.cat_bin_words, b.cat_bin_words)
+    for s, t in zip(a.cat_sets, b.cat_sets):
+        assert (s is None) == (t is None)
+        if s is not None:
+            np.testing.assert_array_equal(s, t)
+    np.testing.assert_allclose(a.value, b.value, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_categorical_fit_card_matches_cpu(cuda_device):
+    """Set splits on the card (K1 and K2 launched): the first 3 trees are
+    the CPU's, words and category sets included; leaf values within rtol
+    1e-5 (``chip_smoke.py`` gate c at 262,144 rows)."""
+    from mmlspark_tpu_torch.gbdt import booster
+
+    X, y = _cat_rows(600_000)
+    params = booster.TrainParams(objective="binary", num_iterations=3,
+                                 num_leaves=31, categorical_feature=(0, 1, 2))
+    hist_kernel.launches = select_kernel.launches = 0
+    card = booster.train(params, X, y, device="cuda")
+    assert hist_kernel.launches > 0 and select_kernel.launches > 0
+    cpu = booster.train(params, X, y, device="cpu")
+    assert any(s is not None and len(s) >= 2 for s in card.trees[0][0].cat_sets)
+    for gc, gp in zip(card.trees, cpu.trees):
+        _same_cat_tree(gc[0], gp[0])
+
+
+@pytest.mark.cuda
+def test_categorical_device_ensemble_matches_host(cuda_device):
+    """The card's gather traversal with its membership test against the
+    host f64 traversal, NaN and unseen categories included (gate d)."""
+    from mmlspark_tpu_torch.gbdt import DeviceEnsemble, booster, predict_ensemble
+
+    X, y = _cat_rows(50_000, seed=1)
+    b = booster.train(booster.TrainParams(
+        objective="binary", num_iterations=8, num_leaves=15,
+        categorical_feature=(0, 1, 2)), X, y, device="cuda")
+    Xq = X[:20_000].copy()
+    Xq[::9, 1] = np.nan
+    Xq[::7, 2] = 512.0
+    ens = DeviceEnsemble(b.trees, 1, device="cuda")
+    assert ens.cat_vals is not None and not ens.cat_host_fallback
+    np.testing.assert_allclose(ens.predict_raw(Xq.astype(np.float32)),
+                               predict_ensemble(b.trees, Xq, 1),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_checkpoint_resume_on_card_is_identical(cuda_device, tmp_path):
+    """A card fit with bagging, preempted at its 6th iteration and resumed
+    from the checkpoint of iteration 3 (its Kahan score pair restored),
+    gives the uninterrupted card fit's model string (gate i)."""
+    from mmlspark_tpu_torch.core import faults
+    from mmlspark_tpu_torch.gbdt import CheckpointConfig, booster
+
+    X, y = _cat_rows(100_000, seed=2)
+    params = booster.TrainParams(
+        objective="binary", num_iterations=9, num_leaves=31,
+        bagging_fraction=0.8, bagging_freq=1, seed=7,
+        categorical_feature=(0, 1, 2))
+    full = booster.train(params, X, y, device="cuda", checkpoint=CheckpointConfig(
+        str(tmp_path / "full.ckpt"), every_k=3))
+    calls = [0]
+
+    def preempt(point, **ctx):
+        if point == faults.TRAIN_STEP:
+            calls[0] += 1
+            if calls[0] == 6:
+                raise faults.InjectedFault("preempted")
+
+    ckpt = str(tmp_path / "cut.ckpt")
+    prev = faults.install(preempt)
+    try:
+        with pytest.raises(faults.InjectedFault):
+            booster.train(params, X, y, device="cuda",
+                          checkpoint=CheckpointConfig(ckpt, every_k=3))
+    finally:
+        faults.install(prev)
+    resumed = booster.train(params, X, y, device="cuda",
+                            checkpoint=CheckpointConfig(ckpt, every_k=3))
+    assert resumed.to_string() == full.to_string()

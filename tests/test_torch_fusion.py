@@ -45,6 +45,8 @@ numpy inputs made from a seed. Tolerances, and why:
     torch ops on batches of the same size).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -1113,3 +1115,141 @@ def test_ring_yields_arrays_apart_from_its_readback_slots():
     for a, b in zip(outs, run(1, None)):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
+
+
+# ---------------------------------------------------------------- persistence
+
+
+def _score_cols(df, cols):
+    return {c: np.stack([np.asarray(v, dtype=np.float64)
+                         for v in df.column(c)]) for c in cols}
+
+
+def _gbdt_model(kind, categorical):
+    """A port-trained model of one kind over seeded rows, its frame and the
+    columns its transform writes."""
+    rng = np.random.default_rng(17)
+    n = 400
+    X = rng.standard_normal((n, 4))
+    X[:, 0] = rng.integers(0, 12, n)
+    y = np.isin(X[:, 0], (1, 4, 6, 9)).astype(np.float64) + 0.2 * X[:, 1]
+    X[rng.random((n, 4)) < 0.03] = np.nan
+    kw = dict(numIterations=4, numLeaves=6, minDataInLeaf=5)
+    if categorical:
+        kw["categoricalSlotIndexes"] = [0]
+    cols = {"features": [r for r in X], "label": (y > 0.5).astype(np.float64)}
+    if kind == "regressor":
+        cols["label"] = y
+        est = stages.LightGBMRegressor(**kw)
+    elif kind == "ranker":
+        cols["group"] = np.repeat(np.arange(n // 20), 20)
+        cols["label"] = np.clip(np.round(y * 2), 0, 3)
+        est = stages.LightGBMRanker(groupCol="group", **kw)
+    else:
+        est = stages.LightGBMClassifier(**kw)
+    df = DataFrame.from_dict(cols, num_partitions=2)
+    with use_device("cpu"):
+        model = est.fit(df)
+    out = ("rawPrediction", "probability", "prediction") \
+        if kind == "classifier" else ("prediction",)
+    return model, df.select("features"), out
+
+
+@pytest.mark.parametrize("categorical", [False, True])
+@pytest.mark.parametrize("kind", ["classifier", "regressor", "ranker"])
+def test_gbdt_model_save_load_bitwise(tmp_path, kind, categorical):
+    """A saved model stage loads to the same Booster string and the same
+    transform, bit for bit; its Booster is stored as JSON text, no pickle."""
+    from mmlspark_tpu_torch.core.pipeline import PipelineStage
+
+    model, df, cols = _gbdt_model(kind, categorical)
+    with use_device("cpu"):
+        want = _score_cols(model.transform(df), cols)
+        model.save(str(tmp_path / "m"))
+        loaded = PipelineStage.load(str(tmp_path / "m"))
+        got = _score_cols(loaded.transform(df), cols)
+    assert type(loaded) is type(model)
+    assert loaded.get_model_string() == model.get_model_string()
+    assert loaded.booster.to_string() == model.booster.to_string()
+    for c in cols:
+        np.testing.assert_array_equal(got[c], want[c])
+    files = [f for _, _, fs in os.walk(tmp_path / "m") for f in fs]
+    assert "text.txt" in files and not any(f.endswith(".pkl") for f in files)
+    assert any(t.cat_sets is not None for g in loaded.booster.trees
+               for t in g) == categorical
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_pipeline_model_save_load_bitwise(tmp_path, fused):
+    """A PipelineModel, fused or not, saves its stages and loads back as a
+    PipelineModel whose transform, unfused and fused, is the original's."""
+    from mmlspark_tpu_torch.core.pipeline import PipelineStage
+
+    clf, df, cols = _gbdt_model("classifier", True)
+    reg, _, _ = _gbdt_model("regressor", False)
+    reg.set("predictionCol", "reg_prediction")
+    pm = PipelineModel([clf, reg])
+    stage = pm.fuse() if fused else pm
+    names = cols + ("reg_prediction",)
+    with use_device("cpu"):
+        want = _score_cols(stage.transform(df), names)
+        stage.save(str(tmp_path / "p"))
+        loaded = PipelineStage.load(str(tmp_path / "p"))
+        got = _score_cols(loaded.transform(df), names)
+        got_fused = _score_cols(loaded.fuse().transform(df), names)
+    assert type(loaded) is PipelineModel and len(loaded.stages) == 2
+    for c in names:
+        np.testing.assert_array_equal(got[c], want[c])
+        np.testing.assert_array_equal(got_fused[c], want[c])
+
+
+def test_dnn_model_save_load_bitwise(tmp_path):
+    """DNNModel with its FunctionModel's weights and a PreprocessSpec."""
+    from mmlspark_tpu_torch.core.pipeline import PipelineStage
+
+    _, port = _encoders()
+    stage = DNNModel(inputCol="tokens", outputCol="out", batchSize=3)
+    stage.set_model(port)
+    df = DataFrame.from_dict({"tokens": _token_rows()}, num_partitions=2)
+    with use_device("cpu"):
+        want = _stack(stage.transform(df).column("out"))
+        stage.save(str(tmp_path / "d"))
+        loaded = PipelineStage.load(str(tmp_path / "d"))
+        got = _stack(loaded.transform(df).column("out"))
+    assert loaded.get("batchSize") == 3
+    assert loaded.get_model().cache_token() == port.cache_token()
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
+
+
+def test_stage_directory_of_the_jax_package_is_refused(tmp_path):
+    """A stage the JAX package saved names its classes; the port refuses
+    the directory (and any pickle of that package's objects) and says how
+    to carry the model across instead."""
+    import pickle
+
+    from mmlspark_tpu_torch.core import serialize
+    from mmlspark_tpu_torch.core.pipeline import PipelineStage
+
+    X = _sparse_matrix()
+    ref_df = RefDataFrame.from_dict({"features": _rows(X, False),
+                                     "label": (X[:, 0] > 0).astype(float)})
+    ref = ref_stages.LightGBMClassifier(numIterations=2, numLeaves=4).fit(ref_df)
+    ref.save(str(tmp_path / "ref"))
+    with pytest.raises(ValueError, match="JAX package saved"):
+        PipelineStage.load(str(tmp_path / "ref"))
+    (tmp_path / "v.pkl").write_bytes(pickle.dumps(ref_stages.LightGBMClassifier))
+    with pytest.raises(ValueError, match="object of the JAX package"):
+        serialize._unpickle(str(tmp_path / "v.pkl"))
+    # the model itself crosses as the Booster's JSON
+    port = stages.LightGBMClassificationModel(
+        booster=convert.booster_from_reference(ref.get_model_string()),
+        featuresCol="features")
+    with use_device("cpu"):
+        raw = _score_cols(port.transform(DataFrame.from_dict(
+            {"features": _rows(X, False)})), ("rawPrediction",))
+    np.testing.assert_allclose(raw["rawPrediction"], _score_cols(
+        ref.transform(RefDataFrame.from_dict({"features": _rows(X, False)})),
+        ("rawPrediction",))["rawPrediction"], rtol=0, atol=PORT_VS_REF_ATOL)

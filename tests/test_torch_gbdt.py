@@ -28,10 +28,11 @@ from mmlspark_tpu.gbdt import stages as ref_stages
 from mmlspark_tpu.gbdt import tree as ref_tree
 from mmlspark_tpu_torch.core.dataframe import DataFrame
 from mmlspark_tpu_torch.gbdt import binning, booster, convert, histogram, predict
-from mmlspark_tpu_torch.gbdt import stages, tree
+from mmlspark_tpu_torch.gbdt import lgbm_format, stages, tree
 from mmlspark_tpu_torch.runtime import use_device
 
 from test_benchmarks import _base_params
+from test_gbdt_categorical import cat_data
 
 RES = os.path.join(os.path.dirname(__file__), "resources")
 STRUCT = ("feature", "threshold_bin", "left", "right", "default_left", "count")
@@ -598,3 +599,840 @@ def test_init_model_continuation_matches_reference(ref_device_path, boosting):
     _assert_same_forest(rb, pb)
     np.testing.assert_allclose(pb.raw_predict(X), rb.raw_predict(X),
                                rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------- categorical
+
+
+def _cat_hist(case):
+    """A seeded [F, B, 3] histogram for one ``cat_best_subset`` case, with
+    feature 0 categorical-shaped."""
+    rng = np.random.default_rng({"ratio_ties": 1, "absent": 2,
+                                 "max_cat_threshold": 3, "min_data": 4}[case])
+    f, b, n = 5, 40, 6000
+    bins = rng.integers(0, b, (f, n)).astype(np.int32)
+    bins[0] = rng.integers(0, 30, n)
+    grad = rng.standard_normal(n).astype(np.float32)
+    hess = (rng.random(n) + 0.1).astype(np.float32)
+    if case == "ratio_ties":
+        # every row of bins 3..8 alike: their G/(H + smooth) tie exactly
+        for v in range(3, 9):
+            sel = bins[0] == v
+            sel[np.nonzero(sel)[0][40:]] = False
+            bins[0, (bins[0] == v) & ~sel] = 9
+        grad[np.isin(bins[0], range(3, 9))] = -0.75
+        hess[np.isin(bins[0], range(3, 9))] = 0.5
+    if case == "absent":
+        bins[:, np.isin(bins[0], (2, 5, 11, 17))] = 1
+    if case == "max_cat_threshold":
+        grad += np.where(bins[0] % 3 == 0, -1.5, 0.0).astype(np.float32)
+    mask = rng.random(n) < 0.85
+    return np.array(ref_hist.compute_histogram_xla(bins, grad, hess, mask, b))
+
+
+@pytest.mark.parametrize("case,mct,mdl", [("ratio_ties", 32, 5),
+                                          ("absent", 32, 5),
+                                          ("max_cat_threshold", 2, 5),
+                                          ("min_data", 32, 900)])
+def test_cat_best_subset_matches_reference(case, mct, mdl):
+    """Gains, left sums (f32) and bin words equal the reference's bit for
+    bit on the same histogram: ties in G/(H + cat_smooth) and the absent
+    bins keep their order (a stable sort), and ``max_cat_threshold`` and
+    ``min_data_in_leaf`` bind."""
+    import jax
+
+    hist = _cat_hist(case)
+    args = (np.float32(0.05), np.float32(1.0), np.float32(1e-3))
+    rg, rw, rl = jax.jit(lambda h: ref_hist._cat_best_subset(
+        h, *args, mdl, np.float32(10.0), np.float32(10.0), np.int32(mct)))(hist)
+    pg, pw, pl = histogram.cat_best_subset(torch.from_numpy(hist), 0.05, 1.0,
+                                           1e-3, mdl, 10.0, 10.0, mct)
+    np.testing.assert_array_equal(np.asarray(rg), pg.numpy())
+    np.testing.assert_array_equal(np.asarray(rl), pl.numpy())
+    np.testing.assert_array_equal(np.asarray(rw).astype(np.int64), pw.numpy())
+    assert np.isfinite(pg.numpy()).any()
+    members = [bin(int(w)).count("1") for w in pw.numpy().reshape(-1)]
+    if case == "max_cat_threshold":
+        assert 0 < max(members) <= mct
+    # the full search with feature 0 (and 3) categorical, single and paired
+    cm = np.array([True, False, False, True, False])
+    r = ref_hist.find_best_split(hist, *args, mdl, None,
+                                 (cm, np.float32(10.0), np.float32(10.0),
+                                  np.int32(mct)))
+    cat = (torch.from_numpy(cm), 10.0, 10.0, mct)
+    p = histogram.find_best_split(torch.from_numpy(hist), 0.05, 1.0, 1e-3, mdl,
+                                  None, cat)
+    for name, rv, pv in zip(SPLIT_FIELDS, r, p):
+        np.testing.assert_array_equal(np.asarray(rv).astype(np.float64),
+                                      pv.numpy().astype(np.float64),
+                                      err_msg=name)
+    pair = histogram.find_best_split_pair(
+        torch.from_numpy(np.stack([hist, hist[:, ::-1].copy()])), 0.05, 1.0,
+        1e-3, mdl, None, cat)
+    np.testing.assert_array_equal(pair.cat_words[0].numpy(),
+                                  np.asarray(r.cat_words).astype(np.int64))
+
+
+SPLIT_FIELDS = ("feature", "bin", "gain", "default_left", "left_sum",
+                "right_sum", "cat_words")
+
+
+@pytest.mark.parametrize("is_cat", [True, False])
+def test_partition_rows_cat_matches_reference(is_cat):
+    rng = np.random.default_rng(6)
+    n, b = 5000, 70
+    bins = rng.integers(0, b, n).astype(np.int32)
+    nodes = rng.integers(0, 4, n).astype(np.int32)
+    words = rng.integers(0, 1 << 32, 3, dtype=np.uint64).astype(np.uint32)
+    words[0] &= ~np.uint32(1)                    # bin 0 is never a member
+    if not is_cat:
+        words[:] = 0
+    r = ref_hist.partition_rows_cat(bins, nodes, np.int32(2), np.int32(30),
+                                    True, np.int32(7), np.int32(8), words)
+    p = histogram.partition_rows_cat(
+        torch.from_numpy(bins), torch.from_numpy(nodes), 2, 30, True, 7, 8,
+        torch.from_numpy(words.astype(np.int64)))
+    np.testing.assert_array_equal(np.asarray(r), p.numpy())
+
+
+def _cat_fit_pair(fixture, **extra):
+    """The reference's and the port's fit on a ``cat_data`` fixture of
+    ``tests/test_gbdt_categorical.py`` (seed, rows, params)."""
+    seed, n, kw = _CAT_FITS[fixture]
+    X, y, _ = cat_data(seed=seed)
+    X, y = X[:n], y[:n]
+    if fixture == "negative_ids":
+        X[:, 0] -= 6
+    kw = dict(objective="binary", min_data_in_leaf=5,
+              categorical_feature=(0,), **{**kw, **extra})
+    rb = ref_booster.train(ref_booster.TrainParams(**kw), X, y)
+    pb = booster.train(booster.TrainParams(**kw), X, y, device="cpu")
+    return rb, pb, X, y
+
+
+# name -> (cat_data seed, rows, TrainParams) as test_gbdt_categorical.py
+# fits them; "sign_cancel" and "exact_tie" part from the reference (§C)
+_CAT_FITS = {
+    "beats_ordered": (1, 1500, dict(num_iterations=4, num_leaves=2)),
+    "set_recovered": (2, 2000, dict(num_iterations=1, num_leaves=2)),
+    "nan_routes_right": (3, 2000, dict(num_iterations=2, num_leaves=4)),
+    "device_vs_host": (5, 2000, dict(num_iterations=5, num_leaves=7)),
+    "scan_vs_per_tree": (6, 2000, dict(num_iterations=4, num_leaves=7)),
+    "json_round_trip": (7, 2000, dict(num_iterations=3, num_leaves=7)),
+    "text_round_trip": (8, 2000, dict(num_iterations=3, num_leaves=7)),
+    "negative_ids": (9, 2000, dict(num_iterations=2, num_leaves=4)),
+    "stage": (10, 2000, dict(num_iterations=4, num_leaves=4)),
+}
+_CAT_DEVIATIONS = ("json_round_trip", "stage")
+
+
+def _assert_same_cat_forest(rb, pb):
+    _assert_same_forest(rb, pb)
+    for gr, gp in zip(rb.trees, pb.trees):
+        a, b = gr[0], gp[0]
+        assert (a.cat_bin_words is None) == (b.cat_bin_words is None)
+        if a.cat_bin_words is not None:
+            np.testing.assert_array_equal(a.cat_bin_words, b.cat_bin_words)
+            for sa, sb in zip(a.cat_sets, b.cat_sets):
+                assert (sa is None) == (sb is None)
+                if sa is not None:
+                    np.testing.assert_array_equal(sa, sb)
+
+
+@pytest.mark.parametrize("fixture", [f for f in _CAT_FITS
+                                     if f not in _CAT_DEVIATIONS])
+def test_categorical_fit_matches_reference(ref_device_path, fixture):
+    rb, pb, X, _ = _cat_fit_pair(fixture)
+    _assert_same_cat_forest(rb, pb)
+    assert any(t.cat_sets is not None for g in pb.trees for t in g)
+    np.testing.assert_allclose(pb.raw_predict(X), rb.raw_predict(X),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("bagging", [False, True])
+def test_categorical_fit_with_bagging_matches_reference(ref_device_path,
+                                                        bagging):
+    extra = dict(bagging_fraction=0.8, bagging_freq=1, seed=3) if bagging \
+        else dict(lambda_l2=1.0, max_cat_threshold=3)
+    rb, pb, X, _ = _cat_fit_pair("text_round_trip", **extra)
+    _assert_same_cat_forest(rb, pb)
+
+
+def test_categorical_leaf_from_f32_differences(ref_device_path):
+    """``json_round_trip``'s fixture (seed 7): same trees and sets, but the
+    leaf at node 6 of iteration 1 is a small difference of f32 node totals
+    (G = total - left), so each package's value is off the exact f64 leaf
+    by about ulp(total) / |G|: the two agree within 1.5e-5, not 1e-5 (§C).
+    Both stay within 4 f32 ulps of the parent's |G| of the exact value."""
+    rb, pb, X, y = _cat_fit_pair("json_round_trip")
+    for gr, gp in zip(rb.trees, pb.trees):
+        for fld in STRUCT:
+            np.testing.assert_array_equal(getattr(gr[0], fld),
+                                          getattr(gp[0], fld))
+    scores = np.full(len(y), pb.base_score[0])
+    eps = float(np.finfo(np.float32).eps)
+    for it in range(len(pb.trees)):
+        t, tr = pb.trees[it][0], rb.trees[it][0]
+        g, h = booster.grad_hess("binary", torch.tensor(scores, dtype=torch.float32),
+                                 torch.tensor(y, dtype=torch.float32))
+        g, h = g.double().numpy(), h.double().numpy()
+        leaf = predict.leaf_nodes(t, X)
+        for nid in np.nonzero(t.feature == -1)[0]:
+            rows = leaf == nid
+            exact = -g[rows].sum() / h[rows].sum()
+            tol = 4 * eps * np.abs(g).sum() / h[rows].sum()
+            assert abs(t.value[nid] - exact) <= tol
+            assert abs(tr.value[nid] - exact) <= tol
+            np.testing.assert_allclose(t.value[nid], tr.value[nid], rtol=1.5e-5)
+        scores = scores + t.value[leaf] * t.shrinkage
+
+
+def test_categorical_stage_fixture_exact_tie(ref_device_path):
+    """The ``stage`` fixture (seed 10) parts from the reference at an exact
+    tie: node 4's 107 rows split on feature 1 either at bin 7 (5 rows left)
+    or at bin 236 (5 rows right), each 5-row tail alike, so the two gains
+    are equal in exact arithmetic. The port's f64 sums keep them equal and
+    take the lowest bin, the reference's f32 sums take bin 236 (§C).
+    Everything else of the tree is the reference's."""
+    rb, pb, X, y = _cat_fit_pair("stage", num_iterations=1)
+    t, tr = pb.trees[0][0], rb.trees[0][0]
+    assert (int(t.feature[4]), int(t.threshold_bin[4])) == (1, 7)
+    assert (int(tr.feature[4]), int(tr.threshold_bin[4])) == (1, 236)
+    np.testing.assert_array_equal(t.feature, tr.feature)
+    np.testing.assert_array_equal(t.threshold_bin[:4], tr.threshold_bin[:4])
+    np.testing.assert_array_equal(t.cat_bin_words, tr.cat_bin_words)
+    scores = torch.full((len(y),), float(pb.base_score[0]))
+    g, h = booster.grad_hess("binary", scores, torch.tensor(y, dtype=torch.float32))
+    g, h = g.double().numpy(), h.double().numpy()
+    bins = pb.bin_mapper.transform_fm(X, dtype=np.int32)
+    node = predict.leaf_nodes(dataclasses.replace(
+        t, feature=np.where(np.arange(len(t.feature)) == 4, -1, t.feature)),
+        X) == 4
+
+    def gain(b):
+        left = node & (bins[1] <= b)
+        gl, hl, gt, ht = g[left].sum(), h[left].sum(), g[node].sum(), h[node].sum()
+        return gl * gl / hl + (gt - gl) ** 2 / (ht - hl) - gt * gt / ht
+
+    assert node.sum() == 107
+    np.testing.assert_allclose(gain(7), gain(236), rtol=1e-12)
+
+
+def test_categorical_grower_matches_reference_rows(ref_device_path):
+    """The reference's fused-grower case (seed 4, 800 rows, 64 bins, 7
+    leaves): the same tree, words and row routing."""
+    X, y, _ = cat_data(n=800, seed=4)
+    rm = ref_binning.BinMapper.fit(X, max_bin=64, categorical_indexes=(0,))
+    pm = binning.BinMapper.fit(X, max_bin=64, categorical_indexes=(0,))
+    bins = np.ascontiguousarray(rm.transform(X).T)
+    p = np.full_like(y, y.mean())
+    grad = (p - y).astype(np.float32)
+    hess = np.maximum(p * (1 - p), 1e-6).astype(np.float32)
+    mask = np.ones(len(y), dtype=bool)
+    cm = np.array([True, False, False])
+    rt, rrows = ref_tree.grow_tree(
+        bins, grad, hess, mask, rm.max_num_bins,
+        ref_tree.GrowerConfig(num_leaves=7, min_data_in_leaf=5), rm,
+        cat_args=(cm, np.float32(10.0), np.float32(10.0), np.int32(32)))
+    pt, prows = tree.grow_tree(
+        torch.from_numpy(bins), torch.from_numpy(grad), torch.from_numpy(hess),
+        torch.from_numpy(mask), pm.max_num_bins,
+        tree.GrowerConfig(num_leaves=7, min_data_in_leaf=5), pm,
+        cat_args=(torch.from_numpy(cm), 10.0, 10.0, 32))
+    _assert_same_tree(rt, pt)
+    np.testing.assert_array_equal(rt.cat_bin_words, pt.cat_bin_words)
+    np.testing.assert_array_equal(np.asarray(rrows), prows.numpy())
+    binned = np.ascontiguousarray(bins.T)
+    np.testing.assert_allclose(tree.predict_tree_binned(pt, binned),
+                               ref_tree.predict_tree_binned(rt, binned),
+                               rtol=1e-5, atol=1e-7)
+
+
+def test_set_split_beats_ordered_on_holdout():
+    X, y, _ = cat_data(seed=1)
+    base = dict(objective="binary", num_iterations=4, num_leaves=2,
+                min_data_in_leaf=5)
+    b_cat = booster.train(booster.TrainParams(**base, categorical_feature=(0,)),
+                          X[:1500], y[:1500], device="cpu")
+    b_ord = booster.train(booster.TrainParams(**base), X[:1500], y[:1500],
+                          device="cpu")
+    acc_cat = float(((b_cat.raw_predict(X[1500:]) > 0) == y[1500:]).mean())
+    acc_ord = float(((b_ord.raw_predict(X[1500:]) > 0) == y[1500:]).mean())
+    assert acc_cat > acc_ord + 0.15 and acc_cat > 0.9, (acc_cat, acc_ord)
+
+
+def test_cat_set_recovered():
+    X, y, pos_set = cat_data(seed=2)
+    b = booster.train(booster.TrainParams(
+        objective="binary", num_iterations=1, num_leaves=2, min_data_in_leaf=5,
+        categorical_feature=(0,)), X, y, device="cpu")
+    root = {int(v) for v in b.trees[0][0].cat_sets[0]}
+    assert root == pos_set or root == set(range(12)) - pos_set
+
+
+def test_nan_category_routes_right():
+    X, y, _ = cat_data(seed=3)
+    b = booster.train(booster.TrainParams(
+        objective="binary", num_iterations=2, num_leaves=4, min_data_in_leaf=5,
+        categorical_feature=(0,)), X, y, device="cpu")
+    t = b.trees[0][0]
+    assert t.cat_sets[0] is not None
+    Xq = X[:50].copy()
+    Xq[:, 0] = np.nan
+    node = predict.leaf_nodes(dataclasses.replace(
+        t, feature=np.where(np.arange(len(t.feature)) == 0, t.feature, -1)),
+        Xq)
+    assert (node == t.right[0]).all()
+    ens = predict.DeviceEnsemble(b.trees, 1, device="cpu")
+    np.testing.assert_allclose(ens.predict_raw(Xq), predict.predict_ensemble(
+        b.trees, Xq, 1), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["gemm", "gather"])
+def test_categorical_device_predict_matches_host(impl):
+    """The reference's ``test_device_predict_matches_host``: a categorical
+    forest has no GEMM form, so either ``impl`` runs the gather loop's
+    membership test."""
+    X, y, _ = cat_data(seed=5)
+    X[::11, 0] = np.nan
+    X[::13, 0] = 40.0                            # an unseen category
+    b = booster.train(booster.TrainParams(
+        objective="binary", num_iterations=5, num_leaves=7, min_data_in_leaf=5,
+        categorical_feature=(0,)), X, y, device="cpu")
+    ens = predict.DeviceEnsemble(b.trees, 1, device="cpu", impl=impl)
+    assert ens.impl == "gather" and ens.cat_vals is not None
+    host = predict.predict_ensemble(b.trees, X, 1)
+    np.testing.assert_allclose(ens.predict_raw(X.astype(np.float32)), host,
+                               rtol=1e-5, atol=1e-5)
+    rb = convert.booster_from_reference(b.to_string())
+    ref = ref_predict.DeviceEnsemble(rb.trees, 1).predict_raw(
+        X.astype(np.float32))
+    np.testing.assert_allclose(ens.predict_raw(X.astype(np.float32)), ref,
+                               rtol=0, atol=1e-6)
+
+
+def test_categorical_large_sets_score_on_the_host(caplog):
+    """Past 256 values in one set the ensemble keeps the reference's host
+    traversal, logs it, and has no device program."""
+    text = _cat_text(list(range(0, 600, 2)))
+    b = lgbm_format.from_lightgbm_string(text)
+    with caplog.at_level("WARNING"):
+        ens = predict.DeviceEnsemble(b.trees, 1, device="cpu")
+    assert ens.cat_host_fallback and ens.device_forward() is None
+    assert "scored on the host" in caplog.text
+    X = np.array([[4.0], [5.0], [598.0], [np.nan], [700.0]])
+    np.testing.assert_array_equal(ens.predict_raw(X)[:, 0],
+                                  [1.0, -1.0, 1.0, -1.0, -1.0])
+
+
+def _cat_text(cats) -> str:
+    """A hand-written v3 model with one categorical split: ``cats`` left
+    (leaf 1.0), everything else right (leaf -1.0)."""
+    words = np.zeros(max(cats) // 32 + 1, dtype=np.uint64)
+    for c in cats:
+        words[c // 32] |= np.uint64(1) << np.uint64(c % 32)
+    return (
+        "tree\nversion=v3\nnum_class=1\nnum_tree_per_iteration=1\n"
+        "label_index=0\nmax_feature_idx=0\nobjective=regression\n"
+        "feature_names=c\nfeature_infos=none\ntree_sizes=100\n\n"
+        "Tree=0\nnum_leaves=2\nnum_cat=1\nsplit_feature=0\n"
+        "split_gain=1\nthreshold=0\ndecision_type=1\n"
+        "left_child=-1\nright_child=-2\n"
+        f"cat_boundaries=0 {len(words)}\n"
+        f"cat_threshold={' '.join(str(int(w)) for w in words)}\n"
+        "leaf_value=1 -1\nleaf_weight=1 1\nleaf_count=1 1\n"
+        "internal_value=0\ninternal_weight=2\ninternal_count=2\n"
+        "shrinkage=1\n\n\nend of trees\n")
+
+
+def test_categorical_fixture_import():
+    """The reference's hand-written v3 fixture: categories {2, 5} left."""
+    b = lgbm_format.from_lightgbm_string(_cat_text([2, 5]))
+    X = np.array([[2.0], [5.0], [3.0], [0.0], [np.nan], [7.0]])
+    expect = [1.0, 1.0, -1.0, -1.0, -1.0, -1.0]
+    np.testing.assert_allclose(b.raw_predict(X), expect)
+    ens = predict.DeviceEnsemble(b.trees, 1, device="cpu")
+    np.testing.assert_allclose(ens.predict_raw(X)[:, 0], expect)
+
+
+@pytest.mark.parametrize("fmt", ["json", "text"])
+def test_categorical_round_trips(fmt):
+    X, y, _ = cat_data(seed=7 if fmt == "json" else 8)
+    b = booster.train(booster.TrainParams(
+        objective="binary", num_iterations=3, num_leaves=7, min_data_in_leaf=5,
+        categorical_feature=(0,)), X, y, device="cpu")
+    if fmt == "json":
+        b2 = booster.Booster.from_string(b.to_string())
+        np.testing.assert_array_equal(b2.raw_predict(X), b.raw_predict(X))
+        return
+    text = lgbm_format.to_lightgbm_string(b)
+    assert "num_cat=" in text and "cat_boundaries=" in text
+    assert "cat_threshold=" in text
+    imported = lgbm_format.from_lightgbm_string(text)
+    np.testing.assert_allclose(imported.raw_predict(X), b.raw_predict(X),
+                               rtol=1e-9, atol=1e-9)
+    assert lgbm_format.to_lightgbm_string(imported) != text   # folded bias
+    assert lgbm_format.to_lightgbm_string(
+        lgbm_format.from_lightgbm_string(lgbm_format.to_lightgbm_string(
+            imported))) == lgbm_format.to_lightgbm_string(imported)
+
+
+def test_negative_category_export_rejected():
+    X, y, _ = cat_data(seed=9)
+    X[:, 0] -= 6
+    b = booster.train(booster.TrainParams(
+        objective="binary", num_iterations=2, num_leaves=4, min_data_in_leaf=5,
+        categorical_feature=(0,)), X, y, device="cpu")
+    assert any(t.cat_sets is not None for g in b.trees for t in g)
+    with pytest.raises(ValueError, match="negative"):
+        lgbm_format.to_lightgbm_string(b)
+
+
+@pytest.mark.parametrize("by", ["indexes", "names"])
+def test_categorical_slots_on_the_stage(ref_device_path, by):
+    """``categoricalSlotIndexes`` and ``categoricalSlotNames`` (through the
+    features column's slot_names metadata) pick the same feature; the
+    port's stage fits the reference's trees and saves a text model that
+    loads back."""
+    X, y, _ = cat_data(seed=11)
+    kw = dict(numIterations=4, numLeaves=4, minDataInLeaf=5, labelCol="label")
+    kw.update({"categoricalSlotIndexes": [0]} if by == "indexes"
+              else {"categoricalSlotNames": ["carrier"]})
+    frames = []
+    for cls in (RefDataFrame, DataFrame):
+        df = cls.from_dict({"features": [r for r in X], "label": y})
+        df.schema.meta("features")["slot_names"] = ["carrier", "x1", "x2"]
+        frames.append(df)
+    rm = ref_stages.LightGBMClassifier(**kw).fit(frames[0])
+    with use_device("cpu"):
+        pm = stages.LightGBMClassifier(**kw).fit(frames[1])
+        pred = np.asarray(pm.transform(frames[1]).column("prediction"))
+    assert pm.booster.params.categorical_feature == (0,)
+    _assert_same_cat_forest(rm.booster, pm.booster)
+    assert (pred == y).mean() > 0.9
+
+
+def test_categorical_slot_names_need_metadata():
+    X, y, _ = cat_data(seed=11, n=200)
+    df = DataFrame.from_dict({"features": [r for r in X], "label": y})
+    with use_device("cpu"), pytest.raises(ValueError, match="slot_names"):
+        stages.LightGBMClassifier(categoricalSlotNames=["a"]).fit(df)
+    df.schema.meta("features")["slot_names"] = ["a", "b", "c"]
+    with use_device("cpu"), pytest.raises(KeyError, match="zz"):
+        stages.LightGBMClassifier(categoricalSlotNames=["zz"]).fit(df)
+
+
+def test_categorical_model_carried_from_reference(ref_device_path):
+    """A categorical model the JAX package trained scores the same in the
+    port, through its JSON and through arrays with a categorical mapper."""
+    rb, _, X, _ = _cat_fit_pair("device_vs_host")
+    pb = convert.booster_from_reference(rb.to_string())
+    _assert_same_cat_forest(rb, pb)
+    np.testing.assert_array_equal(pb.raw_predict(X), rb.raw_predict(X))
+    m = rb.bin_mapper
+    trees = [[{k: getattr(t, k) for k in ("feature", "threshold", "threshold_bin",
+                                           "default_left", "left", "right", "value",
+                                           "gain", "count", "shrinkage", "cat_sets",
+                                           "cat_bin_words")}
+              for t in g] for g in rb.trees]
+    pa = convert.booster_from_arrays(dataclasses.asdict(rb.params), rb.base_score,
+                                     m.edges, trees, categorical=m.categorical,
+                                     categories=m.categories)
+    _assert_same_cat_forest(rb, pa)
+    assert pa.bin_mapper.categorical == list(m.categorical)
+    np.testing.assert_array_equal(pa.raw_predict(X), rb.raw_predict(X))
+    np.testing.assert_array_equal(pa.bin_mapper.transform(X), m.transform(X))
+
+
+# ------------------------------------------------ LightGBM text interchange
+
+
+def _synth(n=300, d=5, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d))
+    return X, (X[:, 0] + 0.5 * X[:, 1] > 0).astype(np.float64)
+
+
+def _port_fit(objective, X, y, **kw):
+    return booster.train(booster.TrainParams(objective=objective, **kw), X, y,
+                         device="cpu")
+
+
+@pytest.mark.parametrize("case", ["binary", "regression", "multiclass",
+                                  "missing", "stumps", "categorical"])
+def test_lightgbm_text_matches_reference_bytes(ref_device_path, case):
+    """The port's text of a model the JAX package trained is the
+    reference's, byte for byte; each package reads the other's text and
+    scores it alike; and the port's own fit round-trips (raw scores and
+    probabilities within 1e-9, as the reference's tests hold)."""
+    from mmlspark_tpu.gbdt import lgbm_format as ref_fmt
+
+    X, y = _synth(seed=3)
+    kw = dict(num_iterations=5, num_leaves=7, min_data_in_leaf=5)
+    obj = {"missing": "binary", "categorical": "binary", "stumps": "regression"
+           }.get(case, case)
+    if case == "regression":
+        y = X[:, 0] * 2.0 + X[:, 2] + 0.1
+    if case == "multiclass":
+        y = (X[:, 0] > 0).astype(np.float64) + (X[:, 1] > 0.5)
+        kw["num_class"] = 3
+    if case == "missing":
+        X[::7, 0] = np.nan
+    if case == "stumps":
+        y, kw = np.ones(len(y)), dict(num_iterations=2, num_leaves=4)
+    if case == "categorical":
+        X, y, _ = cat_data(seed=8)
+        kw["categorical_feature"] = (0,)
+    rb = ref_booster.train(ref_booster.TrainParams(objective=obj, **kw), X, y)
+    pb = convert.booster_from_reference(rb.to_string())
+    text = lgbm_format.to_lightgbm_string(pb)
+    assert text == ref_fmt.to_lightgbm_string(rb)
+    Xq = X.copy()
+    Xq[1::3, 2] = np.nan
+    ref_read = ref_fmt.from_lightgbm_string(text)
+    port_read = lgbm_format.from_lightgbm_string(text)
+    np.testing.assert_array_equal(port_read.raw_predict(Xq),
+                                  ref_read.raw_predict(Xq))
+    np.testing.assert_allclose(port_read.raw_predict(Xq), rb.raw_predict(Xq),
+                               rtol=1e-9, atol=1e-9)
+    own = _port_fit(obj, X, y, **kw)
+    own_text = lgbm_format.to_lightgbm_string(own)
+    assert own_text.startswith("tree\nversion=v3\n")
+    again = ref_fmt.from_lightgbm_string(own_text)
+    np.testing.assert_allclose(again.raw_predict(Xq), own.raw_predict(Xq),
+                               rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(lgbm_format.from_lightgbm_string(own_text)
+                               .predict_proba(Xq), own.predict_proba(Xq),
+                               rtol=1e-9, atol=1e-9)
+
+
+def test_tree_sizes_match_blocks():
+    X, y = _synth()
+    text = lgbm_format.to_lightgbm_string(
+        _port_fit("binary", X, y, num_iterations=3, num_leaves=7,
+                  min_data_in_leaf=5))
+    sizes = [int(s) for s in next(line for line in text.splitlines()
+                                  if line.startswith("tree_sizes="))
+             .split("=")[1].split()]
+    body = text.split("tree_sizes=")[1].split("\n", 1)[1]
+    for i, size in enumerate(sizes):
+        block = body[body.index(f"Tree={i}\n"):]
+        assert size == len(block[:block.index("\n\n")].encode()) + 2, i
+
+
+def _fixture_text():
+    with open(os.path.join(RES, "lgbm_v3_binary.txt")) as f:
+        return f.read()
+
+
+def test_v3_fixture_predictions():
+    """``tests/resources/lgbm_v3_binary.txt`` and its hand-computed scores,
+    on the host and through the device ensemble, re-exported too."""
+    b = lgbm_format.from_lightgbm_string(_fixture_text())
+    assert b.params.objective == "binary" and len(b.trees) == 2
+    X = np.array([[0.0, 0.0, -2.0], [1.0, 1.0, 0.0], [1.0, 2.0, -2.0],
+                  [np.nan, 2.0, 0.0], [0.0, 0.0, np.nan]])
+    expect = [0.3, -0.4, 0.8, 0.6, 0.3]
+    np.testing.assert_allclose(b.raw_predict(X), expect, atol=1e-12)
+    ens = predict.DeviceEnsemble(b.trees, 1, device="cpu")
+    np.testing.assert_allclose(ens.predict_raw(X)[:, 0], expect, atol=1e-6)
+    again = lgbm_format.from_lightgbm_string(lgbm_format.to_lightgbm_string(b))
+    Xr = np.random.default_rng(1).normal(size=(100, 3))
+    np.testing.assert_allclose(again.raw_predict(Xr), b.raw_predict(Xr),
+                               atol=1e-12)
+
+
+def _minimal(version="v3", header_extra="", tree_extra="", dt="0",
+             thr="0.5"):
+    return (f"tree\nversion={version}\nnum_class=1\n"
+            "num_tree_per_iteration=1\n"
+            "label_index=0\nmax_feature_idx=0\nobjective=regression\n"
+            f"{header_extra}"
+            "feature_names=a\nfeature_infos=none\ntree_sizes=100\n\n"
+            f"Tree=0\nnum_leaves=2\nnum_cat=0\n{tree_extra}split_feature=0\n"
+            f"split_gain=1\nthreshold={thr}\ndecision_type={dt}\n"
+            "left_child=-1\nright_child=-2\nleaf_value=1 2\n"
+            "leaf_weight=1.5 2.5\nleaf_count=1 1\ninternal_value=0\n"
+            "internal_weight=4.0\ninternal_count=2\nshrinkage=1\n\n\n"
+            "end of trees\n")
+
+
+@pytest.mark.parametrize("version,ok", [("v2", True), ("v3", True),
+                                        ("v4", True), ("v5", False),
+                                        ("", False), ("3", False),
+                                        (None, False)])
+def test_text_version_matrix(version, ok):
+    text = _minimal("v3" if version is None else version)
+    if version is None:
+        text = text.replace("version=v3\n", "")
+    if not ok:
+        with pytest.raises(ValueError, match="version"):
+            lgbm_format.from_lightgbm_string(text)
+        return
+    b = lgbm_format.from_lightgbm_string(text)
+    np.testing.assert_allclose(b.raw_predict(np.array([[0.0]])), [1.0])
+
+
+@pytest.mark.parametrize("text,match", [
+    (_minimal("v4", header_extra="linear_tree=1\n"), "linear"),
+    (_minimal("v4", tree_extra="is_linear=1\n"), "linear"),
+    ("", "LightGBM"), ("   \n  ", "LightGBM"),
+    (_minimal(dt="1").replace("num_cat=0", "num_cat=1"), "categorical"),
+])
+def test_text_rejections(text, match):
+    """Linear trees, empty strings and a categorical bit without its
+    bitsets are refused, as in the reference."""
+    with pytest.raises(ValueError, match=match):
+        lgbm_format.from_lightgbm_string(text)
+
+
+@pytest.mark.parametrize("thr,dt,expect", [("0.5", "0", 1.0), ("-0.5", "0", 2.0),
+                                           ("0.5", "8", 2.0), ("-0.5", "10", 1.0)])
+def test_text_missing_type(thr, dt, expect):
+    """missing type None reads NaN as 0.0; NaN type follows the default
+    bit; on the host and on the device ensemble alike."""
+    b = lgbm_format.from_lightgbm_string(_minimal(dt=dt, thr=thr))
+    X = np.array([[np.nan]])
+    np.testing.assert_allclose(b.raw_predict(X), [expect])
+    np.testing.assert_allclose(predict.DeviceEnsemble(
+        b.trees, 1, device="cpu").predict_raw(X)[:, 0], [expect])
+
+
+def test_text_missing_type_zero_warns():
+    with pytest.warns(RuntimeWarning, match="missing_type=Zero"):
+        lgbm_format.from_lightgbm_string(_minimal(dt="4"))
+
+
+def test_text_leaf_weight():
+    """Export writes hessian sums as leaf_weight and import reads them."""
+    b = lgbm_format.from_lightgbm_string(_minimal())
+    t = b.trees[0][0]
+    np.testing.assert_allclose(sorted(t.weight[t.feature == -1]), [1.5, 2.5])
+    np.testing.assert_allclose(t.weight[t.feature >= 0], [4.0])
+    X, y = _synth()
+    fit = _port_fit("binary", X, y, num_iterations=2, num_leaves=7,
+                    min_data_in_leaf=5)
+    tree0 = fit.trees[0][0]
+    leaves = tree0.feature == -1
+    assert (tree0.weight[leaves] < tree0.count[leaves]).all()
+    text = lgbm_format.to_lightgbm_string(fit)
+    line = next(ln for ln in text.splitlines() if ln.startswith("leaf_weight="))
+    np.testing.assert_allclose(sorted(float(v) for v in line[12:].split()),
+                               sorted(tree0.weight[leaves]), rtol=1e-5)
+    it = lgbm_format.from_lightgbm_string(text).trees[0][0]
+    np.testing.assert_allclose(sorted(it.weight[it.feature == -1]),
+                               sorted(tree0.weight[leaves]), rtol=1e-5)
+
+
+def test_native_model_api_on_the_stage(tmp_path):
+    """save_native_model writes v3 text; load_native_model_from_file /
+    _from_string score it; importances and the model string are the
+    booster's."""
+    X, y = _synth()
+    df = DataFrame.from_dict({"features": [r for r in X], "label": y})
+    with use_device("cpu"):
+        model = stages.LightGBMClassifier(numIterations=3, numLeaves=7,
+                                          labelCol="label").fit(df)
+        path = str(tmp_path / "native" / "model.txt")
+        model.save_native_model(path)
+        with pytest.raises(FileExistsError):
+            model.save_native_model(path, overwrite=False)
+        loaded = stages.LightGBMClassificationModel.load_native_model_from_file(
+            path, featuresCol="features")
+        out = np.stack(list(loaded.transform(df).column("rawPrediction")))
+    with open(path) as f:
+        assert f.read().startswith("tree\nversion=v3\n")
+    np.testing.assert_allclose(out[:, 1], model.booster.raw_predict(X),
+                               rtol=1e-6, atol=1e-6)
+    imp = model.get_feature_importances()
+    assert len(imp) == 5 and sum(imp) == sum(
+        int((t.feature >= 0).sum()) for g in model.booster.trees for t in g)
+    assert model.get_feature_importances("gain")[0] > 0
+    assert model.get_model_string() == model.booster.to_string()
+    fixture = stages.LightGBMClassificationModel.load_native_model_from_string(
+        _fixture_text(), featuresCol="features")
+    np.testing.assert_allclose(fixture.booster.raw_predict(
+        np.array([[0.0, 0.0, -2.0]])), [0.3], atol=1e-12)
+
+
+@pytest.mark.parametrize("source", ["text", "json", "categorical_text"])
+def test_model_string_continuation_matches_reference(ref_device_path, source):
+    """``modelString`` takes LightGBM text or the Booster's JSON and the fit
+    continues it: 3 + 2 iterations, the reference's trees and scores."""
+    from mmlspark_tpu.gbdt import lgbm_format as ref_fmt
+
+    X, _ = _synth()
+    y = X[:, 0] * 2.0
+    est_kw = dict(numIterations=3, numLeaves=7, labelCol="label")
+    if source == "categorical_text":
+        X, y, _ = cat_data(seed=12, n=400)
+        est_kw.update(categoricalSlotIndexes=[0], minDataInLeaf=5)
+    rdf = RefDataFrame.from_dict({"features": [r for r in X], "label": y})
+    pdf = DataFrame.from_dict({"features": [r for r in X], "label": y})
+    cls = "LightGBMRegressor" if source != "categorical_text" \
+        else "LightGBMClassifier"
+    r1 = getattr(ref_stages, cls)(**est_kw).fit(rdf)
+    ms = r1.get_model_string() if source == "json" \
+        else ref_fmt.to_lightgbm_string(r1.booster)
+    est_kw["numIterations"] = 2
+    r2 = getattr(ref_stages, cls)(**est_kw, modelString=ms).fit(rdf)
+    with use_device("cpu"):
+        p2 = getattr(stages, cls)(**est_kw, modelString=ms).fit(pdf)
+    assert len(p2.booster.trees) == len(r2.booster.trees) == 5
+    _assert_same_cat_forest(r2.booster, p2.booster)
+    np.testing.assert_allclose(p2.booster.raw_predict(X),
+                               r2.booster.raw_predict(X), rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------------------------ checkpointed training
+
+
+def _ckpt_data(n=300, f=6, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, f))
+    logit = X[:, 0] * 2 - X[:, 1] + 0.5 * X[:, 2] * X[:, 0]
+    return X, (logit + rng.normal(scale=0.3, size=n) > 0).astype(np.float64)
+
+
+def _ckpt_params(**kw):
+    base = dict(objective="binary", num_iterations=8, num_leaves=7,
+                min_data_in_leaf=5, bagging_fraction=0.8, bagging_freq=1,
+                seed=3)
+    base.update(kw)
+    return base
+
+
+class _FaultAt:
+    """Installs a TRAIN_STEP hook that raises at the ``at``-th call (the
+    reference's ``FaultInjector.plan(TRAIN_STEP, at=(k,))``)."""
+
+    def __init__(self, at: int):
+        self.at, self.calls = at, 0
+
+    def __call__(self, point, **ctx):
+        from mmlspark_tpu_torch.core import faults
+
+        if point == faults.TRAIN_STEP:
+            self.calls += 1
+            if self.calls == self.at:
+                raise faults.InjectedFault("injected preemption")
+
+    def __enter__(self):
+        from mmlspark_tpu_torch.core import faults
+
+        self.prev = faults.install(self)
+        return self
+
+    def __exit__(self, *exc):
+        from mmlspark_tpu_torch.core import faults
+
+        faults.install(self.prev)
+
+
+@pytest.mark.parametrize("extra", [{}, {"categorical_feature": (3,)}])
+def test_interrupted_resume_is_identical(tmp_path, extra):
+    """A fit preempted at its 6th iteration and resumed from the checkpoint
+    of iteration 3 gives the uninterrupted fit's model, string for string."""
+    from mmlspark_tpu_torch.core.faults import InjectedFault
+    from mmlspark_tpu_torch.gbdt.checkpoint import (CheckpointConfig,
+                                                    load_checkpoint)
+
+    X, y = _ckpt_data()
+    if extra:
+        X[:, 3] = np.round(np.abs(X[:, 3]) * 4)
+    p = booster.TrainParams(**_ckpt_params(**extra))
+    full = booster.train(p, X, y, device="cpu", checkpoint=CheckpointConfig(
+        str(tmp_path / "full.ckpt"), every_k=3))
+    ckpt = str(tmp_path / "interrupted.ckpt")
+    with _FaultAt(6), pytest.raises(InjectedFault):
+        booster.train(p, X, y, device="cpu",
+                      checkpoint=CheckpointConfig(ckpt, every_k=3))
+    assert load_checkpoint(ckpt)["iteration"] == 3
+    resumed = booster.train(p, X, y, device="cpu",
+                            checkpoint=CheckpointConfig(ckpt, every_k=3))
+    assert resumed.to_string() == full.to_string()
+    np.testing.assert_array_equal(resumed.raw_predict(X), full.raw_predict(X))
+
+
+def test_checkpoint_cadence_and_final(tmp_path, monkeypatch):
+    """Every ``every_k`` iterations and once more at the end."""
+    from mmlspark_tpu_torch.gbdt.checkpoint import (CheckpointConfig,
+                                                    load_checkpoint)
+
+    X, y = _ckpt_data()
+    ckpt = str(tmp_path / "m.ckpt")
+    seen, orig = [], booster.save_checkpoint
+    monkeypatch.setattr(booster, "save_checkpoint", lambda path, **kw: (
+        seen.append(kw["iteration"]), orig(path, **kw)))
+    booster.train(booster.TrainParams(**_ckpt_params()), X, y, device="cpu",
+                  checkpoint=CheckpointConfig(ckpt, every_k=3))
+    assert seen == [3, 6, 8]
+    assert load_checkpoint(ckpt)["iteration"] == 8
+
+
+def test_param_mismatch_refuses_resume(tmp_path):
+    from mmlspark_tpu_torch.gbdt.checkpoint import CheckpointConfig
+
+    X, y = _ckpt_data()
+    ckpt = str(tmp_path / "m.ckpt")
+    booster.train(booster.TrainParams(**_ckpt_params()), X, y, device="cpu",
+                  checkpoint=CheckpointConfig(ckpt, every_k=3))
+    with pytest.raises(ValueError, match="different train params"):
+        booster.train(booster.TrainParams(**_ckpt_params(learning_rate=0.27)),
+                      X, y, device="cpu",
+                      checkpoint=CheckpointConfig(ckpt, every_k=3))
+
+
+def test_atomicity_survives_crash_mid_save(tmp_path, monkeypatch):
+    """A crash inside the checkpoint write leaves the previous complete
+    checkpoint (temporary file + rename: never a torn file)."""
+    import errno
+
+    from mmlspark_tpu_torch.gbdt.checkpoint import (load_checkpoint,
+                                                    save_checkpoint)
+
+    path = str(tmp_path / "c.ckpt")
+    args = dict(params_dict={"a": 1}, model_string="tree v1",
+                scores=np.zeros((4, 1)), rng_state={"s": 1},
+                bag_mask=np.ones(4, dtype=bool), best_val=0.5,
+                best_iter=2, rounds_no_improve=0)
+    save_checkpoint(path, iteration=3, **args)
+
+    def replace_boom(a, b):
+        raise OSError(errno.EIO, "injected crash mid-rename")
+
+    monkeypatch.setattr(os, "replace", replace_boom)
+    with pytest.raises(OSError):
+        save_checkpoint(path, iteration=4, **args)
+    monkeypatch.undo()
+    assert load_checkpoint(path)["iteration"] == 3
+    assert os.listdir(tmp_path) == ["c.ckpt"]
+
+
+def test_reference_checkpoint_resumes_in_the_port(ref_device_path, tmp_path):
+    """A checkpoint the JAX package wrote (preempted at its 6th iteration)
+    resumed by the port gives the trees of the reference's uninterrupted
+    fit; the port's own checkpoint carries the same fields."""
+    from mmlspark_tpu.core import faults as ref_faults
+    from mmlspark_tpu.gbdt import checkpoint as ref_ck
+    from mmlspark_tpu_torch.gbdt.checkpoint import (CheckpointConfig,
+                                                    load_checkpoint)
+
+    X, y = _ckpt_data()
+    kw = _ckpt_params()
+    ckpt = str(tmp_path / "ref.ckpt")
+    with ref_faults.FaultInjector(seed=0).plan(ref_faults.TRAIN_STEP, at=(6,)):
+        with pytest.raises(ref_faults.InjectedFault):
+            ref_booster.train(ref_booster.TrainParams(**kw), X, y,
+                              checkpoint=ref_ck.CheckpointConfig(ckpt, every_k=3))
+    assert ref_ck.load_checkpoint(ckpt)["iteration"] == 3
+    ref_full = ref_booster.train(ref_booster.TrainParams(**kw), X, y)
+    resumed = booster.train(booster.TrainParams(**kw), X, y, device="cpu",
+                            checkpoint=CheckpointConfig(ckpt, every_k=3))
+    _assert_same_forest(ref_full, resumed)
+    np.testing.assert_allclose(resumed.raw_predict(X), ref_full.raw_predict(X),
+                               rtol=1e-6, atol=1e-6)
+    mine = load_checkpoint(ckpt)
+    theirs = ref_ck.load_checkpoint(ckpt)
+    assert mine["iteration"] == 8 and "kahan" not in mine
+    assert set(mine) == set(theirs)

@@ -120,25 +120,64 @@ def test_entry_points_raise_without_cuda(no_cuda):
     assert len(out.column("prediction")) == 200
 
 
-@pytest.mark.parametrize("option", ["categorical", "checkpoint", "mesh",
-                                    "modelString"])
+@pytest.mark.parametrize("option", ["mesh"])
 def test_later_slices_raise_not_implemented(option):
-    """What a later slice still owns: categorical set splits, checkpointed
-    training, a mesh and LightGBM text models (``modelString``)."""
-    from mmlspark_tpu_torch.core.dataframe import DataFrame
-    from mmlspark_tpu_torch.gbdt import LightGBMClassifier, TrainParams, train
-    from mmlspark_tpu_torch.runtime import use_device
+    """What a later slice still owns: a mesh (ROADMAP A9)."""
+    from mmlspark_tpu_torch.gbdt import TrainParams, train
 
     X = np.zeros((64, 2))
     y = np.zeros(64)
-    if option == "modelString":
-        df = DataFrame.from_dict({"features": [r for r in X], "label": y})
-        with use_device("cpu"), pytest.raises(NotImplementedError,
-                                              match="ROADMAP A3"):
-            LightGBMClassifier(modelString="tree").fit(df)
-        return
-    kw = {"categorical": ({"categorical_feature": (0,)}, {}),
-          "checkpoint": ({}, {"checkpoint": object()}),
-          "mesh": ({}, {"mesh": object()})}[option]
-    with pytest.raises(NotImplementedError):
-        train(TrainParams(**kw[0]), X, y, device="cpu", **kw[1])
+    with pytest.raises(NotImplementedError, match="A9"):
+        train(TrainParams(), X, y, device="cpu", mesh=object())
+
+
+_LOAD_PROBE = r"""
+import json, sys
+import numpy as np
+from mmlspark_tpu_torch.core.dataframe import DataFrame
+from mmlspark_tpu_torch.core.pipeline import PipelineStage
+from mmlspark_tpu_torch.runtime import use_device
+stage = PipelineStage.load(sys.argv[1])
+X = np.load(sys.argv[2])
+with use_device("cpu"):
+    out = stage.transform(DataFrame.from_dict({"features": [r for r in X]}))
+raw = np.stack(list(out.column("rawPrediction")))
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "jaxlib", "mmlspark_tpu")
+             or k.startswith(("jax.", "jaxlib.", "mmlspark_tpu.")))
+print(json.dumps({"bad": bad, "raw": raw.tolist(), "cls": type(stage).__name__}))
+"""
+
+
+@pytest.mark.parametrize("what", ["categorical_model", "pipeline_model"])
+def test_loading_a_saved_stage_pulls_in_no_jax_and_no_reference(tmp_path,
+                                                                 what):
+    """A stage the port saved loads and scores in a fresh process without
+    importing ``jax`` or ``mmlspark_tpu``, with the scores it had."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.gbdt import LightGBMClassifier
+    from mmlspark_tpu_torch.runtime import use_device
+
+    rng = np.random.default_rng(3)
+    X = rng.standard_normal((300, 3))
+    X[:, 0] = rng.integers(0, 9, 300)
+    y = np.isin(X[:, 0], (1, 4, 6)).astype(np.float64)
+    df = DataFrame.from_dict({"features": [r for r in X], "label": y})
+    with use_device("cpu"):
+        model = LightGBMClassifier(numIterations=3, numLeaves=4, minDataInLeaf=5,
+                                   categoricalSlotIndexes=[0]).fit(df)
+        raw = np.stack(list(model.transform(df).column("rawPrediction")))
+    stage = model if what == "categorical_model" else PipelineModel([model]).fuse()
+    stage.save(str(tmp_path / "stage"))
+    np.save(tmp_path / "X.npy", X)
+    proc = subprocess.run([sys.executable, "-c", _LOAD_PROBE,
+                           str(tmp_path / "stage"), str(tmp_path / "X.npy")],
+                          cwd=str(ROOT), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    assert out["cls"] == ("LightGBMClassificationModel"
+                          if what == "categorical_model" else "PipelineModel")
+    np.testing.assert_array_equal(np.asarray(out["raw"]), raw)

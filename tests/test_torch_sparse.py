@@ -586,9 +586,10 @@ def test_train_sparse_variants_match_reference(numpy_csr_predict, case):
 
 @pytest.mark.parametrize("case", ["mesh", "categorical", "state_gate"])
 def test_train_sparse_later_slices_raise(monkeypatch, case):
-    """What the sparse fit still refuses: a mesh (a later slice), the per-split
-    host loop above the grower-state gate (a later slice) and categorical
-    features (the reference's own error)."""
+    """What the sparse fit refuses: a mesh and the per-split host loop above
+    the grower-state gate (later slices), and categorical features, which
+    are not a later slice: the reference refuses them on sparse rows too
+    (set splits need the dense bin space), and the port keeps its error."""
     _, _, pds = _datasets(200, 1 << 6, 5, seed=19)
     kw, err = {}, NotImplementedError
     if case == "mesh":
@@ -696,16 +697,47 @@ def test_stage_sparse_validation_and_batches_match(numpy_csr_predict, case):
         assert len(pmodel.booster.trees) == 12
 
 
-def test_stage_categorical_slots_raise_the_reference_error():
+@pytest.mark.parametrize("param", ["categoricalSlotIndexes",
+                                   "categoricalSlotNames"])
+def test_stage_categorical_slots_raise_the_reference_error(numpy_csr_predict,
+                                                           param):
+    """Sparse rows refuse categorical slots with the reference's message;
+    ``modelString`` continues a sparse fit as the reference's does, and a
+    categorical model refuses sparse rows in the fused pipeline as it does
+    unfused."""
     X, y = synth_sparse(200, 10, seed=23)
     rdf, pdf = _sparse_frames(X, y, 10)
+    value = [1] if param == "categoricalSlotIndexes" else ["f1"]
     with pytest.raises(ValueError) as ref_err:
-        ref_stages.LightGBMClassifier(categoricalSlotIndexes=[1]).fit(rdf)
+        ref_stages.LightGBMClassifier(**{param: value}).fit(rdf)
     with use_device("cpu"), pytest.raises(ValueError) as port_err:
-        stages.LightGBMClassifier(categoricalSlotIndexes=[1]).fit(pdf)
+        stages.LightGBMClassifier(**{param: value}).fit(pdf)
     assert str(port_err.value) == str(ref_err.value)
-    with use_device("cpu"), pytest.raises(NotImplementedError):
-        stages.LightGBMClassifier(modelString="{}").fit(pdf)
+    kw = dict(numIterations=2, numLeaves=4, minDataInLeaf=5)
+    r0 = ref_stages.LightGBMClassifier(**kw).fit(rdf)
+    rm = ref_stages.LightGBMClassifier(
+        **kw, modelString=r0.get_model_string()).fit(rdf)
+    with use_device("cpu"):
+        p0 = stages.LightGBMClassifier(**kw).fit(pdf)
+        pm = stages.LightGBMClassifier(
+            **kw, modelString=p0.get_model_string()).fit(pdf)
+        assert len(pm.booster.trees) == len(rm.booster.trees) == 4
+        for gr, gp in zip(rm.booster.trees, pm.booster.trees):
+            np.testing.assert_array_equal(gr[0].feature, gp[0].feature)
+            np.testing.assert_array_equal(gr[0].threshold, gp[0].threshold)
+        from mmlspark_tpu_torch.core.pipeline import PipelineModel
+
+        rng = np.random.default_rng(2)
+        Xc = np.column_stack([rng.integers(0, 5, 300), rng.standard_normal(300)])
+        dense = DataFrame.from_dict({"features": [r for r in Xc],
+                                     "label": (Xc[:, 0] % 2).astype(float)})
+        cat = stages.LightGBMClassifier(
+            **kw, categoricalSlotIndexes=[0]).fit(dense)
+        fused = PipelineModel([cat]).fuse()
+        fused.set_tuning(layout={"LightGBMClassificationModel": "csr"})
+        for run in (cat.transform, fused.transform):
+            with pytest.raises(ValueError, match="categorical"):
+                run(pdf.select("features")).collect()
 
 
 def test_sparse_fit_without_cuda_raises():
