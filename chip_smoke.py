@@ -152,6 +152,31 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
 11. transformer_fused: ``PipelineModel([dnn]).fuse()`` on the same rows
    (executor batch 64), bitwise-equal to the unfused output, with its
    seconds and ``fusion_stats()``.
+12. serving (``mmlspark_tpu_torch.serving`` on the card; after 8 while
+   its models are alive, and 15 after 11). serving_sparse: the sparse main
+   model through ``serve_pipeline(fused, fused=True, async_exec=True,
+   replicas=2, http_mode="async", max_batch_size=256)`` with the CSR layout
+   and ``forest.csr`` set: 4,096 of the scoring rows as CSR frames over 64
+   keep-alive connections; every reply 200, its probability within 1e-6
+   of the unfused transform and its class equal to the unfused prediction,
+   K3 launched, no host fallback and no densify; 256 of the rows
+   bitwise-equal across the 4 modes (thread/async transport x
+   serial/pipelined executor) and the 2 wires (JSON sparse dict, CSR
+   frame); ``/_mmlspark/metrics`` carries the wire counters and the card's
+   ``mmlspark_device_memory_bytes``; requests/s and client and server
+   latencies logged;
+13. serving_dense: the dense model served fused, 4,096 frames of 28 f64;
+   every reply the unfused probability bit for bit (no kernel of the port
+   runs here: the plain GEMM/gather traversal);
+14. serving_front: a ``RoutingFront`` over two such workers, 512 requests,
+   one worker stopped hard after 128 replies: every request answered 200
+   bit for bit by the survivor, apart from the reference's allowed 504 for
+   an unreplayed POST;
+15. serving_transformer: the encoder of 10 served through
+   ``serve_pipeline(PipelineModel([DNNModel(batchSize=64), frame reply]),
+   fused=True, async_exec=True)``: 128 int32 token frames, replies f32
+   frames held to the transformer gates of 10 against the transform of the
+   same rows; K5 launched at least 2 x 4 times; tokens/s logged.
 
 Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``, after a ``{"kernels": [...]}`` line that
@@ -159,7 +184,8 @@ lists K1-K5 (hist, select, csr_gather, sparse_hist, flash_attn), each with
 its launches on its main path, error against its plain version, ms,
 plain_ms, bound_ms, bound_by and library_ms, and its launches on the new
 paths (``launches_on_new_paths``: dense_variants, ranker_main,
-categorical_main, sparse_variants).
+categorical_main, sparse_variants, serving_sparse,
+serving_transformer).
 """
 
 from __future__ import annotations
@@ -2579,6 +2605,391 @@ def anchor_variants(torch, smi) -> int:
     return shk.launches
 
 
+# ---------------------------------------------------------------------------
+# serving: the HTTP server, the pipelined replica executor, the binary and
+# CSR wire and the routing front, on the card
+# ---------------------------------------------------------------------------
+
+SERVE_ROWS = 4096          # requests of the sparse and dense serving loads
+SERVE_CONNS = 64           # keep-alive client connections
+SERVE_CROSS_ROWS = 256     # rows replayed across the 4 modes x 2 wires
+SERVE_SEQ_REQUESTS = 128   # token frames of the transformer serving load
+FRONT_REQUESTS = 512       # requests through the routing front
+FRONT_KILL_AFTER = 128     # replies before one worker is stopped
+SERVE_PROBA_TOL = 1e-6     # the fused-CSR gate (``fused_sparse``)
+
+
+def http_load(address, bodies, headers, conns, timeout=300.0, on_reply=None):
+    """POST every body over ``conns`` keep-alive connections (one client
+    thread each, body i on connection i % conns); returns [(status, body,
+    seconds)] in body order. A transport error fails the phase."""
+    import http.client
+    import threading
+    from urllib.parse import urlsplit
+
+    parts = urlsplit(address)
+    path = parts.path or "/"
+    out = [None] * len(bodies)
+    errors = []
+
+    def run(k):
+        conn = http.client.HTTPConnection(parts.hostname, parts.port,
+                                          timeout=timeout)
+        try:
+            for i in range(k, len(bodies), conns):
+                t0 = time.perf_counter()
+                conn.request("POST", path, body=bodies[i], headers=headers)
+                resp = conn.getresponse()
+                out[i] = (resp.status, resp.read(), time.perf_counter() - t0)
+                if on_reply is not None:
+                    on_reply()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=run, args=(k,), daemon=True)
+               for k in range(min(conns, len(bodies)))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+    if errors or any(t.is_alive() for t in threads) or any(o is None for o in out):
+        fail(f"serving load at {address}: {errors[:3]}, "
+             f"{sum(o is None for o in out)} requests unanswered")
+    return out
+
+
+def http_get(address, path, timeout=60.0) -> bytes:
+    import urllib.request
+    from urllib.parse import urlsplit
+
+    parts = urlsplit(address)
+    with urllib.request.urlopen(f"http://{parts.netloc}{path}",
+                                timeout=timeout) as resp:
+        return resp.read()
+
+
+def latency_summary(replies, stats) -> dict:
+    """Client-side p50/p99 of the replies' round trips, the server's own
+    rolling-window decomposition, and the p99 bucket of its latency
+    histogram (the bucket whose upper edge the 99th percentile is under)."""
+    rt = np.array([r[2] for r in replies]) * 1e3
+    hist = stats.get("latency_histogram") or {}
+    p99_le = None
+    count = hist.get("count") or 0
+    for le, cum in (hist.get("buckets") or {}).items():
+        if count and cum >= 0.99 * count:
+            p99_le = le
+            break
+    return {"client_p50_ms": float(np.percentile(rt, 50)),
+            "client_p99_ms": float(np.percentile(rt, 99)),
+            "server_total_ms": stats.get("total_ms"),
+            "server_queue_ms": stats.get("queue_ms"),
+            "server_compute_ms": stats.get("compute_ms"),
+            "server_mean_batch": stats.get("mean_batch"),
+            "server_p99_bucket_le_s": p99_le}
+
+
+class FusionWatch:
+    """While active, counts what the fused executor did on every batch of
+    every replica: partitions that took the host fallback and sparse
+    columns that were densified (both must stay 0 on the CSR route)."""
+
+    def __enter__(self):
+        from mmlspark_tpu_torch.core import fusion
+        from mmlspark_tpu_torch.parallel import ingest
+
+        self.fusion, self.ingest = fusion, ingest
+        self.host = self.densify = 0
+        self.orig_host = fusion.SegmentExecutor._host_partition
+        self.orig_densify = ingest.IngestStats.note_densify
+        watch = self
+
+        def host(ex, *a, **kw):
+            watch.host += 1
+            return watch.orig_host(ex, *a, **kw)
+
+        def densify(st, *a, **kw):
+            watch.densify += 1
+            return watch.orig_densify(st, *a, **kw)
+
+        fusion.SegmentExecutor._host_partition = host
+        ingest.IngestStats.note_densify = densify
+        return self
+
+    def __exit__(self, *exc):
+        self.fusion.SegmentExecutor._host_partition = self.orig_host
+        self.ingest.IngestStats.note_densify = self.orig_densify
+
+
+def serving_sparse(torch, model, rows, smi) -> int:
+    """The sparse main model served fused with the CSR layout and
+    ``forest.csr``: 4,096 rows as CSR frames over 64 keep-alive
+    connections (async transport, pipelined executor, 2 replicas on the
+    card); every reply 200, its probability within ``SERVE_PROBA_TOL`` of
+    the unfused transform and its class (argmax of the served probability)
+    equal to the unfused prediction; K3 launched, no fallback and no
+    densify; 256 of the rows bitwise-equal across the 4 modes (thread/async
+    transport x serial/pipelined executor) and the 2 wires (JSON sparse
+    dict, CSR frame). Returns K3's launches under the main load."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.gbdt import gather_kernel as gk
+    from mmlspark_tpu_torch.io.binary import (FRAME_CONTENT_TYPE,
+                                              encode_csr_columns, encode_frame)
+    from mmlspark_tpu_torch.serving import serve_pipeline
+
+    label = "LightGBMClassificationModel"
+    sel = rows[:SERVE_ROWS]
+    unfused = model.transform(DataFrame.from_dict({"features": sel}))
+    want_p = np.stack(list(unfused.column("probability")))
+    want_pred = np.asarray(unfused.column("prediction"), dtype=np.float64)
+    frames = [encode_frame(encode_csr_columns(
+        "features", np.array([0, len(r["indices"])]), r["indices"], r["values"],
+        W_SPARSE)) for r in sel]
+    jsons = [json.dumps({"indices": np.asarray(r["indices"]).tolist(),
+                         "values": np.asarray(r["values"]).tolist(),
+                         "size": W_SPARSE}).encode() for r in sel[:SERVE_CROSS_ROWS]]
+    frame_hdr = {"Content-Type": FRAME_CONTENT_TYPE}
+    fused = PipelineModel([model]).fuse()
+    fused.set_tuning(layout={label: "csr"},
+                     kernel_variants={label: {"*": "forest.csr"}})
+
+    def server(http_mode="async", async_exec=True):
+        return serve_pipeline(fused, "features", reply_col="probability",
+                              fused=True, async_exec=async_exec, replicas=2,
+                              http_mode=http_mode, max_batch_size=256)
+
+    with FusionWatch() as watch:
+        srv = server()
+        with srv:
+            gk.launches = 0
+            t0 = time.perf_counter()
+            replies = http_load(srv.address, frames, frame_hdr, SERVE_CONNS)
+            wall = time.perf_counter() - t0
+            launches = gk.launches
+            stats = json.loads(http_get(srv.address, "/_mmlspark/stats"))
+            metrics = http_get(srv.address, "/_mmlspark/metrics").decode()
+        cross = {}
+        for http_mode in ("thread", "async"):
+            for async_exec in (False, True):
+                for wire, bodies, hdr in (("json", jsons, {}),
+                                          ("frame", frames[:SERVE_CROSS_ROWS],
+                                           frame_hdr)):
+                    with server(http_mode, async_exec) as s:
+                        out = http_load(s.address, bodies, hdr, 16)
+                    cross[f"{http_mode}/{'pipelined' if async_exec else 'serial'}"
+                          f"/{wire}"] = [o[:2] for o in out]
+    statuses = sorted({r[0] for r in replies})
+    got_p = np.array([json.loads(r[1]) for r in replies if r[0] == 200])
+    ok = statuses == [200] and got_p.shape == want_p.shape
+    diff = float(np.abs(got_p - want_p).max()) if ok else None
+    pred_equal = ok and np.array_equal(np.argmax(got_p, axis=1).astype(np.float64),
+                                       want_pred)
+    first = [r[:2] for r in replies[:SERVE_CROSS_ROWS]]
+    cross_equal = {k: v == first for k, v in cross.items()}
+    wire_in_metrics = 'mmlspark_wire_requests_total{format="binary"}' in metrics
+    mem_in_metrics = 'mmlspark_device_memory_bytes{device="cuda:0"' in metrics
+    log({"phase": "serving_sparse", "card": smi, "requests": len(frames),
+         "connections": SERVE_CONNS, "replicas": 2, "wall_seconds": wall,
+         "requests_per_s": len(frames) / wall, "statuses": statuses,
+         "k3_launches": launches, "host_fallbacks": watch.host,
+         "densifies": watch.densify, "max_abs_proba_diff_vs_unfused": diff,
+         "prediction_equal_unfused": bool(pred_equal),
+         "bitwise_across_modes_and_wires": cross_equal,
+         "metrics_have_wire_counters": wire_in_metrics,
+         "metrics_have_device_memory": mem_in_metrics,
+         "wire": stats.get("wire"), "async": stats.get("async"),
+         "ingest": stats.get("ingest"), **latency_summary(replies, stats)})
+    if not ok:
+        fail(f"serving_sparse: statuses {statuses}, replies {got_p.shape}")
+    if diff > SERVE_PROBA_TOL or not pred_equal:
+        fail(f"serving_sparse: served probability differs by {diff} "
+             f"(gate {SERVE_PROBA_TOL}) or the class differs from the unfused "
+             f"prediction ({pred_equal})")
+    if launches < 1 or watch.host or watch.densify:
+        fail(f"serving_sparse: K3 launched {launches} times, {watch.host} host "
+             f"fallbacks, {watch.densify} densifies")
+    if not all(cross_equal.values()):
+        fail(f"serving_sparse: replies differ across modes or wires: {cross_equal}")
+    if not (wire_in_metrics and mem_in_metrics):
+        fail("serving_sparse: /_mmlspark/metrics lacks the wire counters or "
+             "the card's device memory")
+    return launches
+
+
+def serving_dense(torch, model, X, smi):
+    """The dense HIGGS-shaped model served fused: 4,096 frames of 28 f64
+    values; every reply's probability bitwise-equal to the unfused
+    transform's. Scoring is the plain GEMM/gather traversal: no kernel of
+    the port runs on this path. Returns the fused model and the unfused
+    probabilities (the routing front serves them again)."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.io.binary import FRAME_CONTENT_TYPE, encode_frame
+    from mmlspark_tpu_torch.serving import serve_pipeline
+
+    sel = X[:SERVE_ROWS]
+    unfused = model.transform(DataFrame.from_dict({"features": sel}))
+    want = [json.dumps(np.asarray(p).tolist()).encode()
+            for p in unfused.column("probability")]
+    frames = [encode_frame({"x": np.asarray(r, dtype=np.float64)}) for r in sel]
+    fused = PipelineModel([model]).fuse()
+    with FusionWatch() as watch:
+        srv = serve_pipeline(fused, "features", reply_col="probability",
+                             fused=True, async_exec=True, replicas=2,
+                             http_mode="async", max_batch_size=256)
+        with srv:
+            t0 = time.perf_counter()
+            replies = http_load(srv.address, frames,
+                                {"Content-Type": FRAME_CONTENT_TYPE}, SERVE_CONNS)
+            wall = time.perf_counter() - t0
+            stats = json.loads(http_get(srv.address, "/_mmlspark/stats"))
+    same = sum(r[0] == 200 and r[1] == w for r, w in zip(replies, want))
+    log({"phase": "serving_dense", "card": smi, "requests": len(frames),
+         "wall_seconds": wall, "requests_per_s": len(frames) / wall,
+         "bitwise_equal_unfused": same, "host_fallbacks": watch.host,
+         "async": stats.get("async"), **latency_summary(replies, stats)})
+    if same != len(frames) or watch.host:
+        fail(f"serving_dense: {len(frames) - same} replies are not the unfused "
+             f"probability bit for bit ({watch.host} host fallbacks)")
+    return fused, want
+
+
+def serving_front(torch, fused, want, X, smi) -> None:
+    """A ``RoutingFront`` over two ``ServingServer`` workers on the card,
+    serving the dense model: 512 requests over 8 keep-alive connections to
+    the front; after 128 replies one worker is stopped hard (its transport
+    closes, as a crashed worker's would). Every request must be answered
+    200 with the unfused probability bit for bit, apart from what the
+    reference's routing contract allows: a 504 for a POST whose worker read
+    timed out (never replayed, non-idempotent)."""
+    import threading
+
+    from mmlspark_tpu_torch.io.binary import FRAME_CONTENT_TYPE, encode_frame
+    from mmlspark_tpu_torch.serving import RoutingFront, serve_pipeline
+
+    frames = [encode_frame({"x": np.asarray(r, dtype=np.float64)})
+              for r in X[:FRONT_REQUESTS]]
+    workers = [serve_pipeline(fused, "features", reply_col="probability",
+                              fused=True, async_exec=True, http_mode="async")
+               for _ in range(2)]
+    for w in workers:
+        w.start()
+    front = RoutingFront(http_mode="async", max_failures=2)
+    answered = [0]
+    lock = threading.Lock()
+    killed = threading.Event()
+
+    def on_reply():
+        with lock:
+            answered[0] += 1
+            kill = answered[0] == FRONT_KILL_AFTER
+        if kill:
+            workers[0].stop(drain=False)
+            killed.set()
+
+    try:
+        with front:
+            for w in workers:
+                front.register(w.address, capacity=w.capacity)
+            t0 = time.perf_counter()
+            replies = http_load(front.address, frames,
+                                {"Content-Type": FRAME_CONTENT_TYPE}, 8,
+                                on_reply=on_reply)
+            wall = time.perf_counter() - t0
+            states = front.worker_states
+            survivor_served = workers[1].requests_served
+            fstats = json.loads(http_get(front.address, "/_mmlspark/workers"))
+    finally:
+        for w in workers:
+            w.stop(drain=False)
+    ok = sum(r[0] == 200 and r[1] == w for r, w in zip(replies, want))
+    allowed = sum(r[0] == 504 and b"not replayed" in r[1] for r in replies)
+    log({"phase": "serving_front", "card": smi, "requests": len(frames),
+         "wall_seconds": wall, "killed_after": FRONT_KILL_AFTER,
+         "killed": killed.is_set(), "answered_200_bitwise": ok,
+         "allowed_504_unreplayed": allowed,
+         "other": len(frames) - ok - allowed,
+         "worker_states": states, "survivor_requests_served": survivor_served,
+         "front": fstats})
+    if not killed.is_set() or ok + allowed != len(frames) or ok == 0:
+        fail(f"serving_front: {len(frames) - ok - allowed} requests were not "
+             f"answered by the survivor (killed {killed.is_set()})")
+
+
+def _frame_reply_stage(col: str):
+    """Host stage for the transformer's serving phase: ``col`` as one
+    binary frame per row in the ``reply`` column (the encoder output is
+    4 MiB of f32 a row, which JSON text would turn into ~21 MB)."""
+    from mmlspark_tpu_torch.core.pipeline import Transformer
+    from mmlspark_tpu_torch.io.binary import encode_frame
+
+    class _FrameReplyStage(Transformer):
+        def transform(self, df):
+            return df.with_column("reply", lambda p: [
+                encode_frame({col: np.asarray(v)}) for v in p[col]])
+
+    return _FrameReplyStage()
+
+
+def serving_transformer(torch, stage, ids, unfused, smi) -> int:
+    """The sequence-benchmark encoder (dim 512, depth 4, 8 heads, vocab
+    32,000, seq_len 2048) served through ``serve_pipeline(DNNModel(
+    batchSize=64), fused=True, async_exec=True)``: 128 requests of int32
+    token frames, replies the encoder output as f32 frames. K5 must launch
+    at least 2 batches x 4 layers; every reply is held to the transformer
+    gates (1 - cosine ``COS_GAP_MAX``, max and mean |difference|
+    ``OUT_MAX_DIFF``, ``OUT_MEAN_DIFF``) against ``DNNModel.transform`` of
+    the same rows, not to bits: a served batch can hold other rows than the
+    transform's, and an f32 GEMM may take another cuBLAS algorithm at
+    another batch size. Returns K5's launches."""
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.io.binary import FRAME_CONTENT_TYPE, decode_frame, encode_frame
+    from mmlspark_tpu_torch.models import flash_kernel as fk
+    from mmlspark_tpu_torch.serving import serve_pipeline
+
+    n = SERVE_SEQ_REQUESTS
+    frames = [encode_frame({"tokens": ids[i].astype(np.int32)}) for i in range(n)]
+    chain = PipelineModel([stage, _frame_reply_stage("emb")])
+    srv = serve_pipeline(chain, "tokens", fused=True, async_exec=True,
+                         max_batch_size=SEQ_BATCH, http_mode="async")
+    with srv:
+        fk.launches = 0
+        t0 = time.perf_counter()
+        # every request in flight at once, so batches fill to 64 rows
+        replies = http_load(srv.address, frames,
+                            {"Content-Type": FRAME_CONTENT_TYPE}, n)
+        wall = time.perf_counter() - t0
+        launches = fk.launches
+        stats = json.loads(http_get(srv.address, "/_mmlspark/stats"))
+    statuses = sorted({r[0] for r in replies})
+    if statuses != [200]:
+        fail(f"serving_transformer: statuses {statuses}")
+    got = np.stack([decode_frame(r[1])["emb"] for r in replies])
+    want = unfused[:n]
+    cos = row_cosines(got, want)
+    diff = np.abs(got - want)
+    log({"phase": "serving_transformer", "card": smi, "requests": n,
+         "tokens": n * SEQ_LEN, "wall_seconds": wall,
+         "tokens_per_s": n * SEQ_LEN / wall, "k5_launches": launches,
+         "bitwise_rows": int(sum(np.array_equal(a, b) for a, b in zip(got, want))),
+         "cos_vs_transform_min": float(cos.min()),
+         "max_abs_diff_vs_transform": float(diff.max()),
+         "mean_abs_diff_vs_transform": float(diff.mean()),
+         "fusion": stats.get("fusion", {}).get("segments"),
+         **latency_summary(replies, stats)})
+    if launches < 2 * SEQ_DEPTH:
+        fail(f"serving_transformer: K5 launched {launches} times, expected at "
+             f"least {2 * SEQ_DEPTH}")
+    if not np.isfinite(got).all() or 1.0 - cos.min() > COS_GAP_MAX \
+            or diff.max() > OUT_MAX_DIFF or diff.mean() > OUT_MEAN_DIFF:
+        fail(f"serving_transformer: against DNNModel.transform, 1 - cosine "
+             f"{1.0 - cos.min()}, max |d| {diff.max()}, mean |d| {diff.mean()}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2618,10 +3029,22 @@ def main() -> int:
     launches["csr_gather"] = fused_sparse(torch, sparse_model, rows, smi)
     fused_dense(torch, dense_model, X_score, smi)
     fused_anchor(torch, *anchor)
-    del dense_model, sparse_model, rows, anchor, X_score
+    t_serve = time.perf_counter()
+    paths["serving_sparse"] = {"csr_gather": serving_sparse(
+        torch, sparse_model, rows, smi)}
+    fused, want = serving_dense(torch, dense_model, X_score, smi)
+    serving_front(torch, fused, want, X_score, smi)
+    serve_s = time.perf_counter() - t_serve
+    del dense_model, sparse_model, rows, anchor, X_score, fused, want
     kernels["flash_attn"] = attn_kernel_phase(torch)
     launches["flash_attn"], stage, df, out = transformer_main(torch, smi)
     transformer_fused(torch, stage, df, out, smi)
+    t_serve = time.perf_counter()
+    ids = np.asarray(list(df.column("tokens")))
+    paths["serving_transformer"] = {"flash_attn": serving_transformer(
+        torch, stage, ids, out, smi)}
+    serve_s += time.perf_counter() - t_serve
+    log({"phase": "serving", "seconds": serve_s})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []

@@ -9,8 +9,11 @@ CUDA unless the caller asks for the CPU (``runtime.use_device("cpu")`` or
 Ported so far: the LightGBM-equivalent GBDT fit -> transform
 (``mmlspark_tpu_torch.gbdt``) over the columnar DataFrame
 (``mmlspark_tpu_torch.core``), on dense feature vectors and on sparse (CSR)
-rows, with fused scoring (``core.fusion``); and transformer-encoder serving
-through the ``DNNModel`` stage (``mmlspark_tpu_torch.models``).
+rows, with fused scoring (``core.fusion``); transformer-encoder scoring
+through the ``DNNModel`` stage (``mmlspark_tpu_torch.models``); and serving
+of any fitted pipeline over HTTP (``mmlspark_tpu_torch.serving``, with the
+frame wire in ``mmlspark_tpu_torch.io`` and metrics, traces and SLOs in
+``mmlspark_tpu_torch.obs``).
 """
 
 __version__ = "0.1.0"

@@ -33,11 +33,17 @@ The fused program is an eager composition of torch ops (the reference traces
 it with ``jax.jit``); a stage's failure that is not ``FusionUnsupported`` —
 a kernel that does not build or launch, a CUDA error — propagates out of
 ``transform``: only the reference's documented reasons become a host
-fallback. Not ported yet (ROADMAP A4): the non-blocking ``submit_run`` and
-the K-step mega dispatch (serving, A5), sharding and pipe plans (A9), the
-cost model and Tuner, persistent caches, the SlotPool deposit path, and the
-obs trace spans; ``profiling.annotate`` becomes
-``torch.profiler.record_function``.
+fallback.
+
+``transform_submit`` / ``SegmentExecutor.submit_run`` are the serving
+executor's non-blocking split: the trailing segment dispatches on the
+calling thread's stream and a ``resolve()`` waits on that call's CUDA
+events alone, so replicas sharing a card do not serialise on each other
+(serving/executor.py). Not ported yet: the K-step mega dispatch
+(``set_tuning(mega_k=K)`` with K > 1 raises; a CUDA graph beside the Tuner,
+ROADMAP A step 6), the cost model and Tuner (A step 6), sharding and pipe
+plans (A step 9), persistent caches and the SlotPool deposit path;
+``profiling.annotate`` becomes ``torch.profiler.record_function``.
 """
 
 from __future__ import annotations
@@ -407,6 +413,26 @@ def _default_finalize(outs: Dict[str, np.ndarray], ctx: Dict) -> Dict[str, np.nd
 def _dtype_name(dt) -> str:
     """numpy-style dtype name of a tensor or array dtype ("float32")."""
     return str(dt).replace("torch.", "")
+
+
+class _PendingBatch:
+    """One submitted batch's readback: the host arrays (pinned tensors on
+    CUDA, still being written until ``done`` completes) and what must stay
+    alive until then (the step's outputs)."""
+
+    __slots__ = ("outs", "done", "keep")
+
+    def __init__(self, outs: Tuple[Any, ...], done=None, keep=None):
+        self.outs = outs
+        self.done = done
+        self.keep = keep
+
+    def wait(self) -> Tuple[Any, ...]:
+        """Block until this batch's copies have landed (its event alone)."""
+        if self.done is not None:
+            self.done.synchronize()
+            self.done = self.keep = None
+        return self.outs
 
 
 class SegmentExecutor:
@@ -783,6 +809,93 @@ class SegmentExecutor:
                 raise _HostFallback(str(e))
         return self._emit_partition(state, collected)
 
+    def _readback_async(self, handle) -> "_PendingBatch":
+        """Queue one dispatched batch's readback behind its step, on the
+        calling thread's current stream: each output (cropped to the valid
+        rows) copies into a pinned host buffer of its own, and a CUDA event
+        marks the end. The buffers belong to this batch alone, so a later
+        batch cannot overwrite them before ``resolve`` copies out."""
+        ys = self._fetch(handle)
+        if self.device.type != "cuda":
+            return _PendingBatch(tuple(y.numpy().copy() for y in ys))
+        hosts = tuple(torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+                      for y in ys)
+        for h, y in zip(hosts, ys):
+            h.copy_(y, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return _PendingBatch(hosts, done, keep=(handle, ys))
+
+    def submit_run(self, df: DataFrame, stats):
+        """Non-blocking segment execution: prep, stage and DISPATCH every
+        partition's batches now, on the calling thread's current stream,
+        each batch's readback queued behind it (``_readback_async``); the
+        returned zero-arg ``resolve()`` waits on those batches' events (not
+        on a stream, so another replica's work on the card is never waited
+        for), copies the outputs out and finalizes. ``resolve()`` output is
+        bitwise-identical to ``run()``: the same programs over the same
+        batches.
+
+        Host-fallback partitions (ragged/sparse/null/dtype violations)
+        execute synchronously at submit time -- never a wrong answer."""
+        from ..obs.trace import current_batch
+        from ..parallel.ingest import timed_stage
+
+        seg = self.segment
+        obs = current_batch()  # serving batch's trace binding (or None)
+        wall0 = time.perf_counter()
+        t_wall = time.time()
+        params = tuple(d.params for d in seg.dfns)
+        pendings: List[Tuple[str, Any, Any]] = []
+        for part in df.partitions:
+            try:
+                state = self._prep_partition(dict(part), stats)
+                handles = []
+                if state["n_valid"] > 0:
+                    step = self._make_step(params, state)
+                    for batch in self._batches(state, stats):
+                        staged, timing = timed_stage(self._put, batch)
+                        td = time.perf_counter()
+                        pending = self._readback_async(step(staged))
+                        timing.dispatch_s = time.perf_counter() - td
+                        handles.append((pending, timing))
+                pendings.append(("device", state, handles))
+            except (_HostFallback, FusionUnsupported) as e:
+                self.fallbacks.append(f"{seg.label}: {e}")
+                pendings.append(
+                    ("host", self._host_partition(part, df.schema), None))
+
+        def resolve() -> DataFrame:
+            out_parts: List[Dict[str, np.ndarray]] = []
+            for kind, payload, handles in pendings:
+                if kind == "host":
+                    out_parts.extend(payload)
+                    continue
+                state = payload
+                collected: Dict[str, List[np.ndarray]] = {
+                    k: [] for k in state["keys"]}
+                for pending, timing in handles:
+                    t0 = time.perf_counter()
+                    out = pending.wait()
+                    timing.compute_s = time.perf_counter() - t0
+                    timing.resolve_h2d()
+                    t1 = time.perf_counter()
+                    out = tuple(o.numpy().copy() if isinstance(o, torch.Tensor)
+                                else o for o in out)
+                    timing.readback_s = time.perf_counter() - t1
+                    stats.record(timing)
+                    for k, y in zip(state["keys"], out):
+                        collected[k].append(y)
+                out_parts.append(self._emit_partition(state, collected))
+            stats.add_wall(time.perf_counter() - wall0)
+            if obs is not None:
+                tracer, ctxs = obs
+                tracer.record_batch(f"segment:{seg.label}", ctxs, t_wall,
+                                    time.perf_counter() - wall0)
+            return self._overlay(df, out_parts)
+
+        return resolve
+
     def _emit_partition(self, state: Dict[str, Any],
                         collected: Dict[str, List[np.ndarray]]
                         ) -> Dict[str, np.ndarray]:
@@ -896,13 +1009,24 @@ class FusedPipelineModel(PipelineModel):
                    fuse: Optional[Dict[str, bool]] = None,
                    kernel_variants: Optional[Dict[str, Dict[Any, str]]] = None,
                    stitch: Optional[Dict[str, bool]] = None,
-                   layout: Optional[Dict[str, str]] = None) -> None:
+                   layout: Optional[Dict[str, str]] = None,
+                   mega_k: Optional[Dict[str, int]] = None) -> None:
         """Apply knobs: per-segment-label bucket sets, fuse-vs-demote
         overrides, per-segment kernel-variant maps ({label: {bucket|"*":
         variant id}}), per-stage-name stitch flags, and per-segment layouts
         ({label: "csr"}). Passing None leaves a knob unchanged; passing {}
         clears it. Cached plans are invalidated (built programs survive in
-        the CompileCache)."""
+        the CompileCache).
+
+        ``mega_k`` ({label: K}) is the reference's K-step mega dispatch;
+        K = 1 is the plain per-batch dispatch every segment runs. A K-step
+        program means capturing a CUDA graph, which belongs with the Tuner
+        (ROADMAP A step 6): any K > 1 raises ``NotImplementedError``."""
+        if mega_k is not None and any(int(k) > 1 for k in mega_k.values()):
+            raise NotImplementedError(
+                "K-step mega dispatch (mega_k > 1) is not ported yet: it "
+                "waits for CUDA-graph capture beside the Tuner (ROADMAP A "
+                "step 6)")
         if kernel_variants is not None:
             self._variant_overrides = {
                 str(k): dict(v) for k, v in kernel_variants.items() if v}
@@ -967,7 +1091,63 @@ class FusedPipelineModel(PipelineModel):
                 df = node.stage.transform(df)
         return df
 
+    def transform_submit(self, df: DataFrame):
+        """Non-blocking transform: run host stages and all but a TRAILING
+        fused segment now; the trailing segment's batches are staged and
+        dispatched on the calling thread's stream, and the returned
+        zero-arg ``resolve()`` waits on their events, reads back and
+        finalizes. ``transform_submit(df)()`` is bitwise-identical to
+        ``transform(df)`` -- the serving executor uses this split to
+        fulfill replies from its readback thread while the next batch
+        dispatches."""
+        from ..parallel.ingest import IngestStats
+        from ..runtime import default_device
+
+        device = default_device()
+        nodes = self._plan_for(df.schema, device)
+        self._last_plan = nodes
+        self._seg_stats = {}
+        self._last_fallbacks = []
+        tail = nodes[-1] if nodes and isinstance(nodes[-1], Segment) else None
+        body = nodes[:-1] if tail is not None else nodes
+        for node in body:
+            if isinstance(node, Segment):
+                stats = IngestStats()
+                self._seg_stats[node.label] = stats
+                ex = self._make_executor(node, device)
+                df = ex.run(df, stats)
+                self._last_fallbacks.extend(ex.fallbacks)
+            else:
+                df = node.stage.transform(df)
+        if tail is None:
+            out = df
+            return lambda: out
+        stats = IngestStats()
+        self._seg_stats[tail.label] = stats
+        ex = self._make_executor(tail, device)
+        resolve = ex.submit_run(df, stats)
+
+        def done() -> DataFrame:
+            out = resolve()
+            self._last_fallbacks.extend(ex.fallbacks)
+            return out
+
+        return done
+
     # -- stats surface ---------------------------------------------------
+    @property
+    def last_ingest_stats(self):
+        """Aggregated ingest decomposition across fused segments of the most
+        recent transform (None before the first / when nothing fused)."""
+        from ..parallel.ingest import IngestStats
+
+        if not self._seg_stats:
+            return None
+        agg = IngestStats()
+        for st in list(self._seg_stats.values()):
+            agg.merge(st)
+        return agg
+
     def fusion_stats(self) -> Dict[str, Any]:
         """Segment layout + per-segment ingest + compile-cache counters +
         per-program cost records (build seconds, first-call ms)."""

@@ -37,7 +37,7 @@ import dataclasses
 import logging
 import os
 import time
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -345,7 +345,9 @@ class _LightGBMModelBase(Model, HasFeaturesCol):
         booster = kwargs.pop("booster", None)
         super().__init__(**kwargs)
         self._booster: Optional[Booster] = booster
-        self._device_ensemble = None
+        # device string -> DeviceEnsemble: serving replicas on several
+        # cards each score with their own card's forest tensors
+        self._device_ensembles: Dict[str, Any] = {}
         if booster is not None:
             self.set("model", booster.to_string())
 
@@ -359,12 +361,15 @@ class _LightGBMModelBase(Model, HasFeaturesCol):
         from .predict import DeviceEnsemble
 
         dev = default_device()
-        if self._device_ensemble is None or self._device_ensemble.device != dev:
+        ens = self._device_ensembles.get(str(dev))
+        if ens is None:
             b = self.booster
             n_iter = b.best_iteration if b.best_iteration > 0 else len(b.trees)
-            self._device_ensemble = DeviceEnsemble(
-                b.trees[:n_iter], max(b.params.num_class, 1), device=dev)
-        return self._device_ensemble
+            built = DeviceEnsemble(b.trees[:n_iter],
+                                   max(b.params.num_class, 1), device=dev)
+            # two threads building at once keep the first one stored
+            ens = self._device_ensembles.setdefault(str(dev), built)
+        return ens
 
     def _raw_scores(self, part) -> np.ndarray:
         col = part[self.get_or_throw("featuresCol")]

@@ -1,0 +1,21 @@
+"""IO layer: the binary file reader, the columnar wire frame (dense and CSR
+sub-columns) and the HTTP client half.
+
+Counterpart of ``mmlspark_tpu.io.binary`` and the client part of
+``mmlspark_tpu.io.http``; the image reader, ``HTTPTransformer`` and its
+parsers, and the PowerBI writer wait for ROADMAP A step 10.
+"""
+
+from .binary import (FRAME_CONTENT_TYPE, BinaryFileReader, FrameError,
+                     decode_csr_columns, decode_frame, deposit_frame,
+                     encode_csr_columns, encode_frame, frame_info, is_frame,
+                     read_binary_files, validate_csr_triple)
+from .http import (HTTPRequestData, HTTPResponseData, parse_retry_after,
+                   send_request, send_with_retries)
+
+__all__ = ["BinaryFileReader", "FRAME_CONTENT_TYPE", "FrameError",
+           "HTTPRequestData", "HTTPResponseData", "decode_csr_columns",
+           "decode_frame", "deposit_frame", "encode_csr_columns",
+           "encode_frame", "frame_info", "is_frame", "parse_retry_after",
+           "read_binary_files", "send_request", "send_with_retries",
+           "validate_csr_triple"]

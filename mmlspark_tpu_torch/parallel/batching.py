@@ -4,7 +4,8 @@ Copy of ``stack_rows``, ``is_sparse_row``, ``sparse_width``,
 ``densify_sparse``, ``Batch``, ``next_bucket``, ``pad_batch``,
 ``Minibatcher``, ``_crop`` and ``concat_outputs`` from the reference's
 ``mmlspark_tpu/parallel/batching.py`` (the rest of that module — device
-prefetchers and batchers — waits for the serving slice).
+prefetchers and batchers — waits for ROADMAP A step 6, with the
+SlotPool; the serving slice batches in ``serving/server.py``).
 """
 
 from __future__ import annotations

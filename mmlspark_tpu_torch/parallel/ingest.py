@@ -241,6 +241,27 @@ class IngestStats:
         self.csr_dense_bytes += int(dense_bytes)
         self.csr_batches += 1
 
+    def merge(self, other: "IngestStats") -> None:
+        """Fold another stats object in (segment aggregation)."""
+        self.records.extend(other.records)
+        self.wall_s += other.wall_s
+        self.ring_depth = max(self.ring_depth, other.ring_depth)
+        self._occ_sum += other._occ_sum
+        self._occ_n += other._occ_n
+        self._occ_max = max(self._occ_max, other._occ_max)
+        for bucket, (batches, rows) in other._pad.items():
+            acc = self._pad.setdefault(bucket, [0, 0])
+            acc[0] += batches
+            acc[1] += rows
+        self.zero_copy_batches += other.zero_copy_batches
+        self.copied_batches += other.copied_batches
+        self.densified_bytes += other.densified_bytes
+        self.densify_nnz_bytes += other.densify_nnz_bytes
+        self.densifies += other.densifies
+        self.csr_nnz_bytes += other.csr_nnz_bytes
+        self.csr_dense_bytes += other.csr_dense_bytes
+        self.csr_batches += other.csr_batches
+
     def _pad_summary(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {}
         padding: Dict[str, Any] = {}

@@ -56,6 +56,32 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def requested_device() -> Optional[torch.device]:
+    """The device the innermost ``use_device`` on this thread asked for, or
+    None."""
+    return _requested()
+
+
+@contextlib.contextmanager
+def on_device(device: DeviceLike, stream: Optional["torch.cuda.Stream"] = None
+              ) -> Iterator[torch.device]:
+    """Run this thread's work on ``device``: the entry points resolve it
+    (``use_device``), CUDA allocations land on it (``torch.cuda.device``),
+    and with a ``stream`` the thread's CUDA work is queued there. The
+    choice is per thread: a thread a server or executor starts enters its
+    device with this, since it does not inherit its creator's."""
+    with use_device(device) as dev:
+        if dev.type != "cuda":
+            yield dev
+            return
+        with torch.cuda.device(dev):
+            if stream is None:
+                yield dev
+                return
+            with torch.cuda.stream(stream):
+                yield dev
+
+
 def default_device() -> torch.device:
     """``cuda``, unless the caller asked for ``cpu`` via ``use_device``."""
     return resolve_device(None)

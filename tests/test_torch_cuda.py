@@ -553,3 +553,85 @@ def test_checkpoint_resume_on_card_is_identical(cuda_device, tmp_path):
     resumed = booster.train(params, X, y, device="cuda",
                             checkpoint=CheckpointConfig(ckpt, every_k=3))
     assert resumed.to_string() == full.to_string()
+
+
+def _serve_all(server, bodies, headers, threads=16, timeout=60):
+    import threading
+    import urllib.error
+    import urllib.request
+
+    out = [None] * len(bodies)
+
+    def post(i):
+        req = urllib.request.Request(server.address, data=bodies[i],
+                                     headers=headers)
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as resp:
+                out[i] = (resp.status, resp.read())
+        except urllib.error.HTTPError as e:
+            out[i] = (e.code, e.read())
+
+    def run(k):
+        for i in range(k, len(bodies), threads):
+            post(i)
+
+    with server:
+        pool = [threading.Thread(target=run, args=(k,)) for k in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=10 * timeout)
+        assert not any(t.is_alive() for t in pool)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "csr"])
+def test_two_replicas_on_one_card_serve_like_the_serial_server(cuda_device, layout):
+    """Two replicas sharing one card, two batches in flight each, over many
+    requests: every reply equals the serial server's, bitwise (the fused
+    GBDT scores each row the same in any batch; ``resolve`` waits on its
+    own batches' events and reads its own pinned buffers)."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.gbdt import LightGBMClassifier
+    from mmlspark_tpu_torch.io.binary import (FRAME_CONTENT_TYPE,
+                                              encode_csr_columns, encode_frame)
+    from mmlspark_tpu_torch.serving import serve_pipeline
+
+    rng = np.random.default_rng(21)
+    X = rng.standard_normal((2000, 24)).astype(np.float32)
+    X[rng.random(X.shape) > 0.3] = 0.0
+    y = (X[:, 0] + X[:, 5] > 0).astype(np.float64)
+    model = LightGBMClassifier(numIterations=8, numLeaves=15).fit(
+        DataFrame.from_dict({"features": [r for r in X], "label": y}))
+    bodies = []
+    for r in X[:600]:
+        if layout == "csr":
+            nz = np.flatnonzero(r)
+            cols = encode_csr_columns("features", np.array([0, len(nz)]), nz,
+                                      r[nz], len(r))
+        else:
+            cols = {"x": r.astype(np.float64)}
+        bodies.append(encode_frame(cols))
+    label = "LightGBMClassificationModel"
+    gather_launches = []
+    replies = []
+    for async_exec in (False, True):
+        fused = PipelineModel([model]).fuse()
+        if layout == "csr":
+            fused.set_tuning(layout={label: "csr"},
+                             kernel_variants={label: {"*": "forest.csr"}})
+        gather_kernel.launches = 0
+        server = serve_pipeline(fused, "features", reply_col="probability",
+                                fused=True, async_exec=async_exec, replicas=2,
+                                inflight=2, max_batch_size=64, max_wait_ms=1.0,
+                                http_mode="async")
+        replies.append(_serve_all(server, bodies,
+                                  {"Content-Type": FRAME_CONTENT_TYPE}))
+        gather_launches.append(gather_kernel.launches)
+        assert fused.fusion_stats()["fallbacks"] == []
+    assert all(r[0] == 200 for r in replies[0])
+    assert replies[0] == replies[1]
+    if layout == "csr":
+        assert min(gather_launches) > 0

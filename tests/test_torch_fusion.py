@@ -1253,3 +1253,800 @@ def test_stage_directory_of_the_jax_package_is_refused(tmp_path):
     np.testing.assert_allclose(raw["rawPrediction"], _score_cols(
         ref.transform(RefDataFrame.from_dict({"features": _rows(X, False)})),
         ("rawPrediction",))["rawPrediction"], rtol=0, atol=PORT_VS_REF_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# serving: the wire, the obs layer, the controllers, the journal, the server
+# ---------------------------------------------------------------------------
+#
+# Held against the reference (``mmlspark_tpu.io``, ``.obs``, ``.serving``):
+# frame bytes, exposition text, parsed trace headers, controller states,
+# journal recoveries, reply bytes and statuses are all compared bitwise /
+# equal. Served GBDT ``prediction`` replies are class labels, equal to the
+# reference's; a served encoder's replies are held to DEEP_BF16_TOL against
+# the reference's (the DNNModel slice gate above). No assertion reads a
+# latency: servers bind port 0, every HTTP call has a timeout, and every
+# server stops in a ``with`` block.
+
+import json as _json  # noqa: E402
+import queue as _queue  # noqa: E402
+import struct as _struct  # noqa: E402
+import threading  # noqa: E402
+import time  # noqa: E402
+import urllib.error as _urlerr  # noqa: E402
+import urllib.request as _urlreq  # noqa: E402
+from urllib.parse import urlsplit  # noqa: E402
+
+from mmlspark_tpu.core.pipeline import PipelineModel as RefPipelineModel  # noqa: E402
+from mmlspark_tpu.io import binary as ref_binary  # noqa: E402
+from mmlspark_tpu.obs import metrics as ref_metrics  # noqa: E402
+from mmlspark_tpu.obs import perf as ref_perf  # noqa: E402
+from mmlspark_tpu.obs import trace as ref_trace  # noqa: E402
+from mmlspark_tpu.serving import executor as ref_executor  # noqa: E402
+from mmlspark_tpu.serving import journal as ref_journal  # noqa: E402
+from mmlspark_tpu.serving import server as ref_server  # noqa: E402
+from mmlspark_tpu.serving import stages as ref_sstages  # noqa: E402
+from mmlspark_tpu.serving import supervisor as ref_supervisor  # noqa: E402
+from mmlspark_tpu.serving import tenants as ref_tenants  # noqa: E402
+from mmlspark_tpu_torch.io import binary  # noqa: E402
+from mmlspark_tpu_torch.obs import metrics as obs_metrics  # noqa: E402
+from mmlspark_tpu_torch.obs import perf as obs_perf  # noqa: E402
+from mmlspark_tpu_torch.obs import trace as obs_trace  # noqa: E402
+from mmlspark_tpu_torch.serving import executor as srv_executor  # noqa: E402
+from mmlspark_tpu_torch.serving import journal as srv_journal  # noqa: E402
+from mmlspark_tpu_torch.serving import server as srv_server  # noqa: E402
+from mmlspark_tpu_torch.serving import stages as srv_stages  # noqa: E402
+from mmlspark_tpu_torch.serving import supervisor as srv_supervisor  # noqa: E402
+from mmlspark_tpu_torch.serving import tenants as srv_tenants  # noqa: E402
+
+HTTP_TIMEOUT = 20
+MODES = [(h, a) for h in ("thread", "async") for a in (False, True)]
+
+
+def _frame_cases():
+    rng = np.random.default_rng(5)
+    return {
+        "golden": {"x": np.arange(6, dtype=np.uint8).reshape(2, 3)},
+        "image": {"img": (np.arange(8 * 8 * 3, dtype=np.uint8) % 251).reshape(8, 8, 3)},
+        "dtypes": {"f32": np.linspace(0, 1, 12, dtype=np.float32).reshape(3, 4),
+                   "i64": np.array([-5, 9], dtype=np.int64),
+                   "scalar": np.array(7, dtype=np.int32),
+                   "empty": np.zeros((0, 2), dtype=np.float64)},
+        "strided": {"t": np.arange(64, dtype=np.float32).reshape(8, 8).T[::2]},
+        "f64_row": {"x": rng.normal(size=28)},
+        "csr": binary.encode_csr_columns(
+            "features", *_csr_of(_sparse_matrix(n=6, width=12, seed=3)), 12),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_frame_cases()))
+def test_encode_frame_bytes_equal_reference_and_decode_across(case):
+    cols = _frame_cases()[case]
+    port_buf = binary.encode_frame(cols)
+    ref_buf = ref_binary.encode_frame(cols)
+    assert port_buf == ref_buf
+    for decode in (binary.decode_frame, ref_binary.decode_frame):
+        for buf in (port_buf, ref_buf):
+            out = decode(buf)
+            assert list(out) == list(cols)
+            for k, v in cols.items():
+                assert out[k].dtype == v.dtype and out[k].shape == v.shape
+                np.testing.assert_array_equal(out[k], v)
+    assert binary.frame_info(port_buf)["total_len"] == \
+        ref_binary.frame_info(port_buf)["total_len"]
+    assert binary.is_frame(port_buf) and not binary.is_frame(b'{"data": [1]}')
+    if case == "golden":   # the v1 layout, pinned as tests/test_wire.py pins it
+        assert port_buf.hex() == ("4d4d5346" "010001" "2700000000000000" "1000"
+                                  "0178" "0102" "0200000003000000" "06000000"
+                                  "000102030405")
+
+
+def _hostile_frames():
+    buf = binary.encode_frame({"x": np.arange(6, dtype=np.uint8)})
+    out = {"empty": b"", "short3": buf[:3], "short17": buf[:17],
+           "minus1": buf[:-1], "plus1": buf + b"Z", "magic": b"XXXX" + buf[4:],
+           "zeros": b"\x00" * 40}
+    for name, (fmt, off, val) in {"total": ("<Q", 7, 1 << 62),
+                                  "hlen": ("<H", 15, 0xFFFF)}.items():
+        b = bytearray(buf)
+        _struct.pack_into(fmt, b, off, val)
+        out[name] = bytes(b)
+    b = bytearray(buf)
+    b[6] = 255
+    out["ncols"] = bytes(b)
+    b = bytearray(buf)
+    b[4] = 9
+    out["version"] = bytes(b)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_hostile_frames()))
+def test_frame_info_rejects_hostile_frames_like_reference(name):
+    bad = _hostile_frames()[name]
+    with pytest.raises(binary.FrameError) as port_err:
+        binary.frame_info(bad)
+    with pytest.raises(ref_binary.FrameError) as ref_err:
+        ref_binary.frame_info(bad)
+    assert str(port_err.value) == str(ref_err.value)
+    big = binary.encode_frame({"x": np.zeros(1024, dtype=np.uint8)})
+    with pytest.raises(binary.FrameError) as port_err:
+        binary.frame_info(big, max_bytes=512)
+    with pytest.raises(ref_binary.FrameError) as ref_err:
+        ref_binary.frame_info(big, max_bytes=512)
+    assert str(port_err.value) == str(ref_err.value)
+
+
+def _csr_triple():
+    return _csr_of(_sparse_matrix(n=16, width=12, seed=0))
+
+
+def _hostile_triples():
+    indptr, indices, values = _csr_triple()
+    return {
+        "oob": dict(indices=np.where(indices == indices.max(), 99, indices)),
+        "negative": dict(indices=np.where(indices == indices.max(), -1, indices)),
+        "non_monotone": dict(indptr=np.concatenate([indptr[:3][::-1], indptr[3:]])),
+        "unclosed": dict(indptr=np.concatenate([indptr[:-1], [indptr[-1] + 3]])),
+        "short_values": dict(values=values[:-1]),
+        "unanchored": dict(indptr=indptr + 1),
+        "width": dict(width=0),
+        "rank2": dict(values=values.reshape(1, -1)),
+        "rows": dict(rows=15),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_hostile_triples()))
+def test_csr_triple_rejects_like_reference(name):
+    indptr, indices, values = _csr_triple()
+    kw = dict(indptr=indptr, indices=indices, values=values, width=12, rows=None)
+    kw.update(_hostile_triples()[name])
+    args = ("feat", kw["indptr"], kw["indices"], np.asarray(kw["values"]),
+            kw["width"], kw["rows"])
+    with pytest.raises(binary.FrameError) as port_err:
+        binary.validate_csr_triple(*args)
+    with pytest.raises(ref_binary.FrameError) as ref_err:
+        ref_binary.validate_csr_triple(*args)
+    assert str(port_err.value) == str(ref_err.value)
+
+
+def test_csr_columns_decode_across_packages():
+    indptr, indices, values = _csr_triple()
+    cols = binary.encode_csr_columns("feat", indptr, indices, values, 12)
+    cols["label"] = np.arange(16, dtype=np.float64)
+    buf = binary.encode_frame(cols)
+    assert buf == ref_binary.encode_frame(
+        ref_binary.encode_csr_columns("feat", indptr, indices, values, 12)
+        | {"label": cols["label"]})
+    port_rows = binary.decode_csr_columns(binary.decode_frame(buf))
+    ref_rows = ref_binary.decode_csr_columns(ref_binary.decode_frame(buf))
+    assert set(port_rows) == set(ref_rows) == {"feat", "label"}
+    for a, b in zip(port_rows["feat"], ref_rows["feat"]):
+        assert a["size"] == b["size"] == 12
+        np.testing.assert_array_equal(a["indices"], b["indices"])
+        np.testing.assert_array_equal(a["values"], b["values"])
+    # a hostile sibling set rejects the whole frame, nothing materialized
+    partial = dict(cols)
+    del partial["feat:width"]
+    with pytest.raises(binary.FrameError):
+        binary.decode_csr_columns(partial)
+
+
+def test_parse_request_decodes_a_csr_frame_to_its_sparse_row():
+    X = _sparse_matrix(n=3, width=12, seed=4)
+    indptr, indices, values = _csr_of(X[1:2])
+    body = binary.encode_frame(
+        binary.encode_csr_columns("features", indptr, indices, values, 12))
+    headers = np.empty(2, dtype=object)
+    headers[:] = [{"Content-Type": binary.FRAME_CONTENT_TYPE}] * 2
+    df = DataFrame.from_dict({"value": np.array([body, body[:-2]], dtype=object),
+                              "headers": headers})
+    col = srv_stages.parse_request(df, "features").column("features")
+    row = col[0]
+    assert row["size"] == 12 and col[1] is None
+    np.testing.assert_array_equal(row["indices"], np.flatnonzero(X[1]))
+    np.testing.assert_array_equal(row["values"], X[1][np.flatnonzero(X[1])])
+
+
+# -- metrics, traces, perf ----------------------------------------------------
+
+
+def _fill_registry(mod, reg):
+    c = reg.counter("mmlspark_demo_requests_total", "requests", ("route",))
+    c.labels(route="a").inc(3)
+    c.labels(route='b"\\').inc()
+    g = reg.gauge("mmlspark_demo_depth", "queue depth\nsecond line")
+    g.set(7.25)
+    h = reg.histogram("mmlspark_demo_latency_seconds", "latency",
+                      buckets=mod.SERVING_LATENCY_BUCKETS)
+    rng = np.random.default_rng(9)
+    for i, v in enumerate(rng.exponential(0.01, size=40)):
+        h.observe(float(v), exemplar={"trace_id": f"{i:032x}"} if i % 3 == 0 else None)
+    h2 = reg.histogram("mmlspark_demo_build_seconds", "builds", ("seg",),
+                       buckets=mod.COMPILE_BUCKETS)
+    h2.labels(seg="s").observe(0.3)
+    h2.labels(seg="s").observe(1e9)
+
+    def collect():
+        fam = mod.MetricFamily("mmlspark_demo_collected", "gauge", "from a collector")
+        fam.add(1.5, {"k": "v"}).add(float("inf"), {"k": "w"}).add(float("nan"))
+        return [fam]
+
+    reg.register_collector(collect)
+
+
+@pytest.mark.parametrize("exemplars", [False, True])
+def test_exposition_text_equals_reference(monkeypatch, exemplars):
+    monkeypatch.setattr(time, "time", lambda: 1_700_000_000.25)
+    port_reg, ref_reg = obs_metrics.MetricsRegistry(), ref_metrics.MetricsRegistry()
+    _fill_registry(obs_metrics, port_reg)
+    _fill_registry(ref_metrics, ref_reg)
+    assert port_reg.exposition(exemplars=exemplars) == \
+        ref_reg.exposition(exemplars=exemplars)
+    assert obs_metrics.MetricsRegistry.OPENMETRICS_CONTENT_TYPE == \
+        ref_metrics.MetricsRegistry.OPENMETRICS_CONTENT_TYPE
+    h = "mmlspark_demo_latency_seconds"
+    assert port_reg.histogram(h, buckets=obs_metrics.SERVING_LATENCY_BUCKETS).snapshot() \
+        == ref_reg.histogram(h, buckets=ref_metrics.SERVING_LATENCY_BUCKETS).snapshot()
+
+
+TRACE_HEADERS = ["0af7651916cd43dd8448eb211c80319c-b7ad6b7169203331-01",
+                 "0AF7651916CD43DD8448EB211C80319C-B7AD6B7169203331-00",
+                 "  abc-def-01 ", "abc-def", "xyz-def-01", "-def-01", "abc--01",
+                 "abc-def-01-extra", "", None]
+
+
+@pytest.mark.parametrize("value", TRACE_HEADERS)
+def test_trace_headers_parse_like_reference(value):
+    def fields(ctx):
+        return None if ctx is None else (ctx.trace_id, ctx.span_id, ctx.parent_id,
+                                         ctx.sampled, ctx.to_header())
+
+    assert fields(obs_trace.parse_trace_header(value)) == \
+        fields(ref_trace.parse_trace_header(value))
+    for key in (obs_trace.TRACE_HEADER, obs_trace.TRACE_HEADER.lower(),
+                obs_trace.TRACE_HEADER.upper()):
+        hdrs = {key: value, "Other": "x"}
+        assert fields(obs_trace.context_from_headers(hdrs)) == \
+            fields(ref_trace.context_from_headers(hdrs))
+
+
+def test_tracer_ingress_and_spans_like_reference():
+    port, ref = obs_trace.Tracer(sample_rate=0.5, seed=3), ref_trace.Tracer(
+        sample_rate=0.5, seed=3)
+    hdr = {obs_trace.TRACE_HEADER: TRACE_HEADERS[0]}
+    for t in (port, ref):
+        for _ in range(20):
+            t.ingress({})
+        t.record("drain", t.ingress(hdr), 1.0, 0.5, rows=3)
+    assert port.stats() == ref.stats()
+    p_spans, r_spans = port.spans(), ref.spans()
+    assert [(s["name"], s["trace_id"], s["parent_id"], s["attrs"]) for s in p_spans] \
+        == [(s["name"], s["trace_id"], s["parent_id"], s["attrs"]) for s in r_spans]
+
+
+def test_slo_tracker_burn_rates_equal_reference():
+    clock = [1000.0]
+    cfg = dict(objective_ms=50.0, target=0.9, windows_s=(10, 60))
+    port = obs_perf.SLOTracker(obs_perf.SLOConfig(**cfg), clock=lambda: clock[0])
+    ref = ref_perf.SLOTracker(ref_perf.SLOConfig(**cfg), clock=lambda: clock[0])
+    rng = np.random.default_rng(11)
+    for lat, step, shed in zip(rng.exponential(0.04, 300), rng.random(300),
+                               rng.random(300) < 0.05):
+        clock[0] += float(step) * 0.5
+        for t in (port, ref):
+            t.record(float(lat), breach=True if shed else None)
+        assert port.burn_rates() == ref.burn_rates()
+    assert port.summary() == ref.summary()
+    port_reg, ref_reg = obs_metrics.MetricsRegistry(), ref_metrics.MetricsRegistry()
+    port_reg.register_collector(port.families)
+    ref_reg.register_collector(ref.families)
+    assert port_reg.exposition() == ref_reg.exposition()
+
+
+def test_device_peaks_and_memory_families_on_a_cpu_host(monkeypatch):
+    monkeypatch.delenv("MMLSPARK_PEAK_FLOPS", raising=False)
+    monkeypatch.delenv("MMLSPARK_PEAK_GBPS", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    peaks = obs_perf.device_peaks()
+    assert peaks["peak_source"] == "nominal" and peaks["device_kind"] is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "NVIDIA H100 80GB HBM3")
+    peaks = obs_perf.device_peaks(data_shards=2)
+    assert peaks["flops"] == 2 * 989e12 and peaks["bytes_per_s"] == 2 * 3.35e12
+    assert peaks["peak_source"] == "tablex2"
+    # a scrape never initialises CUDA: nothing before the process has
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    assert obs_perf.device_memory_families() == []
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "memory_stats",
+                        lambda i: {"allocated_bytes.all.current": 512, "note": "x"})
+    (fam,) = obs_perf.device_memory_families()
+    assert fam.name == "mmlspark_device_memory_bytes"
+    assert [(s.labels, s.value) for s in fam.samples] == [
+        ({"device": "cuda:0", "stat": "allocated_bytes.all.current"}, 512.0)]
+
+
+# -- controllers ----------------------------------------------------------------
+
+
+def test_adaptive_batch_controller_states_equal_reference():
+    kw = dict(alpha=0.6, min_wait_ms=0.5, max_wait_ms=20.0, init_wait_ms=4.0)
+    port = srv_executor.AdaptiveBatchController(**kw)
+    ref = ref_executor.AdaptiveBatchController(**kw)
+    rng = np.random.default_rng(12)
+    for i in range(200):
+        args = (float(rng.exponential(0.01)), float(rng.exponential(0.004)),
+                int(rng.integers(1, 64)), int(rng.integers(0, 100)))
+        for c in (port, ref):
+            c.observe(*args)
+            if i == 50:
+                c.seed_compute_ms(3.0)
+            if i == 120:
+                c.set_window_clamp(5.0)
+        assert port.state() == ref.state()
+        assert port.window_ms() == ref.window_ms()
+
+
+def test_tenant_admission_decisions_equal_reference():
+    w = {"gold": 3.0, "free": 1.0}
+    port, ref = srv_tenants.TenantAdmission(w), ref_tenants.TenantAdmission(w)
+    rng = np.random.default_rng(13)
+    names = ["gold", "free", "default", "other"]
+    live = {"port": [], "ref": []}
+    for i in range(400):
+        t = names[int(rng.integers(0, 4))]
+        depth, cap = int(rng.integers(0, 12)), int(rng.integers(0, 10))
+        got = [port.try_admit(t, depth, cap), ref.try_admit(t, depth, cap)]
+        assert got[0] == got[1]
+        if got[0]:
+            live["port"].append(t)
+            live["ref"].append(t)
+        if live["port"] and rng.random() < 0.45:
+            k = int(rng.integers(0, len(live["port"])))
+            port.release(live["port"].pop(k))
+            ref.release(live["ref"].pop(k))
+        if i == 200:
+            assert port.set_pressure(0.5) == ref.set_pressure(0.5)
+        assert port.summary() == ref.summary()
+    hdrs = {"x-mmlspark-tenant": " gold "}
+    assert srv_tenants.TenantAdmission.tenant_of(hdrs) == \
+        ref_tenants.TenantAdmission.tenant_of(hdrs) == "gold"
+    for spec in ("a=3,b=1", "1", "off", None, ""):
+        p, r = srv_tenants.tenants_from_spec(spec), ref_tenants.tenants_from_spec(spec)
+        assert (p is None) == (r is None) and (p is None or p.weights == r.weights)
+
+
+def test_replica_supervisor_and_watchdog_states_equal_reference():
+    clock = [0.0]
+    kw = dict(max_failures=2, quarantine_s=0.5, clock=lambda: clock[0])
+    port = srv_supervisor.ReplicaSupervisor([0, 1, 3], **kw)
+    ref = ref_supervisor.ReplicaSupervisor([0, 1, 3], **kw)
+    wd_kw = dict(k=4.0, min_budget_s=0.05)
+    pwd, rwd = srv_supervisor.DispatchWatchdog(**wd_kw), ref_supervisor.DispatchWatchdog(
+        **wd_kw)
+    rng = np.random.default_rng(14)
+    for _ in range(300):
+        clock[0] += float(rng.random()) * 0.2
+        idx = [0, 1, 3][int(rng.integers(0, 3))]
+        ev = int(rng.integers(0, 6))
+        for sup, wd in ((port, pwd), (ref, rwd)):
+            if ev <= 2:
+                sup.note_success(idx, 0.004 * (ev + 1))
+                wd.observe(0.004 * (ev + 1))
+            elif ev == 3:
+                sup.note_failure(idx)
+            elif ev == 4:
+                sup.note_wedged(idx)
+                wd.note_trip("requeue")
+            elif sup.probe_due(idx):
+                sup.begin_probe(idx)
+                sup.note_probe(idx, bool(idx != 3))
+        assert port.summary() == ref.summary()
+        assert [port.admitted(i) for i in (0, 1, 3)] == [ref.admitted(i) for i in (0, 1, 3)]
+        assert port.healthy_peers(idx) == ref.healthy_peers(idx)
+        assert pwd.budget_s(32) == rwd.budget_s(32) and pwd.summary() == rwd.summary()
+
+
+def test_brownout_controller_states_equal_reference():
+    clock = [0.0]
+    burn = {"v": 0.0}
+
+    class Slo:
+        def burn_rates(self):
+            return {60: burn["v"]}
+
+    def ladder(mod, log):
+        return [mod.BrownoutStep(n, lambda n=n: log.append(("apply", n)),
+                                 lambda n=n: log.append(("revert", n)))
+                for n in ("batch_window", "demote_segments", "tighten_admission")]
+
+    logs = {"port": [], "ref": []}
+    kw = dict(enter_burn=2.0, exit_burn=0.5, hold_s=1.0, check_interval_s=0.1,
+              clock=lambda: clock[0])
+    port = srv_supervisor.BrownoutController(Slo(), ladder(srv_supervisor, logs["port"]),
+                                             **kw)
+    ref = ref_supervisor.BrownoutController(Slo(), ladder(ref_supervisor, logs["ref"]),
+                                            **kw)
+    rng = np.random.default_rng(15)
+    for i in range(300):
+        clock[0] += 0.05 + float(rng.random()) * 0.3
+        burn["v"] = 4.0 if (i // 60) % 2 == 0 else 0.1
+        assert port.check() == ref.check()
+        if i == 250:
+            assert port.rollback() == ref.rollback()
+        assert port.summary() == ref.summary()
+    assert logs["port"] == logs["ref"] and logs["port"]
+    assert port.transitions["restore"] > 0 and port.transitions["degrade"] > 0
+
+
+def test_hedge_tracker_equal_reference():
+    cfg = dict(quantile=0.9, min_delay_ms=1.0, max_delay_ms=500.0, min_samples=5)
+    port = srv_supervisor.make_hedge(cfg)
+    ref = ref_supervisor.make_hedge(cfg)
+    rng = np.random.default_rng(16)
+    for v in rng.exponential(0.02, 60):
+        for t in (port, ref):
+            t.note_request()
+            t.observe(float(v))
+        assert port.delay_s() == ref.delay_s()
+    for t in (port, ref):
+        t.note_hedged()
+        t.note_win("hedge")
+        t.note_suppressed()
+    assert port.summary() == ref.summary()
+
+
+# -- the journal ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("writer", ["port", "ref"])
+def test_journal_written_by_one_package_recovers_in_the_other(tmp_path, writer):
+    mods = {"port": srv_journal, "ref": ref_journal}
+    path = str(tmp_path / "journal.jsonl")
+    frame = binary.encode_frame({"x": np.arange(5, dtype=np.float32)})
+    j = mods[writer].RequestJournal(path)
+    j.append_many(1, [(11, b'{"data": [1, 2]}', {"X-A": "1"}), (12, frame, {})])
+    j.append_many(2, [(13, b"plain", {"H": "v"})])
+    j.commit(1)
+    j.append(3, 14, frame + b"\n\n", {"Content-Type": "x"})
+    j.close()
+    with open(path, "ab") as fh:
+        fh.write(b'{"op": "entry", "epoch": 4, "id": 1')  # torn tail
+    want = mods["ref"].RequestJournal.recover(path)
+    assert srv_journal.RequestJournal.recover(path) == want
+    assert [r[0] for r in want] == [13, 14]
+    other = mods["ref" if writer == "port" else "port"].RequestJournal(path)
+    other.compact()
+    other.close()
+    for mod in mods.values():
+        assert mod.RequestJournal.recover(path) == want
+
+
+# -- the server against the JAX server --------------------------------------------
+
+
+def _echo_sum_with(parse):
+    def transform(df):
+        parsed = parse(df, "data", parse="json")
+        return parsed.with_column(
+            "reply", lambda p: [None if v is None else float(np.asarray(v).sum())
+                                for v in p["data"]])
+    return transform
+
+
+def _post(address, body, headers=None, timeout=HTTP_TIMEOUT, method="POST"):
+    req = _urlreq.Request(address, data=body if method == "POST" else None,
+                          method=method, headers=dict(headers or {}))
+    try:
+        with _urlreq.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read(), resp.headers.get("Content-Type")
+    except _urlerr.HTTPError as e:
+        return e.code, e.read(), e.headers.get("Content-Type")
+
+
+class _FullQueue(_queue.Queue):
+    """An ingress queue that reads as full to admission (``qsize``) while
+    the batcher drains it as usual: the tenant gate's 503 without timing."""
+
+    def qsize(self):
+        return max(super().qsize(), 1)
+
+
+def _echo_requests():
+    row = np.array([1.5, -2.25, 4.0])
+    frame_ct = {"Content-Type": binary.FRAME_CONTENT_TYPE}
+    frame = binary.encode_frame({"data": row})
+    return [("json", _json.dumps({"data": row.tolist()}).encode(), {}),
+            ("frame", frame, frame_ct),
+            ("bad_frame", frame[:-3], frame_ct),
+            ("deadline", b"[1]", {"X-MMLSpark-Deadline": "1.0"}),
+            ("tenant", b"[1]", {"X-MMLSpark-Tenant": "a"}),
+            ("text", b"not json", {})]
+
+
+def _serve_echo(server, tenant_module):
+    server._queue = _FullQueue()
+    server._tenants.try_admit("a", 0, 0)  # tenant a holds its one share
+    out = {}
+    with server:
+        for name, body, hdrs in _echo_requests():
+            out[name] = _post(server.address, body, hdrs)
+        health = _post(server.address.rstrip("/") + "/_mmlspark/healthz", b"")
+        out["healthz"] = health
+        stats = _json.loads(_post(server.address.rstrip("/") + "/_mmlspark/stats",
+                                  b"")[1])
+        out["shed"] = stats["shed"]
+        out["wire"] = stats["wire"]
+        out["missing"] = _post(server.address.rstrip("/") + "/nope", b"")
+    return out
+
+
+@pytest.mark.parametrize("http_mode,async_exec", MODES)
+def test_server_replies_equal_reference_server(http_mode, async_exec):
+    kw = dict(port=0, max_wait_ms=0.0, http_mode=http_mode, async_exec=async_exec,
+              max_queue=1, tenants={"a": 1.0})
+    with use_device("cpu"):
+        port = srv_server.ServingServer(_echo_sum_with(srv_stages.parse_request), **kw)
+    ref = ref_server.ServingServer(_echo_sum_with(ref_sstages.parse_request), **kw)
+    got = _serve_echo(port, srv_tenants)
+    want = _serve_echo(ref, ref_tenants)
+    assert got == want
+    assert got["json"][:2] == (200, b"3.25") and got["frame"] == got["json"]
+    assert got["bad_frame"][0] == 400 and got["deadline"][0] == 504
+    assert got["tenant"][0] == 503 and got["text"][0] == 204
+    assert got["shed"]["by_reason"] == {"bad_frame": 1, "deadline_ingress": 1,
+                                        "tenant_over_share": 1}
+
+
+def test_server_token_gate_and_reply_hop_equal_reference():
+    outs = []
+    for mod, parse, dev in ((srv_server, srv_stages.parse_request, ["cpu"]),
+                            (ref_server, ref_sstages.parse_request, None)):
+        kw = {"devices": dev} if dev else {}
+        handoff = mod.ServingServer(lambda df: df.limit(0), port=0, token="s3cret",
+                                    slot_timeout_s=10, **kw)
+        with handoff:
+            parts = urlsplit(handoff.address)
+            internal = f"http://{parts.netloc}{mod.ServingServer.INTERNAL_REPLY_PATH}"
+            denied = _post(internal, b"{}")
+            res = {}
+            t = threading.Thread(target=lambda: res.update(
+                r=_post(handoff.address, b'{"data": 1}')))
+            t.start()
+            rid = None
+            for _ in range(1000):  # the request's slot exists once enqueued
+                with handoff._id_lock:
+                    rid = next(iter(handoff._slots), None)
+                if rid is not None:
+                    break
+                time.sleep(0.01)
+            mod.reply_to(handoff.address, rid, {"answer": np.float32(2.5)},
+                         token="s3cret")
+            t.join(timeout=HTTP_TIMEOUT)
+            assert not t.is_alive()
+        outs.append((denied, res["r"]))
+    assert outs[0] == outs[1]
+    assert outs[0][0][0] == 403 and outs[0][1][:2] == (200, b'{"answer": 2.5}')
+
+
+def test_server_devices_and_unported_knobs(monkeypatch):
+    with use_device("cpu"):
+        with srv_server.ServingServer(_echo_sum_with(srv_stages.parse_request),
+                                      port=0, async_exec=True) as server:
+            assert server._devices == [torch.device("cpu")]
+            assert _post(server.address, b'{"data": [1, 2]}')[:2] == (200, b"3.0")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        srv_server.ServingServer(_echo_sum_with(srv_stages.parse_request), port=0)
+    for knob in ("autotune", "fleet", "lifecycle", "multimodel"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A step"):
+            srv_server.serve_pipeline(PipelineModel([]), "x", devices=["cpu"],
+                                      **{knob: True})
+    with pytest.raises(NotImplementedError, match="ROADMAP A step 6"):
+        srv_server.ServingServer(lambda df: df, devices=["cpu"], tuner=object())
+    fused = FusedPipelineModel([], cache=CompileCache())
+    fused.set_tuning(mega_k={"x": 1})  # K = 1 is the plain dispatch
+    with pytest.raises(NotImplementedError, match="ROADMAP A step 6"):
+        fused.set_tuning(mega_k={"x": 2})
+    from mmlspark_tpu_torch.serving import RoutingFront
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A step 10"):
+        RoutingFront(fabric=True)
+
+
+# -- serve_pipeline against the JAX package's -----------------------------------
+
+
+N_SERVED = 40
+
+
+def _post_all(server, bodies, headers=None, threads=8):
+    """POST every body from ``threads`` client threads at once (so rows
+    coalesce into batches of several sizes); replies in body order."""
+    out = [None] * len(bodies)
+
+    def run(k):
+        for i in range(k, len(bodies), threads):
+            out[i] = _post(server.address, bodies[i], headers)
+
+    with server:
+        pool = [threading.Thread(target=run, args=(k,)) for k in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=4 * HTTP_TIMEOUT)
+        assert not any(t.is_alive() for t in pool)
+    return out
+
+
+def _gbdt_bodies(X, kind):
+    frame_ct = {"Content-Type": binary.FRAME_CONTENT_TYPE}
+    if kind == "json":
+        return [_json.dumps({"data": r.tolist()}).encode() for r in X], None
+    if kind == "frame":
+        return [binary.encode_frame({"x": r.astype(np.float64)}) for r in X], frame_ct
+    if kind == "sparse_json":
+        return [_json.dumps({"indices": np.flatnonzero(r).tolist(),
+                             "values": r[np.flatnonzero(r)].tolist(),
+                             "size": len(r)}).encode() for r in X], None
+    bodies = []
+    for r in X:
+        cols = binary.encode_csr_columns("features", *_csr_of(r[None, :]), len(r))
+        bodies.append(binary.encode_frame(cols))
+    return bodies, frame_ct
+
+
+@pytest.fixture(scope="module")
+def served_reference(models):
+    """The JAX package's fused serve of the classifier: prediction replies
+    for the first rows, dense (JSON) and sparse (JSON dicts)."""
+    X = models["X"][:N_SERVED]
+    out = {}
+    for kind in ("json", "sparse_json"):
+        bodies, hdrs = _gbdt_bodies(X, kind)
+        srv = ref_server.serve_pipeline(RefPipelineModel([models["ref"]["clf"]]),
+                                        "features", reply_col="prediction",
+                                        fused=True, max_wait_ms=2.0)
+        out[kind] = _post_all(srv, bodies, hdrs)
+    return out
+
+
+@pytest.mark.parametrize("http_mode,async_exec", MODES)
+@pytest.mark.parametrize("kind", ["json", "frame", "csr_frame", "sparse_json"])
+def test_served_gbdt_predictions_equal_reference(models, served_reference, monkeypatch,
+                                                 kind, http_mode, async_exec):
+    calls = []
+    real = gather_kernel.csr_gather
+
+    def counting(*args, **kw):
+        calls.append(args[0].shape)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(gather_kernel, "csr_gather", counting)
+    X = models["X"][:N_SERVED]
+    fused = PipelineModel([models["port"]["clf"]]).fuse()
+    sparse = kind in ("csr_frame", "sparse_json")
+    if sparse:
+        label = "LightGBMClassificationModel"
+        fused.set_tuning(layout={label: "csr"},
+                         kernel_variants={label: {"*": "forest.csr"}})
+    bodies, hdrs = _gbdt_bodies(X, kind)
+    with use_device("cpu"):
+        srv = srv_server.serve_pipeline(fused, "features", reply_col="prediction",
+                                        fused=True, max_wait_ms=2.0, replicas=2,
+                                        http_mode=http_mode, async_exec=async_exec)
+    got = _post_all(srv, bodies, hdrs)
+    want = served_reference["sparse_json" if sparse else "json"]
+    assert [g[:2] for g in got] == [w[:2] for w in want]
+    assert all(g[0] == 200 for g in got)
+    assert fused.fusion_stats()["fallbacks"] == []
+    assert bool(calls) == sparse
+    if sparse:
+        assert _seg(fused).get("csr_batches", 0) >= 1
+
+
+def test_fused_transform_submit_is_bitwise_transform(models):
+    X = models["X"][:70]
+    for model, sparse in ((models["port"]["clf"], False), (models["port"]["reg"], True)):
+        fused = _csr_fused(model) if sparse else _fused(model)
+        df = DataFrame.from_dict({"features": _rows(X, sparse)}, num_partitions=2)
+        with use_device("cpu"):
+            want = fused.transform(df)
+            got = fused.transform_submit(df)()
+        for c in want.columns:
+            a, b = want.column(c), got.column(c)
+            if a.dtype == object:
+                for u, v in zip(a, b):
+                    if isinstance(u, dict):
+                        assert u is v
+                    else:
+                        assert np.array_equal(_bits(u), _bits(v))
+            else:
+                assert np.array_equal(a, b)
+        ingest = fused.last_ingest_stats
+        assert ingest is not None and ingest.summary()["n_batches"] >= 2
+        assert fused.fusion_stats()["fallbacks"] == []
+
+
+def _encoder_bodies(n, frames):
+    toks = _tokens(n, seed=7).astype(np.int32)
+    if frames:
+        return ([binary.encode_frame({"tokens": t}) for t in toks],
+                {"Content-Type": binary.FRAME_CONTENT_TYPE})
+    return [_json.dumps({"data": t.tolist()}).encode() for t in toks], None
+
+
+def test_served_encoder_within_dnn_gate_of_reference():
+    ref, port = _encoders()
+    bodies, hdrs = _encoder_bodies(12, frames=False)
+    ref_stage = RefDNNModel(inputCol="tokens", outputCol="out", batchSize=4)
+    ref_stage.set_model(ref)
+    want = _post_all(ref_server.serve_pipeline(ref_stage, "tokens", max_wait_ms=2.0),
+                     bodies, hdrs, threads=4)
+    stage = DNNModel(inputCol="tokens", outputCol="out", batchSize=4).set_model(port)
+    replies = {}
+    for fused_chain in (False, True):
+        served = PipelineModel([stage]) if fused_chain else stage
+        for frames in (False, True):
+            bodies, hdrs = _encoder_bodies(12, frames)
+            with use_device("cpu"):
+                srv = srv_server.serve_pipeline(
+                    served, "tokens", reply_col="out", fused=True, async_exec=True,
+                    max_wait_ms=2.0)
+            replies[(fused_chain, frames)] = _post_all(srv, bodies, hdrs, threads=4)
+    for got in replies.values():
+        assert all(g[0] == 200 for g in got)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(np.asarray(_json.loads(g[1])),
+                                       np.asarray(_json.loads(w[1])),
+                                       atol=DEEP_BF16_TOL, rtol=0)
+    # the port's own replies: the same bytes whichever wire or chain served
+    assert len({tuple(r[1] for r in v) for v in replies.values()}) == 1
+
+
+def test_fused_async_server_equals_serial_server(models):
+    X = models["X"][:N_SERVED]
+    bodies, hdrs = _gbdt_bodies(X, "csr_frame")
+    replies = []
+    for async_exec, inflight in ((False, 1), (True, 2)):
+        fused = _csr_fused(models["port"]["reg"])
+        with use_device("cpu"):
+            srv = srv_server.serve_pipeline(fused, "features", reply_col="prediction",
+                                            fused=True, async_exec=async_exec,
+                                            inflight=inflight, replicas=2,
+                                            max_wait_ms=1.0)
+        replies.append(_post_all(srv, bodies, hdrs))
+    assert replies[0] == replies[1]
+    assert all(r[0] == 200 for r in replies[0])
+
+
+@pytest.mark.parametrize("front_mode", ["thread", "async"])
+def test_routing_front_fails_over_when_a_worker_stops_hard(front_mode):
+    """Two port workers behind a front; one is stopped hard (its transport
+    closes its kept-alive connections, as a crashed worker's would): every
+    request is still answered 200, and the dead worker's breaker opens."""
+    from mmlspark_tpu_torch.serving import RoutingFront
+
+    with use_device("cpu"):
+        workers = [srv_server.ServingServer(_echo_sum_with(srv_stages.parse_request),
+                                            port=0, max_wait_ms=0.0,
+                                            http_mode="async", async_exec=True)
+                   for _ in range(2)]
+    for w in workers:
+        w.start()
+    try:
+        with RoutingFront(http_mode=front_mode, max_failures=2) as front:
+            for w in workers:
+                front.register(w.address, capacity=w.capacity)
+            before = [_post(front.address, b'{"data": [1, 2]}') for _ in range(6)]
+            workers[0].stop(drain=False)
+            after = [_post(front.address, b'{"data": [2, 2]}') for _ in range(8)]
+            states = front.worker_states
+    finally:
+        for w in workers:
+            w.stop(drain=False)
+    assert [r[:2] for r in before] == [(200, b"3.0")] * 6
+    assert [r[:2] for r in after] == [(200, b"4.0")] * 8
+    assert states[workers[0].address] == "open"
+    assert states[workers[1].address] == "closed"

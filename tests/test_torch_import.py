@@ -54,7 +54,12 @@ def test_clean_import_pulls_in_no_jax_and_no_reference():
                 "mmlspark_tpu_torch.models.attention",
                 "mmlspark_tpu_torch.models.flash_kernel",
                 "mmlspark_tpu_torch.models.dnn_model",
-                "mmlspark_tpu_torch.models.convert"):
+                "mmlspark_tpu_torch.models.convert",
+                "mmlspark_tpu_torch.serving.server",
+                "mmlspark_tpu_torch.serving.executor",
+                "mmlspark_tpu_torch.serving.routing",
+                "mmlspark_tpu_torch.io.binary",
+                "mmlspark_tpu_torch.obs.bridge"):
         assert mod in out["imported"]
 
 
@@ -69,6 +74,60 @@ def test_fused_pipeline_import_pulls_in_no_jax_and_no_reference(module):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+_SERVE_PROBE = r"""
+import json, sys, urllib.request
+import numpy as np
+from mmlspark_tpu_torch.core.dataframe import DataFrame
+from mmlspark_tpu_torch.core.pipeline import PipelineModel
+from mmlspark_tpu_torch.gbdt import LightGBMRegressor
+from mmlspark_tpu_torch.io.binary import FRAME_CONTENT_TYPE, encode_frame
+from mmlspark_tpu_torch.runtime import use_device
+from mmlspark_tpu_torch.serving import serve_pipeline
+import mmlspark_tpu_torch.obs
+X = np.random.default_rng(0).standard_normal((64, 3))
+df = DataFrame.from_dict({"features": [r for r in X], "label": X[:, 0]})
+with use_device("cpu"):
+    model = LightGBMRegressor(numIterations=2, numLeaves=4).fit(df)
+    server = serve_pipeline(PipelineModel([model]), "features", fused=True,
+                            async_exec=True, http_mode="async",
+                            reply_col="prediction")
+with server:
+    req = urllib.request.Request(server.address, data=encode_frame({"x": X[0]}),
+                                 headers={"Content-Type": FRAME_CONTENT_TYPE})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        status = resp.status
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "jaxlib", "mmlspark_tpu")
+             or k.startswith(("jax.", "jaxlib.", "mmlspark_tpu.")))
+print(json.dumps({"bad": bad, "status": status}))
+"""
+
+
+@pytest.mark.parametrize("module", ["mmlspark_tpu_torch.serving",
+                                    "mmlspark_tpu_torch.obs",
+                                    "mmlspark_tpu_torch.io"])
+def test_serving_obs_io_import_pulls_in_no_jax_and_no_reference(module):
+    probe = (f"import json, sys; import {module}; "
+             "print(json.dumps(sorted(k for k in sys.modules if k in "
+             "('jax', 'jaxlib', 'mmlspark_tpu') or k.startswith(('jax.', "
+             "'jaxlib.', 'mmlspark_tpu.')))))")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_serving_a_request_pulls_in_no_jax_and_no_reference():
+    """Fit, serve (fused, pipelined, async transport) and answer a frame
+    request in a fresh process without importing ``jax`` or
+    ``mmlspark_tpu``."""
+    proc = subprocess.run([sys.executable, "-c", _SERVE_PROBE], cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"bad": [], "status": 200}
 
 
 _IMPORT_RE = re.compile(
