@@ -2,14 +2,15 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # build, check, run; exit 0 only if all pass
-    python3 chip_smoke.py --profile  # also print a torch.profiler breakdown of the fit
 
 Run from the root of a checkout. It uses ``mmlspark_tpu_torch`` only (no JAX,
 nothing of ``mmlspark_tpu``) and needs one CUDA device:
 
 1. header: the card's name and power limit (nvidia-smi), torch/CUDA
    versions, and the seconds it takes to build every kernel under
-   ``mmlspark_tpu_torch/csrc`` with nvcc (one process per source);
+   ``mmlspark_tpu_torch/csrc`` with nvcc (one process per source) and the
+   native C++ library with g++ (``native_loader``; its build failing fails
+   the run);
 2. kernels: K1 (histogram) and K2 (row select) against their plain PyTorch
    versions on the card, at the main path's shapes and at ragged ones, each
    timed beside its plain version, one PyTorch library call computing the
@@ -18,24 +19,49 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    time) and their CUDA launches per call; K1 also beside its sector floor
    (the 32-byte sectors that hold a selected row), and whether two calls
    agree bit for bit (logged);
-3. dense main path: ``LightGBMClassifier(numLeaves=31, maxBin=255,
+3. scan_main: ``LightGBMClassifier(numLeaves=31, maxBin=255,
    numIterations=20).fit`` on a seeded synthetic HIGGS-shaped dataset
-   (2,097,152 rows x 28 features) on the card, then ``.transform`` of 65,536
-   rows. K1 and K2 must have launched during it; K1's device time over
-   the fit is summed from CUDA events around its calls. The scores are
-   held against the host f64 traversal of the same model, and the first
-   three trees against a refit on the CPU. Then K1 on the fit's own data,
-   checked and timed: the binned matrix at the root (every row) and the
-   K2-compacted tier buffer of the first tree's smaller root child;
+   (2,097,152 rows x 28 features) on the card, on its default route, the
+   whole-run scan (checked): its boosting loop under
+   ``torch.cuda.set_sync_debug_mode("error")``, so a host read in it fails
+   the run; then ``.transform`` of 65,536 rows. K1's two entries (the mask
+   entry at each root, the device-count entry at every split) and K2 must
+   have launched, counted through the CUDA graph's replays. Logs the fit's,
+   the native binning's and the loop's seconds and peak memory. The scores
+   are held against the host f64 traversal of the same model, and the
+   first three trees of a card scan on 262,144 of the rows against the
+   CPU's forced scan (``MMLSPARK_TPU_SCAN_TRAIN=1``) on them. Then K1 and
+   K2 on the fit's own data: the binned matrix at the root (every row), the
+   first tree's first K2 compaction bit for bit, K1 on that buffer, and
+   K1's device-count entry on it and its device-held count against its
+   plain version (bit for bit against the per-split launch, logged);
+3a. fused_tree: the same data forced to the fused per-tree route and to the
+   per-split host route, 5 iterations each: the same trees (features,
+   bins, counts, default directions, children; gains and hessian sums
+   within 1e-6 relative, bitwise logged), seconds a tree on both, and on
+   the fused route exactly one host read a tree (the synchronizing calls
+   the sync debug mode sees logged);
+3a'. native_main: a 200,000 x 28, 20-iteration fit that routes ``native``
+   by default, bit for bit the same fit on the CPU; on the 2,097,152-row
+   matrix native binning against the numpy path and, on 65,536 rows,
+   ``forest_predict_f64`` against the numpy traversal, bit for bit, with
+   both times;
+3a''. profile: ``core.profiling`` device traces of the main fit on the
+   per-split route (forced) and on the scan: the device's busy share of
+   the fit's window (spin kernels mark it), the top device operations, the
+   longest idle gaps, K1's and K2's device ms (the serving_sparse load is
+   traced in its own phase, 12);
 3b. dense_variants: on the same data, ``boostingType`` goss (topRate 0.2,
    otherRate 0.1), dart (dropRate 0.1, maxDrop 50) and rf (baggingFraction
-   0.9, baggingFreq 1) through ``LightGBMClassifier.fit``: fit seconds, K1
-   and K2 launches and K1's device time, GOSS's selected rows and host
-   seconds per iteration (and its fetch, argsort and random draw timed
-   apart); each model's transform against the host f64 traversal and its
-   train AUC; the first three trees refit on the card and on the CPU over
-   the first 262,144 rows (for GOSS, how many selected rows differ at each
-   iteration, and the trees held only while the selections agree);
+   0.9, baggingFreq 1) through ``LightGBMClassifier.fit`` (goss and dart on
+   the fused route, rf on the scan, checked): fit seconds, K1 and K2
+   launches, GOSS's selected rows and host seconds per iteration (and its
+   fetch, argsort and random draw timed apart); each model's transform
+   against the host f64 traversal and its train AUC; the first three trees
+   refit on the card and on the CPU over the first 262,144 rows on the
+   same route (the native engine off: a cut that small would take it; for
+   GOSS, how many selected rows differ at each iteration, and the trees
+   held only while the selections agree);
 3c. ranker_main: ``LightGBMRanker`` on seeded MSLR-WEB30K-shaped data
    (2,097,152 rows x 136 features, relevance 0-4, queries of 1-1,251
    documents; 10% of the queries flagged by ``validationIndicatorCol``,
@@ -364,9 +390,18 @@ def header(torch) -> dict:
          "device_count": torch.cuda.device_count(), "nvidia_smi": smi})
     from mmlspark_tpu_torch import _kernels
 
+    from mmlspark_tpu_torch import native_loader
+
+    t0 = time.perf_counter()
+    native = native_loader.available()
+    native_s = time.perf_counter() - t0
     secs = _kernels.build_all()
     log({"phase": "build", "seconds": secs, "kernels": _kernels.sources(),
-         "build_dir": str(_kernels.build_dir())})
+         "build_dir": str(_kernels.build_dir()), "native_library": native,
+         "native_build_seconds": native_s, "native_path": str(native_loader.so_path())})
+    if not native:
+        fail("the native library did not build or load (g++ is on this host: "
+             "nvcc needs it)")
     for name, text in _kernels.build_logs.items():
         regs = [ln.strip() for ln in text.splitlines()
                 if any(w in ln for w in ("registers", "spill", "arning"))]
@@ -507,11 +542,110 @@ def first_diff(a, b):
     return None
 
 
-def main_path(torch, profile: bool):
-    from mmlspark_tpu_torch.core.dataframe import DataFrame
-    from mmlspark_tpu_torch.gbdt import LightGBMClassifier
+class Env:
+    """Environment names set (or, with None, removed) for a block."""
+
+    def __init__(self, **names):
+        self.names = names
+
+    def __enter__(self):
+        import os
+
+        self.prev = {k: os.environ.get(k) for k in self.names}
+        for k, v in self.names.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# the device route for fits small enough for the native engine (the card
+# against the CPU refits, and the probes), and the routes' pins on the CPU
+NATIVE_OFF = {"MMLSPARK_TPU_NATIVE_TRAIN": "0"}
+CPU_SCAN = {"MMLSPARK_TPU_SCAN_TRAIN": "1"}
+CPU_FUSED = {"MMLSPARK_TPU_FUSED_TREE": "1"}
+PER_SPLIT = {"MMLSPARK_TPU_NO_SCAN_TRAIN": "1", "MMLSPARK_TPU_NO_FUSED_TREE": "1"}
+FUSED_ONLY = {"MMLSPARK_TPU_NO_SCAN_TRAIN": "1"}
+
+
+def zero_launches() -> None:
     from mmlspark_tpu_torch.gbdt import hist_kernel as hk
     from mmlspark_tpu_torch.gbdt import select_kernel as sk
+
+    hk.launches = hk.count_launches = sk.launches = 0
+
+
+def read_launches() -> dict:
+    """K1's mask entry (``hist``), K1's device-count entry (``hist_count``)
+    and K2 (``select``): the counters count graph replays too."""
+    from mmlspark_tpu_torch.gbdt import hist_kernel as hk
+    from mmlspark_tpu_torch.gbdt import select_kernel as sk
+
+    return {"hist": hk.launches, "hist_count": hk.count_launches,
+            "select": sk.launches}
+
+
+def check_launches(launches: dict, what: str) -> None:
+    if min(launches.values()) < 1:
+        fail(f"{what}: a kernel of the path never launched: {launches}")
+
+
+def check_route(booster, want: str, what: str) -> None:
+    if booster.route != want:
+        fail(f"{what}: the fit took the {booster.route!r} route, not {want!r}")
+
+
+class Watch:
+    """While active, the seconds and the return value of every call of
+    ``module.name``."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.seconds, self.results = [], []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def watched(*a, **kw):
+            t0 = time.perf_counter()
+            res = self.orig(*a, **kw)
+            self.seconds.append(time.perf_counter() - t0)
+            self.results.append(res)
+            return res
+
+        setattr(self.module, self.name, watched)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def scan_main(torch, smi):
+    """The dense main fit on its default route, ``scan``:
+    ``LightGBMClassifier(numLeaves=31, maxBin=255, numIterations=20)`` on
+    2,097,152 x 28 HIGGS-shaped rows, its boosting loop under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a synchronizing call in it
+    raises), then ``.transform`` of N_SCORE rows. Gates: the route, K1's
+    two entries and K2 launched (counted through the graph's replays), the
+    scores against the host f64 traversal, the first 3 trees of a card scan
+    at N_CUT rows against the CPU's forced scan on them (the same route:
+    its f32 running score may part from the per-tree route in late trees),
+    and K1 and K2 on the fit's own first-tree inputs (``hist_on_path``)."""
+    from mmlspark_tpu_torch import native_loader
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.gbdt import LightGBMClassifier
+    from mmlspark_tpu_torch.gbdt import booster as bst
+    from mmlspark_tpu_torch.gbdt.binning import BinMapper
     from mmlspark_tpu_torch.runtime import use_device
 
     t0 = time.perf_counter()
@@ -522,84 +656,366 @@ def main_path(torch, profile: bool):
          "seconds": time.perf_counter() - t0, "positives": float(y.mean())})
     est = LightGBMClassifier(numLeaves=31, maxBin=255, numIterations=20)
 
-    hk.launches = 0
-    sk.launches = 0
+    zero_launches()
+    native_before = native_loader.uses[("bin_matrix", "native")]
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bst.scan_loop_sync_mode = "error"
     t0 = time.perf_counter()
-    with Timed(torch, hk, "histogram_cuda") as k1, PathInputs() as inputs:
-        if profile:
-            from torch.profiler import ProfilerActivity, profile as prof
-
-            with prof(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as p:
-                model = est.fit(df)
-                torch.cuda.synchronize()
-        else:
+    try:
+        with Watch(BinMapper, "transform_fm") as bins_w, \
+                Watch(bst, "_train_scan") as loop_w, PathInputs() as inputs:
             model = est.fit(df)
             torch.cuda.synchronize()
+    finally:
+        bst.scan_loop_sync_mode = None
     fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    booster = model.booster
     t1 = time.perf_counter()
     scored = model.transform(small)
     torch.cuda.synchronize()
     score_s = time.perf_counter() - t1
-    launches = {"hist": hk.launches, "select": sk.launches}
-    log({"phase": "main", "fit_seconds": fit_s, "fit_rows_per_s": N_MAIN / fit_s,
-         "transform_rows": N_SCORE, "transform_seconds": score_s,
-         "launches": launches, "k1_device_ms_in_fit": k1.device_ms(),
-         "k1_calls_in_fit": k1.calls})
-    if profile:
-        rows = []
-        for ev in p.key_averages():
-            dev_us = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0))
-            if dev_us:
-                rows.append((dev_us, ev.key, ev.count))
-        rows.sort(reverse=True)
-        kernels_us = sum(d for d, k, _ in rows if not k.startswith("aten::"))
-        from mmlspark_tpu_torch.gbdt.binning import BinMapper
-
-        t2 = time.perf_counter()
-        BinMapper.fit(X, 255).transform_fm(X, dtype=np.uint8)
-        log({"phase": "profile", "fit_wall_ms": fit_s * 1e3,
-             "device_kernel_ms": kernels_us / 1e3,
-             "host_binning_ms": (time.perf_counter() - t2) * 1e3,
-             "top": [{"name": k[:80], "device_ms": d / 1e3, "calls": c}
-                     for d, k, c in rows[:20]]})
-    if launches["hist"] < 1 or launches["select"] < 1:
-        fail(f"a kernel of the main path never launched: {launches}")
-
-    booster = model.booster
-    log({"phase": "main", **check_dense_scores(scored, booster, X, y, "main"),
+    log({"phase": "scan_main", "card": smi, "route": booster.route,
+         "fit_seconds": fit_s, "fit_rows_per_s": N_MAIN / fit_s,
+         "binning_seconds": sum(bins_w.seconds),
+         "binning_native": native_loader.uses[("bin_matrix", "native")]
+         > native_before,
+         "loop_seconds": loop_w.results[0] if loop_w.results else None,
+         "loop_sync_debug_mode": "error", "launches": launches,
+         "launches_per_tree": {k: v / 20 for k, v in launches.items()},
+         "peak_device_gb": peak_gb, "transform_rows": N_SCORE,
+         "transform_seconds": score_s, "trees": len(booster.trees)})
+    check_route(booster, "scan", "scan_main")
+    check_launches(launches, "scan_main")
+    log({"phase": "scan_main", **check_dense_scores(scored, booster, X, y, "main"),
          "max_abs_diff_vs_host_f64_unrounded": float(np.abs(
              np.stack(list(scored.column("rawPrediction")))[:, 1]
-             - booster.raw_predict(X[:N_SCORE])).max()),
-         "trees": len(booster.trees)})
+             - booster.raw_predict(X[:N_SCORE])).max())})
 
-    # CPU refit of the first 3 iterations on the same data
-    t0 = time.perf_counter()
-    with use_device("cpu"):
-        cpu_model = LightGBMClassifier(numLeaves=31, maxBin=255,
-                                       numIterations=3).fit(df)
-    cpu_s = time.perf_counter() - t0
-    cb = cpu_model.booster
-    diffs = [first_diff(booster.trees[i][0], cb.trees[i][0]) for i in range(3)]
-    raw3_cuda = booster.raw_predict(X[:N_SCORE], num_iteration=3)
-    raw3_cpu = cb.raw_predict(X[:N_SCORE])
-    d3 = float(np.abs(raw3_cuda - raw3_cpu).max())
-    log({"phase": "cpu_refit", "seconds": cpu_s, "first_diff_per_tree": diffs,
-         "max_abs_diff_3_trees": d3})
+    # the card's scan against the CPU's forced scan, on a cut
+    cut = DataFrame.from_dict({"features": X[:N_CUT], "label": y[:N_CUT]})
+    refit = {}
+    for dev, env in ((DEVICE, NATIVE_OFF), ("cpu", CPU_SCAN)):
+        with use_device(dev), Env(**env):
+            t0 = time.perf_counter()
+            refit[dev] = (LightGBMClassifier(numLeaves=31, maxBin=255,
+                                             numIterations=ITERS_REFIT)
+                          .fit(cut).booster, time.perf_counter() - t0)
+    bc, bp = refit[DEVICE][0], refit["cpu"][0]
+    diffs = [first_diff(bc.trees[i][0], bp.trees[i][0]) for i in range(ITERS_REFIT)]
+    d3 = float(np.abs(bc.raw_predict(X[:N_SCORE]) - bp.raw_predict(X[:N_SCORE])).max())
+    log({"phase": "scan_main", "refit_rows": N_CUT, "routes": [bc.route, bp.route],
+         "cuda_fit_seconds": refit[DEVICE][1], "cpu_fit_seconds": refit["cpu"][1],
+         "first_diff_per_tree": diffs, "max_abs_diff_3_trees": d3})
+    if bc.route != "scan" or bp.route != "scan":
+        fail(f"scan_main: the refits took {bc.route} and {bp.route}, not scan")
     if diffs[0] is not None:
-        fail(f"tree 1 differs between the CUDA and CPU fits: {diffs[0]}")
+        fail(f"scan_main: tree 1 differs between the card's and the CPU's scan: "
+             f"{diffs[0]}")
     if d3 > 1e-3:
-        fail(f"3-tree raw scores differ by {d3}")
+        fail(f"scan_main: 3-tree raw scores differ by {d3}")
     hist_on_path(torch, inputs, "main")
     del inputs
     return launches, model, X, y
 
 
+class GrowWatch:
+    """While active, every ``FusedGrower.grow`` call: its seconds (it ends
+    in the tree's one read, so the work is done), its host reads and the
+    synchronizing calls ``torch.cuda.set_sync_debug_mode("warn")`` reports
+    in it, and whether it ran eagerly, captured a graph or replayed."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls = []
+
+    def __enter__(self):
+        import warnings
+
+        from mmlspark_tpu_torch.gbdt import tree
+
+        self.tree, self.orig = tree, tree.FusedGrower.grow
+        watch = self
+
+        def grow(grower, *a, **kw):
+            kind = ("eager" if grower.calls == 0 or not grower.capture else
+                    "replay" if grower._graphs else "capture")
+            reads = tree.host_reads
+            prev = watch.torch.cuda.get_sync_debug_mode()
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                watch.torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                try:
+                    res = watch.orig(grower, *a, **kw)
+                finally:
+                    watch.torch.cuda.set_sync_debug_mode(prev)
+            watch.calls.append({"kind": kind, "s": time.perf_counter() - t0,
+                                "reads": tree.host_reads - reads,
+                                "syncs": sum("ynchroniz" in str(w.message)
+                                             for w in seen)})
+            return res
+
+        tree.FusedGrower.grow = grow
+        return self
+
+    def __exit__(self, *exc):
+        self.tree.FusedGrower.grow = self.orig
+
+
+# iterations of the fused_tree phase's two fits
+ITERS_FUSED = 5
+
+
+def tree_gate(fused, host, rtol_gain: float, rtol_sums: float):
+    """The fused route's trees against the per-split route's: the same
+    features, bins, children, counts and default directions, gains within
+    ``rtol_gain`` and hessian sums within ``rtol_sums`` relative. Returns
+    (first difference per tree, all gains and sums bit for bit, the largest
+    relative gain difference)."""
+    diffs, bitwise, worst = [], True, 0.0
+    for i, (a, b) in enumerate(zip(fused.trees, host.trees)):
+        a, b = a[0], b[0]
+        d = first_diff(a, b)
+        for fld in ("count", "default_left"):
+            if d is None and not np.array_equal(getattr(a, fld), getattr(b, fld)):
+                d = {"field": fld, "tree": i}
+        for fld, rtol in (("gain", rtol_gain), ("weight", rtol_sums)):
+            x, z = getattr(a, fld), getattr(b, fld)
+            if x.shape != z.shape:
+                continue                       # first_diff has it
+            bitwise = bitwise and np.array_equal(x, z)
+            if fld == "gain" and len(x):
+                worst = max(worst, float((np.abs(x - z) / np.maximum(
+                    np.abs(z), 1e-30)).max()))
+            if d is None and not np.allclose(x, z, rtol=rtol, atol=0):
+                d = {"field": fld, "tree": i,
+                     "max_abs_diff": float(np.abs(x - z).max())}
+        diffs.append(d)
+    if len(fused.trees) != len(host.trees):
+        diffs.append({"field": "trees",
+                      "count": [len(fused.trees), len(host.trees)]})
+    return diffs, bitwise, worst
+
+
+def fused_tree_phase(torch, X, y, smi) -> dict:
+    """The main path's data forced to the fused per-tree route
+    (``MMLSPARK_TPU_NO_SCAN_TRAIN=1``) and to the per-split host route
+    (also ``MMLSPARK_TPU_NO_FUSED_TREE=1``), ITERS_FUSED iterations each on
+    the card: the same features, bins, counts, default directions and
+    children, gains and hessian sums bit for bit (the gate: within 1e-6
+    relative, bitwise logged); seconds a tree on each route,
+    and on the fused route exactly one host read a tree (eager, capture and
+    replay calls alike). Then the same on the first N_CUT rows, below
+    ``select_kernel.MIN_ROWS``: there the per-split route sums a child of
+    more than N_CUT/8 rows at full width, the fused route compacted, so the
+    last f32 bit of such a histogram may differ (ROADMAP C): the gate is
+    then that of the CPU tests against the reference's fused grower (gains
+    1e-4, sums 1e-5 relative), bitwise logged. Returns the
+    fused fit's launches at full size."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.gbdt import LightGBMClassifier
+    from mmlspark_tpu_torch.gbdt import booster as bst
+    from mmlspark_tpu_torch.gbdt import tree
+
+    est = LightGBMClassifier(numLeaves=31, maxBin=255, numIterations=ITERS_FUSED)
+    result = None
+    for rows, rtol_gain, rtol_sums in ((len(y), 1e-6, 1e-6),
+                                       (N_CUT, 1e-4, 1e-5)):
+        df = DataFrame.from_dict({"features": X[:rows], "label": y[:rows]})
+        zero_launches()
+        with Env(**FUSED_ONLY), GrowWatch(torch) as gw:
+            t0 = time.perf_counter()
+            fused = est.fit(df).booster
+            torch.cuda.synchronize()
+            fused_s = time.perf_counter() - t0
+        launches = read_launches()
+        reads = tree.host_reads
+        with Env(**PER_SPLIT), Watch(bst, "grow_tree") as hw:
+            t0 = time.perf_counter()
+            host = est.fit(df).booster
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+        host_reads = tree.host_reads - reads
+        check_route(fused, "fused", "fused_tree")
+        check_route(host, "host", "fused_tree")
+        check_launches(launches, "fused_tree")
+        diffs, bitwise, worst = tree_gate(fused, host, rtol_gain, rtol_sums)
+        log({"phase": "fused_tree", "card": smi, "rows": rows,
+             "trees": len(fused.trees),
+             "routes": [fused.route, host.route], "fused_fit_seconds": fused_s,
+             "per_split_fit_seconds": host_s,
+             "fused_seconds_per_tree": [c["s"] for c in gw.calls],
+             "fused_call_kinds": [c["kind"] for c in gw.calls],
+             "fused_reads_per_tree": [c["reads"] for c in gw.calls],
+             "fused_syncs_per_tree": [c["syncs"] for c in gw.calls],
+             "per_split_seconds_per_tree": hw.seconds,
+             "per_split_reads_per_tree": host_reads / max(len(host.trees), 1),
+             "launches": launches, "first_diff_per_tree": diffs,
+             "gate_rtol": {"gain": rtol_gain, "hessian_sums": rtol_sums},
+             "gains_and_sums_bitwise": bitwise,
+             "max_rel_gain_diff": worst})
+        if any(d is not None for d in diffs):
+            fail(f"fused_tree: at {rows} rows the fused grower's trees part "
+                 f"from the per-split grower's: {diffs}")
+        if any(c["reads"] != 1 for c in gw.calls):
+            fail(f"fused_tree: reads per tree {[c['reads'] for c in gw.calls]}, not 1")
+        result = launches if result is None else result
+    return result
+
+
+# rows of the native engine's main fit (200,000 x 28 x 20 = 4e6 <= 2e7: the
+# default route is native)
+N_NATIVE = 200_000
+
+
+def native_main(torch, X, y, dense_model, smi) -> None:
+    """The native engine (``native_loader``, the port's g++ build of its copy
+    of the reference's C++ source): a N_NATIVE x 28, 20-iteration
+    ``LightGBMClassifier`` fit that routes ``native`` by default, bit for
+    bit the same fit run under ``use_device("cpu")``; on the main path's
+    2,097,152 x 28 matrix, native binning (``bin_matrix``) bit for bit the
+    port's numpy binning, and ``forest_predict_f64`` over the dense main
+    model on N_SCORE rows bit for bit the numpy traversal
+    (``MMLSPARK_TPU_NO_NATIVE_PREDICT=1``); each with both times."""
+    from mmlspark_tpu_torch import native_loader
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.gbdt import LightGBMClassifier, predict_ensemble
+    from mmlspark_tpu_torch.runtime import use_device
+
+    if not native_loader.available():
+        fail("native_main: the native library did not build or load")
+    df = DataFrame.from_dict({"features": X[:N_NATIVE], "label": y[:N_NATIVE]})
+    fits = {}
+    for dev in (DEVICE, "cpu"):
+        with use_device(dev):
+            t0 = time.perf_counter()
+            fits[dev] = (LightGBMClassifier(numLeaves=31, maxBin=255,
+                                            numIterations=20).fit(df).booster,
+                         time.perf_counter() - t0)
+    bc, bp = fits[DEVICE][0], fits["cpu"][0]
+    same_fit = bc.to_string() == bp.to_string()
+
+    mapper = dense_model.booster.bin_mapper
+    t0 = time.perf_counter()
+    nat = mapper.transform_fm(X, dtype=np.uint8)
+    native_bin_s = time.perf_counter() - t0
+    saved = native_loader.bin_matrix, native_loader.bin_column
+    native_loader.bin_matrix = native_loader.bin_column = lambda *a, **k: None
+    try:
+        t0 = time.perf_counter()
+        ref = mapper.transform_fm(X, dtype=np.uint8)
+        numpy_bin_s = time.perf_counter() - t0
+    finally:
+        native_loader.bin_matrix, native_loader.bin_column = saved
+    bins_same = bool(np.array_equal(nat, ref))
+
+    trees, Xs = dense_model.booster.trees, X[:N_SCORE]
+    t0 = time.perf_counter()
+    fast = predict_ensemble(trees, Xs, 1)
+    native_pred_s = time.perf_counter() - t0
+    with Env(MMLSPARK_TPU_NO_NATIVE_PREDICT="1"):
+        t0 = time.perf_counter()
+        slow = predict_ensemble(trees, Xs, 1)
+        numpy_pred_s = time.perf_counter() - t0
+    pred_same = bool(np.array_equal(fast, slow))
+    log({"phase": "native_main", "card": smi, "rows": N_NATIVE, "iterations": 20,
+         "routes": [bc.route, bp.route], "fit_seconds": fits[DEVICE][1],
+         "cpu_fit_seconds": fits["cpu"][1], "fits_bitwise": same_fit,
+         "binning_rows": len(X), "native_binning_seconds": native_bin_s,
+         "numpy_binning_seconds": numpy_bin_s, "binning_bitwise": bins_same,
+         "predict_rows": N_SCORE, "predict_trees": len(trees),
+         "native_predict_seconds": native_pred_s,
+         "numpy_predict_seconds": numpy_pred_s, "predict_bitwise": pred_same,
+         "uses": {f"{k[0]}/{k[1]}": v for k, v in native_loader.uses.items()}})
+    check_route(bc, "native", "native_main")
+    check_route(bp, "native", "native_main (CPU)")
+    if not (same_fit and bins_same and pred_same):
+        fail(f"native_main: fit bitwise {same_fit}, binning {bins_same}, "
+             f"predict {pred_same}")
+
+
+# spin kernels that mark a traced window at each end
+MARKS = 3
+# the CUDA kernels of K1 (both entries) and K2, by name in a trace
+K1_KERNELS = ("hist_block_kernel", "hist_reduce_kernel", "hist_count_kernel",
+              "hist_count_reduce_kernel", "hist_global_kernel")
+K2_KERNELS = ("select_count_kernel", "select_scatter_kernel")
+
+
+def marked_trace(torch, fn, device_only: bool = True):
+    """``fn()`` under ``core.profiling.trace``, between spin kernels that
+    mark its window on the device's clock. Returns (fn's result,
+    ``device_busy`` over that window, whether the markers were found, the
+    K1 and K2 device ms in it)."""
+    from mmlspark_tpu_torch.core import profiling
+
+    spin = torch.cuda._sleep
+    with profiling.trace(device_only=device_only) as prof:
+        for _ in range(MARKS):
+            spin(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        for _ in range(MARKS):
+            spin(1000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    iv = profiling._device_intervals(prof)
+    marks = sorted((s, e) for s, e, n in iv if "spin" in n)
+    # the markers before and after fn, split at their widest gap, which
+    # must span half of fn's wall time (a trace has dropped markers): else
+    # the device span
+    window = None
+    if len(marks) >= 2:
+        gap, at = max((b[0] - a[1], i) for i, (a, b) in
+                      enumerate(zip(marks, marks[1:])))
+        if gap > 1e6 * wall / 2:
+            window = (marks[at][0], marks[-1][1])
+    busy = profiling.device_busy(prof, window_us=window)
+    lo, hi = window if window else (-np.inf, np.inf)
+    k_ms = {k: sum(e - s for s, e, n in iv
+                   if lo <= s <= hi and any(m in n for m in names)) / 1e3
+            for k, names in (("K1", K1_KERNELS), ("K2", K2_KERNELS))}
+    return res, busy, window is not None, k_ms
+
+
+def profile_phase(torch, X, y, smi) -> None:
+    """Traces (``core.profiling``, device activity) of the dense main fit on
+    the per-split route (forced) and on its default route (scan): for each,
+    the device's busy share of the fit's window (spin kernels mark it), the
+    top device operations by time, the longest idle gaps, and K1's and
+    K2's device ms. (The serving_sparse load is traced in its phase.)"""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.gbdt import LightGBMClassifier
+
+    df = DataFrame.from_dict({"features": X, "label": y})
+    for name, env in (("per_split", PER_SPLIT), ("scan", {})):
+        with Env(**env):
+            t0 = time.perf_counter()
+            model, busy, marked, k_ms = marked_trace(torch, lambda: LightGBMClassifier(
+                numLeaves=31, maxBin=255, numIterations=20).fit(df))
+            wall = time.perf_counter() - t0
+        log({"phase": "profile", "card": smi, "fit": name, "route": model.booster.route,
+             "wall_seconds_traced": wall, "window_marked": marked,
+             "k1_device_ms": k_ms["K1"], "k2_device_ms": k_ms["K2"],
+             "k1_share_of_window": (k_ms["K1"] / busy["window_ms"]
+                                    if busy["window_ms"] else None),
+             **busy})
+        if not busy["device_events"]:
+            fail(f"profile: the {name} fit's trace holds no device event")
+
+
 class Timed:
     """While active, CUDA events around every call of ``module.name`` (two
     records a call, queued without a wait): the device time between them,
-    summed, and the host's seconds in the calls."""
+    summed, and the host's seconds in the calls. Calls made while a CUDA
+    graph is captured are not timed, and a graph's replays make no call:
+    on the scan and fused routes this times the eager calls only (the
+    profile phase times the replays)."""
 
     def __init__(self, torch, module, name: str):
         self.torch, self.module, self.name = torch, module, name
@@ -609,6 +1025,8 @@ class Timed:
         self.orig = getattr(self.module, self.name)
 
         def timed(*a, **kw):
+            if self.torch.cuda.is_current_stream_capturing():
+                return self.orig(*a, **kw)   # replays are not timed here
             ev = (self.torch.cuda.Event(enable_timing=True),
                   self.torch.cuda.Event(enable_timing=True))
             t0 = time.perf_counter()
@@ -672,27 +1090,38 @@ def check_dense_scores(scored, booster, X, y, what: str) -> dict:
 
 
 class PathInputs:
-    """While active, keeps the arguments of the grower's first histogram
-    (the first tree's root: the fit's own binned [F, N] matrix, its
-    gradients and its row mask) and of its first K2 compaction (a small
-    child's rows under that mask, and the tier's width)."""
+    """While active, keeps copies of the arguments of the grower's first
+    histogram (the first tree's root: the fit's own binned [F, N] matrix,
+    its gradients and its row mask), of its first K2 compaction (a small
+    child's rows under that mask, and the tier's width) and, on the fused
+    and scan routes, of K1's first device-count call (that compaction's
+    buffers, the count on the device and the tier widths). Calls made while
+    a CUDA graph is captured are skipped: the first calls are eager."""
 
     def __init__(self):
         self.args = {}
 
     def __enter__(self):
+        from mmlspark_tpu_torch.gbdt import hist_kernel as hk
         from mmlspark_tpu_torch.gbdt import histogram as H
         from mmlspark_tpu_torch.gbdt import select_kernel as sk
 
         self.orig = [(H, "compute_histogram", H.compute_histogram),
-                     (sk, "select_rows", sk.select_rows)]
+                     (sk, "select_rows", sk.select_rows),
+                     (hk, "histogram_count", hk.histogram_count)]
         for mod, name, fn in self.orig:
             setattr(mod, name, self._keep(name, fn))
         return self
 
     def _keep(self, name, fn):
+        import torch
+
         def rec(*a):
-            self.args.setdefault(name, a)
+            if name not in self.args and not (
+                    torch.cuda.is_available()
+                    and torch.cuda.is_current_stream_capturing()):
+                self.args[name] = tuple(x.clone() if hasattr(x, "clone")
+                                        else x for x in a)
             return fn(*a)
         return rec
 
@@ -744,8 +1173,58 @@ def hist_on_path(torch, inputs: PathInputs, what: str) -> None:
                      "bound_ms": bound_ms(rows * (f * 4 + 8) + width
                                           + f * b * 12, 0)[0],
                      "max_abs_err": err.max().item()}
+    if "histogram_count" in inputs.args:
+        out["device_count"] = check_count_entry(torch, inputs, what)
     log({"phase": "hist_on_path", "path": what, "features": f,
          "tier_cap": cap, "k2_bitwise": k2_bitwise, **out})
+
+
+def check_count_entry(torch, inputs: PathInputs, what: str) -> dict:
+    """K1's device-count entry on a fit's own first K2-compacted buffer and
+    device-held count: against its plain version (count channel exact,
+    grad/hess within 1e-5 of the bin's |v| sum + 1e-6), and bit for bit
+    (logged) against the mask entry launched at the tier width the count
+    picks (the per-split grower's launch); timed, with its bound."""
+    from mmlspark_tpu_torch.gbdt import hist_kernel as hk
+    from mmlspark_tpu_torch.gbdt.tree import pick_tier
+
+    bins, g, h, cnt, b, caps = inputs.args["histogram_count"]
+    f, width = bins.shape
+    count = int(cnt.reshape(()).item())
+    valid = torch.arange(width, device=bins.device) < count
+    k = hk.histogram_count_cuda(bins, g, h, cnt, b, caps)
+    p = hk.histogram_count_plain(bins, g, h, cnt, b)
+    scale = hk.histogram_plain(bins, g.abs(), h.abs(), valid, b)
+    err = (k[..., :2] - p[..., :2]).abs()
+    if not torch.equal(k[..., 2], p[..., 2]) or \
+            not bool((err <= 1e-5 * scale[..., :2] + 1e-6).all()):
+        fail(f"K1's device-count entry on the {what} fit's data differs from "
+             f"its plain version: max err {err.max().item()}")
+    tidx = pick_tier(caps, count)
+    w = caps[tidx - 1] if tidx else width
+    tier = hk.histogram_cuda(bins[:, :w].contiguous(), g[:w].contiguous(),
+                             h[:w].contiguous(), valid[:w].contiguous(), b)
+    # the library call: one index_add_ over the counted rows (flat index
+    # and values prepared outside the timing), as kernel_phase times K1's
+    vals = torch.stack([g[:count], h[:count], torch.ones_like(g[:count])], 1)
+    flat_idx = ((bins[:, :count].to(torch.int64)
+                 + torch.arange(f, device=bins.device)[:, None] * b)[..., None] * 3
+                + torch.arange(3, device=bins.device)).reshape(-1)
+    flat_vals = vals[None].expand(f, count, 3).reshape(-1)
+    lib_ms = time_ms(torch, lambda: torch.zeros(f * b * 3, device=bins.device)
+                     .index_add_(0, flat_idx, flat_vals), 5)
+    del vals, flat_idx, flat_vals
+    return {"rows": width, "selected": count, "tier_width": w,
+            "library_ms": lib_ms,
+            "bitwise_vs_tier_launch": bool(torch.equal(k, tier)),
+            "ms": time_ms(torch, lambda: hk.histogram_count_cuda(
+                bins, g, h, cnt, b, caps)),
+            "device_only_ms": queued_ms(torch, lambda: hk.histogram_count_cuda(
+                bins, g, h, cnt, b, caps), 50),
+            "plain_ms": time_ms(torch, lambda: hk.histogram_count_plain(
+                bins, g, h, cnt, b), 5),
+            "bound_ms": bound_ms(count * (f * 4 + 8) + 4 + f * b * 12, 0)[0],
+            "max_abs_err": err.max().item()}
 
 
 # ---------------------------------------------------------------------------
@@ -1831,23 +2310,30 @@ class GossLog:
         self.bst.goss_sample = self.orig
 
 
-def refit_compare(torch, est_fn, df, n_trees: int, what: str, goss=False):
-    """The same estimator on the card and on the CPU over ``df``; returns
-    the card's and the CPU's boosters, the first difference of each of the
-    first ``n_trees`` trees, the seconds of each fit, and for GOSS how many
-    rows the two selections differ in at each iteration."""
+def refit_compare(torch, est_fn, df, n_trees: int, what: str, goss=False,
+                  route="fused"):
+    """The same estimator on the card and on the CPU over ``df``, both on
+    ``route`` (``fused`` or ``scan``: the card's default for the fit, the
+    CPU pinned to it; the native engine off, as these cuts are small
+    enough for it); returns the card's and the CPU's boosters, the first
+    difference of each of the first ``n_trees`` trees, the seconds of each
+    fit, and for GOSS how many rows the two selections differ in at each
+    iteration."""
     from mmlspark_tpu_torch.runtime import use_device
 
     out = {}
-    for dev in (DEVICE, "cpu"):
-        with use_device(dev), GossLog(keep=goss) as gl:
+    pin = CPU_SCAN if route == "scan" else CPU_FUSED
+    for dev, env in ((DEVICE, NATIVE_OFF), ("cpu", {**NATIVE_OFF, **pin})):
+        with use_device(dev), Env(**env), GossLog(keep=goss) as gl:
             t0 = time.perf_counter()
             out[dev] = (est_fn().fit(df).booster, time.perf_counter() - t0, gl)
     (bc, cuda_s, gc), (bp, cpu_s, gp) = out[DEVICE], out["cpu"]
+    check_route(bc, route, f"{what} refit")
+    check_route(bp, route, f"{what} refit (CPU)")
     diffs = [first_diff(bc.trees[i][0], bp.trees[i][0])
              for i in range(min(n_trees, len(bc.trees), len(bp.trees)))]
     info = {"cuda_fit_seconds": cuda_s, "cpu_fit_seconds": cpu_s,
-            "first_diff_per_tree": diffs}
+            "routes": [bc.route, bp.route], "first_diff_per_tree": diffs}
     if goss:
         info["goss_rows_differing_per_iteration"] = [
             int((a != b).sum()) for a, b in zip(gc.masks, gp.masks)]
@@ -1864,6 +2350,10 @@ DENSE_VARIANTS = {
     "dart": dict(boostingType="dart", dropRate=0.1, maxDrop=50),
     "rf": dict(boostingType="rf", baggingFraction=0.9, baggingFreq=1),
 }
+# the route each variant takes on the card by default: rf joins the scan,
+# goss (until its in-scan selection, ROADMAP A step 4e) and dart (host-side
+# drops) keep the per-iteration loop over the fused grower
+DENSE_VARIANT_ROUTES = {"goss": "fused", "dart": "fused", "rf": "scan"}
 # rows of the card-against-CPU refits of the new paths: a CPU refit of the
 # full 2,097,152 rows costs minutes
 N_CUT = 262_144
@@ -1888,9 +2378,9 @@ def dense_variants(torch, X, y, smi) -> dict:
     small = DataFrame.from_dict({"features": X[:N_SCORE]})
     cut = DataFrame.from_dict({"features": X[:N_CUT], "label": y[:N_CUT]})
     base = dict(numLeaves=31, maxBin=255)
-    launches = {"hist": 0, "select": 0}
+    launches = {"hist": 0, "hist_count": 0, "select": 0}
     for name, extra in DENSE_VARIANTS.items():
-        hk.launches = sk.launches = 0
+        zero_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with Timed(torch, hk, "histogram_cuda") as k1, GossLog() as gl, \
@@ -1898,21 +2388,23 @@ def dense_variants(torch, X, y, smi) -> dict:
             model = LightGBMClassifier(numIterations=20, **base, **extra).fit(df)
             torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        got = {"hist": hk.launches, "select": sk.launches}
+        got = read_launches()
         for k in launches:
             launches[k] += got[k]
         info = {"phase": "dense_variants", "variant": name, "card": smi,
-                "rows": len(y), "fit_seconds": fit_s, "launches": got,
-                "k1_device_ms_in_fit": k1.device_ms(),
-                "k1_calls_in_fit": k1.calls,
+                "rows": len(y), "route": model.booster.route,
+                "fit_seconds": fit_s, "launches": got,
+                "k1_device_ms_outside_graphs": k1.device_ms(),
+                "k1_calls_outside_graphs": k1.calls,
                 **check_dense_scores(model.transform(small), model.booster,
                                      X, y, name)}
         if name == "goss":
             info.update(goss_selected_per_iteration=gl.selected,
                         goss_host_seconds_per_iteration=gl.seconds)
         log(info)
-        if got["hist"] < 1 or got["select"] < 1:
-            fail(f"{name}: a kernel of the dense path never launched: {got}")
+        route = DENSE_VARIANT_ROUTES[name]
+        check_route(model.booster, route, name)
+        check_launches(got, name)
         hist_on_path(torch, inputs, name)
         del inputs
         if name == "goss":
@@ -1924,7 +2416,7 @@ def dense_variants(torch, X, y, smi) -> dict:
         bc, bp, ref = refit_compare(
             torch, lambda: LightGBMClassifier(numIterations=ITERS_REFIT,
                                               **base, **extra),
-            cut, ITERS_REFIT, name, goss=name == "goss")
+            cut, ITERS_REFIT, name, goss=name == "goss", route=route)
         held = ITERS_REFIT
         if name == "goss":
             parted = [i for i, d in enumerate(
@@ -2077,7 +2569,7 @@ def ranker_main(torch, smi) -> dict:
     est = LightGBMRanker(groupCol="query", validationIndicatorCol="isVal",
                          earlyStoppingRound=5, numIterations=20, numLeaves=31,
                          maxBin=255, verbosity=0)
-    hk.launches = sk.launches = 0
+    zero_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2086,19 +2578,20 @@ def ranker_main(torch, smi) -> dict:
         model = est.fit(df)
         torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = {"hist": hk.launches, "select": sk.launches}
+    launches = read_launches()
     booster = model.booster
     ndcg = [float(ln.split("=")[1]) for ln in lines.lines
             if "valid ndcg=" in ln]
     log({"phase": "ranker_main", "fit_seconds": fit_s, "launches": launches,
+         "route": booster.route,
          "lambdarank_device_ms_per_iteration": gh.per_call_ms(),
          "lambdarank_host_seconds_per_iteration": gh.host_s,
          "valid_ndcg10_per_iteration": ndcg,
          "best_iteration": booster.best_iteration,
          "trees": len(booster.trees),
          "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9})
-    if launches["hist"] < 1 or launches["select"] < 1:
-        fail(f"a kernel of the ranking path never launched: {launches}")
+    check_route(booster, "fused", "ranker_main")
+    check_launches(launches, "ranker_main")
     if len(ndcg) != len(booster.trees) or not all(0 < v <= 1 for v in ndcg):
         fail(f"valid NDCG per iteration is off: {ndcg}")
     hist_on_path(torch, inputs, "ranker")
@@ -2261,7 +2754,7 @@ def categorical_main(torch, dense_model, X_dense, smi) -> dict:
          "cardinalities": [k for _, k in CAT_COLUMNS],
          "positives": float(y.mean()), "data_seconds": time.perf_counter() - t0})
 
-    hk.launches = sk.launches = 0
+    zero_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2270,7 +2763,7 @@ def categorical_main(torch, dense_model, X_dense, smi) -> dict:
                                    **base).fit(df)
         torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = {"hist": hk.launches, "select": sk.launches}
+    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     booster = model.booster
     t0 = time.perf_counter()
@@ -2283,15 +2776,18 @@ def categorical_main(torch, dense_model, X_dense, smi) -> dict:
     set_sizes = [len(s) for s in (t0_tree.cat_sets or []) if s is not None]
     log({"phase": "categorical_main", "fit_seconds": fit_s,
          "fit_rows_per_s": N_CAT / fit_s, "launches": launches,
-         "k1_device_ms_in_fit": k1.device_ms(), "k1_calls_in_fit": k1.calls,
+         "route": booster.route, "route_without_categorical_slots":
+         plain.booster.route,
+         "k1_device_ms_outside_graphs": k1.device_ms(),
+         "k1_calls_outside_graphs": k1.calls,
          "peak_device_gb": peak_gb, "holdout_rows": N_CAT_HOLDOUT,
          "holdout_auc": auc_cat, "holdout_auc_without_categorical_slots": auc_plain,
          "fit_seconds_without_categorical_slots": plain_s,
          "first_tree_set_sizes": set_sizes,
          "set_nodes": sum(t.cat_sets is not None and sum(
              s is not None for s in t.cat_sets) for g in booster.trees for t in g)})
-    if launches["hist"] < 1 or launches["select"] < 1:
-        fail(f"a kernel of the categorical path never launched: {launches}")
+    check_route(booster, "scan", "categorical_main")
+    check_launches(launches, "categorical_main")
     # (a) K1 and K2 on this fit's own first-tree inputs
     hist_on_path(torch, inputs, "categorical_main")
     del inputs
@@ -2303,13 +2799,14 @@ def categorical_main(torch, dense_model, X_dense, smi) -> dict:
     # (c) the card's first 3 trees against a CPU refit on a cut
     cut = DataFrame.from_dict({"features": X[:N_CUT], "label": y[:N_CUT]})
     fits = {}
-    for dev in (DEVICE, "cpu"):
-        with use_device(dev):
+    for dev, env in ((DEVICE, {}), ("cpu", CPU_SCAN)):
+        with use_device(dev), Env(**env):
             t0 = time.perf_counter()
             fits[dev] = (LightGBMClassifier(numIterations=ITERS_REFIT,
                                             categoricalSlotIndexes=cat_slots,
                                             **base).fit(cut).booster,
                          time.perf_counter() - t0)
+        check_route(fits[dev][0], "scan", f"categorical refit on {dev}")
     diffs = [cat_trees_differ(fits[DEVICE][0].trees[i][0], fits["cpu"][0].trees[i][0])
              for i in range(ITERS_REFIT)]
     log({"phase": "categorical_main", "refit_rows": N_CUT,
@@ -2407,13 +2904,14 @@ def categorical_main(torch, dense_model, X_dense, smi) -> dict:
                                    **base).fit(cut)
     text = lgbm_format.to_lightgbm_string(first.booster)
     cont = {}
-    for dev in (DEVICE, "cpu"):
-        with use_device(dev):
+    for dev, env in ((DEVICE, {}), ("cpu", CPU_SCAN)):
+        with use_device(dev), Env(**env):
             t0 = time.perf_counter()
             cont[dev] = (LightGBMClassifier(
                 numIterations=CAT_ITERS_CONTINUED, modelString=text,
                 categoricalSlotIndexes=cat_slots, **base).fit(cut).booster,
                 time.perf_counter() - t0)
+        check_route(cont[dev][0], "scan", f"categorical continuation on {dev}")
     k = CAT_ITERS_CONTINUED
     cdiff = cat_trees_differ(cont[DEVICE][0].trees[k][0], cont["cpu"][0].trees[k][0])
     log({"phase": "categorical_main", "continued_trees": len(cont[DEVICE][0].trees),
@@ -2434,6 +2932,7 @@ def categorical_main(torch, dense_model, X_dense, smi) -> dict:
     full = bst.train(params, Xc, yc, device=DEVICE, checkpoint=CheckpointConfig(
         os.path.join(tmp, "full.ckpt"), every_k=CAT_CKPT_EVERY))
     full_s = time.perf_counter() - t0
+    check_route(full, "fused", "categorical checkpointed fit")
     calls = [0]
 
     def preempt(point, **ctx):
@@ -2613,6 +3112,7 @@ def anchor_variants(torch, smi) -> int:
 SERVE_ROWS = 4096          # requests of the sparse and dense serving loads
 SERVE_CONNS = 64           # keep-alive client connections
 SERVE_CROSS_ROWS = 256     # rows replayed across the 4 modes x 2 wires
+SERVE_TRACED_ROWS = 1024   # requests of the traced sparse load
 SERVE_SEQ_REQUESTS = 128   # token frames of the transformer serving load
 FRONT_REQUESTS = 512       # requests through the routing front
 FRONT_KILL_AFTER = 128     # replies before one worker is stopped
@@ -2769,6 +3269,14 @@ def serving_sparse(torch, model, rows, smi) -> int:
             replies = http_load(srv.address, frames, frame_hdr, SERVE_CONNS)
             wall = time.perf_counter() - t0
             launches = gk.launches
+            # a shorter load again, traced on the device (core.profiling):
+            # its busy share (the trace slows the server, so the load above
+            # is not traced)
+            t0 = time.perf_counter()
+            _, busy, marked, _ = marked_trace(torch, lambda: http_load(
+                srv.address, frames[:SERVE_TRACED_ROWS], frame_hdr,
+                SERVE_CONNS))
+            traced_wall = time.perf_counter() - t0
             stats = json.loads(http_get(srv.address, "/_mmlspark/stats"))
             metrics = http_get(srv.address, "/_mmlspark/metrics").decode()
         cross = {}
@@ -2802,6 +3310,9 @@ def serving_sparse(torch, model, rows, smi) -> int:
          "metrics_have_device_memory": mem_in_metrics,
          "wire": stats.get("wire"), "async": stats.get("async"),
          "ingest": stats.get("ingest"), **latency_summary(replies, stats)})
+    log({"phase": "profile", "card": smi, "load": "serving_sparse",
+         "requests": SERVE_TRACED_ROWS, "window_marked": marked,
+         "wall_seconds_traced": traced_wall, **busy})
     if not ok:
         fail(f"serving_sparse: statuses {statuses}, replies {got_p.shape}")
     if diff > SERVE_PROBA_TOL or not pred_equal:
@@ -2992,9 +3503,7 @@ def serving_transformer(torch, stage, ids, unfused, smi) -> int:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="profile the main-path fit with torch.profiler")
-    args = ap.parse_args()
+    ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -3009,9 +3518,14 @@ def main() -> int:
     hdr = header(torch)
     smi = hdr["smi"].splitlines()[0]
     kernels = kernel_phase(torch)
-    launches, dense_model, X, y = main_path(torch, args.profile)
+    main_launches, dense_model, X, y = scan_main(torch, smi)
+    launches = {"hist": main_launches["hist"] + main_launches["hist_count"],
+                "select": main_launches["select"]}
     X_score = X[:N_SCORE].copy()
-    paths = {"main": dict(launches)}
+    paths = {"main": dict(main_launches)}
+    paths["fused_tree"] = fused_tree_phase(torch, X, y, smi)
+    native_main(torch, X, y, dense_model, smi)
+    profile_phase(torch, X, y, smi)
     paths["dense_variants"] = dense_variants(torch, X, y, smi)
     del X, y
     paths["ranker_main"] = ranker_main(torch, smi)
@@ -3050,9 +3564,15 @@ def main() -> int:
     rows = []
     for name in ("hist", "select", "csr_gather", "sparse_hist", "flash_attn"):
         row = dict(kernels[name], launches=launches[name])
-        rows.append({**{k: row[k] for k in keys}, "launches_on_new_paths": {
-            p: c[name] for p, c in paths.items()
-            if p != "main" and name in c}})
+        new_paths = {p: c[name] + c.get("hist_count", 0) if name == "hist"
+                     else c[name] for p, c in paths.items()
+                     if p != "main" and name in c}
+        if name == "hist":
+            # K1's device-count entry (this slice's), apart, main path too
+            new_paths.update({f"{p}.device_count_entry": c["hist_count"]
+                              for p, c in paths.items() if "hist_count" in c})
+        rows.append({**{k: row[k] for k in keys},
+                     "launches_on_new_paths": new_paths})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log(smi)
     log({"kernels": rows})

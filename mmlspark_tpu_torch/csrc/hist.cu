@@ -52,9 +52,35 @@
 // When one feature's histogram does not fit (B > 11,622; the engine allows
 // up to 65,535 bins) the kernel adds straight into a zeroed f64 [F, B, 3]
 // with global atomics, and the second launch rounds it.
+//
+// The device-count entry (mmlspark_hist_count) serves the device-resident
+// tree grower, which never reads a row count on the host: K2 compacts a
+// small child into a buffer as wide as the largest tier, and this entry
+// sums rows [0, *count) of it, *count an int32 in device memory, with no
+// mask. Its grid is sized for the buffer; each block reads the count,
+// takes the geometry the host's launch_geometry gives for the narrowest
+// tier width that holds the count (a table the host passes by value), and
+// returns at once when its rows start past the count. So each split
+// streams only the child's rows, its partials group rows as a launch sized
+// for that tier does, and the reduction sums only the blocks that held
+// rows (the others' partials would be +0.0). A captured CUDA graph replays
+// it unchanged for any count.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// The device-count entry's launch geometry: the host computes K1's grid
+// (hist_kernel.launch_geometry) for each width a row count may be grouped
+// by, widest first; the kernel picks the narrowest width that holds the
+// count it reads, so its blocks take the rows a launch sized for that width
+// would take.
+constexpr int kMaxTiers = 8;
+struct CountTiers {
+  int32_t n;                             // entries; width[0] = buffer width
+  int32_t row_blocks[kMaxTiers];
+  int64_t width[kMaxTiers];
+  int64_t rows_per_block[kMaxTiers];
+};
 
 namespace {
 
@@ -108,14 +134,19 @@ __device__ __forceinline__ unsigned load_sel(const uint8_t* __restrict__ m,
   return sel;
 }
 
-__global__ void __launch_bounds__(kThreads)
-hist_block_kernel(const int32_t* __restrict__ bins,
-                  const float* __restrict__ grad,
-                  const float* __restrict__ hess,
-                  const uint8_t* __restrict__ mask,
-                  double* __restrict__ partial, int64_t n, int num_f,
-                  int num_bins, int feat_per_block, int64_t rows_per_block) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// the block histogram of rows [r0, r1) of a group of features, written as
+// the block's f64 partial; kMasked: rows are selected by ``mask``, else
+// every row of the range counts (the device-count entry's compacted rows)
+template <bool kMasked>
+__device__ __forceinline__ void hist_rows(const int32_t* __restrict__ bins,
+                                          const float* __restrict__ grad,
+                                          const float* __restrict__ hess,
+                                          const uint8_t* __restrict__ mask,
+                                          double* __restrict__ partial,
+                                          int64_t stride, int64_t r0,
+                                          int64_t r1, int num_f, int num_bins,
+                                          int feat_per_block,
+                                          unsigned char* smem) {
   const int f0 = blockIdx.y * feat_per_block;
   const int nf = min(feat_per_block, num_f - f0);
   const int cells = nf * num_bins;
@@ -134,9 +165,7 @@ hist_block_kernel(const int32_t* __restrict__ bins,
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t r0 = (int64_t)blockIdx.x * rows_per_block;
-  const int64_t r1 = min(r0 + rows_per_block, n);
-  const int64_t chunks = (r1 - r0 + kUnitRows - 1) / kUnitRows;
+  const int64_t chunks = r1 > r0 ? (r1 - r0 + kUnitRows - 1) / kUnitRows : 0;
   // units (chunk, feature), feature fastest: the warps at work at one time
   // share rows, so a row's mask, grad and hess come from L1 after its first
   // feature
@@ -144,8 +173,14 @@ hist_block_kernel(const int32_t* __restrict__ bins,
     const int fl = (int)(u % nf);
     const int64_t r = r0 + (u / nf) * kUnitRows + 4 * lane;
     const int64_t rn = min(r1, r0 + (u / nf + 1) * kUnitRows);
-    const unsigned sel = r < rn ? load_sel(mask, r, rn) : 0u;
-    const Quad q = load_bins(bins + (int64_t)(f0 + fl) * n, r, rn);
+    unsigned sel = 0u;
+    if (kMasked) {
+      sel = r < rn ? load_sel(mask, r, rn) : 0u;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) sel |= r + k < rn ? 1u << k : 0u;
+    }
+    const Quad q = load_bins(bins + (int64_t)(f0 + fl) * stride, r, rn);
     const float4 g4 = load_f4(grad, r, rn);
     const float4 h4 = load_f4(hess, r, rn);
     const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
@@ -195,6 +230,50 @@ hist_block_kernel(const int32_t* __restrict__ bins,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+hist_block_kernel(const int32_t* __restrict__ bins,
+                  const float* __restrict__ grad,
+                  const float* __restrict__ hess,
+                  const uint8_t* __restrict__ mask,
+                  double* __restrict__ partial, int64_t n, int num_f,
+                  int num_bins, int feat_per_block, int64_t rows_per_block) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int64_t r0 = (int64_t)blockIdx.x * rows_per_block;
+  hist_rows<true>(bins, grad, hess, mask, partial, n, r0,
+                  min(r0 + rows_per_block, n), num_f, num_bins,
+                  feat_per_block, smem);
+}
+
+// (rows per block, blocks that hold rows) for the count at *count
+__device__ __forceinline__ void count_geometry(const CountTiers& t,
+                                               const int32_t* count,
+                                               int64_t* cnt, int64_t* rpb,
+                                               int* used) {
+  const int64_t c = min((int64_t)max(*count, 0), t.width[0]);
+  int k = 0;
+  for (int i = 1; i < t.n; ++i) k = c <= t.width[i] ? i : k;
+  *cnt = c;
+  *rpb = t.rows_per_block[k];
+  *used = (int)min((int64_t)t.row_blocks[k], (c + *rpb - 1) / *rpb);
+}
+
+__global__ void __launch_bounds__(kThreads)
+hist_count_kernel(const int32_t* __restrict__ bins,
+                  const float* __restrict__ grad,
+                  const float* __restrict__ hess,
+                  const int32_t* __restrict__ count,
+                  double* __restrict__ partial, int64_t stride, int num_f,
+                  int num_bins, int feat_per_block, CountTiers tiers) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int64_t cnt, rpb;
+  int used;
+  count_geometry(tiers, count, &cnt, &rpb, &used);
+  if ((int)blockIdx.x >= used) return;  // past the count: no rows, no partial
+  const int64_t r0 = (int64_t)blockIdx.x * rpb;
+  hist_rows<false>(bins, grad, hess, nullptr, partial, stride, r0,
+                   min(r0 + rpb, cnt), num_f, num_bins, feat_per_block, smem);
+}
+
 // out[i] = f32(sum over blocks of partial[blk, i]), blocks in order
 __global__ void hist_reduce_kernel(const double* __restrict__ partial,
                                    float* __restrict__ out, int64_t cells,
@@ -206,16 +285,36 @@ __global__ void hist_reduce_kernel(const double* __restrict__ partial,
   out[i] = (float)s;
 }
 
+// the count entry's reduction: the partials of the blocks that held rows
+__global__ void hist_count_reduce_kernel(const double* __restrict__ partial,
+                                         float* __restrict__ out,
+                                         int64_t cells,
+                                         const int32_t* __restrict__ count,
+                                         CountTiers tiers) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= cells) return;
+  int64_t cnt, rpb;
+  int used;
+  count_geometry(tiers, count, &cnt, &rpb, &used);
+  double s = 0.0;
+  for (int k = 0; k < used; ++k) s += partial[(int64_t)k * cells + i];
+  out[i] = (float)s;
+}
+
+// global path: rows [0, n) selected by ``mask``, or with no mask rows
+// [0, *count)
 __global__ void hist_global_kernel(const int32_t* __restrict__ bins,
                                    const float* __restrict__ grad,
                                    const float* __restrict__ hess,
                                    const uint8_t* __restrict__ mask,
+                                   const int32_t* __restrict__ count,
                                    double* __restrict__ acc, int64_t n,
                                    int num_f, int num_bins) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < n;
+  const int64_t rows = mask ? n : min((int64_t)max(*count, 0), n);
+  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < rows;
        r += stride) {
-    if (!mask[r]) continue;
+    if (mask && !mask[r]) continue;
     const double g = grad[r];
     const double h = hess[r];
     for (int f = 0; f < num_f; ++f) {
@@ -236,6 +335,26 @@ int reduce(const double* partial, float* out, int64_t cells, int blocks,
                                                     blocks);
   return (int)cudaGetLastError();
 }
+
+// Opt a kernel into ``smem`` bytes of dynamic shared memory once per device
+// (``done`` holds the most set so far on each device). Launches after the
+// first make no runtime call but the launch, so a captured CUDA graph
+// holds only kernels.
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, int smem, int* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (smem <= done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) done[dev] = smem;
+  return err;
+}
+
+int g_block_smem[64];
+int g_count_smem[64];
 
 }  // namespace
 
@@ -263,15 +382,13 @@ extern "C" int mmlspark_hist(const void* bins, const void* grad,
     hist_global_kernel<<<(unsigned)row_blocks, 256, 0, s>>>(
         static_cast<const int32_t*>(bins), static_cast<const float*>(grad),
         static_cast<const float*>(hess), static_cast<const uint8_t*>(mask),
-        acc, n, num_f, num_bins);
+        nullptr, acc, n, num_f, num_bins);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     return reduce(acc, static_cast<float*>(out), cells, 1, s);
   }
   const int groups = (num_f + feat_per_block - 1) / feat_per_block;
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+  cudaError_t err = opt_in(hist_block_kernel, smem_bytes, g_block_smem);
   if (err != cudaSuccess) return (int)err;
   hist_block_kernel<<<dim3((unsigned)row_blocks, (unsigned)groups), kThreads,
            (size_t)smem_bytes, s>>>(
@@ -281,4 +398,63 @@ extern "C" int mmlspark_hist(const void* bins, const void* grad,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return reduce(acc, static_cast<float*>(out), cells, row_blocks, s);
+}
+
+// The device-count entry: rows [0, *count) of bins int32 [F, n] (row
+// stride n) and grad/hess f32 [n] count, with no mask; *count is an int32
+// in device memory, read by the kernels (no host read). ``tiers`` holds,
+// widest first, the widths the rows may be grouped by and K1's geometry
+// for each (width[0] = n; all with the same feat_per_block and
+// smem_bytes). The grid is grid_blocks (the most row_blocks of any tier) x
+// groups blocks, and those past the rows the count needs return at once.
+// Scratch: f64 [grid_blocks, F, B, 3] (the global path: F * B * 3 doubles,
+// grid_blocks blocks of 256 threads). Two launches, as the mask entry;
+// the same output.
+extern "C" int mmlspark_hist_count(const void* bins, const void* grad,
+                                   const void* hess, const void* count,
+                                   void* out, void* scratch, int64_t n,
+                                   int num_f, int num_bins,
+                                   int feat_per_block, int grid_blocks,
+                                   int smem_bytes, CountTiers tiers,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t cells = (int64_t)num_f * num_bins * 3;
+  if (n < 0 || num_f <= 0 || num_bins <= 0 || grid_blocks <= 0 ||
+      tiers.n < 1 || tiers.n > kMaxTiers || tiers.width[0] != n) {
+    return (int)cudaErrorInvalidValue;
+  }
+  for (int i = 0; i < tiers.n; ++i) {
+    if (tiers.row_blocks[i] <= 0 || tiers.row_blocks[i] > grid_blocks ||
+        tiers.rows_per_block[i] <= 0 || tiers.rows_per_block[i] % 4 ||
+        (i && tiers.width[i] > tiers.width[i - 1])) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  const int32_t* cnt = static_cast<const int32_t*>(count);
+  double* acc = static_cast<double*>(scratch);
+  if (feat_per_block <= 0) {
+    cudaError_t err = cudaMemsetAsync(acc, 0, cells * sizeof(double), s);
+    if (err != cudaSuccess) return (int)err;
+    hist_global_kernel<<<(unsigned)grid_blocks, 256, 0, s>>>(
+        static_cast<const int32_t*>(bins), static_cast<const float*>(grad),
+        static_cast<const float*>(hess), nullptr, cnt, acc, n, num_f,
+        num_bins);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return reduce(acc, static_cast<float*>(out), cells, 1, s);
+  }
+  const int groups = (num_f + feat_per_block - 1) / feat_per_block;
+  cudaError_t err = opt_in(hist_count_kernel, smem_bytes, g_count_smem);
+  if (err != cudaSuccess) return (int)err;
+  hist_count_kernel<<<dim3((unsigned)grid_blocks, (unsigned)groups),
+                      kThreads, (size_t)smem_bytes, s>>>(
+      static_cast<const int32_t*>(bins), static_cast<const float*>(grad),
+      static_cast<const float*>(hess), cnt, acc, n, num_f, num_bins,
+      feat_per_block, tiers);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int64_t grid = (cells + 255) / 256;
+  hist_count_reduce_kernel<<<(unsigned)grid, 256, 0, s>>>(
+      acc, static_cast<float*>(out), cells, cnt, tiers);
+  return (int)cudaGetLastError();
 }

@@ -8,9 +8,12 @@ binned by value identity.
 Binning is a one-time host/device preprocessing step; the binned matrix is what
 lives in device HBM during training (4-8x smaller than float32 features).
 
-Copy of the reference's ``mmlspark_tpu/gbdt/binning.py`` on its numpy path
-only: the reference's native single-sweep shortcuts are bit-equal to this
-path and are left out here.
+Copy of the reference's ``mmlspark_tpu/gbdt/binning.py``, with its native
+single-sweep shortcuts (``native_loader.bin_column`` for one column,
+``bin_matrix`` for a whole numeric matrix) where the reference takes them;
+they are bit-equal to the numpy path, which stays as the parity reference
+and where the library cannot build. Each use is counted in
+``native_loader.uses``.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from .. import native_loader
 
 
 @dataclasses.dataclass
@@ -120,6 +125,13 @@ class BinMapper:
             out[valid] = np.where(cats[pos] == iv, pos + 1, 0)
             return out
         edges = self.edges[f]
+        if len(edges) >= 8 and len(col) >= 4096 and col.dtype == np.float64:
+            # native single-sweep binning (NaN handled in the kernel)
+            out = native_loader.bin_column(col, edges)
+            if out is not None:
+                native_loader.count("bin_column", "native")
+                return out
+            native_loader.count("bin_column", "numpy")
         miss = np.isnan(col)
         bins = np.searchsorted(edges, col, side="left") + 1
         return np.where(miss, 0, bins).astype(np.int32)
@@ -149,6 +161,15 @@ class BinMapper:
         if num_f != self.num_features:
             raise ValueError(f"feature count {num_f} != fitted "
                              f"{self.num_features}")
+        if (not any(self.categorical) and dtype in (np.uint8, np.int32)
+                and X.dtype == np.float64 and n * num_f >= 1 << 18):
+            # native whole-matrix pass: streams the row-major X once instead
+            # of re-reading the strided matrix per column
+            out = native_loader.bin_matrix(X, self.edges, dtype)
+            if out is not None:
+                native_loader.count("bin_matrix", "native")
+                return out
+            native_loader.count("bin_matrix", "numpy")
         out = np.empty((num_f, n), dtype=dtype)
         n_threads = n_threads or min(num_f, os.cpu_count() or 1)
         if n_threads <= 1 or n * num_f < 1 << 22:

@@ -1,15 +1,35 @@
 """Boosting engine: objectives, metrics, persistence and the fit loop.
 
-Counterpart of the reference's ``mmlspark_tpu/gbdt/booster.py`` on its
-per-iteration host loop: ``TrainParams``, ``grad_hess`` (every objective,
-LambdaRank included), ``init_score``, ``eval_metric`` (NDCG included),
-``Booster`` with ``to_string``/``from_string`` in the reference's JSON model
-format, and ``train()`` for every boosting type (``gbdt``, ``rf``, ``dart``,
-``goss``), bagging and feature fraction, ranking groups, categorical set
-splits (``categorical_feature``), a validation set with early stopping,
-continued training from an ``init_model`` and checkpointed training that
-resumes after a crash (``checkpoint=CheckpointConfig(...)``,
-``checkpoint.py``).
+Counterpart of the reference's ``mmlspark_tpu/gbdt/booster.py``:
+``TrainParams``, ``grad_hess`` (every objective, LambdaRank included),
+``init_score``, ``eval_metric`` (NDCG included), ``Booster`` with
+``to_string``/``from_string`` in the reference's JSON model format, and
+``train()`` for every boosting type (``gbdt``, ``rf``, ``dart``, ``goss``),
+bagging and feature fraction, ranking groups, categorical set splits
+(``categorical_feature``), a validation set with early stopping, continued
+training from an ``init_model`` and checkpointed training that resumes
+after a crash (``checkpoint=CheckpointConfig(...)``, ``checkpoint.py``).
+
+``train()`` takes one of four routes, as the reference decides them, and
+records it on the Booster (``Booster.route``) and in the obs
+``TrainRecorder``:
+
+  - ``native`` (``_native_train_ok``, ``_train_native``): a fit of at most
+    ``MMLSPARK_TPU_NATIVE_TRAIN_MAX`` (2e7) rows x iterations x classes, or
+    any eligible fit on the CPU, runs on the C++ grower on one host core
+    before any device work (``native_loader``): below that size launch
+    overhead exceeds the work. ``MMLSPARK_TPU_NATIVE_TRAIN=0`` turns it
+    off, ``=1`` forces it;
+  - ``scan`` (``_scan_train_ok``, ``_train_scan``): every boosting
+    iteration with no host read, the trees fetched once at the end; on the
+    card one CUDA graph replay an iteration. The default on the card for
+    gbdt and rf without validation, logging, a training metric or a
+    checkpoint; ``MMLSPARK_TPU_SCAN_TRAIN=1`` forces it on the CPU;
+  - ``fused``: the per-iteration host loop over the device-resident tree
+    grower (``tree.FusedGrower``: one read a tree), the default on the card
+    for the rest (dart, goss, lambdarank, validation, checkpoints);
+  - ``host``: the same loop over the per-split host grower, the default on
+    the CPU.
 
 Three places are mirrored exactly, because tree parity depends on them:
 
@@ -17,11 +37,14 @@ Three places are mirrored exactly, because tree parity depends on them:
     group id -1, excluded by ``pad_mask``); the padded row count sets the
     grower's tier capacities;
   - scores: on CUDA the running scores stay on the device as Kahan-
-    compensated f32 (``_add_leaf_values``); on the CPU, and for ``dart`` on
-    any device (it rewrites scores when it drops and re-adds trees), they
-    are exact f64 on the host and re-uploaded as f32 every iteration;
+    compensated f32 (``_add_leaf_values``; the scan adds device-f32 leaf
+    values, the loop host-f64 ones rounded to f32); on the CPU, and for
+    ``dart`` on any device (it rewrites scores when it drops and re-adds
+    trees), the loop keeps exact f64 scores on the host and re-uploads them
+    as f32 every iteration;
   - the host's random draws (bagging, feature fraction, GOSS's sample, DART's
-    drops) come from one ``np.random.Generator`` in the reference's order,
+    drops) come from one ``np.random.Generator`` in the reference's order
+    (the scan draws every iteration's masks up front, in the same order),
     and GOSS ranks rows with the reference's ``np.argsort`` over the same
     f32 gradients.
 
@@ -30,16 +53,19 @@ power-of-two size, each bucket's ``[m, G, G]`` pairwise tensors taken in
 chunks of at most ``_LAMBDARANK_PAIR_BUDGET`` elements; its sums reduce in
 torch's order, so g and h agree with the reference's within ulps.
 
-Not ported yet: a mesh (ROADMAP A9), and the whole-run scan and native
-engines (A2): asking for a mesh raises ``NotImplementedError``.
+Not ported yet: a mesh (ROADMAP A9), GOSS inside the scan and the sparse
+scan (ROADMAP A step 4e): asking for a mesh raises ``NotImplementedError``,
+and goss takes the fused route.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,8 +73,12 @@ import torch
 from ..core import faults as _faults
 from ..runtime import DeviceLike, resolve_device
 from .binning import BinMapper
+from . import select_kernel
 from .checkpoint import check_params_match, load_checkpoint, save_checkpoint
-from .tree import GrowerConfig, Tree, grow_tree
+from .histogram import xla_sum
+from .tree import (FusedGrower, GrowerConfig, Tree, _fused_tree_enabled,
+                   _grow_tree_device_body, device_tier_caps, grow_tree,
+                   pack_tables, tree_from_packed)
 
 MODEL_FORMAT = "mmlspark_tpu.gbdt.v1"
 
@@ -161,9 +191,14 @@ def grad_hess(objective: str, scores: torch.Tensor, labels: torch.Tensor,
         h = torch.clamp(p * (1.0 - p), min=1e-16)
     elif objective == "multiclass":
         e = xla_exp(scores - scores.max(dim=-1, keepdim=True).values)
-        p = e / e.sum(dim=-1, keepdim=True)
-        y = torch.nn.functional.one_hot(labels.to(torch.int64),
-                                        scores.shape[-1]).to(scores.dtype)
+        # the class sum in XLA's CPU order (in sequence from class 0), the
+        # same bits on every device; torch.sum's order differs on the card
+        p = e / xla_sum(e, -1)[..., None]
+        # one-hot by comparison (no bounds check: it would read the labels
+        # on the host); a label outside [0, K) gets a zero row, as
+        # jax.nn.one_hot gives
+        y = (labels.to(torch.int64)[:, None] == torch.arange(
+            scores.shape[-1], device=scores.device)).to(scores.dtype)
         g = p - y
         h = torch.clamp(2.0 * p * (1.0 - p), min=1e-16)
     elif objective in ("regression", "regression_l2", "l2",
@@ -452,6 +487,8 @@ class Booster:
         self.base_score = (base_score if base_score is not None
                            else np.zeros(max(params.num_class, 1)))
         self.best_iteration = best_iteration
+        #: the route the fit took (native, scan, fused or host), not saved
+        self.route: Optional[str] = None
 
     def raw_predict(self, X: np.ndarray, num_iteration: int = -1) -> np.ndarray:
         """[N,F] raw features -> [N] or [N,K] raw scores (host, f64)."""
@@ -665,6 +702,505 @@ def _add_leaf_values(score: torch.Tensor, comp: torch.Tensor,
     return t, y - (t - score)
 
 
+# ---------------------------------------------------------------------------
+# The whole-run scan engine: every boosting iteration with no host read
+# ---------------------------------------------------------------------------
+
+# [iterations, N] bagging masks drawn up front and held on the device; above
+# this many the fit takes the per-iteration loop
+_SCAN_MASK_BUDGET = 1 << 28
+
+#: ``torch.cuda.set_sync_debug_mode`` the scan's boosting loop runs under
+#: (None leaves it as it is); with "error" a synchronizing call inside the
+#: loop raises, which proves it reads nothing on the host
+scan_loop_sync_mode: Optional[str] = None
+
+
+def _env_on(name: str) -> bool:
+    return os.environ.get(name, "") not in ("", "0")
+
+
+def _scan_train_ok(params: TrainParams, objective: str, valid, log,
+                   checkpoint=None, device=None) -> bool:
+    """May this fit take the whole-run scan? The reference's gate: not dart
+    (host-side drops), lambdarank (grouped gradients), a validation set, a
+    log or a training metric (host evaluation each iteration), a
+    checkpoint (a host boundary each iteration) or a single leaf; on the
+    CPU only under ``MMLSPARK_TPU_SCAN_TRAIN=1``; never under
+    ``MMLSPARK_TPU_NO_SCAN_TRAIN=1``. Unlike the reference, goss stays on
+    the fused per-tree loop: its in-scan selection (``_exact_topk_mask``
+    over threefry draws) is ROADMAP A step 4e."""
+    if _env_on("MMLSPARK_TPU_NO_SCAN_TRAIN"):
+        return False
+    if params.boosting_type in ("dart", "goss"):
+        return False
+    if objective == "lambdarank":
+        return False
+    if valid is not None or log is not None or params.train_metric:
+        return False
+    if checkpoint is not None:
+        return False
+    if 2 * params.num_leaves - 1 < 3:
+        return False
+    if not _env_on("MMLSPARK_TPU_SCAN_TRAIN") \
+            and resolve_device(device).type == "cpu":
+        return False
+    return True
+
+
+def _scan_precompute_masks(params: TrainParams, rng, n: int, num_f: int,
+                           y: np.ndarray, is_rf: bool):
+    """Every iteration's bagging mask and feature mask, drawn up front from
+    the same generator in the host loop's order. Returns (row_masks
+    [iters, N] or None, feat_masks [iters, F] or None, ok); not ok (and
+    nothing drawn) when the row masks pass ``_SCAN_MASK_BUDGET``."""
+    iters = params.num_iterations
+    bag_cond = ((params.bagging_fraction < 1.0
+                 or params.pos_bagging_fraction < 1.0
+                 or params.neg_bagging_fraction < 1.0)
+                and (is_rf or params.bagging_freq > 0)
+                and params.boosting_type != "goss")
+    use_feat = params.feature_fraction < 1.0
+    if bag_cond and iters * n > _SCAN_MASK_BUDGET:
+        return None, None, False
+    row_masks = np.empty((iters, n), dtype=bool) if bag_cond else None
+    feat_masks = np.empty((iters, num_f), dtype=bool) if use_feat else None
+    bag = np.ones(n, dtype=bool)
+    for it in range(iters):
+        if bag_cond:
+            drawn = bagging_draw(params, rng, n, y, it, is_rf)
+            if drawn is not None:
+                bag = drawn
+            row_masks[it] = bag
+        if use_feat:
+            feat_masks[it] = feature_draw(params, rng, num_f)
+    return row_masks, feat_masks, True
+
+
+def _route_full(bins_dev: torch.Tensor, out: dict) -> torch.Tensor:
+    """Every row of ``bins_dev`` routed through a tree grown on a compacted
+    subset: its split records replayed in node order (children have larger
+    ids than their parents, so one pass is a full traversal)."""
+    n = int(bins_dev.shape[1])
+    nor = torch.zeros(n, dtype=torch.int32, device=bins_dev.device)
+    words = out.get("cat_words")
+    for j in range(int(out["feature"].shape[0])):
+        f = out["feature"][j:j + 1]
+        col = bins_dev.index_select(0, f.clamp(min=0).to(torch.int64))[0]
+        go_left = torch.where(col == 0, out["default_left"][j:j + 1],
+                              col <= out["threshold_bin"][j:j + 1])
+        if words is not None:
+            b = col.to(torch.int64)
+            bits = (words[j][b >> 5] >> (b & 31)) & 1
+            go_left = torch.where(torch.any(words[j] != 0), bits == 1,
+                                  go_left)
+        child = torch.where(go_left, out["left"][j:j + 1],
+                            out["right"][j:j + 1])
+        nor = torch.where((nor == j) & (f >= 0), child, nor)
+    return nor
+
+
+@contextlib.contextmanager
+def _scan_loop_guard() -> Iterator[None]:
+    if scan_loop_sync_mode is None or not torch.cuda.is_available():
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(scan_loop_sync_mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def _train_scan(params: TrainParams, config: GrowerConfig, booster: Booster,
+                mapper: BinMapper, bins_dev: torch.Tensor,
+                labels: torch.Tensor, w_dev: Optional[torch.Tensor],
+                scores: np.ndarray, n: int, num_f: int, num_bins: int,
+                k: int, lr: float, row_masks, feat_masks,
+                pad_mask: Optional[np.ndarray] = None, cat_args=None
+                ) -> float:
+    """Every boosting iteration with no host read, the trees fetched once
+    (the reference's ``_train_scan``). Returns the loop's seconds.
+
+    An iteration computes grad/hess from the running scores, takes its
+    masks from the device-resident [iters, N] / [iters, F] tensors by a
+    device index, grows each class's tree with ``_grow_tree_device_body``
+    and adds device-f32 leaf values into a Kahan-compensated f32 score. With
+    bagging that keeps at most 62.5% of the rows (on the card, from 100k
+    real rows; ``MMLSPARK_TPU_DENSE_BAG_COMPACT=1`` forces it,
+    ``MMLSPARK_TPU_NO_DENSE_BAG_COMPACT=1`` turns it off) the bagged rows
+    are first compacted by K2 into ``bag_cap`` columns, and every row's
+    leaf is found by replaying the tree's splits (``_route_full``). The
+    saved trees' leaf values are recomputed on the host in f64 from the
+    fetched sums, the per-tree route's lineage; the running score uses the
+    f32 device values, so late trees may part from the per-tree route by
+    rounding, as in the reference.
+
+    On the card iteration 0 runs eagerly (it builds and warms every
+    kernel), the iteration is then captured once in a CUDA graph and
+    replayed for the rest; on the CPU every iteration runs eagerly."""
+    dev = bins_dev.device
+    iters = params.num_iterations
+    pm = pad_mask if pad_mask is not None else np.ones(n, dtype=bool)
+    if row_masks is not None and not pm.all():
+        row_masks = row_masks & pm[None, :]
+    ones_mask = torch.as_tensor(pm, device=dev)
+    rm_all = (torch.as_tensor(row_masks, device=dev)
+              if row_masks is not None else None)
+    fm_all = (torch.as_tensor(feat_masks, device=dev)
+              if feat_masks is not None else None)
+    bag_cap = 0
+    if row_masks is not None and not _env_on(
+            "MMLSPARK_TPU_NO_DENSE_BAG_COMPACT"):
+        forced = _env_on("MMLSPARK_TPU_DENSE_BAG_COMPACT")
+        nr = int(pm.sum())
+        if forced or (dev.type == "cuda" and nr >= 100_000):
+            max_cnt = int(row_masks.sum(axis=1).max())
+            if forced or max_cnt / max(nr, 1) <= 0.625:
+                bag_cap = min(n, -(-max(max_cnt, 1) // 512) * 512)
+    caps = device_tier_caps(bag_cap or n)
+    f32 = torch.float32
+    l1 = float(np.float32(config.lambda_l1))
+    l2 = float(np.float32(config.lambda_l2))
+    shrink = float(np.float32(lr))
+    mds = config.max_delta_step
+
+    score = torch.as_tensor(scores[:, 0] if k == 1 else scores, dtype=f32,
+                            device=dev)
+    comp = torch.zeros_like(score)
+    it_idx = torch.zeros(1, dtype=torch.int64, device=dev)
+    cols = 10 + ((num_bins + 31) // 32 if cat_args is not None else 0)
+    M = 2 * params.num_leaves - 1
+    stacked = torch.zeros(iters, k, M, cols, dtype=torch.float64, device=dev)
+    ar_cap = torch.arange(bag_cap, device=dev) if bag_cap else None
+
+    def step():
+        g, h = grad_hess(params.objective, score, labels, w_dev, params.alpha)
+        row_mask = (rm_all.index_select(0, it_idx)[0] if rm_all is not None
+                    else ones_mask)
+        fmask = (fm_all.index_select(0, it_idx)[0] if fm_all is not None
+                 else None)
+        if bag_cap:
+            mask_it = ar_cap < row_mask.sum(dtype=torch.int32)
+        new_s, new_c = score, comp
+        tables = []
+        for kk in range(k):
+            gk = (g if k == 1 else g[:, kk]).contiguous()
+            hk = (h if k == 1 else h[:, kk]).contiguous()
+            if bag_cap:
+                bins_it, gk, hk = select_kernel.select_rows(
+                    bins_dev, gk, hk, row_mask, bag_cap)
+            else:
+                bins_it, mask_it = bins_dev, row_mask
+            out = _grow_tree_device_body(bins_it, gk, hk, mask_it, None,
+                                         num_bins, config, fmask, cat_args,
+                                         caps)
+            rows = _route_full(bins_dev, out) if bag_cap \
+                else out["node_of_row"]
+            sums, feat = out["sums"], out["feature"]
+            g_thr = torch.sign(sums[:, 0]) * torch.clamp(
+                torch.abs(sums[:, 0]) - l1, min=0.0)
+            val = torch.where(feat < 0, -g_thr / (sums[:, 1] + l2), 0.0)
+            if mds > 0:
+                val = torch.clamp(val, -mds, mds)
+            # an unsplit root keeps 0 (the per-tree route's values)
+            val = torch.cat([torch.where(out["n_nodes"] > 1, val[:1], 0.0),
+                             val[1:]])
+            new_s, new_c = _add_leaf_values(new_s, new_c, val * shrink, rows,
+                                            kk if k > 1 else None)
+            tables.append(pack_tables(out))
+        stacked.index_copy_(0, it_idx, torch.stack(tables)[None])
+        score.copy_(new_s)
+        comp.copy_(new_c)
+        it_idx.add_(1)
+
+    t0 = time.perf_counter()
+    capture = dev.type == "cuda" and iters > 1
+    with _scan_loop_guard():
+        step()
+        if not capture:
+            for _ in range(iters - 1):
+                step()
+    if capture:
+        from . import graphs
+
+        cap = graphs.Captured(step)
+        with _scan_loop_guard():
+            for _ in range(iters - 1):
+                cap.replay()
+    host = stacked.cpu().numpy()                 # the fit's one fetch
+    loop_s = time.perf_counter() - t0
+    for it in range(iters):
+        group = []
+        for kk in range(k):
+            tree = tree_from_packed(host[it, kk], config, mapper,
+                                    cat_args is not None)
+            tree.shrinkage = lr
+            group.append(tree)
+        booster.trees.append(group)
+    return loop_s
+
+
+# ---------------------------------------------------------------------------
+# The native engine: small fits on the C++ grower, on the host
+# ---------------------------------------------------------------------------
+
+
+def _grad_hess_np(objective: str, scores: np.ndarray, labels: np.ndarray,
+                  weights: Optional[np.ndarray], alpha: float):
+    """Host mirror of ``grad_hess`` for the native engine (the reference's:
+    numpy f32; lambdarank is gated out of that engine)."""
+    scores = scores.astype(np.float32)
+    labels = labels.astype(np.float32)
+    if objective == "binary":
+        p = 1.0 / (1.0 + np.exp(-scores))
+        g = p - labels
+        h = np.maximum(p * (1.0 - p), 1e-16)
+    elif objective == "multiclass":
+        m = scores - scores.max(axis=-1, keepdims=True)
+        e = np.exp(m)
+        p = e / e.sum(axis=-1, keepdims=True)
+        yh = np.zeros_like(p)
+        li = labels.astype(np.int64)
+        # an out-of-range label gets a zero one-hot row
+        ok = (li >= 0) & (li < p.shape[-1])
+        yh[np.nonzero(ok)[0], li[ok]] = 1.0
+        g = p - yh
+        h = np.maximum(2.0 * p * (1.0 - p), 1e-16)
+    elif objective in ("regression", "regression_l2", "l2",
+                       "mean_squared_error"):
+        g = scores - labels
+        h = np.ones_like(scores)
+    elif objective in ("regression_l1", "l1", "mae"):
+        g = np.sign(scores - labels)
+        h = np.ones_like(scores)
+    elif objective == "quantile":
+        diff = scores - labels
+        g = np.where(diff >= 0, 1.0 - alpha, -alpha)
+        h = np.ones_like(scores)
+    elif objective == "huber":
+        g = np.clip(scores - labels, -alpha, alpha)
+        h = np.ones_like(scores)
+    elif objective == "poisson":
+        g = np.exp(scores) - labels
+        h = np.exp(scores)
+    else:
+        raise ValueError(f"Unknown objective {objective!r}")
+    if weights is not None:
+        w = np.asarray(weights, dtype=np.float32)
+        w = w if g.ndim == 1 else w[:, None]
+        g, h = g * w, h * w
+    return g, h
+
+
+# environment names that pin a device route: set, the native engine stands
+# aside (the tests pin routes this way in both packages)
+_NATIVE_PATH_FORCING_ENVS = (
+    "MMLSPARK_TPU_SCAN_TRAIN", "MMLSPARK_TPU_NO_SCAN_TRAIN",
+    "MMLSPARK_TPU_FUSED_TREE", "MMLSPARK_TPU_NO_FUSED_TREE",
+    "MMLSPARK_TPU_HIST_EXACT")
+
+
+def _native_train_ok(params: TrainParams, n: int, device=None) -> bool:
+    """Route this fit to the C++ grower? The reference's decision: never
+    under ``MMLSPARK_TPU_NATIVE_TRAIN=0``, for categorical splits,
+    lambdarank, more than 255 bins, a route-pinning environment name, or
+    without the library; always under ``=1``; else when rows x iterations x
+    classes is at most ``MMLSPARK_TPU_NATIVE_TRAIN_MAX`` (2e7), or the fit
+    runs on the CPU. Decided before any device work."""
+    env = os.environ.get("MMLSPARK_TPU_NATIVE_TRAIN", "")
+    if env in ("0", "false"):
+        return False
+    if params.categorical_feature or params.objective == "lambdarank":
+        return False
+    if params.max_bin > 255 or (params.max_bin_by_feature
+                                and max(params.max_bin_by_feature) > 255):
+        return False
+    if any(_env_on(e) for e in _NATIVE_PATH_FORCING_ENVS):
+        return False
+    from .. import native_loader
+
+    if not native_loader.available():
+        return False
+    if env in ("1", "true", "force"):
+        return True
+    budget = float(os.environ.get("MMLSPARK_TPU_NATIVE_TRAIN_MAX", "2e7"))
+    if n * params.num_iterations * max(params.num_class, 1) <= budget:
+        return True
+    return resolve_device(device).type == "cpu"
+
+
+def _train_native(params: TrainParams, X: np.ndarray, y: np.ndarray,
+                  weights, valid, valid_groups, init_scores, init_model,
+                  log) -> Optional[Booster]:
+    """Every iteration on the host over the C++ grower, no device tensor
+    (the reference's ``_train_native``): the loop's objectives, bagging,
+    goss, dart and rf, early stopping and metric logging, with
+    ``native_loader.gbdt_grow_tree`` growing each tree. None when this fit
+    cannot run natively after all (a mapper of more than 256 bins inherited
+    from ``init_model``, or the library gone)."""
+    from .. import native_loader
+
+    n, num_f = X.shape
+    k = max(params.num_class, 1)
+    objective = params.objective
+    rng = np.random.default_rng(params.seed or params.bagging_seed)
+
+    if init_model is not None and init_model.bin_mapper is not None:
+        mapper = init_model.bin_mapper
+    else:
+        mapper = BinMapper.fit(X, params.max_bin, (), seed=params.seed,
+                               max_bin_by_feature=params.max_bin_by_feature)
+    num_bins = mapper.max_num_bins
+    if num_bins > 256:
+        return None
+    bins_fm = mapper.transform_fm(X, dtype=np.uint8)
+
+    if init_scores is not None:
+        base = np.zeros(k, dtype=np.float64)
+        scores = np.broadcast_to(
+            np.asarray(init_scores, dtype=np.float64).reshape(n, -1),
+            (n, k)).copy()
+    else:
+        base = init_score(objective, np.asarray(y, dtype=np.float64), k,
+                          alpha=params.alpha)
+        scores = np.tile(base, (n, 1)).astype(np.float64)
+    booster = Booster(params, mapper, base_score=base)
+    if init_model is not None:
+        booster.trees = [list(g) for g in init_model.trees]
+        booster.base_score = init_model.base_score
+        if init_model.trees:
+            scores = init_model.raw_predict(
+                X, num_iteration=len(init_model.trees)).reshape(n, -1)
+
+    metric = params.metric or default_metric(objective)
+    stopper = EarlyStopping(metric, params.early_stopping_round)
+    val_X, val_y = valid if valid is not None else (None, None)
+    is_rf = params.boosting_type == "rf"
+    is_dart = params.boosting_type == "dart"
+    is_goss = params.boosting_type == "goss"
+    lr = 1.0 if is_rf else params.learning_rate
+    bag_mask = np.ones(n, dtype=bool)
+    yv = np.asarray(y, dtype=np.float64)
+    wv = np.asarray(weights, dtype=np.float64) if weights is not None else None
+
+    from ..obs.metrics import TrainRecorder
+
+    recorder = TrainRecorder("gbdt_native")
+    recorder.route("native")
+    for it in range(params.num_iterations):
+        it_t0 = time.perf_counter()
+        _faults.fire(_faults.TRAIN_STEP, iteration=it, engine="native")
+        dropped: List[int] = []
+        if is_dart and booster.trees:
+            dropped = dart_drops(params, rng, len(booster.trees))
+            for di in dropped:
+                for kk in range(k):
+                    scores[:, kk] -= _tree_contrib(booster.trees[di][kk], X)
+
+        sc = scores[:, 0] if k == 1 else scores
+        g, h = _grad_hess_np(objective, sc, yv, wv, params.alpha)
+
+        row_mask = bag_mask
+        if is_goss:
+            g_abs = np.abs(g)
+            if g_abs.ndim == 2:
+                g_abs = g_abs.sum(axis=1)
+            top_n = int(n * params.top_rate)
+            other_n = int(n * params.other_rate)
+            # the top-|g| set, not its order: argpartition, as the
+            # reference's native engine
+            part = np.argpartition(-g_abs, max(top_n - 1, 0))
+            row_mask = np.zeros(n, dtype=bool)
+            row_mask[part[:top_n]] = True
+            rest = part[top_n:]
+            picked = rng.choice(len(rest), size=min(other_n, len(rest)),
+                                replace=False)
+            row_mask[rest[picked]] = True
+            amp = np.ones(n)
+            amp[rest] = (1.0 - params.top_rate) / max(params.other_rate,
+                                                      1e-12)
+            g, h = g * (amp if g.ndim == 1 else amp[:, None]), \
+                h * (amp if h.ndim == 1 else amp[:, None])
+        else:
+            drawn = bagging_draw(params, rng, n, y, it, is_rf)
+            if drawn is not None:
+                bag_mask = row_mask = drawn
+        feature_mask = feature_draw(params, rng, num_f)
+
+        group: List[Tree] = []
+        shrink = lr / (len(dropped) + lr) if dropped else lr
+        for kk in range(k):
+            gk = np.ascontiguousarray(g if g.ndim == 1 else g[:, kk],
+                                      dtype=np.float32)
+            hk = np.ascontiguousarray(h if h.ndim == 1 else h[:, kk],
+                                      dtype=np.float32)
+            res = native_loader.gbdt_grow_tree(
+                bins_fm, gk, hk, None if row_mask.all() else row_mask,
+                feature_mask, num_bins=num_bins,
+                num_leaves=params.num_leaves, max_depth=params.max_depth,
+                min_data_in_leaf=params.min_data_in_leaf,
+                min_sum_hessian=params.min_sum_hessian_in_leaf,
+                min_gain_to_split=params.min_gain_to_split,
+                lambda_l1=params.lambda_l1, lambda_l2=params.lambda_l2,
+                max_delta_step=params.max_delta_step)
+            if res is None:
+                return None
+            native_loader.count("gbdt_grow_tree", "native")
+            feat = res["feature"]
+            thr = np.zeros(len(feat), dtype=np.float64)
+            for i in np.nonzero(feat >= 0)[0]:
+                thr[i] = mapper.bin_upper_value(int(feat[i]),
+                                                int(res["threshold_bin"][i]))
+            tree = Tree(
+                feature=feat, threshold=thr,
+                threshold_bin=res["threshold_bin"],
+                default_left=res["default_left"], left=res["left"],
+                right=res["right"], value=res["value"], gain=res["gain"],
+                count=res["count"], weight=res["weight"])
+            tree.shrinkage = shrink
+            group.append(tree)
+            scores[:, kk] += tree.value[res["leaf_of_row"]] * shrink
+        if dropped:
+            factor = len(dropped) / (len(dropped) + lr)
+            for di in dropped:
+                for kk in range(k):
+                    booster.trees[di][kk].shrinkage *= factor
+                    scores[:, kk] += _tree_contrib(booster.trees[di][kk], X)
+        booster.trees.append(group)
+
+        if params.train_metric and log:
+            tm = eval_metric(metric, scores[:, 0] if k == 1 else scores, yv)
+            recorder.metric(f"train_{metric}", tm)
+            log(f"[{it + 1}] train {metric}={tm:.6f}")
+        if val_X is not None:
+            val_scores = booster.raw_predict(
+                val_X, num_iteration=len(booster.trees))
+            m = eval_metric(metric, val_scores,
+                            np.asarray(val_y, dtype=np.float64), valid_groups)
+            recorder.metric(f"valid_{metric}", m)
+            stop = stopper.update(m, len(booster.trees))
+            if log:
+                log(f"[{it + 1}] valid {metric}={m:.6f}")
+            if stop:
+                booster.best_iteration = stopper.best_iter
+                if log:
+                    log(f"early stopping at iteration {it + 1}, "
+                        f"best {stopper.best_iter}")
+                recorder.step(time.perf_counter() - it_t0, examples=n)
+                break
+        elif log and not params.train_metric and (it + 1) % 10 == 0:
+            m = eval_metric(metric, scores[:, 0] if k == 1 else scores, yv)
+            log(f"[{it + 1}] train {metric}={m:.6f}")
+        recorder.step(time.perf_counter() - it_t0, examples=n)
+
+    if is_rf:
+        rf_average(booster)
+    booster.route = "native"
+    return booster
+
+
 def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
           weights: Optional[np.ndarray] = None,
           groups: Optional[np.ndarray] = None,
@@ -690,6 +1226,14 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
     uninterrupted fit would run."""
     _unsupported(mesh)
     dev = resolve_device(device)
+    # the native C++ engine for small fits (and on the CPU), decided before
+    # any device work; checkpointed fits keep the loop (its state is here)
+    if groups is None and checkpoint is None \
+            and _native_train_ok(params, len(y), dev):
+        nb = _train_native(params, X, y, weights, valid, valid_groups,
+                           init_scores, init_model, log)
+        if nb is not None:
+            return nb
     is_rf = params.boosting_type == "rf"
     is_dart = params.boosting_type == "dart"
     is_goss = params.boosting_type == "goss"
@@ -835,6 +1379,30 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
     from ..obs.metrics import TrainRecorder
 
     recorder = TrainRecorder("gbdt")
+    # the whole-run scan: every iteration with no host read
+    if _scan_train_ok(params, objective, valid, log, checkpoint, dev):
+        row_masks, feat_masks, ok = _scan_precompute_masks(
+            params, rng, n, num_f, np.asarray(y), is_rf)
+        if ok:
+            # no per-iteration step: nothing times an iteration inside the
+            # loop (the reference's scan records none either)
+            recorder.route("scan")
+            _train_scan(params, config, booster, mapper, bins_dev, labels,
+                        w_dev, scores, n, num_f, num_bins, k, lr, row_masks,
+                        feat_masks, pad_mask=pad_mask, cat_args=cat_args)
+            if is_rf:
+                rf_average(booster)
+            booster.route = "scan"
+            return booster
+
+    # the per-iteration loop, over the fused grower where the reference
+    # takes it (the card, under the node-histogram budget), else the
+    # per-split host grower
+    grower = None
+    if _fused_tree_enabled(max_nodes, num_f, num_bins, dev):
+        grower = FusedGrower(bins_dev, num_bins, config, mapper, cat_args)
+    booster.route = "fused" if grower is not None else "host"
+    recorder.route(booster.route)
     for it in range(start_it, params.num_iterations):
         it_t0 = time.perf_counter()
         _faults.fire(_faults.TRAIN_STEP, iteration=it)
@@ -876,9 +1444,13 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
         for kk in range(k):
             gk = g if g.dim() == 1 else g[:, kk].contiguous()
             hk = h if h.dim() == 1 else h[:, kk].contiguous()
-            tree, leaf_of_row = grow_tree(bins_dev, gk, hk, mask_dev,
-                                          num_bins, config, mapper,
-                                          feature_mask, cat_args=cat_args)
+            if grower is not None:
+                tree, leaf_of_row = grower.grow(gk, hk, mask_dev,
+                                                feature_mask)
+            else:
+                tree, leaf_of_row = grow_tree(bins_dev, gk, hk, mask_dev,
+                                              num_bins, config, mapper,
+                                              feature_mask, cat_args=cat_args)
             tree.shrinkage = shrink
             group.append(tree)
             if fast_scores:

@@ -28,6 +28,15 @@ bank conflicts bound it, not HBM. The grid is sized here, in
 tensor launches the kernel (there is no fallback), anything else raises.
 ``launches`` counts kernel launches (one per wrapper call; the call runs
 the ``LAUNCHES_PER_CALL`` CUDA launches of one histogram).
+
+``histogram_count`` is the device-count entry, for the device-resident
+grower: rows [0, count) of a compacted buffer with ``count`` a 0-dim int32
+tensor on the device, read by the kernel, and no mask. Its grid is sized
+for the buffer (``count_tiers``: K1's geometry for each tier width, widest
+first); each block groups rows as a launch sized for the narrowest tier
+that holds the count would, and blocks past the count return at once.
+``count_launches`` counts its launches. Both counters count launches made
+by replaying a captured CUDA graph too (``gbdt/graphs.py``).
 """
 
 from __future__ import annotations
@@ -38,9 +47,15 @@ import dataclasses
 import torch
 
 from .. import _kernels
+from . import graphs
 
-#: kernel launches since the counter was last set to 0
+#: kernel launches since the counter was last set to 0 (the mask entry)
 launches = 0
+#: launches of the device-count entry since the counter was last set to 0
+count_launches = 0
+graphs.count_replays(__name__, "launches", "count_launches")
+#: the most tier widths one device-count launch chooses among
+MAX_TIERS = 8
 
 #: CUDA launches in one call on the shared-memory path: the block partials
 #: and their reduction (the global path adds a memset)
@@ -123,14 +138,15 @@ def histogram_plain(bins_fm: torch.Tensor, grad: torch.Tensor,
     return hist.view(f, num_bins, 3).float()
 
 
-def _check_inputs(bins_fm, grad, hess, row_mask) -> None:
+def _check_inputs(bins_fm, grad, hess, row_mask=None) -> None:
     if bins_fm.dim() != 2 or bins_fm.dtype != torch.int32:
         raise TypeError(f"bins must be int32 [F, N], got {bins_fm.dtype} "
                         f"{tuple(bins_fm.shape)}")
     n = bins_fm.shape[1]
-    for name, t, dt in (("grad", grad, torch.float32),
-                        ("hess", hess, torch.float32),
-                        ("mask", row_mask, torch.bool)):
+    checks = [("grad", grad, torch.float32), ("hess", hess, torch.float32)]
+    if row_mask is not None:
+        checks.append(("mask", row_mask, torch.bool))
+    for name, t, dt in checks:
         if t.dtype != dt or tuple(t.shape) != (n,):
             raise TypeError(f"{name} must be {dt} [{n}], got {t.dtype} "
                             f"{tuple(t.shape)}")
@@ -174,6 +190,98 @@ def histogram_cuda(bins_fm: torch.Tensor, grad: torch.Tensor,
     launches += 1
     _kernels.check(code, "hist kernel launch")
     return out
+
+
+class CountTiers(ctypes.Structure):
+    """The device-count entry's geometry table (``CountTiers`` in the
+    source): widths widest first, K1's grid for each."""
+
+    _fields_ = [("n", ctypes.c_int32),
+                ("row_blocks", ctypes.c_int32 * MAX_TIERS),
+                ("width", ctypes.c_int64 * MAX_TIERS),
+                ("rows_per_block", ctypes.c_int64 * MAX_TIERS)]
+
+
+def count_tiers(n: int, f: int, b: int, caps=()) -> list:
+    """(width, Geometry) for the buffer width ``n`` and each narrower tier
+    width of ``caps``, widest first: the grouping a count's launch takes is
+    that of the narrowest width that holds it."""
+    widths = [n] + sorted({int(c) for c in caps if 0 < c < n}, reverse=True)
+    if len(widths) > MAX_TIERS:
+        raise ValueError(f"at most {MAX_TIERS} tier widths, got {widths}")
+    return [(w, launch_geometry(w, f, b)) for w in widths]
+
+
+def histogram_count_plain(bins_fm: torch.Tensor, grad: torch.Tensor,
+                          hess: torch.Tensor, count: torch.Tensor,
+                          num_bins: int) -> torch.Tensor:
+    """The device-count entry's plain version: the rows before ``count``
+    (a 0-dim or [1] integer tensor) as the row mask of ``histogram_plain``."""
+    n = bins_fm.shape[1]
+    valid = torch.arange(n, device=bins_fm.device) < count.reshape(())
+    return histogram_plain(bins_fm, grad, hess, valid, num_bins)
+
+
+def _count_fn():
+    fn = _kernels.lib("hist").mmlspark_hist_count
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, CountTiers, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def histogram_count_cuda(bins_fm: torch.Tensor, grad: torch.Tensor,
+                         hess: torch.Tensor, count: torch.Tensor,
+                         num_bins: int, caps=()) -> torch.Tensor:
+    """Launch K1's device-count entry on PyTorch's current stream: the rows
+    before the int32 ``count`` (on the device, never read here) of the
+    compacted [F, n] buffer; ``caps``: the tier widths the rows are grouped
+    by. Returns [F, num_bins, 3]."""
+    global count_launches
+    f, n = bins_fm.shape
+    dev = bins_fm.device
+    _check_inputs(bins_fm, grad, hess)
+    if count.dtype != torch.int32 or count.numel() != 1 \
+            or count.device != dev:
+        raise TypeError(f"count must be one int32 on {dev}, got "
+                        f"{count.dtype} {tuple(count.shape)} on "
+                        f"{count.device}")
+    out = torch.empty(f, num_bins, 3, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out.zero_()
+    tiers = count_tiers(n, f, num_bins, caps)
+    geo = tiers[0][1]
+    table = CountTiers()
+    table.n = len(tiers)
+    for i, (w, g) in enumerate(tiers):
+        table.width[i], table.row_blocks[i] = w, g.row_blocks
+        table.rows_per_block[i] = g.rows_per_block
+    scratch = torch.empty(max(g.scratch for _, g in tiers),
+                          dtype=torch.float64, device=dev)
+    p = _kernels.ptr
+    code = _count_fn()(p(bins_fm), p(grad), p(hess), p(count), p(out),
+                       p(scratch), n, f, num_bins, geo.feat_per_block,
+                       max(g.row_blocks for _, g in tiers), geo.smem_bytes,
+                       table, _kernels.stream_ptr(dev))
+    count_launches += 1
+    _kernels.check(code, "hist kernel (device count) launch")
+    return out
+
+
+def histogram_count(bins_fm: torch.Tensor, grad: torch.Tensor,
+                    hess: torch.Tensor, count: torch.Tensor, num_bins: int,
+                    caps=()) -> torch.Tensor:
+    """[F, n] compacted bins -> [F, num_bins, 3] sums of the rows before the
+    device-held ``count``: the kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if bins_fm.device.type == "cuda":
+        return histogram_count_cuda(bins_fm, grad, hess, count, num_bins,
+                                    caps)
+    if bins_fm.device.type == "cpu":
+        return histogram_count_plain(bins_fm, grad, hess, count, num_bins)
+    raise ValueError(f"no histogram for device {bins_fm.device}")
 
 
 def histogram(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,

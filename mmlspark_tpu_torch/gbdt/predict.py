@@ -87,7 +87,28 @@ def leaf_nodes(tree: Tree, X: np.ndarray) -> np.ndarray:
 def predict_ensemble(tree_groups: List[List[Tree]], X: np.ndarray,
                      num_class: int) -> np.ndarray:
     """[iterations][class] trees -> [N, num_class] raw score deltas, f64 on
-    the host (the parity reference for the device traversals)."""
+    the host (the parity reference for the device traversals).
+
+    A numeric forest takes the native C++ traversal
+    (``native_loader.forest_predict_f64``), f64 end to end and bit-equal to
+    the per-tree numpy loop below, which stays for categorical forests,
+    where the library cannot build, and as the parity reference;
+    ``MMLSPARK_TPU_NO_NATIVE_PREDICT=1`` turns the native route off, as in
+    the reference."""
+    import os
+
+    trees = [t for g in tree_groups for t in g]
+    if (trees and not any(t.cat_sets is not None for t in trees)
+            and os.environ.get("MMLSPARK_TPU_NO_NATIVE_PREDICT",
+                               "") in ("", "0")):
+        from .. import native_loader
+
+        res = native_loader.forest_predict_f64(
+            np.asarray(X), *padded_forest_f64(tree_groups), num_class)
+        if res is not None:
+            native_loader.count("forest_predict_f64", "native")
+            return res
+        native_loader.count("forest_predict_f64", "numpy")
     out = np.zeros((X.shape[0], num_class), dtype=np.float64)
     for group in tree_groups:
         for k, tree in enumerate(group):
@@ -101,6 +122,23 @@ def pad_soa(vals, fill, dtype, T: int, m: int) -> np.ndarray:
     for i, v in enumerate(vals):
         arr[i, :len(v)] = v
     return arr
+
+
+def padded_forest_f64(tree_groups: List[List[Tree]]):
+    """[T, m] padded node arrays (f64 thresholds, values pre-scaled by
+    shrinkage) and each tree's class, for the native host traversal."""
+    trees = [t for g in tree_groups for t in g]
+    m = max(len(t.feature) for t in trees)
+    T = len(trees)
+    return (pad_soa([t.feature for t in trees], -1, np.int32, T, m),
+            pad_soa([t.threshold for t in trees], 0.0, np.float64, T, m),
+            pad_soa([t.default_left for t in trees], True, bool, T, m),
+            pad_soa([t.left for t in trees], 0, np.int32, T, m),
+            pad_soa([t.right for t in trees], 0, np.int32, T, m),
+            pad_soa([np.asarray(t.value) * t.shrinkage for t in trees],
+                    0.0, np.float64, T, m),
+            np.array([k for g in tree_groups for k in range(len(g))],
+                     dtype=np.int32))
 
 
 @contextlib.contextmanager

@@ -28,9 +28,11 @@ from typing import Tuple
 import torch
 
 from .. import _kernels
+from . import graphs
 
-#: kernel launches since the counter was last set to 0
+#: kernel launches since the counter was last set to 0 (graph replays too)
 launches = 0
+graphs.count_replays(__name__, "launches")
 
 #: CUDA launches in one compaction: the count kernel and the scatter kernel
 LAUNCHES_PER_CALL = 2

@@ -842,13 +842,69 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
 # ---------------------------------------------------------------------------
 
 
+def _flatten_forest(tree_groups):
+    """Concatenated node arrays and per-tree offsets for the C++ CSR
+    traversal (the reference's layout)."""
+    feats, thrs, lefts, rights, vals_ = [], [], [], [], []
+    offs, shr, cls = [0], [], []
+    for group in tree_groups:
+        for kcls, tree in enumerate(group):
+            feats.append(np.asarray(tree.feature, dtype=np.int32))
+            thrs.append(np.asarray(tree.threshold, dtype=np.float64))
+            lefts.append(np.asarray(tree.left, dtype=np.int32))
+            rights.append(np.asarray(tree.right, dtype=np.int32))
+            vals_.append(np.asarray(tree.value, dtype=np.float64))
+            offs.append(offs[-1] + len(tree.feature))
+            shr.append(float(tree.shrinkage))
+            cls.append(kcls)
+    return (np.concatenate(feats), np.concatenate(thrs),
+            np.concatenate(lefts), np.concatenate(rights),
+            np.concatenate(vals_), np.asarray(offs, dtype=np.int64),
+            np.asarray(shr, dtype=np.float64), np.asarray(cls, dtype=np.int32))
+
+
+def _predict_csr_native(tree_groups, indptr, indices, values, n: int,
+                        num_class: int):
+    """The forest over CSR rows through the C++ traversal
+    (``native_loader.csr_forest_predict``); None when the library is
+    unavailable, so the caller keeps its own path."""
+    from .. import native_loader
+
+    if not any(len(g) for g in tree_groups):
+        return np.zeros((n, num_class), dtype=np.float64)
+    return native_loader.csr_forest_predict(
+        indptr, indices, values, *_flatten_forest(tree_groups), num_class)
+
+
 def predict_csr(tree_groups: List[List[Tree]], indptr, indices, values,
                 num_class: int, device: DeviceLike = None) -> np.ndarray:
     """[CSR rows] -> [N, num_class] f64 raw score deltas (the reference's
     numpy ``predict_csr`` on f64 tensors on ``device``, default
-    ``default_device()``)."""
-    return CsrRows(indptr, indices, values, device).predict(tree_groups,
-                                                           num_class)
+    ``default_device()``).
+
+    On the CPU a numeric forest takes the reference's native route, the
+    C++ traversal bit-equal to the tensor one
+    (``MMLSPARK_TPU_NO_NATIVE_CSR_PREDICT=1`` turns it off, as in the
+    reference); on the card the traversal stays on the device."""
+    import os
+
+    from .. import native_loader
+
+    dev = resolve_device(device) if device is not None else default_device()
+    if (dev.type == "cpu"
+            and os.environ.get("MMLSPARK_TPU_NO_NATIVE_CSR_PREDICT",
+                               "") in ("", "0")
+            and not any(t.cat_sets is not None
+                        for g in tree_groups for t in g)):
+        indptr = np.asarray(indptr, dtype=np.int64)
+        out = _predict_csr_native(tree_groups, indptr, indices, values,
+                                  len(indptr) - 1, num_class)
+        if out is not None:
+            native_loader.count("csr_forest_predict", "native")
+            return out
+        native_loader.count("csr_forest_predict", "numpy")
+    return CsrRows(indptr, indices, values, dev).predict(tree_groups,
+                                                        num_class)
 
 
 class CsrRows:

@@ -2,42 +2,83 @@
 
 Counterpart of the reference's ``mmlspark_tpu/gbdt/tree.py``: ``Tree``,
 ``GrowerConfig``, ``cat_sets_from_words``, ``build_thresholds``,
-``predict_tree_binned`` and the whole-tree grower
-(``_grow_tree_device_body``). The reference grows a tree inside one jitted
-``lax.while_loop``; here the loop is Python over device tensors:
+``predict_tree_binned`` and the whole-tree grower. Two routes grow the same
+tree (best-first: the argmax over per-node candidate gains, ties to the
+lowest node id; node ids in split order), and ``grow_tree`` picks one as
+the reference does:
 
-  - the best-first heap is an argmax over per-node candidate gains (ties to
-    the lowest node id), read on the host once per split together with the
-    two children's split candidates;
-  - the reference's ``lax.switch`` over row-compaction tiers becomes one
-    host read of the small child's row count and an ``if``.
+  - **fused** (``_grow_tree_device_body``, ``_grow_tree_fused``,
+    ``FusedGrower``): the default on the card, under the reference's 2 GiB
+    gate on the ``[2L - 1, F, B, 3]`` node histograms
+    (``_fused_tree_enabled``; ``MMLSPARK_TPU_FUSED_TREE=1`` forces it on
+    the CPU too, ``MMLSPARK_TPU_NO_FUSED_TREE=1`` turns it off). The node
+    tables and the candidates are device tensors and the loop runs a fixed
+    ``num_leaves - 1`` steps under a device "active" flag (the reference's
+    ``while_loop`` condition), so nothing is read on the host between the
+    root and the one fetch of the finished tree, and ``FusedGrower``
+    captures the whole tree in a CUDA graph and replays it. A small child
+    is compacted by K2 into a buffer as wide as the largest tier, and K1's
+    device-count entry sums the rows before the count it reads on the
+    device, grouped as a launch sized for the tier would group them: the
+    per-split route's grouping from ``select_kernel.MIN_ROWS`` rows up.
+    Below it the per-split route sums a child of more than n/8 rows at
+    full width, so the last f32 bit of its histogram may differ.
+  - **host** (``grow_tree``'s own loop): the per-split route, whose node
+    tables live on the host; it reads the small child's row count (the
+    tier choice) and the two children's split candidates once a split, and
+    is the default on the CPU.
 
-Rows live on the device (``node_of_row``, the histograms); the node tables
-are a few dozen entries and live on the host. Each split routes the
-parent's rows, builds the smaller child's histogram (K1 on CUDA; for a
-small child over a compacted tier buffer, filled by K2 on CUDA at mask
-widths of 500k rows or more, else by ``nonzero`` + ``index_select``),
-derives the sibling by subtraction and evaluates both children. The tier
-arithmetic is the reference's exactly: it decides which rows are summed.
+Rows live on the device (``node_of_row``, the histograms). Each split
+routes the parent's rows, builds the smaller child's histogram (K1 on
+CUDA; over a compacted tier buffer filled by K2 on CUDA, or on the host
+route below 500k rows by ``nonzero`` + ``index_select``), derives the
+sibling by subtraction and evaluates both children. The tier arithmetic is
+the reference's exactly: it decides which rows are summed.
 
 With ``cat_args`` the features it flags split by category SET
 (``histogram.cat_best_subset``): a set node routes its rows by the bin
 bitset the search returns (``partition_rows_cat``) and keeps it in
 ``Tree.cat_bin_words`` beside the category values it stands for
-(``Tree.cat_sets``). The per-split host grower and the row-sharded grower
-wait for later slices.
+(``Tree.cat_sets``). The row-sharded grower waits for a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+import os
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import hist_kernel, select_kernel
 from . import histogram as H
-from . import select_kernel
+
+# the reference's cap on the fused grower's [2L - 1, F, B, 3] f32 node
+# histograms; above it the per-split host route grows the tree
+_FUSED_TREE_DEFAULT_BUDGET = 2 << 30
+
+#: host reads of device data the growers made (a reading aid: the fused
+#: route makes one a tree, the host route one at the root and two a split)
+host_reads = 0
+
+
+def _fused_tree_enabled(max_nodes: int, num_f: int, num_bins: int,
+                        device) -> bool:
+    """The reference's route decision for a tree grown on ``device``: the
+    fused grower on the card, under the memory budget
+    (``MMLSPARK_TPU_FUSED_TREE_BYTES``), unless
+    ``MMLSPARK_TPU_NO_FUSED_TREE`` is set; on the CPU only when
+    ``MMLSPARK_TPU_FUSED_TREE`` forces it."""
+    if os.environ.get("MMLSPARK_TPU_NO_FUSED_TREE", "") not in ("", "0"):
+        return False
+    budget = int(os.environ.get("MMLSPARK_TPU_FUSED_TREE_BYTES",
+                                _FUSED_TREE_DEFAULT_BUDGET))
+    if max_nodes * num_f * num_bins * 3 * 4 > budget:
+        return False
+    if os.environ.get("MMLSPARK_TPU_FUSED_TREE", "") not in ("", "0"):
+        return True
+    return torch.device(device).type == "cuda"
 
 
 @dataclasses.dataclass
@@ -238,9 +279,18 @@ def grow_tree(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     ``grad``/``hess``: [N] f32; ``row_mask``: [N] bool (bagging subset);
     ``feature_mask``: [F] bool or None; ``cat_args``: None, or (cat_mask
     [F] bool tensor, cat_smooth, cat_l2, max_cat_threshold) to split the
-    flagged features by category set."""
+    flagged features by category set.
+
+    The route is the reference's: the fused grower where
+    ``_fused_tree_enabled`` says so (on the card by default), else the
+    per-split host loop below."""
     dev = bins_fm.device
     n = int(bins_fm.shape[1])
+    if _fused_tree_enabled(2 * config.num_leaves - 1, int(bins_fm.shape[0]),
+                           num_bins, dev):
+        return _grow_tree_fused(bins_fm, grad, hess, row_mask, num_bins,
+                                config, bin_mapper, feature_mask, node_of_row,
+                                cat_args)
     if node_of_row is None:
         node_of_row = torch.zeros(n, dtype=torch.int32, device=dev)
     M = 2 * config.num_leaves - 1
@@ -257,7 +307,9 @@ def grow_tree(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     width = 10 + (cw if cat_args is not None else 0)   # packed SplitInfo
     s0 = H.find_best_split(root_hist, l1, l2, msh, mdl, feature_mask,
                            cat_args)
+    global host_reads
     host = torch.cat([root_sums.to(torch.float64), s0.packed()]).cpu().numpy()
+    host_reads += 1
 
     # host node tables (the reference's device state dict)
     feature = np.full(M, -1, np.int32)
@@ -313,6 +365,7 @@ def grow_tree(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         small_id, big_id = (lid, rid) if small_is_left else (rid, lid)
         small_mask = row_mask & (node_of_row == small_id)
         small_cnt = int(small_mask.sum())          # host read: tier choice
+        host_reads += 1
         small_hist = _small_child_hist(bins_fm, grad, hess, small_mask,
                                        small_cnt, num_bins, caps, use_sel)
         big_hist = H.subtract_histogram(hists[leaf], small_hist)
@@ -321,6 +374,7 @@ def grow_tree(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                                       l1, l2, msh, mdl, feature_mask,
                                       cat_args)
         s_small, s_big = pair.packed().cpu().numpy()
+        host_reads += 1
 
         small_sums, big_sums = (lsum, rsum) if small_is_left else (rsum, lsum)
         push(small_id, s_small, small_sums, dchild)
@@ -337,30 +391,324 @@ def grow_tree(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         n_nodes += 2
         n_leaves += 1
 
-    nn = n_nodes
-    feature, tbin = feature[:nn], threshold_bin[:nn]
-    s64 = sums[:nn].astype(np.float64)
-    # leaf values on host in f64 (the reference's precision lineage)
+    return _finish_tree(feature[:n_nodes], threshold_bin[:n_nodes],
+                        default_left[:n_nodes], left[:n_nodes],
+                        right[:n_nodes], gain[:n_nodes], sums[:n_nodes],
+                        cat_words[:n_nodes] if cat_args is not None else None,
+                        config, bin_mapper), node_of_row
+
+
+def _finish_tree(feature, tbin, default_left, left, right, gain, sums,
+                 words, config: GrowerConfig, bin_mapper) -> Tree:
+    """A ``Tree`` from its node tables (``sums``: the f32 (grad, hess,
+    count) sums per node): leaf values on the host in f64 from the f32
+    sums, the reference's precision lineage; an unsplit root keeps 0.0 (it
+    is never anyone's child)."""
+    nn = len(feature)
+    feature = np.asarray(feature, dtype=np.int32)
+    tbin = np.asarray(tbin, dtype=np.int32)
+    s64 = np.asarray(sums, dtype=np.float32).astype(np.float64)
+    l1, l2 = config.lambda_l1, config.lambda_l2
     g_thr = np.sign(s64[:, 0]) * np.maximum(np.abs(s64[:, 0]) - l1, 0.0)
     value = np.where(feature < 0, -g_thr / (s64[:, 1] + l2), 0.0)
     if config.max_delta_step > 0:
         value = np.clip(value, -config.max_delta_step, config.max_delta_step)
-    # an unsplit root keeps 0.0 (it is never anyone's child)
     value[0] = 0.0 if nn == 1 else value[0]
     cat_sets, words_np = cat_sets_from_words(
-        cat_words[:nn] if cat_args is not None else None, feature, bin_mapper)
-    tree = Tree(
+        np.asarray(words).astype(np.uint32) if words is not None else None,
+        feature, bin_mapper)
+    return Tree(
         feature=feature,
         threshold=build_thresholds(feature, tbin, cat_sets, bin_mapper),
         threshold_bin=tbin,
-        default_left=default_left[:nn].copy(),
-        left=left[:nn].copy(),
-        right=right[:nn].copy(),
+        default_left=np.asarray(default_left, dtype=bool).copy(),
+        left=np.asarray(left, dtype=np.int32).copy(),
+        right=np.asarray(right, dtype=np.int32).copy(),
         value=value,
-        gain=gain[:nn].copy(),
+        gain=np.asarray(gain, dtype=np.float32).copy(),
         count=s64[:, 2].astype(np.int32),
         weight=s64[:, 1],
         cat_sets=cat_sets,
         cat_bin_words=words_np,
     )
-    return tree, node_of_row
+
+
+# ---------------------------------------------------------------------------
+# The device-resident grower (the fused route)
+# ---------------------------------------------------------------------------
+
+
+def device_tier_caps(n_rows: int) -> Tuple[int, ...]:
+    """The fused grower's compaction tiers: the reference's select-kernel
+    tiers (``tier_caps(n, True)``), used only while the widest holds any
+    small child (half the rows); () means every split sums the full width
+    under its row mask."""
+    caps = tier_caps(n_rows, True)
+    return caps if caps and 2 * caps[0] >= n_rows else ()
+
+
+def _grow_tree_device_body(bins_fm: torch.Tensor, grad: torch.Tensor,
+                           hess: torch.Tensor, row_mask: torch.Tensor,
+                           node_of_row: Optional[torch.Tensor],
+                           num_bins: int, config: GrowerConfig,
+                           feature_mask: Optional[torch.Tensor] = None,
+                           cat_args=None, caps: Optional[Tuple[int, ...]] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """Grow one whole tree on the device, with no host read: the
+    reference's ``_grow_tree_device_body``.
+
+    The node tables and the candidates are tensors of ``2L - 1`` nodes plus
+    one trash slot, where a step that is not active writes. The best-first
+    pop is ``argmax`` over the candidate gains (ties to the lowest id); the
+    loop runs ``num_leaves - 1`` steps, each active while some candidate is
+    finite (the reference's ``while_loop`` condition), so its shapes are
+    fixed and a CUDA graph can hold it. A small child's rows are compacted
+    by ``select_rows`` (K2) into a ``caps[0]``-wide buffer and summed by
+    ``histogram_count`` (K1's device-count entry) up to the count on the
+    device; with no ``caps`` the full width is summed under the mask.
+
+    Returns device tensors: ``node_of_row`` [N], the node tables
+    ``feature``, ``threshold_bin``, ``default_left``, ``left``, ``right``,
+    ``gain`` [M], ``sums`` [M, 3] f32, ``n_nodes`` [1] int64 and, with
+    ``cat_args``, ``cat_words`` [M, CW] int64."""
+    dev = bins_fm.device
+    n = int(bins_fm.shape[1])
+    M = 2 * config.num_leaves - 1
+    T = M                                   # the trash slot
+    caps = device_tier_caps(n) if caps is None else caps
+    l1, l2 = config.lambda_l1, config.lambda_l2
+    msh, mdl = config.min_sum_hessian_in_leaf, config.min_data_in_leaf
+    mgs = float(np.float32(config.min_gain_to_split))
+    neg_inf = float("-inf")
+    i32, i64, f32 = torch.int32, torch.int64, torch.float32
+    if node_of_row is None:
+        node_of_row = torch.zeros(n, dtype=i32, device=dev)
+
+    root_hist = H.compute_histogram(bins_fm, grad, hess, row_mask, num_bins)
+    root_sums = H.total_sums(grad, hess, row_mask)
+    s0 = H.find_best_split(root_hist, l1, l2, msh, mdl, feature_mask,
+                           cat_args)
+    # the root is pushed without the 2 * min_data_in_leaf check (the split
+    # search already enforces per-side constraints)
+    root_ok = torch.isfinite(s0.gain) & (s0.gain > mgs)
+
+    def table(fill, dtype, *shape):
+        return torch.full((M + 1, *shape), fill, dtype=dtype, device=dev)
+
+    feature, threshold_bin = table(-1, i32), table(0, i32)
+    default_left = table(True, torch.bool)
+    left, right = table(-1, i32), table(-1, i32)
+    gain, depth = table(0.0, f32), table(0, i32)
+    sums = table(0.0, f32, 3)
+    sums[0] = root_sums
+    hists = torch.empty((M + 1, *root_hist.shape), dtype=f32, device=dev)
+    hists[0] = root_hist
+    cand_gain = table(neg_inf, f32)
+    cand_gain[0] = torch.where(root_ok, s0.gain, neg_inf)
+    cand_feature, cand_bin = table(0, i64), table(0, i64)
+    cand_dleft = table(False, torch.bool)
+    cand_lsum, cand_rsum = table(0.0, f32, 3), table(0.0, f32, 3)
+    cand_feature[0], cand_bin[0] = s0.feature, s0.bin
+    cand_dleft[0] = s0.default_left
+    cand_lsum[0], cand_rsum[0] = s0.left_sum, s0.right_sum
+    cat_words = cand_cwords = None
+    if cat_args is not None:
+        cw = (num_bins + 31) // 32
+        cat_words, cand_cwords = table(0, i64, cw), table(0, i64, cw)
+        cand_cwords[0] = s0.cat_words
+    n_nodes = torch.ones(1, dtype=i64, device=dev)
+    minus_inf = torch.full((1,), neg_inf, dtype=f32, device=dev)
+    trash = torch.full((1,), T, dtype=i64, device=dev)
+
+    for _ in range(config.num_leaves - 1):
+        cg = cand_gain[:M]
+        active = cg.max() > neg_inf
+        leaf = torch.argmax(cg).reshape(1)             # ties: the lowest id
+        f = cand_feature.index_select(0, leaf)
+        t = cand_bin.index_select(0, leaf)
+        dl = cand_dleft.index_select(0, leaf)
+        lsum = cand_lsum.index_select(0, leaf)[0]
+        rsum = cand_rsum.index_select(0, leaf)[0]
+        lid = n_nodes
+        rid = lid + 1
+        dchild = depth.index_select(0, leaf) + 1
+
+        # route the leaf's rows to its children
+        col = bins_fm.index_select(0, f)[0]
+        go_left = torch.where(col == 0, dl, col <= t)
+        if cat_args is not None:
+            words = cand_cwords.index_select(0, leaf)[0]
+            b = col.to(i64)
+            bits = (words[b >> 5] >> (b & 31)) & 1
+            go_left = torch.where(torch.any(words != 0), bits == 1, go_left)
+        child = torch.where(go_left, lid, rid).to(i32)
+        node_of_row = torch.where((node_of_row == leaf) & active, child,
+                                  node_of_row)
+
+        # the smaller child's histogram, the sibling's by subtraction
+        small_is_left = lsum[2] <= rsum[2]
+        small_id = torch.where(small_is_left, lid, rid)
+        big_id = torch.where(small_is_left, rid, lid)
+        small_mask = row_mask & (node_of_row == small_id)
+        if caps:
+            cnt = small_mask.sum(dtype=i32).reshape(1)
+            b_c, g_c, h_c = select_kernel.select_rows(bins_fm, grad, hess,
+                                                      small_mask, caps[0])
+            small_hist = hist_kernel.histogram_count(b_c, g_c, h_c, cnt,
+                                                     num_bins, caps)
+        else:
+            small_hist = H.compute_histogram(bins_fm, grad, hess, small_mask,
+                                             num_bins)
+        big_hist = H.subtract_histogram(hists.index_select(0, leaf)[0],
+                                        small_hist)
+        pair = H.find_best_split_pair(torch.stack([small_hist, big_hist]),
+                                      l1, l2, msh, mdl, feature_mask,
+                                      cat_args)
+
+        # push both children (inactive steps write the trash slot)
+        csums = torch.stack([torch.where(small_is_left, lsum, rsum),
+                             torch.where(small_is_left, rsum, lsum)])
+        ok = (torch.isfinite(pair.gain) & (pair.gain > mgs)
+              & (csums[:, 2] >= 2 * mdl))
+        if config.max_depth > 0:
+            ok = ok & (dchild < config.max_depth)
+        ids = torch.where(active, torch.cat([small_id, big_id]), T)
+        pid = torch.where(active, leaf, trash)
+        gain.index_put_((pid,), cand_gain.index_select(0, leaf))
+        cand_gain.index_put_((ids,), torch.where(ok, pair.gain, neg_inf))
+        cand_gain.index_put_((pid,), minus_inf)
+        cand_feature.index_put_((ids,), pair.feature)
+        cand_bin.index_put_((ids,), pair.bin)
+        cand_dleft.index_put_((ids,), pair.default_left)
+        cand_lsum.index_put_((ids,), pair.left_sum)
+        cand_rsum.index_put_((ids,), pair.right_sum)
+        if cat_args is not None:
+            cat_words.index_put_((pid,), words[None])
+            cand_cwords.index_put_((ids,), pair.cat_words)
+        feature.index_put_((pid,), f.to(i32))
+        threshold_bin.index_put_((pid,), t.to(i32))
+        default_left.index_put_((pid,), dl)
+        left.index_put_((pid,), lid.to(i32))
+        right.index_put_((pid,), rid.to(i32))
+        cids = torch.where(active, torch.cat([lid, rid]), T)
+        sums.index_put_((cids,), torch.stack([lsum, rsum]))
+        depth.index_put_((cids,), dchild.expand(2))
+        hists.index_put_((ids,), torch.stack([small_hist, big_hist]))
+        n_nodes = n_nodes + active.to(i64) * 2
+
+    out = dict(node_of_row=node_of_row, feature=feature[:M],
+               threshold_bin=threshold_bin[:M],
+               default_left=default_left[:M], left=left[:M], right=right[:M],
+               gain=gain[:M], sums=sums[:M], n_nodes=n_nodes)
+    if cat_args is not None:
+        out["cat_words"] = cat_words[:M]
+    return out
+
+
+def pack_tables(out: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The node tables of ``_grow_tree_device_body`` as one [..., M, 10 (+
+    CW)] f64 tensor, every field exact (u32 words and f32 sums are exact in
+    f64), for one host read a tree: feature, threshold_bin, default_left,
+    left, right, gain, sums (3), n_nodes, then the set words."""
+    d = torch.float64
+    m = out["feature"].shape[-1]
+    cols = [out[k].to(d)[..., None] for k in
+            ("feature", "threshold_bin", "default_left", "left", "right",
+             "gain")]
+    lead = out["feature"].shape[:-1]
+    cols += [out["sums"].to(d),
+             out["n_nodes"].to(d).unsqueeze(-1).expand(*lead, m, 1)]
+    if "cat_words" in out:
+        cols.append(out["cat_words"].to(d))
+    return torch.cat(cols, dim=-1)
+
+
+def tree_from_packed(packed: np.ndarray, config: GrowerConfig, bin_mapper,
+                     has_cat: bool) -> Tree:
+    """A ``Tree`` from one [M, 10 (+ CW)] block of ``pack_tables``."""
+    nn = int(packed[0, 9])
+    p = packed[:nn]
+    return _finish_tree(p[:, 0], p[:, 1], p[:, 2] != 0, p[:, 3], p[:, 4],
+                        p[:, 5], p[:, 6:9], p[:, 10:] if has_cat else None,
+                        config, bin_mapper)
+
+
+def _fused_tables(bins_fm, grad, hess, row_mask, node_of_row,
+                  num_bins: int, config: GrowerConfig, feature_mask=None,
+                  cat_args=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One tree of ``_grow_tree_device_body`` as (``node_of_row``, its
+    ``pack_tables``), both on the device: the fused route's device work."""
+    out = _grow_tree_device_body(bins_fm, grad, hess, row_mask, node_of_row,
+                                 num_bins, config, feature_mask, cat_args)
+    return out["node_of_row"], pack_tables(out)
+
+
+def _read_tree(rows: torch.Tensor, packed: torch.Tensor,
+               config: GrowerConfig, bin_mapper, has_cat: bool
+               ) -> Tuple[Tree, torch.Tensor]:
+    """The fused route's one host read a tree: (tree, ``rows``)."""
+    global host_reads
+    host = packed.cpu().numpy()
+    host_reads += 1
+    return tree_from_packed(host, config, bin_mapper, has_cat), rows
+
+
+def _grow_tree_fused(bins_fm, grad, hess, row_mask, num_bins: int,
+                     config: GrowerConfig, bin_mapper, feature_mask=None,
+                     node_of_row=None, cat_args=None
+                     ) -> Tuple[Tree, torch.Tensor]:
+    """One tree on the fused route, eagerly (the reference's host wrapper of
+    its device grower): one host read, of the finished tree."""
+    return _read_tree(*_fused_tables(bins_fm, grad, hess, row_mask,
+                                     node_of_row, num_bins, config,
+                                     feature_mask, cat_args),
+                      config, bin_mapper, cat_args is not None)
+
+
+class FusedGrower:
+    """The fused route for the trees of one fit over one binned matrix.
+
+    ``grow`` grows a tree as ``_grow_tree_fused`` does. On the card the
+    first call runs eagerly, which also warms up every kernel; the second
+    captures the whole tree in a CUDA graph (``graphs.Captured``) over
+    static copies of its inputs, and every later call copies its inputs in
+    and replays. On the CPU every call runs eagerly. A returned
+    ``node_of_row`` of a replay is the graph's own output: use it before
+    the next ``grow``."""
+
+    def __init__(self, bins_fm: torch.Tensor, num_bins: int,
+                 config: GrowerConfig, bin_mapper, cat_args=None):
+        self.bins_fm, self.num_bins = bins_fm, num_bins
+        self.config, self.bin_mapper, self.cat_args = config, bin_mapper, \
+            cat_args
+        self.capture = bins_fm.is_cuda
+        self.calls = 0
+        self._graphs: Dict[bool, tuple] = {}
+
+    def grow(self, grad: torch.Tensor, hess: torch.Tensor,
+             row_mask: torch.Tensor,
+             feature_mask: Optional[torch.Tensor] = None
+             ) -> Tuple[Tree, torch.Tensor]:
+        from . import graphs
+
+        self.calls += 1
+        if not self.capture or self.calls == 1:
+            return _grow_tree_fused(self.bins_fm, grad, hess, row_mask,
+                                    self.num_bins, self.config,
+                                    self.bin_mapper, feature_mask,
+                                    cat_args=self.cat_args)
+        key = feature_mask is not None
+        inputs = (grad, hess, row_mask, feature_mask)
+        if key not in self._graphs:
+            static = [x.clone() if x is not None else None for x in inputs]
+            cap = graphs.Captured(lambda: _fused_tables(
+                self.bins_fm, *static[:3], None, self.num_bins, self.config,
+                static[3], self.cat_args))
+            self._graphs[key] = (static, cap)
+        else:
+            static, cap = self._graphs[key]
+            for dst, src in zip(static, inputs):
+                if dst is not None:
+                    dst.copy_(src)
+        return _read_tree(*cap.replay(), self.config, self.bin_mapper,
+                          self.cat_args is not None)

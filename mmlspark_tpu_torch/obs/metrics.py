@@ -508,6 +508,10 @@ class TrainRecorder:
         self._metric = reg.gauge(
             "mmlspark_train_metric", "last reported eval metric value",
             ("engine", "metric"))
+        self._route = reg.counter(
+            "mmlspark_train_routes_total",
+            "fits by the route they took (native, scan, fused, host)",
+            ("engine", "route"))
 
     def step(self, dur_s: float, examples: Optional[int] = None,
              loss: Optional[float] = None) -> None:
@@ -520,6 +524,11 @@ class TrainRecorder:
                 self._loss.labels(engine=self.engine).set(float(loss))
             except (TypeError, ValueError):
                 pass
+
+    def route(self, name: str) -> None:
+        """Record the route a fit took (the GBDT engines: native, scan,
+        fused or host)."""
+        self._route.labels(engine=self.engine, route=str(name)).inc()
 
     def checkpoint(self, dur_s: float) -> None:
         self._ckpt.labels(engine=self.engine).observe(dur_s)

@@ -400,12 +400,15 @@ def test_ring_readback_stream_keeps_order_and_bits(cuda_device):
 
 
 @pytest.mark.cuda
-def test_goss_fit_launches_k2_and_grows_the_cpu_first_tree(cuda_device):
-    """GOSS at 524,288 rows: the grower compacts the small child through K2
-    (>= select_kernel.MIN_ROWS rows), and the first tree, grown from the
-    base score's tied gradients, equals a CPU refit's."""
+def test_goss_fit_launches_k2_and_grows_the_cpu_first_tree(cuda_device,
+                                                          monkeypatch):
+    """GOSS at 524,288 rows on the device route (the native engine would
+    take a fit this small): the fused grower compacts the small child
+    through K2, and the first tree, grown from the base score's tied
+    gradients, equals a CPU refit's (the per-split host route)."""
     from mmlspark_tpu_torch.gbdt import booster
 
+    monkeypatch.setenv("MMLSPARK_TPU_NATIVE_TRAIN", "0")
     rng = np.random.default_rng(7)
     n = 524_288
     X = rng.standard_normal((n, 8))
@@ -413,10 +416,13 @@ def test_goss_fit_launches_k2_and_grows_the_cpu_first_tree(cuda_device):
     params = booster.TrainParams(objective="binary", boosting_type="goss",
                                  num_iterations=2, num_leaves=31)
     select_kernel.launches = 0
-    hist_kernel.launches = 0
+    hist_kernel.launches = hist_kernel.count_launches = 0
     card = booster.train(params, X, y.astype(np.float64), device="cuda")
+    assert card.route == "fused"
     assert select_kernel.launches > 0 and hist_kernel.launches > 0
+    assert hist_kernel.count_launches > 0
     cpu = booster.train(params, X, y.astype(np.float64), device="cpu")
+    assert cpu.route == "host"
     a, b = card.trees[0][0], cpu.trees[0][0]
     for fld in ("feature", "threshold_bin", "left", "right", "default_left",
                 "count"):
@@ -481,19 +487,25 @@ def _same_cat_tree(a, b):
 
 
 @pytest.mark.cuda
-def test_categorical_fit_card_matches_cpu(cuda_device):
-    """Set splits on the card (K1 and K2 launched): the first 3 trees are
-    the CPU's, words and category sets included; leaf values within rtol
-    1e-5 (``chip_smoke.py`` gate c at 262,144 rows)."""
+def test_categorical_fit_card_matches_cpu(cuda_device, monkeypatch):
+    """Set splits on the card (K1's two entries and K2 launched), on the
+    scan route on both devices: the first 3 trees are the CPU's, words and
+    category sets included; leaf values within rtol 1e-5 (``chip_smoke.py``
+    gate c at 262,144 rows)."""
     from mmlspark_tpu_torch.gbdt import booster
 
+    monkeypatch.setenv("MMLSPARK_TPU_SCAN_TRAIN", "1")
     X, y = _cat_rows(600_000)
     params = booster.TrainParams(objective="binary", num_iterations=3,
                                  num_leaves=31, categorical_feature=(0, 1, 2))
-    hist_kernel.launches = select_kernel.launches = 0
+    hist_kernel.launches = hist_kernel.count_launches = 0
+    select_kernel.launches = 0
     card = booster.train(params, X, y, device="cuda")
-    assert hist_kernel.launches > 0 and select_kernel.launches > 0
+    assert card.route == "scan"
+    assert hist_kernel.launches > 0 and hist_kernel.count_launches > 0
+    assert select_kernel.launches > 0
     cpu = booster.train(params, X, y, device="cpu")
+    assert cpu.route == "scan"
     assert any(s is not None and len(s) >= 2 for s in card.trees[0][0].cat_sets)
     for gc, gp in zip(card.trees, cpu.trees):
         _same_cat_tree(gc[0], gp[0])
@@ -509,6 +521,7 @@ def test_categorical_device_ensemble_matches_host(cuda_device):
     b = booster.train(booster.TrainParams(
         objective="binary", num_iterations=8, num_leaves=15,
         categorical_feature=(0, 1, 2)), X, y, device="cuda")
+    assert b.route == "scan"
     Xq = X[:20_000].copy()
     Xq[::9, 1] = np.nan
     Xq[::7, 2] = 512.0
@@ -534,6 +547,7 @@ def test_checkpoint_resume_on_card_is_identical(cuda_device, tmp_path):
         categorical_feature=(0, 1, 2))
     full = booster.train(params, X, y, device="cuda", checkpoint=CheckpointConfig(
         str(tmp_path / "full.ckpt"), every_k=3))
+    assert full.route == "fused"
     calls = [0]
 
     def preempt(point, **ctx):
@@ -553,6 +567,178 @@ def test_checkpoint_resume_on_card_is_identical(cuda_device, tmp_path):
     resumed = booster.train(params, X, y, device="cuda",
                             checkpoint=CheckpointConfig(ckpt, every_k=3))
     assert resumed.to_string() == full.to_string()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [0, 1, 511, 512, "cap"])
+def test_hist_count_entry_matches_plain(cuda_device, count):
+    """K1's device-count entry on a K2-sized buffer (1,048,576 rows, the
+    tiers of a 2,097,152-row fit): the count channel exact and grad/hess
+    within 1e-5 of the bin's |v| sum against ``histogram_plain`` over the
+    rows before the count, and bit for bit a mask launch sized for the
+    tier that holds the count (the per-split grower's launch)."""
+    from mmlspark_tpu_torch.gbdt import tree
+
+    n = 1_048_576
+    caps = tree.tier_caps(2 * n, True)
+    c = n if count == "cap" else count
+    bins, grad, hess, _ = _inputs(n, 28, 256, 1.0, cuda_device)
+    cnt = torch.tensor([c], dtype=torch.int32, device=cuda_device)
+    valid = torch.arange(n, device=cuda_device) < c
+    k = hist_kernel.histogram_count_cuda(bins, grad, hess, cnt, 256, caps)
+    p = hist_kernel.histogram_plain(bins, grad, hess, valid, 256)
+    _assert_hist_close(k, p, hist_kernel.histogram_plain(
+        bins, grad.abs(), hess.abs(), valid, 256))
+    tidx = tree.pick_tier(caps, c)
+    w = caps[tidx - 1] if tidx else n
+    m = hist_kernel.histogram_cuda(bins[:, :w].contiguous(), grad[:w],
+                                   hess[:w], valid[:w], 256)
+    assert torch.equal(k, m)
+
+
+def _grower_inputs(device, n=524_288, f=12, seed=5):
+    from mmlspark_tpu_torch.gbdt import binning
+
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, f))
+    X[:, 3] = rng.choice([0.0, 1.1, 2.2], n)
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + rng.logistic(size=n) > 0)
+    mapper = binning.BinMapper.fit(X, 255)
+    p = 1 / (1 + np.exp(-0.3 * X[:, 3]))
+    arrays = (mapper.transform_fm(X, dtype=np.int32),
+              (p - y).astype(np.float32),
+              np.maximum(p * (1 - p), 1e-16).astype(np.float32),
+              rng.random(n) < 0.9)
+    return mapper, [torch.from_numpy(a).to(device) for a in arrays]
+
+
+_TREE_FIELDS = ("feature", "threshold_bin", "left", "right", "default_left",
+                "count", "gain", "value", "threshold")
+
+
+@pytest.mark.cuda
+def test_fused_grower_matches_per_split_grower_on_card(cuda_device,
+                                                       monkeypatch):
+    """The device-resident grower (K2 into the widest tier, K1's
+    device-count entry) against the per-split host grower (K2 into the
+    tier the host picks, K1's mask entry) on the card: the same tree and
+    rows, gains and sums bit for bit."""
+    from mmlspark_tpu_torch.gbdt import tree
+
+    mapper, (bins, g, h, m) = _grower_inputs(cuda_device)
+    cfg = tree.GrowerConfig(num_leaves=31)
+    fused, frows = tree.grow_tree(bins, g, h, m, mapper.max_num_bins, cfg,
+                                  mapper)
+    monkeypatch.setenv("MMLSPARK_TPU_NO_FUSED_TREE", "1")
+    host, hrows = tree.grow_tree(bins, g, h, m, mapper.max_num_bins, cfg,
+                                 mapper)
+    for fld in _TREE_FIELDS + ("weight",):
+        np.testing.assert_array_equal(getattr(fused, fld), getattr(host, fld),
+                                      err_msg=fld)
+    assert torch.equal(frows, hrows)
+
+
+@pytest.mark.cuda
+def test_fused_grower_below_min_rows_within_the_gate(cuda_device,
+                                                     monkeypatch):
+    """At 262,144 rows (below ``select_kernel.MIN_ROWS``) the per-split
+    grower compacts a small child only up to n/8 rows (``tier_caps(n,
+    False)``) and sums a larger one at full width under its mask, where
+    the fused grower compacts it into its n/2 tiers: the grouping of the
+    partial sums differs, so the last f32 bit may (ROADMAP C). The same
+    tree and rows; gains within 1e-4 and hessian sums within 1e-5
+    relative, leaf values within the CPU tests' gate against the reference
+    (1e-5 relative, 1e-7 absolute)."""
+    from mmlspark_tpu_torch.gbdt import select_kernel, tree
+
+    n = 262_144
+    assert n < select_kernel.MIN_ROWS
+    assert tree.tier_caps(n, False)[0] < tree.device_tier_caps(n)[0]
+    mapper, (bins, g, h, m) = _grower_inputs(cuda_device, n=n, seed=7)
+    cfg = tree.GrowerConfig(num_leaves=31)
+    fused, frows = tree.grow_tree(bins, g, h, m, mapper.max_num_bins, cfg,
+                                  mapper)
+    monkeypatch.setenv("MMLSPARK_TPU_NO_FUSED_TREE", "1")
+    host, hrows = tree.grow_tree(bins, g, h, m, mapper.max_num_bins, cfg,
+                                 mapper)
+    for fld in ("feature", "threshold_bin", "left", "right", "default_left",
+                "count", "threshold"):
+        np.testing.assert_array_equal(getattr(fused, fld), getattr(host, fld),
+                                      err_msg=fld)
+    np.testing.assert_allclose(fused.gain, host.gain, rtol=1e-4, atol=0)
+    np.testing.assert_allclose(fused.value, host.value, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(fused.weight, host.weight, rtol=1e-5, atol=0)
+    assert torch.equal(frows, hrows)
+
+
+@pytest.mark.cuda
+def test_captured_tree_equals_eager_and_counters_count_replays(cuda_device):
+    """``FusedGrower`` grows its first tree eagerly, captures the second in
+    a CUDA graph and replays it from then on: every tree equal to the eager
+    one, one host read a tree, and each kernel's launch counter (K1's two
+    entries, K2) counting the same launches on a replay as eagerly."""
+    from mmlspark_tpu_torch.gbdt import graphs, tree
+
+    mapper, (bins, g, h, m) = _grower_inputs(cuda_device, seed=6)
+    grower = tree.FusedGrower(bins, mapper.max_num_bins,
+                              tree.GrowerConfig(num_leaves=31), mapper)
+    assert grower.capture
+    hk = ("mmlspark_tpu_torch.gbdt.hist_kernel", "count_launches")
+    sk = ("mmlspark_tpu_torch.gbdt.select_kernel", "launches")
+    assert hk in graphs.COUNTERS and sk in graphs.COUNTERS
+    trees, counts = [], []
+    for _ in range(4):
+        graphs.set_counters({c: 0 for c in graphs.COUNTERS})
+        reads = tree.host_reads
+        t, rows = grower.grow(g, h, m)
+        assert tree.host_reads == reads + 1
+        trees.append((t, rows.clone()))
+        counts.append(graphs.read_counters())
+    assert counts[0][hk] > 0 and counts[0][sk] > 0
+    assert all(c == counts[0] for c in counts), counts
+    for t, rows in trees[1:]:
+        for fld in _TREE_FIELDS:
+            np.testing.assert_array_equal(getattr(t, fld),
+                                          getattr(trees[0][0], fld))
+        assert torch.equal(rows, trees[0][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [{}, {"boosting_type": "rf",
+                                        "bagging_fraction": 0.5,
+                                        "bagging_freq": 1,
+                                        "feature_fraction": 0.8}])
+def test_scan_makes_no_host_read_and_matches_the_cpu_scan(cuda_device,
+                                                          monkeypatch, extra):
+    """The scan route on the card runs its boosting loop under
+    ``set_sync_debug_mode("error")`` (a host read would raise), replays a
+    captured iteration (K1 and K2 counted through the replays), and grows
+    the trees of the CPU's forced scan on the same rows; rf at 50% bagging
+    compacts its rows through K2 (``bag_cap``)."""
+    from mmlspark_tpu_torch.gbdt import booster
+
+    monkeypatch.setenv("MMLSPARK_TPU_NATIVE_TRAIN", "0")
+    monkeypatch.setattr(booster, "scan_loop_sync_mode", "error")
+    rng = np.random.default_rng(9)
+    X = rng.standard_normal((131_072, 10))
+    y = (X[:, 0] - X[:, 1] * X[:, 2] + rng.logistic(size=len(X)) > 0) * 1.0
+    params = booster.TrainParams(objective="binary", num_iterations=4,
+                                 num_leaves=31, **extra)
+    hist_kernel.count_launches = select_kernel.launches = 0
+    card = booster.train(params, X, y, device="cuda")
+    assert card.route == "scan"
+    assert hist_kernel.count_launches >= 4 * 30
+    assert select_kernel.launches >= 4 * 30
+    monkeypatch.setenv("MMLSPARK_TPU_SCAN_TRAIN", "1")
+    cpu = booster.train(params, X, y, device="cpu")
+    assert cpu.route == "scan"
+    for gc, gp in zip(card.trees, cpu.trees):
+        for fld in ("feature", "threshold_bin", "left", "right", "count"):
+            np.testing.assert_array_equal(getattr(gc[0], fld),
+                                          getattr(gp[0], fld))
+    np.testing.assert_allclose(card.raw_predict(X[:4096]),
+                               cpu.raw_predict(X[:4096]), rtol=1e-6,
+                               atol=1e-6)
 
 
 def _serve_all(server, bodies, headers, threads=16, timeout=60):

@@ -399,10 +399,13 @@ def test_weights_and_init_scores_match_reference(ref_device_path):
                                rtol=1e-6, atol=1e-6)
 
 
-def test_train_step_seam_and_recorder():
+def test_train_step_seam_and_recorder(monkeypatch):
     from mmlspark_tpu_torch.core import faults
     from mmlspark_tpu_torch.obs import metrics
 
+    # the per-iteration loop's seam (a fit this small takes the native
+    # engine by default, whose seam carries engine="native")
+    monkeypatch.setenv("MMLSPARK_TPU_NATIVE_TRAIN", "0")
     X = np.random.default_rng(0).standard_normal((300, 3))
     y = X[:, 0] * 2.0
     params = booster.TrainParams(num_iterations=4, num_leaves=4)
@@ -1436,3 +1439,325 @@ def test_reference_checkpoint_resumes_in_the_port(ref_device_path, tmp_path):
     theirs = ref_ck.load_checkpoint(ckpt)
     assert mine["iteration"] == 8 and "kahan" not in mine
     assert set(mine) == set(theirs)
+
+
+# ------------------------------------------- fused grower, scan and native
+
+
+@pytest.mark.parametrize("case", ["plain", "feature_mask", "max_depth",
+                                  "categorical"])
+def test_fused_grower_equals_host_loop_and_reference(ref_device_path, case):
+    """The port's device-resident grower (``FusedGrower`` and
+    ``_grow_tree_fused``) against its per-split host loop, bit for bit, and
+    against the reference's ``_grow_tree_device`` with the gates of
+    ``test_fused_tree_matches_at_40k_rows`` (structure and thresholds equal,
+    leaf values rtol 1e-5, gains rtol 1e-4, rows equal). 40,960 rows: the
+    fused route's K2 tiers (n/2 down to 5,120 rows) all engage."""
+    rng = np.random.default_rng(22)
+    n, f = 40_960, 6
+    X = rng.standard_normal((n, f))
+    cat = case == "categorical"
+    if cat:
+        X[:, 0] = rng.integers(0, 12, n)
+    y = (X[:, 1] + 0.5 * X[:, 2] * X[:, 3] + 0.3 * rng.standard_normal(n)
+         + (np.isin(X[:, 0], (1, 4, 6, 9)) if cat else 0) > 0.2)
+    mapper = ref_binning.BinMapper.fit(X, 255, (0,) if cat else (), seed=0)
+    pmapper = binning.BinMapper.fit(X, 255, (0,) if cat else (), seed=0)
+    bins = mapper.transform_fm(X, dtype=np.int32)
+    p = 1.0 / (1.0 + np.exp(-0.3 * X[:, 4]))
+    grad = (p - y).astype(np.float32)
+    hess = np.maximum(p * (1 - p), 1e-16).astype(np.float32)
+    mask = rng.random(n) < 0.9
+    fm = np.array([True, True, False, True, True, True]) \
+        if case == "feature_mask" else None
+    nb = mapper.max_num_bins
+    kw = dict(num_leaves=15, min_data_in_leaf=20, lambda_l1=0.05,
+              lambda_l2=1.0, max_depth=4 if case == "max_depth" else -1)
+    cm = np.zeros(f, dtype=bool)
+    cm[0] = True
+    rcat = (cm, np.float32(10.0), np.float32(10.0), np.int32(32)) \
+        if cat else None
+    pcat = (torch.from_numpy(cm), 10.0, 10.0, 32) if cat else None
+    rt, rrows = ref_tree.grow_tree(bins, grad, hess, mask, nb,
+                                   ref_tree.GrowerConfig(**kw), mapper,
+                                   feature_mask=fm, cat_args=rcat)
+    args = [torch.from_numpy(a) for a in (bins, grad, hess, mask)]
+    pfm = torch.from_numpy(fm) if fm is not None else None
+    pcfg = tree.GrowerConfig(**kw)
+    assert tree.device_tier_caps(n) == (20480, 10240, 5120)
+    grower = tree.FusedGrower(args[0], nb, pcfg, pmapper, pcat)
+    assert not grower.capture          # CPU tensors: eager, no graph
+    ft, frows = grower.grow(*args[1:], pfm)
+    gt, grows = tree._grow_tree_fused(*args, nb, pcfg, pmapper, pfm,
+                                      cat_args=pcat)
+    os.environ.pop("MMLSPARK_TPU_FUSED_TREE")      # the per-split host loop
+    ht, hrows = tree.grow_tree(*args, nb, pcfg, pmapper, pfm, cat_args=pcat)
+    for t, rows in ((gt, grows), (ht, hrows)):
+        for fld in STRUCT + ("threshold", "value", "gain", "weight"):
+            np.testing.assert_array_equal(getattr(ft, fld), getattr(t, fld),
+                                          err_msg=fld)
+        assert torch.equal(frows, rows)
+    if cat:
+        np.testing.assert_array_equal(ft.cat_bin_words, ht.cat_bin_words)
+        assert any(s is not None and len(s) >= 2 for s in ft.cat_sets)
+    _assert_same_tree(rt, ft)
+    np.testing.assert_allclose(rt.gain, ft.gain, rtol=1e-4)
+    np.testing.assert_array_equal(np.asarray(rrows), frows.numpy())
+
+
+@pytest.mark.parametrize("count", [0, 1, 511, 512, 5120, 20480])
+def test_histogram_count_plain_is_the_masked_histogram(count):
+    """K1's device-count entry's plain version: the rows before the count
+    as the row mask; and its grid table (``count_tiers``) K1's geometry for
+    every tier width, widest first."""
+    from mmlspark_tpu_torch.gbdt import hist_kernel as hk
+
+    rng = np.random.default_rng(count)
+    n, f, b = 20480, 5, 64
+    bins = torch.from_numpy(rng.integers(0, b, (f, n)).astype(np.int32))
+    g = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    h = torch.from_numpy(rng.random(n).astype(np.float32))
+    c = torch.tensor([count], dtype=torch.int32)
+    mask = torch.arange(n) < count
+    assert torch.equal(hk.histogram_count(bins, g, h, c, b),
+                       hk.histogram_plain(bins, g, h, mask, b))
+    tiers = hk.count_tiers(n, f, b, (20480, 10240, 5120))
+    assert [w for w, _ in tiers] == [20480, 10240, 5120]
+    assert [geo for _, geo in tiers] == [hk.launch_geometry(w, f, b)
+                                         for w, _ in tiers]
+
+
+def _scan_case(name):
+    from sklearn.datasets import load_breast_cancer, load_wine
+
+    from test_gbdt_categorical import cat_data
+
+    base = dict(num_iterations=5, num_leaves=5, min_data_in_leaf=20,
+                seed=42)
+    if name == "categorical":
+        X, y, _ = cat_data(2000, 12, 0)
+        return X, y, dict(base, objective="binary", categorical_feature=(0,))
+    if name == "binary":
+        d = load_breast_cancer()
+        return d.data, d.target * 1.0, dict(base, objective="binary")
+    d = load_wine()
+    kw = dict(base, objective="multiclass", num_class=3)
+    if name == "rf_bagging_feature_fraction":
+        kw.update(boosting_type="rf", bagging_fraction=0.7, bagging_freq=1,
+                  feature_fraction=0.6)
+    return d.data, d.target * 1.0, kw
+
+
+@pytest.mark.parametrize("name", ["binary", "rf_bagging_feature_fraction",
+                                  "multiclass", "categorical"])
+def test_forced_scan_matches_reference_scan(monkeypatch, name):
+    """``MMLSPARK_TPU_SCAN_TRAIN=1`` on both packages (the whole-run scan on
+    the CPU: masks drawn up front, device-f32 leaf values into a Kahan f32
+    score, trees fetched once), with the gates of
+    ``test_full_fit_matches_reference``: trees identical in structure,
+    leaf values rtol 1e-5, raw predictions within 1e-6. The benchmark CSV's
+    parameters (5 leaves, 20 rows a leaf), 5 iterations; the rf case bags
+    on wine (breast_cancer's bagging has an exact tie, see _FITS)."""
+    monkeypatch.setenv("MMLSPARK_TPU_SCAN_TRAIN", "1")
+    X, y, kw = _scan_case(name)
+    ref = ref_booster.train(ref_booster.TrainParams(**kw), X, y)
+    port = booster.train(booster.TrainParams(**kw), X, y, device="cpu")
+    assert port.route == "scan"
+    _assert_same_forest(ref, port)
+    np.testing.assert_allclose(port.raw_predict(X), ref.raw_predict(X),
+                               rtol=1e-6, atol=1e-6)
+    if kw.get("boosting_type") == "rf":
+        assert port.trees[-1][0].shrinkage == 1.0 / len(port.trees)
+
+
+def test_scan_masks_are_drawn_as_the_reference_draws_them():
+    """``_scan_precompute_masks``: every iteration's bagging and feature
+    masks, bit for bit the reference's from the same generator (bagging
+    every 2nd iteration, class-aware fractions)."""
+    y = (np.arange(3000) % 3 == 0).astype(np.float64)
+    for kw in (dict(bagging_fraction=0.6, bagging_freq=2,
+                    feature_fraction=0.5),
+               dict(pos_bagging_fraction=0.9, neg_bagging_fraction=0.4,
+                    bagging_freq=1, boosting_type="rf")):
+        rp = ref_booster.TrainParams(num_iterations=7, **kw)
+        pp = booster.TrainParams(num_iterations=7, **kw)
+        is_rf = kw.get("boosting_type") == "rf"
+        r = ref_booster._scan_precompute_masks(
+            rp, np.random.default_rng(3), 3000, 11, y, is_rf)
+        p = booster._scan_precompute_masks(
+            pp, np.random.default_rng(3), 3000, 11, y, is_rf)
+        assert r[2] and p[2]
+        for a, b in zip(r[:2], p[:2]):
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_array_equal(a, b)
+
+
+_ROUTE_PARAMS = [
+    dict(), dict(boosting_type="rf", bagging_fraction=0.5, bagging_freq=1),
+    dict(boosting_type="dart"), dict(objective="lambdarank"),
+    dict(categorical_feature=(1,)), dict(max_bin=511), dict(num_leaves=1),
+    dict(num_iterations=400), dict(num_class=3, objective="multiclass"),
+    dict(max_bin_by_feature=(63, 300, 63)),
+]
+_ROUTE_ENVS = [
+    {}, {"MMLSPARK_TPU_NATIVE_TRAIN": "0"}, {"MMLSPARK_TPU_NATIVE_TRAIN": "1"},
+    {"MMLSPARK_TPU_SCAN_TRAIN": "1"}, {"MMLSPARK_TPU_NO_SCAN_TRAIN": "1"},
+    {"MMLSPARK_TPU_FUSED_TREE": "1"}, {"MMLSPARK_TPU_NO_FUSED_TREE": "1"},
+    {"MMLSPARK_TPU_NATIVE_TRAIN_MAX": "10"},
+    {"MMLSPARK_TPU_FUSED_TREE": "1", "MMLSPARK_TPU_FUSED_TREE_BYTES": "1000"},
+]
+
+
+@pytest.mark.parametrize("env", range(len(_ROUTE_ENVS)))
+def test_route_decisions_match_the_reference(monkeypatch, env):
+    """``_native_train_ok``, ``_scan_train_ok`` and ``_fused_tree_enabled``
+    decide as the reference's do on the CPU for the same parameters and
+    environment; goss is the one planned difference (the port keeps it off
+    the scan until ROADMAP A step 4e)."""
+    for name, value in _ROUTE_ENVS[env].items():
+        monkeypatch.setenv(name, value)
+    for kw in _ROUTE_PARAMS:
+        rp = ref_booster.TrainParams(**kw)
+        pp = booster.TrainParams(**kw)
+        for n in (1000, 200_000):
+            assert booster._native_train_ok(pp, n, "cpu") == \
+                ref_booster._native_train_ok(rp, n), (kw, n)
+        for valid, log, ck in ((None, None, None), ((1, 2), None, None),
+                               (None, print, None), (None, None, "ck")):
+            assert booster._scan_train_ok(pp, pp.objective, valid, log, ck,
+                                          "cpu") == \
+                ref_booster._scan_train_ok(rp, rp.objective, valid, log,
+                                           None, ck), kw
+    goss = booster.TrainParams(boosting_type="goss")
+    assert not booster._scan_train_ok(goss, "regression", None, None, None,
+                                      "cpu")
+    for shape in ((61, 28, 256), (61, 2000, 4096), (3, 1, 2)):
+        assert tree._fused_tree_enabled(*shape, "cpu") == \
+            ref_tree._fused_tree_enabled(*shape), shape
+
+
+@pytest.mark.parametrize("case", ["gbdt", "goss", "dart_multiclass",
+                                  "rf_validation"])
+def test_train_native_matches_reference_bitwise(case):
+    """Small fits take the native C++ engine in both packages by default:
+    the port's own build of the same source gives the reference's trees and
+    predictions bit for bit, and records the route."""
+    from mmlspark_tpu_torch import native_loader
+
+    rng = np.random.default_rng(8)
+    X = rng.standard_normal((3000, 6))
+    X[rng.random(X.shape) < 0.02] = np.nan
+    y = (X[:, 0] + 0.4 * X[:, 1] * X[:, 2] + 0.3 * rng.standard_normal(3000)
+         > 0).astype(np.float64)
+    kw = dict(num_iterations=6, num_leaves=15, seed=5)
+    valid = None
+    if case == "goss":
+        kw.update(boosting_type="goss", objective="binary")
+    elif case == "dart_multiclass":
+        y = np.digitize(X[:, 0], [-0.4, 0.4]).astype(np.float64)
+        kw.update(boosting_type="dart", objective="multiclass", num_class=3)
+    elif case == "rf_validation":
+        kw.update(boosting_type="rf", objective="binary",
+                  bagging_fraction=0.7, bagging_freq=1,
+                  feature_fraction=0.7, early_stopping_round=2)
+        valid = (X[:500], y[:500])
+    else:
+        kw.update(objective="binary")
+    ref = ref_booster.train(ref_booster.TrainParams(**kw), X, y, valid=valid)
+    before = native_loader.uses[("gbdt_grow_tree", "native")]
+    port = booster.train(booster.TrainParams(**kw), X, y, valid=valid,
+                         device="cpu")
+    assert port.route == "native"
+    assert native_loader.uses[("gbdt_grow_tree", "native")] > before
+    assert port.best_iteration == ref.best_iteration
+    assert ref.to_string() == port.to_string()
+    np.testing.assert_array_equal(port.raw_predict(X), ref.raw_predict(X))
+
+
+def test_route_is_recorded_on_the_booster_and_the_recorder(monkeypatch):
+    from mmlspark_tpu_torch.obs import metrics
+
+    X = np.random.default_rng(1).standard_normal((600, 3))
+    y = X[:, 0] * 2.0
+    params = booster.TrainParams(num_iterations=2, num_leaves=4)
+    prev = metrics.set_default_registry(metrics.MetricsRegistry())
+    try:
+        routes = []
+        for env in ({}, {"MMLSPARK_TPU_NATIVE_TRAIN": "0"},
+                    {"MMLSPARK_TPU_FUSED_TREE": "1"},
+                    {"MMLSPARK_TPU_SCAN_TRAIN": "1"}):
+            with monkeypatch.context() as m:
+                for k, v in env.items():
+                    m.setenv(k, v)
+                routes.append(booster.train(params, X, y, device="cpu").route)
+        assert routes == ["native", "host", "fused", "scan"]
+        c = metrics.default_registry().counter(
+            "mmlspark_train_routes_total", labelnames=("engine", "route"))
+        assert c.labels(engine="gbdt_native", route="native").value == 1.0
+        for r in ("host", "fused", "scan"):
+            assert c.labels(engine="gbdt", route=r).value == 1.0
+    finally:
+        metrics.set_default_registry(prev)
+
+
+def test_native_binning_and_forest_predict_match_numpy(monkeypatch):
+    """The native shortcuts against the port's numpy paths, bit for bit:
+    ``bin_column``, ``bin_matrix`` (uint8 in one row block, int32 in ten
+    on the host's threads) and
+    ``forest_predict_f64`` (``predict_ensemble`` with and without
+    ``MMLSPARK_TPU_NO_NATIVE_PREDICT``), each use counted by route."""
+    from mmlspark_tpu_torch import native_loader
+
+    rng = np.random.default_rng(4)
+    X = rng.standard_normal((40_000, 7)) * 3        # 2^18+ cells: bin_matrix
+    X[rng.random(X.shape) < 0.05] = np.nan
+    X[:, 2] = np.round(X[:, 2])
+    m = binning.BinMapper.fit(X, 63, seed=1)
+
+    def numpy_bins(f):
+        col = X[:, f]
+        return np.where(np.isnan(col), 0, np.searchsorted(
+            m.edges[f], col, side="left") + 1).astype(np.int32)
+
+    before = dict(native_loader.uses)
+    for f in range(7):
+        np.testing.assert_array_equal(
+            m.transform_col(f, np.ascontiguousarray(X[:, f])), numpy_bins(f))
+    for dt, rows in ((np.uint8, native_loader.BIN_BLOCK_ROWS),
+                     (np.int32, 4096)):       # one block; 10 on 8 threads
+        monkeypatch.setattr(native_loader, "BIN_BLOCK_ROWS", rows)
+        np.testing.assert_array_equal(
+            m.transform_fm(X, dtype=dt),
+            np.stack([numpy_bins(f) for f in range(7)]).astype(dt))
+    assert native_loader.uses[("bin_matrix", "native")] == \
+        before.get(("bin_matrix", "native"), 0) + 2
+    assert native_loader.uses[("bin_column", "native")] > \
+        before.get(("bin_column", "native"), 0)
+    y = (np.nan_to_num(X[:, 0]) > 0).astype(np.float64)
+    b = booster.train(booster.TrainParams(objective="binary",
+                                          num_iterations=4, num_leaves=7),
+                      X, y, device="cpu")
+    fast = predict.predict_ensemble(b.trees, X, 1)
+    monkeypatch.setenv("MMLSPARK_TPU_NO_NATIVE_PREDICT", "1")
+    slow = predict.predict_ensemble(b.trees, X, 1)
+    np.testing.assert_array_equal(fast, slow)
+    assert native_loader.uses[("forest_predict_f64", "native")] >= 1
+
+
+def test_native_source_is_the_reference_copy():
+    """The port builds its own copy of the reference's C++ source, byte for
+    byte the same, at ABI version 5."""
+    from mmlspark_tpu_torch import native_loader
+
+    ref = os.path.join(os.path.dirname(RES), "..", "native", "src",
+                       "mmlspark_native.cpp")
+    with open(ref, "rb") as a, open(native_loader.SOURCE, "rb") as b:
+        assert a.read() == b.read()
+    assert native_loader.ABI_VERSION == ref_booster_native_abi()
+
+
+def ref_booster_native_abi():
+    from mmlspark_tpu import native_loader as ref_loader
+
+    return ref_loader._ABI_VERSION

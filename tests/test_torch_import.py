@@ -59,7 +59,11 @@ def test_clean_import_pulls_in_no_jax_and_no_reference():
                 "mmlspark_tpu_torch.serving.executor",
                 "mmlspark_tpu_torch.serving.routing",
                 "mmlspark_tpu_torch.io.binary",
-                "mmlspark_tpu_torch.obs.bridge"):
+                "mmlspark_tpu_torch.obs.bridge",
+                "mmlspark_tpu_torch.native_loader",
+                "mmlspark_tpu_torch.core.profiling",
+                "mmlspark_tpu_torch.gbdt.graphs",
+                "mmlspark_tpu_torch.gbdt.booster"):
         assert mod in out["imported"]
 
 
@@ -143,6 +147,7 @@ def test_source_has_no_jax_or_reference_import():
     assert (PKG / "csrc" / "sparse_hist.cu").exists()
     assert (PKG / "csrc" / "csr_gather.cu").exists()
     assert (PKG / "csrc" / "flash_attn.cu").exists()
+    assert (PKG / "native_src" / "mmlspark_native.cpp").exists()
 
 
 @pytest.fixture
@@ -240,3 +245,130 @@ def test_loading_a_saved_stage_pulls_in_no_jax_and_no_reference(tmp_path,
     assert out["cls"] == ("LightGBMClassificationModel"
                           if what == "categorical_model" else "PipelineModel")
     np.testing.assert_array_equal(np.asarray(out["raw"]), raw)
+
+
+# ------------------------------------------------------------ native loader
+
+
+@pytest.fixture
+def fresh_native(monkeypatch, tmp_path):
+    """The port's native loader with no library loaded yet, building into
+    ``tmp_path`` (``MMLSPARK_TORCH_BUILD_DIR``); every ``_build`` call
+    counted."""
+    from mmlspark_tpu_torch import native_loader
+
+    monkeypatch.setenv("MMLSPARK_TORCH_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native_loader, "_lib", None)
+    monkeypatch.setattr(native_loader, "_build_attempted", False)
+    builds = []
+    orig = native_loader._build
+
+    def counted(out):
+        builds.append(out)
+        return orig(out)
+
+    monkeypatch.setattr(native_loader, "_build", counted)
+    return native_loader, builds
+
+
+def test_native_library_builds_into_the_ignored_build_dir(fresh_native):
+    """Built at first use with g++ into ``native/`` under the kernels'
+    build directory (``build/torch_kernels`` beside the package, which
+    ``.gitignore`` lists), named by the ABI version and the host CPU."""
+    from mmlspark_tpu_torch import _kernels
+
+    loader, builds = fresh_native
+    path = loader.so_path()
+    assert path.parent == _kernels.build_dir() / "native"
+    assert f".v{loader.ABI_VERSION}." in path.name
+    assert loader.available() and path.exists() and len(builds) == 1
+    assert loader.load().mml_version() == 5
+    assert loader.available() and len(builds) == 1       # loaded once
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+    assert "-ffp-contract=off" in loader.CXX_FLAGS
+
+
+@pytest.mark.parametrize("bad", ["corrupt", "abi"])
+def test_a_bad_library_is_rebuilt_once(fresh_native, tmp_path, monkeypatch,
+                                       bad):
+    """A file that does not load, or reports another ABI version, gets one
+    rebuild; when that rebuild fails too, the loader gives up (None) and
+    does not build again in this process."""
+    import subprocess as sp
+
+    loader, builds = fresh_native
+    path = loader.so_path()
+    path.parent.mkdir(parents=True)
+    if bad == "corrupt":
+        path.write_bytes(b"\x7fELF not a library")
+    else:
+        src = tmp_path / "old.cpp"
+        src.write_text('extern "C" int mml_version() { return 4; }\n')
+        sp.run(["g++", "-shared", "-fPIC", "-o", str(path), str(src)],
+               check=True)
+    assert loader.load() is not None and len(builds) == 1
+    assert loader.load().mml_version() == loader.ABI_VERSION
+    # a broken toolchain, in a fresh build directory (the loaded library
+    # stays mapped where it is): the one rebuild fails, then no more tries
+    monkeypatch.setenv("MMLSPARK_TORCH_BUILD_DIR", str(tmp_path / "again"))
+    loader._lib = None
+    loader._build_attempted = False
+    path = loader.so_path()
+    path.parent.mkdir(parents=True)
+    path.write_bytes(b"garbage")
+    builds.clear()
+    orig_run = sp.run
+
+    def failing_run(cmd, *a, **kw):
+        if cmd and cmd[0] == "g++":
+            raise sp.CalledProcessError(1, cmd)
+        return orig_run(cmd, *a, **kw)
+
+    sp.run = failing_run
+    try:
+        assert loader.load() is None and len(builds) == 1
+        assert loader.load() is None and len(builds) == 1
+        assert not loader.available()
+    finally:
+        sp.run = orig_run
+
+
+# ---------------------------------------------------------------- profiling
+
+
+def test_profiling_on_the_cpu(tmp_path, monkeypatch):
+    """``core.profiling`` on the CPU: a trace written to its directory with
+    a named span, ``profile_transform`` of a stage, no device memory to
+    report, and ``device_busy``'s busy share, top operations and idle gaps
+    from device intervals (given here: a CPU trace has none)."""
+    from mmlspark_tpu_torch.core import profiling
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.gbdt import LightGBMRegressor
+    from mmlspark_tpu_torch.runtime import use_device
+
+    with profiling.trace(str(tmp_path / "t")) as prof:
+        with profiling.annotate("span"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    assert (tmp_path / "t" / "trace.json").exists()
+    assert "span" in (tmp_path / "t" / "trace.json").read_text()
+    assert profiling.device_busy(prof)["busy_share"] is None
+    assert profiling.device_memory_stats() == []
+    X = np.random.default_rng(0).standard_normal((300, 3))
+    df = DataFrame.from_dict({"features": [r for r in X], "label": X[:, 0]})
+    with use_device("cpu"):
+        model = LightGBMRegressor(numIterations=2, numLeaves=4).fit(df)
+        res = profiling.profile_transform(model, df, iterations=2)
+    assert res["elapsed_s"] > 0 and res["per_call_s"] == res["elapsed_s"] / 2
+    monkeypatch.setattr(profiling, "_device_intervals", lambda p: [
+        (0.0, 10.0, "a"), (5.0, 20.0, "b"), (40.0, 50.0, "a"),
+        (90.0, 100.0, "c")])
+    busy = profiling.device_busy(object())
+    assert busy["busy_ms"] == pytest.approx(0.04)
+    assert busy["window_ms"] == pytest.approx(0.1)
+    assert busy["busy_share"] == pytest.approx(0.4)
+    assert [t["name"] for t in busy["top"]] == ["a", "b", "c"]
+    assert [g["ms"] for g in busy["longest_gaps_ms"]] == \
+        pytest.approx([0.04, 0.02])
+    wide = profiling.device_busy(object(), window_us=(-100.0, 100.0))
+    assert wide["busy_share"] == pytest.approx(0.2)
+    assert wide["longest_gaps_ms"][0]["ms"] == pytest.approx(0.1)

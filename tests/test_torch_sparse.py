@@ -629,6 +629,41 @@ def test_predict_csr_matches_reference(numpy_csr_predict, num_class):
         sparse.predict_csr([[cat]], indptr, idx, vals, 1, device="cpu")
 
 
+@pytest.mark.parametrize("num_class", [1, 3])
+def test_native_csr_predict_equals_the_tensor_traversal(num_class,
+                                                       monkeypatch):
+    """On the CPU ``predict_csr`` takes the native C++ traversal
+    (``native_loader.csr_forest_predict``, counted), bit for bit the
+    tensor traversal it keeps for the card and under
+    ``MMLSPARK_TPU_NO_NATIVE_CSR_PREDICT=1``, and the reference's native
+    route."""
+    from mmlspark_tpu_torch import native_loader
+
+    (indptr, idx, vals, y), rds, _ = _datasets(1200, 1 << 9, 15, seed=23)
+    obj = "binary" if num_class == 1 else "multiclass"
+    if num_class == 3:
+        y = (y + (np.random.default_rng(1).random(len(y)) < 0.4)).astype(float)
+    rb = ref_sparse.train_sparse(RefTrainParams(
+        objective=obj, num_class=num_class, num_iterations=4, num_leaves=9),
+        rds, y)
+    pb = convert.booster_from_reference(rb.to_string())
+    (q_ptr, q_idx, q_val, _), _, _ = _datasets(300, 1 << 10, 15, seed=24)
+    q_ptr = np.concatenate([q_ptr, [q_ptr[-1]]])
+    for csr in ((indptr, idx, vals), (q_ptr, q_idx, q_val)):
+        before = native_loader.uses[("csr_forest_predict", "native")]
+        native = sparse.predict_csr(pb.trees, *csr, num_class, device="cpu")
+        assert native_loader.uses[("csr_forest_predict", "native")] == \
+            before + 1
+        np.testing.assert_array_equal(
+            native, ref_sparse.predict_csr(rb.trees, *csr, num_class))
+        np.testing.assert_array_equal(native, sparse.CsrRows(
+            *csr, device="cpu").predict(pb.trees, num_class))
+        with monkeypatch.context() as m:
+            m.setenv("MMLSPARK_TPU_NO_NATIVE_CSR_PREDICT", "1")
+            np.testing.assert_array_equal(native, sparse.predict_csr(
+                pb.trees, *csr, num_class, device="cpu"))
+
+
 # ------------------------------------------------------------------ stages
 
 
