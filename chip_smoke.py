@@ -52,16 +52,19 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    longest idle gaps, K1's and K2's device ms (the serving_sparse load is
    traced in its own phase, 12);
 3b. dense_variants: on the same data, ``boostingType`` goss (topRate 0.2,
-   otherRate 0.1), dart (dropRate 0.1, maxDrop 50) and rf (baggingFraction
-   0.9, baggingFreq 1) through ``LightGBMClassifier.fit`` (goss and dart on
-   the fused route, rf on the scan, checked): fit seconds, K1 and K2
-   launches, GOSS's selected rows and host seconds per iteration (and its
-   fetch, argsort and random draw timed apart); each model's transform
-   against the host f64 traversal and its train AUC; the first three trees
-   refit on the card and on the CPU over the first 262,144 rows on the
-   same route (the native engine off: a cut that small would take it; for
-   GOSS, how many selected rows differ at each iteration, and the trees
-   held only while the selections agree);
+   otherRate 0.1), dart (dropRate 0.1, maxDrop 50; 10 iterations) and rf
+   (baggingFraction 0.9, baggingFreq 1) through ``LightGBMClassifier.fit``
+   (goss and rf on the scan, their loops under
+   ``set_sync_debug_mode("error")``, dart on the fused route, checked):
+   fit and loop seconds, K1 and K2 launches
+   (counted through the replays), GOSS's rows selected each iteration
+   (exactly top_n + other_n); GOSS's Threefry draws (every one of the
+   fit's 20 keys over 2,097,152 rows) and its two exact top-k selections
+   on the fit's own keys and gradients, card against CPU bit for bit and
+   timed; each model's transform against the host f64 traversal and its
+   train AUC; the first three trees refit on the card and on the CPU over
+   the first 262,144 rows on the same route (the native engine off: a cut
+   that small would take it; goss and rf against the CPU's forced scan);
 3c. ranker_main: ``LightGBMRanker`` on seeded MSLR-WEB30K-shaped data
    (2,097,152 rows x 136 features, relevance 0-4, queries of 1-1,251
    documents; 10% of the queries flagged by ``validationIndicatorCol``,
@@ -105,22 +108,37 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    bit for bit;
 6. sparse main path: ``LightGBMClassifier(numLeaves=31, numIterations=10,
    learningRate=0.1, minDataInLeaf=20).fit`` on a DataFrame of those sparse
-   rows (its boosting loop timed apart from the in-fit host build through
-   the ``TrainRecorder`` series), then ``.transform`` of 65,536 rows. K4
-   must have launched; the scores must equal the CPU ``predict_csr`` of the
-   same model and the train accuracy exceed 0.7. A split's flat histogram
-   on the full-width dataset is timed in parts: the row-mask gather and
-   [3, nnz] stack, and K4. The root split of the full-width dataset is searched
-   with the reference's f32 prefix formula and the port's f64 one; the
-   reference benchmark's anchor shape (100,000 x 2^12) is refit for 3
-   iterations on the card and on the CPU, first tree identical;
-6b. sparse_variants: ``train_sparse`` with goss and dart (31 leaves, 10
-   iterations) on the same full-width dataset: loop seconds and K4
-   launches, the card's ``predict_csr`` against the CPU's; at the anchor
-   shape, goss and dart refit on the card and the CPU for 2 iterations
-   (first tree identical), and through the stage entry point one fit with
-   ``validationIndicatorCol`` and ``earlyStoppingRound=3`` and one with
-   ``numBatches=2`` (identical first trees, same best iteration);
+   rows on its default route, the whole-run sparse scan (checked; its loop
+   under ``set_sync_debug_mode("error")`` and timed apart from the in-fit
+   host build), then ``.transform`` of 65,536 rows. K4 must have launched,
+   counted through the graph's replays; the scores must equal the CPU
+   ``predict_csr`` of the same model and the train accuracy exceed 0.7. A
+   split's flat histogram on the full-width dataset is timed in parts: the
+   row-mask gather and [3, nnz] stack, and K4. The root split of the
+   full-width dataset is searched with the reference's f32 prefix formula
+   and the port's f64 one; the reference benchmark's anchor shape (100,000
+   x 2^12) is refit for 3 iterations on the card's scan and the CPU's
+   forced scan, the 3 trees identical;
+6b. sparse_variants: ``train_sparse`` with goss (on the scan; twice, the
+   second at maxDepth 8 so the reference's rule turns lazy routing on) and
+   dart (the fused loop), 31 leaves, 10 iterations, on the same full-width
+   dataset: routes, loop seconds and K4 launches, the compaction the
+   reference's rule picks (capacities, rows and entries selected each
+   iteration, exactly top_n + other_n rows), K4 on the goss fit's own
+   compacted stream against its plain version and timed beside the
+   full-width call, the card's ``predict_csr`` against the CPU's; at the
+   anchor shape, goss (compaction forced on both sides; the first tree's
+   leaf values bit for bit) and dart refit on the card and the CPU for 2
+   iterations on the same route (both trees identical), and through the
+   stage entry point one fit with ``validationIndicatorCol`` and
+   ``earlyStoppingRound=3`` and one with ``numBatches=2`` (identical first
+   trees, same best iteration, same route);
+6c. sparse_wide: ``train_sparse`` at 127 leaves, 3 iterations, on the
+   full-width dataset, whose fused-grower state (3.98 GB) passes the 2 GiB
+   gate: route ``host``, the per-split loop (checked), seconds a tree, host
+   reads a split (at most two), peak device memory; the anchor refit for
+   one iteration on the card and the CPU, both forced onto that loop
+   (``MMLSPARK_TPU_FUSED_TREE_BYTES=0``), first tree identical;
 7. K3 (CSR gather) against its plain version, bitwise: on the real 256-row
    CSR batches the fused executor stages from the sparse rows with the
    sparse model's used columns, on all 65,536 rows at once (two calls bit
@@ -209,9 +227,10 @@ Any failure raises and exits non-zero. The last line of standard output is
 lists K1-K5 (hist, select, csr_gather, sparse_hist, flash_attn), each with
 its launches on its main path, error against its plain version, ms,
 plain_ms, bound_ms, bound_by and library_ms, and its launches on the new
-paths (``launches_on_new_paths``: dense_variants, ranker_main,
-categorical_main, sparse_variants, serving_sparse,
-serving_transformer).
+paths (``launches_on_new_paths``: dense_variants and its GOSS scan,
+ranker_main, categorical_main, sparse_variants and its compacted stream,
+sparse_wide, serving_sparse, serving_transformer); K4's row also carries
+its call on the compacted stream (``compacted_stream``).
 """
 
 from __future__ import annotations
@@ -740,8 +759,9 @@ class GrowWatch:
         watch = self
 
         def grow(grower, *a, **kw):
-            kind = ("eager" if grower.calls == 0 or not grower.capture else
-                    "replay" if grower._graphs else "capture")
+            run = grower.run
+            kind = ("eager" if run.calls == 0 or not run.capture else
+                    "replay" if run.graphs else "capture")
             reads = tree.host_reads
             prev = watch.torch.cuda.get_sync_debug_mode()
             with warnings.catch_warnings(record=True) as seen:
@@ -1486,50 +1506,56 @@ def split_surroundings(torch, d, gb, hb, n_rows: int) -> None:
 
 
 def sparse_main_path(torch, data: dict):
+    """The sparse stage fit on its default route, ``scan`` (checked), its
+    boosting loop under ``set_sync_debug_mode("error")`` and timed apart
+    from the in-fit host build; K4 counted through the graph's replays;
+    the transform against the CPU ``predict_csr``; the root split both ways
+    (``root_split_check``)."""
     from mmlspark_tpu_torch.core.dataframe import DataFrame
     from mmlspark_tpu_torch.gbdt import LightGBMClassifier
+    from mmlspark_tpu_torch.gbdt import booster as bst
     from mmlspark_tpu_torch.gbdt import sparse
     from mmlspark_tpu_torch.gbdt import sparse_hist_kernel as shk
-    from mmlspark_tpu_torch.obs.metrics import TrainRecorder, default_registry
 
     rows, y = data["rows"], data["y"]
     df = DataFrame.from_dict({"features": rows, "label": y})
     small = DataFrame.from_dict({"features": rows[:N_SCORE], "label": y[:N_SCORE]})
     est = LightGBMClassifier(numLeaves=31, numIterations=ITERS_SPARSE,
                              learningRate=0.1, minDataInLeaf=20)
-    # the boosting loop's own seconds inside the fit (train_sparse records
-    # every iteration): the rest of the fit is the host build of the CSR
-    # dataset and its device layout
-    steps = default_registry().histogram(
-        "mmlspark_train_step_seconds", labelnames=("engine",),
-        buckets=TrainRecorder.STEP_BUCKETS).labels(engine="gbdt_sparse")
-    before = steps.value
     shk.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    bst.scan_loop_sync_mode = "error"
     t0 = time.perf_counter()
-    model = est.fit(df)
-    torch.cuda.synchronize()
+    try:
+        # the boosting loop's own seconds inside the fit: the rest is the
+        # host build of the CSR dataset and its device layout
+        with Watch(sparse, "_train_scan_sparse") as loop_w:
+            model = est.fit(df)
+            torch.cuda.synchronize()
+    finally:
+        bst.scan_loop_sync_mode = None
     fit_s = time.perf_counter() - t0
-    loop_s = steps.value["sum"] - before["sum"]
+    loop_s = loop_w.results[0] if loop_w.results else None
     t1 = time.perf_counter()
     scored = model.transform(small)
     torch.cuda.synchronize()
     score_s = time.perf_counter() - t1
     launches = shk.launches
     nnz = int(len(data["csr"][1]))
-    log({"phase": "sparse_main", "fit_seconds": fit_s,
+    booster = model.booster
+    log({"phase": "sparse_main", "route": booster.route,
+         "fit_seconds": fit_s,
          "fit_rows_per_s": N_SPARSE * ITERS_SPARSE / fit_s,
          "fit_nnz_per_s": nnz * ITERS_SPARSE / fit_s,
-         "boosting_loop_seconds": loop_s,
-         "boosting_loop_iterations": steps.value["count"] - before["count"],
+         "boosting_loop_seconds": loop_s, "loop_sync_debug_mode": "error",
          "transform_rows": N_SCORE, "transform_seconds": score_s,
          "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
          "launches": {"sparse_hist": launches}})
+    check_route(booster, "scan", "sparse_main")
     if launches < 1:
         fail("K4 never launched on the sparse main path")
 
-    booster = model.booster
     raw = np.stack(list(scored.column("rawPrediction")))[:, 1]
     if raw.shape != (N_SCORE,) or not np.isfinite(raw).all():
         fail(f"sparse scores: shape {raw.shape} or non-finite values")
@@ -1545,7 +1571,8 @@ def sparse_main_path(torch, data: dict):
     log({"phase": "sparse_main", "max_abs_diff_vs_cpu_predict_csr": diff,
          "train_accuracy": acc, "trees": len(booster.trees), "leaves": leaves,
          "boosting_loop_ms_per_split":
-             loop_s * 1e3 / max(sum(leaves) - len(leaves), 1)})
+             loop_s * 1e3 / max(sum(leaves) - len(leaves), 1)
+             if loop_s is not None else None})
     if diff > 1e-12:
         fail(f"sparse transform differs from the CPU predict_csr by {diff}")
     if acc <= 0.7:
@@ -1555,31 +1582,37 @@ def sparse_main_path(torch, data: dict):
 
 
 def sparse_anchor(torch):
-    """The reference benchmark's anchor shape, 3 iterations on the card and
-    on the CPU: first tree identical, 3-tree raw scores within 1e-3.
-    Returns the card's booster and the anchor's CSR arrays."""
+    """The reference benchmark's anchor shape, 3 iterations on the card's
+    scan and on the CPU's forced scan (the same route): the 3 trees
+    identical in structure, 3-tree raw scores within 1e-3. Returns the
+    card's booster and the anchor's CSR arrays."""
     from mmlspark_tpu_torch.gbdt import TrainParams, sparse
 
-    indptr, idx, vals, y = make_csr_text(100_000, 1 << 12, 50, 1)
-    ds = sparse.SparseDataset.from_csr(indptr, idx, vals, 1 << 12)
+    indptr, idx, vals, y = make_csr_text(N_ANCHOR, W_ANCHOR, 50, 1)
+    ds = sparse.SparseDataset.from_csr(indptr, idx, vals, W_ANCHOR)
     params = TrainParams(objective="binary", num_iterations=3, num_leaves=31,
                          learning_rate=0.1, min_data_in_leaf=20, seed=0)
     out = {}
-    for dev in (DEVICE, "cpu"):
+    for dev, env in ((DEVICE, {}), ("cpu", CPU_SCAN)):
         t0 = time.perf_counter()
-        b = sparse.train_sparse(params, ds, y, device=dev)
+        with Env(**env):
+            b = sparse.train_sparse(params, ds, y, device=dev)
         out[dev] = (b, time.perf_counter() - t0)
     (bc, cuda_s), (bp, cpu_s) = out[DEVICE], out["cpu"]
     diffs = [first_diff(bc.trees[i][0], bp.trees[i][0]) for i in range(3)]
     raw = [sparse.predict_csr(b.trees, indptr, idx, vals, 1, device="cpu")[:, 0]
            for b in (bc, bp)]
     d3 = float(np.abs(raw[0] - raw[1]).max())
-    log({"phase": "sparse_anchor", "rows": 100_000, "width": 1 << 12,
-         "nnz": int(len(idx)), "cuda_fit_seconds": cuda_s,
-         "cpu_fit_seconds": cpu_s, "first_diff_per_tree": diffs,
-         "max_abs_diff_3_trees": d3})
-    if diffs[0] is not None:
-        fail(f"anchor tree 1 differs between the CUDA and CPU fits: {diffs[0]}")
+    log({"phase": "sparse_anchor", "rows": N_ANCHOR, "width": W_ANCHOR,
+         "nnz": int(len(idx)), "routes": [bc.route, bp.route],
+         "cuda_fit_seconds": cuda_s, "cpu_fit_seconds": cpu_s,
+         "first_diff_per_tree": diffs, "max_abs_diff_3_trees": d3})
+    if bc.route != "scan" or bp.route != "scan":
+        fail(f"anchor: the fits took {bc.route} and {bp.route}, not scan")
+    bad = [(i + 1, d) for i, d in enumerate(diffs) if d is not None]
+    if bad:
+        fail(f"anchor tree {bad[0][0]} differs between the card's and the "
+             f"CPU's scan: {bad[0][1]}")
     if d3 > 1e-3:
         fail(f"anchor 3-tree raw scores differ by {d3}")
     return bc, (indptr, idx, vals)
@@ -2280,63 +2313,29 @@ def transformer_fused(torch, stage, df, unfused, smi) -> int:
 # ---------------------------------------------------------------------------
 
 
-class GossLog:
-    """While active, records every dense GOSS selection: its host seconds
-    (the gradient's fetch, the argsort and the random draw) and selected
-    rows, and with ``keep`` the row masks themselves."""
-
-    def __init__(self, keep: bool = False):
-        self.keep = keep
-        self.seconds, self.selected, self.masks = [], [], []
-
-    def __enter__(self):
-        from mmlspark_tpu_torch.gbdt import booster as bst
-
-        self.bst, self.orig = bst, bst.goss_sample
-
-        def rec(*a, **kw):
-            t0 = time.perf_counter()
-            mask, amp = self.orig(*a, **kw)
-            self.seconds.append(time.perf_counter() - t0)
-            self.selected.append(int(mask.sum()))
-            if self.keep:
-                self.masks.append(mask.copy())
-            return mask, amp
-
-        bst.goss_sample = rec
-        return self
-
-    def __exit__(self, *exc):
-        self.bst.goss_sample = self.orig
-
-
-def refit_compare(torch, est_fn, df, n_trees: int, what: str, goss=False,
+def refit_compare(torch, est_fn, df, n_trees: int, what: str,
                   route="fused"):
     """The same estimator on the card and on the CPU over ``df``, both on
     ``route`` (``fused`` or ``scan``: the card's default for the fit, the
     CPU pinned to it; the native engine off, as these cuts are small
     enough for it); returns the card's and the CPU's boosters, the first
-    difference of each of the first ``n_trees`` trees, the seconds of each
-    fit, and for GOSS how many rows the two selections differ in at each
-    iteration."""
+    difference of each of the first ``n_trees`` trees and the seconds of
+    each fit."""
     from mmlspark_tpu_torch.runtime import use_device
 
     out = {}
     pin = CPU_SCAN if route == "scan" else CPU_FUSED
     for dev, env in ((DEVICE, NATIVE_OFF), ("cpu", {**NATIVE_OFF, **pin})):
-        with use_device(dev), Env(**env), GossLog(keep=goss) as gl:
+        with use_device(dev), Env(**env):
             t0 = time.perf_counter()
-            out[dev] = (est_fn().fit(df).booster, time.perf_counter() - t0, gl)
-    (bc, cuda_s, gc), (bp, cpu_s, gp) = out[DEVICE], out["cpu"]
+            out[dev] = (est_fn().fit(df).booster, time.perf_counter() - t0)
+    (bc, cuda_s), (bp, cpu_s) = out[DEVICE], out["cpu"]
     check_route(bc, route, f"{what} refit")
     check_route(bp, route, f"{what} refit (CPU)")
     diffs = [first_diff(bc.trees[i][0], bp.trees[i][0])
              for i in range(min(n_trees, len(bc.trees), len(bp.trees)))]
     info = {"cuda_fit_seconds": cuda_s, "cpu_fit_seconds": cpu_s,
             "routes": [bc.route, bp.route], "first_diff_per_tree": diffs}
-    if goss:
-        info["goss_rows_differing_per_iteration"] = [
-            int((a != b).sum()) for a, b in zip(gc.masks, gp.masks)]
     if not diffs or diffs[0] is not None:
         fail(f"{what}: tree 1 differs between the card's and the CPU's fit: "
              f"{diffs[:1]}")
@@ -2350,10 +2349,13 @@ DENSE_VARIANTS = {
     "dart": dict(boostingType="dart", dropRate=0.1, maxDrop=50),
     "rf": dict(boostingType="rf", baggingFraction=0.9, baggingFreq=1),
 }
-# the route each variant takes on the card by default: rf joins the scan,
-# goss (until its in-scan selection, ROADMAP A step 4e) and dart (host-side
-# drops) keep the per-iteration loop over the fused grower
-DENSE_VARIANT_ROUTES = {"goss": "fused", "dart": "fused", "rf": "scan"}
+# the route each variant takes on the card by default: rf and goss (its
+# selection made on the device) join the scan, dart (host-side drops) keeps
+# the per-iteration loop over the fused grower
+DENSE_VARIANT_ROUTES = {"goss": "scan", "dart": "fused", "rf": "scan"}
+# DART's fit runs 10 iterations: its host traversals of the dropped trees
+# grow with the forest (~40 s at 20), and the script keeps to its time
+DENSE_VARIANT_ITERS = {"dart": 10}
 # rows of the card-against-CPU refits of the new paths: a CPU refit of the
 # full 2,097,152 rows costs minutes
 N_CUT = 262_144
@@ -2363,16 +2365,21 @@ ITERS_REFIT = 3
 def dense_variants(torch, X, y, smi) -> dict:
     """goss, dart and rf through ``LightGBMClassifier.fit`` at the main
     path's width (20 iterations, 31 leaves, 255 bins): fit seconds, K1 and
-    K2 launches and K1's device time, GOSS's selected rows and host seconds
-    per iteration; each model's transform against the host f64 traversal
-    and its train AUC, K1 and K2 on the fit's own first-tree inputs against
-    their plain versions (``hist_on_path``: the GOSS and bagging row masks
-    included), and a refit of the first trees on the card and the CPU over
-    the first N_CUT rows. Returns each kernel's launches."""
+    K2 launches (counted through the scan's replays) and K1's device time
+    outside graphs; the scan fits' loops under
+    ``set_sync_debug_mode("error")``, GOSS's rows selected each iteration
+    (exactly top_n + other_n); each model's transform against the host f64
+    traversal and its train AUC, K1 and K2 on the fit's own first-tree
+    inputs against their plain versions (``hist_on_path``: GOSS's selected
+    rows and the bagging row masks included), GOSS's draws and top-k on the
+    card bit for bit the CPU's on the fit's keys and gradients
+    (``goss_device_parts``), and a refit of the first trees on the card and
+    the CPU over the first N_CUT rows, on the same route. Returns each
+    kernel's launches (and, under ``goss_scan``, the GOSS fit's)."""
     from mmlspark_tpu_torch.core.dataframe import DataFrame
     from mmlspark_tpu_torch.gbdt import LightGBMClassifier
+    from mmlspark_tpu_torch.gbdt import booster as bst
     from mmlspark_tpu_torch.gbdt import hist_kernel as hk
-    from mmlspark_tpu_torch.gbdt import select_kernel as sk
 
     df = DataFrame.from_dict({"features": X, "label": y})
     small = DataFrame.from_dict({"features": X[:N_SCORE]})
@@ -2382,15 +2389,23 @@ def dense_variants(torch, X, y, smi) -> dict:
     for name, extra in DENSE_VARIANTS.items():
         zero_launches()
         torch.cuda.synchronize()
+        bst.scan_loop_sync_mode = "error"
         t0 = time.perf_counter()
-        with Timed(torch, hk, "histogram_cuda") as k1, GossLog() as gl, \
-                PathInputs() as inputs:
-            model = LightGBMClassifier(numIterations=20, **base, **extra).fit(df)
-            torch.cuda.synchronize()
+        try:
+            with Timed(torch, hk, "histogram_cuda") as k1, \
+                    Watch(bst, "_train_scan") as loop_w, PathInputs() as inputs:
+                model = LightGBMClassifier(
+                    numIterations=DENSE_VARIANT_ITERS.get(name, 20), **base,
+                    **extra).fit(df)
+                torch.cuda.synchronize()
+        finally:
+            bst.scan_loop_sync_mode = None
         fit_s = time.perf_counter() - t0
         got = read_launches()
         for k in launches:
             launches[k] += got[k]
+        if name == "goss":
+            goss_scan = dict(got)
         info = {"phase": "dense_variants", "variant": name, "card": smi,
                 "rows": len(y), "route": model.booster.route,
                 "fit_seconds": fit_s, "launches": got,
@@ -2398,73 +2413,90 @@ def dense_variants(torch, X, y, smi) -> dict:
                 "k1_calls_outside_graphs": k1.calls,
                 **check_dense_scores(model.transform(small), model.booster,
                                      X, y, name)}
-        if name == "goss":
-            info.update(goss_selected_per_iteration=gl.selected,
-                        goss_host_seconds_per_iteration=gl.seconds)
-        log(info)
         route = DENSE_VARIANT_ROUTES[name]
+        if route == "scan":
+            info.update(loop_seconds=loop_w.results[0] if loop_w.results
+                        else None, loop_sync_debug_mode="error",
+                        rows_grown_per_iteration=bst.last_scan_rows.tolist())
+        log(info)
         check_route(model.booster, route, name)
         check_launches(got, name)
         hist_on_path(torch, inputs, name)
         del inputs
         if name == "goss":
-            goss_parts(torch, model.booster, X, y)
-        # the card against the CPU, on a cut: GOSS's selections can part
-        # from iteration 1 on (Kahan f32 scores on the card, exact f64 on
-        # the CPU: |g| differs by ulps and can reorder ties); its trees are
-        # held to the CPU's only while the selections agree
+            n = len(y)
+            want = int(n * 0.2) + int(n * 0.1)
+            if (bst.last_scan_rows != want).any():
+                fail(f"goss: the scan selected {bst.last_scan_rows.tolist()} "
+                     f"rows, not {want} each iteration")
+            goss_device_parts(torch, model.booster, X, y)
+        # the card against the CPU, on a cut, both on the variant's route
+        # (GOSS and rf: the CPU's forced scan)
         bc, bp, ref = refit_compare(
             torch, lambda: LightGBMClassifier(numIterations=ITERS_REFIT,
                                               **base, **extra),
-            cut, ITERS_REFIT, name, goss=name == "goss", route=route)
-        held = ITERS_REFIT
-        if name == "goss":
-            parted = [i for i, d in enumerate(
-                ref["goss_rows_differing_per_iteration"]) if d]
-            held = parted[0] if parted else ITERS_REFIT
+            cut, ITERS_REFIT, name, route=route)
         log({"phase": "dense_variants", "variant": name, "refit_rows": N_CUT,
-             "trees_held": held, **ref})
-        bad = [d for d in ref["first_diff_per_tree"][:held] if d is not None]
+             "trees_held": ITERS_REFIT, **ref})
+        bad = [d for d in ref["first_diff_per_tree"] if d is not None]
         if bad:
             fail(f"{name}: the card's trees part from the CPU's: {bad[0]}")
-    return launches
+    return dict(launches, goss_scan=goss_scan)
 
 
-def goss_parts(torch, booster, X, y) -> None:
-    """GOSS's host work at the main path's width, piece by piece, on the
-    gradient at the fitted model's scores (the last iteration's |g| has many
-    distinct values; the first one's has two): the fetch, the argsort, the
-    random draw and the amplification's upload (the per-iteration cost
-    ``goss_host_seconds`` sums)."""
+def goss_device_parts(torch, booster, X, y) -> None:
+    """The GOSS scan's selection at the main path's width, on the fit's own
+    keys (``split(prng_key(seed or bagging_seed), 20)``) and on the
+    gradient at the fitted model's scores (its |g| has many distinct
+    values; the first iteration's has two): every key's 2,097,152-row
+    uniform draw and the two exact top-k selections of the last key, card
+    against the port's CPU versions bit for bit, each timed on the card."""
+    from mmlspark_tpu_torch.core import threefry
     from mmlspark_tpu_torch.gbdt import DeviceEnsemble
     from mmlspark_tpu_torch.gbdt import booster as bst
+    from mmlspark_tpu_torch.gbdt.sparse import _exact_topk_mask
 
     dev = torch.device(DEVICE)
     n = len(y)
+    p = booster.params
+    seed = p.seed or p.bagging_seed
+    top_n, other_n = int(n * p.top_rate), int(n * p.other_rate)
     raw = DeviceEnsemble(booster.trees, 1, device=dev).predict_raw(X)[:, 0] \
         + booster.base_score[0]
     g, _ = bst.grad_hess("binary", torch.as_tensor(raw, dtype=torch.float32,
                                                    device=dev),
                          torch.as_tensor(y, dtype=torch.float32, device=dev))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    g_abs = np.abs(g.cpu().numpy())
-    t1 = time.perf_counter()
-    order = np.argsort(-g_abs)
-    t2 = time.perf_counter()
-    rest = order[int(n * 0.2):]
-    np.random.default_rng(0).choice(len(rest), size=int(n * 0.1),
-                                    replace=False)
-    t3 = time.perf_counter()
-    amp = np.ones(n, dtype=np.float32)
-    amp[rest] = 4.0
-    torch.as_tensor(amp, device=dev)
-    torch.cuda.synchronize()
-    t4 = time.perf_counter()
-    log({"phase": "dense_variants", "goss_host_parts_rows": n,
-         "distinct_abs_g": int(len(np.unique(g_abs))),
-         "fetch_seconds": t1 - t0, "argsort_seconds": t2 - t1,
-         "choice_seconds": t3 - t2, "amplify_upload_seconds": t4 - t3})
+    keys = threefry.split(threefry.prng_key(seed, dev), p.num_iterations)
+    keys_cpu = threefry.split(threefry.prng_key(seed), p.num_iterations)
+    same_keys = bool(torch.equal(keys.cpu(), keys_cpu))
+    draws_equal = [bool(torch.equal(threefry.uniform(keys[j], n).cpu(),
+                                    threefry.uniform(keys_cpu[j], n)))
+                   for j in range(p.num_iterations)]
+    u = threefry.uniform(keys[-1], n)
+    top = _exact_topk_mask(g.abs(), top_n, n)
+    other = _exact_topk_mask(u, other_n, n, exclude=top)
+    g_cpu, u_cpu = g.cpu(), u.cpu()
+    top_cpu = _exact_topk_mask(g_cpu.abs(), top_n, n)
+    other_cpu = _exact_topk_mask(u_cpu, other_n, n, exclude=top_cpu)
+    out = {"phase": "dense_variants", "goss_device_parts_rows": n,
+           "distinct_abs_g": int(torch.unique(g.abs()).numel()),
+           "keys_bitwise": same_keys, "draws_bitwise": draws_equal,
+           "top_k_bitwise": bool(torch.equal(top.cpu(), top_cpu)),
+           "other_k_bitwise": bool(torch.equal(other.cpu(), other_cpu)),
+           "selected": [int(top.sum()), int(other.sum())],
+           "uniform_draw_ms": time_ms(torch, lambda: threefry.uniform(keys[0], n),
+                                      5),
+           "top_k_ms": time_ms(torch, lambda: _exact_topk_mask(g.abs(), top_n, n),
+                               5),
+           "other_k_ms": time_ms(torch, lambda: _exact_topk_mask(
+               u, other_n, n, exclude=top), 5)}
+    log(out)
+    if not (same_keys and all(draws_equal) and out["top_k_bitwise"]
+            and out["other_k_bitwise"]):
+        fail(f"goss: the card's draws or top-k differ from the CPU's: {out}")
+    if out["selected"] != [top_n, other_n]:
+        fail(f"goss: the top-k selected {out['selected']}, not "
+             f"{[top_n, other_n]}")
 
 
 def mslr_like(n: int, seed: int):
@@ -2972,15 +3004,78 @@ SPARSE_VARIANTS = {
     "goss": dict(boosting_type="goss", top_rate=0.2, other_rate=0.1),
     "dart": dict(boosting_type="dart", drop_rate=0.1, max_drop=50),
 }
+# a second GOSS fit whose depth bound passes the reference's lazy-routing
+# rule (0.3 * 30 + 8 < 0.9 * 30): per-split routing over the selected rows,
+# one level-synchronous pass over every row a tree
+SPARSE_GOSS_DEPTH = 8
+# the route each sparse variant takes on the card: goss joins the scan,
+# dart (host-side drops) keeps the per-iteration loop over the fused grower
+SPARSE_VARIANT_ROUTES = {"goss": "scan", "goss_depth": "scan", "dart": "fused"}
 
 
-def sparse_variants(torch, data: dict, smi) -> dict:
-    """``train_sparse`` with goss and dart (31 leaves, 10 iterations) on the
-    full-width sparse dataset the main path built: loop seconds and K4
-    launches; the card's ``predict_csr`` of each model against the CPU's on
-    the first N_SCORE rows, and the train accuracy there. Returns K4's
-    launches."""
+class CompactedInputs:
+    """While active, keeps a copy of the first K4 call on a stream of
+    another width than the dataset's ``nnz`` entries (the scan's compacted
+    stream, in its eager first iteration): the [3, width] stats and the
+    remapped bin ends. It reads nothing on the host (the loop runs under
+    the sync debug mode)."""
+
+    def __init__(self, torch, shk, nnz: int):
+        self.torch, self.shk, self.nnz, self.args = torch, shk, nnz, None
+
+    def __enter__(self):
+        self.orig = self.shk.sparse_histogram_cuda
+
+        def rec(data, bin_end):
+            if self.args is None and data.shape[1] != self.nnz and not \
+                    self.torch.cuda.is_current_stream_capturing():
+                self.args = (data.clone(), bin_end.clone())
+            return self.orig(data, bin_end)
+
+        self.shk.sparse_histogram_cuda = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.shk.sparse_histogram_cuda = self.orig
+
+
+def compacted_k4(torch, shk, args, full_ms: float) -> dict:
+    """K4 on a fit's own compacted stream (``CompactedInputs``) against its
+    plain version (K4's gate), timed beside the full-width call of the
+    kernel phase, with its bound for the valid entries."""
+    data, bin_end = args
+    width, tb = data.shape[1], bin_end.shape[0]
+    valid = int(bin_end[-1])
+    err = check_sparse_hist(torch, shk, data, bin_end, "compacted goss stream")
+    ms = time_ms(torch, lambda: shk.sparse_histogram_cuda(data, bin_end))
+    t_bound, by = bound_ms(12 * valid + 4 * tb + 12 * tb, 3 * valid)
+    out = {"width": width, "valid_entries": valid, "bins": tb,
+           "max_abs_err": err, "ms": ms,
+           "device_only_ms": queued_ms(
+               torch, lambda: shk.sparse_histogram_cuda(data, bin_end), 50),
+           "plain_ms": time_ms(torch, lambda: shk.sparse_histogram_plain(
+               data, bin_end), 5),
+           "bound_ms": t_bound, "bound_by": by, "full_width_ms": full_ms,
+           "ms_over_full_width": ms / full_ms}
+    log({"phase": "sparse_variants", "k4_compacted": out})
+    return out
+
+
+def sparse_variants(torch, data: dict, smi, full_ms: float) -> tuple:
+    """``train_sparse`` with goss (twice: unbounded, and at ``maxDepth`` 8
+    for lazy routing) and dart (31 leaves, 10 iterations) on the full-width
+    sparse dataset the main path built: the route (goss on the scan, its
+    loop under ``set_sync_debug_mode("error")``; dart on the fused loop),
+    loop seconds and K4 launches; for goss the compaction the reference's
+    rule picks here (``compact_cap``, ``sel_cap``, the selected rows and
+    entries each iteration, lazy routing in the depth-bounded fit), and K4
+    on the fit's own compacted stream against its plain version; the
+    card's ``predict_csr`` of each model against the CPU's on the first
+    N_SCORE rows, and the train accuracy there. Returns K4's launches and
+    the compacted call's row (None where the reference's rule kept the
+    full stream)."""
     from mmlspark_tpu_torch.gbdt import TrainParams, sparse
+    from mmlspark_tpu_torch.gbdt import booster as bst
     from mmlspark_tpu_torch.gbdt import sparse_hist_kernel as shk
     from mmlspark_tpu_torch.obs.metrics import TrainRecorder, default_registry
 
@@ -2990,19 +3085,32 @@ def sparse_variants(torch, data: dict, smi) -> dict:
     steps = default_registry().histogram(
         "mmlspark_train_step_seconds", labelnames=("engine",),
         buckets=TrainRecorder.STEP_BUCKETS).labels(engine="gbdt_sparse")
-    launches = 0
-    for name, kw in SPARSE_VARIANTS.items():
+    launches = compacted_launches = 0
+    compacted = None
+    fits = dict(SPARSE_VARIANTS,
+                goss_depth=dict(SPARSE_VARIANTS["goss"],
+                                max_depth=SPARSE_GOSS_DEPTH))
+    for name, kw in fits.items():
         params = TrainParams(objective="binary", num_iterations=ITERS_SPARSE,
                              num_leaves=31, learning_rate=0.1,
                              min_data_in_leaf=20, **kw)
+        route = SPARSE_VARIANT_ROUTES[name]
         shk.launches = 0
         before = steps.value["sum"]
+        sparse.last_scan_stats.clear()
         torch.cuda.synchronize()
+        bst.scan_loop_sync_mode = "error"
         t0 = time.perf_counter()
-        b = sparse.train_sparse(params, ds, y, device=DEVICE)
-        torch.cuda.synchronize()
+        try:
+            with Watch(sparse, "_train_scan_sparse") as loop_w, \
+                    CompactedInputs(torch, shk, len(idx)) as cin:
+                b = sparse.train_sparse(params, ds, y, device=DEVICE)
+                torch.cuda.synchronize()
+        finally:
+            bst.scan_loop_sync_mode = None
         fit_s = time.perf_counter() - t0
-        loop_s = steps.value["sum"] - before
+        loop_s = (loop_w.results[0] if loop_w.results
+                  else steps.value["sum"] - before)
         got = shk.launches
         launches += got
         q = (indptr[:N_SCORE + 1], idx[:cut], vals[:cut])
@@ -3011,14 +3119,20 @@ def sparse_variants(torch, data: dict, smi) -> dict:
         diff = float(np.abs(card - cpu).max())
         acc = float(((card + b.base_score[0] > 0) == (y[:N_SCORE] > 0.5))
                     .mean())
+        stats = {k: (v.tolist() if hasattr(v, "tolist") else v)
+                 for k, v in sparse.last_scan_stats.items()}
         log({"phase": "sparse_variants", "variant": name, "card": smi,
-             "rows": ds.num_rows, "width": ds.num_features,
-             "train_sparse_seconds": fit_s, "loop_seconds": loop_s,
+             "route": b.route, "rows": ds.num_rows, "width": ds.num_features,
+             "nnz": int(len(idx)), "train_sparse_seconds": fit_s,
+             "loop_seconds": loop_s,
+             "loop_sync_debug_mode": "error" if route == "scan" else None,
+             "scan_selection": stats,
              "launches": {"sparse_hist": got},
              "trees": len(b.trees),
              "leaves": [t.num_leaves for g in b.trees for t in g],
              "max_abs_diff_card_vs_cpu_predict_csr": diff,
              "train_accuracy_65536": acc})
+        check_route(b, route, f"sparse {name}")
         if got < 1:
             fail(f"sparse {name}: K4 never launched")
         if diff > 1e-12 or not np.isfinite(card).all():
@@ -3026,22 +3140,46 @@ def sparse_variants(torch, data: dict, smi) -> dict:
                  f"CPU's by {diff}")
         if acc <= 0.7:
             fail(f"sparse {name}: train accuracy {acc} is not above 0.7")
-    return {"sparse_hist": launches}
+        if route == "scan":
+            n = ds.num_rows
+            want = int(n * 0.2) + int(n * 0.1)
+            if any(r != want for r in stats["rows"]):
+                fail(f"sparse {name}: the scan selected {stats['rows']} rows, "
+                     f"not {want}")
+            if not stats["compact_cap"]:
+                # the reference's rule (cap > 0.75 nnz) turned it off here:
+                # logged, and the anchor refits still force it
+                log({"phase": "sparse_variants", "variant": name,
+                     "compaction": "off by the reference's rule"})
+            else:
+                compacted_launches += got
+                if name == "goss" and cin.args is not None:
+                    compacted = compacted_k4(torch, shk, cin.args, full_ms)
+            if name == "goss_depth" and stats["compact_cap"] \
+                    and not stats["lazy"]:
+                fail("sparse goss_depth: lazy routing was not taken")
+        del cin
+    return {"sparse_hist": launches,
+            "compacted_stream": compacted_launches}, compacted
 
 
 # the reference benchmark's anchor shape (tools/bench_gbdt_sparse.py)
 N_ANCHOR, W_ANCHOR = 100_000, 1 << 12
 
 
-def anchor_variants(torch, smi) -> int:
+def anchor_variants(torch, smi, full_ms: float):
     """At the reference benchmark's anchor shape (100,000 x 2^12), the
-    card against the CPU: goss and dart through ``train_sparse`` (2
-    iterations, both trees identical: DART's second iteration drops the
-    first tree and adds it back rescaled), and through the stage entry point a
-    fit with ``validationIndicatorCol`` (10% of the rows, 30% of their
-    labels flipped so the metric turns within a few iterations) and
-    ``earlyStoppingRound=3``, and one with ``numBatches=2``: identical first
-    trees and the same best iteration. Returns K4's launches."""
+    card against the CPU on the same route: goss through ``train_sparse``
+    on the scan with its stream compacted (forced on both sides: the
+    reference's rule keeps a stream this small whole) and dart on the fused
+    loop (2 iterations, both trees identical: DART's second iteration
+    drops the first tree and adds it back rescaled); through the stage
+    entry point a fit with ``validationIndicatorCol`` (10% of the rows, 30%
+    of their labels flipped so the metric turns within a few iterations)
+    and ``earlyStoppingRound=3`` (the fused loop), and one with
+    ``numBatches=2`` (the scan): identical first trees and the same best
+    iteration. Returns K4's launches and K4 on the card goss fit's
+    compacted stream (``compacted_k4``)."""
     from mmlspark_tpu_torch.core.dataframe import DataFrame
     from mmlspark_tpu_torch.gbdt import LightGBMClassifier, TrainParams, sparse
     from mmlspark_tpu_torch.gbdt import sparse_hist_kernel as shk
@@ -3051,24 +3189,46 @@ def anchor_variants(torch, smi) -> int:
     indptr, idx, vals, y = make_csr_text(n, w, 50, 1)
     ds = sparse.SparseDataset.from_csr(indptr, idx, vals, w)
     shk.launches = 0
+    compacted = None
+    compact = {"MMLSPARK_TPU_SPARSE_COMPACT": "1"}
     for name, kw in SPARSE_VARIANTS.items():
         params = TrainParams(objective="binary", num_iterations=2,
                              num_leaves=31, learning_rate=0.1,
                              min_data_in_leaf=20, **kw)
-        out = {}
-        for dev in (DEVICE, "cpu"):
+        route = SPARSE_VARIANT_ROUTES[name]
+        envs = ((compact, {**compact, **CPU_SCAN}) if route == "scan"
+                else ({}, {}))
+        out, stats = {}, None
+        for dev, env in zip((DEVICE, "cpu"), envs):
             t0 = time.perf_counter()
-            out[dev] = (sparse.train_sparse(params, ds, y, device=dev),
-                        time.perf_counter() - t0)
-        diffs = [first_diff(out[DEVICE][0].trees[i][0],
-                            out["cpu"][0].trees[i][0]) for i in range(2)]
+            with Env(**env), CompactedInputs(torch, shk, len(idx)) as cin:
+                out[dev] = (sparse.train_sparse(params, ds, y, device=dev),
+                            time.perf_counter() - t0)
+            if dev == DEVICE and route == "scan":
+                stats = {k: (v.tolist() if hasattr(v, "tolist") else v)
+                         for k, v in sparse.last_scan_stats.items()}
+                if cin.args is None:
+                    fail(f"anchor {name}: the forced compaction made no "
+                         f"compacted K4 call")
+                compacted = compacted_k4(torch, shk, cin.args, full_ms)
+        bc, bp = out[DEVICE][0], out["cpu"][0]
+        diffs = [first_diff(bc.trees[i][0], bp.trees[i][0]) for i in range(2)]
         log({"phase": "sparse_variants", "variant": name, "anchor_rows": n,
-             "width": w, "cuda_fit_seconds": out[DEVICE][1],
-             "cpu_fit_seconds": out["cpu"][1], "first_diff_per_tree": diffs})
+             "width": w, "routes": [bc.route, bp.route],
+             "scan_selection": stats, "cuda_fit_seconds": out[DEVICE][1],
+             "cpu_fit_seconds": out["cpu"][1], "first_diff_per_tree": diffs,
+             "tree_1_values_bitwise": bool(np.array_equal(
+                 bc.trees[0][0].value, bp.trees[0][0].value))})
+        check_route(bc, route, f"anchor {name}")
+        check_route(bp, route, f"anchor {name} (CPU)")
         bad = [(i + 1, d) for i, d in enumerate(diffs) if d is not None]
         if bad:
             fail(f"anchor {name}: tree {bad[0][0]} differs between the card's "
                  f"and the CPU's fit: {bad[0][1]}")
+        if route == "scan" and not np.array_equal(bc.trees[0][0].value,
+                                                  bp.trees[0][0].value):
+            fail(f"anchor {name}: tree 1's leaf values are not bit for bit "
+                 f"the CPU's")
 
     rng = np.random.default_rng(5)
     is_val = rng.random(n) < 0.1
@@ -3079,29 +3239,126 @@ def anchor_variants(torch, smi) -> int:
         rows[i] = {"indices": idx[a:b], "values": vals[a:b], "size": w}
     df = DataFrame.from_dict({"features": rows, "label": y_flip,
                               "isVal": is_val})
-    fits = {"validation": dict(validationIndicatorCol="isVal",
-                               earlyStoppingRound=3, numIterations=10,
-                               learningRate=0.3),
-            "num_batches": dict(numBatches=2, numIterations=1)}
-    for name, kw in fits.items():
+    fits = {"validation": (dict(validationIndicatorCol="isVal",
+                                earlyStoppingRound=3, numIterations=10,
+                                learningRate=0.3), "fused", {}),
+            "num_batches": (dict(numBatches=2, numIterations=1), "scan",
+                            CPU_SCAN)}
+    for name, (kw, route, cpu_env) in fits.items():
         out = {}
-        for dev in (DEVICE, "cpu"):
+        for dev, env in ((DEVICE, {}), ("cpu", cpu_env)):
             t0 = time.perf_counter()
-            with use_device(dev):
+            with use_device(dev), Env(**env):
                 out[dev] = (LightGBMClassifier(numLeaves=31, **kw).fit(df)
                             .booster, time.perf_counter() - t0)
         bc, bp = out[DEVICE][0], out["cpu"][0]
         diff = first_diff(bc.trees[0][0], bp.trees[0][0])
         log({"phase": "sparse_variants", "stage_fit": name, "anchor_rows": n,
+             "routes": [bc.route, bp.route],
              "cuda_fit_seconds": out[DEVICE][1],
              "cpu_fit_seconds": out["cpu"][1], "trees": [len(bc.trees),
                                                          len(bp.trees)],
              "best_iteration": [bc.best_iteration, bp.best_iteration],
              "first_diff_tree_1": diff})
+        check_route(bc, route, f"anchor stage fit {name}")
+        check_route(bp, route, f"anchor stage fit {name} (CPU)")
         if diff is not None or bc.best_iteration != bp.best_iteration:
             fail(f"anchor stage fit {name}: the card and the CPU part: "
                  f"{diff}, best {bc.best_iteration} / {bp.best_iteration}")
-    return shk.launches
+    return shk.launches, compacted
+
+
+# the per-split host loop's cell: the full-width dataset at 127 leaves, whose
+# fused-grower state [253, 1,310,720, 3] f32 (3.98 GB) passes the 2 GiB gate
+WIDE_LEAVES = 127
+WIDE_ITERS = 3
+
+
+def sparse_wide(torch, data: dict, smi) -> int:
+    """``train_sparse`` at 127 leaves, 3 iterations, on the full-width
+    dataset: above the grower-state gate, so route ``host``, the reference's
+    per-split loop (checked): seconds a tree, host reads a split, peak
+    device memory, the card's ``predict_csr`` against the CPU's. Then the
+    anchor shape refit for one iteration on the card and on the CPU, both
+    on that loop (``MMLSPARK_TPU_FUSED_TREE_BYTES=0`` forces it), the first
+    tree identical. Returns K4's launches."""
+    from mmlspark_tpu_torch.gbdt import TrainParams, sparse
+    from mmlspark_tpu_torch.gbdt import sparse_hist_kernel as shk
+    from mmlspark_tpu_torch.obs.metrics import TrainRecorder, default_registry
+
+    ds, y = data["ds"], data["y"]
+    state = (2 * WIDE_LEAVES - 1) * ds.total_bins * 3 * 4
+    params = TrainParams(objective="binary", num_iterations=WIDE_ITERS,
+                         num_leaves=WIDE_LEAVES, learning_rate=0.1,
+                         min_data_in_leaf=20)
+    steps = default_registry().histogram(
+        "mmlspark_train_step_seconds", labelnames=("engine",),
+        buckets=TrainRecorder.STEP_BUCKETS).labels(engine="gbdt_sparse")
+    before = steps.value["sum"]
+    shk.launches = 0
+    reads = sparse.host_reads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    b = sparse.train_sparse(params, ds, y, device=DEVICE)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    loop_s = steps.value["sum"] - before
+    reads = sparse.host_reads - reads
+    launches = shk.launches
+    splits = sum(t.num_leaves - 1 for g in b.trees for t in g)
+    indptr, idx, vals = data["csr"]
+    cut = int(indptr[N_SCORE])
+    q = (indptr[:N_SCORE + 1], idx[:cut], vals[:cut])
+    diff = float(np.abs(sparse.predict_csr(b.trees, *q, 1, device=DEVICE)
+                        - sparse.predict_csr(b.trees, *q, 1,
+                                             device="cpu")).max())
+    log({"phase": "sparse_wide", "card": smi, "route": b.route,
+         "leaves": WIDE_LEAVES, "fused_state_bytes": state,
+         "train_sparse_seconds": fit_s, "loop_seconds": loop_s,
+         "seconds_per_tree": loop_s / max(len(b.trees), 1),
+         "splits": splits, "host_reads": reads,
+         "host_reads_per_split": reads / max(splits, 1),
+         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "launches": {"sparse_hist": launches},
+         "max_abs_diff_card_vs_cpu_predict_csr": diff})
+    check_route(b, "host", "sparse_wide")
+    if state <= 2 << 30:
+        fail(f"sparse_wide: the state ({state} bytes) is under the gate")
+    if launches < 1 or splits < 1:
+        fail("sparse_wide: no split or no K4 launch")
+    if reads > 2 * splits + 2 * len(b.trees):
+        fail(f"sparse_wide: {reads} host reads for {splits} splits")
+    if diff > 1e-12:
+        fail(f"sparse_wide: the card's predict_csr differs from the CPU's by "
+             f"{diff}")
+
+    # the anchor refit, both sides on the per-split loop
+    ai, ax, av, ay = make_csr_text(N_ANCHOR, W_ANCHOR, 50, 1)
+    ads = sparse.SparseDataset.from_csr(ai, ax, av, W_ANCHOR)
+    params = TrainParams(objective="binary", num_iterations=1,
+                         num_leaves=WIDE_LEAVES, learning_rate=0.1,
+                         min_data_in_leaf=20)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        with Env(MMLSPARK_TPU_FUSED_TREE_BYTES="0"):
+            out[dev] = (sparse.train_sparse(params, ads, ay, device=dev),
+                        time.perf_counter() - t0)
+    bc, bp = out[DEVICE][0], out["cpu"][0]
+    d = first_diff(bc.trees[0][0], bp.trees[0][0])
+    log({"phase": "sparse_wide", "anchor_rows": N_ANCHOR, "width": W_ANCHOR,
+         "routes": [bc.route, bp.route], "leaves": bc.trees[0][0].num_leaves,
+         "cuda_fit_seconds": out[DEVICE][1], "cpu_fit_seconds": out["cpu"][1],
+         "first_diff_tree_1": d,
+         "tree_1_values_bitwise": bool(np.array_equal(
+             bc.trees[0][0].value, bp.trees[0][0].value))})
+    check_route(bc, "host", "sparse_wide anchor")
+    check_route(bp, "host", "sparse_wide anchor (CPU)")
+    if d is not None:
+        fail(f"sparse_wide: the anchor's tree differs between the card's and "
+             f"the CPU's per-split loop: {d}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3527,6 +3784,7 @@ def main() -> int:
     native_main(torch, X, y, dense_model, smi)
     profile_phase(torch, X, y, smi)
     paths["dense_variants"] = dense_variants(torch, X, y, smi)
+    paths["dense_variants.goss_scan"] = paths["dense_variants"].pop("goss_scan")
     del X, y
     paths["ranker_main"] = ranker_main(torch, smi)
     paths["categorical_main"] = categorical_main(torch, dense_model, X_score, smi)
@@ -3534,11 +3792,20 @@ def main() -> int:
     kernels["sparse_hist"] = sparse_kernel_phase(torch, data)
     launches["sparse_hist"], sparse_model = sparse_main_path(torch, data)
     paths["main"]["sparse_hist"] = launches["sparse_hist"]
-    paths["sparse_variants"] = sparse_variants(torch, data, smi)
+    full_ms = kernels["sparse_hist"]["ms"]
+    paths["sparse_variants"], compacted = sparse_variants(torch, data, smi,
+                                                          full_ms)
+    paths["sparse_variants.compacted_stream"] = {
+        "sparse_hist": paths["sparse_variants"].pop("compacted_stream")}
+    paths["sparse_wide"] = {"sparse_hist": sparse_wide(torch, data, smi)}
     rows = data["rows"][:N_SCORE]
     del data
     anchor = sparse_anchor(torch)
-    paths["sparse_variants"]["sparse_hist"] += anchor_variants(torch, smi)
+    got, anchor_compacted = anchor_variants(torch, smi, full_ms)
+    paths["sparse_variants"]["sparse_hist"] += got
+    # K4's compacted stream: the full-width goss fit's where the reference's
+    # rule compacts there, else the anchor's forced one
+    kernels["sparse_hist"]["compacted_stream"] = compacted or anchor_compacted
     kernels["csr_gather"] = gather_kernel_phase(torch, sparse_model, rows)
     launches["csr_gather"] = fused_sparse(torch, sparse_model, rows, smi)
     fused_dense(torch, dense_model, X_score, smi)
@@ -3571,8 +3838,10 @@ def main() -> int:
             # K1's device-count entry (this slice's), apart, main path too
             new_paths.update({f"{p}.device_count_entry": c["hist_count"]
                               for p, c in paths.items() if "hist_count" in c})
+        extra = ({"compacted_stream": row["compacted_stream"]}
+                 if "compacted_stream" in row else {})
         rows.append({**{k: row[k] for k in keys},
-                     "launches_on_new_paths": new_paths})
+                     "launches_on_new_paths": new_paths, **extra})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log(smi)
     log({"kernels": rows})

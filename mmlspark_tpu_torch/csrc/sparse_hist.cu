@@ -10,15 +10,20 @@
 //   out[c, b] = sum_{j in [bin_end[b-1], bin_end[b])} data[c, j]   (c = g, h, count)
 //
 // Entries arrive bin-sorted, so each bin is one contiguous segment of the
-// entry stream and bin_end (exclusive end offsets, bin_end[-1] = nnz) is the
-// whole layout; empty bins have bin_end[b] == bin_end[b-1]. Each bin is
+// entry stream and bin_end (exclusive end offsets) is the whole layout;
+// empty bins have bin_end[b] == bin_end[b-1]. The stream's valid length is
+// nnz = bin_end[-1], read on the device: the stats may be wider (a static
+// width, their row stride), as a stream compacted to a subset of its rows
+// is, whose length only the device knows. Entries at or past bin_end[-1]
+// are neither read nor written. Each bin is
 // summed in f64 in one fixed order and rounded to f32 once: the result is
 // bitwise the same from run to run, and equal to the plain version's on the
 // CPU up to a double-rounding tie. The count channel is exact.
 //
-// Inputs: data f32 [3, nnz] (row stride nnz: masked g, h, mask), bin_end
-// int32 [TB], both 16-byte aligned. Output: f32 [3, TB], every cell written
-// once. Scratch: per share a head and a tail carry (int32 key, 3 f64).
+// Inputs: data f32 [3, width] (row stride width: masked g, h, mask), bin_end
+// int32 [TB] with bin_end[-1] <= width, both 16-byte aligned. Output: f32
+// [3, TB], every cell written once. Scratch: per share a head and a tail
+// carry (int32 key, 3 f64).
 //
 // Bound on the H100: bytes. It must read 12*nnz bytes of stats and 4*TB of
 // offsets and write 12*TB: at 49.7M entries and 1.31M bins about 0.62 GB, or
@@ -27,8 +32,9 @@
 // Design: a load-balanced segmented reduction by merge path (Merrill and
 // Garland's CSR SpMV). The merge of the TB bin-end markers with the nnz
 // entries is a path of nnz + TB items (marker b comes before entry j when
-// bin_end[b] <= j); the host (sparse_hist_kernel.shares) cuts it into P
-// equal shares, one persistent block each (3 per SM), however skewed the
+// bin_end[b] <= j); the host (sparse_hist_kernel.shares) sizes the grid for
+// the width, P persistent blocks (3 per SM), and each block cuts the path of
+// the valid length into P equal shares and takes its own, however skewed the
 // bins (one bin of a text-shaped dataset can hold 10^5 or more entries) or
 // long the runs of empty bins. A block finds its share's start with a
 // binary search of bin_end, then walks the share in tiles of up to 5,888
@@ -147,15 +153,17 @@ __global__ void __launch_bounds__(kThreads)
 sparse_hist_kernel(const float* __restrict__ data,
                    const int32_t* __restrict__ bin_end,
                    float* __restrict__ out, int32_t* __restrict__ carry_key,
-                   double* __restrict__ carry_val, int nnz, int tb,
-                   int share) {
+                   double* __restrict__ carry_val, int width, int tb) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_coord[4];  // the share's start (i, j), a tile's end
   __shared__ Run s_warp[kWarps];
   __shared__ int s_head_key;
   __shared__ double s_head[3];
 
+  // the valid length, and this grid's equal shares of its path
+  const int nnz = min(width, max(0, (int)bin_end[tb - 1]));
   const int total = nnz + tb;
+  const int share = (int)(((int64_t)total + gridDim.x - 1) / gridDim.x);
   const int p = blockIdx.x;
   const int d0 = (int)min((int64_t)p * share, (int64_t)total);
   const int d1 = (int)min((int64_t)(p + 1) * share, (int64_t)total);
@@ -174,7 +182,7 @@ sparse_hist_kernel(const float* __restrict__ data,
     float* st = smem;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      stage(st + c * kStride, data + (int64_t)c * nnz + tj_, kTile,
+      stage(st + c * kStride, data + (int64_t)c * width + tj_, kTile,
             (int64_t)nnz - tj_);
     }
     stage(st + 3 * kStride, reinterpret_cast<const float*>(bin_end + ti_),
@@ -190,8 +198,9 @@ sparse_hist_kernel(const float* __restrict__ data,
     cp_async_wait_all();
     __syncthreads();
     const float* st = smem;
-    const int ad[3] = {misalign(data + tj), misalign(data + (int64_t)nnz + tj),
-                       misalign(data + 2 * (int64_t)nnz + tj)};
+    const int ad[3] = {misalign(data + tj),
+                       misalign(data + (int64_t)width + tj),
+                       misalign(data + 2 * (int64_t)width + tj)};
     const int ae = misalign(bin_end + ti);
     const int32_t* s_end = reinterpret_cast<const int32_t*>(st + 3 * kStride) + ae;
     auto lend = [&](int x) { return s_end[x]; };
@@ -312,18 +321,15 @@ __global__ void sparse_hist_carry_kernel(const int32_t* __restrict__ carry_key,
 
 }  // namespace
 
-// `shares` blocks of `share` path items each (sparse_hist_kernel.shares);
-// carry_key holds 2 * shares int32, carry_val 6 * shares doubles.
+// `shares` blocks (sparse_hist_kernel.shares of the width); carry_key holds
+// 2 * shares int32, carry_val 6 * shares doubles.
 extern "C" int mmlspark_sparse_hist(const void* data, const void* bin_end,
                                     void* out, void* carry_key,
-                                    void* carry_val, int nnz, int tb,
-                                    int shares, int share, void* stream) {
+                                    void* carry_val, int width, int tb,
+                                    int shares, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tb <= 0) return (int)cudaGetLastError();
-  if (nnz < 0 || shares <= 0 || share <= 0 ||
-      (int64_t)shares * share < (int64_t)nnz + tb) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (width < 0 || shares <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       sparse_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
@@ -331,7 +337,7 @@ extern "C" int mmlspark_sparse_hist(const void* data, const void* bin_end,
   sparse_hist_kernel<<<shares, kThreads, kSmemBytes, s>>>(
       static_cast<const float*>(data), static_cast<const int32_t*>(bin_end),
       static_cast<float*>(out), static_cast<int32_t*>(carry_key),
-      static_cast<double*>(carry_val), nnz, tb, share);
+      static_cast<double*>(carry_val), width, tb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sparse_hist_carry_kernel<<<1, 256, 0, s>>>(

@@ -23,11 +23,11 @@ records it on the Booster (``Booster.route``) and in the obs
   - ``scan`` (``_scan_train_ok``, ``_train_scan``): every boosting
     iteration with no host read, the trees fetched once at the end; on the
     card one CUDA graph replay an iteration. The default on the card for
-    gbdt and rf without validation, logging, a training metric or a
+    gbdt, rf and goss without validation, logging, a training metric or a
     checkpoint; ``MMLSPARK_TPU_SCAN_TRAIN=1`` forces it on the CPU;
   - ``fused``: the per-iteration host loop over the device-resident tree
     grower (``tree.FusedGrower``: one read a tree), the default on the card
-    for the rest (dart, goss, lambdarank, validation, checkpoints);
+    for the rest (dart, lambdarank, validation, checkpoints);
   - ``host``: the same loop over the per-split host grower, the default on
     the CPU.
 
@@ -45,17 +45,19 @@ Three places are mirrored exactly, because tree parity depends on them:
   - the host's random draws (bagging, feature fraction, GOSS's sample, DART's
     drops) come from one ``np.random.Generator`` in the reference's order
     (the scan draws every iteration's masks up front, in the same order),
-    and GOSS ranks rows with the reference's ``np.argsort`` over the same
-    f32 gradients.
+    and the loop's GOSS ranks rows with the reference's ``np.argsort`` over
+    the same f32 gradients. The scan's GOSS selects on the device as the
+    reference's scan does: the exact top rows by |g| and the exact top rows
+    by a uniform draw of the reference's Threefry keys
+    (``sparse._exact_topk_mask``, ``core/threefry.py``).
 
 LambdaRank runs as plain torch ops on the device: groups bucketed by
 power-of-two size, each bucket's ``[m, G, G]`` pairwise tensors taken in
 chunks of at most ``_LAMBDARANK_PAIR_BUDGET`` elements; its sums reduce in
 torch's order, so g and h agree with the reference's within ulps.
 
-Not ported yet: a mesh (ROADMAP A9), GOSS inside the scan and the sparse
-scan (ROADMAP A step 4e): asking for a mesh raises ``NotImplementedError``,
-and goss takes the fused route.
+Not ported yet: a mesh (ROADMAP A9); asking for one raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -78,7 +80,7 @@ from .checkpoint import check_params_match, load_checkpoint, save_checkpoint
 from .histogram import xla_sum
 from .tree import (FusedGrower, GrowerConfig, Tree, _fused_tree_enabled,
                    _grow_tree_device_body, device_tier_caps, grow_tree,
-                   pack_tables, tree_from_packed)
+                   leaf_values, pack_tables, tree_from_packed)
 
 MODEL_FORMAT = "mmlspark_tpu.gbdt.v1"
 
@@ -710,6 +712,11 @@ def _add_leaf_values(score: torch.Tensor, comp: torch.Tensor,
 # this many the fit takes the per-iteration loop
 _SCAN_MASK_BUDGET = 1 << 28
 
+#: the rows each iteration of the last ``_train_scan`` grew its trees on
+#: (the real rows, the bagged rows or GOSS's selection), fetched after its
+#: loop: a reading aid
+last_scan_rows: Optional[np.ndarray] = None
+
 #: ``torch.cuda.set_sync_debug_mode`` the scan's boosting loop runs under
 #: (None leaves it as it is); with "error" a synchronizing call inside the
 #: loop raises, which proves it reads nothing on the host
@@ -727,12 +734,10 @@ def _scan_train_ok(params: TrainParams, objective: str, valid, log,
     log or a training metric (host evaluation each iteration), a
     checkpoint (a host boundary each iteration) or a single leaf; on the
     CPU only under ``MMLSPARK_TPU_SCAN_TRAIN=1``; never under
-    ``MMLSPARK_TPU_NO_SCAN_TRAIN=1``. Unlike the reference, goss stays on
-    the fused per-tree loop: its in-scan selection (``_exact_topk_mask``
-    over threefry draws) is ROADMAP A step 4e."""
+    ``MMLSPARK_TPU_NO_SCAN_TRAIN=1``."""
     if _env_on("MMLSPARK_TPU_NO_SCAN_TRAIN"):
         return False
-    if params.boosting_type in ("dart", "goss"):
+    if params.boosting_type == "dart":
         return False
     if objective == "lambdarank":
         return False
@@ -775,6 +780,37 @@ def _scan_precompute_masks(params: TrainParams, rng, n: int, num_f: int,
         if use_feat:
             feat_masks[it] = feature_draw(params, rng, num_f)
     return row_masks, feat_masks, True
+
+
+def _scan_leaf_values(out: dict, config: GrowerConfig) -> torch.Tensor:
+    """A scan's device-f32 leaf values of a grown tree (``out``: the device
+    grower's tables); an unsplit root keeps 0, as on the per-tree route."""
+    val = leaf_values(out["sums"], out["feature"], config)
+    return torch.cat([torch.where(out["n_nodes"] > 1, val[:1], 0.0),
+                      val[1:]])
+
+
+def _scan_goss(g: torch.Tensor, h: torch.Tensor, key: torch.Tensor,
+               top_n: int, other_n: int, amp: float,
+               exclude: Optional[torch.Tensor] = None):
+    """The scans' GOSS selection on the device, the reference's: exactly
+    ``top_n`` rows by |g| (summed over classes in XLA's CPU order) and
+    exactly ``other_n`` of the rest by ``threefry.uniform(key, n)``
+    (``sparse._exact_topk_mask``), ``exclude`` (pad rows) never taken; the
+    others' g and h amplified by ``amp``. Returns (row mask, g, h)."""
+    from ..core import threefry
+    from .sparse import _exact_topk_mask
+
+    n = g.shape[0]
+    g_sel = g.abs() if g.dim() == 1 else xla_sum(g.abs(), 1)
+    is_top = _exact_topk_mask(g_sel, top_n, n, exclude=exclude)
+    u = threefry.uniform(key, n)
+    excl = is_top if exclude is None else is_top | exclude
+    row_mask = is_top | _exact_topk_mask(u, other_n, n, exclude=excl)
+    scale = torch.where(is_top, 1.0, amp)
+    if g.dim() == 2:
+        scale = scale[:, None]
+    return row_mask, g * scale, h * scale
 
 
 def _route_full(bins_dev: torch.Tensor, out: dict) -> torch.Tensor:
@@ -831,7 +867,14 @@ def _train_scan(params: TrainParams, config: GrowerConfig, booster: Booster,
     real rows; ``MMLSPARK_TPU_DENSE_BAG_COMPACT=1`` forces it,
     ``MMLSPARK_TPU_NO_DENSE_BAG_COMPACT=1`` turns it off) the bagged rows
     are first compacted by K2 into ``bag_cap`` columns, and every row's
-    leaf is found by replaying the tree's splits (``_route_full``). The
+    leaf is found by replaying the tree's splits (``_route_full``). GOSS
+    selects on the device, as the reference's scan does: exactly ``top_n``
+    real rows by |g| (summed over classes) and exactly ``other_n`` of the
+    rest by a uniform draw (``sparse._exact_topk_mask``), the draw made
+    over the padded rows from this iteration's key of
+    ``threefry.split(prng_key(seed or bagging_seed), iterations)``; K2
+    compacts the selected rows with their amplified g/h into ``goss_cap``
+    columns, and ``_route_full`` routes every row. The
     saved trees' leaf values are recomputed on the host in f64 from the
     fetched sums, the per-tree route's lineage; the running score uses the
     f32 device values, so late trees may part from the per-tree route by
@@ -859,12 +902,26 @@ def _train_scan(params: TrainParams, config: GrowerConfig, booster: Booster,
             max_cnt = int(row_masks.sum(axis=1).max())
             if forced or max_cnt / max(nr, 1) <= 0.625:
                 bag_cap = min(n, -(-max(max_cnt, 1) // 512) * 512)
-    caps = device_tier_caps(bag_cap or n)
+    is_goss = params.boosting_type == "goss"
+    goss_cap = 0
+    if is_goss:
+        from ..core import threefry
+
+        n_real = int(pm.sum())
+        top_n = int(n_real * params.top_rate)
+        other_n = int(n_real * params.other_rate)
+        sel_budget = max(top_n + other_n, 1)
+        goss_cap = min(n, -(-(sel_budget + max(256, sel_budget // 16))
+                            // 512) * 512)
+        goss_amp = float(np.float32((1.0 - params.top_rate)
+                                    / max(params.other_rate, 1e-12)))
+        goss_keys = threefry.split(threefry.prng_key(
+            params.seed or params.bagging_seed, dev), iters)
+        not_real = None if pm.all() else ~ones_mask
+    cap = goss_cap or bag_cap
+    caps = device_tier_caps(cap or n)
     f32 = torch.float32
-    l1 = float(np.float32(config.lambda_l1))
-    l2 = float(np.float32(config.lambda_l2))
     shrink = float(np.float32(lr))
-    mds = config.max_delta_step
 
     score = torch.as_tensor(scores[:, 0] if k == 1 else scores, dtype=f32,
                             device=dev)
@@ -873,7 +930,8 @@ def _train_scan(params: TrainParams, config: GrowerConfig, booster: Booster,
     cols = 10 + ((num_bins + 31) // 32 if cat_args is not None else 0)
     M = 2 * params.num_leaves - 1
     stacked = torch.zeros(iters, k, M, cols, dtype=torch.float64, device=dev)
-    ar_cap = torch.arange(bag_cap, device=dev) if bag_cap else None
+    rows_grown = torch.zeros(iters, dtype=torch.int64, device=dev)
+    ar_cap = torch.arange(cap, device=dev) if cap else None
 
     def step():
         g, h = grad_hess(params.objective, score, labels, w_dev, params.alpha)
@@ -881,36 +939,33 @@ def _train_scan(params: TrainParams, config: GrowerConfig, booster: Booster,
                     else ones_mask)
         fmask = (fm_all.index_select(0, it_idx)[0] if fm_all is not None
                  else None)
-        if bag_cap:
+        if is_goss:
+            row_mask, g, h = _scan_goss(
+                g, h, goss_keys.index_select(0, it_idx)[0], top_n, other_n,
+                goss_amp, not_real)
+        if cap:
             mask_it = ar_cap < row_mask.sum(dtype=torch.int32)
         new_s, new_c = score, comp
         tables = []
         for kk in range(k):
             gk = (g if k == 1 else g[:, kk]).contiguous()
             hk = (h if k == 1 else h[:, kk]).contiguous()
-            if bag_cap:
+            if cap:
                 bins_it, gk, hk = select_kernel.select_rows(
-                    bins_dev, gk, hk, row_mask, bag_cap)
+                    bins_dev, gk, hk, row_mask, cap)
             else:
                 bins_it, mask_it = bins_dev, row_mask
             out = _grow_tree_device_body(bins_it, gk, hk, mask_it, None,
                                          num_bins, config, fmask, cat_args,
                                          caps)
-            rows = _route_full(bins_dev, out) if bag_cap \
+            rows = _route_full(bins_dev, out) if cap \
                 else out["node_of_row"]
-            sums, feat = out["sums"], out["feature"]
-            g_thr = torch.sign(sums[:, 0]) * torch.clamp(
-                torch.abs(sums[:, 0]) - l1, min=0.0)
-            val = torch.where(feat < 0, -g_thr / (sums[:, 1] + l2), 0.0)
-            if mds > 0:
-                val = torch.clamp(val, -mds, mds)
-            # an unsplit root keeps 0 (the per-tree route's values)
-            val = torch.cat([torch.where(out["n_nodes"] > 1, val[:1], 0.0),
-                             val[1:]])
-            new_s, new_c = _add_leaf_values(new_s, new_c, val * shrink, rows,
-                                            kk if k > 1 else None)
+            new_s, new_c = _add_leaf_values(
+                new_s, new_c, _scan_leaf_values(out, config) * shrink, rows,
+                kk if k > 1 else None)
             tables.append(pack_tables(out))
         stacked.index_copy_(0, it_idx, torch.stack(tables)[None])
+        rows_grown.index_copy_(0, it_idx, row_mask.sum().reshape(1))
         score.copy_(new_s)
         comp.copy_(new_c)
         it_idx.add_(1)
@@ -931,6 +986,8 @@ def _train_scan(params: TrainParams, config: GrowerConfig, booster: Booster,
                 cap.replay()
     host = stacked.cpu().numpy()                 # the fit's one fetch
     loop_s = time.perf_counter() - t0
+    global last_scan_rows
+    last_scan_rows = rows_grown.cpu().numpy()
     for it in range(iters):
         group = []
         for kk in range(k):

@@ -63,3 +63,32 @@ class Captured:
         now = read_counters()
         set_counters({k: now[k] + d for k, d in self.launches.items()})
         return self.out
+
+
+class Replayer:
+    """``fn(*inputs)`` on the card as the growers run a tree: the first call
+    eagerly (it builds and warms every kernel), the second captures ``fn``
+    in a CUDA graph (``Captured``) over static copies of its inputs, and
+    every later call copies its inputs in and replays; one graph for each
+    pattern of inputs that are None. Without ``capture`` (the CPU) every
+    call runs eagerly. What a replay returns is the graph's own output:
+    use it before the next call."""
+
+    def __init__(self, fn: Callable, capture: bool):
+        self.fn, self.capture = fn, capture
+        self.calls = 0
+        self.graphs: Dict[tuple, tuple] = {}
+
+    def __call__(self, *inputs):
+        self.calls += 1
+        if not self.capture or self.calls == 1:
+            return self.fn(*inputs)
+        key = tuple(x is None for x in inputs)
+        if key not in self.graphs:
+            static = [x.clone() if x is not None else None for x in inputs]
+            self.graphs[key] = (static, Captured(lambda: self.fn(*static)))
+        else:
+            for dst, src in zip(self.graphs[key][0], inputs):
+                if dst is not None:
+                    dst.copy_(src)
+        return self.graphs[key][1].replay()

@@ -1,7 +1,7 @@
 """Sparse (CSR) feature path through the GBDT engine, in PyTorch.
 
-Counterpart of the reference's ``mmlspark_tpu/gbdt/sparse.py`` on its
-host-orchestrated path: the reference trains on sparse rows the way
+Counterpart of the reference's ``mmlspark_tpu/gbdt/sparse.py``: the
+reference trains on sparse rows the way
 LightGBM's ``generateSparseDataset`` does, for hashed-text and VW-width
 feature spaces (2^18+ columns), without ever densifying.
 
@@ -16,17 +16,29 @@ feature spaces (2^18+ columns), without ever densifying.
     CPU tensors); the zero bin of every feature is the node total minus the
     feature's nonzero sums (``_zero_completed``).
   - ``_find_best_split_flat``: the vectorized gain scan over all flat bins.
-  - ``grow_tree_sparse``: the reference's fused whole-tree grower
-    (``_grow_tree_sparse_body``) as a Python loop over device tensors, with
-    one host read per split; node ids in split order.
-  - ``train_sparse``: the reference's host-orchestrated boosting loop for
-    every boosting type (gbdt, rf, dart, goss), bagging, feature fraction,
-    weights, init scores, every objective (lambdarank included), a CSR
-    validation set with early stopping, and an in-memory ``init_model``.
+  - ``grow_tree_sparse``: one tree, routed as the reference decides: the
+    fused grower (``_grow_tree_sparse_body``: the node tables and the
+    candidates on the device, a fixed ``num_leaves - 1`` steps under a
+    device "active" flag, one host read of the finished tree; a CUDA graph
+    a tree in ``SparseFusedGrower``) on the card under the 2 GiB state
+    gate, or the reference's per-split host loop
+    (``_grow_tree_sparse_host``: a heap frontier, two host reads a split)
+    on the CPU or above the gate. Node ids in split order.
+  - ``train_sparse``: every boosting type (gbdt, rf, dart, goss), bagging,
+    feature fraction, weights, init scores, every objective (lambdarank
+    included), a CSR validation set with early stopping, and an in-memory
+    ``init_model``, on one of three routes: ``scan`` (``_train_scan_sparse``:
+    every iteration with no host read, one graph replay an iteration on the
+    card; GOSS selected on the device by ``_exact_topk_mask`` over the
+    reference's Threefry draws; the stream compacted to the selected rows'
+    entries, ``_sparse_compact_cap``, and routing made lazy,
+    ``_assign_leaves_all_rows``), ``fused`` or ``host`` (the reference's
+    host-orchestrated loop over either grower).
   - ``predict_csr`` / ``CsrRows``: depth-stepped traversal, each row
     resolving the split feature through its own CSR row (absent -> 0.0), in
     f64 on the device; ``CsrRows`` stages the rows once for the loop's
-    repeated scoring (DART's drops, the validation set).
+    repeated scoring (DART's drops, the validation set). On the CPU the
+    native C++ CSR traversal, as in the reference.
 
 Where the port's arithmetic differs from the reference's, on purpose: the
 reference takes within-feature sums as differences of one f32 prefix over
@@ -39,15 +51,14 @@ reference's own formula (``_prefix_sum`` and ``cs - base``) is kept as
 ``_find_best_split_flat(..., faithful=True)``, which ``chip_smoke.py``
 holds against the port's at full width. ROADMAP §C has the numbers.
 
-Not ported yet (ROADMAP A6): the whole-run scan (``_train_scan_sparse``,
-with selected-row compaction, exact top-k GOSS and the lazy full-row
-traversal), the sharded grower, the per-split host loop the reference runs
-above the 2 GiB state gate, and the native C++ CSR predict.
+Not ported yet: the sharded grower (ROADMAP A9).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -56,15 +67,18 @@ import torch
 
 from ..parallel.batching import sparse_width
 from ..runtime import DeviceLike, default_device, resolve_device
-from .booster import (Booster, EarlyStopping, bagging_draw, dart_drops,
-                      default_metric, eval_metric, feature_draw, goss_sample,
-                      grad_hess, init_score, rf_average, segment_groups)
+from .booster import (Booster, EarlyStopping, _env_on, _scan_precompute_masks,
+                      bagging_draw, dart_drops, default_metric, eval_metric,
+                      feature_draw, goss_sample, grad_hess, init_score,
+                      rf_average, segment_groups)
 from .histogram import _f32, _leaf_objective, xla_cumsum
 from .predict import _tree_depth
 from .sparse_hist_kernel import sparse_histogram
-from .tree import GrowerConfig, Tree
+from .tree import GrowerConfig, Tree, leaf_values
 
 _MAX_SPARSE_BIN = 64  # per-feature cap: count/tf features have few levels
+
+_LOG = logging.getLogger(__name__)
 
 
 def rows_to_csr(col, num_features: Optional[int] = None,
@@ -269,6 +283,8 @@ def device_arrays(ds: SparseDataset, device: DeviceLike = None) -> Dict:
         "feat_start_of_bin": put(feat_start, i32),
         "feat_end_of_bin": put(feat_end, i32),
         "is_last_bin": put(is_last, torch.bool),
+        "zero_local": put(ds.zero_local, i32),
+        "feat_offset": put(ds.feat_offset, i32),
         "route_steps": int(max(int(row_nnz.max()) if len(row_nnz) else 1,
                                1)).bit_length(),
         "scan_steps": int(max(int(bins_per_feat.max())
@@ -331,6 +347,47 @@ def _prefix_sum(data: torch.Tensor, int_channel: Optional[int] = None):
     if int_channel is None:
         return out
     return out, torch.cat([xi.new_zeros(1), xi])
+
+
+def _exact_topk_mask(key: torch.Tensor, k: int, n: int,
+                     exclude: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[n] bool mask of exactly ``min(k, eligible)`` rows with the largest
+    ``|key|``, ties to the lowest row index: the reference's sort-free
+    selection, a 32-step bisection for the threshold on the u32 view of the
+    f32 key (plus 1, so an excluded row's 0 sorts below every eligible row)
+    and a 32-step bisection for the index cut among the rows at the
+    threshold. Each step is a compare and a count, in int64; nothing is
+    read on the host and the result is integer arithmetic, so it is the
+    same on every device. ``exclude``: optional [n] bool of rows never
+    selected."""
+    dev = key.device
+    if k <= 0:
+        return torch.zeros(n, dtype=torch.bool, device=dev)
+    ik = key.abs().to(torch.float32).view(torch.int32).to(torch.int64) + 1
+    if exclude is not None:
+        ik = torch.where(exclude, 0, ik)
+        kk = torch.clamp((~exclude).sum(), max=k)
+    else:
+        kk = torch.full((), min(k, n), dtype=torch.int64, device=dev)
+    # the largest t with count(ik >= t) >= kk (the count falls as t grows)
+    lo = torch.zeros((), dtype=torch.int64, device=dev)
+    hi = torch.full((), 2 ** 31 + 1, dtype=torch.int64, device=dev)
+    for _ in range(32):
+        mid = lo + ((hi - lo + 1) >> 1)
+        take = (ik >= mid).sum() >= kk
+        lo, hi = torch.where(take, mid, lo), torch.where(take, hi, mid - 1)
+    gt = ik > lo
+    need = kk - gt.sum()                     # rows still to take at t
+    tie = ik == lo
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    # the smallest c with count(tie & idx < c) >= need
+    c_lo = torch.zeros((), dtype=torch.int64, device=dev)
+    c_hi = torch.full((), n, dtype=torch.int64, device=dev)
+    for _ in range(32):
+        mid = (c_lo + c_hi) >> 1
+        ok = (tie & (idx < mid)).sum() >= need
+        c_lo, c_hi = torch.where(ok, c_lo, mid + 1), torch.where(ok, mid, c_hi)
+    return gt | (tie & (idx < c_lo))
 
 
 def _segmented_cumsum(dev: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -445,10 +502,11 @@ def _find_best_split_flat(dev: Dict, hist: torch.Tensor, lambda_l1, lambda_l2,
 
 
 def _row_feature_search(dev: Dict, lo: torch.Tensor, hi: torch.Tensor,
-                        f: int) -> torch.Tensor:
+                        f) -> torch.Tensor:
     """Vectorized lower-bound search for each row's entry of feature ``f``
-    inside the row's feature-sorted CSR slice [lo, hi): ``route_steps``
-    gather steps (each row's slice is at most max-row-nnz wide)."""
+    (one feature, or one a row) inside the row's feature-sorted CSR slice
+    [lo, hi): ``route_steps`` gather steps (each row's slice is at most
+    max-row-nnz wide), with no host read."""
     feats = dev["feat_of_nnz"]
     last = max(feats.shape[0] - 1, 0)
     for _ in range(dev["route_steps"]):
@@ -460,37 +518,95 @@ def _row_feature_search(dev: Dict, lo: torch.Tensor, hi: torch.Tensor,
     return lo
 
 
-def _route_rows(dev: Dict, node_of_row: torch.Tensor, node_id: int, f: int,
-                b: int, lid: int, rid: int, zero_goes_left: bool
-                ) -> torch.Tensor:
+def _route_rows(dev: Dict, node_of_row: torch.Tensor, node_id, f, b, lid,
+                rid, zero_goes_left) -> torch.Tensor:
     """Send the node's rows left iff their value's flat bin <= ``b`` (a bin
     of feature ``f``); rows without an entry of ``f`` carry the feature's
-    zero bin (``zero_goes_left``)."""
+    zero bin (``zero_goes_left``). The node, feature, bin and children are
+    ints or 1-element device tensors (the device-resident grower's, so the
+    routing reads nothing on the host). With ``dev["route_lo"]`` /
+    ``dev["route_hi"]`` (lazy routing) the routed rows are the selected
+    rows, each searched in its own CSR slice of the entry stream."""
+    dt = node_of_row.dtype
+    dv = node_of_row.device
+
+    def t(x):
+        return torch.as_tensor(x, device=dv).reshape(-1)
+
+    node_id, f, b, lid, rid = (t(x) for x in (node_id, f, b, lid, rid))
     in_node = node_of_row == node_id
-    out = torch.where(in_node, lid if zero_goes_left else rid, node_of_row)
+    default = torch.where(t(zero_goes_left), lid, rid).to(dt)
+    out = torch.where(in_node, default, node_of_row)
     feats = dev["feat_of_nnz"]
     if feats.shape[0] == 0:
         return out
-    indptr = dev["indptr"]
-    hi0 = indptr[1:]
-    lo = _row_feature_search(dev, indptr[:-1], hi0, f)
+    if "route_lo" in dev:
+        lo0, hi0 = dev["route_lo"], dev["route_hi"]
+    else:
+        indptr = dev["indptr"]
+        lo0, hi0 = indptr[:-1], indptr[1:]
+    lo = _row_feature_search(dev, lo0, hi0, f)
     pos = torch.clamp(lo, 0, feats.shape[0] - 1)
     has = (lo < hi0) & (feats.index_select(0, pos) == f)
     target = torch.where(dev["bin_of_nnz"].index_select(0, pos) <= b, lid, rid)
-    return torch.where(in_node & has, target.to(node_of_row.dtype), out)
+    return torch.where(in_node & has, target.to(dt), out)
+
+
+def _assign_leaves_all_rows(dev: Dict, out: Dict[str, torch.Tensor],
+                            steps: int) -> torch.Tensor:
+    """Every row of the dataset routed through a finished tree of
+    ``_grow_tree_sparse_body`` (the lazy-routing complement): ``steps``
+    level-synchronous passes, each advancing every row one node by one
+    vectorized search for the row's entry of its current node's feature;
+    an absent feature carries its zero bin, as in ``_route_rows``. A row at
+    a leaf stays, so ``steps`` is any bound on the tree's depth."""
+    feat, fbin = out["feature"], out["flat_bin"]
+    li, ri = out["left"], out["right"]
+    indptr = dev["indptr"]
+    lo_all, hi_all = indptr[:-1], indptr[1:]
+    feats, bins = dev["feat_of_nnz"], dev["bin_of_nnz"]
+    zero_bin = dev["feat_offset"][:-1] + dev["zero_local"]
+    nnz = feats.shape[0]
+    pos = torch.zeros(lo_all.shape[0], dtype=torch.int64,
+                      device=indptr.device)
+    for _ in range(steps):
+        f = feat.index_select(0, pos)
+        f_safe = torch.clamp(f, min=0)
+        bin_eff = zero_bin.index_select(0, f_safe)
+        if nnz:
+            lo = _row_feature_search(dev, lo_all, hi_all, f_safe)
+            p = torch.clamp(lo, 0, nnz - 1)
+            has = (lo < hi_all) & (feats.index_select(0, p) == f_safe)
+            bin_eff = torch.where(has, bins.index_select(0, p), bin_eff)
+        nxt = torch.where(bin_eff <= fbin.index_select(0, pos),
+                          li.index_select(0, pos), ri.index_select(0, pos))
+        pos = torch.where(f >= 0, nxt.to(torch.int64), pos)
+    return pos
 
 
 # ---------------------------------------------------------------------------
 # Whole-tree growth
 # ---------------------------------------------------------------------------
 
-# Per-node flat-histogram state cap: [2L-1, total_bins, 3] f32. Above it the
-# reference runs a per-split host loop, which is not ported.
-_FUSED_SPARSE_BUDGET = 2 << 30
+# The reference's cap on the fused grower's [2L - 1, total_bins, 3] f32 node
+# histograms; above it the per-split host loop grows the tree
+_FUSED_SPARSE_DEFAULT_BUDGET = 2 << 30
+
+#: host reads of device data the sparse growers made (a reading aid: the
+#: fused route makes one a tree, the per-split loop one at the root and one
+#: for each child it evaluates, two a split)
+host_reads = 0
 
 
 def _fused_sparse_enabled(max_nodes: int, total_bins: int) -> bool:
-    return max_nodes * total_bins * 3 * 4 <= _FUSED_SPARSE_BUDGET
+    """The reference's gate on the fused grower's node histograms: under
+    ``MMLSPARK_TPU_FUSED_TREE_BYTES`` (2 GiB by default), and never with
+    ``MMLSPARK_TPU_NO_FUSED_TREE`` set."""
+    if _env_on("MMLSPARK_TPU_NO_FUSED_TREE"):
+        return False
+    budget = int(os.environ.get("MMLSPARK_TPU_FUSED_TREE_BYTES",
+                                _FUSED_SPARSE_DEFAULT_BUDGET))
+    return max_nodes * total_bins * 3 * 4 <= budget
 
 
 def _masked_totals(grad: torch.Tensor, hess: torch.Tensor,
@@ -509,14 +625,10 @@ def _tree_from_nodes(nn: int, feature, tbin, flat_bin, default_left, left,
     the host (the reference's ``_tree_from_fused_out``)."""
     feature = feature[:nn].astype(np.int32)
     s64 = sums[:nn].astype(np.float64)
-    g_thr = np.sign(s64[:, 0]) * np.maximum(
-        np.abs(s64[:, 0]) - config.lambda_l1, 0.0)
-    value = np.where(feature < 0, -g_thr / (s64[:, 1] + config.lambda_l2),
-                     0.0)
-    if config.max_delta_step > 0:
-        value = np.clip(value, -config.max_delta_step, config.max_delta_step)
+    value = leaf_values(s64, feature, config)
     value[0] = 0.0 if nn == 1 else value[0]
-    threshold = np.where(feature >= 0, thresholds[flat_bin[:nn]], 0.0)
+    flat_bin = flat_bin[:nn].astype(np.int64)
+    threshold = np.where(feature >= 0, thresholds[flat_bin], 0.0)
     return Tree(
         feature=feature,
         threshold=threshold.astype(np.float64),
@@ -531,40 +643,71 @@ def _tree_from_nodes(nn: int, feature, tbin, flat_bin, default_left, left,
     )
 
 
-def grow_tree_sparse(ds: SparseDataset, dev: Dict, grad: torch.Tensor,
-                     hess: torch.Tensor, config: GrowerConfig,
-                     row_mask: Optional[torch.Tensor] = None,
-                     bin_mask: Optional[torch.Tensor] = None
-                     ) -> Tuple[Tree, torch.Tensor]:
-    """Grow one tree over the flat sparse bins; returns (tree, node_of_row)
-    with ``node_of_row`` the device tensor of every row's final node.
+_PACKED = ("feature", "threshold_bin", "flat_bin", "default_left", "left",
+           "right", "gain")
 
-    The reference's fused grower (``_grow_tree_sparse_body``): best-first
-    over per-node candidates (ties to the lowest node id), the smaller
-    child's histogram built from its rows and the sibling's by subtraction.
-    The node tables live on the host; each split costs one host read of the
-    two children's packed candidates.
 
-    ``row_mask``: [N] bool (bagging subset: histograms and totals are
-    masked, routing covers every row). ``bin_mask``: [TB] bool of allowed
-    split bins (feature fraction mapped to the flat space)."""
-    M = 2 * config.num_leaves - 1
-    tb = ds.total_bins
-    if not _fused_sparse_enabled(M, tb):
-        raise NotImplementedError(
-            f"a {tb}-bin sparse tree of {config.num_leaves} leaves exceeds "
-            f"the 2 GiB grower state; the reference's per-split host loop "
-            f"for it is not ported yet (ROADMAP A6)")
-    n = ds.num_rows
+def pack_sparse_tables(out: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The node tables of ``_grow_tree_sparse_body`` as one [M, 11] f64
+    tensor, every field exact, for one host read a tree: feature,
+    threshold_bin, flat_bin, default_left, left, right, gain, sums (3),
+    n_nodes."""
+    d = torch.float64
+    m = out["feature"].shape[0]
+    cols = [out[k].to(d)[:, None] for k in _PACKED]
+    cols += [out["sums"].to(d), out["n_nodes"].to(d).expand(m)[:, None]]
+    return torch.cat(cols, dim=1)
+
+
+def tree_from_sparse_packed(packed: np.ndarray, config: GrowerConfig,
+                            thresholds: np.ndarray) -> Tree:
+    """A ``Tree`` from one [M, 11] block of ``pack_sparse_tables``."""
+    nn = int(packed[0, 10])
+    p = packed
+    return _tree_from_nodes(nn, p[:, 0], p[:, 1], p[:, 2], p[:, 3] != 0,
+                            p[:, 4], p[:, 5], p[:, 6], p[:, 7:10], config,
+                            thresholds)
+
+
+def _grow_tree_sparse_body(dev: Dict, grad: torch.Tensor, hess: torch.Tensor,
+                           row_mask: torch.Tensor,
+                           node_of_row: Optional[torch.Tensor],
+                           root_tot: torch.Tensor, config: GrowerConfig,
+                           bin_mask: Optional[torch.Tensor] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """Grow one whole tree over the flat sparse bins on the device, with no
+    host read: the reference's ``_grow_tree_sparse_body``.
+
+    The node tables and the candidates (``cand_gain``, ``cand_bin``,
+    ``cand_lsum``, ``cand_rsum``) are tensors of ``2L - 1`` nodes plus a
+    trash slot, where a step that is not active writes. The best-first pop
+    is ``argmax`` over the candidate gains (ties to the lowest id); the loop
+    runs ``num_leaves - 1`` steps, each active while some candidate is
+    finite (the reference's ``while_loop`` condition), so its shapes are
+    fixed and a CUDA graph can hold it. Each split routes the leaf's rows,
+    builds the smaller child's histogram (K4 on the card) and the sibling's
+    by subtraction; a row without an entry of the split feature follows
+    the feature's zero bin, and so does ``default_left``.
+
+    ``dev``: ``device_arrays``, or its compacted view (``row_of_nnz_bs``
+    and ``bin_end`` of the selected rows' entries; with ``route_lo`` /
+    ``route_hi`` the rows are the selected rows). ``root_tot``: [3] f32
+    masked (grad, hess, count). Returns device tensors: ``node_of_row``,
+    the node tables ``feature``, ``threshold_bin`` (local), ``flat_bin``,
+    ``default_left``, ``left``, ``right``, ``gain`` [M], ``sums`` [M, 3]
+    f32 and ``n_nodes`` [1] int64."""
     device = grad.device
-    if row_mask is None:
-        row_mask = torch.ones(n, dtype=torch.bool, device=device)
-    node_of_row = torch.zeros(n, dtype=torch.int32, device=device)
+    n = grad.shape[0]
+    M = 2 * config.num_leaves - 1
+    T = M                                   # the trash slot
+    tb = dev["feat_of_bin"].shape[0]
     l1, l2 = config.lambda_l1, config.lambda_l2
     msh, mdl = config.min_sum_hessian_in_leaf, config.min_data_in_leaf
-    mgs = np.float32(config.min_gain_to_split)
-    neg_inf = np.float32(-np.inf)
-
+    mgs = float(np.float32(config.min_gain_to_split))
+    neg_inf = float("-inf")
+    i32, i64, f32 = torch.int32, torch.int64, torch.float32
+    if node_of_row is None:
+        node_of_row = torch.zeros(n, dtype=i32, device=device)
     g_bs, h_bs = _entry_gh(dev, grad, hess)
 
     def node_hist(mask_rows, totals):
@@ -574,80 +717,546 @@ def grow_tree_sparse(ds: SparseDataset, dev: Dict, grad: torch.Tensor,
     def best(hists):
         return _find_best_split_flat(dev, hists, l1, l2, msh, mdl, bin_mask)
 
-    feature = np.full(M, -1, np.int32)
-    threshold_bin = np.zeros(M, np.int32)
-    flat_bin = np.zeros(M, np.int64)
-    default_left = np.ones(M, bool)
-    left = np.full(M, -1, np.int32)
-    right = np.full(M, -1, np.int32)
-    gain = np.zeros(M, np.float32)
-    sums = np.zeros((M, 3), np.float32)
-    depth = np.zeros(M, np.int32)
-    cand_gain = np.full(M, neg_inf, np.float32)
-    cand = np.zeros((M, 8), np.float64)       # packed best split per node
-    hists: List[Optional[torch.Tensor]] = [None] * M
+    def table(fill, dtype, *shape):
+        return torch.full((M + 1, *shape), fill, dtype=dtype, device=device)
 
-    root_tot = _masked_totals(grad, hess, row_mask)
+    feature, threshold_bin = table(-1, i32), table(0, i32)
+    flat_bin = table(0, i64)
+    default_left = table(True, torch.bool)
+    left, right = table(-1, i32), table(-1, i32)
+    gain, depth = table(0.0, f32), table(0, i32)
+    sums = table(0.0, f32, 3)
+    sums[0] = root_tot
+    cand_gain = table(neg_inf, f32)
+    cand_bin = table(0, i64)
+    cand_lsum, cand_rsum = table(0.0, f32, 3), table(0.0, f32, 3)
+    hists = torch.empty((M + 1, 3, tb), dtype=f32, device=device)
+    n_nodes = torch.ones(1, dtype=i64, device=device)
     if tb:
         hists[0] = node_hist(row_mask, root_tot)
-        host = torch.cat([root_tot.double(), best(hists[0][None])[0]]) \
-            .cpu().numpy()
-        cand[0] = host[3:]
-        g0 = np.float32(cand[0, 1])
-        if np.isfinite(g0) and g0 > mgs:
-            cand_gain[0] = g0
-    else:
-        host = root_tot.double().cpu().numpy()
-    sums[0] = host[:3]
-    n_nodes, n_leaves = 1, 1
+        s0 = best(hists[0][None])[0]
+        g0 = s0[1].to(f32)
+        cand_gain[0] = torch.where(torch.isfinite(g0) & (g0 > mgs), g0,
+                                   neg_inf)
+        cand_bin[0] = s0[0].to(i64)
+        cand_lsum[0], cand_rsum[0] = s0[2:5].to(f32), s0[5:8].to(f32)
+    minus_inf = torch.full((1,), neg_inf, dtype=f32, device=device)
+    trash = torch.full((1,), T, dtype=i64, device=device)
+    steps = config.num_leaves - 1 if tb else 0
 
-    def push(nid: int, s: np.ndarray, csum: np.ndarray, dchild: int):
-        g = np.float32(s[1])
-        ok = bool(np.isfinite(g) and g > mgs and csum[2] >= 2 * mdl)
+    for _ in range(steps):
+        cg = cand_gain[:M]
+        active = cg.max() > neg_inf
+        leaf = torch.argmax(cg).reshape(1)             # ties: the lowest id
+        b = cand_bin.index_select(0, leaf)
+        f = dev["feat_of_bin"].index_select(0, b).to(i64)
+        t_local = b - dev["feat_start_of_bin"].index_select(0, b)
+        dl = dev["zero_local"].index_select(0, f) <= t_local
+        lsum = cand_lsum.index_select(0, leaf)[0]
+        rsum = cand_rsum.index_select(0, leaf)[0]
+        lid = n_nodes
+        rid = lid + 1
+        dchild = depth.index_select(0, leaf) + 1
+
+        node_of_row = _route_rows(dev, node_of_row,
+                                  torch.where(active, leaf, -1), f, b, lid,
+                                  rid, dl)
+        small_is_left = lsum[2] <= rsum[2]
+        small_id = torch.where(small_is_left, lid, rid)
+        big_id = torch.where(small_is_left, rid, lid)
+        csums = torch.stack([torch.where(small_is_left, lsum, rsum),
+                             torch.where(small_is_left, rsum, lsum)])
+        small_hist = node_hist(row_mask & (node_of_row == small_id), csums[0])
+        big_hist = hists.index_select(0, leaf)[0] - small_hist
+        pair = best(torch.stack([small_hist, big_hist]))        # [2, 8] f64
+        pg = pair[:, 1].to(f32)
+        ok = (torch.isfinite(pg) & (pg > mgs) & (csums[:, 2] >= 2 * mdl))
         if config.max_depth > 0:
-            ok = ok and dchild < config.max_depth
-        cand_gain[nid] = g if ok else neg_inf
-        cand[nid] = s
+            ok = ok & (dchild < config.max_depth)
 
-    while n_leaves < config.num_leaves and cand_gain.max() > neg_inf:
-        leaf = int(np.argmax(cand_gain))
-        b = int(cand[leaf, 0])
+        # push both children (inactive steps write the trash slot)
+        ids = torch.where(active, torch.cat([small_id, big_id]), T)
+        pid = torch.where(active, leaf, trash)
+        gain.index_put_((pid,), cand_gain.index_select(0, leaf))
+        cand_gain.index_put_((ids,), torch.where(ok, pg, neg_inf))
+        cand_gain.index_put_((pid,), minus_inf)
+        cand_bin.index_put_((ids,), pair[:, 0].to(i64))
+        cand_lsum.index_put_((ids,), pair[:, 2:5].to(f32))
+        cand_rsum.index_put_((ids,), pair[:, 5:8].to(f32))
+        feature.index_put_((pid,), f.to(i32))
+        threshold_bin.index_put_((pid,), t_local.to(i32))
+        flat_bin.index_put_((pid,), b)
+        default_left.index_put_((pid,), dl)
+        left.index_put_((pid,), lid.to(i32))
+        right.index_put_((pid,), rid.to(i32))
+        cids = torch.where(active, torch.cat([lid, rid]), T)
+        sums.index_put_((cids,), torch.stack([lsum, rsum]))
+        depth.index_put_((cids,), dchild.expand(2))
+        hists.index_put_((ids,), torch.stack([small_hist, big_hist]))
+        n_nodes = n_nodes + active.to(i64) * 2
+
+    return dict(node_of_row=node_of_row, feature=feature[:M],
+                threshold_bin=threshold_bin[:M], flat_bin=flat_bin[:M],
+                default_left=default_left[:M], left=left[:M],
+                right=right[:M], gain=gain[:M], sums=sums[:M],
+                n_nodes=n_nodes)
+
+
+def _fused_sparse_tables(dev: Dict, grad, hess, row_mask, config: GrowerConfig,
+                         bin_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One tree of ``_grow_tree_sparse_body`` over every row as
+    (``node_of_row``, its ``pack_sparse_tables``), both on the device."""
+    out = _grow_tree_sparse_body(dev, grad, hess, row_mask, None,
+                                 _masked_totals(grad, hess, row_mask), config,
+                                 bin_mask)
+    return out["node_of_row"], pack_sparse_tables(out)
+
+
+def _read_sparse_tree(rows: torch.Tensor, packed: torch.Tensor,
+                      config: GrowerConfig, thresholds: np.ndarray
+                      ) -> Tuple[Tree, torch.Tensor]:
+    """The fused route's one host read a tree: (tree, ``rows``)."""
+    global host_reads
+    host = packed.cpu().numpy()
+    host_reads += 1
+    return tree_from_sparse_packed(host, config, thresholds), rows
+
+
+class SparseFusedGrower:
+    """The fused route for the trees of one sparse fit: ``grow`` grows a
+    tree with ``_grow_tree_sparse_body`` and reads it once; on the card a
+    CUDA graph a tree from the second on, as ``tree.FusedGrower`` does
+    (``graphs.Replayer``, ``run``). A returned ``node_of_row`` of a replay
+    is the graph's own output: use it before the next ``grow``."""
+
+    def __init__(self, ds: SparseDataset, dev: Dict, config: GrowerConfig):
+        from . import graphs
+
+        self.ds, self.config = ds, config
+        self.run = graphs.Replayer(
+            lambda g, h, m, bm: _fused_sparse_tables(dev, g, h, m, config, bm),
+            dev["bin_of_nnz"].is_cuda)
+
+    def grow(self, grad: torch.Tensor, hess: torch.Tensor,
+             row_mask: torch.Tensor, bin_mask: Optional[torch.Tensor] = None
+             ) -> Tuple[Tree, torch.Tensor]:
+        return _read_sparse_tree(*self.run(grad, hess, row_mask, bin_mask),
+                                 self.config, self.ds.thresholds)
+
+
+def _grow_tree_sparse_host(ds: SparseDataset, dev: Dict, grad: torch.Tensor,
+                           hess: torch.Tensor, config: GrowerConfig,
+                           row_mask: Optional[torch.Tensor] = None,
+                           bin_mask: Optional[torch.Tensor] = None
+                           ) -> Tuple[Tree, torch.Tensor]:
+    """The reference's per-split host loop (``grow_tree_sparse`` with
+    ``use_fused=False``), with its own semantics: a ``heapq`` frontier
+    popped by (-gain, push order), the small child pushed before the big
+    one; a node's default direction from its threshold's value
+    (``0.0 <= threshold``); leaf values in f64 from the fetched sums; only
+    the frontier's histograms held. One host read at the root and one for
+    each child it evaluates (``host_reads``)."""
+    import heapq
+
+    global host_reads
+    reads0 = host_reads
+    n = ds.num_rows
+    device = grad.device
+    node_of_row = torch.zeros(n, dtype=torch.int32, device=device)
+    ones = (row_mask if row_mask is not None
+            else torch.ones(n, dtype=torch.bool, device=device))
+    l1, l2 = config.lambda_l1, config.lambda_l2
+    msh, mdl = config.min_sum_hessian_in_leaf, config.min_data_in_leaf
+    feature, threshold, threshold_bin = [-1], [0.0], [0]
+    default_left, left, right = [True], [-1], [-1]
+    value, gains, counts, hweights = [0.0], [0.0], [0], [0.0]
+
+    def leaf_value(s: np.ndarray) -> float:
+        return float(leaf_values(s[None], np.full(1, -1), config)[0])
+
+    g_bs, h_bs = _entry_gh(dev, grad, hess)
+
+    def node_hist(mask_rows, totals):
+        return _zero_completed(
+            dev, _flat_histogram(dev, g_bs, h_bs, mask_rows), totals)
+
+    totals0 = _masked_totals(grad, hess, ones)
+    hist0 = node_hist(ones, totals0)
+    totals0_h = totals0.double().cpu().numpy()
+    host_reads += 1
+    counts[0] = int(totals0_h[2])
+    hweights[0] = float(totals0_h[1])
+
+    def eval_split(hist):
+        global host_reads
+        s = _find_best_split_flat(dev, hist[None], l1, l2, msh, mdl,
+                                  bin_mask)[0].cpu().numpy()
+        host_reads += 1
+        b = int(s[0])
         f = int(np.searchsorted(ds.feat_offset, b, side="right") - 1)
-        t_local = b - int(ds.feat_offset[f])
-        dl = bool(ds.zero_local[f] <= t_local)   # absent (0.0) routing
-        lsum = cand[leaf, 2:5].astype(np.float32)
-        rsum = cand[leaf, 5:8].astype(np.float32)
-        lid, rid = n_nodes, n_nodes + 1
-        dchild = int(depth[leaf]) + 1
+        return f, b - int(ds.feat_offset[f]), b, float(np.float32(s[1])), \
+            s[2:5], s[5:8]
 
-        node_of_row = _route_rows(dev, node_of_row, leaf, f, b, lid, rid, dl)
-        small_is_left = bool(lsum[2] <= rsum[2])
-        small_id, big_id = (lid, rid) if small_is_left else (rid, lid)
-        small_tot, big_tot = (lsum, rsum) if small_is_left else (rsum, lsum)
-        small_hist = node_hist(row_mask & (node_of_row == small_id),
-                               torch.as_tensor(small_tot, device=device))
-        big_hist = hists[leaf] - small_hist
-        hists[leaf] = None
-        s_small, s_big = best(torch.stack([small_hist, big_hist])) \
-            .cpu().numpy()
-        push(small_id, s_small, small_tot, dchild)
-        push(big_id, s_big, big_tot, dchild)
+    heap: list = []
+    tiebreak = 0
 
-        feature[leaf], threshold_bin[leaf], flat_bin[leaf] = f, t_local, b
-        default_left[leaf] = dl
-        left[leaf], right[leaf] = lid, rid
-        gain[leaf] = cand_gain[leaf]
-        cand_gain[leaf] = neg_inf
-        sums[lid], sums[rid] = lsum, rsum
-        depth[lid] = depth[rid] = dchild
-        hists[small_id], hists[big_id] = small_hist, big_hist
-        n_nodes += 2
+    def push(node_id, depth, hist, sums):
+        nonlocal tiebreak
+        f, t_local, b, g, lsum, rsum = eval_split(hist)
+        if np.isfinite(g) and g > config.min_gain_to_split:
+            if config.max_depth > 0 and depth >= config.max_depth:
+                return
+            heapq.heappush(heap, (-g, tiebreak, (node_id, depth, hist, sums,
+                                                 f, t_local, b, lsum, rsum,
+                                                 g)))
+            tiebreak += 1
+
+    push(0, 0, hist0, totals0_h)
+    n_leaves = 1
+    while heap and n_leaves < config.num_leaves:
+        _, _, (nid, depth, hist, sums, f, t_local, b, lsum, rsum, g) = \
+            heapq.heappop(heap)
+        lid, rid = len(feature), len(feature) + 1
+        thr = ds.bin_upper_value(f, t_local)
+        feature[nid], threshold[nid], threshold_bin[nid] = f, thr, t_local
+        # an absent entry (0.0) routes by the zero bin; the model's default
+        # direction follows the threshold's value, as dense predict does
+        default_left[nid] = bool(0.0 <= thr)
+        left[nid], right[nid] = lid, rid
+        gains[nid] = g
+        value[nid] = 0.0
+        for csum in (lsum, rsum):
+            feature.append(-1)
+            threshold.append(0.0)
+            threshold_bin.append(0)
+            default_left.append(True)
+            left.append(-1)
+            right.append(-1)
+            value.append(leaf_value(csum))
+            gains.append(0.0)
+            counts.append(int(csum[2]))
+            hweights.append(float(csum[1]))
         n_leaves += 1
+        node_of_row = _route_rows(dev, node_of_row, nid, f, b, lid, rid,
+                                  bool(ds.zero_local[f] <= t_local))
+        small_id, big_id = (lid, rid) if lsum[2] <= rsum[2] else (rid, lid)
+        small_sums = lsum if small_id == lid else rsum
+        big_sums = rsum if small_id == lid else lsum
+        small_hist = node_hist(
+            ones & (node_of_row == small_id),
+            torch.as_tensor(small_sums, dtype=torch.float32, device=device))
+        big_hist = hist - small_hist
+        del hist
+        for cid, chist, csums in ((small_id, small_hist, small_sums),
+                                  (big_id, big_hist, big_sums)):
+            if csums[2] >= 2 * mdl:
+                push(cid, depth + 1, chist, csums)
 
-    tree = _tree_from_nodes(n_nodes, feature, threshold_bin, flat_bin,
-                            default_left, left, right, gain, sums, config,
-                            ds.thresholds)
+    _LOG.debug("per-split sparse tree: %d splits, %d host reads",
+               n_leaves - 1, host_reads - reads0)
+    tree = Tree(
+        feature=np.asarray(feature, dtype=np.int32),
+        threshold=np.asarray(threshold, dtype=np.float64),
+        threshold_bin=np.asarray(threshold_bin, dtype=np.int32),
+        default_left=np.asarray(default_left, dtype=bool),
+        left=np.asarray(left, dtype=np.int32),
+        right=np.asarray(right, dtype=np.int32),
+        value=np.asarray(value, dtype=np.float64),
+        gain=np.asarray(gains, dtype=np.float32),
+        count=np.asarray(counts, dtype=np.int32),
+        weight=np.asarray(hweights, dtype=np.float64),
+    )
     return tree, node_of_row
+
+
+def grow_tree_sparse(ds: SparseDataset, dev: Dict, grad: torch.Tensor,
+                     hess: torch.Tensor, config: GrowerConfig,
+                     row_mask: Optional[torch.Tensor] = None,
+                     bin_mask: Optional[torch.Tensor] = None,
+                     use_fused: Optional[bool] = None
+                     ) -> Tuple[Tree, torch.Tensor]:
+    """Grow one tree over the flat sparse bins; returns (tree, node_of_row)
+    with ``node_of_row`` the device tensor of every row's final node.
+
+    Routes as the reference decides (``use_fused`` None): the fused grower
+    (``_grow_tree_sparse_body``, one host read of the finished tree) on the
+    card under the state gate (``_fused_sparse_enabled``), the per-split
+    host loop (``_grow_tree_sparse_host``) on the CPU or above the gate.
+    Both route rows and grow best-first; they differ in the pop order among
+    equal gains and in how a node's default direction is taken.
+
+    ``row_mask``: [N] bool (bagging subset: histograms and totals are
+    masked, routing covers every row). ``bin_mask``: [TB] bool of allowed
+    split bins (feature fraction mapped to the flat space)."""
+    if use_fused is None:
+        use_fused = (_fused_sparse_enabled(2 * config.num_leaves - 1,
+                                           ds.total_bins)
+                     and grad.device.type != "cpu")
+    if not use_fused:
+        return _grow_tree_sparse_host(ds, dev, grad, hess, config, row_mask,
+                                      bin_mask)
+    if row_mask is None:
+        row_mask = torch.ones(ds.num_rows, dtype=torch.bool,
+                              device=grad.device)
+    return _read_sparse_tree(*_fused_sparse_tables(dev, grad, hess, row_mask,
+                                                   config, bin_mask),
+                             config, ds.thresholds)
+
+
+# ---------------------------------------------------------------------------
+# The whole-run scan: every sparse boosting iteration with no host read
+# ---------------------------------------------------------------------------
+
+
+def _scan_sparse_ok(params, valid, log, device: DeviceLike = None) -> bool:
+    """May this sparse fit take the whole-run scan? The reference's gate:
+    not dart, lambdarank, a validation set, a log or a training metric, nor
+    a single leaf; on the CPU only under ``MMLSPARK_TPU_SCAN_TRAIN=1``;
+    never under ``MMLSPARK_TPU_NO_SCAN_TRAIN=1``."""
+    if _env_on("MMLSPARK_TPU_NO_SCAN_TRAIN"):
+        return False
+    if params.boosting_type == "dart" or params.objective == "lambdarank":
+        return False
+    if valid is not None or log is not None or params.train_metric:
+        return False
+    if 2 * params.num_leaves - 1 < 3:
+        return False
+    if not _env_on("MMLSPARK_TPU_SCAN_TRAIN") \
+            and resolve_device(device).type == "cpu":
+        return False
+    return True
+
+
+def _sparse_compact_cap(params, ds: SparseDataset, row_masks,
+                        device: DeviceLike = None) -> Tuple[int, int]:
+    """The reference's static capacities ``(cap, sel_cap)`` of the scan's
+    selected-row entry compaction, ``(0, 0)`` for none. ``cap`` bounds the
+    selected rows' entries of every iteration (GOSS: the sum of the
+    ``top_n + other_n`` largest row counts, since its selection is exact;
+    bagging: the largest of the drawn masks'); ``sel_cap`` > 0 (the most
+    rows selected) turns on lazy routing: each split routes only the
+    selected rows, and ``_assign_leaves_all_rows`` routes every row once a
+    tree.
+
+    Off unless selection shrinks the stream on the card: the reference
+    takes compaction only on its accelerator and at scale (nnz >= 2M, cap
+    <= 0.75 nnz), the port on the card; lazy routing only when
+    ``max_depth`` bounds the traversal and ``sel_frac * splits +
+    max_depth < 0.9 * splits``. ``MMLSPARK_TPU_SPARSE_COMPACT=1`` forces
+    it on past those rules, ``MMLSPARK_TPU_NO_SPARSE_COMPACT=1`` turns it
+    off, ``MMLSPARK_TPU_NO_SPARSE_LAZY_ROUTE=1`` keeps compaction but
+    routes every row at each split."""
+    if _env_on("MMLSPARK_TPU_NO_SPARSE_COMPACT"):
+        return 0, 0
+    n = ds.num_rows
+    nnz = int(ds.indptr[-1])
+    row_nnz = np.diff(ds.indptr)
+    if params.boosting_type == "goss":
+        k_sel = int(n * params.top_rate) + int(n * params.other_rate)
+        if k_sel <= 0 or k_sel >= n:
+            return 0, 0
+        cap = int(np.partition(row_nnz, n - k_sel)[n - k_sel:].sum())
+    elif row_masks is not None:
+        k_sel = int(row_masks.sum(axis=1).max())
+        cap = int((row_masks.astype(np.int64) @ row_nnz.astype(np.int64))
+                  .max())
+    else:
+        return 0, 0
+    cap = max(cap, 1)
+    sel_cap = max(int(k_sel), 1)
+    if _env_on("MMLSPARK_TPU_NO_SPARSE_LAZY_ROUTE"):
+        sel_cap = 0
+    if _env_on("MMLSPARK_TPU_SPARSE_COMPACT"):
+        return cap, sel_cap
+    splits = max(params.num_leaves - 1, 1)
+    if params.max_depth <= 0:
+        sel_cap = 0
+    elif sel_cap / max(n, 1) * splits + params.max_depth >= 0.9 * splits:
+        sel_cap = 0
+    if resolve_device(device).type != "cuda":
+        return 0, 0
+    if nnz < 2_000_000 or cap > int(0.75 * nnz):
+        return 0, 0
+    return cap, sel_cap
+
+
+#: the last sparse scan's selection, fetched after its loop (a reading
+#: aid): ``rows`` and ``entries`` selected each iteration, the capacities
+last_scan_stats: Dict = {}
+
+
+def _compact_stream(dev: Dict, row_mask: torch.Tensor, cap: int,
+                    sel_cap: int) -> Tuple[Dict, Optional[torch.Tensor],
+                                           Optional[torch.Tensor],
+                                           torch.Tensor]:
+    """The bin-sorted entry stream compacted to the selected rows' entries,
+    with no host read: a ``cumsum`` over the entries' selection and a
+    scatter of the selected entries to their ranks (the others to a trash
+    slot past ``cap``); the order, and so each bin's run, is kept, and the
+    bin ends become ``cnt0[bin_end]``, the last of them the selected
+    entries' count on the device. Past it the stream holds zeros, which K4
+    neither reads nor writes. With ``sel_cap`` (lazy routing) the rows are
+    the selected rows too: their ids in ``sel_cap`` slots (zero past the
+    count), the entries' row positions among them, and each one's CSR
+    slice. Returns (the compacted view of ``dev``, the selected row ids,
+    their validity, the selected entries' count)."""
+    rbs = dev["row_of_nnz_bs"]
+    i32, i64 = torch.int32, torch.int64
+    esel = row_mask.index_select(0, rbs)
+    cnt = torch.cumsum(esel.to(i32), 0, dtype=i32)
+    idx = torch.where(esel, cnt.to(i64) - 1, cap)
+    rows_cmp = torch.zeros(cap + 1, dtype=i32, device=rbs.device) \
+        .scatter_(0, idx, rbs)[:cap]
+    cnt0 = torch.cat([cnt.new_zeros(1), cnt])
+    bend = cnt0.index_select(0, dev["bin_end"].to(i64)).contiguous()
+    if not sel_cap:
+        return dict(dev, row_of_nnz_bs=rows_cmp, bin_end=bend), None, None, \
+            cnt0[-1]
+    cnt_rows = torch.cumsum(row_mask.to(i32), 0, dtype=i32)
+    rank = cnt_rows.to(i64) - 1
+    n = row_mask.shape[0]
+    slot = torch.where(row_mask, rank, sel_cap)
+    sel_rows = torch.zeros(sel_cap + 1, dtype=i64, device=rbs.device) \
+        .scatter_(0, slot, torch.arange(n, device=rbs.device))[:sel_cap]
+    sel_valid = torch.arange(sel_cap, device=rbs.device) < cnt_rows[-1]
+    selpos = torch.clamp(rank.index_select(0, rows_cmp.to(i64)), min=0)
+    ip = dev["indptr"]
+    view = dict(dev, row_of_nnz_bs=selpos.to(i32), bin_end=bend,
+                route_lo=ip.index_select(0, sel_rows),
+                route_hi=ip.index_select(0, sel_rows + 1))
+    return view, sel_rows, sel_valid, cnt0[-1]
+
+
+def _train_scan_sparse(params, config: GrowerConfig, booster: Booster,
+                       ds: SparseDataset, dev: Dict, labels: torch.Tensor,
+                       w_dev: Optional[torch.Tensor], scores: np.ndarray,
+                       k: int, lr: float, row_masks, feat_masks,
+                       compact_cap: int = 0, sel_cap: int = 0) -> float:
+    """Every sparse boosting iteration with no host read, the trees fetched
+    once (the reference's ``_train_scan_sparse``). Returns the loop's
+    seconds.
+
+    An iteration computes grad/hess from the running scores, takes its
+    bagging and feature masks from device-resident [iters, N] / [iters, F]
+    tensors by a device index (the feature mask mapped to bins through
+    ``feat_of_bin``), selects GOSS's rows on the device as the dense scan
+    does (exact top-k by |g| and by the reference's Threefry draws over the
+    ``n`` rows), grows each class's tree with ``_grow_tree_sparse_body``
+    and adds device-f32 leaf values into a Kahan-compensated f32 score.
+    With ``compact_cap`` the stream is first compacted to the selected
+    rows' entries (``_compact_stream``), and with ``sel_cap`` too the tree
+    grows over the selected rows alone and ``_assign_leaves_all_rows``
+    routes every row once. The saved trees' leaf values are recomputed on
+    the host in f64 from the fetched sums.
+
+    On the card iteration 0 runs eagerly (it builds and warms every
+    kernel), the iteration is then captured once in a CUDA graph and
+    replayed for the rest; on the CPU every iteration runs eagerly."""
+    from ..core import threefry
+    from .booster import (_add_leaf_values, _scan_goss, _scan_leaf_values,
+                          _scan_loop_guard)
+
+    device = labels.device
+    n = ds.num_rows
+    iters = params.num_iterations
+    M = 2 * config.num_leaves - 1
+    rm_all = (torch.as_tensor(row_masks, device=device)
+              if row_masks is not None else None)
+    fm_all = (torch.as_tensor(feat_masks, device=device)
+              if feat_masks is not None else None)
+    ones = torch.ones(n, dtype=torch.bool, device=device)
+    is_goss = params.boosting_type == "goss"
+    if is_goss:
+        top_n = int(n * params.top_rate)
+        other_n = int(n * params.other_rate)
+        goss_amp = float(np.float32((1.0 - params.top_rate)
+                                    / max(params.other_rate, 1e-12)))
+        goss_keys = threefry.split(threefry.prng_key(
+            params.seed or params.bagging_seed, device), iters)
+    lazy = bool(compact_cap and sel_cap)
+    depth_steps = (config.max_depth if config.max_depth > 0
+                   else config.num_leaves - 1)
+    shrink = float(np.float32(lr))
+    score = torch.as_tensor(scores[:, 0] if k == 1 else scores,
+                            dtype=torch.float32, device=device)
+    comp = torch.zeros_like(score)
+    it_idx = torch.zeros(1, dtype=torch.int64, device=device)
+    stacked = torch.zeros(iters, k, M, 11, dtype=torch.float64,
+                          device=device)
+    selected = torch.zeros(iters, 2, dtype=torch.int64, device=device)
+
+    def step():
+        g, h = grad_hess(params.objective, score, labels, w_dev, params.alpha)
+        row_mask = (rm_all.index_select(0, it_idx)[0] if rm_all is not None
+                    else ones)
+        bin_mask = (fm_all.index_select(0, it_idx)[0].index_select(
+            0, dev["feat_of_bin"]) if fm_all is not None else None)
+        if is_goss:
+            row_mask, g, h = _scan_goss(
+                g, h, goss_keys.index_select(0, it_idx)[0], top_n, other_n,
+                goss_amp)
+        devc, sel_rows, sel_valid = dev, None, None
+        entries = torch.zeros((), dtype=torch.int64, device=device)
+        if compact_cap:
+            devc, sel_rows, sel_valid, entries = _compact_stream(
+                dev, row_mask, compact_cap, sel_cap if lazy else 0)
+        new_s, new_c = score, comp
+        tables = []
+        for kk in range(k):
+            gk = (g if k == 1 else g[:, kk]).contiguous()
+            hk = (h if k == 1 else h[:, kk]).contiguous()
+            root_tot = _masked_totals(gk, hk, row_mask)
+            if lazy:
+                out = _grow_tree_sparse_body(
+                    devc, gk.index_select(0, sel_rows),
+                    hk.index_select(0, sel_rows), sel_valid, None, root_tot,
+                    config, bin_mask)
+                rows = _assign_leaves_all_rows(dev, out, depth_steps)
+            else:
+                out = _grow_tree_sparse_body(devc, gk, hk, row_mask, None,
+                                             root_tot, config, bin_mask)
+                rows = out["node_of_row"]
+            new_s, new_c = _add_leaf_values(
+                new_s, new_c, _scan_leaf_values(out, config) * shrink, rows,
+                kk if k > 1 else None)
+            tables.append(pack_sparse_tables(out))
+        stacked.index_copy_(0, it_idx, torch.stack(tables)[None])
+        selected.index_copy_(0, it_idx, torch.stack(
+            [row_mask.sum(), entries.to(torch.int64)])[None])
+        score.copy_(new_s)
+        comp.copy_(new_c)
+        it_idx.add_(1)
+
+    t0 = time.perf_counter()
+    capture = device.type == "cuda" and iters > 1
+    with _scan_loop_guard():
+        step()
+        if not capture:
+            for _ in range(iters - 1):
+                step()
+    if capture:
+        from . import graphs
+
+        cap = graphs.Captured(step)
+        with _scan_loop_guard():
+            for _ in range(iters - 1):
+                cap.replay()
+    host = stacked.cpu().numpy()                 # the fit's one fetch
+    loop_s = time.perf_counter() - t0
+    sel = selected.cpu().numpy()
+    last_scan_stats.clear()
+    last_scan_stats.update(rows=sel[:, 0], entries=sel[:, 1],
+                           compact_cap=compact_cap, sel_cap=sel_cap,
+                           lazy=lazy)
+    for it in range(iters):
+        group = []
+        for kk in range(k):
+            tree = tree_from_sparse_packed(host[it, kk], config,
+                                           ds.thresholds)
+            tree.shrinkage = lr
+            group.append(tree)
+        booster.trees.append(group)
+    return loop_s
 
 
 # ---------------------------------------------------------------------------
@@ -681,9 +1290,28 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
     order. ``valid``: an optional ((indptr, indices, values), y) CSR holdout
     scored after every iteration (``valid_groups`` its query ids), with
     early stopping after ``early_stopping_round`` iterations without
-    improvement. Each iteration's wall time goes to the ``TrainRecorder``
-    series under engine ``gbdt_sparse``. Runs on ``device`` (default: CUDA,
-    or the device ``runtime.use_device`` asked for)."""
+    improvement. Runs on ``device`` (default: CUDA, or the device
+    ``runtime.use_device`` asked for).
+
+    The fit takes one of three routes, as the reference decides them, and
+    records it on the Booster (``Booster.route``) and in the obs
+    ``TrainRecorder`` (engine ``gbdt_sparse``):
+
+      - ``scan`` (``_scan_sparse_ok``, ``_train_scan_sparse``): every
+        iteration with no host read, one CUDA graph replay an iteration on
+        the card; the default there for gbdt, rf and goss without
+        validation, a log or a training metric, under the state gate;
+        ``MMLSPARK_TPU_SCAN_TRAIN=1`` forces it on the CPU. It records no
+        per-iteration step: nothing times an iteration inside its loop;
+      - ``fused``: the per-iteration loop over the fused grower
+        (``SparseFusedGrower``: one read a tree, a CUDA graph a tree on the
+        card), under the state gate on any device (the reference's
+        ``train_sparse`` passes the gate alone);
+      - ``host``: the same loop over the per-split host loop, above the
+        gate (``MMLSPARK_TPU_FUSED_TREE_BYTES`` moves it,
+        ``MMLSPARK_TPU_NO_FUSED_TREE=1`` forces this route).
+
+    The loop routes record each iteration's wall time."""
     if params.categorical_feature:
         raise ValueError(
             "categorical_feature is not supported on the sparse path "
@@ -737,6 +1365,29 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
     is_dart = params.boosting_type == "dart"
     is_goss = params.boosting_type == "goss"
     lr = 1.0 if is_rf else params.learning_rate
+
+    from ..obs.metrics import TrainRecorder
+
+    recorder = TrainRecorder("gbdt_sparse")
+    max_nodes = 2 * config.num_leaves - 1
+    use_fused = _fused_sparse_enabled(max_nodes, ds.total_bins)
+    if use_fused and _scan_sparse_ok(params, valid, log, dev_t):
+        row_masks, feat_masks, ok = _scan_precompute_masks(
+            params, rng, n, ds.num_features, np.asarray(y), is_rf)
+        if ok:
+            ccap, scap = _sparse_compact_cap(params, ds, row_masks, dev_t)
+            recorder.route("scan")
+            _train_scan_sparse(params, config, booster, ds, dev, labels,
+                               w_dev, scores, k, lr, row_masks, feat_masks,
+                               compact_cap=ccap, sel_cap=scap)
+            if is_rf:
+                rf_average(booster)
+            booster.route = "scan"
+            return booster
+
+    grower = SparseFusedGrower(ds, dev, config) if use_fused else None
+    booster.route = "fused" if use_fused else "host"
+    recorder.route(booster.route)
     metric = params.metric or default_metric(params.objective)
     stopper = EarlyStopping(metric, params.early_stopping_round)
     val_rows = val_y = val_scores = None
@@ -747,9 +1398,6 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
         if init_model is not None and init_model.trees:
             val_scores += val_rows.predict(init_model.trees, k)
 
-    from ..obs.metrics import TrainRecorder
-
-    recorder = TrainRecorder("gbdt_sparse")
     bag_mask = np.ones(n, dtype=bool)
     for it in range(params.num_iterations):
         it_t0 = time.perf_counter()
@@ -791,9 +1439,11 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
         for kk in range(k):
             gk = g if g.dim() == 1 else g[:, kk].contiguous()
             hk = h if h.dim() == 1 else h[:, kk].contiguous()
-            tree, leaf_of_row = grow_tree_sparse(ds, dev, gk, hk, config,
-                                                 row_mask=mask_dev,
-                                                 bin_mask=bin_mask)
+            if grower is not None:
+                tree, leaf_of_row = grower.grow(gk, hk, mask_dev, bin_mask)
+            else:
+                tree, leaf_of_row = _grow_tree_sparse_host(
+                    ds, dev, gk, hk, config, mask_dev, bin_mask)
             tree.shrinkage = shrink
             group.append(tree)
             scores[:, kk] += tree.value[leaf_of_row.cpu().numpy()] * shrink

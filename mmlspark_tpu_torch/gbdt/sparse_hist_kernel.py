@@ -10,6 +10,12 @@ its ``hist.csr`` variant and below 128k bins (a VMEM guard), and otherwise
 takes differences of one f32 prefix sum over all entries, because the TPU
 has no scatter. The port computes every flat histogram with K4.
 
+The stream's valid length is ``bin_end[-1]``: the stats may be wider (a
+static width, their row stride), as the scan's stream compacted to the
+selected rows' entries is, whose length is known only on the device. K4
+reads it there, and neither K4 nor its plain version reads or writes an
+entry at or past it.
+
 Both K4 and its plain version accumulate in f64 and round each cell to f32
 once, so the card and the CPU build the same histogram (up to a
 double-rounding tie) whatever order the entries are added in. That is also
@@ -18,9 +24,10 @@ f32 prefix of the hessians passes 10^7, where one ulp is 1.
 
 Bound on the H100: bytes. The function must read 12*nnz bytes of stats and
 4*TB of bin offsets and write 12*TB: ~0.18 ms at 49.7M entries and 1.31M
-bins against 3.35 TB/s. The kernel is a merge-path segmented reduction:
-the path of the TB bin-end markers merged with the nnz entries is cut into
-``shares`` equal shares, one persistent block each, so skewed bins and
+bins against 3.35 TB/s (for a compacted stream: its valid entries). The
+kernel is a merge-path segmented reduction: the path of the TB bin-end
+markers merged with the valid entries is cut into as many equal shares as
+the grid has persistent blocks (``shares`` of the width), so skewed bins and
 runs of empty bins cost the same; each block sums its bins in f64 in a
 fixed order and writes those it holds whole straight to the f32 output,
 and a second launch adds up the bins that cross shares, in share order.
@@ -44,9 +51,11 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from . import graphs
 
-#: kernel launches since the counter was last set to 0
+#: kernel launches since the counter was last set to 0 (graph replays too)
 launches = 0
+graphs.count_replays(__name__, "launches")
 
 #: CUDA launches in one call: the shares and the carries across them
 LAUNCHES_PER_CALL = 2
@@ -64,11 +73,19 @@ BLOCKS_PER_SM = 3
 def shares(nnz: int, tb: int) -> Tuple[int, int]:
     """(blocks, path items a block) of K4's grid for ``nnz`` entries and
     ``tb`` bins: at most ``SMS * BLOCKS_PER_SM`` blocks and at least one
-    tile a block, the ``nnz + tb`` items of the path split evenly."""
+    tile a block, the ``nnz + tb`` items of the path split evenly. The grid
+    is sized for the stats' width; the kernel splits the path of the valid
+    length over it (``share_of``), the same shares for a full stream."""
     total = nnz + tb
     blocks = max(1, min(SMS * BLOCKS_PER_SM, -(-total // TILE)))
     share = max(1, -(-total // blocks))
     return -(-total // share) if total else 1, share
+
+
+def share_of(blocks: int, nnz: int, tb: int) -> int:
+    """Path items a block of a ``blocks``-block grid takes for ``nnz`` valid
+    entries: the kernel's own division, on the device."""
+    return max(1, -(-(nnz + tb) // blocks))
 
 
 def merge_path_search(bin_end, nnz: int, diag: int, ti: int = 0,
@@ -112,9 +129,11 @@ def partitioned_histogram(data, bin_end) -> Tuple[np.ndarray, list]:
     thread order, where the kernel adds them in a shuffle tree."""
     data = np.asarray(data, dtype=np.float32)
     bin_end = [int(v) for v in np.asarray(bin_end)]
-    nnz, tb = data.shape[1], len(bin_end)
+    width, tb = data.shape[1], len(bin_end)
+    nnz = min(width, max(bin_end[-1], 0)) if tb else width
     out = np.full((3, tb), np.nan, dtype=np.float32)
-    n_shares, share = shares(nnz, tb)
+    n_shares, _ = shares(width, tb)
+    share = share_of(n_shares, nnz, tb)
     heads, tails = [], []
     for p in range(n_shares):
         d0, d1 = min(p * share, nnz + tb), min((p + 1) * share, nnz + tb)
@@ -180,9 +199,9 @@ def bin_ids(bin_end: torch.Tensor) -> torch.Tensor:
 
 def sparse_histogram_plain(data: torch.Tensor,
                            bin_end: torch.Tensor) -> torch.Tensor:
-    """[3, nnz] f32 stats + [TB] bin end offsets -> [3, TB] f32 sums: one
-    ``index_add_`` over the entries' flat bin ids, accumulated in f64 and
-    rounded to f32 once."""
+    """[3, width] f32 stats + [TB] bin end offsets -> [3, TB] f32 sums: one
+    ``index_add_`` over the flat bin ids of the first ``bin_end[-1]``
+    entries, accumulated in f64 and rounded to f32 once."""
     ids = bin_ids(bin_end)
     out = torch.zeros(3, bin_end.shape[0], dtype=torch.float64,
                       device=data.device)
@@ -213,7 +232,7 @@ def _check_inputs(data: torch.Tensor, bin_end: torch.Tensor) -> None:
 def _fn():
     fn = _kernels.lib("sparse_hist").mmlspark_sparse_hist
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -222,27 +241,29 @@ def _fn():
 def sparse_histogram_cuda(data: torch.Tensor,
                           bin_end: torch.Tensor) -> torch.Tensor:
     """Launch K4 on PyTorch's current stream; returns [3, TB] f32. The
-    entries must be bin-sorted with ``bin_end[-1] == nnz``."""
+    entries must be bin-sorted, their valid length ``bin_end[-1]`` at most
+    the stats' width (read on the device: no host read)."""
     global launches
     _check_inputs(data, bin_end)
-    nnz, tb = data.shape[1], bin_end.shape[0]
+    width, tb = data.shape[1], bin_end.shape[0]
     dev = data.device
     out = torch.empty(3, tb, dtype=torch.float32, device=dev)
     if tb:
-        blocks, share = shares(nnz, tb)
+        blocks, _ = shares(width, tb)
         keys = torch.empty(2 * blocks, dtype=torch.int32, device=dev)
         vals = torch.empty(6 * blocks, dtype=torch.float64, device=dev)
         p = _kernels.ptr
-        code = _fn()(p(data), p(bin_end), p(out), p(keys), p(vals), nnz, tb,
-                     blocks, share, _kernels.stream_ptr(dev))
+        code = _fn()(p(data), p(bin_end), p(out), p(keys), p(vals), width,
+                     tb, blocks, _kernels.stream_ptr(dev))
         launches += 1
         _kernels.check(code, "sparse_hist kernel launch")
     return out
 
 
 def sparse_histogram(data: torch.Tensor, bin_end: torch.Tensor) -> torch.Tensor:
-    """[3, nnz] bin-sorted masked (grad, hess, count) -> [3, TB] per-bin sums:
-    the kernel for CUDA tensors, the plain version for CPU tensors."""
+    """[3, width] bin-sorted masked (grad, hess, count), ``bin_end[-1]`` of
+    them valid -> [3, TB] per-bin sums: the kernel for CUDA tensors, the
+    plain version for CPU tensors."""
     if data.device.type == "cuda":
         return sparse_histogram_cuda(data, bin_end)
     if data.device.type == "cpu":

@@ -398,6 +398,27 @@ def grow_tree(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                         config, bin_mapper), node_of_row
 
 
+def leaf_values(sums, feature, config: GrowerConfig):
+    """Leaf values -T(G) / (H + l2) of node sums, T the soft threshold by
+    l1, clipped by ``max_delta_step``, 0 at internal nodes: in f64 for
+    numpy sums (the saved trees'), in f32 with the f32 hyper-parameters
+    for device sums (the scans' running scores)."""
+    if isinstance(sums, np.ndarray):
+        l1, l2 = config.lambda_l1, config.lambda_l2
+        g_thr = np.sign(sums[:, 0]) * np.maximum(np.abs(sums[:, 0]) - l1,
+                                                 0.0)
+        value = np.where(feature < 0, -g_thr / (sums[:, 1] + l2), 0.0)
+    else:
+        l1 = float(np.float32(config.lambda_l1))
+        l2 = float(np.float32(config.lambda_l2))
+        g_thr = torch.sign(sums[:, 0]) * torch.clamp(
+            torch.abs(sums[:, 0]) - l1, min=0.0)
+        value = torch.where(feature < 0, -g_thr / (sums[:, 1] + l2), 0.0)
+    if config.max_delta_step > 0:
+        value = value.clip(-config.max_delta_step, config.max_delta_step)
+    return value
+
+
 def _finish_tree(feature, tbin, default_left, left, right, gain, sums,
                  words, config: GrowerConfig, bin_mapper) -> Tree:
     """A ``Tree`` from its node tables (``sums``: the f32 (grad, hess,
@@ -408,11 +429,7 @@ def _finish_tree(feature, tbin, default_left, left, right, gain, sums,
     feature = np.asarray(feature, dtype=np.int32)
     tbin = np.asarray(tbin, dtype=np.int32)
     s64 = np.asarray(sums, dtype=np.float32).astype(np.float64)
-    l1, l2 = config.lambda_l1, config.lambda_l2
-    g_thr = np.sign(s64[:, 0]) * np.maximum(np.abs(s64[:, 0]) - l1, 0.0)
-    value = np.where(feature < 0, -g_thr / (s64[:, 1] + l2), 0.0)
-    if config.max_delta_step > 0:
-        value = np.clip(value, -config.max_delta_step, config.max_delta_step)
+    value = leaf_values(s64, feature, config)
     value[0] = 0.0 if nn == 1 else value[0]
     cat_sets, words_np = cat_sets_from_words(
         np.asarray(words).astype(np.uint32) if words is not None else None,
@@ -670,45 +687,27 @@ class FusedGrower:
 
     ``grow`` grows a tree as ``_grow_tree_fused`` does. On the card the
     first call runs eagerly, which also warms up every kernel; the second
-    captures the whole tree in a CUDA graph (``graphs.Captured``) over
-    static copies of its inputs, and every later call copies its inputs in
-    and replays. On the CPU every call runs eagerly. A returned
-    ``node_of_row`` of a replay is the graph's own output: use it before
-    the next ``grow``."""
+    captures the whole tree in a CUDA graph over static copies of its
+    inputs, and every later call copies its inputs in and replays
+    (``graphs.Replayer``, ``run``). On the CPU every call runs eagerly. A
+    returned ``node_of_row`` of a replay is the graph's own output: use it
+    before the next ``grow``."""
 
     def __init__(self, bins_fm: torch.Tensor, num_bins: int,
                  config: GrowerConfig, bin_mapper, cat_args=None):
-        self.bins_fm, self.num_bins = bins_fm, num_bins
+        from . import graphs
+
         self.config, self.bin_mapper, self.cat_args = config, bin_mapper, \
             cat_args
-        self.capture = bins_fm.is_cuda
-        self.calls = 0
-        self._graphs: Dict[bool, tuple] = {}
+        self.run = graphs.Replayer(
+            lambda g, h, m, fm: _fused_tables(bins_fm, g, h, m, None,
+                                              num_bins, config, fm, cat_args),
+            bins_fm.is_cuda)
 
     def grow(self, grad: torch.Tensor, hess: torch.Tensor,
              row_mask: torch.Tensor,
              feature_mask: Optional[torch.Tensor] = None
              ) -> Tuple[Tree, torch.Tensor]:
-        from . import graphs
-
-        self.calls += 1
-        if not self.capture or self.calls == 1:
-            return _grow_tree_fused(self.bins_fm, grad, hess, row_mask,
-                                    self.num_bins, self.config,
-                                    self.bin_mapper, feature_mask,
-                                    cat_args=self.cat_args)
-        key = feature_mask is not None
-        inputs = (grad, hess, row_mask, feature_mask)
-        if key not in self._graphs:
-            static = [x.clone() if x is not None else None for x in inputs]
-            cap = graphs.Captured(lambda: _fused_tables(
-                self.bins_fm, *static[:3], None, self.num_bins, self.config,
-                static[3], self.cat_args))
-            self._graphs[key] = (static, cap)
-        else:
-            static, cap = self._graphs[key]
-            for dst, src in zip(static, inputs):
-                if dst is not None:
-                    dst.copy_(src)
-        return _read_tree(*cap.replay(), self.config, self.bin_mapper,
+        return _read_tree(*self.run(grad, hess, row_mask, feature_mask),
+                          self.config, self.bin_mapper,
                           self.cat_args is not None)

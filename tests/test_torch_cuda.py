@@ -403,12 +403,14 @@ def test_ring_readback_stream_keeps_order_and_bits(cuda_device):
 def test_goss_fit_launches_k2_and_grows_the_cpu_first_tree(cuda_device,
                                                           monkeypatch):
     """GOSS at 524,288 rows on the device route (the native engine would
-    take a fit this small): the fused grower compacts the small child
-    through K2, and the first tree, grown from the base score's tied
-    gradients, equals a CPU refit's (the per-split host route)."""
+    take a fit this small): the scan selects its rows on the device and K2
+    compacts them (and each small child), and the first tree, grown from
+    the base score's tied gradients, equals a CPU refit's on the same route
+    (the forced scan)."""
     from mmlspark_tpu_torch.gbdt import booster
 
     monkeypatch.setenv("MMLSPARK_TPU_NATIVE_TRAIN", "0")
+    monkeypatch.setattr(booster, "scan_loop_sync_mode", "error")
     rng = np.random.default_rng(7)
     n = 524_288
     X = rng.standard_normal((n, 8))
@@ -418,11 +420,13 @@ def test_goss_fit_launches_k2_and_grows_the_cpu_first_tree(cuda_device,
     select_kernel.launches = 0
     hist_kernel.launches = hist_kernel.count_launches = 0
     card = booster.train(params, X, y.astype(np.float64), device="cuda")
-    assert card.route == "fused"
+    assert card.route == "scan"
+    assert (booster.last_scan_rows == int(n * 0.2) + int(n * 0.1)).all()
     assert select_kernel.launches > 0 and hist_kernel.launches > 0
     assert hist_kernel.count_launches > 0
+    monkeypatch.setenv("MMLSPARK_TPU_SCAN_TRAIN", "1")
     cpu = booster.train(params, X, y.astype(np.float64), device="cpu")
-    assert cpu.route == "host"
+    assert cpu.route == "scan"
     a, b = card.trees[0][0], cpu.trees[0][0]
     for fld in ("feature", "threshold_bin", "left", "right", "default_left",
                 "count"):
@@ -682,7 +686,7 @@ def test_captured_tree_equals_eager_and_counters_count_replays(cuda_device):
     mapper, (bins, g, h, m) = _grower_inputs(cuda_device, seed=6)
     grower = tree.FusedGrower(bins, mapper.max_num_bins,
                               tree.GrowerConfig(num_leaves=31), mapper)
-    assert grower.capture
+    assert grower.run.capture
     hk = ("mmlspark_tpu_torch.gbdt.hist_kernel", "count_launches")
     sk = ("mmlspark_tpu_torch.gbdt.select_kernel", "launches")
     assert hk in graphs.COUNTERS and sk in graphs.COUNTERS
@@ -821,3 +825,180 @@ def test_two_replicas_on_one_card_serve_like_the_serial_server(cuda_device, layo
     assert replies[0] == replies[1]
     if layout == "csr":
         assert min(gather_launches) > 0
+
+
+# ------------------------------------------------------- the sparse routes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("valid", [0, 1, "w - 1", "w"])
+def test_sparse_hist_compacted_stream_matches_plain(cuda_device, valid):
+    """K4 on a stream wider than its valid length ``bin_end[-1]`` (the
+    scan's compacted stream), the entries past it NaN: neither K4 nor its
+    plain version reads them; counts exact, g/h within 1e-5 * sum|v| +
+    1e-6, and bit for bit from call to call."""
+    w, tb = 1_000_003, 40_001
+    rng = np.random.default_rng(21)
+    ids = np.sort(rng.integers(0, tb, w))
+    v = {"w - 1": w - 1, "w": w}.get(valid, valid)
+    bin_end = np.minimum(np.searchsorted(ids, np.arange(tb), side="right"), v)
+    data = rng.standard_normal((3, w)).astype(np.float32)
+    data[2] = 1.0
+    data[:, v:] = np.nan
+    d = torch.from_numpy(data).to(cuda_device)
+    be = torch.from_numpy(bin_end.astype(np.int32)).to(cuda_device)
+    k = sparse_hist_kernel.sparse_histogram_cuda(d, be)
+    p = sparse_hist_kernel.sparse_histogram_plain(d, be)
+    scale = sparse_hist_kernel.sparse_histogram_plain(d.abs(), be)
+    assert torch.equal(k[2], p[2]) and bool(torch.isfinite(k).all())
+    assert bool(((k[:2] - p[:2]).abs() <= 1e-5 * scale[:2] + 1e-6).all())
+    assert torch.equal(k, sparse_hist_kernel.sparse_histogram_cuda(d, be))
+
+
+@pytest.mark.cuda
+def test_threefry_draws_and_topk_card_match_cpu(cuda_device):
+    """The GOSS scan's draws and selection on the card, bit for bit the
+    CPU's: 20 keys, a 2,097,152-row uniform draw, and the exact top-k of it
+    and of signed keys with an exclusion mask."""
+    from mmlspark_tpu_torch.core import threefry
+    from mmlspark_tpu_torch.gbdt import sparse
+
+    n = 2_097_152
+    kc = threefry.split(threefry.prng_key(7, cuda_device), 20)
+    kp = threefry.split(threefry.prng_key(7), 20)
+    assert torch.equal(kc.cpu(), kp)
+    uc, up = threefry.uniform(kc[19], n), threefry.uniform(kp[19], n)
+    assert torch.equal(uc.cpu(), up)
+    excl = torch.from_numpy(np.random.default_rng(3).random(n) < 0.2)
+    for key_c, key_p in ((uc, up), (uc - 0.5, up - 0.5)):
+        for k, ex in ((419_430, None), (209_715, excl)):
+            mc = sparse._exact_topk_mask(
+                key_c, k, n, None if ex is None else ex.to(cuda_device))
+            mp = sparse._exact_topk_mask(key_p, k, n, ex)
+            assert torch.equal(mc.cpu(), mp) and int(mp.sum()) == k
+
+
+def _sparse_case(device, n=60_000, width=1 << 12, seed=13):
+    from mmlspark_tpu_torch.gbdt import sparse
+
+    rng = np.random.default_rng(seed)
+    per_row = rng.poisson(30, n).clip(1)
+    row_of = np.repeat(np.arange(n), per_row)
+    idx = (width * rng.random(len(row_of)) ** 3).astype(np.int64)
+    key = np.unique(row_of * width + idx)
+    row_of, idx = key // width, key % width
+    vals = 1.0 + rng.integers(0, 4, len(key))
+    indptr = np.searchsorted(row_of, np.arange(n + 1))
+    sig = np.bincount(row_of[idx == 5], minlength=n) - np.bincount(
+        row_of[idx == 300], minlength=n)
+    y = (sig + rng.normal(0, 0.5, n) > 0).astype(np.float64)
+    ds = sparse.SparseDataset.from_csr(indptr, idx, vals, width)
+    return ds, y
+
+
+_SPARSE_FIELDS = ("feature", "threshold_bin", "left", "right", "default_left",
+                  "count")
+
+
+@pytest.mark.cuda
+def test_captured_sparse_tree_equals_eager_and_counts_replays(cuda_device):
+    """``SparseFusedGrower`` grows its first tree eagerly, captures the
+    second in a CUDA graph and replays it from then on: every tree equal to
+    the eager one, one host read a tree, and K4's launch counter counting
+    the same launches on a replay as eagerly."""
+    from mmlspark_tpu_torch.gbdt import graphs, sparse
+    from mmlspark_tpu_torch.gbdt.tree import GrowerConfig
+
+    ds, y = _sparse_case(cuda_device)
+    dev = sparse.device_arrays(ds, cuda_device)
+    g = torch.from_numpy((0.5 - y).astype(np.float32)).to(cuda_device)
+    h = torch.full_like(g, 0.25)
+    m = torch.from_numpy(np.random.default_rng(2).random(len(y)) < 0.8).to(
+        cuda_device)
+    grower = sparse.SparseFusedGrower(ds, dev, GrowerConfig(num_leaves=31))
+    assert grower.run.capture
+    k4 = ("mmlspark_tpu_torch.gbdt.sparse_hist_kernel", "launches")
+    assert k4 in graphs.COUNTERS
+    trees, counts = [], []
+    for _ in range(4):
+        graphs.set_counters({c: 0 for c in graphs.COUNTERS})
+        reads = sparse.host_reads
+        t, rows = grower.grow(g, h, m)
+        assert sparse.host_reads == reads + 1
+        trees.append((t, rows.clone()))
+        counts.append(graphs.read_counters())
+    assert counts[0][k4] == 31
+    assert all(c == counts[0] for c in counts), counts
+    for t, rows in trees[1:]:
+        for fld in _SPARSE_FIELDS + ("gain", "value", "threshold"):
+            np.testing.assert_array_equal(getattr(t, fld),
+                                          getattr(trees[0][0], fld))
+        assert torch.equal(rows, trees[0][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gbdt", "goss_compacted", "goss_lazy"])
+def test_sparse_scan_makes_no_host_read_and_matches_the_cpu_scan(
+        cuda_device, monkeypatch, case):
+    """The sparse scan on the card: its loop under
+    ``set_sync_debug_mode("error")``, K4 counted through the replays, the
+    compaction and lazy routing the case forces, and the trees of the CPU's
+    forced scan on the same data (first tree bit for bit, the rest within
+    the structure gate)."""
+    from mmlspark_tpu_torch.gbdt import booster, sparse
+    from mmlspark_tpu_torch.gbdt.booster import TrainParams
+
+    monkeypatch.setattr(booster, "scan_loop_sync_mode", "error")
+    extra = {}
+    if case != "gbdt":
+        extra = dict(boosting_type="goss", top_rate=0.2, other_rate=0.1)
+        monkeypatch.setenv("MMLSPARK_TPU_SPARSE_COMPACT", "1")
+    if case == "goss_compacted":
+        monkeypatch.setenv("MMLSPARK_TPU_NO_SPARSE_LAZY_ROUTE", "1")
+    if case == "goss_lazy":
+        extra["max_depth"] = 8
+    ds, y = _sparse_case(cuda_device)
+    params = TrainParams(objective="binary", num_iterations=4, num_leaves=31,
+                         min_data_in_leaf=20, **extra)
+    sparse_hist_kernel.launches = 0
+    card = sparse.train_sparse(params, ds, y, device="cuda")
+    assert card.route == "scan"
+    assert sparse_hist_kernel.launches == 4 * 31
+    stats = dict(sparse.last_scan_stats)
+    assert bool(stats["compact_cap"]) == (case != "gbdt")
+    assert stats["lazy"] == (case == "goss_lazy")
+    monkeypatch.setenv("MMLSPARK_TPU_SCAN_TRAIN", "1")
+    cpu = sparse.train_sparse(params, ds, y, device="cpu")
+    assert cpu.route == "scan"
+    for i, (gc, gp) in enumerate(zip(card.trees, cpu.trees)):
+        for fld in _SPARSE_FIELDS:
+            np.testing.assert_array_equal(getattr(gc[0], fld),
+                                          getattr(gp[0], fld))
+        if i == 0:
+            np.testing.assert_array_equal(gc[0].value, gp[0].value)
+
+
+@pytest.mark.cuda
+def test_sparse_per_split_route_above_the_gate_matches_cpu(cuda_device,
+                                                           monkeypatch):
+    """Above the grower-state gate (``MMLSPARK_TPU_FUSED_TREE_BYTES``) a
+    sparse fit on the card takes the per-split host loop (route ``host``,
+    two host reads a split at most) and grows the CPU's trees on it."""
+    from mmlspark_tpu_torch.gbdt import sparse
+    from mmlspark_tpu_torch.gbdt.booster import TrainParams
+
+    monkeypatch.setenv("MMLSPARK_TPU_FUSED_TREE_BYTES", "0")
+    ds, y = _sparse_case(cuda_device)
+    params = TrainParams(objective="binary", num_iterations=2, num_leaves=15,
+                         min_data_in_leaf=20)
+    reads = sparse.host_reads
+    card = sparse.train_sparse(params, ds, y, device="cuda")
+    assert card.route == "host"
+    splits = sum(t.num_leaves - 1 for g in card.trees for t in g)
+    assert sparse.host_reads - reads <= 2 * splits + 2 * len(card.trees)
+    cpu = sparse.train_sparse(params, ds, y, device="cpu")
+    assert cpu.route == "host"
+    for gc, gp in zip(card.trees, cpu.trees):
+        for fld in _SPARSE_FIELDS:
+            np.testing.assert_array_equal(getattr(gc[0], fld),
+                                          getattr(gp[0], fld))

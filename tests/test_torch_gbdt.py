@@ -1486,7 +1486,7 @@ def test_fused_grower_equals_host_loop_and_reference(ref_device_path, case):
     pcfg = tree.GrowerConfig(**kw)
     assert tree.device_tier_caps(n) == (20480, 10240, 5120)
     grower = tree.FusedGrower(args[0], nb, pcfg, pmapper, pcat)
-    assert not grower.capture          # CPU tensors: eager, no graph
+    assert not grower.run.capture      # CPU tensors: eager, no graph
     ft, frows = grower.grow(*args[1:], pfm)
     gt, grows = tree._grow_tree_fused(*args, nb, pcfg, pmapper, pfm,
                                       cat_args=pcat)
@@ -1540,8 +1540,14 @@ def _scan_case(name):
     if name == "binary":
         d = load_breast_cancer()
         return d.data, d.target * 1.0, dict(base, objective="binary")
+    if name == "goss_binary":
+        d = load_breast_cancer()
+        return d.data, d.target * 1.0, dict(base, objective="binary",
+                                            boosting_type="goss")
     d = load_wine()
     kw = dict(base, objective="multiclass", num_class=3)
+    if name == "goss_multiclass":
+        kw.update(boosting_type="goss", top_rate=0.3, other_rate=0.2)
     if name == "rf_bagging_feature_fraction":
         kw.update(boosting_type="rf", bagging_fraction=0.7, bagging_freq=1,
                   feature_fraction=0.6)
@@ -1549,15 +1555,18 @@ def _scan_case(name):
 
 
 @pytest.mark.parametrize("name", ["binary", "rf_bagging_feature_fraction",
-                                  "multiclass", "categorical"])
+                                  "multiclass", "categorical", "goss_binary",
+                                  "goss_multiclass"])
 def test_forced_scan_matches_reference_scan(monkeypatch, name):
     """``MMLSPARK_TPU_SCAN_TRAIN=1`` on both packages (the whole-run scan on
     the CPU: masks drawn up front, device-f32 leaf values into a Kahan f32
-    score, trees fetched once), with the gates of
-    ``test_full_fit_matches_reference``: trees identical in structure,
-    leaf values rtol 1e-5, raw predictions within 1e-6. The benchmark CSV's
-    parameters (5 leaves, 20 rows a leaf), 5 iterations; the rf case bags
-    on wine (breast_cancer's bagging has an exact tie, see _FITS)."""
+    score, trees fetched once; GOSS selected in the scan by exact top-k
+    over the Threefry draws and compacted into ``goss_cap`` columns), with
+    the gates of ``test_full_fit_matches_reference``: trees identical in
+    structure, leaf values rtol 1e-5, raw predictions within 1e-6. The
+    benchmark CSV's parameters (5 leaves, 20 rows a leaf), 5 iterations;
+    the rf case bags on wine (breast_cancer's bagging has an exact tie, see
+    _FITS)."""
     monkeypatch.setenv("MMLSPARK_TPU_SCAN_TRAIN", "1")
     X, y, kw = _scan_case(name)
     ref = ref_booster.train(ref_booster.TrainParams(**kw), X, y)
@@ -1568,6 +1577,34 @@ def test_forced_scan_matches_reference_scan(monkeypatch, name):
                                rtol=1e-6, atol=1e-6)
     if kw.get("boosting_type") == "rf":
         assert port.trees[-1][0].shrinkage == 1.0 / len(port.trees)
+    if kw.get("boosting_type") == "goss":
+        n = len(y)
+        want = int(n * kw.get("top_rate", 0.2)) + int(n * kw.get("other_rate",
+                                                                  0.1))
+        assert (booster.last_scan_rows == want).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 42, 2 ** 31 - 1])
+def test_threefry_draws_match_jax_bitwise(seed):
+    """``core/threefry.py`` bit for bit the JAX of this environment:
+    ``PRNGKey``, ``split`` into 1, 5 and 20 keys, and ``uniform`` of n in
+    {1, 7, 1000, 65,537} rows from every key."""
+    import jax
+
+    from mmlspark_tpu_torch.core import threefry
+
+    rk, pk = jax.random.PRNGKey(seed), threefry.prng_key(seed)
+    np.testing.assert_array_equal(np.asarray(rk).astype(np.int64), pk.numpy())
+    for num in (1, 5, 20):
+        rs, ps = jax.random.split(rk, num), threefry.split(pk, num)
+        np.testing.assert_array_equal(np.asarray(rs).astype(np.int64),
+                                      ps.numpy())
+        for n in (1, 7, 1000, 65_537):
+            for j in sorted({0, num - 1}):
+                ru = np.asarray(jax.random.uniform(rs[j], (n,)))
+                pu = threefry.uniform(ps[j], n).numpy()
+                np.testing.assert_array_equal(ru.view(np.int32),
+                                              pu.view(np.int32))
 
 
 def test_scan_masks_are_drawn_as_the_reference_draws_them():
@@ -1598,7 +1635,8 @@ _ROUTE_PARAMS = [
     dict(boosting_type="dart"), dict(objective="lambdarank"),
     dict(categorical_feature=(1,)), dict(max_bin=511), dict(num_leaves=1),
     dict(num_iterations=400), dict(num_class=3, objective="multiclass"),
-    dict(max_bin_by_feature=(63, 300, 63)),
+    dict(max_bin_by_feature=(63, 300, 63)), dict(boosting_type="goss"),
+    dict(boosting_type="goss", num_class=3, objective="multiclass"),
 ]
 _ROUTE_ENVS = [
     {}, {"MMLSPARK_TPU_NATIVE_TRAIN": "0"}, {"MMLSPARK_TPU_NATIVE_TRAIN": "1"},
@@ -1613,8 +1651,7 @@ _ROUTE_ENVS = [
 def test_route_decisions_match_the_reference(monkeypatch, env):
     """``_native_train_ok``, ``_scan_train_ok`` and ``_fused_tree_enabled``
     decide as the reference's do on the CPU for the same parameters and
-    environment; goss is the one planned difference (the port keeps it off
-    the scan until ROADMAP A step 4e)."""
+    environment, goss included (it joins the scan in both)."""
     for name, value in _ROUTE_ENVS[env].items():
         monkeypatch.setenv(name, value)
     for kw in _ROUTE_PARAMS:
@@ -1629,9 +1666,6 @@ def test_route_decisions_match_the_reference(monkeypatch, env):
                                           "cpu") == \
                 ref_booster._scan_train_ok(rp, rp.objective, valid, log,
                                            None, ck), kw
-    goss = booster.TrainParams(boosting_type="goss")
-    assert not booster._scan_train_ok(goss, "regression", None, None, None,
-                                      "cpu")
     for shape in ((61, 28, 256), (61, 2000, 4096), (3, 1, 2)):
         assert tree._fused_tree_enabled(*shape, "cpu") == \
             ref_tree._fused_tree_enabled(*shape), shape

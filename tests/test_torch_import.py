@@ -63,8 +63,39 @@ def test_clean_import_pulls_in_no_jax_and_no_reference():
                 "mmlspark_tpu_torch.native_loader",
                 "mmlspark_tpu_torch.core.profiling",
                 "mmlspark_tpu_torch.gbdt.graphs",
-                "mmlspark_tpu_torch.gbdt.booster"):
+                "mmlspark_tpu_torch.gbdt.booster",
+                "mmlspark_tpu_torch.core.threefry"):
         assert mod in out["imported"]
+
+
+_DRAW_PROBE = r"""
+import json, sys
+from mmlspark_tpu_torch.core import threefry
+keys = threefry.split(threefry.prng_key(42), 5)
+u = threefry.uniform(keys[3], 1000)
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "jaxlib", "mmlspark_tpu")
+             or k.startswith(("jax.", "jaxlib.", "mmlspark_tpu.")))
+print(json.dumps({"bad": bad, "keys": keys.tolist(),
+                  "bits": u.view(__import__("torch").int32).tolist()}))
+"""
+
+
+def test_threefry_draws_in_a_process_without_jax():
+    """The GOSS scan's random draws (``core/threefry.py``) run in a fresh
+    process that imports neither ``jax`` nor ``mmlspark_tpu``, and give
+    the bits JAX gives here."""
+    import jax
+
+    proc = subprocess.run([sys.executable, "-c", _DRAW_PROBE], cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    keys = jax.random.split(jax.random.PRNGKey(42), 5)
+    assert out["keys"] == np.asarray(keys).astype(np.int64).tolist()
+    want = np.asarray(jax.random.uniform(keys[3], (1000,))).view(np.int32)
+    assert out["bits"] == want.tolist()
 
 
 @pytest.mark.parametrize("module", ["mmlspark_tpu_torch.core.fusion",

@@ -415,7 +415,8 @@ def test_grow_tree_sparse_matches_reference(fused):
         row_mask=jnp.asarray(mask), bin_mask=jnp.asarray(bm), use_fused=fused)
     pt, prows = sparse.grow_tree_sparse(
         pds, pdev, torch.from_numpy(g), torch.from_numpy(h), GrowerConfig(**kw),
-        row_mask=torch.from_numpy(mask), bin_mask=torch.from_numpy(bm))
+        row_mask=torch.from_numpy(mask), bin_mask=torch.from_numpy(bm),
+        use_fused=fused)
     assert pt.num_leaves == kw["num_leaves"]
     _assert_same_tree(rt, pt)
     np.testing.assert_allclose(pt.gain, rt.gain, rtol=HIST_CSR_TOL)
@@ -443,12 +444,254 @@ def test_route_rows_matches_reference():
 
 
 def test_state_gate_raises_for_the_unported_host_loop(monkeypatch):
-    _, _, pds = _datasets(300, 1 << 7, 8, seed=15)
+    """Above the grower-state gate (``MMLSPARK_TPU_FUSED_TREE_BYTES``) the
+    tree grows on the per-split host loop, on any device, as in the
+    reference: it no longer raises, and its tree and routing are the
+    reference's (the gate's tolerances, ``_assert_same_tree``)."""
+    _, rds, pds = _datasets(300, 1 << 7, 8, seed=15)
+    rdev = ref_sparse._device_arrays(rds)
     pdev = sparse.device_arrays(pds, "cpu")
-    monkeypatch.setattr(sparse, "_FUSED_SPARSE_BUDGET", 1024)
-    g = torch.zeros(pds.num_rows)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        sparse.grow_tree_sparse(pds, pdev, g, g + 1.0, GrowerConfig())
+    monkeypatch.setenv("MMLSPARK_TPU_FUSED_TREE_BYTES", "1024")
+    g = np.random.default_rng(15).standard_normal(pds.num_rows).astype(np.float32)
+    h = np.ones(pds.num_rows, np.float32)
+    kw = dict(num_leaves=5, min_data_in_leaf=10)
+    assert not sparse._fused_sparse_enabled(9, pds.total_bins)
+    before = sparse.host_reads
+    pt, prows = sparse.grow_tree_sparse(pds, pdev, torch.from_numpy(g),
+                                        torch.from_numpy(h), GrowerConfig(**kw),
+                                        use_fused=None)
+    # the root's totals and its evaluation, then one a child evaluated
+    assert 2 < sparse.host_reads - before <= 2 + 2 * (pt.num_leaves - 1)
+    rt, rrows = ref_sparse.grow_tree_sparse(rds, rdev, jnp.asarray(g),
+                                            jnp.asarray(h), RefGrowerConfig(**kw))
+    _assert_same_tree(rt, pt)
+    np.testing.assert_array_equal(np.asarray(rrows), prows.numpy())
+
+
+def test_per_split_loop_matches_reference_on_a_gain_tie():
+    """The per-split host loop against the reference's
+    (``grow_tree_sparse(use_fused=False)``) where the root's two children
+    tie on gain exactly: mirrored gradients in two halves, the right half
+    smaller by count (a left run of zero-hessian rows), so the loop pushes
+    the right child first and pops it first (push order), where the fused
+    grower's ``argmax`` takes the lower node id. Trees and routing equal
+    the reference's loop (``_assert_same_tree``); the fused tree is the
+    other one."""
+    m, z = 50, 20
+    cols, g = [], []
+    for part, grad in (("P", 6.0), ("Q", 4.0), ("Z", 0.0), ("P'", -6.0),
+                       ("Q'", -4.0)):
+        count = z if part == "Z" else m
+        feats = {"P": [1], "Q": [], "Z": [], "P'": [0, 2], "Q'": [0]}[part]
+        cols += [feats] * count
+        g += [grad] * count
+    n = len(cols)
+    h = np.array([0.0 if v == 0.0 else 1.0 for v in g], np.float32)
+    g = np.asarray(g, np.float32)
+    indptr = np.cumsum([0] + [len(c) for c in cols])
+    idx = np.concatenate([np.asarray(c, np.int64) for c in cols])
+    vals = np.ones(len(idx))
+    rds = ref_sparse.SparseDataset.from_csr(indptr, idx, vals, 3)
+    pds = convert.sparse_dataset_from_reference(rds)
+    kw = dict(num_leaves=3, min_data_in_leaf=5, lambda_l2=0.0)
+    rt, rrows = ref_sparse.grow_tree_sparse(
+        rds, ref_sparse._device_arrays(rds), jnp.asarray(g), jnp.asarray(h),
+        RefGrowerConfig(**kw), use_fused=False)
+    pdev = sparse.device_arrays(pds, "cpu")
+    args = (pds, pdev, torch.from_numpy(g), torch.from_numpy(h),
+            GrowerConfig(**kw))
+    pt, prows = sparse.grow_tree_sparse(*args, use_fused=False)
+    _assert_same_tree(rt, pt)
+    np.testing.assert_array_equal(np.asarray(rrows), prows.numpy())
+    assert rt.feature[0] == 0 and rt.feature[2] == 2     # the right child
+    ft, _ = sparse.grow_tree_sparse(*args, use_fused=True)
+    assert ft.feature[1] == 1 and ft.feature[2] == -1    # the left child
+    assert n == 4 * m + z
+
+
+@pytest.mark.parametrize("case", ["ties", "exclude", "all_equal", "seed_0",
+                                  "seed_1", "seed_2"])
+def test_exact_topk_mask_matches_reference(case):
+    """``_exact_topk_mask`` bit for bit the reference's: heavily tied keys
+    (multiples of 1/8), an excluded half, all-equal keys (the tie the
+    reference's >=-threshold mask failed on), and seeded random keys with
+    and without an exclusion mask, at every k from 0 past n."""
+    rng = np.random.default_rng(
+        {"ties": 3, "exclude": 5, "all_equal": 7}.get(case)
+        if not case.startswith("seed") else 100 + int(case[-1]))
+    n = {"ties": 257, "exclude": 128, "all_equal": 50}.get(case, 4099)
+    key = rng.random(n).astype(np.float32)
+    if case == "ties":
+        key = (np.round(key * 8) / 8).astype(np.float32)
+    elif case == "all_equal":
+        key[:] = 0.25
+    elif case.startswith("seed"):
+        key = (rng.standard_normal(n) * 10.0 ** rng.integers(-3, 3)).astype(
+            np.float32)                     # signed: the |key| is ranked
+    excl = [None]
+    if case == "exclude":
+        excl = [np.arange(n) % 2 == 0]
+    elif case.startswith("seed"):
+        excl = [None, rng.random(n) < 0.3]
+    for ex in excl:
+        for k in (0, 1, 7, 63, n // 3, n - 1, n, n + 5):
+            r = np.asarray(ref_sparse._exact_topk_mask(
+                jnp.asarray(key), k, n,
+                exclude=None if ex is None else jnp.asarray(ex)))
+            p = sparse._exact_topk_mask(
+                torch.from_numpy(key), k, n,
+                exclude=None if ex is None else torch.from_numpy(ex))
+            np.testing.assert_array_equal(r, p.numpy(), err_msg=f"k={k}")
+
+
+def test_assign_leaves_all_rows_matches_eager_routing():
+    """The lazy-routing traversal lands every row on the node per-split
+    routing put it in, for a grown tree (the reference's own check), at a
+    depth bound and at ``num_leaves - 1`` levels."""
+    X, y = synth_sparse(500, 12, density=0.35, seed=33)
+    indptr, idx, vals = dense_to_csr(X)
+    pds = sparse.SparseDataset.from_csr(indptr, idx, vals, X.shape[1])
+    dev = sparse.device_arrays(pds, "cpu")
+    from mmlspark_tpu_torch.gbdt.booster import grad_hess
+
+    n = pds.num_rows
+    g, h = grad_hess("binary", torch.zeros(n), torch.as_tensor(y).float())
+    mask = torch.ones(n, dtype=torch.bool)
+    for kw in (dict(num_leaves=7, min_data_in_leaf=5),
+               dict(num_leaves=15, min_data_in_leaf=5, max_depth=3)):
+        cfg = GrowerConfig(**kw)
+        out = sparse._grow_tree_sparse_body(
+            dev, g, h, mask, None, sparse._masked_totals(g, h, mask), cfg)
+        steps = cfg.max_depth if cfg.max_depth > 0 else cfg.num_leaves - 1
+        lazy = sparse._assign_leaves_all_rows(dev, out, steps)
+        np.testing.assert_array_equal(lazy.numpy(),
+                                      out["node_of_row"].numpy())
+        assert int(out["n_nodes"]) > 3
+
+
+@pytest.mark.parametrize("width", [0, 1, "w - 1", "w"])
+def test_sparse_hist_reads_only_the_device_held_length(k4_tiles, width):
+    """K4's compacted-stream contract, emulated (``partitioned_histogram``)
+    and in the plain version: stats wider than the valid length
+    ``bin_end[-1]``, the entries past it NaN; neither reads them, both give
+    the histogram of the valid prefix, and the emulation splits the valid
+    path over the grid sized for the width."""
+    w = 5000
+    ids, bin_end, data = _hist_case(w, 700, seed=41, empty_every=4)
+    valid = {"w - 1": w - 1, "w": w}.get(width, width)
+    bin_end = np.minimum(bin_end, valid).astype(np.int32)
+    junk = data.copy()
+    junk[:, valid:] = np.nan
+    plain = sparse_hist_kernel.sparse_histogram_plain(
+        torch.from_numpy(junk), torch.from_numpy(bin_end)).numpy()
+    exact = np.stack([np.bincount(ids[:valid], minlength=700,
+                                  weights=data[c, :valid].astype(np.float64))
+                      for c in range(3)]).astype(np.float32)
+    np.testing.assert_array_equal(plain, exact)
+    got, carries = sparse_hist_kernel.partitioned_histogram(junk, bin_end)
+    blocks, _ = sparse_hist_kernel.shares(w, 700)
+    assert len(carries) == blocks
+    np.testing.assert_array_equal(got[2], exact[2])
+    tol = 1e-5 * _abs_bin_sums(ids[:valid], data[0, :valid], 700) + 1e-6
+    assert (np.abs(got[0] - exact[0]) <= tol).all()
+
+
+_SCAN_CASES = {
+    "gbdt": ({}, {}),
+    "goss_compacted": (dict(boosting_type="goss", top_rate=0.3,
+                            other_rate=0.2),
+                       {"MMLSPARK_TPU_SPARSE_COMPACT": "1",
+                        "MMLSPARK_TPU_NO_SPARSE_LAZY_ROUTE": "1"}),
+    "goss_lazy": (dict(boosting_type="goss", top_rate=0.3, other_rate=0.2,
+                       max_depth=4),
+                  {"MMLSPARK_TPU_SPARSE_COMPACT": "1"}),
+    "bagging_compacted": (dict(bagging_fraction=0.6, bagging_freq=1,
+                               feature_fraction=0.7),
+                          {"MMLSPARK_TPU_SPARSE_COMPACT": "1"}),
+    "multiclass": (dict(objective="multiclass", num_class=3), {}),
+    "rf": (dict(boosting_type="rf", bagging_fraction=0.7, bagging_freq=1),
+           {}),
+}
+
+
+@pytest.mark.parametrize("case", list(_SCAN_CASES))
+def test_forced_sparse_scan_matches_reference_scan(monkeypatch, case):
+    """``MMLSPARK_TPU_SCAN_TRAIN=1`` on both packages: the whole-run sparse
+    scan on the CPU (GOSS selected by exact top-k over the Threefry draws;
+    the stream compacted to the selected rows' entries where forced, with
+    lazy routing unless ``MMLSPARK_TPU_NO_SPARSE_LAZY_ROUTE``), 4
+    iterations. Gates: ``_assert_same_forest`` (structure identical, leaf
+    values within hist.csr's 2e-3), raw scores within 1e-3, and the
+    compaction the case asks for taken."""
+    extra, env = _SCAN_CASES[case]
+    monkeypatch.setenv("MMLSPARK_TPU_SCAN_TRAIN", "1")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    (indptr, idx, vals, y), rds, pds = _datasets(2000, 1 << 10, 20, seed=1)
+    if "num_class" in extra:
+        y = (y + (np.random.default_rng(16).random(len(y)) < 0.3)).astype(float)
+    kw = dict(dict(objective="binary", num_iterations=4, num_leaves=15,
+                   min_data_in_leaf=20, learning_rate=0.2), **extra)
+    k = kw.get("num_class", 1)
+    rb = ref_sparse.train_sparse(RefTrainParams(**kw), rds, y)
+    pb = sparse.train_sparse(TrainParams(**kw), pds, y, device="cpu")
+    assert pb.route == "scan"
+    _assert_same_forest(rb, pb)
+    stats = sparse.last_scan_stats
+    assert bool(stats["compact_cap"]) == bool(env)
+    assert stats["lazy"] == (bool(env) and "NO_SPARSE_LAZY" not in str(env))
+    if "goss" in case:
+        assert (stats["rows"] == 600 + 400).all()
+    rp = sparse.predict_csr(pb.trees, indptr, idx, vals, k, device="cpu")
+    rr = ref_sparse.predict_csr(rb.trees, indptr, idx, vals, k)
+    np.testing.assert_allclose(rp, rr, rtol=0, atol=1e-3)
+
+
+_SPARSE_ROUTE_ENVS = [
+    {}, {"MMLSPARK_TPU_SCAN_TRAIN": "1"}, {"MMLSPARK_TPU_NO_SCAN_TRAIN": "1"},
+    {"MMLSPARK_TPU_SCAN_TRAIN": "1", "MMLSPARK_TPU_SPARSE_COMPACT": "1"},
+    {"MMLSPARK_TPU_SPARSE_COMPACT": "1",
+     "MMLSPARK_TPU_NO_SPARSE_LAZY_ROUTE": "1"},
+    {"MMLSPARK_TPU_NO_SPARSE_COMPACT": "1",
+     "MMLSPARK_TPU_SPARSE_COMPACT": "1"},
+    {"MMLSPARK_TPU_FUSED_TREE_BYTES": "4096"},
+    {"MMLSPARK_TPU_NO_FUSED_TREE": "1"},
+]
+
+
+@pytest.mark.parametrize("env", range(len(_SPARSE_ROUTE_ENVS)))
+def test_sparse_route_decisions_match_the_reference(monkeypatch, env):
+    """``_scan_sparse_ok``, ``_sparse_compact_cap`` (forced on the CPU, with
+    a depth and without; goss and bagging masks) and
+    ``_fused_sparse_enabled`` decide as the reference's do on the CPU for
+    the same parameters and environment, and ``grow_tree_sparse``'s
+    default takes the reference's grower there (the per-split loop, read
+    through its host reads)."""
+    for name, value in _SPARSE_ROUTE_ENVS[env].items():
+        monkeypatch.setenv(name, value)
+    _, rds, pds = _datasets(300, 1 << 7, 8, seed=23)
+    masks = np.random.default_rng(4).random((3, 300)) < 0.5
+    for kw in (dict(), dict(boosting_type="dart"), dict(objective="lambdarank"),
+               dict(num_leaves=1), dict(boosting_type="goss", max_depth=3),
+               dict(boosting_type="goss", top_rate=0.05, other_rate=0.05,
+                    max_depth=2, num_leaves=63),
+               dict(bagging_fraction=0.5, bagging_freq=1),
+               dict(train_metric=True)):
+        rp, pp = RefTrainParams(**kw), TrainParams(**kw)
+        for valid, log in ((None, None), ((1, 2), None), (None, print)):
+            assert sparse._scan_sparse_ok(pp, valid, log, "cpu") == \
+                ref_sparse._scan_sparse_ok(rp, valid, log), kw
+        for rm in (None, masks):
+            assert sparse._sparse_compact_cap(pp, pds, rm, "cpu") == \
+                ref_sparse._sparse_compact_cap(rp, rds, rm), (kw, rm is None)
+    for shape in ((61, 1310720), (253, 1310720), (3, 700), (9, 100)):
+        assert sparse._fused_sparse_enabled(*shape) == \
+            ref_sparse._fused_sparse_enabled(*shape), shape
+    before = sparse.host_reads
+    g = torch.ones(pds.num_rows)
+    sparse.grow_tree_sparse(pds, sparse.device_arrays(pds, "cpu"), g, g,
+                            GrowerConfig(num_leaves=4))
+    assert sparse.host_reads - before >= 2        # the per-split loop's
 
 
 # ---------------------------------------------------------------- training
@@ -586,16 +829,24 @@ def test_train_sparse_variants_match_reference(numpy_csr_predict, case):
 
 @pytest.mark.parametrize("case", ["mesh", "categorical", "state_gate"])
 def test_train_sparse_later_slices_raise(monkeypatch, case):
-    """What the sparse fit refuses: a mesh and the per-split host loop above
-    the grower-state gate (later slices), and categorical features, which
-    are not a later slice: the reference refuses them on sparse rows too
-    (set splits need the dense bin space), and the port keeps its error."""
-    _, _, pds = _datasets(200, 1 << 6, 5, seed=19)
+    """What the sparse fit refuses: a mesh (a later slice), and categorical
+    features, which are not a later slice: the reference refuses them on
+    sparse rows too (set splits need the dense bin space), and the port
+    keeps its error. Above the grower-state gate the fit no longer raises:
+    it takes the per-split host loop (route ``host``), the reference's
+    trees."""
+    (_, _, _, y), rds, pds = _datasets(200, 1 << 6, 5, seed=19)
     kw, err = {}, NotImplementedError
     if case == "mesh":
         kw["mesh"] = object()
     elif case == "state_gate":
-        monkeypatch.setattr(sparse, "_FUSED_SPARSE_BUDGET", 1024)
+        monkeypatch.setenv("MMLSPARK_TPU_FUSED_TREE_BYTES", "1024")
+        p = dict(num_iterations=2, num_leaves=4, min_data_in_leaf=10)
+        pb = sparse.train_sparse(TrainParams(**p), pds, y, device="cpu")
+        assert pb.route == "host"
+        _assert_same_forest(ref_sparse.train_sparse(RefTrainParams(**p), rds, y),
+                            pb)
+        return
     params = TrainParams(boosting_type="goss", categorical_feature=(
         (0,) if case == "categorical" else ()))
     if case == "categorical":
