@@ -221,6 +221,40 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    fused=True, async_exec=True)``: 128 int32 token frames, replies f32
    frames held to the transformer gates of 10 against the transform of the
    same rows; K5 launched at least 2 x 4 times; tokens/s logged.
+16. mega_sparse (after 8): the fused CSR path over the 65,536 sparse rows
+   through ``transform_submit`` at K = 1, 4 and 8 (``set_tuning(mega_k=)``:
+   K batches a replay of a CUDA graph captured per stream), each twice
+   (capture, then measured with every launch counter at 0 and, at K > 1,
+   the dispatch under ``set_sync_debug_mode("error")``): the outputs at
+   K > 1 bit for bit K=1's and within the fused-CSR gate of the unfused
+   transform; K3 launched once a batch through the replays; seconds, the
+   per-batch dispatch ms, the mega groups and the graph count logged;
+17. mega_dense: the 65,536 HIGGS-shaped rows the same way, every K bit for
+   bit the unfused transform (the GEMM traversal under capture);
+18. tuner: a ``SegmentCostModel`` folded from both runs (tallied costs,
+   the executors' timings), then ``Tuner.tune(measure)`` for 3 steps on
+   the fused sparse path (``measure``: rows/s over 16,384 rows): the
+   proposed and applied knobs, the journal and rollbacks, the prediction
+   error, and each segment's roofline attribution, whose bound must not
+   pass its measured wall per batch (``BOUND_RATIO_MAX``);
+19. serving_autotune: ``serve_pipeline(autotune=True, tune_every=50)`` on
+   the sparse CSR path (2,048 frames) against the same server without a
+   Tuner, pipelined and serial: a tuned server whose cost model declines
+   every stitch replies byte for byte as the un-tuned one; a tuned server
+   with the cost model as it comes replies byte for byte as the un-tuned
+   one or, where the calibrated planner stitched the classifier's
+   finalize, bit for bit as a fused model pinned stitched on the same
+   rows (and within the stage's declared finalize tolerance of the
+   host's); the ``tuner`` section and ``mmlspark_tuner_*`` families
+   present; requests/s, p50/p99 and the knobs applied logged;
+20. deposit: the dense rows as f32 per-row arrays (a frame's decoding)
+   through fused transforms with pinned slot staging and without, then
+   served as f32 frames both ways: bit for bit the copying path, a slot
+   deposit a batch, the fallback copies accounted; both servers'
+   requests/s and latencies logged;
+21. mega_transformer (after 11): the encoder's 256 rows in one partition,
+   fused, at K = 1 and 4: K=4's replay bit for bit K=1's, K5 launched 16
+   times both ways.
 
 Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``, after a ``{"kernels": [...]}`` line that
@@ -229,8 +263,10 @@ its launches on its main path, error against its plain version, ms,
 plain_ms, bound_ms, bound_by and library_ms, and its launches on the new
 paths (``launches_on_new_paths``: dense_variants and its GOSS scan,
 ranker_main, categorical_main, sparse_variants and its compacted stream,
-sparse_wide, serving_sparse, serving_transformer); K4's row also carries
-its call on the compacted stream (``compacted_stream``).
+sparse_wide, serving_sparse, serving_transformer, mega_sparse at K=8
+and mega_transformer at K=4, through the graph replays, and
+serving_autotune); K4's row also carries its call on the
+compacted stream (``compacted_stream``).
 """
 
 from __future__ import annotations
@@ -1262,7 +1298,11 @@ def make_csr_text(n_rows: int, width: int, avg_nnz: int, seed: int):
     total = int(nnz_per_row.sum())
     row_of = np.repeat(np.arange(n_rows, dtype=np.int64), nnz_per_row)
     idx = (width * rng.random(total) ** 3).astype(np.int64).clip(0, width - 1)
-    key = np.unique(row_of * width + idx)   # sorted, distinct per row
+    # sorted, distinct per row: np.unique's result, by a sort and a mask
+    # (with np.unique here, numpy 2.3 on the H100's host, sparse_data's
+    # generate_seconds read 104.25)
+    key = np.sort(row_of * width + idx)
+    key = key[np.concatenate(([True], key[1:] != key[:-1]))]
     row_of = key // width
     idx = key % width
     vals = 1.0 + rng.integers(0, 4, len(key)).astype(np.float64)
@@ -3758,6 +3798,456 @@ def serving_transformer(torch, stage, ids, unfused, smi) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# K-step mega dispatch as captured CUDA graphs, the cost model and the Tuner,
+# serving with the Tuner, and slot-deposit staging
+# ---------------------------------------------------------------------------
+
+MEGA_KS = (1, 4, 8)           # the K of the GBDT mega phases
+MEGA_SEQ_KS = (1, 4)          # and of the transformer's (4 batches of 64)
+TUNER_STEPS = 3
+TUNER_ROWS = 16_384           # rows a Tuner measurement scores
+AUTOTUNE_REQUESTS = 2048
+AUTOTUNE_EVERY = 50
+BOUND_RATIO_MAX = 1.05        # a segment's bound / measured wall per batch
+DEPOSIT_FRAMES = 512
+STITCH_TOL = 1e-5             # the classifier's declared finalize_tolerance
+
+
+def _mega_fused(model, k: int, csr: bool, label: str):
+    from mmlspark_tpu_torch.core.device_stage import CompileCache
+    from mmlspark_tpu_torch.core.fusion import FusedPipelineModel
+
+    fused = FusedPipelineModel([model], cache=CompileCache())
+    tuning = {"mega_k": {label: k}}
+    if csr:
+        tuning.update(layout={label: "csr"},
+                      kernel_variants={label: {"*": "forest.csr"}})
+    fused.set_tuning(**tuning)
+    return fused
+
+
+def _graphs_of(fused) -> int:
+    """CUDA graphs the fused model's K-step programs have captured."""
+    return sum(getattr(getattr(e, "program", e), "graphs", 0)
+               for e in list(fused.compile_cache._entries.values()))
+
+
+def mega_run(torch, fused, df, read, kernel, what: str) -> dict:
+    """One fused model over ``df`` through ``transform_submit`` twice: the
+    first call builds its programs (K=1 eagerly; K>1 runs each group's
+    batches eagerly once and captures the graph), the second is the
+    measured one, with every launch counter set to 0 before it and, for
+    K>1, its dispatch (the replays) under
+    ``set_sync_debug_mode("error")``. Returns the output, seconds, the
+    kernel's launches and the executor's decomposition."""
+    from mmlspark_tpu_torch.core import graphs
+
+    k = fused.mega_k_max
+    read(fused.transform_submit(df)())
+    graphs.set_counters({c: 0 for c in graphs.COUNTERS})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if k > 1:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        resolve = fused.transform_submit(df)
+    except RuntimeError as e:
+        fail(f"{what}: a host sync in the dispatch at K={k}: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    dispatch_s = time.perf_counter() - t0
+    out = read(resolve())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    label = next(iter(fused._seg_stats))
+    records = fused._seg_stats[label].records
+    seg = fused.fusion_stats()["per_segment"][label]
+    return {"k": k, "out": out, "seconds": seconds,
+            "submit_seconds": dispatch_s,
+            "launches": getattr(kernel, "launches", None) if kernel else None,
+            "batches": len(records),
+            "mega_groups": sum(t.mega_k > 1 for t in records) // max(k, 1)
+            if k > 1 else 0,
+            "graphs": _graphs_of(fused),
+            "dispatch_ms_per_batch": seg.get("dispatch_ms_per_batch"),
+            "h2d_ms_per_batch": seg.get("h2d_ms_per_batch"),
+            "compute_ms_per_batch": seg.get("compute_ms_per_batch"),
+            "readback_ms_per_batch": seg.get("readback_ms_per_batch"),
+            "fallbacks": fused.fusion_stats()["fallbacks"], "fused": fused}
+
+
+def _mega_report(phase, runs, smi, extra=None) -> dict:
+    rows = [{k: v for k, v in r.items() if k not in ("out", "fused")}
+            for r in runs]
+    log({"phase": phase, "card": smi, "runs": rows, **(extra or {})})
+    return {r["k"]: r for r in runs}
+
+
+def mega_sparse(torch, model, rows, smi) -> dict:
+    """The fused CSR scoring path (``layout="csr"``, ``forest.csr``) over
+    the sparse rows through ``transform_submit`` at K = 1, 4 and 8: the
+    outputs at K > 1 equal K=1's bit for bit and the unfused transform's
+    within the fused-CSR gate (``SERVE_PROBA_TOL``; the fused CSR scores
+    are not the unfused ones bit for bit, ``fused_sparse``), K3 launched
+    once a batch through the graph replays, the replays free of host syncs.
+    Returns the runs by K."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.gbdt import gather_kernel as gk
+
+    label = "LightGBMClassificationModel"
+    df = DataFrame.from_dict({"features": rows})
+    unfused = _raw(model.transform(df))
+    runs = [mega_run(torch, _mega_fused(model, k, True, label), df, _raw, gk,
+                     "mega_sparse") for k in MEGA_KS]
+    base = runs[0]["out"]
+    bitwise = {r["k"]: bool(np.array_equal(r["out"].view(np.uint64),
+                                           base.view(np.uint64))) for r in runs}
+    diff = float(np.abs(base - unfused).max())
+    out = _mega_report("mega_sparse", runs, smi, {
+        "rows": len(rows), "bitwise_vs_k1": bitwise,
+        "max_abs_diff_vs_unfused": diff})
+    for r in runs:
+        if r["fallbacks"]:
+            fail(f"mega_sparse K={r['k']}: fell back {r['fallbacks']}")
+        if r["launches"] != r["batches"] or r["batches"] != len(rows) // 256:
+            fail(f"mega_sparse K={r['k']}: K3 launched {r['launches']} times "
+                 f"over {r['batches']} batches")
+        if r["k"] > 1 and (r["mega_groups"] != r["batches"] // r["k"]
+                           or r["graphs"] != 1):
+            fail(f"mega_sparse K={r['k']}: {r['mega_groups']} mega groups, "
+                 f"{r['graphs']} graphs")
+    if not all(bitwise.values()) or diff > SERVE_PROBA_TOL:
+        fail(f"mega_sparse: not K=1's bits {bitwise}, or {diff} from unfused")
+    return out
+
+
+def mega_dense(torch, model, X, smi) -> dict:
+    """The dense HIGGS-shaped rows fused, through ``transform_submit`` at
+    K = 1, 4 and 8: the GEMM traversal (an f32 cuBLAS GEMM, TF32 off) under
+    graph capture equals K=1 and the unfused transform bit for bit, and the
+    replays make no host sync."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+
+    label = "LightGBMClassificationModel"
+    df = DataFrame.from_dict({"features": X})
+    unfused = _raw(model.transform(df))
+    runs = [mega_run(torch, _mega_fused(model, k, False, label), df, _raw,
+                     None, "mega_dense") for k in MEGA_KS]
+    bitwise = {r["k"]: bool(np.array_equal(r["out"].view(np.uint64),
+                                           unfused.view(np.uint64)))
+               for r in runs}
+    out = _mega_report("mega_dense", runs, smi, {
+        "rows": len(X), "bitwise_vs_unfused": bitwise})
+    for r in runs:
+        if r["fallbacks"] or (r["k"] > 1 and r["graphs"] != 1):
+            fail(f"mega_dense K={r['k']}: fallbacks {r['fallbacks']}, "
+                 f"{r['graphs']} graphs")
+    if not all(bitwise.values()):
+        fail(f"mega_dense: outputs are not the unfused ones bit for bit "
+             f"{bitwise}")
+    return out
+
+
+def mega_transformer(torch, stage, df, smi) -> dict:
+    """The sequence benchmark's encoder through ``DNNModel`` fused, the 256
+    rows of ``df`` in one partition (4 batches of 64: a K-step group never
+    spans partitions), at K = 1 and 4: K=4's graph replay equals K=1 bit for
+    bit and launches K5 as many times as the eager program."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.models import flash_kernel as fk
+
+    df = DataFrame.from_dict({"tokens": np.asarray(list(df.column("tokens")))})
+    runs = [mega_run(torch, _mega_fused(stage, k, False, "DNNModel"), df, _emb,
+                     fk, "mega_transformer") for k in MEGA_SEQ_KS]
+    bitwise = bool(np.array_equal(runs[1]["out"].view(np.uint32),
+                                  runs[0]["out"].view(np.uint32)))
+    out = _mega_report("mega_transformer", runs, smi,
+                       {"rows": SEQ_ROWS, "bitwise_vs_k1": bitwise})
+    want = SEQ_DEPTH * SEQ_ROWS // SEQ_BATCH
+    for r in runs:
+        if r["fallbacks"] or r["launches"] != want:
+            fail(f"mega_transformer K={r['k']}: K5 launched {r['launches']} "
+                 f"times (expected {want}), fallbacks {r['fallbacks']}")
+    if not bitwise or runs[1]["graphs"] != 1 or runs[1]["mega_groups"] != 1:
+        fail(f"mega_transformer: bitwise {bitwise}, {runs[1]['graphs']} graphs, "
+             f"{runs[1]['mega_groups']} groups")
+    return out
+
+
+def tuner_phase(torch, sparse_runs, dense_runs, model, rows, smi) -> dict:
+    """The cost model folded from the fused sparse and dense runs (their
+    cache's tallied costs and their executors' timings), then
+    ``Tuner.tune(measure)`` for ``TUNER_STEPS`` steps on the fused sparse
+    path at K=1, ``measure`` its rows/s over ``TUNER_ROWS`` rows: the
+    proposed and applied knobs, the journal, the prediction error and each
+    segment's roofline attribution. A segment's bound must not pass its
+    measured wall per batch (``BOUND_RATIO_MAX``): the tally would be
+    overcounting."""
+    from mmlspark_tpu_torch.core.costmodel import SegmentCostModel
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.tune import Tuner
+    from mmlspark_tpu_torch.obs.perf import attribute_segments, device_peaks
+
+    label = "LightGBMClassificationModel"
+    model_cm = SegmentCostModel()
+    roofline = {}
+    for name, runs in (("sparse", sparse_runs), ("dense", dense_runs)):
+        for k, r in runs.items():
+            fused = r["fused"]
+            model_cm.ingest_costs(fused.compile_cache.costs())
+            model_cm.observe_stats(label, fused._seg_stats[label])
+            st = fused.fusion_stats()
+            att = attribute_segments(st["per_segment"], st["segment_costs"],
+                                     peaks=device_peaks(),
+                                     layout={label: "csr"} if name == "sparse"
+                                     else None)
+            roofline[f"{name}/K={k}"] = att.get(label)
+    # the tuned model feeds the cost model too (its host timings and the
+    # sparse density behind choose_layout): warm it over a few transforms,
+    # or the first proposal, lacking a calibrated layout, would clear "csr"
+    fused = _mega_fused(model, 1, True, label)
+    fused.set_tuning(cost_model=model_cm)
+    df = DataFrame.from_dict({"features": rows[:TUNER_ROWS]})
+    for _ in range(model_cm.min_obs):
+        fused.transform(df)
+    tuner = Tuner(fused=fused, model=model_cm)
+
+    def measure() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused.transform_submit(df)()
+        return TUNER_ROWS / (time.perf_counter() - t0)
+
+    tuner.refit()
+    proposed = tuner.propose().to_dict()
+    t0 = time.perf_counter()
+    summary = tuner.tune(measure, steps=TUNER_STEPS)
+    tune_s = time.perf_counter() - t0
+    st = fused.fusion_stats()
+    att = attribute_segments(st["per_segment"], st["segment_costs"],
+                             peaks=device_peaks(), cost_model=model_cm,
+                             layout={label: "csr"})
+    roofline["sparse/tuned"] = att.get(label)
+    ratios = {k: (v or {}).get("roofline_ratio") for k, v in roofline.items()}
+    log({"phase": "tuner", "card": smi, "seconds": tune_s,
+         "proposed": proposed, "applied": tuner.knobs.to_dict(),
+         "summary": summary, "journal": tuner.journal,
+         "prediction_error": model_cm.prediction_error(),
+         "peaks": device_peaks(), "costs": st["segment_costs"],
+         "roofline": roofline, "bound_ratio": ratios,
+         "model": model_cm.stats()})
+    bad = {k: v for k, v in ratios.items() if v is None or v > BOUND_RATIO_MAX}
+    if bad:
+        fail(f"tuner: bound over measured wall per batch {bad} (no cost "
+             f"recorded, or over {BOUND_RATIO_MAX})")
+    if len(summary["steps"]) < 2:
+        fail(f"tuner: no tuning step ran: {summary}")
+    return {"applied": tuner.knobs.to_dict(), "rollbacks": tuner.rollbacks}
+
+
+def serving_autotune(torch, model, rows, smi) -> dict:
+    """``serve_pipeline(autotune=True, tune_every=AUTOTUNE_EVERY)`` on the
+    sparse CSR path, 2,048 CSR frames over 64 connections, against the same
+    server without a Tuner, in two modes: pipelined (2 replicas, async
+    transport, as ``serving_sparse``) and serial (the batcher loop, where
+    each batch's timings are folded before the next one starts). Two tuned
+    servers run in each mode:
+
+      - ``unstitched``: the Tuner's cost model declines every stitch, so
+        the plan keeps the classifier's host finalize. Every reply equals
+        the un-tuned server's byte for byte.
+      - ``autotune``: the cost model as it comes. Once it is calibrated the
+        planner may stitch the classifier's finalize onto the card
+        (``plan()`` asks ``stitch_decision``, as the reference does), whose
+        f32 probabilities differ from the host's f64 ones. Every reply
+        equals the un-tuned server's byte for byte or, bit for bit, the
+        probabilities of a fused model pinned stitched (``stitch=``) on the
+        same rows; those stitched ones lie within the stage's declared
+        ``finalize_tolerance`` (``STITCH_TOL``) of the host's.
+
+    The ``tuner`` section of ``/_mmlspark/stats`` and the
+    ``mmlspark_tuner_*`` families must be present. Logs requests/s,
+    p50/p99 and the knobs applied; returns K3's launches under the tuned
+    pipelined load."""
+    from mmlspark_tpu_torch.core.costmodel import SegmentCostModel
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.gbdt import gather_kernel as gk
+    from mmlspark_tpu_torch.io.binary import (FRAME_CONTENT_TYPE,
+                                              encode_csr_columns, encode_frame)
+    from mmlspark_tpu_torch.serving import serve_pipeline
+
+    class Unstitched(SegmentCostModel):
+        def stitch_decision(self, *args, **kwargs):
+            return False
+
+    label = "LightGBMClassificationModel"
+    sel = rows[:AUTOTUNE_REQUESTS]
+    frames = [encode_frame(encode_csr_columns(
+        "features", np.array([0, len(r["indices"])]), r["indices"], r["values"],
+        W_SPARSE)) for r in sel]
+    hdr = {"Content-Type": FRAME_CONTENT_TYPE}
+    ref = _mega_fused(model, 1, True, label)
+    ref.set_tuning(stitch={label: True})
+    want_stitched = [np.asarray(p, dtype=np.float64) for p in ref.transform(
+        DataFrame.from_dict({"features": sel})).column("probability")]
+    if not ref.fusion_stats().get("stitched"):
+        fail("serving_autotune: the fused model pinned stitched did not stitch")
+    launches = {}
+    for mode, async_exec in (("pipelined", True), ("serial", False)):
+        res = {}
+        for name in ("untuned", "unstitched", "autotune"):
+            fused = _mega_fused(model, 1, True, label)
+            if name == "unstitched":
+                fused.set_tuning(cost_model=Unstitched())
+            srv = serve_pipeline(fused, "features", reply_col="probability",
+                                 fused=True, async_exec=async_exec,
+                                 replicas=2, http_mode="async",
+                                 max_batch_size=256,
+                                 autotune=name != "untuned",
+                                 tune_every=AUTOTUNE_EVERY)
+            with srv:
+                gk.launches = 0
+                t0 = time.perf_counter()
+                replies = http_load(srv.address, frames, hdr, SERVE_CONNS)
+                wall = time.perf_counter() - t0
+                stats = json.loads(http_get(srv.address, "/_mmlspark/stats"))
+                metrics = http_get(srv.address, "/_mmlspark/metrics").decode()
+            res[name] = {"replies": replies, "wall": wall, "stats": stats,
+                         "metrics": metrics, "launches": gk.launches,
+                         "fused": fused}
+        plain = res["untuned"]
+        launches[mode] = res["autotune"]["launches"]
+        same, stitched_equal, other, diffs = {}, 0, 0, []
+        for name in ("unstitched", "autotune"):
+            same[name] = sum(a[:2] == b[:2] for a, b in
+                             zip(plain["replies"], res[name]["replies"]))
+        for i, (a, b) in enumerate(zip(plain["replies"],
+                                       res["autotune"]["replies"])):
+            if a[:2] == b[:2] or b[0] != 200:
+                continue
+            got = np.asarray(json.loads(b[1]), dtype=np.float64)
+            if np.array_equal(got.view(np.uint64),
+                              want_stitched[i].view(np.uint64)):
+                stitched_equal += 1
+                diffs.append(float(np.abs(
+                    got - np.asarray(json.loads(a[1]))).max()))
+            else:
+                other += 1
+        row = {}
+        for name, r in res.items():
+            t = r["stats"].get("tuner") or {}
+            row[name] = {
+                "requests_per_s": len(frames) / r["wall"],
+                "k3_launches": r["launches"],
+                "bitwise_equal_untuned": same.get(name, len(frames)),
+                "stitched": r["fused"].fusion_stats().get("stitched"),
+                "knobs_applied": t.get("knobs"),
+                "tuner": {k: t.get(k) for k in (
+                    "epochs", "applies", "rollbacks", "calibrated",
+                    "journal")} if t else None,
+                "tuner_families": sorted({
+                    line.split()[2] for line in r["metrics"].splitlines()
+                    if line.startswith("# TYPE mmlspark_tuner_")}),
+                "mega_k_max": r["fused"].mega_k_max,
+                **latency_summary(r["replies"], r["stats"])}
+        log({"phase": "serving_autotune", "mode": mode, "card": smi,
+             "requests": len(frames), "every": AUTOTUNE_EVERY,
+             "stitched_bitwise_pinned_stitched": stitched_equal,
+             "neither": other,
+             "stitched_max_abs_diff_to_host": max(diffs, default=0.0),
+             **row})
+        for name in ("unstitched", "autotune"):
+            r = res[name]
+            if sorted({x[0] for x in r["replies"]}) != [200]:
+                fail(f"serving_autotune {mode} {name}: statuses "
+                     f"{sorted({x[0] for x in r['replies']})}")
+            if not row[name]["tuner"] or \
+                    "mmlspark_tuner_epochs_total" not in row[name]["tuner_families"]:
+                fail(f"serving_autotune {mode} {name}: tuner section "
+                     f"{bool(row[name]['tuner'])}, families "
+                     f"{row[name]['tuner_families']}")
+        if same["unstitched"] != len(frames):
+            fail(f"serving_autotune {mode}: {len(frames) - same['unstitched']} "
+                 f"replies of the unstitched tuned server differ from the "
+                 f"un-tuned server's")
+        if other or max(diffs, default=0.0) > STITCH_TOL:
+            fail(f"serving_autotune {mode}: {other} replies equal neither the "
+                 f"un-tuned server's nor the pinned stitched model's; "
+                 f"stitched max diff {max(diffs, default=None)}")
+    return {"csr_gather": launches["pipelined"]}
+
+
+def deposit_phase(torch, model, X, smi) -> None:
+    """Slot-deposit staging on the card: the dense model's rows as f32
+    per-row arrays (what the binary wire's frames decode to) through a
+    fused transform with slot staging (pinned slots, filled on a thread)
+    and without, then served as f32 frames both ways: the outputs and the
+    replies bit for bit the copying path's, ``slot_deposits`` a batch and
+    the fallback copies accounted. Logs both servers' requests/s and
+    latencies, so that what the default (slots on) costs serving shows."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.device_stage import CompileCache
+    from mmlspark_tpu_torch.core.fusion import FusedPipelineModel
+    from mmlspark_tpu_torch.io.binary import (FRAME_CONTENT_TYPE, decode_frame,
+                                              encode_frame)
+    from mmlspark_tpu_torch.serving import serve_pipeline
+
+    frames = [encode_frame({"x": np.asarray(r, dtype=np.float32)}) for r in X]
+    col = np.empty(len(X), dtype=object)
+    for i, f in enumerate(frames):
+        col[i] = decode_frame(f)["x"]
+    df = DataFrame.from_dict({"features": col})
+    out, summ, secs = {}, {}, {}
+    for staging in (False, True):
+        fused = FusedPipelineModel([model], cache=CompileCache(),
+                                   slot_staging=staging)
+        _raw(fused.transform(df))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[staging] = _raw(fused.transform(df))
+        secs[staging] = time.perf_counter() - t0
+        summ[staging] = fused.last_ingest_stats.summary()
+        pool = fused.fusion_stats().get("slot_pool")
+    replies, served_rate, served = {}, {}, {}
+    for staging in (False, True):
+        fused = FusedPipelineModel([model], cache=CompileCache(),
+                                   slot_staging=staging)
+        srv = serve_pipeline(fused, "features", reply_col="probability",
+                             fused=True, async_exec=True, replicas=2,
+                             http_mode="async", max_batch_size=256)
+        with srv:
+            t0 = time.perf_counter()
+            replies[staging] = http_load(srv.address, frames[:DEPOSIT_FRAMES],
+                                         {"Content-Type": FRAME_CONTENT_TYPE},
+                                         SERVE_CONNS)
+            served_rate[staging] = DEPOSIT_FRAMES / (time.perf_counter() - t0)
+            served[staging] = json.loads(http_get(srv.address,
+                                                  "/_mmlspark/stats"))
+    same = bool(np.array_equal(out[True].view(np.uint64),
+                               out[False].view(np.uint64)))
+    same_replies = [a[:2] for a in replies[True]] == [a[:2] for a in replies[False]]
+    s = summ[True]
+    log({"phase": "deposit", "card": smi, "rows": len(X),
+         "seconds": {"slots": secs[True], "copying": secs[False]},
+         "bitwise_vs_copying": same, "replies_equal": same_replies,
+         "ingest": {k: s.get(k) for k in (
+             "n_batches", "slot_deposits", "fallback_copies", "slot_fill_s",
+             "slot_transfer_s", "slot_overlap_ratio", "h2d_ms_per_batch")},
+         "copying_ingest": {k: summ[False].get(k) for k in (
+             "n_batches", "copied_batches", "h2d_ms_per_batch")},
+         "slot_pool": pool, "served_ingest": served[True].get("ingest"),
+         "served": {name: {"requests_per_s": served_rate[st],
+                           **latency_summary(replies[st], served[st])}
+                    for name, st in (("slots", True), ("copying", False))}})
+    if not same or not same_replies:
+        fail(f"deposit: slot staging changed the scores ({same}) or the "
+             f"replies ({same_replies})")
+    if s.get("slot_deposits") != s.get("n_batches") or "fallback_copies" not in s:
+        fail(f"deposit: {s.get('slot_deposits')} deposits over "
+             f"{s.get('n_batches')} batches, copies {s.get('fallback_copies')}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args()
@@ -3810,6 +4300,15 @@ def main() -> int:
     launches["csr_gather"] = fused_sparse(torch, sparse_model, rows, smi)
     fused_dense(torch, dense_model, X_score, smi)
     fused_anchor(torch, *anchor)
+    t_mega = time.perf_counter()
+    sparse_runs = mega_sparse(torch, sparse_model, rows, smi)
+    paths["mega_sparse"] = {"csr_gather": sparse_runs[max(MEGA_KS)]["launches"]}
+    dense_runs = mega_dense(torch, dense_model, X_score, smi)
+    tuner_phase(torch, sparse_runs, dense_runs, sparse_model, rows, smi)
+    del sparse_runs, dense_runs
+    paths["serving_autotune"] = serving_autotune(torch, sparse_model, rows, smi)
+    deposit_phase(torch, dense_model, X_score, smi)
+    mega_s = time.perf_counter() - t_mega
     t_serve = time.perf_counter()
     paths["serving_sparse"] = {"csr_gather": serving_sparse(
         torch, sparse_model, rows, smi)}
@@ -3820,6 +4319,13 @@ def main() -> int:
     kernels["flash_attn"] = attn_kernel_phase(torch)
     launches["flash_attn"], stage, df, out = transformer_main(torch, smi)
     transformer_fused(torch, stage, df, out, smi)
+    t_mega = time.perf_counter()
+    seq_runs = mega_transformer(torch, stage, df, smi)
+    paths["mega_transformer"] = {
+        "flash_attn": seq_runs[max(MEGA_SEQ_KS)]["launches"]}
+    del seq_runs
+    mega_s += time.perf_counter() - t_mega
+    log({"phase": "mega", "seconds": mega_s})
     t_serve = time.perf_counter()
     ids = np.asarray(list(df.column("tokens")))
     paths["serving_transformer"] = {"flash_attn": serving_transformer(

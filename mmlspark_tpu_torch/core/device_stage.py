@@ -29,12 +29,16 @@ The reference traces ``fn`` into one XLA program with ``jax.jit``. The port
 has no trace: the fused program is an eager composition of the stages'
 torch ops, launched batch after batch on the device. ``CompileCache`` keeps
 the reference's keying — segment key, shape signature, and the
-``variant=<id>;``, ``layout=csr;`` and ``stitch=`` shape prefixes — its
-bounded LRU and its hit/miss counters, so the executor and ``fusion_stats()``
-read the same; an entry is the built program for one signature, and
-``costs()`` records the measured milliseconds of its first call where the
-reference records XLA's cost analysis. The reference's persistent second
-tier (``attach_persistent``, ``preload``) waits for the fleet slice.
+``variant=<id>;``, ``layout=csr;``, ``mega{k};`` and ``stitch=`` shape
+prefixes — its bounded LRU and its hit/miss counters, so the executor and
+``fusion_stats()`` read the same; an entry is the built program for one
+signature. Where the reference harvests XLA's cost analysis at compile
+time, ``costs()`` records what the cost tally (obs/perf.py ``cost_tally``)
+measured on the program's first call: flops, bytes accessed, argument and
+output bytes and, on the card, the peak memory it added, beside
+``compile_s`` and the first call's milliseconds. The reference's persistent
+second tier (``attach_persistent``, ``preload``) belongs with the fleet
+plane (ROADMAP A step 10).
 """
 
 from __future__ import annotations
@@ -136,30 +140,77 @@ def _sync_outputs(out: Any) -> None:
     them) when any of it is on a CUDA device."""
     import torch
 
+    from .graphs import synchronize
+
     items = out if isinstance(out, (tuple, list)) else (out,)
     for t in items:
-        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
-            torch.cuda.synchronize(t.device)
+        if isinstance(t, (tuple, list)):   # a K-step program's outputs
+            _sync_outputs(t)
             return
+        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+            synchronize(t.device)
+            return
+
+
+class _FirstCall:
+    """A cached program whose first call runs under the cost tally and is
+    timed to the end of its device work; later calls go straight through.
+    ``program`` is the built program (eviction releases it, where it holds
+    a CUDA graph)."""
+
+    __slots__ = ("program", "_record", "_pending", "_lock")
+
+    def __init__(self, program: Callable, record: Callable):
+        self.program = program
+        self._record = record
+        self._pending = True
+        self._lock = threading.Lock()
+
+    def __call__(self, *args, **kwargs):
+        if not self._pending:
+            return self.program(*args, **kwargs)
+        with self._lock:
+            first, self._pending = self._pending, False
+        if not first:
+            return self.program(*args, **kwargs)
+        from ..obs.perf import cost_tally
+
+        t0 = time.perf_counter()
+        with cost_tally(args) as rec:
+            out = self.program(*args, **kwargs)
+            rec["_out"] = out
+        _sync_outputs(out)
+        rec["first_call_ms"] = round((time.perf_counter() - t0) * 1e3, 6)
+        self._record(rec)
+        return out
+
+
+def _release(program: Any) -> None:
+    """Free what an evicted program holds on the card (its CUDA graphs)."""
+    fn = getattr(getattr(program, "program", program), "release", None)
+    if callable(fn):
+        fn()
 
 
 class CompileCache:
     """Shared fused-program cache with hit/miss/build-time counters and
     per-(segment, shape-bucket) cost records.
 
-    Key: (segment key, shape signature [, variant/layout/stitch tails]).
-    Value: the built program for that signature. ``get`` builds on a miss
-    (``compile_time_s`` sums the builders' seconds) and wraps the program so
-    that its first call is timed to the end of its device work: that time
-    is the cost record ``costs()`` reports under the caller's ``(label,
-    shape)`` pair (``first_call_ms``, beside ``compile_s``).
+    Key: (segment key, shape signature [, variant/layout/stitch/mega
+    tails]). Value: the built program for that signature. ``get`` builds on
+    a miss (``compile_time_s`` sums the builders' seconds) and wraps the
+    program so that its first call runs under the cost tally
+    (obs/perf.py) and is timed to the end of its device work: the tally's
+    record, with ``compile_s`` and ``first_call_ms``, is the cost record
+    ``costs()`` reports under the caller's ``(label, shape)`` pair.
 
     Counter updates happen under the cache lock, so a concurrent ``stats()``
     never sees a torn hits/misses/compile_time_s triple.
 
     The cache is a bounded LRU: a hit refreshes the entry, an insert past
     ``capacity`` evicts the least-recently-used one together with its cost
-    record; ``evictions`` counts drops.
+    record, and releases the program's CUDA graphs and their memory pools
+    (a mega program's, core/fusion.py); ``evictions`` counts drops.
     """
 
     def __init__(self, capacity: int = 256):
@@ -176,39 +227,33 @@ class CompileCache:
         self.evictions = 0
         self.compile_time_s = 0.0
 
-    def _evict_lru_locked(self) -> None:
+    def _evict_lru_locked(self) -> Any:
         """Drop the least-recently-used entry (dict order = LRU order: hits
-        re-insert at the end) and its cost record. Lock held."""
+        re-insert at the end) and its cost record; returns the program, for
+        the caller to release once the lock is dropped. Lock held."""
         key = next(iter(self._entries))
-        self._entries.pop(key)
+        fn = self._entries.pop(key)
         ck = self._cost_key.pop(key, None)
         if ck is not None:
             self._costs.pop(ck, None)
         self.evictions += 1
+        return fn
 
-    def _timed_first_call(self, fn: Callable,
-                          cost_key: Optional[Tuple[str, str]]) -> Callable:
-        """``fn``, with its first call timed (to the end of its device
-        work) into the cost record ``cost_key``."""
+    def _wrap(self, built: Callable,
+              cost_key: Optional[Tuple[str, str]]) -> Callable:
+        """``built``, with its first call tallied into the cost record
+        ``cost_key``."""
         if cost_key is None:
-            return fn
-        pending = [True]
+            return built
 
-        def call(*args, **kwargs):
-            if not pending:
-                return fn(*args, **kwargs)
-            pending.clear()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            _sync_outputs(out)
-            ms = (time.perf_counter() - t0) * 1e3
+        def record(rec: Dict[str, Any]) -> None:
             with self._lock:
-                rec = self._costs.get(cost_key)
-                if rec is not None:
-                    rec["first_call_ms"] = round(ms, 6)
-            return out
+                cur = self._costs.get(cost_key)
+                if cur is not None:
+                    cur.update({k: (round(v, 6) if isinstance(v, float)
+                                    else v) for k, v in rec.items()})
 
-        return call
+        return _FirstCall(built, record)
 
     def get(self, key: Tuple, builder: Callable[[], Any],
             label: Optional[str] = None,
@@ -223,28 +268,48 @@ class CompileCache:
         built = builder()
         dt = time.perf_counter() - t0
         cost_key = (str(label), str(shape)) if label is not None else None
-        fn = self._timed_first_call(built, cost_key)
+        fn = self._wrap(built, cost_key)
+        evicted = []
         with self._lock:
             if key in self._entries:   # another thread built it meanwhile
-                return self._entries[key]
-            self.misses += 1
-            self.compile_time_s += dt
-            while len(self._entries) >= self._capacity:
-                self._evict_lru_locked()
-            self._entries[key] = fn
-            if cost_key is not None:
-                self._costs[cost_key] = {"compile_s": round(dt, 6)}
-                self._cost_key[key] = cost_key
-            return fn
+                out = self._entries[key]
+            else:
+                self.misses += 1
+                self.compile_time_s += dt
+                while len(self._entries) >= self._capacity:
+                    evicted.append(self._evict_lru_locked())
+                self._entries[key] = out = fn
+                if cost_key is not None:
+                    self._costs[cost_key] = {"compile_s": round(dt, 6)}
+                    self._cost_key[key] = cost_key
+        for old in evicted:
+            _release(old)
+        return out
 
     def costs(self) -> Dict[str, Dict[str, Dict[str, Any]]]:
         """{segment label: {shape bucket: cost record}} — ``compile_s`` and,
-        once the program has run, ``first_call_ms`` per cached program."""
+        once the program has run, the tally's flops / bytes_accessed /
+        argument_bytes / output_bytes [/ peak_memory_bytes] and
+        ``first_call_ms`` per cached program."""
         with self._lock:
             out: Dict[str, Dict[str, Dict[str, Any]]] = {}
             for (label, shape), rec in self._costs.items():
                 out.setdefault(label, {})[shape] = dict(rec)
             return out
+
+    def segment_cost(self, label: str) -> Optional[Dict[str, float]]:
+        """Mean per-batch cost across this segment's cached shape buckets
+        (span attrs + quick attribution), or None when nothing recorded."""
+        with self._lock:
+            recs = [r for (lab, _), r in self._costs.items() if lab == label]
+        if not recs:
+            return None
+        out: Dict[str, float] = {"shape_buckets": float(len(recs))}
+        for k in ("flops", "bytes_accessed", "peak_memory_bytes"):
+            vals = [r[k] for r in recs if isinstance(r.get(k), (int, float))]
+            if vals:
+                out[k] = sum(vals) / len(vals)
+        return out
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:

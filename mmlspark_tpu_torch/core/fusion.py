@@ -39,15 +39,32 @@ fallback.
 executor's non-blocking split: the trailing segment dispatches on the
 calling thread's stream and a ``resolve()`` waits on that call's CUDA
 events alone, so replicas sharing a card do not serialise on each other
-(serving/executor.py). Not ported yet: the K-step mega dispatch
-(``set_tuning(mega_k=K)`` with K > 1 raises; a CUDA graph beside the Tuner,
-ROADMAP A step 6), the cost model and Tuner (A step 6), sharding and pipe
-plans (A step 9), persistent caches and the SlotPool deposit path;
+(serving/executor.py).
+
+The K-step mega dispatch (``set_tuning(mega_k={label: K})``, the Tuner's
+knob) sends K queued micro-batches of one signature through one call: the
+reference traces K copies of the per-batch body into one XLA executable;
+here the K-step program (``_MegaProgram``) is one ``torch.cuda.CUDAGraph``
+of K runs of the same eager per-batch program over K static input sets,
+captured once per (cache key, K, stream) and replayed after — one replay
+for K batches, its launches counted through the replay (core/graphs.py).
+On the CPU a K-step program is K sequential eager calls. A capture or
+replay that fails raises; nothing runs K eager calls in its place on a
+card.
+
+The cost model (core/costmodel.py) feeds the planner's fuse-vs-demote and
+stitch decisions and learns from the executor's host-path timings and
+sparse densities; the slot pool (parallel/ingest.py ``SlotPool``) lets a
+column of uniform dense rows deposit straight into a reusable (pinned, on
+CUDA) staging slot, filled ahead on a thread. Not ported yet: sharding and
+pipe plans (ROADMAP A step 9; a non-empty ``sharding`` or a ``pipe_depth``
+above 1 raises) and the persistent cache tier (A step 10);
 ``profiling.annotate`` becomes ``torch.profiler.record_function``.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -207,6 +224,7 @@ class Segment:
 
 
 def plan(stages: Sequence[Transformer], schema: Schema,
+         cost_model=None,
          fuse_overrides: Optional[Dict[str, bool]] = None,
          stitch_overrides: Optional[Dict[str, bool]] = None) -> List[Any]:
     """Partition a fitted stage chain into HostStage / Segment plan nodes.
@@ -215,31 +233,58 @@ def plan(stages: Sequence[Transformer], schema: Schema,
     stage offers a DeviceFn via ``device_fn(schema)`` (None or
     ``FusionUnsupported`` = host-only). Segments that carry no heavy stage
     are demoted to host stages — a device round-trip for column plumbing
-    alone is a loss — unless ``fuse_overrides`` ({segment label: bool})
-    says otherwise.
+    alone is a loss.
+
+    ``cost_model`` (core/costmodel.py SegmentCostModel) upgrades that
+    demotion heuristic to a PREDICTED fuse-vs-host comparison:
+    ``fuse_decision(label)`` returning True keeps a light segment fused,
+    False demotes it, None (uncalibrated) falls back to the heuristic — so
+    plans from an uncalibrated model are identical to the default.
+    ``fuse_overrides`` ({label: bool}, the Tuner's applied knob) wins over
+    both.
 
     ``stitch_overrides`` ({terminal stage class name: bool}) is the stitch
     knob: a ``terminal`` stage normally CLOSES its segment. When the stage
     declares the device shim (``stitchable`` + ``device_finalize`` /
-    ``finalize_stitched``) and its override is True, the segment stays OPEN
-    across it: downstream device stages keep consuming the segment's
-    device-resident columns, while the stage's own finalized columns stay
-    host-only. (The reference also lets its cost model decide both; that
-    model is not ported yet.)
+    ``finalize_stitched``) and its override is True — or, with no
+    override, ``cost_model.stitch_decision(segment label, stage name)``
+    prices the merge as worth it (None while uncalibrated) — the segment
+    stays OPEN across it: downstream device stages keep consuming the
+    segment's device-resident columns, while the stage's own finalized
+    columns stay host-only.
     """
     nodes: List[Any] = []
     cur: Optional[Segment] = None
 
-    def stitch_across(stage: Transformer, dfn: DeviceFn) -> bool:
+    def stitch_across(seg: Segment, stage: Transformer,
+                      dfn: DeviceFn) -> bool:
         if not (dfn.stitchable and dfn.device_finalize is not None
                 and dfn.finalize_stitched is not None):
             return False
-        return bool((stitch_overrides or {}).get(type(stage).__name__))
+        name = type(stage).__name__
+        if stitch_overrides is not None and name in stitch_overrides:
+            return bool(stitch_overrides[name])
+        if cost_model is not None:
+            try:
+                decision = cost_model.stitch_decision(seg.label, name)
+            except Exception:  # noqa: BLE001 — a model bug must not kill plan
+                decision = None
+            return bool(decision)
+        return False
 
     def keep_fused(seg: Segment) -> bool:
         if fuse_overrides is not None and seg.label in fuse_overrides:
             return bool(fuse_overrides[seg.label])
-        return seg.heavy
+        if seg.heavy:
+            return True
+        if cost_model is not None:
+            try:
+                decision = cost_model.fuse_decision(seg.label)
+            except Exception:  # noqa: BLE001 — a model bug must not kill plan
+                decision = None
+            if decision is not None:
+                return decision
+        return False
 
     def close():
         nonlocal cur
@@ -265,7 +310,7 @@ def plan(stages: Sequence[Transformer], schema: Schema,
                 cur = Segment()
             cur.add(stage, dfn)
             if dfn.terminal:
-                if stitch_across(stage, dfn):
+                if stitch_across(cur, stage, dfn):
                     cur.mark_stitched(stage, dfn)
                 else:
                     close()
@@ -442,6 +487,7 @@ class SegmentExecutor:
 
     def __init__(self, segment: Segment, cache: Optional[CompileCache] = None,
                  buckets: Optional[Tuple[int, ...]] = None,
+                 cost_model=None, slot_pool=None, mega_k: int = 1,
                  kernel_variants=None, stitch=None,
                  layout: Optional[str] = None,
                  device: Optional[torch.device] = None):
@@ -454,6 +500,14 @@ class SegmentExecutor:
         self.fallbacks: List[str] = []
         # bucket SET for short batches (None = power-of-two buckets)
         self.buckets = tuple(sorted(buckets)) if buckets else None
+        # cost model fed by host-fallback timings and sparse densities
+        self.cost_model = cost_model
+        # pre-allocated staging slots (parallel/ingest.py SlotPool); None =
+        # the allocating path
+        self.slot_pool = slot_pool
+        # K-step mega-dispatch factor for the submit path (the Tuner's
+        # knob, costmodel.choose_mega_k); 1 = per-batch dispatch
+        self.mega_k = max(1, int(mega_k or 1))
         # kernel_variants maps this segment's shape bucket (or "*") to a
         # core/kernels.py variant id activated around every program call;
         # stitch ({stage class name: bool}) enables each stage's device
@@ -489,12 +543,31 @@ class SegmentExecutor:
         self._stitch_tail: Tuple = \
             (("stitch", self._transpiled),) if self._transpiled else ()
 
+    def _cost_attrs(self) -> Dict[str, Any]:
+        """Tallied cost attrs for this segment's trace spans (mean per-batch
+        flops/bytes across cached shape buckets; empty when none was
+        recorded) — a traced p99 spike carries its cost context."""
+        cost = self.cache.segment_cost(self.segment.label)
+        if not cost:
+            return {}
+        out: Dict[str, Any] = {}
+        for k in ("flops", "bytes_accessed", "peak_memory_bytes"):
+            if k in cost:
+                out[k] = round(cost[k], 1)
+        return out
+
     # -- host path -------------------------------------------------------
     def _host_partition(self, part: Dict[str, np.ndarray], schema: Schema
                         ) -> List[Dict[str, np.ndarray]]:
         sub = DataFrame([dict(part)], schema.copy())
+        n = len(next(iter(part.values()))) if part else 0
         for s in self.segment.stages:
+            t0 = time.perf_counter()
             sub = s.transform(sub)
+            if self.cost_model is not None and n > 0:
+                # the measured HOST side of the fuse-vs-host comparison
+                self.cost_model.observe_host(
+                    type(s).__name__, time.perf_counter() - t0, n)
         return sub.partitions
 
     # -- fused path ------------------------------------------------------
@@ -589,6 +662,19 @@ class SegmentExecutor:
         if mixed:
             raise _HostFallback(f"mixed sparse/dense rows in {mixed}")
         csr_cols = self._csr_capable(probes)
+        # density term (costmodel.observe_nnz): fed for EVERY sparse
+        # external column — including ones about to take the reject_sparse
+        # host fallback — so choose_layout can calibrate while the layout
+        # knob is still off. Observation only; outputs are untouched.
+        if self.cost_model is not None and n_valid > 0:
+            from ..parallel.batching import sparse_width
+
+            for c in ext:
+                if probes[c]["sparse"]:
+                    nnz = sum(len(np.atleast_1d(v["values"]))
+                              for v in sub[c] if v is not None)
+                    self.cost_model.observe_nnz(
+                        seg.label, n_valid, nnz, sparse_width(sub[c]))
         for dfn, stage in zip(seg.dfns, seg.stages):
             mine = {c: probes[c] for c in dfn.in_cols if c in probes}
             if mine and dfn.reject_sparse and any(
@@ -606,6 +692,7 @@ class SegmentExecutor:
         if n_valid > 0:
             allow_sparse = all(not d.reject_sparse for d in seg.dfns)
             dense: Dict[str, np.ndarray] = {}
+            deposit: Dict[str, List[np.ndarray]] = {}
             csr: Dict[str, Tuple] = {}
             for c in ext:
                 if c in csr_cols:
@@ -617,8 +704,17 @@ class SegmentExecutor:
                     # densify fallback — bitwise-equal to the dense path
                     dense[c] = _stack_col(sub[c], True, stats=stats)
                     continue
-                dense[c] = _stack_col(sub[c], allow_sparse, stats=stats)
+                rows = self._deposit_rows(sub[c]) \
+                    if self.slot_pool is not None else None
+                if rows is not None:
+                    # slot-eligible: the stack is deferred to _batches,
+                    # which fills a pre-allocated SlotPool buffer directly
+                    # (the one host copy)
+                    deposit[c] = rows
+                else:
+                    dense[c] = _stack_col(sub[c], allow_sparse, stats=stats)
             state["dense"] = dense
+            state["deposit"] = deposit
             if csr:
                 state["csr"] = csr
                 staged: List[str] = []
@@ -673,15 +769,46 @@ class SegmentExecutor:
         indptr, indices, values = triple
         return indptr, indices, values, width
 
+    @staticmethod
+    def _deposit_rows(col: np.ndarray) -> Optional[List[np.ndarray]]:
+        """Rows eligible for slot deposit: an object column of uniform,
+        dense ndarray rows whose dtype ships as-is (no f64->f32 / i64->i32
+        narrowing and no sparse densify — those transforms need their own
+        allocation), so filling the staging slot IS the single host copy.
+        Every fallback decision is made HERE, before any generator runs on
+        a fill thread. None = take ``_stack_col`` (the copying path)."""
+        if col.dtype != object or len(col) == 0:
+            return None
+        rows = list(col)
+        first = rows[0]
+        if not isinstance(first, np.ndarray):
+            return None
+        shape, dt = first.shape, first.dtype
+        if dt == object or dt in (np.dtype(np.float64), np.dtype(np.int64)):
+            return None
+        for r in rows[1:]:
+            if not isinstance(r, np.ndarray) or r.shape != shape \
+                    or r.dtype != dt:
+                return None
+        return rows
+
     def _batches(self, state: Dict[str, Any], stats=None):
         """Padded/bucketed Batch stream over the partition's staged
         arrays. Each CSR-staged batch books its triple's bytes against the
         dense bytes the densify path would ship (``IngestStats.note_csr``,
-        once per batch; the reference books once per partition)."""
+        once per batch; the reference books once per partition).
+
+        Deposit-eligible columns (``state["deposit"]``) fill a
+        pre-allocated SlotPool buffer in place — stack + pad collapse into
+        one copy into the reusable staging slot; slot contention (acquire
+        timeout) falls back to the allocating path with an accounted copy
+        (``IngestStats.note_copy``)."""
         from ..parallel.batching import Batch, next_bucket, pad_batch
+        from ..parallel.ingest import rows_to_batch
 
         batch_size = self.segment.batch_size()
         dense = state["dense"]
+        deposit = state.get("deposit") or {}
         csr = state.get("csr") or {}
         n_valid = state["n_valid"]
         for start in range(0, n_valid, batch_size):
@@ -714,21 +841,69 @@ class SegmentExecutor:
                 arrays[f"{c}:width"] = np.asarray(width, dtype=np.int32)
                 if stats is not None:
                     stats.note_csr(nnz_b * 8 + (m + 1) * 4, m * width * 4)
+            lease = None
+            if deposit:
+                spec = {c: ((target,) + rows[0].shape, rows[0].dtype)
+                        for c, rows in deposit.items()}
+                lease = self.slot_pool.acquire(spec, stats=stats) \
+                    if self.slot_pool is not None else None
+                if lease is not None:
+                    lease.fill_begin()
+                    for c, rows in deposit.items():
+                        buf = lease.arrays[c]
+                        rows_to_batch(rows[start:stop], out=buf,
+                                      stats=stats)
+                        if m < target:
+                            buf[m:] = 0  # pad parity with pad_batch zeros
+                        arrays[c] = buf
+                    lease.fill_end()
+                    if stats is not None:
+                        stats.note_deposit()
+                else:
+                    for c, rows in deposit.items():
+                        arrays[c] = pad_batch(
+                            rows_to_batch(rows[start:stop], stats=stats),
+                            target)
+                    if stats is not None:
+                        stats.note_copy()
             mask = np.zeros(target, dtype=bool)
             mask[:m] = True
-            yield Batch(arrays, mask, m)
+            yield Batch(arrays, mask, m, staging=lease)
 
     def _put(self, batch) -> Tuple[Dict[str, torch.Tensor], int]:
+        """Stage one batch on the device: a slot-deposited column copies
+        from its (pinned, on CUDA) slot tensor directly; every other array
+        goes through ``stage_array``."""
         from ..parallel.ingest import stage_array
 
-        return ({c: stage_array(a, self.device)
-                 for c, a in batch.arrays.items()}, batch.num_valid)
+        lease = getattr(batch, "staging", None)
+        out: Dict[str, torch.Tensor] = {}
+        for c, a in batch.arrays.items():
+            if lease is not None and c in lease.tensors \
+                    and a is lease.arrays[c]:
+                t = lease.tensors[c]
+                out[c] = t.to(self.device, non_blocking=True) \
+                    if self.device.type == "cuda" else t
+            else:
+                out[c] = stage_array(a, self.device)
+        return out, batch.num_valid
 
     @staticmethod
     def _sig_of(x, ext) -> Tuple:
         """Shape signature of one staged input dict (CompileCache key)."""
         return tuple((c, tuple(x[c].shape), _dtype_name(x[c].dtype))
                      for c in ext)
+
+    @staticmethod
+    def _group_sig(x, ext) -> Tuple:
+        """``_sig_of`` plus the VALUES of 0-d host inputs (a CSR batch's
+        ``:width``): a captured K-step graph bakes those values in, so two
+        batches of one shape and another width never share a mega group or
+        a graph."""
+        host = tuple((c, x[c].item()) for c in ext
+                     if x[c].dim() == 0 and x[c].device.type == "cpu")
+        sig = SegmentExecutor._sig_of(x, ext)
+        return sig + ((("host", host),) if host else ())
 
     @staticmethod
     def _shape_key_of(sig) -> str:
@@ -749,21 +924,26 @@ class SegmentExecutor:
             vid = kv.get("*")
         return vid
 
+    def _keying(self, state: Dict[str, Any]) -> Tuple:
+        """(staged columns, CSR-staged columns, cache-key tail, shape-key
+        prefix) of one partition's programs: a CSR-staged program runs
+        sparse_fn bodies over the triple, so it is keyed apart and its
+        shape key prefixed (``layout=csr;``), after any stitch."""
+        staged_cols = state.get("staged_cols") or state["ext"]
+        csr_cols = frozenset(state.get("csr") or ())
+        key_tail, shape_pre = self._stitch_tail, self._stitch_pre
+        if csr_cols:
+            key_tail = key_tail + (("layout", "csr"),)
+            shape_pre = "layout=csr;" + shape_pre
+        return staged_cols, csr_cols, key_tail, shape_pre
+
     def _make_step(self, params, state: Dict[str, Any]):
         """Dispatch closure: staged batch -> (device outputs, num_valid).
         Non-blocking (the ops are queued on the compute stream); programs
         come from the shared CompileCache keyed by (segment, shape
         signature)."""
         seg, keys = self.segment, state["keys"]
-        staged_cols = state.get("staged_cols") or state["ext"]
-        csr_cols = frozenset(state.get("csr") or ())
-        key_tail = self._stitch_tail
-        shape_pre = self._stitch_pre
-        if csr_cols:
-            # a CSR-staged program runs sparse_fn bodies over the triple:
-            # key it apart, and prefix the shape key
-            key_tail = key_tail + (("layout", "csr"),)
-            shape_pre = "layout=csr;" + shape_pre
+        staged_cols, csr_cols, key_tail, shape_pre = self._keying(state)
 
         def step(staged):
             x, m = staged
@@ -783,10 +963,53 @@ class SegmentExecutor:
 
         return step
 
+    def _make_mega_step(self, params, state: Dict[str, Any], k: int):
+        """K-step dispatch closure: a list of K same-signature staged
+        batches (``((x, m), timing)`` items) -> tuple of K output tuples,
+        through ONE call of the cached K-step program (``_MegaProgram``:
+        one graph replay on the card). Keyed apart from the K=1 program by
+        (``"mega"``, K), the 0-d host inputs' values and the kernel
+        variant; the shape key is prefixed ``mega{k};`` so the cost model's
+        bucket parser skips mega records (their flops are K batches')."""
+        seg, keys = self.segment, state["keys"]
+        staged_cols, csr_cols, key_tail, shape_pre = self._keying(state)
+
+        def mega(group):
+            xs = [x for (x, _m), _t in group]
+            sig = self._sig_of(xs[0], staged_cols)
+            gsig = self._group_sig(xs[0], staged_cols)
+            vid = self._variant_for(sig)
+            tail = key_tail + ((("variant", vid),) if vid else ())
+            pre = (f"variant={vid};" if vid else "") + shape_pre
+            program = self.cache.get(
+                (seg.key, gsig, ("mega", k)) + tail,
+                lambda: self._build_mega(keys, k, variant=vid,
+                                         csr_cols=csr_cols),
+                label=seg.label,
+                shape=f"{pre}mega{k};{self._shape_key_of(sig)}")
+            cols_seq = tuple({c: x[c] for c in staged_cols} for x in xs)
+            with torch.profiler.record_function(f"fused:{seg.label}:mega{k}"):
+                return program(params, cols_seq)
+
+        return mega
+
     @staticmethod
     def _fetch(handle) -> Tuple[torch.Tensor, ...]:
         ys, m = handle
         return tuple(y[:m] for y in ys)
+
+    def _fill_ahead(self, state: Dict[str, Any], stats):
+        """Batch source for one partition: the plain generator, wrapped in
+        a background fill thread when slot deposit is active — slot N+1
+        fills while slot N transfers (the SlotPool's two buffers per bucket
+        pace the lookahead). Returns (iterator, closer)."""
+        src = self._batches(state, stats)
+        if not state.get("deposit"):
+            return src, None
+        from ..parallel.batching import DevicePrefetcher
+
+        filler = DevicePrefetcher(src, depth=1)
+        return iter(filler), filler
 
     def _run_partition(self, part: Dict[str, np.ndarray], params,
                        stats) -> Dict[str, np.ndarray]:
@@ -796,7 +1019,8 @@ class SegmentExecutor:
         collected: Dict[str, List[np.ndarray]] = {k: []
                                                   for k in state["keys"]}
         if state["n_valid"] > 0:
-            ring = TransferRing(self._batches(state, stats), put=self._put,
+            src, filler = self._fill_ahead(state, stats)
+            ring = TransferRing(src, put=self._put,
                                 step=self._make_step(params, state),
                                 fetch=self._fetch,
                                 depth=self.segment.ring_depth(), stats=stats,
@@ -807,6 +1031,9 @@ class SegmentExecutor:
                         collected[k].append(y)
             except FusionUnsupported as e:
                 raise _HostFallback(str(e))
+            finally:
+                if filler is not None:
+                    filler.close()
         return self._emit_partition(state, collected)
 
     def _readback_async(self, handle) -> "_PendingBatch":
@@ -846,6 +1073,7 @@ class SegmentExecutor:
         wall0 = time.perf_counter()
         t_wall = time.time()
         params = tuple(d.params for d in seg.dfns)
+        mega_k = self.mega_k
         pendings: List[Tuple[str, Any, Any]] = []
         for part in df.partitions:
             try:
@@ -853,12 +1081,25 @@ class SegmentExecutor:
                 handles = []
                 if state["n_valid"] > 0:
                     step = self._make_step(params, state)
-                    for batch in self._batches(state, stats):
-                        staged, timing = timed_stage(self._put, batch)
-                        td = time.perf_counter()
-                        pending = self._readback_async(step(staged))
-                        timing.dispatch_s = time.perf_counter() - td
-                        handles.append((pending, timing))
+                    src, filler = self._fill_ahead(state, stats)
+                    try:
+                        if mega_k <= 1:
+                            for batch in src:
+                                staged, timing = timed_stage(self._put,
+                                                             batch)
+                                td = time.perf_counter()
+                                pending = self._readback_async(step(staged))
+                                timing.dispatch_s = \
+                                    time.perf_counter() - td
+                                handles.append((pending, timing))
+                        else:
+                            staged_it = (timed_stage(self._put, batch)
+                                         for batch in src)
+                            self._dispatch_mega(staged_it, params, state,
+                                                step, mega_k, handles)
+                    finally:
+                        if filler is not None:
+                            filler.close()
                 pendings.append(("device", state, handles))
             except (_HostFallback, FusionUnsupported) as e:
                 self.fallbacks.append(f"{seg.label}: {e}")
@@ -891,10 +1132,61 @@ class SegmentExecutor:
             if obs is not None:
                 tracer, ctxs = obs
                 tracer.record_batch(f"segment:{seg.label}", ctxs, t_wall,
-                                    time.perf_counter() - wall0)
+                                    time.perf_counter() - wall0,
+                                    **self._cost_attrs())
             return self._overlay(df, out_parts)
 
         return resolve
+
+    def _dispatch_mega(self, staged_it, params, state: Dict[str, Any],
+                       step, k: int, handles) -> None:
+        """Dispatch staged batches in SLIDING K-step groups: pull from the
+        (lazily staging) iterator, and the moment K consecutive batches of
+        one signature (``_group_sig``: shapes, dtypes and 0-d host values)
+        are staged, run them through the K-step program (one call for K
+        micro-batches) and DROP the staged-input references — at most K
+        staged inputs are alive at once. Runs shorter than K (signature
+        change or end of stream) dispatch singly through the ordinary step
+        — the SAME per-batch program as K=1, so outputs are identical
+        either way. The measured mega dispatch time is split evenly across
+        the K timings, with ``timing.mega_k`` tagging the share so the cost
+        model can de-amortize it."""
+        ext = state.get("staged_cols") or state["ext"]
+        mega = self._make_mega_step(params, state, k)
+
+        def flush(group):
+            if len(group) == k:
+                td = time.perf_counter()
+                outs = mega(group)
+                pend = [self._readback_async((ys, staged[1]))
+                        for (staged, _t), ys in zip(group, outs)]
+                share = (time.perf_counter() - td) / k
+                for (staged, timing), p in zip(group, pend):
+                    timing.dispatch_s = share
+                    timing.mega_k = k
+                    handles.append((p, timing))
+            else:
+                for staged, timing in group:
+                    td = time.perf_counter()
+                    pending = self._readback_async(step(staged))
+                    timing.dispatch_s = time.perf_counter() - td
+                    handles.append((pending, timing))
+
+        group: List[Any] = []
+        sig0 = None
+        for item in staged_it:
+            sig = self._group_sig(item[0][0], ext)
+            if group and sig != sig0:
+                flush(group)
+                group = []
+            if not group:
+                sig0 = sig
+            group.append(item)
+            if len(group) == k:
+                flush(group)
+                group = []
+        if group:
+            flush(group)
 
     def _emit_partition(self, state: Dict[str, Any],
                         collected: Dict[str, List[np.ndarray]]
@@ -969,6 +1261,124 @@ class SegmentExecutor:
 
         return fused
 
+    def _build_mega(self, keys: List[str], k: int,
+                    variant: Optional[str] = None,
+                    csr_cols: frozenset = frozenset()) -> "_MegaProgram":
+        """The K-step program: K runs of ``_build``'s per-batch body in one
+        call — a captured CUDA graph on the card, K eager calls elsewhere.
+        Each run's ops are exactly the per-batch program's, so per-batch
+        outputs match the K=1 path."""
+        return _MegaProgram(self._build(keys, variant=variant,
+                                        csr_cols=csr_cols), k, self.device)
+
+
+class _MegaProgram:
+    """K runs of a per-batch fused program in one call.
+
+    On the CPU, ``__call__(params, cols_seq)`` runs the body on each of the
+    K input dicts in turn. On the card it replays a ``torch.cuda.CUDAGraph``
+    of the K runs over K static input sets, one graph per CUDA stream (a
+    graph is not reentrant, and each serving replica computes on a stream
+    of its own). The first call on a stream runs the K batches eagerly
+    (which builds and loads the kernels and makes any lazy device copies),
+    then captures the K runs over static copies of the inputs
+    (``capture_error_mode="thread_local"``: other replicas keep launching)
+    and replays. Every call copies the staged inputs into the graph's static
+    inputs on the caller's stream, replays, and clones the static outputs
+    on the same stream before returning: no host sync, and the clones are
+    the caller's before any later replay rewrites the graph's outputs. A
+    0-d host input (a CSR width) is baked into the graph: the cache key
+    carries its value. A capture or replay that fails raises.
+    ``release()`` (a cache eviction, from any thread) waits for the calls in
+    flight, then frees every graph and its memory pool. A call that starts
+    after it finds the program dead: it captures a graph of its own, replays
+    it once and frees it."""
+
+    def __init__(self, body, k: int, device: torch.device):
+        self.body = body
+        self.k = int(k)
+        self.cuda = device.type == "cuda"
+        self._graphs: Dict[int, Tuple[List[Dict[str, Any]], Any]] = {}
+        self._lock = threading.Lock()
+        self._idle = threading.Condition(self._lock)
+        self._busy = 0        # calls between their lookup and their clones
+        self.dead = False
+
+    def __call__(self, params, cols_seq):
+        if len(cols_seq) != self.k:
+            raise ValueError(f"a {self.k}-step program got {len(cols_seq)} "
+                             f"batches")
+        if not self.cuda:
+            return tuple(self.body(params, cols) for cols in cols_seq)
+        from ..obs.perf import paused_tally
+
+        stream = torch.cuda.current_stream()
+        with self._lock:
+            entry = self._graphs.get(stream.cuda_stream)
+            dead = self.dead
+            self._busy += 1
+        try:
+            if entry is None:
+                # first call on this stream: the K batches eagerly (their
+                # outputs are not used), then the capture
+                for cols in cols_seq:
+                    self.body(params, cols)
+                with paused_tally():
+                    entry = self._capture(params, cols_seq)
+                if not dead:
+                    with self._lock:
+                        self._graphs[stream.cuda_stream] = entry
+            static, cap = entry
+            with paused_tally():
+                for dst, src in zip(static, cols_seq):
+                    for c, t in dst.items():
+                        if t.device.type == "cuda":
+                            t.copy_(src[c])
+                outs = cap.replay()
+                out = tuple(tuple(y.clone() for y in ys) for ys in outs)
+            if dead:
+                from .graphs import synchronize
+
+                synchronize()   # the clones have read the pool
+                cap.release()
+            return out
+        finally:
+            with self._lock:
+                self._busy -= 1
+                if not self._busy:
+                    self._idle.notify_all()
+
+    def _capture(self, params, cols_seq):
+        from .graphs import Captured
+
+        static = [{c: (t.clone() if t.device.type == "cuda" else t)
+                   for c, t in cols.items()} for cols in cols_seq]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        cap = Captured(lambda: tuple(self.body(params, cols)
+                                     for cols in static),
+                       stream=side, capture_error_mode="thread_local")
+        return static, cap
+
+    @property
+    def graphs(self) -> int:
+        """Graphs captured so far (one per stream that called)."""
+        with self._lock:
+            return len(self._graphs)
+
+    def release(self) -> None:
+        with self._lock:
+            self.dead = True
+            while self._busy:
+                self._idle.wait()
+            entries, self._graphs = list(self._graphs.values()), {}
+        if entries:
+            from .graphs import synchronize
+
+            synchronize()   # no replay may still read a pool
+        for _static, cap in entries:
+            cap.release()
+
 
 # ---------------------------------------------------------------------------
 # FusedPipelineModel
@@ -987,46 +1397,66 @@ class FusedPipelineModel(PipelineModel):
     _abstract = True
 
     def __init__(self, stages=None, cache: Optional[CompileCache] = None,
-                 **kwargs):
+                 cost_model=None, slot_staging: bool = True, **kwargs):
         super().__init__(stages, **kwargs)
         self._cache = cache if cache is not None else compile_cache()
         self._plans: Dict[Tuple, List[Any]] = {}
         self._seg_stats: Dict[str, Any] = {}
         self._last_fallbacks: List[str] = []
         self._last_plan: Optional[List[Any]] = None
-        # tuning knobs (all default OFF: an untuned model plans, buckets
-        # and dispatches as the plain defaults say)
+        # tuning knobs (core/tune.py's Tuner drives them; all default OFF:
+        # an untuned model plans, buckets and dispatches as the plain
+        # defaults say): a cost model feeding plan()'s fuse-vs-host and
+        # stitch comparisons, per-segment bucket sets, fuse overrides,
+        # K-step mega-dispatch factors, kernel variants, stitch flags and
+        # staging layouts
+        self._cost_model = cost_model
         self._bucket_overrides: Dict[str, Tuple[int, ...]] = {}
         self._fuse_overrides: Dict[str, bool] = {}
+        self._mega_k_overrides: Dict[str, int] = {}
         self._variant_overrides: Dict[str, Dict[Any, str]] = {}
         self._stitch_overrides: Dict[str, bool] = {}
         self._layout_overrides: Dict[str, str] = {}
+        # pre-allocated staging (parallel/ingest.py SlotPool), one pool per
+        # device type (pinned on CUDA), shared across segments and
+        # executors; ``slot_staging=False`` pins the allocating path
+        self.slot_staging = bool(slot_staging)
+        self._slot_pools: Dict[str, Any] = {}
 
     def fuse(self) -> "FusedPipelineModel":
         return self
 
     def set_tuning(self, buckets: Optional[Dict[str, Tuple[int, ...]]] = None,
                    fuse: Optional[Dict[str, bool]] = None,
+                   cost_model=None,
+                   mega_k: Optional[Dict[str, int]] = None,
+                   sharding: Optional[Dict[str, str]] = None,
                    kernel_variants: Optional[Dict[str, Dict[Any, str]]] = None,
                    stitch: Optional[Dict[str, bool]] = None,
                    layout: Optional[Dict[str, str]] = None,
-                   mega_k: Optional[Dict[str, int]] = None) -> None:
-        """Apply knobs: per-segment-label bucket sets, fuse-vs-demote
-        overrides, per-segment kernel-variant maps ({label: {bucket|"*":
-        variant id}}), per-stage-name stitch flags, and per-segment layouts
-        ({label: "csr"}). Passing None leaves a knob unchanged; passing {}
-        clears it. Cached plans are invalidated (built programs survive in
-        the CompileCache).
+                   pipe_depth: Optional[int] = None) -> None:
+        """Apply tuned knobs (``Tuner.apply``): per-segment-label bucket
+        sets, fuse-vs-demote overrides, per-segment K-step mega-dispatch
+        factors ({label: K}; K = 1 is the plain per-batch dispatch),
+        per-segment kernel-variant maps ({label: {bucket|"*": variant
+        id}}), per-stage-name stitch flags, per-segment layouts ({label:
+        "csr"}), and/or the cost model itself. Passing None leaves a knob
+        unchanged; passing {} clears it. Cached plans are invalidated
+        (built programs survive in the CompileCache).
 
-        ``mega_k`` ({label: K}) is the reference's K-step mega dispatch;
-        K = 1 is the plain per-batch dispatch every segment runs. A K-step
-        program means capturing a CUDA graph, which belongs with the Tuner
-        (ROADMAP A step 6): any K > 1 raises ``NotImplementedError``."""
-        if mega_k is not None and any(int(k) > 1 for k in mega_k.values()):
+        ``sharding`` ({label: spec name}) and ``pipe_depth`` are the mesh
+        knobs: {} / None and ``pipe_depth`` <= 1 (what ``Tuner._push``
+        sends for an untuned set) clear them; a non-empty ``sharding`` or
+        a ``pipe_depth`` above 1 raises ``NotImplementedError`` — the port
+        has no mesh until ROADMAP A step 9."""
+        if sharding and any(v for v in sharding.values()):
             raise NotImplementedError(
-                "K-step mega dispatch (mega_k > 1) is not ported yet: it "
-                "waits for CUDA-graph capture beside the Tuner (ROADMAP A "
-                "step 6)")
+                f"sharding={sharding!r}: segment sharding over a mesh is not "
+                f"ported yet (ROADMAP A step 9)")
+        if pipe_depth is not None and int(pipe_depth) > 1:
+            raise NotImplementedError(
+                f"pipe_depth={pipe_depth!r}: pipeline-parallel segments are "
+                f"not ported yet (ROADMAP A step 9)")
         if kernel_variants is not None:
             self._variant_overrides = {
                 str(k): dict(v) for k, v in kernel_variants.items() if v}
@@ -1040,10 +1470,45 @@ class FusedPipelineModel(PipelineModel):
         if fuse is not None:
             self._fuse_overrides = {str(k): bool(v)
                                     for k, v in fuse.items()}
+        if mega_k is not None:
+            self._mega_k_overrides = {str(k): max(1, int(v))
+                                      for k, v in mega_k.items()}
         if layout is not None:
             self._layout_overrides = {str(k): str(v)
                                       for k, v in layout.items() if v}
+        if cost_model is not None:
+            self._cost_model = cost_model
         self._plans.clear()
+
+    @property
+    def shard_mesh(self):
+        """The device mesh segments may shard over: None until the port
+        has one (ROADMAP A step 9), so the Tuner proposes no mesh knob."""
+        return None
+
+    @property
+    def cost_model(self):
+        return self._cost_model
+
+    @property
+    def mega_k_max(self) -> int:
+        """Largest active K-step dispatch factor (1 when untuned). Serving's
+        DispatchWatchdog scales its budget by this so a K-batch mega
+        dispatch is not mistaken for a hang."""
+        return max(self._mega_k_overrides.values(), default=1)
+
+    def _get_slot_pool(self, device: torch.device):
+        """The model's SlotPool for ``device``'s type (pinned slots on
+        CUDA), or None with ``slot_staging`` off."""
+        if not self.slot_staging:
+            return None
+        pool = self._slot_pools.get(device.type)
+        if pool is None:
+            from ..parallel.ingest import SlotPool
+
+            pool = self._slot_pools.setdefault(
+                device.type, SlotPool(pin=device.type == "cuda"))
+        return pool
 
     @property
     def compile_cache(self) -> CompileCache:
@@ -1054,7 +1519,7 @@ class FusedPipelineModel(PipelineModel):
         key = (tuple(schema.types.items()), str(device))
         if key not in self._plans:
             self._plans[key] = plan(
-                self._stages, schema.copy(),
+                self._stages, schema.copy(), cost_model=self._cost_model,
                 fuse_overrides=self._fuse_overrides or None,
                 stitch_overrides=self._stitch_overrides or None)
         return self._plans[key]
@@ -1064,10 +1529,27 @@ class FusedPipelineModel(PipelineModel):
         return SegmentExecutor(
             node, self._cache,
             buckets=self._bucket_overrides.get(node.label),
+            cost_model=self._cost_model,
+            slot_pool=self._get_slot_pool(device),
+            mega_k=self._mega_k_overrides.get(node.label, 1),
             kernel_variants=self._variant_overrides.get(node.label),
             stitch=self._stitch_overrides or None,
             layout=self._layout_overrides.get(node.label),
             device=device)
+
+    def _host_node(self, node: HostStage, df: DataFrame) -> DataFrame:
+        """Run one host plan node, feeding its wall time to the cost model
+        (the measured host side of fuse-vs-demote) when tuning is on."""
+        if self._cost_model is None:
+            return node.stage.transform(df)
+        n = sum(len(next(iter(p.values()))) if p else 0
+                for p in df.partitions)
+        t0 = time.perf_counter()
+        out = node.stage.transform(df)
+        if n > 0:
+            self._cost_model.observe_host(
+                node.label, time.perf_counter() - t0, n)
+        return out
 
     def transform(self, df: DataFrame, fused: bool = True) -> DataFrame:
         if not fused:
@@ -1088,7 +1570,7 @@ class FusedPipelineModel(PipelineModel):
                 df = ex.run(df, stats)
                 self._last_fallbacks.extend(ex.fallbacks)
             else:
-                df = node.stage.transform(df)
+                df = self._host_node(node, df)
         return df
 
     def transform_submit(self, df: DataFrame):
@@ -1118,7 +1600,7 @@ class FusedPipelineModel(PipelineModel):
                 df = ex.run(df, stats)
                 self._last_fallbacks.extend(ex.fallbacks)
             else:
-                df = node.stage.transform(df)
+                df = self._host_node(node, df)
         if tail is None:
             out = df
             return lambda: out
@@ -1150,24 +1632,42 @@ class FusedPipelineModel(PipelineModel):
 
     def fusion_stats(self) -> Dict[str, Any]:
         """Segment layout + per-segment ingest + compile-cache counters +
-        per-program cost records (build seconds, first-call ms)."""
+        per-program cost records (the tally's flops/bytes, build seconds,
+        first-call ms) and the roofline attribution built from them
+        (obs/perf.py ``attribute_segments``): measured-vs-bound per segment
+        with a dominant bottleneck label. The attribution is empty (never
+        failing) when no cost was recorded."""
         nodes = self._last_plan or []
+        per_segment = {label: s.summary()
+                       for label, s in list(self._seg_stats.items())}
+        costs = self._cache.costs()
+        try:
+            from ..obs.perf import attribute_segments
+
+            roofline = attribute_segments(
+                per_segment, costs, cost_model=self._cost_model,
+                layout=self._layout_overrides or None)
+        except Exception:  # noqa: BLE001 — attribution must not break stats
+            roofline = {}
         out = {
             "segments": [n.describe() for n in nodes],
             "n_fused_segments": sum(isinstance(n, Segment) for n in nodes),
-            "per_segment": {label: s.summary()
-                            for label, s in self._seg_stats.items()},
+            "per_segment": per_segment,
             "fallbacks": list(self._last_fallbacks),
             "compile_cache": self._cache.stats(),
-            "segment_costs": self._cache.costs(),
+            "segment_costs": costs,
+            "roofline": roofline,
         }
         if (self._bucket_overrides or self._fuse_overrides
+                or self._mega_k_overrides
                 or self._variant_overrides or self._stitch_overrides
                 or self._layout_overrides):
             out["tuning"] = {
                 "buckets": {k: list(v)
                             for k, v in self._bucket_overrides.items()},
-                "fuse": dict(self._fuse_overrides)}
+                "fuse": dict(self._fuse_overrides),
+                "mega_k": dict(self._mega_k_overrides),
+                "sharding": {}}
             if self._variant_overrides:
                 out["tuning"]["kernel_variants"] = {
                     label: {str(b): v for b, v in kv.items()}
@@ -1190,4 +1690,8 @@ class FusedPipelineModel(PipelineModel):
                 stitched[n.label] = list(dict.fromkeys(names))
         if stitched:  # key absent when nothing stitched
             out["stitched"] = stitched
+        pools = {k: p.stats() for k, p in self._slot_pools.items()}
+        if pools:
+            out["slot_pool"] = pools.get("cuda") or pools.get("cpu") \
+                or next(iter(pools.values()))
         return out

@@ -22,7 +22,10 @@ is active: the gather is exact, so routing cannot change the result, and the
 reference's ``_GATHER_MAX_CELLS`` guard sizes TPU VMEM, which this card does
 not have. On CPU tensors it runs ``csr_gather_plain``, one global
 ``searchsorted`` over ``row * width + index`` keys as in the reference's XLA
-formulation; anything else raises. ``launches`` counts kernel launches.
+formulation; anything else raises. ``launches`` counts kernel launches,
+through CUDA graph replays too (core/graphs.py: the fused executor's mega
+dispatch replays captured launches), and each launch adds its bytes bound
+to an active cost tally (obs/perf.py), which cannot see inside it.
 
 Bound on the H100: the launch's latency at the executor's 256-row batch
 (~0.16 MB of bytes), bytes over a whole partition; see the source. The
@@ -46,9 +49,12 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from ..core import graphs
+from ..obs import perf as _perf
 
 #: kernel launches since the counter was last set to 0
 launches = 0
+graphs.count_replays(__name__, "launches")
 
 #: the kernel's shape, as in csrc/csr_gather.cu: warps a block, entries a
 #: warp's shared-memory window holds, and used ids a block stages
@@ -195,11 +201,18 @@ def _bind():
     return _bound
 
 
+def gather_cost(n_rows: int, nnz: int, n_used: int) -> tuple:
+    """(flops, bytes) of one gather: no arithmetic, and the bytes it must
+    move — offsets, the batch's entries (index + value), the used ids and
+    the [N, U] f32 output (``chip_smoke.py``'s ``gather_bound``)."""
+    return 0.0, float(4 * (n_rows + 1) + 8 * nnz + 4 * n_used
+                      + 4 * n_rows * n_used)
+
+
 def csr_gather_cuda(indptr: torch.Tensor, indices: torch.Tensor,
                     values: torch.Tensor, width, used: torch.Tensor
                     ) -> torch.Tensor:
     """Launch K3 on PyTorch's current stream; returns [N, U] f32."""
-    global launches
     dev = indptr.device
     # the conditions of _check_inputs in one expression; it names the fault
     if not (dev.type == "cuda" and indptr.dtype is _I32
@@ -222,8 +235,9 @@ def csr_gather_cuda(indptr: torch.Tensor, indices: torch.Tensor,
                              out.data_ptr(), stream(dev.index),
                              indices.numel(), n, u, w,
                              launch_geometry(n, u)[0], 0, 0))
-        launches += 1
+        graphs.note_launch(__name__, "launches")
         _kernels.check(code, "csr_gather kernel launch")
+        _perf.note_kernel_cost(*gather_cost(n, indices.numel(), u))
     return out
 
 

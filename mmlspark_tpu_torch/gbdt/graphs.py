@@ -1,68 +1,19 @@
 """CUDA graph capture for the device-resident GBDT loops.
 
 The fused tree grower and the whole-run scan engine launch thousands of
-small kernels per tree at fixed shapes. ``Captured`` records one call of
-such a function in a ``torch.cuda.CUDAGraph`` and replays it; the callers
-run the function once eagerly first (which builds and loads the kernels,
-opts K1 into its shared memory and makes the first allocations), so the
-capture holds launches only.
-
-A kernel's Python launch counter counts in its wrapper, which runs once, at
-capture, when nothing launches. Each kernel module that a captured loop
-may launch registers its counters here (``count_replays``); ``Captured``
-takes back what the capture counted on them and adds it again on every
-replay, so each counter counts the launches that ran.
+small kernels per tree at fixed shapes. ``Captured`` (core/graphs.py)
+records one call of such a function in a ``torch.cuda.CUDAGraph`` and
+replays it, with the kernels' launch counters counted through the replays
+(``count_replays``); ``Replayer`` runs a grower step eagerly once, captures
+it on the second call and replays it after.
 """
 
 from __future__ import annotations
 
-import sys
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict
 
-import torch
-
-#: (module name, counter name) of every registered launch counter
-COUNTERS: List[Tuple[str, str]] = []
-
-
-def count_replays(module: str, *names: str) -> None:
-    """Register the launch counters ``names`` of the module ``module`` (its
-    ``__name__``) to be counted through graph replays."""
-    COUNTERS.extend((module, n) for n in names if (module, n) not in COUNTERS)
-
-
-def read_counters() -> Dict[Tuple[str, str], int]:
-    """The registered counters' values, by (module name, counter name)."""
-    return {(m, a): getattr(sys.modules[m], a) for m, a in COUNTERS}
-
-
-def set_counters(values: Dict[Tuple[str, str], int]) -> None:
-    for (m, a), v in values.items():
-        setattr(sys.modules[m], a, v)
-
-
-class Captured:
-    """``fn()`` captured once in a CUDA graph (on construction, which runs
-    nothing); ``replay()`` runs it. ``out`` is what ``fn`` returned at
-    capture: tensors that every replay rewrites in place."""
-
-    def __init__(self, fn: Callable):
-        before = read_counters()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.out = fn()
-        after = read_counters()
-        self.launches = {k: after[k] - v for k, v in before.items()
-                         if after[k] != v}
-        set_counters(before)              # the capture launched nothing
-        self.replays = 0
-
-    def replay(self):
-        self.graph.replay()
-        self.replays += 1
-        now = read_counters()
-        set_counters({k: now[k] + d for k, d in self.launches.items()})
-        return self.out
+from ..core.graphs import (COUNTERS, Captured, count_replays,  # noqa: F401
+                           read_counters, set_counters)
 
 
 class Replayer:

@@ -36,7 +36,7 @@ for the buffer (``count_tiers``: K1's geometry for each tier width, widest
 first); each block groups rows as a launch sized for the narrowest tier
 that holds the count would, and blocks past the count return at once.
 ``count_launches`` counts its launches. Both counters count launches made
-by replaying a captured CUDA graph too (``gbdt/graphs.py``).
+by replaying a captured CUDA graph too (``core/graphs.py``).
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ import dataclasses
 import torch
 
 from .. import _kernels
-from . import graphs
+from ..core import graphs
 
 #: kernel launches since the counter was last set to 0 (the mask entry)
 launches = 0
@@ -173,7 +173,6 @@ def histogram_cuda(bins_fm: torch.Tensor, grad: torch.Tensor,
                    hess: torch.Tensor, row_mask: torch.Tensor,
                    num_bins: int) -> torch.Tensor:
     """Launch K1 on PyTorch's current stream; returns [F, num_bins, 3]."""
-    global launches
     _check_inputs(bins_fm, grad, hess, row_mask)
     f, n = bins_fm.shape
     dev = bins_fm.device
@@ -187,7 +186,7 @@ def histogram_cuda(bins_fm: torch.Tensor, grad: torch.Tensor,
                  p(scratch), n, f, num_bins, geo.feat_per_block,
                  geo.row_blocks, geo.rows_per_block, geo.smem_bytes,
                  _kernels.stream_ptr(dev))
-    launches += 1
+    graphs.note_launch(__name__, "launches")
     _kernels.check(code, "hist kernel launch")
     return out
 
@@ -239,7 +238,6 @@ def histogram_count_cuda(bins_fm: torch.Tensor, grad: torch.Tensor,
     before the int32 ``count`` (on the device, never read here) of the
     compacted [F, n] buffer; ``caps``: the tier widths the rows are grouped
     by. Returns [F, num_bins, 3]."""
-    global count_launches
     f, n = bins_fm.shape
     dev = bins_fm.device
     _check_inputs(bins_fm, grad, hess)
@@ -265,7 +263,7 @@ def histogram_count_cuda(bins_fm: torch.Tensor, grad: torch.Tensor,
                        p(scratch), n, f, num_bins, geo.feat_per_block,
                        max(g.row_blocks for _, g in tiers), geo.smem_bytes,
                        table, _kernels.stream_ptr(dev))
-    count_launches += 1
+    graphs.note_launch(__name__, "count_launches")
     _kernels.check(code, "hist kernel (device count) launch")
     return out
 

@@ -28,7 +28,7 @@ from typing import Tuple
 import torch
 
 from .. import _kernels
-from . import graphs
+from ..core import graphs
 
 #: kernel launches since the counter was last set to 0 (graph replays too)
 launches = 0
@@ -117,7 +117,6 @@ def select_rows_cuda(bins_fm: torch.Tensor, grad: torch.Tensor,
                      cap: int) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """Launch K2 on PyTorch's current stream."""
-    global launches
     _check_inputs(bins_fm, grad, hess, mask)
     f, n = bins_fm.shape
     dev = bins_fm.device
@@ -131,7 +130,7 @@ def select_rows_cuda(bins_fm: torch.Tensor, grad: torch.Tensor,
         p(bins_fm), p(grad), p(hess), p(mask), p(counts), p(bins_c),
         p(grad_c), p(hess_c), n, f, cap, rows_per_block, n_blocks,
         _kernels.stream_ptr(dev))
-    launches += 1
+    graphs.note_launch(__name__, "launches")
     _kernels.check(code, "select kernel launch")
     return bins_c, grad_c, hess_c
 

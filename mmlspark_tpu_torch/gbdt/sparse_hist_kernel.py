@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from . import graphs
+from ..core import graphs
 
 #: kernel launches since the counter was last set to 0 (graph replays too)
 launches = 0
@@ -243,7 +243,6 @@ def sparse_histogram_cuda(data: torch.Tensor,
     """Launch K4 on PyTorch's current stream; returns [3, TB] f32. The
     entries must be bin-sorted, their valid length ``bin_end[-1]`` at most
     the stats' width (read on the device: no host read)."""
-    global launches
     _check_inputs(data, bin_end)
     width, tb = data.shape[1], bin_end.shape[0]
     dev = data.device
@@ -255,7 +254,7 @@ def sparse_histogram_cuda(data: torch.Tensor,
         p = _kernels.ptr
         code = _fn()(p(data), p(bin_end), p(out), p(keys), p(vals), width,
                      tb, blocks, _kernels.stream_ptr(dev))
-        launches += 1
+        graphs.note_launch(__name__, "launches")
         _kernels.check(code, "sparse_hist kernel launch")
     return out
 

@@ -26,7 +26,10 @@ writes half the output columns). See the source for the design.
 ``flash_attention`` is the wrapper: a CUDA tensor launches the kernel
 (there is no fallback: a build or launch failure propagates), a CPU tensor
 takes the plain version, anything else raises. ``launches`` counts kernel
-launches.
+launches, through CUDA graph replays too (core/graphs.py: the fused
+executor's mega dispatch replays captured launches), and each launch adds
+its flops and bytes to an active cost tally (obs/perf.py), which cannot see
+inside it.
 """
 
 from __future__ import annotations
@@ -38,9 +41,12 @@ from typing import Tuple
 import torch
 
 from .. import _kernels
+from ..core import graphs
+from ..obs import perf as _perf
 
 #: kernel launches since the counter was last set to 0
 launches = 0
+graphs.count_replays(__name__, "launches")
 
 #: head dims the kernel is built for
 HEAD_DIMS = (64, 128, 256, 384, 512)
@@ -147,10 +153,18 @@ def _fn():
     return fn
 
 
+def attention_cost(b: int, tq: int, tk: int, h: int, d: int,
+                   causal: bool) -> tuple:
+    """(flops, bytes) of one attention: 4 * B * H * Tq * Tk * D flops for
+    the two products, halved under causal masking, and each bf16 element of
+    q, k, v and o moved once (``chip_smoke.py``'s K5 operations bound)."""
+    flops = 4.0 * b * h * tq * tk * d / (2 if causal else 1)
+    return flops, float(2 * b * h * d * (2 * tq + 2 * tk))
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = False) -> torch.Tensor:
     """Launch K5 on PyTorch's current stream; returns bf16 [B, Tq, H, D]."""
-    global launches
     _check_inputs(q, k, v, causal)
     b, tq, h, d = q.shape
     o = torch.empty((b, tq, h, d), dtype=torch.bfloat16, device=q.device)
@@ -160,8 +174,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  _kernels.ptr(o), b, h, tq, k.shape[1], d, int(bool(causal)),
                  ctypes.cast(strides, ctypes.c_void_p), 1.0 / math.sqrt(d),
                  _kernels.stream_ptr(q.device))
-    launches += 1
+    graphs.note_launch(__name__, "launches")
     _kernels.check(code, "flash_attn kernel launch")
+    _perf.note_kernel_cost(*attention_cost(b, tq, k.shape[1], h, d, causal))
     return o
 
 

@@ -11,10 +11,12 @@ and the ``/_mmlspark/metrics`` exposition report from one source of truth.
 
 Every series is prefixed ``mmlspark_``, seconds are
 ``_seconds``/``_seconds_total``, monotonic counts are ``_total``, and
-enum-ish states are one-hot gauges (``state`` label). The tuner, fleet,
+enum-ish states are one-hot gauges (``state`` label). The serving Tuner's
+state is the ``mmlspark_tuner_*`` families (core/tune.py ``Tuner.stats``),
+and the fused segments' tallied costs and roofline attribution the
+``mmlspark_segment_*`` ones (obs/perf.py ``segment_families``). The fleet,
 lifecycle, model-mall and fabric families wait for their planes (ROADMAP A
-steps 6 and 10); the per-segment cost and roofline families wait for a cost
-source (step 6).
+step 10).
 """
 
 from __future__ import annotations
@@ -223,6 +225,12 @@ def _fusion_families(stats: Dict[str, Any]) -> Iterable[MetricFamily]:
         for seg, names in stitched.items():
             fam.add(float(len(names or ())), {"segment": str(seg)})
         yield fam
+    # per-(segment, shape-bucket) tallied costs + roofline attribution
+    # (obs/perf.py; families absent when no cost was recorded)
+    from .perf import segment_families
+
+    for fam in segment_families(stats):
+        yield fam
 
 
 def _executor_families(stats: Dict[str, Any]) -> Iterable[MetricFamily]:
@@ -386,6 +394,87 @@ def _tenant_families(summary: Dict[str, Any]) -> Iterable[MetricFamily]:
     yield shed
 
 
+def _tuner_families(stats: Dict[str, Any]) -> Iterable[MetricFamily]:
+    """Auto-tuner telemetry (core/tune.py Tuner.stats()): lifecycle
+    counters, calibration state, the numeric knobs in force, and the
+    per-(segment, bucket) predicted-vs-measured error, under the
+    reference's names."""
+    for key, mtype, help in (
+            ("epochs", "counter", "batches the tuner has observed"),
+            ("applies", "counter", "knob sets applied"),
+            ("rollbacks", "counter",
+             "one-step rollbacks after a measured regression")):
+        f = _num(stats.get(key))
+        if f is not None:
+            yield MetricFamily(f"mmlspark_tuner_{key}_total", mtype,
+                               help).add(f)
+    yield MetricFamily(
+        "mmlspark_tuner_calibrated", "gauge",
+        "1 once measured data backs the cost model (knobs may move)").add(
+            1.0 if stats.get("calibrated") else 0.0)
+    yield MetricFamily(
+        "mmlspark_tuner_knobs_active", "gauge",
+        "1 while a non-default knob set is applied").add(
+            1.0 if stats.get("knobs_active") else 0.0)
+    knobs = stats.get("knobs") or {}
+    knob = MetricFamily("mmlspark_tuner_knob", "gauge",
+                        "numeric knob values currently applied")
+    for name in ("window_seed_ms", "inflight", "replicas"):
+        f = _num(knobs.get(name))
+        if f is not None:
+            knob.add(f, {"knob": name})
+    if knob.samples:
+        yield knob
+    # compiler-search knobs: the per-(segment, bucket) kernel variant in
+    # force (info-style gauge, value 1) and the switch counter. Both are
+    # absent until the knob first moves, so the exposition of a server
+    # that never tuned variants stays byte-identical to pre-search builds.
+    variant = MetricFamily(
+        "mmlspark_kernel_variant", "gauge",
+        "applied kernel variant per (segment, bucket) — info gauge, "
+        "value is always 1")
+    for seg, buckets in (knobs.get("kernel_variants") or {}).items():
+        for bucket, vid in (buckets or {}).items():
+            variant.add(1.0, {"segment": seg, "bucket": str(bucket),
+                              "variant": str(vid)})
+    if variant.samples:
+        yield variant
+    f = _num(stats.get("variant_switches"))
+    if f is not None and f > 0:
+        yield MetricFamily(
+            "mmlspark_kernel_variant_switches_total", "counter",
+            "tuner applies that changed the kernel-variant knob").add(f)
+    conf = MetricFamily("mmlspark_tuner_confidence", "gauge",
+                        "cost-model calibration confidence per segment")
+    for seg, v in ((stats.get("model") or {}).get("confidence")
+                   or {}).items():
+        f = _num(v)
+        if f is not None:
+            conf.add(f, {"segment": seg})
+    if conf.samples:
+        yield conf
+    pred = MetricFamily(
+        "mmlspark_tuner_predicted_ms", "gauge",
+        "analytical cost-model batch prediction per (segment, bucket)")
+    meas = MetricFamily(
+        "mmlspark_tuner_measured_ms", "gauge",
+        "measured batch EWMA per (segment, bucket)")
+    err = MetricFamily(
+        "mmlspark_tuner_prediction_error_ratio", "gauge",
+        "measured / analytical-predicted batch time (1.0 = exact)")
+    for seg, buckets in (stats.get("predicted_vs_measured") or {}).items():
+        for bucket, rec in buckets.items():
+            labels = {"segment": seg, "bucket": str(bucket)}
+            for fam, key in ((pred, "analytic_ms"), (meas, "measured_ms"),
+                             (err, "error_ratio")):
+                f = _num(rec.get(key))
+                if f is not None:
+                    fam.add(f, labels)
+    for fam in (pred, meas, err):
+        if fam.samples:
+            yield fam
+
+
 def _brownout_families(summary: Dict[str, Any]) -> Iterable[MetricFamily]:
     """Brownout controller state (serving/supervisor.py): the applied
     degradation level, whether any step is active, and the transition
@@ -449,7 +538,7 @@ def _hedge_families(summary: Dict[str, Any]) -> Iterable[MetricFamily]:
 def fold_server(registry: MetricsRegistry, server: Any) -> None:
     """Register collectors reading a ServingServer's live stats surfaces:
     LatencyStats window + shed counters, the admission queue, wire-format
-    and tenant admission counters, the async executor, and the
+    and tenant admission counters, the async executor, the tuner, and the
     ingest/fusion providers when wired (serve_pipeline).
     Safe to call before start() — everything is read at scrape time."""
 
@@ -475,6 +564,11 @@ def fold_server(registry: MetricsRegistry, server: Any) -> None:
             try:
                 fams.extend(_executor_families(server._executor.stats()))
             except Exception:  # noqa: BLE001 — executor mid-shutdown
+                pass
+        if getattr(server, "_tuner", None) is not None:
+            try:
+                fams.extend(_tuner_families(server._tuner.stats()))
+            except Exception:  # noqa: BLE001 — tuner mid-refit
                 pass
         if getattr(server, "_brownout", None) is not None:
             try:

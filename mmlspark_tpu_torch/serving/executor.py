@@ -128,7 +128,7 @@ class AdaptiveBatchController:
             return prev
 
     def seed_compute_ms(self, compute_ms: float) -> None:
-        """Model-informed cold start (the Tuner, ROADMAP A step 6): seed the
+        """Model-informed cold start (the Tuner, core/tune.py): seed the
         compute EWMA with the cost model's predicted per-batch compute so the first
         windows are sized from a prediction instead of the ``init_wait_ms``
         guess. A seed never overrides MEASURED state: once observe() has
@@ -350,6 +350,9 @@ class PipelinedExecutor:
         self._submit_q: "queue_mod.Queue" = queue_mod.Queue()
         self._ready_q: "queue_mod.Queue" = queue_mod.Queue()
         self._slots = threading.Semaphore(self.inflight)
+        # pending slot reductions (set_inflight shrink): consumed at release
+        # time instead of blocking the caller on a semaphore acquire
+        self._shrink = 0
         self._stop = server._stop
         self._lock = threading.Lock()
         self._seq = 0
@@ -489,7 +492,7 @@ class PipelinedExecutor:
             prep = srv._prepare_batch(batch)
             t_p1 = time.perf_counter()
             if prep is None:  # every request expired while queued
-                self._slots.release()
+                self._release_slot()
                 self._exit_pipe()
                 continue
             with self._lock:
@@ -523,7 +526,7 @@ class PipelinedExecutor:
             # the batch sat staged gets its 504 NOW, pre-dispatch
             prep = srv._regate_inflight(prep)
             if prep is None:
-                self._slots.release()
+                self._release_slot()
                 self._exit_pipe()
                 continue
             t_w0 = time.time()
@@ -663,7 +666,7 @@ class PipelinedExecutor:
             srv._fulfill(int(rid), 504,
                          b'{"error": "dispatch watchdog expired"}',
                          content_type="application/json")
-        self._slots.release()
+        self._release_slot()
         self._exit_pipe()
         srv._maybe_commit_epochs()
 
@@ -695,13 +698,42 @@ class PipelinedExecutor:
                 self.epochs += 1
             self._mark("readback", prep.seq, t0, t1)
             srv._trace_batch("readback", prep, t_w0, t1 - t0)
-            self._slots.release()
+            self._release_slot()
             self._exit_pipe()
             if self.controller is not None:
                 self.controller.observe(compute_s + (t1 - t0), prep.queue_s,
                                         prep.n, srv._queue.qsize())
             srv._maybe_commit_epochs()
-            srv._batch_tick(prep.queue_s + compute_s + (t1 - t0))
+            srv._tuner_tick(prep.queue_s + compute_s + (t1 - t0))
+
+    # -- live knobs ------------------------------------------------------
+    def set_inflight(self, n: int) -> None:
+        """Re-bound the in-flight depth live (the Tuner's knob,
+        core/tune.py). Growth releases permits immediately; shrink takes
+        effect as in-flight batches complete (their releases are consumed
+        instead of returned), so the hot path never blocks on a resize."""
+        n = max(1, int(n))
+        grow = 0
+        with self._lock:
+            delta = n - self.inflight
+            if delta == 0:
+                return
+            self.inflight = n
+            if delta > 0:
+                cancel = min(self._shrink, delta)
+                self._shrink -= cancel
+                grow = delta - cancel
+            else:
+                self._shrink += -delta
+        for _ in range(grow):
+            self._slots.release()
+
+    def _release_slot(self) -> None:
+        with self._lock:
+            if self._shrink > 0:
+                self._shrink -= 1
+                return
+        self._slots.release()
 
     # -- stats surface (/_mmlspark/stats "async" section) ----------------
     def stats(self) -> Dict[str, Any]:

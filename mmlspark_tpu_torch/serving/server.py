@@ -34,10 +34,12 @@ reply machinery (so replies are bitwise-identical between them):
     thread fulfills reply slots, and the coalescing window self-tunes
     (``adaptive_batching``).
 
-Not ported yet: the cost-model Tuner (``tuner``/``autotune``, ROADMAP A
-step 6) and the fleet, lifecycle and model-mall planes (``fleet``,
-``lifecycle``, ``multimodel``, A step 10); asking for any of them raises
-``NotImplementedError``.
+A cost-model ``Tuner`` (core/tune.py; ``tuner=``, or
+``serve_pipeline(autotune=True)``) is ticked by both loops after each batch
+(``_tuner_tick``) and reports in the ``tuner`` section of
+``/_mmlspark/stats``. Not ported yet: the fleet, lifecycle and model-mall
+planes (``fleet``, ``lifecycle``, ``multimodel``, ROADMAP A step 10); asking
+for any of them raises ``NotImplementedError``.
 
 Orthogonally, TWO HTTP transports share the same admission, slot, and
 fulfillment helpers (``_handle_control`` / ``_preflight`` / ``_enqueue`` /
@@ -88,8 +90,6 @@ TOKEN_HEADER = "X-MMLSpark-Token"
 #: knobs of planes the port has not taken over yet -> the ROADMAP step that
 #: will (asking for one raises instead of serving without it)
 _UNPORTED = {
-    "tuner": "the cost-model Tuner (ROADMAP A step 6)",
-    "autotune": "the cost-model Tuner (ROADMAP A step 6)",
     "fleet": "the fleet control plane (ROADMAP A step 10)",
     "lifecycle": "the model lifecycle plane (ROADMAP A step 10)",
     "multimodel": "the model-mall plane (ROADMAP A step 10)",
@@ -343,9 +343,15 @@ class ServingServer:
                  probe_fn: Optional[Callable] = None,
                  brownout=None, brownout_hooks=None,
                  fleet=None, lifecycle=None, multimodel=None):
-        _refuse_unported(tuner=tuner, fleet=fleet, lifecycle=lifecycle,
+        _refuse_unported(fleet=fleet, lifecycle=lifecycle,
                          multimodel=multimodel)
         self.transform = transform
+        # cost-model auto-tuner (core/tune.py): when set, both serving
+        # loops tick it per batch (refit/apply every tuner.every batches,
+        # rollback on a measured e2e regression); its state is the
+        # ``tuner`` section of /_mmlspark/stats and the mmlspark_tuner_*
+        # families. serve_pipeline(autotune=...) wires it for fused models.
+        self._tuner = tuner
         # optional provider of the device-ingest decomposition (queue/h2d/
         # compute/readback — parallel/ingest.IngestStats.summary) merged into
         # the /_mmlspark/stats payload; serve_pipeline wires it automatically
@@ -540,6 +546,11 @@ class ServingServer:
                     summary["fusion"] = self.fusion_stats()
                 except Exception as e:  # noqa: BLE001
                     summary["fusion"] = {"error": str(e)}
+            if self._tuner is not None:
+                try:
+                    summary["tuner"] = self._tuner.stats()
+                except Exception as e:  # noqa: BLE001
+                    summary["tuner"] = {"error": str(e)}
             with self._wire_lock:
                 summary["wire"] = {"requests": dict(self.wire_counts),
                                    "bytes": dict(self.wire_bytes)}
@@ -1043,12 +1054,19 @@ class ServingServer:
                 self._trace_batch("readback", prep, tw,
                                   time.perf_counter() - tp)
             self._maybe_commit_epochs()
-            self._batch_tick(prep.queue_s + time.perf_counter() - t_b0)
+            self._tuner_tick(prep.queue_s + time.perf_counter() - t_b0)
 
-    def _batch_tick(self, e2e_s: float) -> None:
-        """Per-batch control heartbeat — shared by the sync loop and the
-        pipelined executor's readback thread: the brownout controller's
-        burn check. A controller failure never kills the loop."""
+    def _tuner_tick(self, e2e_s: float) -> None:
+        """Per-batch auto-tuner heartbeat — shared by the sync loop and the
+        pipelined executor's readback thread — plus the brownout
+        controller's burn check. No-op without either; a tuner or
+        controller failure degrades to untuned serving, never a dead
+        loop."""
+        if self._tuner is not None:
+            try:
+                self._tuner.on_epoch(e2e_s)
+            except Exception:  # noqa: BLE001 — tuning must never kill serving
+                pass
         if self._brownout is not None:
             try:
                 self._brownout.check()
@@ -1273,10 +1291,14 @@ class ServingServer:
                 supervisor = ReplicaSupervisor(
                     [r.index for r in rset.replicas],
                     probe_fn=self._probe_fn)
+                predict = None
+                if self._tuner is not None:
+                    predict = getattr(self._tuner, "predict_batch_ms", None)
                 watchdog = DispatchWatchdog(
                     k=self.watchdog_k,
                     min_budget_s=self.watchdog_min_budget_s,
-                    fixed_s=self.watchdog_budget_s)
+                    fixed_s=self.watchdog_budget_s,
+                    predict_ms_fn=predict)
             self._executor = PipelinedExecutor(
                 self, rset, controller=ctrl, inflight=self.inflight,
                 supervisor=supervisor, watchdog=watchdog)
@@ -1292,6 +1314,13 @@ class ServingServer:
 
             self._brownout = make_brownout(
                 self._brownout_spec, self._slo, self._brownout_steps())
+        if self._tuner is not None:
+            # late-bind the layers the tuner steers: the adaptive window
+            # seed and the live in-flight depth exist only after start()
+            if getattr(self._tuner, "controller", None) is None:
+                self._tuner.controller = self._controller
+            if getattr(self._tuner, "executor", None) is None:
+                self._tuner.executor = self._executor
         return self
 
     def stop(self, drain: bool = True) -> None:
@@ -1398,7 +1427,7 @@ def serve_pipeline(stage, input_col: str, reply_col: str = "reply",
                    batch_alpha: float = 0.5,
                    batch_min_wait_ms: float = 0.0,
                    batch_max_wait_ms: Optional[float] = None,
-                   autotune: bool = False,
+                   autotune: bool = False, tune_every: int = 50,
                    obs: bool = True,
                    trace_sample_rate: float = 1.0,
                    http_mode: str = "thread", wire_binary: bool = True,
@@ -1433,6 +1462,13 @@ def serve_pipeline(stage, input_col: str, reply_col: str = "reply",
     ``batch_alpha`` / ``batch_min_wait_ms`` / ``batch_max_wait_ms`` expose
     the adaptive controller's target ratio and window clamp; the live
     tuned values read back through ``/_mmlspark/stats`` ``async.controller``.
+    ``autotune=True`` (fused pipelines) attaches a cost-model ``Tuner``
+    (core/tune.py) that refits from measured per-segment stats every
+    ``tune_every`` batches and applies bucket/fuse/mega-K/window/inflight
+    knobs with journaled decisions and one-step rollback — the ``tuner``
+    section of ``/_mmlspark/stats`` and the ``mmlspark_tuner_*`` metric
+    families show its state. An uncalibrated tuner changes nothing
+    (cold-start replies are bitwise-identical to static knobs).
 
     ``http_mode="async"`` swaps the thread-per-connection ingress for the
     event-loop transport (serving/aio.py: keep-alive pooling, pipelined
@@ -1461,14 +1497,13 @@ def serve_pipeline(stage, input_col: str, reply_col: str = "reply",
 
     ``devices`` (default: the caller's ``use_device``, else every card)
     places the work; a host without a card raises unless the CPU is asked
-    for. ``autotune``, ``fleet``, ``lifecycle`` and ``multimodel`` name
-    planes that are not ported yet: any of them raises
-    ``NotImplementedError``.
+    for. ``fleet``, ``lifecycle`` and ``multimodel`` name planes that are
+    not ported yet: any of them raises ``NotImplementedError``.
     """
     from ..core.pipeline import PipelineModel
     from .stages import parse_request
 
-    _refuse_unported(autotune=autotune, fleet=fleet, lifecycle=lifecycle,
+    _refuse_unported(fleet=fleet, lifecycle=lifecycle,
                      multimodel=multimodel)
     if fused and isinstance(stage, PipelineModel):
         stage = stage.fuse()
@@ -1496,6 +1531,11 @@ def serve_pipeline(stage, input_col: str, reply_col: str = "reply",
 
         transform.submit = _submit
 
+    if hasattr(stage, "mega_k_max"):
+        # watchdog hint: one dispatch may cover up to K queued micro-batches
+        # once the Tuner applies a mega-dispatch knob
+        transform.mega_k = lambda: stage.mega_k_max
+
     ingest = None
     if hasattr(stage, "last_ingest_stats"):
         def ingest():
@@ -1505,6 +1545,17 @@ def serve_pipeline(stage, input_col: str, reply_col: str = "reply",
     fusion = None
     if hasattr(stage, "fusion_stats"):
         fusion = stage.fusion_stats
+
+    tuner = None
+    if autotune and hasattr(stage, "set_tuning"):
+        from ..core.costmodel import SegmentCostModel
+        from ..core.tune import Tuner
+
+        model = getattr(stage, "cost_model", None)
+        if model is None:
+            model = SegmentCostModel()
+            stage.set_tuning(cost_model=model)
+        tuner = Tuner(fused=stage, model=model, every=tune_every)
 
     brownout_hooks = None
     if brownout and hasattr(stage, "set_tuning"):
@@ -1543,7 +1594,7 @@ def serve_pipeline(stage, input_col: str, reply_col: str = "reply",
                          batch_alpha=batch_alpha,
                          batch_min_wait_ms=batch_min_wait_ms,
                          batch_max_wait_ms=batch_max_wait_ms,
-                         devices=devices, obs=obs,
+                         devices=devices, tuner=tuner, obs=obs,
                          trace_sample_rate=trace_sample_rate,
                          http_mode=http_mode, wire_binary=wire_binary,
                          tenants=tenants, slo=slo,

@@ -20,7 +20,8 @@ Four cooperating pieces, all wired by ``ServingServer`` / ``RoutingFront``:
     breaker (serving/routing.py closed/open/half_open), one level down.
   - ``DispatchWatchdog`` — a wall-clock budget per in-flight dispatch,
     derived from a cost model's ``predict_ms`` when one is wired (the
-    Tuner's, ROADMAP A step 6) and from a compute EWMA otherwise;
+    serving Tuner's ``predict_batch_ms``, core/tune.py) and from a compute
+    EWMA otherwise;
     an expired dispatch is marked wedged and its batch re-dispatched on a
     healthy replica (the executor owns the requeue mechanics).
   - ``HedgeTracker`` — hedged-request policy for the RoutingFront: after a

@@ -1002,3 +1002,240 @@ def test_sparse_per_split_route_above_the_gate_matches_cpu(cuda_device,
         for fld in _SPARSE_FIELDS:
             np.testing.assert_array_equal(getattr(gc[0], fld),
                                           getattr(gp[0], fld))
+
+
+# ------------------------------------------------- K-step mega dispatch
+
+
+def _mega_model(seed=31, n=3000, width=64):
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.gbdt import LightGBMRegressor
+
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, width)).astype(np.float32)
+    X[rng.random(X.shape) > 0.2] = 0.0
+    y = X[:, 0] * 2 - X[:, 3] + X[:, 9]
+    model = LightGBMRegressor(numIterations=12, numLeaves=15).fit(
+        DataFrame.from_dict({"features": [r for r in X], "label": y}))
+    return model, X
+
+
+def _mega_rows(X, sparse):
+    out = np.empty(len(X), dtype=object)
+    for i, r in enumerate(X):
+        nz = np.flatnonzero(r)
+        out[i] = ({"indices": nz, "values": r[nz], "size": len(r)} if sparse
+                  else r)
+    return out
+
+
+def _mega_fused(model, sparse, k):
+    from mmlspark_tpu_torch.core.device_stage import CompileCache
+    from mmlspark_tpu_torch.core.fusion import FusedPipelineModel
+
+    fused = FusedPipelineModel([model], cache=CompileCache())
+    label = "LightGBMRegressionModel"
+    tuning = {"mega_k": {label: k}}
+    if sparse:
+        tuning.update(layout={label: "csr"},
+                      kernel_variants={label: {"*": "forest.csr"}})
+    fused.set_tuning(**tuning)
+    return fused
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sparse", [False, True])
+def test_mega_graph_output_equals_k1_bitwise(cuda_device, sparse):
+    """K = 4 over 11 batches (two graph replays of four, three singly) on
+    the card, twice (capture, then replays only): every output bit equals
+    the per-batch dispatch's, K3 counts one launch a batch through the
+    replays, and the replays make no host sync."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+
+    model, X = _mega_model()
+    df = DataFrame.from_dict({"features": _mega_rows(X[:2700], sparse)})
+    want = np.stack(list(_mega_fused(model, sparse, 1)
+                         .transform_submit(df)().column("prediction")))
+    fused = _mega_fused(model, sparse, 4)
+    first = np.stack(list(fused.transform_submit(df)().column("prediction")))
+    gather_kernel.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        resolve = fused.transform_submit(df)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    again = np.stack(list(resolve().column("prediction")))
+    assert np.array_equal(first.view(np.uint32), want.view(np.uint32))
+    assert np.array_equal(again.view(np.uint32), want.view(np.uint32))
+    if sparse:
+        assert gather_kernel.launches == 11
+    records = fused._seg_stats["LightGBMRegressionModel"].records
+    assert [t.mega_k for t in records] == [4] * 8 + [1] * 3
+
+
+@pytest.mark.cuda
+def test_mega_csr_graph_never_replays_another_width(cuda_device):
+    """Two partitions of one batch shape and other widths: each width gets
+    a graph of its own (the width is baked into the capture), and each
+    scores as its per-batch dispatch does."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+
+    model, X = _mega_model()
+    rows_a = _mega_rows(X[:1024], True)
+    rows_b = _mega_rows(X[1024:2048], True)
+    for r in rows_b:
+        r["size"] = 2 * len(X[0])       # a wider declared width, same rows
+    outs = []
+    for k in (1, 4):
+        fused = _mega_fused(model, True, k)
+        got = []
+        for rows in (rows_a, rows_b, rows_a):
+            df = DataFrame.from_dict({"features": rows})
+            got.append(np.stack(list(fused.transform_submit(df)()
+                                     .column("prediction"))))
+        outs.append(got)
+        if k == 4:
+            shapes = [s for per in fused.compile_cache.costs().values()
+                      for s in per if "mega4;" in s]
+            megas = [e.program for e in fused.compile_cache._entries.values()
+                     if hasattr(e.program, "graphs")]
+            assert len(megas) == 2 and all(m.graphs == 1 for m in megas)
+            assert shapes
+    for a, b in zip(outs[0], outs[1]):
+        assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_two_streams_replay_one_segments_graphs_without_mixing(cuda_device):
+    """Two threads, each on a stream of its own, replay the same K-step
+    program over different rows at once: one graph each, and every output
+    is its own rows' per-batch scores."""
+    import threading
+
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+
+    model, X = _mega_model()
+    frames = [DataFrame.from_dict({"features": _mega_rows(X[i * 1024:(i + 1) * 1024],
+                                                          False)})
+              for i in range(2)]
+    base = _mega_fused(model, False, 1)
+    want = [np.stack(list(base.transform_submit(f)().column("prediction")))
+            for f in frames]
+    fused = _mega_fused(model, False, 4)
+    got = [[], []]
+    errors = []
+
+    def run(i):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                for _ in range(6):
+                    out = fused.transform_submit(frames[i])()
+                    got[i].append(np.stack(list(out.column("prediction"))))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors, errors
+    for i in range(2):
+        assert len(got[i]) == 6
+        for g in got[i]:
+            assert np.array_equal(g.view(np.uint32), want[i].view(np.uint32))
+    megas = [e.program for e in fused.compile_cache._entries.values()
+             if hasattr(e.program, "graphs")]
+    assert len(megas) == 1 and megas[0].graphs == 2
+
+
+@pytest.mark.cuda
+def test_mega_program_evicted_while_another_thread_replays(cuda_device):
+    """Two threads on streams of their own score through one cache that
+    holds a single program, so each call evicts (and releases) a program
+    the other thread may be replaying: a release waits for the calls in
+    flight, a call on a released program captures a graph of its own, and
+    every output is its rows' per-batch scores. Then a program released
+    between two calls on one thread leaves it scoring the same."""
+    import threading
+
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.device_stage import CompileCache
+    from mmlspark_tpu_torch.core.fusion import FusedPipelineModel
+
+    model, X = _mega_model()
+    frames = [DataFrame.from_dict({"features": _mega_rows(X[i * 1350:(i + 1) * 1350],
+                                                          False)})
+              for i in range(2)]
+    base = _mega_fused(model, False, 1)
+    want = [np.stack(list(base.transform_submit(f)().column("prediction")))
+            for f in frames]
+    cache = CompileCache(capacity=1)
+    fused = FusedPipelineModel([model], cache=cache)
+    fused.set_tuning(mega_k={"LightGBMRegressionModel": 4})
+    got = [[], []]
+    errors = []
+
+    def run(i):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                for _ in range(5):
+                    out = fused.transform_submit(frames[i])()
+                    got[i].append(np.stack(list(out.column("prediction"))))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors, errors
+    assert cache.stats()["evictions"] > 0
+    for i in range(2):
+        assert len(got[i]) == 5
+        for g in got[i]:
+            assert np.array_equal(g.view(np.uint32), want[i].view(np.uint32))
+
+    solo = _mega_fused(model, False, 4)
+    first = np.stack(list(solo.transform_submit(frames[0])()
+                          .column("prediction")))
+    prog, = [e.program for e in solo.compile_cache._entries.values()
+             if hasattr(e.program, "graphs")]
+    prog.release()
+    assert prog.dead and prog.graphs == 0
+    again = np.stack(list(solo.transform_submit(frames[0])()
+                          .column("prediction")))
+    assert prog.graphs == 0
+    for g in (first, again):
+        assert np.array_equal(g.view(np.uint32), want[0].view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_k5_counted_through_mega_replays(cuda_device):
+    """A small bf16 encoder through DNNModel at K = 2: K5 launches once a
+    layer a batch eagerly, the same through graph replays, and the outputs
+    equal K=1's bit for bit."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.device_stage import CompileCache
+    from mmlspark_tpu_torch.core.fusion import FusedPipelineModel
+    from mmlspark_tpu_torch.models import DNNModel, transformer_encoder
+
+    enc = transformer_encoder(vocab_size=97, seq_len=128, dim=64, depth=2,
+                              num_heads=1, seed=3)
+    stage = DNNModel(inputCol="tokens", outputCol="out", batchSize=4)
+    stage.set_model(enc)
+    ids = np.random.default_rng(4).integers(0, 97, (16, 128))
+    df = DataFrame.from_dict({"tokens": list(ids)})
+    outs = {}
+    for k in (1, 2):
+        fused = FusedPipelineModel([stage], cache=CompileCache())
+        fused.set_tuning(mega_k={"DNNModel": k})
+        fused.transform_submit(df)()
+        flash_kernel.launches = 0
+        out = fused.transform_submit(df)()
+        outs[k] = (np.stack([np.asarray(v, np.float32)
+                             for v in out.column("out")]),
+                   flash_kernel.launches)
+    assert outs[1][1] == 4 * 2 and outs[2][1] == outs[1][1]
+    assert np.array_equal(outs[2][0].view(np.uint32), outs[1][0].view(np.uint32))

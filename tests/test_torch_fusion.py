@@ -1839,16 +1839,31 @@ def test_server_devices_and_unported_knobs(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         srv_server.ServingServer(_echo_sum_with(srv_stages.parse_request), port=0)
-    for knob in ("autotune", "fleet", "lifecycle", "multimodel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A step"):
+    for knob in ("fleet", "lifecycle", "multimodel"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A step 10"):
             srv_server.serve_pipeline(PipelineModel([]), "x", devices=["cpu"],
                                       **{knob: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP A step 6"):
-        srv_server.ServingServer(lambda df: df, devices=["cpu"], tuner=object())
+    # the Tuner is ported: autotune wires one, tuner= is taken as given
     fused = FusedPipelineModel([], cache=CompileCache())
+    srv = srv_server.serve_pipeline(fused, "x", devices=["cpu"], autotune=True,
+                                    tune_every=7)
+    assert srv._tuner is not None and srv._tuner.every == 7
+    assert srv._tuner.fused is fused and fused.cost_model is srv._tuner.model
+    from mmlspark_tpu_torch.core.tune import Tuner
+
+    tuner = Tuner(fused=fused)
+    assert srv_server.ServingServer(lambda df: df, devices=["cpu"],
+                                    tuner=tuner)._tuner is tuner
     fused.set_tuning(mega_k={"x": 1})  # K = 1 is the plain dispatch
-    with pytest.raises(NotImplementedError, match="ROADMAP A step 6"):
-        fused.set_tuning(mega_k={"x": 2})
+    fused.set_tuning(mega_k={"x": 2})  # the K-step mega dispatch
+    assert fused.mega_k_max == 2
+    # the mesh knobs clear as Tuner._push sends them, and raise when set
+    fused.set_tuning(sharding={}, pipe_depth=1)
+    fused.set_tuning(sharding=None, pipe_depth=None)
+    with pytest.raises(NotImplementedError, match="ROADMAP A step 9"):
+        fused.set_tuning(sharding={"x": "data"})
+    with pytest.raises(NotImplementedError, match="ROADMAP A step 9"):
+        fused.set_tuning(pipe_depth=2)
     from mmlspark_tpu_torch.serving import RoutingFront
 
     with pytest.raises(NotImplementedError, match="ROADMAP A step 10"):
@@ -2050,3 +2065,875 @@ def test_routing_front_fails_over_when_a_worker_stops_hard(front_mode):
     assert [r[:2] for r in after] == [(200, b"4.0")] * 8
     assert states[workers[0].address] == "open"
     assert states[workers[1].address] == "closed"
+
+
+# -- the cost model, the Tuner, cost attribution, slots and mega dispatch ------
+#
+# Inputs made from a seed go through the reference (``mmlspark_tpu.core.
+# costmodel``, ``core.tune``, ``obs.perf``, ``parallel.ingest``, ``core.
+# fusion``) and the port. Tolerances: the cost model, the Tuner, KnobSet,
+# attribute_segments and the slot-pool counters are host arithmetic, held
+# equal; the tally's flops of a GEMM program exactly 2*m*n*k; mega outputs
+# bitwise equal to K=1 (the same per-batch program on the same batches) and
+# within PORT_VS_REF_ATOL of the reference's transform_submit (carried-model
+# scoring, as above; the DNNModel at f32, 1e-5 as above).
+
+from mmlspark_tpu.core import costmodel as ref_costmodel  # noqa: E402
+from mmlspark_tpu.core import tune as ref_tune  # noqa: E402
+from mmlspark_tpu.obs import bridge as ref_bridge  # noqa: E402
+from mmlspark_tpu.parallel import ingest as ref_ingest  # noqa: E402
+from mmlspark_tpu_torch.core import costmodel, tune  # noqa: E402
+from mmlspark_tpu_torch.obs import bridge as obs_bridge  # noqa: E402
+from mmlspark_tpu_torch.parallel import ingest  # noqa: E402
+
+PEAKS = {"flops": 1e12, "bytes_per_s": 1e11, "peak_source": "test"}
+SEGS = ("A", "A+B", "C")
+
+
+def _timings(timing_cls, rng, n, mega_k=1):
+    """Seeded BatchTiming rows of one package: buckets 16/32/64, stage
+    seconds in ranges where dispatch sometimes dominates."""
+    out = []
+    for _ in range(n):
+        bucket = int(rng.choice([16, 32, 64]))
+        out.append(timing_cls(
+            queue_s=float(rng.uniform(0, 1e-3)),
+            h2d_s=float(rng.uniform(1e-4, 2e-3)),
+            dispatch_s=float(rng.uniform(1e-4, 8e-3)),
+            compute_s=float(rng.uniform(1e-4, 4e-3)),
+            readback_s=float(rng.uniform(1e-5, 1e-3)),
+            rows=int(rng.integers(1, bucket + 1)), padded_rows=bucket,
+            mega_k=mega_k))
+    return out
+
+
+def _fed_models(seed):
+    """A reference and a port SegmentCostModel fed the same seeded
+    observe_* / ingest_costs sequence."""
+    ref = ref_costmodel.SegmentCostModel(peaks=dict(PEAKS), min_obs=3)
+    port = costmodel.SegmentCostModel(peaks=dict(PEAKS), min_obs=3)
+    costs = {}
+    for i, seg in enumerate(SEGS):
+        costs[seg] = {f"x={b}x8:float32": {"flops": 1e6 * b * (i + 1),
+                                          "bytes_accessed": 4e4 * b,
+                                          "compile_s": 0.5 + i,
+                                          "output_bytes": 4.0 * b,
+                                          "argument_bytes": 32.0 * b}
+                      for b in (16, 64)}
+        costs[seg]["mega4;x=16x8:float32"] = {"flops": 1.0}
+    for m, cls in ((ref, ref_ingest.BatchTiming), (port, ingest.BatchTiming)):
+        rng = np.random.default_rng(seed)
+        m.ingest_costs(costs)
+        for seg in SEGS:
+            for t in _timings(cls, rng, int(rng.integers(2, 12)),
+                              mega_k=int(rng.choice([1, 1, 4]))):
+                m.observe_batch(seg, t)
+            for stage in seg.split("+"):
+                for _ in range(int(rng.integers(1, 6))):
+                    m.observe_host(stage, float(rng.uniform(1e-4, 5e-2)),
+                                   int(rng.integers(1, 200)))
+            for _ in range(int(rng.integers(0, 6))):
+                m.observe_nnz(seg, int(rng.integers(1, 300)),
+                              int(rng.integers(0, 4000)),
+                              int(rng.choice([64, 1 << 18])))
+            for vid in ("default", "forest.gemm"):
+                for _ in range(int(rng.integers(0, 6))):
+                    m.observe_variant(seg, 32, vid, float(rng.uniform(1e-3, 3e-3)))
+        for op in ("all_gather", "pipe_handoff"):
+            for _ in range(int(rng.integers(0, 4))):
+                m.observe_collective(op, float(rng.uniform(1e3, 1e6)),
+                                     float(rng.uniform(1e-5, 1e-3)))
+    return ref, port
+
+
+def _decisions(m):
+    cands = [{"name": "data", "shards": 4, "op": "all_gather",
+              "collective_bytes": 4096.0},
+             {"name": "none", "shards": 1}]
+    out = {"to_dict": m.to_dict(), "stats": m.stats(),
+           "error": m.prediction_error(), "segments": m.segments()}
+    for seg in SEGS:
+        out[seg] = {
+            "predict": [m.predict(seg, batch=b) for b in (1, 16, 20, 48, 64, 99)],
+            "shape": m.predict_ms(seg, shape="x=64x8:float32"),
+            "mega_shape": m.predict_ms(seg, shape="mega4;x=64x8:float32"),
+            "buckets": m.choose_buckets(seg, 64),
+            "buckets_cands": m.choose_buckets(seg, 64, candidates=[8, 24, 64]),
+            "fuse": m.fuse_decision(seg), "mega_k": m.choose_mega_k(seg),
+            "layout": m.choose_layout(seg), "variant": m.choose_variant(seg, 32),
+            "sharding": m.choose_sharding(seg, 64, cands),
+            "confidence": m.confidence(seg), "calibrated": m.calibrated(seg),
+            "nnz_bytes": m.nnz_bytes(seg, 32), "dense_bytes": m.dense_bytes(seg, 32),
+            "per_row": m.per_row_ms(seg, 32),
+            "sharded": m.predict_sharded_ms(seg, 64, 4, 1024.0)}
+    out["stitch"] = [m.stitch_decision(a, b) for a in SEGS for b in SEGS]
+    out["pipe"] = [m.choose_pipe_depth(list(SEGS), 32, 3),
+                   m.choose_pipe_depth(list(SEGS), 32, 3, handoff_bytes=512.0),
+                   m.predict_pipelined_ms(list(SEGS), 32)]
+    out["collective"] = [m.collective_ms("all_gather", 1e5),
+                         m.collective_calibrated()]
+    return out
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_cost_model_decisions_equal_reference(seed):
+    ref, port = _fed_models(seed)
+    assert _decisions(port) == _decisions(ref)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_cost_model_loads_a_reference_model(seed):
+    ref, _ = _fed_models(seed)
+    blob = _json.loads(_json.dumps(ref.to_dict()))
+    port = costmodel.SegmentCostModel.from_dict(blob, peaks=dict(PEAKS))
+    loaded = ref_costmodel.SegmentCostModel.from_dict(blob, peaks=dict(PEAKS))
+    assert _decisions(port) == _decisions(loaded)
+    back = ref_costmodel.SegmentCostModel.from_dict(port.to_dict(), peaks=dict(PEAKS))
+    assert back.to_dict() == loaded.to_dict()
+
+
+@pytest.mark.parametrize("key", ["x=8x4:float32;", "mega4;x=8x4:float32;",
+                                 "mega2;spec=data;x=8x4:float32;",
+                                 "variant=forest.csr;layout=csr;x=256:int32",
+                                 "stitch=A;x=16x2:uint8", "garbage"])
+def test_bucket_of_shape_equals_reference(key):
+    assert costmodel.bucket_of_shape(key) == ref_costmodel.bucket_of_shape(key)
+
+
+class _StubNode:
+    def __init__(self, label, cap):
+        self.label, self._cap, self.dfns = label, cap, ()
+
+    def batch_size(self):
+        return self._cap
+
+
+class _StubCache:
+    def __init__(self, costs):
+        self._costs = costs
+
+    def costs(self):
+        return self._costs
+
+
+class _StubFused:
+    """A duck-typed fused model: a plan of two segments, live IngestStats
+    the ``measure`` below feeds, a cost cache, and a recording set_tuning."""
+
+    def __init__(self, pkg_ingest):
+        self._ingest = pkg_ingest
+        self._last_plan = [_StubNode("A", 64), _StubNode("C", 32)]
+        self._seg_stats = {"A": pkg_ingest.IngestStats(),
+                           "C": pkg_ingest.IngestStats()}
+        self._cache = _StubCache({"A": {"x=64x8:float32": {
+            "flops": 6.4e7, "bytes_accessed": 2.6e6, "compile_s": 0.4}}})
+        self.calls = []
+        self.shard_mesh = None
+
+    def set_tuning(self, **kw):
+        self.calls.append(_json.loads(_json.dumps(
+            {k: (v if not isinstance(v, dict) else
+                 {a: (list(b) if isinstance(b, tuple) else b)
+                  for a, b in v.items()}) for k, v in kw.items()})))
+
+
+def _tuner_run(pkg_tune, pkg_ingest, seed, every=0):
+    fused = _StubFused(pkg_ingest)
+    model = (ref_costmodel if pkg_tune is ref_tune else costmodel) \
+        .SegmentCostModel(peaks=dict(PEAKS), min_obs=2)
+    t = pkg_tune.Tuner(fused=fused, model=model, every=every)
+    t._replica_suggestion = lambda compute, transfer: 2 if compute > transfer else 1
+    rng = np.random.default_rng(seed)
+
+    def measure():
+        for label, st in fused._seg_stats.items():
+            for tm in _timings(pkg_ingest.BatchTiming, rng, 3):
+                st.record(tm)
+        return float(rng.uniform(80.0, 120.0))
+
+    if every:
+        for _ in range(5 * every):
+            measure()
+            t.on_epoch(float(rng.uniform(0.001, 0.01)))
+        summary = None
+    else:
+        summary = t.tune(measure, steps=3, warmup=1)
+    journal = [{k: v for k, v in e.items()} for e in t.journal]
+    return {"summary": summary, "journal": journal, "knobs": t.knobs.to_dict(),
+            "calls": fused.calls, "rollbacks": t.rollbacks, "applies": t.applies,
+            "to_dict": t.to_dict(), "stats": t.stats()}
+
+
+class _StillClock:
+    """``time`` for the Tuner's measurement probe: its fault-seam penalty
+    (the probe's own wall time, a few microseconds of noise) reads 0."""
+
+    @staticmethod
+    def perf_counter():
+        return 0.0
+
+
+@pytest.fixture
+def still_clock(monkeypatch):
+    monkeypatch.setattr(ref_tune, "time", _StillClock)
+    monkeypatch.setattr(tune, "time", _StillClock)
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("every", [0, 3])
+def test_tuner_journal_and_knobs_equal_reference(still_clock, seed, every):
+    ref = _tuner_run(ref_tune, ref_ingest, seed, every)
+    port = _tuner_run(tune, ingest, seed, every)
+    assert port == ref
+    if every == 0:
+        assert len(port["summary"]["steps"]) >= 2
+
+
+def test_tuner_rolls_back_like_reference(still_clock):
+    outs = []
+    for pkg_tune, pkg_ingest in ((ref_tune, ref_ingest), (tune, ingest)):
+        fused = _StubFused(pkg_ingest)
+        t = pkg_tune.Tuner(fused=fused)
+        values = iter([100.0, 90.0, 80.0])
+        out = t.tune(lambda: next(values), steps=3, warmup=0)
+        knobs = pkg_tune.KnobSet(mega_k={"A": 3}, inflight=4)
+        t.apply(knobs)
+        assert t.rollback("test")
+        outs.append((out, t.journal, t.knobs.to_dict(), fused.calls))
+    assert outs[0] == outs[1]
+    assert outs[1][0]["rollbacks"] == 1
+
+
+@pytest.mark.parametrize("knobs", [
+    {}, {"mega_k": {"seg": 4}, "inflight": 3},
+    {"buckets": {"a": [8, 64]}, "fuse": {"a": False}, "layout": {"b": "csr"},
+     "kernel_variants": {"b": {"32": "forest.gemm"}}, "stitch": {"X": True},
+     "window_seed_ms": 1.5, "replicas": 2, "pipe_depth": 2,
+     "sharding": {"a": "data"}}])
+def test_knobset_interchanges_with_reference(knobs):
+    ref = ref_tune.KnobSet.from_dict(knobs)
+    port = tune.KnobSet.from_dict(ref.to_dict())
+    assert port.to_dict() == ref.to_dict() == knobs
+    assert ref_tune.KnobSet.from_dict(port.to_dict()) == ref
+    assert port.is_default() == ref.is_default()
+
+
+def test_tuner_push_degrades_for_older_fused_models():
+    calls = []
+
+    class Old:
+        def set_tuning(self, buckets=None, fuse=None, mega_k=None,
+                       sharding=None):
+            calls.append(("old", buckets, fuse, mega_k, sharding))
+
+    tune.Tuner._push(Old(), tune.KnobSet(mega_k={"s": 2}))
+    assert calls == [("old", {}, {}, {"s": 2}, {})]
+
+
+def _attr_inputs(seed):
+    rng = np.random.default_rng(seed)
+    per_segment, costs = {}, {}
+    for seg in SEGS:
+        n = int(rng.integers(0, 9))
+        per_segment[seg] = {"n_batches": n, "rows": int(rng.integers(1, 9999)),
+                            "wall_s": float(rng.uniform(0, 2)),
+                            **{k: float(rng.uniform(0, 1)) for k in
+                               ("queue_s", "h2d_s", "compute_s", "dispatch_s",
+                                "readback_s")}}
+        costs[seg] = {f"x={b}x4:float32": {
+            k: float(rng.uniform(1, 1e9)) for k in
+            ("flops", "bytes_accessed", "peak_memory_bytes", "output_bytes",
+             "compile_s") if rng.random() < 0.8} for b in (8, 16)}
+    return per_segment, costs
+
+
+def _render(metrics_mod, fams):
+    """The exposition less its HELP lines (the port words the help of
+    families whose source it changed: tallied costs, not XLA's)."""
+    return [line for f in fams for line in
+            metrics_mod.render_family(f).splitlines()
+            if not line.startswith("# HELP")]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_attribute_segments_and_families_equal_reference(seed):
+    per_segment, costs = _attr_inputs(seed)
+    ref_m, port_m = _fed_models(seed)
+    layout = {"C": "csr"}
+    ref = ref_perf.attribute_segments(per_segment, costs, peaks=dict(PEAKS),
+                                      cost_model=ref_m, layout=layout)
+    port = obs_perf.attribute_segments(per_segment, costs, peaks=dict(PEAKS),
+                                       cost_model=port_m, layout=layout)
+    assert port == ref
+    fusion = {"segment_costs": costs, "roofline": ref}
+    assert _render(obs_metrics, obs_perf.segment_families(fusion)) == \
+        _render(ref_metrics, ref_perf.segment_families(fusion))
+
+
+def test_tuner_families_equal_reference(still_clock):
+    ref = _tuner_run(ref_tune, ref_ingest, 1)
+    stats = ref["stats"]
+    stats["variant_switches"] = 2
+    stats["knobs"]["kernel_variants"] = {"A": {"32": "forest.gemm"}}
+    assert _render(obs_metrics, obs_bridge._tuner_families(stats)) == \
+        _render(ref_metrics, ref_bridge._tuner_families(stats))
+
+
+def test_extract_cost_degrades_like_reference():
+    class Exe:
+        def __init__(self, ca, ma):
+            self._ca, self._ma = ca, ma
+
+        def cost_analysis(self):
+            if isinstance(self._ca, Exception):
+                raise self._ca
+            return self._ca
+
+        def memory_analysis(self):
+            return self._ma
+
+    mem = type("M", (), {"temp_size_in_bytes": 5, "argument_size_in_bytes": 7,
+                         "output_size_in_bytes": 11})()
+    for exe in (Exe({"flops": 3.0, "bytes accessed": 9.0}, mem),
+                Exe([{"flops": float("nan")}], None), Exe(RuntimeError("x"), None),
+                Exe(None, mem), object()):
+        assert obs_perf.extract_cost(exe) == ref_perf.extract_cost(exe)
+    rec = type("P", (), {"cost_record": {"flops": 4.0, "bytes_accessed": "x"}})()
+    assert obs_perf.extract_cost(rec) == {"flops": 4.0}
+
+
+@pytest.mark.parametrize("m,n,k", [(8, 16, 4), (3, 5, 7), (64, 1, 33)])
+def test_cost_tally_counts_a_gemm_exactly(m, n, k):
+    a, b = torch.randn(m, k), torch.randn(k, n)
+    with obs_perf.cost_tally((a, b)) as rec:
+        rec["_out"] = y = a @ b
+    assert rec["flops"] == 2 * m * n * k
+    assert rec["argument_bytes"] == 4 * (m * k + k * n)
+    assert rec["output_bytes"] == y.numel() * 4
+    assert rec["bytes_accessed"] == 4 * (m * k + k * n + m * n)
+    assert "peak_memory_bytes" not in rec   # the CPU reports none
+    obs_perf.note_kernel_cost(1.0, 1.0)      # outside a tally: no-op
+    with obs_perf.cost_tally() as rec:
+        obs_perf.note_kernel_cost(*gather_kernel.gather_cost(4, 10, 3))
+        with obs_perf.paused_tally():
+            _ = a @ b
+    assert rec["flops"] == 0 and rec["bytes_accessed"] == 20 + 80 + 12 + 48
+
+
+def test_compile_cache_records_the_tally_and_keeps_mega_out_of_buckets():
+    cache = CompileCache()
+    prog = cache.get(("k", 1), lambda: (lambda a, b: a @ b), label="seg",
+                     shape="x=8x4:float32")
+    prog(torch.ones(8, 4), torch.ones(4, 2))
+    mega = cache.get(("k", 2), lambda: (lambda a, b: a @ b), label="seg",
+                     shape="mega2;x=8x4:float32")
+    mega(torch.ones(8, 4), torch.ones(4, 2))
+    costs = cache.costs()["seg"]
+    assert costs["x=8x4:float32"]["flops"] == 2 * 8 * 4 * 2
+    assert {"compile_s", "first_call_ms", "bytes_accessed", "argument_bytes",
+            "output_bytes"} <= set(costs["x=8x4:float32"])
+    model = costmodel.SegmentCostModel(peaks=dict(PEAKS))
+    model.ingest_costs(cache.costs())
+    assert model.to_dict()["analytic"] == {
+        "seg\x008": {k: float(v) for k, v in costs["x=8x4:float32"].items()
+                     if k in ("flops", "bytes_accessed", "compile_s",
+                              "output_bytes", "argument_bytes")}}
+    assert cache.segment_cost("seg")["flops"] == 128.0
+
+
+N_MEGA = 1100   # 4 full 256-row batches and a 76-row one
+
+
+def _mega_frames(models, sparse):
+    X = np.tile(models["X"], (N_MEGA // N_ROWS + 1, 1))[:N_MEGA]
+    return (RefDataFrame.from_dict({"features": _rows(X, sparse)}),
+            DataFrame.from_dict({"features": _rows(X, sparse)}))
+
+
+@pytest.fixture(scope="module")
+def mega_reference(models):
+    """The reference's transform_submit of the dense frame at K=1. Its own
+    K-step program, and its CSR-staged program at this frame's 1,100 rows,
+    fail on the CPU ("Computation compiled for 12 inputs but called with 4",
+    ROADMAP §C), so the port's K>1 outputs are held to the port's K=1 ones
+    bit for bit, and both layouts to the reference's dense scores (the
+    port's CSR scores equal its dense ones bit for bit, above)."""
+    ref_df, _ = _mega_frames(models, False)
+    ref = RefFused([models["ref"]["reg"]], cache=RefCompileCache())
+    return _column(ref.transform_submit(ref_df)(), "prediction")
+
+
+@pytest.mark.parametrize("k", [2, 3, 4])
+@pytest.mark.parametrize("sparse", [False, True])
+def test_mega_dispatch_equals_k1_and_reference(models, mega_reference, sparse, k):
+    _, df = _mega_frames(models, sparse)
+    model = models["port"]["reg"]
+    with use_device("cpu"):
+        base = _csr_fused(model) if sparse else _fused(model)
+        want = _column(base.transform_submit(df)(), "prediction")
+        fused = _csr_fused(model) if sparse else _fused(model)
+        fused.transform(models["sparse_port" if sparse else "dense_port"])
+        fused.set_tuning(mega_k={_label(fused): k})
+        assert fused.mega_k_max == k
+        got = _column(fused.transform_submit(df)(), "prediction")
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, mega_reference, rtol=0,
+                               atol=PORT_VS_REF_ATOL)
+    st = fused.fusion_stats()
+    assert st["fallbacks"] == [] and st["tuning"]["mega_k"] == {_label(fused): k}
+    records = fused._seg_stats[_label(fused)].records
+    # 5 batches: the full groups of K rode the mega program, the rest singly
+    assert [t.mega_k for t in records] == [k] * (5 // k * k) + [1] * (5 % k)
+    shapes = [s for per in fused.compile_cache.costs().values() for s in per]
+    assert any(f"mega{k};" in s for s in shapes)
+    assert any(s.startswith("variant=") or s.startswith("features=")
+               for s in shapes)
+
+
+def test_mega_partial_group_dispatches_singly(models):
+    """Three batches at K=4: no group fills, every batch rides the K=1
+    program and the mega program is never built."""
+    X = np.tile(models["X"], (4, 1))[:600]
+    df = DataFrame.from_dict({"features": _rows(X, False)})
+    with use_device("cpu"):
+        want = _column(_fused(models["port"]["reg"]).transform_submit(df)(),
+                       "prediction")
+        fused = _fused(models["port"]["reg"])
+        fused.transform(models["dense_port"])
+        fused.set_tuning(mega_k={_label(fused): 4})
+        got = _column(fused.transform_submit(df)(), "prediction")
+    np.testing.assert_array_equal(got, want)
+    shapes = [s for per in fused.compile_cache.costs().values() for s in per]
+    assert not any("mega" in s for s in shapes)
+    assert [t.mega_k for t in fused._seg_stats[_label(fused)].records] == [1, 1, 1]
+
+
+def test_mega_stages_in_sliding_groups_of_k():
+    """At most K staged inputs are alive at once: groups of K stage,
+    dispatch and drop — at each mega dispatch only K more items have been
+    pulled from the staging iterator (the reference's test)."""
+    ex = object.__new__(SegmentExecutor)
+    pulled, dispatch_pulls = [0], []
+
+    def staged_items():
+        for _ in range(6):
+            pulled[0] += 1
+            yield ({"x": torch.zeros(4, 2)}, 4), ingest.BatchTiming(rows=4)
+
+    def mega(group):
+        dispatch_pulls.append(pulled[0])
+        return [(torch.zeros(1),)] * len(group)
+
+    ex._make_mega_step = lambda params, state, k: mega
+    ex._readback_async = lambda handle: handle
+    handles = []
+    ex._dispatch_mega(staged_items(), None, {"ext": ["x"]}, None, 2, handles)
+    assert dispatch_pulls == [2, 4, 6]
+    assert len(handles) == 6 and all(t.mega_k == 2 for _h, t in handles)
+
+
+def test_mega_groups_split_on_host_scalar_values():
+    """Two CSR batches of one shape and another width never share a group
+    (a captured graph bakes the width in)."""
+    ex = object.__new__(SegmentExecutor)
+    groups = []
+
+    def items():
+        for w in (8, 8, 9, 9):
+            yield ({"c:indptr": torch.zeros(5, dtype=torch.int32),
+                    "c:width": torch.tensor(w, dtype=torch.int32)}, 4), \
+                ingest.BatchTiming(rows=4)
+
+    def mega(group):
+        groups.append({SegmentExecutor._group_sig(x, ["c:indptr", "c:width"])
+                       for (x, _m), _t in group})
+        return [(torch.zeros(1),)] * len(group)
+
+    ex._make_mega_step = lambda params, state, k: mega
+    ex._readback_async = lambda handle: handle
+    handles = []
+    ex._dispatch_mega(items(), None, {"ext": ["c:indptr", "c:width"]}, None, 2,
+                      handles)
+    assert len(groups) == 2 and all(len(g) == 1 for g in groups)
+    assert groups[0] != groups[1] and len(handles) == 4
+
+
+def test_mega_dnn_model_equals_k1_and_reference():
+    ref, port = _encoders()
+    rows = list(_tokens(10, seed=5))
+    ref_stage = RefDNNModel(inputCol="tokens", outputCol="out", batchSize=3)
+    stage = DNNModel(inputCol="tokens", outputCol="out", batchSize=3)
+    ref_stage.set_model(ref)
+    stage.set_model(port)
+    ref_fused = RefFused([ref_stage], cache=RefCompileCache())
+    ref_df = RefDataFrame.from_dict({"tokens": rows})
+    df = DataFrame.from_dict({"tokens": rows})
+    outs = {}
+    with ref_module.matmul_precision("float32"):
+        ref_fused.transform(ref_df)
+        ref_fused.set_tuning(mega_k={"DNNModel": 3})
+        want_ref = np.stack(_stack(ref_fused.transform_submit(ref_df)().column("out")))
+    with matmul_precision("float32"), use_device("cpu"):
+        for k in (1, 2, 3):
+            fused = FusedPipelineModel([stage], cache=CompileCache())
+            fused.transform(df)
+            fused.set_tuning(mega_k={"DNNModel": k})
+            outs[k] = np.stack(_stack(fused.transform_submit(df)().column("out")))
+    for k in (2, 3):
+        np.testing.assert_array_equal(outs[k], outs[1])
+    np.testing.assert_allclose(outs[3], want_ref, rtol=0, atol=1e-5)
+
+
+# -- slots, deposit and the batchers ------------------------------------------
+
+
+def _spec(rows=4, width=3, dt=np.float32):
+    return {"x": ((rows, width), dt)}
+
+
+def test_slot_pool_acquire_release_and_caps():
+    pool = ingest.SlotPool(acquire_timeout_s=0.01)
+    st = ingest.IngestStats()
+    a, b = pool.acquire(_spec(), stats=st), pool.acquire(_spec(), stats=st)
+    assert a is not None and b is not None and a.arrays["x"] is not b.arrays["x"]
+    assert a.tensors["x"].data_ptr() == a.arrays["x"].ctypes.data
+    assert pool.acquire(_spec()) is None            # two buffers a bucket
+    a.fill_begin()
+    a.fill_end()
+    a.transfer_begin()
+    a.transfer_end()                                # records a cycle, frees
+    assert st.slot_transfers == 1 and pool.acquire(_spec()) is not None
+    a.release()                                     # idempotent
+    assert pool.acquire({}) is None
+    small = ingest.SlotPool(max_slot_bytes=32, acquire_timeout_s=0.01)
+    assert small.acquire(_spec()) is None           # 48 bytes > the slot cap
+    assert pool.stats()["buckets"] == 1 and pool.stats()["pinned"] is False
+
+
+def test_slot_pool_evicts_free_buckets_lru_under_its_total_cap():
+    pool = ingest.SlotPool(max_total_bytes=2 * 48 * 2, acquire_timeout_s=0.01)
+    for w in (3, 3):
+        pool.acquire(_spec(width=w)).release()
+    pool.acquire({"y": ((4, 3), np.float32)}).release()
+    pool.acquire({"z": ((4, 3), np.float32)}).release()   # evicts "x"
+    st = pool.stats()
+    assert st["buckets"] == 2 and st["evictions"] == 1
+    held = pool.acquire({"y": ((4, 3), np.float32)})
+    held2 = pool.acquire({"z": ((4, 3), np.float32)})
+    # every bucket holds a lease: no room is made for a third
+    assert pool.acquire({"w": ((4, 3), np.float32)}) is None
+    held.release()
+    held2.release()
+
+
+def test_abandoned_lease_returns_through_its_finalizer():
+    import gc
+
+    pool = ingest.SlotPool(buffers_per_bucket=1, acquire_timeout_s=0.01)
+    lease = pool.acquire(_spec())
+    assert pool.acquire(_spec()) is None
+    del lease
+    gc.collect()
+    assert pool.acquire(_spec()) is not None
+
+
+def test_slot_pool_counters_equal_reference():
+    outs = []
+    for mod in (ref_ingest, ingest):
+        pool = mod.SlotPool(max_total_bytes=4 * 96, acquire_timeout_s=0.01)
+        got = []
+        for w in (3, 3, 5, 3, 7, 5, 9):
+            lease = pool.acquire(_spec(width=w))
+            got.append(lease is not None)
+            if lease is not None and w != 5:
+                lease.release()
+        outs.append((got, {k: v for k, v in pool.stats().items()
+                           if k != "pinned"}))
+    assert outs[0] == outs[1]
+
+
+def test_device_prefetcher_close_releases_queued_leases():
+    pool = ingest.SlotPool(buffers_per_bucket=2, acquire_timeout_s=0.01)
+
+    def src():
+        for _ in range(4):
+            lease = pool.acquire(_spec())
+            yield batching.Batch({"x": lease.arrays["x"]}, np.ones(4, bool), 4,
+                                 staging=lease)
+
+    pf = batching.DevicePrefetcher(src(), depth=2)
+    it = iter(pf)
+    first = next(it)
+    first.staging.release()
+    pf.close()
+    # both buffers come back: the queued leases at close(), the one the
+    # producer held when it saw the stop as it gives up
+    a = pool.acquire(_spec(), timeout=10.0)
+    b = pool.acquire(_spec(), timeout=10.0)
+    assert a is not None and b is not None
+
+
+@pytest.mark.parametrize("cls", ["DynamicBufferedBatcher", "TimeIntervalBatcher"])
+def test_batchers_equal_reference(cls):
+    outs = []
+    for mod in (ref_batching, batching):
+        kw = {"interval_s": 0.05, "max_batch_size": 3} \
+            if cls == "TimeIntervalBatcher" else {"max_buffer": 4}
+        b = getattr(mod, cls)(iter(range(10)), **kw)
+        time.sleep(0.2)            # the producer buffers what it can
+        outs.append([x for batch in b for x in batch])
+    assert outs[0] == outs[1] == list(range(10))
+
+
+@pytest.mark.parametrize("spanning", [True, False])
+def test_rows_to_batch_out_and_views_equal_reference(spanning):
+    block = np.arange(5 * 6, dtype=np.float32).reshape(5, 6)
+    rows = list(block) if spanning else [r.copy() for r in block]
+    outs = []
+    for mod in (ref_ingest, ingest):
+        st = mod.IngestStats()
+        view = mod.rows_to_batch(rows, stats=st)
+        slot = np.zeros((8, 6), np.float32)
+        filled = mod.rows_to_batch(rows, out=slot, stats=st)
+        one = mod.rows_to_batch(rows[:1], stats=st)
+        outs.append((view.tolist(), filled.tolist(), one.tolist(),
+                     np.shares_memory(view, block), st.zero_copy_batches,
+                     st.copied_batches))
+    assert outs[0] == outs[1]
+
+
+def _deposit_run(fused_cls, cache_cls, frame_cls, model, rows, staging, submit):
+    fused = fused_cls([model], cache=cache_cls(), slot_staging=staging)
+    df = frame_cls.from_dict({"features": rows}, num_partitions=2)
+    out = fused.transform_submit(df)() if submit else fused.transform(df)
+    s = fused.last_ingest_stats.summary()
+    counts = {k: s.get(k) for k in ("slot_deposits", "fallback_copies",
+                                    "n_batches")}
+    return _column(out, "prediction"), counts
+
+
+@pytest.mark.parametrize("wire", ["json", "frame"])
+def test_deposit_parity_across_wire_fused_and_async(models, wire):
+    """Rows as a JSON client's lists parse to f64 (the copying path) and a
+    frame's f32 rows deposit into slots; both, fused and submitted, score
+    bitwise as the allocating path, with the reference's deposit/copy
+    counts for the same rows."""
+    X = np.tile(models["X"], (3, 1))[:520]
+    dt = np.float64 if wire == "json" else np.float32
+    rows = np.empty(len(X), dtype=object)
+    for i, r in enumerate(X):
+        rows[i] = binary.decode_frame(binary.encode_frame({"f": r.astype(dt)}))["f"] \
+            if wire == "frame" else np.asarray(r.tolist(), dtype=dt)
+    outs, counts = {}, {}
+    for staging in (False, True):
+        for submit in (False, True):
+            with use_device("cpu"):
+                outs[staging, submit], counts[staging, submit] = _deposit_run(
+                    FusedPipelineModel, CompileCache, DataFrame,
+                    models["port"]["reg"], rows, staging, submit)
+            _, ref_counts = _deposit_run(RefFused, RefCompileCache, RefDataFrame,
+                                         models["ref"]["reg"], rows, staging,
+                                         submit)
+            assert counts[staging, submit] == ref_counts
+    first = outs[False, False]
+    for key, out in outs.items():
+        np.testing.assert_array_equal(out, first, err_msg=str(key))
+    with use_device("cpu"):
+        unfused = _column(models["port"]["reg"].transform(
+            DataFrame.from_dict({"features": rows}, num_partitions=2)), "prediction")
+    np.testing.assert_array_equal(first, unfused)
+    # two 260-row partitions: a 256-row and a 4-row batch each
+    assert counts[True, False]["slot_deposits"] == (4 if wire == "frame"
+                                                    else None)
+
+
+def test_deposit_under_slot_contention_takes_the_accounted_copy(models):
+    X = np.tile(models["X"], (2, 1))[:300]
+    rows = np.empty(len(X), dtype=object)
+    for i, r in enumerate(X):
+        rows[i] = r.astype(np.float32)
+    with use_device("cpu"):
+        ref = _column(_fused(models["port"]["reg"]).transform(
+            DataFrame.from_dict({"features": rows})), "prediction")
+        fused = _fused(models["port"]["reg"])
+        pool = fused._get_slot_pool(torch.device("cpu"))
+        pool._timeout = 0.01
+        held = [pool.acquire({"features": ((256, N_FEATURES), np.float32)})
+                for _ in range(2)]
+        got = _column(fused.transform(DataFrame.from_dict({"features": rows})),
+                      "prediction")
+        for lease in held:
+            lease.release()
+    np.testing.assert_array_equal(got, ref)
+    s = fused.last_ingest_stats.summary()
+    assert s["fallback_copies"] >= 1 and "slot_pool" in fused.fusion_stats()
+
+
+def test_compile_cache_eviction_releases_the_program():
+    released = []
+
+    class Program:
+        def __init__(self, name):
+            self.name = name
+
+        def __call__(self, x):
+            return x
+
+        def release(self):
+            released.append(self.name)
+
+    cache = CompileCache(capacity=1)
+    cache.get(("a",), lambda: Program("a"), label="seg", shape="x=1:float32")
+    cache.get(("b",), lambda: Program("b"), label="seg", shape="x=2:float32")
+    assert released == ["a"] and cache.stats()["evictions"] == 1
+    assert list(cache.costs()["seg"]) == ["x=2:float32"]
+
+
+def test_ingest_stats_slot_summary_equals_reference():
+    outs = []
+    for mod in (ref_ingest, ingest):
+        st = mod.IngestStats()
+        st.record(mod.BatchTiming(rows=3, padded_rows=8, dispatch_s=0.5,
+                                  mega_k=4))
+        st.note_deposit()
+        st.note_copy()
+        st.note_slot(0.25, 0.5, 0.125)
+        other = mod.IngestStats()
+        other.note_deposit()
+        st.merge(other)
+        outs.append({k: v for k, v in st.summary().items() if k != "wall_s"})
+    assert outs[0] == outs[1]
+    assert outs[1]["slot_deposits"] == 2 and outs[1]["slot_overlap_ratio"] == 0.25
+
+
+# -- serving with the Tuner ----------------------------------------------------
+
+
+def _serve_tuned(fused_or_stage, ref, autotune, mode, bodies, hdrs, every=1000):
+    """Serve the classifier's probability; the Tuner (``every`` batches a
+    refit) stays uncalibrated over a short load."""
+    http_mode, async_exec = mode
+    mod = ref_server if ref else srv_server
+    kw = {} if ref else {"devices": ["cpu"]}
+    srv = mod.serve_pipeline(fused_or_stage, "features", reply_col="probability",
+                             fused=True, max_wait_ms=2.0, autotune=autotune,
+                             tune_every=every, http_mode=http_mode,
+                             async_exec=async_exec, **kw)
+    with srv:
+        got = [_post(srv.address, b, hdrs) for b in bodies]
+        base = srv.address.rstrip("/")
+        stats = _json.loads(_post(base + "/_mmlspark/stats", b"")[1])
+        metrics = _post(base + "/_mmlspark/metrics", b"", method="GET")[1].decode()
+    names = sorted({line.split()[2] for line in metrics.splitlines()
+                    if line.startswith("# TYPE mmlspark_tuner_")})
+    return got, stats, names
+
+
+@pytest.mark.parametrize("http_mode,async_exec", MODES)
+def test_autotune_serving_replies_equal_untuned(models, http_mode, async_exec):
+    X = models["X"][:N_SERVED]
+    bodies, hdrs = _gbdt_bodies(X, "frame")
+    mode = (http_mode, async_exec)
+    with use_device("cpu"):
+        plain, _, none = _serve_tuned(PipelineModel([models["port"]["clf"]]).fuse(),
+                                      False, False, mode, bodies, hdrs)
+        tuned_fused = FusedPipelineModel([models["port"]["clf"]], cache=CompileCache())
+        tuned, stats, names = _serve_tuned(tuned_fused, False, True, mode, bodies,
+                                           hdrs)
+    assert [g[:2] for g in tuned] == [g[:2] for g in plain]
+    assert all(g[0] == 200 for g in tuned) and none == []
+    t = stats["tuner"]
+    assert t["every"] == 1000 and t["epochs"] >= 1 and t["applies"] == 0
+    assert t["knobs"] == t["default_knobs"] == {} and "model" in t
+    assert "mmlspark_tuner_epochs_total" in names
+    assert tuned_fused.cost_model is not None
+
+
+def test_autotune_calibrated_stitch_replies(models):
+    """A Tuner calibrated over the load (a refit every 5 batches). With a
+    cost model that declines every stitch, every reply equals the un-tuned
+    server's byte for byte. With the cost model as it comes, the planner
+    stitches the classifier's finalize once calibrated, and every reply
+    equals the un-tuned server's or, exactly, the probabilities of a fused
+    model pinned stitched (``stitch=``) on the same rows."""
+    from mmlspark_tpu_torch.core.costmodel import SegmentCostModel
+
+    class Unstitched(SegmentCostModel):
+        def stitch_decision(self, *args, **kwargs):
+            return False
+
+    label = "LightGBMClassificationModel"
+    X = models["X"][:100].astype(np.float64)
+    bodies, hdrs = _gbdt_bodies(X, "frame")
+    mode = ("thread", False)
+    with use_device("cpu"):
+        pinned = _fused(models["port"]["clf"])
+        pinned.set_tuning(stitch={label: True})
+        want = [np.asarray(p, np.float64) for p in pinned.transform(
+            DataFrame.from_dict({"features": list(X)})).column("probability")]
+        assert pinned.fusion_stats()["stitched"] == {label: [label]}
+        plain, _, _ = _serve_tuned(_fused(models["port"]["clf"]), False, False,
+                                   mode, bodies, hdrs)
+        unstitched = _fused(models["port"]["clf"])
+        unstitched.set_tuning(cost_model=Unstitched())
+        declined, stats, _ = _serve_tuned(unstitched, False, True, mode, bodies,
+                                          hdrs, every=5)
+        tuned = _fused(models["port"]["clf"])
+        stitched, _, _ = _serve_tuned(tuned, False, True, mode, bodies, hdrs,
+                                      every=5)
+    assert stats["tuner"]["calibrated"] and "stitched" not in \
+        unstitched.fusion_stats()
+    assert [g[:2] for g in declined] == [g[:2] for g in plain]
+    assert tuned.fusion_stats()["stitched"] == {label: [label]}
+    n_stitched = 0
+    for i, (a, b) in enumerate(zip(plain, stitched)):
+        assert b[0] == 200
+        if a[:2] != b[:2]:
+            got = np.asarray(_json.loads(b[1]), np.float64)
+            assert np.array_equal(got, want[i])
+            n_stitched += 1
+    assert n_stitched > len(X) // 2
+
+
+def test_autotune_metric_family_names_equal_reference(models):
+    """The served ``mmlspark_tuner_*`` families are the ones the reference's
+    bridge renders from the same tuner state, and the ``tuner`` stats
+    section has the reference's keys."""
+    X = models["X"][:8]
+    bodies, hdrs = _gbdt_bodies(X, "json")
+    with use_device("cpu"):
+        _, stats, names = _serve_tuned(PipelineModel([models["port"]["clf"]]),
+                                       False, True, ("thread", False), bodies, hdrs,
+                                       every=2)
+    ref_names = sorted({f.name for f in ref_bridge._tuner_families(stats["tuner"])
+                        if f.name.startswith("mmlspark_tuner_")})
+    assert names == ref_names and "mmlspark_tuner_epochs_total" in names
+    ref_keys = ref_tune.Tuner(fused=_StubFused(ref_ingest)).stats()
+    assert sorted(stats["tuner"]) == sorted(ref_keys)
+
+
+def test_executor_set_inflight_grows_and_shrinks():
+    class _Srv:
+        _stop = threading.Event()
+        name = "t"
+
+    ex = srv_executor.PipelinedExecutor(_Srv(), srv_executor.ReplicaSet.__new__(
+        srv_executor.ReplicaSet), inflight=2)
+    ex.set_inflight(4)
+    assert ex.inflight == 4 and ex._slots._value == 4
+    ex.set_inflight(1)
+    assert ex.inflight == 1 and ex._shrink == 3
+    for _ in range(3):
+        ex._release_slot()          # consumed, not returned
+    assert ex._shrink == 0 and ex._slots._value == 4
+    ex._release_slot()
+    assert ex._slots._value == 5
+
+
+def test_watchdog_hint_reads_the_fused_models_k(models):
+    fused = FusedPipelineModel([models["port"]["clf"]], cache=CompileCache())
+    srv = srv_server.serve_pipeline(fused, "features", reply_col="prediction",
+                                    devices=["cpu"])
+    assert srv.transform.mega_k() == 1
+    fused.set_tuning(mega_k={"LightGBMClassificationModel": 3})
+    assert srv.transform.mega_k() == 3

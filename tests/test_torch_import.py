@@ -64,7 +64,12 @@ def test_clean_import_pulls_in_no_jax_and_no_reference():
                 "mmlspark_tpu_torch.core.profiling",
                 "mmlspark_tpu_torch.gbdt.graphs",
                 "mmlspark_tpu_torch.gbdt.booster",
-                "mmlspark_tpu_torch.core.threefry"):
+                "mmlspark_tpu_torch.core.threefry",
+                "mmlspark_tpu_torch.core.graphs",
+                "mmlspark_tpu_torch.core.costmodel",
+                "mmlspark_tpu_torch.core.tune",
+                "mmlspark_tpu_torch.obs.perf",
+                "mmlspark_tpu_torch.parallel.batching"):
         assert mod in out["imported"]
 
 
@@ -163,6 +168,44 @@ def test_serving_a_request_pulls_in_no_jax_and_no_reference():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"bad": [], "status": 200}
+
+
+_TUNE_PROBE = r"""
+import json, sys
+import numpy as np
+from mmlspark_tpu_torch.core.dataframe import DataFrame
+from mmlspark_tpu_torch.core.pipeline import PipelineModel
+from mmlspark_tpu_torch.core.tune import Tuner
+from mmlspark_tpu_torch.gbdt import LightGBMRegressor
+from mmlspark_tpu_torch.runtime import use_device
+X = np.random.default_rng(0).standard_normal((600, 3)).astype(np.float32)
+df = DataFrame.from_dict({"features": [r for r in X], "label": X[:, 0]})
+with use_device("cpu"):
+    model = LightGBMRegressor(numIterations=2, numLeaves=4).fit(df)
+    fused = PipelineModel([model]).fuse()
+    fused.transform(df)
+    tuner = Tuner(fused=fused)
+    tuner.apply(tuner.propose())
+    fused.set_tuning(mega_k={"LightGBMRegressionModel": 2})
+    out = fused.transform_submit(df)()
+    ks = [t.mega_k for t in fused.last_ingest_stats.records]
+    summary = tuner.tune(lambda: 1.0, steps=1, warmup=0)
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "jaxlib", "mmlspark_tpu")
+             or k.startswith(("jax.", "jaxlib.", "mmlspark_tpu.")))
+print(json.dumps({"bad": bad, "mega_k": ks, "rows": len(out.column("prediction")),
+                  "steps": len(summary["steps"])}))
+"""
+
+
+def test_tuning_and_mega_dispatch_pull_in_no_jax_and_no_reference():
+    """Build a Tuner and a mega-dispatching fused model, tune and score in a
+    fresh process without importing ``jax`` or ``mmlspark_tpu``."""
+    proc = subprocess.run([sys.executable, "-c", _TUNE_PROBE], cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"bad": [], "mega_k": [2, 2, 1], "rows": 600, "steps": 2}
 
 
 _IMPORT_RE = re.compile(

@@ -126,6 +126,40 @@ def test_wrappers_take_plain_path_on_cpu_without_launching():
     assert (hist_kernel.launches, select_kernel.launches) == (h0, s0)
 
 
+def test_note_launch_counts_on_the_counter_or_the_capturing_threads_tally():
+    """Every kernel wrapper counts through ``graphs.note_launch``: on its
+    module's counter, or, while the calling thread captures a graph, into
+    that capture's tally alone (which ``Captured`` adds on each replay);
+    another thread's launches meanwhile stay on the counter."""
+    import threading
+
+    from mmlspark_tpu_torch.core import graphs
+    from mmlspark_tpu_torch.gbdt import gather_kernel, sparse_hist_kernel
+    from mmlspark_tpu_torch.models import flash_kernel
+
+    for mod in (hist_kernel, select_kernel, sparse_hist_kernel, gather_kernel,
+                flash_kernel):
+        assert (mod.__name__, "launches") in graphs.COUNTERS
+    assert (hist_kernel.__name__, "count_launches") in graphs.COUNTERS
+    key = (hist_kernel.__name__, "launches")
+    h0 = hist_kernel.launches
+    try:
+        graphs.note_launch(*key)
+        assert hist_kernel.launches == h0 + 1
+        graphs._tls.tally = tally = {}
+        try:
+            graphs.note_launch(*key, 2)
+            other = threading.Thread(target=graphs.note_launch, args=key)
+            other.start()
+            other.join()
+        finally:
+            graphs._tls.tally = None
+        assert tally == {key: 2}
+        assert hist_kernel.launches == h0 + 2
+    finally:
+        hist_kernel.launches = h0
+
+
 @pytest.mark.parametrize("n", [0, 1, 2048, 2049, 300_001, 2_097_152,
                                2_500_000, 2**31 - 1])
 def test_select_grid_covers_the_rows(n):
