@@ -179,7 +179,17 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    per element over 3.35 TB/s) and K5's ms over library_ms; at the
    main-path batch that ratio must not pass ``K5_LIBRARY_RATIO_MAX``; and
    a batch past grid.z's cap (B=65,537, T=128, H=1, D=64), held on its
-   first and last 64 rows to the same per-element gates;
+   first and last 64 rows to the same per-element gates. In every case K5
+   also runs with its lse output (training's): the same output bits, the
+   lse within ``LSE_TOL`` of the plain version's, timed both ways;
+9b. attn_bwd_kernel: K6 and K7 (the flash-attention backward,
+   ``csrc/flash_attn_bwd.cu``) on K5's own output and lse at the train
+   shape (B=8, T=2048, H=8, D=64), causal and not, and at D=128 and 256:
+   each gradient finite, its max and rms error against an exact f64
+   backward within ``F64_RATIO_MAX`` of the plain backward's, two calls
+   bit for bit; each kernel's ms beside the plain backward's, the
+   backward of ``scaled_dot_product_attention`` (timed only) and its
+   bound (K6 8, K7 6 * B*H*T*T*D flops, halved under causal masking);
 10. transformer_main: the reference's sequence-benchmark encoder
    (``tools/bench_seq.py:41``: dim 512, depth 4, 8 heads, vocab 32,000,
    seed 0) at seq_len 2048 served through
@@ -255,18 +265,34 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
 21. mega_transformer (after 11): the encoder's 256 rows in one partition,
    fused, at K = 1 and 4: K=4's replay bit for bit K=1's, K5 launched 16
    times both ways.
+22. train_transformer (after 15): the encoder of 10 with a 16-class
+   per-token head trained through ``models.training.run_train_loop``, 20
+   steps of 8 rows x 2048 tokens (tag = token // 2000, SGD 0.01, momentum
+   0.9): (a) K5, K6 and K7 launched 4 times a step each; (b) step 1's
+   gradients within ``TRAIN_GRAD_REL_L2`` (relative L2, per leaf) of plain
+   attention's under autograd on the card; (c) the mean loss of the last
+   5 steps below the first 5's; (d) 3 steps + a checkpoint + resume + 3
+   bit for bit 6 steps; (e) the trained params served through
+   ``DNNModel`` on 64 rows bit for bit ``FunctionModel.apply``, K5
+   launched and K6/K7 not. Step ms, tokens/s, peak memory and the device's
+   busy share of one profiled step; then a causal depth-1 run of 3 steps
+   (gates a and b);
+23. bilstm_train: ``tools/bench_seq.py``'s tagger (seq 512, embed 128,
+   hidden 256, 16 tags) on 64 rows: the card's forward within
+   ``DEEP_BF16_TOL`` of the CPU's, then 5 train steps whose loss falls.
 
 Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``, after a ``{"kernels": [...]}`` line that
-lists K1-K5 (hist, select, csr_gather, sparse_hist, flash_attn), each with
-its launches on its main path, error against its plain version, ms,
-plain_ms, bound_ms, bound_by and library_ms, and its launches on the new
-paths (``launches_on_new_paths``: dense_variants and its GOSS scan,
-ranker_main, categorical_main, sparse_variants and its compacted stream,
-sparse_wide, serving_sparse, serving_transformer, mega_sparse at K=8
-and mega_transformer at K=4, through the graph replays, and
-serving_autotune); K4's row also carries its call on the
-compacted stream (``compacted_stream``).
+lists K1-K7 (hist, select, csr_gather, sparse_hist, flash_attn,
+flash_attn_bwd_dkv, flash_attn_bwd_dq; K6's and K7's main path is
+train_transformer's 20 steps), each with its launches on its main path, error
+against its plain version, ms, plain_ms, bound_ms, bound_by and library_ms, and
+its launches on the new paths (``launches_on_new_paths``: dense_variants and
+its GOSS scan, ranker_main, categorical_main, sparse_variants and its compacted
+stream, sparse_wide, serving_sparse, serving_transformer, mega_sparse at K=8
+and mega_transformer at K=4, through the graph replays, serving_autotune,
+train_transformer (K5) and its causal run (K5-K7)); K4's row also carries its
+call on the compacted stream (``compacted_stream``).
 """
 
 from __future__ import annotations
@@ -312,8 +338,11 @@ SEQ_BATCH = 64
 # 30-100 with one key tile skipped or not rescaled)
 ULPS_MAX = 4.0
 # K5's max and rms error against exact f64 attention, over the plain
-# version's
+# version's (and K6's and K7's, per gradient, against an f64 backward)
 F64_RATIO_MAX = 1.5
+# K5's row log-sum-exp against the plain version's (both f32; the kernel's
+# exp2/log2 approximations and its summation order; 3e-6 read on the card)
+LSE_TOL = 1e-4
 # K5's time at the main-path batch over scaled_dot_product_attention's on
 # the same inputs (a PyTorch call timed only as a yardstick): the Hopper
 # design's target (an mma.sync kernel with synchronous tile loads read 2.71)
@@ -325,6 +354,11 @@ K5_LIBRARY_RATIO_MAX = 1.35
 COS_GAP_MAX = 3e-5
 OUT_MAX_DIFF = 0.05
 OUT_MEAN_DIFF = 0.005
+# the tagger's forward on the card against the CPU's: the bound the CPU
+# tests hold the port's deep bf16 paths to against the reference
+# (tests/test_torch_fusion.py DEEP_BF16_TOL: one flip of a bf16
+# intermediate of magnitude <= 4)
+DEEP_BF16_TOL = 2e-2
 
 # H100 SXM peaks (NVIDIA data sheet, spec; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -2084,12 +2118,14 @@ def attn_kernel_phase(torch) -> dict:
     for b, t, h, d, causal in cases:
         q, k, v = attn_inputs(torch, b, t, h, d, gen)
         o = fk.flash_attention_cuda(q, k, v, causal)
-        p = fk.flash_attention_plain(q, k, v, causal)
+        o_lse, lse = fk.flash_attention_cuda(q, k, v, causal, lse=True)
+        p, p_lse = fk.flash_attention_plain(q, k, v, causal, return_lse=True)
         exact = attention_f64(torch, q, k, v, causal)
         scale = attention_f64(torch, q, k, v.abs(), causal)
         torch.cuda.synchronize()
         row = {"phase": "attn_kernel", "b": b, "t": t, "h": h, "d": d,
-               "causal": causal,
+               "causal": causal, "lse_output_bitwise": bool(torch.equal(o, o_lse)),
+               "lse_max_abs_err_vs_plain": (lse - p_lse).abs().max().item(),
                "max_abs_err_vs_plain": (o.float() - p.float()).abs().max().item(),
                "max_ulps_vs_plain": bf16_ulps(torch, o, p, scale), "finite": bool(
                    torch.isfinite(o).all())}
@@ -2097,11 +2133,13 @@ def attn_kernel_phase(torch) -> dict:
             err = x.double() - exact
             row[f"{name}_err_vs_f64"] = err.abs().max().item()
             row[f"{name}_rms_vs_f64"] = err.square().mean().sqrt().item()
-        del o, p, exact, scale
+        del o, p, exact, scale, o_lse, lse, p_lse
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         long = t >= 8192 or b >= 64
         row["ms"] = time_ms(torch, lambda: fk.flash_attention_cuda(q, k, v, causal),
                             10 if long else 20)
+        row["ms_with_lse"] = time_ms(torch, lambda: fk.flash_attention_cuda(
+            q, k, v, causal, lse=True), 10 if long else 20)
         row["plain_ms"] = time_ms(torch, lambda: fk.flash_attention_plain(
             q, k, v, causal), 2 if long else 5, 1)
         row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -2119,6 +2157,10 @@ def attn_kernel_phase(torch) -> dict:
         torch.cuda.empty_cache()
         # the gates, each set from the readings (see the constants)
         msgs = []
+        if not row["lse_output_bitwise"] or row["lse_max_abs_err_vs_plain"] > LSE_TOL:
+            msgs.append(f"K5 with lse: output bitwise {row['lse_output_bitwise']}, "
+                        f"lse {row['lse_max_abs_err_vs_plain']} from the plain "
+                        f"version's (bound {LSE_TOL})")
         if not row["finite"] or row["max_abs_err_vs_plain"] > 0.05:
             msgs.append(f"K5 differs from its plain version by "
                         f"{row['max_abs_err_vs_plain']} (reference bound 0.05)")
@@ -3799,6 +3841,393 @@ def serving_transformer(torch, stage, ids, unfused, smi) -> int:
 
 
 # ---------------------------------------------------------------------------
+# training: K6/K7 (the flash-attention backward), the encoder's train loop,
+# the BiLSTM tagger
+# ---------------------------------------------------------------------------
+
+# the reference's sequence-benchmark encoder trained per token: 8 rows of
+# 2048 tokens a step, 16 tag classes (tag = token // 2000)
+TRAIN_ROWS = 8
+TRAIN_STEPS = 20
+TRAIN_CLASSES = 16
+TRAIN_LR = 0.01               # 0.1 diverges (train_transformer's docstring)
+TRAIN_RESUME_STEPS = 6        # gate (d): 6 steps against 3 + resume + 3
+TRAIN_SERVE_ROWS = 64         # gate (e): served through DNNModel
+TRAIN_GRAD_REL_L2 = 2e-2      # gate (b): per leaf, K5-K7 against plain
+# K6/K7 cases: the train shape, causal and not, and the other head dims
+ATTN_BWD_CASES = [(8, 2048, 8, 64, False), (8, 2048, 8, 64, True),
+                  (8, 2048, 8, 128, False), (8, 2048, 8, 128, True),
+                  (4, 2048, 8, 256, False), (4, 2048, 8, 256, True)]
+# the tools/bench_seq.py tagger at 64 rows
+LSTM_SEQ = 512
+LSTM_EMBED = 128
+LSTM_HIDDEN = 256
+LSTM_TAGS = 16
+LSTM_ROWS = 64
+LSTM_STEPS = 5
+LSTM_LR = 0.2
+
+
+def attention_vjp_f64(torch, q, k, v, do, causal):
+    """Exact attention's (dq, dk, dv) in f64 from the same bf16 inputs, one
+    batch row at a time (autograd of ``attention_f64``'s formula)."""
+    out = [torch.empty(x.shape, dtype=torch.float64, device=x.device)
+           for x in (q, k, v)]
+    t, d = q.shape[1], q.shape[-1]
+    mask = torch.ones(t, k.shape[1], dtype=torch.bool, device=q.device).triu(1) \
+        if causal else None
+    with torch.enable_grad():
+        for i in range(q.shape[0]):
+            leaves = [x[i].double().requires_grad_(True) for x in (q, k, v)]
+            s = torch.einsum("qhd,khd->hqk", leaves[0], leaves[1]) / d ** 0.5
+            if mask is not None:
+                s = s.masked_fill(mask, float("-inf"))
+            o = torch.einsum("hqk,khd->qhd", torch.softmax(s, dim=-1),
+                             leaves[2])
+            grads = torch.autograd.grad(o, leaves, do[i].double())
+            for dst, g in zip(out, grads):
+                dst[i] = g
+            del s, o, grads, leaves
+    return out
+
+
+def attn_bwd_kernel_phase(torch) -> dict:
+    """K6 (dK, dV) and K7 (dQ) against the plain backward and both against
+    an exact f64 backward, on K5's own output and lse at the train shape
+    (B=8, T=2048, H=8, D=64), causal and not, and at D=128 and 256: every
+    gradient finite, its max and rms error against f64 no more than
+    ``F64_RATIO_MAX`` times the plain version's, two calls bit for bit.
+    Each case logs each kernel's ms beside the plain backward's (all three
+    gradients), the backward of ``scaled_dot_product_attention`` on the
+    same inputs (timed only) and the bound (K6 8, K7 6 * B*H*T*T*D flops,
+    halved under causal masking, at the bf16 peak)."""
+    from mmlspark_tpu_torch.models import flash_kernel as fk
+
+    F = torch.nn.functional
+    gen = torch.Generator().manual_seed(SEED + 14)
+    main, rows, bad = None, [], []
+    for b, t, h, d, causal in ATTN_BWD_CASES:
+        q, k, v = attn_inputs(torch, b, t, h, d, gen)
+        do = torch.randn(b, t, h, d, generator=gen).to(DEVICE).to(torch.bfloat16)
+        o, lse = fk.flash_attention_cuda(q, k, v, causal, lse=True)
+        got = fk.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+        again = fk.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+        plain = fk.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+        exact = attention_vjp_f64(torch, q, k, v, do, causal)
+        torch.cuda.synchronize()
+        row = {"phase": "attn_bwd_kernel", "b": b, "t": t, "h": h, "d": d,
+               "causal": causal, "bitwise_two_calls": all(
+                   torch.equal(x, y) for x, y in zip(got, again))}
+        for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+            row[f"{name}_finite"] = bool(torch.isfinite(g).all())
+            row[f"{name}_max_abs_err_vs_plain"] = (g.float() - p.float()).abs().max().item()
+            for who, x in (("kernel", g), ("plain", p)):
+                err = x.double() - e
+                row[f"{name}_{who}_err_vs_f64"] = err.abs().max().item()
+                row[f"{name}_{who}_rms_vs_f64"] = err.square().mean().sqrt().item()
+        del got, again, plain, exact
+        di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        bufs = [torch.empty_like(x) for x in (q, k, v)]
+        for which in ("dkv", "dq"):
+            row[f"{which}_ms"] = time_ms(torch, lambda: fk.launch_bwd(
+                which, q, k, v, do, lse, di, *bufs, causal), 10)
+            flops, nbytes = fk.bwd_cost(b, t, t, h, d, causal, which)
+            row[f"{which}_bound_ms"], row[f"{which}_bound_by"] = bound_ms(
+                nbytes, flops, BF16_OPS_PER_S)
+            row[f"{which}_tflops"] = flops / row[f"{which}_ms"] / 1e9
+        row["plain_ms"] = time_ms(torch, lambda: fk.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal), 3, 1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        dot = do.transpose(1, 2).contiguous()
+        row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True), 10)
+        log(row)
+        rows.append(row)
+        if (b, t, h, d) == (TRAIN_ROWS, SEQ_LEN, SEQ_HEADS, SEQ_DIM // SEQ_HEADS) \
+                and not causal:
+            main = row
+        del q, k, v, do, o, lse, di, bufs, qt, kt, vt, ot, dot
+        torch.cuda.empty_cache()
+        msgs = []
+        if not row["bitwise_two_calls"]:
+            msgs.append("two calls differ")
+        for name in ("dq", "dk", "dv"):
+            if not row[f"{name}_finite"]:
+                msgs.append(f"{name} not finite")
+            for stat in ("err", "rms"):
+                kern = row[f"{name}_kernel_{stat}_vs_f64"]
+                plain_v = row[f"{name}_plain_{stat}_vs_f64"]
+                if kern > F64_RATIO_MAX * plain_v:
+                    msgs.append(f"{name}'s {stat} against f64, {kern}, exceeds "
+                                f"{F64_RATIO_MAX}x the plain version's {plain_v}")
+        bad += [f"{m} at b={b} t={t} h={h} d={d} causal={causal}" for m in msgs]
+    log({"phase": "attn_bwd_kernel", "card_limits": {
+        "max_f64_err_ratio": max(r[f"{n}_kernel_err_vs_f64"] / r[f"{n}_plain_err_vs_f64"]
+                                 for r in rows for n in ("dq", "dk", "dv")),
+        "max_f64_rms_ratio": max(r[f"{n}_kernel_rms_vs_f64"] / r[f"{n}_plain_rms_vs_f64"]
+                                 for r in rows for n in ("dq", "dk", "dv"))}})
+    if bad:
+        fail("; ".join(bad))
+    common = dict(route="cuda", source="mmlspark_tpu_torch/csrc/flash_attn_bwd.cu",
+                  plain_ms=main["plain_ms"], library_ms=main["library_ms"],
+                  plain_call="flash_attention_bwd_plain: dq, dk and dv",
+                  library_call="the backward of torch.nn.functional."
+                               "scaled_dot_product_attention on bf16 [B, H, T, D] "
+                               "(dq, dk and dv; timed only)",
+                  shape=dict(b=TRAIN_ROWS, t=SEQ_LEN, h=SEQ_HEADS,
+                             d=SEQ_DIM // SEQ_HEADS, causal=False),
+                  bound_peak="989 TFLOP/s bf16 dense (spec), 3.35 TB/s")
+    out = {}
+    for name, which, grads, replaces in (
+            ("flash_attn_bwd_dkv", "dkv", ("dk", "dv"),
+             "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
+            ("flash_attn_bwd_dq", "dq", ("dq",),
+             "jax/experimental/pallas/ops/tpu/flash_attention.py:1456")):
+        out[name] = dict(name=name, replaces=replaces, ms=main[f"{which}_ms"],
+                         max_abs_err=max(main[f"{g}_max_abs_err_vs_plain"]
+                                         for g in grads),
+                         bound_ms=main[f"{which}_bound_ms"],
+                         bound_by=main[f"{which}_bound_by"], **common)
+        log(dict(phase="kernels", **out[name]))
+    return out
+
+
+def zero_attn_launches() -> None:
+    from mmlspark_tpu_torch.models import flash_kernel as fk
+
+    fk.launches = fk.bwd_dkv_launches = fk.bwd_dq_launches = 0
+
+
+def read_attn_launches() -> dict:
+    from mmlspark_tpu_torch.models import flash_kernel as fk
+
+    return {"flash_attn": fk.launches, "flash_attn_bwd_dkv": fk.bwd_dkv_launches,
+            "flash_attn_bwd_dq": fk.bwd_dq_launches}
+
+
+def train_batches(n: int, seed: int, rows: int, t: int, vocab: int,
+                  classes_every: int) -> list:
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        x = rng.integers(0, vocab, (rows, t))
+        out.append({"x": x, "y": (x // classes_every).astype(np.int32)})
+    return out
+
+
+def grads_rel_l2(torch, module, params, batch) -> dict:
+    """Per leaf, the relative L2 difference of step-1 gradients with K5-K7
+    against the same gradients with ``MMLSPARK_TPU_NO_FLASH=1`` (plain
+    attention under autograd, on the card)."""
+    import os
+
+    from mmlspark_tpu_torch.models import training
+
+    _, _, flash = training.loss_and_grads(module, params, batch)
+    os.environ["MMLSPARK_TPU_NO_FLASH"] = "1"
+    try:
+        _, _, plain = training.loss_and_grads(module, params, batch)
+    finally:
+        del os.environ["MMLSPARK_TPU_NO_FLASH"]
+    fl, pl = training._flatten(flash), training._flatten(plain)
+    return {n: ((fl[n].double() - pl[n].double()).norm()
+                / pl[n].double().norm().clamp_min(1e-30)).item() for n in pl}
+
+
+def train_run(torch, depth: int, causal: bool, steps: int, smi, what: str):
+    """``run_train_loop`` of the encoder at ``depth`` for ``steps`` steps:
+    gates (a) each of K5, K6 and K7 launched depth times a step, (b) step
+    1's gradients within ``TRAIN_GRAD_REL_L2`` of plain attention's.
+    Returns (launches, model, step fn, first state, batches, result,
+    losses)."""
+    from mmlspark_tpu_torch.models import training, transformer_encoder
+
+    model = transformer_encoder(seq_len=SEQ_LEN, dim=SEQ_DIM, depth=depth,
+                                num_heads=SEQ_HEADS, vocab_size=SEQ_VOCAB,
+                                num_classes=TRAIN_CLASSES, causal=causal, seed=0)
+    opt = training.make_optimizer(learning_rate=TRAIN_LR, momentum=0.9)
+    state0 = training.init_train_state(model.module, (SEQ_LEN,), opt, seed=0,
+                                       device=DEVICE)
+    step = training.make_train_step(model.module, opt)
+    batches = train_batches(steps, SEED + depth, TRAIN_ROWS, SEQ_LEN, SEQ_VOCAB,
+                            SEQ_VOCAB // TRAIN_CLASSES)
+    rel = grads_rel_l2(torch, model.module, state0.params, batches[0])
+    losses, times = [], []
+
+    def timed_step(st, batch):
+        t0 = time.perf_counter()
+        st, m = step(st, batch)
+        losses.append(float(m["loss"]))   # reads the device: the step's end
+        times.append(time.perf_counter() - t0)
+        return st, m
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_attn_launches()
+    t0 = time.perf_counter()
+    res = training.run_train_loop(state0, timed_step, batches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_attn_launches()
+    ms = sorted(x * 1e3 for x in times)
+    step_ms = ms[len(ms) // 2]
+    log({"phase": what, "card": smi, "depth": depth, "causal": causal,
+         "steps": steps, "rows": TRAIN_ROWS, "params": model.num_params(),
+         "wall_seconds": wall, "first_step_ms": times[0] * 1e3,
+         "median_step_ms": step_ms,
+         "tokens_per_s": TRAIN_ROWS * SEQ_LEN / (step_ms / 1e3),
+         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "launches": launches, "losses": losses,
+         "grad_rel_l2_vs_plain_max": max(rel.values()),
+         "grad_rel_l2_vs_plain": rel})
+    want = depth * steps
+    if any(v != want for v in launches.values()):
+        fail(f"{what}: K5/K6/K7 launched {launches}, expected {want} each "
+             f"({depth} a step)")
+    worst = max(rel, key=rel.get)
+    if rel[worst] > TRAIN_GRAD_REL_L2:
+        fail(f"{what}: step 1's gradient of {worst} differs from plain "
+             f"attention's by {rel[worst]} (relative L2; bound "
+             f"{TRAIN_GRAD_REL_L2})")
+    return launches, model, step, state0, batches, res, losses
+
+
+def train_transformer(torch, smi) -> tuple:
+    """The reference's sequence-benchmark encoder (dim 512, depth 4, 8 heads,
+    vocab 32,000, seq_len 2048) with a 16-class per-token head trained by
+    ``run_train_loop``: 20 steps of 8 rows (seeded tokens, tag = token //
+    2000), SGD 0.01, momentum 0.9 (at 0.1 the loss climbed from 3.1 to
+    20-36 on the card, and on the CPU at T=256, depth 2). Gates: (a) K5, K6 and K7 four times a
+    step each; (b) step 1's gradients against plain attention on the card,
+    per leaf; (c) the mean loss of the last 5 steps below the first 5's;
+    (d) 6 steps against 3 + a checkpoint + resume + 3, params and trace bit
+    for bit; (e) the trained params served through ``DNNModel(batchSize=64)``
+    on 64 rows bit for bit ``FunctionModel.apply`` on the same batch, K5
+    launched and K6/K7 not. Logs step ms, tokens/s, peak memory and the
+    device's busy share of one step. Then a causal depth-1 run of 3 steps
+    (gates a and b). Returns (main-path launches, the causal run's)."""
+    import tempfile
+
+    from mmlspark_tpu_torch.core import profiling
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.models import DNNModel, training
+
+    launches, model, step, state0, batches, res, losses = train_run(
+        torch, SEQ_DEPTH, False, TRAIN_STEPS, smi, "train_transformer")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first or not np.isfinite(losses).all():
+        fail(f"train_transformer: the loss did not fall: first 5 {first}, "
+             f"last 5 {last} ({losses})")
+    # one more step under the profiler: the device's busy share
+    with profiling.trace() as prof:
+        st, m = step(res.state, batches[0])
+        float(m["loss"])
+        torch.cuda.synchronize()
+    busy = profiling.device_busy(prof, top=8, gaps=5)
+    log({"phase": "train_transformer", "card": smi, "profiled_step": busy,
+         "loss_first_5": first, "loss_last_5": last})
+    del st, m, prof
+    # (d) resume bit for bit
+    n = TRAIN_RESUME_STEPS
+    full = training.run_train_loop(state0, step, batches[:n])
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = f"{tmp}/state.pt"
+        half = training.run_train_loop(state0, step, batches[:n // 2],
+                                       checkpoint_path=ckpt, every_k=n // 2)
+        t0 = time.perf_counter()
+        resumed = training.run_train_loop(state0, step, batches[:n],
+                                          checkpoint_path=ckpt)
+        resume_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for tree in ("params", "opt_state")
+               for a, b in zip(training._flatten(getattr(resumed.state, tree)).values(),
+                               training._flatten(getattr(full.state, tree)).values()))
+    log({"phase": "train_transformer", "resume_steps": [half.steps_run,
+                                                        resumed.steps_run],
+         "resume_seconds": resume_s, "resumed_bitwise_uninterrupted": same})
+    if half.steps_run != n // 2 or resumed.steps_run != n - n // 2 or not same:
+        fail(f"train_transformer: 3 steps + resume + 3 is not 6 steps bit for "
+             f"bit (steps {half.steps_run}, {resumed.steps_run}, same {same})")
+    del full, half, resumed
+    # (e) serve the trained params
+    training.assign_params(model.module, res.state.params)
+    ids = np.random.default_rng(SEED + 15).integers(
+        0, SEQ_VOCAB, (TRAIN_SERVE_ROWS, SEQ_LEN))
+    stage = DNNModel(inputCol="tokens", outputCol="logits",
+                     batchSize=TRAIN_SERVE_ROWS).set_model(model)
+    zero_attn_launches()
+    served = np.stack(list(stage.transform(DataFrame.from_dict(
+        {"tokens": ids})).column("logits")))
+    torch.cuda.synchronize()
+    serve_launches = read_attn_launches()
+    x = torch.from_numpy(ids).to(DEVICE)
+    want = model.apply(x, params=model.device_params(x.device)).cpu().numpy()
+    log({"phase": "train_transformer", "served_rows": TRAIN_SERVE_ROWS,
+         "served_launches": serve_launches,
+         "served_bitwise_apply": bool(np.array_equal(served, want)),
+         "served_max_abs_diff": float(np.abs(served - want).max())})
+    if serve_launches["flash_attn"] != SEQ_DEPTH or \
+            serve_launches["flash_attn_bwd_dkv"] or serve_launches["flash_attn_bwd_dq"]:
+        fail(f"train_transformer: serving launched {serve_launches}, expected "
+             f"K5 {SEQ_DEPTH} times and K6/K7 never")
+    if served.shape != (TRAIN_SERVE_ROWS, SEQ_LEN, TRAIN_CLASSES) \
+            or not np.array_equal(served, want):
+        fail("train_transformer: the served trained model is not "
+             "FunctionModel.apply bit for bit")
+    del model, step, state0, res, stage, x
+    torch.cuda.empty_cache()
+    causal = train_run(torch, 1, True, 3, smi, "train_transformer_causal")[0]
+    torch.cuda.empty_cache()
+    return launches, causal
+
+
+def bilstm_train(torch, smi) -> None:
+    """``tools/bench_seq.py``'s tagger (seq 512, vocab 32,000, embed 128,
+    hidden 256, 16 tags) on 64 rows: the card's forward within
+    ``DEEP_BF16_TOL`` of the CPU's on the same params and ids, then 5 train
+    steps on those rows (tag = token // 2000; SGD 0.2, momentum 0.9, the
+    reference's tagger test's) whose loss must fall: one batch, since at
+    init the BiLSTM's features are ~1e-2 and a fresh batch's loss moves
+    less in 5 steps than from batch to batch. No kernel of the port runs
+    here (the LSTM scan is torch.matmul a step)."""
+    from mmlspark_tpu_torch.models import bilstm_tagger, training
+    from mmlspark_tpu_torch.runtime import use_device
+
+    model = bilstm_tagger(LSTM_SEQ, SEQ_VOCAB, LSTM_EMBED, LSTM_HIDDEN,
+                          LSTM_TAGS, seed=0)
+    ids = np.random.default_rng(SEED + 16).integers(0, SEQ_VOCAB,
+                                                    (LSTM_ROWS, LSTM_SEQ))
+    x = torch.from_numpy(ids)
+    t0 = time.perf_counter()
+    card = model.apply(x.to(DEVICE), params=model.device_params(DEVICE)).cpu()
+    card_s = time.perf_counter() - t0
+    with use_device("cpu"):
+        cpu = model.apply(x)
+    diff = (card - cpu).abs().max().item()
+    opt = training.make_optimizer(learning_rate=LSTM_LR, momentum=0.9)
+    state = training.init_train_state(model.module, (LSTM_SEQ,), opt, seed=0,
+                                      device=DEVICE)
+    step = training.make_train_step(model.module, opt)
+    losses, times = [], []
+    batch = {"x": ids, "y": (ids // (SEQ_VOCAB // LSTM_TAGS)).astype(np.int32)}
+    for _ in range(LSTM_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    log({"phase": "bilstm_train", "card": smi, "rows": LSTM_ROWS,
+         "forward_seconds": card_s, "max_abs_diff_vs_cpu": diff,
+         "losses": losses, "step_seconds": times,
+         "tokens_per_s": LSTM_ROWS * LSTM_SEQ / float(np.median(times))})
+    if diff > DEEP_BF16_TOL:
+        fail(f"bilstm_train: the card's forward is {diff} from the CPU's "
+             f"(bound {DEEP_BF16_TOL})")
+    if not losses[-1] < losses[0]:
+        fail(f"bilstm_train: the loss did not fall: {losses}")
+
+
+# ---------------------------------------------------------------------------
 # K-step mega dispatch as captured CUDA graphs, the cost model and the Tuner,
 # serving with the Tuner, and slot-deposit staging
 # ---------------------------------------------------------------------------
@@ -4317,6 +4746,7 @@ def main() -> int:
     serve_s = time.perf_counter() - t_serve
     del dense_model, sparse_model, rows, anchor, X_score, fused, want
     kernels["flash_attn"] = attn_kernel_phase(torch)
+    kernels.update(attn_bwd_kernel_phase(torch))
     launches["flash_attn"], stage, df, out = transformer_main(torch, smi)
     transformer_fused(torch, stage, df, out, smi)
     t_mega = time.perf_counter()
@@ -4332,10 +4762,20 @@ def main() -> int:
         torch, stage, ids, out, smi)}
     serve_s += time.perf_counter() - t_serve
     log({"phase": "serving", "seconds": serve_s})
+    del stage, df, out, ids
+    t_train = time.perf_counter()
+    train, causal = train_transformer(torch, smi)
+    for name in ("flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
+        launches[name] = train[name]
+    paths["train_transformer"] = {"flash_attn": train["flash_attn"]}
+    paths["train_transformer_causal"] = causal
+    bilstm_train(torch, smi)
+    log({"phase": "training", "seconds": time.perf_counter() - t_train})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []
-    for name in ("hist", "select", "csr_gather", "sparse_hist", "flash_attn"):
+    for name in ("hist", "select", "csr_gather", "sparse_hist", "flash_attn",
+                 "flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
         row = dict(kernels[name], launches=launches[name])
         new_paths = {p: c[name] + c.get("hist_count", 0) if name == "hist"
                      else c[name] for p, c in paths.items()

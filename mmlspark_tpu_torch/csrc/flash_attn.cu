@@ -67,6 +67,12 @@
 //   - the output is divided by l, rounded to bf16 and written into the
 //     warpgroup's own (no longer needed) Q tile in the TMA box layout, then
 //     stored with one TMA store per 64 columns;
+//   - with an ``lse`` buffer (training: K6 and K7 read it), one thread of
+//     each row's quad writes the row's log-sum-exp of the scaled scores,
+//     lse = ln(sum_j exp(sm_scale * q.k_j)) = (m * sm_scale * log2(e) +
+//     log2(l)) * ln(2) in the kernel's base-2 terms, f32 [B, H, Tq]; at
+//     D = 384 and 512 only the CTA of the first column half writes it. A
+//     null ``lse`` (serving) skips the branch and nothing else changes;
 //   - at D = 384 and 512 a CTA writes half the output columns (kDV = D/2):
 //     an f32 accumulator of all D columns would take 192-256 registers a
 //     thread. The two CTAs of a row tile each compute all of S = Q K^T and
@@ -86,6 +92,7 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {  // in elements
   int64_t b, t, h;
@@ -361,8 +368,9 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::kThreads, 1)
     flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
-                   const __grid_constant__ CUtensorMap tm_o, int tq, int tk,
-                   int heads, float scale_log2) {
+                   const __grid_constant__ CUtensorMap tm_o,
+                   float* __restrict__ lse, int tq, int tk, int heads,
+                   float scale_log2) {
   using C = Sm90Cfg<D>;
   constexpr int kN = C::kN;
   constexpr int kStages = C::kStages;
@@ -538,6 +546,11 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::kThreads, 1)
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       inv[r] = l > 0.f ? 1.f / l : 0.f;
+      const int row = row0 + 8 * r;
+      if (lse != nullptr && col0 == 0 && (lane & 3) == 0 && row < tq) {
+        lse[((int64_t)b * heads + h) * tq + row] =
+            (m_run[r] * scale_log2 + log2f(l)) * kLn2;
+      }
     }
 #pragma unroll
     for (int i = 0; i < kDV / 8; ++i) {
@@ -611,9 +624,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int t, int heads,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int heads, int tq, int tk, int causal, const Strides (&st)[4],
-           float sm_scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int heads, int tq, int tk, int causal,
+           const Strides (&st)[4], float sm_scale, cudaStream_t stream) {
   using C = Sm90Cfg<D>;
   CUtensorMap mq, mk, mv, mo;
   if (!make_map(&mq, q, batch, tq, heads, D, st[0], 64) ||
@@ -630,7 +643,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
       (int64_t)ceil_div(tq, C::kM) * heads * C::kColSplit * batch;
   if (blocks > INT32_MAX) return (int)cudaErrorInvalidConfiguration;
   kernel<<<(unsigned)blocks, C::kThreads, C::kSmem, stream>>>(
-      mq, mk, mv, mo, tq, tk, heads, sm_scale * kLog2e);
+      mq, mk, mv, mo, lse, tq, tk, heads, sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -640,9 +653,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 // head per tensor, in that order: q, k, v, o; the last dimension is
 // contiguous, the strides multiples of 8 and the base 16-byte aligned). Tq
 // and Tk are multiples of 64, causal needs Tq == Tk, and D is 64, 128, 256,
-// 384 or 512. Returns a cudaError_t code.
+// 384 or 512. ``lse`` is null or an f32 [B, H, Tq] buffer for the rows'
+// log-sum-exp (natural log of sum_j exp(sm_scale * q.k_j)). Returns a
+// cudaError_t code.
 extern "C" int mmlspark_flash_attn_fwd(const void* q, const void* k,
-                                       const void* v, void* o, int batch,
+                                       const void* v, void* o, float* lse,
+                                       int batch,
                                        int heads, int tq, int tk, int head_dim,
                                        int causal, const int64_t* strides,
                                        float sm_scale, void* stream) {
@@ -657,19 +673,19 @@ extern "C" int mmlspark_flash_attn_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return launch<64>(q, k, v, o, batch, heads, tq, tk, causal, st,
+      return launch<64>(q, k, v, o, lse, batch, heads, tq, tk, causal, st,
                        sm_scale, s);
     case 128:
-      return launch<128>(q, k, v, o, batch, heads, tq, tk, causal, st,
+      return launch<128>(q, k, v, o, lse, batch, heads, tq, tk, causal, st,
                         sm_scale, s);
     case 256:
-      return launch<256>(q, k, v, o, batch, heads, tq, tk, causal, st,
+      return launch<256>(q, k, v, o, lse, batch, heads, tq, tk, causal, st,
                         sm_scale, s);
     case 384:
-      return launch<384>(q, k, v, o, batch, heads, tq, tk, causal, st,
+      return launch<384>(q, k, v, o, lse, batch, heads, tq, tk, causal, st,
                         sm_scale, s);
     case 512:
-      return launch<512>(q, k, v, o, batch, heads, tq, tk, causal, st,
+      return launch<512>(q, k, v, o, lse, batch, heads, tq, tk, causal, st,
                         sm_scale, s);
     default:
       return (int)cudaErrorInvalidValue;

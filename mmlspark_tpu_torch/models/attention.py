@@ -13,16 +13,22 @@ taken from the TPU, and the kernel is built for head dims up to 512, so a
 call the reference would send to its flash kernel with a larger head dim
 raises ``NotImplementedError`` rather than running the plain version.
 
+Under autograd (grad enabled and an input requiring grad) a call the gate
+admits goes through ``flash_kernel.FlashAttention``: K5 forward with the
+rows' log-sum-exp, K6 and K7 backward. Everywhere else under autograd the
+plain forward is differentiated by autograd, as the reference's XLA route
+is by JAX.
+
 The modules mirror the reference's, as ``nn.Module`` layers whose
 parameters carry its key names (see ``module.py``): ``LayerNorm``
 (``scale``, ``bias``), ``Embed`` (``table``), ``MultiHeadAttention``
-(``wq``, ``wk``, ``wv``, ``wo``, each ``[dim, dim]``), and the builders
-``transformer_block`` and ``transformer_encoder``.
+(``wq``, ``wk``, ``wv``, ``wo``, each ``[dim, dim]``), ``LSTM`` (``wx``,
+``wh``, ``b``) and ``BiLSTM`` (``fwd``, ``bwd``), and the builders
+``transformer_block``, ``transformer_encoder`` and ``bilstm_tagger``.
 
 Not ported yet, each raising ``NotImplementedError``: ring attention
-(``ring_axis``, multi-GPU, ROADMAP A9), the mixture-of-experts FFN
-(``moe_experts``, A9), and ``LSTM``/``BiLSTM``/``bilstm_tagger`` (the next
-item of A7).
+(``ring_axis``, multi-GPU, ROADMAP A9) and the mixture-of-experts FFN
+(``moe_experts``, A9).
 """
 
 from __future__ import annotations
@@ -96,9 +102,13 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     k_offset: int = 0) -> torch.Tensor:
     """Attention, q: [B, Tq, H, D], k/v: [B, Tk, H, D] -> [B, Tq, H, D].
     ``*_offset`` are global position offsets for causal masking of shards.
-    K5 where ``flash_route`` says so (a K5 failure propagates), else its
-    plain version."""
+    K5 where ``flash_route`` says so (a K5 failure propagates), through
+    ``FlashAttention`` (K6 and K7 backward) when autograd records the call;
+    else its plain version."""
     if flash_route(q, k, causal, q_offset, k_offset):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return flash_kernel.FlashAttention.apply(q, k, v, causal)
         return flash_kernel.flash_attention(q, k, v, causal)
     return flash_kernel.flash_attention_plain(q, k, v, causal, q_offset,
                                               k_offset)
@@ -276,24 +286,74 @@ def transformer_encoder(seq_len: int, dim: int, depth: int, num_heads: int,
     return FunctionModel(module, in_shape, layer_names, "transformer")
 
 
-_LSTM_TODO = ("LSTM/BiLSTM/bilstm_tagger are the next item of ROADMAP A7 "
-              "and not ported yet")
-
-
 class LSTM(Module):
-    """Not ported yet (ROADMAP A7)."""
+    """Unidirectional LSTM: [B, T, D] -> [B, T, H], all in f32 as the
+    reference's (its ``lax.scan`` is a loop over T here; ``reverse`` runs
+    it from the last step). The input projection is hoisted out of the
+    loop: one product over all steps. Gates in the order i, f, g, o."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_LSTM_TODO)
+    def __init__(self, hidden: int, reverse: bool = False):
+        super().__init__()
+        self.hidden = hidden
+        self.reverse = reverse
+
+    def init(self, gen, in_shape):
+        t, d = in_shape
+        h = self.hidden
+        std_x = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+        std_h = torch.tensor(1.0 / math.sqrt(h), dtype=torch.float32)
+        self.wx = _param(torch.randn(d, 4 * h, generator=gen) * std_x)
+        self.wh = _param(torch.randn(h, 4 * h, generator=gen) * std_h)
+        self.b = _param(torch.zeros(4 * h))
+        return (t, h)
+
+    def forward(self, x):
+        b, t, _ = x.shape
+        h = self.hidden
+        xp = (torch.matmul(x.to(torch.float32), self.wx) + self.b)
+        hh = torch.zeros(b, h, dtype=torch.float32, device=x.device)
+        c = torch.zeros_like(hh)
+        ys = [None] * t
+        for step in (range(t - 1, -1, -1) if self.reverse else range(t)):
+            gates = xp[:, step] + hh @ self.wh
+            i, f, g, o = gates.chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            hh = torch.sigmoid(o) * torch.tanh(c)
+            ys[step] = hh
+        return torch.stack(ys, dim=1)
+
+    def extra_repr(self) -> str:
+        return f"hidden={self.hidden}, reverse={self.reverse}"
 
 
 class BiLSTM(Module):
-    """Not ported yet (ROADMAP A7)."""
+    """Concat of a forward and a backward LSTM: [B, T, D] -> [B, T, 2H]."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_LSTM_TODO)
+    def __init__(self, hidden: int):
+        super().__init__()
+        self.fwd = LSTM(hidden)
+        self.bwd = LSTM(hidden, reverse=True)
+
+    def init(self, gen, in_shape):
+        t, h = self.fwd.init(gen, in_shape)
+        self.bwd.init(gen, in_shape)
+        return (t, 2 * h)
+
+    def forward(self, x):
+        return torch.cat([self.fwd(x), self.bwd(x)], dim=-1)
 
 
-def bilstm_tagger(*args, **kwargs):
-    """Not ported yet (ROADMAP A7)."""
-    raise NotImplementedError(_LSTM_TODO)
+def bilstm_tagger(seq_len: int, vocab_size: int, embed_dim: int,
+                  hidden: int, num_tags: int, seed: int = 0) -> FunctionModel:
+    """Embed -> BiLSTM -> per-token tag logits, as a FunctionModel (the
+    reference's medical entity extraction architecture). Parameters from a
+    ``torch.Generator`` seeded with ``seed`` (``convert.load_jax_params``
+    carries the reference's over)."""
+    module = Sequential([
+        ("embed", Embed(vocab_size, embed_dim)),
+        ("bilstm", BiLSTM(hidden)),
+        ("tags", Dense(num_tags)),
+    ], name="bilstm_tagger")
+    module.init(torch.Generator().manual_seed(seed), (seq_len,))
+    return FunctionModel(module, (seq_len,), ["tags", "bilstm", "embed"],
+                         "bilstm_tagger")

@@ -8,27 +8,22 @@ shapes. ``Dense`` keeps the reference's ``[in, out]`` kernel layout, and so
 do the attention projections, so no weight is transposed. A missing key, an
 extra key or a shape that differs raises; values are cast to the port
 parameter's dtype.
+
+``load_jax_train_state(model, params, trace, step)`` does the same for a
+reference ``TrainState``: its params and its optax momentum trace (both as
+nested dicts of numpy arrays, the trace taken from ``opt_state``) become a
+port ``training.TrainState`` on the model's parameters' device.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
 
-from .module import FunctionModel
-
-
-def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
-    out: Dict[str, Any] = {}
-    for key, value in tree.items():
-        name = f"{prefix}{key}"
-        if isinstance(value, Mapping):
-            out.update(_flatten(value, name + "."))
-        else:
-            out[name] = value
-    return out
+from .module import FunctionModel, _flatten, _nest
+from .training import TrainState, params_of
 
 
 def load_jax_params(model: FunctionModel, params: Mapping[str, Any]
@@ -52,3 +47,28 @@ def load_jax_params(model: FunctionModel, params: Mapping[str, Any]
             p.copy_(torch.from_numpy(np.array(flat[name])).to(p.dtype))
     return model
 
+
+def load_jax_train_state(model: FunctionModel, params: Mapping[str, Any],
+                         trace: Mapping[str, Any], step: int,
+                         device=None) -> TrainState:
+    """A port TrainState from the reference's params, momentum trace and
+    step; ``model``'s own parameters take ``params`` (``load_jax_params``)
+    and the state holds copies of them on ``device`` (default: ``cuda``
+    unless the caller asked for the CPU)."""
+    load_jax_params(model, params)
+    state_params = params_of(model.module, device)
+    flat = _flatten(trace)
+
+    def leaf(name, p):
+        value = np.asarray(flat[name])
+        if tuple(value.shape) != tuple(p.shape):
+            raise ValueError(f"trace {name}: shape {tuple(value.shape)}, "
+                             f"param {tuple(p.shape)}")
+        return torch.from_numpy(np.array(value)).to(p.device, p.dtype)
+
+    named = _flatten(state_params)
+    if set(flat) != set(named):
+        raise KeyError(f"trace does not match the model: "
+                       f"{sorted(set(flat) ^ set(named))[:10]}")
+    trace_tree = _nest({n: leaf(n, p) for n, p in named.items()})
+    return TrainState(state_params, {"trace": trace_tree}, int(step))

@@ -1,4 +1,6 @@
-"""K5: the flash-attention kernel (``csrc/flash_attn.cu``) and its plain version.
+"""K5, K6 and K7: the flash-attention kernels (``csrc/flash_attn.cu``, the
+forward, and ``csrc/flash_attn_bwd.cu``, the backward) and their plain
+versions.
 
 Replaces the TPU route ``mmlspark_tpu/models/attention.py:_flash_dispatch``,
 which calls the library kernel
@@ -29,7 +31,24 @@ takes the plain version, anything else raises. ``launches`` counts kernel
 launches, through CUDA graph replays too (core/graphs.py: the fused
 executor's mega dispatch replays captured launches), and each launch adds
 its flops and bytes to an active cost tally (obs/perf.py), which cannot see
-inside it.
+inside it. K5 launched with an ``lse`` buffer also writes each row's
+log-sum-exp, which the backward reads.
+
+The backward replaces the two Pallas kernels of the library's
+``flash_attention`` VJP (``_flash_attention_bwd_dkv``, K6, and
+``_flash_attention_bwd_dq``, K7), which the reference runs when it trains
+through its flash route. ``flash_attention_bwd_plain`` is the library's
+formula (``mha_reference_bwd``) with the kernels' rounding steps: P from
+the f32 scores and the forward's ``lse``, P and dS rounded to bf16 before
+their products, f32 sums, dQ/dK/dV rounded to bf16 once.
+``FlashAttention`` is the autograd Function: K5 with ``lse`` forward, the
+row sums ``di = rowsum(dO * O)`` (a torch reduction, as the library's
+``jnp.sum``) and K6 then K7 backward; on CPU tensors (the tests) the plain
+pair. ``bwd_dkv_launches`` and ``bwd_dq_launches`` count K6's and K7's
+launches as ``launches`` counts K5's. While grad is enabled and an input
+requires grad, only ``FlashAttention`` may launch K5: a bare
+``flash_attention_cuda`` call raises rather than return an output that
+autograd cannot differentiate.
 """
 
 from __future__ import annotations
@@ -39,17 +58,23 @@ import math
 from typing import Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .. import _kernels
 from ..core import graphs
 from ..obs import perf as _perf
 
-#: kernel launches since the counter was last set to 0
+#: kernel launches since the counter was last set to 0 (K5, K6, K7)
 launches = 0
-graphs.count_replays(__name__, "launches")
+bwd_dkv_launches = 0
+bwd_dq_launches = 0
+graphs.count_replays(__name__, "launches", "bwd_dkv_launches",
+                     "bwd_dq_launches")
 
 #: head dims the kernel is built for
 HEAD_DIMS = (64, 128, 256, 384, 512)
+#: head dims K6 and K7 are built for (384 and 512: ROADMAP B5)
+BWD_HEAD_DIMS = (64, 128, 256)
 #: query and key lengths must be multiples of 64 (the Hopper kernel's
 #: query tiles are 192 or 128 rows and its key tiles 128 or 64; a partial
 #: last tile is masked)
@@ -77,13 +102,28 @@ def grid_decode(block, m_blocks: int, hc: int):
     return block // (m_blocks * hc), (block // m_blocks) % hc, block % m_blocks
 
 
+def bwd_launch_grid(b: int, tq: int, tk: int, h: int, d: int,
+                    which: str) -> Tuple[int, int, int]:
+    """K6's (``which="dkv"``) or K7's (``"dq"``) 1-D grid: (64-row tiles of
+    keys or queries, head x column-split slots, total blocks). At D = 256 a
+    CTA writes half the output columns (``BwdCfg`` in the source).
+    ``grid_decode`` reads a block index of either."""
+    tiles = (tk if which == "dkv" else tq) // TILE
+    hc = h * (2 if d > 128 else 1)
+    return tiles, hc, tiles * hc * b
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = False, q_offset: int = 0,
-                          k_offset: int = 0) -> torch.Tensor:
+                          k_offset: int = 0, return_lse: bool = False):
     """Reference attention, q: [B, Tq, H, D], k/v: [B, Tk, H, D] ->
     [B, Tq, H, D] in v's dtype. ``*_offset`` are global positions of the
     first query and key for causal masking of shards; a query that sees no
-    key gets zeros."""
+    key gets zeros. With ``return_lse`` also each row's log-sum-exp
+    ln sum_j exp(q.k_j / sqrt(D)), f32 [B, H, Tq] (-inf for a row that sees
+    no key), from scores taken as K5 and the backward take them: q.k in
+    f32, scaled in f32 (the output's scores scale k in bf16 first, which
+    differs where 1/sqrt(D) is not a power of 2)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     acc = torch.float64 if q.dtype == torch.float64 else torch.float32
@@ -95,7 +135,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kpos = torch.arange(tk, device=q.device) + k_offset
         mask = kpos[None, :] > qpos[:, None]
     step = max(1, _PLAIN_CHUNK_ELEMENTS // max(1, h * tq * tk))
-    out = []
+    out, lses = [], []
     for lo in range(0, b, step):
         qc, kc, vc = q[lo:lo + step], ks[lo:lo + step], v[lo:lo + step]
         s = torch.einsum("bqhd,bkhd->bhqk", qc.to(acc), kc.to(acc))
@@ -107,23 +147,81 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   torch.full_like(s, -math.inf)))
         denom = p.sum(dim=-1, keepdim=True)
         p = p / torch.where(denom == 0.0, torch.ones_like(denom), denom)
+        if return_lse:
+            s = torch.einsum("bqhd,bkhd->bhqk", qc.to(acc),
+                             k[lo:lo + step].to(acc)) * (1.0 / math.sqrt(d))
+            if mask is not None:
+                s = s.masked_fill(mask, -math.inf)
+            lses.append(torch.logsumexp(s, dim=-1))
+            del s
         o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).to(acc),
                          vc.to(acc))
         out.append(o.to(v.dtype))
-    return torch.cat(out, dim=0) if len(out) > 1 else out[0]
+    o = torch.cat(out, dim=0) if len(out) > 1 else out[0]
+    if return_lse:
+        return o, torch.cat(lses, dim=0) if len(lses) > 1 else lses[0]
+    return o
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              causal: bool = False):
+    """The backward of attention from the forward's output ``o`` and row
+    log-sum-exp ``lse`` ([B, H, Tq]): (dq, dk, dv) in q's, k's and v's
+    dtypes. The library's formula with K6's and K7's rounding steps: the
+    scores q.k in f32 scaled by 1/sqrt(D) in f32, P = exp(s - lse) (0 where
+    causal masking hides the key), dV = bf16(P)^T dO, dP = dO V^T,
+    dS = (dP - di) P / sqrt(D) with di = rowsum(O dO) in f32, dK =
+    bf16(dS)^T Q, dQ = bf16(dS) K, every sum f32 (f64 for f64 inputs); over
+    chunks of the batch as the forward."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    scale = 1.0 / math.sqrt(d)
+    mask = None
+    if causal:
+        mask = torch.ones(tq, tk, dtype=torch.bool, device=q.device).triu(1)
+    di = (o.to(acc) * do.to(acc)).sum(-1).transpose(1, 2)   # [B, H, Tq]
+    step = max(1, _PLAIN_CHUNK_ELEMENTS // max(1, h * tq * tk))
+    grads = []
+    for lo in range(0, b, step):
+        sl = slice(lo, lo + step)
+        qc, kc, vc, dc = (x[sl].to(acc) for x in (q, k, v, do))
+        s = torch.einsum("bqhd,bkhd->bhqk", qc, kc) * scale
+        p = torch.exp(s - lse[sl].to(acc)[..., None])
+        del s
+        if mask is not None:
+            p = p.masked_fill(mask, 0.0)
+        dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype).to(acc), dc)
+        dp = torch.einsum("bqhd,bkhd->bhqk", dc, vc)
+        ds = ((dp - di[sl].to(acc)[..., None]) * p * scale).to(q.dtype).to(acc)
+        del dp, p
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds, kc)
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds, qc)
+        grads.append((dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)))
+    if len(grads) == 1:
+        return grads[0]
+    return tuple(torch.cat(g, dim=0) for g in zip(*grads))
+
+
+def _layout_ok(x: torch.Tensor) -> bool:
+    """The kernels read a contiguous last dim and 16-byte aligned rows (K5's
+    TMA tensor maps take positive strides of 16 bytes)."""
+    return x.stride(3) == 1 and all(s % 8 == 0 and s > 0
+                                    for s in x.stride()[:3]) \
+        and x.data_ptr() % 16 == 0
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool) -> None:
-    for name, x in (("q", q), ("k", k), ("v", v)):
+                  causal: bool, *more: Tuple[str, torch.Tensor]) -> None:
+    for name, x in (("q", q), ("k", k), ("v", v)) + more:
         if x.dtype != torch.bfloat16 or x.dim() != 4:
             raise TypeError(f"{name} must be bf16 [B, T, H, D], got {x.dtype} "
                             f"{tuple(x.shape)}")
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        # the kernel's TMA tensor maps take positive strides of 16 bytes
-        if x.stride(3) != 1 or any(s % 8 or s <= 0 for s in x.stride()[:3]) \
-                or x.data_ptr() % 16:
+        if not _layout_ok(x):
             raise ValueError(f"{name} needs a contiguous last dim and 16-byte "
                              f"aligned rows, got strides {x.stride()}")
     b, tq, h, d = q.shape
@@ -147,8 +245,17 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _fn():
     fn = _kernels.lib("flash_attn").mmlspark_flash_attn_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_fn():
+    fn = _kernels.lib("flash_attn_bwd").mmlspark_flash_attn_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -162,22 +269,51 @@ def attention_cost(b: int, tq: int, tk: int, h: int, d: int,
     return flops, float(2 * b * h * d * (2 * tq + 2 * tk))
 
 
+def bwd_cost(b: int, tq: int, tk: int, h: int, d: int, causal: bool,
+             which: str) -> tuple:
+    """(flops, bytes) of K6 (``which="dkv"``: 8 * B * H * Tq * Tk * D flops
+    for its four products) or K7 (``"dq"``: 6 * ..., three), halved under
+    causal masking; bytes: q, k, v and dO (bf16), lse and di (f32) read
+    once, dK and dV or dQ (bf16) written once."""
+    n_prod = 4 if which == "dkv" else 3
+    flops = 2.0 * n_prod * b * h * tq * tk * d / (2 if causal else 1)
+    reads = 2 * b * h * d * (2 * tq + 2 * tk) + 8 * b * h * tq
+    writes = 2 * b * h * d * (2 * tk if which == "dkv" else tq)
+    return flops, float(reads + writes)
+
+
+def _requires_grad(*xs: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = False) -> torch.Tensor:
-    """Launch K5 on PyTorch's current stream; returns bf16 [B, Tq, H, D]."""
+                         causal: bool = False, lse: bool = False):
+    """Launch K5 on PyTorch's current stream; returns bf16 [B, Tq, H, D],
+    with ``lse`` also the rows' log-sum-exp, f32 [B, H, Tq]. Raises while
+    grad is enabled and an input requires grad: the output would carry no
+    gradient (``FlashAttention`` is the differentiable route)."""
+    if _requires_grad(q, k, v):
+        raise RuntimeError(
+            "flash_attention_cuda would detach q/k/v from autograd: use "
+            "FlashAttention.apply (or attention.dense_attention) while grad "
+            "is enabled")
     _check_inputs(q, k, v, causal)
     b, tq, h, d = q.shape
     o = torch.empty((b, tq, h, d), dtype=torch.bfloat16, device=q.device)
+    row_lse = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+               if lse else None)
     strides = (ctypes.c_int64 * 12)(*[s for x in (q, k, v, o)
                                       for s in x.stride()[:3]])
     code = _fn()(_kernels.ptr(q), _kernels.ptr(k), _kernels.ptr(v),
-                 _kernels.ptr(o), b, h, tq, k.shape[1], d, int(bool(causal)),
+                 _kernels.ptr(o),
+                 None if row_lse is None else _kernels.ptr(row_lse),
+                 b, h, tq, k.shape[1], d, int(bool(causal)),
                  ctypes.cast(strides, ctypes.c_void_p), 1.0 / math.sqrt(d),
                  _kernels.stream_ptr(q.device))
     graphs.note_launch(__name__, "launches")
     _kernels.check(code, "flash_attn kernel launch")
     _perf.note_kernel_cost(*attention_cost(b, tq, k.shape[1], h, d, causal))
-    return o
+    return (o, row_lse) if lse else o
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -189,3 +325,104 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
     raise ValueError(f"no flash attention for device {q.device}")
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor,
+                             causal: bool = False):
+    """Launch K6 (dK, dV) then K7 (dQ) on PyTorch's current stream; returns
+    bf16 (dq, dk, dv), contiguous [B, T, H, D]. ``di = rowsum(O dO)`` is a
+    torch reduction, as the library's ``jnp.sum``."""
+    _check_inputs(q, k, v, causal, ("o", o), ("do", do))
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if d not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"K6/K7 are built for head dims {BWD_HEAD_DIMS}, not {d} "
+            "(ROADMAP B5)")
+    if tuple(do.shape) != tuple(o.shape) or tuple(o.shape) != tuple(q.shape):
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, tq) \
+            or lse.device != q.device:
+        raise ValueError(f"lse must be f32 [B, H, Tq] = {(b, h, tq)} on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
+    for which in ("dkv", "dq"):
+        blocks = bwd_launch_grid(b, tq, tk, h, d, which)[2]
+        if blocks > MAX_GRID_BLOCKS:
+            raise ValueError(f"B={b}, T={max(tq, tk)}, H={h} needs {blocks} "
+                             f"CTAs, more than a grid takes")
+    lse = lse.contiguous()
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = torch.empty((b, tq, h, d), dtype=torch.bfloat16, device=q.device)
+    dk = torch.empty((b, tk, h, d), dtype=torch.bfloat16, device=q.device)
+    dv = torch.empty_like(dk)
+    for which in ("dkv", "dq"):
+        launch_bwd(which, q, k, v, do, lse, di, dq, dk, dv, causal)
+    return dq, dk, dv
+
+
+def launch_bwd(which: str, q, k, v, do, lse, di, dq, dk, dv,
+               causal: bool) -> None:
+    """One launch of K6 (``which="dkv"``, writes dk and dv) or K7
+    (``"dq"``, writes dq) on checked inputs (``flash_attention_bwd_cuda``
+    checks them and computes ``di``), counted and costed."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    strides = (ctypes.c_int64 * 21)(*[s for x in (q, k, v, do, dq, dk, dv)
+                                      for s in x.stride()[:3]])
+    code = _bwd_fn()(*[_kernels.ptr(x) for x in (q, k, v, do, lse, di, dq,
+                                                 dk, dv)],
+                     b, h, tq, tk, d, int(bool(causal)),
+                     ctypes.cast(strides, ctypes.c_void_p), 1.0 / math.sqrt(d),
+                     0 if which == "dkv" else 1, _kernels.stream_ptr(q.device))
+    counter = f"bwd_{which}_launches"
+    graphs.note_launch(__name__, counter)
+    _kernels.check(code, f"flash_attn_bwd kernel launch ({counter})")
+    _perf.note_kernel_cost(*bwd_cost(b, tq, tk, h, d, causal, which))
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False):
+    """(dq, dk, dv): K6 and K7 for CUDA tensors (there is no fallback), the
+    plain backward for CPU tensors."""
+    if q.device.type == "cuda":
+        if not _layout_ok(do):
+            do = do.contiguous()
+        return flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    raise ValueError(f"no flash attention backward for device {q.device}")
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable bf16 attention [B, T, H, D] through the kernels: the
+    forward is K5 with the rows' log-sum-exp, saving q, k, v, o and lse;
+    the backward is K6 then K7. On CPU tensors (tests only) the plain
+    forward and backward. ``FlashAttention.apply(q, k, v, causal)``. Once
+    differentiable, as the library's VJP ("Higher-order AD not
+    supported")."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=False):
+        if q.device.type == "cuda":
+            d = q.shape[-1]
+            if d not in BWD_HEAD_DIMS:
+                raise NotImplementedError(
+                    f"training through K5 at head dim {d}: K6/K7 are built "
+                    f"for {BWD_HEAD_DIMS} (ROADMAP B5)")
+            o, lse = flash_attention_cuda(q, k, v, causal, lse=True)
+        elif q.device.type == "cpu":
+            o, lse = flash_attention_plain(q, k, v, causal, return_lse=True)
+        else:
+            raise ValueError(f"no flash attention for device {q.device}")
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal)
+        return dq, dk, dv, None

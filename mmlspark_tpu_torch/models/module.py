@@ -21,9 +21,13 @@ pytree's key names, so ``FunctionModel.params`` and the reference's
     (a bf16 x bf16 product is exact in f32) summed in f32. A float32 product
     needs TF32 off, PyTorch's default.
 
-Not ported yet: the activation-sharding hooks (mesh only, ROADMAP A9), and
-``Conv2D``, ``BatchNorm``, ``MaxPool`` and ``GlobalAvgPool`` with the image
-half of ROADMAP A7.
+The container layers' forward takes ``stats_out``, the reference's side
+channel for BatchNorm's batch statistics in training (``training.py``); no
+ported layer fills it yet.
+
+Not ported yet: the activation-sharding hooks (``activation_sharding``
+raises; mesh only, ROADMAP A9), and ``Conv2D``, ``BatchNorm``, ``MaxPool``
+and ``GlobalAvgPool`` with the image half of ROADMAP A7.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ import contextvars
 import dataclasses
 import hashlib
 import math
-from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Set, Tuple)
 
 import torch
 from torch import nn
@@ -70,6 +75,15 @@ class matmul_precision:
     def __exit__(self, *exc):
         _MATMUL_DTYPE.reset(self._token)
         return False
+
+
+class activation_sharding:
+    """The reference's trace-time anchor of activations to a mesh sharding
+    (multi-device training): not ported, raises (ROADMAP A9)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "activation_sharding is mesh training: ROADMAP A9")
 
 
 def compute_dtype() -> torch.dtype:
@@ -132,11 +146,13 @@ class Sequential(Module):
         return shape
 
     def forward(self, x, taps: Optional[Set[str]] = None,
-                taps_out: Optional[Dict[str, Any]] = None, _prefix: str = ""):
+                taps_out: Optional[Dict[str, Any]] = None,
+                stats_out: Optional[Dict[str, Any]] = None, _prefix: str = ""):
         for lname, layer in self.layers:
             path = f"{_prefix}{lname}"
             if layer.is_container:
-                x = layer(x, taps=taps, taps_out=taps_out, _prefix=path + "/")
+                x = layer(x, taps=taps, taps_out=taps_out, stats_out=stats_out,
+                          _prefix=path + "/")
             else:
                 x = layer(x)
             if taps is not None and taps_out is not None and path in taps:
@@ -236,11 +252,14 @@ class Residual(Module):
         return out_shape
 
     def forward(self, x, taps: Optional[Set[str]] = None,
-                taps_out: Optional[Dict[str, Any]] = None, _prefix: str = ""):
-        y = self.body(x, taps=taps, taps_out=taps_out, _prefix=_prefix + "body/")
+                taps_out: Optional[Dict[str, Any]] = None,
+                stats_out: Optional[Dict[str, Any]] = None, _prefix: str = ""):
+        y = self.body(x, taps=taps, taps_out=taps_out, stats_out=stats_out,
+                      _prefix=_prefix + "body/")
         s = x
         if self.shortcut is not None:
             s = self.shortcut(x, taps=taps, taps_out=taps_out,
+                              stats_out=stats_out,
                               _prefix=_prefix + "shortcut/")
         out = y + s
         if self.activation == "relu":
@@ -260,6 +279,17 @@ class Residual(Module):
 # ---------------------------------------------------------------------------
 # FunctionModel: the SerializableFunction-equivalent handle
 # ---------------------------------------------------------------------------
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Nested dicts -> {"a.b.c": leaf} (``named_parameters``' keys)."""
+    out: Dict[str, Any] = {}
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            out.update(_flatten(value, f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = value
+    return out
 
 
 def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:

@@ -364,6 +364,151 @@ def test_flash_kernel_batch_past_grid_z_cap(cuda_device):
         _assert_k5_close(o[sl], p, q[sl], k[sl], v[sl], False)
 
 
+def _attention_vjp_f64(q, k, v, do, causal):
+    """Exact attention's (dq, dk, dv) in f64 from the same bf16 inputs."""
+    leaves = [x.double().requires_grad_(True) for x in (q, k, v)]
+    with torch.enable_grad():
+        _attention_f64(*leaves, causal).backward(do.double())
+    return [x.grad for x in leaves]
+
+
+def _assert_bwd_close(got, plain, q, k, v, do, causal):
+    """The bound chip_smoke.py holds K6/K7 to: per gradient, the max and
+    rms error against an exact f64 backward of the same inputs no more than
+    1.5x the plain backward's (``F64_RATIO_MAX``, as for K5)."""
+    exact = _attention_vjp_f64(q, k, v, do, causal)
+    for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+        assert g.dtype == torch.bfloat16 and g.shape == p.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        ge, pe = g.double() - e, p.double() - e
+        assert ge.abs().max() <= 1.5 * pe.abs().max(), name
+        assert ge.square().mean() <= 1.5 ** 2 * pe.square().mean(), name
+
+
+def _bwd_inputs(rng, b, tq, tk, h, d, device):
+    q, do = (_bf16(rng, (b, tq, h, d), device) for _ in range(2))
+    k, v = (_bf16(rng, (b, tk, h, d), device) for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,h,d,causal", [
+    (2, 256, 256, 4, 64, False), (2, 256, 256, 4, 64, True),
+    (1, 192, 320, 2, 64, False), (1, 512, 512, 2, 128, False),
+    (1, 512, 512, 2, 128, True), (1, 320, 128, 2, 128, False),
+    (1, 256, 256, 2, 256, False), (1, 256, 256, 2, 256, True),
+    (1, 128, 384, 1, 256, False)])
+def test_flash_bwd_kernels_match_plain(cuda_device, b, tq, tk, h, d, causal):
+    """K6 and K7 against the plain backward on K5's own output and lse,
+    and both against an exact f64 backward (``_assert_bwd_close``); two
+    calls give the same bits (no atomics)."""
+    rng = np.random.default_rng(21)
+    q, k, v, do = _bwd_inputs(rng, b, tq, tk, h, d, cuda_device)
+    o, lse = flash_kernel.flash_attention_cuda(q, k, v, causal, lse=True)
+    got = flash_kernel.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    again = flash_kernel.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    plain = flash_kernel.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    _assert_bwd_close(got, plain, q, k, v, do, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_kernels_read_strided_views(cuda_device, d):
+    """q, k, v and dO as views into packed tensors: K6 and K7 read them
+    through their strides."""
+    rng = np.random.default_rng(22)
+    qkv = _bf16(rng, (2, 256, 3, 2, d), cuda_device)
+    q, k, v = qkv.unbind(2)
+    do = _bf16(rng, (2, 256, 2, 2, d), cuda_device)[:, :, 1]
+    assert not q.is_contiguous() and not do.is_contiguous()
+    o, lse = flash_kernel.flash_attention_cuda(q, k, v, True, lse=True)
+    got = flash_kernel.flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+    plain = flash_kernel.flash_attention_bwd_plain(
+        *(x.contiguous() for x in (q, k, v, o)), lse, do.contiguous(), True)
+    torch.cuda.synchronize()
+    _assert_bwd_close(got, plain, q, k, v, do, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,h,d,causal", [
+    (2, 256, 256, 2, 64, True), (1, 192, 320, 2, 128, False),
+    (1, 256, 256, 1, 256, True), (1, 256, 256, 2, 384, False),
+    (1, 192, 192, 1, 512, True)])
+def test_k5_lse_matches_plain_and_leaves_the_output(cuda_device, b, tq, tk, h,
+                                                    d, causal):
+    """K5's row log-sum-exp against the plain version's (1e-4: both f32,
+    the kernel's exp2/log2 approximations and summation order), written
+    once per row at D = 384/512; with and without it the same output
+    bits."""
+    rng = np.random.default_rng(23)
+    q = _bf16(rng, (b, tq, h, d), cuda_device)
+    k, v = (_bf16(rng, (b, tk, h, d), cuda_device) for _ in range(2))
+    o, lse = flash_kernel.flash_attention_cuda(q, k, v, causal, lse=True)
+    o2 = flash_kernel.flash_attention_cuda(q, k, v, causal)
+    _, want = flash_kernel.flash_attention_plain(q, k, v, causal,
+                                                 return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2)
+    assert lse.shape == (b, h, tq) and lse.dtype == torch.float32
+    assert (lse - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_grad_through_dense_attention_runs_k6_k7(cuda_device, causal):
+    """Under autograd the gate sends the call through FlashAttention: q, k
+    and v get gradients (nothing is detached), K5, K6 and K7 launch once
+    each, and the gradients hold the f64 gate against the plain
+    backward."""
+    from mmlspark_tpu_torch.models import attention
+
+    rng = np.random.default_rng(24)
+    q, k, v, do = _bwd_inputs(rng, 2, 256, 256, 4, 64, cuda_device)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = (flash_kernel.launches, flash_kernel.bwd_dkv_launches,
+              flash_kernel.bwd_dq_launches)
+    o = attention.dense_attention(*leaves, causal=causal)
+    assert o.requires_grad
+    o.backward(do)
+    after = (flash_kernel.launches, flash_kernel.bwd_dkv_launches,
+             flash_kernel.bwd_dq_launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    got = [x.grad for x in leaves]
+    assert all(g is not None for g in got)
+    o2, lse = flash_kernel.flash_attention_cuda(q, k, v, causal, lse=True)
+    plain = flash_kernel.flash_attention_bwd_plain(q, k, v, o2, lse, do, causal)
+    torch.cuda.synchronize()
+    _assert_bwd_close(got, plain, q, k, v, do, causal)
+
+
+@pytest.mark.cuda
+def test_k5_refuses_inputs_that_require_grad(cuda_device):
+    """The repair: a bare K5 launch on inputs that require grad, with grad
+    enabled, raises instead of returning an output autograd cannot
+    differentiate; under no_grad it launches."""
+    rng = np.random.default_rng(25)
+    q, k, v = (_bf16(rng, (1, 128, 2, 64), cuda_device) for _ in range(3))
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="FlashAttention"):
+        flash_kernel.flash_attention_cuda(q, k, v)
+    with torch.no_grad():
+        o = flash_kernel.flash_attention_cuda(q, k, v)
+    assert not o.requires_grad
+
+
+@pytest.mark.cuda
+def test_flash_bwd_rejects_head_dims_it_is_not_built_for(cuda_device):
+    rng = np.random.default_rng(26)
+    q, k, v = (_bf16(rng, (1, 128, 1, 384), cuda_device).requires_grad_(True)
+               for _ in range(3))
+    from mmlspark_tpu_torch.models import attention
+
+    with pytest.raises(NotImplementedError, match="B5"):
+        attention.dense_attention(q, k, v)
+
+
 def _ring_run(device, depth, n_batches=6):
     """TransferRing over ``n_batches`` [64, 512] batches whose step is a
     matmul on the card and whose fetch casts on the readback stream; the

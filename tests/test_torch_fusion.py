@@ -43,8 +43,21 @@ numpy inputs made from a seed. Tolerances, and why:
     bitwise;
   - the port's fused DNNModel against its unfused one: bitwise (the same
     torch ops on batches of the same size).
+
+Training (``models.training``, ``models.checkpoint``) against the
+reference's ``make_train_step`` on the CPU, from the same params and
+momentum trace (``convert.load_jax_train_state``) and the same batches:
+grads and params after one step and after three, per leaf, relative to the
+leaf's max |value|: F32_TOL in f32 and DEEP_BF16_TOL in the bf16 default
+(the gradients cross the same bf16 roundings on both sides; sums in another
+order can flip one). The loss and accuracy helpers F32_TOL; ``_apply_bn_ema``
+and the optimizer's weight-decay mask equal; the train loop's resume,
+preemption and checkpoint round trip bit for bit (one process, the same
+torch ops). LSTM, BiLSTM and the tagger: f32 throughout on both sides
+(F32_TOL), the tagger's Dense head in bf16 by default (DEEP_BF16_TOL).
 """
 
+import contextlib
 import os
 
 import jax
@@ -65,6 +78,7 @@ from mmlspark_tpu.gbdt import stages as ref_stages
 from mmlspark_tpu.models import DNNModel as RefDNNModel
 from mmlspark_tpu.models import attention as ref_attention
 from mmlspark_tpu.models import module as ref_module
+from mmlspark_tpu.models import training as ref_training
 from mmlspark_tpu.parallel import batching as ref_batching
 from mmlspark_tpu.parallel.ingest import PreprocessSpec as RefPreprocessSpec
 from mmlspark_tpu_torch.core import faults, kernels
@@ -79,6 +93,10 @@ from mmlspark_tpu_torch.models import (DNNModel, Dense, Embed, FunctionModel,
                                        LayerNorm, MultiHeadAttention, attention,
                                        load_jax_params, matmul_precision,
                                        transformer_block, transformer_encoder)
+from mmlspark_tpu_torch.models import checkpoint as port_checkpoint
+from mmlspark_tpu_torch.models import module as port_module
+from mmlspark_tpu_torch.models import training
+from mmlspark_tpu_torch.models.convert import load_jax_train_state
 from mmlspark_tpu_torch.parallel import batching
 from mmlspark_tpu_torch.parallel.ingest import PreprocessSpec
 from mmlspark_tpu_torch.runtime import use_device
@@ -1020,10 +1038,17 @@ def test_dnn_model_unported_paths_raise():
         transformer_encoder(**ENC, ring_axis="seq", ring_axis_size=2)
     with pytest.raises(NotImplementedError, match="A9"):
         transformer_block(32, 2, moe_experts=4)
-    for make in (lambda: attention.LSTM(8), lambda: attention.BiLSTM(8),
-                 lambda: attention.bilstm_tagger(8, 10, 4, 4, 3)):
-        with pytest.raises(NotImplementedError, match="A7"):
-            make()
+    with pytest.raises(NotImplementedError, match="A9"):
+        port_module.activation_sharding(None)
+    opt = training.make_optimizer()
+    for call in (lambda: training.compile_train_step(port.module, opt,
+                                                     mesh=object()),
+                 lambda: training.init_train_state(port.module, (16,), opt,
+                                                   mesh=object()),
+                 lambda: training.param_sharding_rules(port.params, object()),
+                 lambda: training.batch_sharding(object())):
+        with pytest.raises(NotImplementedError, match="A9"):
+            call()
 
 
 def test_dnn_model_defaults_to_cuda():
@@ -1033,6 +1058,390 @@ def test_dnn_model_defaults_to_cuda():
     stage = DNNModel(inputCol="tokens", outputCol="o").set_model(port)
     with pytest.raises(RuntimeError, match="CUDA"):
         stage.transform(DataFrame.from_dict({"tokens": list(_tokens(2))}))
+
+
+# ---------------------------------------------------------------------------
+# training: step, optimizer, loop and checkpoints; the LSTM family
+# ---------------------------------------------------------------------------
+
+
+def _find_trace(opt_state):
+    import optax
+
+    if isinstance(opt_state, optax.TraceState):
+        return opt_state.trace
+    if isinstance(opt_state, tuple):
+        for sub in opt_state:
+            found = _find_trace(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def _with_trace(opt_state, trace):
+    import optax
+
+    if isinstance(opt_state, optax.TraceState):
+        return optax.TraceState(trace=trace)
+    if isinstance(opt_state, tuple):
+        subs = [_with_trace(sub, trace) for sub in opt_state]
+        return type(opt_state)(*subs) if hasattr(opt_state, "_fields") \
+            else tuple(subs)
+    return opt_state
+
+
+def _np_tree(tree):
+    return {k: _np_tree(v) if isinstance(v, dict) else np.asarray(v, np.float32)
+            for k, v in tree.items()}
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _assert_tree_close(got, want, tol, what):
+    want = dict(_leaves(want))
+    got = dict(_leaves(got))
+    assert set(got) == set(want), what
+    for name, w in want.items():
+        w = np.asarray(w, np.float64)
+        g = got[name].detach().double().numpy() if isinstance(got[name], torch.Tensor) \
+            else np.asarray(got[name], np.float64)
+        scale = max(np.abs(w).max(), 1e-30)
+        assert np.abs(g - w).max() <= tol * scale, (what, name,
+                                                     np.abs(g - w).max() / scale)
+
+
+TRAIN_OPT = dict(learning_rate=0.1, momentum=0.9, weight_decay=1e-3)
+
+
+def _train_batches(n, seed=5, rows=3):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        x = rng.integers(0, ENC["vocab_size"], (rows, ENC["seq_len"]))
+        y = rng.integers(0, ENC["num_classes"], (rows, ENC["seq_len"]))
+        mask = rng.random((rows, ENC["seq_len"])) < 0.8
+        out.append({"x": x, "y": y.astype(np.int32), "mask": mask})
+    return out
+
+
+def _train_pair():
+    """The reference encoder's params (LayerNorm and biases made
+    non-trivial), a non-zero momentum trace, the reference's optimizer
+    state holding it, and a port encoder and TrainState from both."""
+    ref = ref_attention.transformer_encoder(**ENC, seed=0)
+    params = _np_params(jax.tree.map(np.asarray, ref.params),
+                        np.random.default_rng(0))
+    rng = np.random.default_rng(1)
+    trace = jax.tree.map(
+        lambda a: (0.01 * rng.standard_normal(a.shape)).astype(np.float32), params)
+    opt = ref_training.make_optimizer(**TRAIN_OPT)
+    opt_state = _with_trace(opt.init(params), jax.tree.map(jnp.asarray, trace))
+    ref_state = ref_training.TrainState(jax.tree.map(jnp.asarray, params),
+                                        opt_state, np.int32(0))
+    port = transformer_encoder(**ENC, seed=1)
+    with use_device("cpu"):
+        state = load_jax_train_state(port, params, trace, 0)
+    return ref, ref_state, port, state
+
+
+@pytest.mark.parametrize("f32", [True, False])
+def test_train_step_matches_reference(f32):
+    """One step and three of the encoder from the same params, trace and
+    batches: the loss, the grads of the first step, and the params and
+    traces after each step, per leaf."""
+    ref, ref_state, port, state = _train_pair()
+    batches = _train_batches(3)
+    tol = F32_TOL if f32 else DEEP_BF16_TOL
+    ref_step = jax.jit(ref_training.make_train_step(
+        ref.module, ref_training.make_optimizer(**TRAIN_OPT)))
+    step = training.make_train_step(port.module,
+                                    training.make_optimizer(**TRAIN_OPT))
+
+    def ref_grads(st, batch):
+        def loss(p):
+            logits = ref.module.apply(p, jnp.asarray(batch["x"]), train=True)
+            return ref_training.cross_entropy_loss(
+                logits, jnp.asarray(batch["y"]), jnp.asarray(batch["mask"]))
+        return jax.grad(loss)(st.params)
+
+    ctx = ((lambda: ref_module.matmul_precision("float32")),
+           (lambda: matmul_precision("float32"))) if f32 else (
+        (lambda: contextlib.nullcontext()),) * 2
+    for i, batch in enumerate(batches):
+        with ctx[0]():
+            want_g = ref_grads(ref_state, batch) if i == 0 else None
+            ref_state, ref_m = ref_step(ref_state, batch)
+        with ctx[1]():
+            if i == 0:
+                _, _, got_g = training.loss_and_grads(port.module,
+                                                      state.params, batch)
+                _assert_tree_close(got_g, want_g, tol, "grads")
+            state, metrics = step(state, batch)
+        assert abs(float(metrics["loss"]) - float(ref_m["loss"])) <= \
+            tol * abs(float(ref_m["loss"]))
+        _assert_tree_close(state.params, ref_state.params, tol, f"params {i}")
+        _assert_tree_close(state.opt_state["trace"],
+                           _find_trace(ref_state.opt_state), tol, f"trace {i}")
+        assert state.step == int(ref_state.step) == i + 1
+
+
+def test_weight_decay_skips_1d_leaves_like_optax():
+    import optax
+
+    rng = np.random.default_rng(3)
+    params = {"fc": {"kernel": rng.standard_normal((4, 3)).astype(np.float32),
+                     "bias": rng.standard_normal(3).astype(np.float32)},
+              "ln": {"scale": rng.standard_normal(3).astype(np.float32)}}
+    grads = jax.tree.map(lambda a: (0.1 * rng.standard_normal(a.shape))
+                         .astype(np.float32), params)
+    assert training._decay_mask(params) == ref_training._decay_mask(params)
+    opt = ref_training.make_optimizer(learning_rate=0.5, momentum=0.9,
+                                      weight_decay=0.1)
+    st = opt.init(params)
+    want = params
+    for _ in range(2):
+        upd, st = opt.update(grads, st, want)
+        want = optax.apply_updates(want, upd)
+    port_opt = training.make_optimizer(learning_rate=0.5, momentum=0.9,
+                                       weight_decay=0.1)
+    tp = jax.tree.map(torch.from_numpy, params)
+    tg = jax.tree.map(torch.from_numpy, grads)
+    pst = port_opt.init(tp)
+    got = tp
+    for _ in range(2):
+        got, pst = port_opt.update(tg, pst, got)
+    _assert_tree_close(got, want, F32_TOL, "params")
+    # with zero grads only the 2-d leaf moves
+    zero = jax.tree.map(torch.zeros_like, tp)
+    moved, _ = port_opt.update(zero, port_opt.init(tp), tp)
+    assert not torch.equal(moved["fc"]["kernel"], tp["fc"]["kernel"])
+    assert torch.equal(moved["fc"]["bias"], tp["fc"]["bias"])
+    assert torch.equal(moved["ln"]["scale"], tp["ln"]["scale"])
+
+
+def test_apply_bn_ema_equals_reference():
+    rng = np.random.default_rng(4)
+
+    def tree():
+        r = np.random.default_rng(5)
+        return {"stem": {"bn": {"mean": r.standard_normal(4),
+                                "var": r.random(4), "scale": r.random(4)}},
+                "layer1": {"0": {"body": {"bn1": {"mean": r.standard_normal(3),
+                                                  "var": r.random(3)}}}}}
+
+    stats = {"stem/bn": (rng.standard_normal(4), rng.random(4)),
+             "layer1/0/body/bn1": (rng.standard_normal(3), rng.random(3))}
+    want = ref_training._apply_bn_ema(tree(), stats, 0.9)
+    got = training._apply_bn_ema(tree(), stats, 0.9)
+    for (n, g), (m, w) in zip(_leaves(got), _leaves(want)):
+        assert n == m
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("shape", [(6, 4), (3, 5, 4)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_loss_and_accuracy_equal_reference(shape, masked):
+    rng = np.random.default_rng(6)
+    logits = rng.standard_normal(shape).astype(np.float32)
+    labels = rng.integers(0, shape[-1], shape[:-1]).astype(np.int32)
+    mask = (rng.random(shape[:-1]) < 0.6) if masked else None
+    args = (jnp.asarray(logits), jnp.asarray(labels),
+            None if mask is None else jnp.asarray(mask))
+    targs = (torch.from_numpy(logits), torch.from_numpy(labels),
+             None if mask is None else torch.from_numpy(mask))
+    for ref_fn, fn in ((ref_training.cross_entropy_loss,
+                        training.cross_entropy_loss),
+                       (ref_training.accuracy, training.accuracy)):
+        np.testing.assert_allclose(float(fn(*targs)), float(ref_fn(*args)),
+                                   atol=F32_TOL, rtol=0)
+
+
+def _tiny_loop_setup():
+    """The reference's ``TestDNNTrainLoop`` setup, ported: Dense(2) on 4
+    features, SGD 0.1."""
+    module = port_module.Sequential([("fc", Dense(2))], name="tiny")
+    opt = training.make_optimizer(learning_rate=0.1)
+    with use_device("cpu"):
+        state = training.init_train_state(module, (4,), opt, seed=0)
+    return state, training.compile_train_step(module, opt)
+
+
+def _loop_batches(n, seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        x = rng.normal(size=(8, 4)).astype(np.float32)
+        out.append({"x": x, "y": (x[:, 0] > 0).astype(np.int32)})
+    return out
+
+
+def test_train_loop_preemption_checkpoints_and_resumes(tmp_path):
+    state, step = _tiny_loop_setup()
+    ckpt = str(tmp_path / "dnn_ckpt")
+    guard = training.PreemptionGuard()
+
+    def preempting(batches):
+        for i, b in enumerate(batches):
+            if i == 4:
+                guard.request()
+            yield b
+
+    res = training.run_train_loop(state, step, preempting(_loop_batches(10)),
+                                  checkpoint_path=ckpt, every_k=100, guard=guard)
+    assert res.preempted and res.steps_run == 4 and os.path.exists(ckpt)
+    state2, step2 = _tiny_loop_setup()
+    res2 = training.run_train_loop(state2, step2, _loop_batches(10),
+                                   checkpoint_path=ckpt, guard=None)
+    assert not res2.preempted and res2.steps_run == 6
+    assert res2.state.step == 10
+    full = training.run_train_loop(*_tiny_loop_setup(), _loop_batches(10))
+    for (n, a), (_, b) in zip(_leaves(res2.state.params),
+                              _leaves(full.state.params)):
+        assert torch.equal(a, b), n
+
+
+def test_train_loop_resume_matches_uninterrupted(tmp_path):
+    batches = _loop_batches(8)
+    full = training.run_train_loop(*_tiny_loop_setup(), batches)
+    assert full.steps_run == 8 and set(full.last_metrics) == {"loss", "accuracy"}
+    ckpt = str(tmp_path / "halfway")
+    half = training.run_train_loop(*_tiny_loop_setup(), batches[:4],
+                                   checkpoint_path=ckpt, every_k=4)
+    assert half.steps_run == 4
+    res = training.run_train_loop(*_tiny_loop_setup(), batches,
+                                  checkpoint_path=ckpt, every_k=100)
+    assert res.steps_run == 4
+    for tree in ("params", "opt_state"):
+        for (n, a), (_, b) in zip(_leaves(getattr(res.state, tree)),
+                                  _leaves(getattr(full.state, tree))):
+            assert torch.equal(a, b), (tree, n)
+
+
+def test_train_loop_step_injection_point_fires():
+    state, step = _tiny_loop_setup()
+    with faults.FaultInjector(seed=0).plan(faults.TRAIN_STEP, at=(3,)) as inj:
+        with pytest.raises(faults.InjectedFault):
+            training.run_train_loop(state, step, _loop_batches(5))
+        assert len(inj.fired(faults.TRAIN_STEP)) == 1
+
+
+def test_preemption_guard_signal_handler_roundtrip():
+    import signal as S
+    import time
+
+    prev = S.getsignal(S.SIGUSR1)
+    guard = training.PreemptionGuard(signals=(S.SIGUSR1,))
+    with guard:
+        os.kill(os.getpid(), S.SIGUSR1)
+        deadline = time.time() + 2
+        while not guard.requested() and time.time() < deadline:
+            time.sleep(0.01)
+        assert guard.requested()
+    assert S.getsignal(S.SIGUSR1) == prev
+
+
+def test_checkpoint_round_trip(tmp_path):
+    _, _, port, state = _train_pair()
+    step = training.make_train_step(port.module, training.make_optimizer(
+        **TRAIN_OPT))
+    state, _ = step(state, _train_batches(1)[0])
+    path = str(tmp_path / "state.pt")
+    port_checkpoint.save_train_state(state, path)
+    for like in (None, state):
+        back = port_checkpoint.load_train_state(path, like=like)
+        assert back.step == state.step == 1
+        for tree in ("params", "opt_state"):
+            for (n, a), (_, b) in zip(_leaves(getattr(back, tree)),
+                                      _leaves(getattr(state, tree))):
+                assert torch.equal(a, b) and a.device == b.device, (tree, n)
+    (tmp_path / "bad.pt").write_bytes(b"not a checkpoint")
+    with pytest.raises(Exception):
+        port_checkpoint.load_train_state(str(tmp_path / "bad.pt"))
+    small = transformer_encoder(**dict(ENC, dim=16), seed=0)
+    with use_device("cpu"):
+        other = training.init_train_state(small.module, (ENC["seq_len"],),
+                                          training.make_optimizer())
+    with pytest.raises(ValueError, match="shape"):
+        port_checkpoint.load_train_state(path, like=other)
+
+
+def _lstm_pair(ref_mod, port_mod, in_shape):
+    params, _ = ref_mod.init(jax.random.key(0), in_shape)
+    params = _np_params(jax.tree.map(np.asarray, params), np.random.default_rng(7))
+    port_mod.init(torch.Generator().manual_seed(0), in_shape)
+    load_jax_params(FunctionModel(port_mod, in_shape), params)
+    return params
+
+
+@pytest.mark.parametrize("make", ["lstm", "lstm_reverse", "bilstm"])
+def test_lstm_family_matches_reference(make):
+    ref_mod, port_mod = {
+        "lstm": (ref_attention.LSTM(6), attention.LSTM(6)),
+        "lstm_reverse": (ref_attention.LSTM(6, reverse=True),
+                         attention.LSTM(6, reverse=True)),
+        "bilstm": (ref_attention.BiLSTM(6), attention.BiLSTM(6))}[make]
+    params = _lstm_pair(ref_mod, port_mod, (7, 5))
+    x = _x((3, 7, 5))
+    ref = np.asarray(ref_mod.apply(params, jnp.asarray(x)))
+    with torch.inference_mode():
+        got = port_mod(torch.from_numpy(x)).numpy()
+    assert got.shape == ref.shape == (3, 7, 12 if make == "bilstm" else 6)
+    np.testing.assert_allclose(got, ref, atol=F32_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("f32", [True, False])
+def test_bilstm_tagger_matches_reference(f32):
+    ref = ref_attention.bilstm_tagger(10, 20, 8, 6, 3, seed=0)
+    port = attention.bilstm_tagger(10, 20, 8, 6, 3, seed=1)
+    assert port.module.layer_paths() == ref.module.layer_paths()
+    assert port.layer_names == ref.layer_names
+    params = _np_params(jax.tree.map(np.asarray, ref.params),
+                        np.random.default_rng(8))
+    load_jax_params(port, params)
+    ref = type(ref)(ref.module, jax.tree.map(jnp.asarray, params),
+                    ref.input_shape, ref.layer_names, ref.name)
+    ids = np.random.default_rng(9).integers(0, 20, (4, 10))
+    taps = ["bilstm", None]
+    if f32:
+        with ref_module.matmul_precision("float32"):
+            want = ref.apply_taps(jnp.asarray(ids), taps)
+        with matmul_precision("float32"):
+            got = port.apply_taps(torch.from_numpy(ids), taps)
+    else:
+        want = ref.apply_taps(jnp.asarray(ids), taps)
+        got = port.apply_taps(torch.from_numpy(ids), taps)
+    for t in taps:
+        np.testing.assert_allclose(got[t].numpy(), np.asarray(want[t]),
+                                   atol=F32_TOL if f32 or t else DEEP_BF16_TOL,
+                                   rtol=0, err_msg=str(t))
+
+
+def test_bilstm_tagger_learns_the_per_token_rule():
+    """The reference's ``TestSequenceTraining`` rule (tag = token >= 10)
+    trained through the port's loop, without a mesh."""
+    module = port_module.Sequential([
+        ("embed", Embed(20, 8)), ("bilstm", attention.BiLSTM(8)),
+        ("tags", Dense(2))], name="tagger")
+    opt = training.make_optimizer(learning_rate=0.2, momentum=0.9)
+    with use_device("cpu"):
+        state = training.init_train_state(module, (10,), opt)
+    step = training.compile_train_step(module, opt)
+    rng = np.random.default_rng(0)
+    first = last = None
+    for _ in range(60):
+        toks = rng.integers(0, 20, size=(16, 10))
+        state, metrics = step(state, {"x": toks,
+                                      "y": (toks >= 10).astype(np.int32)})
+        last = {k: float(v) for k, v in metrics.items()}
+        first = first or dict(last)
+    assert last["loss"] < first["loss"] * 0.2, (first, last)
+    assert last["accuracy"] > 0.95, last
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,8 @@ def test_clean_import_pulls_in_no_jax_and_no_reference():
                 "mmlspark_tpu_torch.models.flash_kernel",
                 "mmlspark_tpu_torch.models.dnn_model",
                 "mmlspark_tpu_torch.models.convert",
+                "mmlspark_tpu_torch.models.training",
+                "mmlspark_tpu_torch.models.checkpoint",
                 "mmlspark_tpu_torch.serving.server",
                 "mmlspark_tpu_torch.serving.executor",
                 "mmlspark_tpu_torch.serving.routing",
@@ -104,7 +106,9 @@ def test_threefry_draws_in_a_process_without_jax():
 
 
 @pytest.mark.parametrize("module", ["mmlspark_tpu_torch.core.fusion",
-                                    "mmlspark_tpu_torch.models"])
+                                    "mmlspark_tpu_torch.models",
+                                    "mmlspark_tpu_torch.models.training",
+                                    "mmlspark_tpu_torch.models.checkpoint"])
 def test_fused_pipeline_import_pulls_in_no_jax_and_no_reference(module):
     probe = (f"import json, sys; import {module}; "
              "print(json.dumps(sorted(k for k in sys.modules if k in "
@@ -209,7 +213,8 @@ def test_tuning_and_mega_dispatch_pull_in_no_jax_and_no_reference():
 
 
 _IMPORT_RE = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|mmlspark_tpu)(?:[.\s]|$)", re.M)
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|optax|orbax|mmlspark_tpu)(?:[.\s]|$)",
+    re.M)
 
 
 def test_source_has_no_jax_or_reference_import():
@@ -221,6 +226,7 @@ def test_source_has_no_jax_or_reference_import():
     assert (PKG / "csrc" / "sparse_hist.cu").exists()
     assert (PKG / "csrc" / "csr_gather.cu").exists()
     assert (PKG / "csrc" / "flash_attn.cu").exists()
+    assert (PKG / "csrc" / "flash_attn_bwd.cu").exists()
     assert (PKG / "native_src" / "mmlspark_native.cpp").exists()
 
 

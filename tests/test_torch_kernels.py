@@ -30,7 +30,17 @@ Tolerances, and why:
   - K5's tiled arithmetic, emulated in f32 key tile by key tile (test code
     only): the chip's gates on the kernel, <= 4 bf16 ulps of sum_j p_j |v_j|
     from the plain version per element and <= 1.5x the plain version's max
-    and rms error against f64, at each key-tile width the kernel uses.
+    and rms error against f64, at each key-tile width the kernel uses;
+  - the backward (K6/K7's plain version and ``FlashAttention`` on CPU
+    tensors) against the library's own backward kernels in interpret mode,
+    on the same bf16 inputs and output gradient: each of dq, dk, dv within
+    2% of the library's max magnitude of it (both round P and dS to bf16
+    and the result once; they differ in where those roundings land), and
+    its max error against an f64 backward of the same inputs at most 1.5x
+    the library's plus 1e-3 of the f64 gradient's magnitude;
+  - the plain forward's row log-sum-exp against the library's residuals
+    ``m + log(l)``: 1e-5 (both take f32 scores scaled in f32; they differ
+    in summation order).
 """
 
 import math
@@ -41,7 +51,9 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
-from jax.experimental.pallas.ops.tpu.flash_attention import flash_attention
+from jax.experimental.pallas.ops.tpu.flash_attention import (BlockSizes,
+                                                             _flash_attention,
+                                                             flash_attention)
 
 from mmlspark_tpu.gbdt import histogram as ref_hist
 from mmlspark_tpu.gbdt import pallas_hist, pallas_select
@@ -543,3 +555,176 @@ def test_gate_routes_through_k5_with_no_fallback(monkeypatch):
     monkeypatch.setattr(flash_kernel, "flash_attention", broken)
     with use_device("cpu"), pytest.raises(RuntimeError, match="flash_attn"):
         stage.transform(df)
+
+
+# ---------------------------------------------------------------------------
+# K6/K7: the backward
+# ---------------------------------------------------------------------------
+
+BWD_LIB_TOL = 0.02       # of the library's max magnitude, per gradient
+BWD_F64_RATIO = 1.5      # max error against f64, over the library's
+BWD_F64_SLACK = 1e-3     # ... plus this much of the f64 gradient's magnitude
+LSE_TOL = 1e-5
+
+
+def _pallas_vjp(q, k, v, do, causal):
+    """The library's flash-attention backward (its K6 and K7 Pallas
+    kernels) in TPU interpret mode: (dq, dk, dv) as f32 [B, T, H, D]."""
+    tr = [jnp.asarray(a).astype(jnp.bfloat16).transpose(0, 2, 1, 3)
+          for a in (q, k, v, do)]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda a, b, c: flash_attention(
+            a, b, c, causal=causal, sm_scale=scale), *tr[:3])
+        grads = vjp(tr[3])
+    return [np.asarray(g.transpose(0, 2, 1, 3).astype(jnp.float32))
+            for g in grads]
+
+
+def _f64_vjp(q, k, v, do, causal):
+    """Exact attention's (dq, dk, dv) in f64 from the same inputs."""
+    q64, k64, v64 = (torch.from_numpy(np.asarray(a, np.float64))
+                     .requires_grad_(True) for a in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q64, k64) / math.sqrt(q.shape[-1])
+    if causal:
+        t = q.shape[1]
+        s = s.masked_fill(torch.ones(t, t, dtype=torch.bool).triu(1), -math.inf)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v64)
+    o.backward(torch.from_numpy(np.asarray(do, np.float64)))
+    return [x.grad.numpy() for x in (q64, k64, v64)]
+
+
+BWD_SHAPES = [((2, 256, 4, 64), False), ((2, 256, 4, 64), True),
+              ((1, 1024, 2, 64), False), ((1, 1024, 2, 64), True),
+              ((1, 256, 1, 128), False), ((1, 256, 1, 128), True)]
+
+
+@pytest.mark.parametrize("shape,causal", BWD_SHAPES)
+def test_plain_backward_matches_pallas_backward_kernels(shape, causal):
+    q, k, v = _qkv(shape, seed=11)
+    do = np.random.default_rng(12).standard_normal(shape).astype(np.float32)
+    lib = _pallas_vjp(q, k, v, do, causal)
+    exact = _f64_vjp(*(_bf16_np(a) for a in (q, k, v, do)), causal)
+    qt, kt, vt, dot = (t.requires_grad_(True) if i < 3 else t
+                       for i, t in enumerate(_port((q, k, v, do))))
+    o = flash_kernel.FlashAttention.apply(qt, kt, vt, causal)
+    o.backward(dot)
+    got = [x.grad for x in (qt, kt, vt)]
+    # the Function's CPU route is the plain pair, bit for bit
+    po, lse = flash_kernel.flash_attention_plain(*_port((q, k, v)), causal,
+                                                 return_lse=True)
+    assert torch.equal(o.detach(), po)
+    plain = flash_kernel.flash_attention_bwd_plain(*_port((q, k, v)), po, lse,
+                                                   dot, causal)
+    for name, g, p, ref, ex in zip(("dq", "dk", "dv"), got, plain, lib, exact):
+        assert g.dtype == torch.bfloat16 and tuple(g.shape) == shape, name
+        assert torch.equal(g, p), name
+        g = g.float().numpy()
+        mag = np.abs(ref).max()
+        assert np.abs(g - ref).max() <= BWD_LIB_TOL * mag, name
+        lib_err = np.abs(ref - ex).max()
+        assert np.abs(g - ex).max() <= (BWD_F64_RATIO * lib_err
+                                        + BWD_F64_SLACK * np.abs(ex).max()), name
+
+
+@pytest.mark.parametrize("shape,causal", [((2, 256, 4, 64), False),
+                                          ((1, 256, 2, 64), True),
+                                          ((1, 256, 1, 128), False),
+                                          ((1, 256, 1, 128), True)])
+def test_plain_lse_matches_library_residuals(shape, causal):
+    q, k, v = _qkv(shape, seed=13)
+    tr = [jnp.asarray(a).astype(jnp.bfloat16).transpose(0, 2, 1, 3)
+          for a in (q, k, v)]
+    b, t, h, d = shape
+    with pltpu.force_tpu_interpret_mode():
+        _, l, m = _flash_attention(*tr, None, None, True, causal,
+                                   1.0 / math.sqrt(d),
+                                   BlockSizes.get_default(b, h, t, t, d), False)
+    want = np.asarray(m) + np.log(np.asarray(l))      # [B, H, T]
+    _, lse = flash_kernel.flash_attention_plain(*_port((q, k, v)), causal,
+                                                return_lse=True)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (b, h, t)
+    assert np.abs(lse.numpy() - want).max() <= LSE_TOL
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d", [(1, 64, 64, 1, 64),
+                                         (3, 2048, 2048, 8, 64),
+                                         (2, 192, 320, 3, 128),
+                                         (2, 640, 128, 2, 256),
+                                         (65_537, 128, 128, 1, 64)])
+@pytest.mark.parametrize("which", ["dkv", "dq"])
+def test_bwd_grid_decode_covers_every_block(b, tq, tk, h, d, which):
+    """K6's and K7's 1-D grids: every (batch, head x column split, 64-row
+    tile) once, tiles fastest, past grid.z's cap; K6 tiles the keys, K7
+    the queries; two column halves at D = 256."""
+    tiles, hc, total = flash_kernel.bwd_launch_grid(b, tq, tk, h, d, which)
+    assert tiles * flash_kernel.TILE == (tk if which == "dkv" else tq)
+    assert hc == h * (2 if d == 256 else 1)
+    assert total == tiles * hc * b <= flash_kernel.MAX_GRID_BLOCKS
+    block = np.arange(total, dtype=np.int64)
+    bi, hy, m = flash_kernel.grid_decode(block, tiles, hc)
+    assert bi.min() == 0 and bi.max() == b - 1
+    np.testing.assert_array_equal((bi * hc + hy) * tiles + m, block)
+
+
+def test_bwd_cost_counts_the_products():
+    f_dkv, b_dkv = flash_kernel.bwd_cost(2, 256, 128, 4, 64, False, "dkv")
+    f_dq, b_dq = flash_kernel.bwd_cost(2, 256, 128, 4, 64, False, "dq")
+    assert f_dkv == 8 * 2 * 4 * 256 * 128 * 64
+    assert f_dq == 6 * 2 * 4 * 256 * 128 * 64
+    assert flash_kernel.bwd_cost(2, 256, 256, 4, 64, True, "dq")[0] == \
+        flash_kernel.bwd_cost(2, 256, 256, 4, 64, False, "dq")[0] / 2
+    reads = 2 * 2 * 4 * 64 * (2 * 256 + 2 * 128) + 8 * 2 * 4 * 256
+    assert b_dkv == reads + 2 * 2 * 4 * 64 * 2 * 128
+    assert b_dq == reads + 2 * 2 * 4 * 64 * 256
+
+
+def test_k5_refuses_to_detach_a_graph():
+    """While grad is enabled and an input requires grad, only
+    ``FlashAttention`` may launch K5: a bare ``flash_attention_cuda`` call
+    raises before it builds or launches anything."""
+    q, k, v = _port(_qkv((1, 128, 2, 64), seed=0))
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="FlashAttention"):
+        flash_kernel.flash_attention_cuda(q, k, v)
+    assert flash_kernel._requires_grad(q, k, v)
+    with torch.no_grad():       # serving: the guard stays out of the way
+        assert not flash_kernel._requires_grad(q, k, v)
+    with torch.inference_mode():
+        assert not flash_kernel._requires_grad(q, k, v)
+
+
+def test_gate_sends_grad_through_flash_attention(monkeypatch):
+    """With the gate forced on for CPU tensors: under autograd
+    ``dense_attention`` goes through ``FlashAttention`` (its CPU route, the
+    plain pair), under no_grad through the K5 wrapper alone; the gradients
+    are the plain forward's autograd gradients within bf16 rounding."""
+    monkeypatch.setattr(attention, "_kernel_device", lambda q: True)
+    calls = []
+    real_apply = flash_kernel.FlashAttention.apply
+
+    def counting(*a):
+        calls.append("function")
+        return real_apply(*a)
+
+    def k5(q, k, v, causal=False):
+        calls.append("k5")
+        return flash_kernel.flash_attention_plain(q, k, v, causal)
+
+    monkeypatch.setattr(flash_kernel.FlashAttention, "apply", counting)
+    monkeypatch.setattr(flash_kernel, "flash_attention", k5)
+    q, k, v = _port(_qkv((2, 128, 2, 64), seed=1))
+    do = _port([np.random.default_rng(2).standard_normal(
+        (2, 128, 2, 64)).astype(np.float32)])[0]
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    dense_attention(*leaves, causal=True).backward(do)
+    ref = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    flash_kernel.flash_attention_plain(*ref, causal=True).backward(do)
+    assert calls == ["function"]
+    for got, want in zip(leaves, ref):
+        assert got.grad is not None
+        g, w = got.grad.float(), want.grad.float()
+        assert (g - w).abs().max() <= BWD_LIB_TOL * w.abs().max()
+    with torch.no_grad():
+        dense_attention(*leaves, causal=True)
+    assert calls == ["function", "k5"]
