@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -98,6 +99,39 @@ def build_all(names: Optional[List[str]] = None) -> float:
         for n, out in todo:
             _libs[n] = ctypes.CDLL(str(out))
     return time.perf_counter() - t0
+
+
+def ptxas_summary(log: str) -> List[dict]:
+    """Per kernel instantiation in an ``nvcc -Xptxas -v`` log: its mangled
+    name, registers a thread, spill stores and loads (bytes) and static
+    shared memory, and ptxas's warnings and performance notes about it
+    (such as a ``wgmma`` pipeline it had to serialise, C7510-C7520)."""
+    out: Dict[str, dict] = {}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = out.setdefault(m.group(1), {"function": m.group(1),
+                                                  "warnings": []})
+            continue
+        if "arning" in line or re.search(r"\(C75\d\d\)", line):
+            m = re.search(r"function '([^']+)'", line)
+            name = m.group(1) if m else (current or {}).get("function")
+            entry = out.setdefault(name, {"function": name, "warnings": []})
+            entry["warnings"].append(line.strip())
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            current["spill_stores"] = int(m.group(1))
+            current["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers(?:, (\d+) bytes smem)?", line)
+        if m:
+            current["registers"] = int(m.group(1))
+            current["smem"] = int(m.group(2) or 0)
+    return list(out.values())
 
 
 def lib(name: str) -> ctypes.CDLL:

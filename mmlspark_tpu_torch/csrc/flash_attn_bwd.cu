@@ -29,475 +29,784 @@
 // per (b, h) (S^T, P^T dO, dP^T, dS^T Q), K7 three (S, dP, dS K), halved
 // under causal masking, against 2 bytes per element of q, k, v, dO and the
 // outputs: at T = 2048, D = 64 that is ~1,300-1,800 flops per byte, above
-// the card's ~295 (989 TFLOP/s bf16 / 3.35 TB/s).
+// the card's ~295 (989 TFLOP/s bf16 / 3.35 TB/s). Beside the products each
+// score takes an exponential and a few f32 operations, which at D = 64 take
+// about as long as the products: they have to run under them.
 //
-// Design (a first kernel that is right: mma.sync, not yet wgmma/TMA):
-//   - K6: one CTA of 4 warps per (b, h x column split, 64-key tile); warp w
-//     owns keys 16w..16w+15 of the tile and keeps their dK and dV rows in
-//     registers. The CTA loads its K and V tiles once, then walks the query
-//     tiles (kNQ rows: 64 at D = 64, 32 above; under causal masking only
-//     the tiles at or below the diagonal), double-buffered with cp.async:
-//     Q, dO, lse and di of the next tile load while this one computes;
-//   - K7: one CTA of 4 warps per (b, h x column split, 64-query tile); warp
-//     w owns query rows 16w..16w+15 and their dQ row in registers, loads
-//     Q and dO once and walks the key tiles (K and V double-buffered;
-//     causal: only tiles at or below the diagonal, the longest rows first);
-//   - every product is mma.sync.m16n8k16 (bf16 in, f32 accumulate) with
-//     operands from shared memory by ldmatrix (.trans where the tile is
-//     [k][n]); tiles are stored with 16-byte chunks XOR-swizzled by row so
-//     that ldmatrix reads no bank twice. The f32 S^T (K6) and dS (K7)
-//     accumulators become the A operands of the next product in registers
-//     (the accumulator layout of m16n8 is the A fragment layout of m16k16);
-//   - at D = 256 a CTA computes half the output columns (kDV = 128): the
-//     f32 accumulators of all 256 columns of dK and dV would take 256
-//     registers a thread. The two CTAs of a tile each recompute P and dP
-//     and accumulate their half of dK, dV (or dQ);
-//   - 1-D grid over (batch, head x column split, tile), tiles fastest, as
-//     K5's: past grid.z's 65,535 cap on B x H (flash_kernel.bwd_launch_grid
-//     and grid_decode mirror it).
+// Design (K5's, csrc/flash_attn.cu, with its helpers from csrc/tma.cuh):
+//   - a producer warpgroup, of which one thread issues every load, and two
+//     consumer warpgroups of 64 rows each; setmaxnreg moves registers from
+//     the producer (24 a thread) to the consumers (240);
+//   - the tiles arrive by TMA (cp.async.bulk.tensor.4d through CUtensorMaps
+//     over the strided [B, T, H, D] views, 64-column boxes, 128-byte
+//     swizzled) into shared memory; the rows that stream go through a ring
+//     of kStages stages, each with a full mbarrier (TMA completes it) and a
+//     free one (each consumer warp arrives once its last product that reads
+//     the stage has been waited on);
+//   - every product is wgmma.mma_async (csrc/wgmma.cuh): the products whose
+//     operands both lie in shared memory read them K-major (wgmma_ss); the
+//     f32 accumulator of P or dS, rounded to bf16 in registers, is the A
+//     operand of the next product (wgmma_rs), whose B operand is read
+//     N-major ("transposed") from the same swizzled tile that an ss product
+//     read K-major, as K5 reads V;
+//   - within a warpgroup, tile i's first products are issued together with
+//     tile i-1's register-A products, so tile i's exponentials run while
+//     those are in flight; the two warpgroups take turns to issue (K5's
+//     named-barrier turns), so one's exponentials also run under the
+//     other's products;
+//   - K6 (dK, dV): one CTA per (b, h, key tile). It loads its K and V once
+//     and streams Q, dO and the tile's lse and di rows (the last two by a
+//     bulk copy) through the ring, kBq queries a stage (64; 32 at D = 128,
+//     for registers). At D = 64 and 128 a warpgroup owns 64 keys (128 a
+//     CTA) and runs all four products per query tile: S^T = K Q^T and
+//     dP^T = V dO^T (ss, N = kBq), then dV += P^T dO and dK += dS^T Q (rs,
+//     N = D). At D = 256, dK and dV of 64
+//     keys would take 256 registers a thread, so the two warpgroups share
+//     one 64-key tile and split the work instead of the columns: warpgroup
+//     0 computes S^T, P and dV, warpgroup 1 dP^T, dS and dK; P (f32) passes
+//     from 0 to 1 through 16 KB of shared memory under two named barriers.
+//     Every product is computed once: nothing is recomputed;
+//   - K7 (dQ): one CTA per (b, h, 128-query tile), K5's skeleton with lse
+//     known (no online softmax). It loads its Q and dO once and streams K
+//     and V tiles of kBn keys (128 at D = 64, 64 at 128, 32 at 256, as many
+//     as shared memory holds beside Q and dO): S = Q K^T and dP = dO V^T
+//     (ss, N = kBn), then dQ += dS K (rs, N = D, K read N-major). No column
+//     split: dQ of all 256 columns is 128 registers a thread;
+//   - ragged lengths: TMA zero-fills rows past T; keys past Tk get P = 0,
+//     and K7's rows past Tq read lse = di = 0, so their zero rows give
+//     P = 1 and dS = 0. Every product over such rows adds exactly 0, and
+//     nothing reads lse or di past Tq;
+//   - causal masking: tiles wholly above the diagonal are neither loaded
+//     (K6's first query tile is its first key's, K7's last key tile its last
+//     query's) nor computed (K7's warpgroup of the earlier queries waits
+//     for and releases the tiles past its diagonal); the tiles that cross
+//     it are masked element by element; the CTAs with the most tiles start
+//     first (K6's low key tiles, K7's high query tiles);
+//   - the outputs are rounded to bf16 and staged in shared memory that only
+//     the warpgroup itself reads (its K or V rows), in the TMA box layout,
+//     then stored by TMA, which drops rows past T;
+//   - a 1-D grid over (batch, head, tile), tiles fastest: past grid.z's
+//     65,535 cap on B x H (flash_kernel.bwd_launch_grid and grid_decode
+//     mirror it, and flash_kernel.bwd_smem_bytes each kernel's shared
+//     memory).
 // No atomics: dQ has its own kernel (as in the library) instead of being
 // added up across key tiles, so every output element has one writer and two
 // calls give the same bits.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+#include "wgmma.cuh"
+
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kSmemMax = 232448;  // a block's shared memory on the H100
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+// named barriers: 1, 2 the turns; 3, 4 K6's P hand-over at D = 256;
+// 8 + w warpgroup w's output staging
+constexpr int kBarPFull = 3;
+constexpr int kBarPFree = 4;
 
-struct Strides {  // in elements
-  int64_t b, t, h;
+// K6: dK and dV of kBk keys per CTA, query tiles of kBq rows
+template <int D>
+struct DkvCfg {
+  static constexpr bool kSplit = D == 256;  // the warpgroups split the work
+  static constexpr int kBk = kSplit ? 64 : 128;
+  // 32 queries a tile at D = 128: with 64, dK and dV (128 registers a
+  // thread), S^T, dP^T and their bf16 copies outgrow 240 registers, and
+  // ptxas serialises the wgmma pipeline
+  static constexpr int kBq = D == 128 ? 32 : 64;
+  static constexpr int kChunks = D / 64;          // 64-column TMA boxes
+  static constexpr int kThreads = 384;            // 2 consumers + producer
+  static constexpr int kKVBytes = kBk * D * 2;    // the CTA's K (or V)
+  static constexpr int kTileBytes = kBq * D * 2;  // one Q (or dO) tile
+  static constexpr int kPBytes = kSplit ? 64 * kBq * 4 : 0;
+  static constexpr int kRowBytes = 2 * kBq * 4;   // a tile's lse and di
+  static constexpr int kStageBytes = 2 * kTileBytes + kRowBytes;
+  // as many stages as fit (at most 3), with 1 KB of alignment slack and
+  // room for the barriers
+  static constexpr int kFit =
+      (kSmemMax - 1024 - 256 - 2 * kKVBytes - kPBytes) / kStageBytes;
+  static constexpr int kStages = kFit < 3 ? kFit : 3;
+  static constexpr int kSmem =
+      2 * kKVBytes + kPBytes + kStages * kStageBytes + 1024;
+  static_assert(kStages >= 2, "a Q/dO ring needs two stages");
 };
 
-struct BwdArgs {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* dout;
-  const float* lse;  // [B, H, Tq]
-  const float* di;   // [B, H, Tq]
-  __nv_bfloat16* dq;
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
-  Strides sq, sk, sv, sdo, sdq, sdk, sdv;
-  int heads, tq, tk;
-  float scale, scale_log2;
+// K7: dQ of kBm queries per CTA, key tiles of kBn rows
+template <int D>
+struct DqCfg {
+  static constexpr int kBm = 128;
+  static constexpr int kBn = D == 64 ? 128 : D == 128 ? 64 : 32;
+  static constexpr int kChunks = D / 64;
+  static constexpr int kThreads = 384;
+  static constexpr int kQBytes = 64 * D * 2;   // one warpgroup's Q (or dO)
+  static constexpr int kKBytes = kBn * D * 2;  // one K (or V) tile
+  static constexpr int kFit =
+      (kSmemMax - 1024 - 256 - 4 * kQBytes) / (2 * kKBytes);
+  static constexpr int kStages = kFit < 3 ? kFit : 3;
+  static constexpr int kSmem = 4 * kQBytes + kStages * 2 * kKBytes + 1024;
+  static_assert(kStages >= 2, "a K/V ring needs two stages");
 };
 
-template <int D>
-struct BwdCfg {
-  static constexpr int kDV = D <= 128 ? D : 128;  // output columns per CTA
-  static constexpr int kSplit = D / kDV;
-  static constexpr int kNQ = D == 64 ? 64 : 32;   // K6's query tile
-  static constexpr int kRow = D * 2;              // bytes of a tile row
-  static constexpr int kTile64 = 64 * kRow;
-  static constexpr int kTileNQ = kNQ * kRow;
-  // K6: K, V, then two stages of (Q, dO, lse, di)
-  static constexpr int kStageDkv = 2 * kTileNQ + 2 * kNQ * 4;
-  static constexpr int kSmemDkv = 2 * kTile64 + 2 * kStageDkv;
-  // K7: Q, dO, then two stages of (K, V)
-  static constexpr int kSmemDq = 2 * kTile64 + 2 * 2 * kTile64;
-  static_assert(kSmemDq <= 232448 && kSmemDkv <= 232448, "shared memory");
-};
-
-// ---------------------------------------------------------------- PTX helpers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 f32
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two f32 -> one bf16x2 register, ``lo`` in the low half
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ------------------------------------------------------------ tiles and MMAs
-
-// shared-memory address of row r, column c (a multiple of 8) of a tile of D
-// bf16 columns: 16-byte chunk c/8 of the row stored at chunk (c/8) ^ (r % 8)
-template <int D>
-__device__ __forceinline__ uint32_t tile_addr(uint32_t base, int r, int c) {
-  return base + r * (D * 2) + ((((c >> 3) ^ (r & 7))) << 4);
-}
-
-// ``rows`` rows of D bf16 from ``src`` (rows ``stride`` elements apart, each
-// 16-byte aligned) into a swizzled tile, 16 bytes a cp.async
-template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* src,
-                                          int64_t stride, int rows, int tid) {
-  constexpr int kChunks = D / 8;
-  for (int i = tid; i < rows * kChunks; i += 128) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    cp_async16(dst + r * (D * 2) + ((c ^ (r & 7)) << 4),
-               src + r * stride + c * 8);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void load_f32(uint32_t dst, const float* src,
-                                         int tid) {
-  for (int i = tid; i < N / 4; i += 128) cp_async16(dst + 16 * i, src + 4 * i);
-}
-
-// acc[16 x N] += A[m0 : m0 + 16, :] B[0 : N, :]^T over the D columns of two
-// swizzled tiles (A rows and B rows both K-major)
-template <int N, int D>
-__device__ __forceinline__ void gemm_abt(float (&acc)[N / 8][4], uint32_t sa,
-                                         int m0, uint32_t sb, int lane) {
+// d (+)= A B^T over D = 64 * kChunks: A a warpgroup's 64 rows
+// ([chunk][64][64] boxes), B kN rows ([chunk][kN][64]), both K-major
+template <int kN, int kChunks>
+__device__ __forceinline__ void ss_kmajor(float (&d)[kN / 2],
+                                          const uint8_t* sa,
+                                          const uint8_t* sb) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, tile_addr<D>(sa, m0 + (lane & 15), 16 * kk + 8 * (lane >> 4)));
+  for (int c = 0; c < kChunks; ++c) {
 #pragma unroll
-    for (int n = 0; n < N / 16; ++n) {
-      uint32_t b[4];
-      ldsm_x4(b, tile_addr<D>(sb, 16 * n + (lane & 7) + 8 * (lane >> 4),
-                              16 * kk + 8 * ((lane >> 3) & 1)));
-      mma16816(acc[2 * n], a, b[0], b[1]);
-      mma16816(acc[2 * n + 1], a, b[2], b[3]);
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss<kN>(d, desc_sw128(sa + c * 8192 + kk * 32, 16, 1024),
+                   desc_sw128(sb + c * kN * 128 + kk * 32, 16, 1024),
+                   (c | kk) != 0);
     }
   }
 }
 
-// acc[16 x N] += A[16 x K] B[0 : K, c0 : c0 + N]: A as bf16 register
-// fragments, B rows 0..K-1 of a swizzled tile of D columns ([k][n])
-template <int N, int K, int D>
-__device__ __forceinline__ void gemm_rb(float (&acc)[N / 8][4],
-                                        const uint32_t (&a)[K / 16][4],
-                                        uint32_t sb, int c0, int lane) {
+// d += A B: A 64 x kK in registers (bf16 fragments), B kK rows x DV
+// columns ([DV/64][kK][64] boxes) read N-major
+template <int DV, int kK>
+__device__ __forceinline__ void rs_nmajor(float (&d)[DV / 2],
+                                          const uint32_t (&a)[kK / 16][4],
+                                          const uint8_t* sb) {
 #pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-#pragma unroll
-    for (int n = 0; n < N / 16; ++n) {
-      uint32_t b[4];
-      ldsm_x4_t(b, tile_addr<D>(sb, 16 * kk + (lane & 15),
-                                c0 + 16 * n + 8 * (lane >> 4)));
-      mma16816(acc[2 * n], a[kk], b[0], b[1]);
-      mma16816(acc[2 * n + 1], a[kk], b[2], b[3]);
-    }
-  }
-}
-
-// an f32 16 x N accumulator rounded to bf16 A fragments of K = N
-template <int N>
-__device__ __forceinline__ void to_a_frags(const float (&acc)[N / 8][4],
-                                           uint32_t (&a)[N / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    a[kk][0] = pack_f32(acc[2 * kk][0], acc[2 * kk][1]);
-    a[kk][1] = pack_f32(acc[2 * kk][2], acc[2 * kk][3]);
-    a[kk][2] = pack_f32(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
-    a[kk][3] = pack_f32(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
+  for (int kk = 0; kk < kK / 16; ++kk) {
+    // 16 rows = two 8-row atoms; the DV columns are DV/64 boxes kK*128 apart
+    wgmma_rs<DV>(d, a[kk], desc_sw128(sb + kk * 2048, kK * 128, 1024), 1);
   }
 }
 
 template <int N>
-__device__ __forceinline__ void zero(float (&acc)[N][4]) {
+__device__ __forceinline__ void zero(float (&r)[N]) {
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-  }
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
 }
 
-// a warp's 16 x N accumulator, rounded to bf16, into rows r0 and r0 + 8 of
-// ``out`` (rows ``stride`` elements apart), columns c0 + 8j + 2(lane % 4)
-template <int N>
-__device__ __forceinline__ void store_rows(const float (&acc)[N / 8][4],
-                                           __nv_bfloat16* out, int64_t stride,
-                                           int r0, int c0, int lane) {
+// a warpgroup's 64 x DV accumulator rounded to bf16 into [DV/64][64][64]
+// boxes in the TMA layout (row rr of a box at rr * 128 bytes, 16-byte unit
+// u at (u ^ rr % 8) * 16)
+template <int DV>
+__device__ __forceinline__ void stage_rows(const float (&o)[DV / 2],
+                                           uint8_t* dst, int warp, int lane) {
 #pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
+  for (int i = 0; i < DV / 8; ++i) {
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      __nv_bfloat16* dst =
-          out + (int64_t)(r0 + 8 * hf) * stride + c0 + 8 * j + 2 * (lane & 3);
-      *reinterpret_cast<uint32_t*>(dst) =
-          pack_f32(acc[j][2 * hf], acc[j][2 * hf + 1]);
+      const int rr = 16 * warp + lane / 4 + 8 * hf;
+      *reinterpret_cast<uint32_t*>(dst + (i / 8) * 8192 + rr * 128 +
+                                   (((i % 8) ^ (rr % 8)) * 16) +
+                                   (lane & 3) * 4) =
+          pack_f32(o[4 * i + 2 * hf], o[4 * i + 2 * hf + 1]);
     }
   }
 }
 
-__device__ __forceinline__ const __nv_bfloat16* at(const __nv_bfloat16* p,
-                                                   const Strides& s, int b,
-                                                   int t, int h) {
-  return p + b * s.b + (int64_t)t * s.t + h * s.h;
+// make a warpgroup's staged rows visible to TMA and wait for all of its
+// threads (its first thread then stores them)
+__device__ __forceinline__ void staged(int wg) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync %0, 128;" ::"r"(8 + wg) : "memory");
 }
 
-// blockIdx.x -> (batch, head, first output column, tile), tiles fastest
-template <int D>
-__device__ __forceinline__ void decode(int tiles, int heads, int& b, int& h,
-                                       int& col0, int& tile) {
-  using C = BwdCfg<D>;
-  const unsigned hc = (unsigned)heads * C::kSplit;
-  tile = (int)(blockIdx.x % (unsigned)tiles);
-  const int hs = (int)((blockIdx.x / (unsigned)tiles) % hc);
-  b = (int)(blockIdx.x / ((unsigned)tiles * hc));
-  h = hs / C::kSplit;
-  col0 = (hs % C::kSplit) * C::kDV;
+template <int kChunks>
+__device__ __forceinline__ void store_tile(const CUtensorMap* map,
+                                           const uint8_t* src, int row, int h,
+                                           int b) {
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    tma_store(map, src + c * 8192, c * 64, row, h, b);
+  }
+}
+
+__device__ __forceinline__ void store_done() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
 }
 
 // ------------------------------------------------------------------ K6: dK dV
 
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(128) flash_bwd_dkv(const BwdArgs a) {
-  using C = BwdCfg<D>;
-  constexpr int kNQ = C::kNQ;
-  constexpr int kDV = C::kDV;
-  extern __shared__ __align__(128) uint8_t smem[];
-  const uint32_t s_k = smem_u32(smem);
-  const uint32_t s_v = s_k + C::kTile64;
-  const uint32_t s_stage = s_v + C::kTile64;
-  const int tid = threadIdx.x;
+// what a consumer warpgroup of K6 works on
+struct DkvCtx {
+  uint8_t* sk;         // the CTA's K: [kBk/64][chunk][64][64]
+  uint8_t* sv;         // and V
+  const uint8_t* sq;   // Q stages: [stage][chunk][kBq][64]
+  const uint8_t* sdo;  // dO stages
+  float* sp;           // P^T hand-over (D = 256): [kBq / 2][128 threads]
+  const float* srows;  // [stage][lse kBq, di kBq]
+  uint64_t* bar_kv;
+  uint64_t* bar_full;  // [stage]
+  uint64_t* bar_free;  // [stage]
+  const CUtensorMap* tm_dk;
+  const CUtensorMap* tm_dv;
+  int k0, q_first, n_tiles, tk, h, b;
+  float scale, scale_log2;
+};
+
+// what a warpgroup computes: everything for its own 64 keys (D <= 128), or,
+// over the CTA's 64 keys, S^T, P and dV (kDvOnly) or dP^T, dS and dK
+// (kDkOnly)
+enum Role { kBoth, kDvOnly, kDkOnly };
+
+template <int D, bool kCausal, int kRole>
+__device__ __forceinline__ void dkv_consumer(const DkvCtx& x, int wg,
+                                             int tid) {
+  using C = DkvCfg<D>;
+  constexpr int kS = C::kStages;
+  constexpr int kBq = C::kBq;
+  constexpr int kCh = C::kChunks;
+  constexpr bool kP = kRole != kDkOnly;   // S^T, P, dV += P^T dO
+  constexpr bool kDS = kRole != kDvOnly;  // dP^T, dS, dK += dS^T Q
   const int warp = tid / 32;
   const int lane = tid % 32;
+  const int key_first = x.k0 + (kRole == kBoth ? 64 * wg : 0);
+  uint8_t* ska = x.sk + (kRole == kBoth ? wg * kCh * 8192 : 0);
+  uint8_t* sva = x.sv + (kRole == kBoth ? wg * kCh * 8192 : 0);
 
-  int b, h, col0, kt;
-  decode<D>(a.tk / 64, a.heads, b, h, col0, kt);
-  const int k0 = 64 * kt;
-  const int n_q = a.tq / kNQ;
-  // causal: the query tiles whose last row sees the tile's first key
-  const int qi0 = kCausal ? k0 / kNQ : 0;
-  const int64_t row_bh = ((int64_t)b * a.heads + h) * a.tq;
-
-  load_tile<D>(s_k, at(a.k, a.sk, b, k0, h), a.sk.t, 64, tid);
-  load_tile<D>(s_v, at(a.v, a.sv, b, k0, h), a.sv.t, 64, tid);
-  auto load_stage = [&](int qi, int st) {
-    const uint32_t base = s_stage + st * C::kStageDkv;
-    const int qs = qi * kNQ;
-    load_tile<D>(base, at(a.q, a.sq, b, qs, h), a.sq.t, kNQ, tid);
-    load_tile<D>(base + C::kTileNQ, at(a.dout, a.sdo, b, qs, h), a.sdo.t, kNQ,
-                 tid);
-    load_f32<kNQ>(base + 2 * C::kTileNQ, a.lse + row_bh + qs, tid);
-    load_f32<kNQ>(base + 2 * C::kTileNQ + 4 * kNQ, a.di + row_bh + qs, tid);
-  };
-  load_stage(qi0, 0);
-  cp_async_commit();
-
-  float dk[kDV / 8][4];
-  float dv[kDV / 8][4];
-  zero(dk);
+  float dv[kP ? D / 2 : 1];
+  float dk[kDS ? D / 2 : 1];
+  float s[kP ? kBq / 2 : 1];
+  float dp[kDS ? kBq / 2 : 1];
+  uint32_t pf[kP ? kBq / 16 : 1][4];
+  uint32_t df[kDS ? kBq / 16 : 1][4];
   zero(dv);
-  const int key_lo = k0 + 16 * warp + lane / 4;  // this thread's keys: +0, +8
+  zero(dk);
+  zero(s);
+  zero(dp);
 
-  for (int qi = qi0; qi < n_q; ++qi) {
-    const int st = (qi - qi0) & 1;
-    if (qi + 1 < n_q) {
-      load_stage(qi + 1, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  // this tile's first products (operands in shared memory), and the
+  // previous tile's register-A products
+  auto issue_ss = [&](int st) {
+    wgmma_fence();
+    if constexpr (kP) ss_kmajor<kBq, kCh>(s, ska, x.sq + st * C::kTileBytes);
+    if constexpr (kDS) {
+      ss_kmajor<kBq, kCh>(dp, sva, x.sdo + st * C::kTileBytes);
     }
-    __syncthreads();
-    const uint32_t s_q = s_stage + st * C::kStageDkv;
-    const uint32_t s_do = s_q + C::kTileNQ;
-    const float* lse = reinterpret_cast<const float*>(
-        smem + (s_q - s_k) + 2 * C::kTileNQ);
-    const float* di = lse + kNQ;
-    const int qs = qi * kNQ;
-    const bool masked = kCausal && qs < k0 + 63;
-
-    // P^T = exp(s K Q^T - lse): rows are keys, columns queries
-    float p[kNQ / 8][4];
-    zero(p);
-    gemm_abt<kNQ, D>(p, s_k, 16 * warp, s_q, lane);
+    wgmma_commit();
+  };
+  auto issue_rs = [&](int st) {
+    wgmma_fence();
+    if constexpr (kP) rs_nmajor<D, kBq>(dv, pf, x.sdo + st * C::kTileBytes);
+    if constexpr (kDS) rs_nmajor<D, kBq>(dk, df, x.sq + st * C::kTileBytes);
+    wgmma_commit();
+  };
+  // P^T and dS^T of tile i from the landed S^T and dP^T: rows are keys,
+  // columns queries (element idx of this thread: key key0 + 8 *
+  // ((idx >> 1) & 1), query qs + col(idx))
+  auto elementwise = [&](int i, int st) {
+    const int qs = x.q_first + i * kBq;
+    const float* lse = x.srows + st * 2 * kBq;
+    const float* di = lse + kBq;
+    if constexpr (kP) {
+      const int key0 = key_first + 16 * warp + lane / 4;  // +0, +8
+      const bool need_mask =
+          (kCausal && qs < key_first + 63) || key_first + 64 > x.tk;
 #pragma unroll
-    for (int j = 0; j < kNQ / 8; ++j) {
+      for (int idx = 0; idx < kBq / 2; ++idx) {
+        const int col = 8 * (idx >> 2) + 2 * (lane & 3) + (idx & 1);
+        float p = ex2(fmaf(s[idx], x.scale_log2, -lse[col] * kLog2e));
+        if (need_mask) {
+          const int key = key0 + 8 * ((idx >> 1) & 1);
+          if ((kCausal && key > qs + col) || key >= x.tk) p = 0.f;
+        }
+        s[idx] = p;
+      }
+      if constexpr (kRole == kDvOnly) {
+        if (i > 0) named_sync(kBarPFree);  // warpgroup 1 has read P_{i-1}
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qc = 8 * j + 2 * (lane & 3) + (i & 1);
-        float e = ex2(fmaf(p[j][i], a.scale_log2, -lse[qc] * kLog2e));
-        if (masked && key_lo + 8 * (i >> 1) > qs + qc) e = 0.f;
-        p[j][i] = e;
+        for (int idx = 0; idx < kBq / 2; ++idx) x.sp[idx * 128 + tid] = s[idx];
+        named_arrive(kBarPFull);
       }
     }
-    uint32_t frag[kNQ / 16][4];
-    to_a_frags<kNQ>(p, frag);
-    gemm_rb<kDV, kNQ, D>(dv, frag, s_do, col0, lane);  // dV += P^T dO
-
-    // dP^T = V dO^T; dS^T = s P^T o (dP^T - di)
-    float dp[kNQ / 8][4];
-    zero(dp);
-    gemm_abt<kNQ, D>(dp, s_v, 16 * warp, s_do, lane);
+    if constexpr (kDS) {
+      if constexpr (kRole == kDkOnly) named_sync(kBarPFull);
 #pragma unroll
-    for (int j = 0; j < kNQ / 8; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qc = 8 * j + 2 * (lane & 3) + (i & 1);
-        dp[j][i] = (dp[j][i] - di[qc]) * p[j][i] * a.scale;
+      for (int idx = 0; idx < kBq / 2; ++idx) {
+        const int col = 8 * (idx >> 2) + 2 * (lane & 3) + (idx & 1);
+        float p;
+        if constexpr (kRole == kBoth) {
+          p = s[idx];
+        } else {
+          p = x.sp[idx * 128 + tid];
+        }
+        dp[idx] = (dp[idx] - di[col]) * p * x.scale;
+      }
+      if constexpr (kRole == kDkOnly) {
+        if (i + 1 < x.n_tiles) named_arrive(kBarPFree);
       }
     }
-    to_a_frags<kNQ>(dp, frag);
-    gemm_rb<kDV, kNQ, D>(dk, frag, s_q, col0, lane);  // dK += dS^T Q
-    __syncthreads();  // this stage is the next prefetch's target
+  };
+  auto fence_first = [&]() {
+    if constexpr (kP) fence_regs(s);
+    if constexpr (kDS) fence_regs(dp);
+  };
+  auto fence_second = [&]() {
+    if constexpr (kP) {
+      fence_regs(dv);
+      fence_regs(pf);
+    }
+    if constexpr (kDS) {
+      fence_regs(dk);
+      fence_regs(df);
+    }
+  };
+  auto pack = [&]() {
+    if constexpr (kP) pack_p<kBq>(s, pf);
+    if constexpr (kDS) pack_p<kBq>(dp, df);
+  };
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&x.bar_free[st]);
+  };
+
+  if (wg == 1) turn_pass<2>(wg);  // warpgroup 0 goes first
+  mbar_wait(x.bar_kv, 0);
+  mbar_wait(&x.bar_full[0], 0);
+  turn_wait(wg);
+  issue_ss(0);
+  turn_pass<2>(wg);
+  wgmma_wait<0>();
+  fence_first();
+  elementwise(0, 0);
+  pack();
+  for (int i = 1; i < x.n_tiles; ++i) {
+    const int st = i % kS;
+    const int pst = (i - 1) % kS;
+    mbar_wait(&x.bar_full[st], (i / kS) & 1);
+    turn_wait(wg);
+    issue_ss(st);
+    issue_rs(pst);
+    turn_pass<2>(wg);
+    wgmma_wait<1>();  // this tile's S^T/dP^T have landed
+    fence_first();
+    elementwise(i, st);
+    wgmma_wait<0>();  // the previous tile's register-A products are done
+    fence_second();
+    release(pst);
+    pack();
   }
+  {
+    const int st = (x.n_tiles - 1) % kS;
+    turn_wait(wg);
+    issue_rs(st);
+    turn_pass<2>(wg);
+    wgmma_wait<0>();
+    fence_second();
+    release(st);
+  }
+  if (wg == 0) turn_wait(wg);  // the last warpgroup's last pass
 
-  const int r0 = 16 * warp + lane / 4;
-  store_rows<kDV>(dk, const_cast<__nv_bfloat16*>(at(a.dk, a.sdk, b, k0, h)),
-                  a.sdk.t, r0, col0, lane);
-  store_rows<kDV>(dv, const_cast<__nv_bfloat16*>(at(a.dv, a.sdv, b, k0, h)),
-                  a.sdv.t, r0, col0, lane);
+  // stage into shared memory only this warpgroup reads (its own K/V rows;
+  // at D = 256 warpgroup 0 alone reads K and warpgroup 1 alone V) and store
+  if constexpr (kRole == kBoth) {
+    stage_rows<D>(dk, ska, warp, lane);
+    stage_rows<D>(dv, sva, warp, lane);
+  } else if constexpr (kRole == kDvOnly) {
+    stage_rows<D>(dv, ska, warp, lane);
+  } else {
+    stage_rows<D>(dk, sva, warp, lane);
+  }
+  staged(wg);
+  if (tid == 0) {
+    if constexpr (kRole == kBoth) {
+      store_tile<kCh>(x.tm_dk, ska, key_first, x.h, x.b);
+      store_tile<kCh>(x.tm_dv, sva, key_first, x.h, x.b);
+    } else if constexpr (kRole == kDvOnly) {
+      store_tile<kCh>(x.tm_dv, ska, key_first, x.h, x.b);
+    } else {
+      store_tile<kCh>(x.tm_dk, sva, key_first, x.h, x.b);
+    }
+    store_done();
+  }
+}
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(DkvCfg<D>::kThreads, 1)
+    flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const __grid_constant__ CUtensorMap tm_dk,
+                       const __grid_constant__ CUtensorMap tm_dv,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ di, int tq, int tk, int heads,
+                       float scale, float scale_log2) {
+  using C = DkvCfg<D>;
+  constexpr int kS = C::kStages;
+  constexpr int kCh = C::kChunks;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_kv;
+  __shared__ __align__(8) uint64_t bar_full[kS];
+  __shared__ __align__(8) uint64_t bar_free[kS];
+  // 128-byte swizzled tiles need 1024-byte alignment
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  DkvCtx x;
+  x.sk = base;
+  x.sv = x.sk + C::kKVBytes;
+  uint8_t* sq = x.sv + C::kKVBytes;
+  uint8_t* sdo = sq + kS * C::kTileBytes;
+  x.sq = sq;
+  x.sdo = sdo;
+  x.sp = reinterpret_cast<float*>(sdo + kS * C::kTileBytes);
+  float* srows = reinterpret_cast<float*>(sdo + kS * C::kTileBytes + C::kPBytes);
+  x.srows = srows;
+  x.bar_kv = &bar_kv;
+  x.bar_full = bar_full;
+  x.bar_free = bar_free;
+  x.tm_dk = &tm_dk;
+  x.tm_dv = &tm_dv;
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  // blockIdx.x -> (batch, head, key tile), key tiles fastest; under causal
+  // masking the low key tiles see the most query tiles and start first
+  const int k_tiles = ceil_div(tk, C::kBk);
+  const int kt = (int)(blockIdx.x % (unsigned)k_tiles);
+  x.h = (int)((blockIdx.x / (unsigned)k_tiles) % (unsigned)heads);
+  x.b = (int)(blockIdx.x / ((unsigned)k_tiles * (unsigned)heads));
+  x.k0 = kt * C::kBk;
+  // causal: the query tiles whose last row sees the tile's first key
+  const int qi0 = kCausal ? x.k0 / C::kBq : 0;
+  x.q_first = qi0 * C::kBq;
+  x.n_tiles = tq / C::kBq - qi0;
+  x.tk = tk;
+  x.scale = scale;
+  x.scale_log2 = scale_log2;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_kv, 1);
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&bar_full[s], 1);
+      mbar_init(&bar_free[s], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0) {
+      const int64_t row_bh = ((int64_t)x.b * heads + x.h) * tq;
+      mbar_expect_tx(&bar_kv, 2 * C::kKVBytes);
+      for (int r = 0; r < C::kBk / 64; ++r) {
+        for (int c = 0; c < kCh; ++c) {
+          const int off = (r * kCh + c) * 8192;
+          tma_load(x.sk + off, &tm_k, &bar_kv, c * 64, x.k0 + 64 * r, x.h, x.b);
+          tma_load(x.sv + off, &tm_v, &bar_kv, c * 64, x.k0 + 64 * r, x.h, x.b);
+        }
+      }
+      for (int i = 0; i < x.n_tiles; ++i) {
+        const int st = i % kS;
+        const int qs = x.q_first + i * C::kBq;
+        mbar_wait(&bar_free[st], ((i / kS) & 1) ^ 1);
+        mbar_expect_tx(&bar_full[st], C::kStageBytes);
+        for (int c = 0; c < kCh; ++c) {
+          const int off = st * C::kTileBytes + c * C::kBq * 128;
+          tma_load(sq + off, &tm_q, &bar_full[st], c * 64, qs, x.h, x.b);
+          tma_load(sdo + off, &tm_do, &bar_full[st], c * 64, qs, x.h, x.b);
+        }
+        float* rows = srows + st * 2 * C::kBq;
+        bulk_load(rows, lse + row_bh + qs, C::kBq * 4, &bar_full[st]);
+        bulk_load(rows + C::kBq, di + row_bh + qs, C::kBq * 4, &bar_full[st]);
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    if constexpr (C::kSplit) {
+      if (wg == 0) {
+        dkv_consumer<D, kCausal, kDvOnly>(x, wg, tid);
+      } else {
+        dkv_consumer<D, kCausal, kDkOnly>(x, wg, tid);
+      }
+    } else {
+      dkv_consumer<D, kCausal, kBoth>(x, wg, tid);
+    }
+  }
 }
 
 // --------------------------------------------------------------------- K7: dQ
 
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(128) flash_bwd_dq(const BwdArgs a) {
-  using C = BwdCfg<D>;
-  constexpr int kDV = C::kDV;
-  extern __shared__ __align__(128) uint8_t smem[];
-  const uint32_t s_q = smem_u32(smem);
-  const uint32_t s_do = s_q + C::kTile64;
-  const uint32_t s_stage = s_do + C::kTile64;  // [stage][K, V]
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+__global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
+    flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_dq,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ di, int tq, int tk, int heads,
+                      float scale, float scale_log2) {
+  using C = DqCfg<D>;
+  constexpr int kS = C::kStages;
+  constexpr int kBn = C::kBn;
+  constexpr int kCh = C::kChunks;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q;
+  __shared__ __align__(8) uint64_t bar_full[kS];
+  __shared__ __align__(8) uint64_t bar_free[kS];
+  uint8_t* sq = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sdo = sq + 2 * C::kQBytes;         // [warpgroup][chunk][64][64]
+  uint8_t* sk = sdo + 2 * C::kQBytes;         // [stage][chunk][kBn][64]
+  uint8_t* sv = sk + kS * C::kKBytes;
 
-  int b, h, col0, raw;
-  const int m_tiles = a.tq / 64;
-  decode<D>(m_tiles, a.heads, b, h, col0, raw);
-  const int mt = kCausal ? m_tiles - 1 - raw : raw;  // causal: longest first
-  const int q0 = 64 * mt;
-  const int n_k = kCausal ? mt + 1 : a.tk / 64;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  // blockIdx.x -> (batch, head, query tile), query tiles fastest; under
+  // causal masking the high query tiles see the most keys and start first
+  const int m_tiles = ceil_div(tq, C::kBm);
+  const int raw = (int)(blockIdx.x % (unsigned)m_tiles);
+  const int h = (int)((blockIdx.x / (unsigned)m_tiles) % (unsigned)heads);
+  const int b = (int)(blockIdx.x / ((unsigned)m_tiles * (unsigned)heads));
+  const int mt = kCausal ? m_tiles - 1 - raw : raw;
+  const int q0 = mt * C::kBm;
+  const int n_tiles = kCausal ? min(ceil_div(tk, kBn), ceil_div(q0 + C::kBm, kBn))
+                              : ceil_div(tk, kBn);
 
-  load_tile<D>(s_q, at(a.q, a.sq, b, q0, h), a.sq.t, 64, tid);
-  load_tile<D>(s_do, at(a.dout, a.sdo, b, q0, h), a.sdo.t, 64, tid);
-  auto load_stage = [&](int j, int st) {
-    const uint32_t base = s_stage + st * 2 * C::kTile64;
-    load_tile<D>(base, at(a.k, a.sk, b, 64 * j, h), a.sk.t, 64, tid);
-    load_tile<D>(base + C::kTile64, at(a.v, a.sv, b, 64 * j, h), a.sv.t, 64,
-                 tid);
-  };
-  load_stage(0, 0);
-  cp_async_commit();
-
-  const int row_lo = q0 + 16 * warp + lane / 4;  // this thread's rows: +0, +8
-  const int64_t row_bh = ((int64_t)b * a.heads + h) * a.tq;
-  const float lse2[2] = {a.lse[row_bh + row_lo] * kLog2e,
-                         a.lse[row_bh + row_lo + 8] * kLog2e};
-  const float di[2] = {a.di[row_bh + row_lo], a.di[row_bh + row_lo + 8]};
-
-  float dq[kDV / 8][4];
-  zero(dq);
-  for (int j = 0; j < n_k; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_k) {
-      load_stage(j + 1, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&bar_full[s], 1);
+      mbar_init(&bar_free[s], 8);  // one arrival per consumer warp
     }
-    __syncthreads();
-    const uint32_t s_k = s_stage + st * 2 * C::kTile64;
-    const uint32_t s_v = s_k + C::kTile64;
-    const int k0 = 64 * j;
-    const bool masked = kCausal && j == mt;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 
-    float p[8][4];
-    zero(p);
-    gemm_abt<64, D>(p, s_q, 16 * warp, s_k, lane);  // S = Q K^T
-    float dp[8][4];
-    zero(dp);
-    gemm_abt<64, D>(dp, s_do, 16 * warp, s_v, lane);  // dP = dO V^T
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1;
-        float e = ex2(fmaf(p[jj][i], a.scale_log2, -lse2[r]));
-        if (masked && k0 + 8 * jj + 2 * (lane & 3) + (i & 1) > row_lo + 8 * r) {
-          e = 0.f;
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0) {
+      mbar_expect_tx(&bar_q, 4 * C::kQBytes);
+      for (int w = 0; w < 2; ++w) {
+        for (int c = 0; c < kCh; ++c) {
+          const int off = w * C::kQBytes + c * 8192;
+          tma_load(sq + off, &tm_q, &bar_q, c * 64, q0 + 64 * w, h, b);
+          tma_load(sdo + off, &tm_do, &bar_q, c * 64, q0 + 64 * w, h, b);
         }
-        dp[jj][i] = (dp[jj][i] - di[r]) * e * a.scale;  // dS
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kS;
+        mbar_wait(&bar_free[st], ((j / kS) & 1) ^ 1);
+        mbar_expect_tx(&bar_full[st], 2 * C::kKBytes);
+        for (int c = 0; c < kCh; ++c) {
+          const int off = st * C::kKBytes + c * kBn * 128;
+          tma_load(sk + off, &tm_k, &bar_full[st], c * 64, j * kBn, h, b);
+          tma_load(sv + off, &tm_v, &bar_full[st], c * 64, j * kBn, h, b);
+        }
       }
     }
-    uint32_t frag[4][4];
-    to_a_frags<64>(dp, frag);
-    gemm_rb<kDV, 64, D>(dq, frag, s_k, col0, lane);  // dQ += dS K
-    __syncthreads();  // this stage is the next prefetch's target
-  }
+  } else {
+    // ------------------------------------------------------------ consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int row_first = q0 + 64 * wg;                 // this warpgroup's rows
+    const int row0 = row_first + 16 * warp + lane / 4;  // this thread's: +0, +8
+    // rows past Tq (zero-filled Q and dO) read lse = di = 0: P = 1, dS = 0
+    const int64_t row_bh = ((int64_t)b * heads + h) * tq;
+    float lse2[2], dir[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      lse2[r] = row < tq ? lse[row_bh + row] * kLog2e : 0.f;
+      dir[r] = row < tq ? di[row_bh + row] : 0.f;
+    }
+    // under causal masking the later tiles lie wholly above this
+    // warpgroup's diagonal: waited for and released, not computed
+    const int n_comp =
+        kCausal ? min(n_tiles, (row_first + 63) / kBn + 1) : n_tiles;
+    uint8_t* sqw = sq + wg * C::kQBytes;
+    const uint8_t* sdow = sdo + wg * C::kQBytes;
 
-  store_rows<kDV>(dq, const_cast<__nv_bfloat16*>(at(a.dq, a.sdq, b, q0, h)),
-                  a.sdq.t, 16 * warp + lane / 4, col0, lane);
+    float dq[D / 2];
+    float s[kBn / 2];
+    float dp[kBn / 2];
+    uint32_t df[kBn / 16][4];
+    zero(dq);
+    zero(s);
+    zero(dp);
+
+    auto issue_ss = [&](int st) {
+      wgmma_fence();
+      ss_kmajor<kBn, kCh>(s, sqw, sk + st * C::kKBytes);
+      ss_kmajor<kBn, kCh>(dp, sdow, sv + st * C::kKBytes);
+      wgmma_commit();
+    };
+    auto issue_rs = [&](int st) {
+      wgmma_fence();
+      rs_nmajor<D, kBn>(dq, df, sk + st * C::kKBytes);
+      wgmma_commit();
+    };
+    // dS of key tile j from the landed S and dP, into dp
+    auto elementwise = [&](int j) {
+      const int n0 = j * kBn;
+      const bool need_mask =
+          n0 + kBn > tk || (kCausal && n0 + kBn - 1 > row_first);
+#pragma unroll
+      for (int idx = 0; idx < kBn / 2; ++idx) {
+        const int r = (idx >> 1) & 1;
+        float p = ex2(fmaf(s[idx], scale_log2, -lse2[r]));
+        if (need_mask) {
+          const int key = n0 + 8 * (idx >> 2) + 2 * (lane & 3) + (idx & 1);
+          if (key >= tk || (kCausal && key > row0 + 8 * r)) p = 0.f;
+        }
+        dp[idx] = (dp[idx] - dir[r]) * p * scale;
+      }
+    };
+    auto release = [&](int st) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bar_free[st]);
+    };
+
+    if (wg == 1) turn_pass<2>(wg);  // warpgroup 0 goes first
+    mbar_wait(&bar_q, 0);
+    mbar_wait(&bar_full[0], 0);
+    turn_wait(wg);
+    issue_ss(0);
+    turn_pass<2>(wg);
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    elementwise(0);
+    pack_p<kBn>(dp, df);
+    for (int j = 1; j < n_comp; ++j) {
+      const int st = j % kS;
+      const int pst = (j - 1) % kS;
+      mbar_wait(&bar_full[st], (j / kS) & 1);
+      turn_wait(wg);
+      issue_ss(st);
+      issue_rs(pst);
+      turn_pass<2>(wg);
+      wgmma_wait<1>();  // this tile's S and dP have landed
+      fence_regs(s);
+      fence_regs(dp);
+      elementwise(j);
+      wgmma_wait<0>();  // dQ += dS_{j-1} K_{j-1} is done
+      fence_regs(dq);
+      fence_regs(df);
+      release(pst);
+      pack_p<kBn>(dp, df);
+    }
+    {
+      const int st = (n_comp - 1) % kS;
+      turn_wait(wg);
+      issue_rs(st);
+      turn_pass<2>(wg);
+      wgmma_wait<0>();
+      fence_regs(dq);
+      release(st);
+    }
+    for (int j = n_comp; j < n_tiles; ++j) {
+      const int st = j % kS;
+      mbar_wait(&bar_full[st], (j / kS) & 1);
+      release(st);
+      turn_wait(wg);  // every warpgroup takes as many turns
+      turn_pass<2>(wg);
+    }
+    if (wg == 0) turn_wait(wg);  // the last warpgroup's last pass
+
+    // stage dQ in this warpgroup's own (no longer needed) Q rows and store
+    stage_rows<D>(dq, sqw, warp, lane);
+    staged(wg);
+    if (tid == 0) {
+      store_tile<kCh>(&tm_dq, sqw, row_first, h, b);
+      store_done();
+    }
+  }
 }
 
 // ------------------------------------------------------------------ host side
 
-template <int D>
-int launch(const BwdArgs& a, int batch, int causal, int which,
-           cudaStream_t stream) {
-  using C = BwdCfg<D>;
-  const int tiles = which == 0 ? a.tk / 64 : a.tq / 64;
-  const int64_t blocks = (int64_t)tiles * a.heads * C::kSplit * batch;
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;  // [B, H, Tq]
+  const float* di;   // [B, H, Tq]
+  void* dq;
+  void* dk;
+  void* dv;
+  Strides sq, sk, sv, sdo, sdq, sdk, sdv;
+  int batch, heads, tq, tk;
+  float scale;
+};
+
+template <typename Kernel>
+int prepare(Kernel kernel, int smem, int64_t blocks) {
   if (blocks > INT32_MAX) return (int)cudaErrorInvalidConfiguration;
-  void (*kernel)(const BwdArgs);
-  int smem;
-  if (which == 0) {
-    kernel = causal ? flash_bwd_dkv<D, true> : flash_bwd_dkv<D, false>;
-    smem = C::kSmemDkv;
-  } else {
-    kernel = causal ? flash_bwd_dq<D, true> : flash_bwd_dq<D, false>;
-    smem = C::kSmemDq;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
+  return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, 128, smem, stream>>>(a);
+}
+
+template <int D>
+int launch_dkv(const BwdArgs& a, int causal, cudaStream_t stream) {
+  using C = DkvCfg<D>;
+  CUtensorMap mq, mk, mv, mdo, mdk, mdv;
+  if (!make_map(&mq, a.q, a.batch, a.tq, a.heads, D, a.sq, C::kBq) ||
+      !make_map(&mk, a.k, a.batch, a.tk, a.heads, D, a.sk, 64) ||
+      !make_map(&mv, a.v, a.batch, a.tk, a.heads, D, a.sv, 64) ||
+      !make_map(&mdo, a.dout, a.batch, a.tq, a.heads, D, a.sdo, C::kBq) ||
+      !make_map(&mdk, a.dk, a.batch, a.tk, a.heads, D, a.sdk, 64) ||
+      !make_map(&mdv, a.dv, a.batch, a.tk, a.heads, D, a.sdv, 64)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto* kernel =
+      causal ? flash_bwd_dkv_sm90<D, true> : flash_bwd_dkv_sm90<D, false>;
+  const int64_t blocks = (int64_t)ceil_div(a.tk, C::kBk) * a.heads * a.batch;
+  const int err = prepare(kernel, C::kSmem, blocks);
+  if (err != 0) return err;
+  kernel<<<(unsigned)blocks, C::kThreads, C::kSmem, stream>>>(
+      mq, mk, mv, mdo, mdk, mdv, a.lse, a.di, a.tq, a.tk, a.heads, a.scale,
+      a.scale * kLog2e);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq(const BwdArgs& a, int causal, cudaStream_t stream) {
+  using C = DqCfg<D>;
+  CUtensorMap mq, mk, mv, mdo, mdq;
+  if (!make_map(&mq, a.q, a.batch, a.tq, a.heads, D, a.sq, 64) ||
+      !make_map(&mk, a.k, a.batch, a.tk, a.heads, D, a.sk, C::kBn) ||
+      !make_map(&mv, a.v, a.batch, a.tk, a.heads, D, a.sv, C::kBn) ||
+      !make_map(&mdo, a.dout, a.batch, a.tq, a.heads, D, a.sdo, 64) ||
+      !make_map(&mdq, a.dq, a.batch, a.tq, a.heads, D, a.sdq, 64)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto* kernel =
+      causal ? flash_bwd_dq_sm90<D, true> : flash_bwd_dq_sm90<D, false>;
+  const int64_t blocks = (int64_t)ceil_div(a.tq, C::kBm) * a.heads * a.batch;
+  const int err = prepare(kernel, C::kSmem, blocks);
+  if (err != 0) return err;
+  kernel<<<(unsigned)blocks, C::kThreads, C::kSmem, stream>>>(
+      mq, mk, mv, mdo, mdq, a.lse, a.di, a.tq, a.tk, a.heads, a.scale,
+      a.scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(const BwdArgs& a, int causal, int which, cudaStream_t stream) {
+  return which == 0 ? launch_dkv<D>(a, causal, stream)
+                    : launch_dq<D>(a, causal, stream);
 }
 
 }  // namespace
@@ -522,32 +831,32 @@ extern "C" int mmlspark_flash_attn_bwd(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   }
   BwdArgs a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
-  a.dout = static_cast<const __nv_bfloat16*>(dout);
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
   a.lse = lse;
   a.di = di;
-  a.dq = static_cast<__nv_bfloat16*>(dq);
-  a.dk = static_cast<__nv_bfloat16*>(dk);
-  a.dv = static_cast<__nv_bfloat16*>(dv);
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
   Strides* st[7] = {&a.sq, &a.sk, &a.sv, &a.sdo, &a.sdq, &a.sdk, &a.sdv};
   for (int i = 0; i < 7; ++i) {
     *st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   }
+  a.batch = batch;
   a.heads = heads;
   a.tq = tq;
   a.tk = tk;
   a.scale = sm_scale;
-  a.scale_log2 = sm_scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return launch<64>(a, batch, causal, which, s);
+      return launch<64>(a, causal, which, s);
     case 128:
-      return launch<128>(a, batch, causal, which, s);
+      return launch<128>(a, causal, which, s);
     case 256:
-      return launch<256>(a, batch, causal, which, s);
+      return launch<256>(a, causal, which, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

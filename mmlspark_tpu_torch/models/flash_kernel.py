@@ -44,11 +44,19 @@ their products, f32 sums, dQ/dK/dV rounded to bf16 once.
 ``FlashAttention`` is the autograd Function: K5 with ``lse`` forward, the
 row sums ``di = rowsum(dO * O)`` (a torch reduction, as the library's
 ``jnp.sum``) and K6 then K7 backward; on CPU tensors (the tests) the plain
-pair. ``bwd_dkv_launches`` and ``bwd_dq_launches`` count K6's and K7's
-launches as ``launches`` counts K5's. While grad is enabled and an input
-requires grad, only ``FlashAttention`` may launch K5: a bare
-``flash_attention_cuda`` call raises rather than return an output that
-autograd cannot differentiate.
+pair. K6 and K7 are K5's Hopper design (a TMA producer warp, two ``wgmma``
+consumer warpgroups taking turns, a ring of shared-memory stages): K6 a CTA
+per key tile (128 keys, 64 at D = 256, where its two warpgroups split the
+products instead of the columns) streaming query tiles (64 rows, 32 at
+D = 128) of Q, dO, lse and di; K7 a CTA per 128 queries streaming K/V
+tiles (128, 64 or 32 keys at D = 64, 128, 256). No CTA recomputes another's
+products and no output element has two writers (``bwd_launch_grid``,
+``bwd_smem_bytes`` and ``bwd_tiles`` mirror the source's grids, shared
+memory and tile schedules). ``bwd_dkv_launches`` and ``bwd_dq_launches``
+count K6's and K7's launches as ``launches`` counts K5's. While grad is
+enabled and an input requires grad, only ``FlashAttention`` may launch K5:
+a bare ``flash_attention_cuda`` call raises rather than return an output
+that autograd cannot differentiate.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ import ctypes
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -102,15 +111,92 @@ def grid_decode(block, m_blocks: int, hc: int):
     return block // (m_blocks * hc), (block // m_blocks) % hc, block % m_blocks
 
 
+#: the most shared memory a block takes on the H100 (bytes)
+SMEM_MAX = 232_448
+
+
+def bwd_tile_rows(d: int, which: str) -> int:
+    """Rows of the tile one CTA owns: K6's keys (``which="dkv"``: 128, two
+    warpgroups of 64, or 64 at D = 256, where both warpgroups work on the
+    same keys) or K7's queries (``"dq"``: 128) (``DkvCfg``/``DqCfg``)."""
+    if which == "dkv":
+        return 128 if d <= 128 else 64
+    return 128
+
+
+def bwd_stream_rows(d: int, which: str) -> int:
+    """Rows of a tile a CTA streams through its ring: K6's query tiles (64;
+    32 at D = 128, for registers) or K7's key tiles (128 at D = 64, 64 at
+    128, 32 at 256)."""
+    if which == "dkv":
+        return 32 if d == 128 else 64
+    return {64: 128, 128: 64}.get(d, 32)
+
+
+def bwd_smem_bytes(d: int, which: str, parts: bool = False):
+    """Dynamic shared memory of one K6 or K7 CTA, as the source sizes it:
+    the tiles loaded once (K6: K and V of its keys; K7: Q and dO of its 128
+    queries), K6's P hand-over at D = 256 (f32, 64 x 64), the ring's stages
+    (K6: a Q and a dO tile and their lse and di; K7: a K and a V tile)
+    and 1 KB of alignment slack. With ``parts`` also the stage count."""
+    if which == "dkv":
+        once = 2 * bwd_tile_rows(d, which) * d * 2
+        once += 64 * 64 * 4 if d == 256 else 0
+        bq = bwd_stream_rows(d, which)
+        stage = 2 * bq * d * 2 + 2 * bq * 4
+    else:
+        once = 4 * 64 * d * 2
+        stage = 2 * bwd_stream_rows(d, which) * d * 2
+    stages = min(3, (SMEM_MAX - 1024 - 256 - once) // stage)
+    total = once + stages * stage + 1024
+    return (total, stages) if parts else total
+
+
 def bwd_launch_grid(b: int, tq: int, tk: int, h: int, d: int,
                     which: str) -> Tuple[int, int, int]:
-    """K6's (``which="dkv"``) or K7's (``"dq"``) 1-D grid: (64-row tiles of
-    keys or queries, head x column-split slots, total blocks). At D = 256 a
-    CTA writes half the output columns (``BwdCfg`` in the source).
-    ``grid_decode`` reads a block index of either."""
-    tiles = (tk if which == "dkv" else tq) // TILE
-    hc = h * (2 if d > 128 else 1)
-    return tiles, hc, tiles * hc * b
+    """K6's (``which="dkv"``) or K7's (``"dq"``) 1-D grid: (key or query
+    tiles of ``bwd_tile_rows`` rows, heads, total blocks); no CTA splits the
+    output columns. ``grid_decode`` reads a block index of either."""
+    tiles = -(-(tk if which == "dkv" else tq) // bwd_tile_rows(d, which))
+    return tiles, h, tiles * h * b
+
+
+def bwd_tiles(tq: int, tk: int, d: int, which: str, causal: bool):
+    """The tiles one (batch, head) of K6 or K7 computes, in launch order,
+    as the source walks them: rows of (CTA, q_lo, q_hi, k_lo, k_hi, masked)
+    for each 64-row group of a CTA (a warpgroup's, or at K6's D = 256 the
+    pair's) and each tile it computes; ``masked`` where the source masks
+    elementwise (causal crossings, keys past Tk). Tiles a warpgroup waits
+    for and releases without computing are not listed. An int64 numpy
+    array (the CPU tests check its coverage)."""
+    rows = []
+    if which == "dkv":
+        bk, bq = bwd_tile_rows(d, which), bwd_stream_rows(d, which)
+        for kt in range(-(-tk // bk)):
+            k0 = kt * bk
+            qi0 = k0 // bq if causal else 0
+            for kf in range(k0, k0 + bk, 64):
+                for qi in range(qi0, tq // bq):
+                    qs = qi * bq
+                    masked = (causal and qs < kf + 63) or kf + 64 > tk
+                    rows.append((kt, qs, qs + bq, kf, kf + 64, masked))
+    else:
+        bm, bn = bwd_tile_rows(d, which), bwd_stream_rows(d, which)
+        m_tiles = -(-tq // bm)
+        for raw in range(m_tiles):
+            mt = m_tiles - 1 - raw if causal else raw
+            q0 = mt * bm
+            n_tiles = -(-tk // bn)
+            if causal:
+                n_tiles = min(n_tiles, -(-(q0 + bm) // bn))
+            for rf in range(q0, q0 + bm, 64):
+                n_comp = min(n_tiles, (rf + 63) // bn + 1) if causal \
+                    else n_tiles
+                for j in range(n_comp):
+                    n0 = j * bn
+                    masked = n0 + bn > tk or (causal and n0 + bn - 1 > rf)
+                    rows.append((raw, rf, rf + 64, n0, n0 + bn, masked))
+    return np.asarray(rows, dtype=np.int64).reshape(-1, 6)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

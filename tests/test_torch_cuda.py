@@ -414,7 +414,32 @@ def test_flash_bwd_kernels_match_plain(cuda_device, b, tq, tk, h, d, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,tq,tk,h,d,causal", [
+    (1, 192, 192, 2, 64, True), (1, 320, 320, 1, 128, True),
+    (1, 192, 192, 2, 128, False), (1, 192, 192, 1, 256, True),
+    (1, 320, 320, 2, 256, True), (1, 192, 320, 2, 256, False),
+    (2, 320, 128, 1, 256, False)])
+def test_flash_bwd_kernels_ragged_tiles_and_no_column_split(cuda_device, b, tq,
+                                                            tk, h, d, causal):
+    """Lengths a multiple of 64 but not of the 128-row tiles (K6's second
+    warpgroup past Tk, K7's past Tq: zero-filled rows that must add
+    exactly 0), causal and not, and D = 256 through the design without a
+    column split (K6's two warpgroups share a 64-key tile and hand P over;
+    K7 holds all 256 columns of dQ), Tq != Tk included: against the plain
+    backward and f64, two calls bit for bit."""
+    rng = np.random.default_rng(27)
+    q, k, v, do = _bwd_inputs(rng, b, tq, tk, h, d, cuda_device)
+    o, lse = flash_kernel.flash_attention_cuda(q, k, v, causal, lse=True)
+    got = flash_kernel.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    again = flash_kernel.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    plain = flash_kernel.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    _assert_bwd_close(got, plain, q, k, v, do, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_bwd_kernels_read_strided_views(cuda_device, d):
     """q, k, v and dO as views into packed tensors: K6 and K7 read them
     through their strides."""

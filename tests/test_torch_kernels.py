@@ -654,17 +654,85 @@ def test_plain_lse_matches_library_residuals(shape, causal):
                                          (65_537, 128, 128, 1, 64)])
 @pytest.mark.parametrize("which", ["dkv", "dq"])
 def test_bwd_grid_decode_covers_every_block(b, tq, tk, h, d, which):
-    """K6's and K7's 1-D grids: every (batch, head x column split, 64-row
-    tile) once, tiles fastest, past grid.z's cap; K6 tiles the keys, K7
-    the queries; two column halves at D = 256."""
+    """K6's and K7's 1-D grids: every (batch, head, tile) once, tiles
+    fastest, past grid.z's cap; K6 tiles the keys (128 a CTA, 64 at
+    D = 256), K7 the queries (128 a CTA); no CTA splits the columns."""
     tiles, hc, total = flash_kernel.bwd_launch_grid(b, tq, tk, h, d, which)
-    assert tiles * flash_kernel.TILE == (tk if which == "dkv" else tq)
-    assert hc == h * (2 if d == 256 else 1)
+    rows = 128 if which == "dq" or d <= 128 else 64
+    assert flash_kernel.bwd_tile_rows(d, which) == rows
+    assert tiles == -(-(tk if which == "dkv" else tq) // rows)
+    assert hc == h
     assert total == tiles * hc * b <= flash_kernel.MAX_GRID_BLOCKS
     block = np.arange(total, dtype=np.int64)
     bi, hy, m = flash_kernel.grid_decode(block, tiles, hc)
     assert bi.min() == 0 and bi.max() == b - 1
     np.testing.assert_array_equal((bi * hc + hy) * tiles + m, block)
+
+
+@pytest.mark.parametrize("d,which,want", [
+    (64, "dkv", (84_480, 3)), (128, "dkv", (116_480, 3)),
+    (256, "dkv", (215_040, 2)), (64, "dq", (132_096, 3)),
+    (128, "dq", (164_864, 3)), (256, "dq", (230_400, 3))])
+def test_bwd_smem_fits_a_block(d, which, want):
+    """K6's and K7's shared memory, as the source sizes it, within the
+    232,448 bytes a block takes: K6 K and V of 128 keys (64 and the 16 KB
+    P hand-over at D = 256) and Q/dO/lse/di stages of 64 queries (32 at
+    D = 128); K7 Q and dO of
+    128 queries and K/V stages of 128, 64 or 32 keys; at least 2 stages."""
+    got = flash_kernel.bwd_smem_bytes(d, which, parts=True)
+    assert got == want
+    assert got[0] + 256 <= flash_kernel.SMEM_MAX and got[1] >= 2
+    assert flash_kernel.bwd_smem_bytes(d, which) == want[0]
+
+
+def _tile_coverage(tiles, tq, tk, causal):
+    """How often each (query, key) pair is computed by ``bwd_tiles``'s
+    tiles, applying the element mask where a tile is masked; asserts that
+    no unmasked tile reaches a pair the mask would hide (K7's rows past Tq
+    are not masked: their zero rows add 0 and their stores are dropped)."""
+    count = np.zeros((tq, tk), dtype=np.int64)
+    q = np.arange(tq)[:, None]
+    k = np.arange(tk)[None, :]
+    visible = (k <= q) if causal else np.ones((tq, tk), dtype=bool)
+    for _, q_lo, q_hi, k_lo, k_hi, masked in tiles:
+        cell = np.zeros((tq, tk), dtype=bool)
+        cell[q_lo:q_hi, k_lo:k_hi] = True
+        if not masked:
+            assert k_hi <= tk and visible[cell].all(), (q_lo, k_lo)
+        count += cell & visible
+    return count, visible
+
+
+@pytest.mark.parametrize("t", [64, 192, 320, 512, 1024])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("which", ["dkv", "dq"])
+def test_bwd_causal_schedule_covers_the_lower_triangle_once(t, d, which):
+    """A numpy model of K6's and K7's causal tile walk (``bwd_tiles``, the
+    source's tile arithmetic): every (query, key) pair of the lower
+    triangle computed exactly once, none above it (the unmasked tiles lie
+    wholly at or below the diagonal), at lengths a multiple of 64 but not
+    of the 128-row tiles too; non-causal at Tq != Tk covers the whole
+    rectangle once."""
+    count, visible = _tile_coverage(
+        flash_kernel.bwd_tiles(t, t, d, which, True), t, t, True)
+    np.testing.assert_array_equal(count, visible.astype(np.int64))
+    tk = t + 64 if t % 128 else t // 2 + 64
+    count, _ = _tile_coverage(
+        flash_kernel.bwd_tiles(t, tk, d, which, False), t, tk, False)
+    np.testing.assert_array_equal(count, np.ones((t, tk), dtype=np.int64))
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("which", ["dkv", "dq"])
+def test_bwd_causal_schedule_starts_the_longest_first(d, which):
+    """Under causal masking the CTAs with the most tiles launch first: K6's
+    low key tiles, K7's high query tiles; every CTA of a (batch, head)
+    computes at least one tile."""
+    tiles = flash_kernel.bwd_tiles(2048, 2048, d, which, True)
+    per_cta = np.bincount(tiles[:, 0])
+    n = flash_kernel.bwd_launch_grid(1, 2048, 2048, 1, d, which)[0]
+    assert len(per_cta) == n and per_cta.min() > 0
+    assert (np.diff(per_cta) <= 0).all() and per_cta[0] > per_cta[-1]
 
 
 def test_bwd_cost_counts_the_products():
