@@ -288,6 +288,25 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
 23. bilstm_train: ``tools/bench_seq.py``'s tagger (seq 512, embed 128,
    hidden 256, 16 tags) on 64 rows: the card's forward within
    ``DEEP_BF16_TOL`` of the CPU's, then 5 train steps whose loss falls.
+24. image_main: the north-star path, ``io.image.read_images`` ->
+   ``ImageFeaturizer(batchSize=128, cutOutputLayers=1)`` over ResNet-50
+   (the torchvision layout from a seeded state_dict through
+   ``from_torch_resnet``) on 512 seeded 256x256 BMPs: images/s end to end,
+   host prep against device time, peak memory, a traced batch's top device
+   operations; gates (a) the card against the port on the CPU (bf16, and
+   f32 with TF32 off), (b) fused bit for bit unfused, (c) logits and layer3
+   taps, (d) save -> load bit for bit (``image_main``'s docstring);
+25. resnet_train: ResNet-50 at batch 32 for 5 steps of ``run_train_loop``:
+   BatchNorm's moving statistics move every step, step 1's loss and
+   gradients against the CPU's in f32 (the gradients against their own
+   sensitivity to a one-ulp input change), the loss finite;
+26. moe_main: the sequence model of 10 with a switch-MoE FFN (8 experts,
+   capacity factor 1.5) in every block: ``DNNModel`` over 256 rows (16 K5
+   launches) and 10 train steps (40 each of K5, K6 and K7); card against
+   CPU: the routing of the same MoE inputs, and the logits with the card's
+   routing pinned (``PinnedRouting``); the loss falling; step 1's
+   gradients through K5-K7 against exact attention's, no further than the
+   plain version's (``F64_RATIO_MAX``), the routing pinned.
 
 Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``, after a ``{"kernels": [...]}`` line that
@@ -299,7 +318,8 @@ its launches on the new paths (``launches_on_new_paths``: dense_variants and
 its GOSS scan, ranker_main, categorical_main, sparse_variants and its compacted
 stream, sparse_wide, serving_sparse, serving_transformer, mega_sparse at K=8
 and mega_transformer at K=4, through the graph replays, serving_autotune,
-train_transformer (K5) and its causal run (K5-K7)); K4's row also carries its
+train_transformer (K5) and its causal run (K5-K7), moe_main's transform (K5)
+and training (K5-K7)); K4's row also carries its
 call on the compacted stream (``compacted_stream``), and K6's and K7's their
 design (``status``), TFLOP/s and the whole backward call's ms
 (``bwd_total_ms``).
@@ -308,6 +328,7 @@ design (``status``), TFLOP/s and the whole backward call's ms
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import logging
@@ -4741,6 +4762,748 @@ def deposit_phase(torch, model, X, smi) -> None:
              f"{s.get('n_batches')} batches, copies {s.get('fallback_copies')}")
 
 
+# ---------------------------------------------------------------------------
+# The image path: ResNet-50 (torchvision layout) through ImageFeaturizer and
+# its training; the switch-MoE sequence model (K5-K7)
+# ---------------------------------------------------------------------------
+
+IMG_COUNT = 512         # tools/bench_image_e2e.py's images on an accelerator
+IMG_SRC = 256           # their side; the featurizer resizes to the model's 224
+IMG_SIZE = 224
+IMG_BATCH = 128
+IMG_CHECK_ROWS = 32     # gate (a): the card against the port on the CPU
+IMG_SMALL_ROWS = 16     # gates (c) and (d)
+IMG_FUSED_ROWS = 256    # gate (b): two batches
+# gate (a) in bf16, per row: 1 - cosine, and max |card - CPU| over the row's
+# max |value|. Both sides round every conv's and BatchNorm's output to bf16
+# and sum in f32, in other orders (cuDNN, oneDNN): a sum near a rounding
+# boundary lands on the other bf16 value (one ulp, 2^-8), and the layers
+# after it carry that
+IMG_BF16_COS_GAP = 1e-4
+IMG_BF16_REL_DIFF = 2e-2
+# gate (a) under matmul_precision("float32"): full-f32 convs on both sides
+# (TF32 off on the card; TF32 rounds the operands to 2^-11)
+IMG_F32_REL = 1e-4
+RESNET_TRAIN_ROWS = 32
+RESNET_TRAIN_STEPS = 5
+RESNET_TRAIN_LR = 0.01
+# resnet_train: step 1's f32 gradients, card against the port on the CPU.
+# At this init they are ill-conditioned: scaling the input by (1 + 2^-23),
+# one ulp, moves the CPU's own gradients by 2-3% (relative L2 per leaf: 2.4%
+# median, 3.0% max on the 32 rows here), so the card is held to that
+# sensitivity, measured in the same run, per leaf and at the median, times
+# this factor. TF32 (operands rounded to 2^-11, ~1e4 ulps) would move them
+# far past it
+RESNET_GRAD_SENSITIVITY_RATIO = 2.0
+# and the loss, a well-conditioned sum: card against CPU in f32
+RESNET_LOSS_REL = 1e-5
+MOE_EXPERTS = 8         # Switch-Base-8 (Fedus et al. 2021, "Switch Transformers")
+MOE_CAPACITY = 1.5      # the reference's default capacity factor
+MOE_TRAIN_STEPS = 10
+MOE_CPU_ROWS = 2
+# moe_main, card against CPU: the share of (token, layer) routings that
+# agree; a near-tie of two f32 router logits may fall either way once K5's
+# attention and the plain version's differ in the last bits
+MOE_ROUTING_AGREE_MIN = 0.999
+
+
+def write_bmp(path: str, img: np.ndarray) -> None:
+    """A 24-bit BMP (bottom-up BGR rows, each padded to 4 bytes), as
+    tools/bench_image_e2e.py writes its images."""
+    import struct
+
+    h, w, _ = img.shape
+    row_pad = (4 - (w * 3) % 4) % 4
+    data_size = (w * 3 + row_pad) * h
+    with open(path, "wb") as f:
+        f.write(b"BM")
+        f.write(struct.pack("<IHHI", 54 + data_size, 0, 0, 54))
+        f.write(struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, data_size,
+                            2835, 2835, 0, 0))
+        pad = b"\x00" * row_pad
+        for row in img[::-1, :, ::-1]:
+            f.write(row.tobytes() + pad)
+
+
+def torchvision_resnet_state(torch, depth: int, classes: int, seed: int) -> dict:
+    """A torchvision-layout resnet``depth`` state_dict from seeded tensors
+    (torchvision is not installed, and no weights can be fetched): its key
+    names and shapes, He-scaled OIHW convs, and BatchNorm with scale 1 +
+    0.1 N, bias 0.1 N, running mean 0.2 N and running variance 0.5 + U."""
+    from mmlspark_tpu_torch.models.resnet import _CONFIGS
+
+    gen = torch.Generator().manual_seed(seed)
+    kind, blocks = _CONFIGS[depth]
+    sd = {}
+
+    def conv(key, cout, cin, k):
+        sd[key + ".weight"] = torch.randn(cout, cin, k, k, generator=gen) \
+            * (2.0 / (cin * k * k)) ** 0.5
+
+    def bn(key, c):
+        sd[key + ".weight"] = 1.0 + 0.1 * torch.randn(c, generator=gen)
+        sd[key + ".bias"] = 0.1 * torch.randn(c, generator=gen)
+        sd[key + ".running_mean"] = 0.2 * torch.randn(c, generator=gen)
+        sd[key + ".running_var"] = 0.5 + torch.rand(c, generator=gen)
+        sd[key + ".num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    in_ch = 64
+    for i, n in enumerate(blocks):
+        ch = 64 * 2 ** i
+        for j in range(n):
+            tk = f"layer{i + 1}.{j}"
+            if kind == "bottleneck":
+                out = ch * 4
+                shapes = [(ch, in_ch, 1), (ch, ch, 3), (out, ch, 1)]
+            else:
+                out = ch
+                shapes = [(ch, in_ch, 3), (ch, ch, 3)]
+            for c, (co, ci, k) in enumerate(shapes, 1):
+                conv(f"{tk}.conv{c}", co, ci, k)
+                bn(f"{tk}.bn{c}", co)
+            if (i > 0 and j == 0) or in_ch != out:
+                conv(f"{tk}.downsample.0", out, in_ch, 1)
+                bn(f"{tk}.downsample.1", out)
+            in_ch = out
+    sd["fc.weight"] = torch.randn(classes, in_ch, generator=gen) * in_ch ** -0.5
+    sd["fc.bias"] = 0.1 * torch.randn(classes, generator=gen)
+    return sd
+
+
+def _features(df, col: str = "features") -> np.ndarray:
+    return np.stack([np.asarray(v) for v in df.column(col)])
+
+
+def _row_rel_diff(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    a = a.reshape(len(a), -1).astype(np.float64)
+    b = b.reshape(len(b), -1).astype(np.float64)
+    return np.abs(a - b).max(1) / np.maximum(np.abs(b).max(1), 1e-30)
+
+
+def image_main(torch, smi) -> None:
+    """The north-star path at full width: 512 seeded 256x256 BMPs read by
+    ``io.image.read_images`` and featurized by ``ImageFeaturizer(batchSize=
+    128, cutOutputLayers=1, scaleFactor=1/255)`` over ResNet-50 (the
+    torchvision layout, built by ``from_torch_resnet`` from a seeded
+    state_dict) into 2048-d features. Logs images/s end to end (read,
+    decode, resize, the forward), the host prep (decode, resize) against the
+    device's forward time, peak memory and one traced batch's top device
+    operations. Gates: (a) the first 32 images' features against the port
+    on the CPU, per row, bf16 (``IMG_BF16_COS_GAP``,
+    ``IMG_BF16_REL_DIFF``) and under ``matmul_precision("float32")``
+    (``IMG_F32_REL``, cuDNN's TF32 flag left at PyTorch's default, on: the
+    conv turns it off); (b) ``PipelineModel([ImageTransformer().resize(224,
+    224).flip(1), featurizer]).fuse()`` bit for bit the unfused chain on 256
+    images, no fallback (the resize in prepare, the flip and the forward on
+    the device; a flip alone would meet 256x256 batches the backbone does
+    not take and fall back); (c) ``cutOutputLayers=0`` (the 1000 logits)
+    and 3 (layer3, 14x14x1024) finite, of those shapes; (d) the stage saved,
+    loaded and run again bit for bit."""
+    import os
+    import tempfile
+
+    from mmlspark_tpu_torch.core import profiling
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel, PipelineStage
+    from mmlspark_tpu_torch.core.schema import ImageSchema
+    from mmlspark_tpu_torch.image import ImageFeaturizer, ImageTransformer
+    from mmlspark_tpu_torch.io.image import read_images
+    from mmlspark_tpu_torch.models import from_torch_resnet, matmul_precision
+    from mmlspark_tpu_torch.ops import image as imops
+    from mmlspark_tpu_torch.parallel.ingest import PreprocessSpec
+    from mmlspark_tpu_torch.runtime import use_device
+
+    t0 = time.perf_counter()
+    model = from_torch_resnet(torchvision_resnet_state(torch, 50, 1000, SEED))
+    build_s = time.perf_counter() - t0
+
+    def featurizer(**kw):
+        kw.setdefault("batchSize", IMG_BATCH)
+        return ImageFeaturizer(inputCol="image", outputCol="features",
+                               scaleFactor=1 / 255, **kw).set_model(model)
+
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for i in range(IMG_COUNT):
+            write_bmp(os.path.join(tmp, f"img_{i:05d}.bmp"),
+                      rng.integers(0, 256, (IMG_SRC, IMG_SRC, 3), dtype=np.uint8))
+        gen_s = time.perf_counter() - t0
+        feat = featurizer()
+        # first batch: cuDNN's first calls at these shapes
+        t0 = time.perf_counter()
+        _features(feat.transform(read_images(tmp).limit(IMG_BATCH)))
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        df = read_images(tmp, num_partitions=4)
+        read_s = time.perf_counter() - t0
+        feats = _features(feat.transform(df))
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ring = feat.last_ingest_stats.summary()
+        # the host prep alone: decode (read_images) and the resize to 224
+        t0 = time.perf_counter()
+        imgs = [ImageSchema.to_array(r) for r in read_images(tmp).column("image")]
+        decode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        small = np.stack([imops.resize(a, IMG_SIZE, IMG_SIZE) for a in imgs])
+        resize_s = time.perf_counter() - t0
+    # the device alone: the featurizer's forward on staged uint8 batches
+    spec = PreprocessSpec(scale=1 / 255)
+    params = model.device_params(DEVICE)
+    xb = torch.from_numpy(small[:IMG_BATCH]).to(DEVICE)
+
+    def forward():
+        return model.apply_taps(spec.apply_device(xb), ["avgpool"],
+                                params=params)["avgpool"]
+
+    batch_ms = time_ms(torch, forward, 5, 2)
+    with profiling.trace() as prof:
+        forward()
+        torch.cuda.synchronize()
+    busy = profiling.device_busy(prof, top=10, gaps=5)
+    del prof
+    log({"phase": "image_main", "card": smi, "images": IMG_COUNT,
+         "model_build_seconds": build_s, "params": model.num_params(),
+         "datagen_seconds": gen_s, "first_batch_seconds": warm_s,
+         "e2e_seconds": e2e_s, "e2e_images_per_s": IMG_COUNT / e2e_s,
+         "read_decode_seconds_in_e2e": read_s,
+         "host_decode_seconds": decode_s, "host_resize_seconds": resize_s,
+         "device_forward_ms_per_batch": batch_ms,
+         "device_seconds": batch_ms * IMG_COUNT / IMG_BATCH / 1e3,
+         "device_images_per_s": IMG_BATCH / (batch_ms / 1e3),
+         "peak_device_gb": peak_gb, "features_shape": list(feats.shape),
+         "ring": ring, "traced_batch": busy})
+    if feats.shape != (IMG_COUNT, 2048) or not np.isfinite(feats).all():
+        fail(f"image_main: features of shape {feats.shape} or not finite")
+    order = np.argsort([str(p) for p in df.column("path")])
+    feats = feats[order]
+    first = small[:IMG_CHECK_ROWS]
+    del small, imgs, xb
+
+    # (a) the card against the port on the CPU, bf16 and f32
+    structs = np.empty(len(first), dtype=object)
+    structs[:] = [ImageSchema.make(a) for a in first]
+    small_df = DataFrame([{"image": structs}])
+    card = {}
+    cpu = {}
+    t0 = time.perf_counter()
+    card["bf16"] = _features(featurizer().transform(small_df))
+    with use_device("cpu"):
+        cpu["bf16"] = _features(featurizer(batchSize=IMG_CHECK_ROWS).transform(small_df))
+    tf32_flag = torch.backends.cudnn.allow_tf32
+    with matmul_precision("float32"):
+        card["f32"] = _features(featurizer().transform(small_df))
+        with use_device("cpu"):
+            cpu["f32"] = _features(featurizer(batchSize=IMG_CHECK_ROWS)
+                                   .transform(small_df))
+    cpu_s = time.perf_counter() - t0
+    cos = 1.0 - row_cosines(card["bf16"], cpu["bf16"])
+    rel = _row_rel_diff(card["bf16"], cpu["bf16"])
+    rel32 = _row_rel_diff(card["f32"], cpu["f32"])
+    # the e2e run's rows are these images (resized the same way) at batch 128
+    same = bool(np.array_equal(card["bf16"], feats[:IMG_CHECK_ROWS]))
+    log({"phase": "image_main", "gate": "a", "rows": IMG_CHECK_ROWS,
+         "seconds": cpu_s, "bf16_cos_gap_max": float(cos.max()),
+         "bf16_rel_diff_max": float(rel.max()),
+         "f32_rel_diff_max": float(rel32.max()),
+         "cudnn_allow_tf32_flag": tf32_flag,
+         "flag_after": torch.backends.cudnn.allow_tf32,
+         "card_rows_bitwise_e2e_rows": same})
+    if cos.max() > IMG_BF16_COS_GAP or rel.max() > IMG_BF16_REL_DIFF:
+        fail(f"image_main (a): bf16 features against the CPU: 1 - cosine "
+             f"{cos.max()} (bound {IMG_BF16_COS_GAP}), max |d| over the row's "
+             f"max {rel.max()} ({IMG_BF16_REL_DIFF})")
+    if rel32.max() > IMG_F32_REL or torch.backends.cudnn.allow_tf32 != tf32_flag:
+        fail(f"image_main (a): f32 features {rel32.max()} from the CPU's "
+             f"(bound {IMG_F32_REL}) or the TF32 flag changed")
+
+    # (b) fused against unfused
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(IMG_FUSED_ROWS):
+            write_bmp(os.path.join(tmp, f"img_{i:05d}.bmp"),
+                      rng.integers(0, 256, (IMG_SRC, IMG_SRC, 3), dtype=np.uint8))
+        df = read_images(tmp, num_partitions=2)
+    pm = PipelineModel([ImageTransformer().resize(IMG_SIZE, IMG_SIZE).flip(1),
+                        featurizer()])
+    t0 = time.perf_counter()
+    want = _features(pm.transform(df))
+    unfused_s = time.perf_counter() - t0
+    fused = pm.fuse()
+    _features(fused.transform(df))
+    t0 = time.perf_counter()
+    got = _features(fused.transform(df))
+    fused_s = time.perf_counter() - t0
+    stats = fused.fusion_stats()
+    log({"phase": "image_main", "gate": "b", "rows": IMG_FUSED_ROWS,
+         "unfused_seconds": unfused_s, "fused_seconds": fused_s,
+         "fused_bitwise_unfused": bool(np.array_equal(got, want)),
+         "segments": stats["segments"], "fallbacks": stats["fallbacks"]})
+    if not np.array_equal(got, want) or stats["fallbacks"] \
+            or [s["kind"] for s in stats["segments"]] != ["fused"]:
+        fail("image_main (b): the fused featurizer is not the unfused chain "
+             f"bit for bit on the device (fallbacks {stats['fallbacks']})")
+    del pm, fused, got, want
+
+    # (c) logits and a layer3 tap; (d) save -> load -> transform
+    small_df = DataFrame([{"image": structs[:IMG_SMALL_ROWS]}])
+    shapes = {}
+    for cut in (0, 3):
+        out = _features(featurizer(cutOutputLayers=cut).transform(small_df))
+        shapes[cut] = list(out.shape[1:])
+        if not np.isfinite(out).all():
+            fail(f"image_main (c): cutOutputLayers={cut} gave non-finite values")
+    stage = featurizer()
+    want = _features(stage.transform(small_df))
+    with tempfile.TemporaryDirectory() as tmp:
+        stage.save(f"{tmp}/feat")
+        loaded = PipelineStage.load(f"{tmp}/feat")
+    got = _features(loaded.transform(small_df))
+    log({"phase": "image_main", "gate": "c,d", "shapes": shapes,
+         "loaded_class": type(loaded).__name__,
+         "loaded_bitwise": bool(np.array_equal(got, want))})
+    if shapes != {0: [1000], 3: [14, 14, 1024]}:
+        fail(f"image_main (c): shapes {shapes}")
+    if type(loaded) is not ImageFeaturizer or not np.array_equal(got, want):
+        fail("image_main (d): the loaded stage is not the saved one bit for bit")
+    torch.cuda.empty_cache()
+
+
+def resnet_train(torch, smi) -> None:
+    """ResNet-50 (the torchvision layout, 1000 classes) trained by
+    ``models.training.run_train_loop`` for 5 steps of 32 seeded 224x224
+    images (SGD 0.01, momentum 0.9), BatchNorm on its batch statistics.
+    Gates: every BatchNorm's moving mean and variance change at every step;
+    step 1 on the card against the port on the CPU from the same params and
+    batch, both under ``matmul_precision("float32")`` (TF32 off for the
+    convs and their backward): the loss within ``RESNET_LOSS_REL``, and the
+    gradients (relative L2 per leaf, the largest and the median) within
+    ``RESNET_GRAD_SENSITIVITY_RATIO`` times what scaling the input by (1 +
+    2^-23) does to the CPU's own; the loss finite. Training runs under
+    PyTorch's deterministic algorithms (the conv and max-pool backward
+    included). Logs step ms and peak memory."""
+    from mmlspark_tpu_torch.models import from_torch_resnet, matmul_precision
+    from mmlspark_tpu_torch.models import training
+
+    model = from_torch_resnet(torchvision_resnet_state(torch, 50, 1000, SEED + 1))
+    opt = training.make_optimizer(learning_rate=RESNET_TRAIN_LR, momentum=0.9)
+    params = training.params_of(model.module, DEVICE)
+    state = training.TrainState(params, opt.init(params), 0)
+    rng = np.random.default_rng(SEED + 2)
+    batches = [{"x": (rng.integers(0, 256, (RESNET_TRAIN_ROWS, IMG_SIZE, IMG_SIZE, 3))
+                      / 255.0).astype(np.float32),
+                "y": rng.integers(0, 1000, RESNET_TRAIN_ROWS).astype(np.int32)}
+               for _ in range(RESNET_TRAIN_STEPS)]
+    step = training.make_train_step(model.module, opt)
+    stats_names = [n for n in training._flatten(params)
+                   if n.endswith((".mean", ".var"))]
+    unchanged, losses, times = [], [], []
+
+    def timed_step(st, batch):
+        before = training._flatten(st.params)
+        t0 = time.perf_counter()
+        st, m = step(st, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        after = training._flatten(st.params)
+        unchanged.append([n for n in stats_names
+                          if torch.equal(before[n], after[n])])
+        return st, m
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = training.run_train_loop(state, timed_step, batches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # step 1's loss and gradients, card against CPU, in f32; the CPU's own
+    # gradients under a one-ulp change of the input
+    nudged = dict(batches[0], x=(batches[0]["x"] * np.float32(1 + 2 ** -23)
+                                 ).astype(np.float32))
+    with matmul_precision("float32"):
+        m_card, stats, card = training.loss_and_grads(model.module, params,
+                                                      batches[0])
+        cpu_params = training.params_of(model.module, "cpu")
+        t0 = time.perf_counter()
+        m_cpu, _, cpu = training.loss_and_grads(model.module, cpu_params,
+                                                batches[0])
+        cpu_s = time.perf_counter() - t0
+        _, _, cpu_nudged = training.loss_and_grads(model.module, cpu_params,
+                                                   nudged)
+
+    def rel_l2(a, b) -> dict:
+        fa, fb = training._flatten(a), training._flatten(b)
+        out = {}
+        for n, g in fb.items():
+            ref = g.double()
+            if ref.norm() > 0:          # BatchNorm's statistics: zero
+                out[n] = ((fa[n].double().cpu() - ref).norm()
+                          / ref.norm()).item()
+        return out
+
+    rel, sens = rel_l2(card, cpu), rel_l2(cpu_nudged, cpu)
+    zero = [n for n, g in training._flatten(card).items()
+            if n not in rel and bool(g.any())]
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) \
+        / abs(float(m_cpu["loss"]))
+    ms = sorted(t * 1e3 for t in times)
+    med_rel, med_sens = float(np.median(list(rel.values()))), \
+        float(np.median(list(sens.values())))
+    log({"phase": "resnet_train", "card": smi, "rows": RESNET_TRAIN_ROWS,
+         "steps": res.steps_run, "params": model.num_params(),
+         "first_step_ms": times[0] * 1e3, "median_step_ms": ms[len(ms) // 2],
+         "images_per_s": RESNET_TRAIN_ROWS / (ms[len(ms) // 2] / 1e3),
+         "peak_device_gb": peak_gb, "losses": losses,
+         "batchnorm_layers": len(stats), "stats_leaves": len(stats_names),
+         "unchanged_stats_per_step": [len(u) for u in unchanged],
+         "cpu_grads_seconds": cpu_s, "loss_rel_vs_cpu": loss_rel,
+         "grad_rel_l2_vs_cpu_max": rel[worst],
+         "grad_rel_l2_vs_cpu_worst_leaf": worst,
+         "grad_rel_l2_vs_cpu_median": med_rel,
+         "cpu_one_ulp_sensitivity_max": max(sens.values()),
+         "cpu_one_ulp_sensitivity_median": med_sens,
+         "fc_kernel_rel_vs_cpu": rel["fc.kernel"]})
+    if any(unchanged):
+        fail(f"resnet_train: BatchNorm statistics did not move: {unchanged}")
+    if len(stats) != 53 or not np.isfinite(losses).all():
+        fail(f"resnet_train: {len(stats)} BatchNorm layers wrote statistics "
+             f"(53 expected) or the loss is not finite ({losses})")
+    ratio = RESNET_GRAD_SENSITIVITY_RATIO
+    if loss_rel > RESNET_LOSS_REL or zero or rel[worst] > ratio * max(sens.values()) \
+            or med_rel > ratio * med_sens:
+        fail(f"resnet_train: step 1 against the CPU: loss {loss_rel} (bound "
+             f"{RESNET_LOSS_REL}); gradients max {rel[worst]} ({worst}) and "
+             f"median {med_rel} against {ratio} x the CPU's one-ulp "
+             f"sensitivity {max(sens.values())} / {med_sens}; nonzero "
+             f"gradients where the CPU's are zero: {zero}")
+    del model, state, res, card, cpu, cpu_nudged, params, cpu_params
+    torch.cuda.empty_cache()
+
+
+def moe_model(torch):
+    """The reference's sequence-benchmark model (``tools/bench_seq.py:41``:
+    dim 512, depth 4, 8 heads, vocab 32,000) at seq_len 2048 with every
+    block's FFN a top-1 switch MoE of 8 experts (hidden 2048, capacity
+    factor 1.5), and a 16-class per-token head: ``Embed``,
+    ``transformer_block(moe_experts=8)`` x 4, ``ln_f``, ``head`` (the
+    reference's ``transformer_encoder`` takes no ``moe_experts``)."""
+    from mmlspark_tpu_torch.models import (Dense, Embed, FunctionModel,
+                                           LayerNorm, Sequential,
+                                           transformer_block)
+
+    layers = [("embed", Embed(SEQ_VOCAB, SEQ_DIM))]
+    layers += [(f"block{i}", transformer_block(
+        SEQ_DIM, SEQ_HEADS, moe_experts=MOE_EXPERTS,
+        moe_capacity_factor=MOE_CAPACITY)) for i in range(SEQ_DEPTH)]
+    layers += [("ln_f", LayerNorm()), ("head", Dense(TRAIN_CLASSES))]
+    module = Sequential(layers, name="moe_encoder")
+    module.init(torch.Generator().manual_seed(0), (SEQ_LEN,))
+    return FunctionModel(module, (SEQ_LEN,),
+                         [n for n, _ in reversed(layers)], "moe_encoder")
+
+
+class PinnedRouting:
+    """Records each MoE layer's discrete routing in one forward (every
+    token's expert and capacity slot: ``MoE.routing``'s expert and dispatch)
+    and replays it in another, the gate taken from the replaying side's own
+    router probabilities at the recorded expert (the same value and
+    gradient as ``amax`` where the experts agree). Two runs then differ in
+    their arithmetic only, not in where tokens go: a near-tie of two router
+    logits that falls the other way moves a token to another expert, and
+    the capacity slots of the tokens after it, a jump no tolerance on the
+    arithmetic covers."""
+
+    def __init__(self, model):
+        self.moes = [model.module.get_submodule(f"block{i}.mlp.body.moe")
+                     for i in range(SEQ_DEPTH)]
+        self.saved = {}
+
+    def _recording(self, i, moe):
+        method = type(moe).routing
+
+        def routing(x):
+            expert, gate, dispatch = method(moe, x)
+            self.saved[i] = (expert.detach(), dispatch.detach())
+            return expert, gate, dispatch
+        return routing
+
+    def _replaying(self, i, moe):
+        import torch
+
+        def routing(x):
+            expert, dispatch = (t.to(x.device) for t in self.saved[i])
+            probs = torch.softmax(torch.matmul(x.to(torch.float32), moe.router),
+                                  dim=-1)
+            return expert, probs.gather(-1, expert[..., None])[..., 0], dispatch
+        return routing
+
+    def record(self):
+        return self._patched(self._recording)
+
+    def replay(self):
+        return self._patched(self._replaying)
+
+    def routes(self) -> tuple:
+        """([depth, B, T] experts, [depth, B, T] kept) of the last record."""
+        return (np.stack([self.saved[i][0].cpu().numpy()
+                          for i in range(len(self.moes))]),
+                np.stack([self.saved[i][1].sum(dim=(2, 3)).cpu().numpy() > 0
+                          for i in range(len(self.moes))]))
+
+    @contextlib.contextmanager
+    def _patched(self, make):
+        for i, moe in enumerate(self.moes):
+            moe.routing = make(i, moe)      # shadows the method on the instance
+        try:
+            yield
+        finally:
+            for moe in self.moes:
+                del moe.routing
+
+
+def _moe_taps(model, x) -> tuple:
+    """Every MoE layer's input ([depth] of [B, T, D]) and the output, from
+    one forward of the model (its own parameters, on ``x``'s device)."""
+    taps = [f"block{i}/mlp/body/ln" for i in range(SEQ_DEPTH)]
+    acts = model.apply_taps(x, taps + [None])
+    return [acts[t] for t in taps], acts[None].float().cpu().numpy()
+
+
+def _routes_of(model, inputs) -> tuple:
+    """Each MoE layer's routing ([depth, B, T] experts and kept) of the
+    given layer inputs, by the model's own MoE modules."""
+    experts, kept = [], []
+    for i, x in enumerate(inputs):
+        moe = model.module.get_submodule(f"block{i}.mlp.body.moe")
+        e, _, d = moe.routing(x)
+        experts.append(e.cpu().numpy())
+        kept.append(d.sum(dim=(2, 3)).cpu().numpy() > 0)
+    return np.stack(experts), np.stack(kept)
+
+
+def _leaf_rel(a, b) -> dict:
+    """Per leaf, the relative L2 distance of gradient tree ``a`` from
+    ``b``."""
+    from mmlspark_tpu_torch.models import training
+
+    fa, fb = training._flatten(a), training._flatten(b)
+    return {n: ((fa[n].double() - g.double()).norm()
+                / g.double().norm().clamp_min(1e-30)).item()
+            for n, g in fb.items()}
+
+
+def _exact_attention(q, k, v, causal=False, q_offset=0, k_offset=0):
+    """Attention in f64 from the bf16 q, k, v, rounded once to v's dtype:
+    the reference both K5-K7 and the plain version approximate."""
+    import math
+
+    import torch
+
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) \
+        / math.sqrt(q.shape[-1])
+    if causal:
+        tq, tk = q.shape[1], k.shape[1]
+        mask = torch.arange(tk, device=q.device)[None, :] \
+            > torch.arange(tq, device=q.device)[:, None]
+        s = s.masked_fill(mask, -math.inf)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v.double())
+    return o.to(v.dtype)
+
+
+def moe_grads(torch, model, params, batch, pin) -> dict:
+    """Step 1's gradients three ways on the card, the routing of the first
+    pinned for the other two: through K5-K7, through plain attention
+    (``MMLSPARK_TPU_NO_FLASH=1``, autograd) and through exact attention
+    (``_exact_attention``, autograd in f64)."""
+    import os
+
+    from mmlspark_tpu_torch.models import attention, training
+
+    out = {}
+    with pin.record():
+        out["kernels"] = training.loss_and_grads(model.module, params, batch)[2]
+    os.environ["MMLSPARK_TPU_NO_FLASH"] = "1"
+    try:
+        with pin.replay():
+            out["plain"] = training.loss_and_grads(model.module, params, batch)[2]
+    finally:
+        del os.environ["MMLSPARK_TPU_NO_FLASH"]
+    dense = attention.dense_attention
+    attention.dense_attention = _exact_attention
+    try:
+        with pin.replay():
+            out["exact"] = training.loss_and_grads(model.module, params, batch)[2]
+    finally:
+        attention.dense_attention = dense
+    return out
+
+
+def moe_main(torch, smi) -> dict:
+    """The switch-MoE sequence model (``moe_model``) on the card. Transform:
+    ``DNNModel(batchSize=64)`` over 256 rows of seeded token ids (4 batches),
+    K5 launched once a layer a batch (16, counted). Train: 10 steps of
+    ``run_train_loop`` at 8 x 2048 tokens (tag = token // 2000, SGD 0.01,
+    momentum 0.9), K5, K6 and K7 four times a step each (counted); the mean
+    loss of the last 3 steps below the first 3's; step 1's gradients through
+    K5-K7 no further from exact attention's (f64, autograd) than
+    ``F64_RATIO_MAX`` times the plain version's (relative L2 per leaf, the
+    largest and the median), the routing pinned to the kernels' run
+    (``PinnedRouting``; their distance from plain attention's gradients,
+    pinned and not, is logged: at this init the attention projections'
+    gradients are small differences, which bf16's roundings move by a few
+    percent either way). Card against CPU on 2 rows: the CPU's MoE layers
+    route the card's own MoE inputs as the card did (expert and slot) for
+    at least ``MOE_ROUTING_AGREE_MIN`` of the tokens of every layer (f32
+    near-ties apart), and with the card's routing pinned the CPU's logits
+    are within ``COS_GAP_MAX`` (1 - cosine per row) of the card's. Logs the
+    unpinned runs' routing agreement layer by layer (K5's and the plain
+    version's bf16 attention differ in the last bits, so a near-tie of two
+    router logits may fall either way and the flip changes that token's
+    later layers and the slots of the tokens after it), tokens/s of both
+    paths, the share of tokens dropped past capacity and peak memory.
+    Returns the K5-K7 launches of each path."""
+    import os
+
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.models import DNNModel, training
+
+    model = moe_model(torch)
+    ids = np.random.default_rng(SEED + 3).integers(0, SEQ_VOCAB,
+                                                   (SEQ_ROWS, SEQ_LEN))
+    df = DataFrame.from_dict({"tokens": ids}, num_partitions=2)
+    stage = DNNModel(inputCol="tokens", outputCol="logits",
+                     batchSize=SEQ_BATCH).set_model(model)
+    stage.transform(DataFrame.from_dict({"tokens": ids[:SEQ_BATCH]}))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_attn_launches()
+    t0 = time.perf_counter()
+    out = np.stack(list(stage.transform(df).column("logits")))
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t0
+    transform = read_attn_launches()
+    peak_transform = torch.cuda.max_memory_allocated() / 1e9
+    if out.shape != (SEQ_ROWS, SEQ_LEN, TRAIN_CLASSES) or not np.isfinite(out).all():
+        fail(f"moe_main: transform output of shape {out.shape} or not finite")
+    if transform["flash_attn"] != SEQ_DEPTH * SEQ_ROWS // SEQ_BATCH \
+            or transform["flash_attn_bwd_dkv"] or transform["flash_attn_bwd_dq"]:
+        fail(f"moe_main: the transform launched {transform}, expected K5 "
+             f"{SEQ_DEPTH * SEQ_ROWS // SEQ_BATCH} times and K6/K7 never")
+    del out
+
+    # card against CPU
+    x = torch.from_numpy(ids[:MOE_CPU_ROWS])
+    pin = PinnedRouting(model)
+    model.module.to(DEVICE)
+    with torch.inference_mode(), pin.record():
+        card_in, card_out = _moe_taps(model, x.to(DEVICE))
+    card_e, card_k = pin.routes()
+    card_in = [t.cpu() for t in card_in]
+    model.module.to("cpu")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        same_e, same_k = _routes_of(model, card_in)
+        free_in, _ = _moe_taps(model, x)
+        free_e, free_k = _routes_of(model, free_in)
+        with pin.replay():
+            cpu_in, cpu_out = _moe_taps(model, x)
+    cpu_s = time.perf_counter() - t0
+    same = ((same_e == card_e) & (same_k == card_k)).mean(axis=(1, 2))
+    free = ((free_e == card_e) & (free_k == card_k)).mean(axis=(1, 2))
+    gap = 1.0 - row_cosines(card_out, cpu_out)
+    with torch.no_grad():
+        router_rel = max(
+            (torch.matmul(a.float(), m.router) - torch.matmul(b.float(), m.router))
+            .abs().max().item() / torch.matmul(b.float(), m.router).abs().max().item()
+            for a, b, m in zip(card_in, cpu_in, pin.moes))
+    dropped = 1.0 - card_k.mean()
+    del card_in, free_in, cpu_in
+
+    # training
+    opt = training.make_optimizer(learning_rate=TRAIN_LR, momentum=0.9)
+    params = training.params_of(model.module, DEVICE)
+    state = training.TrainState(params, opt.init(params), 0)
+    step = training.make_train_step(model.module, opt)
+    batches = train_batches(MOE_TRAIN_STEPS, SEED + 4, TRAIN_ROWS, SEQ_LEN,
+                            SEQ_VOCAB, SEQ_VOCAB // TRAIN_CLASSES)
+    unpinned = grads_rel_l2(torch, model.module, params, batches[0])
+    grads = moe_grads(torch, model, params, batches[0], pin)
+    rel = _leaf_rel(grads["kernels"], grads["plain"])
+    err_k = _leaf_rel(grads["kernels"], grads["exact"])
+    err_p = _leaf_rel(grads["plain"], grads["exact"])
+    del grads
+    losses, times = [], []
+
+    def timed_step(st, batch):
+        t0 = time.perf_counter()
+        st, m = step(st, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        return st, m
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_attn_launches()
+    training.run_train_loop(state, timed_step, batches)
+    torch.cuda.synchronize()
+    train = read_attn_launches()
+    ms = sorted(t * 1e3 for t in times)
+    step_ms = ms[len(ms) // 2]
+    worst = max(rel, key=rel.get)
+    log({"phase": "moe_main", "card": smi, "experts": MOE_EXPERTS,
+         "capacity_factor": MOE_CAPACITY, "params": model.num_params(),
+         "transform_rows": SEQ_ROWS, "transform_seconds": transform_s,
+         "transform_tokens_per_s": SEQ_ROWS * SEQ_LEN / transform_s,
+         "transform_launches": transform,
+         "transform_peak_device_gb": peak_transform,
+         "dropped_share": float(dropped),
+         "dropped_share_per_layer": [float(1.0 - k.mean()) for k in card_k],
+         "cpu_rows": MOE_CPU_ROWS, "cpu_seconds": cpu_s,
+         "routing_same_inputs_agree_per_layer": same.tolist(),
+         "routing_unpinned_agree_per_layer": free.tolist(),
+         "pinned_cos_gap_max": float(gap.max()),
+         "pinned_router_logits_rel_max": router_rel,
+         "train_steps": MOE_TRAIN_STEPS, "train_rows": TRAIN_ROWS,
+         "train_first_step_ms": times[0] * 1e3, "train_median_step_ms": step_ms,
+         "train_tokens_per_s": TRAIN_ROWS * SEQ_LEN / (step_ms / 1e3),
+         "train_peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "train_launches": train, "losses": losses,
+         "grad_rel_l2_vs_plain_pinned_max": rel[worst],
+         "grad_rel_l2_vs_plain_pinned_worst": worst,
+         "grad_err_vs_exact_kernels_max": max(err_k.values()),
+         "grad_err_vs_exact_kernels_median": float(np.median(list(err_k.values()))),
+         "grad_err_vs_exact_kernels_worst": max(err_k, key=err_k.get),
+         "grad_err_vs_exact_plain_max": max(err_p.values()),
+         "grad_err_vs_exact_plain_median": float(np.median(list(err_p.values()))),
+         "grad_rel_l2_vs_plain_unpinned_max": max(unpinned.values()),
+         "grad_rel_l2_vs_plain_unpinned_worst": max(unpinned, key=unpinned.get)})
+    if same.min() < MOE_ROUTING_AGREE_MIN or gap.max() > COS_GAP_MAX:
+        fail(f"moe_main: card against CPU: on the same inputs the routing "
+             f"agrees on {same.tolist()} of the tokens (bound "
+             f"{MOE_ROUTING_AGREE_MIN}); with it pinned, 1 - cosine "
+             f"{gap.max()} (bound {COS_GAP_MAX})")
+    want = SEQ_DEPTH * MOE_TRAIN_STEPS
+    if any(v != want for v in train.values()):
+        fail(f"moe_main: training launched {train}, expected {want} each")
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    if not last < first or not np.isfinite(losses).all():
+        fail(f"moe_main: the loss did not fall: {losses}")
+    ek, ep = max(err_k.values()), max(err_p.values())
+    mk, mp = float(np.median(list(err_k.values()))), \
+        float(np.median(list(err_p.values())))
+    if ek > F64_RATIO_MAX * ep or mk > F64_RATIO_MAX * mp:
+        fail(f"moe_main: step 1's gradients through K5-K7 are {ek} (max) / "
+             f"{mk} (median) from exact attention's, the plain version's "
+             f"{ep} / {mp} (bound {F64_RATIO_MAX} x; routing pinned)")
+    del model, stage, state, params
+    torch.cuda.empty_cache()
+    return {"moe_main.transform": transform, "moe_main.train": train}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args()
@@ -4835,6 +5598,12 @@ def main() -> int:
     paths["train_transformer_causal"] = causal
     bilstm_train(torch, smi)
     log({"phase": "training", "seconds": time.perf_counter() - t_train})
+    for phase in (image_main, resnet_train, moe_main):
+        t_phase = time.perf_counter()
+        got = phase(torch, smi)
+        if got:
+            paths.update(got)
+        log({"phase": phase.__name__, "seconds": time.perf_counter() - t_phase})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []

@@ -10,7 +10,11 @@ Ported so far: the LightGBM-equivalent GBDT fit -> transform
 (``mmlspark_tpu_torch.gbdt``) over the columnar DataFrame
 (``mmlspark_tpu_torch.core``), on dense feature vectors and on sparse (CSR)
 rows, with fused scoring (``core.fusion``); transformer-encoder scoring
-through the ``DNNModel`` stage (``mmlspark_tpu_torch.models``); and serving
+and training through the ``DNNModel`` stage and ``models.training``
+(``mmlspark_tpu_torch.models``), with the switch-MoE FFN; the image path:
+ResNet (and torchvision checkpoints) through ``ImageFeaturizer`` and the
+image stages (``mmlspark_tpu_torch.image``, ``ops.image``,
+``io.image.read_images``); and serving
 of any fitted pipeline over HTTP (``mmlspark_tpu_torch.serving``, with the
 frame wire in ``mmlspark_tpu_torch.io`` and metrics, traces and SLOs in
 ``mmlspark_tpu_torch.obs``).

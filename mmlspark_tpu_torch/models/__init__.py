@@ -1,7 +1,9 @@
 """Neural-network models on PyTorch (the port of ``mmlspark_tpu.models``):
-the named-layer module system, the transformer encoder with K5 (the
-hand-written flash-attention kernel, ``csrc/flash_attn.cu``) on its
-attention and K6/K7 (``csrc/flash_attn_bwd.cu``) on its gradient, the
+the named-layer module system with the convolution, BatchNorm and pooling
+layers, the ResNet family and its torchvision import, the transformer
+encoder with K5 (the hand-written flash-attention kernel,
+``csrc/flash_attn.cu``) on its attention and K6/K7
+(``csrc/flash_attn_bwd.cu``) on its gradient, the switch-MoE FFN, the
 (Bi)LSTM tagger, the ``DNNModel`` pipeline stage, and the weights
 carry-over from the JAX reference. Training (``models.training``) and its
 checkpoints (``models.checkpoint``) are submodules, as in the reference."""
@@ -21,18 +23,30 @@ from .attention import (
 from .convert import load_jax_params
 from .dnn_model import DNNModel
 from .module import (
+    BatchNorm,
+    Conv2D,
     Dense,
     Fn,
     FunctionModel,
+    GlobalAvgPool,
+    MaxPool,
     Module,
     Residual,
     Sequential,
+    flatten,
     matmul_dtype,
     matmul_precision,
+    relu,
 )
+from .moe import MoE, expert_shardings
+from .resnet import build_resnet, param_shardings, resnet, resnet18, resnet50
+from .torch_import import from_torch_resnet
 
-__all__ = ["BiLSTM", "DNNModel", "Dense", "Embed", "Fn", "FunctionModel",
-           "LSTM", "LayerNorm", "Module", "MultiHeadAttention", "Residual",
-           "Sequential", "bilstm_tagger", "dense_attention", "flash_route",
+__all__ = ["BatchNorm", "BiLSTM", "Conv2D", "DNNModel", "Dense", "Embed", "Fn",
+           "FunctionModel", "GlobalAvgPool", "LSTM", "LayerNorm", "MaxPool",
+           "MoE", "Module", "MultiHeadAttention", "Residual", "Sequential",
+           "bilstm_tagger", "build_resnet", "dense_attention",
+           "expert_shardings", "flash_route", "flatten", "from_torch_resnet",
            "load_jax_params", "matmul_dtype", "matmul_precision",
+           "param_shardings", "relu", "resnet", "resnet18", "resnet50",
            "transformer_block", "transformer_encoder"]

@@ -24,11 +24,11 @@ parameters carry its key names (see ``module.py``): ``LayerNorm``
 (``scale``, ``bias``), ``Embed`` (``table``), ``MultiHeadAttention``
 (``wq``, ``wk``, ``wv``, ``wo``, each ``[dim, dim]``), ``LSTM`` (``wx``,
 ``wh``, ``b``) and ``BiLSTM`` (``fwd``, ``bwd``), and the builders
-``transformer_block``, ``transformer_encoder`` and ``bilstm_tagger``.
+``transformer_block`` (with the switch-MoE FFN of ``moe.py`` under
+``moe_experts``), ``transformer_encoder`` and ``bilstm_tagger``.
 
-Not ported yet, each raising ``NotImplementedError``: ring attention
-(``ring_axis``, multi-GPU, ROADMAP A9) and the mixture-of-experts FFN
-(``moe_experts``, A9).
+Not ported yet: ring attention (``ring_axis``, multi-GPU, ROADMAP A9)
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from . import flash_kernel
+from .moe import MoE
 from .module import (Dense, Fn, FunctionModel, Module, Residual, Sequential,
                      _param, compute_dtype, matmul)
 
@@ -227,22 +228,28 @@ def transformer_block(dim: int, num_heads: int, mlp_ratio: int = 4,
                       ring_axis_size: Optional[int] = None,
                       moe_experts: Optional[int] = None,
                       moe_capacity_factor: float = 1.5) -> Sequential:
-    """Pre-norm transformer block as a named Sequential (taps work)."""
-    if moe_experts:
-        raise NotImplementedError(
-            "the mixture-of-experts FFN (moe_experts) waits for ROADMAP A9")
+    """Pre-norm transformer block as a named Sequential (taps work).
+    ``moe_experts``: a switch-MoE of that many experts in place of the dense
+    FFN (``moe.MoE``, on one device)."""
     attn = Sequential([
         ("ln", LayerNorm()),
         ("attn", MultiHeadAttention(num_heads, causal=causal,
                                     ring_axis=ring_axis,
                                     ring_axis_size=ring_axis_size)),
     ])
-    mlp = Sequential([
-        ("ln", LayerNorm()),
-        ("fc1", Dense(dim * mlp_ratio)),
-        ("gelu", Fn(_gelu, _same_shape)),
-        ("fc2", Dense(dim)),
-    ])
+    if moe_experts:
+        mlp = Sequential([
+            ("ln", LayerNorm()),
+            ("moe", MoE(moe_experts, hidden=dim * mlp_ratio,
+                        capacity_factor=moe_capacity_factor)),
+        ])
+    else:
+        mlp = Sequential([
+            ("ln", LayerNorm()),
+            ("fc1", Dense(dim * mlp_ratio)),
+            ("gelu", Fn(_gelu, _same_shape)),
+            ("fc2", Dense(dim)),
+        ])
     return Sequential([
         ("attn", Residual(attn, activation=None)),
         ("mlp", Residual(mlp, activation=None)),

@@ -5,7 +5,9 @@ reference's ``FunctionModel.params``, passed as nested dicts of numpy
 arrays (``jax.tree.map(np.asarray, ref.params)``), key for key: the port's
 layers register their parameters under the reference's key names and
 shapes. ``Dense`` keeps the reference's ``[in, out]`` kernel layout, and so
-do the attention projections, so no weight is transposed. A missing key, an
+do the attention projections; ``Conv2D`` keeps its HWIO ``kernel``,
+``BatchNorm`` its ``scale``/``bias``/``mean``/``var`` and ``MoE`` its
+``router``/``w1``/``w2``, so no weight is transposed. A missing key, an
 extra key or a shape that differs raises; values are cast to the port
 parameter's dtype.
 

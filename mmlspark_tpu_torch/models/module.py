@@ -11,7 +11,7 @@ pytree's key names, so ``FunctionModel.params`` and the reference's
     input shape (batch dim excluded) from an explicit ``torch.Generator``;
     the forward is ``module(x)``;
   - named-layer taps: ``Sequential`` records the activations of the layer
-    paths asked for ("block0/attn", "block0/mlp/body/fc1", ...), so one
+    paths asked for ("block0/attn", "layer4/2/body/relu2", ...), so one
     forward can fetch several nodes (``FunctionModel.apply_taps``);
   - bf16 products with f32 results: ``matmul_dtype()`` (a context variable,
     bf16 by default, ``matmul_precision("float32")`` for exact comparisons)
@@ -19,27 +19,37 @@ pytree's key names, so ``FunctionModel.params`` and the reference's
     reference asks XLA for ``preferred_element_type=f32``; here the operands
     are rounded to bf16 and multiplied in f32, which gives the same products
     (a bf16 x bf16 product is exact in f32) summed in f32. A float32 product
-    needs TF32 off, PyTorch's default.
+    needs TF32 off, PyTorch's default for matmuls;
+  - ``Conv2D`` as the reference's: NHWC activations and an HWIO ``kernel``,
+    both rounded to ``matmul_dtype()``, and a result of that dtype (bf16
+    activations end to end). It runs ``F.conv2d`` (cuDNN on the card; the
+    reference's conv is XLA's, outside any Pallas kernel) on NCHW and OIHW
+    views of the same memory, with TF32 off for a float32 conv;
+  - ``BatchNorm`` (``scale``, ``bias``, ``mean``, ``var``): the moving
+    statistics at inference, the batch's (f32, population variance) in
+    training, which it writes into ``stats_out`` under its layer path for
+    ``training._apply_bn_ema``. The containers' forward takes ``train`` and
+    ``stats_out`` and hands both to it, as the reference's ``Sequential``
+    does;
+  - ``MaxPool`` pads with -inf and ``GlobalAvgPool`` returns the f32 mean;
+    ``"SAME"`` padding splits the remainder low/high as XLA does.
 
-The container layers' forward takes ``stats_out``, the reference's side
-channel for BatchNorm's batch statistics in training (``training.py``); no
-ported layer fills it yet.
-
-Not ported yet: the activation-sharding hooks (``activation_sharding``
-raises; mesh only, ROADMAP A9), and ``Conv2D``, ``BatchNorm``, ``MaxPool``
-and ``GlobalAvgPool`` with the image half of ROADMAP A7.
+Not ported: the activation-sharding hooks (``activation_sharding`` raises;
+mesh only, ROADMAP A9).
 """
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import dataclasses
 import hashlib
 import math
-from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
-                    Set, Tuple)
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
+                    Sequence, Set, Tuple)
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 _MATMUL_DTYPE: "contextvars.ContextVar[str]" = contextvars.ContextVar(
@@ -99,6 +109,22 @@ def matmul(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return torch.matmul(x.to(dt).to(acc), w.to(dt).to(acc))
 
 
+@contextlib.contextmanager
+def full_f32(dt: torch.dtype) -> Iterator[None]:
+    """TF32 off for cuDNN convolutions in the enclosed block when ``dt`` is
+    float32 (PyTorch allows TF32 there by default: a float32 conv would run
+    on 10-bit mantissas); any other dtype leaves the flag as it is."""
+    if dt != torch.float32:
+        yield
+        return
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t.contiguous())
 
@@ -145,14 +171,16 @@ class Sequential(Module):
             shape = layer.init(gen, shape)
         return shape
 
-    def forward(self, x, taps: Optional[Set[str]] = None,
+    def forward(self, x, train: bool = False, taps: Optional[Set[str]] = None,
                 taps_out: Optional[Dict[str, Any]] = None,
                 stats_out: Optional[Dict[str, Any]] = None, _prefix: str = ""):
         for lname, layer in self.layers:
             path = f"{_prefix}{lname}"
             if layer.is_container:
-                x = layer(x, taps=taps, taps_out=taps_out, stats_out=stats_out,
-                          _prefix=path + "/")
+                x = layer(x, train=train, taps=taps, taps_out=taps_out,
+                          stats_out=stats_out, _prefix=path + "/")
+            elif isinstance(layer, BatchNorm):
+                x = layer(x, train=train, stats_out=stats_out, _path=path)
             else:
                 x = layer(x)
             if taps is not None and taps_out is not None and path in taps:
@@ -195,6 +223,134 @@ class Fn(Module):
         return f"fn={getattr(fn, '__module__', '')}.{getattr(fn, '__qualname__', fn)}"
 
 
+def _relu_fn(x):
+    return torch.clamp_min(x, 0)
+
+
+def _identity_shape(s):
+    return s
+
+
+def _flatten_fn(x):
+    return x.reshape(x.shape[0], -1)
+
+
+def _flat_shape(s):
+    return (math.prod(s),)
+
+
+# module-level fns (not lambdas) so Fn modules pickle for persistence
+def relu() -> Fn:
+    return Fn(_relu_fn, _identity_shape)
+
+
+def flatten() -> Fn:
+    return Fn(_flatten_fn, _flat_shape)
+
+
+def _conv_out_dim(size: int, k: int, stride: int, pad) -> int:
+    """Output spatial dim for one axis; pad is 'SAME' | 'VALID' | (lo, hi)."""
+    if pad == "SAME":
+        return -(-size // stride)
+    if pad == "VALID":
+        return (size - k) // stride + 1
+    lo, hi = pad
+    return (size + lo + hi - k) // stride + 1
+
+
+def _axis_pads(padding, n_axes: int):
+    """Normalize a padding spec to per-axis entries for _conv_out_dim."""
+    if isinstance(padding, str):
+        return [padding] * n_axes
+    return list(padding)
+
+
+def _pad_pairs(padding, sizes, window, strides) -> List[Tuple[int, int]]:
+    """Per spatial axis, the (low, high) pad of a padding spec: XLA's
+    "SAME" puts the odd one of the total on the high side."""
+    out = []
+    for pad, n, k, s in zip(_axis_pads(padding, 2), sizes, window, strides):
+        if pad == "SAME":
+            total = max((-(-n // s) - 1) * s + k - n, 0)
+            out.append((total // 2, total - total // 2))
+        elif pad == "VALID":
+            out.append((0, 0))
+        else:
+            out.append((int(pad[0]), int(pad[1])))
+    return out
+
+
+def _norm_padding(padding):
+    return padding if isinstance(padding, str) else \
+        tuple((int(a), int(b)) for a, b in padding)
+
+
+def _nchw_padded(x: torch.Tensor, pads, window, value: float):
+    """The NCHW view of an NHWC ``x`` and the symmetric ``padding=`` the
+    torch op takes: pads it cannot express (uneven, or more than half the
+    window for a pool) are applied first with ``value``, a copy."""
+    v = x.permute(0, 3, 1, 2)
+    (t, b), (l, r) = pads
+    if t == b and l == r and t <= window[0] // 2 and l <= window[1] // 2:
+        return v, (t, l)
+    if t or b or l or r:
+        v = F.pad(v, (l, r, t, b), value=value)
+    return v, (0, 0)
+
+
+class Conv2D(Module):
+    """NHWC conv with an HWIO ``kernel`` (``[kh, kw, cin, cout]``), the
+    reference's layout; inputs and kernel in ``matmul_dtype()``, which is
+    also the result's dtype (as the reference's, which asks XLA for no wider
+    result). ``padding``: "SAME" | "VALID" | explicit ((top, bottom),
+    (left, right)) — the explicit form is exact for frameworks that pad
+    symmetrically where SAME splits the remainder low/high (torch
+    transplants, ``torch_import.py``). ``kernel_size`` is the reference's
+    ``kernel`` tuple (here ``kernel`` names the parameter)."""
+
+    def __init__(self, features: int, kernel: Tuple[int, int] = (3, 3),
+                 strides: Tuple[int, int] = (1, 1), padding="SAME",
+                 use_bias: bool = False):
+        super().__init__()
+        self.features = features
+        self.kernel_size = tuple(kernel)
+        self.strides = tuple(strides)
+        self.padding = _norm_padding(padding)
+        self.use_bias = use_bias
+
+    def init(self, gen, in_shape):
+        h, w, c = in_shape
+        kh, kw = self.kernel_size
+        std = torch.tensor(math.sqrt(2.0 / (kh * kw * c)), dtype=torch.float32)
+        self.kernel = _param(torch.randn(kh, kw, c, self.features,
+                                         generator=gen) * std)
+        if self.use_bias:
+            self.bias = _param(torch.zeros(self.features))
+        ph, pw = _axis_pads(self.padding, 2)
+        return (_conv_out_dim(h, kh, self.strides[0], ph),
+                _conv_out_dim(w, kw, self.strides[1], pw), self.features)
+
+    def forward(self, x):
+        dt = compute_dtype()
+        pads = _pad_pairs(self.padding, x.shape[1:3], self.kernel_size,
+                          self.strides)
+        v, sym = _nchw_padded(x.to(dt), pads, self.kernel_size, 0.0)
+        # OIHW view of the kernel, laid out channels-last as the input is
+        w = self.kernel.permute(3, 2, 0, 1).to(
+            dt, memory_format=torch.channels_last)
+        with full_f32(dt):
+            y = F.conv2d(v, w, stride=self.strides, padding=sym)
+        y = y.permute(0, 2, 3, 1)
+        if self.use_bias:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+    def extra_repr(self) -> str:
+        return (f"features={self.features}, kernel={self.kernel_size}, "
+                f"strides={self.strides}, padding={self.padding!r}, "
+                f"use_bias={self.use_bias}")
+
+
 class Dense(Module):
     """``y = x @ kernel + bias`` on the last dim. ``kernel`` keeps the
     reference's ``[in, out]`` layout (not ``nn.Linear``'s ``[out, in]``), so
@@ -225,6 +381,86 @@ class Dense(Module):
         return f"features={self.features}, use_bias={self.use_bias}"
 
 
+class BatchNorm(Module):
+    """BatchNorm over the last (channel) dim: the moving statistics at
+    inference; in training the batch's, in f32 over every other dim
+    (population variance), which it writes, detached, into
+    ``stats_out[_path]`` for the train step's moving-average update.
+    ``inv`` and ``shift`` are computed in f32 and rounded to ``x``'s dtype
+    before ``x * inv + shift``, as the reference's."""
+
+    def __init__(self, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+
+    def init(self, gen, in_shape):
+        c = in_shape[-1]
+        self.scale = _param(torch.ones(c))
+        self.bias = _param(torch.zeros(c))
+        self.mean = _param(torch.zeros(c))
+        self.var = _param(torch.ones(c))
+        return tuple(in_shape)
+
+    def forward(self, x, train: bool = False,
+                stats_out: Optional[Dict[str, Any]] = None, _path: str = ""):
+        if train:
+            dims = tuple(range(x.dim() - 1))
+            xf = x.to(torch.float32)
+            mean = xf.mean(dim=dims)
+            var = ((xf - mean) ** 2).mean(dim=dims)
+            if stats_out is not None:
+                # the statistics feed the moving averages, not the loss
+                stats_out[_path] = (mean.detach(), var.detach())
+        else:
+            mean, var = self.mean, self.var
+        inv = self.scale * torch.reciprocal(torch.sqrt(var + self.eps))
+        shift = self.bias - mean * inv
+        return x * inv.to(x.dtype) + shift.to(x.dtype)
+
+    def extra_repr(self) -> str:
+        return f"momentum={self.momentum}, eps={self.eps}"
+
+
+class MaxPool(Module):
+    """Max pooling on NHWC; ``padding`` like Conv2D's. Pads are -inf (pure
+    window semantics)."""
+
+    def __init__(self, window: Tuple[int, int] = (2, 2),
+                 strides: Optional[Tuple[int, int]] = None, padding="SAME"):
+        super().__init__()
+        self.window = tuple(window)
+        self.strides = tuple(strides or window)
+        self.padding = _norm_padding(padding)
+
+    def init(self, gen, in_shape):
+        h, w, c = in_shape
+        ph, pw = _axis_pads(self.padding, 2)
+        return (_conv_out_dim(h, self.window[0], self.strides[0], ph),
+                _conv_out_dim(w, self.window[1], self.strides[1], pw), c)
+
+    def forward(self, x):
+        pads = _pad_pairs(self.padding, x.shape[1:3], self.window,
+                          self.strides)
+        v, sym = _nchw_padded(x, pads, self.window, -math.inf)
+        return F.max_pool2d(v, self.window, self.strides,
+                            padding=sym).permute(0, 2, 3, 1)
+
+    def extra_repr(self) -> str:
+        return (f"window={self.window}, strides={self.strides}, "
+                f"padding={self.padding!r}")
+
+
+class GlobalAvgPool(Module):
+    """[B, H, W, C] -> the f32 mean over H and W, [B, C]."""
+
+    def init(self, gen, in_shape):
+        return (in_shape[-1],)
+
+    def forward(self, x):
+        return x.to(torch.float32).mean(dim=(1, 2))
+
+
 class Residual(Module):
     """``y = act(body(x) + shortcut(x))``; the shortcut projects when shapes
     change. ``activation``: "relu" (ResNet convention) or None (pre-norm
@@ -251,14 +487,14 @@ class Residual(Module):
                 f"Residual needs a projection shortcut: {in_shape} -> {out_shape}")
         return out_shape
 
-    def forward(self, x, taps: Optional[Set[str]] = None,
+    def forward(self, x, train: bool = False, taps: Optional[Set[str]] = None,
                 taps_out: Optional[Dict[str, Any]] = None,
                 stats_out: Optional[Dict[str, Any]] = None, _prefix: str = ""):
-        y = self.body(x, taps=taps, taps_out=taps_out, stats_out=stats_out,
-                      _prefix=_prefix + "body/")
+        y = self.body(x, train=train, taps=taps, taps_out=taps_out,
+                      stats_out=stats_out, _prefix=_prefix + "body/")
         s = x
         if self.shortcut is not None:
-            s = self.shortcut(x, taps=taps, taps_out=taps_out,
+            s = self.shortcut(x, train=train, taps=taps, taps_out=taps_out,
                               stats_out=stats_out,
                               _prefix=_prefix + "shortcut/")
         out = y + s
@@ -320,6 +556,9 @@ class FunctionModel:
     input_shape: Tuple[int, ...]
     layer_names: List[str] = dataclasses.field(default_factory=list)
     name: str = "model"
+    # image-input layout: the native modules are NHWC; an imported ONNX
+    # backbone is NCHW (ImageFeaturizer orients the pixels by it)
+    data_format: str = "NHWC"
     # device -> (parameter identity/version key, {name: tensor on device})
     _device_params: Dict[str, Tuple[Tuple, Dict[str, torch.Tensor]]] = \
         dataclasses.field(default_factory=dict, init=False, repr=False)
@@ -348,7 +587,8 @@ class FunctionModel:
         spec = tuple((n, tuple(p.shape), str(p.dtype))
                      for n, p in self.module.named_parameters())
         blob = repr((repr(self.module), tuple(self.input_shape),
-                     tuple(self.layer_names), self.name, spec)).encode()
+                     tuple(self.layer_names), self.name, self.data_format,
+                     spec)).encode()
         return "m:" + hashlib.sha256(blob).hexdigest()[:20]
 
     def device_params(self, device) -> Dict[str, torch.Tensor]:
@@ -425,14 +665,17 @@ class FunctionModel:
         {tap: activation}."""
         real = {t for t in taps if t is not None}
         taps_out: Dict[str, Any] = {}
+        # containers take ``train`` (BatchNorm's batch statistics)
+        kw = {"train": train} if self.module.is_container else {}
         with torch.inference_mode(not train):
             if real:
                 if not self.module.is_container:
                     raise ValueError(
                         "taps need a container root (Sequential/GraphModule)")
-                out = self._forward(x, params, taps=real, taps_out=taps_out)
+                out = self._forward(x, params, taps=real, taps_out=taps_out,
+                                    **kw)
             else:
-                out = self._forward(x, params)
+                out = self._forward(x, params, **kw)
         missing = real - set(taps_out)
         if missing:
             raise KeyError(f"Taps {sorted(missing)} not produced; known "

@@ -17,9 +17,10 @@ state handed to ``step`` stays as it was, as the reference's does).
     (``_decay_mask``), ``trace = g + momentum * trace``, ``p + (-lr) *
     trace``;
   - ``make_train_step``: the mean softmax cross-entropy of the module's
-    logits (``[B, K]`` or per-token ``[B, T, K]``, with an optional mask),
-    its gradient, the update, and BatchNorm's moving statistics folded in
-    from ``stats_out`` (``_apply_bn_ema``; no ported layer fills it yet);
+    logits (``[B, K]`` or per-token ``[B, T, K]``, with an optional mask)
+    from a forward with ``train=True``, its gradient, the update, and
+    BatchNorm's moving statistics folded in from ``stats_out``
+    (``_apply_bn_ema``: ``BatchNorm`` fills it with its batch statistics);
   - ``run_train_loop``: the step over a batch stream with checkpoints every
     ``every_k`` steps and on preemption (``PreemptionGuard``), resume from
     a checkpoint skipping the trained prefix, the ``TRAIN_STEP`` fault
@@ -52,7 +53,8 @@ import torch
 
 from ..core import faults
 from ..runtime import resolve_device
-from .module import Module, Sequential, _flatten, _nest
+from .module import (Module, Sequential, _flatten, _nest, compute_dtype,
+                     full_f32)
 
 _MESH_TODO = "mesh-sharded training is multi-GPU work: ROADMAP A9"
 
@@ -206,11 +208,23 @@ def loss_and_grads(module: Module, params: Dict[str, Any],
     leaves = {n: p.detach().requires_grad_(True)
               for n, p in _flatten(params).items()}
     stats: Dict[str, Any] = {}
-    kwargs = {"stats_out": stats} if isinstance(module, Sequential) else {}
-    with _deterministic(device), torch.enable_grad():
+    kwargs: Dict[str, Any] = {}
+    if module.is_container:
+        kwargs["train"] = True
+    if isinstance(module, Sequential):
+        kwargs["stats_out"] = stats
+    # the backward's convolutions run after the forward's TF32 guard: the
+    # whole step sits under it
+    with _deterministic(device), torch.enable_grad(), \
+            full_f32(compute_dtype()):
         logits = torch.func.functional_call(module, leaves, (x,), kwargs)
         loss = cross_entropy_loss(logits, y, mask)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        # BatchNorm's moving statistics take no part in a training forward:
+        # their gradient is zero, as under jax.grad
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, leaves.values())]
     with torch.no_grad():
         metrics = {"loss": loss.detach(), "accuracy": accuracy(logits, y, mask)}
     return metrics, stats, _nest(dict(zip(leaves, grads)))

@@ -17,7 +17,11 @@ in ``uses`` (``"native"`` or ``"numpy"``):
   - ``gbdt/binning.py``: ``bin_column`` / ``bin_matrix``;
   - ``gbdt/predict.py``: ``forest_predict_f64`` (``predict_ensemble``);
   - ``gbdt/sparse.py``: ``csr_forest_predict`` (host ``predict_csr``);
-  - ``gbdt/booster.py``: ``gbdt_grow_tree`` (the native engine).
+  - ``gbdt/booster.py``: ``gbdt_grow_tree`` (the native engine);
+  - ``ops/image.py``: ``resize_bilinear`` (the host ``resize``; the image
+    stages' and ImageFeaturizer's resize to the backbone's size).
+  ``unroll_chw`` is the reference's wrapper of the C unroll, which its
+  ``UnrollImage`` does not call either (it unrolls in numpy).
 
 Where the library cannot build, ``load()`` returns None and the consumers
 keep their numpy paths (the parity references); ``chip_smoke.py`` fails if
@@ -174,6 +178,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mml_forest_predict_f64.argtypes = [
         f64p, i64, i32, i32p, f64p, u8p, i32p, i32p, f64p, i32, i32, i32p,
         i32, f64p]
+    lib.mml_resize_bilinear_f32.argtypes = [f32p, i32, i32, i32, f32p, i32,
+                                            i32]
+    lib.mml_resize_bilinear_u8.argtypes = [u8p, i32, i32, i32, u8p, i32, i32]
+    lib.mml_unroll_chw_f64.argtypes = [u8p, i32, i32, i32, f64p, i32]
     lib.mml_bin_column_f64.argtypes = [f64p, i64, f64p, i32, i32p]
     lib.mml_bin_matrix_f64_u8.argtypes = [f64p, i64, i32, f64p, i64p, u8p]
     lib.mml_bin_matrix_f64_i32.argtypes = [f64p, i64, i32, f64p, i64p, i32p]
@@ -196,6 +204,46 @@ def _c(arr, dtype) -> np.ndarray:
 # Typed wrappers (None when the library is unavailable: the caller keeps its
 # numpy path)
 # ---------------------------------------------------------------------------
+
+
+def resize_bilinear(img: np.ndarray, oh: int, ow: int) -> Optional[np.ndarray]:
+    """HWC (or HW) uint8 or float32 image -> [oh, ow, C] bilinear resize
+    with half-pixel centres, weights in f64 (uint8 rounded half to even
+    and clamped): ``ops.image._resize_numpy``'s arithmetic."""
+    lib = load()
+    if lib is None:
+        return None
+    img = np.ascontiguousarray(img)
+    if img.ndim == 2:
+        img = img[:, :, None]
+    h, w, c = img.shape
+    if img.dtype == np.uint8:
+        dst = np.empty((oh, ow, c), dtype=np.uint8)
+        lib.mml_resize_bilinear_u8(_ptr(img, ctypes.c_uint8), h, w, c,
+                                   _ptr(dst, ctypes.c_uint8), oh, ow)
+        return dst
+    src = _c(img, np.float32)
+    dst = np.empty((oh, ow, c), dtype=np.float32)
+    lib.mml_resize_bilinear_f32(_ptr(src, ctypes.c_float), h, w, c,
+                                _ptr(dst, ctypes.c_float), oh, ow)
+    return dst
+
+
+def unroll_chw(img: np.ndarray, normalize: bool = False
+               ) -> Optional[np.ndarray]:
+    """HWC (or HW) uint8 image -> flat CHW float64 vector (/255 with
+    ``normalize``); None for another dtype or without the library."""
+    lib = load()
+    if lib is None or img.dtype != np.uint8:
+        return None
+    img = np.ascontiguousarray(img)
+    if img.ndim == 2:
+        img = img[:, :, None]
+    h, w, c = img.shape
+    out = np.empty(c * h * w, dtype=np.float64)
+    lib.mml_unroll_chw_f64(_ptr(img, ctypes.c_uint8), h, w, c,
+                           _ptr(out, ctypes.c_double), int(normalize))
+    return out
 
 
 def bin_column(vals: np.ndarray, edges: np.ndarray) -> Optional[np.ndarray]:

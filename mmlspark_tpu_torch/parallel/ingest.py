@@ -126,6 +126,11 @@ class PreprocessSpec:
             y = np.transpose(y, self._batch_axes(y.ndim))
         return y
 
+    def apply_host_row(self, img: np.ndarray) -> np.ndarray:
+        """``apply_host`` on one row (ImageFeaturizer's ``hostPreprocess``
+        path)."""
+        return self.apply_host(img[None])[0]
+
 
 # ---------------------------------------------------------------------------
 # IngestStats: per-batch ingest decomposition

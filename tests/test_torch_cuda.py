@@ -1409,3 +1409,90 @@ def test_k5_counted_through_mega_replays(cuda_device):
                    flash_kernel.launches)
     assert outs[1][1] == 4 * 2 and outs[2][1] == outs[1][1]
     assert np.array_equal(outs[2][0].view(np.uint32), outs[1][0].view(np.uint32))
+
+
+# ---------------------------------------------------------------- image path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strides,padding", [((1, 1), "SAME"), ((2, 2), "SAME"),
+                                             ((2, 2), ((1, 1), (1, 1)))])
+def test_conv_f32_on_the_card_is_not_tf32(cuda_device, strides, padding):
+    """A ResNet-sized conv under ``matmul_precision("float32")`` with
+    cuDNN's TF32 flag left on (PyTorch's default) against the same conv in
+    f64 on the card: within full-f32 error (TF32's 10-bit mantissas read
+    ~1e-3 here), and the flag as it was afterwards."""
+    from mmlspark_tpu_torch.models.module import Conv2D, matmul_precision
+
+    conv = Conv2D(64, (3, 3), strides, padding)
+    conv.init(torch.Generator().manual_seed(0), (56, 56, 64))
+    conv.to(cuda_device)
+    x = torch.randn(8, 56, 56, 64, generator=torch.Generator().manual_seed(1)
+                    ).to(cuda_device)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with matmul_precision("float32"), torch.inference_mode():
+            y = conv(x)
+        with matmul_precision("float64"), torch.inference_mode():
+            want = conv.double()(x.double())
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert y.dtype == torch.float32 and want.dtype == torch.float64
+    err = ((y.double() - want).abs().max() / want.abs().max()).item()
+    assert err < 1e-5, err
+
+
+@pytest.mark.cuda
+def test_image_featurizer_fused_bitwise_unfused_on_the_card(cuda_device):
+    """``PipelineModel([ImageTransformer().resize(64, 64).flip(1),
+    ImageFeaturizer(ResNet-50, width 16)]).fuse()`` on the card: the resize
+    in prepare, the flip and the forward on the device, bit for bit the
+    unfused chain, with no fallback."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.core.schema import ImageSchema
+    from mmlspark_tpu_torch.image import ImageFeaturizer, ImageTransformer
+    from mmlspark_tpu_torch.models import resnet
+
+    rng = np.random.default_rng(0)
+    rows = [ImageSchema.make(rng.integers(0, 256, (72, 80, 3), dtype=np.uint8))
+            for _ in range(20)]
+    df = DataFrame.from_dict({"image": rows}, num_partitions=2)
+    feat = ImageFeaturizer(batchSize=8, scaleFactor=1 / 255).set_model(
+        resnet(50, num_classes=10, image_size=64, width=16))
+    pm = PipelineModel([ImageTransformer().resize(64, 64).flip(1), feat])
+    want = np.stack(list(pm.transform(df).column("features")))
+    fused = pm.fuse()
+    got = np.stack(list(fused.transform(df).column("features")))
+    assert fused.fusion_stats()["fallbacks"] == []
+    assert got.shape == (20, 512) and np.isfinite(got).all()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_moe_block_on_the_card_matches_the_cpu(cuda_device, precision):
+    """A transformer block with a switch-MoE FFN (8 experts, capacity factor
+    1, tokens overflowing) on the card against the same block on the CPU: the
+    same routing, the output within 1e-5 (f32) or 2e-2 (bf16, a flip of
+    one bf16 intermediate) of the CPU's, relative to its max |value|."""
+    from mmlspark_tpu_torch.models import matmul_precision, transformer_block
+
+    block = transformer_block(64, 2, moe_experts=8, moe_capacity_factor=1.0)
+    block.init(torch.Generator().manual_seed(0), (256, 64))
+    x = torch.randn(4, 256, 64, generator=torch.Generator().manual_seed(1))
+    moe = block.mlp.body.moe
+    with matmul_precision(precision), torch.inference_mode():
+        cpu = block(x)
+        cpu_route = moe.routing(block.mlp.body.ln(x))
+        block.to(cuda_device)
+        card = block(x.to(cuda_device)).cpu()
+        card_route = [t.cpu() for t in moe.routing(
+            block.mlp.body.ln(x.to(cuda_device)))]
+    assert torch.equal(card_route[0], cpu_route[0])
+    assert torch.equal(card_route[2], cpu_route[2])
+    assert (cpu_route[2].sum(dim=(2, 3)) == 0).any()     # overflow dropped
+    tol = 1e-5 if precision == "float32" else 2e-2
+    assert ((card - cpu).abs().max() / cpu.abs().max()).item() < tol

@@ -55,9 +55,23 @@ and the optimizer's weight-decay mask equal; the train loop's resume,
 preemption and checkpoint round trip bit for bit (one process, the same
 torch ops). LSTM, BiLSTM and the tagger: f32 throughout on both sides
 (F32_TOL), the tagger's Dense head in bf16 by default (DEEP_BF16_TOL).
+
+The image path and the switch MoE against the reference, each constant
+beside its case: Conv2D, BatchNorm and the pools (f32 F32_TOL, bf16 one
+bf16 ulp, MaxPool bitwise, BatchNorm's batch statistics BN_STATS_RTOL);
+ResNet-18/50 carried over by load_jax_params and from_torch_resnet on the
+same seeded torchvision-layout state_dict (RESNET_F32_TOL, RESNET_BF16_TOL);
+the host image ops bitwise (resize on the native and the numpy path; the
+gray conversion within one level of the reference's BLAS sum, bitwise its
+batched mirror), the batched mirrors bitwise, resize_batch within
+RESIZE_BATCH_TOL; the image stages bitwise, fused and not; ImageFeaturizer
+end to end (RESNET_*_TOL), fused bitwise unfused; the BatchNorm EMA train
+step (1e-6) and a ResNet-18 step (RESNET_F32_TOL); MoE forward and
+gradients against jax.grad (MOE_TOL).
 """
 
 import contextlib
+import importlib
 import os
 
 import jax
@@ -95,11 +109,16 @@ from mmlspark_tpu_torch.models import (DNNModel, Dense, Embed, FunctionModel,
                                        transformer_block, transformer_encoder)
 from mmlspark_tpu_torch.models import checkpoint as port_checkpoint
 from mmlspark_tpu_torch.models import module as port_module
+from mmlspark_tpu_torch.models import moe as port_moe
 from mmlspark_tpu_torch.models import training
 from mmlspark_tpu_torch.models.convert import load_jax_train_state
 from mmlspark_tpu_torch.parallel import batching
 from mmlspark_tpu_torch.parallel.ingest import PreprocessSpec
 from mmlspark_tpu_torch.runtime import use_device
+
+# the packages export the builder function ``resnet`` over the submodule's
+# name
+port_resnet = importlib.import_module("mmlspark_tpu_torch.models.resnet")
 
 N_ROWS, N_FEATURES, DENSITY = 200, 32, 0.15
 PORT_VS_REF_ATOL = 1e-6   # tests/test_torch_gbdt.py, carried-model scoring
@@ -1037,7 +1056,9 @@ def test_dnn_model_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="A9"):
         transformer_encoder(**ENC, ring_axis="seq", ring_axis_size=2)
     with pytest.raises(NotImplementedError, match="A9"):
-        transformer_block(32, 2, moe_experts=4)
+        port_resnet.param_shardings(port.params, object())
+    with pytest.raises(NotImplementedError, match="A9"):
+        port_moe.expert_shardings(object(), port.params)
     with pytest.raises(NotImplementedError, match="A9"):
         port_module.activation_sharding(None)
     opt = training.make_optimizer()
@@ -3346,3 +3367,846 @@ def test_watchdog_hint_reads_the_fused_models_k(models):
     assert srv.transform.mega_k() == 1
     fused.set_tuning(mega_k={"LightGBMClassificationModel": 3})
     assert srv.transform.mega_k() == 3
+
+
+# ---------------------------------------------------------------------------
+# the image path: Conv2D, BatchNorm and pooling, ResNet and its torchvision
+# import, the image ops and stages, ImageFeaturizer; the switch MoE
+# ---------------------------------------------------------------------------
+
+from mmlspark_tpu.core.dataframe import DataFrame as _RefDF  # noqa: E402
+from mmlspark_tpu.core.schema import ImageSchema as RefImageSchema  # noqa: E402
+from mmlspark_tpu.image import featurizer as ref_featurizer  # noqa: E402
+from mmlspark_tpu.image import stages as ref_image_stages  # noqa: E402
+from mmlspark_tpu.models import moe as ref_moe  # noqa: E402
+from mmlspark_tpu.models import torch_import as ref_torch_import  # noqa: E402
+from mmlspark_tpu.ops import image as ref_imops  # noqa: E402
+from mmlspark_tpu_torch import native_loader  # noqa: E402
+from mmlspark_tpu_torch.core.schema import ImageSchema  # noqa: E402
+from mmlspark_tpu_torch.image import (ImageFeaturizer, ImageSetAugmenter,  # noqa: E402
+                                      ImageTransformer, ResizeImageTransformer,
+                                      UnrollBinaryImage, UnrollImage)
+from mmlspark_tpu_torch.models import torch_import as port_torch_import  # noqa: E402
+from mmlspark_tpu_torch.ops import image as port_imops  # noqa: E402
+
+ref_resnet = importlib.import_module("mmlspark_tpu.models.resnet")
+
+# A bf16 result against the reference's: one bf16 ulp of the value (both
+# round the same f32 sums; a sum in another order can land on the other
+# side of a rounding boundary). Measured: bitwise on every case here.
+BF16_ULP = 2.0 ** -8
+# ResNet logits/taps in f32: the reference's own bound for its forward
+# (tests/test_models.py, DNNModel against apply), scaled by the output's
+# max |value| where that passes 1 (random BatchNorm statistics grow the
+# logits to ~2e3; measured 8.9e-7 relative: f32 sums in another order)
+RESNET_F32_TOL = 1e-4
+# ResNet in bf16 against the reference, relative to each output's max
+# |value|: the activations are rounded to bf16 after every conv and
+# BatchNorm on both sides, and an f32 sum in another order can flip one
+# rounding, which later layers carry: DEEP_BF16_TOL's room for one flip.
+# Measured: every bf16 tap bit for bit, the f32 logits 1.1e-7
+RESNET_BF16_TOL = 2e-2
+# jax.image.resize ("linear", antialiased when it shrinks) against
+# F.interpolate(bilinear, antialias=True): the same filter weights, computed
+# in another order in float32 (measured max 2.4e-7 on N(0, 1) values;
+# "nearest" bit for bit)
+RESIZE_BATCH_TOL = 2e-6
+# BatchNorm's batch statistics: f32 sums of the same values in another
+# order (measured 3.8e-6 absolute on a variance of ~9: 4e-7 relative)
+BN_STATS_RTOL = 1e-6
+# MoE and its gradients against jax.grad: f32 sums of the expert products
+# in another order (f32), and with the bf16 operands rounded alike (bf16)
+MOE_TOL = 1e-5
+
+
+def _scale(w):
+    """The tolerances' unit: an output's max |value|, at least 1."""
+    return max(1.0, float(np.abs(w).max()))
+
+
+def _to_np(t):
+    """numpy f32 of a torch tensor or a JAX array (bf16 included)."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().numpy()
+    return np.asarray(jnp.asarray(t).astype(jnp.float32))
+
+
+def _dtype_name(t):
+    return str(t.dtype).replace("torch.", "")
+
+
+def _bn_stats(tree, rng):
+    """Non-trivial moving statistics in every BatchNorm dict of a params
+    tree (the reference inits them to 0 and 1)."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            if {"mean", "var"} <= set(v):
+                v["mean"] = (0.2 * rng.standard_normal(v["mean"].shape)
+                             ).astype(np.float32)
+                v["var"] = rng.uniform(0.5, 1.5, v["var"].shape).astype(np.float32)
+            else:
+                _bn_stats(v, rng)
+    return tree
+
+
+def _forward_pair(ref_mod, params, port_mod, x, f32, **kw):
+    """(reference, port) outputs as numpy f32, after checking both have the
+    same dtype; ``kw`` goes to both forwards."""
+    prec = "float32" if f32 else "bfloat16"
+    with ref_module.matmul_precision(prec):
+        ref = ref_mod.apply(params, jnp.asarray(x), **kw)
+    with matmul_precision(prec), torch.inference_mode():
+        got = port_mod(torch.from_numpy(x), **kw)
+    assert _dtype_name(got) == str(ref.dtype)
+    assert tuple(got.shape) == tuple(ref.shape)
+    return _to_np(ref), _to_np(got)
+
+
+def _assert_bf16_close(got, ref):
+    np.testing.assert_allclose(got, ref, rtol=BF16_ULP, atol=1e-30)
+
+
+CONV_CASES = [((3, 3), (1, 1), "SAME", 9), ((3, 3), (1, 1), "SAME", 8),
+              ((3, 3), (2, 2), "SAME", 10), ((3, 3), (2, 2), "SAME", 9),
+              ((7, 7), (2, 2), "SAME", 16), ((1, 1), (2, 2), "SAME", 8),
+              ((3, 3), (1, 1), "VALID", 9), ((3, 3), (2, 2), ((1, 1), (1, 1)), 10),
+              ((3, 3), (1, 1), ((0, 2), (1, 0)), 7)]
+
+
+@pytest.mark.parametrize("kernel,strides,padding,size", CONV_CASES)
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("f32", [True, False])
+def test_conv2d_matches_reference(kernel, strides, padding, size, bias, f32):
+    """SAME at strides 1 and 2 on odd and even sizes (XLA's low/high split),
+    VALID, explicit pairs (symmetric and not), with and without bias: f32
+    within F32_TOL, bf16 (the reference's output dtype) within a bf16 ulp."""
+    ref_mod = ref_module.Conv2D(6, kernel, strides, padding, use_bias=bias)
+    port = port_module.Conv2D(6, kernel, strides, padding, use_bias=bias)
+    params, port = _pair(ref_mod, port, (size, size, 4))
+    ref_shape = ref_mod.init(jax.random.key(0), (size, size, 4))[1]
+    assert port.init(torch.Generator(), (size, size, 4)) == ref_shape
+    load_jax_params(FunctionModel(port, (size, size, 4)), params)
+    ref, got = _forward_pair(ref_mod, params, port, _x((2, size, size, 4)), f32)
+    if f32:
+        np.testing.assert_allclose(got, ref, atol=F32_TOL, rtol=0)
+    else:
+        _assert_bf16_close(got, ref)
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("f32", [True, False])
+def test_batchnorm_matches_reference(train, f32):
+    """Inference (the moving statistics; inv and shift rounded to x's dtype
+    before x * inv + shift) and train (the batch's f32 statistics, written
+    to stats_out under the layer path)."""
+    params, port = _pair(ref_module.BatchNorm(), port_module.BatchNorm(), (5, 5, 8))
+    rng = np.random.default_rng(7)
+    params = _bn_stats({"bn": params}, rng)["bn"]
+    load_jax_params(FunctionModel(port, (5, 5, 8)), params)
+    x = (3.0 * _x((4, 5, 5, 8)) + 1.0).astype(np.float32)
+    xin = x if f32 else np.asarray(jnp.asarray(x).astype(jnp.bfloat16))
+    ref_st, st = {}, {}
+    ref = ref_module.BatchNorm().apply(params, jnp.asarray(xin), train=train,
+                                       stats_out=ref_st, _path="a/bn")
+    with torch.inference_mode():
+        tx = torch.from_numpy(x) if f32 else torch.from_numpy(x).to(torch.bfloat16)
+        got = port(tx, train=train, stats_out=st, _path="a/bn")
+    assert _dtype_name(got) == str(ref.dtype)
+    if f32:
+        np.testing.assert_allclose(_to_np(got), _to_np(ref), atol=F32_TOL, rtol=0)
+    else:
+        _assert_bf16_close(_to_np(got), _to_np(ref))
+    assert set(st) == set(ref_st) == ({"a/bn"} if train else set())
+    for (m, v), (rm, rv) in zip(st.values(), ref_st.values()):
+        np.testing.assert_allclose(m.numpy(), np.asarray(rm), rtol=BN_STATS_RTOL,
+                                   atol=BN_STATS_RTOL)
+        np.testing.assert_allclose(v.numpy(), np.asarray(rv), rtol=BN_STATS_RTOL,
+                                   atol=BN_STATS_RTOL)
+
+
+@pytest.mark.parametrize("padding", ["SAME", "VALID", ((1, 1), (1, 1)),
+                                     ((0, 2), (2, 0))])
+@pytest.mark.parametrize("size", [8, 9])
+@pytest.mark.parametrize("f32", [True, False])
+def test_pooling_matches_reference(padding, size, f32):
+    """MaxPool pads with -inf (all inputs negative: a zero pad would win),
+    bit for bit; GlobalAvgPool's f32 mean within F32_TOL."""
+    x = -np.abs(_x((2, size, size, 3))) - 1.0
+    if not f32:
+        x = np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+    dt = jnp.float32 if f32 else jnp.bfloat16
+    tdt = torch.float32 if f32 else torch.bfloat16
+    ref_mod = ref_module.MaxPool((3, 3), (2, 2), padding)
+    port = port_module.MaxPool((3, 3), (2, 2), padding)
+    assert port.init(None, (size, size, 3)) == ref_mod.init(None, (size, size, 3))[1]
+    ref = ref_mod.apply({}, jnp.asarray(x).astype(dt))
+    got = port(torch.from_numpy(x).to(tdt))
+    assert _dtype_name(got) == str(ref.dtype)
+    np.testing.assert_array_equal(_to_np(got), _to_np(ref))
+    ref = ref_module.GlobalAvgPool().apply({}, jnp.asarray(x).astype(dt))
+    got = port_module.GlobalAvgPool()(torch.from_numpy(x).to(tdt))
+    assert got.dtype == torch.float32 and ref.dtype == jnp.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=F32_TOL, rtol=0)
+
+
+def _resnet_pair(depth, size, width=8, classes=10):
+    """(reference FunctionModel, port FunctionModel) with the same weights:
+    the reference's init, BatchNorm scale/bias/statistics made
+    non-trivial."""
+    ref = ref_resnet.resnet(depth, num_classes=classes, image_size=size,
+                            width=width)
+    rng = np.random.default_rng(depth)
+    params = _bn_stats(_np_params(jax.tree.map(np.asarray, ref.params), rng), rng)
+    ref.params = jax.tree.map(jnp.asarray, params)
+    port = port_resnet.resnet(depth, num_classes=classes, image_size=size,
+                              width=width, seed=1)
+    load_jax_params(port, params)
+    return ref, port
+
+
+RESNET_TAPS = [None, "avgpool", "layer3", "stem/pool", "layer1/0/body/relu1"]
+
+
+@pytest.mark.parametrize("depth,size", [(18, 32), (50, 64)])
+@pytest.mark.parametrize("f32", [True, False])
+def test_resnet_matches_reference_with_taps(depth, size, f32):
+    """ResNet-18 (width 8, 32x32) and ResNet-50 (width 8, 64x64) carried
+    over by load_jax_params: the logits, the pooled features, layer3 and
+    inner taps in one forward."""
+    ref, port = _resnet_pair(depth, size)
+    assert port.module.layer_paths() == ref.module.layer_paths()
+    assert port.layer_names == ref.layer_names
+    x = _x((2, size, size, 3))
+    prec = "float32" if f32 else "bfloat16"
+    with ref_module.matmul_precision(prec):
+        want = ref.apply_taps(jnp.asarray(x), RESNET_TAPS)
+    with matmul_precision(prec):
+        got = port.apply_taps(torch.from_numpy(x), RESNET_TAPS)
+    for t in RESNET_TAPS:
+        assert _dtype_name(got[t]) == str(want[t].dtype), t
+        w, g = _to_np(want[t]), _to_np(got[t])
+        assert g.shape == w.shape and np.isfinite(g).all(), t
+        tol = (RESNET_F32_TOL if f32 else RESNET_BF16_TOL) * _scale(w)
+        np.testing.assert_allclose(g, w, atol=tol, rtol=0, err_msg=str(t))
+    assert got[None].shape == (2, 10)
+    assert got["avgpool"].shape == (2, 8 * 8 * (4 if depth == 50 else 1))
+
+
+def _torchvision_state_dict(depth, num_classes, seed, width=64):
+    """A torchvision-layout resnet``depth`` state_dict from seeded tensors:
+    its key names and shapes (OIHW convs, running statistics, the
+    ``num_batches_tracked`` counters), BatchNorm not trivial."""
+    gen = torch.Generator().manual_seed(seed)
+    kind, blocks = port_resnet._CONFIGS[depth]
+    sd = {}
+
+    def conv(key, cout, cin, k):
+        sd[key + ".weight"] = torch.randn(cout, cin, k, k, generator=gen) \
+            * (2.0 / (cin * k * k)) ** 0.5
+
+    def bn(key, c):
+        sd[key + ".weight"] = 1.0 + 0.1 * torch.randn(c, generator=gen)
+        sd[key + ".bias"] = 0.1 * torch.randn(c, generator=gen)
+        sd[key + ".running_mean"] = 0.2 * torch.randn(c, generator=gen)
+        sd[key + ".running_var"] = 0.5 + torch.rand(c, generator=gen)
+        sd[key + ".num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1", width, 3, 7)
+    bn("bn1", width)
+    in_ch = width
+    for i, n in enumerate(blocks):
+        ch = width * 2 ** i
+        for j in range(n):
+            stride = 2 if i > 0 and j == 0 else 1
+            tk = f"layer{i + 1}.{j}"
+            if kind == "bottleneck":
+                out = ch * 4
+                for c, (co, ci, k) in enumerate([(ch, in_ch, 1), (ch, ch, 3),
+                                                 (out, ch, 1)], 1):
+                    conv(f"{tk}.conv{c}", co, ci, k)
+                    bn(f"{tk}.bn{c}", co)
+            else:
+                out = ch
+                for c, ci in enumerate([in_ch, ch], 1):
+                    conv(f"{tk}.conv{c}", ch, ci, 3)
+                    bn(f"{tk}.bn{c}", ch)
+            if stride != 1 or in_ch != out:
+                conv(f"{tk}.downsample.0", out, in_ch, 1)
+                bn(f"{tk}.downsample.1", out)
+            in_ch = out
+    sd["fc.weight"] = torch.randn(num_classes, in_ch, generator=gen) * in_ch ** -0.5
+    sd["fc.bias"] = 0.1 * torch.randn(num_classes, generator=gen)
+    return sd
+
+
+@pytest.mark.parametrize("depth", [18, 50])
+def test_from_torch_resnet_matches_reference(depth, tmp_path):
+    """The same seeded torchvision-layout state_dict through both importers
+    (a mapping and a .pth path): the same params bit for bit; ResNet-18's
+    forward at 32x32 within RESNET_F32_TOL in f32 and RESNET_BF16_TOL in
+    bf16; a mismatch raises in both."""
+    sd = _torchvision_state_dict(depth, 7, seed=depth)
+    ref = ref_torch_import.from_torch_resnet(sd, depth=depth, image_size=32)
+    torch.save(sd, tmp_path / "r.pth")
+    port = port_torch_import.from_torch_resnet(str(tmp_path / "r.pth"),
+                                               depth=depth, image_size=32)
+    assert port.layer_names == ref.layer_names and port.name == ref.name
+    want = dict(_leaves(jax.tree.map(np.asarray, ref.params)))
+    got = dict(_leaves(port.params))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].detach().numpy(), v, err_msg=k)
+    if depth == 18:
+        x = _x((2, 32, 32, 3))
+        for prec in ("float32", "bfloat16"):
+            with ref_module.matmul_precision(prec):
+                w = np.asarray(ref.apply(jnp.asarray(x)))
+            with matmul_precision(prec):
+                g = port.apply(torch.from_numpy(x)).numpy()
+            tol = (RESNET_F32_TOL if prec == "float32" else RESNET_BF16_TOL) \
+                * _scale(w)
+            np.testing.assert_allclose(g, w, atol=tol, rtol=0, err_msg=prec)
+    other = 50 if depth == 18 else 18
+    with pytest.raises((ValueError, KeyError)):
+        ref_torch_import.from_torch_resnet(sd, depth=other)
+    with pytest.raises(ValueError):
+        port_torch_import.from_torch_resnet(sd, depth=other)
+    bad = dict(sd)
+    bad["fc.bias"] = torch.zeros(8)
+    with pytest.raises(ValueError, match="fc"):
+        port_torch_import.from_torch_resnet(bad, depth=depth)
+
+
+# ---- image ops
+
+
+def _u8(shape, seed=0):
+    return np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("src,dst", [((9, 7), (16, 12)), ((20, 14), (8, 8)),
+                                     ((256, 256), (224, 224)), ((5, 5), (5, 9))])
+@pytest.mark.parametrize("native", [True, False])
+def test_resize_matches_reference_bitwise(dtype, src, dst, native, monkeypatch):
+    """The host resize: the native bilinear kernel (the port's copy of the
+    reference's C source) and the numpy path, each bit for bit the
+    reference's; "nearest" too."""
+    img = _u8(src + (3,)) if dtype == np.uint8 else _x(src + (3,))
+    if not native:
+        monkeypatch.setattr(native_loader, "resize_bilinear", lambda *a: None)
+        want = ref_imops._resize_numpy(img, *dst)
+    else:
+        assert native_loader.available()
+        want = ref_imops.resize(img, *dst)
+    native_loader.uses.clear()
+    got = port_imops.resize(img, *dst)
+    assert got.dtype == want.dtype == dtype
+    np.testing.assert_array_equal(got, want)
+    assert native_loader.uses[("resize_bilinear",
+                               "native" if native else "numpy")] == 1
+    np.testing.assert_array_equal(port_imops.resize(img, *dst, method="nearest"),
+                                  ref_imops.resize(img, *dst, method="nearest"))
+
+
+@pytest.mark.parametrize("method", ["linear", "nearest"])
+@pytest.mark.parametrize("dst", [(16, 12), (4, 3), (7, 5)])
+def test_resize_batch_within_tolerance_of_reference(method, dst):
+    """The batched device resize against jax.image.resize, up and down
+    (antialiased down), within RESIZE_BATCH_TOL."""
+    x = _x((2, 8, 6, 3))
+    want = np.asarray(ref_imops.resize_batch(jnp.asarray(x), *dst, method=method))
+    got = port_imops.resize_batch(torch.from_numpy(x), *dst, method=method).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=RESIZE_BATCH_TOL, rtol=0)
+
+
+def _op_cases():
+    return [("crop", dict(cx=1, cy=2, height=4, width=3)),
+            ("flip", dict(flip_code=0)), ("flip", dict(flip_code=1)),
+            ("flip", dict(flip_code=-1)),
+            ("threshold", dict(thresh=100.0, max_val=255.0, kind="binary")),
+            ("threshold", dict(thresh=0.5, max_val=7.0, kind="binary_inv")),
+            ("threshold", dict(thresh=100.0, max_val=255.0, kind="trunc")),
+            ("threshold", dict(thresh=100.0, max_val=255.0, kind="tozero")),
+            ("threshold", dict(thresh=100.0, max_val=255.0, kind="tozero_inv")),
+            ("color_format", dict(code="gray")),
+            ("color_format", dict(code="bgr2rgb"))]
+
+
+@pytest.mark.parametrize("op,kw", _op_cases())
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_batched_mirrors_bitwise_equal_host_ops(op, kw, dtype):
+    """Each batched device mirror, on a [B, H, W, C] tensor, bit for bit the
+    host op on every image of the batch (and the reference's host op)."""
+    batch = _u8((3, 9, 7, 3)) if dtype == np.uint8 \
+        else (_x((3, 9, 7, 3)) * 100.0).astype(np.float32)
+    host_kw = dict(kw)
+    if op == "crop":
+        host_kw = dict(x=kw["cx"], y=kw["cy"], height=kw["height"], width=kw["width"])
+    got = getattr(port_imops, op + "_batch")(torch.from_numpy(batch), **kw).numpy()
+    for i in range(len(batch)):
+        want = getattr(port_imops, op)(batch[i], *host_kw.values())
+        ref = getattr(ref_imops, op)(batch[i], *host_kw.values())
+        if kw.get("code") == "gray":    # see test_gray_host_op_and_mirror...
+            np.testing.assert_allclose(want, ref, rtol=2.0 ** -23, atol=1)
+        else:
+            np.testing.assert_array_equal(want, ref)
+        if op == "threshold":       # the host op promotes to f64 exactly
+            want = want.astype(np.float32)
+        assert got[i].dtype == want.dtype
+        np.testing.assert_array_equal(got[i], want)
+
+
+def test_gray_host_op_and_mirror_agree_on_every_uint8_pixel():
+    """All 2^24 RGB uint8 pixels: the gray mirror bit for bit the host op
+    (both the spelled-out f32 sum); the reference's host op sums through
+    the BLAS's matvec, which rounds to the other gray level on 1,151 of
+    them (measured here; 0.007%), never by more than one level."""
+    a = np.arange(256, dtype=np.uint8)
+    px = np.stack(np.meshgrid(a, a, a, indexing="ij"), -1).reshape(1, -1, 1, 3)
+    host = port_imops.color_format(px[0], "gray")
+    dev = port_imops.color_format_batch(torch.from_numpy(px), "gray")[0].numpy()
+    np.testing.assert_array_equal(dev, host)
+    ref = ref_imops.color_format(px[0], "gray")
+    diff = np.abs(host.astype(np.int16) - ref)
+    assert diff.max() <= 1 and (diff > 0).mean() < 1e-4
+
+
+def test_fix_channels_and_unroll_batch_mirror_host():
+    gray = _u8((2, 4, 5, 1))
+    got = port_imops.fix_channels_batch(torch.from_numpy(gray), 3).numpy()
+    np.testing.assert_array_equal(got, np.repeat(gray, 3, axis=3))
+    want = np.asarray(ref_imops.fix_channels_batch(jnp.asarray(gray), 3))
+    np.testing.assert_array_equal(got, want)
+    rgba = _u8((2, 4, 5, 4))
+    np.testing.assert_array_equal(
+        port_imops.fix_channels_batch(torch.from_numpy(rgba), 3).numpy(),
+        rgba[..., :3])
+    np.testing.assert_array_equal(
+        port_imops.fix_channels_batch(torch.from_numpy(rgba[..., 0]), 1).numpy(),
+        rgba[..., :1])
+    flat = port_imops.unroll_batch_chw(torch.from_numpy(rgba)).numpy()
+    for i in range(2):
+        np.testing.assert_array_equal(flat[i].astype(np.float64),
+                                      port_imops.unroll_chw(rgba[i]))
+        np.testing.assert_array_equal(port_imops.unroll_chw(rgba[i]),
+                                      ref_imops.unroll_chw(rgba[i]))
+    np.testing.assert_array_equal(
+        flat, np.asarray(ref_imops.unroll_batch_chw(jnp.asarray(rgba))))
+
+
+def test_native_unroll_chw_and_decoders_match_reference():
+    img = _u8((6, 5, 3), seed=4)
+    np.testing.assert_array_equal(native_loader.unroll_chw(img),
+                                  port_imops.unroll_chw(img))
+    np.testing.assert_allclose(native_loader.unroll_chw(img, normalize=True),
+                               port_imops.unroll_chw(img, normalize=True),
+                               rtol=2.0 ** -52, atol=0)
+    assert native_loader.unroll_chw(img.astype(np.float32)) is None
+    ppm = port_imops.encode_ppm(img)
+    assert ppm == ref_imops.encode_ppm(img)
+    np.testing.assert_array_equal(port_imops._decode_builtin(ppm), img)
+    np.testing.assert_array_equal(port_imops.decode_image(ppm), img)
+    bmp = _bmp_bytes(img)
+    np.testing.assert_array_equal(port_imops._decode_builtin(bmp), img)
+    np.testing.assert_array_equal(port_imops.decode_image(bmp),
+                                  ref_imops.decode_image(bmp))
+    gray = port_imops.decode_image(b"P5\n3 2\n255\n" + bytes(range(6)))
+    assert gray.shape == (2, 3, 3)
+    assert port_imops.decode_image(b"not an image") is None
+    assert ref_imops.decode_image(b"not an image") is None
+
+
+def _bmp_bytes(img):
+    """A 24-bit BMP of an HWC uint8 image (bottom-up rows, BGR, rows padded
+    to 4 bytes), as tools/bench_image_e2e.py writes them."""
+    import struct
+
+    h, w, _ = img.shape
+    pad = (4 - (w * 3) % 4) % 4
+    size = (w * 3 + pad) * h
+    head = b"BM" + struct.pack("<IHHI", 54 + size, 0, 0, 54) + struct.pack(
+        "<IiiHHIIiiII", 40, w, h, 1, 24, 0, size, 2835, 2835, 0, 0)
+    return head + b"".join(row.tobytes() + b"\0" * pad
+                           for row in img[::-1, :, ::-1])
+
+
+# ---- image stages
+
+
+def _image_rows(n=6, h=10, w=8, seed=0):
+    rng = np.random.default_rng(seed)
+    arrays = [rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8) for _ in range(n)]
+    return arrays
+
+
+def _image_dfs(arrays, num_partitions=2, nulls=()):
+    """(reference DataFrame, port DataFrame) of the same image structs."""
+    def col(schema):
+        out = np.empty(len(arrays), dtype=object)
+        for i, a in enumerate(arrays):
+            out[i] = None if i in nulls else schema.make(a, origin=f"img{i}")
+        return out
+    ref = _RefDF.from_dict({"image": col(RefImageSchema), "label": list(range(len(arrays)))},
+                           num_partitions=num_partitions)
+    port = DataFrame.from_dict({"image": col(ImageSchema),
+                                "label": list(range(len(arrays)))},
+                               num_partitions=num_partitions)
+    return ref, port
+
+
+def _struct_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert {k: g[k] for k in g if k != "data"} == {k: w[k] for k in w if k != "data"}
+        assert g["data"].dtype == w["data"].dtype
+        np.testing.assert_array_equal(g["data"], w["data"])
+
+
+def _chains():
+    return [lambda t: t.resize(6, 6).flip(1).color_format("gray"),
+            lambda t: t.crop(1, 2, 5, 4).flip(-1).threshold(100.0),
+            lambda t: t.blur(3, 3).gaussian_kernel(3, 1.0).flip(0),
+            lambda t: t.color_format("bgr2rgb").threshold(0.5, 7.0, "tozero")]
+
+
+@pytest.mark.parametrize("chain", range(4))
+def test_image_transformer_matches_reference_and_fuses_bitwise(chain):
+    """ImageTransformer chains through the port and the reference (the
+    same host ops), then fused: the device-exact suffix on the batch, the
+    host prefix (resize, blurs) in prepare, dtype widened in finalize —
+    bit for bit the unfused output."""
+    ref_df, df = _image_dfs(_image_rows(), nulls=(3,))
+    build = _chains()[chain]
+    ref_t = build(ref_image_stages.ImageTransformer(inputCol="image", outputCol="out"))
+    t = build(ImageTransformer(inputCol="image", outputCol="out"))
+    want = ref_t.transform(ref_df).column("out")
+    with use_device("cpu"):
+        got = t.transform(df).column("out")
+        _struct_equal(got, want)
+        fused = PipelineModel([t]).fuse()
+        fo = fused.transform(df.dropna(subset=["image"])).column("out")
+    _struct_equal(fo, [w for w in want if w is not None])
+
+
+def test_resize_unroll_and_augment_match_reference():
+    arrays = _image_rows(n=4, h=9, w=7)
+    ref_df, df = _image_dfs(arrays)
+    for nch in (None, 1, 3):
+        kw = dict(inputCol="image", outputCol="r", height=5, width=6)
+        if nch is not None:
+            kw["nChannels"] = nch
+        want = ref_image_stages.ResizeImageTransformer(**kw).transform(ref_df).column("r")
+        got = ResizeImageTransformer(**kw).transform(df).column("r")
+        _struct_equal(got, want)
+    want = ref_image_stages.UnrollImage().transform(ref_df).column("unrolled")
+    got = UnrollImage().transform(df).column("unrolled")
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.float64
+        np.testing.assert_array_equal(g, w)
+    blobs = [ref_imops.encode_ppm(a) for a in arrays] + [b"junk"]
+    kw = dict(inputCol="value", outputCol="u", height=4, width=4)
+    want = ref_image_stages.UnrollBinaryImage(**kw).transform(
+        _RefDF.from_dict({"value": blobs})).column("u")
+    got = UnrollBinaryImage(**kw).transform(DataFrame.from_dict({"value": blobs})).column("u")
+    assert got[-1] is None and want[-1] is None
+    for g, w in zip(got[:-1], want[:-1]):
+        np.testing.assert_array_equal(g, w)
+    kw = dict(inputCol="image", outputCol="image", flipUpDown=True)
+    want = ref_image_stages.ImageSetAugmenter(**kw).transform(ref_df)
+    got = ImageSetAugmenter(**kw).transform(df)
+    assert got.count() == want.count() == 12
+    _struct_equal(got.column("image"), want.column("image"))
+
+
+# ---- ImageFeaturizer
+
+
+def _featurizer_pair(**kw):
+    ref_m, port_m = _resnet_pair(18, 16)
+    ref = ref_featurizer.ImageFeaturizer(inputCol="image", outputCol="f", batchSize=4,
+                                         **kw).set_model(ref_m)
+    port = ImageFeaturizer(inputCol="image", outputCol="f", batchSize=4,
+                           **kw).set_model(port_m)
+    return ref, port
+
+
+def _feature_rows(col):
+    return [None if r is None else np.asarray(r) for r in col]
+
+
+@pytest.mark.parametrize("cut", [1, 0, 3])
+@pytest.mark.parametrize("f32", [True, False])
+def test_image_featurizer_matches_reference(cut, f32):
+    """ImageFeaturizer end to end on 20x14 images resized to the
+    backbone's 16x16 (ResNet-18, width 8): the pooled features (cut 1),
+    the logits (cut 0) and layer3 (cut 3), f32 within RESNET_F32_TOL and
+    bf16 within RESNET_BF16_TOL of the reference's; null rows dropped."""
+    ref, port = _featurizer_pair(cutOutputLayers=cut, scaleFactor=1 / 255)
+    ref_df, df = _image_dfs(_image_rows(n=5, h=20, w=14), nulls=(2,))
+    prec = "float32" if f32 else "bfloat16"
+    with ref_module.matmul_precision(prec):
+        want = np.stack(_feature_rows(ref.transform(ref_df).column("f")))
+    with matmul_precision(prec), use_device("cpu"):
+        got = np.stack(_feature_rows(port.transform(df).column("f")))
+    assert got.shape == want.shape and got.shape[0] == 4
+    assert got.shape[1:] == {1: (64,), 0: (10,), 3: (1, 1, 32)}[cut]
+    tol = (RESNET_F32_TOL if f32 else RESNET_BF16_TOL) * _scale(want)
+    np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+
+
+def test_image_featurizer_bytes_keep_na_and_host_preprocess():
+    """From encoded bytes (PPM and BMP), keep-NA (dropNa=False: null and
+    undecodable rows come back None), and hostPreprocess=True (the float32
+    wire) bit for bit the uint8 wire with the cast on the device."""
+    ref, port = _featurizer_pair(dropNa=False)
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 256, (9, 9, 3), dtype=np.uint8) for _ in range(3)]
+    blobs = [port_imops.encode_ppm(imgs[0]), _bmp_bytes(imgs[1]), None, b"junk",
+             port_imops.encode_ppm(imgs[2])]
+    col = np.empty(len(blobs), dtype=object)
+    col[:] = blobs
+    with matmul_precision("float32"), ref_module.matmul_precision("float32"):
+        ref.set("inputCol", "data")
+        want = _feature_rows(ref.transform(_RefDF([{"data": col}])).column("f"))
+        port.set("inputCol", "data")
+        with use_device("cpu"):
+            got = _feature_rows(port.transform(DataFrame([{"data": col}])).column("f"))
+            port.set("hostPreprocess", True)
+            host = _feature_rows(port.transform(DataFrame([{"data": col}])).column("f"))
+    assert [g is None for g in got] == [w is None for w in want] \
+        == [False, False, True, True, False]
+    for g, w, h in zip(got, want, host):
+        if w is not None:
+            assert g.shape == (64,)
+            np.testing.assert_allclose(g, w, atol=RESNET_F32_TOL * _scale(w),
+                                       rtol=0)
+            np.testing.assert_array_equal(h, g)
+
+
+@pytest.mark.parametrize("upstream", [None, "resize_flip", "flip_gray"])
+def test_image_featurizer_fused_bitwise_unfused(upstream):
+    """PipelineModel([..., featurizer]).fuse() against the unfused chain,
+    bit for bit: the featurizer alone (decode/resize in prepare), behind an
+    ImageTransformer whose resize runs in prepare and flip on the device
+    (the featurizer then takes the device-resident batch), and behind a
+    device-only chain (flip + gray: the channel fix on the device)."""
+    _, port = _featurizer_pair(scaleFactor=1 / 255)
+    _, df = _image_dfs(_image_rows(n=9, h=16, w=16), num_partitions=2)
+    stages_ = []
+    if upstream == "resize_flip":
+        _, df = _image_dfs(_image_rows(n=9, h=20, w=14), num_partitions=2)
+        stages_.append(ImageTransformer().resize(16, 16).flip(1))
+    elif upstream == "flip_gray":
+        stages_.append(ImageTransformer().flip(0).color_format("gray"))
+    pm = PipelineModel(stages_ + [port])
+    with use_device("cpu"):
+        want = np.stack(_feature_rows(pm.transform(df).column("f")))
+        fused = pm.fuse()
+        got = np.stack(_feature_rows(fused.transform(df).column("f")))
+        stats = fused.fusion_stats()
+    np.testing.assert_array_equal(got, want)
+    assert stats["fallbacks"] == []
+    assert [s["kind"] for s in stats["segments"]] == ["fused"]
+
+
+def test_image_featurizer_nchw_branch_through_the_preprocess_transpose():
+    """A backbone that takes NCHW (imported ONNX models, ROADMAP A7d):
+    input_shape (C, H, W), the HWC rows moved to CHW by PreprocessSpec's
+    transpose on the device; fused and unfused alike."""
+    head = port_module.Sequential([
+        ("pool", port_module.Fn(_nchw_pool, _nchw_pool_shape)),
+        ("fc", Dense(4)),
+    ], name="nchw")
+    head.init(torch.Generator().manual_seed(0), (3, 6, 5))
+    model = FunctionModel(head, (3, 6, 5), ["fc", "pool"], "nchw",
+                          data_format="NCHW")
+    feat = ImageFeaturizer(inputCol="image", outputCol="f", batchSize=4,
+                           cutOutputLayers=1).set_model(model)
+    arrays = _image_rows(n=5, h=6, w=5)
+    _, df = _image_dfs(arrays)
+    with use_device("cpu"):
+        got = np.stack(list(feat.transform(df).column("f")))
+        fused = np.stack(list(PipelineModel([feat]).fuse().transform(df).column("f")))
+    want = np.stack([a.astype(np.float32).transpose(2, 0, 1).mean(axis=(1, 2))
+                     for a in arrays])
+    np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=0)
+    np.testing.assert_array_equal(fused, got)
+
+
+def _nchw_pool(x):
+    return x.mean(dim=(2, 3))
+
+
+def _nchw_pool_shape(s):
+    return (s[0],)
+
+
+def test_image_featurizer_save_load_bitwise(tmp_path):
+    from mmlspark_tpu_torch.core.pipeline import PipelineStage
+
+    _, port = _featurizer_pair(scaleFactor=1 / 255)
+    _, df = _image_dfs(_image_rows(n=3, h=16, w=16))
+    with use_device("cpu"):
+        want = np.stack(list(port.transform(df).column("f")))
+        port.save(str(tmp_path / "feat"))
+        loaded = PipelineStage.load(str(tmp_path / "feat"))
+        got = np.stack(list(loaded.transform(df).column("f")))
+    assert type(loaded) is ImageFeaturizer
+    np.testing.assert_array_equal(got, want)
+
+
+# ---- training with BatchNorm
+
+
+def _bn_module(ref):
+    mod = ref_module if ref else port_module
+    return mod.Sequential([("dense", mod.Dense(8)), ("bn", mod.BatchNorm()),
+                           ("relu", mod.relu()), ("head", mod.Dense(3))])
+
+
+def test_batchnorm_ema_train_step_matches_reference():
+    """The reference's BatchNorm EMA train step (tests/test_models.py)
+    through the port's make_train_step from the same params, three steps
+    in f32: params and moving statistics within 1e-6 of the reference's
+    (all O(1)), and the statistics moved."""
+    ref_mod, port = _bn_module(True), _bn_module(False)
+    params, _ = ref_mod.init(jax.random.key(0), (4,))
+    params = _np_tree(jax.tree.map(np.asarray, params))
+    port.init(torch.Generator(), (4,))
+    load_jax_params(FunctionModel(port, (4,)), params)
+    ref_opt = ref_training.make_optimizer(0.01, weight_decay=1e-3)
+    ref_state = ref_training.TrainState(jax.tree.map(jnp.asarray, params),
+                                        ref_opt.init(params), np.int32(0))
+    ref_step = jax.jit(ref_training.make_train_step(ref_mod, ref_opt))
+    port_opt = training.make_optimizer(0.01, weight_decay=1e-3)
+    step = training.make_train_step(port, port_opt)
+    tparams = jax.tree.map(torch.from_numpy, params)
+    state = training.TrainState(tparams, port_opt.init(tparams), 0)
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        batch = {"x": (rng.normal(size=(16, 4)) * 5 + 2).astype(np.float32),
+                 "y": (np.arange(16) % 3).astype(np.int32)}
+        with ref_module.matmul_precision("float32"):
+            ref_state, _ = ref_step(ref_state, batch)
+        with matmul_precision("float32"):
+            state, _ = step(state, batch)
+        want = dict(_leaves(jax.tree.map(np.asarray, ref_state.params)))
+        for name, g in _leaves(state.params):
+            np.testing.assert_allclose(g.numpy(), want[name], atol=1e-6, rtol=0,
+                                       err_msg=f"step {i} {name}")
+    assert not np.allclose(state.params["bn"]["mean"].numpy(), 0.0)
+    assert not np.allclose(state.params["bn"]["var"].numpy(), 1.0)
+
+
+def test_resnet_train_step_matches_reference():
+    """One f32 step of ResNet-18 (width 8, 64x64, 8 rows) from the same
+    params: the gradients (zero for the moving statistics), then params
+    with the statistics' moving averages, per leaf relative to its max
+    |value|, within RESNET_F32_TOL. Batch statistics over few values make
+    the gradients ill-conditioned (at 16x16 and 4 rows, 4 values a channel
+    at layer4: 1.3e-4 in f32, and bf16's roundings part the gradients by
+    up to 20%), so bf16 is held on the forward only."""
+    ref, port = _resnet_pair(18, 64, classes=4)
+    params = jax.tree.map(np.asarray, ref.params)
+    opt = dict(learning_rate=0.1, momentum=0.9, weight_decay=1e-3)
+    ref_opt = ref_training.make_optimizer(**opt)
+    ref_state = ref_training.TrainState(ref.params, ref_opt.init(ref.params),
+                                        np.int32(0))
+    port_opt = training.make_optimizer(**opt)
+    tparams = jax.tree.map(torch.from_numpy, params)
+    state = training.TrainState(tparams, port_opt.init(tparams), 0)
+    rng = np.random.default_rng(3)
+    batch = {"x": rng.normal(size=(8, 64, 64, 3)).astype(np.float32),
+             "y": rng.integers(0, 4, 8).astype(np.int32)}
+    tol = RESNET_F32_TOL
+    prec = "float32"
+
+    def loss(p):
+        logits = ref.module.apply(p, jnp.asarray(batch["x"]), train=True,
+                                  stats_out={})
+        return ref_training.cross_entropy_loss(logits, jnp.asarray(batch["y"]))
+
+    with ref_module.matmul_precision(prec):
+        want_g = jax.grad(loss)(ref.params)
+        ref_state, ref_m = ref_training.make_train_step(ref.module, ref_opt)(
+            ref_state, batch)
+    with matmul_precision(prec):
+        _, stats, got_g = training.loss_and_grads(port.module, state.params, batch)
+        state, m = training.make_train_step(port.module, port_opt)(state, batch)
+    assert len(stats) == 20      # the stem, 8 blocks x 2 and 3 shortcuts
+    _assert_tree_close(got_g, want_g, tol, "grads")
+    assert float(got_g["stem"]["bn"]["mean"].abs().max()) == 0.0
+    _assert_tree_close(state.params, ref_state.params, tol, "params")
+    assert abs(float(m["loss"]) - float(ref_m["loss"])) <= tol * abs(float(ref_m["loss"]))
+
+
+# ---- the switch MoE
+
+
+def _moe_pair(experts, cf, in_shape=(16, 8), hidden=None):
+    ref_mod = ref_moe.MoE(experts, hidden=hidden, capacity_factor=cf)
+    params, _ = ref_mod.init(jax.random.key(experts), in_shape)
+    params = jax.tree.map(np.asarray, params)
+    port = port_moe.MoE(experts, hidden=hidden, capacity_factor=cf)
+    assert port.init(torch.Generator(), in_shape) == in_shape
+    load_jax_params(FunctionModel(port, in_shape), params)
+    return ref_mod, params, port
+
+
+@pytest.mark.parametrize("experts,cf", [(4, 2.0), (4, 0.5), (2, 1e-9), (8, 1.5)])
+@pytest.mark.parametrize("f32", [True, False])
+def test_moe_matches_reference_with_grads(experts, cf, f32):
+    """The switch MoE on [2, 16, 8] tokens: routing (the same expert for
+    every token, the same dropped tokens past capacity; cf 0.5 and 1e-9
+    overflow), the output, and the gradients of a seeded cotangent against
+    jax.grad, per leaf and for the input, within MOE_TOL."""
+    ref_mod, params, port = _moe_pair(experts, cf)
+    x = _x((2, 16, 8), seed=experts)
+    cot = _x((2, 16, 8), seed=11)
+    prec = "float32" if f32 else "bfloat16"
+
+    def ref_loss(p, xx):
+        return jnp.sum(ref_mod.apply(p, xx) * jnp.asarray(cot))
+
+    with ref_module.matmul_precision(prec):
+        want = np.asarray(ref_mod.apply(params, jnp.asarray(x)))
+        want_gp, want_gx = jax.grad(ref_loss, argnums=(0, 1))(
+            jax.tree.map(jnp.asarray, params), jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    with matmul_precision(prec):
+        out = port(tx)
+        expert, _, dispatch = port.routing(tx.detach())
+        (out * torch.from_numpy(cot)).sum().backward()
+    got = out.detach().numpy()
+    assert got.dtype == want.dtype == np.float32
+    logits = np.einsum("btd,de->bte", x, params["router"])
+    np.testing.assert_array_equal(expert.numpy(), np.argmax(logits, -1))
+    kept = dispatch.sum(dim=(2, 3)).numpy()
+    if cf < 1:
+        assert (kept == 0).any()          # tokens past capacity drop
+    np.testing.assert_array_equal(np.abs(want).sum(-1) > 0, kept > 0)
+    scale = max(np.abs(want).max(), 1e-30)
+    np.testing.assert_allclose(got, want, atol=MOE_TOL * scale, rtol=0)
+    grads = {n: p.grad for n, p in port.named_parameters()}
+    _assert_tree_close(grads, want_gp, MOE_TOL, "moe grads")
+    gx = np.asarray(want_gx)
+    np.testing.assert_allclose(tx.grad.numpy(), gx,
+                               atol=MOE_TOL * max(np.abs(gx).max(), 1e-30), rtol=0)
+
+
+@pytest.mark.parametrize("f32", [True, False])
+def test_transformer_block_with_moe_matches_reference(f32):
+    """``transformer_block(32, 2, moe_experts=4)``: the block with its
+    switch-MoE FFN against the reference's (its layer paths too)."""
+    ref_mod = ref_attention.transformer_block(32, 2, moe_experts=4)
+    params, port = _pair(ref_mod, transformer_block(32, 2, moe_experts=4), (16, 32))
+    assert port.layer_paths() == ref_mod.layer_paths()
+    assert "mlp/body/moe" in port.layer_paths()
+    ref, got = _run(ref_mod, params, port, _x((2, 16, 32)), f32)
+    np.testing.assert_allclose(got, ref, atol=F32_TOL if f32 else DEEP_BF16_TOL,
+                               rtol=0)

@@ -71,7 +71,14 @@ def test_clean_import_pulls_in_no_jax_and_no_reference():
                 "mmlspark_tpu_torch.core.costmodel",
                 "mmlspark_tpu_torch.core.tune",
                 "mmlspark_tpu_torch.obs.perf",
-                "mmlspark_tpu_torch.parallel.batching"):
+                "mmlspark_tpu_torch.parallel.batching",
+                "mmlspark_tpu_torch.models.resnet",
+                "mmlspark_tpu_torch.models.torch_import",
+                "mmlspark_tpu_torch.models.moe",
+                "mmlspark_tpu_torch.ops.image",
+                "mmlspark_tpu_torch.io.image",
+                "mmlspark_tpu_torch.image.stages",
+                "mmlspark_tpu_torch.image.featurizer"):
         assert mod in out["imported"]
 
 
@@ -325,6 +332,64 @@ def test_loading_a_saved_stage_pulls_in_no_jax_and_no_reference(tmp_path,
     assert out["cls"] == ("LightGBMClassificationModel"
                           if what == "categorical_model" else "PipelineModel")
     np.testing.assert_array_equal(np.asarray(out["raw"]), raw)
+
+
+_FEATURIZER_PROBE = r"""
+import json, sys
+import numpy as np
+from mmlspark_tpu_torch.core.pipeline import PipelineStage
+from mmlspark_tpu_torch.io.image import read_images
+from mmlspark_tpu_torch.runtime import use_device
+stage = PipelineStage.load(sys.argv[1])
+with use_device("cpu"):
+    out = stage.transform(read_images(sys.argv[2]))
+feats = np.stack(list(out.column("features")))
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "jaxlib", "mmlspark_tpu")
+             or k.startswith(("jax.", "jaxlib.", "mmlspark_tpu.")))
+print(json.dumps({"bad": bad, "features": feats.tolist(),
+                  "paths": [str(p) for p in out.column("path")],
+                  "cls": type(stage).__name__}))
+"""
+
+
+def test_loading_a_saved_image_featurizer_pulls_in_no_jax_and_no_reference(
+        tmp_path):
+    """An ImageFeaturizer (a ResNet-18 backbone, width 8) the port saved
+    loads in a fresh process and featurizes images read from a directory
+    (PPM files through ``io.image.read_images``) without importing ``jax``
+    or ``mmlspark_tpu``, with the features it had."""
+    from mmlspark_tpu_torch.image import ImageFeaturizer
+    from mmlspark_tpu_torch.io.image import read_images
+    from mmlspark_tpu_torch.models import resnet
+    from mmlspark_tpu_torch.ops.image import encode_ppm
+    from mmlspark_tpu_torch.runtime import use_device
+
+    rng = np.random.default_rng(5)
+    imgs = tmp_path / "imgs"
+    imgs.mkdir()
+    for i in range(3):
+        (imgs / f"{i}.ppm").write_bytes(
+            encode_ppm(rng.integers(0, 256, (20, 14, 3), dtype=np.uint8)))
+    (imgs / "broken.ppm").write_bytes(b"not an image")
+    stage = ImageFeaturizer(inputCol="image", outputCol="features",
+                            batchSize=2, scaleFactor=1 / 255).set_model(
+        resnet(18, num_classes=10, image_size=16, width=8))
+    with use_device("cpu"):
+        df = read_images(str(imgs))
+        want = np.stack(list(stage.transform(df).column("features")))
+    assert df.count() == 3            # the undecodable file dropped
+    stage.save(str(tmp_path / "stage"))
+    proc = subprocess.run([sys.executable, "-c", _FEATURIZER_PROBE,
+                           str(tmp_path / "stage"), str(imgs)],
+                          cwd=str(ROOT), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == [] and out["cls"] == "ImageFeaturizer"
+    assert [pathlib.Path(p).name for p in out["paths"]] == ["0.ppm", "1.ppm",
+                                                          "2.ppm"]
+    np.testing.assert_array_equal(np.asarray(out["features"], np.float32), want)
 
 
 # ------------------------------------------------------------ native loader
