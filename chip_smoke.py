@@ -306,13 +306,38 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    CPU: the routing of the same MoE inputs, and the logits with the card's
    routing pinned (``PinnedRouting``); the loss falling; step 1's
    gradients through K5-K7 against exact attention's, no further than the
-   plain version's (``F64_RATIO_MAX``), the routing pinned.
+   plain version's (``F64_RATIO_MAX``), the routing pinned;
+27. onnx_main: the ResNet-50 of 24 exported with ``onnx.export_onnx`` and
+   imported back with ``onnx.import_onnx`` (a ``GraphModule`` on NCHW),
+   ``ImageFeaturizer(batchSize=128, cutOutputLayers=1)`` over the same 512
+   seeded BMPs on the card: every row within ``ONNX_COS_GAP`` (1 - cosine)
+   of the native module's features, both f32; images/s, forward ms a batch,
+   peak memory, export and import seconds;
+28. onnx_multi_input: a BERT-base-shaped encoder (google-research/bert
+   ``uncased_L-12_H-768_A-12``, 128 tokens) written as ONNX by
+   ``bert_onnx`` from seeded weights, with two graph inputs fed through
+   ``DNNModel.setFeedDict`` over 1,024 seeded sequences: the first 16
+   against the port on the CPU within ``BERT_CPU_REL``; sequences/s, peak
+   memory;
+29. vw_main: 200,000 Criteo-shaped rows (``criteo_like``) through
+   ``VowpalWabbitFeaturizer(numBits=18)`` and ``VowpalWabbitClassifier``
+   (the native pass), transformed on the card, then an FTRL fit and an
+   adaptive fit with ``MMLSPARK_TPU_NATIVE_VW=0``, each one pass of
+   ``vw_scan`` (``csrc/vw_scan.cu``; launches counted from 0 around the
+   two: exactly 2): vw_scan against its plain version on a 20,000-example
+   prefix and the adaptive kernel fit against the native one within
+   ``VW_RTOL``/``VW_ATOL``, two calls bit for bit, the transform within
+   ``VW_PREDICT_REL`` of the host f64 dot.
 
 Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``, after a ``{"kernels": [...]}`` line that
 lists K1-K7 (hist, select, csr_gather, sparse_hist, flash_attn,
 flash_attn_bwd_dkv, flash_attn_bwd_dq; K6's and K7's main path is
-train_transformer's 20 steps), each with its launches on its main path, error
+train_transformer's 20 steps) and vw_scan (not a TPU kernel: the VW
+learner's pass; its main path is vw_main's two scan fits, its ms, plain_ms
+and bound on the 20,000-example prefix, with the 200,000-row pass's ms and
+bound and the native pass's ms beside them), each with its launches on its
+main path, error
 against its plain version, ms, plain_ms, bound_ms, bound_by and library_ms, and
 its launches on the new paths (``launches_on_new_paths``: dense_variants and
 its GOSS scan, ranker_main, categorical_main, sparse_variants and its compacted
@@ -5504,6 +5529,473 @@ def moe_main(torch, smi) -> dict:
     return {"moe_main.transform": transform, "moe_main.train": train}
 
 
+# ---------------------------------------------------------------- ONNX, VW
+
+ONNX_COS_GAP = 1e-5     # onnx_main: 1 - cosine, imported vs native, f32
+# onnx_multi_input: google-research/bert uncased_L-12_H-768_A-12, 128 tokens
+BERT_VOCAB = 30_522
+BERT_HIDDEN = 768
+BERT_HEADS = 12
+BERT_FFN = 3072
+BERT_LAYERS = 12
+BERT_SEQ = 128
+BERT_ROWS = 1024
+BERT_BATCH = 64
+BERT_CHECK_ROWS = 16
+BERT_CPU_REL = 1e-4     # card against the port on the CPU, f32, of max |x|
+# vw_main: tools/bench_vw.py's accelerator point, shaped like Criteo's
+# Display Advertising Challenge (13 integer and 26 categorical columns)
+VW_ROWS = 200_000
+VW_BITS = 18
+VW_INT_COLS = 13
+VW_CAT_COLS = 26
+VW_PREFIX = 20_000
+VW_RTOL = 1e-3          # the reference's bound between its two engines
+VW_ATOL = 2e-4          # (tests/test_vw.py:453)
+VW_PREDICT_REL = 1e-6   # transform against the host f64 dot, of sum |w v|
+
+
+def bert_onnx(vocab: int, hidden: int, heads: int, ffn: int, layers: int,
+              seq: int, seed: int) -> bytes:
+    """A BERT-shaped encoder written as an ONNX graph with the port's proto
+    writer, from seeded weights (N(0, 0.02), LayerNorm scale 1 and bias 0).
+    Two graph inputs, ``input_ids`` (int64) and ``attention_mask`` (int64,
+    1 for a token, 0 for padding): word embeddings (Gather) plus position
+    embeddings, LayerNormalization (eps 1e-12), per layer MatMul/Softmax
+    self-attention with the additive mask ((1 - mask) * -10000), the output
+    projection, a residual and LayerNormalization, and a Gelu FFN with its
+    residual and LayerNormalization. The output is the first token's
+    hidden state, [B, hidden]."""
+    from mmlspark_tpu_torch.onnx import proto as P
+
+    rng = np.random.default_rng(seed)
+    dh = hidden // heads
+    nodes, inits = [], []
+
+    def init(name, arr):
+        inits.append(P.make_tensor(name, np.ascontiguousarray(arr)))
+        return name
+
+    def normal(*shape):
+        return (rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(0.02))
+
+    def node(op, ins, out, **attrs):
+        nodes.append(P.make_node(op, ins, [out], name=out, **attrs))
+        return out
+
+    def layer_norm(x, key):
+        s = init(f"{key}.scale", np.ones(hidden, np.float32))
+        b = init(f"{key}.bias", np.zeros(hidden, np.float32))
+        return node("LayerNormalization", [x, s, b], f"{key}", axis=-1,
+                    epsilon=1e-12)
+
+    def dense(x, key, d_in, d_out):
+        w = init(f"{key}.w", normal(d_in, d_out))
+        b = init(f"{key}.b", np.zeros(d_out, np.float32))
+        return node("Add", [node("MatMul", [x, w], f"{key}.matmul"), b],
+                    f"{key}")
+
+    init("heads_shape", np.asarray([0, 0, heads, dh], np.int64))
+    init("hidden_shape", np.asarray([0, 0, hidden], np.int64))
+    init("mask_axes", np.asarray([1, 2], np.int64))
+    init("one", np.asarray(1.0, np.float32))
+    init("neg", np.asarray(-10000.0, np.float32))
+    init("scale", np.asarray(1.0 / np.sqrt(dh), np.float32))
+    init("first", np.asarray(0, np.int64))
+    init("token_axis", np.asarray([1], np.int64))
+    word = init("embeddings.word", normal(vocab, hidden))
+    pos = init("embeddings.position", normal(seq, hidden))
+    x = node("Gather", [word, "input_ids"], "embeddings.lookup", axis=0)
+    x = node("Add", [x, pos], "embeddings.sum")
+    x = layer_norm(x, "embeddings.ln")
+    m = node("Cast", ["attention_mask"], "mask.float", to=1)
+    m = node("Sub", ["one", m], "mask.inv")
+    m = node("Mul", [m, "neg"], "mask.add")
+    m = node("Unsqueeze", [m, "mask_axes"], "mask.b11t")
+    for li in range(layers):
+        key = f"layer{li}"
+        heads_of = {}
+        for proj, perm in (("q", [0, 2, 1, 3]), ("k", [0, 2, 3, 1]),
+                           ("v", [0, 2, 1, 3])):
+            y = dense(x, f"{key}.{proj}", hidden, hidden)
+            y = node("Reshape", [y, "heads_shape"], f"{key}.{proj}.heads")
+            heads_of[proj] = node("Transpose", [y], f"{key}.{proj}.t",
+                                  perm=perm)
+        sc = node("MatMul", [heads_of["q"], heads_of["k"]], f"{key}.scores")
+        sc = node("Mul", [sc, "scale"], f"{key}.scaled")
+        sc = node("Add", [sc, m], f"{key}.masked")
+        pr = node("Softmax", [sc], f"{key}.softmax", axis=-1)
+        ctx = node("MatMul", [pr, heads_of["v"]], f"{key}.context")
+        ctx = node("Transpose", [ctx], f"{key}.context.t", perm=[0, 2, 1, 3])
+        ctx = node("Reshape", [ctx, "hidden_shape"], f"{key}.context.merge")
+        a = dense(ctx, f"{key}.attn_out", hidden, hidden)
+        x = layer_norm(node("Add", [x, a], f"{key}.attn_res"), f"{key}.ln1")
+        h = node("Gelu", [dense(x, f"{key}.ffn1", hidden, ffn)],
+                 f"{key}.gelu")
+        f = dense(h, f"{key}.ffn2", ffn, hidden)
+        x = layer_norm(node("Add", [x, f], f"{key}.ffn_res"), f"{key}.ln2")
+    # the writer stores a 0-d index as [1] (np.ascontiguousarray), so the
+    # gather keeps a length-1 token axis: squeezed
+    out = node("Squeeze", [node("Gather", [x, "first"], "cls.gather", axis=1),
+                           "token_axis"], "cls")
+    return P.make_model(
+        nodes, inits,
+        [P.make_value_info("input_ids", [None, seq], P.DT_INT64),
+         P.make_value_info("attention_mask", [None, seq], P.DT_INT64)],
+        [P.make_value_info(out, [None, hidden])], graph_name="bert_encoder")
+
+
+def bert_inputs(n: int, seq: int, vocab: int, seed: int):
+    """Seeded token ids and masks: each sequence a [CLS]-like id 101, then
+    uniform ids past the vocabulary's first 1,000 (its specials; a tenth of
+    it in a small vocabulary) up to a length uniform in [seq / 8, seq],
+    zeros after."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(max(1, seq // 8), seq + 1, n)
+    mask = (np.arange(seq)[None, :] < lengths[:, None]).astype(np.int64)
+    ids = rng.integers(min(1000, vocab // 10), vocab, (n, seq)) \
+        .astype(np.int64) * mask
+    ids[:, 0] = 101 % vocab
+    return ids, mask
+
+
+def onnx_main(torch, smi) -> None:
+    """ResNet-50 (the torchvision layout, image_main's seeded state_dict)
+    exported with the port's ``export_onnx`` and imported back with
+    ``import_onnx`` (a ``GraphModule``, NCHW), then ``ImageFeaturizer(
+    batchSize=128, cutOutputLayers=1)`` over image_main's 512 seeded
+    256x256 BMPs on the card. Gate: every row's 1 - cosine against the
+    native module's features on the same images, both f32 (TF32 off),
+    within ``ONNX_COS_GAP``. Logs images/s, the forward's ms a batch, peak
+    memory, and the export and import seconds."""
+    import os
+    import tempfile
+
+    from mmlspark_tpu_torch.image import ImageFeaturizer
+    from mmlspark_tpu_torch.io.image import read_images
+    from mmlspark_tpu_torch.models import from_torch_resnet, matmul_precision
+    from mmlspark_tpu_torch.onnx import export_onnx, import_onnx
+    from mmlspark_tpu_torch.parallel.ingest import PreprocessSpec
+
+    model = from_torch_resnet(torchvision_resnet_state(torch, 50, 1000, SEED))
+    t0 = time.perf_counter()
+    blob = export_onnx(model.module, None, (IMG_SIZE, IMG_SIZE, 3),
+                       name="resnet50")
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    imported = import_onnx(blob)
+    import_s = time.perf_counter() - t0
+
+    def featurizer(m):
+        return ImageFeaturizer(inputCol="image", outputCol="features",
+                               scaleFactor=1 / 255, batchSize=IMG_BATCH,
+                               cutOutputLayers=1).set_model(m)
+
+    rng = np.random.default_rng(0)     # image_main's images
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(IMG_COUNT):
+            write_bmp(os.path.join(tmp, f"img_{i:05d}.bmp"),
+                      rng.integers(0, 256, (IMG_SRC, IMG_SRC, 3), dtype=np.uint8))
+        df = read_images(tmp, num_partitions=4).cache()
+        feat = featurizer(imported)
+        _features(feat.transform(df.limit(IMG_BATCH)))   # cuDNN's first calls
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = _features(feat.transform(df))
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with matmul_precision("float32"):
+            want = _features(featurizer(model).transform(df))
+    node = imported.layer_names[1]
+    spec = PreprocessSpec(scale=1 / 255, transpose=(2, 0, 1))
+    params = imported.device_params(DEVICE)
+    xb = torch.from_numpy(rng.integers(0, 256, (IMG_BATCH, IMG_SIZE, IMG_SIZE, 3),
+                                       dtype=np.uint8)).to(DEVICE)
+    batch_ms = time_ms(torch, lambda: imported.apply_taps(
+        spec.apply_device(xb), [node], params=params)[node], 5, 2)
+    gap = 1.0 - row_cosines(got, want)
+    log({"phase": "onnx_main", "card": smi, "images": IMG_COUNT,
+         "onnx_bytes": len(blob), "nodes": len(imported.module.nodes),
+         "export_seconds": export_s, "import_seconds": import_s,
+         "e2e_seconds": e2e_s, "e2e_images_per_s": IMG_COUNT / e2e_s,
+         "forward_ms_per_batch": batch_ms,
+         "device_images_per_s": IMG_BATCH / (batch_ms / 1e3),
+         "peak_device_gb": peak_gb, "cut": node,
+         "features_shape": list(got.shape),
+         "cos_gap_max": float(gap.max()),
+         "rel_diff_max": float(_row_rel_diff(got, want).max())})
+    if got.shape != (IMG_COUNT, 2048) or not np.isfinite(got).all():
+        fail(f"onnx_main: features of shape {got.shape} or not finite")
+    if gap.max() > ONNX_COS_GAP:
+        fail(f"onnx_main: imported ResNet-50's features against the native "
+             f"module's: 1 - cosine {gap.max()} (bound {ONNX_COS_GAP})")
+    del blob, imported, model, params, xb
+    torch.cuda.empty_cache()
+
+
+def onnx_multi_input(torch, smi) -> None:
+    """``bert_onnx`` at BERT-base's widths (vocab 30,522, hidden 768, 12
+    heads, FFN 3,072, 12 layers, 128 tokens) imported with ``import_onnx``
+    and served through ``DNNModel(batchSize=64)`` with ``setFeedDict`` over
+    two columns (``input_ids``, ``attention_mask``) on 1,024 seeded
+    sequences. Gate: the card's output for the first 16 against the port
+    on the CPU, f32, within ``BERT_CPU_REL`` of the max |x|. Logs
+    sequences/s and peak memory."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.models import DNNModel
+    from mmlspark_tpu_torch.onnx import import_onnx
+    from mmlspark_tpu_torch.runtime import use_device
+
+    t0 = time.perf_counter()
+    blob = bert_onnx(BERT_VOCAB, BERT_HIDDEN, BERT_HEADS, BERT_FFN,
+                     BERT_LAYERS, BERT_SEQ, SEED)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = import_onnx(blob)
+    import_s = time.perf_counter() - t0
+    ids, mask = bert_inputs(BERT_ROWS, BERT_SEQ, BERT_VOCAB, SEED)
+    df = DataFrame.from_dict({"ids": list(ids), "mask": list(mask)},
+                             num_partitions=2)
+
+    def stage(batch):
+        return DNNModel(outputCol="emb", batchSize=batch).set_model(
+            model).set_feed_dict({"input_ids": "ids", "attention_mask": "mask"})
+
+    dnn = stage(BERT_BATCH)
+    dnn.transform(df.limit(BERT_BATCH))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = _features(dnn.transform(df), "emb")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    small = df.limit(BERT_CHECK_ROWS)
+    card = _features(stage(BERT_CHECK_ROWS).transform(small), "emb")
+    t0 = time.perf_counter()
+    with use_device("cpu"):
+        cpu = _features(stage(BERT_CHECK_ROWS).transform(small), "emb")
+    cpu_s = time.perf_counter() - t0
+    rel = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    log({"phase": "onnx_multi_input", "card": smi, "sequences": BERT_ROWS,
+         "tokens": BERT_ROWS * BERT_SEQ, "layers": BERT_LAYERS,
+         "onnx_bytes": len(blob), "build_seconds": build_s,
+         "import_seconds": import_s, "seconds": secs,
+         "sequences_per_s": BERT_ROWS / secs, "peak_device_gb": peak_gb,
+         "output_shape": list(out.shape), "cpu_rows": BERT_CHECK_ROWS,
+         "cpu_seconds": cpu_s, "card_vs_cpu_rel": rel,
+         "e2e_vs_check_rows_max_diff": float(
+             np.abs(out[:BERT_CHECK_ROWS] - card).max())})
+    if out.shape != (BERT_ROWS, BERT_HIDDEN) or not np.isfinite(out).all():
+        fail(f"onnx_multi_input: output of shape {out.shape} or not finite")
+    if rel > BERT_CPU_REL:
+        fail(f"onnx_multi_input: card against CPU {rel} of max |x| (bound "
+             f"{BERT_CPU_REL})")
+    del blob, model
+    torch.cuda.empty_cache()
+
+
+def criteo_like(n: int, seed: int):
+    """Seeded columns shaped like Criteo's display-ads rows: I1-I13 counts
+    (log-normal, 8% missing, some zeros; a count above 2 as floor(ln(v)^2),
+    the Criteo competition winners' transform) and C1-C26 categorical ids (8 hex
+    digits, Zipf-drawn from per-column vocabularies of 10 to 100,000
+    values, 3% missing); the label (about 25% positive) from a seeded
+    logistic model over the columns."""
+    rng = np.random.default_rng(seed)
+    cols = {}
+    logit = np.full(n, -1.4)
+    for j in range(VW_INT_COLS):
+        v = np.floor(rng.lognormal(1.0 + 0.2 * j, 1.2, n)).astype(np.int64)
+        v[rng.random(n) < 0.1] = 0
+        # the Criteo winners' transform of a count (v > 2: floor(ln(v)^2)),
+        # as VW pipelines feed them
+        v = np.where(v > 2, np.floor(np.log(np.maximum(v, 1)) ** 2),
+                     v).astype(np.int64)
+        logit += rng.normal(0, 0.15) * np.sqrt(v)
+        col = np.empty(n, dtype=object)
+        col[:] = list(v)
+        col[rng.random(n) < 0.08] = None
+        cols[f"I{j + 1}"] = col
+    for j in range(VW_CAT_COLS):
+        size = int(10 * 10 ** (4 * j / (VW_CAT_COLS - 1)))
+        codes = np.minimum(rng.zipf(1.3, n) - 1, size - 1)
+        effect = rng.normal(0, 0.4, size)
+        logit += effect[codes]
+        salt = int(rng.integers(0, 2 ** 31))
+        vocab = np.array([f"{(k * 2654435761 + salt) & 0xFFFFFFFF:08x}"
+                          for k in range(size)], dtype=object)
+        col = vocab[codes]
+        col[rng.random(n) < 0.03] = None
+        cols[f"C{j + 1}"] = col
+    cols["label"] = (rng.random(n) < 1 / (1 + np.exp(-logit))).astype(np.float64)
+    return cols
+
+
+def vw_main(torch, smi) -> dict:
+    """The VW path at tools/bench_vw.py's accelerator point: 200,000
+    Criteo-shaped rows through ``VowpalWabbitFeaturizer(numBits=18)``, then
+    ``VowpalWabbitClassifier`` (logistic) fit on its default route (the
+    native C++ pass) and transformed on the card; then one FTRL pass and
+    one adaptive pass with ``MMLSPARK_TPU_NATIVE_VW=0``, both through
+    ``vw_scan`` on the card (its launches counted from 0 around them).
+    Gates: (a) ``vw_scan`` against its plain version on the card on a
+    20,000-example prefix (adaptive and FTRL), and the adaptive kernel pass
+    against the native pass, within ``VW_RTOL``/``VW_ATOL``; (b) two kernel
+    calls bit for bit; (c) the transform against the host f64 dot within
+    ``VW_PREDICT_REL`` of each row's sum |w v|. Returns vw_scan's row of
+    the kernels line."""
+    import os
+
+    from mmlspark_tpu_torch import native_loader
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.vw import (LearnerConfig, SparseDataset,
+                                       VowpalWabbitClassifier,
+                                       VowpalWabbitFeaturizer)
+    from mmlspark_tpu_torch.vw import learner as vl
+    from mmlspark_tpu_torch.vw import scan_kernel as vs
+
+    t0 = time.perf_counter()
+    cols = criteo_like(VW_ROWS, SEED)
+    gen_s = time.perf_counter() - t0
+    in_cols = [f"I{j + 1}" for j in range(VW_INT_COLS)] + \
+        [f"C{j + 1}" for j in range(VW_CAT_COLS)]
+    df = DataFrame.from_dict(cols, num_partitions=4)
+    vs.launches = 0
+    t0 = time.perf_counter()
+    feats = VowpalWabbitFeaturizer(inputCols=in_cols, outputCol="features",
+                                   numBits=VW_BITS).transform(df).cache()
+    feat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = VowpalWabbitClassifier(numBits=VW_BITS).fit(feats)
+    fit_s = time.perf_counter() - t0
+    native_ms = model._stats[0].learn_time_ns / 1e6
+    t0 = time.perf_counter()
+    scored = model.transform(feats)
+    raw = np.asarray(scored.column("rawPrediction"), dtype=np.float64)
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ftrl = VowpalWabbitClassifier(numBits=VW_BITS,
+                                  passThroughArgs="--ftrl").fit(feats)
+    ftrl_s = time.perf_counter() - t0
+    env = Env(MMLSPARK_TPU_NATIVE_VW="0")
+    with env:
+        t0 = time.perf_counter()
+        scan = VowpalWabbitClassifier(numBits=VW_BITS).fit(feats)
+        scan_s = time.perf_counter() - t0
+    launches = vs.launches
+    if launches != 2:
+        fail(f"vw_main: vw_scan launched {launches} times on the FTRL and "
+             f"the adaptive scan fits (want 2)")
+
+    rows = list(feats.column("features"))
+    nnz = np.array([len(r["indices"]) for r in rows])
+    y = np.where(np.asarray(feats.column("label")) > 0, 1.0, -1.0)
+    ds = SparseDataset.from_rows(rows, y, num_bits=VW_BITS)
+    # (c) the transform against the host f64 dot
+    w64 = np.asarray(model.get("weights"), dtype=np.float64)
+    terms = w64[ds.indices] * ds.values.astype(np.float64)
+    host = terms.sum(1)
+    pred_rel = float((np.abs(raw - host) / np.maximum(np.abs(terms).sum(1),
+                                                      1e-30)).max())
+    # (a) the adaptive kernel pass against the native pass
+    w_scan = np.asarray(scan.get("weights"))
+    w_nat = np.asarray(model.get("weights"))
+    nat_ok = bool(np.allclose(w_scan, w_nat, rtol=VW_RTOL, atol=VW_ATOL))
+    # (a), (b): kernel against plain on the prefix, and twice bit for bit
+    pre = SparseDataset(ds.indices[:VW_PREFIX], ds.values[:VW_PREFIX],
+                        ds.labels[:VW_PREFIX], ds.weights[:VW_PREFIX])
+    tens = pre.to(DEVICE)
+    gates = {}
+    for name, kw in (("adaptive", {}), ("ftrl", {"ftrl": True})):
+        cfg = LearnerConfig(num_bits=VW_BITS, loss_function="logistic", **kw)
+        st_k = vl.init_state(cfg, DEVICE)
+        vs.scan_pass_cuda(st_k, *tens, cfg)
+        st_k2 = vl.init_state(cfg, DEVICE)
+        vs.scan_pass_cuda(st_k2, *tens, cfg)
+        st_p = vl.init_state(cfg, DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vs.scan_pass_plain(st_p, *tens, cfg)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        a = vl.weights_of(cfg, st_k).cpu().numpy()
+        b = vl.weights_of(cfg, st_p).cpu().numpy()
+        states = [vl.init_state(cfg, DEVICE) for _ in range(4)]
+        ms = time_ms(torch, lambda: vs.scan_pass_cuda(states.pop(), *tens,
+                                                      cfg), 3, 1)
+        gates[name] = {
+            "max_abs_err": float(np.abs(a - b).max()),
+            "close": bool(np.allclose(a, b, rtol=VW_RTOL, atol=VW_ATOL)),
+            "bitwise_twice": bool(np.array_equal(
+                a.view(np.uint32),
+                vl.weights_of(cfg, st_k2).cpu().numpy().view(np.uint32))),
+            "ms": ms, "plain_ms": plain_ms}
+    # the full pass (200,000 rows) through the kernel, timed alone
+    cfg = LearnerConfig(num_bits=VW_BITS, loss_function="logistic")
+    full = ds.to(DEVICE)
+    states = [vl.init_state(cfg, DEVICE) for _ in range(3)]
+    pass_ms = time_ms(torch, lambda: vs.scan_pass_cuda(states.pop(), *full,
+                                                       cfg), 2, 1)
+    active = int((pre.values != 0).sum())
+    # bytes: idx, val, labels and weights read once, and each of the two
+    # state arrays the step touches gathered and scattered (4 B) per active
+    # entry of the prefix
+    n_bytes = pre.indices.nbytes + pre.values.nbytes + 8 * VW_PREFIX \
+        + 2 * active * 2 * 4
+    row = {"name": "vw_scan", "route": "cuda",
+           "source": "mmlspark_tpu_torch/csrc/vw_scan.cu",
+           "replaces": "not a TPU kernel: mmlspark_tpu/vw/learner.py:92 "
+                       "make_scan_pass (lax.scan, plain XLA)",
+           "max_abs_err": gates["adaptive"]["max_abs_err"],
+           "ms": gates["adaptive"]["ms"],
+           "plain_ms": gates["adaptive"]["plain_ms"],
+           "bound_ms": bound_ms(n_bytes, 0)[0], "bound_by": "bytes",
+           "library_ms": None, "shape": [VW_PREFIX, int(ds.indices.shape[1])],
+           "pass_ms_200k": pass_ms,
+           "pass_bound_ms_200k": bound_ms(
+               ds.indices.nbytes + ds.values.nbytes + 8 * VW_ROWS
+               + 2 * int((ds.values != 0).sum()) * 2 * 4, 0)[0],
+           "native_pass_ms_200k": native_ms}
+    log({"phase": "vw_main", "card": smi, "rows": VW_ROWS,
+         "datagen_seconds": gen_s, "featurize_seconds": feat_s,
+         "featurizer_rows_per_s": VW_ROWS / feat_s,
+         "entries_per_row_mean": float(nnz.mean()),
+         "slots_per_row": int(ds.indices.shape[1]),
+         "murmur_uses": {f"{k[0]}:{k[1]}": v for k, v in
+                         native_loader.uses.items() if k[0] == "murmur3_batch"},
+         "fit_seconds": fit_s, "fit_route_native_pass_ms": native_ms,
+         "native_examples_per_s": VW_ROWS / (native_ms / 1e3),
+         "transform_seconds": transform_s, "ftrl_fit_seconds": ftrl_s,
+         "scan_fit_seconds": scan_s,
+         "vw_scan_pass_ms": pass_ms,
+         "vw_scan_examples_per_s": VW_ROWS / (pass_ms / 1e3),
+         "ftrl_pass_ms": ftrl._stats[0].learn_time_ns / 1e6,
+         "scan_pass_ms_in_fit": scan._stats[0].learn_time_ns / 1e6,
+         "vw_scan_launches": launches, "scan_vs_native_close": nat_ok,
+         "scan_vs_native_max_abs": float(np.abs(w_scan - w_nat).max()),
+         "predict_rel_max": pred_rel, "prefix_gates": gates,
+         "train_logloss_native": model._stats[0].average_loss})
+    for name, g in gates.items():
+        if not g["close"] or not g["bitwise_twice"]:
+            fail(f"vw_main ({name}): vw_scan against its plain version on "
+                 f"the card {g['max_abs_err']} (rtol {VW_RTOL}, atol "
+                 f"{VW_ATOL}) or two calls not bit for bit")
+    if not nat_ok:
+        fail("vw_main: the adaptive vw_scan pass against the native pass "
+             f"beyond rtol {VW_RTOL} / atol {VW_ATOL}")
+    if pred_rel > VW_PREDICT_REL:
+        fail(f"vw_main: transform against the host dot {pred_rel} "
+             f"(bound {VW_PREDICT_REL})")
+    if os.environ.get("MMLSPARK_TPU_NATIVE_VW"):
+        fail("vw_main: MMLSPARK_TPU_NATIVE_VW left set")
+    return {**row, "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args()
@@ -5598,12 +6090,16 @@ def main() -> int:
     paths["train_transformer_causal"] = causal
     bilstm_train(torch, smi)
     log({"phase": "training", "seconds": time.perf_counter() - t_train})
-    for phase in (image_main, resnet_train, moe_main):
+    for phase in (image_main, resnet_train, moe_main, onnx_main,
+                  onnx_multi_input):
         t_phase = time.perf_counter()
         got = phase(torch, smi)
         if got:
             paths.update(got)
         log({"phase": phase.__name__, "seconds": time.perf_counter() - t_phase})
+    t_phase = time.perf_counter()
+    vw_row = vw_main(torch, smi)
+    log({"phase": "vw_main", "seconds": time.perf_counter() - t_phase})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []
@@ -5621,6 +6117,10 @@ def main() -> int:
                                      "bwd_total_ms") if k in row}
         rows.append({**{k: row[k] for k in keys},
                      "launches_on_new_paths": new_paths, **extra})
+    rows.append({**{k: vw_row[k] for k in keys},
+                 **{k: vw_row[k] for k in ("shape", "pass_ms_200k",
+                                           "pass_bound_ms_200k",
+                                           "native_pass_ms_200k")}})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log(smi)
     log({"kernels": rows})

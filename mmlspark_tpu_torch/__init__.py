@@ -14,7 +14,10 @@ and training through the ``DNNModel`` stage and ``models.training``
 (``mmlspark_tpu_torch.models``), with the switch-MoE FFN; the image path:
 ResNet (and torchvision checkpoints) through ``ImageFeaturizer`` and the
 image stages (``mmlspark_tpu_torch.image``, ``ops.image``,
-``io.image.read_images``); and serving
+``io.image.read_images``); ONNX import and export (``mmlspark_tpu_torch.onnx``:
+an imported graph runs as a ``GraphModule``, with a multi-input
+``feedDict``); the VW online learner (``mmlspark_tpu_torch.vw``: hashing,
+featurizer, the native pass and ``vw_scan`` on the card, stages); and serving
 of any fitted pipeline over HTTP (``mmlspark_tpu_torch.serving``, with the
 frame wire in ``mmlspark_tpu_torch.io`` and metrics, traces and SLOs in
 ``mmlspark_tpu_torch.obs``).

@@ -1351,9 +1351,12 @@ class _MegaProgram:
     def _capture(self, params, cols_seq):
         from .graphs import Captured
 
+        from .graphs import capture_stream
+
         static = [{c: (t.clone() if t.device.type == "cuda" else t)
                    for c, t in cols.items()} for cols in cols_seq]
-        side = torch.cuda.Stream()
+        # a stream no other thread is handed (not torch.cuda.Stream()'s pool)
+        side = capture_stream()
         side.wait_stream(torch.cuda.current_stream())
         cap = Captured(lambda: tuple(self.body(params, cols)
                                      for cols in static),

@@ -35,8 +35,37 @@ _lock = threading.Lock()
 #: threads must not capture at once (``torch.cuda.graph`` synchronizes the
 #: device on entry)
 CAPTURE_LOCK = threading.RLock()
-#: per thread: the tally of the capture running on it (None outside one)
+#: per thread: the tally of the capture running on it (None outside one),
+#: and the thread's capture stream (``capture_stream``)
 _tls = threading.local()
+
+
+def capture_stream(device=None) -> "torch.cuda.ExternalStream":
+    """This thread's stream to capture graphs on: a stream of its own
+    (``csrc/streams.cu``), made once per thread and device. Not
+    ``torch.cuda.Stream()``: that hands out PyTorch's pooled streams round
+    robin, so a capture could share its stream with another thread's
+    launches and events, which invalidates the capture."""
+    import ctypes
+
+    from .. import _kernels
+
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    streams = getattr(_tls, "streams", None)
+    if streams is None:
+        streams = _tls.streams = {}
+    hit = streams.get(dev.index)
+    if hit is None:
+        fn = _kernels.lib("streams").mmlspark_stream_create
+        fn.argtypes = [ctypes.POINTER(ctypes.c_uint64)]
+        fn.restype = ctypes.c_int
+        out = ctypes.c_uint64(0)
+        with torch.cuda.device(dev):
+            _kernels.check(fn(ctypes.byref(out)), "stream create")
+        hit = streams[dev.index] = torch.cuda.ExternalStream(out.value,
+                                                             device=dev)
+    return hit
 
 
 def count_replays(module: str, *names: str) -> None:
@@ -83,8 +112,8 @@ class Captured:
     ``fn`` returned at capture: tensors that every replay rewrites in place.
 
     ``stream`` is the stream to capture on (default: PyTorch's shared side
-    stream; a caller that may capture from several threads passes one of
-    its own) and ``capture_error_mode`` is ``torch.cuda.graph``'s: with
+    stream; a caller that may capture from several threads passes
+    ``capture_stream()``) and ``capture_error_mode`` is ``torch.cuda.graph``'s: with
     ``"thread_local"`` other threads keep launching while this one
     captures. Captures are serialised (``CAPTURE_LOCK``). ``release()``
     frees the graph and its memory pool."""
@@ -113,8 +142,13 @@ class Captured:
 
     def release(self) -> None:
         """Drop the graph and the tensors it owns (its memory pool returns
-        to the allocator once nothing else holds them)."""
+        to the allocator once nothing else holds them). The graph is
+        destroyed under ``CAPTURE_LOCK``: destroying a graph while another
+        thread captures, even in ``thread_local`` mode, fails with "not
+        permitted when stream is capturing" and invalidates that capture."""
         graph: Optional[torch.cuda.CUDAGraph] = self.graph
         self.graph, self.out = None, None
         if graph is not None:
-            graph.reset()
+            with CAPTURE_LOCK:
+                graph.reset()
+                del graph

@@ -22,6 +22,7 @@ from .attention import (
 )
 from .convert import load_jax_params
 from .dnn_model import DNNModel
+from .graph_module import GraphModule, GraphNode
 from .module import (
     BatchNorm,
     Conv2D,
@@ -43,7 +44,7 @@ from .resnet import build_resnet, param_shardings, resnet, resnet18, resnet50
 from .torch_import import from_torch_resnet
 
 __all__ = ["BatchNorm", "BiLSTM", "Conv2D", "DNNModel", "Dense", "Embed", "Fn",
-           "FunctionModel", "GlobalAvgPool", "LSTM", "LayerNorm", "MaxPool",
+           "FunctionModel", "GlobalAvgPool", "GraphModule", "GraphNode", "LSTM", "LayerNorm", "MaxPool",
            "MoE", "Module", "MultiHeadAttention", "Residual", "Sequential",
            "bilstm_tagger", "build_resnet", "dense_attention",
            "expert_shardings", "flash_route", "flatten", "from_torch_resnet",

@@ -11,8 +11,13 @@ port's ``TransferRing`` (pinned staging on a copy stream, ``ringDepth``
 batches in flight), and the parameters go to the device through
 ``FunctionModel.device_params``.
 
-What waits: ``useMesh=True`` (sharded eval over a mesh, ROADMAP A9) and a
-multi-input ``feedDict`` (``GraphModule``/ONNX, A7) raise
+A multi-input model (an imported ONNX graph with several graph inputs,
+``GraphModule``) takes a ``feedDict`` naming a column for each input: every
+fed column is batched and staged to the device, and the forward gets them
+as a dict. Such a model stays unfused (``device_fn`` returns None), and a
+``preprocess`` spec beside a multi-input feed raises, as in the reference.
+
+What waits: ``useMesh=True`` (sharded eval over a mesh, ROADMAP A9) raises
 ``NotImplementedError``. ``donateInputs`` is accepted and does nothing but
 warn: the staged batch is freed once its forward has run, so there is no
 buffer to donate.
@@ -21,7 +26,7 @@ buffer to donate.
 from __future__ import annotations
 
 import warnings
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,8 +41,6 @@ from ..parallel.ingest import (IngestStats, PreprocessSpec, ReadbackSlots,
 from .module import FunctionModel
 
 _MESH_TODO = "sharded eval over a mesh (useMesh=True) waits for ROADMAP A9"
-_MULTI_IN_TODO = ("a multi-input feedDict waits for GraphModule/ONNX "
-                  "(ROADMAP A7)")
 
 
 class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
@@ -55,8 +58,8 @@ class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
                        None, ptype=str)
     feedDict = Param("feedDict",
                      "Map of model argument names (ARGUMENT_i or graph input "
-                     "names; keys) to input column names (values); only the "
-                     "primary input is ported", None, ptype=dict)
+                     "names; keys) to input column names (values) — the "
+                     "multi-input form of inputCol", None, ptype=dict)
     fetchDict = Param("fetchDict",
                       "Map of output column names (keys) to fetch nodes "
                       "(OUTPUT_i or layer paths; values), all fetched in ONE "
@@ -143,13 +146,15 @@ class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
         return in_map, out_map
 
     def _plan(self, model: FunctionModel):
-        """(input column, output columns, taps), raising on what waits."""
+        """(input name -> column, output columns, taps, multi_in).
+        ``multi_in`` unless the map is exactly {primary input: column}: a
+        single entry naming a secondary input goes through the dict feed
+        too, so that GraphModule refuses the incomplete feed instead of
+        binding the column to the primary input."""
         in_map, out_map = self._io_maps(model)
-        if list(in_map) != model.argument_names()[:1]:
-            raise NotImplementedError(_MULTI_IN_TODO)
+        multi_in = list(in_map) != model.argument_names()[:1]
         out_cols = tuple(out_map)
-        return (list(in_map.values())[0], out_cols,
-                tuple(out_map[c] for c in out_cols))
+        return in_map, out_cols, tuple(out_map[c] for c in out_cols), multi_in
 
     def device_fn(self, schema: Schema):
         """Fusion contract: the input column (through the optional
@@ -162,10 +167,10 @@ class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
         model = self.get("model")
         if model is None or self.get("useMesh") is True:
             return None
-        try:
-            in_col, out_cols, taps = self._plan(model)
-        except NotImplementedError:
-            return None
+        in_map, out_cols, taps, multi_in = self._plan(model)
+        if multi_in:
+            return None   # multi-input feedDict eval stays unfused
+        in_col = list(in_map.values())[0]
         spec: Optional[PreprocessSpec] = self.get("preprocess")
         key = ("DNNModel", model.cache_token(), in_col, out_cols, taps,
                None if spec is None else spec.cache_key())
@@ -222,8 +227,13 @@ class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
                           "PyTorch port (the staged batch is freed after its "
                           "forward)", stacklevel=2)
         model = self.get_model()
-        in_col, out_cols, taps = self._plan(model)
+        in_map, out_cols, taps, multi_in = self._plan(model)
+        in_cols = list(in_map.values())
         spec: Optional[PreprocessSpec] = self.get("preprocess")
+        if spec is not None and multi_in:
+            raise ValueError(
+                "preprocess spec applies to single-input models only "
+                "(feedDict consumers preprocess per column upstream)")
         batcher = Minibatcher(self.get("batchSize"), bucket=True,
                               dtype=np.float32, preserve_int=True)
         stats = IngestStats()
@@ -231,8 +241,14 @@ class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
         params = model.device_params(device)   # resident once per transform
         slots = ReadbackSlots(pin=device.type == "cuda")   # for every ring
 
-        def put(batch) -> Tuple[torch.Tensor, int]:
-            return stage_array(batch.arrays[in_col], device), batch.num_valid
+        def put(batch) -> Tuple[Any, int]:
+            # every fed column staged to the device: a dict for the
+            # multi-input graph, the one tensor otherwise
+            if multi_in:
+                return ({name: stage_array(batch.arrays[col], device)
+                         for name, col in in_map.items()}, batch.num_valid)
+            return (stage_array(batch.arrays[in_cols[0]], device),
+                    batch.num_valid)
 
         def step(staged):
             x, num_valid = staged
@@ -248,17 +264,19 @@ class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
             return tuple(y.to(torch.float32) for y in _crop(ys, num_valid))
 
         def eval_partition(part):
-            col = part[in_col]
-            n = len(col)
+            n = len(part[in_cols[0]])
             cols: Dict[str, np.ndarray] = {c: np.empty(n, dtype=object)
                                            for c in out_cols}
             # null inputs produce null outputs (CNTKModel emits null rows
-            # for undecodable inputs rather than failing the partition)
-            valid_idx = np.array([i for i in range(n) if col[i] is not None],
-                                 dtype=np.int64)
+            # for undecodable inputs rather than failing the partition); a
+            # row is valid only if every fed column is non-null
+            valid_idx = np.array(
+                [i for i in range(n)
+                 if all(part[c][i] is not None for c in in_cols)],
+                dtype=np.int64)
             if len(valid_idx):
-                ring = TransferRing(batcher.batches({in_col: col[valid_idx]},
-                                                    [in_col]),
+                sub = {c: part[c][valid_idx] for c in in_cols}
+                ring = TransferRing(batcher.batches(sub, in_cols),
                                     put=put, step=step, fetch=fetch,
                                     depth=self.get("ringDepth"), stats=stats,
                                     device=device, slots=slots)

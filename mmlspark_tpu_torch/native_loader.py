@@ -19,7 +19,11 @@ in ``uses`` (``"native"`` or ``"numpy"``):
   - ``gbdt/sparse.py``: ``csr_forest_predict`` (host ``predict_csr``);
   - ``gbdt/booster.py``: ``gbdt_grow_tree`` (the native engine);
   - ``ops/image.py``: ``resize_bilinear`` (the host ``resize``; the image
-    stages' and ImageFeaturizer's resize to the backbone's size).
+    stages' and ImageFeaturizer's resize to the backbone's size);
+  - ``ops/hashing.py``: ``murmur3_batch`` (``hash_strings``, the VW
+    featurizer's batched hashing);
+  - ``vw/learner.py``: ``vw_train_pass`` (``train_linear``'s native route,
+    one sequential adaptive/SGD pass over the examples).
   ``unroll_chw`` is the reference's wrapper of the C unroll, which its
   ``UnrollImage`` does not call either (it unrolls in numpy).
 
@@ -185,6 +189,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mml_bin_column_f64.argtypes = [f64p, i64, f64p, i32, i32p]
     lib.mml_bin_matrix_f64_u8.argtypes = [f64p, i64, i32, f64p, i64p, u8p]
     lib.mml_bin_matrix_f64_i32.argtypes = [f64p, i64, i32, f64p, i64p, i32p]
+    lib.mml_murmur3_batch.argtypes = [u8p, i64p, i64, ctypes.c_uint32,
+                                      ctypes.POINTER(ctypes.c_uint32)]
+    f32 = ctypes.c_float
+    lib.mml_vw_train_pass.argtypes = [
+        i32p, f32p, f32p, f32p, i64, i32, i32, f32, f32, f32, f32, f32, i32,
+        f32p, f32p, f32p, f64p]
     lib.mml_gbdt_grow_tree.restype = i32
     lib.mml_gbdt_grow_tree.argtypes = [
         u8p, i64, i32, i32, f32p, f32p, u8p, u8p, i32, i32, f64, f64, f64,
@@ -414,3 +424,56 @@ def gbdt_grow_tree(bins_fm: np.ndarray, grad: np.ndarray, hess: np.ndarray,
     res["default_left"] = res["default_left"].astype(bool)
     res["leaf_of_row"] = leaf_of_row
     return res
+
+
+def murmur3_batch(strings, seed: int = 0) -> Optional[np.ndarray]:
+    """MurmurHash3_x86_32 of each string's utf-8 bytes (int64 array of the
+    uint32 hashes), or None without the library."""
+    lib = load()
+    if lib is None:
+        return None
+    encoded = [s.encode("utf-8") for s in strings]
+    offsets = np.zeros(len(encoded) + 1, dtype=np.int64)
+    np.cumsum([len(e) for e in encoded], out=offsets[1:])
+    buf = np.frombuffer(b"".join(encoded), dtype=np.uint8) if encoded else \
+        np.empty(0, dtype=np.uint8)
+    buf = np.ascontiguousarray(buf)
+    out = np.zeros(len(encoded), dtype=np.uint32)
+    lib.mml_murmur3_batch(_ptr(buf, ctypes.c_uint8),
+                          _ptr(offsets, ctypes.c_int64), len(encoded),
+                          seed & 0xFFFFFFFF, _ptr(out, ctypes.c_uint32))
+    return out.astype(np.int64)
+
+
+_LOSS_IDS = {"squared": 0, "logistic": 1, "hinge": 2, "quantile": 3}
+
+
+def vw_train_pass(indices: np.ndarray, values: np.ndarray,
+                  labels: np.ndarray, weights: np.ndarray,
+                  w: np.ndarray, g2: np.ndarray, t: float, *,
+                  loss: str, tau: float, lr: float, power_t: float,
+                  initial_t: float, l2: float, adaptive: bool):
+    """One sequential learning pass IN PLACE over ``w``/``g2`` (padded
+    sparse examples, [N, K] int32 indices and f32 values). Returns (new_t,
+    loss_sum), or None without the library, for another loss, or for
+    buffers that are not f32 (the caller takes the scan route then)."""
+    lib = load()
+    if lib is None or loss not in _LOSS_IDS:
+        return None
+    if w.dtype != np.float32 or g2.dtype != np.float32:
+        return None
+    indices = _c(indices, np.int32)
+    values = _c(values, np.float32)
+    labels = _c(labels, np.float32)
+    weights = _c(weights, np.float32)
+    n, k = indices.shape
+    t_box = np.array([t], dtype=np.float32)
+    loss_out = np.zeros(1, dtype=np.float64)
+    lib.mml_vw_train_pass(
+        _ptr(indices, ctypes.c_int32), _ptr(values, ctypes.c_float),
+        _ptr(labels, ctypes.c_float), _ptr(weights, ctypes.c_float),
+        n, k, _LOSS_IDS[loss], float(tau), float(lr), float(power_t),
+        float(initial_t), float(l2), int(adaptive),
+        _ptr(w, ctypes.c_float), _ptr(g2, ctypes.c_float),
+        _ptr(t_box, ctypes.c_float), _ptr(loss_out, ctypes.c_double))
+    return float(t_box[0]), float(loss_out[0])

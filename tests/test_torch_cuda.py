@@ -1496,3 +1496,156 @@ def test_moe_block_on_the_card_matches_the_cpu(cuda_device, precision):
     assert (cpu_route[2].sum(dim=(2, 3)) == 0).any()     # overflow dropped
     tol = 1e-5 if precision == "float32" else 2e-2
     assert ((card - cpu).abs().max() / cpu.abs().max()).item() < tol
+
+
+# ---------------------------------------------------------------- vw_scan
+
+
+def _vw_case(loss, n=1500, k=39, bits=12, seed=0):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, 1 << bits, (n, k)).astype(np.int32)
+    idx[:, 3] = idx[:, 1]
+    idx[::4, 20] = idx[::4, 1]
+    idx[::7, 38] = idx[::7, 3]
+    idx[5, 0], idx[6, 2] = -3, (1 << bits) + 5
+    val = rng.standard_normal((n, k)).astype(np.float32)
+    val[:, -3:] = 0
+    lab = (np.where(rng.random(n) > 0.5, 1.0, -1.0) if loss != "quantile"
+           else rng.standard_normal(n)).astype(np.float32)
+    wts = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    wts[10] = 0
+    return idx, val, lab, wts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", ["squared", "logistic", "hinge", "quantile"])
+@pytest.mark.parametrize("mode", ["adaptive", "sgd", "ftrl"])
+@pytest.mark.parametrize("k", [39, 80])
+def test_vw_scan_matches_plain_on_the_card(cuda_device, loss, mode, k):
+    """``csrc/vw_scan.cu`` against its plain version on the card, two
+    passes over examples with duplicate indices, padded slots, indices out
+    of range and a zero-weight example (39 slots: mostly the kernel's fast
+    path; 80: all through its general path): weights within rtol 1e-3 /
+    atol 2e-4 (the reference's bound between its two engines), the clock
+    equal, the loss sums within 1e-5; two calls bit for bit; one launch a
+    pass."""
+    from mmlspark_tpu_torch.vw import learner, scan_kernel
+
+    cfg = learner.LearnerConfig(
+        num_bits=12, loss_function=loss, quantile_tau=0.3,
+        adaptive=mode == "adaptive", ftrl=mode == "ftrl", l1=1e-3,
+        l2=1e-3 if mode == "adaptive" else 0.0,
+        power_t=0.5 if mode != "sgd" else 0.4, initial_t=1.0)
+    ds = learner.SparseDataset(*_vw_case(loss, k=k))
+    dev = ds.to(cuda_device)
+    plain_ds = ds.to(cuda_device)
+    runs = []
+    scan_kernel.launches = 0
+    for _ in range(2):
+        st = learner.init_state(cfg, cuda_device)
+        losses = [float(scan_kernel.scan_pass(st, *dev, cfg).item())
+                  for _ in range(2)]
+        runs.append((learner.weights_of(cfg, st).cpu().numpy(), st, losses))
+    assert scan_kernel.launches == 4
+    plain = learner.init_state(cfg, cuda_device)
+    p_losses = [float(scan_kernel.scan_pass_plain(plain, *plain_ds, cfg).item())
+                for _ in range(2)]
+    assert scan_kernel.launches == 4
+    w, st, losses = runs[0]
+    wp = learner.weights_of(cfg, plain).cpu().numpy()
+    np.testing.assert_allclose(w, wp, rtol=1e-3, atol=2e-4)
+    assert np.array_equal(w.view(np.uint32), runs[1][0].view(np.uint32))
+    for a, b in zip(losses, p_losses):
+        assert abs(a - b) <= 1e-5 * max(1.0, abs(b))
+    if mode != "ftrl":
+        assert st[2].item() == plain[2].item() == 2 * (len(ds.labels) - 1)
+
+
+@pytest.mark.cuda
+def test_vw_scan_route_on_the_card_against_the_native_pass(cuda_device,
+                                                           monkeypatch):
+    """``train_linear`` with the native route off runs ``vw_scan`` once a
+    pass on the card; its adaptive weights within rtol 1e-3 / atol 2e-4 of
+    the native C++ pass's, and ``predict_linear`` on the card within 1e-6
+    of the host f64 dot (of each row's sum |w v|)."""
+    from mmlspark_tpu_torch import native_loader
+    from mmlspark_tpu_torch.vw import learner, scan_kernel
+
+    if not native_loader.available():
+        pytest.skip("native toolchain unavailable")
+    idx, val, lab, wts = _vw_case("logistic", n=4000, seed=3)
+    ds = learner.SparseDataset(np.clip(idx, 0, (1 << 12) - 1), val, lab, wts)
+    cfg = learner.LearnerConfig(num_bits=12, loss_function="logistic",
+                                num_passes=2)
+    w_nat, _ = learner.train_linear(cfg, ds)
+    monkeypatch.setenv("MMLSPARK_TPU_NATIVE_VW", "0")
+    scan_kernel.launches = 0
+    w_scan, _ = learner.train_linear(cfg, ds)
+    assert scan_kernel.launches == 2
+    np.testing.assert_allclose(w_scan, w_nat, rtol=1e-3, atol=2e-4)
+    raw = learner.predict_linear(w_scan, ds)
+    terms = w_scan.astype(np.float64)[ds.indices] * ds.values
+    rel = np.abs(raw - terms.sum(1)) / np.maximum(np.abs(terms).sum(1), 1e-30)
+    assert rel.max() <= 1e-6
+
+
+# ---------------------------------------------------------- ONNX on the card
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_graph_module_conv_graph_on_the_card_matches_cpu(cuda_device):
+    """A ResNet-18 (width 16) exported by the port and imported as a
+    ``GraphModule``: its logits and a layer tap on the card (f32, TF32 off)
+    within 1e-4 of the CPU's max |x|, and the bf16 import within 2e-2."""
+    from mmlspark_tpu_torch.models import resnet
+    from mmlspark_tpu_torch.onnx import export_onnx, import_onnx
+
+    model = resnet(18, num_classes=10, image_size=32, width=16)
+    blob = export_onnx(model.module, None, (32, 32, 3))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (4, 3, 32, 32)).astype(np.float32))
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        g = import_onnx(blob, compute_dtype=dtype)
+        tap = g.layer_names[1]
+        cpu = g.apply_taps(x, [None, tap])
+        card = g.apply_taps(x.to(cuda_device), [None, tap],
+                            params=g.device_params(cuda_device))
+        for key in (None, tap):
+            want = cpu[key].float().numpy()
+            got = card[key].float().cpu().numpy()
+            assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+@pytest.mark.cuda
+def test_two_input_graph_on_the_card_matches_cpu(cuda_device):
+    """``chip_smoke.bert_onnx`` (2 layers, width 64) through a two-input
+    ``DNNModel.setFeedDict`` on the card against the CPU: within 1e-4 of
+    the max |x| (f32, TF32 off on both sides)."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.models import DNNModel
+    from mmlspark_tpu_torch.onnx import import_onnx
+    from mmlspark_tpu_torch.runtime import use_device
+
+    cs = _chip_smoke()
+    blob = cs.bert_onnx(vocab=500, hidden=64, heads=4, ffn=128, layers=2,
+                        seq=32, seed=1)
+    ids, mask = cs.bert_inputs(10, 32, 500, seed=2)
+    stage = DNNModel(outputCol="o", batchSize=4).set_model(import_onnx(blob))
+    stage.set_feed_dict({"input_ids": "ids", "attention_mask": "mask"})
+    df = DataFrame.from_dict({"ids": list(ids), "mask": list(mask)})
+    card = np.stack(list(stage.transform(df).column("o")))
+    with use_device("cpu"):
+        cpu = np.stack(list(stage.transform(df).column("o")))
+    assert card.shape == (10, 64)
+    assert np.abs(card - cpu).max() <= 1e-4 * np.abs(cpu).max()

@@ -1051,7 +1051,10 @@ def test_dnn_model_unported_paths_raise():
     multi = DNNModel(outputCol="o").set_model(port)
     multi.set_feed_dict({"ids": "tokens", "mask": "tokens"})
     assert multi.device_fn(df.schema) is None
-    with use_device("cpu"), pytest.raises(NotImplementedError, match="A7"):
+    # the multi-input feed is ported (A7d); a preprocess spec beside it
+    # raises, as in the reference
+    multi.set_preprocess(PreprocessSpec(scale=1.0))
+    with use_device("cpu"), pytest.raises(ValueError, match="single-input"):
         multi.transform(df)
     with pytest.raises(NotImplementedError, match="A9"):
         transformer_encoder(**ENC, ring_axis="seq", ring_axis_size=2)
@@ -4210,3 +4213,146 @@ def test_transformer_block_with_moe_matches_reference(f32):
     ref, got = _run(ref_mod, params, port, _x((2, 16, 32)), f32)
     np.testing.assert_allclose(got, ref, atol=F32_TOL if f32 else DEEP_BF16_TOL,
                                rtol=0)
+
+
+# ---- ONNX backbones and the multi-input feedDict (ROADMAP A7d)
+
+
+@pytest.mark.parametrize("cut", [1, 0])
+def test_image_featurizer_over_imported_onnx_backbone_matches_reference(cut):
+    """A ResNet-18 (width 8, 16x16) exported by the reference and imported
+    by both packages: ImageFeaturizer over the NCHW ``GraphModule`` (the
+    pooled features, cut 1, and the logits, cut 0) within RESNET_F32_TOL of
+    the reference's (the imported graph computes in f32); the fused
+    featurizer bit for bit the unfused one."""
+    from mmlspark_tpu.onnx import export_onnx as ref_export
+    from mmlspark_tpu.onnx import import_onnx as ref_import
+    from mmlspark_tpu_torch.onnx import import_onnx
+
+    ref_m, _ = _resnet_pair(18, 16)
+    blob = ref_export(ref_m.module, jax.tree.map(np.asarray, ref_m.params),
+                      (16, 16, 3))
+    ref_g, port_g = ref_import(blob), import_onnx(blob)
+    assert port_g.data_format == ref_g.data_format == "NCHW"
+    ref = ref_featurizer.ImageFeaturizer(
+        inputCol="image", outputCol="f", batchSize=4, cutOutputLayers=cut,
+        scaleFactor=1 / 255).set_model(ref_g)
+    port = ImageFeaturizer(inputCol="image", outputCol="f", batchSize=4,
+                           cutOutputLayers=cut,
+                           scaleFactor=1 / 255).set_model(port_g)
+    ref_df, df = _image_dfs(_image_rows(n=6, h=20, w=14), nulls=(1,))
+    want = np.stack(_feature_rows(ref.transform(ref_df).column("f")))
+    with use_device("cpu"):
+        got = np.stack(_feature_rows(port.transform(df).column("f")))
+        fused = np.stack(_feature_rows(
+            PipelineModel([port]).fuse().transform(df).column("f")))
+    assert got.shape == want.shape == (5, {1: 64, 0: 10}[cut])
+    np.testing.assert_allclose(got, want, atol=RESNET_F32_TOL * _scale(want),
+                               rtol=0)
+    np.testing.assert_array_equal(fused, got)
+
+
+def _bert_feed(n=7, seq=12, vocab=60, seed=4):
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    blob = cs.bert_onnx(vocab=vocab, hidden=24, heads=3, ffn=48, layers=2,
+                        seq=seq, seed=seed)
+    ids, mask = cs.bert_inputs(n, seq, vocab, seed=seed + 1)
+    return blob, ids, mask
+
+
+def _two_input_graph(seed=6):
+    """A two-input graph the reference's jitted DNNModel can run (no
+    host-valued initializers: the reference passes every initializer to its
+    jitted forward as a traced argument): ``x`` f32 [B, 6] masked by int64
+    ``keep`` [B, 6] into a Gemm, plus the sum of ``keep``'s embeddings, then
+    LayerNormalization and Relu."""
+    from mmlspark_tpu_torch.onnx import proto as P
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    nodes = [P.make_node("Cast", ["keep"], ["kf"], name="kf", to=1),
+             P.make_node("Mul", ["x", "kf"], ["xm"], name="xm"),
+             P.make_node("Gemm", ["xm", "w", "b"], ["h"], name="h"),
+             P.make_node("Gather", ["emb", "keep"], ["e"], name="e", axis=0),
+             P.make_node("ReduceSum", ["e"], ["es"], name="es", axes=[1],
+                         keepdims=0),
+             P.make_node("Add", ["h", "es"], ["s"], name="s"),
+             P.make_node("LayerNormalization", ["s", "sc", "bi"], ["ln"],
+                         name="ln", axis=-1),
+             P.make_node("Relu", ["ln"], ["out"], name="out")]
+    inits = [P.make_tensor("w", rng.standard_normal((6, 5)).astype(f32)),
+             P.make_tensor("b", rng.standard_normal(5).astype(f32)),
+             P.make_tensor("emb", rng.standard_normal((2, 5)).astype(f32)),
+             P.make_tensor("sc", rng.uniform(0.5, 1.5, 5).astype(f32)),
+             P.make_tensor("bi", rng.standard_normal(5).astype(f32))]
+    return P.make_model(
+        nodes, inits,
+        [P.make_value_info("x", [None, 6]),
+         P.make_value_info("keep", [None, 6], P.DT_INT64)],
+        [P.make_value_info("out", [None, 5])])
+
+
+def test_dnn_model_feed_dict_two_inputs_matches_reference():
+    """``DNNModel.setFeedDict`` over two-input ONNX graphs against the
+    reference, within F32_TOL (1e-5) of each output's max |x|: (a) a graph
+    the reference's DNNModel runs (f32 ``x`` and int64 ``keep``, by
+    ARGUMENT_i and by name, a fetchDict of the output and a
+    LayerNormalization tap), column against column, a row with a null in
+    either fed column a null row, the feed unfused; (b) the BERT-shaped
+    encoder of ``chip_smoke.bert_onnx`` (its Reshape/Unsqueeze read host
+    values, which the reference's jitted DNNModel cannot trace) against the
+    reference's ``import_onnx(...).apply`` on the same rows; (c) a feed
+    naming only the secondary input raises."""
+    from mmlspark_tpu.onnx import import_onnx as ref_import
+    from mmlspark_tpu_torch.onnx import import_onnx
+
+    rng = np.random.default_rng(2)
+    blob = _two_input_graph()
+    cols = {"xs": list(rng.standard_normal((7, 6)).astype(np.float32)),
+            "keeps": list(rng.integers(0, 2, (7, 6)))}
+    cols["keeps"][3] = None
+    cols["xs"][5] = None
+    outs = []
+    for dnn_cls, imp, frame in ((RefDNNModel, ref_import, RefDataFrame),
+                                (DNNModel, import_onnx, DataFrame)):
+        stage = dnn_cls(batchSize=3).set_model(imp(blob))
+        stage.set_feed_dict({"ARGUMENT_0": "xs", "keep": "keeps"})
+        stage.set_fetch_dict({"y": "OUTPUT_0", "ln": "ln"})
+        df = frame.from_dict(cols, num_partitions=2)
+        if dnn_cls is DNNModel:
+            assert stage.device_fn(df.schema) is None
+            with use_device("cpu"):
+                out = stage.transform(df)
+        else:
+            out = stage.transform(df)
+        outs.append((list(out.column("y")), list(out.column("ln"))))
+    for got_col, want_col in zip(outs[1], outs[0]):
+        assert [g is None for g in got_col] == [w is None for w in want_col] \
+            == [i in (3, 5) for i in range(7)]
+        got = np.stack([g for g in got_col if g is not None])
+        want = np.stack([np.asarray(w) for w in want_col if w is not None])
+        assert got.shape == want.shape == (5, 5)
+        np.testing.assert_allclose(got, want, atol=F32_TOL * _scale(want),
+                                   rtol=0)
+
+    blob, ids, mask = _bert_feed()
+    stage = DNNModel(outputCol="cls", batchSize=3).set_model(import_onnx(blob))
+    stage.set_feed_dict({"input_ids": "ids", "attention_mask": "mask"})
+    with use_device("cpu"):
+        got = np.stack(list(stage.transform(DataFrame.from_dict(
+            {"ids": list(ids), "mask": list(mask)}, num_partitions=2))
+            .column("cls")))
+    want = np.asarray(ref_import(blob).apply({"input_ids": ids,
+                                              "attention_mask": mask}))
+    np.testing.assert_allclose(got, want, atol=F32_TOL * _scale(want), rtol=0)
+
+    only = DNNModel(outputCol="o").set_model(import_onnx(blob))
+    only.set_feed_dict({"attention_mask": "mask"})
+    with use_device("cpu"), pytest.raises(KeyError, match="input_ids"):
+        only.transform(DataFrame.from_dict({"mask": list(mask)}))

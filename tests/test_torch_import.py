@@ -78,7 +78,16 @@ def test_clean_import_pulls_in_no_jax_and_no_reference():
                 "mmlspark_tpu_torch.ops.image",
                 "mmlspark_tpu_torch.io.image",
                 "mmlspark_tpu_torch.image.stages",
-                "mmlspark_tpu_torch.image.featurizer"):
+                "mmlspark_tpu_torch.image.featurizer",
+                "mmlspark_tpu_torch.onnx.proto",
+                "mmlspark_tpu_torch.onnx.importer",
+                "mmlspark_tpu_torch.onnx.export",
+                "mmlspark_tpu_torch.models.graph_module",
+                "mmlspark_tpu_torch.ops.hashing",
+                "mmlspark_tpu_torch.vw.featurizer",
+                "mmlspark_tpu_torch.vw.learner",
+                "mmlspark_tpu_torch.vw.scan_kernel",
+                "mmlspark_tpu_torch.vw.stages"):
         assert mod in out["imported"]
 
 
@@ -234,6 +243,8 @@ def test_source_has_no_jax_or_reference_import():
     assert (PKG / "csrc" / "csr_gather.cu").exists()
     assert (PKG / "csrc" / "flash_attn.cu").exists()
     assert (PKG / "csrc" / "flash_attn_bwd.cu").exists()
+    assert (PKG / "csrc" / "vw_scan.cu").exists()
+    assert (PKG / "csrc" / "streams.cu").exists()
     assert (PKG / "native_src" / "mmlspark_native.cpp").exists()
 
 
@@ -392,6 +403,80 @@ def test_loading_a_saved_image_featurizer_pulls_in_no_jax_and_no_reference(
     np.testing.assert_array_equal(np.asarray(out["features"], np.float32), want)
 
 
+_VW_ONNX_PROBE = r"""
+import json, sys
+import numpy as np
+from mmlspark_tpu_torch.core.dataframe import DataFrame
+from mmlspark_tpu_torch.core.pipeline import PipelineStage
+from mmlspark_tpu_torch.runtime import use_device
+vw = PipelineStage.load(sys.argv[1])
+dnn = PipelineStage.load(sys.argv[2])
+rows = json.loads(open(sys.argv[3]).read())
+feats = [{"indices": np.asarray(r[0], np.int64),
+          "values": np.asarray(r[1], np.float32)} for r in rows["vw"]]
+with use_device("cpu"):
+    raw = vw.transform(DataFrame.from_dict({"features": feats})).column(
+        "rawPrediction")
+    emb = dnn.transform(DataFrame.from_dict(
+        {"ids": [np.asarray(r, np.int64) for r in rows["ids"]],
+         "mask": [np.asarray(r, np.int64) for r in rows["mask"]]})).column("emb")
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "jaxlib", "mmlspark_tpu")
+             or k.startswith(("jax.", "jaxlib.", "mmlspark_tpu.")))
+print(json.dumps({"bad": bad, "raw": np.asarray(raw, np.float64).tolist(),
+                  "emb": np.stack(list(emb)).tolist(),
+                  "cls": [type(vw).__name__, type(dnn).__name__]}))
+"""
+
+
+def test_loading_saved_vw_and_onnx_stages_pulls_in_no_jax_and_no_reference(
+        tmp_path):
+    """A VW classification model and a two-input ``DNNModel`` over an
+    imported ONNX graph, saved by the port, load and score in a fresh
+    process without importing ``jax`` or ``mmlspark_tpu``, with the scores
+    they had."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.models import DNNModel
+    from mmlspark_tpu_torch.onnx import import_onnx
+    from mmlspark_tpu_torch.runtime import use_device
+    from mmlspark_tpu_torch.vw import VowpalWabbitClassifier
+
+    cs = _load_chip_smoke()
+    rng = np.random.default_rng(9)
+    feats = [{"indices": np.sort(rng.choice(1 << 10, 6, replace=False)),
+              "values": rng.standard_normal(6).astype(np.float32)}
+             for _ in range(80)]
+    y = (np.array([f["values"].sum() for f in feats]) > 0).astype(np.float64)
+    ids, mask = cs.bert_inputs(6, 8, 50, seed=1)
+    with use_device("cpu"):
+        vw = VowpalWabbitClassifier(numBits=10).fit(
+            DataFrame.from_dict({"features": feats, "label": y}))
+        raw = np.asarray(vw.transform(DataFrame.from_dict(
+            {"features": feats})).column("rawPrediction"), np.float64)
+        dnn = DNNModel(outputCol="emb", batchSize=4).set_model(import_onnx(
+            cs.bert_onnx(vocab=50, hidden=16, heads=2, ffn=32, layers=1,
+                         seq=8, seed=2))).set_feed_dict(
+            {"input_ids": "ids", "attention_mask": "mask"})
+        emb = np.stack(list(dnn.transform(DataFrame.from_dict(
+            {"ids": list(ids), "mask": list(mask)})).column("emb")))
+    vw.save(str(tmp_path / "vw"))
+    dnn.save(str(tmp_path / "dnn"))
+    (tmp_path / "rows.json").write_text(json.dumps(
+        {"vw": [[f["indices"].tolist(), f["values"].tolist()] for f in feats],
+         "ids": ids.tolist(), "mask": mask.tolist()}))
+    proc = subprocess.run([sys.executable, "-c", _VW_ONNX_PROBE,
+                           str(tmp_path / "vw"), str(tmp_path / "dnn"),
+                           str(tmp_path / "rows.json")],
+                          cwd=str(ROOT), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    assert out["cls"] == ["VowpalWabbitClassificationModel", "DNNModel"]
+    np.testing.assert_array_equal(np.asarray(out["raw"]), raw)
+    np.testing.assert_array_equal(np.asarray(out["emb"], np.float32), emb)
+
+
 # ------------------------------------------------------------ native loader
 
 
@@ -517,3 +602,416 @@ def test_profiling_on_the_cpu(tmp_path, monkeypatch):
     wide = profiling.device_busy(object(), window_us=(-100.0, 100.0))
     assert wide["busy_share"] == pytest.approx(0.2)
     assert wide["longest_gaps_ms"][0]["ms"] == pytest.approx(0.1)
+
+
+# ------------------------------------------------------------------ ONNX
+#
+# The same ONNX bytes (written by the reference's test fixtures,
+# tests/test_onnx.py, with the reference's writer) go through the
+# reference's import_onnx(...).apply and the port's. Tolerances, against the
+# reference's output's max |x|: integer and data-movement outputs bit for
+# bit; elementwise and normalisation graphs 1e-5; conv and recurrent graphs
+# 1e-4.
+
+ONNX_ELEMENTWISE_TOL = 1e-5
+ONNX_CONV_RNN_TOL = 1e-4
+
+
+def _onnx_fixtures():
+    import test_onnx as ref_fixtures   # the reference's tests/test_onnx.py
+
+    return ref_fixtures
+
+
+def _load_chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ref_onnx():
+    from mmlspark_tpu.onnx import import_onnx as ref_import
+    from mmlspark_tpu.onnx import proto as ref_proto
+
+    return ref_import, ref_proto
+
+
+def _both(blob, x, tap=None, **kw):
+    """(reference output, port output) of the same bytes on the same input."""
+    from mmlspark_tpu_torch.onnx import import_onnx
+
+    ref_import, _ = _ref_onnx()
+    ref = ref_import(blob, **kw)
+    port = import_onnx(blob, **kw)
+    want = np.asarray(ref.apply(x, tap=tap) if tap else ref.apply(x))
+    feed = ({k: torch.from_numpy(v) for k, v in x.items()}
+            if isinstance(x, dict) else torch.from_numpy(x))
+    got = port.apply(feed, tap=tap).numpy()
+    return want, got, ref, port
+
+
+def _rel_err(got, want) -> float:
+    got = np.asarray(got, np.float64).reshape(np.shape(want))
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def test_proto_writer_emits_the_reference_bytes():
+    """The port's writer emits the reference's bytes for the same nodes,
+    tensors and value infos, and the port's reader parses the reference's
+    bytes to the same fields."""
+    from mmlspark_tpu_torch.onnx import proto
+
+    _, ref_proto = _ref_onnx()
+    rng = np.random.default_rng(0)
+    tensors = [("w", rng.standard_normal((4, 3)).astype(np.float32)),
+               ("i", np.array([1, -5, 2 ** 40], dtype=np.int64)),
+               ("b", np.array([True, False]))]
+    attrs = dict(strides=[2, 2], pads=[3, 3, 3, 3], epsilon=1e-5,
+                 mode="constant", floats=[0.5, 1.5], group=2)
+    blobs = []
+    for mod in (proto, ref_proto):
+        nodes = [mod.make_node("Gemm", ["input", "w"], ["out"], name="g",
+                               transB=1),
+                 mod.make_node("Conv", ["out", "w"], ["y"], name="c",
+                               **attrs),
+                 mod.make_node("Constant", [], ["k"],
+                               value=mod.make_tensor("kv", tensors[1][1]))]
+        inits = [mod.make_tensor(n, a) for n, a in tensors]
+        blobs.append(mod.make_model(
+            nodes, inits, [mod.make_value_info("input", [None, 3])],
+            [mod.make_value_info("y", [None, 4], mod.DT_FLOAT)], opset=17))
+    assert blobs[0] == blobs[1]
+    mine, theirs = proto.load_model(blobs[1]), ref_proto.load_model(blobs[0])
+    assert (mine.ir_version, mine.producer, mine.opset) == \
+        (theirs.ir_version, theirs.producer, theirs.opset) == (7, "mmlspark_tpu", 17)
+    for a, b in zip(mine.graph.nodes, theirs.graph.nodes):
+        assert (a.op_type, a.name, a.inputs, a.outputs) == \
+            (b.op_type, b.name, b.inputs, b.outputs)
+        assert set(a.attrs) == set(b.attrs)
+        for k in a.attrs:
+            va, vb = a.attrs[k], b.attrs[k]
+            if hasattr(va, "to_numpy"):
+                np.testing.assert_array_equal(va.to_numpy(), vb.to_numpy())
+            else:
+                assert va == vb
+    for a, b in zip(mine.graph.initializers, theirs.graph.initializers):
+        assert a.name == b.name and a.dims == b.dims
+        np.testing.assert_array_equal(a.to_numpy(), b.to_numpy())
+    assert [(v.name, v.dims, v.elem_type) for v in mine.graph.inputs] == \
+        [(v.name, v.dims, v.elem_type) for v in theirs.graph.inputs]
+
+
+def test_export_resnet18_is_byte_identical_to_the_reference():
+    """The JAX package's resnet18 weights carried into the port's ResNet-18
+    (``load_jax_params``): the port's export_onnx writes the reference's
+    bytes, and both imports of them score the same (conv family: 1e-4 of
+    the logits' max |x|)."""
+    import importlib
+
+    import jax
+
+    from mmlspark_tpu.onnx import export_onnx as ref_export
+    from mmlspark_tpu_torch.models import load_jax_params, resnet18
+    from mmlspark_tpu_torch.onnx import export_onnx
+
+    ref_resnet = importlib.import_module("mmlspark_tpu.models.resnet")
+    ref = ref_resnet.resnet18(num_classes=10, image_size=32, seed=0)
+    params = jax.tree.map(np.asarray, ref.params)
+    want = ref_export(ref.module, params, (32, 32, 3), name="r18")
+    port = load_jax_params(resnet18(num_classes=10, image_size=32), params)
+    got = export_onnx(port.module, port.params, (32, 32, 3), name="r18")
+    assert got == want
+    x = np.random.default_rng(0).standard_normal((2, 3, 32, 32)).astype(np.float32)
+    a, b, ref_m, port_m = _both(got, x)
+    assert _rel_err(b, a) <= ONNX_CONV_RNN_TOL
+    assert port_m.layer_names == ref_m.layer_names
+    assert port_m.data_format == "NCHW" and port_m.input_shape == (3, 32, 32)
+
+
+def _torch_seq_case(name):
+    """(torch model, per-example shape, tolerance) of a reference fixture
+    built through its ``_onnx_from_torch_seq``."""
+    import torch.nn as nn
+
+    if name == "conv_bn_relu_pool_linear":
+        torch.manual_seed(0)
+        m = nn.Sequential(
+            nn.Conv2d(3, 8, 3, stride=2, padding=1), nn.BatchNorm2d(8),
+            nn.ReLU(), nn.MaxPool2d(3, stride=2, padding=1),
+            nn.Conv2d(8, 16, 1), nn.ReLU(), nn.AdaptiveAvgPool2d(1),
+            nn.Flatten(), nn.Linear(16, 5))
+        m[1].running_mean.normal_(0, 0.5)
+        m[1].running_var.uniform_(0.5, 2.0)
+        return m, (3, 17, 17), ONNX_CONV_RNN_TOL
+    if name == "grouped_conv":
+        torch.manual_seed(1)
+        m = nn.Sequential(
+            nn.Conv2d(4, 8, 3, padding=1), nn.ReLU(),
+            nn.Conv2d(8, 8, 3, padding=1, groups=8), nn.Sigmoid(),
+            nn.AdaptiveAvgPool2d(1), nn.Flatten(), nn.Linear(8, 3))
+        return m, (4, 12, 12), ONNX_CONV_RNN_TOL
+    if name == "avgpool_dropout":
+        torch.manual_seed(2)
+        m = nn.Sequential(
+            nn.Conv2d(2, 4, 5, padding=2), nn.ReLU(), nn.Dropout(0.5),
+            nn.AvgPool2d(2), nn.Flatten(), nn.Linear(4 * 8 * 8, 6))
+        return m, (2, 16, 16), ONNX_CONV_RNN_TOL
+    if name == "layernorm_gelu_mlp":
+        torch.manual_seed(5)
+        m = nn.Sequential(
+            nn.Flatten(), nn.Linear(12, 16), nn.LayerNorm(16), nn.GELU(),
+            nn.Linear(16, 8), nn.LayerNorm(8), nn.ELU(), nn.Linear(8, 3))
+        return m, (12,), ONNX_ELEMENTWISE_TOL
+    if name == "conv_transpose_instance_norm":
+        torch.manual_seed(6)
+        m = nn.Sequential(
+            nn.Conv2d(3, 8, 3, stride=2, padding=1),
+            nn.InstanceNorm2d(8, affine=True), nn.ReLU(),
+            nn.ConvTranspose2d(8, 4, 3, stride=2, padding=1, output_padding=1),
+            nn.Softplus(),
+            nn.ConvTranspose2d(4, 4, 4, stride=2, padding=1, groups=2))
+        with torch.no_grad():
+            m[1].weight.normal_(1.0, 0.2)
+            m[1].bias.normal_(0, 0.2)
+        return m, (3, 13, 13), ONNX_CONV_RNN_TOL
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("case", ["conv_bn_relu_pool_linear", "grouped_conv",
+                                  "avgpool_dropout", "layernorm_gelu_mlp",
+                                  "conv_transpose_instance_norm"])
+def test_graph_module_matches_reference_on_torch_fixtures(tmp_path, case):
+    """The reference's torch-packed fixtures (conv/bn/relu/pool/linear,
+    grouped conv, avgpool/dropout, LayerNorm+Gelu MLP, ConvTranspose +
+    InstanceNorm): conv graphs within 1e-4 and the MLP within 1e-5 of the
+    reference output's max |x|."""
+    model, shape, tol = _torch_seq_case(case)
+    model.eval()
+    path = _onnx_fixtures()._onnx_from_torch_seq(model, shape,
+                                                 str(tmp_path / "m.onnx"))
+    x = np.random.default_rng(7).normal(size=(4,) + shape).astype(np.float32)
+    want, got, _, _ = _both(pathlib.Path(path).read_bytes(), x)
+    assert got.shape == want.shape
+    assert _rel_err(got, want) <= tol
+
+
+def test_graph_module_attention_and_taps_match_reference(tmp_path):
+    """The reference's MatMul/Softmax self-attention fixture: the output
+    within 1e-5 of the reference's max |x|, and the tapped softmax (layer
+    addressing) within 1e-5 too."""
+    fx = _onnx_fixtures()
+    rng = np.random.default_rng(0)
+    D = 8
+    ws = [(rng.normal(size=(D, D)) / np.sqrt(D)).astype(np.float32)
+          for _ in range(4)]
+    path = fx.TestTransformerGraphImport._attention_onnx(
+        None, *ws, 1.0 / np.sqrt(D), str(tmp_path / "attn.onnx"))
+    blob = pathlib.Path(path).read_bytes()
+    x = rng.normal(size=(3, 6, D)).astype(np.float32)
+    want, got, ref, port = _both(blob, x, compute_dtype="float32")
+    assert _rel_err(got, want) <= ONNX_ELEMENTWISE_TOL
+    assert port.layer_names == ref.layer_names == \
+        ["out_proj", "context", "attn_softmax", "scores"]
+    want, got, _, _ = _both(blob, x, tap="attn_softmax",
+                            layer_names=["out_proj", "attn_softmax"])
+    assert got.shape == (3, 6, 6)
+    assert _rel_err(got, want) <= ONNX_ELEMENTWISE_TOL
+
+
+def test_graph_module_data_ops_bit_for_bit(tmp_path):
+    """The reference's data-ops fixture (ReduceSum/ReduceMax/ArgMax/
+    GreaterOrEqual/Where/Expand): the output within 1e-5 of the reference's
+    max |x| and the ArgMax tap bit for bit; then Shape/Gather/Slice/Split/
+    Concat/Reshape/compares on a graph of their own, bit for bit."""
+    from mmlspark_tpu_torch.onnx import proto
+
+    _, ref_proto = _ref_onnx()
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(3, 4, 5)).astype(np.float32)
+    nodes = [
+        ref_proto.make_node("ReduceSum", ["input", "axes1"], ["rsum"],
+                            name="rsum", keepdims=1),
+        ref_proto.make_node("ReduceMax", ["input"], ["rmax"], name="rmax",
+                            axes=[2], keepdims=0),
+        ref_proto.make_node("ArgMax", ["rmax"], ["amax"], name="amax",
+                            axis=1, keepdims=0),
+        ref_proto.make_node("GreaterOrEqual", ["input", "rsum"], ["ge"],
+                            name="ge"),
+        ref_proto.make_node("Where", ["ge", "input", "zero"], ["w"], name="w"),
+        ref_proto.make_node("Expand", ["w", "eshape"], ["out"], name="out"),
+    ]
+    inits = [ref_proto.make_tensor("axes1", np.asarray([1], dtype=np.int64)),
+             ref_proto.make_tensor("zero", np.asarray(0.0, dtype=np.float32)),
+             ref_proto.make_tensor("eshape",
+                                   np.asarray([2, 3, 4, 5], dtype=np.int64))]
+    blob = ref_proto.make_model(
+        nodes, inits, [ref_proto.make_value_info("input", [None, 4, 5])],
+        [ref_proto.make_value_info("out", [2, 3, 4, 5])])
+    want, got, _, _ = _both(blob, x, input_shape=(4, 5))
+    assert _rel_err(got, want) <= ONNX_ELEMENTWISE_TOL
+    want, got, _, _ = _both(blob, x, tap="amax", input_shape=(4, 5))
+    np.testing.assert_array_equal(got.astype(np.int64), want.astype(np.int64))
+
+    # the dynamic-batch shape idiom, slices, splits and compares
+    P = proto
+    nodes = [
+        P.make_node("Shape", ["input"], ["shp"], name="shape"),
+        # (the writer stores the 0-d index as [1]: the gather keeps its axis)
+        P.make_node("Gather", ["shp", "i0"], ["bsz"], name="batch", axis=0),
+        P.make_node("Squeeze", ["bsz", "ax0"], ["bsz0"], name="bsz0"),
+        P.make_node("Unsqueeze", ["bsz0", "ax0"], ["bsz1"], name="bsz1"),
+        P.make_node("Concat", ["bsz1", "m1"], ["flat_shape"], name="fshape",
+                    axis=0),
+        P.make_node("Reshape", ["input", "flat_shape"], ["flat"], name="flat"),
+        P.make_node("Slice", ["flat", "st", "en", "axs", "stp"], ["sl"],
+                    name="slice"),
+        P.make_node("Split", ["sl"], ["s1", "s2"], name="split", axis=1,
+                    split=[3, 5]),
+        P.make_node("Less", ["s1", "thr"], ["lt"], name="less"),
+        P.make_node("Cast", ["lt"], ["lti"], name="cast", to=7),
+        P.make_node("Gather", ["s2", "cols"], ["g"], name="gather", axis=1),
+        P.make_node("Transpose", ["g"], ["gt"], name="transpose"),
+        P.make_node("ArgMin", ["gt"], ["amin"], name="amin", axis=0,
+                    keepdims=0, select_last_index=1),
+        P.make_node("Concat", ["lti", "lti"], ["out"], name="out", axis=1),
+    ]
+    inits = [P.make_tensor("i0", np.asarray(0, dtype=np.int64)),
+             P.make_tensor("ax0", np.asarray([0], dtype=np.int64)),
+             P.make_tensor("m1", np.asarray([-1], dtype=np.int64)),
+             P.make_tensor("st", np.asarray([7, 0], dtype=np.int64)),
+             P.make_tensor("en", np.asarray([-(2 ** 63), 2], dtype=np.int64)),
+             P.make_tensor("axs", np.asarray([1, 0], dtype=np.int64)),
+             P.make_tensor("stp", np.asarray([-1, 1], dtype=np.int64)),
+             P.make_tensor("thr", np.asarray(0.1, dtype=np.float32)),
+             P.make_tensor("cols", np.asarray([1, -2, 0], dtype=np.int64))]
+    blob = P.make_model(nodes, inits,
+                        [P.make_value_info("input", [None, 4, 5])],
+                        [P.make_value_info("out", [None, 6])])
+    for tap in (None, "slice", "gather", "amin", "shape", "flat"):
+        want, got, _, _ = _both(blob, x, tap=tap, input_shape=(4, 5))
+        assert got.shape == want.shape, tap
+        if got.dtype.kind == "f":
+            np.testing.assert_array_equal(got.view(np.uint32),
+                                          want.astype(np.float32).view(np.uint32))
+        else:
+            np.testing.assert_array_equal(got.astype(np.int64),
+                                          want.astype(np.int64))
+
+
+@pytest.mark.parametrize("op", ["LSTM", "GRU"])
+def test_graph_module_recurrent_matches_reference(tmp_path, op):
+    """The reference's packed torch BiLSTM and GRU
+    (``linear_before_reset=1``) fixtures through the ONNX LSTM/GRU ops:
+    within 1e-4 of the reference output's max |x|."""
+    import torch.nn as nn
+
+    fx = _onnx_fixtures()
+    torch.manual_seed(7 if op == "LSTM" else 8)
+    T, B, I, H = (6, 2, 5, 7) if op == "LSTM" else (5, 3, 4, 6)
+    rnn = nn.LSTM(I, H, bidirectional=True) if op == "LSTM" else nn.GRU(I, H)
+    rnn.eval()
+    path = fx.TestTransformerGraphImport._pack_rnn(
+        None, op, rnn, I, H, tmp_path / "rnn.onnx",
+        extra_attrs=None if op == "LSTM" else {"linear_before_reset": 1})
+    x = np.random.default_rng(3).normal(size=(T, B, I)).astype(np.float32)
+    want, got, _, _ = _both(pathlib.Path(path).read_bytes(), x,
+                            input_shape=(B, I))
+    assert got.shape == want.shape
+    assert _rel_err(got, want) <= ONNX_CONV_RNN_TOL
+
+
+def test_graph_module_resize_pad_clip_and_elementwise_ops():
+    """Resize (nearest, linear up and antialiased down, cubic), Pad
+    (constant, reflect, edge), Clip, HardSwish, LeakyRelu, Selu, Pow, Min,
+    Max, Mean, Tile, ReduceProd/Mean, GlobalMaxPool, Gemm with alpha/beta:
+    within 1e-5 of the reference output's max |x| (elementwise family)."""
+    from mmlspark_tpu_torch.onnx import proto as P
+
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 3, 6, 8)).astype(np.float32)
+    chain = [
+        ("Resize", ["input", "", "up2"], dict(mode="nearest")),
+        ("Resize", ["$", "", "", "down"], dict(mode="linear")),
+        ("Resize", ["$", "", "up15"], dict(mode="linear")),
+        ("Resize", ["$", "", "", "cub"], dict(mode="cubic")),
+        ("Pad", ["$", "pads"], dict(mode="reflect")),
+        ("Pad", ["$", "pads"], dict(mode="edge")),
+        ("Pad", ["$", "pads", "pv"], {}),
+        ("Clip", ["$", "lo", "hi"], {}),
+        ("HardSwish", ["$"], {}),
+        ("LeakyRelu", ["$"], dict(alpha=0.2)),
+        ("Selu", ["$"], {}),
+        ("Max", ["$", "half"], {}),
+        ("Pow", ["$", "two"], {}),
+        ("Min", ["$", "three"], {}),
+        ("Mean", ["$", "half", "$"], {}),
+        ("Tile", ["$", "reps"], {}),
+        ("GlobalMaxPool", ["$"], {}),
+        ("ReduceMean", ["$"], dict(axes=[2, 3], keepdims=0)),
+        ("Gemm", ["$", "gw", "gb"], dict(alpha=0.5, beta=2.0, transB=1)),
+    ]
+    nodes, cur = [], "input"
+    for i, (op, ins, attrs) in enumerate(chain):
+        out = f"n{i}"
+        nodes.append(P.make_node(op, [cur if a == "$" else a for a in ins],
+                                 [out], name=f"{op.lower()}_{i}", **attrs))
+        cur = out
+    f32 = np.float32
+    inits = [P.make_tensor("up2", np.asarray([1, 1, 2, 2], f32)),
+             P.make_tensor("down", np.asarray([2, 3, 5, 3], np.int64)),
+             P.make_tensor("up15", np.asarray([1, 1, 1.6, 2.0], f32)),
+             P.make_tensor("cub", np.asarray([2, 3, 9, 7], np.int64)),
+             P.make_tensor("pads", np.asarray([0, 0, 1, 2, 0, 0, 2, 1], np.int64)),
+             P.make_tensor("pv", np.asarray(0.25, f32)),
+             P.make_tensor("lo", np.asarray(-0.5, f32)),
+             P.make_tensor("hi", np.asarray(0.75, f32)),
+             P.make_tensor("half", np.asarray(0.5, f32)),
+             P.make_tensor("two", np.asarray(2.0, f32)),
+             P.make_tensor("three", np.asarray(3.0, f32)),
+             P.make_tensor("reps", np.asarray([1, 2, 1, 1], np.int64)),
+             P.make_tensor("gw", rng.normal(size=(4, 6)).astype(f32)),
+             P.make_tensor("gb", rng.normal(size=(4,)).astype(f32))]
+    blob = P.make_model(nodes, inits,
+                        [P.make_value_info("input", [None, 3, 6, 8])],
+                        [P.make_value_info(cur, [None, 4])])
+    for tap in (None, "resize_1", "resize_3", "pad_6", "tile_15"):
+        want, got, _, _ = _both(blob, x, tap=tap)
+        assert got.shape == want.shape, tap
+        assert _rel_err(got, want) <= ONNX_ELEMENTWISE_TOL, tap
+
+
+def test_graph_module_unsupported_op_raises_like_the_reference():
+    from mmlspark_tpu_torch.onnx import import_onnx
+    from mmlspark_tpu_torch.onnx import proto as P
+
+    blob = P.make_model([P.make_node("NonMaxSuppression", ["input"], ["out"],
+                                     name="nms")], [],
+                        [P.make_value_info("input", [None, 4])],
+                        [P.make_value_info("out", [None, 4])])
+    m = import_onnx(blob)
+    with pytest.raises(NotImplementedError, match="NonMaxSuppression"):
+        m.apply(torch.zeros(2, 4))
+
+
+def test_graph_module_two_input_bert_graph_matches_reference():
+    """``chip_smoke.bert_onnx`` (the BERT-shaped encoder the card runs, here
+    2 layers of width 32): its two graph inputs, int64 ``input_ids`` and
+    ``attention_mask``, fed by dict to the reference's and the port's
+    imports: within 1e-5 of the reference output's max |x| (elementwise and
+    normalisation family: Gather, LayerNormalization, MatMul/Softmax, Gelu);
+    ``init``'s shape probe gives the hidden width."""
+    cs = _load_chip_smoke()
+    blob = cs.bert_onnx(vocab=97, hidden=32, heads=4, ffn=64, layers=2,
+                        seq=16, seed=3)
+    ids, mask = cs.bert_inputs(5, 16, 97, seed=4)
+    want, got, ref, port = _both(blob, {"input_ids": ids,
+                                        "attention_mask": mask})
+    assert got.shape == (5, 32)
+    assert _rel_err(got, want) <= ONNX_ELEMENTWISE_TOL
+    assert port.argument_names() == ref.argument_names() == \
+        ["input_ids", "attention_mask"]
+    assert port.module.init(None, (16,)) == (32,)

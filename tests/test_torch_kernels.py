@@ -796,3 +796,202 @@ def test_gate_sends_grad_through_flash_attention(monkeypatch):
     with torch.no_grad():
         dense_attention(*leaves, causal=True)
     assert calls == ["function", "k5"]
+
+
+# ---------------------------------------------------------------- vw_scan
+#
+# ``csrc/vw_scan.cu`` (the VW learner's pass on the card; not a TPU kernel)
+# has no CPU mode. Its arithmetic is emulated here in numpy f32, step for
+# step as the source orders it (test code only): each lane's slots summed in
+# ascending order, the warp's shuffle-down tree, the first occurrence of an
+# index adding its duplicates' terms in slot order, the two-phase adaptive
+# update and XLA's index semantics. The emulation is held to the plain
+# version within rtol 1e-5 and atol 1e-5 of max |w| (they differ in the
+# prediction's summation order) and bit for bit on the index bookkeeping
+# (the slots each example updates).
+
+def _f32(x):
+    return np.float32(x)
+
+
+def _vw_scan_emulate(state, idx, val, labels, wgts, cfg, touched=None):
+    """The kernel's pass on numpy state arrays (in place); returns the f64
+    loss sum. ``touched`` (a set) collects the slots each example writes."""
+    from mmlspark_tpu_torch.vw.scan_kernel import mode_of
+
+    mode = mode_of(cfg)
+    s0, s1 = state[0], state[1]
+    dim = s0.shape[0]
+    t = _f32(state[2][0]) if mode != 2 else _f32(0)
+    k = idx.shape[1]
+    total = 0.0
+    for i in range(idx.shape[0]):
+        six = np.where(idx[i] < 0, idx[i] + dim, idx[i])
+        sv = val[i]
+        first = [not any(six[jj] == six[j] for jj in range(j))
+                 for j in range(k)]
+        gat = np.clip(six, 0, dim - 1)
+        if mode == 2:
+            zi, ni = s0[gat], s1[gat]
+            sign = np.sign(zi).astype(np.float32)
+            wi = np.where(np.abs(zi) <= _f32(cfg.l1), _f32(0),
+                          -(zi - sign * _f32(cfg.l1))
+                          / ((_f32(cfg.ftrl_beta) + np.sqrt(ni))
+                             / _f32(cfg.ftrl_alpha) + _f32(cfg.l2)))
+            wi = wi.astype(np.float32)
+        else:
+            wi = s0[gat].copy()
+        part = np.zeros(32, np.float32)
+        for j in range(k):
+            part[j % 32] = _f32(part[j % 32] + _f32(wi[j] * sv[j]))
+        for off in (16, 8, 4, 2, 1):
+            part = np.array([part[l] + part[l + off] if l + off < 32
+                             else part[l] for l in range(32)], np.float32)
+        pred, label, wgt = part[0], labels[i], wgts[i]
+        with np.errstate(over="ignore"):
+            if cfg.loss_function == "logistic":
+                g = -label / (_f32(1) + np.exp(label * pred))
+                m = -label * pred
+                ex = max(m, _f32(0)) + np.log1p(np.exp(-abs(m)))
+            elif cfg.loss_function == "hinge":
+                g = -label if label * pred < 1 else _f32(0)
+                ex = max(_f32(0), _f32(1) - label * pred)
+            elif cfg.loss_function == "quantile":
+                tau = _f32(cfg.quantile_tau)
+                g = _f32(1) - tau if pred > label else -tau
+                d = pred - label
+                ex = (_f32(1) - tau) * d if d > 0 else -tau * d
+            else:
+                g = pred - label
+                ex = _f32(0.5) * (pred - label) * (pred - label)
+        g = _f32(g * wgt)
+        total += float(_f32(ex * wgt))
+
+        def scatter(arr, terms):
+            for j in range(k):
+                ix = six[j]
+                if not first[j] or ix < 0 or ix >= dim:
+                    continue
+                acc = arr[ix]
+                for jj in range(j, k):
+                    if six[jj] == ix:
+                        acc = _f32(acc + terms[jj])
+                arr[ix] = acc
+                if touched is not None:
+                    touched.add((i, int(ix)))
+
+        if mode == 2:
+            gi = (g * sv).astype(np.float32)
+            ni = s1[gat]
+            sigma = (np.sqrt(ni + gi * gi) - np.sqrt(ni)) / _f32(cfg.ftrl_alpha)
+            t1 = (gi - sigma * wi).astype(np.float32)
+            t2 = (gi * gi).astype(np.float32)
+            scatter(s0, t1)
+            scatter(s1, t2)
+            continue
+        gi = (g * sv + np.where(sv != 0, _f32(cfg.l2) * wi, _f32(0))
+              ).astype(np.float32)
+        t = _f32(t + (1 if wgt > 0 else 0))
+        if mode == 1:
+            scatter(s1, (gi * gi).astype(np.float32))
+            g2 = s1[gat]
+            base = g2 + _f32(1e-16)
+            scale = (np.sqrt(base) if cfg.power_t == 0.5
+                     else np.power(base, _f32(cfg.power_t))) + _f32(1e-8)
+            step = (-_f32(cfg.learning_rate) * gi / scale).astype(np.float32)
+        else:
+            base = t + _f32(cfg.initial_t)
+            eta = _f32(cfg.learning_rate) / (
+                np.sqrt(base) if cfg.power_t == 0.5
+                else np.power(base, _f32(cfg.power_t)))
+            step = (-eta * gi).astype(np.float32)
+        scatter(s0, step)
+    if mode != 2:
+        state[2][0] = t
+    return total
+
+
+@pytest.mark.parametrize("loss", ["squared", "logistic", "hinge", "quantile"])
+@pytest.mark.parametrize("mode", ["adaptive", "sgd", "ftrl"])
+def test_vw_scan_emulation_matches_the_plain_version(loss, mode):
+    """The kernel's arithmetic (emulated) against ``scan_pass_plain`` on
+    examples with duplicate indices, padded slots, a negative index, one
+    past the end and a zero-weight example, two passes: weights within
+    rtol 1e-5 and atol 1e-5 of max |w|, the clock equal, the loss within
+    1e-5; the examples never write outside [0, dim)."""
+    from mmlspark_tpu_torch.vw import learner, scan_kernel
+
+    rng = np.random.default_rng(11)
+    n, k, bits = 120, 37, 8
+    idx = rng.integers(0, 1 << bits, (n, k)).astype(np.int32)
+    idx[:, 5] = idx[:, 2]
+    idx[:, 36] = idx[:, 2]
+    idx[3, 0], idx[4, 1] = -7, (1 << bits) + 2
+    val = rng.standard_normal((n, k)).astype(np.float32)
+    val[:, -3:-1] = 0
+    lab = (np.where(rng.random(n) > 0.5, 1.0, -1.0) if loss != "quantile"
+           else rng.standard_normal(n)).astype(np.float32)
+    wts = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    wts[9] = 0
+    cfg = learner.LearnerConfig(
+        num_bits=bits, loss_function=loss, l2=0.01 if mode == "adaptive" else 0,
+        power_t=0.5 if mode != "sgd" else 0.4, initial_t=1.0,
+        adaptive=mode == "adaptive", ftrl=mode == "ftrl", l1=0.001)
+    st = learner.init_state(cfg, "cpu")
+    emu = [s.numpy().copy() for s in st]
+    tens = [torch.from_numpy(a) for a in (idx, val, lab, wts)]
+    touched = set()
+    for _ in range(2):
+        got = float(scan_kernel.scan_pass_plain(st, *tens, cfg).item())
+        want = _vw_scan_emulate(emu, idx, val, lab, wts, cfg, touched)
+        assert abs(got - want) <= 1e-5 * max(1.0, abs(want))
+    w_plain = learner.weights_of(cfg, st).numpy()
+    w_emu = learner.weights_of(cfg, [torch.from_numpy(a) for a in emu]).numpy()
+    np.testing.assert_allclose(w_emu, w_plain, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(w_plain).max()))
+    if mode != "ftrl":
+        assert st[2].item() == emu[2][0] == 2 * (n - 1)
+    assert all(0 <= ix < (1 << bits) for _, ix in touched)
+
+
+def test_vw_scan_argument_block_matches_the_source():
+    """``_Args`` is ``ScanArgs`` in ``csrc/vw_scan.cu`` field for field (8
+    pointers, int64 n, 4 int32, 8 floats: 120 bytes), and the shared memory
+    the launch asks for fits the card's 227 KB at ``MAX_K`` slots."""
+    import ctypes
+    import pathlib
+    import re
+
+    from mmlspark_tpu_torch.vw import scan_kernel
+
+    a = scan_kernel._Args
+    assert ctypes.sizeof(a) == 120
+    assert a.n.offset == 64 and a.k.offset == 72 and a.mode.offset == 84
+    assert a.tau.offset == 88 and a.beta.offset == 116
+    src = (pathlib.Path(scan_kernel.__file__).resolve().parents[1] / "csrc"
+           / "vw_scan.cu").read_text()
+    body = re.sub(r"//.*", "", src[src.index("struct ScanArgs"):
+                                    src.index("};")])
+    names = re.findall(r"(\w+)(?:;|,)", body)
+    assert names == [f for f, _ in a._fields_]
+    assert scan_kernel.MAX_K * (6 * 4 + 1) <= 227 * 1024
+
+
+def test_vw_scan_wrapper_routes_by_device_and_checks_inputs():
+    from mmlspark_tpu_torch.vw import learner, scan_kernel
+
+    cfg = learner.LearnerConfig(num_bits=4)
+    st = learner.init_state(cfg, "cpu")
+    idx = torch.zeros(3, 2, dtype=torch.int32)
+    val = torch.ones(3, 2)
+    ones = torch.ones(3)
+    scan_kernel.launches = 0
+    out = scan_kernel.scan_pass(st, idx, val, ones, ones, cfg)
+    assert out.dtype == torch.float64 and scan_kernel.launches == 0
+    with pytest.raises(TypeError, match="int32"):
+        scan_kernel.scan_pass(st, idx.long(), val, ones, ones, cfg)
+    with pytest.raises(ValueError, match="3 tensors"):
+        scan_kernel.scan_pass(st[:2], idx, val, ones, ones, cfg)
+    meta = [s.to("meta") for s in st]
+    with pytest.raises(ValueError, match="no VW scan"):
+        scan_kernel.scan_pass(meta, idx, val, ones, ones, cfg)

@@ -1033,3 +1033,363 @@ def test_sparse_fit_without_cuda_raises():
     _, pdf = _sparse_frames(X, y, 6)
     with pytest.raises(RuntimeError, match="CUDA"):
         stages.LightGBMClassifier(numIterations=2).fit(pdf)
+
+
+# ---------------------------------------------------------------- VW
+#
+# The VW online learner: hashing, featurizer and interactions bit for bit;
+# the port's C++ pass against the reference's (the same source) bit for
+# bit; the plain scan against the reference's jax.lax.scan (the native
+# route off) within rtol 1e-5 and atol 1e-5 of the weights' max |w| (the
+# measured gap, squared loss with AdaGrad over 3 passes, is 4.9e-6 of it:
+# a prediction summed in another order feeds the next step); the stages'
+# rawPrediction within 1e-6.
+
+VW_RTOL = 1e-5
+VW_ATOL_OF_MAX = 1e-5
+
+
+def _vw_mixed_frame(n=60, seed=0):
+    rng = np.random.default_rng(seed)
+    words = np.array(["alpha", "beta", "gamma", "délta", "", "eps silon"])
+    data = {
+        "num": [float(v) if i % 7 else 0.0
+                for i, v in enumerate(rng.standard_normal(n))],
+        "cnt": [int(v) for v in rng.integers(0, 5, n)],
+        "flag": [bool(v) for v in rng.random(n) > 0.5],
+        "word": [str(words[i % len(words)]) if i % 5 else None
+                 for i in range(n)],
+        "text": [" ".join(rng.choice(words[:4], 3)) for _ in range(n)],
+        "tags": [list(rng.choice(words[:4], 2)) for _ in range(n)],
+        "kv": [{"a": float(rng.standard_normal()), "b": 0.0, "c": "x"}
+               for _ in range(n)],
+        "vec": [rng.standard_normal(4) for _ in range(n)],
+    }
+    return data
+
+
+def _ref_vw():
+    import importlib
+
+    return (importlib.import_module("mmlspark_tpu.vw"),
+            importlib.import_module("mmlspark_tpu.vw.learner"),
+            importlib.import_module("mmlspark_tpu.ops.hashing"))
+
+
+def test_murmur_and_hash_strings_bit_for_bit():
+    """murmur3_32, hash_string, the prefix hasher and hash_strings (native
+    batch and the numpy path) give the reference's ints."""
+    from mmlspark_tpu_torch import native_loader
+    from mmlspark_tpu_torch.ops import hashing
+
+    _, _, ref = _ref_vw()
+    rng = np.random.default_rng(0)
+    strs = ["", "a", "ab", "abc", "abcd", "hello world", "déjà vu", "日本語"] + \
+        ["".join(map(chr, rng.integers(32, 1000, int(k))))
+         for k in rng.integers(0, 40, 200)]
+    for seed in (0, 1, 0xDEADBEEF, 123456789):
+        want = [ref.hash_string(s, seed) for s in strs]
+        assert [hashing.hash_string(s, seed) for s in strs] == want
+        assert [hashing.murmur3_32(s.encode(), seed) for s in strs] == want
+        assert hashing.hash_strings(strs, seed).tolist() == want
+        assert native_loader.murmur3_batch(strs, seed).tolist() == want
+        assert hashing.MurmurWithPrefix("ns_").hash("x", seed) == \
+            ref.MurmurWithPrefix("ns_").hash("x", seed)
+
+
+@pytest.mark.parametrize("opts", [{}, {"prefixStringsWithColumnName": False},
+                                  {"stringSplit": True, "numBits": 12},
+                                  {"stringSplitInputCols": ["text"],
+                                   "sumCollisions": False, "numBits": 4}])
+def test_vw_featurizer_bit_for_bit(opts):
+    """Every featurizer type (numeric, bool, string, split text, string
+    array, map, vector, nulls) gives the reference's indices and values."""
+    from mmlspark_tpu_torch.vw import VowpalWabbitFeaturizer
+
+    ref_vw, _, _ = _ref_vw()
+    data = _vw_mixed_frame()
+    cols = list(data)
+    got = VowpalWabbitFeaturizer(inputCols=cols, outputCol="f", **opts) \
+        .transform(DataFrame.from_dict(data, num_partitions=2)).column("f")
+    want = ref_vw.VowpalWabbitFeaturizer(inputCols=cols, outputCol="f", **opts) \
+        .transform(RefDataFrame.from_dict(data, num_partitions=2)).column("f")
+    for a, b in zip(got, want):
+        assert a["size"] == b["size"]
+        np.testing.assert_array_equal(a["indices"], b["indices"])
+        assert a["values"].dtype == b["values"].dtype == np.float32
+        np.testing.assert_array_equal(a["values"].view(np.uint32),
+                                      b["values"].view(np.uint32))
+
+
+def test_vw_interactions_bit_for_bit():
+    from mmlspark_tpu_torch.vw import (VowpalWabbitFeaturizer,
+                                       VowpalWabbitInteractions)
+
+    ref_vw, _, _ = _ref_vw()
+    data = _vw_mixed_frame(40, seed=1)
+    outs = []
+    for pkg, frame in ((None, DataFrame), (ref_vw, RefDataFrame)):
+        feat = (VowpalWabbitFeaturizer if pkg is None
+                else pkg.VowpalWabbitFeaturizer)
+        inter = (VowpalWabbitInteractions if pkg is None
+                 else pkg.VowpalWabbitInteractions)
+        df = frame.from_dict(data)
+        df = feat(inputCols=["num", "word"], outputCol="a").transform(df)
+        df = feat(inputCols=["tags", "kv"], outputCol="b").transform(df)
+        df = inter(inputCols=["a", "b"], outputCol="ab", numBits=14).transform(df)
+        outs.append(list(df.column("ab")))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a["indices"], b["indices"])
+        np.testing.assert_array_equal(a["values"].view(np.uint32),
+                                      b["values"].view(np.uint32))
+
+
+def _vw_dataset(n=400, k=10, bits=10, seed=0, loss="logistic", dups=True):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, 1 << bits, (n, k)).astype(np.int32)
+    if dups:
+        idx[:, 3] = idx[:, 1]      # duplicate indices within an example
+        idx[::3, 6] = idx[::3, 1]
+    val = rng.standard_normal((n, k)).astype(np.float32)
+    val[:, -2:] = 0               # padded slots
+    raw = (val * rng.standard_normal(k)).sum(1)
+    lab = (np.where(raw > 0, 1.0, -1.0) if loss != "quantile"
+           else np.abs(raw)).astype(np.float32)
+    wts = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    wts[7] = 0.0
+    return idx, val, lab, wts
+
+
+def test_vw_native_pass_bit_for_bit_the_reference_pass(monkeypatch):
+    """The port's ``native_loader.vw_train_pass`` (its own build of the same
+    C++ source) against the reference's: weights, g2, t and the loss sum
+    bit for bit, for every loss, adaptive and plain SGD."""
+    from mmlspark_tpu import native_loader as ref_nl
+    from mmlspark_tpu_torch import native_loader
+
+    if not (ref_nl.available() and native_loader.available()):
+        pytest.skip("native toolchain unavailable")
+    for loss in ("squared", "logistic", "hinge", "quantile"):
+        for adaptive in (True, False):
+            idx, val, lab, wts = _vw_dataset(loss=loss)
+            outs = []
+            for nl in (native_loader, ref_nl):
+                w = np.zeros(1 << 10, np.float32)
+                g2 = np.zeros(1 << 10, np.float32)
+                t, ls = 0.0, []
+                for _ in range(2):
+                    t, s = nl.vw_train_pass(idx, val, lab, wts, w, g2, t,
+                                            loss=loss, tau=0.3, lr=0.4,
+                                            power_t=0.5 if adaptive else 0.4,
+                                            initial_t=1.0, l2=1e-3,
+                                            adaptive=adaptive)
+                    ls.append(s)
+                outs.append((w, g2, t, ls))
+            (w1, g1, t1, l1), (w2, g2_, t2, l2) = outs
+            assert np.array_equal(w1.view(np.uint32), w2.view(np.uint32))
+            assert np.array_equal(g1.view(np.uint32), g2_.view(np.uint32))
+            assert t1 == t2 and l1 == l2
+
+
+@pytest.mark.parametrize("loss", ["squared", "logistic", "hinge", "quantile"])
+@pytest.mark.parametrize("mode", ["adaptive", "sgd", "ftrl", "ftrl_l1",
+                                  "adaptive_l2"])
+def test_vw_plain_scan_matches_reference_scan(loss, mode, monkeypatch):
+    """The plain scan (``scan_kernel.scan_pass_plain``, what ``vw_scan`` is
+    held to on the card) against the reference's ``jax.lax.scan``
+    (``MMLSPARK_TPU_NATIVE_VW=0``), 3 passes, duplicate indices within
+    examples, padded slots, a zero-weight example: weights within rtol 1e-5
+    and atol 1e-5 of max |w|; the last pass's average loss within 1e-5."""
+    from mmlspark_tpu_torch.vw import learner
+
+    _, ref_learner, _ = _ref_vw()
+    monkeypatch.setenv("MMLSPARK_TPU_NATIVE_VW", "0")
+    kw = {"adaptive": dict(adaptive=True), "sgd": dict(adaptive=False),
+          "ftrl": dict(ftrl=True), "ftrl_l1": dict(ftrl=True, l1=0.01),
+          "adaptive_l2": dict(adaptive=True, l2=0.01, power_t=0.4)}[mode]
+    idx, val, lab, wts = _vw_dataset(loss=loss)
+    common = dict(num_bits=10, loss_function=loss, num_passes=3,
+                  quantile_tau=0.3, **kw)
+    w_ref, s_ref = ref_learner.train_linear(
+        ref_learner.LearnerConfig(**common),
+        ref_learner.SparseDataset(idx, val, lab, wts))
+    with use_device("cpu"):
+        w, s = learner.train_linear(learner.LearnerConfig(**common),
+                                    learner.SparseDataset(idx, val, lab, wts))
+    np.testing.assert_allclose(
+        w, w_ref, rtol=VW_RTOL,
+        atol=VW_ATOL_OF_MAX * float(np.abs(w_ref).max()))
+    assert len(s) == 3
+    assert abs(s[-1].average_loss - s_ref[-1].average_loss) <= \
+        1e-5 * max(1.0, abs(s_ref[-1].average_loss))
+
+
+def test_vw_scan_route_serves_ftrl_and_out_of_range_indices(monkeypatch):
+    """The routes as the reference decides them: FTRL and an index outside
+    [0, 2^bits) take the scan (XLA's semantics: a negative index wraps, a
+    gather clamps, a scatter past the end drops) even with the native
+    route on, and both packages give the same weights."""
+    from mmlspark_tpu_torch import native_loader
+    from mmlspark_tpu_torch.vw import learner
+
+    _, ref_learner, _ = _ref_vw()
+    monkeypatch.delenv("MMLSPARK_TPU_NATIVE_VW", raising=False)
+    idx, val, lab, wts = _vw_dataset(n=200)
+    idx[5, 0] = -3
+    idx[9, 2] = (1 << 10) + 5
+    native_loader.uses.clear()
+    for kw in ({}, {"ftrl": True}):
+        cfg = dict(num_bits=10, loss_function="logistic", num_passes=2, **kw)
+        w_ref, _ = ref_learner.train_linear(
+            ref_learner.LearnerConfig(**cfg),
+            ref_learner.SparseDataset(idx, val, lab, wts))
+        with use_device("cpu"):
+            w, _ = learner.train_linear(learner.LearnerConfig(**cfg),
+                                        learner.SparseDataset(idx, val, lab, wts))
+        np.testing.assert_allclose(w, w_ref, rtol=VW_RTOL,
+                                   atol=VW_ATOL_OF_MAX * float(np.abs(w_ref).max()))
+    assert ("vw_train_pass", "native") not in native_loader.uses
+
+
+def test_vw_default_route_is_native_and_copies_initial_weights(monkeypatch):
+    """Adaptive SGD on one shard takes the native pass (its weights bit for
+    bit the reference's native route's), and the caller's
+    ``initial_weights`` array is never trained in place."""
+    from mmlspark_tpu_torch import native_loader
+    from mmlspark_tpu_torch.vw import learner
+
+    if not native_loader.available():
+        pytest.skip("native toolchain unavailable")
+    _, ref_learner, _ = _ref_vw()
+    monkeypatch.delenv("MMLSPARK_TPU_NATIVE_VW", raising=False)
+    idx, val, lab, wts = _vw_dataset(n=300)
+    init = np.random.default_rng(1).standard_normal(1 << 10).astype(np.float32)
+    keep = init.copy()
+    native_loader.uses.clear()
+    cfg = dict(num_bits=10, loss_function="hinge", num_passes=2)
+    w, s = learner.train_linear(learner.LearnerConfig(**cfg),
+                                learner.SparseDataset(idx, val, lab, wts),
+                                initial_weights=init)
+    w_ref, s_ref = ref_learner.train_linear(
+        ref_learner.LearnerConfig(**cfg),
+        ref_learner.SparseDataset(idx, val, lab, wts), initial_weights=init)
+    assert native_loader.uses[("vw_train_pass", "native")] == 2
+    np.testing.assert_array_equal(init, keep)
+    np.testing.assert_array_equal(w.view(np.uint32), w_ref.view(np.uint32))
+    assert [x.average_loss for x in s] == [x.average_loss for x in s_ref]
+
+
+def test_vw_predict_and_linear_learner_match_reference():
+    """``predict_linear`` (a gather-sum on the device) and the incremental
+    ``LinearLearner`` (partial_fit over three slices, state_dict round
+    trip continuing bit for bit) against the reference's."""
+    from mmlspark_tpu_torch.vw import learner
+
+    _, ref_learner, _ = _ref_vw()
+    rng = np.random.default_rng(4)
+    rows = [{"indices": np.sort(rng.choice(1 << 8, 5, replace=False)),
+             "values": rng.standard_normal(5).astype(np.float32)}
+            for _ in range(90)]
+    y = np.where(rng.random(90) > 0.5, 1.0, -1.0)
+    for kw in ({}, {"ftrl": True}):
+        cfg = dict(num_bits=8, loss_function="logistic", **kw)
+        ref = ref_learner.LinearLearner(ref_learner.LearnerConfig(**cfg))
+        port = learner.LinearLearner(learner.LearnerConfig(**cfg), device="cpu")
+        for i in range(0, 60, 20):
+            a = port.partial_fit(rows[i:i + 20], y[i:i + 20])
+            b = ref.partial_fit(rows[i:i + 20], y[i:i + 20])
+            assert abs(a - b) <= 1e-5 * max(1.0, abs(b))
+        np.testing.assert_allclose(port.weights, ref.weights, rtol=VW_RTOL,
+                                   atol=VW_ATOL_OF_MAX
+                                   * float(np.abs(ref.weights).max()))
+        np.testing.assert_allclose(port.predict(rows), ref.predict(rows),
+                                   rtol=1e-5, atol=1e-6)
+        twin = learner.LinearLearner(learner.LearnerConfig(**cfg), device="cpu")
+        twin.load_state_dict(port.state_dict())
+        port.partial_fit(rows[60:], y[60:])
+        twin.partial_fit(rows[60:], y[60:])
+        assert np.array_equal(port.weights.view(np.uint32),
+                              twin.weights.view(np.uint32))
+        assert twin.examples_seen == port.examples_seen == 90
+
+
+def _vw_stage_frame(frame, n=300, seed=5):
+    rng = np.random.default_rng(seed)
+    feats = [{"indices": np.sort(rng.choice(1 << 9, 6, replace=False)),
+              "values": rng.standard_normal(6).astype(np.float32)}
+             for _ in range(n)]
+    extra = [{"indices": np.array([int(rng.integers(0, 1 << 9))]),
+              "values": np.array([1.0], np.float32)} for _ in range(n)]
+    y = (np.array([f["values"][:3].sum() for f in feats]) > 0).astype(float)
+    return frame.from_dict({"features": feats, "extra": extra, "label": y,
+                            "w": rng.uniform(0.5, 1.5, n)}, num_partitions=2)
+
+
+@pytest.mark.parametrize("kind", ["classifier", "regressor_quantile",
+                                  "classifier_ftrl"])
+def test_vw_stages_fit_transform_save_load_match_reference(tmp_path, kind,
+                                                           monkeypatch):
+    """Fit -> transform through the stages (``additionalFeatures``, a weight
+    column, ``passThroughArgs``, ``initialModel`` from a readable dump)
+    against the reference's: rawPrediction within 1e-6; the port's save ->
+    load -> transform bit for bit; performance statistics per pass."""
+    from mmlspark_tpu_torch.core.pipeline import PipelineStage
+    from mmlspark_tpu_torch.vw import (VowpalWabbitClassifier,
+                                       VowpalWabbitRegressor,
+                                       parse_readable_model)
+
+    ref_vw, _, _ = _ref_vw()
+    monkeypatch.delenv("MMLSPARK_TPU_NATIVE_VW", raising=False)
+    opts = dict(featuresCol="features", labelCol="label", weightCol="w",
+                numBits=9, numPasses=2, additionalFeatures=["extra"])
+    if kind == "classifier":
+        mk, ref_mk, out = VowpalWabbitClassifier, ref_vw.VowpalWabbitClassifier, \
+            "rawPrediction"
+        opts["passThroughArgs"] = "--l2 1e-4 -l 0.3"
+    elif kind == "classifier_ftrl":
+        mk, ref_mk, out = VowpalWabbitClassifier, ref_vw.VowpalWabbitClassifier, \
+            "rawPrediction"
+        opts["passThroughArgs"] = "--ftrl --ftrl_alpha 0.05"
+    else:
+        mk, ref_mk, out = VowpalWabbitRegressor, ref_vw.VowpalWabbitRegressor, \
+            "prediction"
+        opts["passThroughArgs"] = "--loss_function quantile --quantile_tau 0.3"
+    df, ref_df = _vw_stage_frame(DataFrame), _vw_stage_frame(RefDataFrame)
+    with use_device("cpu"):
+        model = mk(**opts).fit(df)
+        got = np.asarray(model.transform(df).column(out), np.float64)
+    ref_model = ref_mk(**opts).fit(ref_df)
+    want = np.asarray(ref_model.transform(ref_df).column(out), np.float64)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    stats = model.get_performance_statistics()
+    assert stats.count() == 2
+    assert list(stats.column("numExamples")) == [300, 300]
+    text = model.get_readable_model()
+    assert text.splitlines()[0] == "bits:9"
+    assert parse_readable_model(text)[0] == 9
+    with use_device("cpu"):
+        warm = mk(**opts).set_initial_model_readable(text).fit(df)
+        ref_warm = ref_mk(**opts).set_initial_model_readable(
+            ref_model.get_readable_model()).fit(ref_df)
+        np.testing.assert_allclose(
+            np.asarray(warm.transform(df).column(out), np.float64),
+            np.asarray(ref_warm.transform(ref_df).column(out), np.float64),
+            rtol=0, atol=1e-5)
+        model.save(str(tmp_path / "m"))
+        loaded = PipelineStage.load(str(tmp_path / "m"))
+        again = np.asarray(loaded.transform(df).column(out), np.float64)
+    assert type(loaded) is type(model)
+    np.testing.assert_array_equal(again, got)
+
+
+def test_vw_mesh_requests_raise_naming_a9():
+    from mmlspark_tpu_torch.vw import (LearnerConfig, SparseDataset,
+                                       VowpalWabbitClassifier, train_linear)
+
+    df = _vw_stage_frame(DataFrame, n=20)
+    with use_device("cpu"), pytest.raises(NotImplementedError, match="A9"):
+        VowpalWabbitClassifier(numWorkers=2).fit(df)
+    ds = SparseDataset.from_rows(list(df.column("features")),
+                                 np.ones(20), num_bits=9)
+    with pytest.raises(NotImplementedError, match="A9"):
+        train_linear(LearnerConfig(num_bits=9), ds, mesh=4)
