@@ -47,7 +47,7 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    ``forest_predict_f64`` against the numpy traversal, bit for bit, with
    both times;
 3a''. profile: ``core.profiling`` device traces of the main fit on the
-   per-split route (forced) and on the scan: the device's busy share of
+   per-split route (forced, 3 iterations) and on the scan: the device's busy share of
    the fit's window (spin kernels mark it), the top device operations, the
    longest idle gaps, K1's and K2's device ms (the serving_sparse load is
    traced in its own phase, 12);
@@ -133,7 +133,7 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    stage entry point one fit with ``validationIndicatorCol`` and
    ``earlyStoppingRound=3`` and one with ``numBatches=2`` (identical first
    trees, same best iteration, same route);
-6c. sparse_wide: ``train_sparse`` at 127 leaves, 3 iterations, on the
+6c. sparse_wide: ``train_sparse`` at 127 leaves, 2 iterations, on the
    full-width dataset, whose fused-grower state (3.98 GB) passes the 2 GiB
    gate: route ``host``, the per-split loop (checked), seconds a tree, host
    reads a split (at most two), peak device memory; the anchor refit for
@@ -328,6 +328,38 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    prefix and the adaptive kernel fit against the native one within
    ``VW_RTOL``/``VW_ATOL``, two calls bit for bit, the transform within
    ``VW_PREDICT_REL`` of the host f64 dot.
+30. mesh_dense, mesh_sparse, mesh_vw: the data-parallel fits
+   (``parallel/mesh.py``, ``parallel/launch.py``), their ranks spawned
+   once from this process for the three phases (``mesh_phases``,
+   ``mesh_rank``: fresh processes, a file rendezvous; the kernels are
+   built here first, the ranks load them; the inputs the ranks
+   memory-map as ``.npy``, written once here: the dense cell's matrix, the
+   sparse cell's binned CSR, vw_main's featurized rows). With two cards or
+   more: NCCL, one rank a card (at most ``MESH_MAX_CARDS``); on one card:
+   NCCL with one rank and two ranks sharing ``cuda:0`` over gloo, asked
+   for by name (``mesh_launches``), all at once, beside this process's
+   single-card reference fits (``mesh_spawn``). mesh_dense: ``train(mesh=)`` on the
+   dense cell, fused for 20 iterations (the sharded body under
+   ``set_sync_debug_mode("error")`` on NCCL) and per-split for 3 trees,
+   then here, alone on the card, the sharded fused fit on a one-rank NCCL
+   group as the port grows it (no compaction under a mesh) and with each
+   histogram's rows compacted first, timed (``mesh_compaction_ab``);
+   mesh_sparse: ``train_sparse(mesh=)`` on the sparse cell, 10 iterations;
+   mesh_vw: ``train_linear(mesh=)`` on vw_main's rows, adaptive and FTRL, 2
+   passes. Gates: every rank's model byte for byte; the GBDT models byte
+   for byte the single-card fits on the same routes (a difference prints
+   where and how many cells); VW within ``VW_RTOL``/``VW_ATOL`` of one
+   process averaging its per-block ``vw_scan`` passes the same way; K1, K4
+   and vw_scan launched on each rank, K2 on the per-split route's (the
+   sharded fused body compacts nothing, so its K2 and K1's device-count
+   entry stay at 0); K1's f64 mask entry and K4's against their plain
+   versions on each rank's own first-split inputs, and K1's f64
+   device-count entry on the compacted fit's (``MESH_F64_REL``, and the
+   f32 entry the f64 sums rounded once, bit for bit), held and timed here
+   once every rank has finished, on the card alone. Each rank logs its fit seconds (the runs
+   share the card with each other and with this process's fits), its
+   collectives (calls, bytes, summed wall ms) and its launches. A rank that
+   fails, exits nonzero or passes ``MESH_LAUNCH_TIMEOUT`` fails the run.
 
 Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``, after a ``{"kernels": [...]}`` line that
@@ -344,7 +376,9 @@ its GOSS scan, ranker_main, categorical_main, sparse_variants and its compacted
 stream, sparse_wide, serving_sparse, serving_transformer, mega_sparse at K=8
 and mega_transformer at K=4, through the graph replays, serving_autotune,
 train_transformer (K5) and its causal run (K5-K7), moe_main's transform (K5)
-and training (K5-K7)); K4's row also carries its
+and training (K5-K7), and the mesh phases' runs, summed over their ranks);
+K1's and K4's rows carry their f64 entries' checks, ms and bounds on a mesh
+rank's inputs (``f64_entry``), K4's row also its
 call on the compacted stream (``compacted_stream``), and K6's and K7's their
 design (``status``), TFLOP/s and the whole backward call's ms
 (``bwd_total_ms``).
@@ -1135,9 +1169,15 @@ def marked_trace(torch, fn, device_only: bool = True):
     return res, busy, window is not None, k_ms
 
 
+# the traced per-split fit's iterations: its trace's shares settle within a
+# few trees, and the script keeps to its time (20 before the mesh phases)
+PROFILE_PER_SPLIT_ITERS = 3
+
+
 def profile_phase(torch, X, y, smi) -> None:
     """Traces (``core.profiling``, device activity) of the dense main fit on
-    the per-split route (forced) and on its default route (scan): for each,
+    the per-split route (forced; ``PROFILE_PER_SPLIT_ITERS`` iterations) and
+    on its default route (scan, 20): for each,
     the device's busy share of the fit's window (spin kernels mark it), the
     top device operations by time, the longest idle gaps, and K1's and
     K2's device ms. (The serving_sparse load is traced in its phase.)"""
@@ -1145,14 +1185,16 @@ def profile_phase(torch, X, y, smi) -> None:
     from mmlspark_tpu_torch.gbdt import LightGBMClassifier
 
     df = DataFrame.from_dict({"features": X, "label": y})
-    for name, env in (("per_split", PER_SPLIT), ("scan", {})):
+    for name, env, iters in (("per_split", PER_SPLIT, PROFILE_PER_SPLIT_ITERS),
+                             ("scan", {}, 20)):
         with Env(**env):
             t0 = time.perf_counter()
             model, busy, marked, k_ms = marked_trace(torch, lambda: LightGBMClassifier(
-                numLeaves=31, maxBin=255, numIterations=20).fit(df))
+                numLeaves=31, maxBin=255, numIterations=iters).fit(df))
             wall = time.perf_counter() - t0
         log({"phase": "profile", "card": smi, "fit": name, "route": model.booster.route,
-             "wall_seconds_traced": wall, "window_marked": marked,
+             "iterations": iters, "wall_seconds_traced": wall,
+             "window_marked": marked,
              "k1_device_ms": k_ms["K1"], "k2_device_ms": k_ms["K2"],
              "k1_share_of_window": (k_ms["K1"] / busy["window_ms"]
                                     if busy["window_ms"] else None),
@@ -1247,20 +1289,22 @@ class PathInputs:
     its gradients and its row mask), of its first K2 compaction (a small
     child's rows under that mask, and the tier's width) and, on the fused
     and scan routes, of K1's first device-count call (that compaction's
-    buffers, the count on the device and the tier widths). Calls made while
+    buffers, the count on the device and the tier widths); or, given
+    ``(module, name)`` targets, of the first call of each. Calls made while
     a CUDA graph is captured are skipped: the first calls are eager."""
 
-    def __init__(self):
-        self.args = {}
+    def __init__(self, *targets):
+        self.args, self.targets = {}, targets
 
     def __enter__(self):
         from mmlspark_tpu_torch.gbdt import hist_kernel as hk
         from mmlspark_tpu_torch.gbdt import histogram as H
         from mmlspark_tpu_torch.gbdt import select_kernel as sk
 
-        self.orig = [(H, "compute_histogram", H.compute_histogram),
-                     (sk, "select_rows", sk.select_rows),
-                     (hk, "histogram_count", hk.histogram_count)]
+        targets = self.targets or ((H, "compute_histogram"),
+                                   (sk, "select_rows"),
+                                   (hk, "histogram_count"))
+        self.orig = [(mod, name, getattr(mod, name)) for mod, name in targets]
         for mod, name, fn in self.orig:
             setattr(mod, name, self._keep(name, fn))
         return self
@@ -1268,13 +1312,13 @@ class PathInputs:
     def _keep(self, name, fn):
         import torch
 
-        def rec(*a):
+        def rec(*a, **kw):
             if name not in self.args and not (
                     torch.cuda.is_available()
                     and torch.cuda.is_current_stream_capturing()):
                 self.args[name] = tuple(x.clone() if hasattr(x, "clone")
                                         else x for x in a)
-            return fn(*a)
+            return fn(*a, **kw)
         return rec
 
     def __exit__(self, *exc):
@@ -3170,11 +3214,11 @@ class CompactedInputs:
     def __enter__(self):
         self.orig = self.shk.sparse_histogram_cuda
 
-        def rec(data, bin_end):
+        def rec(data, bin_end, **kw):
             if self.args is None and data.shape[1] != self.nnz and not \
                     self.torch.cuda.is_current_stream_capturing():
                 self.args = (data.clone(), bin_end.clone())
-            return self.orig(data, bin_end)
+            return self.orig(data, bin_end, **kw)
 
         self.shk.sparse_histogram_cuda = rec
         return self
@@ -3415,11 +3459,11 @@ def anchor_variants(torch, smi, full_ms: float):
 # the per-split host loop's cell: the full-width dataset at 127 leaves, whose
 # fused-grower state [253, 1,310,720, 3] f32 (3.98 GB) passes the 2 GiB gate
 WIDE_LEAVES = 127
-WIDE_ITERS = 3
+WIDE_ITERS = 2
 
 
 def sparse_wide(torch, data: dict, smi) -> int:
-    """``train_sparse`` at 127 leaves, 3 iterations, on the full-width
+    """``train_sparse`` at 127 leaves, 2 iterations, on the full-width
     dataset: above the grower-state gate, so route ``host``, the reference's
     per-split loop (checked): seconds a tree, host reads a split, peak
     device memory, the card's ``predict_csr`` against the CPU's. Then the
@@ -5835,7 +5879,7 @@ def criteo_like(n: int, seed: int):
     return cols
 
 
-def vw_main(torch, smi) -> dict:
+def vw_main(torch, smi) -> tuple:
     """The VW path at tools/bench_vw.py's accelerator point: 200,000
     Criteo-shaped rows through ``VowpalWabbitFeaturizer(numBits=18)``, then
     ``VowpalWabbitClassifier`` (logistic) fit on its default route (the
@@ -5847,7 +5891,7 @@ def vw_main(torch, smi) -> dict:
     against the native pass, within ``VW_RTOL``/``VW_ATOL``; (b) two kernel
     calls bit for bit; (c) the transform against the host f64 dot within
     ``VW_PREDICT_REL`` of each row's sum |w v|. Returns vw_scan's row of
-    the kernels line."""
+    the kernels line and the featurized dataset (mesh_vw's input)."""
     import os
 
     from mmlspark_tpu_torch import native_loader
@@ -5993,7 +6037,760 @@ def vw_main(torch, smi) -> dict:
              f"(bound {VW_PREDICT_REL})")
     if os.environ.get("MMLSPARK_TPU_NATIVE_VW"):
         fail("vw_main: MMLSPARK_TPU_NATIVE_VW left set")
-    return {**row, "launches": launches}
+    return {**row, "launches": launches}, ds
+
+
+# ---------------------------------------------------------------------------
+# data-parallel fits across processes (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+MESH_MAX_CARDS = 4
+MESH_LAUNCH_TIMEOUT = 300     # seconds a launch of ranks may take, then killed
+MESH_ITERS_DENSE = 20
+MESH_PER_SPLIT_TREES = 3
+MESH_ITERS_SPARSE = ITERS_SPARSE
+MESH_VW_PASSES = 2
+MESH_F64_REL = 1e-9           # K1/K4 f64 entries against plain, of sum |v|
+
+
+def mesh_launches(torch) -> list:
+    """(label, ranks, device, backend) of each run of a mesh phase: NCCL
+    with one rank a card on a machine of several; on one card NCCL with
+    one rank (NCCL's initialisation and collectives on the card), then two
+    ranks sharing ``cuda:0`` over gloo, asked for by name (more than one
+    shard's kernels and cross-shard sums)."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        k = min(n, MESH_MAX_CARDS)
+        return [(f"nccl_{k}_cards", k, "cuda", "nccl")]
+    return [("nccl_1_rank", 1, "cuda", "nccl"),
+            ("gloo_2_ranks_cuda0", 2, "cuda:0", "gloo")]
+
+
+_MESH_WORK = {}
+
+
+def mesh_workdir() -> str:
+    """A temporary directory for the mesh phases' inputs (``.npy`` files the
+    ranks memory-map) and the ranks' rendezvous, removed by ``mesh_cleanup``
+    (at exit too)."""
+    import atexit
+    import tempfile
+
+    if "dir" not in _MESH_WORK:
+        _MESH_WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+        atexit.register(mesh_cleanup)
+    return _MESH_WORK["dir"]
+
+
+def mesh_cleanup() -> None:
+    import shutil
+
+    if "dir" in _MESH_WORK:
+        shutil.rmtree(_MESH_WORK.pop("dir"), ignore_errors=True)
+
+
+def mesh_save(name: str, **arrays) -> dict:
+    """Write ``arrays`` as ``<name>_<key>.npy`` in the work directory;
+    returns {key: path}."""
+    import os
+
+    out = {}
+    for k, a in arrays.items():
+        path = os.path.join(mesh_workdir(), f"{name}_{k}.npy")
+        np.save(path, np.asarray(a))
+        out[k] = path
+    return out
+
+
+def mesh_load(paths: dict) -> dict:
+    return {k: np.load(p, mmap_mode="r") for k, p in paths.items()}
+
+
+def mesh_spawn(torch, target: str, kwargs: dict, what: str):
+    """Start every run of ``mesh_launches`` at once (on one card the NCCL
+    rank and the two gloo ranks share it, and this process's single-card
+    fits run beside them); returns a function that waits for them and
+    gives each run's (label, each rank's result). A rank that fails, exits
+    nonzero or passes ``MESH_LAUNCH_TIMEOUT`` fails the phase (the launch
+    kills every rank still running)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mmlspark_tpu_torch.parallel import launch
+
+    def one(label, world, device, backend):
+        t0 = time.perf_counter()
+        ranks = launch.spawn(
+            target, world, os.path.join(mesh_workdir(), label),
+            kwargs=dict(kwargs, label=label), device=device, backend=backend,
+            timeout=MESH_LAUNCH_TIMEOUT,
+            path=[os.path.dirname(os.path.abspath(__file__))])
+        return {"phase": what, "run": label, "ranks": world, "device": device,
+                "backend": backend,
+                "launch_seconds": time.perf_counter() - t0}, ranks
+
+    plan = mesh_launches(torch)
+    pool = ThreadPoolExecutor(len(plan))
+    futures = [(run[0], pool.submit(one, *run)) for run in plan]
+
+    def wait() -> list:
+        runs = []
+        try:
+            for label, fut in futures:
+                try:
+                    info, ranks = fut.result()
+                except launch.LaunchError as e:
+                    fail(f"{what} ({label}): {e}")
+                log(info)
+                runs.append((label, ranks))
+        finally:
+            pool.shutdown(wait=True)
+        return runs
+
+    return wait
+
+
+def f64_entry_check(torch, k64, p64, k32, scale64) -> dict:
+    """A kernel's f64 entry against its plain version: counts exact, the
+    sums within ``MESH_F64_REL`` of each cell's sum |v|, and the f32 entry
+    the f64 one rounded once, bit for bit."""
+    err = (k64 - p64).abs()
+    ok = bool((err <= MESH_F64_REL * scale64 + 1e-300).all())
+    return {"max_abs_err": float(err.max().item()) if err.numel() else 0.0,
+            "within_rel": ok, "f32_is_f64_rounded": bool(torch.equal(
+                k64.float(), k32))}
+
+
+def mesh_rank_report(torch, mesh, fit_s: float) -> dict:
+    from mmlspark_tpu_torch.gbdt import hist_kernel as hk
+    from mmlspark_tpu_torch.gbdt import select_kernel as sk
+    from mmlspark_tpu_torch.gbdt import sparse_hist_kernel as shk
+    from mmlspark_tpu_torch.parallel import mesh as pm
+    from mmlspark_tpu_torch.vw import scan_kernel as vs
+
+    return {"rank": mesh.rank, "device": str(mesh.device),
+            "fit_seconds": fit_s, "collectives": pm.stats.calls,
+            "collective_bytes": pm.stats.bytes,
+            "collective_wall_ms": pm.stats.ms,
+            "launches": {"hist": hk.launches, "hist_count": hk.count_launches,
+                         "select": sk.launches, "sparse_hist": shk.launches,
+                         "vw_scan": vs.launches}}
+
+
+def mesh_zero_counts() -> None:
+    from mmlspark_tpu_torch.gbdt import sparse_hist_kernel as shk
+    from mmlspark_tpu_torch.parallel import mesh as pm
+    from mmlspark_tpu_torch.vw import scan_kernel as vs
+
+    zero_launches()
+    shk.launches = vs.launches = 0
+    pm.stats.reset()
+
+
+def mesh_warm(torch, mesh) -> None:
+    """One collective before any timed work: the communicator's set-up."""
+    from mmlspark_tpu_torch.parallel import mesh as pm
+
+    pm.all_reduce_sum(torch.zeros(1, device=mesh.device), mesh)
+    torch.cuda.synchronize(mesh.device)
+
+
+@contextlib.contextmanager
+def fused_body_sync_error(torch, mesh):
+    """On NCCL, the sharded fused body (``tree._fused_tables``) under
+    ``set_sync_debug_mode("error")``: a host read inside a tree raises. The
+    one read a tree after the body stays outside. Gloo stages its
+    collectives through host memory, so it is not held to this."""
+    from mmlspark_tpu_torch.gbdt import tree
+
+    if mesh.backend != "nccl":
+        yield
+        return
+    orig = tree._fused_tables
+
+    def guarded(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    tree._fused_tables = guarded
+    try:
+        yield
+    finally:
+        tree._fused_tables = orig
+
+
+def mesh_dense_rank(mesh, inputs: dict, label: str, iters: int,
+                    trees: int) -> dict:
+    """One rank of mesh_dense: the fused fit (``iters`` iterations) and the
+    per-split fit (``trees`` trees) of the dense cell over the mesh, each
+    with its counts from 0; the fused fit's first-split inputs stashed for
+    the parent (``mesh_stash``)."""
+    import torch
+
+    from mmlspark_tpu_torch.gbdt import booster as bst
+    from mmlspark_tpu_torch.gbdt import hist_kernel as hk
+    from mmlspark_tpu_torch.gbdt import histogram as H
+
+    d = mesh_load(inputs)
+    X, y = np.asarray(d["X"], dtype=np.float64), np.asarray(d["y"])
+    mesh_warm(torch, mesh)
+    out = {"models": {}, "reports": {}}
+    for route, n_it, env in (("fused", iters, {}),
+                             ("host", trees,
+                              {"MMLSPARK_TPU_NO_FUSED_TREE": "1"})):
+        params = bst.TrainParams(objective="binary", num_leaves=31,
+                                 max_bin=255, num_iterations=n_it,
+                                 min_data_in_leaf=20)
+        mesh_zero_counts()
+        with Env(**env), PathInputs((H, "compute_histogram"),
+                                    (hk, "histogram_count")) as first, \
+                fused_body_sync_error(torch, mesh):
+            torch.cuda.synchronize(mesh.device)
+            t0 = time.perf_counter()
+            b = bst.train(params, X, y, mesh=mesh)
+            torch.cuda.synchronize(mesh.device)
+            fit_s = time.perf_counter() - t0
+        out["reports"][route] = {**mesh_rank_report(torch, mesh, fit_s),
+                                 "route": b.route}
+        out["models"][route] = b.to_string()
+        if route == "fused":
+            out["first_split"] = mesh_stash(torch, first.args, inputs,
+                                            "dense", label, mesh.rank)
+    return out
+
+
+def mesh_stash(torch, args: dict, inputs: dict, phase: str, label: str,
+               rank: int) -> str:
+    """Host copies of a rank's first-split inputs (``PathInputs.args``)
+    beside the phase's ``inputs`` (the parent's work directory), for the
+    parent to hold and time the f64 entries on once every rank has finished
+    (a rank's own timing would share the card with the other runs and the
+    parent's fits); returns the file."""
+    import os
+
+    path = os.path.join(os.path.dirname(next(iter(inputs.values()))),
+                        f"first_{phase}_{label}_{rank}.pt")
+    torch.save({k: tuple(x.cpu() if hasattr(x, "cpu") else x for x in a)
+                for k, a in args.items()}, path)
+    return path
+
+
+def mesh_unstash(torch, path: str) -> dict:
+    import os
+
+    args = torch.load(path)
+    os.remove(path)
+    return {k: tuple(x.to(DEVICE) if hasattr(x, "to") else x for x in a)
+            for k, a in args.items()}
+
+
+def dense_f64_entries(torch, args: dict) -> dict:
+    from mmlspark_tpu_torch.gbdt import hist_kernel as hk
+
+    res = {}
+    if "compute_histogram" in args:
+        bins, g, h, mask, b = args["compute_histogram"]
+        f, n = bins.shape
+        k64 = hk.histogram_cuda(bins, g, h, mask, b, f64=True)
+        p64 = hk.histogram_plain(bins, g, h, mask, b, f64=True)
+        scale = hk.histogram_plain(bins, g.abs(), h.abs(), mask, b,
+                                   f64=True)
+        rows = int(mask.sum())
+        res["root"] = {
+            **f64_entry_check(torch, k64, p64,
+                              hk.histogram_cuda(bins, g, h, mask, b), scale),
+            "rows": n, "selected": rows,
+            "ms": time_ms(torch, lambda: hk.histogram_cuda(
+                bins, g, h, mask, b, f64=True)),
+            "f32_ms": time_ms(torch, lambda: hk.histogram_cuda(
+                bins, g, h, mask, b)),
+            "plain_ms": time_ms(torch, lambda: hk.histogram_plain(
+                bins, g, h, mask, b, f64=True), 3, 1),
+            "bound_ms": bound_ms(rows * (f * 4 + 8) + n + f * b * 24, 0)[0]}
+    if "histogram_count" in args:
+        cb, cg, ch, cnt, b2, caps = args["histogram_count"]
+        f = int(cb.shape[0])
+        valid = torch.arange(cb.shape[1], device=cb.device) < cnt.reshape(())
+        k64 = hk.histogram_count_cuda(cb, cg, ch, cnt, b2, caps, f64=True)
+        p64 = hk.histogram_count_plain(cb, cg, ch, cnt, b2, f64=True)
+        scale = hk.histogram_plain(cb, cg.abs(), ch.abs(), valid, b2,
+                                   f64=True)
+        count = int(cnt.reshape(()).item())
+        res["device_count"] = {
+            **f64_entry_check(torch, k64, p64, hk.histogram_count_cuda(
+                cb, cg, ch, cnt, b2, caps), scale),
+            "rows": int(cb.shape[1]), "selected": count,
+            "ms": time_ms(torch, lambda: hk.histogram_count_cuda(
+                cb, cg, ch, cnt, b2, caps, f64=True)),
+            "bound_ms": bound_ms(count * (f * 4 + 8) + 4
+                                 + f * b2 * 24, 0)[0]}
+    return res
+
+
+def mesh_sparse_rank(mesh, inputs: dict, label: str, iters: int) -> dict:
+    """One rank of mesh_sparse: the sparse cell's fit (``iters``
+    iterations) over the mesh, its counts from 0; its first flat
+    histogram's inputs stashed for the parent (``mesh_stash``)."""
+    import torch
+
+    from mmlspark_tpu_torch.gbdt import booster as bst
+    from mmlspark_tpu_torch.gbdt import sparse
+
+    d = mesh_load(inputs)
+    ds = sparse.SparseDataset(
+        indptr=d["indptr"], indices=d["indices"], values=d["values"],
+        num_features=int(d["num_features"]), feat_offset=d["feat_offset"],
+        thresholds=d["thresholds"], zero_local=d["zero_local"],
+        bin_of_nnz=d["bin_of_nnz"], row_of_nnz=d["row_of_nnz"])
+    mesh_warm(torch, mesh)
+    params = bst.TrainParams(objective="binary", num_leaves=31,
+                             num_iterations=iters, learning_rate=0.1,
+                             min_data_in_leaf=20)
+    mesh_zero_counts()
+    with PathInputs((sparse, "sparse_histogram")) as first, \
+            fused_body_sync_error(torch, mesh):
+        torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        b = sparse.train_sparse(params, ds, np.asarray(d["y"]), mesh=mesh)
+        torch.cuda.synchronize(mesh.device)
+        fit_s = time.perf_counter() - t0
+    report = {**mesh_rank_report(torch, mesh, fit_s), "route": b.route,
+              "rows": int(sparse.shard_bounds(ds, mesh.size)[mesh.rank + 1]
+                          - sparse.shard_bounds(ds, mesh.size)[mesh.rank])}
+    return {"model": b.to_string(), "report": report,
+            "first_split": mesh_stash(torch, first.args, inputs, "sparse",
+                                      label, mesh.rank)}
+
+
+def sparse_f64_entry(torch, args: dict) -> dict:
+    """K4's f64 entry on a rank's first flat histogram's inputs against its
+    plain version, timed on the card alone."""
+    from mmlspark_tpu_torch.gbdt import sparse_hist_kernel as shk
+
+    data, bin_end = args["sparse_histogram"]
+    nnz = int(bin_end[-1].item())
+    tb = int(bin_end.shape[0])
+    k64 = shk.sparse_histogram_cuda(data, bin_end, f64=True)
+    p64 = shk.sparse_histogram_plain(data, bin_end, f64=True)
+    scale = shk.sparse_histogram_plain(data.abs(), bin_end, f64=True)
+    return {**f64_entry_check(torch, k64, p64,
+                              shk.sparse_histogram_cuda(data, bin_end),
+                              scale),
+            "entries": nnz, "bins": tb,
+            "ms": time_ms(torch, lambda: shk.sparse_histogram_cuda(
+                data, bin_end, f64=True)),
+            "f32_ms": time_ms(torch, lambda: shk.sparse_histogram_cuda(
+                data, bin_end)),
+            "plain_ms": time_ms(torch, lambda: shk.sparse_histogram_plain(
+                data, bin_end, f64=True), 3, 1),
+            "bound_ms": bound_ms(12 * nnz + 4 * tb + 24 * tb, 0)[0]}
+
+
+def mesh_vw_rank(mesh, inputs: dict, label: str, passes: int) -> dict:
+    """One rank of mesh_vw: the adaptive and the FTRL fit of vw_main's
+    dataset over the mesh (``passes`` per-shard ``vw_scan`` passes, the
+    state averaged between passes), each with its counts from 0."""
+    import torch
+
+    from mmlspark_tpu_torch.vw import LearnerConfig, SparseDataset
+    from mmlspark_tpu_torch.vw import train_linear
+
+    d = mesh_load(inputs)
+    ds = SparseDataset(*(np.asarray(d[k]) for k in ("indices", "values",
+                                                    "labels", "weights")))
+    mesh_warm(torch, mesh)
+    out = {}
+    for name, kw in (("adaptive", {}), ("ftrl", {"ftrl": True})):
+        cfg = LearnerConfig(num_bits=VW_BITS, loss_function="logistic",
+                            num_passes=passes, **kw)
+        mesh_zero_counts()
+        torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        w, stats = train_linear(cfg, ds, mesh=mesh)
+        fit_s = time.perf_counter() - t0
+        out[name] = {"weights": w, "loss": [s.average_loss for s in stats],
+                     "report": mesh_rank_report(torch, mesh, fit_s)}
+    return out
+
+
+def model_diff(a: str, b: str) -> list:
+    """Where two Booster JSON strings differ: (iteration, class, field,
+    cells that differ)."""
+    ja, jb = json.loads(a), json.loads(b)
+    out = [("top", None, k, 1) for k in ja if k != "trees"
+           and ja[k] != jb.get(k)]
+    if len(ja["trees"]) != len(jb["trees"]):
+        return out + [("trees", None, "count", 1)]
+    for i, (ga, gb) in enumerate(zip(ja["trees"], jb["trees"])):
+        for c, (ta, tb) in enumerate(zip(ga, gb)):
+            for fld in ta:
+                va, vb = ta[fld], tb.get(fld)
+                if va != vb:
+                    n = (sum(x != y for x, y in zip(va, vb))
+                         if isinstance(va, list) and isinstance(vb, list)
+                         and len(va) == len(vb) else 1)
+                    out.append((i, c, fld, n))
+    return out
+
+
+def mesh_models_gate(runs, single: dict, key, what: str) -> None:
+    """Every rank's model byte for byte the same, and the single-card fit's
+    on the same route; a difference prints where and how many cells."""
+    for label, ranks in runs:
+        models = [key(r) for r in ranks]
+        if any(m != models[0] for m in models[1:]):
+            fail(f"{what} ({label}): the ranks' models differ")
+        for route, want in single.items():
+            got = models[0] if not isinstance(models[0], dict) \
+                else models[0][route]
+            diff = model_diff(got, want)
+            log({"phase": what, "run": label, "route": route,
+                 "model_equals_single_card": not diff,
+                 "differences": diff[:20]})
+            if diff:
+                fail(f"{what} ({label}, {route}): the mesh model differs "
+                     f"from the single-card fit in {len(diff)} places "
+                     f"(first {diff[:5]})")
+
+
+def mesh_f64_gate(entries: dict, what: str, parts=()) -> None:
+    for part in parts:
+        if part not in entries:
+            fail(f"{what}: no f64 entry ({part}) was held")
+    for part, e in entries.items():
+        if not (e["within_rel"] and e["f32_is_f64_rounded"]):
+            fail(f"{what}: the f64 entry ({part}) against its plain version "
+                 f"{e['max_abs_err']} (rel {MESH_F64_REL}) or its f32 entry "
+                 f"not its f64 sums rounded: {e}")
+
+
+def mesh_rank(mesh, inputs: dict, label: str) -> dict:
+    """One rank of all three mesh phases, in one process (one start-up a
+    rank): mesh_dense's, mesh_sparse's and mesh_vw's fits in turn, each
+    with its counts from 0, the card's cached blocks freed between them
+    (the other runs' ranks share it)."""
+    import torch
+
+    out = {"mesh_dense": mesh_dense_rank(mesh, inputs["dense"], label,
+                                         MESH_ITERS_DENSE,
+                                         MESH_PER_SPLIT_TREES)}
+    torch.cuda.empty_cache()
+    out["mesh_sparse"] = mesh_sparse_rank(mesh, inputs["sparse"], label,
+                                          MESH_ITERS_SPARSE)
+    torch.cuda.empty_cache()
+    out["mesh_vw"] = mesh_vw_rank(mesh, inputs["vw"], label, MESH_VW_PASSES)
+    return out
+
+
+def mesh_phases(torch, inputs: dict, smi) -> dict:
+    """mesh_dense, mesh_sparse and mesh_vw: every run of ``mesh_launches``
+    started once for the three (``mesh_rank``); meanwhile this process
+    makes each phase's single-card reference; then each phase's gates on
+    its ranks' results, and the work timed alone on the card (the f64
+    entries, ``mesh_compaction_ab``). Returns each phase's launches, f64
+    entries and timings."""
+    pending = mesh_spawn(torch, "chip_smoke:mesh_rank", {"inputs": inputs},
+                         "mesh")
+    t0 = time.perf_counter()
+    dense_single, X, y = mesh_dense_single(torch, inputs["dense"])
+    sparse_single = mesh_sparse_single(torch, inputs["sparse"])
+    vw_want = mesh_vw_single(torch, inputs["vw"])
+    log({"phase": "mesh", "single_card_seconds": time.perf_counter() - t0})
+    runs = pending()
+
+    def view(name):
+        return [(label, [r[name] for r in ranks]) for label, ranks in runs]
+
+    out = {}
+    for name, gates, args in (
+            ("mesh_dense", mesh_dense_gates, (dense_single, X, y)),
+            ("mesh_sparse", mesh_sparse_gates, (sparse_single,)),
+            ("mesh_vw", mesh_vw_gates, (vw_want,))):
+        t0 = time.perf_counter()
+        out[name] = gates(torch, view(name), *args, smi)
+        log({"phase": name, "gates_seconds": time.perf_counter() - t0})
+    return out
+
+
+def mesh_dense_single(torch, inputs: dict):
+    """mesh_dense's references: the single-card fits of the dense cell on
+    the fused route (``MESH_ITERS_DENSE`` iterations) and the per-split
+    route (``MESH_PER_SPLIT_TREES`` trees); returns them as model strings
+    and the cell's X and y."""
+    from mmlspark_tpu_torch.gbdt import booster as bst
+
+    d = mesh_load(inputs)
+    X, y = np.asarray(d["X"], dtype=np.float64), np.asarray(d["y"])
+    single = {}
+    for route, iters, env in (("fused", MESH_ITERS_DENSE, FUSED_ONLY),
+                              ("host", MESH_PER_SPLIT_TREES, PER_SPLIT)):
+        params = bst.TrainParams(objective="binary", num_leaves=31,
+                                 max_bin=255, num_iterations=iters,
+                                 min_data_in_leaf=20)
+        with Env(**env):
+            t0 = time.perf_counter()
+            b = bst.train(params, X, y)
+            torch.cuda.synchronize()
+        check_route(b, route, f"mesh_dense single-card {route}")
+        single[route] = b.to_string()
+        log({"phase": "mesh_dense", "single_card_route": route,
+             "fit_seconds": time.perf_counter() - t0, "iterations": iters})
+    return single, X, y
+
+
+def mesh_dense_gates(torch, runs, single: dict, X, y, smi) -> dict:
+    """mesh_dense: the dense cell (2,097,152 x 28 HIGGS-shaped rows, 31
+    leaves, 255 bins) through ``train(mesh=)`` in every run of
+    ``mesh_launches``: the fused route for ``MESH_ITERS_DENSE`` iterations
+    (the sharded body under ``set_sync_debug_mode("error")`` on NCCL) and
+    the per-split route for ``MESH_PER_SPLIT_TREES`` trees. Gates: every
+    rank's model byte for byte, the single-card fits on the same routes
+    byte for byte, K1 launched on each rank (the fused body's mask entry
+    alone: it compacts nothing under a mesh; the per-split route's K2 and
+    mask entry), K1's f64 entries against their plain versions on each
+    rank's first-split inputs (here, alone on the card); then
+    ``mesh_compaction_ab``. Returns each run's launches
+    (summed over its ranks), the f64 entries' rows and the compaction
+    timings."""
+    mesh_models_gate(runs, single, lambda r: r["models"], "mesh_dense")
+    paths, f64 = {}, {}
+    for label, ranks in runs:
+        for r in ranks:
+            r["f64"] = dense_f64_entries(torch, mesh_unstash(
+                torch, r["first_split"]))
+            log({"phase": "mesh_dense", "card": smi, "run": label,
+                 **{route: rep for route, rep in r["reports"].items()},
+                 "f64_entries": r["f64"]})
+            mesh_f64_gate(r["f64"], f"mesh_dense ({label}, rank "
+                                    f"{r['reports']['fused']['rank']})",
+                          ("root",))
+            for route, rep in r["reports"].items():
+                if rep["route"] != route:
+                    fail(f"mesh_dense ({label}): the {route} fit took the "
+                         f"{rep['route']!r} route")
+                got = {k: rep["launches"][k]
+                       for k in ("hist", "hist_count", "select")}
+                # the fused body compacts nothing under a mesh (K1's mask
+                # entry alone); the per-split route keeps each shard's
+                # tiers (K2, then K1's mask entry)
+                want = ({"hist": got["hist"]} if route == "fused"
+                        else {"hist": got["hist"], "select": got["select"]})
+                check_launches(want, f"mesh_dense ({label}, {route})")
+                if route == "fused" and got["hist_count"] + got["select"]:
+                    fail(f"mesh_dense ({label}): the sharded fused body "
+                         f"compacted rows: {got}")
+                p = paths.setdefault(f"mesh_dense.{route}.{label}",
+                                     dict.fromkeys(got, 0))
+                for k, v in got.items():
+                    p[k] += v
+        f64[label] = ranks[0]["f64"]
+    compaction = mesh_compaction_ab(torch, X, y, single["fused"], smi)
+    f64["nccl_1_rank_alone_compacted"] = compaction["f64"]
+    return {"paths": paths, "f64": f64, "compaction": compaction}
+def mesh_compaction_ab(torch, X, y, single_fused: str, smi) -> dict:
+    """The sharded fused fit of the dense cell (``MESH_ITERS_DENSE``
+    iterations) on a one-rank NCCL group in this process, alone on the
+    card: as the port grows it under a mesh (no compaction, the
+    reference's rule under ``psum``: every histogram the shard's full
+    width under its mask, K1's mask entry) and with each histogram's rows
+    compacted first (``compute_histogram`` wrapped: K2 into a shard-wide
+    buffer, then K1's device-count entry over the tiers up to the count).
+    Gates: both models byte for byte the single-card fused fit's, K2
+    launched only with the wrapper, K1's f64 device-count entry against its
+    plain version on the compacted fit's first call. Returns each mode's
+    fit seconds and that entry's check."""
+    import os
+
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.gbdt import booster as bst
+    from mmlspark_tpu_torch.gbdt import hist_kernel as hk
+    from mmlspark_tpu_torch.gbdt import histogram as H
+    from mmlspark_tpu_torch.gbdt import select_kernel as sk
+    from mmlspark_tpu_torch.gbdt import tree
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    full_width = H.compute_histogram
+
+    def compacted(bins, g, h, mask, num_bins, f64=False):
+        n = int(bins.shape[1])
+        cnt = mask.sum(dtype=torch.int32).reshape(1)
+        b_c, g_c, h_c = sk.select_rows(bins, g, h, mask, n)
+        return hk.histogram_count(b_c, g_c, h_c, cnt, num_bins,
+                                  tree.device_tier_caps(n), f64=f64)
+
+    params = bst.TrainParams(objective="binary", num_leaves=31, max_bin=255,
+                             num_iterations=MESH_ITERS_DENSE,
+                             min_data_in_leaf=20)
+    secs = {"full_width": [], "compacted": []}
+    first = PathInputs((hk, "histogram_count"))
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(mesh_workdir(), 'ab')}",
+        world_size=1, rank=0)
+    try:
+        mesh = make_mesh(MeshSpec(data=1), device=DEVICE)
+        mesh_warm(torch, mesh)
+        for mode in ("full_width", "compacted"):
+            H.compute_histogram = full_width if mode == "full_width" \
+                else compacted
+            mesh_zero_counts()
+            torch.cuda.synchronize()
+            with first if mode == "compacted" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                b = bst.train(params, X, y, mesh=mesh)
+                torch.cuda.synchronize()
+                secs[mode].append(time.perf_counter() - t0)
+            if b.to_string() != single_fused:
+                fail(f"mesh_dense: the sharded fused fit ({mode}) differs "
+                     f"from the single-card fit")
+            if (sk.launches > 0) != (mode == "compacted"):
+                fail(f"mesh_dense: {mode}, K2 launched {sk.launches} times")
+    finally:
+        H.compute_histogram = full_width
+        dist.destroy_process_group()
+    out = {f"fit_seconds_{k}": v for k, v in secs.items()}
+    # K1's f64 device-count entry, on no fit's path under a mesh: held
+    # against its plain version on the compacted fit's first call
+    out["f64"] = dense_f64_entries(torch, first.args)
+    log({"phase": "mesh_dense", "card": smi, "run": "nccl_1_rank_alone",
+         "iterations": MESH_ITERS_DENSE, **out})
+    mesh_f64_gate(out["f64"], "mesh_dense (compacted, one NCCL rank)",
+                  ("device_count",))
+    return out
+
+
+def mesh_sparse_single(torch, inputs: dict) -> dict:
+    """mesh_sparse's reference: the single-card fused fit of the sparse
+    cell (``MESH_ITERS_SPARSE`` iterations), as a model string."""
+    from mmlspark_tpu_torch.gbdt import booster as bst
+    from mmlspark_tpu_torch.gbdt import sparse
+
+    d = mesh_load(inputs)
+    ds = sparse.SparseDataset(
+        indptr=d["indptr"], indices=d["indices"], values=d["values"],
+        num_features=int(d["num_features"]), feat_offset=d["feat_offset"],
+        thresholds=d["thresholds"], zero_local=d["zero_local"],
+        bin_of_nnz=d["bin_of_nnz"], row_of_nnz=d["row_of_nnz"])
+    params = bst.TrainParams(objective="binary", num_leaves=31,
+                             num_iterations=MESH_ITERS_SPARSE,
+                             learning_rate=0.1, min_data_in_leaf=20)
+    with Env(**FUSED_ONLY):
+        t0 = time.perf_counter()
+        b = sparse.train_sparse(params, ds, np.asarray(d["y"]))
+        torch.cuda.synchronize()
+    check_route(b, "fused", "mesh_sparse single-card")
+    log({"phase": "mesh_sparse", "single_card_route": "fused",
+         "fit_seconds": time.perf_counter() - t0})
+    return {"fused": b.to_string()}
+
+
+def mesh_sparse_gates(torch, runs, single: dict, smi) -> dict:
+    """mesh_sparse: the sparse cell (1,000,000 x 2^18, ~50 entries a row,
+    31 leaves) through ``train_sparse(mesh=)`` for ``MESH_ITERS_SPARSE``
+    iterations in every run of ``mesh_launches``, each rank on its
+    nnz-balanced block of its own shape. Gates: every rank's model byte for
+    byte and the single-card fused fit's, K4 launched on each rank, K4's
+    f64 entry against its plain version on each rank's first flat
+    histogram (here, alone on the card)."""
+    mesh_models_gate(runs, single, lambda r: r["model"], "mesh_sparse")
+    paths, f64 = {}, {}
+    for label, ranks in runs:
+        for r in ranks:
+            rep = r["report"]
+            r["f64"] = sparse_f64_entry(torch, mesh_unstash(
+                torch, r["first_split"]))
+            log({"phase": "mesh_sparse", "card": smi, "run": label, **rep,
+                 "f64_entry": r["f64"]})
+            mesh_f64_gate({"flat": r["f64"]},
+                          f"mesh_sparse ({label}, rank {rep['rank']})")
+            if rep["route"] != "fused" or rep["launches"]["sparse_hist"] < 1:
+                fail(f"mesh_sparse ({label}): route {rep['route']}, K4 "
+                     f"launches {rep['launches']['sparse_hist']}")
+            p = paths.setdefault(f"mesh_sparse.{label}", {"sparse_hist": 0})
+            p["sparse_hist"] += rep["launches"]["sparse_hist"]
+        f64[label] = ranks[0]["f64"]
+    return {"paths": paths, "f64": f64}
+
+
+def vw_blocks_averaged(torch, ds, cfg, shards: int) -> np.ndarray:
+    """The mesh fit in one process: each pass, every block (``shard_block``
+    of a mesh of ``shards``) scanned by ``vw_scan`` from the same state, the
+    states averaged."""
+    from mmlspark_tpu_torch.parallel.mesh import Mesh
+    from mmlspark_tpu_torch.vw import learner as vl
+    from mmlspark_tpu_torch.vw import scan_kernel as vs
+
+    blocks = [vl.shard_block(ds, Mesh(shape={"data": shards}, rank=r)).to(
+        DEVICE) for r in range(shards)]
+    state = vl.init_state(cfg, DEVICE)
+    for _ in range(cfg.num_passes):
+        parts = []
+        for blk in blocks:
+            st = [t.clone() for t in state]
+            vs.scan_pass_cuda(st, *blk, cfg)
+            parts.append(st)
+        state = [sum(p[i] for p in parts) / shards
+                 for i in range(len(state))]
+    return vl.weights_of(cfg, state).cpu().numpy()
+
+
+def mesh_vw_single(torch, inputs: dict) -> dict:
+    """mesh_vw's references: for each shard count of ``mesh_launches`` and
+    each fit, one process's ``vw_scan`` fit averaging its per-block passes
+    (``vw_blocks_averaged``)."""
+    from mmlspark_tpu_torch.vw import LearnerConfig, SparseDataset
+
+    d = mesh_load(inputs)
+    ds = SparseDataset(*(np.asarray(d[k]) for k in ("indices", "values",
+                                                    "labels", "weights")))
+    want = {}
+    for world in sorted({w for _, w, _, _ in mesh_launches(torch)}):
+        for name, kw in (("adaptive", {}), ("ftrl", {"ftrl": True})):
+            cfg = LearnerConfig(num_bits=VW_BITS, loss_function="logistic",
+                                num_passes=MESH_VW_PASSES, **kw)
+            want[world, name] = vw_blocks_averaged(torch, ds, cfg, world)
+    return want
+
+
+def mesh_vw_gates(torch, runs, want: dict, smi) -> dict:
+    """mesh_vw: vw_main's 200,000 Criteo-shaped rows (2^18 bits, logistic)
+    through ``train_linear(mesh=)``, the adaptive and the FTRL fit (2
+    passes), in every run of ``mesh_launches``. Gates: every rank's weights
+    bit for bit, within ``VW_RTOL``/``VW_ATOL`` of one process's ``vw_scan``
+    fit averaging its per-block passes the same way, vw_scan launched on
+    each rank (one launch a pass)."""
+    paths = {}
+    for label, ranks in runs:
+        shards = len(ranks)
+        for name in ("adaptive", "ftrl"):
+            want_w = want[shards, name]
+            w0 = ranks[0][name]["weights"]
+            same = all(np.array_equal(r[name]["weights"].view(np.uint32),
+                                      w0.view(np.uint32)) for r in ranks)
+            close = bool(np.allclose(w0, want_w, rtol=VW_RTOL,
+                                     atol=VW_ATOL))
+            for r in ranks:
+                log({"phase": "mesh_vw", "card": smi, "run": label,
+                     "fit": name, **r[name]["report"],
+                     "loss": r[name]["loss"]})
+                if r[name]["report"]["launches"]["vw_scan"] != MESH_VW_PASSES:
+                    fail(f"mesh_vw ({label}, {name}): vw_scan launched "
+                         f"{r[name]['report']['launches']['vw_scan']} times "
+                         f"(want {MESH_VW_PASSES})")
+                p = paths.setdefault(f"mesh_vw.{label}", {"vw_scan": 0})
+                p["vw_scan"] += r[name]["report"]["launches"]["vw_scan"]
+            log({"phase": "mesh_vw", "run": label, "fit": name,
+                 "ranks_bitwise": same, "close_to_block_average": close,
+                 "max_abs_vs_block_average": float(np.abs(w0 - want_w).max())})
+            if not same or not close:
+                fail(f"mesh_vw ({label}, {name}): ranks bit for bit {same}, "
+                     f"within rtol {VW_RTOL} / atol {VW_ATOL} of the "
+                     f"per-block average {close}")
+    return {"paths": paths}
 
 
 def main() -> int:
@@ -6023,6 +6820,8 @@ def main() -> int:
     profile_phase(torch, X, y, smi)
     paths["dense_variants"] = dense_variants(torch, X, y, smi)
     paths["dense_variants.goss_scan"] = paths["dense_variants"].pop("goss_scan")
+    # the mesh phases' inputs, memory-mapped by their ranks (f32-exact X)
+    mesh_inputs = {"dense": mesh_save("dense", X=X.astype(np.float32), y=y)}
     del X, y
     paths["ranker_main"] = ranker_main(torch, smi)
     paths["categorical_main"] = categorical_main(torch, dense_model, X_score, smi)
@@ -6037,7 +6836,13 @@ def main() -> int:
         "sparse_hist": paths["sparse_variants"].pop("compacted_stream")}
     paths["sparse_wide"] = {"sparse_hist": sparse_wide(torch, data, smi)}
     rows = data["rows"][:N_SCORE]
-    del data
+    ds = data["ds"]
+    mesh_inputs["sparse"] = mesh_save(
+        "sparse", y=data["y"], num_features=np.int64(ds.num_features),
+        **{k: getattr(ds, k) for k in (
+            "indptr", "indices", "values", "feat_offset", "thresholds",
+            "zero_local", "bin_of_nnz", "row_of_nnz")})
+    del data, ds
     anchor = sparse_anchor(torch)
     got, anchor_compacted = anchor_variants(torch, smi, full_ms)
     paths["sparse_variants"]["sparse_hist"] += got
@@ -6098,8 +6903,20 @@ def main() -> int:
             paths.update(got)
         log({"phase": phase.__name__, "seconds": time.perf_counter() - t_phase})
     t_phase = time.perf_counter()
-    vw_row = vw_main(torch, smi)
+    vw_row, vw_ds = vw_main(torch, smi)
     log({"phase": "vw_main", "seconds": time.perf_counter() - t_phase})
+    mesh_inputs["vw"] = mesh_save("vw", indices=vw_ds.indices,
+                                  values=vw_ds.values, labels=vw_ds.labels,
+                                  weights=vw_ds.weights)
+    del vw_ds
+    try:
+        t_phase = time.perf_counter()
+        mesh = mesh_phases(torch, mesh_inputs, smi)
+        for got in mesh.values():
+            paths.update(got["paths"])
+        log({"phase": "mesh", "seconds": time.perf_counter() - t_phase})
+    finally:
+        mesh_cleanup()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []
@@ -6115,9 +6932,15 @@ def main() -> int:
                               for p, c in paths.items() if "hist_count" in c})
         extra = {k: row[k] for k in ("compacted_stream", "status", "tflops",
                                      "bwd_total_ms") if k in row}
+        if name in ("hist", "sparse_hist"):
+            # the f64 entry of the sharded fits, on a rank's own inputs
+            extra["f64_entry"] = mesh["mesh_dense" if name == "hist"
+                                      else "mesh_sparse"]["f64"]
         rows.append({**{k: row[k] for k in keys},
                      "launches_on_new_paths": new_paths, **extra})
     rows.append({**{k: vw_row[k] for k in keys},
+                 "launches_on_new_paths": {p: c["vw_scan"] for p, c in
+                                           paths.items() if "vw_scan" in c},
                  **{k: vw_row[k] for k in ("shape", "pass_ms_200k",
                                            "pass_bound_ms_200k",
                                            "native_pass_ms_200k")}})

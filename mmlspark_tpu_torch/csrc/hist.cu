@@ -274,20 +274,24 @@ hist_count_kernel(const int32_t* __restrict__ bins,
                    min(r0 + rpb, cnt), num_f, num_bins, feat_per_block, smem);
 }
 
-// out[i] = f32(sum over blocks of partial[blk, i]), blocks in order
+// out[i] = sum over blocks of partial[blk, i], blocks in order, rounded to
+// OutT once (float: the histogram; double: the f64 sums a sharded fit adds
+// up across processes before it rounds)
+template <typename OutT>
 __global__ void hist_reduce_kernel(const double* __restrict__ partial,
-                                   float* __restrict__ out, int64_t cells,
+                                   OutT* __restrict__ out, int64_t cells,
                                    int blocks) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= cells) return;
   double s = 0.0;
   for (int k = 0; k < blocks; ++k) s += partial[(int64_t)k * cells + i];
-  out[i] = (float)s;
+  out[i] = (OutT)s;
 }
 
 // the count entry's reduction: the partials of the blocks that held rows
+template <typename OutT>
 __global__ void hist_count_reduce_kernel(const double* __restrict__ partial,
-                                         float* __restrict__ out,
+                                         OutT* __restrict__ out,
                                          int64_t cells,
                                          const int32_t* __restrict__ count,
                                          CountTiers tiers) {
@@ -298,7 +302,7 @@ __global__ void hist_count_reduce_kernel(const double* __restrict__ partial,
   count_geometry(tiers, count, &cnt, &rpb, &used);
   double s = 0.0;
   for (int k = 0; k < used; ++k) s += partial[(int64_t)k * cells + i];
-  out[i] = (float)s;
+  out[i] = (OutT)s;
 }
 
 // global path: rows [0, n) selected by ``mask``, or with no mask rows
@@ -328,11 +332,16 @@ __global__ void hist_global_kernel(const int32_t* __restrict__ bins,
   }
 }
 
-int reduce(const double* partial, float* out, int64_t cells, int blocks,
-           cudaStream_t s) {
+int reduce(const double* partial, void* out, int out_f64, int64_t cells,
+           int blocks, cudaStream_t s) {
   const int64_t grid = (cells + 255) / 256;
-  hist_reduce_kernel<<<(unsigned)grid, 256, 0, s>>>(partial, out, cells,
-                                                    blocks);
+  if (out_f64) {
+    hist_reduce_kernel<double><<<(unsigned)grid, 256, 0, s>>>(
+        partial, static_cast<double*>(out), cells, blocks);
+  } else {
+    hist_reduce_kernel<float><<<(unsigned)grid, 256, 0, s>>>(
+        partial, static_cast<float*>(out), cells, blocks);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -363,12 +372,13 @@ int g_count_smem[64];
 // smem_bytes of dynamic shared memory (20 * feat_per_block * num_bins, 16-
 // aligned, plus 8 KB for the aggregating warps); feat_per_block = 0 selects the
 // global path (scratch holds F * B * 3 doubles, row_blocks its grid).
+// out_f64 = 0: ``out`` is f32 [F, B, 3]; 1: the same sums unrounded, f64.
 extern "C" int mmlspark_hist(const void* bins, const void* grad,
                              const void* hess, const void* mask, void* out,
                              void* scratch, int64_t n, int num_f,
                              int num_bins, int feat_per_block, int row_blocks,
                              int64_t rows_per_block, int smem_bytes,
-                             void* stream) {
+                             int out_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t cells = (int64_t)num_f * num_bins * 3;
   if (n < 0 || num_f <= 0 || num_bins <= 0 || row_blocks <= 0 ||
@@ -385,7 +395,7 @@ extern "C" int mmlspark_hist(const void* bins, const void* grad,
         nullptr, acc, n, num_f, num_bins);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    return reduce(acc, static_cast<float*>(out), cells, 1, s);
+    return reduce(acc, out, out_f64, cells, 1, s);
   }
   const int groups = (num_f + feat_per_block - 1) / feat_per_block;
   cudaError_t err = opt_in(hist_block_kernel, smem_bytes, g_block_smem);
@@ -397,7 +407,7 @@ extern "C" int mmlspark_hist(const void* bins, const void* grad,
       n, num_f, num_bins, feat_per_block, rows_per_block);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return reduce(acc, static_cast<float*>(out), cells, row_blocks, s);
+  return reduce(acc, out, out_f64, cells, row_blocks, s);
 }
 
 // The device-count entry: rows [0, *count) of bins int32 [F, n] (row
@@ -409,14 +419,14 @@ extern "C" int mmlspark_hist(const void* bins, const void* grad,
 // groups blocks, and those past the rows the count needs return at once.
 // Scratch: f64 [grid_blocks, F, B, 3] (the global path: F * B * 3 doubles,
 // grid_blocks blocks of 256 threads). Two launches, as the mask entry;
-// the same output.
+// the same output (out_f64 as there).
 extern "C" int mmlspark_hist_count(const void* bins, const void* grad,
                                    const void* hess, const void* count,
                                    void* out, void* scratch, int64_t n,
                                    int num_f, int num_bins,
                                    int feat_per_block, int grid_blocks,
                                    int smem_bytes, CountTiers tiers,
-                                   void* stream) {
+                                   int out_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t cells = (int64_t)num_f * num_bins * 3;
   if (n < 0 || num_f <= 0 || num_bins <= 0 || grid_blocks <= 0 ||
@@ -441,7 +451,7 @@ extern "C" int mmlspark_hist_count(const void* bins, const void* grad,
         num_bins);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    return reduce(acc, static_cast<float*>(out), cells, 1, s);
+    return reduce(acc, out, out_f64, cells, 1, s);
   }
   const int groups = (num_f + feat_per_block - 1) / feat_per_block;
   cudaError_t err = opt_in(hist_count_kernel, smem_bytes, g_count_smem);
@@ -454,7 +464,12 @@ extern "C" int mmlspark_hist_count(const void* bins, const void* grad,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int64_t grid = (cells + 255) / 256;
-  hist_count_reduce_kernel<<<(unsigned)grid, 256, 0, s>>>(
-      acc, static_cast<float*>(out), cells, cnt, tiers);
+  if (out_f64) {
+    hist_count_reduce_kernel<double><<<(unsigned)grid, 256, 0, s>>>(
+        acc, static_cast<double*>(out), cells, cnt, tiers);
+  } else {
+    hist_count_reduce_kernel<float><<<(unsigned)grid, 256, 0, s>>>(
+        acc, static_cast<float*>(out), cells, cnt, tiers);
+  }
   return (int)cudaGetLastError();
 }

@@ -149,10 +149,13 @@ __device__ __forceinline__ Run shfl_up(const Run& x, int d) {
   return r;
 }
 
+// OutT: float (the histogram) or double (its sums before the one rounding,
+// for a sharded fit that adds them across processes first)
+template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
 sparse_hist_kernel(const float* __restrict__ data,
                    const int32_t* __restrict__ bin_end,
-                   float* __restrict__ out, int32_t* __restrict__ carry_key,
+                   OutT* __restrict__ out, int32_t* __restrict__ carry_key,
                    double* __restrict__ carry_val, int width, int tb) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_coord[4];  // the share's start (i, j), a tile's end
@@ -238,7 +241,7 @@ sparse_hist_kernel(const float* __restrict__ data,
           run.cut = true;
         } else {
 #pragma unroll
-          for (int c = 0; c < 3; ++c) out[(int64_t)c * tb + i] = (float)run.v[c];
+          for (int c = 0; c < 3; ++c) out[(int64_t)c * tb + i] = (OutT)run.v[c];
         }
 #pragma unroll
         for (int c = 0; c < 3; ++c) run.v[c] = 0.0;
@@ -275,7 +278,7 @@ sparse_hist_kernel(const float* __restrict__ data,
         for (int c = 0; c < 3; ++c) s_head[c] = v[c];
       } else {
 #pragma unroll
-        for (int c = 0; c < 3; ++c) out[(int64_t)c * tb + head_key] = (float)v[c];
+        for (int c = 0; c < 3; ++c) out[(int64_t)c * tb + head_key] = (OutT)v[c];
       }
     }
     for (int w = 0; w < kWarps; ++w) carry = combine(carry, s_warp[w]);
@@ -298,9 +301,10 @@ sparse_hist_kernel(const float* __restrict__ data,
 
 // The bins that cross shares: share p's first bin gets the open runs of the
 // shares before it that end in the same bin, added in share order.
+template <typename OutT>
 __global__ void sparse_hist_carry_kernel(const int32_t* __restrict__ carry_key,
                                          const double* __restrict__ carry_val,
-                                         float* __restrict__ out, int shares,
+                                         OutT* __restrict__ out, int shares,
                                          int tb) {
   for (int p = threadIdx.x; p < shares; p += blockDim.x) {
     const int key = carry_key[p];
@@ -314,35 +318,47 @@ __global__ void sparse_hist_carry_kernel(const int32_t* __restrict__ carry_key,
     }
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      out[(int64_t)c * tb + key] = (float)(v[c] + carry_val[3 * p + c]);
+      out[(int64_t)c * tb + key] = (OutT)(v[c] + carry_val[3 * p + c]);
     }
   }
+}
+
+template <typename OutT>
+int launch(const void* data, const void* bin_end, void* out, void* carry_key,
+           void* carry_val, int width, int tb, int shares, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      sparse_hist_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  sparse_hist_kernel<OutT><<<shares, kThreads, kSmemBytes, s>>>(
+      static_cast<const float*>(data), static_cast<const int32_t*>(bin_end),
+      static_cast<OutT*>(out), static_cast<int32_t*>(carry_key),
+      static_cast<double*>(carry_val), width, tb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sparse_hist_carry_kernel<OutT><<<1, 256, 0, s>>>(
+      static_cast<const int32_t*>(carry_key),
+      static_cast<const double*>(carry_val), static_cast<OutT*>(out), shares,
+      tb);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // `shares` blocks (sparse_hist_kernel.shares of the width); carry_key holds
-// 2 * shares int32, carry_val 6 * shares doubles.
+// 2 * shares int32, carry_val 6 * shares doubles. out_f64 = 0: ``out`` is
+// f32 [3, TB]; 1: the same sums unrounded, f64.
 extern "C" int mmlspark_sparse_hist(const void* data, const void* bin_end,
                                     void* out, void* carry_key,
                                     void* carry_val, int width, int tb,
-                                    int shares, void* stream) {
+                                    int shares, int out_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tb <= 0) return (int)cudaGetLastError();
   if (width < 0 || shares <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      sparse_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  sparse_hist_kernel<<<shares, kThreads, kSmemBytes, s>>>(
-      static_cast<const float*>(data), static_cast<const int32_t*>(bin_end),
-      static_cast<float*>(out), static_cast<int32_t*>(carry_key),
-      static_cast<double*>(carry_val), width, tb);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sparse_hist_carry_kernel<<<1, 256, 0, s>>>(
-      static_cast<const int32_t*>(carry_key),
-      static_cast<const double*>(carry_val), static_cast<float*>(out), shares,
-      tb);
-  return (int)cudaGetLastError();
+  if (out_f64) {
+    return launch<double>(data, bin_end, out, carry_key, carry_val, width, tb,
+                          shares, s);
+  }
+  return launch<float>(data, bin_end, out, carry_key, carry_val, width, tb,
+                       shares, s);
 }

@@ -56,8 +56,19 @@ power-of-two size, each bucket's ``[m, G, G]`` pairwise tensors taken in
 chunks of at most ``_LAMBDARANK_PAIR_BUDGET`` elements; its sums reduce in
 torch's order, so g and h agree with the reference's within ulps.
 
-Not ported yet: a mesh (ROADMAP A9); asking for one raises
-``NotImplementedError``.
+With a ``mesh`` (``parallel.mesh.make_mesh``: one process per shard, each
+calling ``train`` with the same full inputs) the fit is the reference's
+data-parallel one: rows padded to a multiple of 512 x shards, each process
+bins and holds its own contiguous block (the rows of the reference's shard
+of its index) and grows every tree on the fused or per-split route with
+its histograms summed in f64 across the processes (``tree``), so every
+process builds the same trees as a single process would. The loop's state
+is per block (scores, gradients); the host's draws run over all rows from
+the same generator on every process; GOSS ranks the gathered gradients
+and the training metric the gathered scores (``parallel.mesh.all_gather``).
+A sharded fit never takes the native route or the scan (the reference
+excludes them); lambdarank groups and checkpoints under a mesh raise
+``NotImplementedError`` (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -73,6 +84,7 @@ import numpy as np
 import torch
 
 from ..core import faults as _faults
+from ..parallel.mesh import all_gather, fetch_global, mesh_shards, row_block
 from ..runtime import DeviceLike, resolve_device
 from .binning import BinMapper
 from . import select_kernel
@@ -568,11 +580,19 @@ class Booster:
 # ---------------------------------------------------------------------------
 
 
-def _unsupported(mesh) -> None:
-    """Raise for every option a later slice of the port owns."""
-    if mesh is not None:
+def _mesh_unsupported(mesh, groups=None, checkpoint=None) -> int:
+    """The mesh's data shards; raises for the options a sharded fit does
+    not take yet (they need a global step besides the histogram sums)."""
+    shards = mesh_shards(mesh)
+    if mesh is not None and groups is not None:
         raise NotImplementedError(
-            "sharded multi-device training (ROADMAP A9) is not ported yet")
+            "query groups in a sharded fit (a query split over two row "
+            "blocks) are later multi-GPU work: ROADMAP A9")
+    if mesh is not None and checkpoint is not None:
+        raise NotImplementedError(
+            "a checkpointed sharded fit (scores gathered from every "
+            "process) is later multi-GPU work: ROADMAP A9")
+    return shards
 
 
 # ---------------------------------------------------------------------------
@@ -1280,12 +1300,19 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
     ``checkpoint.CheckpointConfig``; the fit saves its model and loop state
     atomically every ``every_k`` iterations and at the end, and resumes from
     the saved file when there is one, repeating the iterations an
-    uninterrupted fit would run."""
-    _unsupported(mesh)
-    dev = resolve_device(device)
+    uninterrupted fit would run.
+
+    ``mesh``: a ``parallel.mesh.Mesh``; every process of it calls ``train``
+    with the same inputs and gets the same Booster, grown data-parallel
+    over its row block (the module docstring). Runs on the mesh's device
+    unless ``device`` names one."""
+    shards = _mesh_unsupported(mesh, groups, checkpoint)
+    sharded = mesh is not None          # one shard too: the sharded path
+    dev = resolve_device(device if device is not None or mesh is None
+                         else mesh.device)
     # the native C++ engine for small fits (and on the CPU), decided before
     # any device work; checkpointed fits keep the loop (its state is here)
-    if groups is None and checkpoint is None \
+    if mesh is None and groups is None and checkpoint is None \
             and _native_train_ok(params, len(y), dev):
         nb = _train_native(params, X, y, weights, valid, valid_groups,
                            init_scores, init_model, log)
@@ -1296,9 +1323,10 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
     is_goss = params.boosting_type == "goss"
     fast_scores = dev.type == "cuda" and not is_dart
 
-    # Pad rows to a multiple of 512: NaN features (bin 0), zero label and
-    # weight, group -1, excluded from training through pad_mask
-    pad = (-len(y)) % ROW_MULTIPLE
+    # Pad rows to a multiple of 512 (of 512 x shards under a mesh): NaN
+    # features (bin 0), zero label and weight, group -1, excluded from
+    # training through pad_mask
+    pad = (-len(y)) % (ROW_MULTIPLE * shards)
     if pad:
         X = np.concatenate([X, np.full((pad, X.shape[1]), np.nan)])
         y = np.concatenate([y, np.zeros(pad)])
@@ -1323,13 +1351,19 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
                                params.categorical_feature, seed=params.seed,
                                max_bin_by_feature=params.max_bin_by_feature)
     num_bins = mapper.max_num_bins
+    # this process's rows: all of them, or its block under a mesh (the
+    # device tensors and the per-row loop state; the host's draws and the
+    # mapper cover every row)
+    blk = row_block(n, mesh) if sharded else slice(0, n)
+    X_loc = X[blk]
+    n_loc = blk.stop - blk.start
     # feature-major [F, N] bins: shipped as uint8 when they fit (4x fewer
     # host-to-device bytes) and widened to int32 on the device
     bin_dtype = np.uint8 if num_bins <= 256 else np.int32
-    bins_dev = torch.from_numpy(mapper.transform_fm(X, dtype=bin_dtype)) \
+    bins_dev = torch.from_numpy(mapper.transform_fm(X_loc, dtype=bin_dtype)) \
         .to(dev).to(torch.int32).contiguous()
-    labels = torch.as_tensor(y, dtype=torch.float32, device=dev)
-    w_dev = (torch.as_tensor(weights, dtype=torch.float32, device=dev)
+    labels = torch.as_tensor(y[blk], dtype=torch.float32, device=dev)
+    w_dev = (torch.as_tensor(weights[blk], dtype=torch.float32, device=dev)
              if weights is not None else None)
     # the lambdarank group layout is static across boosting: segment once
     group_seg = (segment_groups(groups, dev)
@@ -1344,11 +1378,11 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
         if n - len(init_scores):
             init_arr = np.concatenate(
                 [init_arr, np.zeros((n - len(init_scores), init_arr.shape[1]))])
-        scores = np.broadcast_to(init_arr, (n, k)).copy()
+        scores = np.broadcast_to(init_arr[blk], (n_loc, k)).copy()
     else:
         base = init_score(objective, np.asarray(y[:n_real], dtype=np.float64),
                           k, alpha=params.alpha)
-        scores = np.tile(base, (n, 1)).astype(np.float64)
+        scores = np.tile(base, (n_loc, 1)).astype(np.float64)
     booster = Booster(params, mapper, base_score=base)
     if init_model is not None:
         booster.trees = [list(g) for g in init_model.trees]
@@ -1357,7 +1391,7 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
             # seed from every inherited tree (all of them are carried into
             # the merged model), not the early-stopped prefix
             scores = init_model.raw_predict(
-                X, num_iteration=len(init_model.trees)).reshape(n, -1)
+                X_loc, num_iteration=len(init_model.trees)).reshape(n_loc, -1)
 
     metric = params.metric or default_metric(objective)
     stopper = EarlyStopping(metric, params.early_stopping_round)
@@ -1419,7 +1453,7 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
         if kahan is not None:
             # a resumed card fit: the saved (score, compensation) pair
             score_dev = torch.as_tensor(kahan[0].reshape(
-                (n,) if k == 1 else (n, k)), device=dev)
+                (n_loc,) if k == 1 else (n_loc, k)), device=dev)
             comp_dev = torch.as_tensor(kahan[1].reshape(score_dev.shape),
                                        device=dev)
         else:
@@ -1428,16 +1462,23 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
             comp_dev = torch.zeros_like(score_dev)
 
     def _host_scores() -> np.ndarray:
+        """Every row's f64 score (gathered from every process under a
+        mesh: a collective)."""
         if not fast_scores:
-            return scores
-        return (score_dev.double() + comp_dev.double()).cpu().numpy() \
-            .reshape(n, -1)
+            if not sharded:
+                return scores
+            sc = torch.from_numpy(scores)
+        else:
+            sc = (score_dev.double() + comp_dev.double()).reshape(n_loc, -1)
+        return fetch_global(sc, tree_mesh)
 
     from ..obs.metrics import TrainRecorder
 
     recorder = TrainRecorder("gbdt")
-    # the whole-run scan: every iteration with no host read
-    if _scan_train_ok(params, objective, valid, log, checkpoint, dev):
+    # the whole-run scan: every iteration with no host read (never sharded)
+    tree_mesh = mesh if sharded else None
+    if not sharded and _scan_train_ok(params, objective, valid, log,
+                                      checkpoint, dev):
         row_masks, feat_masks, ok = _scan_precompute_masks(
             params, rng, n, num_f, np.asarray(y), is_rf)
         if ok:
@@ -1457,7 +1498,8 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
     # per-split host grower
     grower = None
     if _fused_tree_enabled(max_nodes, num_f, num_bins, dev):
-        grower = FusedGrower(bins_dev, num_bins, config, mapper, cat_args)
+        grower = FusedGrower(bins_dev, num_bins, config, mapper, cat_args,
+                             mesh=tree_mesh)
     booster.route = "fused" if grower is not None else "host"
     recorder.route(booster.route)
     for it in range(start_it, params.num_iterations):
@@ -1469,7 +1511,8 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
             dropped = dart_drops(params, rng, len(booster.trees))
             for di in dropped:
                 for kk in range(k):
-                    scores[:, kk] -= _tree_contrib(booster.trees[di][kk], X)
+                    scores[:, kk] -= _tree_contrib(booster.trees[di][kk],
+                                                   X_loc)
 
         if not fast_scores:
             score_dev = torch.as_tensor(scores[:, 0] if k == 1 else scores,
@@ -1480,7 +1523,10 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
         # ----- bagging / goss row selection
         row_mask = bag_mask
         if is_goss:
-            row_mask, amp = goss_sample(g, n_real, n, params, rng)
+            # ranked over every row's gradients (gathered under a mesh)
+            row_mask, amp = goss_sample(all_gather(g, tree_mesh), n_real, n,
+                                        params, rng)
+            amp = amp[blk]
             if g.dim() == 2:
                 amp = amp[:, None]
             g, h = g * amp, h * amp
@@ -1495,7 +1541,7 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
             else None
 
         row_mask = row_mask & pad_mask
-        mask_dev = torch.as_tensor(row_mask, device=dev)
+        mask_dev = torch.as_tensor(row_mask[blk], device=dev)
         shrink = lr / (len(dropped) + lr) if dropped else lr  # dart's scale
         group: List[Tree] = []
         for kk in range(k):
@@ -1507,7 +1553,8 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
             else:
                 tree, leaf_of_row = grow_tree(bins_dev, gk, hk, mask_dev,
                                               num_bins, config, mapper,
-                                              feature_mask, cat_args=cat_args)
+                                              feature_mask, cat_args=cat_args,
+                                              mesh=tree_mesh)
             tree.shrinkage = shrink
             group.append(tree)
             if fast_scores:
@@ -1525,7 +1572,8 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
             for di in dropped:
                 for kk in range(k):
                     booster.trees[di][kk].shrinkage *= factor
-                    scores[:, kk] += _tree_contrib(booster.trees[di][kk], X)
+                    scores[:, kk] += _tree_contrib(booster.trees[di][kk],
+                                                   X_loc)
         booster.trees.append(group)
 
         # ----- eval + early stopping

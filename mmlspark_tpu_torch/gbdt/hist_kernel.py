@@ -37,6 +37,13 @@ first); each block groups rows as a launch sized for the narrowest tier
 that holds the count would, and blocks past the count return at once.
 ``count_launches`` counts its launches. Both counters count launches made
 by replaying a captured CUDA graph too (``core/graphs.py``).
+
+Every entry takes ``f64=True`` for the same sums before their one rounding,
+as f64 ``[F, num_bins, 3]``: a sharded fit adds the shards' f64 histograms
+across processes and rounds the total once, so it builds the histogram a
+single process builds over all the rows (up to a double-rounding tie). The
+kernel's reduction launch then writes f64 (24 bytes a cell, not 12); the
+block partials and the order they are summed in are the same.
 """
 
 from __future__ import annotations
@@ -120,12 +127,13 @@ def launch_geometry(n: int, f: int, b: int) -> Geometry:
 
 def histogram_plain(bins_fm: torch.Tensor, grad: torch.Tensor,
                     hess: torch.Tensor, row_mask: torch.Tensor,
-                    num_bins: int) -> torch.Tensor:
+                    num_bins: int, f64: bool = False) -> torch.Tensor:
     """[F, N] int bins + [N] grad/hess/mask -> [F, num_bins, 3] f32 sums of
     (grad * m, hess * m, m). The counterpart of the reference's
     ``histogram.compute_histogram_xla``: one ``index_add_`` per feature,
     accumulated in f64 and rounded to f32 once, so every cell is the f32
-    rounding of its exact sum whatever order the rows are added in."""
+    rounding of its exact sum whatever order the rows are added in
+    (``f64``: the sums before that rounding)."""
     f, n = bins_fm.shape
     dev = bins_fm.device
     m = row_mask.to(torch.float32)
@@ -135,7 +143,8 @@ def histogram_plain(bins_fm: torch.Tensor, grad: torch.Tensor,
     for fi in range(f):
         idx = (bins_fm[fi].to(torch.int64)[:, None] * 3 + chan).reshape(-1)
         hist[fi].index_add_(0, idx, vals)
-    return hist.view(f, num_bins, 3).float()
+    hist = hist.view(f, num_bins, 3)
+    return hist if f64 else hist.float()
 
 
 def _check_inputs(bins_fm, grad, hess, row_mask=None) -> None:
@@ -164,19 +173,25 @@ def _fn():
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def _out_dtype(f64: bool) -> torch.dtype:
+    return torch.float64 if f64 else torch.float32
+
+
 def histogram_cuda(bins_fm: torch.Tensor, grad: torch.Tensor,
                    hess: torch.Tensor, row_mask: torch.Tensor,
-                   num_bins: int) -> torch.Tensor:
-    """Launch K1 on PyTorch's current stream; returns [F, num_bins, 3]."""
+                   num_bins: int, f64: bool = False) -> torch.Tensor:
+    """Launch K1 on PyTorch's current stream; returns [F, num_bins, 3]
+    (f64 sums with ``f64``)."""
     _check_inputs(bins_fm, grad, hess, row_mask)
     f, n = bins_fm.shape
     dev = bins_fm.device
-    out = torch.empty(f, num_bins, 3, dtype=torch.float32, device=dev)
+    out = torch.empty(f, num_bins, 3, dtype=_out_dtype(f64), device=dev)
     if n == 0:
         return out.zero_()
     geo = launch_geometry(n, f, num_bins)
@@ -185,7 +200,7 @@ def histogram_cuda(bins_fm: torch.Tensor, grad: torch.Tensor,
     code = _fn()(p(bins_fm), p(grad), p(hess), p(row_mask), p(out),
                  p(scratch), n, f, num_bins, geo.feat_per_block,
                  geo.row_blocks, geo.rows_per_block, geo.smem_bytes,
-                 _kernels.stream_ptr(dev))
+                 int(f64), _kernels.stream_ptr(dev))
     graphs.note_launch(__name__, "launches")
     _kernels.check(code, "hist kernel launch")
     return out
@@ -213,12 +228,12 @@ def count_tiers(n: int, f: int, b: int, caps=()) -> list:
 
 def histogram_count_plain(bins_fm: torch.Tensor, grad: torch.Tensor,
                           hess: torch.Tensor, count: torch.Tensor,
-                          num_bins: int) -> torch.Tensor:
+                          num_bins: int, f64: bool = False) -> torch.Tensor:
     """The device-count entry's plain version: the rows before ``count``
     (a 0-dim or [1] integer tensor) as the row mask of ``histogram_plain``."""
     n = bins_fm.shape[1]
     valid = torch.arange(n, device=bins_fm.device) < count.reshape(())
-    return histogram_plain(bins_fm, grad, hess, valid, num_bins)
+    return histogram_plain(bins_fm, grad, hess, valid, num_bins, f64)
 
 
 def _count_fn():
@@ -226,18 +241,20 @@ def _count_fn():
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, CountTiers, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, CountTiers, ctypes.c_int,
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def histogram_count_cuda(bins_fm: torch.Tensor, grad: torch.Tensor,
                          hess: torch.Tensor, count: torch.Tensor,
-                         num_bins: int, caps=()) -> torch.Tensor:
+                         num_bins: int, caps=(), f64: bool = False
+                         ) -> torch.Tensor:
     """Launch K1's device-count entry on PyTorch's current stream: the rows
     before the int32 ``count`` (on the device, never read here) of the
     compacted [F, n] buffer; ``caps``: the tier widths the rows are grouped
-    by. Returns [F, num_bins, 3]."""
+    by. Returns [F, num_bins, 3] (f64 sums with ``f64``)."""
     f, n = bins_fm.shape
     dev = bins_fm.device
     _check_inputs(bins_fm, grad, hess)
@@ -246,7 +263,7 @@ def histogram_count_cuda(bins_fm: torch.Tensor, grad: torch.Tensor,
         raise TypeError(f"count must be one int32 on {dev}, got "
                         f"{count.dtype} {tuple(count.shape)} on "
                         f"{count.device}")
-    out = torch.empty(f, num_bins, 3, dtype=torch.float32, device=dev)
+    out = torch.empty(f, num_bins, 3, dtype=_out_dtype(f64), device=dev)
     if n == 0:
         return out.zero_()
     tiers = count_tiers(n, f, num_bins, caps)
@@ -262,7 +279,7 @@ def histogram_count_cuda(bins_fm: torch.Tensor, grad: torch.Tensor,
     code = _count_fn()(p(bins_fm), p(grad), p(hess), p(count), p(out),
                        p(scratch), n, f, num_bins, geo.feat_per_block,
                        max(g.row_blocks for _, g in tiers), geo.smem_bytes,
-                       table, _kernels.stream_ptr(dev))
+                       table, int(f64), _kernels.stream_ptr(dev))
     graphs.note_launch(__name__, "count_launches")
     _kernels.check(code, "hist kernel (device count) launch")
     return out
@@ -270,24 +287,28 @@ def histogram_count_cuda(bins_fm: torch.Tensor, grad: torch.Tensor,
 
 def histogram_count(bins_fm: torch.Tensor, grad: torch.Tensor,
                     hess: torch.Tensor, count: torch.Tensor, num_bins: int,
-                    caps=()) -> torch.Tensor:
+                    caps=(), f64: bool = False) -> torch.Tensor:
     """[F, n] compacted bins -> [F, num_bins, 3] sums of the rows before the
     device-held ``count``: the kernel for CUDA tensors, the plain version
     for CPU tensors."""
     if bins_fm.device.type == "cuda":
         return histogram_count_cuda(bins_fm, grad, hess, count, num_bins,
-                                    caps)
+                                    caps, f64=f64)
     if bins_fm.device.type == "cpu":
-        return histogram_count_plain(bins_fm, grad, hess, count, num_bins)
+        return histogram_count_plain(bins_fm, grad, hess, count, num_bins,
+                                     f64=f64)
     raise ValueError(f"no histogram for device {bins_fm.device}")
 
 
 def histogram(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
-              row_mask: torch.Tensor, num_bins: int) -> torch.Tensor:
+              row_mask: torch.Tensor, num_bins: int, f64: bool = False
+              ) -> torch.Tensor:
     """[F, N] bins -> [F, num_bins, 3] masked (grad, hess, count) sums: the
     kernel for CUDA tensors, the plain version for CPU tensors."""
     if bins_fm.device.type == "cuda":
-        return histogram_cuda(bins_fm, grad, hess, row_mask, num_bins)
+        return histogram_cuda(bins_fm, grad, hess, row_mask, num_bins,
+                              f64=f64)
     if bins_fm.device.type == "cpu":
-        return histogram_plain(bins_fm, grad, hess, row_mask, num_bins)
+        return histogram_plain(bins_fm, grad, hess, row_mask, num_bins,
+                               f64=f64)
     raise ValueError(f"no histogram for device {bins_fm.device}")

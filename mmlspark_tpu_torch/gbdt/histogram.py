@@ -16,6 +16,13 @@ Counterpart of the reference's ``mmlspark_tpu/gbdt/histogram.py``:
     bits: torch has little ``uint32`` arithmetic).
   - ``subtract_histogram``, ``total_sums``, ``partition_rows``,
     ``partition_rows_cat``.
+  - ``shard_reduce``, ``reduced_histogram``, ``total_sums_sharded``: a
+    row-sharded fit's sums (the reference's ``psum`` under ``shard_map``,
+    ``pallas_hist.compute_histogram_sharded``): each process
+    sums its rows in f64, the f64 sums are added across processes
+    (``parallel.mesh.all_reduce_sum``) and rounded to f32 once, so every
+    process holds the histogram one process builds over all the rows (up to
+    a double-rounding tie) and takes the same split.
 
 Gains stay in f32, as on the reference's device. The cumulative sums over
 bins follow the order XLA's CPU ``cumsum`` uses (sequential within blocks
@@ -28,10 +35,12 @@ argmax cannot flip on a near-tie. The categorical search's node totals
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import all_reduce_sum, mesh_shards
 
 # [F, N] int32 bins + per-row grad/hess + row mask -> [F, num_bins, 3] f32
 # sums: K1 for CUDA tensors, its plain version for CPU tensors
@@ -39,7 +48,8 @@ from .hist_kernel import histogram as compute_histogram
 
 __all__ = ["SplitInfo", "cat_best_subset", "compute_histogram",
            "find_best_split", "find_best_split_pair", "partition_rows",
-           "partition_rows_cat", "subtract_histogram", "total_sums",
+           "partition_rows_cat", "reduced_histogram", "shard_reduce",
+           "subtract_histogram", "total_sums", "total_sums_sharded",
            "xla_cumsum", "xla_sum"]
 
 _SCAN_BLOCK = 16
@@ -326,7 +336,48 @@ def subtract_histogram(parent: torch.Tensor, child: torch.Tensor
 
 def total_sums(grad: torch.Tensor, hess: torch.Tensor,
                row_mask: torch.Tensor) -> torch.Tensor:
-    """[3] f32 (sum grad, sum hess, count) over the masked rows."""
-    m = row_mask.to(torch.float32)
-    return torch.stack([torch.sum(grad * m), torch.sum(hess * m),
-                        torch.sum(m)])
+    """[3] f32 (sum grad, sum hess, count) over the masked rows, summed in
+    f64 and rounded once: the same on every device and in any order of the
+    rows, so a sharded fit's root sums (``total_sums_sharded``) equal
+    these up to a double-rounding tie."""
+    return total_sums64(grad, hess, row_mask).float()
+
+
+def total_sums64(grad: torch.Tensor, hess: torch.Tensor,
+                 row_mask: torch.Tensor) -> torch.Tensor:
+    """[3] f64 (sum grad, sum hess, count) over the masked rows, unrounded."""
+    m = row_mask.to(torch.float64)
+    return torch.stack([torch.sum(grad.double() * m),
+                        torch.sum(hess.double() * m), torch.sum(m)])
+
+
+Reduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def shard_reduce(mesh) -> Reduce:
+    """The growers' ``reduce`` for ``mesh``: None without a mesh (the f32
+    kernels, bit for bit as before), else f64 sums -> their all-reduce over
+    the data axis (a mesh of one process included), rounded to f32 once."""
+    mesh_shards(mesh)                      # a port Mesh, or None
+    if mesh is None:
+        return None
+    return lambda t64: all_reduce_sum(t64, mesh).float()
+
+
+def reduced_histogram(reduce: Reduce, fn, *args, **kw) -> torch.Tensor:
+    """``fn(*args)`` (a histogram entry of K1 or K4) without ``reduce``; with
+    it, the entry's f64 sums through ``reduce``."""
+    if reduce is None:
+        return fn(*args, **kw)
+    return reduce(fn(*args, f64=True, **kw))
+
+
+def total_sums_sharded(grad: torch.Tensor, hess: torch.Tensor,
+                       row_mask: torch.Tensor, reduce: Reduce
+                       ) -> torch.Tensor:
+    """``total_sums`` of every shard's rows: without ``reduce`` the f32 sums
+    of this process's rows; with it, f64 sums all-reduced and rounded
+    once."""
+    if reduce is None:
+        return total_sums(grad, hess, row_mask)
+    return reduce(total_sums64(grad, hess, row_mask))

@@ -51,7 +51,14 @@ reference's own formula (``_prefix_sum`` and ``cs - base``) is kept as
 ``_find_best_split_flat(..., faithful=True)``, which ``chip_smoke.py``
 holds against the port's at full width. ROADMAP §C has the numbers.
 
-Not ported yet: the sharded grower (ROADMAP A9).
+Data-parallel training (``train_sparse(mesh=)``, the reference's
+``shard_sparse_dataset`` and ``grow_tree_sparse_sharded``): each process of
+the mesh calls with the same dataset, keeps its nnz-balanced contiguous
+block of rows (``shard_bounds``, ``SparseDataset.rows``) and grows every
+tree with the fused body, its flat histograms and root totals summed in
+f64 across the processes and rounded once (``histogram.shard_reduce``).
+Each process holds its own tensors, so the blocks are not padded to one
+shape as ``shard_map`` forced the reference to (``nnz_valid``).
 """
 
 from __future__ import annotations
@@ -66,12 +73,15 @@ import numpy as np
 import torch
 
 from ..parallel.batching import sparse_width
+from ..parallel.mesh import all_gather, fetch_global
 from ..runtime import DeviceLike, default_device, resolve_device
-from .booster import (Booster, EarlyStopping, _env_on, _scan_precompute_masks,
-                      bagging_draw, dart_drops, default_metric, eval_metric,
-                      feature_draw, goss_sample, grad_hess, init_score,
-                      rf_average, segment_groups)
-from .histogram import _f32, _leaf_objective, xla_cumsum
+from .booster import (Booster, EarlyStopping, _env_on, _mesh_unsupported,
+                      _scan_precompute_masks, bagging_draw, dart_drops,
+                      default_metric, eval_metric, feature_draw, goss_sample,
+                      grad_hess, init_score, rf_average, segment_groups)
+from .histogram import (Reduce, _f32, _leaf_objective, reduced_histogram,
+                        shard_reduce, total_sums, total_sums_sharded,
+                        xla_cumsum)
 from .predict import _tree_depth
 from .sparse_hist_kernel import sparse_histogram
 from .tree import GrowerConfig, Tree, leaf_values
@@ -224,6 +234,28 @@ class SparseDataset:
 
     def bin_upper_value(self, f: int, local_bin: int) -> float:
         return float(self.thresholds[int(self.feat_offset[f]) + local_bin])
+
+    def rows(self, r0: int, r1: int) -> "SparseDataset":
+        """Rows [r0, r1) over the same flat bin space (a shard's block):
+        its own CSR slice and entries, the binning of the whole set."""
+        e0, e1 = int(self.indptr[r0]), int(self.indptr[r1])
+        return dataclasses.replace(
+            self, indptr=self.indptr[r0:r1 + 1] - e0,
+            indices=self.indices[e0:e1], values=self.values[e0:e1],
+            bin_of_nnz=self.bin_of_nnz[e0:e1],
+            row_of_nnz=(self.row_of_nnz[e0:e1] - r0).astype(np.int32))
+
+
+def shard_bounds(ds: SparseDataset, n_shards: int) -> np.ndarray:
+    """[S + 1] row bounds of ``n_shards`` contiguous nnz-balanced blocks:
+    the block edges at equal quantiles of the cumulative entries, monotone
+    under empty blocks (the reference's ``shard_sparse_dataset``)."""
+    n = ds.num_rows
+    nnz = len(ds.indices)
+    targets = (np.arange(1, n_shards) * nnz) // n_shards
+    bounds = np.concatenate([
+        [0], np.searchsorted(ds.indptr[1:], targets, side="left") + 1, [n]])
+    return np.maximum.accumulate(bounds).astype(np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -416,13 +448,15 @@ def _entry_gh(dev: Dict, grad: torch.Tensor, hess: torch.Tensor):
 
 
 def _flat_histogram(dev: Dict, g_bs: torch.Tensor, h_bs: torch.Tensor,
-                    node_mask_rows: torch.Tensor) -> torch.Tensor:
+                    node_mask_rows: torch.Tensor, reduce: Reduce = None
+                    ) -> torch.Tensor:
     """Nonzero-entry histogram [3, TB] over the node's rows: one [nnz] row
     mask gather, the masked [3, nnz] stack, and K4 (channel-major, as the
-    reference's)."""
+    reference's); with ``reduce``, K4's f64 sums summed over the shards
+    and rounded once."""
     m = node_mask_rows.index_select(0, dev["row_of_nnz_bs"]).to(torch.float32)
     data = torch.stack([g_bs * m, h_bs * m, m])
-    return sparse_histogram(data, dev["bin_end"])
+    return reduced_histogram(reduce, sparse_histogram, data, dev["bin_end"])
 
 
 def _zero_completed(dev: Dict, flat_hist: torch.Tensor,
@@ -612,10 +646,9 @@ def _fused_sparse_enabled(max_nodes: int, total_bins: int) -> bool:
 def _masked_totals(grad: torch.Tensor, hess: torch.Tensor,
                    row_mask: torch.Tensor) -> torch.Tensor:
     """[3] (sum grad, sum hess, count) over the masked rows, accumulated in
-    f64 and rounded to f32 once (device-independent up to a rounding tie)."""
-    m = row_mask.to(torch.float64)
-    return torch.stack([torch.sum(grad.double() * m),
-                        torch.sum(hess.double() * m), torch.sum(m)]).float()
+    f64 and rounded to f32 once (device-independent up to a rounding tie):
+    ``histogram.total_sums``."""
+    return total_sums(grad, hess, row_mask)
 
 
 def _tree_from_nodes(nn: int, feature, tbin, flat_bin, default_left, left,
@@ -673,8 +706,8 @@ def _grow_tree_sparse_body(dev: Dict, grad: torch.Tensor, hess: torch.Tensor,
                            row_mask: torch.Tensor,
                            node_of_row: Optional[torch.Tensor],
                            root_tot: torch.Tensor, config: GrowerConfig,
-                           bin_mask: Optional[torch.Tensor] = None
-                           ) -> Dict[str, torch.Tensor]:
+                           bin_mask: Optional[torch.Tensor] = None,
+                           reduce: Reduce = None) -> Dict[str, torch.Tensor]:
     """Grow one whole tree over the flat sparse bins on the device, with no
     host read: the reference's ``_grow_tree_sparse_body``.
 
@@ -692,7 +725,10 @@ def _grow_tree_sparse_body(dev: Dict, grad: torch.Tensor, hess: torch.Tensor,
     ``dev``: ``device_arrays``, or its compacted view (``row_of_nnz_bs``
     and ``bin_end`` of the selected rows' entries; with ``route_lo`` /
     ``route_hi`` the rows are the selected rows). ``root_tot``: [3] f32
-    masked (grad, hess, count). Returns device tensors: ``node_of_row``,
+    masked (grad, hess, count), of every shard. ``reduce`` (the reference's
+    ``psum_axis``): None, or each flat histogram is this process's rows'
+    f64 sums through it (``histogram.shard_reduce``). Returns device
+    tensors: ``node_of_row``,
     the node tables ``feature``, ``threshold_bin`` (local), ``flat_bin``,
     ``default_left``, ``left``, ``right``, ``gain`` [M], ``sums`` [M, 3]
     f32 and ``n_nodes`` [1] int64."""
@@ -712,7 +748,7 @@ def _grow_tree_sparse_body(dev: Dict, grad: torch.Tensor, hess: torch.Tensor,
 
     def node_hist(mask_rows, totals):
         return _zero_completed(
-            dev, _flat_histogram(dev, g_bs, h_bs, mask_rows), totals)
+            dev, _flat_histogram(dev, g_bs, h_bs, mask_rows, reduce), totals)
 
     def best(hists):
         return _find_best_split_flat(dev, hists, l1, l2, msh, mdl, bin_mask)
@@ -803,12 +839,17 @@ def _grow_tree_sparse_body(dev: Dict, grad: torch.Tensor, hess: torch.Tensor,
 
 
 def _fused_sparse_tables(dev: Dict, grad, hess, row_mask, config: GrowerConfig,
-                         bin_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                         bin_mask=None, reduce: Reduce = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One tree of ``_grow_tree_sparse_body`` over every row as
-    (``node_of_row``, its ``pack_sparse_tables``), both on the device."""
-    out = _grow_tree_sparse_body(dev, grad, hess, row_mask, None,
-                                 _masked_totals(grad, hess, row_mask), config,
-                                 bin_mask)
+    (``node_of_row``, its ``pack_sparse_tables``), both on the device; with
+    ``reduce`` the row-sharded tree (the reference's
+    ``grow_tree_sparse_sharded``: the root totals summed over the shards
+    too)."""
+    out = _grow_tree_sparse_body(
+        dev, grad, hess, row_mask, None,
+        total_sums_sharded(grad, hess, row_mask, reduce), config, bin_mask,
+        reduce)
     return out["node_of_row"], pack_sparse_tables(out)
 
 
@@ -827,15 +868,20 @@ class SparseFusedGrower:
     tree with ``_grow_tree_sparse_body`` and reads it once; on the card a
     CUDA graph a tree from the second on, as ``tree.FusedGrower`` does
     (``graphs.Replayer``, ``run``). A returned ``node_of_row`` of a replay
-    is the graph's own output: use it before the next ``grow``."""
+    is the graph's own output: use it before the next ``grow``. With a
+    ``mesh`` (``ds`` and ``dev`` this process's block) every tree is the
+    row-sharded one, run eagerly."""
 
-    def __init__(self, ds: SparseDataset, dev: Dict, config: GrowerConfig):
+    def __init__(self, ds: SparseDataset, dev: Dict, config: GrowerConfig,
+                 mesh=None):
         from . import graphs
 
         self.ds, self.config = ds, config
+        reduce = shard_reduce(mesh)
         self.run = graphs.Replayer(
-            lambda g, h, m, bm: _fused_sparse_tables(dev, g, h, m, config, bm),
-            dev["bin_of_nnz"].is_cuda)
+            lambda g, h, m, bm: _fused_sparse_tables(dev, g, h, m, config, bm,
+                                                     reduce),
+            dev["bin_of_nnz"].is_cuda and reduce is None)
 
     def grow(self, grad: torch.Tensor, hess: torch.Tensor,
              row_mask: torch.Tensor, bin_mask: Optional[torch.Tensor] = None
@@ -1264,13 +1310,6 @@ def _train_scan_sparse(params, config: GrowerConfig, booster: Booster,
 # ---------------------------------------------------------------------------
 
 
-def _unsupported(mesh) -> None:
-    """Raise for every option a later slice of the port owns."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded sparse training (ROADMAP A6, A9) is not ported yet")
-
-
 def train_sparse(params, ds: SparseDataset, y: np.ndarray,
                  weights: Optional[np.ndarray] = None,
                  groups: Optional[np.ndarray] = None,
@@ -1311,19 +1350,37 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
         gate (``MMLSPARK_TPU_FUSED_TREE_BYTES`` moves it,
         ``MMLSPARK_TPU_NO_FUSED_TREE=1`` forces this route).
 
-    The loop routes record each iteration's wall time."""
+    The loop routes record each iteration's wall time.
+
+    ``mesh``: a ``parallel.mesh.Mesh``; every process calls with the same
+    inputs, keeps its nnz-balanced row block (``shard_bounds``) and grows
+    the row-sharded fused tree (route ``fused``, never the scan), as the
+    reference's ``train_sparse(mesh=)`` does; the loop's state is per block,
+    GOSS ranks the gathered gradients, the draws cover every row. Query
+    groups under a mesh raise ``NotImplementedError`` (ROADMAP A9)."""
     if params.categorical_feature:
         raise ValueError(
             "categorical_feature is not supported on the sparse path "
             "(set splits need the dense bin space; sparse features are "
             "numeric TF counts) — densify for categorical slots")
-    _unsupported(mesh)
-    dev_t = resolve_device(device)
+    shards = _mesh_unsupported(mesh, groups)
+    dev_t = resolve_device(device if device is not None or mesh is None
+                           else mesh.device)
     k = max(params.num_class, 1)
     n = ds.num_rows
+    tree_mesh, sizes = None, None
+    blk = slice(0, n)
+    if mesh is not None:
+        # this process's nnz-balanced block: its tensors and loop state
+        bounds = shard_bounds(ds, shards)
+        sizes = np.diff(bounds)
+        blk = slice(int(bounds[mesh.rank]), int(bounds[mesh.rank + 1]))
+        ds = ds.rows(blk.start, blk.stop)
+        tree_mesh = mesh
+    n_loc = ds.num_rows
     dev = device_arrays(ds, dev_t)
-    labels = torch.as_tensor(y, dtype=torch.float32, device=dev_t)
-    w_dev = (torch.as_tensor(weights, dtype=torch.float32, device=dev_t)
+    labels = torch.as_tensor(y[blk], dtype=torch.float32, device=dev_t)
+    w_dev = (torch.as_tensor(weights[blk], dtype=torch.float32, device=dev_t)
              if weights is not None else None)
     group_seg = (segment_groups(groups, dev_t)
                  if groups is not None and params.objective == "lambdarank"
@@ -1340,19 +1397,19 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
     if init_scores is not None:
         base = np.zeros(k, dtype=np.float64)
         scores = np.broadcast_to(
-            np.asarray(init_scores, dtype=np.float64).reshape(n, -1),
-            (n, k)).copy()
+            np.asarray(init_scores, dtype=np.float64).reshape(n, -1)[blk],
+            (n_loc, k)).copy()
     else:
         base = init_score(params.objective, np.asarray(y, dtype=np.float64),
                           k, alpha=params.alpha)
-        scores = np.tile(base, (n, 1)).astype(np.float64)
+        scores = np.tile(base, (n_loc, 1)).astype(np.float64)
     booster = Booster(params, None, base_score=base)
     if init_model is not None:
         booster.trees = [list(g) for g in init_model.trees]
         booster.base_score = init_model.base_score
         base = booster.base_score
         if init_model.trees:
-            scores = (np.tile(base, (n, 1))
+            scores = (np.tile(base, (n_loc, 1))
                       + _train_rows().predict(init_model.trees, k))
     config = GrowerConfig(
         num_leaves=params.num_leaves, max_depth=params.max_depth,
@@ -1370,8 +1427,12 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
 
     recorder = TrainRecorder("gbdt_sparse")
     max_nodes = 2 * config.num_leaves - 1
-    use_fused = _fused_sparse_enabled(max_nodes, ds.total_bins)
-    if use_fused and _scan_sparse_ok(params, valid, log, dev_t):
+    # a sharded fit grows the fused tree whatever the gate, as the
+    # reference's does
+    use_fused = mesh is not None or _fused_sparse_enabled(max_nodes,
+                                                          ds.total_bins)
+    if mesh is None and use_fused and _scan_sparse_ok(params, valid, log,
+                                                      dev_t):
         row_masks, feat_masks, ok = _scan_precompute_masks(
             params, rng, n, ds.num_features, np.asarray(y), is_rf)
         if ok:
@@ -1385,7 +1446,8 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
             booster.route = "scan"
             return booster
 
-    grower = SparseFusedGrower(ds, dev, config) if use_fused else None
+    grower = (SparseFusedGrower(ds, dev, config, tree_mesh) if use_fused
+              else None)
     booster.route = "fused" if use_fused else "host"
     recorder.route(booster.route)
     metric = params.metric or default_metric(params.objective)
@@ -1418,7 +1480,10 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
 
         row_mask = bag_mask
         if is_goss:
-            row_mask, amp = goss_sample(g, n, n, params, rng)
+            # ranked over every row's gradients (gathered under a mesh)
+            row_mask, amp = goss_sample(all_gather(g, tree_mesh, sizes), n, n,
+                                        params, rng)
+            amp = amp[blk]
             if g.dim() == 2:
                 amp = amp[:, None]
             g, h = g * amp, h * amp
@@ -1433,7 +1498,7 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
             bin_mask = torch.as_tensor(fm, device=dev_t).index_select(
                 0, dev["feat_of_bin"])
 
-        mask_dev = torch.as_tensor(row_mask, device=dev_t)
+        mask_dev = torch.as_tensor(row_mask[blk], device=dev_t)
         shrink = lr / (len(dropped) + lr) if dropped else lr  # dart's scale
         group: List[Tree] = []
         for kk in range(k):
@@ -1475,7 +1540,8 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
                 recorder.step(time.perf_counter() - it_t0, examples=n)
                 break
         elif log and (it + 1) % 10 == 0:
-            sc = scores[:, 0] if k == 1 else scores
+            sc = fetch_global(torch.from_numpy(scores), tree_mesh, sizes)
+            sc = sc[:, 0] if k == 1 else sc
             m = eval_metric(metric, sc, np.asarray(y, dtype=np.float64),
                             groups)
             recorder.metric(f"train_{metric}", m)

@@ -39,7 +39,10 @@ arithmetic in Python, for the tests; see the source for the rest.
 ``sparse_histogram_plain``, a CUDA tensor launches the kernel (there is no
 fallback), anything else raises. ``launches`` counts kernel launches (one
 per wrapper call; the call runs the ``LAUNCHES_PER_CALL`` CUDA launches of
-one histogram).
+one histogram). Every entry takes ``f64=True`` for the sums before their one
+rounding, as f64 ``[3, TB]`` (both of the kernel's writes of the output
+then store f64): a sharded fit adds the shards' sums across processes and
+rounds once.
 """
 
 from __future__ import annotations
@@ -197,16 +200,17 @@ def bin_ids(bin_end: torch.Tensor) -> torch.Tensor:
         torch.arange(tb, device=bin_end.device), lengths)
 
 
-def sparse_histogram_plain(data: torch.Tensor,
-                           bin_end: torch.Tensor) -> torch.Tensor:
+def sparse_histogram_plain(data: torch.Tensor, bin_end: torch.Tensor,
+                           f64: bool = False) -> torch.Tensor:
     """[3, width] f32 stats + [TB] bin end offsets -> [3, TB] f32 sums: one
     ``index_add_`` over the flat bin ids of the first ``bin_end[-1]``
-    entries, accumulated in f64 and rounded to f32 once."""
+    entries, accumulated in f64 and rounded to f32 once (``f64``: the sums
+    before that rounding)."""
     ids = bin_ids(bin_end)
     out = torch.zeros(3, bin_end.shape[0], dtype=torch.float64,
                       device=data.device)
     out.index_add_(1, ids, data[:, :ids.shape[0]].double())
-    return out.float()
+    return out if f64 else out.float()
 
 
 def _check_inputs(data: torch.Tensor, bin_end: torch.Tensor) -> None:
@@ -232,39 +236,42 @@ def _check_inputs(data: torch.Tensor, bin_end: torch.Tensor) -> None:
 def _fn():
     fn = _kernels.lib("sparse_hist").mmlspark_sparse_hist
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def sparse_histogram_cuda(data: torch.Tensor,
-                          bin_end: torch.Tensor) -> torch.Tensor:
-    """Launch K4 on PyTorch's current stream; returns [3, TB] f32. The
+def sparse_histogram_cuda(data: torch.Tensor, bin_end: torch.Tensor,
+                          f64: bool = False) -> torch.Tensor:
+    """Launch K4 on PyTorch's current stream; returns [3, TB] f32 (f64
+    with ``f64``). The
     entries must be bin-sorted, their valid length ``bin_end[-1]`` at most
     the stats' width (read on the device: no host read)."""
     _check_inputs(data, bin_end)
     width, tb = data.shape[1], bin_end.shape[0]
     dev = data.device
-    out = torch.empty(3, tb, dtype=torch.float32, device=dev)
+    out = torch.empty(3, tb, dtype=torch.float64 if f64 else torch.float32,
+                      device=dev)
     if tb:
         blocks, _ = shares(width, tb)
         keys = torch.empty(2 * blocks, dtype=torch.int32, device=dev)
         vals = torch.empty(6 * blocks, dtype=torch.float64, device=dev)
         p = _kernels.ptr
         code = _fn()(p(data), p(bin_end), p(out), p(keys), p(vals), width,
-                     tb, blocks, _kernels.stream_ptr(dev))
+                     tb, blocks, int(f64), _kernels.stream_ptr(dev))
         graphs.note_launch(__name__, "launches")
         _kernels.check(code, "sparse_hist kernel launch")
     return out
 
 
-def sparse_histogram(data: torch.Tensor, bin_end: torch.Tensor) -> torch.Tensor:
+def sparse_histogram(data: torch.Tensor, bin_end: torch.Tensor,
+                     f64: bool = False) -> torch.Tensor:
     """[3, width] bin-sorted masked (grad, hess, count), ``bin_end[-1]`` of
     them valid -> [3, TB] per-bin sums: the kernel for CUDA tensors, the
     plain version for CPU tensors."""
     if data.device.type == "cuda":
-        return sparse_histogram_cuda(data, bin_end)
+        return sparse_histogram_cuda(data, bin_end, f64=f64)
     if data.device.type == "cpu":
-        return sparse_histogram_plain(data, bin_end)
+        return sparse_histogram_plain(data, bin_end, f64=f64)
     raise ValueError(f"no sparse histogram for device {data.device}")

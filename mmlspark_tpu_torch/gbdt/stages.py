@@ -16,6 +16,11 @@ Sparse-row feature columns (``{"indices", "values", "size"}``) fit through
 ``sparse.train_sparse`` and score through ``sparse.predict_csr``, never
 densified.
 
+Under a mesh set in ``parallel.mesh.MeshContext`` (data axis > 1) a fit is
+the data-parallel one (``train(mesh=)``, ``train_sparse(mesh=)``), every
+process of the mesh fitting the same frame; ``numWorkers=1`` forces one
+shard, and a mesh built lazily does not count (``_resolve_mesh``).
+
 The models join a fused pipeline (``PipelineModel.fuse()``,
 ``core/fusion.py``) through ``device_fn``: the forest traversal runs on the
 device per batch and the f64 objective math stays in the host finalize, so
@@ -73,6 +78,8 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
     numLeaves = Param("numLeaves", "Max leaves per tree", 31, lambda v: v > 1, int)
     maxBin = Param("maxBin", "Max feature bins", 255, lambda v: v > 1, int)
     maxDepth = Param("maxDepth", "Max tree depth (-1 = unlimited)", -1, ptype=int)
+    numWorkers = Param("numWorkers", "Worker/shard count override (0 = auto)", 0,
+                       ptype=int)
     minDataInLeaf = Param("minDataInLeaf", "Min rows per leaf", 20, lambda v: v >= 0, int)
     minSumHessianInLeaf = Param("minSumHessianInLeaf", "Min hessian per leaf", 1e-3,
                                 ptype=float)
@@ -174,6 +181,20 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             seed=self.get("seed"),
         )
 
+    def _resolve_mesh(self):
+        """The worker topology of the dense and sparse fits: the data axis
+        of the mesh ``MeshContext.set`` installed, when larger than 1; None
+        (one shard) without one, and always for ``numWorkers=1``. A lazily
+        built mesh does not count: tiny fits stay on one device."""
+        from ..parallel.mesh import explicit_mesh
+
+        return explicit_mesh(self.get("numWorkers"))
+
+    def _fit_device(self, mesh):
+        """The fit's device: the mesh's own under a mesh, else the one the
+        caller asked for (CUDA by default)."""
+        return None if mesh is not None else default_device()
+
     def _make_log(self):
         return logging.getLogger("mmlspark_tpu_torch.gbdt").info \
             if (self.get("verbosity") >= 0
@@ -210,14 +231,15 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
         params = self._with_slot_names(self._train_params(objective, num_class),
                                        df)
         log = self._make_log()
-        dev = default_device()
+        mesh = self._resolve_mesh()
+        dev = self._fit_device(mesh)
 
         def fit(sl, init):
             return train(params, X[sl], y[sl], weights=_cut(w, sl),
                          groups=_cut(groups, sl), valid=valid,
                          valid_groups=valid_groups,
                          init_scores=_cut(init_scores, sl), init_model=init,
-                         log=log, device=dev)
+                         log=log, mesh=mesh, device=dev)
 
         return self._fit_batches(len(y), fit)
 
@@ -318,7 +340,8 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
             valid = ((indptr, indices, values), valid[1])
         max_bin = min(params.max_bin, 255)
         log = self._make_log()
-        dev = default_device()
+        mesh = self._resolve_mesh()
+        dev = self._fit_device(mesh)
 
         def fit(sl, init):
             ds = SparseDataset.from_rows(col[sl], num_features=width,
@@ -327,7 +350,8 @@ class _LightGBMParams(HasFeaturesCol, HasLabelCol, HasWeightCol,
                                 groups=_cut(groups, sl), valid=valid,
                                 valid_groups=valid_groups,
                                 init_scores=_cut(init_scores, sl),
-                                init_model=init, log=log, device=dev)
+                                init_model=init, log=log, mesh=mesh,
+                                device=dev)
 
         return self._fit_batches(len(y), fit)
 

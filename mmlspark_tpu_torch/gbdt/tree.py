@@ -39,7 +39,21 @@ With ``cat_args`` the features it flags split by category SET
 (``histogram.cat_best_subset``): a set node routes its rows by the bin
 bitset the search returns (``partition_rows_cat``) and keeps it in
 ``Tree.cat_bin_words`` beside the category values it stands for
-(``Tree.cat_sets``). The row-sharded grower waits for a later slice.
+(``Tree.cat_sets``).
+
+Row-sharded growth (the reference's ``_grow_tree_device_sharded`` and the
+per-split loop's row-sharded branch): with a ``mesh`` each process holds
+its own block of rows, and every histogram and the root's sums go through
+``reduce`` (``histogram.shard_reduce``: the shard's f64 sums all-reduced
+and rounded to f32 once), so every process takes the same split from the
+same histogram while ``node_of_row`` stays its own. Every process issues
+one all-reduce for every histogram, in lockstep. The per-split route
+keeps its tier compaction, each process picking its tier from its own
+rows' count (the all-reduce is issued whatever the tier); the fused body
+compacts nothing under a mesh, as the reference turns compaction off
+under ``psum`` (on the card the sharded fused fit ran no faster with each
+shard compacting). A sharded tree runs eagerly: a collective is not
+captured in the per-tree CUDA graph.
 """
 
 from __future__ import annotations
@@ -247,22 +261,27 @@ def pick_tier(caps: Tuple[int, ...], count: int) -> int:
 
 
 def _small_child_hist(bins_fm, grad, hess, small_mask, small_cnt: int,
-                      num_bins: int, caps, use_sel: bool) -> torch.Tensor:
+                      num_bins: int, caps, use_sel: bool,
+                      reduce: H.Reduce = None) -> torch.Tensor:
     """Histogram of the masked rows, streaming only a tier-sized compacted
     buffer when a tier holds them (same rows, same order as the full
-    scan)."""
+    scan); summed over the shards through ``reduce`` whatever the tier."""
     tidx = pick_tier(caps, small_cnt)
+    hist = H.compute_histogram
     if tidx == 0:
-        return H.compute_histogram(bins_fm, grad, hess, small_mask, num_bins)
+        return H.reduced_histogram(reduce, hist, bins_fm, grad, hess,
+                                   small_mask, num_bins)
     cap = caps[tidx - 1]
     valid = torch.arange(cap, device=bins_fm.device) < small_cnt
     if use_sel:
         b_c, g_c, h_c = select_kernel.select_rows(bins_fm, grad, hess,
                                                   small_mask, cap)
-        return H.compute_histogram(b_c, g_c, h_c, valid, num_bins)
+        return H.reduced_histogram(reduce, hist, b_c, g_c, h_c, valid,
+                                   num_bins)
     idx = torch.zeros(cap, dtype=torch.int64, device=bins_fm.device)
     idx[:small_cnt] = torch.nonzero(small_mask).flatten()
-    return H.compute_histogram(bins_fm.index_select(1, idx).contiguous(),
+    return H.reduced_histogram(reduce, hist,
+                               bins_fm.index_select(1, idx).contiguous(),
                                grad.index_select(0, idx),
                                hess.index_select(0, idx), valid, num_bins)
 
@@ -270,8 +289,8 @@ def _small_child_hist(bins_fm, grad, hess, small_mask, small_cnt: int,
 def grow_tree(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               row_mask: torch.Tensor, num_bins: int, config: GrowerConfig,
               bin_mapper, feature_mask: Optional[torch.Tensor] = None,
-              node_of_row: Optional[torch.Tensor] = None, cat_args=None
-              ) -> Tuple[Tree, torch.Tensor]:
+              node_of_row: Optional[torch.Tensor] = None, cat_args=None,
+              mesh=None) -> Tuple[Tree, torch.Tensor]:
     """Grow one tree; returns (tree, node_of_row) with ``node_of_row`` the
     device tensor mapping every masked-in row to its final node id.
 
@@ -283,14 +302,17 @@ def grow_tree(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
     The route is the reference's: the fused grower where
     ``_fused_tree_enabled`` says so (on the card by default), else the
-    per-split host loop below."""
+    per-split host loop below. With a ``mesh`` the inputs are this
+    process's row block and both routes grow the row-sharded tree (every
+    process must call, in lockstep)."""
     dev = bins_fm.device
     n = int(bins_fm.shape[1])
+    reduce = H.shard_reduce(mesh)
     if _fused_tree_enabled(2 * config.num_leaves - 1, int(bins_fm.shape[0]),
                            num_bins, dev):
         return _grow_tree_fused(bins_fm, grad, hess, row_mask, num_bins,
                                 config, bin_mapper, feature_mask, node_of_row,
-                                cat_args)
+                                cat_args, reduce)
     if node_of_row is None:
         node_of_row = torch.zeros(n, dtype=torch.int32, device=dev)
     M = 2 * config.num_leaves - 1
@@ -301,8 +323,9 @@ def grow_tree(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     mgs = np.float32(config.min_gain_to_split)
     neg_inf = np.float32(-np.inf)
 
-    root_hist = H.compute_histogram(bins_fm, grad, hess, row_mask, num_bins)
-    root_sums = H.total_sums(grad, hess, row_mask)
+    root_hist = H.reduced_histogram(reduce, H.compute_histogram, bins_fm,
+                                    grad, hess, row_mask, num_bins)
+    root_sums = H.total_sums_sharded(grad, hess, row_mask, reduce)
     cw = (num_bins + 31) // 32
     width = 10 + (cw if cat_args is not None else 0)   # packed SplitInfo
     s0 = H.find_best_split(root_hist, l1, l2, msh, mdl, feature_mask,
@@ -367,7 +390,8 @@ def grow_tree(bins_fm: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         small_cnt = int(small_mask.sum())          # host read: tier choice
         host_reads += 1
         small_hist = _small_child_hist(bins_fm, grad, hess, small_mask,
-                                       small_cnt, num_bins, caps, use_sel)
+                                       small_cnt, num_bins, caps, use_sel,
+                                       reduce)
         big_hist = H.subtract_histogram(hists[leaf], small_hist)
         hists[leaf] = None
         pair = H.find_best_split_pair(torch.stack([small_hist, big_hist]),
@@ -469,7 +493,8 @@ def _grow_tree_device_body(bins_fm: torch.Tensor, grad: torch.Tensor,
                            node_of_row: Optional[torch.Tensor],
                            num_bins: int, config: GrowerConfig,
                            feature_mask: Optional[torch.Tensor] = None,
-                           cat_args=None, caps: Optional[Tuple[int, ...]] = None
+                           cat_args=None, caps: Optional[Tuple[int, ...]] = None,
+                           reduce: H.Reduce = None
                            ) -> Dict[str, torch.Tensor]:
     """Grow one whole tree on the device, with no host read: the
     reference's ``_grow_tree_device_body``.
@@ -482,7 +507,11 @@ def _grow_tree_device_body(bins_fm: torch.Tensor, grad: torch.Tensor,
     fixed and a CUDA graph can hold it. A small child's rows are compacted
     by ``select_rows`` (K2) into a ``caps[0]``-wide buffer and summed by
     ``histogram_count`` (K1's device-count entry) up to the count on the
-    device; with no ``caps`` the full width is summed under the mask.
+    device; with no ``caps``, and always under ``reduce``, the full width
+    is summed under the mask.
+    ``reduce`` (the reference's ``psum_axis``): None for one shard, else
+    every histogram and the root's sums are this process's rows' f64 sums
+    through it (``histogram.shard_reduce``), issued on every step.
 
     Returns device tensors: ``node_of_row`` [N], the node tables
     ``feature``, ``threshold_bin``, ``default_left``, ``left``, ``right``,
@@ -492,7 +521,10 @@ def _grow_tree_device_body(bins_fm: torch.Tensor, grad: torch.Tensor,
     n = int(bins_fm.shape[1])
     M = 2 * config.num_leaves - 1
     T = M                                   # the trash slot
-    caps = device_tier_caps(n) if caps is None else caps
+    if reduce is not None:
+        caps = ()          # no compaction under the all-reduce (reference)
+    elif caps is None:
+        caps = device_tier_caps(n)
     l1, l2 = config.lambda_l1, config.lambda_l2
     msh, mdl = config.min_sum_hessian_in_leaf, config.min_data_in_leaf
     mgs = float(np.float32(config.min_gain_to_split))
@@ -501,8 +533,9 @@ def _grow_tree_device_body(bins_fm: torch.Tensor, grad: torch.Tensor,
     if node_of_row is None:
         node_of_row = torch.zeros(n, dtype=i32, device=dev)
 
-    root_hist = H.compute_histogram(bins_fm, grad, hess, row_mask, num_bins)
-    root_sums = H.total_sums(grad, hess, row_mask)
+    root_hist = H.reduced_histogram(reduce, H.compute_histogram, bins_fm,
+                                    grad, hess, row_mask, num_bins)
+    root_sums = H.total_sums_sharded(grad, hess, row_mask, reduce)
     s0 = H.find_best_split(root_hist, l1, l2, msh, mdl, feature_mask,
                            cat_args)
     # the root is pushed without the 2 * min_data_in_leaf check (the split
@@ -574,7 +607,8 @@ def _grow_tree_device_body(bins_fm: torch.Tensor, grad: torch.Tensor,
             small_hist = hist_kernel.histogram_count(b_c, g_c, h_c, cnt,
                                                      num_bins, caps)
         else:
-            small_hist = H.compute_histogram(bins_fm, grad, hess, small_mask,
+            small_hist = H.reduced_histogram(reduce, H.compute_histogram,
+                                             bins_fm, grad, hess, small_mask,
                                              num_bins)
         big_hist = H.subtract_histogram(hists.index_select(0, leaf)[0],
                                         small_hist)
@@ -652,11 +686,13 @@ def tree_from_packed(packed: np.ndarray, config: GrowerConfig, bin_mapper,
 
 def _fused_tables(bins_fm, grad, hess, row_mask, node_of_row,
                   num_bins: int, config: GrowerConfig, feature_mask=None,
-                  cat_args=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  cat_args=None, reduce: H.Reduce = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One tree of ``_grow_tree_device_body`` as (``node_of_row``, its
     ``pack_tables``), both on the device: the fused route's device work."""
     out = _grow_tree_device_body(bins_fm, grad, hess, row_mask, node_of_row,
-                                 num_bins, config, feature_mask, cat_args)
+                                 num_bins, config, feature_mask, cat_args,
+                                 reduce=reduce)
     return out["node_of_row"], pack_tables(out)
 
 
@@ -672,13 +708,14 @@ def _read_tree(rows: torch.Tensor, packed: torch.Tensor,
 
 def _grow_tree_fused(bins_fm, grad, hess, row_mask, num_bins: int,
                      config: GrowerConfig, bin_mapper, feature_mask=None,
-                     node_of_row=None, cat_args=None
+                     node_of_row=None, cat_args=None, reduce: H.Reduce = None
                      ) -> Tuple[Tree, torch.Tensor]:
     """One tree on the fused route, eagerly (the reference's host wrapper of
-    its device grower): one host read, of the finished tree."""
+    its device grower, sharded with ``reduce``): one host read, of the
+    finished tree."""
     return _read_tree(*_fused_tables(bins_fm, grad, hess, row_mask,
                                      node_of_row, num_bins, config,
-                                     feature_mask, cat_args),
+                                     feature_mask, cat_args, reduce),
                       config, bin_mapper, cat_args is not None)
 
 
@@ -689,20 +726,24 @@ class FusedGrower:
     first call runs eagerly, which also warms up every kernel; the second
     captures the whole tree in a CUDA graph over static copies of its
     inputs, and every later call copies its inputs in and replays
-    (``graphs.Replayer``, ``run``). On the CPU every call runs eagerly. A
+    (``graphs.Replayer``, ``run``). On the CPU every call runs eagerly, and
+    so does every call of a row-sharded grower (``mesh``: ``bins_fm`` is
+    this process's block; the reference's ``_grow_tree_device_sharded``). A
     returned ``node_of_row`` of a replay is the graph's own output: use it
     before the next ``grow``."""
 
     def __init__(self, bins_fm: torch.Tensor, num_bins: int,
-                 config: GrowerConfig, bin_mapper, cat_args=None):
+                 config: GrowerConfig, bin_mapper, cat_args=None, mesh=None):
         from . import graphs
 
         self.config, self.bin_mapper, self.cat_args = config, bin_mapper, \
             cat_args
+        reduce = H.shard_reduce(mesh)
         self.run = graphs.Replayer(
             lambda g, h, m, fm: _fused_tables(bins_fm, g, h, m, None,
-                                              num_bins, config, fm, cat_args),
-            bins_fm.is_cuda)
+                                              num_bins, config, fm, cat_args,
+                                              reduce),
+            bins_fm.is_cuda and reduce is None)
 
     def grow(self, grad: torch.Tensor, hess: torch.Tensor,
              row_mask: torch.Tensor,

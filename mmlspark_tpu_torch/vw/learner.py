@@ -15,8 +15,12 @@ Sparse rows are padded to a fixed nnz per row; padded slots (index 0, value
 0) are inert because both the gradient and the l2 decay are gated on value
 != 0. ``predict_linear`` is a gather-sum on the device.
 
-Not ported: the distributed fit (each mesh shard scanning its rows and the
-weights averaged between passes, VW's AllReduce) raises naming ROADMAP A9.
+The distributed fit (``train_linear(mesh=)``, VW's AllReduce spanning tree
+as the reference runs it): each process of the mesh scans its own block of
+the rows, padded with inert rows (weight 0, value 0) to a multiple of the
+shard count, and after every pass the state is averaged over the shards
+(``all_reduce_sum`` / shards, the reference's ``pmean``) and the loss
+summed; a mesh fit never takes the native pass.
 """
 
 from __future__ import annotations
@@ -29,10 +33,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import all_reduce_sum, mesh_shards, row_block
 from . import scan_kernel
-
-_MESH_TODO = ("a VW fit over a mesh of more than one shard (per-shard scans "
-              "averaged between passes) is multi-GPU work: ROADMAP A9")
 
 
 @dataclasses.dataclass
@@ -155,14 +157,19 @@ def _native_pass_ok(config: LearnerConfig) -> bool:
     return native_loader.load() is not None
 
 
-def _shards(mesh) -> int:
-    """Data-axis shards of a mesh (a shard count, or an object whose
-    ``shape`` maps axis names to sizes, as the reference's mesh does)."""
-    if mesh is None:
-        return 1
-    if isinstance(mesh, int):
-        return mesh
-    return int(dict(mesh.shape).get("data", 1))
+def shard_block(dataset: SparseDataset, mesh) -> SparseDataset:
+    """This process's block of ``dataset``: the rows padded with inert
+    rows (index 0, value 0, label 0, weight 0) to a multiple of the shards,
+    then split into equal contiguous blocks (the reference's padding)."""
+    n = len(dataset.labels)
+    pad = (-n) % mesh_shards(mesh)
+
+    def padded(a):
+        return np.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1)) if pad else a
+
+    blk = row_block(n + pad, mesh)
+    return SparseDataset(*(padded(np.asarray(a))[blk] for a in (
+        dataset.indices, dataset.values, dataset.labels, dataset.weights)))
 
 
 def train_linear(config: LearnerConfig, dataset: SparseDataset,
@@ -171,17 +178,19 @@ def train_linear(config: LearnerConfig, dataset: SparseDataset,
     """Run ``num_passes`` passes (optimizer state carries across them) and
     return the dense weights (numpy f32) and each pass's stats. The native
     route runs on the host; the scan route on ``device`` (``cuda`` unless
-    the caller asks for the CPU). A mesh of more than one shard raises
-    (ROADMAP A9)."""
+    the caller asks for the CPU). ``mesh``: a ``parallel.mesh.Mesh`` whose
+    every process calls with the same dataset: each scans its block and the
+    state is averaged between passes (the module docstring); the result is
+    the same on every process. It runs on the mesh's device unless
+    ``device`` names one."""
     from ..runtime import resolve_device
 
-    if _shards(mesh) > 1:
-        raise NotImplementedError(_MESH_TODO)
+    shards = mesh_shards(mesh)
     dim = 1 << config.num_bits
     n = len(dataset.labels)
     w_sum = float(dataset.weights.sum())
 
-    if (_native_pass_ok(config)
+    if (mesh is None and _native_pass_ok(config)
             and int(np.min(dataset.indices, initial=0)) >= 0
             and int(np.max(dataset.indices, initial=-1)) < dim):
         # the native C++ sequential pass (VW's own architecture: a C core
@@ -220,13 +229,21 @@ def train_linear(config: LearnerConfig, dataset: SparseDataset,
         if native_ok:
             return w_np, stats
 
-    dev = resolve_device(device)
+    dev = resolve_device(device if device is not None or mesh is None
+                         else mesh.device)
     state = init_state(config, dev, initial_weights)
-    idx, val, labels, wgts = dataset.to(dev)
+    local = shard_block(dataset, mesh) if mesh is not None else dataset
+    idx, val, labels, wgts = local.to(dev)
     stats: List[TrainingStats] = []
     for _ in range(config.num_passes):
         t0 = time.perf_counter_ns()
         loss_sum = scan_kernel.scan_pass(state, idx, val, labels, wgts, config)
+        if mesh is not None:
+            # between passes: the state averaged over the shards (VW's
+            # AllReduce), the loss summed
+            for t in state:
+                all_reduce_sum(t, mesh).div_(shards)
+            all_reduce_sum(loss_sum, mesh)
         # the loss read back is the sync point: time the pass, not its launch
         loss_host = float(loss_sum.item())
         dt = time.perf_counter_ns() - t0

@@ -6,9 +6,10 @@ vw/VowpalWabbitClassifier.scala, vw/VowpalWabbitBaseModel.scala:1-98. VW exposes
 most knobs through its CLI string; the reference passes them via ``passThroughArgs``
 plus typed params — both supported here and parsed into LearnerConfig. A fit
 takes ``learner.train_linear``'s routes (the native pass, or ``vw_scan`` on
-the card); a transform scores on the card (``predict_linear``). Asking for
-more than one worker (``numWorkers`` > 1, a mesh fit) raises naming ROADMAP
-A9.
+the card); a transform scores on the card (``predict_linear``). Under a mesh
+set in ``parallel.mesh.MeshContext`` (data axis > 1) the fit is the
+reference's mesh fit (``train_linear(mesh=)``); ``numWorkers=1`` forces one
+shard.
 """
 
 from __future__ import annotations
@@ -205,13 +206,14 @@ class _VowpalWabbitBase(HasFeaturesCol, HasLabelCol, HasWeightCol):
         return SparseDataset.from_rows(rows, labels, weights, cfg.num_bits)
 
     def _mesh(self):
-        """None: one shard. More than one (``numWorkers`` > 1, the
-        reference's mesh fit) is not ported."""
-        if self.get("numWorkers") > 1:
-            raise NotImplementedError(
-                "VW over more than one worker (a mesh fit, per-shard scans "
-                "averaged between passes) is multi-GPU work: ROADMAP A9")
-        return None
+        """The mesh ``MeshContext.set`` installed when its data axis is
+        larger than 1 (the fit is then the per-shard scans averaged between
+        passes), else None; ``numWorkers == 1`` forces one shard. A mesh
+        built lazily does not count: 'no mesh configured' stays one
+        shard."""
+        from ..parallel.mesh import explicit_mesh
+
+        return explicit_mesh(self.get("numWorkers"))
 
 
 def _to_sparse(r) -> Optional[Dict[str, np.ndarray]]:

@@ -1649,3 +1649,226 @@ def test_two_input_graph_on_the_card_matches_cpu(cuda_device):
         cpu = np.stack(list(stage.transform(df).column("o")))
     assert card.shape == (10, 64)
     assert np.abs(card - cpu).max() <= 1e-4 * np.abs(cpu).max()
+
+
+# ------------------------------------------ data-parallel fits on the card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["mask", "count", "sparse"])
+def test_f64_entries_match_plain_on_the_card(cuda_device, entry):
+    """K1's two entries and K4 with ``f64=True``: the sums before their one
+    rounding, against the plain versions' f64 sums (within 1e-9 of each
+    cell's sum |v|: both sum in f64, in other orders), and the f32 entry
+    is those sums rounded once, bit for bit."""
+    n, f, b = 300_001, 28, 256
+    bins, grad, hess, mask = _inputs(n, f, b, 0.6, cuda_device, seed=9)
+    if entry == "sparse":
+        rng = np.random.default_rng(9)
+        tb = 40_000
+        ends = np.sort(rng.integers(0, n, tb - 1))
+        bin_end = torch.from_numpy(np.append(ends, n).astype(np.int32)).to(
+            cuda_device)
+        data = torch.stack([grad * mask, hess * mask, mask.float()])
+        k64 = sparse_hist_kernel.sparse_histogram_cuda(data, bin_end, f64=True)
+        p64 = sparse_hist_kernel.sparse_histogram_plain(data, bin_end,
+                                                        f64=True)
+        scale = sparse_hist_kernel.sparse_histogram_plain(data.abs(), bin_end,
+                                                          f64=True)
+        k32 = sparse_hist_kernel.sparse_histogram_cuda(data, bin_end)
+    elif entry == "mask":
+        k64 = hist_kernel.histogram_cuda(bins, grad, hess, mask, b, f64=True)
+        p64 = hist_kernel.histogram_plain(bins, grad, hess, mask, b, f64=True)
+        scale = hist_kernel.histogram_plain(bins, grad.abs(), hess.abs(),
+                                            mask, b, f64=True)
+        k32 = hist_kernel.histogram_cuda(bins, grad, hess, mask, b)
+    else:
+        cnt = torch.tensor([123_457], dtype=torch.int32, device=cuda_device)
+        caps = (150_016, 75_264)
+        args = (bins, grad, hess, cnt, b)
+        k64 = hist_kernel.histogram_count_cuda(*args, caps, f64=True)
+        p64 = hist_kernel.histogram_count_plain(*args, f64=True)
+        valid = torch.arange(n, device=cuda_device) < 123_457
+        scale = hist_kernel.histogram_plain(bins, grad.abs(), hess.abs(),
+                                            valid, b, f64=True)
+        k32 = hist_kernel.histogram_count_cuda(*args, caps)
+    assert k64.dtype == torch.float64 and k32.dtype == torch.float32
+    assert bool(((k64 - p64).abs() <= 1e-9 * scale).all())
+    assert torch.equal(k64.float(), k32)
+
+
+_CUDA_MESH_RANK = r'''
+import numpy as np
+import torch
+
+
+def fit(mesh, inputs):
+    from mmlspark_tpu_torch.gbdt import booster, sparse
+    from mmlspark_tpu_torch.vw import LearnerConfig, SparseDataset
+    from mmlspark_tpu_torch.vw import train_linear
+
+    d = dict(np.load(inputs))
+    p = booster.TrainParams(objective="binary", num_iterations=4,
+                            num_leaves=15, min_data_in_leaf=5)
+    dense = booster.train(p, d["X"], d["y"], mesh=mesh)
+    ds = sparse.SparseDataset.from_csr(d["indptr"], d["indices"],
+                                       d["values"], 512, 255)
+    sp = sparse.train_sparse(p, ds, d["sy"], mesh=mesh)
+    vw = SparseDataset(d["vi"], d["vv"], d["vl"], d["vw"])
+    w, _ = train_linear(LearnerConfig(num_bits=10, loss_function="logistic",
+                                      num_passes=2), vw, mesh=mesh)
+    return dense.route, dense.to_string(), sp.to_string(), w
+'''
+
+
+def _mesh_case(seed=3):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(20_000, 6))
+    d = {"X": X, "y": (X[:, 0] - X[:, 1] > 0).astype(np.float64)}
+    n = 6000
+    nnz = rng.integers(0, 12, n)
+    d["indptr"] = np.concatenate([[0], np.cumsum(nnz)])
+    d["indices"] = np.concatenate([np.sort(rng.choice(512, k, replace=False))
+                                   for k in nnz])
+    d["values"] = rng.integers(1, 5, len(d["indices"])).astype(np.float64)
+    d["sy"] = (rng.random(n) < 0.4).astype(np.float64)
+    d["vi"] = rng.integers(0, 1 << 10, (2001, 8)).astype(np.int32)
+    d["vv"] = rng.standard_normal((2001, 8)).astype(np.float32)
+    d["vl"] = np.where(rng.random(2001) < 0.5, -1.0, 1.0).astype(np.float32)
+    d["vw"] = np.ones(2001, np.float32)
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,device,backend", [
+    (1, "cuda", "nccl"), (2, "cuda:0", "gloo")])
+def test_mesh_fits_on_the_card_equal_the_single_card_fit(cuda_device,
+                                                         tmp_path, monkeypatch,
+                                                         world, device,
+                                                         backend):
+    """A one-rank NCCL mesh, and two gloo ranks sharing ``cuda:0`` (asked
+    for by name): the dense and sparse fits byte for byte the single-card
+    fits on the same route (fused), every rank's the same; VW within the
+    engines' bound of one process averaging its per-block passes."""
+    from mmlspark_tpu_torch.gbdt import booster, sparse
+    from mmlspark_tpu_torch.parallel.launch import spawn
+    from mmlspark_tpu_torch.parallel.mesh import Mesh
+    from mmlspark_tpu_torch.vw import LearnerConfig, SparseDataset
+    from mmlspark_tpu_torch.vw import learner, scan_kernel
+
+    d = _mesh_case()
+    np.savez(tmp_path / "in.npz", **d)
+    (tmp_path / "cuda_mesh_rank.py").write_text(_CUDA_MESH_RANK)
+    ranks = spawn("cuda_mesh_rank:fit", world, tmp_path,
+                  {"inputs": str(tmp_path / "in.npz")}, device=device,
+                  backend=backend, timeout=300, path=[str(tmp_path)])
+    p = booster.TrainParams(objective="binary", num_iterations=4,
+                            num_leaves=15, min_data_in_leaf=5)
+    # the single-card fits on the mesh fits' route: no native engine, no scan
+    monkeypatch.setenv("MMLSPARK_TPU_NATIVE_TRAIN", "0")
+    monkeypatch.setenv("MMLSPARK_TPU_NO_SCAN_TRAIN", "1")
+    dense = booster.train(p, d["X"], d["y"])
+    ds = sparse.SparseDataset.from_csr(d["indptr"], d["indices"],
+                                       d["values"], 512, 255)
+    sp = sparse.train_sparse(p, ds, d["sy"])
+    assert dense.route == "fused" and sp.route == "fused"
+    for r in ranks:
+        assert r[0] == "fused"
+        assert r[1] == dense.to_string()
+        assert r[2] == sp.to_string()
+        np.testing.assert_array_equal(r[3], ranks[0][3])
+    cfg = LearnerConfig(num_bits=10, loss_function="logistic", num_passes=2)
+    vw = SparseDataset(d["vi"], d["vv"], d["vl"], d["vw"])
+    blocks = [learner.shard_block(vw, Mesh(shape={"data": world}, rank=r))
+              .to(cuda_device) for r in range(world)]
+    state = learner.init_state(cfg, cuda_device)
+    for _ in range(2):
+        parts = []
+        for blk in blocks:
+            st = [t.clone() for t in state]
+            scan_kernel.scan_pass_cuda(st, *blk, cfg)
+            parts.append(st)
+        state = [sum(q[i] for q in parts) / world for i in range(len(state))]
+    want = learner.weights_of(cfg, state).cpu().numpy()
+    np.testing.assert_allclose(ranks[0][3], want, rtol=1e-3, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_sharded_fused_body_reads_nothing_on_the_host_under_nccl(
+        cuda_device, tmp_path):
+    """The row-sharded fused body (every histogram's f64 sums all-reduced
+    over a one-rank NCCL group) under ``set_sync_debug_mode("error")``: no
+    host read inside a tree; its tables are the single-card body's."""
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.gbdt import histogram, tree
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, all_reduce_sum
+    from mmlspark_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(MeshSpec(data=1), device="cuda:0")
+        all_reduce_sum(torch.zeros(1, device=cuda_device), mesh)
+        torch.cuda.synchronize()
+        n, f, b = 262_144, 28, 256
+        bins, grad, hess, _ = _inputs(n, f, b, 1.0, cuda_device, seed=5)
+        mask = torch.ones(n, dtype=torch.bool, device=cuda_device)
+        cfg = tree.GrowerConfig(num_leaves=31, min_data_in_leaf=20)
+        want = tree._fused_tables(bins, grad, hess, mask, None, b, cfg)
+        reduce = histogram.shard_reduce(mesh)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = tree._fused_tables(bins, grad, hess, mask, None, b, cfg,
+                                     reduce=reduce)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_nccl_mesh_gathers_host_scores_for_logs_and_metrics(cuda_device,
+                                                            tmp_path,
+                                                            monkeypatch):
+    """The fits whose scores stay on the host, on a one-rank NCCL mesh:
+    ``train_sparse`` logging its train metric every 10th iteration and a
+    DART fit with ``train_metric`` gather those host scores over NCCL (the
+    collective runs on the mesh's card). Models and log lines equal the
+    single-card fits'."""
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.gbdt import booster, sparse
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    d = _mesh_case(seed=4)
+    ds = sparse.SparseDataset.from_csr(d["indptr"], d["indices"],
+                                       d["values"], 512, 255)
+    sp_p = booster.TrainParams(objective="binary", num_iterations=10,
+                               num_leaves=15, min_data_in_leaf=5)
+    dart_p = booster.TrainParams(objective="binary", num_iterations=4,
+                                 num_leaves=15, min_data_in_leaf=5,
+                                 boosting_type="dart", train_metric=True)
+    monkeypatch.setenv("MMLSPARK_TPU_NATIVE_TRAIN", "0")
+    monkeypatch.setenv("MMLSPARK_TPU_NO_SCAN_TRAIN", "1")
+
+    def fits(mesh):
+        sp_log, dart_log = [], []
+        sp = sparse.train_sparse(sp_p, ds, d["sy"], log=sp_log.append,
+                                 mesh=mesh)
+        dart = booster.train(dart_p, d["X"], d["y"], log=dart_log.append,
+                             mesh=mesh)
+        return sp.to_string(), sp_log, dart.to_string(), dart_log
+
+    want = fits(None)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        got = fits(make_mesh(MeshSpec(data=1), device="cuda:0"))
+    finally:
+        dist.destroy_process_group()
+    assert any("train" in line for line in got[1])
+    assert len(got[3]) == 4
+    assert got == want

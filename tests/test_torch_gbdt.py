@@ -1795,3 +1795,603 @@ def ref_booster_native_abi():
     from mmlspark_tpu import native_loader as ref_loader
 
     return ref_loader._ABI_VERSION
+
+
+# ------------------------------------------------------ data-parallel fits
+#
+# The port's mesh is one process per shard (``parallel.mesh``), so its
+# sharded fits run in gloo ranks on the CPU that import only the port
+# (``parallel.launch.spawn``: a file rendezvous under the test's temporary
+# directory, one thread and a 120 s limit a rank). One launch for each world
+# size runs every case below; the reference's sharded fits run here, on
+# ``make_mesh(MeshSpec(data=S), device_list=jax.devices()[:S])`` over the
+# conftest's 8 CPU devices. Gates: the reference's own for a sharded tree
+# (``tests/test_gbdt.py::test_sharded_fused_matches_single_device``:
+# feature, threshold_bin, left and count identical, values within rtol
+# 1e-4), and the port's single-process fit on the same route bit for bit,
+# as every rank's model is.
+
+_MESH_RANKS = r'''
+"""One rank of the data-parallel cases (imports only the port)."""
+import os
+
+import numpy as np
+import torch
+
+
+def _dense(mesh, data, case, route):
+    from mmlspark_tpu_torch.gbdt import booster
+
+    os.environ.pop("MMLSPARK_TPU_FUSED_TREE", None)
+    if route == "fused":
+        os.environ["MMLSPARK_TPU_FUSED_TREE"] = "1"
+    lines = []
+    try:
+        b = booster.train(booster.TrainParams(**case["params"]),
+                          data[case["X"]], data[case["y"]], mesh=mesh,
+                          log=lines.append)
+    finally:
+        os.environ.pop("MMLSPARK_TPU_FUSED_TREE", None)
+    return b.route, b.to_string(), lines
+
+
+def _sparse(mesh, data, case):
+    from mmlspark_tpu_torch.gbdt import booster, sparse
+
+    p = case["csr"]
+    ds = sparse.SparseDataset.from_csr(data[p + "indptr"],
+                                       data[p + "indices"],
+                                       data[p + "values"], case["width"],
+                                       case.get("max_bin", 64))
+    b = sparse.train_sparse(booster.TrainParams(**case["params"]), ds,
+                            data[p + "y"], mesh=mesh)
+    return b.route, b.to_string()
+
+
+def _vw(mesh, data, cfg):
+    from mmlspark_tpu_torch.vw import LearnerConfig, SparseDataset
+    from mmlspark_tpu_torch.vw import train_linear
+
+    ds = SparseDataset(data["vw_idx"], data["vw_val"], data["vw_lab"],
+                       data["vw_wts"])
+    w, stats = train_linear(LearnerConfig(**cfg), ds, mesh=mesh)
+    return w, [s.average_loss for s in stats]
+
+
+def _sharded_body(mesh, data):
+    """One row-sharded fused tree over this rank's block: the shard's
+    tiers, the K2 compactions it made, its tables and its rows' nodes."""
+    from mmlspark_tpu_torch.gbdt import histogram, select_kernel, tree
+
+    n = len(data["cX"]) // mesh.size
+    sl = slice(mesh.rank * n, (mesh.rank + 1) * n)
+    bins = torch.from_numpy(np.ascontiguousarray(data["cbins"][:, sl]))
+    g = torch.from_numpy(data["cg"][sl])
+    h = torch.from_numpy(data["ch"][sl])
+    m = torch.ones(n, dtype=torch.bool)
+    cfg = tree.GrowerConfig(num_leaves=15, min_data_in_leaf=5)
+    calls = []
+    select = select_kernel.select_rows
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return select(*a, **kw)
+
+    select_kernel.select_rows = counted
+    try:
+        o = tree._grow_tree_device_body(bins, g, h, m, None, 32, cfg,
+                                        reduce=histogram.shard_reduce(mesh))
+    finally:
+        select_kernel.select_rows = select
+    return (tree.device_tier_caps(n), len(calls),
+            tree.pack_tables(o).numpy(), o["node_of_row"].numpy())
+
+
+def _stages(mesh, data):
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.gbdt import LightGBMClassifier
+    from mmlspark_tpu_torch.parallel import mesh as pm
+    from mmlspark_tpu_torch.vw import VowpalWabbitClassifier
+
+    X, y = data["X"], data["y"]
+    df = DataFrame.from_dict({"features": list(X), "label": y},
+                             num_partitions=2)
+    feats = [{"indices": i, "values": v}
+             for i, v in zip(data["st_idx"], data["st_val"])]
+    vdf = DataFrame.from_dict({"features": feats, "label": data["st_y"]})
+    out = {}
+    pm.MeshContext.set(mesh)
+    try:
+        for nw in (0, 1):
+            pm.stats.reset()
+            m = LightGBMClassifier(numIterations=3, numLeaves=7,
+                                   minDataInLeaf=5, numWorkers=nw).fit(df)
+            out[f"lgbm{nw}"] = (m.get("model"), pm.stats.calls)
+            pm.stats.reset()
+            v = VowpalWabbitClassifier(numPasses=2, numWorkers=nw).fit(vdf)
+            out[f"vw{nw}"] = (np.asarray(v.get("weights")), pm.stats.calls)
+    finally:
+        pm.MeshContext.reset()
+    return out
+
+
+def run(mesh, inputs, dense, sparse, vw):
+    from mmlspark_tpu_torch.parallel import mesh as pm
+
+    data = dict(np.load(inputs))
+    os.environ["MMLSPARK_TPU_NATIVE_TRAIN"] = "0"
+    out = {"rank": mesh.rank, "size": mesh.size}
+    for name, case in dense.items():
+        for route in ("host", "fused"):
+            out[("dense", name, route)] = _dense(mesh, data, case, route)
+    for name, case in sparse.items():
+        out[("sparse", name)] = _sparse(mesh, data, case)
+    for name, cfg in vw.items():
+        out[("vw", name)] = _vw(mesh, data, cfg)
+    out["sharded_body"] = _sharded_body(mesh, data)
+    os.environ.pop("MMLSPARK_TPU_NATIVE_TRAIN")
+    out["stages"] = _stages(mesh, data)
+    out["collectives"] = pm.stats.calls
+    return out
+'''
+
+_MESH_DENSE = {
+    # __graft_entry__.py's data-parallel gate; the training metric over the
+    # gathered scores, logged every iteration
+    "graft": dict(X="X", y="y", params=dict(
+        objective="binary", num_iterations=4, num_leaves=7,
+        min_data_in_leaf=5, train_metric=True)),
+    # GOSS ranks the gathered gradients; feature fraction draws per tree
+    "goss": dict(X="gX", y="gy", params=dict(
+        objective="binary", boosting_type="goss", num_iterations=4,
+        num_leaves=15, min_data_in_leaf=5, top_rate=0.3, other_rate=0.2,
+        feature_fraction=0.8, seed=4)),
+    # bagging's draws over every row, three trees an iteration; the draws
+    # take the padded row count (the reference's), so 2048 rows, which no
+    # world size pads, give the single-process fit's masks
+    "multiclass_bag": dict(X="mX", y="my", params=dict(
+        objective="multiclass", num_class=3, num_iterations=3, num_leaves=7,
+        min_data_in_leaf=5, bagging_fraction=0.7, bagging_freq=1, seed=2)),
+}
+_MESH_SPARSE = {
+    # __graft_entry__.py's sparse data-parallel gate
+    "graft": dict(csr="g_", width=12, params=dict(
+        objective="binary", num_iterations=3, num_leaves=7,
+        min_data_in_leaf=5)),
+    # test_torch_sparse's text-shaped fixture and its binary fit's params:
+    # blocks with uneven entries
+    "text": dict(csr="t_", width=1 << 10, max_bin=255, params=dict(
+        objective="binary", num_iterations=4, num_leaves=15,
+        min_data_in_leaf=20, learning_rate=0.2)),
+}
+_MESH_VW = {
+    "adaptive": dict(num_bits=10, loss_function="logistic", num_passes=3),
+    "ftrl": dict(num_bits=10, loss_function="logistic", num_passes=2,
+                 ftrl=True),
+    # lr 0 freezes the weights: each real example's loss is log 2, so a pad
+    # row in the loss shows (tests/test_vw.py's padded-loss gate)
+    "pad_lr0": dict(num_bits=12, loss_function="logistic", learning_rate=0.0,
+                    adaptive=False, num_passes=1),
+}
+
+
+def _mesh_inputs():
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(600, 6))
+    d = {"X": X, "y": (X[:, 0] - X[:, 1] > 0).astype(np.float64)}
+    rng = np.random.default_rng(8)
+    gX = rng.normal(size=(1500, 5))
+    d["gX"] = gX
+    d["gy"] = (gX[:, 0] + 0.5 * rng.normal(size=1500) > 0).astype(np.float64)
+    rng = np.random.default_rng(11)
+    mX = rng.normal(size=(2048, 4))
+    d["mX"] = mX
+    d["my"] = np.digitize(mX[:, 0] + mX[:, 1], [-0.8, 0.8]).astype(
+        np.float64)
+    rng = np.random.default_rng(5)
+    Xs = rng.normal(size=(600, 12)) * (rng.random((600, 12)) < 0.3)
+    nzr, nzc = np.nonzero(Xs)
+    d["g_indptr"] = np.searchsorted(nzr, np.arange(601))
+    d["g_indices"], d["g_values"] = nzc, Xs[nzr, nzc]
+    d["g_y"] = (Xs[:, 0] - Xs[:, 1] > 0).astype(np.float64)
+    from test_torch_sparse import make_csr_text
+
+    (d["t_indptr"], d["t_indices"], d["t_values"],
+     d["t_y"]) = make_csr_text(2000, 1 << 10, 20, 1)
+    rng = np.random.default_rng(0)
+    n, k = 401, 8
+    d["vw_idx"] = rng.integers(0, 1 << 10, (n, k)).astype(np.int32)
+    d["vw_idx"][:, 3] = d["vw_idx"][:, 1]          # duplicates in a row
+    d["vw_val"] = rng.standard_normal((n, k)).astype(np.float32)
+    d["vw_val"][:, -2:] = 0
+    raw = (d["vw_val"] * rng.standard_normal(k)).sum(1)
+    d["vw_lab"] = np.where(raw > 0, 1.0, -1.0).astype(np.float32)
+    d["vw_wts"] = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    # the sharded body's case: 8192 rows a shard, so it would have a tier
+    rng = np.random.default_rng(12)
+    cX = rng.normal(size=(4 * 8192, 4))
+    d["cX"] = cX
+    d["cbins"] = np.clip((cX.T * 6 + 16), 0, 31).astype(np.int32)
+    d["cg"] = (np.tanh(cX[:, 0]) - (cX[:, 1] > 0)).astype(np.float32)
+    d["ch"] = rng.uniform(0.1, 0.3, len(cX)).astype(np.float32)
+    rng = np.random.default_rng(5)
+    d["st_idx"] = np.stack([np.sort(rng.choice(1 << 9, 6, replace=False))
+                            for _ in range(300)])
+    d["st_val"] = rng.standard_normal((300, 6)).astype(np.float32)
+    d["st_y"] = (d["st_val"][:, :3].sum(1) > 0).astype(np.float64)
+    return d
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["S2", "S4"])
+def mesh_run(request, tmp_path_factory):
+    """Every case of ``_MESH_RANKS`` in S gloo ranks (one launch a world
+    size): (S, the inputs, each rank's results)."""
+    from mmlspark_tpu_torch.parallel.launch import spawn
+
+    s = request.param
+    work = tmp_path_factory.mktemp(f"mesh{s}")
+    (work / "mesh_ranks.py").write_text(_MESH_RANKS)
+    data = _mesh_inputs()
+    np.savez(work / "inputs.npz", **data)
+    ranks = spawn("mesh_ranks:run", s, work, dict(
+        inputs=str(work / "inputs.npz"), dense=_MESH_DENSE,
+        sparse=_MESH_SPARSE, vw=_MESH_VW), threads=1, timeout=120,
+        path=[str(work)])
+    return s, data, ranks
+
+
+def _ref_mesh(s):
+    import jax
+
+    from mmlspark_tpu.parallel.mesh import MeshSpec, make_mesh
+
+    return make_mesh(MeshSpec(data=s), device_list=jax.devices()[:s])
+
+
+def _assert_ranks_agree(ranks, key):
+    first = ranks[0][key]
+    for r in ranks[1:]:
+        got = r[key]
+        if isinstance(first, tuple) and isinstance(first[0], np.ndarray):
+            for a, b in zip(first, got):
+                np.testing.assert_array_equal(a, b)
+        else:
+            assert got == first, f"rank {r['rank']} differs on {key}"
+    return first
+
+
+def _goes_left(tree, i, X, rows):
+    """Which of ``rows`` node ``i`` of ``tree`` sends left (raw thresholds,
+    ``<=`` goes left, NaN by ``default_left``)."""
+    x = X[rows, int(tree.feature[i])]
+    return np.where(np.isnan(x), tree.default_left[i], x <= tree.threshold[i])
+
+
+def _binary_grads(model, X, y, it):
+    """The binary log-loss gradients and hessians ``model``'s tree ``it``
+    was grown on (f64, from its own scores before that tree)."""
+    s = (np.full(len(X), float(model.base_score[0])) if it == 0
+         else np.asarray(model.raw_predict(X, num_iteration=it)))
+    p = 1.0 / (1.0 + np.exp(-s))
+    return p - y, p * (1.0 - p)
+
+
+def _split_gain(g, h, rows, go, l2):
+    G, H = g[rows].sum(), h[rows].sum()
+    GL, HL = g[rows][go].sum(), h[rows][go].sum()
+    return 0.5 * (GL * GL / (HL + l2) + (G - GL) ** 2 / (H - HL + l2)
+                  - G * G / (H + l2)), 0.5 * G * G / (H + l2)
+
+
+def _assert_sharded_gate(ref, port, X, rtol=1e-4, atol=1e-6, y=None,
+                         l2=0.0):
+    """tests/test_gbdt.py's sharded-tree gate, tree by tree over the
+    training rows ``X``: feature, threshold_bin, left and count identical,
+    values within ``rtol``. Nodes are paired from the root down. Where a
+    node's (feature, threshold_bin) differ, the rows must show a tie:
+
+      - both splits send the same rows of the node each way (a threshold
+        across bins empty in the node's summed histogram, or another
+        feature with the same partition): one gain, exact, and the walk
+        goes on;
+      - with the binary labels ``y`` (the sparse fits against the
+        reference's single device), the splits may part the rows
+        differently where each model's split gains, in f64 under its own
+        gradients, at least the other's less 1e-6 of the node's own
+        objective (an exact gain tie that f32 noise breaks either way).
+        The models then differ below that node and in every later tree:
+        from there every leaf is held to its own rows' Newton step (within
+        ``rtol``) and every split that differs to the same rule, instead of
+        to the other model."""
+    assert len(ref.trees) == len(port.trees)
+    models = (ref, port)
+    diverged = False
+    for it, (gr, gp) in enumerate(zip(ref.trees, port.trees)):
+        assert len(gr) == len(gp)
+        grads = [_binary_grads(m, X, y, it) for m in models] \
+            if y is not None else None
+        for a, b in zip(gr, gp):
+            stack = [(0, 0, np.arange(len(X)), diverged)]
+            while stack:
+                i, j, rows, div = stack.pop()
+                trees, nodes = (a, b), (i, j)
+                if not div:
+                    assert a.count[i] == b.count[j], (it, i, "count")
+                if a.feature[i] < 0 or b.feature[j] < 0:
+                    if div:
+                        for t, k, gh in zip(trees, nodes, grads):
+                            _assert_own_steps(t, k, X, rows, gh, l2, rtol,
+                                              atol)
+                        continue
+                    assert a.feature[i] == b.feature[j] == -1, (it, i)
+                    np.testing.assert_allclose(a.value[i], b.value[j],
+                                               rtol=rtol, atol=atol)
+                    continue
+                go_a, go_b = (_goes_left(a, i, X, rows),
+                              _goes_left(b, j, X, rows))
+                same = (a.feature[i] == b.feature[j]
+                        and a.threshold_bin[i] == b.threshold_bin[j])
+                if same or np.array_equal(go_a, go_b):
+                    stack += [(int(a.left[i]), int(b.left[j]), rows[go_a],
+                               div),
+                              (int(a.right[i]), int(b.right[j]),
+                               rows[~go_a], div)]
+                    continue
+                assert y is not None, (
+                    f"tree {it} node {i}: features {a.feature[i]} and "
+                    f"{b.feature[j]}, bins {a.threshold_bin[i]} and "
+                    f"{b.threshold_bin[j]} part its rows differently")
+                for (g, h), mine, other in zip(grads, (go_a, go_b),
+                                               (go_b, go_a)):
+                    own, scale = _split_gain(g, h, rows, mine, l2)
+                    alt, _ = _split_gain(g, h, rows, other, l2)
+                    assert own >= alt - 1e-6 * scale - 1e-12, (
+                        it, i, own, alt)
+                diverged = True
+                for t, k, gh in zip(trees, nodes, grads):
+                    _assert_own_steps(t, k, X, rows, gh, l2, rtol, atol)
+
+
+def _assert_own_steps(t, i, X, rows, grads, l2, rtol, atol):
+    """In the subtree of ``t`` under node ``i`` (reached by ``rows``): every
+    leaf's value is its rows' Newton step ``-G / (H + l2)`` under the
+    model's own gradients (a leaf's ``value`` is the step before the
+    learning rate, which ``shrinkage`` holds)."""
+    g, h = grads
+    stack = [(i, rows)]
+    while stack:
+        k, r = stack.pop()
+        if t.feature[k] < 0:
+            want = -g[r].sum() / (h[r].sum() + l2)
+            np.testing.assert_allclose(t.value[k], want, rtol=rtol,
+                                       atol=atol)
+            continue
+        gl = _goes_left(t, k, X, r)
+        stack += [(int(t.left[k]), r[gl]), (int(t.right[k]), r[~gl])]
+
+
+@pytest.mark.parametrize("route", ["host", "fused"])
+@pytest.mark.parametrize("case", sorted(_MESH_DENSE))
+def test_mesh_dense_fit_matches_reference_and_single_process(
+        mesh_run, monkeypatch, case, route):
+    """``train(mesh=)`` at S ranks: every rank's model byte for byte the
+    same, equal to the port's single-process fit on the same route, and to
+    the reference's sharded fit under its gate."""
+    s, data, ranks = mesh_run
+    spec = _MESH_DENSE[case]
+    got_route, got, lines = _assert_ranks_agree(ranks, ("dense", case, route))
+    assert got_route == route
+    X, y = data[spec["X"]], data[spec["y"]]
+    monkeypatch.setenv("MMLSPARK_TPU_NATIVE_TRAIN", "0")
+    if route == "fused":
+        monkeypatch.setenv("MMLSPARK_TPU_FUSED_TREE", "1")
+    want = []
+    single = booster.train(booster.TrainParams(**spec["params"]), X, y,
+                           device="cpu", log=want.append)
+    assert single.route == route
+    assert got == single.to_string()
+    assert lines == want and (len(lines) == 4) == (case == "graft")
+    monkeypatch.setenv("MMLSPARK_TPU_FUSED_TREE", "1")
+    ref = ref_booster.train(ref_booster.TrainParams(**spec["params"]), X, y,
+                            mesh=_ref_mesh(s))
+    _assert_sharded_gate(ref, booster.Booster.from_string(got), X)
+
+
+@pytest.mark.parametrize("case", sorted(_MESH_SPARSE))
+def test_mesh_sparse_fit_matches_reference_and_single_process(mesh_run,
+                                                              case):
+    """``train_sparse(mesh=)``: nnz-balanced blocks of uneven rows and
+    entries, each rank's own tensors unpadded; the model is every rank's
+    and the single-process fused fit's bit for bit. Against the reference:
+    its sharded fit under its own gate for one
+    (``__graft_entry__.py``'s: accuracy within 0.02, mean |dp| < 0.05),
+    since the reference's sharded sparse trees leave its own single-device
+    ones (f32 prefix differences, then a psum of f32: leaf values 7e-3
+    apart and a swapped split at S = 4 on the text data); and its
+    single-device fit under ``test_torch_sparse.py``'s gate (structure
+    identical, a threshold bin only at a tie the rows show, leaf values
+    within ``hist.csr``'s 2e-3)."""
+    from mmlspark_tpu.gbdt import sparse as ref_sparse
+    from mmlspark_tpu_torch.gbdt import sparse
+
+    s, data, ranks = mesh_run
+    spec = _MESH_SPARSE[case]
+    got_route, got = _assert_ranks_agree(ranks, ("sparse", case))
+    assert got_route == "fused"
+    p = spec["csr"]
+    csr = (data[p + "indptr"], data[p + "indices"], data[p + "values"])
+    y = data[p + "y"]
+    mb = spec.get("max_bin", 64)
+    ds = sparse.SparseDataset.from_csr(*csr, spec["width"], mb)
+    bounds = sparse.shard_bounds(ds, s)
+    nnz = np.diff(ds.indptr[bounds])
+    assert len(set(np.diff(bounds))) > 1 or len(set(nnz)) > 1  # uneven
+    single = sparse.train_sparse(booster.TrainParams(**spec["params"]), ds,
+                                 y, device="cpu")
+    assert single.route == "fused"
+    assert got == single.to_string()
+    port = booster.Booster.from_string(got)
+    rds = ref_sparse.SparseDataset.from_csr(*csr, spec["width"], mb)
+    rp = ref_booster.TrainParams(**spec["params"])
+    ref = ref_sparse.train_sparse(rp, rds, y, mesh=_ref_mesh(s))
+    with use_device("cpu"):
+        p1 = sparse.predict_csr(port.trees, *csr, 1)[:, 0]
+    p2 = ref_sparse.predict_csr(ref.trees, *csr, 1)[:, 0]
+    acc1 = float((((p1 + port.base_score[0]) > 0) == y).mean())
+    acc2 = float((((p2 + ref.base_score[0]) > 0) == y).mean())
+    assert abs(acc1 - acc2) <= 0.02, (acc1, acc2)
+    assert float(np.mean(np.abs(p1 - p2))) < 0.05
+    dense = np.zeros((len(y), spec["width"]))
+    row = np.repeat(np.arange(len(y)), np.diff(csr[0]))
+    dense[row, csr[1]] = csr[2]
+    _assert_sharded_gate(ref_sparse.train_sparse(rp, rds, y), port, dense,
+                         rtol=2e-3, atol=2e-3, y=y)
+
+
+@pytest.mark.parametrize("case", sorted(_MESH_VW))
+def test_mesh_vw_fit_matches_reference_mesh_fit(mesh_run, case):
+    """``train_linear(mesh=)``: per-shard scans averaged between passes, the
+    401 rows padded with inert rows; within the engines' bound (rtol 1e-3,
+    atol 2e-4, tests/test_vw.py) of the reference's mesh fit, the same on
+    every rank, and at lr 0 the loss exactly log 2."""
+    import importlib
+
+    ref_learner = importlib.import_module("mmlspark_tpu.vw.learner")
+    s, data, ranks = mesh_run
+    w, losses = _assert_ranks_agree(ranks, ("vw", case))
+    ds = ref_learner.SparseDataset(data["vw_idx"], data["vw_val"],
+                                   data["vw_lab"], data["vw_wts"])
+    w_ref, st = ref_learner.train_linear(
+        ref_learner.LearnerConfig(**_MESH_VW[case]), ds, mesh=_ref_mesh(s))
+    np.testing.assert_allclose(w, np.asarray(w_ref), rtol=1e-3, atol=2e-4)
+    np.testing.assert_allclose(losses, [x.average_loss for x in st],
+                               rtol=1e-3)
+    if case == "pad_lr0":
+        assert losses[0] == pytest.approx(np.log(2), abs=1e-6)
+
+
+def test_mesh_fused_tree_compacts_no_rows_and_equals_one_process(mesh_run):
+    """Under the mesh the fused body compacts no small child (the
+    reference's rule under ``psum``), though each shard's rows would fill a
+    tier: every histogram is the block's full width under its mask. The
+    tree is bit for bit the one process's body over all rows (which
+    compacts), and each rank's rows' nodes are that body's for its
+    block."""
+    s, data, ranks = mesh_run
+    bins = torch.from_numpy(data["cbins"])
+    n = bins.shape[1]
+    cfg = tree.GrowerConfig(num_leaves=15, min_data_in_leaf=5)
+    assert tree.device_tier_caps(n)                  # one process compacts
+    one = tree._grow_tree_device_body(
+        bins, torch.from_numpy(data["cg"]), torch.from_numpy(data["ch"]),
+        torch.ones(n, dtype=torch.bool), None, 32, cfg)
+    want = tree.pack_tables(one).numpy()
+    for r in ranks:
+        caps, calls, packed, rows = r["sharded_body"]
+        assert caps and calls == 0
+        np.testing.assert_array_equal(packed, want)
+        b = n // s
+        np.testing.assert_array_equal(
+            rows, one["node_of_row"].numpy()[r["rank"] * b:(r["rank"] + 1) * b])
+
+
+def test_mesh_stages_under_mesh_context(mesh_run, monkeypatch):
+    """``LightGBMClassifier`` and ``VowpalWabbitClassifier`` under
+    ``MeshContext.set``: the sharded fits (the single-process per-split fit
+    bit for bit; the reference's stages under its MeshContext within the
+    gates), and ``numWorkers=1`` forcing one shard (no collective)."""
+    import importlib
+
+    from mmlspark_tpu.parallel.mesh import MeshContext as RefMeshContext
+    from mmlspark_tpu_torch.vw import VowpalWabbitClassifier
+
+    ref_vw = importlib.import_module("mmlspark_tpu.vw")
+    s, data, ranks = mesh_run
+    out = [r["stages"] for r in ranks]
+    for key in ("lgbm0", "lgbm1"):
+        assert all(o[key][0] == out[0][key][0] for o in out)
+    for key in ("vw0", "vw1"):
+        for o in out[1:]:
+            np.testing.assert_array_equal(o[key][0], out[0][key][0])
+    assert out[0]["lgbm0"][1] > 0 and out[0]["vw0"][1] > 0
+    assert out[0]["lgbm1"][1] == 0 and out[0]["vw1"][1] == 0
+    X, y = data["X"], data["y"]
+    kw = dict(numIterations=3, numLeaves=7, minDataInLeaf=5)
+    feats = [{"indices": i, "values": v}
+             for i, v in zip(data["st_idx"], data["st_val"])]
+    with use_device("cpu"):
+        one = stages.LightGBMClassifier(**kw).fit(
+            DataFrame.from_dict({"features": list(X), "label": y},
+                                num_partitions=2))
+        vw_one = VowpalWabbitClassifier(numPasses=2).fit(
+            DataFrame.from_dict({"features": feats, "label": data["st_y"]}))
+    monkeypatch.setenv("MMLSPARK_TPU_NATIVE_TRAIN", "0")
+    with use_device("cpu"):
+        host = stages.LightGBMClassifier(**kw).fit(
+            DataFrame.from_dict({"features": list(X), "label": y},
+                                num_partitions=2))
+    assert out[0]["lgbm0"][0] == host.get("model")
+    assert out[0]["lgbm1"][0] == one.get("model")
+    np.testing.assert_array_equal(out[0]["vw1"][0],
+                                  np.asarray(vw_one.get("weights")))
+    monkeypatch.setenv("MMLSPARK_TPU_FUSED_TREE", "1")
+    RefMeshContext.set(_ref_mesh(s))
+    try:
+        ref = ref_stages.LightGBMClassifier(**kw).fit(RefDataFrame.from_dict(
+            {"features": list(X), "label": y}, num_partitions=2))
+        ref_v = ref_vw.VowpalWabbitClassifier(numPasses=2).fit(
+            RefDataFrame.from_dict({"features": feats,
+                                    "label": data["st_y"]}))
+    finally:
+        RefMeshContext.reset()
+    _assert_sharded_gate(ref._booster,
+                         booster.Booster.from_string(out[0]["lgbm0"][0]), X)
+    np.testing.assert_allclose(out[0]["vw0"][0],
+                               np.asarray(ref_v.get("weights")),
+                               rtol=1e-3, atol=2e-4)
+
+
+def test_mesh_collectives_stage_tensors_where_the_backend_runs():
+    """NCCL runs on the mesh's card, so a host tensor (the host-kept scores
+    a sparse or DART fit's log gathers) goes there first; gloo runs on the
+    host; a tensor already where its backend runs is used as it is. (The
+    ``meta`` device stands in for the card.)"""
+    from mmlspark_tpu_torch.parallel import mesh as pm
+
+    t = torch.arange(4.0)
+    nccl = pm.Mesh(shape={"data": 2}, backend="nccl",
+                   device=torch.device("meta"))
+    assert pm._staged(nccl, t).device.type == "meta"
+    on_card = t.to("meta")
+    assert pm._staged(nccl, on_card) is on_card
+    gloo = pm.Mesh(shape={"data": 2}, backend="gloo")
+    assert pm._staged(gloo, t) is t
+
+
+def test_mesh_spec_resolve_and_process_shard_match_reference():
+    """The host-only pieces: ``MeshSpec.resolve`` (with -1 absorbing the
+    rest, and its errors) and ``process_shard``'s round robin."""
+    from mmlspark_tpu.parallel import mesh as ref_mesh
+    from mmlspark_tpu_torch.parallel import mesh as port_mesh
+
+    for kw, n in (({}, 4), ({"data": 2}, 2), ({"data": -1, "fsdp": 2}, 8),
+                  ({"data": 3, "tensor": 2}, 6)):
+        assert port_mesh.MeshSpec(**kw).resolve(n) == \
+            ref_mesh.MeshSpec(**kw).resolve(n)
+    for kw, n in (({"data": -1, "fsdp": -1}, 4), ({"data": 3}, 4),
+                  ({"data": -1, "tensor": 3}, 4)):
+        with pytest.raises(ValueError):
+            ref_mesh.MeshSpec(**kw).resolve(n)
+        with pytest.raises(ValueError):
+            port_mesh.MeshSpec(**kw).resolve(n)
+    rows = {"x": np.arange(40.0)}
+    df = DataFrame.from_dict(rows, num_partitions=5)
+    rdf = RefDataFrame.from_dict(rows, num_partitions=5)
+    for pid in range(3):
+        got = port_mesh.process_shard(df, pid, 3)
+        want = ref_mesh.process_shard(rdf, pid, 3)
+        np.testing.assert_array_equal(np.asarray(got.column("x")),
+                                      np.asarray(want.column("x")))
+    assert port_mesh.process_shard(df, 0, 1) is df
+    assert port_mesh.process_shard(
+        DataFrame.from_dict(rows, num_partitions=1), 2, 3).count() == 0

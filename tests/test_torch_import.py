@@ -284,12 +284,21 @@ def test_entry_points_raise_without_cuda(no_cuda):
 
 @pytest.mark.parametrize("option", ["mesh"])
 def test_later_slices_raise_not_implemented(option):
-    """What a later slice still owns: a mesh (ROADMAP A9)."""
+    """What a later slice still owns: a mesh with a tensor or fsdp axis
+    larger than 1 (the DNN half of ROADMAP A9), from ``make_mesh`` and from
+    a fit; a ``mesh=`` that is not the port's ``Mesh`` is a TypeError."""
     from mmlspark_tpu_torch.gbdt import TrainParams, train
+    from mmlspark_tpu_torch.parallel.mesh import Mesh, MeshSpec, make_mesh
 
     X = np.zeros((64, 2))
     y = np.zeros(64)
-    with pytest.raises(NotImplementedError, match="A9"):
+    for axis in ("tensor", "fsdp"):
+        with pytest.raises(NotImplementedError, match="A9"):
+            make_mesh(MeshSpec(data=1, **{axis: 2}), device="cpu")
+        with pytest.raises(NotImplementedError, match="A9"):
+            train(TrainParams(), X, y, device="cpu",
+                  mesh=Mesh(shape={"data": 1, axis: 2}))
+    with pytest.raises(TypeError, match="Mesh"):
         train(TrainParams(), X, y, device="cpu", mesh=object())
 
 

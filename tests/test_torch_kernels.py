@@ -995,3 +995,67 @@ def test_vw_scan_wrapper_routes_by_device_and_checks_inputs():
     meta = [s.to("meta") for s in st]
     with pytest.raises(ValueError, match="no VW scan"):
         scan_kernel.scan_pass(meta, idx, val, ones, ones, cfg)
+
+
+# ------------------------------------------- K1 and K4: the f64 (sharded) mode
+
+
+@pytest.mark.parametrize("entry", ["mask", "count", "sparse"])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_f64_entries_summed_over_shards_round_to_the_f32_entry(entry,
+                                                               shards):
+    """A sharded fit adds each shard's f64 sums (``f64=True``) across the
+    processes and rounds once: over contiguous row blocks that equals the
+    f32 entry over all rows, bit for bit, for K1's mask entry, its
+    device-count entry and K4. With the f64 flag unset the entries are the
+    f32 ones they were."""
+    from mmlspark_tpu_torch.gbdt import hist_kernel as hk
+    from mmlspark_tpu_torch.gbdt import sparse_hist_kernel as shk
+
+    rng = np.random.default_rng(40 + shards)
+    n, f, b = 4096, 5, 48
+    bins = torch.from_numpy(rng.integers(0, b, (f, n)).astype(np.int32))
+    g = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    h = torch.from_numpy(rng.uniform(0.0, 0.3, n).astype(np.float32))
+    m = torch.from_numpy(rng.random(n) < 0.7)
+    blocks = np.array_split(np.arange(n), shards)
+    if entry == "sparse":
+        tb = 300
+        ends = np.sort(rng.integers(0, n, tb - 1))
+        bin_end = torch.from_numpy(np.append(ends, n).astype(np.int32))
+        data = torch.stack([g * m, h * m, m.float()])
+        ids = shk.bin_ids(bin_end).numpy()
+        whole = shk.sparse_histogram_plain(data, bin_end)
+        total = torch.zeros(3, tb, dtype=torch.float64)
+        for blk in blocks:
+            # a shard holds its own entries, bin-sorted, and the same bins
+            own = np.bincount(ids[blk], minlength=tb)
+            part = shk.sparse_histogram_plain(
+                data[:, blk].contiguous(),
+                torch.from_numpy(np.cumsum(own).astype(np.int32)), f64=True)
+            assert part.dtype == torch.float64
+            total += part
+    else:
+        whole = hk.histogram_plain(bins, g, h, m, b)
+        total = torch.zeros(f, b, 3, dtype=torch.float64)
+        for blk in blocks:
+            sl = slice(int(blk[0]), int(blk[-1]) + 1)
+            args = (bins[:, sl].contiguous(), g[sl].contiguous(),
+                    h[sl].contiguous())
+            if entry == "mask":
+                part = hk.histogram_plain(*args, m[sl].contiguous(), b,
+                                          f64=True)
+            else:
+                # the compacted buffer: the masked rows first, then padding
+                keep = torch.nonzero(m[sl]).flatten()
+                cnt = torch.tensor([len(keep)], dtype=torch.int32)
+                pad = torch.zeros(len(blk) - len(keep), dtype=torch.int64)
+                idx = torch.cat([keep, pad])
+                part = hk.histogram_count_plain(
+                    args[0].index_select(1, idx).contiguous(),
+                    args[1].index_select(0, idx), args[2].index_select(0, idx),
+                    cnt, b, f64=True)
+            assert part.dtype == torch.float64
+            total += part
+        assert hk.histogram_plain(bins, g, h, m, b).dtype == torch.float32
+    assert torch.equal(total.float(), whole)

@@ -829,16 +829,22 @@ def test_train_sparse_variants_match_reference(numpy_csr_predict, case):
 
 @pytest.mark.parametrize("case", ["mesh", "categorical", "state_gate"])
 def test_train_sparse_later_slices_raise(monkeypatch, case):
-    """What the sparse fit refuses: a mesh (a later slice), and categorical
-    features, which are not a later slice: the reference refuses them on
-    sparse rows too (set splits need the dense bin space), and the port
-    keeps its error. Above the grower-state gate the fit no longer raises:
-    it takes the per-split host loop (route ``host``), the reference's
-    trees."""
+    """What the sparse fit refuses: a mesh with an fsdp axis (the DNN half
+    of ROADMAP A9, a later slice) and a ``mesh=`` that is not the port's
+    ``Mesh`` (TypeError), and categorical features, which are not a later
+    slice: the reference refuses them on sparse rows too (set splits need
+    the dense bin space), and the port keeps its error. Above the
+    grower-state gate the fit no longer raises: it takes the per-split host
+    loop (route ``host``), the reference's trees."""
+    from mmlspark_tpu_torch.parallel.mesh import Mesh
+
     (_, _, _, y), rds, pds = _datasets(200, 1 << 6, 5, seed=19)
     kw, err = {}, NotImplementedError
     if case == "mesh":
-        kw["mesh"] = object()
+        with pytest.raises(TypeError, match="Mesh"):
+            sparse.train_sparse(TrainParams(), pds, y, device="cpu",
+                                mesh=object())
+        kw["mesh"] = Mesh(shape={"data": 1, "fsdp": 2})
     elif case == "state_gate":
         monkeypatch.setenv("MMLSPARK_TPU_FUSED_TREE_BYTES", "1024")
         p = dict(num_iterations=2, num_leaves=4, min_data_in_leaf=10)
@@ -1386,10 +1392,20 @@ def test_vw_mesh_requests_raise_naming_a9():
     from mmlspark_tpu_torch.vw import (LearnerConfig, SparseDataset,
                                        VowpalWabbitClassifier, train_linear)
 
+    from mmlspark_tpu_torch.parallel.mesh import Mesh, MeshContext
+
     df = _vw_stage_frame(DataFrame, n=20)
-    with use_device("cpu"), pytest.raises(NotImplementedError, match="A9"):
-        VowpalWabbitClassifier(numWorkers=2).fit(df)
+    MeshContext.set(Mesh(shape={"data": 1, "tensor": 2}))
+    try:
+        with use_device("cpu"), pytest.raises(NotImplementedError,
+                                              match="A9"):
+            VowpalWabbitClassifier(numWorkers=2).fit(df)
+    finally:
+        MeshContext.reset()
     ds = SparseDataset.from_rows(list(df.column("features")),
                                  np.ones(20), num_bits=9)
     with pytest.raises(NotImplementedError, match="A9"):
+        train_linear(LearnerConfig(num_bits=9), ds,
+                     mesh=Mesh(shape={"data": 2, "expert": 2}))
+    with pytest.raises(TypeError, match="Mesh"):
         train_linear(LearnerConfig(num_bits=9), ds, mesh=4)
