@@ -47,7 +47,7 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    ``forest_predict_f64`` against the numpy traversal, bit for bit, with
    both times;
 3a''. profile: ``core.profiling`` device traces of the main fit on the
-   per-split route (forced, 3 iterations) and on the scan: the device's busy share of
+   per-split route (forced, 1 iteration) and on the scan: the device's busy share of
    the fit's window (spin kernels mark it), the top device operations, the
    longest idle gaps, K1's and K2's device ms (the serving_sparse load is
    traced in its own phase, 12);
@@ -344,7 +344,7 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    then here, alone on the card, the sharded fused fit on a one-rank NCCL
    group as the port grows it (no compaction under a mesh) and with each
    histogram's rows compacted first, timed (``mesh_compaction_ab``);
-   mesh_sparse: ``train_sparse(mesh=)`` on the sparse cell, 10 iterations;
+   mesh_sparse: ``train_sparse(mesh=)`` on the sparse cell, 4 iterations;
    mesh_vw: ``train_linear(mesh=)`` on vw_main's rows, adaptive and FTRL, 2
    passes. Gates: every rank's model byte for byte; the GBDT models byte
    for byte the single-card fits on the same routes (a difference prints
@@ -360,6 +360,34 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    share the card with each other and with this process's fits), its
    collectives (calls, bytes, summed wall ms) and its launches. A rank that
    fails, exits nonzero or passes ``MESH_LAUNCH_TIMEOUT`` fails the run.
+31. the DNN over a mesh (``dnn_mesh_refs``, ``dnn_mesh_start``,
+   ``dnn_mesh_gates``): this process first makes the single-card
+   references alone on the card, then one NCCL rank (every axis 1: NCCL's
+   collectives run) and four gloo ranks sharing ``cuda:0`` (on four cards
+   NCCL a card) run, beside the GBDT mesh phases' ranks, every phase in
+   one start-up (``dnn_mesh_rank``), each on its own mesh of the same
+   world. mesh_train: the train_transformer encoder (dim 512, depth 4, 8
+   heads, seq 2048, 16-class per-token head, 8 rows a step) on fsdp 2 x
+   tensor 2 for 3 steps: (a) in f32 (plain attention) loss, accuracy and
+   every rank's blocks after each step against the single card's step at
+   the reference's tolerances; (b) in bf16, K5/K6/K7 launched depth x steps
+   times on [4, 2048, 4, 64] (4 heads a rank), the loss and each leaf's
+   change within ``MESH_BF16_REL`` of the single card's; (c) K5, K6 and K7
+   against their plain versions on the inputs a rank stashed, here alone on
+   the card, timed beside the plain versions and the library call; (d) a
+   repeated step the same bits. mesh_resnet: ResNet-50 at 224 px, 16 rows,
+   2 steps, f32, each step from the single card's state before it, against
+   its step at the reference's tolerances or ``MESH_ORDER_RATIO`` x the
+   single card's own distance under a row permutation. mesh_ring: the
+   encoder forward (2 rows) with ``ring_axis`` over seq 4, causal and not:
+   output and input gradient against an f64 dense computation
+   (``encoder_f64``), within ``F64_RATIO_MAX`` x the single card's f32
+   dense errors. mesh_moe: moe_main's first MoE layer (8 experts, 2 a
+   rank) on its tapped input, f32, ``MESH_MOE_ATOL``. mesh_pipe: 4 encoder
+   blocks as 4 stages, 8 microbatches, ``MESH_PIPE_ATOL``. mesh_dnn_model:
+   transformer_main's stage under a ``MeshContext`` of data 4 against its
+   single-card output by transformer_main's gate, K5 16 times. Each rank
+   logs its step seconds and collectives (``parallel.mesh.stats``).
 
 Any failure raises and exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``, after a ``{"kernels": [...]}`` line that
@@ -378,7 +406,8 @@ and mega_transformer at K=4, through the graph replays, serving_autotune,
 train_transformer (K5) and its causal run (K5-K7), moe_main's transform (K5)
 and training (K5-K7), and the mesh phases' runs, summed over their ranks);
 K1's and K4's rows carry their f64 entries' checks, ms and bounds on a mesh
-rank's inputs (``f64_entry``), K4's row also its
+rank's inputs (``f64_entry``), K5's, K6's and K7's theirs on a tensor
+rank's heads (``mesh_rank_inputs``), K4's row also its
 call on the compacted stream (``compacted_stream``), and K6's and K7's their
 design (``status``), TFLOP/s and the whole backward call's ms
 (``bwd_total_ms``).
@@ -388,6 +417,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import logging
@@ -1171,7 +1201,7 @@ def marked_trace(torch, fn, device_only: bool = True):
 
 # the traced per-split fit's iterations: its trace's shares settle within a
 # few trees, and the script keeps to its time (20 before the mesh phases)
-PROFILE_PER_SPLIT_ITERS = 3
+PROFILE_PER_SPLIT_ITERS = 1
 
 
 def profile_phase(torch, X, y, smi) -> None:
@@ -3459,7 +3489,7 @@ def anchor_variants(torch, smi, full_ms: float):
 # the per-split host loop's cell: the full-width dataset at 127 leaves, whose
 # fused-grower state [253, 1,310,720, 3] f32 (3.98 GB) passes the 2 GiB gate
 WIDE_LEAVES = 127
-WIDE_ITERS = 2
+WIDE_ITERS = 1
 
 
 def sparse_wide(torch, data: dict, smi) -> int:
@@ -6048,7 +6078,7 @@ MESH_MAX_CARDS = 4
 MESH_LAUNCH_TIMEOUT = 300     # seconds a launch of ranks may take, then killed
 MESH_ITERS_DENSE = 20
 MESH_PER_SPLIT_TREES = 3
-MESH_ITERS_SPARSE = ITERS_SPARSE
+MESH_ITERS_SPARSE = 4
 MESH_VW_PASSES = 2
 MESH_F64_REL = 1e-9           # K1/K4 f64 entries against plain, of sum |v|
 
@@ -6107,12 +6137,13 @@ def mesh_load(paths: dict) -> dict:
     return {k: np.load(p, mmap_mode="r") for k, p in paths.items()}
 
 
-def mesh_spawn(torch, target: str, kwargs: dict, what: str):
-    """Start every run of ``mesh_launches`` at once (on one card the NCCL
+def mesh_spawn(torch, target: str, kwargs: dict, what: str, plan=None,
+               timeout: float = MESH_LAUNCH_TIMEOUT):
+    """Start every run of ``plan`` (default ``mesh_launches``) at once (on one card the NCCL
     rank and the two gloo ranks share it, and this process's single-card
     fits run beside them); returns a function that waits for them and
     gives each run's (label, each rank's result). A rank that fails, exits
-    nonzero or passes ``MESH_LAUNCH_TIMEOUT`` fails the phase (the launch
+    nonzero or passes ``timeout`` fails the phase (the launch
     kills every rank still running)."""
     import os
     from concurrent.futures import ThreadPoolExecutor
@@ -6124,13 +6155,13 @@ def mesh_spawn(torch, target: str, kwargs: dict, what: str):
         ranks = launch.spawn(
             target, world, os.path.join(mesh_workdir(), label),
             kwargs=dict(kwargs, label=label), device=device, backend=backend,
-            timeout=MESH_LAUNCH_TIMEOUT,
+            timeout=timeout,
             path=[os.path.dirname(os.path.abspath(__file__))])
         return {"phase": what, "run": label, "ranks": world, "device": device,
                 "backend": backend,
                 "launch_seconds": time.perf_counter() - t0}, ranks
 
-    plan = mesh_launches(torch)
+    plan = plan or mesh_launches(torch)
     pool = ThreadPoolExecutor(len(plan))
     futures = [(run[0], pool.submit(one, *run)) for run in plan]
 
@@ -6486,13 +6517,14 @@ def mesh_rank(mesh, inputs: dict, label: str) -> dict:
     return out
 
 
-def mesh_phases(torch, inputs: dict, smi) -> dict:
+def mesh_phases(torch, inputs: dict, smi, after_ranks=None) -> dict:
     """mesh_dense, mesh_sparse and mesh_vw: every run of ``mesh_launches``
     started once for the three (``mesh_rank``); meanwhile this process
     makes each phase's single-card reference; then each phase's gates on
     its ranks' results, and the work timed alone on the card (the f64
-    entries, ``mesh_compaction_ab``). Returns each phase's launches, f64
-    entries and timings."""
+    entries, ``mesh_compaction_ab``), once ``after_ranks()`` (which waits
+    for other ranks sharing the card) has returned. Returns each phase's
+    launches, f64 entries and timings."""
     pending = mesh_spawn(torch, "chip_smoke:mesh_rank", {"inputs": inputs},
                          "mesh")
     t0 = time.perf_counter()
@@ -6501,6 +6533,8 @@ def mesh_phases(torch, inputs: dict, smi) -> dict:
     vw_want = mesh_vw_single(torch, inputs["vw"])
     log({"phase": "mesh", "single_card_seconds": time.perf_counter() - t0})
     runs = pending()
+    if after_ranks is not None:
+        after_ranks()
 
     def view(name):
         return [(label, [r[name] for r in ranks]) for label, ranks in runs]
@@ -6793,6 +6827,885 @@ def mesh_vw_gates(torch, runs, want: dict, smi) -> dict:
     return {"paths": paths}
 
 
+# ---------------------------------------------------------------------------
+# the DNN over a mesh: data, FSDP and tensor-sharded training, ring
+# attention, the expert-sharded MoE, the GPipe pipeline, DNNModel(useMesh)
+# ---------------------------------------------------------------------------
+
+DNN_MESH_WORLD = 4            # ranks of the DNN mesh phases on a card or four
+DNN_MESH_TIMEOUT = 600        # seconds the ranks may take, then killed
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_ROWS = TRAIN_ROWS  # 8 rows a step (tools/bench_seq.py's train cell)
+MESH_RESNET_ROWS = 16
+MESH_RESNET_STEPS = 2
+MESH_RING_ROWS = 2
+MESH_PIPE_MICRO = 8
+MESH_MOE_ROWS = 2
+# the reference's mesh tolerances (tests/test_models.py:515) for f32 steps
+MESH_LOSS_ATOL = 1e-4
+MESH_ACC_ATOL = 1e-6
+MESH_PARAM_ATOL = 5e-4
+MESH_PARAM_RTOL = 1e-3
+# bf16 steps: train_transformer's per-leaf relative L2 (TRAIN_GRAD_REL_L2),
+# here of each leaf's change over the steps, and of the loss
+MESH_BF16_REL = TRAIN_GRAD_REL_L2
+# ResNet-50's f32 step is ill-conditioned: on one card the same batch with
+# its rows permuted (f32 sums in another order, as a split batch sums them)
+# moves step 1's params past the reference's tolerances (mesh_refs logs
+# that distance as ``order_floor``). mesh_resnet starts each step from the
+# single card's state and holds the mesh to the reference's tolerances
+# or, failing them, to this many times the single card's own distance
+# under the permutation from the same state.
+MESH_ORDER_RATIO = 2.0
+MESH_MOE_ATOL = 1e-5          # tests/test_parallel_pp_ep.py:152
+MESH_PIPE_ATOL = 1e-4         # tests/test_parallel_pp_ep.py:88
+
+
+def dnn_mesh_launches(torch) -> list:
+    """(label, ranks, device, backend) of each run: NCCL with one rank a
+    card on a machine of four or more; on one card NCCL with one rank
+    (every axis 1: NCCL's collectives run on the mesh and train paths) and
+    four gloo ranks sharing ``cuda:0``, asked for by name."""
+    if torch.cuda.device_count() >= DNN_MESH_WORLD:
+        return [(f"nccl_{DNN_MESH_WORLD}_cards", DNN_MESH_WORLD, "cuda",
+                 "nccl")]
+    return [("nccl_1_rank", 1, "cuda", "nccl"),
+            (f"gloo_{DNN_MESH_WORLD}_ranks_cuda0", DNN_MESH_WORLD, "cuda:0",
+             "gloo")]
+
+
+def dnn_mesh_specs(world: int) -> dict:
+    """Each phase's mesh over ``world`` ranks: the reference's
+    dryrun_multichip layout without its data axis (fsdp 2 x tensor 2) for
+    the steps, then one axis of 4 for each of the others; a one-rank run
+    takes the steps only, every axis 1."""
+    if world == 1:
+        return {"mesh_train": {"data": 1}, "mesh_resnet": {"data": 1}}
+    return {"mesh_train": {"fsdp": 2, "tensor": 2},
+            "mesh_resnet": {"fsdp": 2, "tensor": 2},
+            "mesh_ring": {"seq": world}, "mesh_moe": {"expert": world},
+            "mesh_pipe": {"pipe": world}, "mesh_dnn_model": {"data": world}}
+
+
+def _dnn_path(name: str) -> str:
+    import os
+
+    return os.path.join(mesh_workdir(), f"dnn_{name}")
+
+
+def _flat_cpu(tree) -> dict:
+    from mmlspark_tpu_torch.models import training
+
+    return {k: v.detach().cpu() for k, v in training._flatten(tree).items()}
+
+
+def _train_model(torch):
+    from mmlspark_tpu_torch.models import transformer_encoder
+
+    return transformer_encoder(seq_len=SEQ_LEN, dim=SEQ_DIM, depth=SEQ_DEPTH,
+                               num_heads=SEQ_HEADS, vocab_size=SEQ_VOCAB,
+                               num_classes=TRAIN_CLASSES, seed=0)
+
+
+def _train_batches():
+    return train_batches(MESH_TRAIN_STEPS, SEED + 40, MESH_TRAIN_ROWS,
+                         SEQ_LEN, SEQ_VOCAB, SEQ_VOCAB // TRAIN_CLASSES)
+
+
+def _resnet_batches():
+    rng = np.random.default_rng(SEED + 41)
+    return [{"x": rng.normal(size=(MESH_RESNET_ROWS, IMG_SIZE, IMG_SIZE, 3))
+             .astype(np.float32),
+             "y": rng.integers(0, 1000, MESH_RESNET_ROWS).astype(np.int32)}
+            for _ in range(MESH_RESNET_STEPS)]
+
+
+def _ring_x():
+    return np.random.default_rng(SEED + 42).normal(
+        size=(MESH_RING_ROWS, SEQ_LEN, SEQ_DIM)).astype(np.float32)
+
+
+def _ring_model(causal: bool, ring: int = 0):
+    from mmlspark_tpu_torch.models import transformer_encoder
+
+    return transformer_encoder(seq_len=SEQ_LEN, dim=SEQ_DIM, depth=SEQ_DEPTH,
+                               num_heads=SEQ_HEADS, causal=causal, seed=0,
+                               ring_axis="seq" if ring else None,
+                               ring_axis_size=ring or None)
+
+
+def _pipe_blocks(torch):
+    from mmlspark_tpu_torch.models import transformer_block
+
+    blocks = []
+    for s in range(DNN_MESH_WORLD):
+        b = transformer_block(SEQ_DIM, SEQ_HEADS)
+        b.init(torch.Generator().manual_seed(SEED + s), (SEQ_LEN, SEQ_DIM))
+        blocks.append(b)
+    return blocks
+
+
+def _restart(torch, st, name, prec, i, mesh=None):
+    """``st`` with the single card's params and trace after its step ``i``
+    (this rank's blocks of them on a mesh)."""
+    from mmlspark_tpu_torch.models import training
+    from mmlspark_tpu_torch.parallel.mesh import shard_tree
+
+    dev = training._device_of(st.params)
+    saved = [training._nest({k: v.to(dev) for k, v in torch.load(
+        _dnn_path(f"{name}_{prec}_{i}{part}.pt"), map_location="cpu",
+        weights_only=True).items()}) for part in ("", "_trace")]
+    if mesh is not None:
+        saved = [shard_tree(t, st.shardings, mesh) for t in saved]
+    return dataclasses.replace(st, params=saved[0],
+                               opt_state={"trace": saved[1]})
+
+
+def _steps_single(torch, model_module, in_shape, batches, prec, name,
+                  restart=None):
+    """Single-card steps from ``init_train_state(seed=0)``; saves the params
+    and the trace after every step (``_dnn_path``) and returns (losses,
+    accuracies, seconds a step). ``restart``: each step after the first
+    starts from that run's state after the step before."""
+    from mmlspark_tpu_torch.models import matmul_precision, training
+
+    opt = training.make_optimizer(learning_rate=TRAIN_LR, momentum=0.9)
+    with matmul_precision(prec):
+        st = training.init_train_state(model_module, in_shape, opt, seed=0,
+                                       device=DEVICE)
+        torch.save(_flat_cpu(st.params), _dnn_path(f"{name}_{prec}_0.pt"))
+        step = training.make_train_step(model_module, opt)
+        losses, accs, secs = [], [], []
+        for i, b in enumerate(batches):
+            if restart and i:
+                st = _restart(torch, st, restart, prec, i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = step(st, b)
+            losses.append(float(m["loss"]))
+            accs.append(float(m["accuracy"]))
+            secs.append(time.perf_counter() - t0)
+            torch.save(_flat_cpu(st.params),
+                       _dnn_path(f"{name}_{prec}_{i + 1}.pt"))
+            torch.save(_flat_cpu(st.opt_state["trace"]),
+                       _dnn_path(f"{name}_{prec}_{i + 1}_trace.pt"))
+    del st
+    torch.cuda.empty_cache()
+    return {"loss": losses, "accuracy": accs, "step_seconds": secs}
+
+
+def _f64_err(torch, got, exact) -> float:
+    return float((got.double() - exact).abs().max().item())
+
+
+def encoder_f64(torch, params, x, causal: bool):
+    """The encoder (``_ring_model``'s layers: pre-norm blocks of attention
+    and a tanh-GELU MLP, then ``ln_f``) written out in f64 from its
+    params: the independent dense computation the ring is held to."""
+    p = {k: v.double() for k, v in params.items()}
+    b, t, d = x.shape
+    dh = d // SEQ_HEADS
+
+    def ln(h, pre):
+        mu = h.mean(-1, keepdim=True)
+        var = ((h - mu) ** 2).mean(-1, keepdim=True)
+        return (h - mu) / torch.sqrt(var + 1e-5) * p[pre + ".scale"] \
+            + p[pre + ".bias"]
+
+    mask = torch.ones(t, t, dtype=torch.bool, device=x.device).triu(1) \
+        if causal else None
+    h = x
+    for i in range(SEQ_DEPTH):
+        a, f = f"block{i}.attn.body.", f"block{i}.mlp.body."
+        y = ln(h, a + "ln")
+        q, k, v = ((y @ p[a + f"attn.w{c}"]).reshape(b, t, SEQ_HEADS, dh)
+                   for c in "qkv")
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) / dh ** 0.5
+        if mask is not None:
+            s = s.masked_fill(mask, float("-inf"))
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+        h = h + o.reshape(b, t, d) @ p[a + "attn.wo"]
+        y = ln(h, f + "ln") @ p[f + "fc1.kernel"] + p[f + "fc1.bias"]
+        y = 0.5 * y * (1 + torch.tanh((2 / np.pi) ** 0.5
+                                      * (y + 0.044715 * y ** 3)))
+        h = h + y @ p[f + "fc2.kernel"] + p[f + "fc2.bias"]
+    return ln(h, "ln_f")
+
+
+def dnn_mesh_refs(torch, smi) -> dict:
+    """The single-card references of the DNN mesh phases, made before the
+    ranks start and kept in the work directory: each step's params of the
+    encoder (f32 and bf16) and of ResNet-50 (f32), the ring's f64 dense
+    forward and input gradient with the f32 dense forward's errors against
+    them, the MoE layer's f32 forward on its tapped input, and the
+    pipeline's sequential forward."""
+    from mmlspark_tpu_torch.models import matmul_precision
+    from mmlspark_tpu_torch.models.resnet import resnet
+
+    t0 = time.perf_counter()
+    refs = {"train": {}}
+    model = _train_model(torch)
+    for prec in ("float32", "bfloat16"):
+        refs["train"][prec] = _steps_single(torch, model.module, (SEQ_LEN,),
+                                            _train_batches(), prec, "train")
+    del model
+    rn = resnet(50, 1000, IMG_SIZE, seed=0)
+    refs["resnet"] = _steps_single(torch, rn.module, rn.input_shape,
+                                   _resnet_batches(), "float32", "resnet",
+                                   restart="resnet")
+    perm = np.random.default_rng(SEED + 45).permutation(MESH_RESNET_ROWS)
+    permuted = _steps_single(torch, rn.module, rn.input_shape,
+                             [{k: v[perm] for k, v in b.items()}
+                              for b in _resnet_batches()], "float32",
+                             "resnet_perm", restart="resnet")
+    refs["resnet"]["order_floor"] = []
+    for i in range(MESH_RESNET_STEPS):
+        a, b = (torch.load(_dnn_path(f"{n}_float32_{i + 1}.pt"),
+                           weights_only=True) for n in ("resnet", "resnet_perm"))
+        refs["resnet"]["order_floor"].append({
+            "max_abs_err": max(float((a[k] - b[k]).abs().max()) for k in a),
+            "loss": abs(permuted["loss"][i] - refs["resnet"]["loss"][i])})
+    del rn
+    refs["ring"] = {}
+    x = torch.from_numpy(_ring_x()).to(DEVICE)
+    for causal in (False, True):
+        m = _ring_model(causal)
+        params = m.device_params(x.device)
+        out = {}
+        with torch.enable_grad():
+            xi = x.double().requires_grad_(True)
+            y = encoder_f64(torch, params, xi, causal)
+            (g,) = torch.autograd.grad((y * y).sum(), xi)
+            out["float64"] = (y.detach(), g.detach())
+            del y, g
+            xi = x.clone().requires_grad_(True)
+            with matmul_precision("float32"):
+                y = torch.func.functional_call(m.module, params, (xi,))
+                (g,) = torch.autograd.grad((y * y).sum(), xi)
+            out["float32"] = (y.detach(), g.detach())
+        y64, g64 = out["float64"]
+        torch.save({"y": y64.cpu(), "g": g64.cpu()},
+                   _dnn_path(f"ring_{causal}.pt"))
+        refs["ring"][causal] = {
+            "dense_f32_err": _f64_err(torch, out["float32"][0], y64),
+            "dense_f32_grad_err": _f64_err(torch, out["float32"][1], g64)}
+        del out, y64, g64, m, params
+    del x
+    model = moe_model(torch)
+    ids = torch.from_numpy(np.random.default_rng(SEED + 43).integers(
+        0, SEQ_VOCAB, (MESH_MOE_ROWS, SEQ_LEN))).to(DEVICE)
+    with matmul_precision("float32"):
+        params = model.device_params(ids.device)
+        x = model.apply_taps(ids, ["block0/mlp/body/ln"],
+                             params=params)["block0/mlp/body/ln"]
+        moe = model.module.get_submodule("block0.mlp.body.moe")
+        with torch.no_grad():
+            y = torch.func.functional_call(moe, {
+                k.split("block0.mlp.body.moe.")[1]: v for k, v in params.items()
+                if k.startswith("block0.mlp.body.moe.")}, (x,))
+    torch.save({"x": x.cpu(), "y": y.cpu(), "params": _flat_cpu(
+        dict(moe.named_parameters()))}, _dnn_path("moe.pt"))
+    del model, ids, params, x, y
+    blocks = _pipe_blocks(torch)
+    xs = torch.from_numpy(np.random.default_rng(SEED + 44).normal(
+        size=(MESH_PIPE_MICRO, 1, SEQ_LEN, SEQ_DIM)).astype(np.float32))
+    with matmul_precision("float32"), torch.no_grad():
+        h = xs.to(DEVICE)
+        for b in blocks:
+            b.to(DEVICE)
+            h = torch.stack([b(h[i]) for i in range(h.shape[0])])
+    torch.save({"xs": xs, "y": h.cpu()}, _dnn_path("pipe.pt"))
+    del blocks, h
+    torch.cuda.empty_cache()
+    refs["seconds"] = time.perf_counter() - t0
+    log({"phase": "mesh_refs", "card": smi, "seconds": refs["seconds"],
+         "train": refs["train"], "resnet": refs["resnet"],
+         "ring": {str(k): v for k, v in refs["ring"].items()}})
+    return refs
+
+
+# -- one rank
+
+
+def _blocks_check(torch, local, shardings, ref_path, mesh, atol, rtol):
+    """This rank's blocks of each leaf against the same blocks of the saved
+    single-card leaves: the worst |d| and whether each is within atol +
+    rtol |want|."""
+    from mmlspark_tpu_torch.models import training
+
+    want = torch.load(ref_path, map_location="cpu", weights_only=True)
+    specs = training._flatten(shardings)
+    worst, leaf, ok = 0.0, None, True
+    for name, t in training._flatten(local).items():
+        w = specs[name].local(want[name], mesh)
+        d = (t.detach().cpu() - w).abs()
+        if d.numel() and float(d.max()) >= worst:
+            worst, leaf = float(d.max()), name
+        ok = ok and bool((d <= atol + rtol * w.abs()).all())
+    return {"max_abs_err": worst, "worst_leaf": leaf, "within": ok}
+
+
+def _update_rel(torch, local, shardings, ref_path, init_path, mesh) -> dict:
+    """Per leaf, the relative L2 distance of this rank's change of the
+    params since step 0 from the single-card run's, on the rank's blocks;
+    the worst leaf."""
+    from mmlspark_tpu_torch.models import training
+
+    want = torch.load(ref_path, map_location="cpu", weights_only=True)
+    init = torch.load(init_path, map_location="cpu", weights_only=True)
+    specs = training._flatten(shardings)
+    worst, leaf = 0.0, None
+    for name, t in training._flatten(local).items():
+        w0 = specs[name].local(init[name], mesh).double()
+        dw = specs[name].local(want[name], mesh).double() - w0
+        dg = t.detach().cpu().double() - w0
+        if float(dw.norm()) == 0.0:
+            continue
+        rel = float((dg - dw).norm() / dw.norm())
+        if rel >= worst:
+            worst, leaf = rel, name
+    return {"max_rel_l2": worst, "worst_leaf": leaf}
+
+
+class _AttnRecorder:
+    """Counts and records K5/K6/K7 on this rank: each call's q shape, and
+    the first call's inputs (stashed for gate (c))."""
+
+    def __init__(self):
+        from mmlspark_tpu_torch.models import flash_kernel as fk
+
+        self.fk = fk
+        self.fwd_shapes, self.bwd_shapes = set(), set()
+        self.first = {}
+        self._orig = (fk.flash_attention_cuda, fk.flash_attention_bwd_cuda)
+
+    def __enter__(self):
+        fk = self.fk
+        fwd, bwd = self._orig
+
+        def k5(q, k, v, causal=False, lse=False):
+            self.fwd_shapes.add(tuple(q.shape))
+            if "fwd" not in self.first:
+                self.first["fwd"] = [x.detach().clone() for x in (q, k, v)]
+            return fwd(q, k, v, causal, lse)
+
+        def k67(q, k, v, o, lse, do, causal=False):
+            self.bwd_shapes.add(tuple(q.shape))
+            if "bwd" not in self.first:
+                self.first["bwd"] = [x.detach().clone()
+                                     for x in (q, k, v, o, lse, do)]
+            return bwd(q, k, v, o, lse, do, causal)
+
+        fk.flash_attention_cuda, fk.flash_attention_bwd_cuda = k5, k67
+        return self
+
+    def __exit__(self, *exc):
+        self.fk.flash_attention_cuda, self.fk.flash_attention_bwd_cuda = \
+            self._orig
+        return False
+
+
+def _mesh_steps(torch, mesh, module, in_shape, batches, prec, name,
+                compare, restart=False):
+    """This rank's sharded steps from ``init_train_state(seed=0, mesh=)``;
+    after each, its blocks against the single-card step's (``compare``:
+    "blocks" within atol/rtol, "update" the relative L2 of the change).
+    Returns the metrics, seconds a step, comparisons, the final state."""
+    from mmlspark_tpu_torch.models import matmul_precision, training
+    from mmlspark_tpu_torch.parallel import mesh as pm
+
+    opt = training.make_optimizer(learning_rate=TRAIN_LR, momentum=0.9)
+    out = {"loss": [], "accuracy": [], "step_seconds": [], "params": []}
+    with matmul_precision(prec):
+        st = training.init_train_state(module, in_shape, opt, seed=0,
+                                       mesh=mesh)
+        step = training.compile_train_step(module, opt, mesh=mesh)
+        pm.stats.reset()
+        for i, b in enumerate(batches):
+            if restart and i:
+                st = _restart(torch, st, name, prec, i, mesh)
+            torch.cuda.synchronize(mesh.device)
+            t0 = time.perf_counter()
+            st, m = step(st, b)
+            if i == 0:
+                out["first_step"] = [t.clone() for t in
+                                     _flat_cpu(st.params).values()]
+            out["loss"].append(float(m["loss"]))
+            out["accuracy"].append(float(m["accuracy"]))
+            out["step_seconds"].append(time.perf_counter() - t0)
+            ref = _dnn_path(f"{name}_{prec}_{i + 1}.pt")
+            if compare == "blocks":
+                out["params"].append(_blocks_check(
+                    torch, st.params, st.shardings, ref, mesh,
+                    MESH_PARAM_ATOL, MESH_PARAM_RTOL))
+            else:
+                out["params"].append(_update_rel(
+                    torch, st.params, st.shardings, ref,
+                    _dnn_path(f"{name}_{prec}_0.pt"), mesh))
+    out["collectives"] = {"calls": pm.stats.calls, "bytes": pm.stats.bytes,
+                          "host_ms": pm.stats.ms}
+    return out, st
+
+
+def _rank_train(torch, mesh) -> dict:
+    """mesh_train on this rank: (a) f32 steps, blocks against the single
+    card's; (b) bf16 steps through K5-K7 on the rank's heads, counted, the
+    change of every leaf against the single card's; (d) the bf16 steps
+    again, the same bits."""
+    model = _train_model(torch)
+    out = {}
+    zero_attn_launches()
+    out["f32"], _ = _mesh_steps(torch, mesh, model.module, (SEQ_LEN,),
+                                _train_batches(), "float32", "train", "blocks")
+    out["f32"]["launches"] = read_attn_launches()
+    zero_attn_launches()
+    with _AttnRecorder() as rec:
+        out["bf16"], st = _mesh_steps(torch, mesh, model.module, (SEQ_LEN,),
+                                      _train_batches(), "bfloat16", "train",
+                                      "update")
+    out["bf16"]["launches"] = read_attn_launches()
+    out["bf16"]["k5_q_shapes"] = sorted(rec.fwd_shapes)
+    out["bf16"]["k67_q_shapes"] = sorted(rec.bwd_shapes)
+    if mesh.rank == 0:
+        torch.save({k: [x.cpu() for x in v] for k, v in rec.first.items()},
+                   _dnn_path(f"attn_stash_{mesh.axis_size('world')}.pt"))
+    first = out["bf16"].pop("first_step")
+    out["f32"].pop("first_step")
+    del st
+    # (d) the first step again
+    again, st = _mesh_steps(torch, mesh, model.module, (SEQ_LEN,),
+                            _train_batches()[:1], "bfloat16", "train",
+                            "update")
+    out["repeat_bitwise"] = all(torch.equal(a, b) for a, b in zip(
+        first, _flat_cpu(st.params).values()))
+    out["repeat_loss"] = again["loss"]
+    del st, first, again
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_resnet(torch, mesh) -> dict:
+    from mmlspark_tpu_torch.models.resnet import resnet
+
+    rn = resnet(50, 1000, IMG_SIZE, seed=0)
+    out, st = _mesh_steps(torch, mesh, rn.module, rn.input_shape,
+                          _resnet_batches(), "float32", "resnet", "blocks",
+                          restart=True)
+    out.pop("first_step")
+    del st, rn
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_ring(torch, mesh) -> dict:
+    """The encoder forward and the input gradient of sum(y * y) with
+    ``ring_axis="seq"`` on this rank's block of the sequence, f32; errors
+    of the rank's blocks against the single card's f64 dense ones."""
+    from mmlspark_tpu_torch.models import activation_sharding, matmul_precision
+    from mmlspark_tpu_torch.parallel import mesh as pm
+
+    n, me = mesh.axis_size("seq"), mesh.coord("seq")
+    t = SEQ_LEN // n
+    x = torch.from_numpy(_ring_x()[:, me * t:(me + 1) * t]).to(mesh.device)
+    out = {"causal": {}}
+    for causal in (False, True):
+        m = _ring_model(causal, ring=n)
+        params = m.device_params(mesh.device)
+        want = torch.load(_dnn_path(f"ring_{causal}.pt"), map_location="cpu",
+                          weights_only=True)
+        xi = x.clone().requires_grad_(True)
+        pm.stats.reset()
+        torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        with matmul_precision("float32"), activation_sharding(mesh), \
+                torch.enable_grad():
+            y = torch.func.functional_call(m.module, params, (xi,))
+            (g,) = torch.autograd.grad((y * y).sum(), xi)
+        torch.cuda.synchronize(mesh.device)
+        secs = time.perf_counter() - t0
+        blk = slice(me * t, (me + 1) * t)
+        out["causal"][causal] = {
+            "seconds": secs, "collectives": pm.stats.calls,
+            "collective_bytes": pm.stats.bytes,
+            "ring_err": _f64_err(torch, y.detach().cpu(), want["y"][:, blk]),
+            "ring_grad_err": _f64_err(torch, g.cpu(), want["g"][:, blk]),
+            "finite": bool(torch.isfinite(y).all() and torch.isfinite(g).all())}
+        del m, params, y, g, xi, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_moe(torch, mesh) -> dict:
+    from mmlspark_tpu_torch.models import activation_sharding, matmul_precision
+    from mmlspark_tpu_torch.models.moe import MoE, expert_shardings
+    from mmlspark_tpu_torch.parallel.mesh import shard_tree
+
+    ref = torch.load(_dnn_path("moe.pt"), map_location="cpu", weights_only=True)
+    moe = MoE(MOE_EXPERTS, hidden=4 * SEQ_DIM, capacity_factor=MOE_CAPACITY)
+    moe.init(torch.Generator(), (SEQ_LEN, SEQ_DIM))
+    params = {k: v.to(mesh.device) for k, v in ref["params"].items()}
+    local = shard_tree(params, expert_shardings(mesh, params), mesh)
+    x = ref["x"].to(mesh.device)
+    with matmul_precision("float32"), activation_sharding(mesh), \
+            torch.no_grad():
+        y = torch.func.functional_call(moe, local, (x,))
+    return {"w1_block": tuple(local["w1"].shape),
+            "max_abs_err": float((y.cpu() - ref["y"]).abs().max())}
+
+
+def _rank_pipe(torch, mesh) -> dict:
+    from mmlspark_tpu_torch.models import matmul_precision
+    from mmlspark_tpu_torch.parallel import mesh as pm
+    from mmlspark_tpu_torch.parallel.pipeline_parallel import (
+        pipeline_apply, stack_stage_params)
+
+    ref = torch.load(_dnn_path("pipe.pt"), map_location="cpu", weights_only=True)
+    blocks = _pipe_blocks(torch)
+    block = blocks[0].to(mesh.device)
+    stacked = stack_stage_params([
+        {k: v.detach().to(mesh.device) for k, v in b.named_parameters()}
+        for b in blocks])
+
+    def stage_fn(p, x):
+        return torch.func.functional_call(block, p, (x,))
+
+    pm.stats.reset()
+    torch.cuda.synchronize(mesh.device)
+    t0 = time.perf_counter()
+    with matmul_precision("float32"), torch.no_grad():
+        y = pipeline_apply(stage_fn, stacked, ref["xs"].to(mesh.device), mesh)
+    torch.cuda.synchronize(mesh.device)
+    return {"seconds": time.perf_counter() - t0,
+            "collectives": pm.stats.calls,
+            "max_abs_err": float((y.cpu() - ref["y"]).abs().max())}
+
+
+def _rank_dnn_model(torch, mesh) -> dict:
+    """transformer_main's stage under a ``MeshContext`` of data=world: its
+    256 rows, batches of 64 split 16 a rank and gathered; against the
+    single card's output, by transformer_main's gate."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.models import DNNModel, transformer_encoder
+    from mmlspark_tpu_torch.parallel import mesh as pm
+    from mmlspark_tpu_torch.parallel.mesh import MeshContext
+
+    model = transformer_encoder(seq_len=SEQ_LEN, dim=SEQ_DIM, depth=SEQ_DEPTH,
+                                num_heads=SEQ_HEADS, vocab_size=SEQ_VOCAB,
+                                seed=0)
+    ids = np.random.default_rng(0).integers(0, SEQ_VOCAB, (SEQ_ROWS, SEQ_LEN))
+    df = DataFrame.from_dict({"tokens": ids}, num_partitions=2)
+    stage = DNNModel(inputCol="tokens", outputCol="emb", batchSize=SEQ_BATCH)
+    stage.set_model(model)
+    MeshContext.set(mesh)
+    try:
+        zero_attn_launches()
+        pm.stats.reset()
+        torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        out = _emb(stage.transform(df))
+        secs = time.perf_counter() - t0
+        launches = read_attn_launches()
+        unfused = stage.device_fn(df.schema) is None
+    finally:
+        MeshContext.reset()
+    want = np.load(_dnn_path("main_out.npy"), mmap_mode="r")
+    cos = row_cosines(out, want)
+    diff = np.abs(out - want)
+    return {"seconds": secs, "launches": launches, "unfused": unfused,
+            "collectives": pm.stats.calls, "collective_bytes": pm.stats.bytes,
+            "shape": out.shape, "cos_gap": float(1.0 - cos.min()),
+            "max_abs_diff": float(diff.max()),
+            "mean_abs_diff": float(diff.mean())}
+
+
+_DNN_RANK_PHASES = {"mesh_train": _rank_train, "mesh_resnet": _rank_resnet,
+                    "mesh_ring": _rank_ring, "mesh_moe": _rank_moe,
+                    "mesh_pipe": _rank_pipe, "mesh_dnn_model": _rank_dnn_model}
+
+
+def dnn_mesh_rank(mesh, label: str, work: str) -> dict:
+    """One rank of every DNN mesh phase (one start-up a rank): each phase's
+    mesh made from the same world in turn (``dnn_mesh_specs``), its work
+    and its comparisons with the single-card references."""
+    import torch
+
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, barrier, make_mesh
+
+    _MESH_WORK["dir"] = work
+    world = mesh.axis_size("world")
+    out = {"rank": mesh.rank, "device": str(mesh.device)}
+    for phase, spec in dnn_mesh_specs(world).items():
+        m = make_mesh(MeshSpec(**spec), device=mesh.device,
+                      backend=mesh.backend)
+        barrier(m)                  # the communicators' set-up, untimed
+        torch.cuda.synchronize(m.device)
+        t0 = time.perf_counter()
+        out[phase] = _DNN_RANK_PHASES[phase](torch, m)
+        out[phase]["phase_seconds"] = time.perf_counter() - t0
+        out[phase]["mesh_shape"] = {k: v for k, v in m.shape.items() if v > 1}
+        torch.cuda.empty_cache()
+    return out
+
+
+# -- the gates
+
+
+def _mesh_train_gates(torch, runs, refs, smi) -> dict:
+    want32, want16 = refs["train"]["float32"], refs["train"]["bfloat16"]
+    launches = {}
+    for label, ranks in runs:
+        world = len(ranks)
+        heads = SEQ_HEADS // (2 if world > 1 else 1)
+        rows = MESH_TRAIN_ROWS // (2 if world > 1 else 1)
+        for r in ranks:
+            got = r["mesh_train"]
+            log({"phase": "mesh_train", "card": smi, "run": label,
+                 "rank": r["rank"], "mesh_shape": got["mesh_shape"],
+                 "f32_step_seconds": got["f32"]["step_seconds"],
+                 "bf16_step_seconds": got["bf16"]["step_seconds"],
+                 "single_card_f32_step_seconds": want32["step_seconds"],
+                 "single_card_bf16_step_seconds": want16["step_seconds"],
+                 "f32_collectives": got["f32"]["collectives"],
+                 "bf16_collectives": got["bf16"]["collectives"],
+                 "launches": got["bf16"]["launches"],
+                 "k5_q_shapes": got["bf16"]["k5_q_shapes"],
+                 "k67_q_shapes": got["bf16"]["k67_q_shapes"],
+                 "f32_params": got["f32"]["params"],
+                 "bf16_params": got["bf16"]["params"],
+                 "loss": got["f32"]["loss"], "bf16_loss": got["bf16"]["loss"],
+                 "repeat_bitwise": got["repeat_bitwise"]})
+            what = f"mesh_train ({label}, rank {r['rank']})"
+            for i in range(MESH_TRAIN_STEPS):
+                if abs(got["f32"]["loss"][i] - want32["loss"][i]) > MESH_LOSS_ATOL \
+                        or abs(got["f32"]["accuracy"][i] - want32["accuracy"][i]) \
+                        > MESH_ACC_ATOL:
+                    fail(f"{what} (a): f32 step {i + 1} loss/accuracy "
+                         f"{got['f32']['loss'][i]}/{got['f32']['accuracy'][i]} "
+                         f"against the single card's {want32['loss'][i]}/"
+                         f"{want32['accuracy'][i]}")
+                if not got["f32"]["params"][i]["within"]:
+                    fail(f"{what} (a): f32 params after step {i + 1} "
+                         f"{got['f32']['params'][i]} outside atol "
+                         f"{MESH_PARAM_ATOL} / rtol {MESH_PARAM_RTOL}")
+                rel = got["bf16"]["params"][i]["max_rel_l2"]
+                if rel > MESH_BF16_REL or abs(got["bf16"]["loss"][i]
+                                              - want16["loss"][i]) > \
+                        MESH_BF16_REL * abs(want16["loss"][i]):
+                    fail(f"{what} (b): bf16 step {i + 1}: loss "
+                         f"{got['bf16']['loss'][i]} against "
+                         f"{want16['loss'][i]}, params' change {rel} (bound "
+                         f"{MESH_BF16_REL})")
+            if any(got["f32"]["launches"].values()):
+                fail(f"{what} (a): f32 steps launched {got['f32']['launches']}")
+            want = SEQ_DEPTH * MESH_TRAIN_STEPS
+            if any(v != want for v in got["bf16"]["launches"].values()):
+                fail(f"{what} (b): K5/K6/K7 launched {got['bf16']['launches']}, "
+                     f"expected {want} each")
+            shape = [rows, SEQ_LEN, heads, SEQ_DIM // SEQ_HEADS]
+            if [list(s) for s in got["bf16"]["k5_q_shapes"]] != [shape] or \
+                    [list(s) for s in got["bf16"]["k67_q_shapes"]] != [shape]:
+                fail(f"{what} (b): K5/K6/K7 ran on {got['bf16']['k5_q_shapes']}"
+                     f" / {got['bf16']['k67_q_shapes']}, expected the rank's "
+                     f"{shape}")
+            if not got["repeat_bitwise"] or \
+                    got["repeat_loss"] != got["bf16"]["loss"][:1]:
+                fail(f"{what} (d): a repeated step gave other bits")
+        launches[label] = ranks[0]["mesh_train"]["bf16"]["launches"]
+    return launches
+
+
+def _mesh_resnet_gates(runs, refs, smi) -> None:
+    want = refs["resnet"]
+    for label, ranks in runs:
+        for r in ranks:
+            got = r["mesh_resnet"]
+            log({"phase": "mesh_resnet", "card": smi, "run": label,
+                 "rank": r["rank"], "mesh_shape": got["mesh_shape"],
+                 "step_seconds": got["step_seconds"],
+                 "single_card_step_seconds": want["step_seconds"],
+                 "collectives": got["collectives"], "params": got["params"],
+                 "loss": got["loss"], "single_card_loss": want["loss"],
+                 "single_card_row_order_floor": want["order_floor"]})
+            for i in range(MESH_RESNET_STEPS):
+                floor = want["order_floor"][i]
+                dloss = abs(got["loss"][i] - want["loss"][i])
+                if dloss <= MESH_LOSS_ATOL and got["params"][i]["within"]:
+                    continue
+                if dloss > max(MESH_LOSS_ATOL, MESH_ORDER_RATIO * floor["loss"]) \
+                        or got["params"][i]["max_abs_err"] > \
+                        MESH_ORDER_RATIO * floor["max_abs_err"]:
+                    fail(f"mesh_resnet ({label}, rank {r['rank']}): step "
+                         f"{i + 1} loss {got['loss'][i]} against "
+                         f"{want['loss'][i]}, params {got['params'][i]}: "
+                         f"outside the reference's tolerances and "
+                         f"{MESH_ORDER_RATIO} x the single card's distance "
+                         f"under a row permutation {floor}")
+
+
+def _mesh_other_gates(runs, refs, smi) -> dict:
+    launches = {}
+    for label, ranks in runs:
+        if "mesh_ring" not in ranks[0]:
+            continue
+        for r in ranks:
+            what = f"({label}, rank {r['rank']})"
+            for causal, got in r["mesh_ring"]["causal"].items():
+                dense = refs["ring"][causal]
+                log({"phase": "mesh_ring", "card": smi, "run": label,
+                     "rank": r["rank"], "causal": causal, **got,
+                     "dense_f32_err": dense["dense_f32_err"],
+                     "dense_f32_grad_err": dense["dense_f32_grad_err"]})
+                # two f32 computations of one function: the ring's streaming
+                # softmax is held to the dense one's error as K5 is to its
+                # plain version's (F64_RATIO_MAX)
+                if not got["finite"] or got["ring_err"] > F64_RATIO_MAX * \
+                        dense["dense_f32_err"] or got["ring_grad_err"] > \
+                        F64_RATIO_MAX * dense["dense_f32_grad_err"]:
+                    fail(f"mesh_ring {what} causal={causal}: ring errors "
+                         f"{got['ring_err']} / {got['ring_grad_err']} against "
+                         f"f64 dense, above {F64_RATIO_MAX} x the single "
+                         f"card's f32 dense {dense['dense_f32_err']} / "
+                         f"{dense['dense_f32_grad_err']}")
+            moe, pipe, dnn = (r[k] for k in ("mesh_moe", "mesh_pipe",
+                                             "mesh_dnn_model"))
+            log({"phase": "mesh_moe", "card": smi, "run": label,
+                 "rank": r["rank"], **moe})
+            log({"phase": "mesh_pipe", "card": smi, "run": label,
+                 "rank": r["rank"], **pipe})
+            log({"phase": "mesh_dnn_model", "card": smi, "run": label,
+                 "rank": r["rank"], **dnn})
+            if moe["max_abs_err"] > MESH_MOE_ATOL or \
+                    moe["w1_block"][0] != MOE_EXPERTS // len(ranks):
+                fail(f"mesh_moe {what}: {moe}")
+            if pipe["max_abs_err"] > MESH_PIPE_ATOL:
+                fail(f"mesh_pipe {what}: {pipe}")
+            if dnn["cos_gap"] > COS_GAP_MAX or dnn["max_abs_diff"] > \
+                    OUT_MAX_DIFF or dnn["mean_abs_diff"] > OUT_MEAN_DIFF or \
+                    not dnn["unfused"] or \
+                    tuple(dnn["shape"]) != (SEQ_ROWS, SEQ_LEN, SEQ_DIM):
+                fail(f"mesh_dnn_model {what}: {dnn} (bounds {COS_GAP_MAX}, "
+                     f"{OUT_MAX_DIFF}, {OUT_MEAN_DIFF})")
+            want = SEQ_DEPTH * SEQ_ROWS // SEQ_BATCH
+            if dnn["launches"]["flash_attn"] != want:
+                fail(f"mesh_dnn_model {what}: K5 launched "
+                     f"{dnn['launches']['flash_attn']} times, expected {want}")
+        launches[label] = ranks[0]["mesh_dnn_model"]["launches"]["flash_attn"]
+    return launches
+
+
+def mesh_attn_kernels(torch, smi) -> dict:
+    """Gate (c): K5, K6 and K7 on the inputs a rank of the widest run
+    stashed (its first layer's first step), alone on the card: against
+    their plain versions, as the attention phases hold them, and timed
+    beside the plain versions and the library call."""
+    import glob
+
+    import torch.nn.functional as F
+
+    from mmlspark_tpu_torch.models import flash_kernel as fk
+
+    path = max(glob.glob(_dnn_path("attn_stash_*.pt")),
+               key=lambda p: int(p.rsplit("_", 1)[1].split(".")[0]))
+    stash = torch.load(path, map_location="cpu", weights_only=True)
+    q, k, v = (x.to(DEVICE) for x in stash["fwd"])
+    b, t, h, d = q.shape
+    o = fk.flash_attention_cuda(q, k, v, False)
+    p = fk.flash_attention_plain(q, k, v, False)
+    exact = attention_f64(torch, q, k, v, False)
+    scale = attention_f64(torch, q, k, v.abs(), False)
+    row5 = {"shape": [b, t, h, d],
+            "max_abs_err": (o.float() - p.float()).abs().max().item(),
+            "max_ulps_vs_plain": bf16_ulps(torch, o, p, scale),
+            "k5_err_vs_f64": (o.double() - exact).abs().max().item(),
+            "plain_err_vs_f64": (p.double() - exact).abs().max().item()}
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    row5["ms"] = time_ms(torch, lambda: fk.flash_attention_cuda(q, k, v, False))
+    row5["plain_ms"] = time_ms(torch, lambda: fk.flash_attention_plain(
+        q, k, v, False), 5, 1)
+    row5["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt))
+    row5["bound_ms"], row5["bound_by"] = bound_ms(
+        4 * b * t * h * d * 2, 4 * b * h * t * t * d, BF16_OPS_PER_S)
+    del o, p, exact, scale
+    q, k, v, o, lse, do = (x.to(DEVICE) for x in stash["bwd"])
+    got = fk.flash_attention_bwd_cuda(q, k, v, o, lse, do, False)
+    plain = fk.flash_attention_bwd_plain(q, k, v, o, lse, do, False)
+    exact = attention_vjp_f64(torch, q, k, v, do, False)
+    rows = {}
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    bufs = [torch.empty_like(x) for x in (q, k, v)]
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True), 10)
+    plain_ms = time_ms(torch, lambda: fk.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, False), 3, 1)
+    for which, names in (("dkv", ("dk", "dv")), ("dq", ("dq",))):
+        idx = [("dq", "dk", "dv").index(n) for n in names]
+        row = {"shape": [b, t, h, d], "max_abs_err": max(
+            (got[i].float() - plain[i].float()).abs().max().item() for i in idx),
+            "kernel_err_vs_f64": max((got[i].double() - exact[i]).abs().max()
+                                     .item() for i in idx),
+            "plain_err_vs_f64": max((plain[i].double() - exact[i]).abs().max()
+                                    .item() for i in idx)}
+        row["ms"] = time_ms(torch, lambda: fk.launch_bwd(
+            which, q, k, v, do, lse, di, *bufs, False), 10)
+        flops, nbytes = fk.bwd_cost(b, t, t, h, d, False, which)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops,
+                                                    BF16_OPS_PER_S)
+        row["plain_ms"], row["library_ms"] = plain_ms, library_ms
+        rows[f"flash_attn_bwd_{which}"] = row
+    out = {"flash_attn": row5, **rows}
+    log({"phase": "mesh_attn_kernels", "card": smi, "stash": path, **out})
+    if row5["max_ulps_vs_plain"] > ULPS_MAX or row5["k5_err_vs_f64"] > \
+            F64_RATIO_MAX * row5["plain_err_vs_f64"]:
+        fail(f"mesh_train (c): K5 on a rank's inputs {row5}")
+    for name, row in rows.items():
+        if row["kernel_err_vs_f64"] > F64_RATIO_MAX * row["plain_err_vs_f64"]:
+            fail(f"mesh_train (c): {name} on a rank's inputs {row}")
+    return out
+
+
+def dnn_mesh_start(torch):
+    """Start every run of ``dnn_mesh_launches`` at once, each rank running
+    every DNN mesh phase (``dnn_mesh_rank``) against the references
+    ``dnn_mesh_refs`` left in the work directory; returns the function
+    that waits for them."""
+    return mesh_spawn(torch, "chip_smoke:dnn_mesh_rank",
+                      {"work": mesh_workdir()}, "dnn_mesh",
+                      plan=dnn_mesh_launches(torch), timeout=DNN_MESH_TIMEOUT)
+
+
+def dnn_mesh_gates(torch, runs, refs, smi) -> dict:
+    """The DNN mesh phases' gates on the ranks' results, then K5-K7 alone
+    on a rank's inputs. Returns the K5-K7 launches of the new paths and
+    the kernels' rows on a rank's inputs."""
+    for label, ranks in runs:
+        log({"phase": "dnn_mesh", "run": label, "phase_seconds": {
+            k: [r[k]["phase_seconds"] for r in ranks] for k in ranks[0]
+            if isinstance(ranks[0][k], dict)}})
+    train = _mesh_train_gates(torch, runs, refs, smi)
+    _mesh_resnet_gates(runs, refs, smi)
+    dnn = _mesh_other_gates(runs, refs, smi)
+    kernels = mesh_attn_kernels(torch, smi)
+    paths = {}
+    for label, got in train.items():
+        paths[f"mesh_train.{label}"] = got
+    for label, got in dnn.items():
+        paths[f"mesh_dnn_model.{label}"] = {"flash_attn": got}
+    return {"paths": paths, "kernels": kernels}
+
+
+def dnn_mesh_phases(torch, smi) -> dict:
+    """The DNN mesh phases alone: the single-card references, the ranks,
+    the gates (``main`` runs the ranks beside the GBDT mesh phases')."""
+    refs = dnn_mesh_refs(torch, smi)
+    runs = dnn_mesh_start(torch)()
+    return dnn_mesh_gates(torch, runs, refs, smi)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args()
@@ -6886,6 +7799,8 @@ def main() -> int:
         torch, stage, ids, out, smi)}
     serve_s += time.perf_counter() - t_serve
     log({"phase": "serving", "seconds": serve_s})
+    # mesh_dnn_model's single-card reference
+    np.save(_dnn_path("main_out.npy"), out)
     del stage, df, out, ids
     t_train = time.perf_counter()
     train, causal = train_transformer(torch, smi)
@@ -6910,10 +7825,19 @@ def main() -> int:
                                   weights=vw_ds.weights)
     del vw_ds
     try:
+        # the DNN mesh's single-card references alone on the card, then its
+        # ranks beside the GBDT mesh's (both sets of ranks contended); the
+        # work timed alone on the card waits for every rank
         t_phase = time.perf_counter()
-        mesh = mesh_phases(torch, mesh_inputs, smi)
+        dnn_refs = dnn_mesh_refs(torch, smi)
+        dnn_pending = dnn_mesh_start(torch)
+        dnn_runs = []
+        mesh = mesh_phases(torch, mesh_inputs, smi,
+                           after_ranks=lambda: dnn_runs.extend(dnn_pending()))
         for got in mesh.values():
             paths.update(got["paths"])
+        dnn_mesh = dnn_mesh_gates(torch, dnn_runs, dnn_refs, smi)
+        paths.update(dnn_mesh["paths"])
         log({"phase": "mesh", "seconds": time.perf_counter() - t_phase})
     finally:
         mesh_cleanup()
@@ -6936,6 +7860,9 @@ def main() -> int:
             # the f64 entry of the sharded fits, on a rank's own inputs
             extra["f64_entry"] = mesh["mesh_dense" if name == "hist"
                                       else "mesh_sparse"]["f64"]
+        if name in dnn_mesh["kernels"]:
+            # on a tensor rank's heads, the inputs it stashed in mesh_train
+            extra["mesh_rank_inputs"] = dnn_mesh["kernels"][name]
         rows.append({**{k: row[k] for k in keys},
                      "launches_on_new_paths": new_paths, **extra})
     rows.append({**{k: vw_row[k] for k in keys},

@@ -57,7 +57,7 @@ stitch decisions and learns from the executor's host-path timings and
 sparse densities; the slot pool (parallel/ingest.py ``SlotPool``) lets a
 column of uniform dense rows deposit straight into a reusable (pinned, on
 CUDA) staging slot, filled ahead on a thread. Not ported yet: sharding and
-pipe plans (ROADMAP A step 9; a non-empty ``sharding`` or a ``pipe_depth``
+pipe plans (ROADMAP A step 9c; a non-empty ``sharding`` or a ``pipe_depth``
 above 1 raises) and the persistent cache tier (A step 10);
 ``profiling.annotate`` becomes ``torch.profiler.record_function``.
 """
@@ -1450,16 +1450,16 @@ class FusedPipelineModel(PipelineModel):
         ``sharding`` ({label: spec name}) and ``pipe_depth`` are the mesh
         knobs: {} / None and ``pipe_depth`` <= 1 (what ``Tuner._push``
         sends for an untuned set) clear them; a non-empty ``sharding`` or
-        a ``pipe_depth`` above 1 raises ``NotImplementedError`` — the port
-        has no mesh until ROADMAP A step 9."""
+        a ``pipe_depth`` above 1 raises ``NotImplementedError``: the shard
+        and pipe planners are ROADMAP A step 9c."""
         if sharding and any(v for v in sharding.values()):
             raise NotImplementedError(
                 f"sharding={sharding!r}: segment sharding over a mesh is not "
-                f"ported yet (ROADMAP A step 9)")
+                f"ported yet (ROADMAP A step 9c)")
         if pipe_depth is not None and int(pipe_depth) > 1:
             raise NotImplementedError(
                 f"pipe_depth={pipe_depth!r}: pipeline-parallel segments are "
-                f"not ported yet (ROADMAP A step 9)")
+                f"not ported yet (ROADMAP A step 9c)")
         if kernel_variants is not None:
             self._variant_overrides = {
                 str(k): dict(v) for k, v in kernel_variants.items() if v}

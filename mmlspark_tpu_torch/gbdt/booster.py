@@ -68,7 +68,8 @@ the same generator on every process; GOSS ranks the gathered gradients
 and the training metric the gathered scores (``parallel.mesh.all_gather``).
 A sharded fit never takes the native route or the scan (the reference
 excludes them); lambdarank groups and checkpoints under a mesh raise
-``NotImplementedError`` (ROADMAP A9).
+``NotImplementedError`` (ROADMAP A9j), and so does a mesh with another
+axis than ``data`` above 1 (A9k).
 """
 
 from __future__ import annotations
@@ -587,11 +588,11 @@ def _mesh_unsupported(mesh, groups=None, checkpoint=None) -> int:
     if mesh is not None and groups is not None:
         raise NotImplementedError(
             "query groups in a sharded fit (a query split over two row "
-            "blocks) are later multi-GPU work: ROADMAP A9")
+            "blocks) are later multi-GPU work: ROADMAP A9j")
     if mesh is not None and checkpoint is not None:
         raise NotImplementedError(
             "a checkpointed sharded fit (scores gathered from every "
-            "process) is later multi-GPU work: ROADMAP A9")
+            "process) is later multi-GPU work: ROADMAP A9j")
     return shards
 
 

@@ -1357,7 +1357,7 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
     the row-sharded fused tree (route ``fused``, never the scan), as the
     reference's ``train_sparse(mesh=)`` does; the loop's state is per block,
     GOSS ranks the gathered gradients, the draws cover every row. Query
-    groups under a mesh raise ``NotImplementedError`` (ROADMAP A9)."""
+    groups under a mesh raise ``NotImplementedError`` (ROADMAP A9j)."""
     if params.categorical_feature:
         raise ValueError(
             "categorical_feature is not supported on the sparse path "

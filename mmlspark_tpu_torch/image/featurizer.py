@@ -17,8 +17,8 @@ uint8 -> f32 cast and an f32 multiply are exact). ``hostPreprocess=True``
 does them on the host and ships float32.
 
 The NCHW branch (``data_format == "NCHW"``) serves imported ONNX backbones
-(ROADMAP A7d). A mesh (the reference's ``MeshContext``) is ROADMAP A9: the
-fused path here is always one device's.
+(ROADMAP A7d). Scoring sharded over a mesh (the reference's ``MeshContext``)
+is ROADMAP A9h: the fused path here is always one device's.
 """
 
 from __future__ import annotations

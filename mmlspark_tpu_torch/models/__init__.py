@@ -5,7 +5,8 @@ encoder with K5 (the hand-written flash-attention kernel,
 ``csrc/flash_attn.cu``) on its attention and K6/K7
 (``csrc/flash_attn_bwd.cu``) on its gradient, the switch-MoE FFN, the
 (Bi)LSTM tagger, the ``DNNModel`` pipeline stage, and the weights
-carry-over from the JAX reference. Training (``models.training``) and its
+carry-over from the JAX reference; on a mesh, the data, FSDP and
+tensor-sharded train step, ring attention and the expert-sharded MoE. Training (``models.training``) and its
 checkpoints (``models.checkpoint``) are submodules, as in the reference."""
 
 from .attention import (
@@ -17,6 +18,7 @@ from .attention import (
     bilstm_tagger,
     dense_attention,
     flash_route,
+    ring_attention,
     transformer_block,
     transformer_encoder,
 )
@@ -34,6 +36,7 @@ from .module import (
     Module,
     Residual,
     Sequential,
+    activation_sharding,
     flatten,
     matmul_dtype,
     matmul_precision,
@@ -44,6 +47,7 @@ from .resnet import build_resnet, param_shardings, resnet, resnet18, resnet50
 from .torch_import import from_torch_resnet
 
 __all__ = ["BatchNorm", "BiLSTM", "Conv2D", "DNNModel", "Dense", "Embed", "Fn",
+           "activation_sharding", "ring_attention",
            "FunctionModel", "GlobalAvgPool", "GraphModule", "GraphNode", "LSTM", "LayerNorm", "MaxPool",
            "MoE", "Module", "MultiHeadAttention", "Residual", "Sequential",
            "bilstm_tagger", "build_resnet", "dense_attention",

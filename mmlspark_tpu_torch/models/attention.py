@@ -27,8 +27,18 @@ parameters carry its key names (see ``module.py``): ``LayerNorm``
 ``transformer_block`` (with the switch-MoE FFN of ``moe.py`` under
 ``moe_experts``), ``transformer_encoder`` and ``bilstm_tagger``.
 
-Not ported yet: ring attention (``ring_axis``, multi-GPU, ROADMAP A9)
-raises ``NotImplementedError``.
+On a mesh (``module.activation_sharding``): ``MultiHeadAttention`` given
+``wq``/``wk``/``wv`` split over the ``tensor`` axis (their columns are
+head-major, so a rank holds whole heads) attends on its own heads, through
+K5 (K6 and K7 backward) where the gate admits them, and gathers the heads
+before ``wo``, column-parallel too. ``ring_attention`` is the reference's
+sequence-parallel attention: each rank holds a block of the sequence, the
+K/V blocks travel one hop a step around the ``seq`` ring
+(``parallel.mesh.ring_shift``, whose backward shifts the gradients back),
+and the rows keep a streaming max and denominator in f32. As the
+reference's, it is plain arithmetic: no kernel of the reference's runs
+there. ``MultiHeadAttention(ring_axis=...)`` runs it on the rank's block of
+the sequence.
 """
 
 from __future__ import annotations
@@ -43,9 +53,8 @@ import torch.nn.functional as F
 from . import flash_kernel
 from .moe import MoE
 from .module import (Dense, Fn, FunctionModel, Module, Residual, Sequential,
-                     _param, compute_dtype, matmul)
-
-_RING_TODO = "ring attention (ring_axis) is multi-GPU work: ROADMAP A9"
+                     _param, _tensor_gather, compute_dtype, current_mesh,
+                     matmul)
 
 
 # ---------------------------------------------------------------------------
@@ -115,6 +124,54 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                               k_offset)
 
 
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
+                   causal: bool = False, axis_name: Optional[str] = None
+                   ) -> torch.Tensor:
+    """Sequence-parallel attention: this rank holds block ``i`` (its
+    coordinate on ``axis_name``, default ``seq``) of q/k/v, each
+    [B, T_local, H, D]; the K/V blocks go one hop around the ring a step
+    while the queries' output accumulates with a streaming softmax (running
+    max ``m`` and denominator ``l`` in f32). Rows with no valid key give 0.
+    The reference's ``ring_attention`` under ``shard_map``; the backward
+    runs through the shifts' reverse. Every rank of the ring calls it."""
+    from ..parallel.mesh import SEQ_AXIS, ring_shift
+
+    axis = axis_name or SEQ_AXIS
+    size = mesh.axis_size(axis)
+    my = mesh.coord(axis)
+    b, t, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    qf = q.to(torch.float32)
+    o = torch.zeros((b, t, h, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, t), -math.inf, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, t), dtype=torch.float32, device=q.device)
+    kb, vb = k, v
+    pos = torch.arange(t, device=q.device)
+    for step in range(size):
+        src = (my - step) % size      # whose K/V block this rank holds now
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb.to(torch.float32)) * scale
+        if causal:
+            late = (pos[None, :] + src * t) > (pos[:, None] + my * t)
+            s = s.masked_fill(late, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # exp(-inf - -inf) guards: rows with no valid key yet stay 0
+        safe = torch.where(torch.isfinite(m_new), m_new,
+                           torch.zeros_like(m_new))
+        p = torch.exp(torch.where(torch.isfinite(s), s - safe[..., None],
+                                  torch.full_like(s, -math.inf)))
+        corr = torch.where(torch.isfinite(m), torch.exp(m - safe),
+                           torch.zeros_like(m))
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhqk,bkhd->bqhd", p, vb.to(torch.float32))
+        o = o * corr.transpose(1, 2)[..., None] + pv
+        m = m_new
+        if step + 1 < size:          # the last hop would go unused
+            kb = ring_shift(kb, mesh, axis)
+            vb = ring_shift(vb, mesh, axis)
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (o / l.transpose(1, 2)[..., None]).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
@@ -176,14 +233,24 @@ class MultiHeadAttention(Module):
     """Self-attention on [B, T, D]: projections in ``matmul_dtype()`` with
     f32 products, rounded back to that dtype for the attention, which runs
     through ``dense_attention`` (K5 where the gate allows); the output
-    projection returns f32."""
+    projection returns f32. ``ring_axis``: ``ring_attention`` over that
+    axis of the enclosing mesh (``activation_sharding``), T then being the
+    rank's block of the sequence. ``wq``/``wk``/``wv`` split over
+    ``tensor`` (whole heads a rank) attend on the rank's heads, which are
+    gathered before ``wo``; a split ``wo`` runs column-parallel."""
+
+    def tensor_parallel(self, tensor: int):
+        """The parameters a mesh step may hand over split over a tensor
+        axis of ``tensor`` ranks: ``wo`` always, the projections of q, k, v
+        when every rank gets whole heads."""
+        if self.num_heads % tensor:
+            return ("wo",)
+        return ("wq", "wk", "wv", "wo")
 
     def __init__(self, num_heads: int, causal: bool = False,
                  ring_axis: Optional[str] = None,
                  ring_axis_size: Optional[int] = None):
         super().__init__()
-        if ring_axis is not None:
-            raise NotImplementedError(_RING_TODO)
         self.num_heads = num_heads
         self.causal = causal
         self.ring_axis = ring_axis
@@ -201,17 +268,33 @@ class MultiHeadAttention(Module):
     def forward(self, x):
         dt = compute_dtype()
         b, t, d = x.shape
-        h = self.num_heads
+        dh = d // self.num_heads
 
         def proj(w):
-            return matmul(x, w, dt).reshape(b, t, h, d // h).to(dt)
+            # a rank's columns of a tensor-split projection are its heads
+            return matmul(x, w, dt).reshape(b, t, w.shape[-1] // dh, dh) \
+                .to(dt)
 
         q, k, v = proj(self.wq), proj(self.wk), proj(self.wv)
-        o = dense_attention(q, k, v, causal=self.causal).reshape(b, t, d)
-        return matmul(o, self.wo, dt).to(torch.float32)
+        if self.ring_axis is not None:
+            mesh = current_mesh()
+            if mesh is None:
+                raise ValueError("ring_axis runs under "
+                                 "activation_sharding(mesh) only")
+            o = ring_attention(q, k, v, mesh, self.causal, self.ring_axis)
+        else:
+            o = dense_attention(q, k, v, causal=self.causal)
+        o = o.reshape(b, t, -1)
+        if o.shape[-1] != d:
+            o = _tensor_gather(o)           # every head, before wo
+        out = matmul(o, self.wo, dt)
+        if self.wo.shape[-1] != d:
+            out = _tensor_gather(out)
+        return out.to(torch.float32)
 
     def extra_repr(self) -> str:
-        return f"num_heads={self.num_heads}, causal={self.causal}"
+        ring = f", ring_axis={self.ring_axis!r}" if self.ring_axis else ""
+        return f"num_heads={self.num_heads}, causal={self.causal}{ring}"
 
 
 def _gelu(x):
@@ -230,7 +313,8 @@ def transformer_block(dim: int, num_heads: int, mlp_ratio: int = 4,
                       moe_capacity_factor: float = 1.5) -> Sequential:
     """Pre-norm transformer block as a named Sequential (taps work).
     ``moe_experts``: a switch-MoE of that many experts in place of the dense
-    FFN (``moe.MoE``, on one device)."""
+    FFN (``moe.MoE``; its experts split over a mesh's ``expert`` axis by
+    ``moe.expert_shardings``)."""
     attn = Sequential([
         ("ln", LayerNorm()),
         ("attn", MultiHeadAttention(num_heads, causal=causal,
@@ -272,9 +356,9 @@ def transformer_encoder(seq_len: int, dim: int, depth: int, num_heads: int,
     "block3", "block3/mlp/body/fc1", ...). Parameters are drawn on the CPU
     from a ``torch.Generator`` seeded with ``seed`` (other numbers than the
     reference's ``jax.random``; ``convert.load_jax_params`` carries the
-    reference's weights over)."""
-    if ring_axis is not None:
-        raise NotImplementedError(_RING_TODO)
+    reference's weights over). ``ring_axis``: the blocks attend by
+    ``ring_attention`` over that mesh axis, each rank holding a block of
+    the sequence (run under ``activation_sharding(mesh)``)."""
     layers = []
     if vocab_size is not None:
         layers.append(("embed", Embed(vocab_size, dim)))
@@ -282,8 +366,9 @@ def transformer_encoder(seq_len: int, dim: int, depth: int, num_heads: int,
     else:
         in_shape = (seq_len, dim)
     for i in range(depth):
-        layers.append((f"block{i}", transformer_block(dim, num_heads,
-                                                      causal=causal)))
+        layers.append((f"block{i}", transformer_block(
+            dim, num_heads, causal=causal, ring_axis=ring_axis,
+            ring_axis_size=ring_axis_size)))
     layers.append(("ln_f", LayerNorm()))
     if num_classes is not None:
         layers.append(("head", Dense(num_classes)))

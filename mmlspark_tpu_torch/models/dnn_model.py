@@ -17,10 +17,16 @@ fed column is batched and staged to the device, and the forward gets them
 as a dict. Such a model stays unfused (``device_fn`` returns None), and a
 ``preprocess`` spec beside a multi-input feed raises, as in the reference.
 
-What waits: ``useMesh=True`` (sharded eval over a mesh, ROADMAP A9) raises
-``NotImplementedError``. ``donateInputs`` is accepted and does nothing but
-warn: the staged batch is freed once its forward has run, so there is no
-buffer to donate.
+``useMesh`` shards evaluation over a mesh's data axis (one process a
+rank, ``parallel.mesh``): on by itself under a ``MeshContext`` whose data
+axis is above 1, ``True`` builds a default mesh if none is set, ``False``
+keeps one device. Every rank transforms the same frame: a batch that the
+data axis divides is split into row blocks, each rank runs its own, and
+the outputs are gathered over the data group (the reference's
+``fetch_global``); a batch it does not divide runs whole on every rank, the
+reference's route for it. Mesh eval stays unfused (``device_fn`` is None).
+``donateInputs`` is accepted and does nothing but warn: the staged batch is
+freed once its forward has run, so there is no buffer to donate.
 """
 
 from __future__ import annotations
@@ -39,8 +45,6 @@ from ..parallel.batching import Minibatcher, _crop, concat_outputs
 from ..parallel.ingest import (IngestStats, PreprocessSpec, ReadbackSlots,
                                TransferRing, stage_array)
 from .module import FunctionModel
-
-_MESH_TODO = "sharded eval over a mesh (useMesh=True) waits for ROADMAP A9"
 
 
 class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
@@ -81,9 +85,11 @@ class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
                          "after its forward)",
                          None, ptype=bool)
     useMesh = Param("useMesh",
-                    "Shard eval batches over a device mesh: not ported yet "
-                    "(True raises NotImplementedError); None/False = one "
-                    "device", None, ptype=bool)
+                    "Shard eval batches over the mesh's data axis; None "
+                    "(default) = auto: on whenever a mesh whose data axis "
+                    "is above 1 has been set via MeshContext.set. True also "
+                    "builds a default mesh if none is set; False forces "
+                    "one device.", None, ptype=bool)
 
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
@@ -167,6 +173,8 @@ class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
         model = self.get("model")
         if model is None or self.get("useMesh") is True:
             return None
+        if self._mesh() is not None:
+            return None
         in_map, out_cols, taps, multi_in = self._plan(model)
         if multi_in:
             return None   # multi-input feedDict eval stays unfused
@@ -216,12 +224,26 @@ class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
             out.types[col] = ColType.VECTOR
         return out
 
+    def _mesh(self, build: bool = False):
+        """The mesh eval shards over, or None: ``MeshContext``'s (built
+        when ``useMesh`` is True and ``build``), when its data axis is
+        above 1."""
+        from ..parallel.mesh import DATA_AXIS, MeshContext
+
+        use = self.get("useMesh")
+        if use is False:
+            return None
+        mesh = MeshContext.get() if (use and build) else MeshContext.current()
+        if mesh is not None and mesh.shape.get(DATA_AXIS, 1) > 1:
+            return mesh
+        return None
+
     def transform(self, df: DataFrame) -> DataFrame:
+        from ..parallel.mesh import DATA_AXIS, all_gather_axis
         from ..runtime import default_device
 
         device = default_device()
-        if self.get("useMesh"):
-            raise NotImplementedError(_MESH_TODO)
+        mesh = self._mesh(build=True)
         if self.get("donateInputs"):
             warnings.warn("DNNModel: donateInputs has no effect in the "
                           "PyTorch port (the staged batch is freed after its "
@@ -250,12 +272,28 @@ class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
             return (stage_array(batch.arrays[in_cols[0]], device),
                     batch.num_valid)
 
-        def step(staged):
-            x, num_valid = staged
+        def forward(x):
             if spec is not None:
                 x = spec.apply_device(x)
             acts = model.apply_taps(x, list(taps), params=params)
-            return tuple(acts[t] for t in taps), num_valid
+            return tuple(acts[t] for t in taps)
+
+        def step(staged):
+            x, num_valid = staged
+            rows = next(iter(x.values())) if multi_in else x
+            n = int(rows.shape[0])
+            shards = 1 if mesh is None else mesh.shape[DATA_AXIS]
+            if shards == 1 or n % shards:
+                # one device, or a batch the data axis does not divide:
+                # every rank runs it whole
+                return forward(x), num_valid
+            blk = slice(mesh.coord(DATA_AXIS) * (n // shards),
+                        (mesh.coord(DATA_AXIS) + 1) * (n // shards))
+            mine = {k: v[blk] for k, v in x.items()} if multi_in else x[blk]
+            with torch.inference_mode():
+                ys = tuple(all_gather_axis(y, mesh, DATA_AXIS, dim=0)
+                           for y in forward(mine))
+            return ys, num_valid
 
         def fetch(handle) -> Tuple[torch.Tensor, ...]:
             # crop the bucket padding before the readback; the cast runs on

@@ -34,8 +34,14 @@ pytree's key names, so ``FunctionModel.params`` and the reference's
   - ``MaxPool`` pads with -inf and ``GlobalAvgPool`` returns the f32 mean;
     ``"SAME"`` padding splits the remainder low/high as XLA does.
 
-Not ported: the activation-sharding hooks (``activation_sharding`` raises;
-mesh only, ROADMAP A9).
+On a mesh (``activation_sharding``, which ``training.compile_train_step(
+mesh=)`` enters): ``Dense`` and ``Conv2D`` given a kernel whose output
+columns are split over the ``tensor`` axis run column-parallel, each rank
+computing its columns and gathering the output over ``tensor``, so the
+activations between layers are the rank's batch rows, whole over
+channels; ``BatchNorm`` in training takes its statistics from the whole
+batch over the batch group, in two passes (the sum, then the sum of the
+squared deviations).
 """
 
 from __future__ import annotations
@@ -87,13 +93,52 @@ class matmul_precision:
         return False
 
 
-class activation_sharding:
-    """The reference's trace-time anchor of activations to a mesh sharding
-    (multi-device training): not ported, raises (ROADMAP A9)."""
+_MESH: "contextvars.ContextVar[Any]" = contextvars.ContextVar(
+    "mmlspark_tpu_torch_activation_mesh", default=None)
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "activation_sharding is mesh training: ROADMAP A9")
+
+class activation_sharding:
+    """The reference's anchor of every inter-layer activation to the batch
+    sharding (``training.batch_sharding(mesh)``, or the mesh itself): in the
+    enclosed forwards the layers run on ``mesh`` (``current_mesh``), their
+    activations this rank's batch rows, whole over channels. The reference
+    needs the anchors because XLA's partitioners got conv gradients wrong
+    under channel sharding without them; here the gathers are explicit, so
+    they hold by construction. Context-local."""
+
+    def __init__(self, sharding):
+        from ..parallel.mesh import Mesh
+
+        mesh = sharding if isinstance(sharding, Mesh) else \
+            getattr(sharding, "mesh", None)
+        if not isinstance(mesh, Mesh):
+            raise ValueError("activation_sharding needs a port Mesh or a "
+                             "sharding made for one")
+        self._value = mesh
+
+    def __enter__(self):
+        self._token = _MESH.set(self._value)
+        return self
+
+    def __exit__(self, *exc):
+        _MESH.reset(self._token)
+        return False
+
+
+def current_mesh():
+    """The mesh of the enclosing ``activation_sharding``, or None."""
+    return _MESH.get()
+
+
+def _tensor_gather(y: torch.Tensor) -> torch.Tensor:
+    """A column-parallel layer's output columns gathered over ``tensor``."""
+    from ..parallel.mesh import TENSOR_AXIS, all_gather_axis
+
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError("a kernel split over the tensor axis runs under "
+                         "activation_sharding(mesh) only")
+    return all_gather_axis(y, mesh, TENSOR_AXIS, dim=-1)
 
 
 def compute_dtype() -> torch.dtype:
@@ -308,6 +353,9 @@ class Conv2D(Module):
     transplants, ``torch_import.py``). ``kernel_size`` is the reference's
     ``kernel`` tuple (here ``kernel`` names the parameter)."""
 
+    #: parameters a mesh step may hand over split over ``tensor``
+    tensor_parallel = ("kernel",)
+
     def __init__(self, features: int, kernel: Tuple[int, int] = (3, 3),
                  strides: Tuple[int, int] = (1, 1), padding="SAME",
                  use_bias: bool = False):
@@ -341,6 +389,8 @@ class Conv2D(Module):
         with full_f32(dt):
             y = F.conv2d(v, w, stride=self.strides, padding=sym)
         y = y.permute(0, 2, 3, 1)
+        if self.kernel.shape[-1] != self.features:   # column-parallel
+            y = _tensor_gather(y)
         if self.use_bias:
             y = y + self.bias.to(y.dtype)
         return y
@@ -355,6 +405,8 @@ class Dense(Module):
     """``y = x @ kernel + bias`` on the last dim. ``kernel`` keeps the
     reference's ``[in, out]`` layout (not ``nn.Linear``'s ``[out, in]``), so
     weights carry over without a transpose."""
+
+    tensor_parallel = ("kernel",)
 
     def __init__(self, features: int, use_bias: bool = True):
         super().__init__()
@@ -373,6 +425,8 @@ class Dense(Module):
     def forward(self, x):
         dt = compute_dtype()
         y = matmul(x, self.kernel, dt)   # f32, or f64 for f64 operands
+        if self.kernel.shape[-1] != self.features:   # column-parallel
+            y = _tensor_gather(y)
         if self.use_bias:
             y = y + self.bias
         return y
@@ -407,8 +461,12 @@ class BatchNorm(Module):
         if train:
             dims = tuple(range(x.dim() - 1))
             xf = x.to(torch.float32)
-            mean = xf.mean(dim=dims)
-            var = ((xf - mean) ** 2).mean(dim=dims)
+            mesh = current_mesh()
+            if mesh is None:
+                mean = xf.mean(dim=dims)
+                var = ((xf - mean) ** 2).mean(dim=dims)
+            else:
+                mean, var = _global_moments(xf, dims, mesh)
             if stats_out is not None:
                 # the statistics feed the moving averages, not the loss
                 stats_out[_path] = (mean.detach(), var.detach())
@@ -420,6 +478,18 @@ class BatchNorm(Module):
 
     def extra_repr(self) -> str:
         return f"momentum={self.momentum}, eps={self.eps}"
+
+
+def _global_moments(xf: torch.Tensor, dims, mesh):
+    """Mean and population variance over ``dims`` of the whole batch, whose
+    row blocks the batch group holds: the sum, then the sum of squared
+    deviations from the global mean, each summed over the group."""
+    from ..parallel.mesh import BATCH, all_reduce_axis
+
+    n = xf.numel() // xf.shape[-1] * mesh.axis_size(BATCH)
+    mean = all_reduce_axis(xf.sum(dim=dims), mesh, BATCH) / n
+    sq = all_reduce_axis(((xf - mean) ** 2).sum(dim=dims), mesh, BATCH)
+    return mean, sq / n
 
 
 class MaxPool(Module):

@@ -19,8 +19,13 @@ in int64 (exact, and deterministic on the card, where training runs
 PyTorch's deterministic algorithms). A gather formulation that skips the
 dense mask is later work.
 
-Not ported: ``expert_shardings`` (the expert-axis placement on a mesh)
-raises naming ROADMAP A9.
+Expert parallelism: ``expert_shardings`` splits the leading E dim of
+``w1``/``w2`` over the mesh's ``expert`` axis and keeps the router whole.
+Under ``module.activation_sharding(mesh)`` a ``MoE`` given a rank's block
+of experts routes every token as on one device (the same capacity and
+drops), fills and runs its own experts' buffers, and sums the combine over
+the expert group: the reference's batch is not split over ``expert``, and
+each token has one expert, so the sum adds zeros to one term.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .module import Module, _param, compute_dtype, matmul
+from .module import Module, _param, compute_dtype, current_mesh, matmul
 
 
 class MoE(Module):
@@ -82,9 +87,19 @@ class MoE(Module):
 
     def forward(self, x):
         b, t, d = x.shape
-        e = self.num_experts
         dt = compute_dtype()
         _, gate, dispatch = self.routing(x)
+        e = self.w1.shape[0]                  # this rank's experts
+        mesh = None
+        if e != self.num_experts:
+            from ..parallel.mesh import EXPERT_AXIS
+
+            mesh = current_mesh()
+            if mesh is None:
+                raise ValueError("a MoE split over experts runs under "
+                                 "activation_sharding(mesh) only")
+            first = mesh.coord(EXPERT_AXIS) * e
+            dispatch = dispatch[:, :, first:first + e]
         c = dispatch.shape[-1]
         disp = dispatch.reshape(b, t, e * c)                       # [B, T, E*C]
         # [B, T, E, C] x [B, T, D] -> expert buffers [E, B, C, D]
@@ -94,6 +109,10 @@ class MoE(Module):
         out_buf = matmul(hmid, self.w2[:, None], dt)              # [E, B, C, D]
         # combine back to token positions, gate-scaled
         combined = torch.matmul(disp, out_buf.transpose(0, 1).reshape(b, e * c, d))
+        if mesh is not None:
+            from ..parallel.mesh import EXPERT_AXIS, all_reduce_axis
+
+            combined = all_reduce_axis(combined, mesh, EXPERT_AXIS)
         return combined * gate[..., None]
 
     def extra_repr(self) -> str:
@@ -102,7 +121,15 @@ class MoE(Module):
 
 
 def expert_shardings(mesh, params):
-    """Not ported: the expert-axis placement of ``w1``/``w2`` on a mesh
-    (ROADMAP A9)."""
-    raise NotImplementedError(
-        "expert placement over a mesh is multi-GPU work: ROADMAP A9")
+    """A ``ShardSpec`` tree mirroring ``params``: the expert-indexed leaves
+    (``w1``/``w2``) split their leading E dim over ``expert``, everything
+    else whole (``parallel.mesh.shard_tree(params, ..., mesh)`` gives a
+    rank's block)."""
+    from ..parallel.mesh import EXPERT_AXIS, ShardSpec
+
+    def place(tree):
+        return {k: place(v) if isinstance(v, dict) else
+                ShardSpec((EXPERT_AXIS,) if k in ("w1", "w2") else (), mesh)
+                for k, v in tree.items()}
+
+    return place(params)

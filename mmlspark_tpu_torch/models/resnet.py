@@ -10,8 +10,9 @@ than the reference's ``jax.random``; ``convert.load_jax_params`` carries
 the reference's weights over, ``torch_import.from_torch_resnet`` a
 torchvision checkpoint's).
 
-Not ported: ``param_shardings`` (the tensor-axis placement on a mesh)
-raises naming ROADMAP A9.
+``param_shardings`` places conv and dense kernels' output channels over a
+mesh's ``tensor`` axis, to serve a ResNet column-parallel under
+``module.activation_sharding(mesh)``.
 """
 
 from __future__ import annotations
@@ -142,7 +143,21 @@ def resnet18(num_classes: int = 1000, image_size: int = 224,
 
 
 def param_shardings(params, mesh):
-    """Not ported: the tensor-axis placement of conv and dense kernels on a
-    mesh (ROADMAP A9)."""
-    raise NotImplementedError(
-        "ResNet parameter sharding over a mesh is multi-GPU work: ROADMAP A9")
+    """A ``ShardSpec`` tree for ResNet params: conv kernels
+    ``[kh, kw, cin, cout]`` split cout over ``tensor``, dense kernels
+    ``[din, dout]`` split dout; the vectors stay whole. On a mesh whose
+    tensor axis is 1 that is whole everywhere."""
+    from ..parallel.mesh import TENSOR_AXIS, ShardSpec
+
+    def rule(leaf):
+        if leaf.dim() == 4:
+            return ShardSpec((None, None, None, TENSOR_AXIS), mesh)
+        if leaf.dim() == 2:
+            return ShardSpec((None, TENSOR_AXIS), mesh)
+        return ShardSpec((), mesh)
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else rule(v)
+                for k, v in tree.items()}
+
+    return walk(params)

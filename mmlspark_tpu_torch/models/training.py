@@ -34,8 +34,21 @@ back with ``index_put_``, by parallel atomic adds on the CPU) sum in a fixed
 order; a resumed run then gives the uninterrupted run's bits, on the CPU
 and on the card.
 
-Not ported: the mesh (``mesh=``, ``param_sharding_rules``,
-``batch_sharding``) raises ``NotImplementedError`` naming ROADMAP A9.
+On a mesh (``parallel.mesh``, one process a rank): ``param_sharding_rules``
+is the reference's placement (a conv kernel's cin and a dense kernel's din
+over ``fsdp``, their cout/dout over ``tensor``, where the axis divides the
+dim), ``init_train_state(mesh=)`` keeps a rank's blocks of the params and
+the trace, and ``compile_train_step(mesh=)`` is the sharded step
+(``make_train_step(mesh=)``): the rank's row block of the batch
+(``batch_sharding``: over data x fsdp), the weights gathered over ``fsdp``
+before use (their gradients reduce-scattered back by the gather's
+backward), ``Dense``/``Conv2D``/attention column-parallel over ``tensor``
+under ``module.activation_sharding``, BatchNorm's statistics and the
+loss, mask count and accuracy over the whole batch, and each gradient
+summed over the ranks that hold the same block of its leaf. Every rank's
+loss is its share of one sum (its rows' terms over the global count,
+divided by the ranks that hold the same rows), so each collective's
+backward is its plain adjoint and the step equals the single-device one.
 """
 
 from __future__ import annotations
@@ -55,8 +68,6 @@ from ..core import faults
 from ..runtime import resolve_device
 from .module import (Module, Sequential, _flatten, _nest, compute_dtype,
                      full_f32)
-
-_MESH_TODO = "mesh-sharded training is multi-GPU work: ROADMAP A9"
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -88,11 +99,15 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor,
 @dataclasses.dataclass
 class TrainState:
     """``params`` and ``opt_state["trace"]``: nested dicts of tensors keyed
-    like the reference's params tree; ``step``: steps taken."""
+    like the reference's params tree; ``step``: steps taken. On a mesh,
+    ``mesh`` and ``shardings`` (a ``ShardSpec`` tree like ``params``) say
+    which block of each leaf the tensors are."""
 
     params: Dict[str, Any]
     opt_state: Dict[str, Any]
     step: int
+    mesh: Any = None
+    shardings: Optional[Dict[str, Any]] = None
 
 
 def _tree_map(fn: Callable, tree: Dict[str, Any], *rest: Dict[str, Any]):
@@ -231,22 +246,36 @@ def loss_and_grads(module: Module, params: Dict[str, Any],
 
 
 def make_train_step(module: Module, optimizer: SGD,
-                    bn_momentum: float = 0.9) -> Callable:
+                    bn_momentum: float = 0.9, mesh=None) -> Callable:
     """``(state, batch) -> (state, metrics)``: the batch is a dict with
     ``x``, ``y`` and optionally ``mask`` (arrays or tensors, moved to the
     params' device); metrics are ``loss`` and ``accuracy`` (0-dim
-    tensors)."""
+    tensors). With ``mesh``, the sharded step (``_mesh_loss_and_grads``):
+    ``state`` holds a rank's blocks (``init_train_state(mesh=)``) and
+    ``batch`` is the whole batch, every rank the same; the optimizer
+    updates the blocks, and weight decay follows ``_decay_mask`` on the
+    leaves' ndim, which a block keeps."""
 
     def step(state: TrainState, batch: Dict[str, Any]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        metrics, stats, grads = loss_and_grads(module, state.params, batch)
+        if mesh is None:
+            metrics, stats, grads = loss_and_grads(module, state.params,
+                                                   batch)
+        elif state.shardings is None:
+            raise ValueError("a mesh step takes a state made on the mesh "
+                             "(init_train_state(mesh=) or a checkpoint "
+                             "loaded onto one)")
+        else:
+            metrics, stats, grads = _mesh_loss_and_grads(
+                module, state.params, state.shardings, batch, mesh)
         with torch.no_grad():
             params, opt_state = optimizer.update(grads, state.opt_state,
                                                  state.params)
             if stats:
                 params = _apply_bn_ema(_tree_map(lambda v: v, params), stats,
                                        bn_momentum)
-        return TrainState(params, opt_state, state.step + 1), metrics
+        return dataclasses.replace(state, params=params, opt_state=opt_state,
+                                   step=state.step + 1), metrics
 
     return step
 
@@ -383,16 +412,6 @@ def run_train_loop(state: TrainState, step_fn: Callable, batches: Iterable,
                            preempted=preempted, last_metrics=metrics_out)
 
 
-def param_sharding_rules(params, mesh):
-    """Not ported: mesh training (ROADMAP A9)."""
-    raise NotImplementedError(_MESH_TODO)
-
-
-def batch_sharding(mesh):
-    """Not ported: mesh training (ROADMAP A9)."""
-    raise NotImplementedError(_MESH_TODO)
-
-
 def params_of(module: Module, device=None) -> Dict[str, Any]:
     """The module's parameters as a nested params tree of detached copies
     on ``device`` (default: ``cuda`` unless the caller asked for the CPU)."""
@@ -417,22 +436,209 @@ def assign_params(module: Module, params: Dict[str, Any]) -> Module:
     return module
 
 
+def param_sharding_rules(params, mesh) -> Dict[str, Any]:
+    """A ``parallel.mesh.ShardSpec`` tree like ``params``, the reference's
+    rules: a conv kernel ``[kh, kw, cin, cout]`` splits cin over ``fsdp``
+    and cout over ``tensor``, a dense kernel ``[din, dout]`` din over
+    ``fsdp`` and dout over ``tensor``; a dim the axis does not divide stays
+    whole, and so does every other leaf. Needs only ``mesh.shape``."""
+    from ..parallel.mesh import FSDP_AXIS, TENSOR_AXIS, ShardSpec
+
+    fsdp = int(mesh.shape.get(FSDP_AXIS, 1))
+    tens = int(mesh.shape.get(TENSOR_AXIS, 1))
+
+    def split(size: int, n: int, axis: str):
+        return axis if n > 1 and size % n == 0 else None
+
+    def rule(leaf):
+        shape = tuple(leaf.shape)
+        if len(shape) == 4:
+            return ShardSpec((None, None, split(shape[2], fsdp, FSDP_AXIS),
+                              split(shape[3], tens, TENSOR_AXIS)), mesh)
+        if len(shape) == 2:
+            return ShardSpec((split(shape[0], fsdp, FSDP_AXIS),
+                              split(shape[1], tens, TENSOR_AXIS)), mesh)
+        return ShardSpec((), mesh)
+
+    return _tree_map(rule, params)
+
+
+def batch_sharding(mesh):
+    """The batch's placement: its rows split over (data, fsdp), data major
+    (``ShardSpec.local(x)`` is this rank's row block)."""
+    from ..parallel.mesh import DATA_AXIS, FSDP_AXIS, ShardSpec
+
+    return ShardSpec(((DATA_AXIS, FSDP_AXIS),), mesh)
+
+
 def init_train_state(module: Module, in_shape, optimizer: SGD, seed: int = 0,
                      mesh=None, device=None) -> TrainState:
     """Initialize the module's parameters from a ``torch.Generator`` seeded
     with ``seed`` (other numbers than the reference's ``jax.random``) and
     the optimizer state, on ``device`` (default: ``cuda`` unless the caller
-    asked for the CPU)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    asked for the CPU; the mesh's device with ``mesh``). With ``mesh``,
+    each rank keeps its blocks (``param_sharding_rules``) of the params and
+    of the trace."""
     module.init(torch.Generator().manual_seed(seed), tuple(in_shape))
-    params = params_of(module, device)
-    return TrainState(params, optimizer.init(params), 0)
+    if mesh is None:
+        params = params_of(module, device)
+        return TrainState(params, optimizer.init(params), 0)
+    from ..parallel.mesh import shard_tree
+
+    params = params_of(module, device if device is not None else mesh.device)
+    shardings = param_sharding_rules(params, mesh)
+    params = shard_tree(params, shardings, mesh)
+    return TrainState(params, optimizer.init(params), 0, mesh=mesh,
+                      shardings=shardings)
 
 
 def compile_train_step(module: Module, optimizer: SGD, mesh=None) -> Callable:
     """The train step, eager (PyTorch has no counterpart of ``jax.jit``
-    that the step needs). ``mesh`` raises (ROADMAP A9)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
-    return make_train_step(module, optimizer)
+    that the step needs). With ``mesh``, the sharded step: every rank calls
+    it with a state of ``init_train_state(mesh=)`` (or a checkpoint loaded
+    onto one) and the same whole batch, of which it takes its row block."""
+    return make_train_step(module, optimizer, mesh=mesh)
+
+
+# ---------------------------------------------------------------------------
+# the sharded step
+# ---------------------------------------------------------------------------
+
+
+def _owners(module: Module) -> Dict[str, Tuple[Module, str]]:
+    """Parameter name -> (the layer that holds it, its attribute)."""
+    out = {}
+    for prefix, sub in module.named_modules():
+        for attr, _ in sub.named_parameters(recurse=False):
+            out[f"{prefix}.{attr}" if prefix else attr] = (sub, attr)
+    return out
+
+
+def _column_parallel(owner: Module, attr: str, tensor: int) -> bool:
+    """Does ``owner`` take its ``attr`` split over ``tensor`` ranks?"""
+    tp = getattr(owner, "tensor_parallel", ())
+    names = tp(tensor) if callable(tp) else tp
+    return attr in names
+
+
+def _gather_bucket(items, mesh, axis: str) -> Dict[str, torch.Tensor]:
+    """Leaves gathered over ``axis`` along their dims in one collective:
+    each rank's blocks flattened into one row, the rows gathered (whose
+    backward reduce-scatters the gradients back), each leaf's blocks
+    concatenated along its dim. ``items``: (name, block, dim)."""
+    from ..parallel.mesh import all_gather_axis, axis_group
+
+    g = axis_group(mesh, axis)
+    if g is None or not items:
+        return {n: t for n, t, _ in items}
+    out: Dict[str, torch.Tensor] = {}
+    for dtype in sorted({t.dtype for _, t, _ in items}, key=str):
+        part = [(n, t, d) for n, t, d in items if t.dtype == dtype]
+        row = torch.cat([t.reshape(-1) for _, t, _ in part])[None]
+        full = all_gather_axis(row, mesh, axis, dim=0)      # [ranks, total]
+        off = 0
+        for n, t, d in part:
+            k = t.numel()
+            blocks = [full[i, off:off + k].reshape(t.shape)
+                      for i in range(g.size)]
+            out[n] = torch.cat(blocks, dim=d)
+            off += k
+    return out
+
+
+def _forward_params(module: Module, leaves: Dict[str, torch.Tensor],
+                    specs: Dict[str, Any], mesh) -> Dict[str, torch.Tensor]:
+    """The tensors the forward runs on: every leaf gathered over ``fsdp``;
+    over ``tensor`` too, except where its layer runs column-parallel."""
+    from ..parallel.mesh import FSDP_AXIS, TENSOR_AXIS
+
+    tensor = int(mesh.shape.get(TENSOR_AXIS, 1))
+    owners = _owners(module)
+    used = dict(leaves)
+    fsdp = [(n, used[n], specs[n].dim_of(FSDP_AXIS)) for n in leaves
+            if specs[n].dim_of(FSDP_AXIS) is not None]
+    used.update(_gather_bucket(fsdp, mesh, FSDP_AXIS))
+    tens = [(n, used[n], specs[n].dim_of(TENSOR_AXIS)) for n in leaves
+            if specs[n].dim_of(TENSOR_AXIS) is not None
+            and not _column_parallel(*owners[n], tensor)]
+    used.update(_gather_bucket(tens, mesh, TENSOR_AXIS))
+    return used
+
+
+def _sum_grads(grads: Dict[str, torch.Tensor], specs: Dict[str, Any], mesh
+               ) -> Dict[str, torch.Tensor]:
+    """Each gradient summed over every axis its leaf is not split on (the
+    ranks that hold the same block), one all-reduce a bucket of leaves of
+    the same axes and dtype. (An ``fsdp``-split leaf's gather already
+    reduce-scattered its gradient over ``fsdp``.)"""
+    from ..parallel.mesh import AXES, axis_group, all_reduce_axis
+
+    buckets: Dict[Tuple, list] = {}
+    for n, g in grads.items():
+        split = set(specs[n].axes())
+        axes = tuple(a for a in AXES if a not in split
+                     and axis_group(mesh, a) is not None)
+        buckets.setdefault((axes, g.dtype), []).append(n)
+    out = dict(grads)
+    for (axes, _), names in buckets.items():
+        if not axes:
+            continue
+        flat = torch.cat([grads[n].reshape(-1) for n in names])
+        for a in axes:
+            flat = all_reduce_axis(flat, mesh, a)
+        off = 0
+        for n in names:
+            k = grads[n].numel()
+            out[n] = flat[off:off + k].reshape(grads[n].shape)
+            off += k
+    return out
+
+
+def _mesh_loss_and_grads(module: Module, params: Dict[str, Any],
+                         shardings: Dict[str, Any], batch: Dict[str, Any],
+                         mesh):
+    """``loss_and_grads`` on ``mesh``: (global metrics, global BatchNorm
+    statistics, this rank's gradient blocks)."""
+    from ..parallel.mesh import BATCH, WORLD, all_reduce_axis
+    from .module import activation_sharding
+
+    device = _device_of(params)
+    rows = batch_sharding(mesh)
+    x = rows.local(_as_tensor(batch["x"], device))
+    y = rows.local(_as_tensor(batch["y"], device))
+    mask = batch.get("mask")
+    mask = None if mask is None else rows.local(_as_tensor(mask, device))
+    leaves = {n: p.detach().requires_grad_(True)
+              for n, p in _flatten(params).items()}
+    specs = _flatten(shardings)
+    replicas = mesh.axis_size(WORLD) // mesh.axis_size(BATCH)
+    stats: Dict[str, Any] = {}
+    kwargs: Dict[str, Any] = {}
+    if module.is_container:
+        kwargs["train"] = True
+    if isinstance(module, Sequential):
+        kwargs["stats_out"] = stats
+    with _deterministic(device), torch.enable_grad(), \
+            full_f32(compute_dtype()), activation_sharding(mesh):
+        used = _forward_params(module, leaves, specs, mesh)
+        logits = torch.func.functional_call(module, used, (x,), kwargs)
+        lf = logits.to(torch.float32)
+        ll = torch.gather(lf, -1, y.to(torch.int32).to(torch.int64)[..., None]
+                          )[..., 0] - torch.logsumexp(lf, dim=-1)
+        m = torch.ones_like(ll) if mask is None else mask.to(torch.float32)
+        with torch.no_grad():
+            count = all_reduce_axis(m.sum(), mesh, BATCH)
+            den = torch.clamp_min(count, 1.0)
+        num = -(ll * m).sum()
+        # this rank's share of the one global loss
+        grads = torch.autograd.grad(num / den / replicas,
+                                    list(leaves.values()), allow_unused=True)
+    grads = {n: torch.zeros_like(p) if g is None else g
+             for (n, p), g in zip(leaves.items(), grads)}
+    with torch.no_grad():
+        grads = _sum_grads(grads, specs, mesh)
+        hit = (torch.argmax(logits, dim=-1) == y).to(torch.float32)
+        sums = all_reduce_axis(torch.stack([num.detach(), (hit * m).sum()]),
+                               mesh, BATCH)
+        metrics = {"loss": sums[0] / den, "accuracy": sums[1] / den}
+    return metrics, stats, _nest(grads)

@@ -25,9 +25,19 @@ raises. Gloo on CUDA tensors runs only when the caller names it
 through host memory, as NCCL's go through the mesh's card for a host
 tensor (the host-kept scores a metric or log gathers).
 
-Only the ``data`` axis is ported. A mesh whose ``fsdp``, ``tensor``,
-``seq``, ``expert`` or ``pipe`` axis is larger than 1 is the DNN half of
-ROADMAP A9 and raises ``NotImplementedError``.
+All six axes of the reference's mesh are there. A rank's coordinates
+follow the reference's device order, row-major over ``AXES`` (data
+slowest), as ``jax.make_mesh`` lays devices out, so rank r holds what the
+reference's device r holds. ``make_mesh`` gives each rank a process group
+for every axis and for the batch group (data x fsdp, the reference's
+``num_data_shards``), made by every rank in the same order. The DNN layers
+call the differentiable collectives below on them (``all_gather_axis`` and
+``reduce_scatter_axis``, each the other's backward; ``all_reduce_axis``;
+``ring_shift``, whose backward is the reverse shift): ``torch.distributed``
+carries no gradient of its own.
+
+The GBDT and VW fits run on the data axis only: a mesh with another axis
+larger than 1 raises ``NotImplementedError`` there (ROADMAP A9k).
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,9 +61,12 @@ EXPERT_AXIS = "expert"
 PIPE_AXIS = "pipe"
 AXES = (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, SEQ_AXIS, EXPERT_AXIS, PIPE_AXIS)
 
-_DNN_TODO = ("a mesh with an fsdp, tensor, seq, expert or pipe axis larger "
-             "than 1 is the DNN half of multi-GPU work (ROADMAP A9): only the "
-             "data axis is ported")
+BATCH = "batch"        # the (data, fsdp) group: a batch's row blocks
+WORLD = "world"        # every rank of the mesh
+
+_GBDT_TODO = ("a GBDT or VW fit on a mesh with an fsdp, tensor, seq, expert "
+              "or pipe axis larger than 1 (ROADMAP A9k): the fits shard rows "
+              "over the data axis only")
 
 
 def _dist():
@@ -183,13 +196,31 @@ class CollectiveStats:
 stats = CollectiveStats()
 
 
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """The ranks along one axis (or the batch group) that hold this rank's
+    other coordinates, in coordinate order, and their process group
+    (None: the default group)."""
+
+    ranks: Tuple[int, ...]
+    handle: Any = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
 @dataclasses.dataclass(eq=False)
 class Mesh:
     """One process's view of the mesh: ``shape`` maps every axis to its
-    size (the reference's ``mesh.shape``), ``rank`` is this process's index
-    on the data axis, ``device`` where its tensors live, ``backend`` and
-    ``group`` the process group its collectives run on (None: the default
-    group, or no group for one process)."""
+    size (the reference's ``mesh.shape``), ``rank`` is this process's global
+    rank (its index on the data axis when that is the only axis), ``device``
+    where its tensors live, ``backend`` and ``group`` the process group of
+    the whole mesh (None: the default group, or no group for one process).
+    ``groups`` maps an axis, ``BATCH`` and ``WORLD`` to the ``AxisGroup``
+    this rank is in; an axis of size 1 has none (its collectives are the
+    identity), except in a mesh of one process, where every key names the
+    one-rank group so that the backend's code path runs."""
 
     shape: Dict[str, int]
     rank: int = 0
@@ -197,15 +228,73 @@ class Mesh:
         default_factory=lambda: torch.device("cpu"))
     backend: str = "gloo"
     group: Any = None
+    groups: Dict[str, AxisGroup] = dataclasses.field(default_factory=dict)
 
     @property
     def size(self) -> int:
         return int(self.shape.get(DATA_AXIS, 1))
 
+    def axis_size(self, axis: str) -> int:
+        if axis == BATCH:
+            return num_data_shards(self)
+        if axis == WORLD:
+            return int(np.prod([self.shape.get(a, 1) for a in AXES]))
+        return int(self.shape.get(axis, 1))
 
-def _check_axes(sizes: Dict[str, int]) -> None:
-    if any(int(sizes.get(a, 1)) > 1 for a in AXES[1:]):
-        raise NotImplementedError(_DNN_TODO)
+    def coord(self, axis: str) -> int:
+        """This rank's index on ``axis`` (``BATCH``: its row block, data
+        major)."""
+        c = coords_of(self.rank, self.shape)
+        if axis == BATCH:
+            return c[DATA_AXIS] * int(self.shape.get(FSDP_AXIS, 1)) \
+                + c[FSDP_AXIS]
+        if axis == WORLD:
+            return self.rank
+        return c[axis]
+
+
+def coords_of(rank: int, shape: Dict[str, int]) -> Dict[str, int]:
+    """The coordinates of ``rank``: row-major over ``AXES``, data slowest
+    (``jax.make_mesh``'s device order)."""
+    sizes = [int(shape.get(a, 1)) for a in AXES]
+    idx = np.unravel_index(int(rank), sizes) if rank < int(np.prod(sizes)) \
+        else None
+    if idx is None:
+        raise ValueError(f"rank {rank} is outside a mesh of {shape}")
+    return {a: int(i) for a, i in zip(AXES, idx)}
+
+
+def _group_keys():
+    return [(a, (a,)) for a in AXES] + [(BATCH, (DATA_AXIS, FSDP_AXIS)),
+                                        (WORLD, AXES)]
+
+
+def _make_groups(sizes: Dict[str, int], rank: int, world: int, base,
+                 backend: str) -> Dict[str, AxisGroup]:
+    """This rank's ``AxisGroup`` for every axis, the batch group and the
+    world. Every rank calls ``dist.new_group`` for every group, members or
+    not, in the same order (the collective contract of ``new_group``); a
+    group of the whole world is ``base`` itself."""
+    dist = _dist()
+    dims = [int(sizes.get(a, 1)) for a in AXES]
+    ids = np.arange(world).reshape(dims)
+    out: Dict[str, AxisGroup] = {}
+    for key, axes in _group_keys():
+        moving = [AXES.index(a) for a in axes]
+        size = int(np.prod([dims[i] for i in moving]))
+        if size == 1 and world > 1:
+            continue
+        if size == world:
+            out[key] = AxisGroup(tuple(range(world)), base)
+            continue
+        fixed = [i for i in range(len(AXES)) if i not in moving]
+        blocks = np.transpose(ids, fixed + moving).reshape(-1, size)
+        for members in blocks:
+            ranks = tuple(int(r) for r in members)
+            handle = dist.new_group(list(ranks), backend=backend)
+            if rank in ranks:
+                out[key] = AxisGroup(ranks, handle)
+    return out
 
 
 def _local_rank(rank: int) -> int:
@@ -219,18 +308,18 @@ def make_mesh(spec: Optional[MeshSpec] = None,
               device: Optional[Any] = None,
               backend: Optional[str] = None) -> Mesh:
     """This process's ``Mesh`` over the process group (started from the
-    environment by ``initialize_distributed`` when there is none).
+    environment by ``initialize_distributed`` when there is none), with
+    its group on every axis (``_make_groups``: every process of the group
+    must call it, in the same order as the others).
 
     ``device``: default ``cuda:<local rank>`` (``LOCAL_RANK``, else the rank
     modulo the visible cards), or the CPU where ``runtime.use_device``
     asked for it. ``backend``: NCCL for a CUDA device, gloo for the CPU;
     ``"gloo"`` with a CUDA device must be asked for by name (several ranks
-    on one card). Raises ``NotImplementedError`` for any axis but ``data``
-    larger than 1."""
+    on one card)."""
     from ..runtime import requested_device, resolve_device
 
     spec = spec or MeshSpec()
-    _check_axes(dataclasses.asdict(spec))
     dist = _dist()
     if device is not None:
         dev = resolve_device(device)
@@ -250,21 +339,24 @@ def make_mesh(spec: Optional[MeshSpec] = None,
         have = str(dist.get_backend()).lower()
         if have != want:
             group = dist.new_group(backend=want)
+    groups = _make_groups(sizes, rank, world, group, want) \
+        if dist.is_initialized() else {}
     return Mesh(shape=sizes, rank=rank, device=dev, backend=want,
-                group=group)
+                group=group, groups=groups)
 
 
 def mesh_shards(mesh) -> int:
-    """Data shards of ``mesh``: 1 for None, else the data axis of a port
-    ``Mesh``. Raises ``TypeError`` for anything else (a shard count, the
-    reference's mesh) and ``NotImplementedError`` for an axis other than
-    ``data`` larger than 1."""
+    """Data shards of ``mesh`` for the GBDT and VW fits: 1 for None, else
+    the data axis of a port ``Mesh``. Raises ``TypeError`` for anything
+    else (a shard count, the reference's mesh) and ``NotImplementedError``
+    for an axis other than ``data`` larger than 1 (ROADMAP A9k)."""
     if mesh is None:
         return 1
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a mmlspark_tpu_torch.parallel.Mesh "
                         f"(make_mesh), got {type(mesh).__name__}")
-    _check_axes(mesh.shape)
+    if any(int(mesh.shape.get(a, 1)) > 1 for a in AXES[1:]):
+        raise NotImplementedError(_GBDT_TODO)
     return mesh.size
 
 
@@ -403,10 +495,310 @@ def explicit_mesh(num_workers: int) -> Optional[Mesh]:
     return None
 
 
+# ---------------------------------------------------------------------------
+# collectives on one axis, differentiable
+# ---------------------------------------------------------------------------
+
+
+def axis_group(mesh, axis: str) -> Optional[AxisGroup]:
+    """``mesh``'s group on ``axis`` (an axis, ``BATCH`` or ``WORLD``), or
+    None where the collective is the identity (no process group, or an
+    axis of size 1 in a mesh of several processes)."""
+    if mesh is None or not _dist().is_initialized():
+        return None
+    return mesh.groups.get(axis)
+
+
+def _note(t: torch.Tensor, t0: float) -> None:
+    stats.calls += 1
+    stats.bytes += t.numel() * t.element_size()
+    stats.ms += (time.perf_counter() - t0) * 1e3
+
+
+_LOW = (torch.bfloat16, torch.float16)
+
+
+def _gather_raw(t: torch.Tensor, mesh, g: AxisGroup, dim: int
+                ) -> torch.Tensor:
+    """Every rank's ``t`` of the group concatenated along ``dim``, in
+    coordinate order. bf16 travels as float16 bits (gloo takes no bf16,
+    and a gather moves bits only)."""
+    t0 = time.perf_counter()
+    src = _staged(mesh, t.contiguous())
+    if src.dtype == torch.bfloat16:
+        src = src.view(torch.float16)
+    parts = [torch.empty_like(src) for _ in range(g.size)]
+    _dist().all_gather(parts, src, group=g.handle)
+    out = torch.cat(parts, dim=dim)
+    if t.dtype == torch.bfloat16:
+        out = out.view(t.dtype)
+    _note(src, t0)
+    return out.to(t.device)
+
+
+def _sum_raw(t: torch.Tensor, mesh, g: AxisGroup) -> torch.Tensor:
+    """The group's sum of ``t`` (a new tensor); 16-bit floats are summed
+    in f32 and rounded once."""
+    t0 = time.perf_counter()
+    work = _staged(mesh, t.detach())
+    work = work.to(torch.float32) if work.dtype in _LOW else work.clone()
+    dist = _dist()
+    dist.all_reduce(work, op=dist.ReduceOp.SUM, group=g.handle)
+    _note(work, t0)
+    return work.to(device=t.device, dtype=t.dtype)
+
+
+def _scatter_raw(t: torch.Tensor, mesh, g: AxisGroup, dim: int
+                 ) -> torch.Tensor:
+    """The group's sum of ``t``, this rank's chunk of it along ``dim``
+    (``reduce_scatter_tensor`` on NCCL; an all-reduce and its chunk on
+    gloo, which has no reduce-scatter of its own)."""
+    n = g.size
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"into {n} chunks")
+    c = t.shape[dim] // n
+    me = g.ranks.index(mesh.rank)
+    if mesh.backend != "nccl":
+        return _sum_raw(t, mesh, g).narrow(dim, me * c, c).contiguous()
+    t0 = time.perf_counter()
+    src = _staged(mesh, t.detach())
+    wide = src.to(torch.float32) if src.dtype in _LOW else src
+    wide = wide.movedim(dim, 0).contiguous()
+    out = wide.new_empty((c,) + tuple(wide.shape[1:]))
+    _dist().reduce_scatter_tensor(out, wide, group=g.handle)
+    _note(wide, t0)
+    return out.movedim(0, dim).to(device=t.device, dtype=t.dtype) \
+        .contiguous()
+
+
+def _shift_raw(t: torch.Tensor, mesh, g: AxisGroup, offset: int
+               ) -> torch.Tensor:
+    """``t`` of the rank ``offset`` places before this one on the group's
+    ring (this rank's goes ``offset`` places on): one send and one receive
+    a rank."""
+    n = g.size
+    if n == 1:
+        return t.clone()
+    dist = _dist()
+    me = g.ranks.index(mesh.rank)
+    t0 = time.perf_counter()
+    src = _staged(mesh, t.contiguous())
+    if src.dtype == torch.bfloat16:
+        src = src.view(torch.float16)
+    buf = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src, g.ranks[(me + offset) % n], g.handle),
+           dist.P2POp(dist.irecv, buf, g.ranks[(me - offset) % n], g.handle)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if t.dtype == torch.bfloat16:
+        buf = buf.view(t.dtype)
+    _note(src, t0)
+    return buf.to(t.device)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, g, dim):
+        ctx.mesh, ctx.g, ctx.dim = mesh, g, dim
+        return _gather_raw(x, mesh, g, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _scatter_raw(grad, ctx.mesh, ctx.g, ctx.dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, g, dim):
+        ctx.mesh, ctx.g, ctx.dim = mesh, g, dim
+        return _scatter_raw(x, mesh, g, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_raw(grad, ctx.mesh, ctx.g, ctx.dim), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, g):
+        ctx.mesh, ctx.g = mesh, g
+        return _sum_raw(x, mesh, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_raw(grad, ctx.mesh, ctx.g), None, None
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, g, offset):
+        ctx.mesh, ctx.g, ctx.offset = mesh, g, offset
+        return _shift_raw(x, mesh, g, offset)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift_raw(grad, ctx.mesh, ctx.g, -ctx.offset), None, None, \
+            None
+
+
+def all_gather_axis(x: torch.Tensor, mesh, axis: str, dim: int = 0
+                    ) -> torch.Tensor:
+    """The blocks of ``x`` along ``axis`` concatenated on ``dim``, in
+    coordinate order; the backward is the reduce-scatter of the gradient.
+    The identity where ``axis_group`` is None. Every rank of the group
+    calls it, in the same order."""
+    g = axis_group(mesh, axis)
+    if g is None:
+        return x
+    return _AllGather.apply(x, mesh, g, dim % x.dim())
+
+
+def reduce_scatter_axis(x: torch.Tensor, mesh, axis: str, dim: int = 0
+                        ) -> torch.Tensor:
+    """The sum of ``x`` over ``axis``, this rank's chunk of it along
+    ``dim``; the backward is the all-gather of the gradient."""
+    g = axis_group(mesh, axis)
+    if g is None:
+        return x
+    return _ReduceScatter.apply(x, mesh, g, dim % x.dim())
+
+
+def all_reduce_axis(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum of ``x`` over ``axis`` (a new tensor); the backward sums the
+    gradient over the same group: every rank's loss is a term of one sum
+    (``training`` divides each rank's by its replicas)."""
+    g = axis_group(mesh, axis)
+    if g is None:
+        return x
+    return _AllReduce.apply(x, mesh, g)
+
+
+def ring_shift(x: torch.Tensor, mesh, axis: str, offset: int = 1
+               ) -> torch.Tensor:
+    """``x`` of the rank ``offset`` places before this one on ``axis``'s
+    ring (the reference's ``ppermute`` with ``(i, i + offset)`` pairs); the
+    backward shifts the gradient back the other way."""
+    g = axis_group(mesh, axis)
+    if g is None:
+        return x
+    return _Shift.apply(x, mesh, g, int(offset))
+
+
+def barrier(mesh) -> None:
+    """Every rank of ``mesh`` has reached this call (a one-element sum over
+    the world); nothing without a process group."""
+    g = axis_group(mesh, WORLD)
+    if g is not None:
+        _sum_raw(torch.zeros(1, device=mesh.device), mesh, g)
+
+
+# ---------------------------------------------------------------------------
+# placements: which block of a tensor a rank holds
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """The reference's ``NamedSharding``: ``spec`` is its ``PartitionSpec``
+    as a tuple, an axis name (or a tuple of them, split row-major) or None
+    for each leading dim of a tensor; ``()`` replicates. ``mesh`` is the
+    mesh it was made for (anything with the reference's ``shape``)."""
+
+    spec: Tuple[Any, ...]
+    mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
+
+    def axes(self) -> Tuple[str, ...]:
+        out: List[str] = []
+        for s in self.spec:
+            if s is not None:
+                out.extend(s if isinstance(s, tuple) else (s,))
+        return tuple(out)
+
+    def dim_of(self, axis: str) -> Optional[int]:
+        """The dim ``axis`` splits, or None."""
+        for i, s in enumerate(self.spec):
+            if s == axis or (isinstance(s, tuple) and axis in s):
+                return i
+        return None
+
+    def _split(self, entry, mesh) -> Tuple[int, int]:
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        n, idx = 1, 0
+        for a in axes:
+            k = int(mesh.shape.get(a, 1))
+            c = mesh.coord(a) if k > 1 else 0
+            n, idx = n * k, idx * k + c
+        return n, idx
+
+    def local_slices(self, shape: Sequence[int], mesh=None) -> Tuple[slice, ...]:
+        """This rank's block of a tensor of ``shape``."""
+        mesh = mesh if mesh is not None else self.mesh
+        out = []
+        for i, size in enumerate(shape):
+            entry = self.spec[i] if i < len(self.spec) else None
+            if entry is None:
+                out.append(slice(None))
+                continue
+            n, idx = self._split(entry, mesh)
+            if size % n:
+                raise ValueError(f"dim {i} of {tuple(shape)} does not split "
+                                 f"into {n} blocks")
+            c = size // n
+            out.append(slice(idx * c, (idx + 1) * c))
+        return tuple(out)
+
+    def local(self, t, mesh=None):
+        """This rank's block of ``t`` (a tensor or an array), contiguous."""
+        blk = t[self.local_slices(t.shape, mesh)]
+        if isinstance(blk, torch.Tensor):
+            return blk.contiguous()
+        return np.ascontiguousarray(blk)
+
+
+def _map_tree(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def shard_tree(tree, shardings, mesh=None):
+    """Each leaf's block on this rank (detached copies): the port's
+    ``jax.device_put(tree, shardings)``."""
+    def one(leaf, spec):
+        with torch.no_grad():
+            return spec.local(leaf, mesh).clone() \
+                if isinstance(leaf, torch.Tensor) else spec.local(leaf, mesh)
+
+    return _map_tree(one, tree, shardings)
+
+
+def gather_tree(tree, shardings, mesh):
+    """The whole leaves of a tree of blocks (``shard_tree``'s inverse): each
+    split dim gathered over its axis. Collective: every rank calls it."""
+    def one(leaf, spec):
+        out = leaf.detach()
+        for i, entry in enumerate(spec.spec):
+            if entry is None:
+                continue
+            if isinstance(entry, tuple):
+                raise ValueError("gather_tree takes one axis a dim")
+            g = axis_group(mesh, entry)
+            if g is not None and g.size > 1:
+                out = _gather_raw(out, mesh, g, i)
+        return out
+
+    return _map_tree(one, tree, shardings)
+
+
 __all__: List[str] = [
-    "AXES", "CollectiveStats", "DATA_AXIS", "EXPERT_AXIS", "FSDP_AXIS",
-    "Mesh", "MeshContext", "MeshSpec", "PIPE_AXIS", "SEQ_AXIS",
-    "TENSOR_AXIS", "all_gather", "all_reduce_sum",
+    "AXES", "AxisGroup", "BATCH", "CollectiveStats", "DATA_AXIS",
+    "EXPERT_AXIS", "FSDP_AXIS", "Mesh", "MeshContext", "MeshSpec",
+    "PIPE_AXIS", "SEQ_AXIS", "ShardSpec", "TENSOR_AXIS", "WORLD",
+    "all_gather", "all_gather_axis", "all_reduce_axis", "all_reduce_sum",
+    "axis_group", "barrier", "coords_of", "gather_tree", "reduce_scatter_axis",
+    "ring_shift", "shard_tree",
     "explicit_mesh", "fetch_global", "initialize_distributed", "make_mesh",
     "mesh_shards", "num_data_shards", "process_count", "process_index",
     "process_shard", "row_block", "stats"]

@@ -8,7 +8,7 @@ Wabbit parity):
                                                                 scan_kernel.py
   - pipeline stages with VW-args parsing + training stats    -> stages.py
 
-Not ported: the distributed fit over a mesh (ROADMAP A9).
+The distributed fit shards rows over a mesh's data axis (``train_linear(mesh=)``).
 """
 
 from .featurizer import VowpalWabbitFeaturizer, VowpalWabbitInteractions

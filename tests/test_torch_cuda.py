@@ -1872,3 +1872,141 @@ def test_nccl_mesh_gathers_host_scores_for_logs_and_metrics(cuda_device,
     assert any("train" in line for line in got[1])
     assert len(got[3]) == 4
     assert got == want
+
+
+_CUDA_DNN_RANK = r'''
+import numpy as np
+import torch
+
+
+def step(mesh, spec, rows, steps, seed):
+    """The encoder's sharded step on the card: f32 (plain attention) and
+    bf16 (K5 forward, K6/K7 backward on the rank's heads), from the same
+    seeded params; the launches and every param gathered."""
+    from mmlspark_tpu_torch.models import flash_kernel as fk
+    from mmlspark_tpu_torch.models import matmul_precision
+    from mmlspark_tpu_torch.models import training as T
+    from mmlspark_tpu_torch.models import transformer_encoder
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, gather_tree, make_mesh
+
+    m = make_mesh(MeshSpec(**spec), device=mesh.device, backend=mesh.backend)
+    model = transformer_encoder(seq_len=256, dim=128, depth=2, num_heads=2,
+                                vocab_size=100, num_classes=4, seed=seed)
+    opt = T.make_optimizer(learning_rate=0.01)
+    rng = np.random.default_rng(seed)
+    batches = [{"x": rng.integers(0, 100, (rows, 256)),
+                "y": rng.integers(0, 4, (rows, 256)).astype(np.int32)}
+               for _ in range(steps)]
+    out = {}
+    for prec in ("float32", "bfloat16"):
+        fk.launches = fk.bwd_dkv_launches = fk.bwd_dq_launches = 0
+        with matmul_precision(prec):
+            st = T.init_train_state(model.module, (256,), opt, seed=seed,
+                                    mesh=m)
+            run = T.compile_train_step(model.module, opt, mesh=m)
+            losses = []
+            for b in batches:
+                st, met = run(st, b)
+                losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        full = gather_tree(st.params, st.shardings, m)
+        out[prec] = {"losses": losses,
+                     "launches": (fk.launches, fk.bwd_dkv_launches,
+                                  fk.bwd_dq_launches),
+                     "params": {k: v.cpu().numpy() for k, v in
+                                _flat(full).items()}}
+    return out
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+'''
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,device,backend,spec", [
+    (1, "cuda", "nccl", {"data": 1}),
+    (2, "cuda:0", "gloo", {"data": 1, "tensor": 2})])
+def test_sharded_train_step_on_the_card_equals_single_card(
+        cuda_device, tmp_path, world, device, backend, spec):
+    """The encoder's sharded step on the card, a one-rank NCCL mesh (every
+    axis 1: NCCL's collectives run) and tensor=2 over two gloo ranks on
+    ``cuda:0``: in f32 the single-card step's loss (1e-4) and params (atol
+    5e-4 / rtol 1e-3, the reference's mesh tolerances); in bf16 K5 once a
+    layer and step and K6/K7 once each in its backward, on the rank's
+    heads, and the single-card bf16 step within 2e-2 of each leaf's max."""
+    from mmlspark_tpu_torch.models import matmul_precision
+    from mmlspark_tpu_torch.models import training as T
+    from mmlspark_tpu_torch.models import transformer_encoder
+    from mmlspark_tpu_torch.models.module import _flatten
+    from mmlspark_tpu_torch.parallel.launch import spawn
+
+    (tmp_path / "cuda_dnn_rank.py").write_text(_CUDA_DNN_RANK)
+    rows, steps = 4, 2
+    ranks = spawn("cuda_dnn_rank:step", world, tmp_path,
+                  {"spec": spec, "rows": rows, "steps": steps, "seed": 3},
+                  device=device, backend=backend, timeout=300,
+                  path=[str(tmp_path)])
+    model = transformer_encoder(seq_len=256, dim=128, depth=2, num_heads=2,
+                                vocab_size=100, num_classes=4, seed=3)
+    opt = T.make_optimizer(learning_rate=0.01)
+    rng = np.random.default_rng(3)
+    batches = [{"x": rng.integers(0, 100, (rows, 256)),
+                "y": rng.integers(0, 4, (rows, 256)).astype(np.int32)}
+               for _ in range(steps)]
+    for prec in ("float32", "bfloat16"):
+        with matmul_precision(prec):
+            st = T.init_train_state(model.module, (256,), opt, seed=3)
+            run = T.compile_train_step(model.module, opt)
+            losses = []
+            for b in batches:
+                st, met = run(st, b)
+                losses.append(float(met["loss"]))
+        want = {k: v.cpu().numpy() for k, v in _flatten(st.params).items()}
+        for r in ranks:
+            got = r[prec]
+            if prec == "float32":
+                assert got["launches"] == (0, 0, 0)
+                np.testing.assert_allclose(got["losses"], losses, atol=1e-4)
+                for k, w in want.items():
+                    np.testing.assert_allclose(got["params"][k], w,
+                                               atol=5e-4, rtol=1e-3,
+                                               err_msg=k)
+            else:
+                assert got["launches"] == (2 * steps,) * 3
+                np.testing.assert_allclose(got["losses"], losses, rtol=2e-2)
+                for k, w in want.items():
+                    scale = max(float(np.abs(w).max()), 1e-30)
+                    assert np.abs(got["params"][k] - w).max() <= 2e-2 * scale, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_on_a_rank_head_slice(cuda_device, causal):
+    """K5, K6 and K7 on a tensor rank's heads (4 of 8, the contiguous
+    [B, T, H/2, D] a column-parallel projection gives): the same bits as
+    those heads of the whole call, and within ``_assert_k5_close`` /
+    ``_assert_bwd_close`` of the plain versions on the slice."""
+    rng = np.random.default_rng(11)
+    q, k, v, do = _bwd_inputs(rng, 2, 256, 256, 8, 64, cuda_device)
+    part = [x[:, :, 4:].contiguous() for x in (q, k, v, do)]
+    o, lse = flash_kernel.flash_attention_cuda(q, k, v, causal, lse=True)
+    grads = flash_kernel.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    po, plse = flash_kernel.flash_attention_cuda(*part[:3], causal, lse=True)
+    pg = flash_kernel.flash_attention_bwd_cuda(*part[:3], po, plse, part[3],
+                                               causal)
+    torch.cuda.synchronize()
+    assert torch.equal(po, o[:, :, 4:]) and torch.equal(plse, lse[:, 4:])
+    for g, full in zip(pg, grads):
+        assert torch.equal(g, full[:, :, 4:])
+    _assert_k5_close(po, flash_kernel.flash_attention_plain(*part[:3], causal),
+                     *part[:3], causal)
+    plain = flash_kernel.flash_attention_bwd_plain(*part[:3], po, plse,
+                                                   part[3], causal)
+    _assert_bwd_close(pg, plain, *part, causal)

@@ -1040,39 +1040,46 @@ def test_dnn_model_preprocess_runs_on_the_batch():
 
 
 def test_dnn_model_unported_paths_raise():
+    """What the model layer still refuses or keeps unfused: ``useMesh=True``
+    and a multi-input feed stay unfused, a preprocess spec beside a
+    multi-input feed raises (as in the reference), and the fused
+    pipeline's mesh knobs (segment ``sharding``, ``pipe_depth``) raise
+    naming ROADMAP A step 9c. A mesh that is only this process's runs the
+    single-device transform (its data axis is 1)."""
+    from mmlspark_tpu_torch.parallel.mesh import Mesh, MeshContext
+
     _, port = _encoders()
     df = DataFrame.from_dict({"tokens": list(_tokens(2))})
     stage = DNNModel(inputCol="tokens", outputCol="o", useMesh=True)
     stage.set_model(port)
     assert stage.device_fn(df.schema) is None
-    with use_device("cpu"), pytest.raises(NotImplementedError, match="A9"):
-        stage.transform(df)
+    plain = DNNModel(inputCol="tokens", outputCol="o", useMesh=False)
+    plain.set_model(port)
+    try:
+        with use_device("cpu"):
+            want = np.stack(list(plain.transform(df).column("o")))
+            got = np.stack(list(stage.transform(df).column("o")))
+    finally:
+        MeshContext.reset()
+    np.testing.assert_array_equal(got, want)
+    MeshContext.set(Mesh(shape={"data": 2}))
+    try:
+        auto = DNNModel(inputCol="tokens", outputCol="o").set_model(port)
+        assert auto.device_fn(df.schema) is None
+    finally:
+        MeshContext.reset()
     port.module.input_names = ["ids", "mask"]
     multi = DNNModel(outputCol="o").set_model(port)
     multi.set_feed_dict({"ids": "tokens", "mask": "tokens"})
     assert multi.device_fn(df.schema) is None
-    # the multi-input feed is ported (A7d); a preprocess spec beside it
-    # raises, as in the reference
     multi.set_preprocess(PreprocessSpec(scale=1.0))
     with use_device("cpu"), pytest.raises(ValueError, match="single-input"):
         multi.transform(df)
-    with pytest.raises(NotImplementedError, match="A9"):
-        transformer_encoder(**ENC, ring_axis="seq", ring_axis_size=2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        port_resnet.param_shardings(port.params, object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        port_moe.expert_shardings(object(), port.params)
-    with pytest.raises(NotImplementedError, match="A9"):
-        port_module.activation_sharding(None)
-    opt = training.make_optimizer()
-    for call in (lambda: training.compile_train_step(port.module, opt,
-                                                     mesh=object()),
-                 lambda: training.init_train_state(port.module, (16,), opt,
-                                                   mesh=object()),
-                 lambda: training.param_sharding_rules(port.params, object()),
-                 lambda: training.batch_sharding(object())):
-        with pytest.raises(NotImplementedError, match="A9"):
-            call()
+    fused = PipelineModel([plain]).fuse()
+    with pytest.raises(NotImplementedError, match="step 9c"):
+        fused.set_tuning(sharding={"DNNModel": "data"})
+    with pytest.raises(NotImplementedError, match="step 9c"):
+        fused.set_tuning(pipe_depth=2)
 
 
 def test_dnn_model_defaults_to_cuda():
@@ -4356,3 +4363,1044 @@ def test_dnn_model_feed_dict_two_inputs_matches_reference():
     only.set_feed_dict({"attention_mask": "mask"})
     with use_device("cpu"), pytest.raises(KeyError, match="input_ids"):
         only.transform(DataFrame.from_dict({"mask": list(mask)}))
+
+
+# ---------------------------------------------------------------- the DNN mesh
+#
+# The port's mesh is one process a rank (``parallel.mesh``), so its DNN mesh
+# cases run in gloo ranks on the CPU that import only the port
+# (``parallel.launch.spawn``, one thread a rank, a file rendezvous under the
+# test's temporary directory). One launch for each world size (2, 4, 8)
+# runs every case of ``_DNN_RANKS`` that needs it; a case's failure is
+# returned as its traceback, so each test fails alone. This process builds
+# the inputs with the reference (its own inits, carried into the port with
+# ``load_jax_params``) and holds the ranks' results against the reference's
+# own multi-device tests, on the ``mesh8`` fixture's 8 CPU devices where
+# they need a mesh, at the reference's tolerances: the sharded step against
+# the single-device one (loss 1e-4, accuracy 1e-6, params atol 5e-4 / rtol
+# 1e-3, ``tests/test_models.py:515``), ring attention 2e-5 and the ring
+# encoder 5e-5 (``tests/test_attention.py:46, 190``), the pipeline 1e-5 and
+# its transformer blocks 1e-4, the expert-sharded MoE 1e-5
+# (``tests/test_parallel_pp_ep.py``), the sharded DNNModel 1e-5
+# (``tests/test_models.py:492``); the resumed mesh loop bit for bit.
+
+_DNN_RANKS = r'''
+"""One rank of the DNN mesh cases (imports only the port)."""
+import dataclasses
+import os
+import pickle
+import traceback
+
+import numpy as np
+import torch
+
+
+def _mesh(**spec):
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    return make_mesh(MeshSpec(**spec), device="cpu", backend="gloo")
+
+
+def _t(tree):
+    if isinstance(tree, dict):
+        return {k: _t(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+def _np(tree):
+    if isinstance(tree, dict):
+        return {k: _np(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+def _full(st):
+    from mmlspark_tpu_torch.parallel.mesh import gather_tree
+
+    return (_np(gather_tree(st.params, st.shardings, st.mesh)),
+            _np(gather_tree(st.opt_state["trace"], st.shardings, st.mesh)))
+
+
+def _state(module, in_shape, opt, mesh, params, trace=None):
+    from mmlspark_tpu_torch.models import training as T
+    from mmlspark_tpu_torch.parallel.mesh import shard_tree
+
+    st = T.init_train_state(module, in_shape, opt, mesh=mesh)
+    p = shard_tree(_t(params), st.shardings, mesh)
+    tr = st.opt_state if trace is None else \
+        {"trace": shard_tree(_t(trace), st.shardings, mesh)}
+    return dataclasses.replace(st, params=p, opt_state=tr)
+
+
+def _precision(f32):
+    import contextlib
+
+    from mmlspark_tpu_torch.models import matmul_precision
+
+    return matmul_precision("float32") if f32 else contextlib.nullcontext()
+
+
+def case_resnet_step(c):
+    from mmlspark_tpu_torch.models import training as T
+    from mmlspark_tpu_torch.models.resnet import build_resnet
+
+    mesh = _mesh(**c["spec"])
+    module = build_resnet(c["depth"], num_classes=c["classes"],
+                          image_size=c["size"], width=8)
+    opt = T.make_optimizer(**c["opt"])
+    shape = (c["size"], c["size"], 3)
+    out = {"metrics": []}
+    with _precision(True):
+        st = _state(module, shape, opt, mesh, c["params"])
+        step = T.compile_train_step(module, opt, mesh=mesh)
+        for b in c["batches"]:
+            st, m = step(st, b)
+            out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["params"], out["trace"] = _full(st)
+    return out
+
+
+def case_encoder_step(c):
+    from mmlspark_tpu_torch.models import training as T
+    from mmlspark_tpu_torch.models import transformer_encoder
+    from mmlspark_tpu_torch.parallel import mesh as pm
+
+    mesh = _mesh(**c["spec"])
+    port = transformer_encoder(**c["enc"], seed=1)
+    opt = T.make_optimizer(**c["opt"])
+    out = {"metrics": [], "params": [], "trace": []}
+    with _precision(c["f32"]):
+        st = _state(port.module, port.input_shape, opt, mesh, c["params"],
+                    c["trace"])
+        out["blocks"] = {n: tuple(t.shape) for n, t in
+                         (("wq", st.params["block0"]["attn"]["body"]["attn"]
+                           ["wq"]),
+                          ("fc1", st.params["block0"]["mlp"]["body"]["fc1"]
+                           ["kernel"]))}
+        step = T.compile_train_step(port.module, opt, mesh=mesh)
+        pm.stats.reset()
+        for b in c["batches"]:
+            st, m = step(st, b)
+            out["metrics"].append({k: float(v) for k, v in m.items()})
+            p, tr = _full(st)
+            out["params"].append(p)
+            out["trace"].append(tr)
+        out["collectives"] = pm.stats.calls
+    return out
+
+
+def case_restore(c):
+    from mmlspark_tpu_torch.models import checkpoint as ck
+    from mmlspark_tpu_torch.models import training as T
+    from mmlspark_tpu_torch.models.resnet import build_resnet
+    from mmlspark_tpu_torch.parallel.mesh import gather_tree
+
+    mesh = _mesh(**c["spec"])
+    module = build_resnet(18, num_classes=4, image_size=16, width=8)
+    like = T.init_train_state(module, (16, 16, 3), T.make_optimizer(),
+                              seed=5, mesh=mesh)
+    got = ck.load_train_state(c["path"], like=like)
+    name = c["leaf"]
+    spec = got.shardings
+    for k in name.split("."):
+        spec = spec[k]
+    local = got.params
+    for k in name.split("."):
+        local = local[k]
+    return {"spec": spec.spec, "slices": spec.local_slices(c["shape"], mesh),
+            "local": local.numpy(), "step": got.step,
+            "full": _np(gather_tree(got.params, got.shardings, mesh))}
+
+
+def case_dnn_model(c):
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.models import DNNModel, load_jax_params
+    from mmlspark_tpu_torch.parallel.mesh import MeshContext
+
+    mesh = _mesh(**c["spec"])
+    model = pickle.loads(c["model"])
+    load_jax_params(model, c["params"])
+    df = DataFrame.from_dict({"x": list(c["x"])},
+                             num_partitions=c["partitions"])
+    stage = DNNModel(inputCol="x", outputCol="out",
+                     batchSize=c["batch"]).set_model(model)
+    MeshContext.set(mesh)
+    try:
+        fused = stage.device_fn(df.schema)
+        out = np.stack(list(stage.transform(df).column("out")))
+    finally:
+        MeshContext.reset()
+    return {"out": out, "device_fn": fused}
+
+
+def case_ring(c):
+    from mmlspark_tpu_torch.models import matmul_precision, ring_attention
+    from mmlspark_tpu_torch.parallel.mesh import SEQ_AXIS
+
+    mesh = _mesh(**c["spec"])
+    n, me = mesh.axis_size(SEQ_AXIS), mesh.coord(SEQ_AXIS)
+    t = c["q"].shape[1] // n
+    q, k, v = (torch.from_numpy(c[a][:, me * t:(me + 1) * t]).requires_grad_()
+               for a in "qkv")
+    with matmul_precision("float32"):
+        o = ring_attention(q, k, v, mesh, causal=c["causal"])
+        gq, gk, gv = torch.autograd.grad((o * o).sum(), (q, k, v))
+    return {"o": o.detach().numpy(), "grads": [g.numpy() for g in (gq, gk, gv)],
+            "me": me}
+
+
+def case_ring_encoder(c):
+    from mmlspark_tpu_torch.models import (activation_sharding,
+                                           load_jax_params, matmul_precision,
+                                           transformer_encoder)
+    from mmlspark_tpu_torch.parallel.mesh import SEQ_AXIS
+
+    mesh = _mesh(**c["spec"])
+    n, me = mesh.axis_size(SEQ_AXIS), mesh.coord(SEQ_AXIS)
+    m = transformer_encoder(**c["enc"], ring_axis="seq", ring_axis_size=n)
+    load_jax_params(m, c["params"])
+    t = c["x"].shape[1] // n
+    with matmul_precision("float32"), activation_sharding(mesh):
+        y = m.apply(torch.from_numpy(c["x"][:, me * t:(me + 1) * t]))
+    return {"y": y.numpy(), "me": me}
+
+
+def case_tagger(c):
+    from mmlspark_tpu_torch.models import training as T
+    from mmlspark_tpu_torch.models.attention import BiLSTM, Embed
+    from mmlspark_tpu_torch.models.module import Dense, Sequential
+
+    mesh = _mesh(**c["spec"])
+    module = Sequential([("embed", Embed(20, 8)), ("bilstm", BiLSTM(8)),
+                         ("tags", Dense(2))], name="tagger")
+    opt = T.make_optimizer(learning_rate=0.2, momentum=0.9)
+    st = _state(module, (10,), opt, mesh, c["params"])
+    step = T.compile_train_step(module, opt, mesh=mesh)
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(c["steps"]):
+        toks = rng.integers(0, 20, size=(16, 10))
+        st, m = step(st, {"x": toks, "y": (toks >= 10).astype(np.int32)})
+        out.append({k: float(v) for k, v in m.items()})
+    return {"metrics": out}
+
+
+def case_pipeline(c):
+    from mmlspark_tpu_torch.parallel.mesh import PIPE_AXIS
+    from mmlspark_tpu_torch.parallel.pipeline_parallel import (
+        pipeline_apply, stack_stage_params)
+
+    mesh = _mesh(**c["spec"])
+    stacked = stack_stage_params([_t(p) for p in c["stages"]])
+    s = mesh.coord(PIPE_AXIS)
+    mine = {k: v[s].clone().requires_grad_() for k, v in stacked.items()}
+    xs = torch.from_numpy(c["xs"])
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    y = pipeline_apply(stage_fn, {k: v[None] for k, v in mine.items()}, xs,
+                       mesh)
+    n = mesh.axis_size(PIPE_AXIS)
+    grads = torch.autograd.grad((y * y).sum() / n, list(mine.values()))
+    return {"y": y.detach().numpy(), "stage": s,
+            "grads": {k: g.numpy() for k, g in zip(mine, grads)}}
+
+
+def case_pipe_blocks(c):
+    from mmlspark_tpu_torch.models import matmul_precision, transformer_block
+    from mmlspark_tpu_torch.models.module import _flatten
+    from mmlspark_tpu_torch.parallel.pipeline_parallel import (
+        pipeline_apply, stack_stage_params)
+
+    mesh = _mesh(**c["spec"])
+    block = transformer_block(c["dim"], c["heads"])
+    block.init(torch.Generator(), c["in_shape"])
+    stacked = stack_stage_params([_t(p) for p in c["stages"]])
+
+    def stage_fn(p, x):
+        return torch.func.functional_call(block, _flatten(p), (x,))
+
+    with matmul_precision("float32"), torch.no_grad():
+        y = pipeline_apply(stage_fn, stacked, torch.from_numpy(c["xs"]), mesh)
+    return {"y": y.numpy()}
+
+
+def case_moe(c):
+    from mmlspark_tpu_torch.models import (FunctionModel, activation_sharding,
+                                           load_jax_params, matmul_precision,
+                                           transformer_block)
+    from mmlspark_tpu_torch.models.module import _flatten
+    from mmlspark_tpu_torch.models.moe import MoE, expert_shardings
+    from mmlspark_tpu_torch.parallel.mesh import shard_tree
+
+    mesh = _mesh(**c["spec"])
+    if c["block"]:
+        mod = transformer_block(c["dim"], 2, moe_experts=c["experts"],
+                                moe_capacity_factor=c["cf"])
+    else:
+        mod = MoE(c["experts"], capacity_factor=c["cf"])
+    mod.init(torch.Generator(), c["in_shape"])
+    load_jax_params(FunctionModel(mod, c["in_shape"]), c["params"])
+    local = shard_tree(_t(c["params"]), expert_shardings(mesh, c["params"]),
+                       mesh)
+    with matmul_precision("float32"), activation_sharding(mesh), \
+            torch.no_grad():
+        y = torch.func.functional_call(mod, _flatten(local),
+                                       (torch.from_numpy(c["x"]),))
+    w1 = local["w1"] if not c["block"] else local["mlp"]["body"]["moe"]["w1"]
+    return {"y": y.numpy(), "w1": tuple(w1.shape)}
+
+
+def case_resume(c):
+    from mmlspark_tpu_torch.models import training as T
+    from mmlspark_tpu_torch.models import transformer_encoder
+
+    mesh = _mesh(**c["spec"])
+    port = transformer_encoder(**c["enc"], seed=1)
+    opt = T.make_optimizer(**c["opt"])
+    step = T.compile_train_step(port.module, opt, mesh=mesh)
+    batches = c["batches"]
+
+    def fresh():
+        return _state(port.module, port.input_shape, opt, mesh, c["params"])
+
+    with _precision(True):
+        full = T.run_train_loop(fresh(), step, batches)
+        guard = T.PreemptionGuard()
+
+        def preempting():
+            for i, b in enumerate(batches):
+                if i == c["stop"]:
+                    guard.request()
+                yield b
+
+        cut = T.run_train_loop(fresh(), step, preempting(),
+                               checkpoint_path=c["path"], every_k=100,
+                               guard=guard)
+        rest = T.run_train_loop(fresh(), step, batches,
+                                checkpoint_path=c["path"])
+    return {"full": _full(full.state), "rest": _full(rest.state),
+            "runs": (cut.steps_run, cut.preempted, rest.steps_run,
+                     rest.state.step), "loss": full.last_metrics["loss"]}
+
+
+def case_collectives(c):
+    """Each differentiable collective's forward and backward on a known
+    function, on every axis of the mesh."""
+    from mmlspark_tpu_torch.parallel import mesh as pm
+
+    mesh = _mesh(**c["spec"])
+    out = {}
+    for axis in ("data", "tensor", "batch", "world"):
+        n, me = mesh.axis_size(axis), mesh.coord(axis)
+        x = torch.arange(6, dtype=torch.float64).reshape(2, 3) * (me + 1)
+        x.requires_grad_()
+        g = pm.all_gather_axis(x, mesh, axis, dim=1)          # [2, 3n]
+        w = torch.arange(g.numel(), dtype=torch.float64).reshape(g.shape)
+        (gx,) = torch.autograd.grad((g * w).sum(), x)
+        r = pm.reduce_scatter_axis(x.repeat(1, n), mesh, axis, dim=1)
+        a = pm.all_reduce_axis(x, mesh, axis)
+        (ga,) = torch.autograd.grad((a * (me + 2)).sum(), x)
+        s = pm.ring_shift(x, mesh, axis)
+        (gs,) = torch.autograd.grad((s * (me + 3)).sum(), x)
+        h = pm.all_gather_axis(x.to(torch.bfloat16), mesh, axis, dim=0)
+        out[axis] = dict(n=n, me=me, g=g.detach().numpy(), gx=gx.numpy(),
+                         r=r.detach().numpy(), a=a.detach().numpy(),
+                         ga=ga.numpy(), s=s.detach().numpy(), gs=gs.numpy(),
+                         h=h.detach().float().numpy())
+    return out
+
+
+def run(mesh, cases):
+    torch.use_deterministic_algorithms(False)
+    out = {}
+    for name, case in cases.items():
+        try:
+            out[name] = globals()["case_" + case["fn"]](case)
+        except Exception:
+            out[name] = {"error": traceback.format_exc()}
+    return out
+'''
+
+_DNN_MESH_CASES = {}   # world size -> {case name: builder(tmp) -> inputs}
+
+
+def _dnn_case(world, name):
+    def register(fn):
+        _DNN_MESH_CASES.setdefault(world, {})[name] = fn
+        return fn
+    return register
+
+
+def _dnn_mesh_launch(world, tmp_path_factory):
+    from mmlspark_tpu_torch.parallel.launch import spawn
+
+    work = tmp_path_factory.mktemp(f"dnn_mesh{world}")
+    (work / "dnn_ranks.py").write_text(_DNN_RANKS)
+    cases = {name: build(work) for name, build in
+             _DNN_MESH_CASES[world].items()}
+    ranks = spawn("dnn_ranks:run", world, work, dict(cases=cases),
+                  threads=1, timeout=240, path=[str(work)])
+    return cases, ranks
+
+
+@pytest.fixture(scope="module")
+def dnn_mesh2(tmp_path_factory):
+    return _dnn_mesh_launch(2, tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def dnn_mesh4(tmp_path_factory):
+    return _dnn_mesh_launch(4, tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def dnn_mesh8(tmp_path_factory):
+    return _dnn_mesh_launch(8, tmp_path_factory)
+
+
+def _ranks_of(run, name):
+    """(the case's inputs, each rank's result); a rank's failure fails the
+    test with its traceback."""
+    cases, ranks = run
+    got = [r[name] for r in ranks]
+    for r, g in enumerate(got):
+        assert "error" not in g, f"rank {r}:\n{g['error']}"
+    return cases[name], got
+
+
+ref_resnet_mod = importlib.import_module("mmlspark_tpu.models.resnet")
+MESH_LOSS_ATOL, MESH_ACC_ATOL = 1e-4, 1e-6          # tests/test_models.py:515
+MESH_PARAM_ATOL, MESH_PARAM_RTOL = 5e-4, 1e-3
+RING_ATOL, RING_ENCODER_ATOL = 2e-5, 5e-5          # tests/test_attention.py
+PIPE_ATOL, PIPE_BLOCKS_ATOL, MOE_MESH_ATOL = 1e-5, 1e-4, 1e-5
+DNN_MESH_ATOL = 1e-5                               # tests/test_models.py:492
+MESH_GRAD_ATOL = 1e-5
+
+
+def _np_tree(tree):
+    return jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
+
+
+def _resnet_case(depth, classes, size, spec, seed, rows, steps):
+    ref_mod = ref_resnet_mod.build_resnet(depth, num_classes=classes,
+                                          image_size=size, width=8)
+    params, _ = ref_mod.init(jax.random.PRNGKey(seed), (size, size, 3))
+    rng = np.random.default_rng(0)
+    batches = [{"x": rng.normal(size=(rows, size, size, 3)).astype(np.float32),
+                "y": (rng.integers(0, classes, size=rows)).astype(np.int32)}
+               for _ in range(steps)]
+    return dict(fn="resnet_step", depth=depth, classes=classes, size=size,
+                spec=spec, opt=dict(learning_rate=0.1, momentum=0.9),
+                params=_np_tree(params), batches=batches)
+
+
+@_dnn_case(8, "resnet18")
+def _build_resnet18(work):
+    return _resnet_case(18, 4, 16, dict(data=2, fsdp=2, tensor=2), 3, 8, 1)
+
+
+@_dnn_case(8, "resnet50")
+def _build_resnet50(work):
+    return _resnet_case(50, 16, 32, dict(data=2, fsdp=2, tensor=2), 0, 8, 1)
+
+
+def _assert_mesh_params(got, want, what):
+    want = dict(_leaves(want))
+    got = dict(_leaves(got))
+    assert set(got) == set(want), what
+    for name, w in want.items():
+        np.testing.assert_allclose(np.asarray(got[name]), np.asarray(w),
+                                   atol=MESH_PARAM_ATOL, rtol=MESH_PARAM_RTOL,
+                                   err_msg=f"{what} {name}")
+
+
+def _ref_steps(module, case, prec="float32"):
+    """The reference's single-device steps from the case's params."""
+    opt = ref_training.make_optimizer(**case["opt"])
+    params = jax.tree.map(jnp.asarray, case["params"])
+    st = ref_training.TrainState(params, opt.init(params), np.int32(0))
+    step = jax.jit(ref_training.make_train_step(module, opt))
+    metrics = []
+    with ref_module.matmul_precision(prec):
+        for b in case["batches"]:
+            st, m = step(st, dict(b))
+            metrics.append({k: float(v) for k, v in m.items()})
+    return st, metrics
+
+
+def test_train_step_dp_fsdp_tp_matches_single_device(dnn_mesh8):
+    """One data x fsdp x tensor (2 x 2 x 2) step of ResNet-18 (width 8,
+    16 px) on 8 gloo ranks against the reference's single-device step from
+    the same params: loss, accuracy and every param on every rank
+    (``tests/test_models.py:515``)."""
+    case, ranks = _ranks_of(dnn_mesh8, "resnet18")
+    module = ref_resnet_mod.build_resnet(18, num_classes=4, image_size=16,
+                                         width=8)
+    want, metrics = _ref_steps(module, case)
+    for r in ranks:
+        assert r["metrics"][0]["loss"] == pytest.approx(
+            metrics[0]["loss"], abs=MESH_LOSS_ATOL)
+        assert r["metrics"][0]["accuracy"] == pytest.approx(
+            metrics[0]["accuracy"], abs=MESH_ACC_ATOL)
+        _assert_mesh_params(r["params"], want.params, "params")
+
+
+def test_dryrun_resnet50_step_on_data_fsdp_tensor_mesh(dnn_mesh8):
+    """``__graft_entry__.py:dryrun_multichip``'s flagship: ResNet-50 at
+    width 8 and 32 px, one step on data=2, fsdp=2, tensor=2: a finite loss,
+    as the dryrun asks, within 1e-4 of the reference's single-device step's,
+    and the params of the port's single-device step. (Against the
+    reference's step the port's own single-device step parts past the
+    reference's tolerance here: layer4's BatchNorm sees 8 values a channel
+    at 1 x 1, and its gradient amplifies f32 sums in another order.)"""
+    case, ranks = _ranks_of(dnn_mesh8, "resnet50")
+    module = ref_resnet_mod.build_resnet(50, num_classes=16, image_size=32,
+                                         width=8)
+    _, metrics = _ref_steps(module, case)
+    port = port_resnet.build_resnet(50, num_classes=16, image_size=32, width=8)
+    opt = training.make_optimizer(**case["opt"])
+    params = jax.tree.map(torch.from_numpy, case["params"])
+    with use_device("cpu"), matmul_precision("float32"):
+        port.init(torch.Generator(), (32, 32, 3))
+        state = training.TrainState(params, opt.init(params), 0)
+        state, _ = training.make_train_step(port, opt)(state,
+                                                       case["batches"][0])
+    for r in ranks:
+        assert np.isfinite(r["metrics"][0]["loss"])
+        assert r["metrics"][0]["loss"] == pytest.approx(
+            metrics[0]["loss"], abs=MESH_LOSS_ATOL)
+        _assert_mesh_params(r["params"], state.params, "params")
+
+
+def test_param_sharding_rules_actually_shard(mesh8):
+    """The port's rules give the reference's specs leaf for leaf for the
+    flagship ResNet (``tests/test_models.py:562``), from the mesh's shape
+    alone; a rank's block of a leaf follows its coordinates."""
+    from mmlspark_tpu.parallel.mesh import MeshSpec as RefMeshSpec
+    from mmlspark_tpu.parallel.mesh import make_mesh as ref_make_mesh
+    from mmlspark_tpu_torch.parallel.mesh import Mesh, ShardSpec
+
+    ref_mod = ref_resnet_mod.build_resnet(18, num_classes=4, image_size=16,
+                                          width=8)
+    params, _ = ref_mod.init(jax.random.PRNGKey(0), (16, 16, 3))
+    ref_mesh = ref_make_mesh(RefMeshSpec(data=2, fsdp=2, tensor=2))
+    want = ref_training.param_sharding_rules(params, ref_mesh)
+    shape = {"data": 2, "fsdp": 2, "tensor": 2, "seq": 1, "expert": 1,
+             "pipe": 1}
+    got = training.param_sharding_rules(_np_tree(params), Mesh(shape=shape))
+    flat_want = {"/".join(str(getattr(k, "key", k)) for k in path): s.spec
+                 for path, s in jax.tree_util.tree_flatten_with_path(want)[0]}
+    flat_got = {n.replace(".", "/"): s.spec for n, s in
+                port_module._flatten(got).items()}
+    assert set(flat_got) == set(flat_want)
+    for n, spec in flat_want.items():
+        assert flat_got[n] == tuple(spec), n
+    sharded = [s for s in flat_got.values() if any(a is not None for a in s)]
+    assert len(sharded) >= 10
+    # rank 5 is (data 1, fsdp 0, tensor 1): the second half of cout
+    kernel = np.zeros((3, 3, 8, 16), np.float32)
+    spec = ShardSpec((None, None, "fsdp", "tensor"))
+    assert spec.local_slices(kernel.shape, Mesh(shape=shape, rank=5)) == (
+        slice(None), slice(None), slice(0, 4), slice(8, 16))
+
+
+def test_mesh_coordinates_follow_the_reference_device_order(mesh8):
+    """Rank r's coordinates are those of the reference's device r on a
+    ``jax.make_mesh`` of the same shape (row-major, data slowest)."""
+    from mmlspark_tpu.parallel.mesh import MeshSpec as RefMeshSpec
+    from mmlspark_tpu.parallel.mesh import make_mesh as ref_make_mesh
+    from mmlspark_tpu_torch.parallel.mesh import coords_of
+
+    for spec in (dict(data=2, fsdp=2, tensor=2), dict(data=1, seq=8),
+                 dict(data=2, expert=2, pipe=2), dict(data=4, tensor=2)):
+        ref_mesh = ref_make_mesh(RefMeshSpec(**spec))
+        shape = dict(ref_mesh.shape)
+        ids = np.vectorize(lambda d: d.id)(ref_mesh.devices)
+        for idx in np.ndindex(*ids.shape):
+            assert coords_of(int(ids[idx]), shape) == {
+                a: int(i) for a, i in zip(ref_mesh.axis_names, idx)}, spec
+
+
+@_dnn_case(8, "restore")
+def _build_restore(work):
+    module = port_resnet.build_resnet(18, num_classes=4, image_size=16,
+                                      width=8)
+    opt = training.make_optimizer()
+    with use_device("cpu"):
+        state = training.init_train_state(module, (16, 16, 3), opt, seed=0)
+    state = training.TrainState(state.params, state.opt_state, 7)
+    path = str(work / "ckpt")
+    port_checkpoint.save_train_state(state, path)
+    kernel = state.params["layer1"]["0"]["body"]["conv1"]["kernel"]
+    return dict(fn="restore", spec=dict(data=2, fsdp=2, tensor=2), path=path,
+                leaf="layer1.0.body.conv1.kernel", shape=tuple(kernel.shape))
+
+
+def test_restore_onto_mesh_shardings(dnn_mesh8):
+    """A single-device checkpoint restored onto a sharded ``like``: each rank
+    holds its block of the saved leaves, at the placement ``like`` has, and
+    the blocks gather back to the saved values, not ``like``'s
+    (``tests/test_models.py:626``)."""
+    case, ranks = _ranks_of(dnn_mesh8, "restore")
+    saved = port_checkpoint.load_train_state(case["path"])
+    want = saved.params["layer1"]["0"]["body"]["conv1"]["kernel"].numpy()
+    for rank, r in enumerate(ranks):
+        assert r["spec"] == (None, None, "fsdp", "tensor")
+        assert r["step"] == 7
+        np.testing.assert_array_equal(r["local"], want[r["slices"]])
+        assert r["local"].shape == (3, 3, 4, 4)
+        for (n, a), (_, b) in zip(_leaves(r["full"]), _leaves(saved.params)):
+            np.testing.assert_array_equal(a, b.numpy(), err_msg=n)
+
+
+def _tiny_mlp_pair():
+    ref = ref_module.Sequential([("dense1", ref_module.Dense(8)),
+                                 ("relu1", ref_module.relu()),
+                                 ("dense2", ref_module.Dense(3))], name="mlp")
+    params, _ = ref.init(jax.random.PRNGKey(0), (6,))
+    port = port_module.Sequential([("dense1", Dense(8)),
+                                   ("relu1", port_module.relu()),
+                                   ("dense2", Dense(3))], name="mlp")
+    port.init(torch.Generator(), (6,))
+    return (ref_module.FunctionModel(ref, params, (6,), ["dense2", "relu1"]),
+            FunctionModel(port, (6,), ["dense2", "relu1"]), _np_tree(params))
+
+
+@_dnn_case(8, "dnn_model")
+def _build_dnn_model(work):
+    import pickle
+
+    _, port, params = _tiny_mlp_pair()
+    x = np.random.default_rng(0).normal(size=(40, 6)).astype(np.float32)
+    return dict(fn="dnn_model", spec=dict(data=8), model=pickle.dumps(port),
+                params=params, x=x, partitions=2, batch=16)
+
+
+@_dnn_case(4, "dnn_encoder")
+def _build_dnn_encoder(work):
+    import pickle
+
+    ref, port = _encoders()
+    return dict(fn="dnn_model", spec=dict(data=4), model=pickle.dumps(port),
+                params=_np_tree(ref.params), x=_tokens(10), partitions=1,
+                batch=8)
+
+
+@pytest.mark.parametrize("world,name", [(8, "dnn_model"), (4, "dnn_encoder")])
+def test_dnn_model_sharded_inference_matches_single_device(world, name,
+                                                           request):
+    """``DNNModel`` under a ``MeshContext`` whose data axis is above 1
+    shards every batch the axis divides over the ranks and gathers the
+    output; the others (the 40 rows' last batch of 4 on 8 ranks, the 10
+    tokens' last of 2 on 4) run whole on every rank: the reference's
+    single-device transform on every rank, within 1e-5 for the MLP
+    (``tests/test_models.py:492``) and DEEP_BF16_TOL for the encoder in
+    the bf16 default (a rank's 2-row block sums its products in another
+    order than 8 rows do, and an intermediate can round to the next bf16
+    value), and unfused (no ``device_fn``)."""
+    case, ranks = _ranks_of(request.getfixturevalue(f"dnn_mesh{world}"), name)
+    if name == "dnn_model":
+        ref, _, _ = _tiny_mlp_pair()
+    else:
+        ref, _ = _encoders()
+    df = RefDataFrame.from_dict({"x": list(case["x"])},
+                                num_partitions=case["partitions"])
+    single = RefDNNModel(inputCol="x", outputCol="out", batchSize=case["batch"],
+                         useMesh=False).set_model(ref)
+    want = np.stack(list(single.transform(df).column("out")))
+    tol = DNN_MESH_ATOL if name == "dnn_model" else DEEP_BF16_TOL
+    for r in ranks:
+        assert r["device_fn"] is None
+        np.testing.assert_allclose(r["out"], want, atol=tol)
+
+
+def _qkv(b, t, h, d, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=(b, t, h, d)).astype(np.float32)
+                 for _ in range(3))
+
+
+def _ring_case(seq, causal, seed=0, shape=(2, 32, 2, 8)):
+    q, k, v = _qkv(*shape, seed)
+    return dict(fn="ring", spec=dict(data=1, seq=seq), q=q, k=k, v=v,
+                causal=causal)
+
+
+for _c in (False, True):
+    _dnn_case(8, f"ring_{_c}")(lambda work, c=_c: _ring_case(8, c))
+_dnn_case(2, "ring_True")(lambda work: _ring_case(2, True, 4, (1, 16, 2, 4)))
+
+
+def _ref_ring(case, n):
+    from jax.sharding import PartitionSpec as P
+
+    from mmlspark_tpu.parallel.mesh import MeshSpec as RefMeshSpec
+    from mmlspark_tpu.parallel.mesh import make_mesh as ref_make_mesh
+
+    mesh = ref_make_mesh(RefMeshSpec(data=1, seq=n),
+                         device_list=jax.devices()[:n])
+    spec = P(None, "seq", None, None)
+
+    def loss(q, k, v):
+        o = ref_attention.ring_attention(q, k, v, "seq", n,
+                                         causal=case["causal"])
+        return jnp.sum(o * o)
+
+    fwd = jax.jit(jax.shard_map(
+        lambda q, k, v: ref_attention.ring_attention(
+            q, k, v, "seq", n, causal=case["causal"]),
+        mesh=mesh, in_specs=(spec,) * 3, out_specs=spec))
+    grad = jax.jit(jax.shard_map(
+        lambda q, k, v: jax.grad(loss, argnums=(0, 1, 2))(q, k, v),
+        mesh=mesh, in_specs=(spec,) * 3, out_specs=(spec,) * 3))
+    args = [jnp.asarray(case[a]) for a in "qkv"]
+    with ref_module.matmul_precision("float32"):
+        return np.asarray(fwd(*args)), [np.asarray(g) for g in grad(*args)]
+
+
+@pytest.mark.parametrize("world,causal", [(8, False), (8, True), (2, True)])
+def test_ring_attention_matches_reference(world, causal, request):
+    """``ring_attention`` over the seq group against the reference's under
+    ``shard_map`` (and its dense attention), 2e-5; the gradients of
+    sum(o * o) through the ring's shifts against the reference's
+    ``jax.grad`` through its ``ppermute``s, and against the dense
+    attention's, 1e-5 (``tests/test_attention.py:46, 61``)."""
+    case, ranks = _ranks_of(request.getfixturevalue(f"dnn_mesh{world}"),
+                            f"ring_{causal}")
+    want, want_g = _ref_ring(case, world)
+    ranks = sorted(ranks, key=lambda r: r["me"])
+    got = np.concatenate([r["o"] for r in ranks], axis=1)
+    np.testing.assert_allclose(got, want, atol=RING_ATOL)
+    with ref_module.matmul_precision("float32"):
+        dense = np.asarray(ref_attention.dense_attention(
+            *[jnp.asarray(case[a]) for a in "qkv"], causal=causal))
+    np.testing.assert_allclose(got, dense, atol=RING_ATOL)
+    q, k, v = (torch.from_numpy(case[a]).double().requires_grad_()
+               for a in "qkv")
+    o = attention.dense_attention(q, k, v, causal=causal)
+    dense_g = torch.autograd.grad((o * o).sum(), (q, k, v))
+    for i in range(3):
+        g = np.concatenate([r["grads"][i] for r in ranks], axis=1)
+        assert np.isfinite(g).all() and np.abs(g).max() > 0
+        np.testing.assert_allclose(g, want_g[i], atol=MESH_GRAD_ATOL)
+        np.testing.assert_allclose(g, dense_g[i].numpy(), atol=MESH_GRAD_ATOL)
+
+
+@_dnn_case(8, "ring_encoder")
+def _build_ring_encoder(work):
+    with ref_module.matmul_precision("float32"):
+        ref = ref_attention.transformer_encoder(seq_len=16, dim=8, depth=1,
+                                                num_heads=1)
+    x = np.random.default_rng(3).normal(size=(2, 16, 8)).astype(np.float32)
+    return dict(fn="ring_encoder", spec=dict(data=1, seq=8),
+                enc=dict(seq_len=16, dim=8, depth=1, num_heads=1),
+                params=_np_tree(ref.params), x=x)
+
+
+def test_ring_encoder_matches_dense_encoder(dnn_mesh8):
+    """The same weights run dense on one device (the reference's encoder)
+    and ring-parallel on 8 ranks' blocks of the sequence
+    (``transformer_encoder(ring_axis="seq")``), 5e-5
+    (``tests/test_attention.py:190``)."""
+    case, ranks = _ranks_of(dnn_mesh8, "ring_encoder")
+    with ref_module.matmul_precision("float32"):
+        ref = ref_attention.transformer_encoder(**case["enc"])
+        want = np.asarray(ref.module.apply(
+            jax.tree.map(jnp.asarray, case["params"]), jnp.asarray(case["x"])))
+    got = np.concatenate([r["y"] for r in sorted(ranks,
+                                                 key=lambda r: r["me"])], 1)
+    np.testing.assert_allclose(got, want, atol=RING_ENCODER_ATOL)
+
+
+@_dnn_case(8, "tagger")
+def _build_tagger(work):
+    module = ref_module.Sequential([
+        ("embed", ref_attention.Embed(20, 8)),
+        ("bilstm", ref_attention.BiLSTM(8)),
+        ("tags", ref_module.Dense(2)),
+    ], name="tagger")
+    params, _ = module.init(jax.random.PRNGKey(0), (10,))
+    return dict(fn="tagger", spec=dict(data=-1), params=_np_tree(params),
+                steps=60)
+
+
+def test_tagger_trains_per_token_labels_on_data_axis(dnn_mesh8):
+    """The per-token BiLSTM tagger trained on ``data=-1`` (8 ranks, 2 rows
+    each of 16 a step): the reference's gates (loss below a fifth of the
+    first, accuracy above 0.95, ``tests/test_attention.py:320``), and its
+    first step's loss within 1e-4 of the reference's single-device step
+    from the same params and batch."""
+    case, ranks = _ranks_of(dnn_mesh8, "tagger")
+    module = ref_module.Sequential([
+        ("embed", ref_attention.Embed(20, 8)),
+        ("bilstm", ref_attention.BiLSTM(8)),
+        ("tags", ref_module.Dense(2)),
+    ], name="tagger")
+    toks = np.random.default_rng(0).integers(0, 20, size=(16, 10))
+    _, metrics = _ref_steps(module, dict(
+        opt=dict(learning_rate=0.2, momentum=0.9), params=case["params"],
+        batches=[{"x": toks, "y": (toks >= 10).astype(np.int32)}]),
+        prec="bfloat16")
+    for r in ranks:
+        first, last = r["metrics"][0], r["metrics"][-1]
+        assert first["loss"] == pytest.approx(metrics[0]["loss"], rel=1e-4)
+        assert last["loss"] < first["loss"] * 0.2, (first, last)
+        assert last["accuracy"] > 0.95, last
+        assert r["metrics"] == ranks[0]["metrics"]
+
+
+def _pipe_stages(s, d, seed):
+    rng = np.random.default_rng(seed)
+    return [{"w": (rng.normal(size=(d, d)) / np.sqrt(d)).astype(np.float32),
+             "b": (rng.normal(size=(d,)) * .1).astype(np.float32)}
+            for _ in range(s)]
+
+
+def _pipe_case(s, m, seed, b=4, d=8):
+    xs = np.random.default_rng(seed + 1).normal(size=(m, b, d)).astype(
+        np.float32)
+    return dict(fn="pipeline", spec=dict(data=1, pipe=s),
+                stages=_pipe_stages(s, d, seed), xs=xs)
+
+
+_dnn_case(8, "pipe")(lambda work: _pipe_case(8, 16, 0))
+_dnn_case(8, "pipe_few")(lambda work: _pipe_case(8, 3, 4, b=2))
+_dnn_case(2, "pipe")(lambda work: _pipe_case(2, 5, 6))
+
+
+@pytest.mark.parametrize("world,name", [(8, "pipe"), (8, "pipe_few"),
+                                        (2, "pipe")])
+def test_pipeline_matches_sequential_with_grads(world, name, request):
+    """The GPipe schedule over ``pipe`` against the stages applied in turn
+    (1e-5, ``tests/test_parallel_pp_ep.py:51``, and with fewer microbatches
+    than stages, ``:126``) on every rank, and the reference's
+    ``pipeline_apply`` under ``shard_map``; each rank's stage gradients of
+    sum(y * y), through the shifts' backward, against autograd of the
+    sequential stages (``:65``: finite and non-zero for every stage)."""
+    from jax.sharding import PartitionSpec as P
+
+    from mmlspark_tpu.parallel.mesh import MeshSpec as RefMeshSpec
+    from mmlspark_tpu.parallel.mesh import make_mesh as ref_make_mesh
+    from mmlspark_tpu.parallel.pipeline_parallel import (
+        pipeline_apply as ref_pipeline_apply)
+    from mmlspark_tpu.parallel.pipeline_parallel import (
+        stack_stage_params as ref_stack)
+
+    case, ranks = _ranks_of(request.getfixturevalue(f"dnn_mesh{world}"), name)
+    stages = [{k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
+              for p in case["stages"]]
+    h = torch.from_numpy(case["xs"])
+    for p in stages:
+        h = torch.tanh(h @ p["w"] + p["b"])
+    grads = torch.autograd.grad((h * h).sum(), [p[k] for p in stages
+                                                for k in ("w", "b")])
+    mesh = ref_make_mesh(RefMeshSpec(data=1, pipe=world),
+                         device_list=jax.devices()[:world])
+    f = jax.jit(jax.shard_map(
+        lambda p, x: ref_pipeline_apply(lambda q, y: jnp.tanh(
+            y @ q["w"] + q["b"]), p, x, "pipe", world),
+        mesh=mesh, in_specs=(P("pipe"), P()), out_specs=P()))
+    ref = np.asarray(f(ref_stack([jax.tree.map(jnp.asarray, p)
+                                  for p in case["stages"]]),
+                       jnp.asarray(case["xs"])))
+    for r in ranks:
+        np.testing.assert_allclose(r["y"], h.detach().numpy(), atol=PIPE_ATOL)
+        np.testing.assert_allclose(r["y"], ref, atol=PIPE_ATOL)
+        s = r["stage"]
+        for k, g in zip(("w", "b"), grads[2 * s:2 * s + 2]):
+            assert np.isfinite(r["grads"][k]).all()
+            assert np.abs(r["grads"][k]).max() > 0
+            np.testing.assert_allclose(r["grads"][k], g.numpy(),
+                                       atol=MESH_GRAD_ATOL)
+    assert sorted(r["stage"] for r in ranks) == list(range(world))
+
+
+@_dnn_case(8, "pipe_blocks")
+def _build_pipe_blocks(work):
+    per_stage = []
+    with ref_module.matmul_precision("float32"):
+        for i in range(8):
+            p, _ = ref_attention.transformer_block(16, 2).init(
+                jax.random.key(i), (4, 16))
+            per_stage.append(_np_tree(p))
+    xs = np.random.default_rng(9).normal(size=(4, 2, 4, 16)).astype(
+        np.float32)
+    return dict(fn="pipe_blocks", spec=dict(data=1, pipe=8), dim=16, heads=2,
+                in_shape=(4, 16), stages=per_stage, xs=xs)
+
+
+def test_pipeline_of_transformer_blocks(dnn_mesh8):
+    """8 transformer blocks, one a stage, through the pipeline against the
+    reference's blocks applied in turn, 1e-4
+    (``tests/test_parallel_pp_ep.py:88``)."""
+    case, ranks = _ranks_of(dnn_mesh8, "pipe_blocks")
+    block = ref_attention.transformer_block(16, 2)
+    want = []
+    with ref_module.matmul_precision("float32"):
+        for m in range(case["xs"].shape[0]):
+            h = jnp.asarray(case["xs"][m])
+            for p in case["stages"]:
+                h = block.apply(jax.tree.map(jnp.asarray, p), h)
+            want.append(np.asarray(h))
+    for r in ranks:
+        np.testing.assert_allclose(r["y"], np.stack(want),
+                                   atol=PIPE_BLOCKS_ATOL)
+
+
+def _moe_case(block):
+    with ref_module.matmul_precision("float32"):
+        if block:
+            mod = ref_attention.transformer_block(16, 2, moe_experts=8,
+                                                  moe_capacity_factor=2.0)
+            params, _ = mod.init(jax.random.key(0), (12, 16))
+            x = np.random.default_rng(4).normal(size=(2, 12, 16))
+        else:
+            mod = ref_moe.MoE(num_experts=8, capacity_factor=2.0)
+            params, _ = mod.init(jax.random.key(1), (32, 16))
+            x = np.random.default_rng(1).normal(size=(2, 32, 16))
+    return dict(fn="moe", spec=dict(data=1, expert=8), block=block, dim=16,
+                experts=8, cf=2.0, in_shape=tuple(x.shape[1:]),
+                params=_np_tree(params), x=x.astype(np.float32))
+
+
+_dnn_case(8, "moe")(lambda work: _moe_case(False))
+_dnn_case(8, "moe_block")(lambda work: _moe_case(True))
+
+
+@pytest.mark.parametrize("name", ["moe", "moe_block"])
+def test_moe_expert_sharded_matches_single_device(dnn_mesh8, name):
+    """The switch MoE (and a transformer block with it) with its experts
+    split one a rank over ``expert=8`` against the reference's
+    single-device forward, 1e-5 (``tests/test_parallel_pp_ep.py:152,
+    169``); each rank holds one expert's ``w1``."""
+    case, ranks = _ranks_of(dnn_mesh8, name)
+    with ref_module.matmul_precision("float32"):
+        if case["block"]:
+            mod = ref_attention.transformer_block(16, 2, moe_experts=8,
+                                                  moe_capacity_factor=2.0)
+        else:
+            mod = ref_moe.MoE(num_experts=8, capacity_factor=2.0)
+        want = np.asarray(jax.jit(mod.apply)(
+            jax.tree.map(jnp.asarray, case["params"]), jnp.asarray(case["x"])))
+    for r in ranks:
+        assert r["w1"][0] == 1
+        np.testing.assert_allclose(r["y"], want, atol=MOE_MESH_ATOL)
+
+
+def _encoder_case(spec, f32, steps=3):
+    ref = ref_attention.transformer_encoder(**ENC, seed=0)
+    params = _np_params(jax.tree.map(np.asarray, ref.params),
+                        np.random.default_rng(0))
+    rng = np.random.default_rng(1)
+    trace = jax.tree.map(lambda a: (0.01 * rng.standard_normal(a.shape))
+                         .astype(np.float32), params)
+    return dict(fn="encoder_step", spec=spec, enc=ENC, f32=f32,
+                opt=TRAIN_OPT, params=params, trace=trace,
+                batches=_train_batches(steps, rows=4))
+
+
+_dnn_case(4, "encoder_f32")(lambda work: _encoder_case(dict(fsdp=2, tensor=2),
+                                                        True))
+_dnn_case(4, "encoder_bf16")(lambda work: _encoder_case(
+    dict(fsdp=2, tensor=2), False))
+_dnn_case(2, "encoder_f32")(lambda work: _encoder_case(dict(tensor=2), True))
+
+
+@pytest.mark.parametrize("world,name", [(4, "encoder_f32"),
+                                        (4, "encoder_bf16"),
+                                        (2, "encoder_f32")])
+def test_encoder_train_step_splits_heads_over_tensor(world, name, request):
+    """Three masked per-token steps of the encoder on fsdp=2 x tensor=2
+    (and on tensor=2 alone): each rank holds half the heads' q/k/v columns
+    (and half the rows of a kernel under fsdp), and the loss and the
+    params and traces after every step match the reference's
+    single-device steps from the same params, trace and batches: f32 at
+    the mesh test's tolerances; the bf16 default at DEEP_BF16_TOL of each
+    leaf's max |value|, as ``test_train_step_matches_reference``."""
+    case, ranks = _ranks_of(request.getfixturevalue(f"dnn_mesh{world}"), name)
+    ref = ref_attention.transformer_encoder(**ENC, seed=0)
+    opt = ref_training.make_optimizer(**TRAIN_OPT)
+    st = ref_training.TrainState(
+        jax.tree.map(jnp.asarray, case["params"]),
+        _with_trace(opt.init(case["params"]),
+                    jax.tree.map(jnp.asarray, case["trace"])), np.int32(0))
+    step = jax.jit(ref_training.make_train_step(ref.module, opt))
+    fsdp = case["spec"].get("fsdp", 1)
+    prec = "float32" if case["f32"] else "bfloat16"
+    for i, b in enumerate(case["batches"]):
+        with ref_module.matmul_precision(prec):
+            st, m = step(st, dict(b))
+        for r in ranks:
+            assert r["blocks"]["wq"] == (ENC["dim"] // fsdp, ENC["dim"] // 2)
+            assert r["blocks"]["fc1"] == (ENC["dim"] // fsdp, ENC["dim"] * 2)
+            got = r["metrics"][i]
+            if case["f32"]:
+                assert got["loss"] == pytest.approx(float(m["loss"]),
+                                                    abs=MESH_LOSS_ATOL)
+                assert got["accuracy"] == pytest.approx(
+                    float(m["accuracy"]), abs=MESH_ACC_ATOL)
+                _assert_mesh_params(r["params"][i], st.params, f"params {i}")
+                _assert_mesh_params(r["trace"][i], _find_trace(st.opt_state),
+                                    f"trace {i}")
+            else:
+                assert abs(got["loss"] - float(m["loss"])) <= \
+                    DEEP_BF16_TOL * abs(float(m["loss"]))
+                _assert_tree_close(r["params"][i], st.params, DEEP_BF16_TOL,
+                                   f"params {i}")
+    assert all(r["collectives"] == ranks[0]["collectives"] > 0
+               for r in ranks)
+
+
+@_dnn_case(4, "resume")
+def _build_resume(work):
+    case = _encoder_case(dict(data=2, tensor=2), True, steps=4)
+    return dict(case, fn="resume", path=str(work / "loop_ckpt"), stop=2)
+
+
+def test_mesh_train_loop_resume_matches_uninterrupted(dnn_mesh4):
+    """``run_train_loop`` on data=2 x tensor=2: preempted after 2 of 4
+    steps (the state gathered and written by rank 0), then resumed from
+    the checkpoint onto the mesh, gives the uninterrupted run's params and
+    trace bit for bit on every rank."""
+    case, ranks = _ranks_of(dnn_mesh4, "resume")
+    assert os.path.exists(case["path"])
+    for r in ranks:
+        assert r["runs"] == (2, True, 2, 4)
+        assert np.isfinite(r["loss"])
+        for a, b in zip(r["full"], r["rest"]):
+            for (n, x), (_, y) in zip(_leaves(a), _leaves(b)):
+                np.testing.assert_array_equal(x, y, err_msg=n)
+
+
+@_dnn_case(4, "collectives")
+def _build_collectives(work):
+    return dict(fn="collectives", spec=dict(data=2, tensor=2))
+
+
+def test_mesh_collectives_and_their_backwards(dnn_mesh4):
+    """Each differentiable collective on data=2 x tensor=2, on every axis,
+    the batch group and the world: the all-gather's forward and its
+    backward (the reduce-scatter of the cotangent), the reduce-scatter,
+    the all-reduce and its backward (the sum of every rank's cotangent),
+    the ring shift and its backward (the reverse shift), and a bf16
+    gather's bits."""
+    case, ranks = _ranks_of(dnn_mesh4, "collectives")
+    x0 = np.arange(6, dtype=np.float64).reshape(2, 3)
+    for axis in ("data", "tensor", "batch", "world"):
+        per = {r[axis]["me"]: r[axis] for r in ranks}
+        n = ranks[0][axis]["n"]
+        for me, r in per.items():
+            xs = [x0 * (i + 1) for i in range(n)]
+            np.testing.assert_array_equal(r["g"], np.concatenate(xs, 1))
+            w = np.arange(2 * 3 * n, dtype=np.float64).reshape(2, 3 * n)
+            np.testing.assert_array_equal(r["gx"], n * w[:, 3 * me:3 * me + 3])
+            np.testing.assert_array_equal(r["r"], sum(xs))
+            np.testing.assert_array_equal(r["a"], sum(xs))
+            np.testing.assert_array_equal(
+                r["ga"], np.full((2, 3), sum(i + 2 for i in range(n)),
+                                 np.float64))
+            np.testing.assert_array_equal(r["s"], xs[(me - 1) % n])
+            np.testing.assert_array_equal(r["gs"], np.full(
+                (2, 3), (me + 1) % n + 3, np.float64))
+            np.testing.assert_array_equal(r["h"], np.concatenate(xs, 0))

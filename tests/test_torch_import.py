@@ -284,22 +284,34 @@ def test_entry_points_raise_without_cuda(no_cuda):
 
 @pytest.mark.parametrize("option", ["mesh"])
 def test_later_slices_raise_not_implemented(option):
-    """What a later slice still owns: a mesh with a tensor or fsdp axis
-    larger than 1 (the DNN half of ROADMAP A9), from ``make_mesh`` and from
-    a fit; a ``mesh=`` that is not the port's ``Mesh`` is a TypeError."""
+    """What a later slice still owns: a GBDT fit on a mesh with a tensor,
+    fsdp, seq, expert or pipe axis larger than 1 (ROADMAP A9k: the fits
+    shard rows over the data axis only), and a sharded fit's query groups
+    and checkpoints (A9j); a ``mesh=`` that is not the port's ``Mesh`` is a
+    TypeError. ``make_mesh`` takes every axis: one process cannot hold a
+    mesh of two."""
     from mmlspark_tpu_torch.gbdt import TrainParams, train
     from mmlspark_tpu_torch.parallel.mesh import Mesh, MeshSpec, make_mesh
 
     X = np.zeros((64, 2))
     y = np.zeros(64)
-    for axis in ("tensor", "fsdp"):
-        with pytest.raises(NotImplementedError, match="A9"):
+    for axis in ("tensor", "fsdp", "seq", "expert", "pipe"):
+        with pytest.raises(ValueError, match="needs 2 devices"):
             make_mesh(MeshSpec(data=1, **{axis: 2}), device="cpu")
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(NotImplementedError, match="A9k"):
             train(TrainParams(), X, y, device="cpu",
                   mesh=Mesh(shape={"data": 1, axis: 2}))
     with pytest.raises(TypeError, match="Mesh"):
         train(TrainParams(), X, y, device="cpu", mesh=object())
+    # the options a sharded fit refuses (ROADMAP A9j): query groups and
+    # checkpoints
+    one = Mesh(shape={"data": 1})
+    with pytest.raises(NotImplementedError, match="A9j"):
+        train(TrainParams(objective="lambdarank"), X, y, device="cpu",
+              groups=np.full(8, 8), mesh=one)
+    with pytest.raises(NotImplementedError, match="A9j"):
+        train(TrainParams(), X, y, device="cpu", mesh=one,
+              checkpoint=object())
 
 
 _LOAD_PROBE = r"""
@@ -1024,3 +1036,53 @@ def test_graph_module_two_input_bert_graph_matches_reference():
     assert port.argument_names() == ref.argument_names() == \
         ["input_ids", "attention_mask"]
     assert port.module.init(None, (16,)) == (32,)
+
+
+_MESH_RANK_PROBE = r'''
+import sys
+
+import numpy as np
+
+
+def run(mesh):
+    """A sharded encoder step on tensor=2 and a ring attention over seq=2,
+    then the modules this rank process imported."""
+    import torch
+
+    from mmlspark_tpu_torch.models import (ring_attention,
+                                           transformer_encoder)
+    from mmlspark_tpu_torch.models import training as T
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    tens = make_mesh(MeshSpec(data=1, tensor=2), device="cpu",
+                     backend="gloo")
+    model = transformer_encoder(seq_len=8, dim=16, depth=1, num_heads=2,
+                                vocab_size=20, num_classes=3)
+    opt = T.make_optimizer()
+    st = T.init_train_state(model.module, (8,), opt, mesh=tens)
+    rng = np.random.default_rng(0)
+    st, m = T.compile_train_step(model.module, opt, mesh=tens)(
+        st, {"x": rng.integers(0, 20, (2, 8)),
+             "y": rng.integers(0, 3, (2, 8)).astype(np.int32)})
+    seq = make_mesh(MeshSpec(data=1, seq=2), device="cpu", backend="gloo")
+    q = torch.randn(1, 4, 1, 8, generator=torch.Generator().manual_seed(0))
+    o = ring_attention(q, q, q, seq, causal=True)
+    bad = sorted(k for k in sys.modules
+                 if k in ("jax", "jaxlib", "mmlspark_tpu")
+                 or k.startswith(("jax.", "jaxlib.", "mmlspark_tpu.")))
+    return {"bad": bad, "loss": float(m["loss"]),
+            "finite": bool(torch.isfinite(o).all())}
+'''
+
+
+def test_mesh_rank_processes_import_no_jax_and_no_reference(tmp_path):
+    """A rank of the DNN mesh (a sharded train step and ring attention in
+    2 gloo ranks) runs on the port alone."""
+    from mmlspark_tpu_torch.parallel.launch import spawn
+
+    (tmp_path / "mesh_probe.py").write_text(_MESH_RANK_PROBE)
+    ranks = spawn("mesh_probe:run", 2, tmp_path, threads=1, timeout=120,
+                  path=[str(tmp_path)])
+    for r in ranks:
+        assert r["bad"] == [], r["bad"]
+        assert np.isfinite(r["loss"]) and r["finite"]
