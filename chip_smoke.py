@@ -29,7 +29,7 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    have launched, counted through the CUDA graph's replays. Logs the fit's,
    the native binning's and the loop's seconds and peak memory. The scores
    are held against the host f64 traversal of the same model, and the
-   first three trees of a card scan on 262,144 of the rows against the
+   first three trees of a card scan on 131,072 of the rows against the
    CPU's forced scan (``MMLSPARK_TPU_SCAN_TRAIN=1``) on them. Then K1 and
    K2 on the fit's own data: the binned matrix at the root (every row), the
    first tree's first K2 compaction bit for bit, K1 on that buffer, and
@@ -63,7 +63,7 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    on the fit's own keys and gradients, card against CPU bit for bit and
    timed; each model's transform against the host f64 traversal and its
    train AUC; the first three trees refit on the card and on the CPU over
-   the first 262,144 rows on the same route (the native engine off: a cut
+   the first 131,072 rows on the same route (the native engine off: a cut
    that small would take it; goss and rf against the CPU's forced scan);
 3c. ranker_main: ``LightGBMRanker`` on seeded MSLR-WEB30K-shaped data
    (2,097,152 rows x 136 features, relevance 0-4, queries of 1-1,251
@@ -73,7 +73,7 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    iteration, the valid NDCG@10 per iteration and the best iteration, K1 and
    K2 launches, peak device memory; the card's iteration-0 g and h against
    the CPU's (``LAMBDARANK_RTOL``/``ATOL``) and the first tree against a CPU
-   refit on the first whole queries of 131,072 rows, the transform against
+   refit on the first whole queries of 65,536 rows, the transform against
    the host traversal, the fused transform bit for bit;
 3d. categorical_main: ``LightGBMClassifier`` with six categorical
    slots (``categoricalSlotIndexes``; catSmooth 10, catL2 10,
@@ -86,7 +86,7 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    and the holdout AUC (262,144 more rows) against the same fit without
    categorical slots. Gates: (a) K1 and K2 on the fit's first-tree inputs
    (``hist_on_path``); (b) a set split of >= 2 categories in the first
-   tree; (c) the first 3 trees equal a CPU refit on 262,144 rows
+   tree; (c) the first 3 trees equal a CPU refit on 131,072 rows
    (features, bins, bin words, category sets; leaf values rtol 1e-5); (d)
    the card's ``DeviceEnsemble`` within rtol 1e-5, atol 1e-5 of the host
    traversal on 65,536 rows; (e) the fused transform bit for bit; (f)
@@ -344,7 +344,7 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    then here, alone on the card, the sharded fused fit on a one-rank NCCL
    group as the port grows it (no compaction under a mesh) and with each
    histogram's rows compacted first, timed (``mesh_compaction_ab``);
-   mesh_sparse: ``train_sparse(mesh=)`` on the sparse cell, 4 iterations;
+   mesh_sparse: ``train_sparse(mesh=)`` on the sparse cell, 2 iterations;
    mesh_vw: ``train_linear(mesh=)`` on vw_main's rows, adaptive and FTRL, 2
    passes. Gates: every rank's model byte for byte; the GBDT models byte
    for byte the single-card fits on the same routes (a difference prints
@@ -2572,11 +2572,14 @@ DENSE_VARIANTS = {
 # the per-iteration loop over the fused grower
 DENSE_VARIANT_ROUTES = {"goss": "scan", "dart": "fused", "rf": "scan"}
 # DART's fit runs 10 iterations: its host traversals of the dropped trees
-# grow with the forest (~40 s at 20), and the script keeps to its time
+# grow with the forest (~40 s at 20), and the script keeps to its time;
+# fewer would put 2,097,152 rows x iterations under the native engine's
+# 2e7 and take the fit off the card
 DENSE_VARIANT_ITERS = {"dart": 10}
 # rows of the card-against-CPU refits of the new paths: a CPU refit of the
-# full 2,097,152 rows costs minutes
-N_CUT = 262_144
+# full 2,097,152 rows costs minutes (262,144 until the script neared its
+# time limit on a slow host)
+N_CUT = 131_072
 ITERS_REFIT = 3
 
 
@@ -2750,7 +2753,7 @@ def mslr_like(n: int, seed: int):
 N_RANK = 2_097_152
 F_RANK = 136
 # rows of the ranker's card-against-CPU checks (whole queries)
-N_RANK_CUT = 131_072
+N_RANK_CUT = 65_536
 # the card's LambdaRank g and h against the CPU's on the same scores: the
 # [m, G, G] pairwise sums reduce in another order on each device
 LAMBDARANK_RTOL, LAMBDARANK_ATOL = 1e-5, 1e-6
@@ -6078,7 +6081,7 @@ MESH_MAX_CARDS = 4
 MESH_LAUNCH_TIMEOUT = 300     # seconds a launch of ranks may take, then killed
 MESH_ITERS_DENSE = 20
 MESH_PER_SPLIT_TREES = 3
-MESH_ITERS_SPARSE = 4
+MESH_ITERS_SPARSE = 2
 MESH_VW_PASSES = 2
 MESH_F64_REL = 1e-9           # K1/K4 f64 entries against plain, of sum |v|
 
@@ -6859,6 +6862,14 @@ MESH_BF16_REL = TRAIN_GRAD_REL_L2
 MESH_ORDER_RATIO = 2.0
 MESH_MOE_ATOL = 1e-5          # tests/test_parallel_pp_ep.py:152
 MESH_PIPE_ATOL = 1e-4         # tests/test_parallel_pp_ep.py:88
+# the fusion planner over the mesh (parallel/shardplan.py, pipeplan.py):
+# the encoder as one fused DNNModel segment over 64 rows (16 a data rank),
+# the dense cell's forest segment over N_SCORE rows, and the encoder ->
+# Dense head chain in micro-batches of 16 for the pipe
+MESH_FUSED_ROWS = 64
+MESH_FUSED_PIPE_BATCH = 16
+MESH_FUSED_HEAD = 2           # the head's outputs a token
+SHARD_ATOL = 1e-5             # __graft_entry__.py:166: sharded vs unsharded
 
 
 def dnn_mesh_launches(torch) -> list:
@@ -6880,11 +6891,14 @@ def dnn_mesh_specs(world: int) -> dict:
     the steps, then one axis of 4 for each of the others; a one-rank run
     takes the steps only, every axis 1."""
     if world == 1:
-        return {"mesh_train": {"data": 1}, "mesh_resnet": {"data": 1}}
+        return {"mesh_train": {"data": 1}, "mesh_resnet": {"data": 1},
+                "mesh_fused": {"data": 1}}
     return {"mesh_train": {"fsdp": 2, "tensor": 2},
             "mesh_resnet": {"fsdp": 2, "tensor": 2},
             "mesh_ring": {"seq": world}, "mesh_moe": {"expert": world},
-            "mesh_pipe": {"pipe": world}, "mesh_dnn_model": {"data": world}}
+            "mesh_pipe": {"pipe": world}, "mesh_dnn_model": {"data": world},
+            "mesh_fused": {"data": world},
+            "mesh_fused_pipe": {"data": world // 2, "pipe": 2}}
 
 
 def _dnn_path(name: str) -> str:
@@ -7037,13 +7051,14 @@ def dnn_mesh_refs(torch, smi) -> dict:
     ranks start and kept in the work directory: each step's params of the
     encoder (f32 and bf16) and of ResNet-50 (f32), the ring's f64 dense
     forward and input gradient with the f32 dense forward's errors against
-    them, the MoE layer's f32 forward on its tapped input, and the
-    pipeline's sequential forward."""
+    them, the MoE layer's f32 forward on its tapped input, the pipeline's
+    sequential forward and the fused segments' unsharded outputs
+    (``fused_refs``)."""
     from mmlspark_tpu_torch.models import matmul_precision
     from mmlspark_tpu_torch.models.resnet import resnet
 
     t0 = time.perf_counter()
-    refs = {"train": {}}
+    refs = {"fused": fused_refs(torch, smi), "train": {}}
     model = _train_model(torch)
     for prec in ("float32", "bfloat16"):
         refs["train"][prec] = _steps_single(torch, model.module, (SEQ_LEN,),
@@ -7418,9 +7433,198 @@ def _rank_dnn_model(torch, mesh) -> dict:
             "mean_abs_diff": float(diff.mean())}
 
 
+def _fused_encoder(batch: int, head: bool = False):
+    """transformer_main's encoder as a ``DNNModel`` over ``MESH_FUSED_ROWS``
+    seeded rows of token ids in one partition, fused (with a Dense head
+    over its output, ``head``: the chain the pipe cuts); returns (fused
+    model, frame)."""
+    import torch
+
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.models import (Dense, DNNModel, FunctionModel,
+                                           Sequential, transformer_encoder)
+
+    model = transformer_encoder(seq_len=SEQ_LEN, dim=SEQ_DIM, depth=SEQ_DEPTH,
+                                num_heads=SEQ_HEADS, vocab_size=SEQ_VOCAB,
+                                seed=0)
+    stages = [DNNModel(inputCol="tokens", outputCol="emb", batchSize=batch)
+              .set_model(model)]
+    if head:
+        mod = Sequential([("head", Dense(MESH_FUSED_HEAD))], name="head")
+        mod.init(torch.Generator().manual_seed(SEED + 47), (SEQ_LEN, SEQ_DIM))
+        stages.append(DNNModel(inputCol="emb", outputCol="logits",
+                               batchSize=batch).set_model(
+            FunctionModel(mod, (SEQ_LEN, SEQ_DIM), name="head")))
+    ids = np.random.default_rng(SEED + 46).integers(
+        0, SEQ_VOCAB, (MESH_FUSED_ROWS, SEQ_LEN))
+    df = DataFrame.from_dict({"tokens": ids}, num_partitions=1)
+    return PipelineModel(stages).fuse(), df
+
+
+def _fused_gbdt():
+    """The dense cell's classifier (saved by ``main``) fused over the
+    N_SCORE rows it was scored on, in one partition."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel, PipelineStage
+
+    model = PipelineStage.load(_dnn_path("gbdt_model"))
+    df = DataFrame.from_dict({"features": np.load(_dnn_path("gbdt_X.npy"))},
+                             num_partitions=1)
+    return PipelineModel([model]).fuse(), df
+
+
+_GBDT_COLS = ("rawPrediction", "probability")
+
+
+def _gbdt_out(df) -> dict:
+    return {c: np.stack(list(df.column(c))) for c in _GBDT_COLS}
+
+
+def _timed(torch, fn, device=None):
+    """(``fn()``, its wall seconds), the card synchronised around it."""
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0
+
+
+def fused_save_gbdt(model, X) -> None:
+    """Keep the dense cell's classifier and its scoring rows for the fused
+    mesh phases (``_fused_gbdt``)."""
+    model.save(_dnn_path("gbdt_model"))
+    np.save(_dnn_path("gbdt_X.npy"), np.ascontiguousarray(X, np.float32))
+
+
+def fused_refs(torch, smi) -> dict:
+    """The fused mesh phases' single-card references, unsharded on this
+    card: the encoder segment's output over its 64 rows and the forest
+    segment's over N_SCORE rows, each timed after a warm call."""
+    out = {}
+    fused, df = _fused_encoder(MESH_FUSED_ROWS)
+    fused.transform(df)
+    emb, out["encoder_seconds"] = _timed(torch, lambda: _emb(
+        fused.transform(df)))
+    np.save(_dnn_path("fused_enc.npy"), emb)
+    del fused, emb
+    fused, df = _fused_gbdt()
+    fused.transform(df)
+    got, out["gbdt_seconds"] = _timed(torch, lambda: _gbdt_out(
+        fused.transform(df)))
+    for c, v in got.items():
+        np.save(_dnn_path(f"fused_gbdt_{c}.npy"), v)
+    log({"phase": "mesh_fused_refs", "card": smi, **out})
+    return out
+
+
+def _diff(got: np.ndarray, want: np.ndarray) -> dict:
+    return {"max_abs_diff": float(np.abs(got.astype(np.float64)
+                                         - want).max()),
+            "bitwise": bool(np.array_equal(got, want))}
+
+
+def _fused_report(torch, fused, mesh_stats) -> dict:
+    from mmlspark_tpu_torch.parallel import mesh as pm
+
+    st = fused.fusion_stats()
+    return {"fallbacks": st["fallbacks"], "sharding": st.get("sharding"),
+            "pipeline": st.get("pipeline"), "collectives": pm.stats.calls,
+            "collective_bytes": pm.stats.bytes,
+            "collective_host_ms": pm.stats.ms, **mesh_stats}
+
+
+def _rank_fused(torch, mesh) -> dict:
+    """mesh_fused on this rank: the encoder segment data-sharded (K5 on the
+    rank's rows), the forest segment data-sharded over the same mesh and
+    feature-sharded over data x tensor 2, each against the single card's
+    unsharded output. A one-rank mesh has one shard: the unsharded path."""
+    from mmlspark_tpu_torch.parallel import mesh as pm
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, barrier, make_mesh
+
+    world = mesh.axis_size("world")
+    out = {}
+    fused, df = _fused_encoder(MESH_FUSED_ROWS)
+    fused.set_mesh(mesh)
+    fused.set_tuning(sharding={"DNNModel": "data"})
+    fused.transform(df)
+    zero_attn_launches()
+    pm.stats.reset()
+    with _AttnRecorder() as rec:
+        emb, secs = _timed(torch, lambda: _emb(fused.transform(df)),
+                           mesh.device)
+    out["encoder"] = {
+        "seconds": secs, "launches": read_attn_launches()["flash_attn"],
+        "k5_q_shapes": sorted(rec.fwd_shapes),
+        **_diff(emb, np.load(_dnn_path("fused_enc.npy"))),
+        **_fused_report(torch, fused, {})}
+    if mesh.rank == 0 and "fwd" in rec.first:
+        torch.save([x.cpu() for x in rec.first["fwd"]],
+                   _dnn_path(f"fused_attn_stash_{world}.pt"))
+    del fused, emb, rec
+    torch.cuda.empty_cache()
+    fused, df = _fused_gbdt()
+    want = {c: np.load(_dnn_path(f"fused_gbdt_{c}.npy")) for c in _GBDT_COLS}
+    specs = [("data", mesh)]
+    if world > 1:
+        specs.append(("feature", make_mesh(
+            MeshSpec(data=world // 2, tensor=2), device=mesh.device,
+            backend=mesh.backend)))
+    for spec, m in specs:
+        barrier(m)
+        fused.set_mesh(m)
+        fused.set_tuning(sharding={"LightGBMClassificationModel": spec})
+        fused.transform(df)
+        pm.stats.reset()
+        got, secs = _timed(torch, lambda: _gbdt_out(fused.transform(df)),
+                           mesh.device)
+        diffs = {c: _diff(got[c], want[c]) for c in _GBDT_COLS}
+        out[f"gbdt_{spec}"] = {
+            "seconds": secs, "max_abs_diff": max(
+                d["max_abs_diff"] for d in diffs.values()),
+            "bitwise": all(d["bitwise"] for d in diffs.values()),
+            **_fused_report(torch, fused, {})}
+    return out
+
+
+def _rank_fused_pipe(torch, mesh) -> dict:
+    """mesh_fused_pipe on this rank: the encoder -> Dense head chain in
+    micro-batches of 16, serial on this rank and then pipelined over data
+    x pipe 2 (stage 0 the encoder, K5 on its ranks; stage 1 the head),
+    bitwise the serial chain."""
+    from mmlspark_tpu_torch.parallel import mesh as pm
+
+    fused, df = _fused_encoder(MESH_FUSED_PIPE_BATCH, head=True)
+    fused.transform(df)
+
+    def both(frame):
+        return {"emb": _emb(frame),
+                "logits": np.stack(list(frame.column("logits")))}
+
+    want, serial_s = _timed(torch, lambda: both(fused.transform(df)),
+                            mesh.device)
+    fused.set_mesh(mesh)
+    fused.set_tuning(pipe_depth=2)
+    fused.transform(df)
+    zero_attn_launches()
+    pm.stats.reset()
+    with _AttnRecorder() as rec:
+        got, secs = _timed(torch, lambda: both(fused.transform(df)),
+                           mesh.device)
+    return {"seconds": secs, "serial_seconds": serial_s,
+            "launches": read_attn_launches()["flash_attn"],
+            "k5_q_shapes": sorted(rec.fwd_shapes),
+            "bitwise": all(np.array_equal(got[k], want[k]) for k in want),
+            "max_abs_diff": max(_diff(got[k], want[k])["max_abs_diff"]
+                                for k in want),
+            **_fused_report(torch, fused, {})}
+
+
 _DNN_RANK_PHASES = {"mesh_train": _rank_train, "mesh_resnet": _rank_resnet,
                     "mesh_ring": _rank_ring, "mesh_moe": _rank_moe,
-                    "mesh_pipe": _rank_pipe, "mesh_dnn_model": _rank_dnn_model}
+                    "mesh_pipe": _rank_pipe, "mesh_dnn_model": _rank_dnn_model,
+                    "mesh_fused": _rank_fused,
+                    "mesh_fused_pipe": _rank_fused_pipe}
 
 
 def dnn_mesh_rank(mesh, label: str, work: str) -> dict:
@@ -7668,6 +7872,112 @@ def mesh_attn_kernels(torch, smi) -> dict:
     return out
 
 
+def _mesh_fused_gates(runs, refs, smi) -> dict:
+    """mesh_fused and mesh_fused_pipe's gates on every rank: sharded
+    outputs within SHARD_ATOL of the single card's unsharded ones (bitwise
+    for a one-rank mesh: one shard is the unsharded path), the pipelined
+    chain bitwise the serial one, no fallback, no partition run serially,
+    K5 launched on every data rank's rows (and on every encoder-stage
+    rank). Returns K5's launches on the new paths."""
+    ref = refs["fused"]
+    paths = {}
+    head_dim = SEQ_DIM // SEQ_HEADS
+    for label, ranks in runs:
+        world = len(ranks)
+        rows = MESH_FUSED_ROWS // world
+        for r in ranks:
+            what = f"({label}, rank {r['rank']})"
+            f = r["mesh_fused"]
+            enc = f["encoder"]
+            log({"phase": "mesh_fused", "card": smi, "run": label,
+                 "rank": r["rank"], "single_card_seconds": {
+                     "encoder": ref["encoder_seconds"],
+                     "gbdt": ref["gbdt_seconds"]}, **f})
+            close = enc["bitwise"] if world == 1 else \
+                enc["max_abs_diff"] <= SHARD_ATOL
+            if not close or enc["fallbacks"]:
+                fail(f"mesh_fused {what}: the encoder segment {enc} against "
+                     f"unsharded (SHARD_ATOL {SHARD_ATOL})")
+            if enc["launches"] != SEQ_DEPTH or enc["k5_q_shapes"] != \
+                    [(rows, SEQ_LEN, SEQ_HEADS, head_dim)]:
+                fail(f"mesh_fused {what}: K5 launched {enc['launches']} "
+                     f"times at {enc['k5_q_shapes']}, expected {SEQ_DEPTH} at "
+                     f"{(rows, SEQ_LEN, SEQ_HEADS, head_dim)}")
+            shards = ((enc["sharding"] or {}).get("segments") or {}).get(
+                "DNNModel", {}).get("shards", 1)
+            if shards != world:
+                fail(f"mesh_fused {what}: {shards} shards, not {world}")
+            for spec in ("data", "feature") if world > 1 else ("data",):
+                g = f[f"gbdt_{spec}"]
+                close = g["bitwise"] if world == 1 else \
+                    g["max_abs_diff"] <= SHARD_ATOL
+                if not close or g["fallbacks"]:
+                    fail(f"mesh_fused {what}: the forest segment under "
+                         f"{spec}: {g}")
+            if "mesh_fused_pipe" not in r:
+                continue
+            p = r["mesh_fused_pipe"]
+            log({"phase": "mesh_fused_pipe", "card": smi, "run": label,
+                 "rank": r["rank"], **p})
+            pipe = p["pipeline"] or {}
+            if not p["bitwise"] or p["fallbacks"] or pipe.get("depth") != 2 \
+                    or pipe.get("serial_fallback_partitions") != 0:
+                fail(f"mesh_fused_pipe {what}: {p}")
+            want = SEQ_DEPTH * MESH_FUSED_ROWS // MESH_FUSED_PIPE_BATCH \
+                if pipe["stage"] == 0 else 0
+            if p["launches"] != want:
+                fail(f"mesh_fused_pipe {what}: K5 launched {p['launches']} "
+                     f"times on stage {pipe['stage']}, expected {want}")
+        paths[f"mesh_fused.{label}"] = {
+            "flash_attn": ranks[0]["mesh_fused"]["encoder"]["launches"]}
+        if "mesh_fused_pipe" in ranks[0]:
+            paths[f"mesh_fused_pipe.{label}"] = {
+                "flash_attn": ranks[0]["mesh_fused_pipe"]["launches"]}
+    return paths
+
+
+def fused_attn_kernel(torch, smi) -> dict:
+    """K5 alone on the card on the inputs a data rank of the widest run
+    stashed (its first layer, ``[16, 2048, 8, 64]`` on four ranks): against
+    its plain version and exact f64 attention, timed beside the plain
+    version and the library call."""
+    import glob
+
+    import torch.nn.functional as F
+
+    from mmlspark_tpu_torch.models import flash_kernel as fk
+
+    path = max(glob.glob(_dnn_path("fused_attn_stash_*.pt")),
+               key=lambda p: int(p.rsplit("_", 1)[1].split(".")[0]))
+    q, k, v = (x.to(DEVICE) for x in torch.load(path, map_location="cpu",
+                                                  weights_only=True))
+    b, t, h, d = q.shape
+    o = fk.flash_attention_cuda(q, k, v, False)
+    p = fk.flash_attention_plain(q, k, v, False)
+    exact = attention_f64(torch, q, k, v, False)
+    scale = attention_f64(torch, q, k, v.abs(), False)
+    row = {"shape": [b, t, h, d],
+           "max_abs_err": (o.float() - p.float()).abs().max().item(),
+           "max_ulps_vs_plain": bf16_ulps(torch, o, p, scale),
+           "k5_err_vs_f64": (o.double() - exact).abs().max().item(),
+           "plain_err_vs_f64": (p.double() - exact).abs().max().item()}
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    row["ms"] = time_ms(torch, lambda: fk.flash_attention_cuda(q, k, v, False))
+    row["plain_ms"] = time_ms(torch, lambda: fk.flash_attention_plain(
+        q, k, v, False), 5, 1)
+    row["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt))
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        4 * b * t * h * d * 2, 4 * b * h * t * t * d, BF16_OPS_PER_S)
+    log({"phase": "mesh_fused_attn_kernel", "card": smi, "stash": path, **row})
+    if row["max_ulps_vs_plain"] > ULPS_MAX or row["k5_err_vs_f64"] > \
+            F64_RATIO_MAX * row["plain_err_vs_f64"]:
+        fail(f"mesh_fused: K5 on a data rank's inputs {row}")
+    del q, k, v, o, p, exact, scale, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
 def dnn_mesh_start(torch):
     """Start every run of ``dnn_mesh_launches`` at once, each rank running
     every DNN mesh phase (``dnn_mesh_rank``) against the references
@@ -7689,13 +7999,15 @@ def dnn_mesh_gates(torch, runs, refs, smi) -> dict:
     train = _mesh_train_gates(torch, runs, refs, smi)
     _mesh_resnet_gates(runs, refs, smi)
     dnn = _mesh_other_gates(runs, refs, smi)
+    fused = _mesh_fused_gates(runs, refs, smi)
     kernels = mesh_attn_kernels(torch, smi)
-    paths = {}
+    paths = dict(fused)
     for label, got in train.items():
         paths[f"mesh_train.{label}"] = got
     for label, got in dnn.items():
         paths[f"mesh_dnn_model.{label}"] = {"flash_attn": got}
-    return {"paths": paths, "kernels": kernels}
+    return {"paths": paths, "kernels": kernels,
+            "fused_kernel": fused_attn_kernel(torch, smi)}
 
 
 def dnn_mesh_phases(torch, smi) -> dict:
@@ -7765,6 +8077,7 @@ def main() -> int:
     kernels["csr_gather"] = gather_kernel_phase(torch, sparse_model, rows)
     launches["csr_gather"] = fused_sparse(torch, sparse_model, rows, smi)
     fused_dense(torch, dense_model, X_score, smi)
+    fused_save_gbdt(dense_model, X_score)
     fused_anchor(torch, *anchor)
     t_mega = time.perf_counter()
     sparse_runs = mega_sparse(torch, sparse_model, rows, smi)
@@ -7863,6 +8176,9 @@ def main() -> int:
         if name in dnn_mesh["kernels"]:
             # on a tensor rank's heads, the inputs it stashed in mesh_train
             extra["mesh_rank_inputs"] = dnn_mesh["kernels"][name]
+        if name == "flash_attn":
+            # on a data rank's rows of the sharded fused encoder segment
+            extra["fused_rank_inputs"] = dnn_mesh["fused_kernel"]
         rows.append({**{k: row[k] for k in keys},
                      "launches_on_new_paths": new_paths, **extra})
     rows.append({**{k: vw_row[k] for k in keys},

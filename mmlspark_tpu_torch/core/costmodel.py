@@ -27,9 +27,9 @@ The public surface the Tuner (core/tune.py) consumes:
     ``choose_variant``, ``stitch_decision`` and ``choose_layout``: the
     knob decisions, each None (keep the default) until calibrated.
   - ``observe_collective`` / ``collective_ms`` / ``choose_sharding`` and
-    ``predict_pipelined_ms`` / ``choose_pipe_depth``: the mesh terms. They
-    stay dormant until the port has a mesh (ROADMAP A step 9): the Tuner
-    asks for them only when the fused model has one.
+    ``predict_pipelined_ms`` / ``choose_pipe_depth``: the mesh terms, fed
+    by ``shardplan.measure_collectives`` and the pipe runner's measured
+    handoffs; the Tuner asks for them when the fused model has a mesh.
 
 Everything is host-side Python, thread-safe under one lock, and
 serializable (``to_dict``/``from_dict``).

@@ -96,6 +96,12 @@ class DeviceFn:
     # heavy = worth a device round-trip on its own (NN forward, forest
     # kernel); a segment of only light stages executes on the host path
     heavy: bool = False
+    # feature-dim sharding declaration for the fusion planner
+    # (parallel/shardplan.py): {input col: dim (batch = 0) that may shard
+    # over the mesh's tensor axis}. Batch-dim data parallelism needs none
+    # (fn is row independent by contract); a feature candidate is derived
+    # for a segment only when every stage declares its external inputs.
+    shard_dims: Optional[Dict[str, int]] = None
     # stitchable: this TERMINAL stage's host finalize has a device
     # counterpart (device_finalize below), so the planner may keep the
     # segment OPEN across it when the stitch knob names it. The stage's own

@@ -56,10 +56,17 @@ The cost model (core/costmodel.py) feeds the planner's fuse-vs-demote and
 stitch decisions and learns from the executor's host-path timings and
 sparse densities; the slot pool (parallel/ingest.py ``SlotPool``) lets a
 column of uniform dense rows deposit straight into a reusable (pinned, on
-CUDA) staging slot, filled ahead on a thread. Not ported yet: sharding and
-pipe plans (ROADMAP A step 9c; a non-empty ``sharding`` or a ``pipe_depth``
-above 1 raises) and the persistent cache tier (A step 10);
-``profiling.annotate`` becomes ``torch.profiler.record_function``.
+CUDA) staging slot, filled ahead on a thread.
+
+Over a mesh (``FusedPipelineModel.set_mesh``), the ``sharding`` knob
+({label: "data" | "feature"}) runs a segment sharded
+(parallel/shardplan.py) and ``pipe_depth`` streams a chainable run of
+segments over pipe-axis sub-meshes (parallel/pipeplan.py). The port's mesh
+is one process a rank: every rank calls ``set_mesh``, ``set_tuning`` and
+``transform`` on the same frame and returns the whole of it. A sharded
+K-step program captures only the rank's own compute; its collectives run
+outside the graph. Not ported: the persistent cache tier (ROADMAP A step
+10). ``profiling.annotate`` becomes ``torch.profiler.record_function``.
 """
 
 from __future__ import annotations
@@ -490,7 +497,7 @@ class SegmentExecutor:
                  cost_model=None, slot_pool=None, mega_k: int = 1,
                  kernel_variants=None, stitch=None,
                  layout: Optional[str] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, sharding=None):
         from ..parallel.ingest import ReadbackSlots
         from ..runtime import resolve_device
 
@@ -508,6 +515,9 @@ class SegmentExecutor:
         # K-step mega-dispatch factor for the submit path (the Tuner's
         # knob, costmodel.choose_mega_k); 1 = per-batch dispatch
         self.mega_k = max(1, int(mega_k or 1))
+        # mesh sharding (parallel/shardplan.py SegmentSharding, or a pipe
+        # stage's pipeplan.PipeStageSharding); None = the single-device path
+        self.sharding = sharding
         # kernel_variants maps this segment's shape bucket (or "*") to a
         # core/kernels.py variant id activated around every program call;
         # stitch ({stage class name: bool}) enables each stage's device
@@ -731,8 +741,10 @@ class SegmentExecutor:
         """External columns eligible for CSR staging: the layout knob says
         "csr" for this segment, the column's rows are (uniformly) sparse,
         and EVERY consuming stage declares the capability
-        (``DeviceFn.sparse_cols`` + ``sparse_fn``)."""
-        if self.layout != "csr":
+        (``DeviceFn.sparse_cols`` + ``sparse_fn``). Off under sharding, as
+        in the reference: a sharded segment keeps the densify path
+        (shardplan's ``csr_row`` spec is priced on the host only)."""
+        if self.layout != "csr" or self.sharding is not None:
             return set()
         out = set()
         for c, p in probes.items():
@@ -811,11 +823,17 @@ class SegmentExecutor:
         deposit = state.get("deposit") or {}
         csr = state.get("csr") or {}
         n_valid = state["n_valid"]
+        # sharded: every padded batch splits evenly over the shards, so the
+        # target rounds up to a shard multiple (the pad rows are masked out
+        # at readback like a bucket's)
+        shards = self.sharding.shards if self.sharding is not None else 1
         for start in range(0, n_valid, batch_size):
             stop = min(start + batch_size, n_valid)
             m = stop - start
             target = batch_size if m == batch_size \
                 else min(next_bucket(m, buckets=self.buckets), batch_size)
+            if shards > 1:
+                target = -(-target // shards) * shards
             arrays = {c: pad_batch(dense[c][start:stop], target)
                       for c in dense}
             for c, (indptr, indices, values, width) in csr.items():
@@ -870,11 +888,23 @@ class SegmentExecutor:
             mask[:m] = True
             yield Batch(arrays, mask, m, staging=lease)
 
-    def _put(self, batch) -> Tuple[Dict[str, torch.Tensor], int]:
+    def _put(self, batch) -> Tuple[Any, ...]:
         """Stage one batch on the device: a slot-deposited column copies
         from its (pinned, on CUDA) slot tensor directly; every other array
-        goes through ``stage_array``."""
+        goes through ``stage_array``. Sharded, each column lands as this
+        rank's block (``sharding.device_put``), and the batch's whole
+        shapes ride along: ``(staged, num_valid, shapes)``. A staging
+        failure there (a card dropping out mid-stage, the
+        ``mesh.chip_wedge`` seam) comes back in place of the staged dict,
+        and the step turns it into the partition's host fallback on every
+        rank."""
         from ..parallel.ingest import stage_array
+
+        sh = self.sharding
+        if sh is not None and sh.splits:
+            full = {c: tuple(np.shape(a)) for c, a in batch.arrays.items()}
+            return (sh.device_put(batch.arrays, self.device),
+                    batch.num_valid, full)
 
         lease = getattr(batch, "staging", None)
         out: Dict[str, torch.Tensor] = {}
@@ -926,12 +956,20 @@ class SegmentExecutor:
 
     def _keying(self, state: Dict[str, Any]) -> Tuple:
         """(staged columns, CSR-staged columns, cache-key tail, shape-key
-        prefix) of one partition's programs: a CSR-staged program runs
-        sparse_fn bodies over the triple, so it is keyed apart and its
-        shape key prefixed (``layout=csr;``), after any stitch."""
+        prefix) of one partition's programs: a sharded program is keyed
+        after its spec (``spec=...;``), a CSR-staged one runs sparse_fn
+        bodies over the triple, so it is keyed apart and its shape key
+        prefixed (``layout=csr;``), after any stitch."""
         staged_cols = state.get("staged_cols") or state["ext"]
         csr_cols = frozenset(state.get("csr") or ())
-        key_tail, shape_pre = self._stitch_tail, self._stitch_pre
+        sh = self.sharding
+        # a sharded program (a rank's block, collectives around it) is keyed
+        # apart from the single-device one, and its shape key prefixed so
+        # the cost model's bucket parser skips its records
+        key_tail = ((sh.cache_key(),) if sh is not None else ()) + \
+            self._stitch_tail
+        shape_pre = (sh.shape_prefix() if sh is not None else "") + \
+            self._stitch_pre
         if csr_cols:
             key_tail = key_tail + (("layout", "csr"),)
             shape_pre = "layout=csr;" + shape_pre
@@ -945,8 +983,9 @@ class SegmentExecutor:
         seg, keys = self.segment, state["keys"]
         staged_cols, csr_cols, key_tail, shape_pre = self._keying(state)
 
-        def step(staged):
-            x, m = staged
+        sh = self.sharding
+
+        def program_of(x):
             sig = self._sig_of(x, staged_cols)
             # a kernel variant is a DIFFERENT program for the same
             # (segment, signature): key it apart, and decorate the shape
@@ -954,12 +993,27 @@ class SegmentExecutor:
             vid = self._variant_for(sig)
             tail = key_tail + ((("variant", vid),) if vid else ())
             pre = (f"variant={vid};" if vid else "") + shape_pre
-            program = self.cache.get(
+            return self.cache.get(
                 (seg.key, sig) + tail,
                 lambda: self._build(keys, variant=vid, csr_cols=csr_cols),
                 label=seg.label, shape=pre + self._shape_key_of(sig))
+
+        def run(p, x):
+            # sharded, the program is found (or built) inside the sharded
+            # call, so a build failure on one rank is agreed like a run
+            # failure
+            return program_of(x)(p, x)
+
+        def step(staged):
+            x, m = staged[0], staged[1]
+            if sh is None:
+                program = program_of(x)
+                with torch.profiler.record_function(f"fused:{seg.label}"):
+                    return program(params, x), m
+            full = staged[2] if len(staged) > 2 else \
+                {c: tuple(v.shape) for c, v in x.items()}
             with torch.profiler.record_function(f"fused:{seg.label}"):
-                return program(params, x), m
+                return sh.run(run, params, x, full), m
 
         return step
 
@@ -974,22 +1028,42 @@ class SegmentExecutor:
         seg, keys = self.segment, state["keys"]
         staged_cols, csr_cols, key_tail, shape_pre = self._keying(state)
 
-        def mega(group):
-            xs = [x for (x, _m), _t in group]
-            sig = self._sig_of(xs[0], staged_cols)
-            gsig = self._group_sig(xs[0], staged_cols)
+        sh = self.sharding
+
+        def program_of(cols_seq):
+            x = cols_seq[0]
+            sig = self._sig_of(x, staged_cols)
+            gsig = self._group_sig(x, staged_cols)
             vid = self._variant_for(sig)
             tail = key_tail + ((("variant", vid),) if vid else ())
             pre = (f"variant={vid};" if vid else "") + shape_pre
-            program = self.cache.get(
+            return self.cache.get(
                 (seg.key, gsig, ("mega", k)) + tail,
                 lambda: self._build_mega(keys, k, variant=vid,
                                          csr_cols=csr_cols),
                 label=seg.label,
                 shape=f"{pre}mega{k};{self._shape_key_of(sig)}")
-            cols_seq = tuple({c: x[c] for c in staged_cols} for x in xs)
+
+        def run(p, cols_seq):
+            # sharded, found (or built) inside the sharded call, so a build
+            # failure on one rank is agreed like a run failure
+            return program_of(cols_seq)(p, cols_seq)
+
+        def mega(group):
+            from ..parallel.shardplan import StageFailed
+
+            cols_seq = tuple(x if isinstance(x, StageFailed)
+                             else {c: x[c] for c in staged_cols}
+                             for x in (staged[0] for staged, _t in group))
+            if sh is None:
+                program = program_of(cols_seq)
+                with torch.profiler.record_function(
+                        f"fused:{seg.label}:mega{k}"):
+                    return program(params, cols_seq)
             with torch.profiler.record_function(f"fused:{seg.label}:mega{k}"):
-                return program(params, cols_seq)
+                # the K batches' compute in one call (one captured graph on
+                # the card), then each batch's collectives, outside it
+                return sh.run_many(run, params, cols_seq, group[0][0][2])
 
         return mega
 
@@ -1175,7 +1249,10 @@ class SegmentExecutor:
         group: List[Any] = []
         sig0 = None
         for item in staged_it:
-            sig = self._group_sig(item[0][0], ext)
+            # sharded: group by the whole batch's shapes, which every rank
+            # shares (a rank's staging failure must not regroup its batches)
+            sig = ("whole", tuple(sorted(item[0][2].items()))) \
+                if len(item[0]) > 2 else self._group_sig(item[0][0], ext)
             if group and sig != sig0:
                 flush(group)
                 group = []
@@ -1420,6 +1497,21 @@ class FusedPipelineModel(PipelineModel):
         self._variant_overrides: Dict[str, Dict[Any, str]] = {}
         self._stitch_overrides: Dict[str, bool] = {}
         self._layout_overrides: Dict[str, str] = {}
+        # the mesh segments may shard over (set_mesh / MeshSupervision) and
+        # the per-segment spec overrides (the Tuner's sharding knob); both
+        # off by default: no mesh or no override = the single-device path
+        self._shard_mesh = None
+        self._sharding_overrides: Dict[str, str] = {}
+        self._seg_sharding: Dict[str, Any] = {}
+        # pipeline depth (parallel/pipeplan.py, the Tuner's pipe_depth
+        # knob): > 1 places a chainable segment run on pipe-axis sub-meshes
+        # and streams micro-batches through them; None = serial
+        self._pipe_depth: Optional[int] = None
+        self._pipe_stats: Optional[Dict[str, Any]] = None
+        self._pipe_replans = 0
+        self._pipe_requeues: Dict[int, int] = {}
+        self._pipe_wedge_handler = None
+        self._pipe_supervision = None
         # pre-allocated staging (parallel/ingest.py SlotPool), one pool per
         # device type (pinned on CUDA), shared across segments and
         # executors; ``slot_staging=False`` pins the allocating path
@@ -1443,23 +1535,20 @@ class FusedPipelineModel(PipelineModel):
         factors ({label: K}; K = 1 is the plain per-batch dispatch),
         per-segment kernel-variant maps ({label: {bucket|"*": variant
         id}}), per-stage-name stitch flags, per-segment layouts ({label:
-        "csr"}), and/or the cost model itself. Passing None leaves a knob
-        unchanged; passing {} clears it. Cached plans are invalidated
-        (built programs survive in the CompileCache).
+        "csr"}), the mesh knobs and/or the cost model itself. Passing None
+        leaves a knob unchanged; passing {} clears it. Cached plans are
+        invalidated (built programs survive in the CompileCache).
 
-        ``sharding`` ({label: spec name}) and ``pipe_depth`` are the mesh
-        knobs: {} / None and ``pipe_depth`` <= 1 (what ``Tuner._push``
-        sends for an untuned set) clear them; a non-empty ``sharding`` or
-        a ``pipe_depth`` above 1 raises ``NotImplementedError``: the shard
-        and pipe planners are ROADMAP A step 9c."""
-        if sharding and any(v for v in sharding.values()):
-            raise NotImplementedError(
-                f"sharding={sharding!r}: segment sharding over a mesh is not "
-                f"ported yet (ROADMAP A step 9c)")
-        if pipe_depth is not None and int(pipe_depth) > 1:
-            raise NotImplementedError(
-                f"pipe_depth={pipe_depth!r}: pipeline-parallel segments are "
-                f"not ported yet (ROADMAP A step 9c)")
+        ``sharding`` ({label: "data" | "feature"}) shards a segment over the
+        ``set_mesh`` mesh; ``pipe_depth`` above 1 streams a chainable
+        segment run over pipe-axis sub-meshes, 1 or below clears it. Every
+        rank of the mesh sets the same knobs."""
+        if pipe_depth is not None:
+            self._pipe_depth = int(pipe_depth) \
+                if int(pipe_depth) > 1 else None
+        if sharding is not None:
+            self._sharding_overrides = {str(k): str(v)
+                                        for k, v in sharding.items() if v}
         if kernel_variants is not None:
             self._variant_overrides = {
                 str(k): dict(v) for k, v in kernel_variants.items() if v}
@@ -1483,11 +1572,22 @@ class FusedPipelineModel(PipelineModel):
             self._cost_model = cost_model
         self._plans.clear()
 
+    def set_mesh(self, mesh) -> None:
+        """Attach (or, with None, detach) the mesh segments may shard and
+        pipeline over. The mesh alone changes nothing: a segment shards
+        only when a ``sharding`` override names a spec for its label, and
+        a run pipelines only with ``pipe_depth`` above 1 (the Tuner's
+        journaled decisions). MeshSupervision calls this with the
+        surviving sub-mesh after a shard-group quarantine. Every rank of
+        the mesh calls it."""
+        self._shard_mesh = mesh
+        self._seg_sharding.clear()
+        self._plans.clear()
+
     @property
     def shard_mesh(self):
-        """The device mesh segments may shard over: None until the port
-        has one (ROADMAP A step 9), so the Tuner proposes no mesh knob."""
-        return None
+        """The mesh segments may shard over (None: single-device)."""
+        return self._shard_mesh
 
     @property
     def cost_model(self):
@@ -1527,18 +1627,56 @@ class FusedPipelineModel(PipelineModel):
                 stitch_overrides=self._stitch_overrides or None)
         return self._plans[key]
 
-    def _make_executor(self, node: Segment,
-                       device: torch.device) -> SegmentExecutor:
+    def _sharding_for(self, node: Segment):
+        """The segment's tuned spec resolved into a SegmentSharding (None =
+        unsharded: no mesh, no override, a one-shard axis, a mesh this rank
+        is not in, or a resolution failure: a wrong sharding must never
+        fail a transform). The mesh's ranks agree on it
+        (``mesh.any_failed``): a failure on one rank leaves every rank
+        unsharded, never a partner waiting in the sharded step's
+        collectives."""
+        name = self._sharding_overrides.get(node.label)
+        mesh = self._shard_mesh
+        if mesh is None or not name or not getattr(mesh, "is_member", True):
+            self._seg_sharding.pop(node.label, None)
+            return None
+        from ..parallel.mesh import any_failed
+        from ..parallel.shardplan import sharding_for
+
+        sh, failed = None, 0
+        try:
+            sh = sharding_for(node, mesh, name)
+        except Exception:  # noqa: BLE001 — degrade to single-device
+            failed = 1
+        if any_failed(failed, mesh):
+            sh = None
+        if sh is None:
+            self._seg_sharding.pop(node.label, None)
+        else:
+            self._seg_sharding[node.label] = sh.describe()
+        return sh
+
+    def _make_executor(self, node: Segment, device: torch.device,
+                       pipe: bool = False,
+                       sharding=None) -> SegmentExecutor:
+        """The segment's executor under the tuned knobs, sharded as
+        ``_sharding_for`` resolves it. ``pipe``: one segment of a pipelined
+        run, placed by ``sharding`` (a stage's placement, or None: the
+        plain chain a partition falls back to), with no K-step dispatch
+        (the stream is the amortisation) and no CSR layout
+        (``_pipe_plan_for`` excludes it)."""
+        label = node.label
         return SegmentExecutor(
             node, self._cache,
-            buckets=self._bucket_overrides.get(node.label),
+            buckets=self._bucket_overrides.get(label),
             cost_model=self._cost_model,
             slot_pool=self._get_slot_pool(device),
-            mega_k=self._mega_k_overrides.get(node.label, 1),
-            kernel_variants=self._variant_overrides.get(node.label),
+            mega_k=1 if pipe else self._mega_k_overrides.get(label, 1),
+            kernel_variants=self._variant_overrides.get(label),
             stitch=self._stitch_overrides or None,
-            layout=self._layout_overrides.get(node.label),
-            device=device)
+            layout=None if pipe else self._layout_overrides.get(label),
+            device=device,
+            sharding=sharding if pipe else self._sharding_for(node))
 
     def _host_node(self, node: HostStage, df: DataFrame) -> DataFrame:
         """Run one host plan node, feeding its wall time to the cost model
@@ -1565,16 +1703,141 @@ class FusedPipelineModel(PipelineModel):
         self._last_plan = nodes
         self._seg_stats = {}
         self._last_fallbacks = []
+        self._pipe_stats = None
+        pplan = self._pipe_plan_for(nodes)
+        if pplan is not None:
+            from ..parallel.pipeplan import StageWedged
+
+            try:
+                return self._transform_pipelined(df, pplan, device)
+            except StageWedged as e:
+                # a stage's ranks failed mid-stream (alike on every rank):
+                # quarantine it, re-plan at depth N-1 on the survivors and
+                # re-run the frame, bitwise the same (depth falls each
+                # time, so the recursion ends)
+                self._pipe_replan_after_wedge(pplan, e.stage)
+                return self.transform(df, fused=True)
         for node in nodes:
-            if isinstance(node, Segment):
-                stats = IngestStats()
-                self._seg_stats[node.label] = stats
-                ex = self._make_executor(node, device)
-                df = ex.run(df, stats)
-                self._last_fallbacks.extend(ex.fallbacks)
-            else:
-                df = self._host_node(node, df)
+            df = self._serial_node(node, df, device)
         return df
+
+    def _serial_node(self, node, df: DataFrame,
+                     device: torch.device) -> DataFrame:
+        from ..parallel.ingest import IngestStats
+
+        if not isinstance(node, Segment):
+            return self._host_node(node, df)
+        stats = IngestStats()
+        self._seg_stats[node.label] = stats
+        ex = self._make_executor(node, device)
+        df = ex.run(df, stats)
+        self._last_fallbacks.extend(ex.fallbacks)
+        return df
+
+    def _pipe_plan_for(self, nodes: List[Any]):
+        """The pipe_depth knob resolved into a PipePlan (None = serial: the
+        knob off, no mesh, no chainable run, an active CSR layout override
+        (its triples are staged per partition on the host, which a handoff
+        never holds), this rank outside the mesh (it runs the frame
+        serially, bitwise the pipelined answer), or a resolution failure:
+        a wrong pipeline must never fail a transform).
+
+        The mesh's ranks agree twice (``mesh.share_objects``), so that a
+        failure on one rank is the serial path on all of them: on the host
+        half (``pipe_run``), where the first rank's stage costs cut the run
+        on every rank, and on the placement (its sub-mesh groups, the
+        supervision hook)."""
+        depth = self._pipe_depth
+        mesh = self._shard_mesh
+        if not depth or depth <= 1 or mesh is None \
+                or self._layout_overrides \
+                or not getattr(mesh, "is_member", True):
+            return None
+        from ..parallel.mesh import share_objects
+        from ..parallel.pipeplan import pipe_run, place_pipe_run
+
+        try:
+            prep = pipe_run(nodes, mesh, depth, model=self._cost_model)
+        except Exception:  # noqa: BLE001 — degrade to serial
+            prep = None
+        votes = share_objects(
+            (prep is None, None if prep is None else prep.costs), mesh)
+        if any(serial for serial, _ in votes):
+            return None
+        pplan, failed = None, False
+        try:
+            pplan = place_pipe_run(prep._replace(costs=votes[0][1]), mesh)
+            if pplan is not None and pplan.my_stage() is not None \
+                    and self._pipe_supervision is not None:
+                self._pipe_supervision.register(pplan)
+        except Exception:  # noqa: BLE001 — degrade to serial
+            failed = True
+        if any(share_objects(failed, mesh)):
+            return None
+        if pplan is None or pplan.my_stage() is None:
+            return None
+        return pplan
+
+    def _transform_pipelined(self, df: DataFrame, pplan,
+                             device: torch.device) -> DataFrame:
+        """The plan with its chainable run pipelined: nodes before and
+        after the run go through the serial loop; the run's segments stream
+        micro-batches across their stages (parallel/pipeplan.py
+        PipeRunner). The plan's indices refer to the pipeline view
+        (``split_segments``), so that view is what runs. StageWedged
+        escapes to ``transform``, which re-plans and re-runs."""
+        from ..parallel.ingest import IngestStats
+        from ..parallel.pipeplan import PipeRunner, stage_sharding_for
+
+        nodes = pplan.nodes
+        for node in nodes[:pplan.first]:
+            df = self._serial_node(node, df, device)
+        execs, serial, stats = [], [], []
+        for offset, node in enumerate(nodes[pplan.first:pplan.last]):
+            stage = pplan.stages[pplan.stage_of[pplan.first + offset]]
+            sh = stage_sharding_for(
+                node, stage, pplan.depth,
+                spec_name=self._sharding_overrides.get(node.label))
+            if sh.inner is not None and stage.mesh.is_member:
+                self._seg_sharding[node.label] = sh.inner.describe()
+            seg_stats = IngestStats()
+            self._seg_stats[node.label] = seg_stats
+            stats.append(seg_stats)
+            execs.append(self._make_executor(node, device, pipe=True,
+                                             sharding=sh))
+            serial.append(self._make_executor(node, device, pipe=True))
+        runner = PipeRunner(pplan, execs, stats, cost_model=self._cost_model,
+                            serial=serial)
+        df = runner.run(df)
+        for ex in execs + serial:
+            self._last_fallbacks.extend(ex.fallbacks)
+        self._pipe_stats = runner.stats_dict(
+            requeues=self._pipe_requeues, replans=self._pipe_replans)
+        for node in nodes[pplan.last:]:
+            df = self._serial_node(node, df, device)
+        return df
+
+    def _pipe_replan_after_wedge(self, pplan, stage_index: int) -> None:
+        """Quarantine a wedged stage and re-arm at depth N-1: through the
+        registered supervision hook (PipeSupervision: supervisor quarantine
+        and mesh degrade) when one is attached, else the local degrade.
+        N-1 == 1 clears the knob (serial on the survivors)."""
+        self._pipe_replans += 1
+        self._pipe_requeues[int(stage_index)] = \
+            self._pipe_requeues.get(int(stage_index), 0) + 1
+        handler = self._pipe_wedge_handler
+        if handler is not None:
+            try:
+                handler(pplan, int(stage_index))
+                return
+            except Exception:  # noqa: BLE001 — fall back to local replan
+                pass
+        from ..parallel.pipeplan import degrade_after_wedge
+
+        mesh, depth = degrade_after_wedge(self._shard_mesh, pplan,
+                                          stage_index)
+        self.set_mesh(mesh)
+        self.set_tuning(pipe_depth=depth if depth > 1 else 1)
 
     def transform_submit(self, df: DataFrame):
         """Non-blocking transform: run host stages and all but a TRAILING
@@ -1593,6 +1856,9 @@ class FusedPipelineModel(PipelineModel):
         self._last_plan = nodes
         self._seg_stats = {}
         self._last_fallbacks = []
+        # the submit split stays serial: its contract is one trailing
+        # dispatched segment, not a stream
+        self._pipe_stats = None
         tail = nodes[-1] if nodes and isinstance(nodes[-1], Segment) else None
         body = nodes[:-1] if tail is not None else nodes
         for node in body:
@@ -1648,7 +1914,9 @@ class FusedPipelineModel(PipelineModel):
             from ..obs.perf import attribute_segments
 
             roofline = attribute_segments(
-                per_segment, costs, cost_model=self._cost_model,
+                per_segment, costs,
+                sharding=self._seg_sharding or None,
+                cost_model=self._cost_model,
                 layout=self._layout_overrides or None)
         except Exception:  # noqa: BLE001 — attribution must not break stats
             roofline = {}
@@ -1662,7 +1930,7 @@ class FusedPipelineModel(PipelineModel):
             "roofline": roofline,
         }
         if (self._bucket_overrides or self._fuse_overrides
-                or self._mega_k_overrides
+                or self._mega_k_overrides or self._sharding_overrides
                 or self._variant_overrides or self._stitch_overrides
                 or self._layout_overrides):
             out["tuning"] = {
@@ -1670,7 +1938,7 @@ class FusedPipelineModel(PipelineModel):
                             for k, v in self._bucket_overrides.items()},
                 "fuse": dict(self._fuse_overrides),
                 "mega_k": dict(self._mega_k_overrides),
-                "sharding": {}}
+                "sharding": dict(self._sharding_overrides)}
             if self._variant_overrides:
                 out["tuning"]["kernel_variants"] = {
                     label: {str(b): v for b, v in kv.items()}
@@ -1693,8 +1961,17 @@ class FusedPipelineModel(PipelineModel):
                 stitched[n.label] = list(dict.fromkeys(names))
         if stitched:  # key absent when nothing stitched
             out["stitched"] = stitched
+        if self._seg_sharding:
+            from ..parallel.shardplan import mesh_topology
+
+            out["sharding"] = {
+                "mesh": mesh_topology(self._shard_mesh),
+                "segments": {k: dict(v)
+                             for k, v in self._seg_sharding.items()}}
         pools = {k: p.stats() for k, p in self._slot_pools.items()}
         if pools:
             out["slot_pool"] = pools.get("cuda") or pools.get("cpu") \
                 or next(iter(pools.values()))
+        if self._pipe_stats:  # key absent when no pipe plan ran
+            out["pipeline"] = dict(self._pipe_stats)
         return out

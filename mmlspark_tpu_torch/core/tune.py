@@ -16,11 +16,11 @@ constants, MEASURE candidate settings, refit the cost model
   - the adaptive batch controller's cold-start window (predicted compute ms
     seeds the EWMA — ``AdaptiveBatchController.seed_compute_ms``);
   - the serving executor's ``inflight`` depth and a replica-count
-    suggestion, derived from predicted compute-vs-transfer overlap.
-
-The mesh knobs (``sharding``, ``pipe_depth``) are proposed only over a
-fused model with a ``shard_mesh``; the port has none until ROADMAP A step 9,
-so they stay empty.
+    suggestion, derived from predicted compute-vs-transfer overlap;
+  - the mesh knobs, over a fused model with a ``shard_mesh``: a partition
+    spec per segment (``sharding``, parallel/shardplan.py) and the
+    pipeline depth of its longest chainable run (``pipe_depth``,
+    parallel/pipeplan.py).
 
 Every decision is journaled, every ``apply`` keeps the previous knob set,
 and a measured regression past ``tolerance`` rolls back ONE step. An
@@ -36,6 +36,17 @@ Two drive modes:
     loops after each batch) refit + apply every N batches and watch the
     measured per-batch e2e EWMA for regressions, rolling back one step
     when the tuned knobs made it worse.
+
+Over a fused model whose ``shard_mesh`` spans several ranks the Tuner is
+SPMD like the model (one process a rank, parallel/mesh.py): every rank
+calls the same methods in one order, and the mesh's first rank decides.
+Each rank folds its own measurements, so ``propose`` ends by taking the
+first rank's knob set, ``tune`` judges every step by its measurement,
+``on_epoch`` takes its regression verdict, and a push that failed on any
+rank rolls back on all (``parallel.mesh.share_objects``). A knob that
+moves a collective (a spec, a bucket, K, a pipe depth) is then the same on
+every rank of the mesh; a rank outside it runs without the mesh's
+collectives and keeps its own.
 """
 
 from __future__ import annotations
@@ -200,6 +211,19 @@ class Tuner:
         self._vetoed: Optional[Dict[str, Any]] = None
         self._veto_until = 0
 
+    # -- agreement over a mesh ------------------------------------------
+    def _share(self, obj: Any) -> List[Any]:
+        """Every rank's ``obj`` over the fused model's mesh, in mesh order
+        (``[obj]`` without one, or outside it): what its first rank
+        decides, or whether any rank failed. Every rank of the mesh calls
+        it at the same point."""
+        mesh = getattr(self.fused, "shard_mesh", None)
+        if mesh is None:
+            return [obj]
+        from ..parallel.mesh import share_objects
+
+        return share_objects(obj, mesh)
+
     # -- journal ---------------------------------------------------------
     def _log(self, action: str, **fields: Any) -> None:
         entry = {"action": action, "epoch": self.epochs, **fields}
@@ -252,7 +276,8 @@ class Tuner:
 
     def propose(self) -> KnobSet:
         """Derive a KnobSet from the current model. Uncalibrated segments
-        contribute nothing, so a cold model proposes the default set."""
+        contribute nothing, so a cold model proposes the default set. Over
+        a mesh of several ranks, its first rank's set."""
         knobs = KnobSet()
         caps = self._segment_batch_caps()
         trailing_ms: Optional[float] = None
@@ -301,7 +326,7 @@ class Tuner:
                     self.max_inflight,
                     1 + round((transfer + host) / compute)))
                 knobs.replicas = self._replica_suggestion(compute, transfer)
-        return knobs
+        return self._share(knobs)[0]
 
     def _mega_k_for(self, label: str) -> Optional[int]:
         """Cost-model K for a segment, capped by observed queue depth (a K
@@ -328,15 +353,34 @@ class Tuner:
         return max(1, k)
 
     def _sharding_for(self, label: str, cap: int) -> Optional[str]:
-        """Cost-model partition-spec choice for one segment. None (= stay
-        unsharded, the default that keeps cold start bitwise identical)
-        while the fused model has no ``shard_mesh`` — always, until the
-        port has a shard planner (ROADMAP A step 9)."""
+        """Cost-model partition-spec choice for one segment: the candidates
+        the plan's stage graph admits over the fused model's mesh
+        (parallel/shardplan.py), each priced as flops/shards + the
+        calibrated collective term; None (= stay unsharded, the default
+        that keeps cold start bitwise identical) without a mesh or a
+        winner."""
         mesh = getattr(self.fused, "shard_mesh", None)
         chooser = getattr(self.model, "choose_sharding", None)
         if mesh is None or not callable(chooser):
             return None
-        return None  # no shard planner to enumerate candidates with yet
+        seg = None
+        for node in getattr(self.fused, "_last_plan", None) or []:
+            if getattr(node, "label", None) == label and \
+                    hasattr(node, "dfns"):
+                seg = node
+                break
+        if seg is None:
+            return None
+        try:
+            from ..parallel.shardplan import tuner_candidates
+
+            cands = tuner_candidates(seg, mesh, model=self.model,
+                                     batch=cap)
+            if not cands:
+                return None
+            return chooser(label, cap, cands)
+        except Exception:  # noqa: BLE001 — proposal must never raise out
+            return None
 
     def _variants_for(self, label: str) -> Dict[str, str]:
         """Measured per-bucket kernel-variant winners for one segment
@@ -372,14 +416,34 @@ class Tuner:
 
     def _pipe_depth_for(self, caps: Dict[str, int]) -> Optional[int]:
         """Cost-model pipeline depth for the fused plan's longest chainable
-        segment run. None (= serial, the default) while the fused model has
-        no ``shard_mesh`` — always, until the port has a pipe planner
-        (ROADMAP A step 9)."""
+        segment run (parallel/pipeplan.py ``chainable_runs`` over the
+        pipeline view + ``costmodel.choose_pipe_depth``). None (= serial,
+        the default) without a mesh whose pipe axis is above 1, a run of
+        at least two segments, or a calibrated run (the chooser's gate)."""
         mesh = getattr(self.fused, "shard_mesh", None)
         chooser = getattr(self.model, "choose_pipe_depth", None)
         if mesh is None or not callable(chooser):
             return None
-        return None  # no pipe planner to cut the chain with yet
+        try:
+            from ..parallel.mesh import PIPE_AXIS
+            from ..parallel.pipeplan import chainable_runs, split_segments
+
+            p = int(dict(getattr(mesh, "shape", {}) or {})
+                    .get(PIPE_AXIS, 1))
+            if p < 2:
+                return None
+            # propose over the pipeline view: the re-cut build_pipe_plan
+            # runs
+            runs = chainable_runs(split_segments(
+                getattr(self.fused, "_last_plan", None) or []))
+            if not runs:
+                return None
+            run = max(runs, key=len)
+            labels = [seg.label for _, seg in run]
+            batch = min(int(caps.get(lab, 256)) for lab in labels)
+            return chooser(labels, batch, p)
+        except Exception:  # noqa: BLE001 — proposal must never raise out
+            return None
 
     def _stitch_proposals(self) -> Dict[str, bool]:
         """Stitch flags for the plan's adjacent (Segment, Segment)
@@ -519,6 +583,7 @@ class Tuner:
                        or knobs.layout != prev.layout
                        or knobs.pipe_depth != prev.pipe_depth)
         fused = self.fused
+        error: Optional[str] = None
         try:
             if swap_change:
                 # chaos seam: a raise here lands MID-SWAP — tuner state
@@ -529,6 +594,11 @@ class Tuner:
             if fused is not None and hasattr(fused, "set_tuning"):
                 self._push(fused, knobs)
         except Exception as e:  # noqa: BLE001 — a failed swap never serves
+            error = str(e)
+        # over a mesh, a push that failed on any rank rolls back on every
+        # rank: the ranks must not run different knob sets
+        error = next((e for e in self._share(error) if e is not None), None)
+        if error is not None:
             with self._lock:
                 self.knobs = prev
                 self._prev = None  # the failed swap is not a step to redo
@@ -538,7 +608,7 @@ class Tuner:
                     self._push(fused, prev)  # re-pin the incumbent
                 except Exception:  # noqa: BLE001
                     pass
-            self._log("kernel_apply_rollback", error=str(e),
+            self._log("kernel_apply_rollback", error=error,
                       knobs=prev.to_dict())
             return
         if variant_change:
@@ -597,7 +667,8 @@ class Tuner:
             # an injected stall IS a slower system: scale the
             # higher-is-better metric down by the stalled fraction
             value = value / (1.0 + penalty)
-        return value
+        # over a mesh, its first rank's measurement judges every step
+        return self._share(value)[0]
 
     def tune(self, measure: Callable[[], float], steps: int = 1,
              warmup: int = 1) -> Dict[str, Any]:
@@ -665,9 +736,11 @@ class Tuner:
                 return
             before, after = self._e2e_before, self._e2e_after
             enough = self._e2e_after_n >= max(2, self.every // 2)
-        if (before is not None and after is not None and enough
-                and self._prev is not None
-                and after > before * (1.0 + self.tolerance)):
+        regressed = (before is not None and after is not None and enough
+                     and self._prev is not None
+                     and after > before * (1.0 + self.tolerance))
+        # over a mesh, its first rank's verdict holds on every rank
+        if self._share(regressed)[0]:
             bad = self.knobs.to_dict()
             self.rollback("serving_e2e_regressed")
             with self._lock:

@@ -526,7 +526,11 @@ class _LightGBMModelBase(Model, HasFeaturesCol):
             # this capability pair opts into
             null_policy="fallback", reject_sparse=True,
             sparse_cols=(feats,), sparse_fn=sparse_fn,
-            terminal=True, heavy=True)
+            terminal=True, heavy=True,
+            # the [N, F] features may shard their feature dim over the
+            # tensor axis (parallel/shardplan.py gathers full rows for the
+            # forest, as the reference's compiler does)
+            shard_dims={feats: 1})
 
 
 class LightGBMClassifier(Estimator, _LightGBMParams):

@@ -203,7 +203,10 @@ class DNNModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
 
         return DeviceFn(key=key, in_cols=(in_col,), out_cols=out_cols, fn=fn,
                         params=model, accepts=accepts, reject_sparse=False,
-                        heavy=True)
+                        heavy=True,
+                        # flat [N, F] inputs may shard their feature dim
+                        # over the tensor axis (parallel/shardplan.py)
+                        shard_dims={in_col: 1})
 
     def transform_schema(self, schema: Schema) -> Schema:
         if self.get("model") is None:

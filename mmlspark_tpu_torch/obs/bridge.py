@@ -225,6 +225,43 @@ def _fusion_families(stats: Dict[str, Any]) -> Iterable[MetricFamily]:
         for seg, names in stitched.items():
             fam.add(float(len(names or ())), {"segment": str(seg)})
         yield fam
+    # the pipelined stream (core/fusion.py fusion_stats()["pipeline"], fed
+    # by parallel/pipeplan.py PipeRunner): the stats key, and so every
+    # family below, exists only while a pipe plan is active
+    pipe = stats.get("pipeline")
+    if pipe:
+        f = _num(pipe.get("depth"))
+        if f is not None:
+            yield MetricFamily(
+                "mmlspark_pipe_depth", "gauge",
+                "active pipeline-parallel stage count").add(f)
+        f = _num(pipe.get("bubble_ratio"))
+        if f is not None:
+            yield MetricFamily(
+                "mmlspark_pipe_bubble_ratio", "gauge",
+                "pipeline fill/drain idle fraction, (S-1)/(M+S-1) over "
+                "the last stream").add(f)
+        busy = MetricFamily(
+            "mmlspark_pipe_stage_busy_ratio", "gauge",
+            "per-stage busy seconds / stream wall")
+        hand = MetricFamily(
+            "mmlspark_pipe_handoff_bytes_total", "counter",
+            "inter-stage rank-to-rank bytes moved, by receiving stage")
+        reqs = MetricFamily(
+            "mmlspark_pipe_stage_requeues_total", "counter",
+            "micro-batch streams requeued after this stage wedged "
+            "(each one re-planned at depth N-1)")
+        for st in (pipe.get("stages") or []):
+            labels = {"stage": str(st.get("index"))}
+            for fam, key in ((busy, "busy_ratio"),
+                             (hand, "handoff_bytes"),
+                             (reqs, "requeues")):
+                f = _num(st.get(key))
+                if f is not None:
+                    fam.add(f, labels)
+        for fam in (busy, hand, reqs):
+            if fam.samples:
+                yield fam
     # per-(segment, shape-bucket) tallied costs + roofline attribution
     # (obs/perf.py; families absent when no cost was recorded)
     from .perf import segment_families

@@ -38,6 +38,16 @@ carries no gradient of its own.
 
 The GBDT and VW fits run on the data axis only: a mesh with another axis
 larger than 1 raises ``NotImplementedError`` there (ROADMAP A9k).
+
+The fusion planners (``parallel/shardplan.py``, ``parallel/pipeplan.py``)
+take sub-meshes of a mesh: ``sub_mesh(mesh, members, spec)`` lays a subset
+of its ranks out as a mesh of its own (a pipe stage's ranks with the other
+axes kept, the survivors of a wedged shard group), with a group on every
+axis made by its members alone. A rank outside a sub-mesh holds its
+description and no group.
+``send_tensors`` / ``recv_tensors`` move a dict of tensors from one rank to
+another (the pipe handoff: NCCL card to card, gloo through host memory);
+``mesh_topology`` names a mesh's shape and card.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import pickle
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -229,10 +240,44 @@ class Mesh:
     backend: str = "gloo"
     group: Any = None
     groups: Dict[str, AxisGroup] = dataclasses.field(default_factory=dict)
+    # the global ranks of this mesh in its order (() = every rank of the
+    # process group, 0..n-1); a sub-mesh's are a subset (``sub_mesh``)
+    members: Tuple[int, ...] = ()
+    # the group of the whole process group (None: the default group): the
+    # one rank-to-rank transfers go through, sub-mesh or not
+    root: Any = None
+    _subs: Dict[Any, "Mesh"] = dataclasses.field(
+        default_factory=dict, repr=False)
 
     @property
     def size(self) -> int:
         return int(self.shape.get(DATA_AXIS, 1))
+
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        """The global ranks of this mesh, in mesh order."""
+        return self.members or tuple(range(self.axis_size(WORLD)))
+
+    @property
+    def index(self) -> Optional[int]:
+        """This process's place in ``ranks`` (None: not a member)."""
+        r = self.ranks
+        return r.index(self.rank) if self.rank in r else None
+
+    @property
+    def is_member(self) -> bool:
+        return self.rank in self.ranks
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return AXES
+
+    @property
+    def devices(self) -> np.ndarray:
+        """The mesh's global ranks laid out over ``AXES`` (the reference's
+        ``mesh.devices``: a rank stands for its device)."""
+        return np.asarray(self.ranks).reshape(
+            [int(self.shape.get(a, 1)) for a in AXES])
 
     def axis_size(self, axis: str) -> int:
         if axis == BATCH:
@@ -244,12 +289,14 @@ class Mesh:
     def coord(self, axis: str) -> int:
         """This rank's index on ``axis`` (``BATCH``: its row block, data
         major)."""
-        c = coords_of(self.rank, self.shape)
+        if self.index is None:
+            raise ValueError(f"rank {self.rank} is not in this mesh")
+        c = coords_of(self.index, self.shape)
         if axis == BATCH:
             return c[DATA_AXIS] * int(self.shape.get(FSDP_AXIS, 1)) \
                 + c[FSDP_AXIS]
         if axis == WORLD:
-            return self.rank
+            return self.index
         return c[axis]
 
 
@@ -270,31 +317,72 @@ def _group_keys():
 
 
 def _make_groups(sizes: Dict[str, int], rank: int, world: int, base,
-                 backend: str) -> Dict[str, AxisGroup]:
+                 backend: str, members: Optional[Sequence[int]] = None
+                 ) -> Dict[str, AxisGroup]:
     """This rank's ``AxisGroup`` for every axis, the batch group and the
-    world. Every rank calls ``dist.new_group`` for every group, members or
-    not, in the same order (the collective contract of ``new_group``); a
-    group of the whole world is ``base`` itself."""
+    world of the mesh over ``members``. Without ``members`` (the whole
+    process group) every rank calls ``dist.new_group`` for every group,
+    members or not, in the same order (the collective contract of
+    ``new_group``); a group of the whole process group is ``base`` itself.
+    With ``members`` (a sub-mesh) a rank makes only the groups it is in
+    (``_member_group``), so a rank outside the sub-mesh takes no part."""
+    local = members is not None
     dist = _dist()
     dims = [int(sizes.get(a, 1)) for a in AXES]
-    ids = np.arange(world).reshape(dims)
+    members = list(range(world)) if members is None else list(members)
+    ids = np.asarray(members).reshape(dims)
+    everyone = members == list(range(world))
     out: Dict[str, AxisGroup] = {}
     for key, axes in _group_keys():
         moving = [AXES.index(a) for a in axes]
         size = int(np.prod([dims[i] for i in moving]))
         if size == 1 and world > 1:
             continue
-        if size == world:
-            out[key] = AxisGroup(tuple(range(world)), base)
+        if size == len(members) and everyone:
+            out[key] = AxisGroup(tuple(int(r) for r in ids.reshape(-1)),
+                                 base)
             continue
         fixed = [i for i in range(len(AXES)) if i not in moving]
         blocks = np.transpose(ids, fixed + moving).reshape(-1, size)
-        for members in blocks:
-            ranks = tuple(int(r) for r in members)
+        for block in blocks:
+            ranks = tuple(int(r) for r in block)
+            if local:
+                if rank in ranks:
+                    out[key] = AxisGroup(ranks, _member_group(
+                        ranks, rank, backend))
+                continue
             handle = dist.new_group(list(ranks), backend=backend)
             if rank in ranks:
                 out[key] = AxisGroup(ranks, handle)
     return out
+
+
+_MEMBER_GROUPS: Dict[Tuple[int, ...], int] = {}
+
+
+def _member_group(ranks: Tuple[int, ...], rank: int, backend: str):
+    """A process group of ``ranks`` made by its members alone: a gloo or
+    NCCL group over the default store under a prefix named by the ranks
+    and how many groups of those ranks this process has made (the same on
+    every member, which make them in one order). ``dist.new_group`` cannot
+    serve: without every rank of the process group it names a group after
+    how many groups the calling process holds, which differs from member
+    to member once sub-meshes leave some ranks out."""
+    import datetime
+
+    dist = _dist()
+    n = _MEMBER_GROUPS.get(ranks, 0)
+    _MEMBER_GROUPS[ranks] = n + 1
+    store = dist.PrefixStore(
+        f"mmlspark_sub/{'_'.join(map(str, ranks))}/{n}",
+        dist.distributed_c10d._get_default_store())
+    me, size = ranks.index(rank), len(ranks)
+    timeout = datetime.timedelta(seconds=1800)
+    if backend == "nccl":
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = timeout
+        return dist.ProcessGroupNCCL(store, me, size, opts)
+    return dist.ProcessGroupGloo(store, me, size, timeout)
 
 
 def _local_rank(rank: int) -> int:
@@ -342,7 +430,7 @@ def make_mesh(spec: Optional[MeshSpec] = None,
     groups = _make_groups(sizes, rank, world, group, want) \
         if dist.is_initialized() else {}
     return Mesh(shape=sizes, rank=rank, device=dev, backend=want,
-                group=group, groups=groups)
+                group=group, groups=groups, root=group)
 
 
 def mesh_shards(mesh) -> int:
@@ -693,6 +781,202 @@ def barrier(mesh) -> None:
         _sum_raw(torch.zeros(1, device=mesh.device), mesh, g)
 
 
+def gather_blocks(t: torch.Tensor, mesh, axis: str, dim: int,
+                  sizes: Sequence[int]) -> torch.Tensor:
+    """The blocks of ``t`` along ``axis`` concatenated on ``dim``, in
+    coordinate order, where block i has ``sizes[i]`` entries on ``dim``
+    (``np.array_split``'s blocks: they may differ by one). Each block is
+    padded to the largest, gathered and cropped. The identity where the
+    axis has no group. Every rank of the group calls it, in one order."""
+    g = axis_group(mesh, axis)
+    if g is None or g.size == 1:
+        return t
+    width = max(int(v) for v in sizes)
+    src = t
+    if int(t.shape[dim]) < width:
+        pad = list(t.shape)
+        pad[dim] = width - int(t.shape[dim])
+        src = torch.cat([t, t.new_zeros(pad)], dim=dim)
+    full = _gather_raw(src, mesh, g, dim)
+    parts = [full.narrow(dim, i * width, int(n)) for i, n in enumerate(sizes)]
+    return torch.cat(parts, dim=dim) if len(parts) > 1 else parts[0]
+
+
+def any_failed(flag: int, mesh) -> int:
+    """The largest of every rank's ``flag`` over ``mesh``'s ranks (0: all
+    went well): the agreement a sharded segment reaches before a
+    collective, so that a failure on one rank becomes the same decision on
+    every rank instead of a partner left waiting. ``flag`` itself without
+    a group."""
+    g = axis_group(mesh, WORLD)
+    if g is None or g.size == 1:
+        return int(flag)
+    dist = _dist()
+    t0 = time.perf_counter()
+    dev = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g.handle)
+    _note(t, t0)
+    return int(t.item())
+
+
+def share_objects(obj: Any, mesh) -> List[Any]:
+    """Every rank's ``obj`` (any picklable value), in mesh order, on every
+    rank of ``mesh``: how the ranks of an SPMD program agree on a decision
+    one of them makes (the Tuner's knob sets and verdicts, a pipe plan's
+    stage costs) or learn that one of them failed. ``[obj]`` without a
+    group, and on a rank outside the mesh: such a rank runs without the
+    mesh's collectives, so nothing of it needs agreeing. Two all-gathers
+    (the lengths, then the padded pickles) through the mesh's wire: the
+    card on NCCL, host memory on gloo."""
+    g = axis_group(mesh, WORLD)
+    if g is None or g.size == 1:
+        return [obj]
+    dist = _dist()
+    n = g.size
+    t0 = time.perf_counter()
+    wire = _wire(mesh)
+    blob = torch.frombuffer(bytearray(pickle.dumps(obj)), dtype=torch.uint8)
+    size = torch.tensor([blob.numel()], dtype=torch.int64, device=wire)
+    sizes = [torch.empty_like(size) for _ in range(n)]
+    dist.all_gather(sizes, size, group=g.handle)
+    lengths = [int(s.item()) for s in sizes]
+    buf = torch.zeros(max(lengths), dtype=torch.uint8, device=wire)
+    buf[:blob.numel()] = blob.to(wire)
+    bufs = [torch.empty_like(buf) for _ in range(n)]
+    dist.all_gather(bufs, buf, group=g.handle)
+    _note(buf, t0)
+    return [pickle.loads(b[:k].cpu().numpy().tobytes())
+            for b, k in zip(bufs, lengths)]
+
+
+# ---------------------------------------------------------------------------
+# sub-meshes and rank-to-rank transfers (the fusion planners)
+# ---------------------------------------------------------------------------
+
+
+def sub_mesh(mesh: Mesh, members: Sequence[int],
+             spec: Optional[MeshSpec] = None) -> Mesh:
+    """The mesh of ``members`` (global ranks of ``mesh``, ascending) laid
+    out by ``spec`` (default: one data axis over them). Its members call it
+    in the same order (each of its groups is a ``dist.new_group`` among
+    the group's members alone); a rank outside ``members`` gets the
+    description with no group and takes no part. The result is kept on
+    ``mesh``, so a second call with the same arguments makes no group."""
+    members = tuple(int(r) for r in members)
+    if list(members) != sorted(set(members)):
+        raise ValueError(f"sub-mesh members {members} must ascend")
+    if not set(members) <= set(mesh.ranks):
+        raise ValueError(f"{members} are not all ranks of {mesh.ranks}")
+    spec = spec or MeshSpec(data=len(members))
+    sizes = spec.resolve(len(members))
+    key = (members, tuple(sizes[a] for a in AXES))
+    got = mesh._subs.get(key)
+    if got is not None:
+        return got
+    dist = _dist()
+    groups: Dict[str, AxisGroup] = {}
+    if dist.is_initialized():
+        if mesh.rank in members:
+            groups = _make_groups(sizes, mesh.rank, process_count(),
+                                  mesh.group, mesh.backend, members)
+    else:
+        # one process: its one-rank mesh is the only sub-mesh there is
+        groups = dict(mesh.groups)
+    whole = groups.get(WORLD)
+    sub = Mesh(shape=sizes, rank=mesh.rank, device=mesh.device,
+               backend=mesh.backend,
+               group=whole.handle if whole is not None else mesh.group,
+               groups=groups if mesh.rank in members else {},
+               members=members, root=mesh.root)
+    mesh._subs[key] = sub
+    return sub
+
+
+def mesh_topology(mesh) -> str:
+    """Canonical topology string (axis sizes and the card's name): what a
+    cache keyed by mesh shape folds into its fingerprint."""
+    if mesh is None:
+        return "none"
+    axes = ",".join(f"{a}={int(mesh.shape.get(a, 1))}" for a in AXES)
+    dev = torch.device(getattr(mesh, "device", "cpu"))
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    return f"{axes};kind={kind}"
+
+
+_ALIGN = 16   # bytes: each tensor of a transfer starts on this boundary
+
+
+def _wire(mesh) -> torch.device:
+    return mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+
+
+def send_tensors(tensors: Dict[str, torch.Tensor], dst: int, mesh,
+                 meta: Any = None) -> int:
+    """Send a dict of tensors (any dtypes and shapes, ``meta`` a picklable
+    value beside them) to global rank ``dst``, which calls
+    ``recv_tensors``. Three messages: the header's length, the header, one
+    payload of every tensor's bytes; on NCCL from card to card, on gloo
+    through host memory. Returns the payload's bytes."""
+    dist = _dist()
+    t0 = time.perf_counter()
+    wire = _wire(mesh)
+    head = [(k, tuple(t.shape), str(t.dtype).replace("torch.", ""))
+            for k, t in tensors.items()]
+    blob = pickle.dumps({"tensors": head, "meta": meta})
+    hdr = torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(wire)
+    dist.send(torch.tensor([hdr.numel()], dtype=torch.int64, device=wire),
+              int(dst), group=mesh.root)
+    dist.send(hdr, int(dst), group=mesh.root)
+    chunks = []
+    for t in tensors.values():
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8).to(wire)
+        chunks.append(b)
+        pad = -b.numel() % _ALIGN
+        if pad:
+            chunks.append(torch.zeros(pad, dtype=torch.uint8, device=wire))
+    nbytes = sum(int(c.numel()) for c in chunks)
+    if nbytes:
+        payload = torch.cat(chunks) if len(chunks) > 1 else chunks[0]
+        dist.send(payload, int(dst), group=mesh.root)
+    stats.calls += 1
+    stats.bytes += nbytes
+    stats.ms += (time.perf_counter() - t0) * 1e3
+    return nbytes
+
+
+def recv_tensors(src: int, mesh) -> Tuple[Dict[str, torch.Tensor], Any]:
+    """(tensors, meta) sent by global rank ``src`` with ``send_tensors``;
+    the tensors on ``mesh.device``."""
+    dist = _dist()
+    t0 = time.perf_counter()
+    wire = _wire(mesh)
+    n = torch.empty(1, dtype=torch.int64, device=wire)
+    dist.recv(n, int(src), group=mesh.root)
+    hdr = torch.empty(int(n.item()), dtype=torch.uint8, device=wire)
+    dist.recv(hdr, int(src), group=mesh.root)
+    info = pickle.loads(hdr.cpu().numpy().tobytes())
+    spans = []
+    off = 0
+    for name, shape, dt in info["tensors"]:
+        dtype = getattr(torch, dt)
+        k = int(np.prod(shape, dtype=np.int64)) * \
+            torch.empty(0, dtype=dtype).element_size()
+        spans.append((name, shape, dtype, off, k))
+        off += k + (-k % _ALIGN)
+    payload = torch.empty(off, dtype=torch.uint8, device=wire)
+    if off:
+        dist.recv(payload, int(src), group=mesh.root)
+    out = {}
+    for name, shape, dtype, start, k in spans:
+        t = payload[start:start + k].view(dtype).reshape(shape)
+        out[name] = t.to(mesh.device)
+    stats.calls += 1
+    stats.bytes += off
+    stats.ms += (time.perf_counter() - t0) * 1e3
+    return out, info["meta"]
+
+
 # ---------------------------------------------------------------------------
 # placements: which block of a tensor a rank holds
 # ---------------------------------------------------------------------------
@@ -797,8 +1081,9 @@ __all__: List[str] = [
     "EXPERT_AXIS", "FSDP_AXIS", "Mesh", "MeshContext", "MeshSpec",
     "PIPE_AXIS", "SEQ_AXIS", "ShardSpec", "TENSOR_AXIS", "WORLD",
     "all_gather", "all_gather_axis", "all_reduce_axis", "all_reduce_sum",
-    "axis_group", "barrier", "coords_of", "gather_tree", "reduce_scatter_axis",
-    "ring_shift", "shard_tree",
+    "any_failed", "axis_group", "barrier", "coords_of", "gather_blocks",
+    "gather_tree", "mesh_topology", "recv_tensors", "reduce_scatter_axis",
+    "ring_shift", "send_tensors", "shard_tree", "share_objects", "sub_mesh",
     "explicit_mesh", "fetch_global", "initialize_distributed", "make_mesh",
     "mesh_shards", "num_data_shards", "process_count", "process_index",
     "process_shard", "row_block", "stats"]

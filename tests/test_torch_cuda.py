@@ -2010,3 +2010,199 @@ def test_flash_kernels_on_a_rank_head_slice(cuda_device, causal):
     plain = flash_kernel.flash_attention_bwd_plain(*part[:3], po, plse,
                                                    part[3], causal)
     _assert_bwd_close(pg, plain, *part, causal)
+
+
+_CUDA_FUSION_RANK = r'''
+import numpy as np
+import torch
+
+
+def _chain(head, batch=8):
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.models import (Dense, DNNModel, FunctionModel,
+                                           Sequential, transformer_encoder)
+
+    enc = transformer_encoder(seq_len=256, dim=64, depth=2, num_heads=1,
+                              vocab_size=100, seed=0)
+    stages = [DNNModel(inputCol="tokens", outputCol="emb", batchSize=batch)
+              .set_model(enc)]
+    if head:
+        mod = Sequential([("fc", Dense(3))], name="head")
+        mod.init(torch.Generator().manual_seed(1), (256, 64))
+        stages.append(DNNModel(inputCol="emb", outputCol="y", batchSize=8)
+                      .set_model(FunctionModel(mod, (256, 64), name="head")))
+    ids = np.random.default_rng(0).integers(0, 100, (16, 256))
+    return PipelineModel(stages).fuse(), \
+        DataFrame.from_dict({"tokens": ids}, num_partitions=1)
+
+
+def _col(df, name):
+    return np.stack(list(df.column(name)))
+
+
+def run(mesh, pipe):
+    """The encoder segment data-sharded over the launch's mesh (or, with
+    ``pipe``, the encoder -> head chain over data x pipe 2), K5 counted;
+    against the unsharded run in batches of a rank's rows (the same GEMM
+    shapes) and in the segment's own batches of 8."""
+    from mmlspark_tpu_torch.models import flash_kernel as fk
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    fused, df = _chain(pipe)
+    col = "y" if pipe else "emb"
+    want8 = _col(fused.transform(df), col)
+    rows = 8 if pipe else 8 // mesh.axis_size("world")
+    per_rank, _ = _chain(pipe, batch=rows)
+    want = _col(per_rank.transform(df), col)
+    if pipe:
+        fused.set_mesh(make_mesh(MeshSpec(data=1, pipe=2),
+                                 device=mesh.device, backend=mesh.backend))
+        fused.set_tuning(pipe_depth=2)
+    else:
+        fused.set_mesh(mesh)
+        fused.set_tuning(sharding={"DNNModel": "data"})
+    fk.launches = 0
+    got = _col(fused.transform(df), col)
+    st = fused.fusion_stats()
+    return {"err": float(np.abs(got - want).max()),
+            "err8": float(np.abs(got - want8).max()),
+            "bitwise": bool(np.array_equal(got, want)),
+            "launches": fk.launches, "fallbacks": st["fallbacks"],
+            "sharding": st.get("sharding"), "pipeline": st.get("pipeline")}
+
+
+def run_sub_meshes(mesh):
+    """Collectives on sub-meshes whose groups their members made alone
+    (``mesh.sub_mesh``): the encoder segment data-sharded over the launch's
+    four ranks, then re-planned onto ranks 1-3 after a wedge of rank 0's
+    shard group (``MeshSupervision``); the encoder -> head chain over data
+    2 x pipe 2 with each stage data-sharded over its two ranks; and the
+    Tuner's agreement (``share_objects``) on the whole mesh and on the
+    survivors."""
+    from mmlspark_tpu_torch.models import flash_kernel as fk
+    from mmlspark_tpu_torch.parallel import shardplan
+    from mmlspark_tpu_torch.parallel.mesh import (MeshSpec, make_mesh,
+                                                  share_objects)
+
+    out = {"backend": mesh.backend, "device": str(mesh.device)}
+    fused, df = _chain(False)
+    want = _col(fused.transform(df), "emb")
+    sup = shardplan.MeshSupervision(fused, mesh)
+    fused.set_tuning(sharding={"DNNModel": "data"})
+    out["before_err"] = float(np.abs(_col(fused.transform(df), "emb")
+                                     - want).max())
+    sub = sup.on_wedge(0)
+    out["shared"] = share_objects(mesh.rank, mesh)
+    out["shared_sub"] = share_objects(mesh.rank, sub)
+    fk.launches = 0
+    got = _col(fused.transform(df), "emb")
+    st = fused.fusion_stats()
+    out.update(after_err=float(np.abs(got - want).max()),
+               after_bitwise=bool(np.array_equal(got, want)),
+               after_launches=fk.launches, after_fallbacks=st["fallbacks"],
+               after_sharding=st.get("sharding"))
+    chain, cdf = _chain(True)
+    want = _col(chain.transform(cdf), "y")
+    chain.set_mesh(make_mesh(MeshSpec(data=2, pipe=2), device=mesh.device,
+                             backend=mesh.backend))
+    chain.set_tuning(pipe_depth=2, sharding={"DNNModel": "data"})
+    fk.launches = 0
+    got = _col(chain.transform(cdf), "y")
+    st = chain.fusion_stats()
+    out.update(pipe_err=float(np.abs(got - want).max()),
+               pipe_launches=fk.launches, pipe_fallbacks=st["fallbacks"],
+               pipeline=st.get("pipeline"), pipe_sharding=st.get("sharding"))
+    return out
+'''
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,device,backend", [
+    (1, "cuda", "nccl"), (2, "cuda:0", "gloo")])
+def test_sharded_fused_segment_on_the_card(cuda_device, tmp_path, world,
+                                           device, backend):
+    """A fused encoder segment under the ``data`` spec on the card: two
+    gloo ranks sharing ``cuda:0`` each run K5 on their 4 rows of every
+    8-row batch and gather, bit for bit the unsharded run in 4-row batches
+    (the same GEMM shapes: the sharding moves bits, not math), and within
+    bf16's rounding (2e-2, the encoder's bf16 parity bound in
+    ``test_torch_fusion.py``) of the unsharded 8-row batches, whose bf16
+    GEMMs cuBLAS may sum in another order (5.3e-3 apart at these widths;
+    ``chip_smoke.py``'s mesh_fused holds the full-width encoder to 1e-5).
+    A one-rank NCCL mesh has one shard: the unsharded path bit for bit."""
+    from mmlspark_tpu_torch.parallel.launch import spawn
+
+    (tmp_path / "cuda_fusion_rank.py").write_text(_CUDA_FUSION_RANK)
+    ranks = spawn("cuda_fusion_rank:run", world, tmp_path, {"pipe": False},
+                  device=device, backend=backend, timeout=300,
+                  path=[str(tmp_path)])
+    for r in ranks:
+        assert r["fallbacks"] == []
+        assert r["launches"] == 2 * 2          # depth x batches a rank
+        assert r["bitwise"] and r["err8"] <= 2e-2
+        if world == 1:
+            assert r["sharding"] is None
+        else:
+            seg = r["sharding"]["segments"]["DNNModel"]
+            assert seg["shards"] == world
+
+
+@pytest.mark.cuda
+def test_pipelined_fused_chain_on_the_card_is_bitwise(cuda_device, tmp_path):
+    """The encoder -> head chain over data 1 x pipe 2 on two gloo ranks
+    sharing ``cuda:0``: stage 0 runs the encoder (K5) and hands its output
+    on through host memory, stage 1 the head; both return the serial
+    chain's output bit for bit."""
+    from mmlspark_tpu_torch.parallel.launch import spawn
+
+    (tmp_path / "cuda_fusion_rank.py").write_text(_CUDA_FUSION_RANK)
+    ranks = spawn("cuda_fusion_rank:run", 2, tmp_path, {"pipe": True},
+                  device="cuda:0", backend="gloo", timeout=300,
+                  path=[str(tmp_path)])
+    for r in ranks:
+        assert r["bitwise"] and r["fallbacks"] == []
+        pipe = r["pipeline"]
+        assert pipe["depth"] == 2 and pipe["serial_fallback_partitions"] == 0
+        assert r["launches"] == (2 * 2 if pipe["stage"] == 0 else 0)
+
+
+@pytest.mark.cuda
+def test_nccl_sub_meshes_on_four_cards(cuda_device, tmp_path):
+    """NCCL collectives on sub-mesh groups made by their members alone, on
+    four ranks with a card each (skips on fewer cards): the sharded encoder
+    segment re-planned onto ranks 1-3 after a shard-group wedge (3 shards
+    of 8-row batches; rank 0, outside, runs unsharded bit for bit) and the
+    encoder -> head chain on data 2 x pipe 2 with both stages data-sharded
+    over their two ranks; each within bf16's rounding (2e-2, as the one-card
+    case above) of the single-card run, no fallback, K5 on every rank that
+    runs the encoder; the Tuner's agreement over the whole mesh and over
+    the survivors."""
+    import torch
+
+    from mmlspark_tpu_torch.parallel.launch import spawn
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    (tmp_path / "cuda_fusion_rank.py").write_text(_CUDA_FUSION_RANK)
+    ranks = spawn("cuda_fusion_rank:run_sub_meshes", 4, tmp_path,
+                  device="cuda", backend="nccl", timeout=600,
+                  path=[str(tmp_path)])
+    for rank, r in enumerate(ranks):
+        assert r["backend"] == "nccl" and r["device"] == f"cuda:{rank}"
+        assert r["before_err"] <= 2e-2
+        assert r["shared"] == [0, 1, 2, 3]
+        assert r["after_fallbacks"] == [] and r["pipe_fallbacks"] == []
+        if rank == 0:
+            assert r["shared_sub"] == [0] and r["after_bitwise"]
+            assert r["after_sharding"] is None
+        else:
+            assert r["shared_sub"] == [1, 2, 3] and r["after_err"] <= 2e-2
+            seg = r["after_sharding"]["segments"]["DNNModel"]
+            assert seg["shards"] == 3
+        assert r["after_launches"] == 2 * 2      # depth x batches
+        assert r["pipe_err"] <= 2e-2
+        pipe = r["pipeline"]
+        assert pipe["depth"] == 2 and pipe["serial_fallback_partitions"] == 0
+        assert r["pipe_sharding"]["segments"]["DNNModel"]["shards"] == 2
+        assert r["pipe_launches"] == (2 * 2 if pipe["stage"] == 0 else 0)

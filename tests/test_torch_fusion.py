@@ -1042,10 +1042,11 @@ def test_dnn_model_preprocess_runs_on_the_batch():
 def test_dnn_model_unported_paths_raise():
     """What the model layer still refuses or keeps unfused: ``useMesh=True``
     and a multi-input feed stay unfused, a preprocess spec beside a
-    multi-input feed raises (as in the reference), and the fused
-    pipeline's mesh knobs (segment ``sharding``, ``pipe_depth``) raise
-    naming ROADMAP A step 9c. A mesh that is only this process's runs the
-    single-device transform (its data axis is 1)."""
+    multi-input feed raises (as in the reference). A mesh that is only this
+    process's runs the single-device transform (its data axis is 1). The
+    fused pipeline's mesh knobs (segment ``sharding``, ``pipe_depth``),
+    ported since, change nothing without a mesh (as in the reference):
+    the transform stays the single-device one, bit for bit."""
     from mmlspark_tpu_torch.parallel.mesh import Mesh, MeshContext
 
     _, port = _encoders()
@@ -1076,10 +1077,15 @@ def test_dnn_model_unported_paths_raise():
     with use_device("cpu"), pytest.raises(ValueError, match="single-input"):
         multi.transform(df)
     fused = PipelineModel([plain]).fuse()
-    with pytest.raises(NotImplementedError, match="step 9c"):
-        fused.set_tuning(sharding={"DNNModel": "data"})
-    with pytest.raises(NotImplementedError, match="step 9c"):
-        fused.set_tuning(pipe_depth=2)
+    fused.set_tuning(sharding={"DNNModel": "data"})
+    fused.set_tuning(pipe_depth=2)
+    with use_device("cpu"):
+        knobbed = np.stack(list(fused.transform(df).column("o")))
+    np.testing.assert_array_equal(knobbed, want)
+    stats = fused.fusion_stats()
+    assert fused.shard_mesh is None
+    assert "sharding" not in stats and "pipeline" not in stats
+    assert stats["tuning"]["sharding"] == {"DNNModel": "data"}
 
 
 def test_dnn_model_defaults_to_cuda():
@@ -2297,13 +2303,15 @@ def test_server_devices_and_unported_knobs(monkeypatch):
     fused.set_tuning(mega_k={"x": 1})  # K = 1 is the plain dispatch
     fused.set_tuning(mega_k={"x": 2})  # the K-step mega dispatch
     assert fused.mega_k_max == 2
-    # the mesh knobs clear as Tuner._push sends them, and raise when set
-    fused.set_tuning(sharding={}, pipe_depth=1)
+    # the mesh knobs (ported since): set, kept, and cleared as
+    # Tuner._push sends them
+    fused.set_tuning(sharding={"x": "data"}, pipe_depth=2)
+    assert fused._sharding_overrides == {"x": "data"}
+    assert fused._pipe_depth == 2
     fused.set_tuning(sharding=None, pipe_depth=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A step 9"):
-        fused.set_tuning(sharding={"x": "data"})
-    with pytest.raises(NotImplementedError, match="ROADMAP A step 9"):
-        fused.set_tuning(pipe_depth=2)
+    assert fused._pipe_depth == 2
+    fused.set_tuning(sharding={}, pipe_depth=1)
+    assert fused._sharding_overrides == {} and fused._pipe_depth is None
     from mmlspark_tpu_torch.serving import RoutingFront
 
     with pytest.raises(NotImplementedError, match="ROADMAP A step 10"):
@@ -5404,3 +5412,1192 @@ def test_mesh_collectives_and_their_backwards(dnn_mesh4):
             np.testing.assert_array_equal(r["gs"], np.full(
                 (2, 3), (me + 1) % n + 3, np.float64))
             np.testing.assert_array_equal(r["h"], np.concatenate(xs, 0))
+
+# ------------------------------------------- the fusion planner over a mesh
+#
+# parallel/shardplan.py and parallel/pipeplan.py run SPMD: one gloo rank a
+# process on the CPU (``parallel.launch.spawn``, one launch of 4 ranks runs
+# every case of ``_FUSION_RANKS``; a case's failure comes back as its
+# traceback). This process builds the inputs with the reference and holds
+# the ranks' outputs to the port's own unsharded output (the reference's
+# gate, ``__graft_entry__.py:166``: sharded within SHARD_ATOL = 1e-5 of
+# unsharded; pipelined bitwise) and to the reference's sharded output on 4
+# of the conftest's 8 CPU devices, at each stage's parity tolerance in this
+# file (F32_TOL for the image chain, PORT_VS_REF_ATOL for the forest,
+# DEEP_BF16_TOL for the default-precision encoder). The host-side planning
+# (candidates, the pipeline view, stage balance, the plan's gates) runs in
+# this process on meshes described by hand, beside the reference's.
+
+import functools  # noqa: E402
+
+from mmlspark_tpu_torch.core.fusion import HostStage  # noqa: E402
+
+SHARD_ATOL = 1e-5
+
+_FUSION_RANKS = r'''
+"""One rank of the fusion mesh cases (imports only the port)."""
+import functools
+import traceback
+
+import numpy as np
+import torch
+
+
+def _sub(mesh, members, **spec):
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, sub_mesh
+
+    return sub_mesh(mesh, members, MeshSpec(**spec))
+
+
+def _image_chain(case, heads=0):
+    """The reference's image chain in the port: ImageTransformer ->
+    ImageFeaturizer (the small CNN) [-> DNN heads], the case's weights."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.device_stage import CompileCache
+    from mmlspark_tpu_torch.core.fusion import FusedPipelineModel
+    from mmlspark_tpu_torch.core.schema import ImageSchema
+    from mmlspark_tpu_torch.image import ImageFeaturizer, ImageTransformer
+    from mmlspark_tpu_torch.models import (Conv2D, Dense, DNNModel,
+                                           FunctionModel, GlobalAvgPool,
+                                           Sequential, load_jax_params)
+    from mmlspark_tpu_torch.models.module import relu
+
+    size = 16
+    mod = Sequential([("conv", Conv2D(4, (3, 3))), ("act", relu()),
+                      ("pool", GlobalAvgPool()), ("head", Dense(4))],
+                     name="cnn")
+    mod.init(torch.Generator().manual_seed(0), (size, size, 3))
+    backbone = FunctionModel(mod, (size, size, 3), ["head", "pool"], "cnn")
+    load_jax_params(backbone, case["cnn"])
+    stages = [ImageTransformer().resize(size, size),
+              ImageFeaturizer(scaleFactor=1 / 255., batchSize=case["batch"])
+              .set_model(backbone)]
+    dims = [(4, "features", "emb", [8, 3]), (3, "emb", "emb2", [5])]
+    for i in range(heads):
+        width, src, dst, outs = dims[i]
+        layers = []
+        for k, n in enumerate(outs):
+            layers.append((f"d{k}", Dense(n)))
+            if k < len(outs) - 1:
+                layers.append((f"a{k}", relu()))
+        head = Sequential(layers, name=f"head{i}")
+        head.init(torch.Generator().manual_seed(1 + i), (width,))
+        fm = FunctionModel(head, (width,), name=f"head{i}")
+        load_jax_params(fm, case[f"head{i}"])
+        stages.append(DNNModel(inputCol=src, outputCol=dst,
+                               batchSize=case["batch"]).set_model(fm))
+    obj = np.empty(len(case["images"]), dtype=object)
+    for i, a in enumerate(case["images"]):
+        obj[i] = ImageSchema.make(a, f"img{i}")
+    df = DataFrame.from_dict({"image": obj},
+                             num_partitions=case["partitions"])
+    return FusedPipelineModel(stages, cache=CompileCache()), df
+
+
+def _col(out, name):
+    return np.stack([np.asarray(v) for v in out.column(name)])
+
+
+def _label(fused):
+    return next(n.label for n in fused._last_plan if hasattr(n, "dfns"))
+
+
+def case_sharded_image(case, mesh):
+    from mmlspark_tpu_torch.core import faults
+
+    out = {}
+    fused, df = _image_chain(case)
+    out["want"] = _col(fused.transform(df), "features")
+    label = _label(fused)
+    fused.set_mesh(mesh)
+    out["mesh_only"] = _col(fused.transform(df), "features")
+    out["mesh_only_stats"] = "sharding" in fused.fusion_stats()
+    fused.set_tuning(sharding={label: "data"})
+    out["got"] = _col(fused.transform(df), "features")
+    st = fused.fusion_stats()
+    out["stats"] = {"fallbacks": st["fallbacks"], "sharding": st["sharding"],
+                    "roofline": st["roofline"].get(label, {})}
+    fused.set_tuning(sharding={label: ""})
+    out["cleared"] = _col(fused.transform(df), "features")
+    fused.set_tuning(buckets={label: [11]}, sharding={label: "data"})
+    out["odd"] = _col(fused.transform(df), "features")
+    out["odd_fallbacks"] = fused.fusion_stats()["fallbacks"]
+    fused.set_tuning(buckets={})
+    with faults.FaultInjector(seed=11).plan(
+            faults.MESH_CHIP_WEDGE, every=1, exc=RuntimeError,
+            message="chip wedged"):
+        out["wedged"] = _col(fused.transform(df), "features")
+    out["wedged_fallbacks"] = fused.fusion_stats()["fallbacks"]
+    # the K-step dispatch of the submit path, sharded: K=2 groups of one
+    # partition's batches, each batch's collectives after the group
+    one, df1 = _image_chain(dict(case, partitions=1))
+    out["submit_want"] = _col(one.transform_submit(df1)(), "features")
+    one.set_mesh(mesh)
+    one.set_tuning(mega_k={label: 2}, sharding={label: "data"})
+    out["submit_mega"] = _col(one.transform_submit(df1)(), "features")
+    out["submit_fallbacks"] = one.fusion_stats()["fallbacks"]
+    return out
+
+
+def run(mesh, cases):
+    out = {}
+    for name, case in cases.items():
+        try:
+            out[name] = globals()["case_" + case["fn"]](case, mesh)
+        except Exception:
+            out[name] = {"error": traceback.format_exc()}
+    return out
+
+
+def _mesh(**spec):
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    return make_mesh(MeshSpec(**spec), device="cpu", backend="gloo")
+
+
+def _pipe_families(fused):
+    from mmlspark_tpu_torch.obs.bridge import _fusion_families
+
+    return [f.name for f in _fusion_families(fused.fusion_stats())
+            if f.name.startswith("mmlspark_pipe_")]
+
+
+def case_pipe_image(case, mesh):
+    """The image chain with one or two DNN heads pipelined (data 2 x pipe 2,
+    or pipe 3 on ranks 0-2 with rank 3 outside) against the serial fused
+    chain on the same rank."""
+    out = {}
+    heads = case.get("heads", 1)
+    name = "emb" if heads == 1 else "emb2"
+    fused, df = _image_chain(case, heads=heads)
+    out["want"] = _col(fused.transform(df), name)
+    out["want_features"] = _col(fused.transform(df), "features")
+    if heads == 1:
+        pm = _mesh(data=2, pipe=2)
+    else:
+        pm = _sub(mesh, [0, 1, 2], pipe=3)
+    fused.set_mesh(pm)
+    fused.set_tuning(pipe_depth=heads + 1)
+    got = fused.transform(df)
+    out["got"] = _col(got, name)
+    out["got_features"] = _col(got, "features")
+    st = fused.fusion_stats()
+    out["pipeline"] = st.get("pipeline")
+    out["fallbacks"] = st["fallbacks"]
+    out["families"] = _pipe_families(fused)
+    if out["pipeline"]:
+        from mmlspark_tpu_torch.obs.bridge import _fusion_families
+
+        fams = {f.name: f for f in _fusion_families(st)}
+        out["busy_stages"] = [s.labels.get("stage") for s in
+                              fams["mmlspark_pipe_stage_busy_ratio"].samples]
+    fused.set_tuning(pipe_depth=1)
+    out["off"] = bool(np.array_equal(_col(fused.transform(df), name),
+                                     out["want"]))
+    out["off_families"] = _pipe_families(fused)
+    out["off_stats"] = "pipeline" in fused.fusion_stats()
+    return out
+
+
+def _gbdt(case):
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.device_stage import CompileCache
+    from mmlspark_tpu_torch.core.fusion import FusedPipelineModel
+    from mmlspark_tpu_torch.gbdt import convert, stages
+
+    model = stages.LightGBMClassificationModel(
+        booster=convert.booster_from_reference(case["booster"]),
+        featuresCol="features")
+    X = case["X"]
+    rows = np.empty(len(X), dtype=object)
+    for i, r in enumerate(X):
+        rows[i] = r
+    df = DataFrame.from_dict({"features": rows},
+                             num_partitions=case["partitions"])
+    return FusedPipelineModel([model], cache=CompileCache()), df
+
+
+def _encoder(case):
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.device_stage import CompileCache
+    from mmlspark_tpu_torch.core.fusion import FusedPipelineModel
+    from mmlspark_tpu_torch.models import (DNNModel, load_jax_params,
+                                           transformer_encoder)
+
+    enc = transformer_encoder(**case["spec"])
+    load_jax_params(enc, case["params"])
+    stage = DNNModel(inputCol="tokens", outputCol="emb",
+                     batchSize=case["batch"]).set_model(enc)
+    df = DataFrame.from_dict({"tokens": list(case["ids"])},
+                             num_partitions=case["partitions"])
+    return FusedPipelineModel([stage], cache=CompileCache()), df
+
+
+def _outputs(out, cols):
+    return {c: _col(out, c) if out.column(c).dtype == object
+            else np.asarray(out.column(c), dtype=np.float64) for c in cols}
+
+
+def case_sharded_stage(case, mesh):
+    """One stage's segment unsharded, data-sharded over the world mesh and
+    feature-sharded over data 2 x tensor 2."""
+    build = {"gbdt": _gbdt, "encoder": _encoder}[case["stage"]]
+    cols = case["cols"]
+    fused, df = build(case)
+    out = {"want": _outputs(fused.transform(df), cols)}
+    label = _label(fused)
+    fused.set_mesh(mesh)
+    fused.set_tuning(sharding={label: "data"})
+    out["data"] = _outputs(fused.transform(df), cols)
+    out["data_stats"] = fused.fusion_stats()["sharding"]
+    out["data_fallbacks"] = fused.fusion_stats()["fallbacks"]
+    fused.set_mesh(_mesh(data=2, tensor=2))
+    fused.set_tuning(sharding={label: "feature"})
+    out["feature"] = _outputs(fused.transform(df), cols)
+    out["feature_stats"] = fused.fusion_stats()["sharding"]
+    out["feature_fallbacks"] = fused.fusion_stats()["fallbacks"]
+    return out
+
+
+def _forced(rank, **choose):
+    """A cost model that wants the mesh knob on rank 0 alone: every other
+    rank's own proposal leaves it out, so the ranks agree only through the
+    Tuner taking the first rank's decisions. Its other decisions are the
+    real ones, over each rank's own measurements."""
+    from mmlspark_tpu_torch.core.costmodel import SegmentCostModel
+
+    class Forced(SegmentCostModel):
+        def choose_sharding(self, segment, batch, candidates, margin=0.95):
+            names = [c["name"] for c in candidates]
+            want = choose.get("sharding") if rank == 0 else None
+            return want if want in names else None
+
+        def choose_pipe_depth(self, chain_labels, batch, max_depth, **kw):
+            d = choose.get("pipe_depth") if rank == 0 else None
+            return d if d and max_depth >= d and len(chain_labels) >= 2 \
+                else None
+
+    return Forced(peaks={"flops": 1e9, "bytes_per_s": 1e9,
+                         "peak_source": "test"}, min_obs=2)
+
+
+def _timing(compute_ms=2.0, rows=8):
+    from mmlspark_tpu_torch.parallel.ingest import BatchTiming
+
+    return BatchTiming(compute_s=compute_ms / 1e3, h2d_s=5e-4, rows=rows,
+                       padded_rows=rows)
+
+
+def _measures(rank, others):
+    """A ``measure`` for ``Tuner.tune``: 100.0 at every call on rank 0, the
+    values of ``others`` in turn (then 100.0) on every other rank, so that
+    alone they would judge a step the other way."""
+    seq = iter(others)
+    return lambda: 100.0 if rank == 0 else next(seq, 100.0)
+
+
+def case_tuner(case, mesh):
+    """The Tuner's sharding (or pipe_depth) knob: proposed, applied and
+    journaled, then rolled back on an injected regression to the bitwise
+    serial path. Only rank 0's cost model wants the knob, each rank folds
+    its own (different) timings, and the other ranks measure the steps
+    the other way: every rank must still take the same decisions."""
+    from mmlspark_tpu_torch.core import faults
+    from mmlspark_tpu_torch.core.tune import KnobSet, Tuner
+
+    knob = case["knob"]
+    rank = mesh.rank
+    out = {}
+    fused, df = _image_chain(case, heads=1 if knob == "pipe_depth" else 0)
+    col = "emb" if knob == "pipe_depth" else "features"
+    want = _col(fused.transform(df), col)
+    label = _label(fused)
+    if knob == "pipe_depth":
+        fused.set_mesh(_mesh(data=2, pipe=2))
+        model = _forced(rank, pipe_depth=2)
+    else:
+        fused.set_mesh(mesh)
+        model = _forced(rank, sharding="data")
+        for _ in range(3):
+            model.observe_batch(label, _timing(compute_ms=2.0 + 3.0 * rank,
+                                               rows=8 * (1 + rank)))
+    t = Tuner(fused=fused, model=model)
+    knobs = t.propose()
+    out["proposed"] = knobs.to_dict()
+    out["round_trip"] = KnobSet.from_dict(knobs.to_dict()).to_dict()
+    # ranks 1-3 alone would roll this step back (100 -> 10)
+    result = t.tune(_measures(rank, [100.0, 10.0]), steps=1, warmup=0)
+    out["rollbacks_1"] = result["rollbacks"]
+    out["applied"] = [e["knobs"] for e in t.journal if e["action"] == "apply"]
+    out["overrides"] = (dict(fused._sharding_overrides), fused._pipe_depth)
+    got = _col(fused.transform(df), col)
+    out["applied_err"] = float(np.abs(got - want).max())
+    st = fused.fusion_stats()
+    out["applied_pipeline"] = (st.get("pipeline") or {}).get("depth")
+    out["applied_sharding"] = st.get("sharding")
+    t2 = Tuner(fused=fused, model=model, tolerance=0.05)
+    fused.set_tuning(sharding={}, pipe_depth=1)
+    # ranks 1-3 alone would keep this step (100 -> 1000 / 1.2)
+    with faults.FaultInjector(seed=3).plan(
+            faults.TUNER_MEASURE, at=(2,), delay_s=0.2, exc=None):
+        result = t2.tune(_measures(rank, [100.0, 1000.0]), steps=3,
+                         warmup=0)
+    out["journal"] = [{k: v for k, v in e.items()}
+                      for e in t.journal + t2.journal]
+    out["rollbacks"] = t2.rollbacks
+    out["step1_accepted"] = result["steps"][1]["accepted"]
+    out["final_default"] = KnobSet.from_dict(result["final_knobs"]).is_default()
+    out["journal_rollback"] = any(e["action"].startswith("rollback")
+                                  for e in t2.journal)
+    out["after"] = (dict(fused._sharding_overrides), fused._pipe_depth)
+    out["bitwise"] = bool(np.array_equal(_col(fused.transform(df), col),
+                                         want))
+    out["after_stats"] = sorted(k for k in fused.fusion_stats()
+                                if k in ("pipeline", "sharding"))
+    return out
+
+
+def case_rank_faults(case, mesh):
+    """A failure on one rank alone, at each step the ranks must agree on,
+    turns into the same path on every rank and hangs none: resolving the
+    spec (rank 1 raises: every rank unsharded), building the sharded
+    program (rank 2 demotes it: every rank's host fallback; rank 3 raises:
+    every rank raises), resolving the pipe plan (rank 1 raises: every rank
+    serial) and handing the placed plan to the supervisor (rank 2's hook
+    raises: every rank serial)."""
+    from mmlspark_tpu_torch.core.device_stage import FusionUnsupported
+    from mmlspark_tpu_torch.core.fusion import SegmentExecutor
+    from mmlspark_tpu_torch.parallel import pipeplan, shardplan
+
+    rank = mesh.rank
+    out = {}
+
+    def once(patches, build, knobs, col, pipe_mesh=None, supervisor=None):
+        fused, df = build()
+        want = _col(fused.transform(df), col)
+        fused.set_mesh(pipe_mesh or mesh)
+        if supervisor is not None:
+            pipeplan.PipeSupervision(fused, pipe_mesh, supervisor=supervisor)
+        fused.set_tuning(**{k: (v if k == "pipe_depth" else
+                                {_label(fused): v})
+                            for k, v in knobs.items()})
+        saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+        try:
+            for obj, name, fn in patches:
+                setattr(obj, name, fn)
+            try:
+                got = _col(fused.transform(df), col)
+                res = {"err": float(np.abs(got - want).max()),
+                       "bitwise": bool(np.array_equal(got, want))}
+            except Exception as e:  # noqa: BLE001 — the case's outcome
+                res = {"raised": type(e).__name__, "message": str(e)}
+        finally:
+            for obj, name, fn in saved:
+                setattr(obj, name, fn)
+        st = fused.fusion_stats()
+        res.update(fallbacks=st["fallbacks"], sharded="sharding" in st,
+                   pipelined="pipeline" in st)
+        return res
+
+    def fail(*a, **k):
+        raise RuntimeError(f"rank {rank}: injected failure")
+
+    def demote(*a, **k):
+        raise FusionUnsupported(f"rank {rank}: injected build failure")
+
+    class Supervisor:
+        def set_pipe_stages(self, groups):
+            if rank == 2:
+                fail()
+
+    image = functools.partial(_image_chain, case)
+    chain = functools.partial(_image_chain, case, heads=1)
+    out["resolve"] = once(
+        [(shardplan, "sharding_for", fail)] if rank == 1 else [],
+        image, {"sharding": "data"}, "features")
+    out["build_demoted"] = once(
+        [(SegmentExecutor, "_build", demote)] if rank == 2 else [],
+        image, {"sharding": "data"}, "features")
+    out["build_raised"] = once(
+        [(SegmentExecutor, "_build", fail)] if rank == 3 else [],
+        image, {"sharding": "data"}, "features")
+    out["pipe_run"] = once(
+        [(pipeplan, "pipe_run", fail)] if rank == 1 else [],
+        chain, {"pipe_depth": 2}, "emb", _mesh(data=2, pipe=2))
+    out["pipe_hook"] = once([], chain, {"pipe_depth": 2}, "emb",
+                            _mesh(data=2, pipe=2), supervisor=Supervisor())
+    return out
+
+
+def case_supervision(case, mesh):
+    """MeshSupervision over data 4: shard groups, a wedge of rank 0's group
+    re-plans onto the three survivors (rank 0 runs unsharded), idempotent
+    per group."""
+    from mmlspark_tpu_torch.parallel import shardplan
+    from mmlspark_tpu_torch.serving.supervisor import ReplicaSupervisor
+
+    fused, df = _image_chain(case)
+    want = _col(fused.transform(df), "features")
+    label = _label(fused)
+    sup = ReplicaSupervisor(4, quarantine_s=60.0)
+    ms = shardplan.MeshSupervision(fused, mesh, supervisor=sup)
+    out = {"attached": fused.shard_mesh is mesh,
+           "groups": shardplan.shard_groups(mesh)}
+    fused.set_tuning(sharding={label: "data"})
+    out["before_err"] = float(np.abs(_col(fused.transform(df), "features")
+                                     - want).max())
+    sub = ms.on_wedge(0)
+    out["sub_shape"] = dict(sub.shape)
+    out["sub_ranks"] = list(sub.ranks)
+    out["replans"] = ms.replans
+    out["fused_mesh_is_sub"] = fused.shard_mesh is sub
+    out["states"] = {r["replica"]: r["state"] for r in sup.describe()}
+    got = _col(fused.transform(df), "features")
+    out["after_err"] = float(np.abs(got - want).max())
+    out["after_bitwise"] = bool(np.array_equal(got, want))
+    out["sharding"] = fused.fusion_stats().get("sharding")
+    out["fallbacks"] = fused.fusion_stats()["fallbacks"]
+    out["again_same"] = ms.on_wedge(0) is sub
+    out["describe"] = ms.describe()
+    return out
+
+
+def case_pipe_wedge(case, mesh):
+    """A stage wedge under PipeSupervision: every micro-batch (depth 2 ->
+    serial on the survivors) or the fifth seam of a three-stage chain
+    (depth 3 -> 2), bitwise either way."""
+    from mmlspark_tpu_torch.core import faults
+    from mmlspark_tpu_torch.parallel.pipeplan import PipeSupervision
+    from mmlspark_tpu_torch.serving.supervisor import ReplicaSupervisor
+
+    deep = case["mode"] == "mid"
+    name = "emb2" if deep else "emb"
+    fused, df = _image_chain(case, heads=2 if deep else 1)
+    want = _col(fused.transform(df), name)
+    fused2, df2 = _image_chain(case, heads=2 if deep else 1)
+    pm = _sub(mesh, [0, 1, 2], pipe=3) if deep else _mesh(data=2, pipe=2)
+    sup = ReplicaSupervisor(3 if deep else 4, quarantine_s=60.0)
+    ps = PipeSupervision(fused2, pm, supervisor=sup)
+    fused2.set_tuning(pipe_depth=3 if deep else 2)
+    plan = dict(at=(5,)) if deep else dict(every=1)
+    with faults.FaultInjector(seed=0).plan(
+            faults.PIPE_STAGE_WEDGE, message="chaos: stage wedged",
+            **plan) as inj:
+        got = _col(fused2.transform(df2), name)
+    return {"bitwise": bool(np.array_equal(want, got)),
+            "fired": len(inj.fired(faults.PIPE_STAGE_WEDGE)),
+            "pipeline": fused2.fusion_stats().get("pipeline"),
+            "supervision": ps.describe(),
+            "states": {r["replica"]: (r["state"], r["last_reason"])
+                       for r in sup.describe()},
+            "member": pm.is_member}
+
+
+def case_collectives(case, mesh):
+    from mmlspark_tpu_torch.core.costmodel import SegmentCostModel
+    from mmlspark_tpu_torch.parallel import shardplan
+
+    m = SegmentCostModel()
+    recs = shardplan.measure_collectives(mesh, sizes=(1 << 12, 1 << 14),
+                                         repeats=1, model=m)
+    return {"ops": sorted({r["op"] for r in recs}),
+            "nonneg": all(r["seconds"] >= 0 for r in recs),
+            "calibrated": m.collective_calibrated(),
+            "predict": m.collective_ms("all_reduce", 1 << 13),
+            "round_trip": SegmentCostModel.from_dict(m.to_dict())
+            .collective_ms("all_reduce", 1 << 13)}
+'''
+
+_FUSION_CASES = {}   # case name -> builder() -> inputs
+
+
+def _fusion_case(name):
+    def register(fn):
+        _FUSION_CASES[name] = fn
+        return fn
+    return register
+
+
+@pytest.fixture(scope="module")
+def fusion_mesh4(tmp_path_factory):
+    from mmlspark_tpu_torch.parallel.launch import spawn
+
+    work = tmp_path_factory.mktemp("fusion_mesh4")
+    (work / "fusion_ranks.py").write_text(_FUSION_RANKS)
+    cases = {name: build() for name, build in _FUSION_CASES.items()}
+    ranks = spawn("fusion_ranks:run", 4, work, dict(cases=cases),
+                  threads=1, timeout=240, path=[str(work)])
+    return cases, ranks
+
+
+_FUSION_NS = {}
+
+
+def _fusion_ns():
+    """``_FUSION_RANKS`` as a module of this process (its chain builders)."""
+    if not _FUSION_NS:
+        exec(compile(_FUSION_RANKS, "fusion_ranks", "exec"), _FUSION_NS)
+    return _FUSION_NS
+
+
+def _ref_cnn():
+    from mmlspark_tpu.models.module import (Conv2D, GlobalAvgPool, Sequential,
+                                            relu)
+
+    return Sequential([("conv", Conv2D(4, (3, 3))), ("act", relu()),
+                       ("pool", GlobalAvgPool()),
+                       ("head", ref_module.Dense(4))], name="cnn")
+
+
+def _ref_heads():
+    from mmlspark_tpu.models.module import Sequential, relu
+
+    return [Sequential([("d0", ref_module.Dense(8)), ("a0", relu()),
+                        ("d1", ref_module.Dense(3))], name="head0"),
+            Sequential([("d0", ref_module.Dense(5))], name="head1")]
+
+
+def _chain_inputs(rows):
+    """The image chain's weights (the reference's inits) and ``rows``
+    seeded 20x20 images."""
+    cnn, _ = _ref_cnn().init(jax.random.PRNGKey(0), (16, 16, 3))
+    out = {"cnn": _np_tree(cnn), "batch": 8, "partitions": 2}
+    for i, (head, width) in enumerate(zip(_ref_heads(), (4, 3))):
+        hp, _ = head.init(jax.random.PRNGKey(1 + i), (width,))
+        out[f"head{i}"] = _np_tree(hp)
+    rng = np.random.default_rng(4)
+    out["images"] = [rng.integers(0, 256, (20, 20, 3), dtype=np.uint8)
+                     for _ in range(rows)]
+    return out
+
+
+def _ref_image_chain(case, heads=0):
+    """The reference's fused image chain on the case's weights and rows."""
+    from mmlspark_tpu.image.featurizer import ImageFeaturizer as RefFeat
+    from mmlspark_tpu.image.stages import ImageTransformer as RefIT
+    from mmlspark_tpu.models.module import FunctionModel as RefFM
+
+    backbone = RefFM(_ref_cnn(), jax.tree.map(jnp.asarray, case["cnn"]),
+                     (16, 16, 3), layer_names=["head", "pool"], name="cnn")
+    stages = [RefIT().resize(16, 16),
+              RefFeat(scaleFactor=1 / 255., batchSize=case["batch"])
+              .set_model(backbone)]
+    io = [(4, "features", "emb"), (3, "emb", "emb2")]
+    for i, head in enumerate(_ref_heads()[:heads]):
+        width, src, dst = io[i]
+        fm = RefFM(head, jax.tree.map(jnp.asarray, case[f"head{i}"]),
+                   (width,), name=f"head{i}")
+        stages.append(RefDNNModel(inputCol=src, outputCol=dst,
+                                  batchSize=case["batch"]).set_model(fm))
+    obj = np.empty(len(case["images"]), dtype=object)
+    for i, a in enumerate(case["images"]):
+        obj[i] = RefImageSchema.make(a, f"img{i}")
+    df = RefDataFrame.from_dict({"image": obj},
+                                num_partitions=case["partitions"])
+    return RefFused(stages, cache=RefCompileCache()), df
+
+
+def _ref_mesh(**spec):
+    from mmlspark_tpu.parallel.mesh import MeshSpec as RefSpec
+    from mmlspark_tpu.parallel.mesh import make_mesh as ref_make
+
+    n = int(np.prod(list(spec.values())))
+    return ref_make(RefSpec(**spec), device_list=jax.devices()[:n])
+
+
+def _port_mesh(**spec):
+    """A port mesh described by hand (no process group): what the planners
+    read of a mesh (its shape and ranks)."""
+    from mmlspark_tpu_torch.parallel.mesh import Mesh, MeshSpec
+
+    n = int(np.prod(list(spec.values())))
+    return Mesh(shape=MeshSpec(**spec).resolve(n))
+
+
+def _ref_col(out, name):
+    return np.stack([np.asarray(v) for v in out.column(name)])
+
+
+def _ref_sharded(fused, df, mesh, spec, cols):
+    label = next(n.label for n in fused._last_plan if hasattr(n, "dfns"))
+    fused.set_mesh(mesh)
+    fused.set_tuning(sharding={label: spec})
+    out = fused.transform(df)
+    assert fused.fusion_stats()["fallbacks"] == []
+    return {c: _column(out, c) for c in cols}
+
+
+@_fusion_case("image")
+def _build_image():
+    return dict(_chain_inputs(22), fn="sharded_image")
+
+
+@_fusion_case("pipe2")
+def _build_pipe2():
+    return dict(_chain_inputs(16), fn="pipe_image", heads=1)
+
+
+@_fusion_case("pipe3")
+def _build_pipe3():
+    return dict(_chain_inputs(16), fn="pipe_image", heads=2)
+
+
+@functools.lru_cache(maxsize=None)
+def _gbdt_inputs():
+    X = np.random.default_rng(0).normal(size=(200, 28)).astype(np.float32)
+    y = (X[:, 0] * 2 + X[:, 3] - X[:, 7] > 0).astype(np.float64)
+    ref = ref_stages.LightGBMClassifier(numIterations=10, numLeaves=7).fit(
+        RefDataFrame.from_dict({"features": _rows(X, False), "label": y}))
+    return X, ref
+
+
+@_fusion_case("gbdt")
+def _build_gbdt():
+    X, ref = _gbdt_inputs()
+    return dict(fn="sharded_stage", stage="gbdt",
+                booster=ref.booster.to_string(), X=X, partitions=2,
+                cols=["rawPrediction", "probability", "prediction"])
+
+
+_SHARD_ENC = dict(seq_len=16, dim=32, depth=2, num_heads=2, vocab_size=50)
+
+
+@_fusion_case("encoder")
+def _build_encoder():
+    ref = ref_attention.transformer_encoder(**_SHARD_ENC, seed=0)
+    return dict(fn="sharded_stage", stage="encoder", spec=_SHARD_ENC,
+                params=jax.tree.map(np.asarray, ref.params),
+                ids=_tokens(22, seed=2, t=16, vocab=50), batch=8,
+                partitions=2, cols=["emb"])
+
+
+@_fusion_case("tuner_sharding")
+def _build_tuner_sharding():
+    return dict(_chain_inputs(24), fn="tuner", knob="sharding")
+
+
+@_fusion_case("tuner_pipe_depth")
+def _build_tuner_pipe():
+    return dict(_chain_inputs(16), fn="tuner", knob="pipe_depth")
+
+
+@_fusion_case("rank_faults")
+def _build_rank_faults():
+    return dict(_chain_inputs(16), fn="rank_faults")
+
+
+@_fusion_case("supervision")
+def _build_supervision():
+    return dict(_chain_inputs(24), fn="supervision")
+
+
+@_fusion_case("wedge_full")
+def _build_wedge_full():
+    return dict(_chain_inputs(16), fn="pipe_wedge", mode="full")
+
+
+@_fusion_case("wedge_mid")
+def _build_wedge_mid():
+    return dict(_chain_inputs(16), fn="pipe_wedge", mode="mid")
+
+
+@_fusion_case("collectives")
+def _build_fusion_collectives():
+    return dict(fn="collectives")
+
+
+class _FakeDfn:
+    def __init__(self, in_cols, out_cols, shard_dims=None, sparse=False):
+        self.in_cols = tuple(in_cols)
+        self.out_cols = tuple(out_cols)
+        self.shard_dims = shard_dims
+        self.sparse_cols = tuple(in_cols) if sparse else ()
+        self.sparse_fn = (lambda p, env: env) if sparse else None
+
+
+class _FakeSegment:
+    label = "Fake"
+
+    def __init__(self, dfns, external):
+        self.dfns = list(dfns)
+        self.external_in_cols = list(external)
+
+
+_FAKE_SEGMENTS = {
+    "undeclared": ([_FakeDfn(["x"], ["y"])], ["x"]),
+    "declared": ([_FakeDfn(["x"], ["y"], shard_dims={"x": 1}),
+                  _FakeDfn(["y"], ["z"])], ["x"]),
+    "csr_capable": ([_FakeDfn(["x"], ["y"], shard_dims={"x": 1},
+                              sparse=True)], ["x"]),
+    "two_inputs": ([_FakeDfn(["x", "w"], ["y"], shard_dims={"x": 1})],
+                   ["x", "w"]),
+}
+_CAND_MESHES = [dict(data=8), dict(data=4, tensor=2), dict(data=1),
+                dict(tensor=2), dict(data=2, pipe=2)]
+
+
+@pytest.mark.parametrize("spec", _CAND_MESHES, ids=str)
+def test_shard_candidates_equal_the_reference(spec):
+    """``candidates`` / ``tuner_candidates`` give the reference's names,
+    axes, shards, in_dims, out_dim and collectives for the same segments
+    and mesh shapes (``tests/test_sharding.py:117-170``), and
+    ``sharding_for`` resolves the same ones (none on a one-shard axis)."""
+    from mmlspark_tpu.parallel import shardplan as ref_sp
+    from mmlspark_tpu_torch.parallel import shardplan as sp
+
+    port, ref = _port_mesh(**spec), _ref_mesh(**spec)
+    for name, (dfns, ext) in _FAKE_SEGMENTS.items():
+        seg = _FakeSegment(dfns, ext)
+        got = [c.describe() for c in sp.candidates(seg, port)]
+        assert got == [c.describe() for c in ref_sp.candidates(seg, ref)], name
+        assert sp.tuner_candidates(seg, port) == \
+            ref_sp.tuner_candidates(seg, ref), name
+        for spec_name in ("data", "feature", "csr_row", "", None):
+            a = sp.sharding_for(seg, port, spec_name)
+            b = ref_sp.sharding_for(seg, ref, spec_name)
+            assert (a is None) == (b is None), (name, spec_name)
+            if a is not None:
+                assert a.cache_key() == b.cache_key()
+                assert a.shape_prefix() == b.shape_prefix()
+                assert a.describe() == dict(b.describe(), donate=False)
+    assert sp.sharding_for(_FakeSegment(*_FAKE_SEGMENTS["undeclared"]), None,
+                           "data") is None
+
+
+def test_real_segments_derive_the_reference_candidates(models):
+    """The fused forest's segment (data, csr_row, feature) and the image
+    chain's (data only: its ImageTransformer declares no feature dim)
+    against the reference's segments of the same stages; the sharded
+    program's keys."""
+    from mmlspark_tpu.core.costmodel import bucket_of_shape
+    from mmlspark_tpu.parallel import shardplan as ref_sp
+    from mmlspark_tpu_torch.parallel import shardplan as sp
+
+    port_f = _fused(models["port"]["clf"])
+    ref_f = RefFused([models["ref"]["clf"]], cache=RefCompileCache())
+    with use_device("cpu"):
+        port_f.transform(models["dense_port"])
+    ref_f.transform(models["dense_ref"])
+    case = _chain_inputs(8)
+    with use_device("cpu"):
+        img, df = _fusion_ns()["_image_chain"](case)
+        img.transform(df)
+    ref_img, rdf = _ref_image_chain(case)
+    ref_img.transform(rdf)
+    for spec in (dict(data=8), dict(data=4, tensor=2)):
+        port, ref = _port_mesh(**spec), _ref_mesh(**spec)
+        for a, b in ((port_f, ref_f), (img, ref_img)):
+            sa = next(n for n in a._last_plan if hasattr(n, "dfns"))
+            sb = next(n for n in b._last_plan if hasattr(n, "dfns"))
+            assert sa.label == sb.label
+            assert [c.describe() for c in sp.candidates(sa, port)] == \
+                [c.describe() for c in ref_sp.candidates(sb, ref)]
+            assert sp.tuner_candidates(
+                sa, port, model=costmodel.SegmentCostModel(), batch=64) == \
+                ref_sp.tuner_candidates(
+                    sb, ref, model=ref_costmodel.SegmentCostModel(), batch=64)
+    sh = sp.sharding_for(next(n for n in img._last_plan
+                              if hasattr(n, "dfns")), _port_mesh(data=8),
+                         "data")
+    assert sh.cache_key() == ("spec", "data", "data", 8)
+    assert sh.shape_prefix() == "spec=data8;"
+    assert bucket_of_shape(sh.shape_prefix() + "image=16x16x16x3:uint8") \
+        is None
+    assert sp.donation_supported(_port_mesh(data=8)) is False
+    assert sp.mesh_topology(None) == "none"
+    assert sp.mesh_topology(_port_mesh(data=8)).startswith("data=8,")
+
+
+def test_split_csr_rows_and_ragged_bytes_equal_the_reference():
+    from mmlspark_tpu.parallel import shardplan as ref_sp
+    from mmlspark_tpu_torch.parallel import shardplan as sp
+
+    indptr, indices, values = _csr_of(_sparse_matrix(n=37, seed=5))
+    for shards in (1, 2, 3, 8):
+        got = sp.split_csr_rows(indptr, indices, values, shards)
+        want = ref_sp.split_csr_rows(indptr, indices, values, shards)
+        assert len(got) == len(want) == shards
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                np.testing.assert_array_equal(a, b)
+                assert a.dtype == b.dtype
+    for nnz, rows in (([3, 9, 0], [4, 4, 5]), ([], None), ([0, 0], [2, 2])):
+        assert sp.ragged_allgather_bytes(nnz, rows) == \
+            ref_sp.ragged_allgather_bytes(nnz, rows)
+
+
+def _check_ranks_agree(ranks, key):
+    first = ranks[0][key]
+    for r in ranks[1:]:
+        if isinstance(first, dict):
+            for c in first:
+                np.testing.assert_array_equal(r[key][c], first[c])
+        else:
+            np.testing.assert_array_equal(r[key], first)
+
+
+def test_sharded_image_chain_matches_unsharded_and_the_reference(
+        fusion_mesh4):
+    """The image chain data-sharded over data 4 (``__graft_entry__.py:
+    118-172``): within SHARD_ATOL of the port's unsharded output on every
+    rank, and of the reference's sharded output within F32_TOL; a mesh
+    with no knob and a cleared knob are bitwise unsharded; an 11-row
+    bucket pads to a shard multiple (``tests/test_sharding.py:279-345``)."""
+    case, ranks = _ranks_of(fusion_mesh4, "image")
+    ref, rdf = _ref_image_chain(case)
+    ref_want = _ref_col(ref.transform(rdf), "features")
+    ref_got = _ref_sharded(ref, rdf, _ref_mesh(data=4), "data",
+                           ["features"])["features"]
+    label = "ImageTransformer+ImageFeaturizer"
+    for r in ranks:
+        np.testing.assert_allclose(r["got"], r["want"], atol=SHARD_ATOL,
+                                   rtol=0)
+        np.testing.assert_allclose(r["got"], ref_got, atol=F32_TOL, rtol=0)
+        np.testing.assert_allclose(r["want"], ref_want, atol=F32_TOL, rtol=0)
+        np.testing.assert_array_equal(r["mesh_only"], r["want"])
+        assert r["mesh_only_stats"] is False
+        np.testing.assert_array_equal(r["cleared"], r["want"])
+        np.testing.assert_allclose(r["odd"], r["want"], atol=SHARD_ATOL,
+                                   rtol=0)
+        assert r["odd_fallbacks"] == [] and r["stats"]["fallbacks"] == []
+        seg = r["stats"]["sharding"]["segments"][label]
+        assert seg["spec"] == "data" and seg["shards"] == 4
+        assert r["stats"]["sharding"]["mesh"].startswith("data=4,")
+        roof = r["stats"]["roofline"]
+        assert roof["spec"] == "data" and roof["shards"] == 4
+        assert roof["peak_source"].endswith("x4")
+    _check_ranks_agree(ranks, "got")
+
+
+def test_chip_wedge_falls_back_on_every_rank_and_stays_correct(
+        fusion_mesh4):
+    """An armed ``mesh.chip_wedge`` fails every sharded staging: every rank
+    agrees, runs the partition's host fallback and books it; the answer
+    stays right (``tests/test_sharding.py:330-345``)."""
+    _, ranks = _ranks_of(fusion_mesh4, "image")
+    for r in ranks:
+        np.testing.assert_allclose(r["wedged"], r["want"], atol=SHARD_ATOL,
+                                   rtol=0)
+        fb = r["wedged_fallbacks"]
+        assert len(fb) == 2 and all("mesh stage failure" in f for f in fb)
+
+
+def test_sharded_mega_dispatch_matches_unsharded(fusion_mesh4):
+    """The submit path's K-step dispatch under the ``data`` spec (K = 2
+    over one partition's three batches): each group's compute in one call,
+    its batches' agreement and gathers after it, within SHARD_ATOL of the
+    unsharded submit on every rank."""
+    _, ranks = _ranks_of(fusion_mesh4, "image")
+    for r in ranks:
+        assert r["submit_fallbacks"] == []
+        np.testing.assert_allclose(r["submit_mega"], r["submit_want"],
+                                   atol=SHARD_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["gbdt", "encoder"])
+def test_sharded_segments_data_and_feature_specs(fusion_mesh4, name):
+    """A dense forest segment and a small encoder DNNModel under ``data``
+    over data 4 and ``feature`` over data 2 x tensor 2: within SHARD_ATOL
+    of the unsharded output, and of the reference's sharded output at the
+    stage's tolerance."""
+    case, ranks = _ranks_of(fusion_mesh4, name)
+    if name == "gbdt":
+        X, ref_model = _gbdt_inputs()
+        tol = PORT_VS_REF_ATOL
+        ref_df = RefDataFrame.from_dict({"features": _rows(X, False)},
+                                        num_partitions=2)
+
+        def ref_fused():
+            return RefFused([ref_model], cache=RefCompileCache())
+    else:
+        tol = DEEP_BF16_TOL
+        ref_enc = ref_attention.transformer_encoder(**_SHARD_ENC, seed=0)
+        ref_df = RefDataFrame.from_dict({"tokens": list(case["ids"])},
+                                        num_partitions=2)
+
+        def ref_fused():
+            st = RefDNNModel(inputCol="tokens", outputCol="emb",
+                             batchSize=8).set_model(ref_enc)
+            return RefFused([st], cache=RefCompileCache())
+    want = {}
+    for spec, mesh in (("data", dict(data=4)),
+                       ("feature", dict(data=2, tensor=2))):
+        fused = ref_fused()
+        fused.transform(ref_df)
+        want[spec] = _ref_sharded(fused, ref_df, _ref_mesh(**mesh), spec,
+                                  case["cols"])
+    for r in ranks:
+        assert r["data_fallbacks"] == [] and r["feature_fallbacks"] == []
+        assert r["feature_stats"]["mesh"].startswith("data=2,fsdp=1,tensor=2")
+        for spec in ("data", "feature"):
+            for c in case["cols"]:
+                np.testing.assert_allclose(r[spec][c], r["want"][c],
+                                           atol=SHARD_ATOL, rtol=0,
+                                           err_msg=f"{spec} {c}")
+                np.testing.assert_allclose(r[spec][c], want[spec][c],
+                                           atol=tol, rtol=0,
+                                           err_msg=f"{spec} {c} vs ref")
+    _check_ranks_agree(ranks, "data")
+
+
+def test_pipeline_view_balance_and_plan_gates_equal_the_reference():
+    """``split_segments``/``chainable``/``chainable_runs``, ``balance_stages``,
+    ``pipe_submeshes`` and ``build_pipe_plan``'s gates give the reference's
+    answers (``tests/test_pipeline_mesh.py:121-240``) on the same chains and
+    mesh shapes; stage placements are keyed apart."""
+    from mmlspark_tpu.parallel import pipeplan as ref_pp
+    from mmlspark_tpu_torch.parallel import pipeplan as pp
+
+    for heads in (1, 2):
+        case = _chain_inputs(8)
+        with use_device("cpu"):
+            fused, df = _fusion_ns()["_image_chain"](case, heads=heads)
+            fused.transform(df)
+        ref, rdf = _ref_image_chain(case, heads=heads)
+        ref.transform(rdf)
+        nodes, rnodes = fused._last_plan, ref._last_plan
+        assert [type(n).__name__ for n in nodes] == ["Segment"]
+        view, rview = pp.split_segments(nodes), ref_pp.split_segments(rnodes)
+        assert [n.label for n in view] == [n.label for n in rview]
+        assert len(view) == heads + 1
+        assert [pp.chainable(a, b) for a, b in zip(view, view[1:])] == \
+            [ref_pp.chainable(a, b) for a, b in zip(rview, rview[1:])]
+        assert [[j for j, _ in run] for run in pp.chainable_runs(view)] == \
+            [[j for j, _ in run] for run in ref_pp.chainable_runs(rview)]
+        assert pp.chainable_runs(nodes) == []
+        host = HostStage(nodes[0].stages[0])
+        assert pp.split_segments([host])[0] is host
+        assert pp.split_segments([view[-1]]) == [view[-1]]
+        for spec, depth in ((dict(data=2, pipe=2), 2), (dict(pipe=3), 3),
+                            (dict(data=4), 2), (dict(data=2, pipe=2), 1),
+                            (dict(pipe=4), 2)):
+            a = pp.build_pipe_plan(nodes, _port_mesh(**spec), depth)
+            b = ref_pp.build_pipe_plan(rnodes, _ref_mesh(**spec), depth)
+            assert (a is None) == (b is None), (spec, depth)
+            if a is not None:
+                assert (a.depth, a.first, a.last) == (b.depth, b.first,
+                                                      b.last)
+                assert [st.labels for st in a.stages] == \
+                    [st.labels for st in b.stages]
+                assert [st.device_ids() for st in a.stages] == \
+                    [st.device_ids() for st in b.stages]
+                assert len(a.nodes) == len(b.nodes)
+    assert pp.build_pipe_plan(nodes, None, 2) is None
+    for costs, depth in (([None, None, None], 2), ([1.0, None], 2),
+                         ([4.0, 1.0, 1.0], 2), ([1.0, 1.0, 4.0], 2),
+                         ([1.0] * 4, 5), ([3.0, 1.0, 2.0, 2.0], 3)):
+        assert pp.balance_stages(costs, depth) == \
+            ref_pp.balance_stages(costs, depth)
+    for spec, depth in ((dict(data=4), 2), (dict(data=2, pipe=2), 1),
+                        (dict(data=2, pipe=2), 3)):
+        assert pp.pipe_submeshes(_port_mesh(**spec), depth) is None
+    subs = pp.pipe_submeshes(_port_mesh(data=2, pipe=2), 2)
+    assert [list(s.ranks) for s in subs] == [[0, 2], [1, 3]]
+    assert all(s.shape["data"] == 2 and s.shape["pipe"] == 1 for s in subs)
+    a = pp.PipeStageSharding(None, subs[0], 0, 2)
+    b = pp.PipeStageSharding(None, subs[1], 1, 2)
+    assert a.cache_key() != b.cache_key()
+    assert a.shape_prefix() == "pipe=s0of2;" and not a.splits
+
+
+@pytest.mark.parametrize("name", ["pipe2", "pipe3"])
+def test_pipelined_chain_is_bitwise_the_serial_chain(fusion_mesh4, name):
+    """The image chain with one DNN head streamed over data 2 x pipe 2, and
+    with two heads over pipe 3 on ranks 0-2 (rank 3, outside the mesh,
+    runs serially): every rank's output bitwise the serial fused chain's,
+    whose output is the reference's within F32_TOL; the pipe metric
+    families exist only while the plan is active
+    (``tests/test_pipeline_mesh.py:300-345``)."""
+    case, ranks = _ranks_of(fusion_mesh4, name)
+    heads = case["heads"]
+    col = "emb" if heads == 1 else "emb2"
+    ref, rdf = _ref_image_chain(case, heads=heads)
+    ref_want = _ref_col(ref.transform(rdf), col)
+    families = ["mmlspark_pipe_depth", "mmlspark_pipe_bubble_ratio",
+                "mmlspark_pipe_stage_busy_ratio",
+                "mmlspark_pipe_handoff_bytes_total",
+                "mmlspark_pipe_stage_requeues_total"]
+    for rank, r in enumerate(ranks):
+        np.testing.assert_array_equal(r["got"], r["want"])
+        np.testing.assert_array_equal(r["got_features"], r["want_features"])
+        np.testing.assert_allclose(r["want"], ref_want, atol=F32_TOL, rtol=0)
+        assert r["fallbacks"] == [] and r["off"] and not r["off_stats"]
+        assert r["off_families"] == []
+        pipe = r["pipeline"]
+        if heads == 2 and rank == 3:
+            assert pipe is None and r["families"] == []
+            continue
+        assert pipe["depth"] == heads + 1 and pipe["replans"] == 0
+        assert pipe["serial_fallback_partitions"] == 0
+        assert pipe["micro_batches"] >= 2 and pipe["handoff_bytes"] > 0
+        devs = [set(st["devices"]) for st in pipe["stages"]]
+        assert all(devs) and not set.intersection(*devs)
+        assert 0.0 < pipe["bubble_ratio"] < 1.0
+        assert all(0.0 <= st["busy_ratio"] <= 1.0 for st in pipe["stages"])
+        assert [len(st["segments"]) for st in pipe["stages"]] == \
+            [1] * (heads + 1)
+        assert r["families"] == families
+        assert r["busy_stages"] == [str(i) for i in range(heads + 1)]
+
+
+@pytest.mark.parametrize("mode", ["full", "mid"])
+def test_stage_wedge_replans_one_stage_shallower_bitwise(fusion_mesh4, mode):
+    """``pipe.stage_wedge`` under PipeSupervision
+    (``tests/test_pipeline_mesh.py:458-``): armed on every micro-batch of
+    data 2 x pipe 2, the stage's two ranks are quarantined and the frame
+    re-runs serially; armed at the fifth seam of the three-stage chain, it
+    re-plans at depth 2 on the two survivors. Bitwise the serial chain
+    either way, on every rank, no request dropped."""
+    _, ranks = _ranks_of(fusion_mesh4, f"wedge_{mode}")
+    for rank, r in enumerate(ranks):
+        assert r["bitwise"], rank
+        states = r["states"]
+        if mode == "full":
+            assert r["fired"] == 1 and r["pipeline"] is None
+            assert r["supervision"]["replans"] == 1
+            assert r["supervision"]["depth"] == 1
+            wedged = [i for i, (s, _) in states.items() if s == "quarantined"]
+            assert len(wedged) == 2
+            assert all(states[i][1].startswith("pipe_stage:") for i in wedged)
+            continue
+        if rank == 3:   # outside the three-stage mesh: serial throughout
+            assert not r["member"] and r["pipeline"] is None
+            continue
+        assert r["fired"] == 1 and r["supervision"]["replans"] == 1
+        assert r["supervision"]["depth"] == 2
+        assert sum(s == "quarantined" for s, _ in states.values()) == 1
+        if rank == 1:   # the wedged stage's rank runs the re-run serially
+            assert r["pipeline"] is None
+        else:
+            assert r["pipeline"]["depth"] == 2
+            assert r["pipeline"]["replans"] == 1
+
+
+@pytest.mark.parametrize("knob", ["sharding", "pipe_depth"])
+def test_tuner_proposes_journals_and_rolls_back_the_mesh_knobs(
+        fusion_mesh4, knob):
+    """With a cost model forced to want the knob (``tests/test_sharding.py:
+    373-416``, ``tests/test_pipeline_mesh.py:413-456``): ``propose`` carries
+    it and round-trips through ``KnobSet``, ``tune`` applies and journals it
+    and the applied model runs sharded (pipelined) and right; an injected
+    measurement regression rolls back one step to the bitwise serial
+    path."""
+    _, ranks = _ranks_of(fusion_mesh4, f"tuner_{knob}")
+    label = "ImageTransformer+ImageFeaturizer"
+    for r in ranks:
+        if knob == "sharding":
+            assert r["proposed"]["sharding"] == {label: "data"}
+            assert r["applied"][-1]["sharding"] == {label: "data"}
+            assert r["overrides"] == ({label: "data"}, None)
+            assert r["applied_sharding"]["segments"][label]["shards"] == 4
+            assert r["applied_err"] <= SHARD_ATOL
+        else:
+            assert r["proposed"]["pipe_depth"] == 2
+            assert r["applied"][-1]["pipe_depth"] == 2
+            assert r["overrides"] == ({}, 2)
+            assert r["applied_pipeline"] == 2 and r["applied_err"] == 0.0
+        assert r["round_trip"] == r["proposed"]
+        assert r["rollbacks_1"] == 0
+        assert r["rollbacks"] >= 1 and r["step1_accepted"] is False
+        assert r["final_default"] and r["journal_rollback"]
+        assert r["after"] == ({}, None) and r["bitwise"]
+        assert r["after_stats"] == []
+        # only rank 0 wanted the knob and judged the steps as it did; every
+        # rank took its decisions, step for step
+        assert r["proposed"] == ranks[0]["proposed"]
+        assert r["journal"] == ranks[0]["journal"]
+
+
+@pytest.mark.parametrize("step", ["resolve", "build_demoted", "build_raised",
+                                  "pipe_run", "pipe_hook"])
+def test_a_failure_on_one_rank_takes_every_rank_the_same_way(
+        fusion_mesh4, step):
+    """One rank alone fails a step the ranks must agree on; every rank then
+    takes the same path and none hangs (the spawn's limit would fail the
+    fixture): a spec that failed to resolve, or a pipe plan that failed to
+    resolve or to place, leaves every rank on the bitwise single-device or
+    serial path; a sharded program demoted at build is every rank's host
+    fallback, within SHARD_ATOL; one that raised at build raises on every
+    rank. (A failure inside the making of a sub-mesh's process groups is
+    not covered: its partners wait in the group's rendezvous until the
+    store's timeout.)"""
+    _, ranks = _ranks_of(fusion_mesh4, "rank_faults")
+    outs = [r[step] for r in ranks]
+    for rank, r in enumerate(outs):
+        if step == "build_raised":
+            assert r["raised"] == "RuntimeError"
+            assert ("injected failure" in r["message"]) == (rank == 3)
+            continue
+        assert "raised" not in r, r
+        assert r["err"] <= SHARD_ATOL and r["pipelined"] is False
+        if step == "build_demoted":   # resolved, then every batch demoted
+            assert r["sharded"] and len(r["fallbacks"]) == 2
+            assert all("injected build failure" in f or "peer rank" in f
+                       for f in r["fallbacks"])
+        else:
+            assert r["sharded"] is False
+            assert r["bitwise"] and r["fallbacks"] == []
+    assert len({tuple(r["fallbacks"]) == () for r in outs}) == 1
+
+
+def test_shard_groups_follow_the_data_axis():
+    """``shard_groups``/``group_of``/``submesh_excluding`` on the reference's
+    mesh shapes (``tests/test_sharding.py:418-450``)."""
+    from mmlspark_tpu.parallel import shardplan as ref_sp
+    from mmlspark_tpu_torch.parallel import shardplan as sp
+
+    for spec in (dict(data=8), dict(data=4, tensor=2), dict(data=2, pipe=2)):
+        port, ref = _port_mesh(**spec), _ref_mesh(**spec)
+        groups = sp.shard_groups(port)
+        assert groups == ref_sp.shard_groups(ref)
+        for g in groups:
+            assert sp.group_of(port, g[0]) == ref_sp.group_of(ref, g[0])
+        with pytest.raises(ValueError):
+            sp.group_of(port, 99)
+    mesh8 = _port_mesh(data=8)
+    sub = sp.submesh_excluding(mesh8, [0, 1])
+    assert sub.shape["data"] == 6 and list(sub.ranks) == list(range(2, 8))
+    assert sp.submesh_excluding(mesh8, range(8)) is None
+
+
+def test_mesh_supervision_replans_onto_the_survivors(fusion_mesh4):
+    """MeshSupervision over data 4: a wedge of rank 0's group quarantines it
+    and re-plans onto the three survivors, sharded 3 ways (rank 0, outside
+    the new mesh, runs unsharded); still right on every rank, idempotent per
+    group (``tests/test_sharding.py:452-499``)."""
+    _, ranks = _ranks_of(fusion_mesh4, "supervision")
+    for rank, r in enumerate(ranks):
+        assert r["attached"] and r["groups"] == [[0], [1], [2], [3]]
+        assert r["before_err"] <= SHARD_ATOL and r["after_err"] <= SHARD_ATOL
+        assert r["sub_shape"]["data"] == 3 and r["sub_ranks"] == [1, 2, 3]
+        assert r["replans"] == 1 and r["fused_mesh_is_sub"]
+        assert r["states"][0] == "quarantined"
+        assert [r["states"][i] for i in (1, 2, 3)] == ["healthy"] * 3
+        assert r["fallbacks"] == [] and r["again_same"]
+        assert r["describe"]["failed_devices"] == 1
+        assert r["describe"]["topology"].startswith("data=3,")
+        if rank == 0:
+            assert r["sharding"] is None and r["after_bitwise"]
+        else:
+            seg = r["sharding"]["segments"]["ImageTransformer+ImageFeaturizer"]
+            assert seg["shards"] == 3
+
+
+def test_measured_collectives_feed_the_cost_model(fusion_mesh4):
+    """``measure_collectives`` times all-reduce and all-gather probes on the
+    data group of every rank and calibrates ``collective_ms``; the fits
+    round-trip ``to_dict``/``from_dict`` in the reference's format."""
+    _, ranks = _ranks_of(fusion_mesh4, "collectives")
+    for r in ranks:
+        assert r["ops"] == ["all_gather", "all_reduce"] and r["nonneg"]
+        assert r["calibrated"] and r["predict"] is not None
+        assert r["round_trip"] == pytest.approx(r["predict"])
+    m, ref = costmodel.SegmentCostModel(), ref_costmodel.SegmentCostModel()
+    for model in (m, ref):
+        model.observe_collective("all_reduce", 1024, 1e-6)
+        model.observe_collective("all_reduce", 2048, 2e-6)
+        model.observe_collective("pipe_handoff", 4096, 3e-6)
+    assert m.to_dict()["collectives"] == ref.to_dict()["collectives"]
+    back = costmodel.SegmentCostModel.from_dict(ref.to_dict())
+    assert back.collective_ms("all_reduce", 2048) == \
+        pytest.approx(ref.collective_ms("all_reduce", 2048))

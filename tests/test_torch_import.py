@@ -72,6 +72,8 @@ def test_clean_import_pulls_in_no_jax_and_no_reference():
                 "mmlspark_tpu_torch.core.tune",
                 "mmlspark_tpu_torch.obs.perf",
                 "mmlspark_tpu_torch.parallel.batching",
+                "mmlspark_tpu_torch.parallel.shardplan",
+                "mmlspark_tpu_torch.parallel.pipeplan",
                 "mmlspark_tpu_torch.models.resnet",
                 "mmlspark_tpu_torch.models.torch_import",
                 "mmlspark_tpu_torch.models.moe",
@@ -1086,3 +1088,67 @@ def test_mesh_rank_processes_import_no_jax_and_no_reference(tmp_path):
     for r in ranks:
         assert r["bad"] == [], r["bad"]
         assert np.isfinite(r["loss"]) and r["finite"]
+
+
+_FUSION_RANK_PROBE = r'''
+import sys
+
+import numpy as np
+
+
+def run(mesh):
+    """A DNN segment data-sharded over both ranks, then pipelined after a
+    second one on data 1 x pipe 2, then the modules this rank imported."""
+    import torch
+
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.fusion import FusedPipelineModel
+    from mmlspark_tpu_torch.models import (Dense, DNNModel, FunctionModel,
+                                           Sequential)
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    stages = []
+    for i, (src, dst) in enumerate((("x", "h"), ("h", "y"))):
+        mod = Sequential([("fc", Dense(3))], name=f"m{i}")
+        mod.init(torch.Generator().manual_seed(i), (3,))
+        stages.append(DNNModel(inputCol=src, outputCol=dst, batchSize=4)
+                      .set_model(FunctionModel(mod, (3,), name=f"m{i}")))
+    x = np.random.default_rng(0).normal(size=(10, 3)).astype(np.float32)
+    df = DataFrame.from_dict({"x": list(x)})
+    fused = FusedPipelineModel(stages[:1])
+    want = np.stack(list(fused.transform(df).column("h")))
+    fused.set_mesh(mesh)
+    fused.set_tuning(sharding={"DNNModel": "data"})
+    got = np.stack(list(fused.transform(df).column("h")))
+    chain = FusedPipelineModel(stages)
+    serial = np.stack(list(chain.transform(df).column("y")))
+    chain.set_mesh(make_mesh(MeshSpec(data=1, pipe=2), device="cpu",
+                             backend="gloo"))
+    chain.set_tuning(pipe_depth=2)
+    piped = np.stack(list(chain.transform(df).column("y")))
+    bad = sorted(k for k in sys.modules
+                 if k in ("jax", "jaxlib", "mmlspark_tpu")
+                 or k.startswith(("jax.", "jaxlib.", "mmlspark_tpu.")))
+    return {"bad": bad, "err": float(np.abs(got - want).max()),
+            "bitwise": bool(np.array_equal(piped, serial)),
+            "depth": chain.fusion_stats()["pipeline"]["depth"],
+            "planners": sorted(k for k in sys.modules
+                               if k.endswith(("shardplan", "pipeplan")))}
+'''
+
+
+def test_fusion_planner_rank_processes_import_no_jax_and_no_reference(
+        tmp_path):
+    """A rank of the fused planner's mesh (a data-sharded segment, then a
+    pipelined chain, in 2 gloo ranks) runs on the port alone, its planners
+    included."""
+    from mmlspark_tpu_torch.parallel.launch import spawn
+
+    (tmp_path / "fusion_probe.py").write_text(_FUSION_RANK_PROBE)
+    ranks = spawn("fusion_probe:run", 2, tmp_path, threads=1, timeout=120,
+                  path=[str(tmp_path)])
+    for r in ranks:
+        assert r["bad"] == [], r["bad"]
+        assert r["err"] <= 1e-5 and r["bitwise"] and r["depth"] == 2
+        assert r["planners"] == ["mmlspark_tpu_torch.parallel.pipeplan",
+                                 "mmlspark_tpu_torch.parallel.shardplan"]
