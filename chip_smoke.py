@@ -100,8 +100,9 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    fit's ``to_string()``;
 4. sparse data: the reference benchmark's text-shaped CSR (1,000,000 rows x
    2^18 hashed features, ~50 token counts per row, seeded), with the host
-   costs of the sparse path timed apart: ``rows_to_csr`` over the rows,
-   ``SparseDataset.from_csr`` and the bin-sorted layout;
+   costs of the sparse path timed apart inside the stage fit (step 6, run
+   before step 5): ``rows_to_csr`` over the rows, ``SparseDataset.from_csr``
+   and the bin-sorted layout;
 5. K4 (flat sparse histogram) against its plain version at that dataset's
    layout (~49.7M entries, ~1.31M flat bins, 50% row mask) and at ragged
    shapes, timed the same way; two calls on the main-path input must agree
@@ -822,14 +823,17 @@ def check_route(booster, want: str, what: str) -> None:
 
 class Watch:
     """While active, the seconds and the return value of every call of
-    ``module.name``."""
+    ``module.name`` (a module's function, or a class's static method)."""
 
     def __init__(self, module, name: str):
         self.module, self.name = module, name
         self.seconds, self.results = [], []
 
     def __enter__(self):
+        import inspect
+
         self.orig = getattr(self.module, self.name)
+        self.saved = inspect.getattr_static(self.module, self.name)
 
         def watched(*a, **kw):
             t0 = time.perf_counter()
@@ -842,7 +846,7 @@ class Watch:
         return self
 
     def __exit__(self, *exc):
-        setattr(self.module, self.name, self.orig)
+        setattr(self.module, self.name, self.saved)
 
 
 def scan_main(torch, smi):
@@ -1488,10 +1492,11 @@ def make_csr_text(n_rows: int, width: int, avg_nnz: int, seed: int):
 
 
 def sparse_data() -> dict:
-    """The full-width sparse dataset as sparse rows, with the host costs of
-    the sparse path timed on their own."""
-    from mmlspark_tpu_torch.gbdt import sparse
-
+    """The full-width sparse dataset as sparse rows (the stage fit's input)
+    and the CSR arrays they were made from. The host build of the sparse
+    path (``rows_to_csr``, ``SparseDataset.from_csr``, the bin-sorted
+    layout) is timed inside the stage fit, once (``sparse_main_path``),
+    which leaves its dataset and layout here for the later phases."""
     t0 = time.perf_counter()
     indptr, idx, vals, y = make_csr_text(N_SPARSE, W_SPARSE, NNZ_SPARSE, 0)
     gen_s = time.perf_counter() - t0
@@ -1501,23 +1506,10 @@ def sparse_data() -> dict:
         a, b = indptr[i], indptr[i + 1]
         rows[i] = {"indices": idx[a:b], "values": vals[a:b], "size": W_SPARSE}
     rows_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    csr = sparse.rows_to_csr(rows)
-    csr_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ds = sparse.SparseDataset.from_csr(*csr, max_bin=255)
-    build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    order, _, bin_end = sparse._bin_sorted_layout(ds.bin_of_nnz, ds.total_bins)
-    layout_s = time.perf_counter() - t0
     log({"phase": "sparse_data", "rows": N_SPARSE, "width": W_SPARSE,
-         "nnz": int(len(idx)), "total_bins": ds.total_bins,
-         "positives": float(y.mean()), "generate_seconds": gen_s,
-         "row_dicts_seconds": rows_s, "host_rows_to_csr_seconds": csr_s,
-         "host_from_csr_seconds": build_s,
-         "host_bin_sorted_layout_seconds": layout_s})
-    return {"rows": rows, "y": y, "csr": (indptr, idx, vals), "ds": ds,
-            "order": order, "bin_end": bin_end}
+         "nnz": int(len(idx)), "positives": float(y.mean()),
+         "generate_seconds": gen_s, "row_dicts_seconds": rows_s})
+    return {"rows": rows, "y": y, "csr": (indptr, idx, vals)}
 
 
 def sparse_hist_inputs(torch, nnz, tb, empty_every, gen):
@@ -1718,9 +1710,11 @@ def split_surroundings(torch, d, gb, hb, n_rows: int) -> None:
 def sparse_main_path(torch, data: dict):
     """The sparse stage fit on its default route, ``scan`` (checked), its
     boosting loop under ``set_sync_debug_mode("error")`` and timed apart
-    from the in-fit host build; K4 counted through the graph's replays;
-    the transform against the CPU ``predict_csr``; the root split both ways
-    (``root_split_check``)."""
+    from the in-fit host build (``rows_to_csr``, ``from_csr``, the
+    bin-sorted layout, each timed; the dataset and the layout kept in
+    ``data`` for the later phases); K4 counted through the graph's
+    replays; the transform against the CPU ``predict_csr``; the root split
+    both ways (``root_split_check``)."""
     from mmlspark_tpu_torch.core.dataframe import DataFrame
     from mmlspark_tpu_torch.gbdt import LightGBMClassifier
     from mmlspark_tpu_torch.gbdt import booster as bst
@@ -1740,13 +1734,23 @@ def sparse_main_path(torch, data: dict):
     try:
         # the boosting loop's own seconds inside the fit: the rest is the
         # host build of the CSR dataset and its device layout
-        with Watch(sparse, "_train_scan_sparse") as loop_w:
+        with Watch(sparse, "_train_scan_sparse") as loop_w, \
+                Watch(sparse, "rows_to_csr") as csr_w, \
+                Watch(sparse.SparseDataset, "from_csr") as build_w, \
+                Watch(sparse, "_bin_sorted_layout") as layout_w:
             model = est.fit(df)
             torch.cuda.synchronize()
     finally:
         bst.scan_loop_sync_mode = None
     fit_s = time.perf_counter() - t0
     loop_s = loop_w.results[0] if loop_w.results else None
+    order, _, bin_end = layout_w.results[0]
+    data.update(ds=build_w.results[0], order=order, bin_end=bin_end)
+    log({"phase": "sparse_data", "total_bins": data["ds"].total_bins,
+         "host_rows_to_csr_seconds": csr_w.seconds[0],
+         "host_from_csr_seconds": build_w.seconds[0],
+         "host_bin_sorted_layout_seconds": layout_w.seconds[0],
+         "timed_inside": "the sparse stage fit"})
     t1 = time.perf_counter()
     scored = model.transform(small)
     torch.cuda.synchronize()
@@ -2783,7 +2787,7 @@ class LogLines(logging.Handler):
         lg.setLevel(self.prev)
 
 
-def ranker_main(torch, smi) -> dict:
+def ranker_main(torch, smi) -> tuple:
     """``LightGBMRanker`` on MSLR-WEB30K-shaped data (2,097,152 x 136, 10%
     of the queries flagged as validation rows, early stopping after 5
     rounds, 20 iterations, 31 leaves, 255 bins), then ``.transform`` and a
@@ -2795,7 +2799,8 @@ def ranker_main(torch, smi) -> dict:
     (``hist_on_path``), the card's iteration-0 g and h against the CPU's,
     the first tree against a CPU refit (both on the first whole queries of
     N_RANK_CUT rows), the transform against the host traversal, and the
-    fused transform bit for bit against the unfused one."""
+    fused transform bit for bit against the unfused one. Returns its
+    launches and the paths of its rows saved for mesh_ranker."""
     from mmlspark_tpu_torch.core.dataframe import DataFrame
     from mmlspark_tpu_torch.core.pipeline import PipelineModel
     from mmlspark_tpu_torch.gbdt import LightGBMRanker
@@ -2807,6 +2812,10 @@ def ranker_main(torch, smi) -> dict:
     X, rel, qid = mslr_like(N_RANK, SEED)
     n_q = int(qid[-1]) + 1
     is_val = (np.random.default_rng(SEED + 1).random(n_q) < 0.1)[qid]
+    # mesh_ranker's inputs, memory-mapped by its ranks (X as f32: the ranks
+    # and its single-card reference read the same values)
+    saved = mesh_save("ranker", X=X.astype(np.float32), rel=rel, qid=qid,
+                      is_val=is_val)
     df = DataFrame.from_dict({"features": X, "label": rel, "query": qid,
                               "isVal": is_val})
     sizes = np.bincount(qid)
@@ -2898,7 +2907,7 @@ def ranker_main(torch, smi) -> dict:
          **ref})
     if not all(v["ok"] for v in gh_err.values()):
         fail(f"the card's LambdaRank g/h differ from the CPU's: {gh_err}")
-    return launches
+    return launches, saved
 
 
 # the airline on-time benchmark's shape (szilard/benchm-ml: ASA Data Expo
@@ -6084,6 +6093,11 @@ MESH_PER_SPLIT_TREES = 3
 MESH_ITERS_SPARSE = 2
 MESH_VW_PASSES = 2
 MESH_F64_REL = 1e-9           # K1/K4 f64 entries against plain, of sum |v|
+MESH_RANKER_ITERS = 5         # ranker_main's 20, cut for the script's time
+MESH_CKPT_ROWS = 524_288      # the dense cell's first rows
+MESH_CKPT_ITERS = 10
+MESH_CKPT_EVERY = 4
+MESH_CKPT_STOP = 4            # preempted as iteration 4 (0-based) starts
 
 
 def mesh_launches(torch) -> list:
@@ -6232,29 +6246,65 @@ def mesh_warm(torch, mesh) -> None:
 
 @contextlib.contextmanager
 def fused_body_sync_error(torch, mesh):
-    """On NCCL, the sharded fused body (``tree._fused_tables``) under
-    ``set_sync_debug_mode("error")``: a host read inside a tree raises. The
-    one read a tree after the body stays outside. Gloo stages its
-    collectives through host memory, so it is not held to this."""
-    from mmlspark_tpu_torch.gbdt import tree
+    """On NCCL, the sharded fused bodies (``tree._fused_tables``,
+    ``sparse._fused_sparse_tables``: the eager tree and the captured one)
+    and every replay of their CUDA graphs (``core.graphs.Captured.replay``)
+    under ``set_sync_debug_mode("error")``: a host read inside a tree
+    raises. The one read a tree after the body, and the ranks' agreement
+    after a capture, stay outside. Yields what the replays did: their
+    count and the kernel launches made through them, by counter. Gloo
+    stages its collectives through host memory: its sharded trees stay
+    eager (no replays), and it is not held to this."""
+    from mmlspark_tpu_torch.core import graphs as cg
+    from mmlspark_tpu_torch.gbdt import sparse, tree
 
-    if mesh.backend != "nccl":
-        yield
-        return
-    orig = tree._fused_tables
+    seen = {"replays": 0, "through": {}}
+    nccl = mesh.backend == "nccl"
+    orig_replay = cg.Captured.replay
 
-    def guarded(*a, **kw):
-        torch.cuda.set_sync_debug_mode("error")
+    def replay(self):
+        if nccl:
+            torch.cuda.set_sync_debug_mode("error")
         try:
-            return orig(*a, **kw)
+            out = orig_replay(self)
         finally:
             torch.cuda.set_sync_debug_mode(0)
+        seen["replays"] += 1
+        for (mod, name), n in self.launches.items():
+            key = f"{mod.rsplit('.', 1)[-1]}.{name}"
+            seen["through"][key] = seen["through"].get(key, 0) + n
+        return out
 
-    tree._fused_tables = guarded
+    def guarded(fn):
+        def body(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return body
+
+    bodies = [(tree, "_fused_tables"), (sparse, "_fused_sparse_tables")]
+    orig = [(m, n, getattr(m, n)) for m, n in bodies]
+    cg.Captured.replay = replay
+    if nccl:
+        for m, n, fn in orig:
+            setattr(m, n, guarded(fn))
     try:
-        yield
+        yield seen
     finally:
-        tree._fused_tables = orig
+        cg.Captured.replay = orig_replay
+        for m, n, fn in orig:
+            setattr(m, n, fn)
+
+
+def mesh_dense_params(iters: int):
+    """The dense cell's params under a mesh (and its single-card
+    references)."""
+    from mmlspark_tpu_torch.gbdt import booster as bst
+
+    return bst.TrainParams(objective="binary", num_leaves=31, max_bin=255,
+                           num_iterations=iters, min_data_in_leaf=20)
 
 
 def mesh_dense_rank(mesh, inputs: dict, label: str, iters: int,
@@ -6276,20 +6326,20 @@ def mesh_dense_rank(mesh, inputs: dict, label: str, iters: int,
     for route, n_it, env in (("fused", iters, {}),
                              ("host", trees,
                               {"MMLSPARK_TPU_NO_FUSED_TREE": "1"})):
-        params = bst.TrainParams(objective="binary", num_leaves=31,
-                                 max_bin=255, num_iterations=n_it,
-                                 min_data_in_leaf=20)
+        params = mesh_dense_params(n_it)
         mesh_zero_counts()
         with Env(**env), PathInputs((H, "compute_histogram"),
                                     (hk, "histogram_count")) as first, \
-                fused_body_sync_error(torch, mesh):
+                fused_body_sync_error(torch, mesh) as seen:
             torch.cuda.synchronize(mesh.device)
             t0 = time.perf_counter()
             b = bst.train(params, X, y, mesh=mesh)
             torch.cuda.synchronize(mesh.device)
             fit_s = time.perf_counter() - t0
         out["reports"][route] = {**mesh_rank_report(torch, mesh, fit_s),
-                                 "route": b.route}
+                                 "route": b.route, "trees": n_it,
+                                 "replays": seen["replays"],
+                                 "through_replays": seen["through"]}
         out["models"][route] = b.to_string()
         if route == "fused":
             out["first_split"] = mesh_stash(torch, first.args, inputs,
@@ -6386,15 +6436,17 @@ def mesh_sparse_rank(mesh, inputs: dict, label: str, iters: int) -> dict:
                              min_data_in_leaf=20)
     mesh_zero_counts()
     with PathInputs((sparse, "sparse_histogram")) as first, \
-            fused_body_sync_error(torch, mesh):
+            fused_body_sync_error(torch, mesh) as seen:
         torch.cuda.synchronize(mesh.device)
         t0 = time.perf_counter()
         b = sparse.train_sparse(params, ds, np.asarray(d["y"]), mesh=mesh)
         torch.cuda.synchronize(mesh.device)
         fit_s = time.perf_counter() - t0
+    bounds = sparse.shard_bounds(ds, mesh.size)
     report = {**mesh_rank_report(torch, mesh, fit_s), "route": b.route,
-              "rows": int(sparse.shard_bounds(ds, mesh.size)[mesh.rank + 1]
-                          - sparse.shard_bounds(ds, mesh.size)[mesh.rank])}
+              "rows": int(bounds[mesh.rank + 1] - bounds[mesh.rank]),
+              "trees": iters, "replays": seen["replays"],
+              "through_replays": seen["through"]}
     return {"model": b.to_string(), "report": report,
             "first_split": mesh_stash(torch, first.args, inputs, "sparse",
                                       label, mesh.rank)}
@@ -6502,11 +6554,147 @@ def mesh_f64_gate(entries: dict, what: str, parts=()) -> None:
                  f"not its f64 sums rounded: {e}")
 
 
+def replay_gate(rep: dict, nccl: bool, counter: str, what: str) -> None:
+    """A rank's sharded fused trees (ROADMAP A9i): on NCCL every tree after
+    the eager first ran as a replay of the per-tree CUDA graph (the call
+    that captures replays too), with ``counter``'s kernel launching
+    through the replays; on gloo none did (its trees stay eager)."""
+    want = rep["trees"] - 1 if nccl else 0
+    got = rep["through_replays"].get(counter, 0)
+    if rep["replays"] != want or (nccl and got < 1) or (not nccl and got):
+        fail(f"{what}: {rep['replays']} replays of {rep['trees']} trees "
+             f"(want {want}), {got} {counter} launches through them")
+
+
+def ranker_mesh_params():
+    from mmlspark_tpu_torch.gbdt import booster as bst
+
+    return bst.TrainParams(objective="lambdarank", num_leaves=31,
+                           max_bin=255, num_iterations=MESH_RANKER_ITERS,
+                           early_stopping_round=5)
+
+
+def ranker_split(d: dict) -> dict:
+    """ranker_main's rows as its stage splits them: the training rows, and
+    the validation queries' rows as the holdout."""
+    rel, qid = np.asarray(d["rel"]), np.asarray(d["qid"])
+    val = np.asarray(d["is_val"])
+    return {"X": np.asarray(d["X"][~val], dtype=np.float64), "y": rel[~val],
+            "groups": qid[~val],
+            "valid": (np.asarray(d["X"][val], dtype=np.float64), rel[val]),
+            "valid_groups": qid[val]}
+
+
+def straddling_queries(groups, shards: int) -> int:
+    """Queries that cross an edge of ``shards`` equal blocks of the rows
+    padded as ``train`` pads them (512 x shards)."""
+    from mmlspark_tpu_torch.gbdt import booster as bst
+
+    n = len(groups)
+    pad = (-n) % (bst.ROW_MULTIPLE * shards)
+    q = np.concatenate([groups, np.full(pad, -1)])
+    edges = [len(q) * i // shards for i in range(1, shards)]
+    return sum(1 for e in edges if q[e - 1] == q[e])
+
+
+def ranker_fit(torch, mesh, d: dict):
+    """The ranker cell's sharded (or, without ``mesh``, single-card) fit:
+    (booster, fit seconds, LambdaRank ms an iteration)."""
+    from mmlspark_tpu_torch.gbdt import booster as bst
+
+    with Timed(torch, bst, "grad_hess") as gh:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = bst.train(ranker_mesh_params(), d["X"], d["y"],
+                      groups=d["groups"], valid=d["valid"],
+                      valid_groups=d["valid_groups"], mesh=mesh)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    return b, fit_s, gh.per_call_ms()
+
+
+def mesh_ranker_rank(mesh, inputs: dict, label: str) -> dict:
+    """One rank of mesh_ranker: the ranker cell's LambdaRank fit
+    (``MESH_RANKER_ITERS`` iterations, the 10% holdout scored each one)
+    over the mesh, its counts from 0; the queries straddling a block
+    edge, whose scores the ranks gather every iteration."""
+    import torch
+
+    d = ranker_split(mesh_load(inputs))
+    mesh_warm(torch, mesh)
+    mesh_zero_counts()
+    with fused_body_sync_error(torch, mesh) as seen:
+        b, fit_s, gh_ms = ranker_fit(torch, mesh, d)
+    return {"model": b.to_string(), "report": {
+        **mesh_rank_report(torch, mesh, fit_s), "route": b.route,
+        "trees": len(b.trees), "replays": seen["replays"],
+        "through_replays": seen["through"],
+        "lambdarank_ms_per_iteration": gh_ms,
+        "straddling_queries": straddling_queries(d["groups"], mesh.size)}}
+
+
+def ckpt_params():
+    from mmlspark_tpu_torch.gbdt import booster as bst
+
+    return bst.TrainParams(objective="binary", num_leaves=31, max_bin=255,
+                           num_iterations=MESH_CKPT_ITERS,
+                           min_data_in_leaf=20, bagging_fraction=0.8,
+                           bagging_freq=1, seed=7)
+
+
+def mesh_checkpoint_rank(mesh, inputs: dict, label: str) -> dict:
+    """One rank of mesh_checkpoint: the dense cell's first
+    ``MESH_CKPT_ROWS`` rows, checkpointed every ``MESH_CKPT_EVERY``
+    iterations, preempted as iteration ``MESH_CKPT_STOP`` starts (an
+    injected fault at ``TRAIN_STEP`` on every rank) and resumed on the same
+    ranks from the file the mesh's first rank wrote."""
+    import os
+
+    import torch
+
+    from mmlspark_tpu_torch.core import faults
+    from mmlspark_tpu_torch.gbdt import booster as bst
+    from mmlspark_tpu_torch.gbdt.checkpoint import (CheckpointConfig,
+                                                    load_checkpoint)
+
+    d = mesh_load(inputs)
+    X = np.asarray(d["X"][:MESH_CKPT_ROWS], dtype=np.float64)
+    y = np.asarray(d["y"][:MESH_CKPT_ROWS])
+    ck = CheckpointConfig(os.path.join(os.path.dirname(inputs["X"]),
+                                       f"ckpt_{label}.json"),
+                          every_k=MESH_CKPT_EVERY)
+    mesh_warm(torch, mesh)
+
+    def preempt(point, **ctx):
+        if point == faults.TRAIN_STEP and ctx.get("iteration") == \
+                MESH_CKPT_STOP:
+            raise faults.InjectedFault("preempted")
+
+    prev = faults.install(preempt)
+    t0 = time.perf_counter()
+    try:
+        bst.train(ckpt_params(), X, y, mesh=mesh, checkpoint=ck)
+        stopped = None
+    except faults.InjectedFault:
+        stopped = int(load_checkpoint(ck.path)["iteration"])
+    finally:
+        faults.install(prev)
+    first_s = time.perf_counter() - t0
+    torch.cuda.synchronize(mesh.device)
+    t0 = time.perf_counter()
+    b = bst.train(ckpt_params(), X, y, mesh=mesh, checkpoint=ck)
+    torch.cuda.synchronize(mesh.device)
+    return {"model": b.to_string(), "route": b.route, "stopped_at": stopped,
+            "rank": mesh.rank, "preempted_seconds": first_s,
+            "resume_seconds": time.perf_counter() - t0}
+
+
 def mesh_rank(mesh, inputs: dict, label: str) -> dict:
-    """One rank of all three mesh phases, in one process (one start-up a
-    rank): mesh_dense's, mesh_sparse's and mesh_vw's fits in turn, each
-    with its counts from 0, the card's cached blocks freed between them
-    (the other runs' ranks share it)."""
+    """One rank of every GBDT and VW mesh phase, in one process (one
+    start-up a rank): mesh_dense's, mesh_sparse's, mesh_vw's,
+    mesh_ranker's and mesh_checkpoint's fits in turn, each with its counts
+    from 0, the card's cached blocks freed between them (the other runs'
+    ranks share it)."""
     import torch
 
     out = {"mesh_dense": mesh_dense_rank(mesh, inputs["dense"], label,
@@ -6517,6 +6705,11 @@ def mesh_rank(mesh, inputs: dict, label: str) -> dict:
                                           MESH_ITERS_SPARSE)
     torch.cuda.empty_cache()
     out["mesh_vw"] = mesh_vw_rank(mesh, inputs["vw"], label, MESH_VW_PASSES)
+    torch.cuda.empty_cache()
+    out["mesh_ranker"] = mesh_ranker_rank(mesh, inputs["ranker"], label)
+    torch.cuda.empty_cache()
+    out["mesh_checkpoint"] = mesh_checkpoint_rank(mesh, inputs["dense"],
+                                                  label)
     return out
 
 
@@ -6534,6 +6727,8 @@ def mesh_phases(torch, inputs: dict, smi, after_ranks=None) -> dict:
     dense_single, X, y = mesh_dense_single(torch, inputs["dense"])
     sparse_single = mesh_sparse_single(torch, inputs["sparse"])
     vw_want = mesh_vw_single(torch, inputs["vw"])
+    ranker_single = mesh_ranker_single(torch, inputs["ranker"])
+    ckpt_single = mesh_checkpoint_single(torch, X, y)
     log({"phase": "mesh", "single_card_seconds": time.perf_counter() - t0})
     runs = pending()
     if after_ranks is not None:
@@ -6546,11 +6741,90 @@ def mesh_phases(torch, inputs: dict, smi, after_ranks=None) -> dict:
     for name, gates, args in (
             ("mesh_dense", mesh_dense_gates, (dense_single, X, y)),
             ("mesh_sparse", mesh_sparse_gates, (sparse_single,)),
-            ("mesh_vw", mesh_vw_gates, (vw_want,))):
+            ("mesh_vw", mesh_vw_gates, (vw_want,)),
+            ("mesh_ranker", mesh_ranker_gates, (ranker_single,)),
+            ("mesh_checkpoint", mesh_checkpoint_gates, (ckpt_single,))):
         t0 = time.perf_counter()
         out[name] = gates(torch, view(name), *args, smi)
         log({"phase": name, "gates_seconds": time.perf_counter() - t0})
+    # the references of the fits on the DNN mesh's data 2 x tensor 2
+    out["mesh_dense"]["single_fused"] = dense_single["fused"]
+    out["mesh_vw"]["want"] = vw_want
     return out
+
+
+def mesh_ranker_single(torch, inputs: dict) -> dict:
+    """mesh_ranker's reference: the single-card fit of the same rows and
+    params (the fused route: the holdout keeps it off the scan)."""
+    d = ranker_split(mesh_load(inputs))
+    b, fit_s, gh_ms = ranker_fit(torch, None, d)
+    check_route(b, "fused", "mesh_ranker single-card")
+    log({"phase": "mesh_ranker", "single_card_route": b.route,
+         "fit_seconds": fit_s, "iterations": len(b.trees),
+         "lambdarank_ms_per_iteration": gh_ms})
+    return {"fused": b.to_string()}
+
+
+def mesh_ranker_gates(torch, runs, single: dict, smi) -> dict:
+    """mesh_ranker: the ranker cell (MSLR-WEB30K-shaped, 136 features,
+    relevance 0-4, its query lengths over 2,097,152 rows, the 10% holdout)
+    through ``train(mesh=, groups=)`` for ``MESH_RANKER_ITERS`` iterations
+    in every run of ``mesh_launches``. Gates: every rank's model byte for
+    byte and the single-card fit's, K1 launched on each rank, the trees
+    replayed on NCCL (``replay_gate``), and at least one query straddling
+    a block edge on a run of two ranks or more (its scores gathered every
+    iteration). Returns each run's launches, summed over its ranks."""
+    mesh_models_gate(runs, single, lambda r: r["model"], "mesh_ranker")
+    paths = {}
+    for label, ranks in runs:
+        for r in ranks:
+            rep = r["report"]
+            log({"phase": "mesh_ranker", "card": smi, "run": label, **rep})
+            if rep["route"] != "fused" or rep["launches"]["hist"] < 1:
+                fail(f"mesh_ranker ({label}): route {rep['route']}, K1 "
+                     f"launches {rep['launches']['hist']}")
+            replay_gate(rep, label.startswith("nccl"), "hist_kernel.launches",
+                        f"mesh_ranker ({label}, rank {rep['rank']})")
+            p = paths.setdefault(f"mesh_ranker.{label}",
+                                 {"hist": 0, "hist_count": 0, "select": 0})
+            for k in p:
+                p[k] += rep["launches"][k]
+        if len(ranks) > 1 and ranks[0]["report"]["straddling_queries"] < 1:
+            fail(f"mesh_ranker ({label}): no query straddles a block edge")
+    return {"paths": paths}
+
+
+def mesh_checkpoint_single(torch, X, y) -> dict:
+    """mesh_checkpoint's reference: the uninterrupted single-card fit of
+    the same rows and params on the fused route (a checkpointed fit's)."""
+    from mmlspark_tpu_torch.gbdt import booster as bst
+
+    with Env(**FUSED_ONLY, **NATIVE_OFF):
+        t0 = time.perf_counter()
+        b = bst.train(ckpt_params(), X[:MESH_CKPT_ROWS], y[:MESH_CKPT_ROWS])
+        torch.cuda.synchronize()
+    check_route(b, "fused", "mesh_checkpoint single-card")
+    log({"phase": "mesh_checkpoint", "single_card_route": b.route,
+         "fit_seconds": time.perf_counter() - t0})
+    return {"fused": b.to_string()}
+
+
+def mesh_checkpoint_gates(torch, runs, single: dict, smi) -> dict:
+    """mesh_checkpoint: a checkpointed sharded fit of the dense cell's
+    first ``MESH_CKPT_ROWS`` rows (bagging, every ``MESH_CKPT_EVERY``
+    iterations) preempted and resumed on the same ranks. Gates: the fit
+    stopped after the checkpoint of iteration ``MESH_CKPT_STOP``, and
+    every rank's resumed model is byte for byte the uninterrupted
+    single-card fit."""
+    mesh_models_gate(runs, single, lambda r: r["model"], "mesh_checkpoint")
+    for label, ranks in runs:
+        for r in ranks:
+            log({"phase": "mesh_checkpoint", "card": smi, "run": label,
+                 **{k: v for k, v in r.items() if k != "model"}})
+            if r["stopped_at"] != MESH_CKPT_STOP or r["route"] != "fused":
+                fail(f"mesh_checkpoint ({label}): stopped at "
+                     f"{r['stopped_at']}, route {r['route']}")
+    return {"paths": {}}
 
 
 def mesh_dense_single(torch, inputs: dict):
@@ -6565,9 +6839,7 @@ def mesh_dense_single(torch, inputs: dict):
     single = {}
     for route, iters, env in (("fused", MESH_ITERS_DENSE, FUSED_ONLY),
                               ("host", MESH_PER_SPLIT_TREES, PER_SPLIT)):
-        params = bst.TrainParams(objective="binary", num_leaves=31,
-                                 max_bin=255, num_iterations=iters,
-                                 min_data_in_leaf=20)
+        params = mesh_dense_params(iters)
         with Env(**env):
             t0 = time.perf_counter()
             b = bst.train(params, X, y)
@@ -6620,6 +6892,10 @@ def mesh_dense_gates(torch, runs, single: dict, X, y, smi) -> dict:
                 if route == "fused" and got["hist_count"] + got["select"]:
                     fail(f"mesh_dense ({label}): the sharded fused body "
                          f"compacted rows: {got}")
+                if route == "fused":
+                    replay_gate(rep, label.startswith("nccl"),
+                                "hist_kernel.launches",
+                                f"mesh_dense ({label}, rank {rep['rank']})")
                 p = paths.setdefault(f"mesh_dense.{route}.{label}",
                                      dict.fromkeys(got, 0))
                 for k, v in got.items():
@@ -6747,6 +7023,9 @@ def mesh_sparse_gates(torch, runs, single: dict, smi) -> dict:
             if rep["route"] != "fused" or rep["launches"]["sparse_hist"] < 1:
                 fail(f"mesh_sparse ({label}): route {rep['route']}, K4 "
                      f"launches {rep['launches']['sparse_hist']}")
+            replay_gate(rep, label.startswith("nccl"),
+                        "sparse_hist_kernel.launches",
+                        f"mesh_sparse ({label}, rank {rep['rank']})")
             p = paths.setdefault(f"mesh_sparse.{label}", {"sparse_hist": 0})
             p["sparse_hist"] += rep["launches"]["sparse_hist"]
         f64[label] = ranks[0]["f64"]
@@ -6785,7 +7064,8 @@ def mesh_vw_single(torch, inputs: dict) -> dict:
     ds = SparseDataset(*(np.asarray(d[k]) for k in ("indices", "values",
                                                     "labels", "weights")))
     want = {}
-    for world in sorted({w for _, w, _, _ in mesh_launches(torch)}):
+    # two blocks too: the fits on the DNN mesh's data 2 x tensor 2
+    for world in sorted({w for _, w, _, _ in mesh_launches(torch)} | {2}):
         for name, kw in (("adaptive", {}), ("ftrl", {"ftrl": True})):
             cfg = LearnerConfig(num_bits=VW_BITS, loss_function="logistic",
                                 num_passes=MESH_VW_PASSES, **kw)
@@ -6898,7 +7178,8 @@ def dnn_mesh_specs(world: int) -> dict:
             "mesh_ring": {"seq": world}, "mesh_moe": {"expert": world},
             "mesh_pipe": {"pipe": world}, "mesh_dnn_model": {"data": world},
             "mesh_fused": {"data": world},
-            "mesh_fused_pipe": {"data": world // 2, "pipe": 2}}
+            "mesh_fused_pipe": {"data": world // 2, "pipe": 2},
+            "mesh_gbdt_axes": {"data": world // 2, "tensor": 2}}
 
 
 def _dnn_path(name: str) -> str:
@@ -7620,11 +7901,61 @@ def _rank_fused_pipe(torch, mesh) -> dict:
             **_fused_report(torch, fused, {})}
 
 
+def _rank_gbdt_axes(torch, mesh) -> dict:
+    """mesh_gbdt_axes on one rank of data 2 x tensor 2 (ROADMAP A9k): the
+    dense cell's fused fit as mesh_dense runs it and mesh_vw's two fits,
+    each rank on the block of its data coordinate, summed over its data
+    group; the tensor replicas of a block compute the same. Reads the
+    inputs mesh_phases saved in the work directory (skipped without
+    them)."""
+    import os
+
+    from mmlspark_tpu_torch.gbdt import booster as bst
+    from mmlspark_tpu_torch.vw import LearnerConfig, SparseDataset
+    from mmlspark_tpu_torch.vw import train_linear
+
+    work = _MESH_WORK["dir"]
+    names = {"dense": ("X", "y"),
+             "vw": ("indices", "values", "labels", "weights")}
+    paths = {f"{a}_{k}": os.path.join(work, f"{a}_{k}.npy")
+             for a, keys in names.items() for k in keys}
+    if not all(os.path.exists(v) for v in paths.values()):
+        return {"skipped": True}
+    d = mesh_load(paths)
+    X = np.asarray(d["dense_X"], dtype=np.float64)
+    y = np.asarray(d["dense_y"])
+    coords = {a: mesh.coord(a) for a in ("data", "tensor")}
+    mesh_zero_counts()
+    with fused_body_sync_error(torch, mesh) as seen:
+        torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        b = bst.train(mesh_dense_params(MESH_ITERS_DENSE), X, y, mesh=mesh)
+        torch.cuda.synchronize(mesh.device)
+        fit_s = time.perf_counter() - t0
+    del X, y
+    out = {"coords": coords, "model": b.to_string(), "vw": {},
+           "report": {**mesh_rank_report(torch, mesh, fit_s),
+                      "route": b.route, "trees": MESH_ITERS_DENSE,
+                      "replays": seen["replays"],
+                      "through_replays": seen["through"]}}
+    ds = SparseDataset(*(np.asarray(d[f"vw_{k}"]) for k in names["vw"]))
+    for name, kw in (("adaptive", {}), ("ftrl", {"ftrl": True})):
+        cfg = LearnerConfig(num_bits=VW_BITS, loss_function="logistic",
+                            num_passes=MESH_VW_PASSES, **kw)
+        mesh_zero_counts()
+        t0 = time.perf_counter()
+        w, _ = train_linear(cfg, ds, mesh=mesh)
+        out["vw"][name] = {"weights": w, "report": mesh_rank_report(
+            torch, mesh, time.perf_counter() - t0)}
+    return out
+
+
 _DNN_RANK_PHASES = {"mesh_train": _rank_train, "mesh_resnet": _rank_resnet,
                     "mesh_ring": _rank_ring, "mesh_moe": _rank_moe,
                     "mesh_pipe": _rank_pipe, "mesh_dnn_model": _rank_dnn_model,
                     "mesh_fused": _rank_fused,
-                    "mesh_fused_pipe": _rank_fused_pipe}
+                    "mesh_fused_pipe": _rank_fused_pipe,
+                    "mesh_gbdt_axes": _rank_gbdt_axes}
 
 
 def dnn_mesh_rank(mesh, label: str, work: str) -> dict:
@@ -7988,10 +8319,65 @@ def dnn_mesh_start(torch):
                       plan=dnn_mesh_launches(torch), timeout=DNN_MESH_TIMEOUT)
 
 
+def _mesh_gbdt_axes_gates(runs, refs, smi) -> dict:
+    """mesh_gbdt_axes (data 2 x tensor 2, ROADMAP A9k): every rank's dense
+    model byte for byte the single-card fused fit (``refs["gbdt_axes"]``
+    from mesh_phases), K1 launched on each rank and the trees replayed on
+    NCCL (``replay_gate``); each VW fit within ``VW_RTOL``/``VW_ATOL`` of
+    one process averaging two blocks' passes, and bit for bit between the
+    tensor replicas of each data coordinate. Returns each run's launches
+    (summed over its ranks)."""
+    want = refs.get("gbdt_axes")
+    paths = {}
+    for label, ranks in runs:
+        outs = [r.get("mesh_gbdt_axes") for r in ranks]
+        if want is None or not outs[0] or outs[0].get("skipped"):
+            continue
+        p = paths.setdefault(f"mesh_gbdt_axes.{label}",
+                             {"hist": 0, "hist_count": 0, "select": 0,
+                              "vw_scan": 0})
+        for o in outs:
+            rep = o["report"]
+            diff = model_diff(o["model"], want["dense"])
+            log({"phase": "mesh_gbdt_axes", "card": smi, "run": label,
+                 "coords": o["coords"], **rep,
+                 "model_equals_single_card": not diff,
+                 "differences": diff[:20]})
+            if diff or rep["route"] != "fused" or rep["launches"]["hist"] < 1:
+                fail(f"mesh_gbdt_axes ({label}, rank {rep['rank']}): model "
+                     f"differs in {len(diff)} places ({diff[:5]}), route "
+                     f"{rep['route']}, K1 launches {rep['launches']['hist']}")
+            replay_gate(rep, label.startswith("nccl"), "hist_kernel.launches",
+                        f"mesh_gbdt_axes ({label}, rank {rep['rank']})")
+            for k in ("hist", "hist_count", "select"):
+                p[k] += rep["launches"][k]
+        for name in ("adaptive", "ftrl"):
+            by_block = {}
+            for o in outs:
+                w = o["vw"][name]["weights"]
+                by_block.setdefault(o["coords"]["data"], []).append(w)
+                p["vw_scan"] += o["vw"][name]["report"]["launches"]["vw_scan"]
+            same = all(np.array_equal(w.view(np.uint32), ws[0].view(np.uint32))
+                       for ws in by_block.values() for w in ws)
+            w0 = outs[0]["vw"][name]["weights"]
+            err = float(np.abs(w0 - want["vw"][2, name]).max())
+            close = bool(np.allclose(w0, want["vw"][2, name], rtol=VW_RTOL,
+                                     atol=VW_ATOL))
+            log({"phase": "mesh_gbdt_axes", "run": label, "fit": name,
+                 "replicas_bitwise": same, "close_to_two_blocks": close,
+                 "max_abs_vs_two_blocks": err})
+            if not same or not close:
+                fail(f"mesh_gbdt_axes ({label}, {name}): replicas bit for "
+                     f"bit {same}, within rtol {VW_RTOL} / atol {VW_ATOL} "
+                     f"of two blocks averaged {close} ({err})")
+    return paths
+
+
 def dnn_mesh_gates(torch, runs, refs, smi) -> dict:
     """The DNN mesh phases' gates on the ranks' results, then K5-K7 alone
-    on a rank's inputs. Returns the K5-K7 launches of the new paths and
-    the kernels' rows on a rank's inputs."""
+    on a rank's inputs. Returns the K5-K7 launches of the new paths (and
+    K1's and vw_scan's on data 2 x tensor 2) and the kernels' rows on a
+    rank's inputs."""
     for label, ranks in runs:
         log({"phase": "dnn_mesh", "run": label, "phase_seconds": {
             k: [r[k]["phase_seconds"] for r in ranks] for k in ranks[0]
@@ -8002,6 +8388,7 @@ def dnn_mesh_gates(torch, runs, refs, smi) -> dict:
     fused = _mesh_fused_gates(runs, refs, smi)
     kernels = mesh_attn_kernels(torch, smi)
     paths = dict(fused)
+    paths.update(_mesh_gbdt_axes_gates(runs, refs, smi))
     for label, got in train.items():
         paths[f"mesh_train.{label}"] = got
     for label, got in dnn.items():
@@ -8048,11 +8435,12 @@ def main() -> int:
     # the mesh phases' inputs, memory-mapped by their ranks (f32-exact X)
     mesh_inputs = {"dense": mesh_save("dense", X=X.astype(np.float32), y=y)}
     del X, y
-    paths["ranker_main"] = ranker_main(torch, smi)
+    paths["ranker_main"], mesh_inputs["ranker"] = ranker_main(torch, smi)
     paths["categorical_main"] = categorical_main(torch, dense_model, X_score, smi)
     data = sparse_data()
-    kernels["sparse_hist"] = sparse_kernel_phase(torch, data)
+    # the stage fit first: its host build leaves the dataset the rest reads
     launches["sparse_hist"], sparse_model = sparse_main_path(torch, data)
+    kernels["sparse_hist"] = sparse_kernel_phase(torch, data)
     paths["main"]["sparse_hist"] = launches["sparse_hist"]
     full_ms = kernels["sparse_hist"]["ms"]
     paths["sparse_variants"], compacted = sparse_variants(torch, data, smi,
@@ -8149,6 +8537,8 @@ def main() -> int:
                            after_ranks=lambda: dnn_runs.extend(dnn_pending()))
         for got in mesh.values():
             paths.update(got["paths"])
+        dnn_refs["gbdt_axes"] = {"dense": mesh["mesh_dense"]["single_fused"],
+                                 "vw": mesh["mesh_vw"]["want"]}
         dnn_mesh = dnn_mesh_gates(torch, dnn_runs, dnn_refs, smi)
         paths.update(dnn_mesh["paths"])
         log({"phase": "mesh", "seconds": time.perf_counter() - t_phase})

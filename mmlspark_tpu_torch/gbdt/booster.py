@@ -67,9 +67,14 @@ is per block (scores, gradients); the host's draws run over all rows from
 the same generator on every process; GOSS ranks the gathered gradients
 and the training metric the gathered scores (``parallel.mesh.all_gather``).
 A sharded fit never takes the native route or the scan (the reference
-excludes them); lambdarank groups and checkpoints under a mesh raise
-``NotImplementedError`` (ROADMAP A9j), and so does a mesh with another
-axis than ``data`` above 1 (A9k).
+excludes them). The blocks follow the data axis alone, as the reference's
+do: the ranks that share a data coordinate (the replicas along the other
+axes) hold the same block and grow the same trees. LambdaRank's queries
+may straddle a block edge: a rank gathers the scores of the queries that
+cross its edges and computes their whole gradients (``ShardQueries``). A
+checkpoint holds every row's scores (and the card's Kahan pair), gathered
+over the data group and written by the mesh's first rank; a resume keeps
+its block and refuses another shard count.
 """
 
 from __future__ import annotations
@@ -85,7 +90,8 @@ import numpy as np
 import torch
 
 from ..core import faults as _faults
-from ..parallel.mesh import all_gather, fetch_global, mesh_shards, row_block
+from ..parallel.mesh import (all_gather, barrier, data_index, fetch_global,
+                             mesh_shards, row_block)
 from ..runtime import DeviceLike, resolve_device
 from .binning import BinMapper
 from . import select_kernel
@@ -259,12 +265,9 @@ class GroupSegments:
         self.buckets = buckets
 
 
-def segment_groups(group_ids, device: DeviceLike = "cpu") -> GroupSegments:
-    """Segment rows into contiguous groups and bucket the groups by size
-    class; each bucket's index tensors live on ``device``.
-
-    Raises if a group id appears in two non-adjacent runs: that silently
-    breaks pairwise ranking, so the rows must be sorted by group first."""
+def _group_runs(group_ids) -> Tuple[np.ndarray, np.ndarray]:
+    """(starts, counts) of the contiguous ``group_ids`` runs; raises if a
+    group id appears in two non-adjacent runs."""
     gi = np.asarray(group_ids)
     n = len(gi)
     change = np.nonzero(gi[1:] != gi[:-1])[0] + 1
@@ -276,7 +279,17 @@ def segment_groups(group_ids, device: DeviceLike = "cpu") -> GroupSegments:
             "lambdarank requires rows grouped contiguously by group id; a "
             "group id reappears after a different group — sort the dataset "
             "by the group column first")
+    return starts, counts
 
+
+def segment_groups(group_ids, device: DeviceLike = "cpu") -> GroupSegments:
+    """Segment rows into contiguous groups and bucket the groups by size
+    class; each bucket's index tensors live on ``device``.
+
+    Raises if a group id appears in two non-adjacent runs: that silently
+    breaks pairwise ranking, so the rows must be sorted by group first."""
+    starts, counts = _group_runs(group_ids)
+    n = len(group_ids)
     by_size: dict = {}
     for g in range(len(starts)):
         c = int(counts[g])
@@ -303,6 +316,19 @@ def segment_groups(group_ids, device: DeviceLike = "cpu") -> GroupSegments:
 _LAMBDARANK_PAIR_BUDGET = 1 << 24
 
 
+def _halving_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum along the last dim (a power of two) by halving: the first
+    half plus the second, until one column is left. Elementwise adds only,
+    so a row's sum is the same bits on every device and whatever rows
+    share the tensor. ``torch.sum`` over a few rows picks its reduction
+    order on the card from the row count (a bucket's chunk of a
+    LambdaRank's queries), which a sharded fit's blocks change."""
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
 def _lambdarank_bucket(s_pad: torch.Tensor, l_pad: torch.Tensor,
                        valid: torch.Tensor, sigma: float = 1.0
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -317,10 +343,11 @@ def _lambdarank_bucket(s_pad: torch.Tensor, l_pad: torch.Tensor,
     rank_of = torch.empty((m, G), dtype=torch.int32, device=dev)
     rank_of.scatter_(1, order, iota.expand(m, G).contiguous())
     disc = 1.0 / torch.log2(rank_of.to(torch.float32) + 2.0)
-    # ideal DCG per group (labels sorted descending)
+    # ideal DCG per group (labels sorted descending), summed in an order
+    # that no other group of the bucket moves (``_halving_sum``)
     ideal_gains = torch.flip(torch.sort(gains, dim=1).values, (1,))
-    idcg = torch.sum(ideal_gains / torch.log2(iota.to(torch.float32) + 2.0),
-                     dim=1, keepdim=True)
+    idcg = _halving_sum(ideal_gains
+                        / torch.log2(iota.to(torch.float32) + 2.0))[:, None]
     inv_idcg = torch.where(idcg > 0, 1.0 / idcg, 0.0)[..., None]
 
     pair_ok = valid[:, :, None] & valid[:, None, :]
@@ -371,6 +398,81 @@ def _lambdarank_grad_hess(scores: torch.Tensor, labels: torch.Tensor,
         g_out[rows] = g_pad[loc_g, loc_slot]
         h_out[rows] = torch.clamp(h_pad[loc_g, loc_slot], min=1e-16)
     return g_out, h_out
+
+
+class ShardQueries:
+    """LambdaRank over a sharded fit's row blocks (``bounds``: the [S + 1]
+    row edges; this rank holds block ``me``). A query may straddle a block
+    edge, so a rank computes the whole of every query that touches its
+    block: those inside it from its own scores, and the at most two that
+    cross its edges from their rows' scores gathered over the data group
+    (``all_gather``: each block gives the rows of its own that lie in a
+    query crossing any edge, an empty share included, so every rank of the
+    group takes part). The rank segments its block and those straddlers
+    once (``segment_groups``) and keeps its own rows of the gradients. A
+    query's g and h do not depend on the other queries of its bucket
+    (``_lambdarank_bucket``), so they are the bits the one-process fit
+    computes."""
+
+    def __init__(self, group_ids, labels: np.ndarray, bounds, me: int,
+                 device: DeviceLike):
+        starts, counts = _group_runs(group_ids)
+        ends = starts + counts
+        labels = np.asarray(labels)
+        bounds = [int(b) for b in bounds]
+        a, b = bounds[me], bounds[me + 1]
+
+        def run_of(row: int) -> int:
+            return int(np.searchsorted(starts, row, side="right")) - 1
+
+        # each block's rows in a query that crosses one of its edges
+        shares = []
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            rows = []
+            if hi > lo:
+                head, tail = run_of(lo), run_of(hi - 1)
+                if starts[head] < lo:
+                    rows.append(np.arange(lo, min(int(ends[head]), hi)))
+                if ends[tail] > hi and not (head == tail and starts[head] < lo):
+                    rows.append(np.arange(max(int(starts[tail]), lo), hi))
+            shares.append(np.concatenate(rows) if rows
+                          else np.zeros(0, np.int64))
+        self.sizes = [len(r) for r in shares]
+        self.lo = int(starts[run_of(a)]) if b > a else a
+        self.hi = int(ends[run_of(b - 1)]) if b > a else b
+        dev = torch.device(device)
+        self.mine = torch.as_tensor(shares[me] - a, device=dev)
+        gathered = np.concatenate(shares)
+        self.before = torch.as_tensor(
+            np.searchsorted(gathered, np.arange(self.lo, a)), device=dev)
+        self.after = torch.as_tensor(
+            np.searchsorted(gathered, np.arange(b, self.hi)), device=dev)
+        self.keep = slice(a - self.lo, b - self.lo)
+        self.segments = (segment_groups(
+            np.asarray(group_ids)[self.lo:self.hi], dev) if b > a else None)
+        self.labels = torch.as_tensor(labels[self.lo:self.hi],
+                                      dtype=torch.float32, device=dev)
+
+    @property
+    def straddlers(self) -> bool:
+        """Does any query cross a block edge (else no rank gathers)."""
+        return sum(self.sizes) > 0
+
+    def grad_hess(self, scores: torch.Tensor, mesh
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This block's LambdaRank (g, h) from its own f32 ``scores``: a
+        collective over the data group when a query crosses an edge."""
+        ext = scores
+        if self.straddlers:
+            got = all_gather(scores.index_select(0, self.mine), mesh,
+                             self.sizes)
+            ext = torch.cat([got.index_select(0, self.before), scores,
+                             got.index_select(0, self.after)])
+        if self.segments is None:            # an empty block
+            return scores.clone(), scores.clone()
+        g, h = grad_hess("lambdarank", ext, self.labels,
+                         group_segments=self.segments)
+        return g[self.keep], h[self.keep]
 
 
 def init_score(objective: str, labels: np.ndarray, num_class: int = 1,
@@ -579,21 +681,6 @@ class Booster:
 # ---------------------------------------------------------------------------
 # Training
 # ---------------------------------------------------------------------------
-
-
-def _mesh_unsupported(mesh, groups=None, checkpoint=None) -> int:
-    """The mesh's data shards; raises for the options a sharded fit does
-    not take yet (they need a global step besides the histogram sums)."""
-    shards = mesh_shards(mesh)
-    if mesh is not None and groups is not None:
-        raise NotImplementedError(
-            "query groups in a sharded fit (a query split over two row "
-            "blocks) are later multi-GPU work: ROADMAP A9j")
-    if mesh is not None and checkpoint is not None:
-        raise NotImplementedError(
-            "a checkpointed sharded fit (scores gathered from every "
-            "process) is later multi-GPU work: ROADMAP A9j")
-    return shards
 
 
 # ---------------------------------------------------------------------------
@@ -1305,9 +1392,9 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
 
     ``mesh``: a ``parallel.mesh.Mesh``; every process of it calls ``train``
     with the same inputs and gets the same Booster, grown data-parallel
-    over its row block (the module docstring). Runs on the mesh's device
-    unless ``device`` names one."""
-    shards = _mesh_unsupported(mesh, groups, checkpoint)
+    over the row block of its data coordinate (the module docstring). Runs
+    on the mesh's device unless ``device`` names one."""
+    shards = mesh_shards(mesh)
     sharded = mesh is not None          # one shard too: the sharded path
     dev = resolve_device(device if device is not None or mesh is None
                          else mesh.device)
@@ -1367,8 +1454,14 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
     w_dev = (torch.as_tensor(weights[blk], dtype=torch.float32, device=dev)
              if weights is not None else None)
     # the lambdarank group layout is static across boosting: segment once
-    group_seg = (segment_groups(groups, dev)
-                 if groups is not None and objective == "lambdarank" else None)
+    # (under a mesh: the block's queries and those straddling its edges)
+    group_seg = queries = None
+    if groups is not None and objective == "lambdarank":
+        if sharded:
+            queries = ShardQueries(groups, y, np.arange(shards + 1)
+                                   * (n // shards), data_index(mesh), dev)
+        else:
+            group_seg = segment_groups(groups, dev)
 
     if init_scores is not None:
         # per-row init score: boosting starts from it, but it is not part of
@@ -1429,13 +1522,19 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
             restored = Booster.from_string(ck["model"])
             booster.trees = restored.trees
             booster.base_score = restored.base_score
-            if ck["scores"].shape != (n, k):
+            if ck["scores"].shape != (n, k) \
+                    or int(ck.get("data_shards", 1)) != shards:
                 raise ValueError(
                     f"checkpoint {checkpoint.path!r} scores shape "
-                    f"{ck['scores'].shape} does not match this dataset "
-                    f"({(n, k)}); resume requires the same data")
-            scores = ck["scores"]
+                    f"{ck['scores'].shape} over "
+                    f"{int(ck.get('data_shards', 1))} data shards does not "
+                    f"match this dataset ({(n, k)} over {shards}); resume "
+                    f"requires the same data and mesh")
+            # the saved scores are every row's: this process keeps its block
+            scores = ck["scores"][blk]
             kahan = ck.get("kahan")
+            if kahan is not None:
+                kahan = kahan[:, blk]
             rng.bit_generator.state = ck["rng_state"]
             bag_mask = ck["bag_mask"].astype(bool)
             stopper.best_val = ck["best_val"]
@@ -1518,8 +1617,11 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
         if not fast_scores:
             score_dev = torch.as_tensor(scores[:, 0] if k == 1 else scores,
                                         dtype=torch.float32, device=dev)
-        g, h = grad_hess(objective, score_dev, labels, w_dev, params.alpha,
-                         groups, group_segments=group_seg)
+        if queries is not None:
+            g, h = queries.grad_hess(score_dev, tree_mesh)
+        else:
+            g, h = grad_hess(objective, score_dev, labels, w_dev,
+                             params.alpha, groups, group_segments=group_seg)
 
         # ----- bagging / goss row selection
         row_mask = bag_mask
@@ -1607,20 +1709,29 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
             recorder.metric(f"train_{metric}", m)
             log(f"[{it + 1}] train {metric}={m:.6f}")
 
-        # ----- atomic checkpoint every k iterations (and at the end)
+        # ----- atomic checkpoint every k iterations (and at the end); under
+        # a mesh every rank gathers the scores (and the card's Kahan pair)
+        # over its data group, the mesh's first rank writes, and the ranks
+        # wait for the file before going on
         if checkpoint is not None and (
                 (it + 1) % max(checkpoint.every_k, 1) == 0
                 or it + 1 == params.num_iterations):
             ck_t0 = time.perf_counter()
-            save_checkpoint(
-                checkpoint.path, params_dict=dataclasses.asdict(params),
-                model_string=booster.to_string(), iteration=it + 1,
-                scores=_host_scores(), rng_state=rng.bit_generator.state,
-                bag_mask=bag_mask, best_val=stopper.best_val,
-                best_iter=stopper.best_iter,
-                rounds_no_improve=stopper.no_improve,
-                kahan=(torch.stack([score_dev, comp_dev]).cpu().numpy()
-                       if fast_scores else None))
+            host_sc = _host_scores()
+            pair = (np.moveaxis(fetch_global(torch.stack(
+                [score_dev, comp_dev], dim=1), tree_mesh), 1, 0)
+                if fast_scores else None)
+            if not sharded or mesh.index == 0:
+                save_checkpoint(
+                    checkpoint.path, params_dict=dataclasses.asdict(params),
+                    model_string=booster.to_string(), iteration=it + 1,
+                    scores=host_sc, rng_state=rng.bit_generator.state,
+                    bag_mask=bag_mask, best_val=stopper.best_val,
+                    best_iter=stopper.best_iter,
+                    rounds_no_improve=stopper.no_improve, kahan=pair,
+                    data_shards=shards)
+            if sharded:
+                barrier(mesh)
             recorder.checkpoint(time.perf_counter() - ck_t0)
         recorder.step(time.perf_counter() - it_t0, examples=n_real)
 

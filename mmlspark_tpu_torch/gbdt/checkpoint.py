@@ -14,6 +14,11 @@ pairs (``booster._add_leaf_values``); the port adds both halves under the
 optional key ``kahan`` (the reference ignores it), so a resumed card fit
 restarts from the same pair and stays identical too.
 
+A sharded fit (``train(mesh=)``) saves every row's scores and Kahan pair,
+gathered over the mesh's data group (the padded ``(n, k)`` the reference
+writes), and the number of data shards under the optional key
+``data_shards`` (absent: one); a resume on another count raises.
+
 Checkpoints are single JSON files written atomically and durably
 (``core.faults.atomic_write_text``): a crash mid-write leaves the previous
 complete checkpoint.
@@ -63,9 +68,11 @@ def save_checkpoint(path: str, *, params_dict: Dict[str, Any],
                     scores: np.ndarray, rng_state: Dict[str, Any],
                     bag_mask: np.ndarray, best_val: float, best_iter: int,
                     rounds_no_improve: int,
-                    kahan: Optional[np.ndarray] = None) -> None:
+                    kahan: Optional[np.ndarray] = None,
+                    data_shards: int = 1) -> None:
     """Write one checkpoint atomically. ``kahan``: the device's [2, ...]
-    f32 (score, compensation) pair, when the fit keeps one."""
+    f32 (score, compensation) pair, when the fit keeps one; ``data_shards``:
+    the row blocks of the fit that wrote it."""
     d = {
         "format": CKPT_FORMAT,
         "params": _jsonable_params(params_dict),
@@ -80,6 +87,8 @@ def save_checkpoint(path: str, *, params_dict: Dict[str, Any],
     }
     if kahan is not None:
         d["kahan"] = _arr_to_json(np.asarray(kahan, dtype=np.float32))
+    if data_shards != 1:
+        d["data_shards"] = int(data_shards)
     atomic_write_text(path, json.dumps(d))
 
 

@@ -5,12 +5,15 @@ small kernels per tree at fixed shapes. ``Captured`` (core/graphs.py)
 records one call of such a function in a ``torch.cuda.CUDAGraph`` and
 replays it, with the kernels' launch counters counted through the replays
 (``count_replays``); ``Replayer`` runs a grower step eagerly once, captures
-it on the second call and replays it after.
+it on the second call and replays it after. A row-sharded step on NCCL is
+captured with its all-reduces: the eager call has formed the communicator,
+and NCCL enqueues the collectives on the capturing stream's work. Gloo's
+collectives go through host memory, so a sharded step on gloo stays eager.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 from ..core.graphs import (COUNTERS, Captured, count_replays,  # noqa: F401
                            read_counters, set_counters)
@@ -23,10 +26,18 @@ class Replayer:
     every later call copies its inputs in and replays; one graph for each
     pattern of inputs that are None. Without ``capture`` (the CPU) every
     call runs eagerly. What a replay returns is the graph's own output:
-    use it before the next call."""
+    use it before the next call.
 
-    def __init__(self, fn: Callable, capture: bool):
-        self.fn, self.capture = fn, capture
+    ``agree`` (a sharded step, whose ranks replay their collectives in
+    lockstep): called once after each capture with this rank's error (None:
+    it captured), it raises on every rank when any rank's capture failed
+    (``parallel.mesh.agree``). So no rank waits in a replayed collective
+    for a partner that is not there; there is no eager fallback."""
+
+    def __init__(self, fn: Callable, capture: bool,
+                 agree: Optional[Callable[[Optional[BaseException]], None]]
+                 = None):
+        self.fn, self.capture, self.agree = fn, capture, agree
         self.calls = 0
         self.graphs: Dict[tuple, tuple] = {}
 
@@ -37,9 +48,23 @@ class Replayer:
         key = tuple(x is None for x in inputs)
         if key not in self.graphs:
             static = [x.clone() if x is not None else None for x in inputs]
-            self.graphs[key] = (static, Captured(lambda: self.fn(*static)))
+            err = None
+            try:
+                graph = Captured(lambda: self.fn(*static))
+            except Exception as e:  # noqa: BLE001 — agreed on, then raised
+                err = e
+            if self.agree is not None:
+                self.agree(err)
+            if err is not None:
+                raise err
+            self.graphs[key] = (static, graph)
         else:
             for dst, src in zip(self.graphs[key][0], inputs):
                 if dst is not None:
                     dst.copy_(src)
         return self.graphs[key][1].replay()
+
+    @property
+    def replays(self) -> int:
+        """The replays of every graph this step captured."""
+        return sum(g.replays for _, g in self.graphs.values())

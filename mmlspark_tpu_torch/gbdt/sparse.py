@@ -73,9 +73,9 @@ import numpy as np
 import torch
 
 from ..parallel.batching import sparse_width
-from ..parallel.mesh import all_gather, fetch_global
+from ..parallel.mesh import all_gather, data_index, fetch_global, mesh_shards
 from ..runtime import DeviceLike, default_device, resolve_device
-from .booster import (Booster, EarlyStopping, _env_on, _mesh_unsupported,
+from .booster import (Booster, EarlyStopping, ShardQueries, _env_on,
                       _scan_precompute_masks, bagging_draw, dart_drops,
                       default_metric, eval_metric, feature_draw, goss_sample,
                       grad_hess, init_score, rf_average, segment_groups)
@@ -870,18 +870,19 @@ class SparseFusedGrower:
     (``graphs.Replayer``, ``run``). A returned ``node_of_row`` of a replay
     is the graph's own output: use it before the next ``grow``. With a
     ``mesh`` (``ds`` and ``dev`` this process's block) every tree is the
-    row-sharded one, run eagerly."""
+    row-sharded one: captured with its all-reduces on NCCL, eager on gloo
+    (``tree.sharded_replayer``)."""
 
     def __init__(self, ds: SparseDataset, dev: Dict, config: GrowerConfig,
                  mesh=None):
-        from . import graphs
+        from .tree import sharded_replayer
 
         self.ds, self.config = ds, config
         reduce = shard_reduce(mesh)
-        self.run = graphs.Replayer(
+        self.run = sharded_replayer(
             lambda g, h, m, bm: _fused_sparse_tables(dev, g, h, m, config, bm,
                                                      reduce),
-            dev["bin_of_nnz"].is_cuda and reduce is None)
+            dev["bin_of_nnz"].is_cuda, mesh)
 
     def grow(self, grad: torch.Tensor, hess: torch.Tensor,
              row_mask: torch.Tensor, bin_mask: Optional[torch.Tensor] = None
@@ -1356,14 +1357,16 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
     inputs, keeps its nnz-balanced row block (``shard_bounds``) and grows
     the row-sharded fused tree (route ``fused``, never the scan), as the
     reference's ``train_sparse(mesh=)`` does; the loop's state is per block,
-    GOSS ranks the gathered gradients, the draws cover every row. Query
-    groups under a mesh raise ``NotImplementedError`` (ROADMAP A9j)."""
+    GOSS ranks the gathered gradients, the draws cover every row. The
+    blocks follow the data axis alone (the replicas along the other axes
+    hold the same block); LambdaRank's queries that straddle a block edge
+    are gathered and computed whole (``booster.ShardQueries``)."""
     if params.categorical_feature:
         raise ValueError(
             "categorical_feature is not supported on the sparse path "
             "(set splits need the dense bin space; sparse features are "
             "numeric TF counts) — densify for categorical slots")
-    shards = _mesh_unsupported(mesh, groups)
+    shards = mesh_shards(mesh)
     dev_t = resolve_device(device if device is not None or mesh is None
                            else mesh.device)
     k = max(params.num_class, 1)
@@ -1374,7 +1377,8 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
         # this process's nnz-balanced block: its tensors and loop state
         bounds = shard_bounds(ds, shards)
         sizes = np.diff(bounds)
-        blk = slice(int(bounds[mesh.rank]), int(bounds[mesh.rank + 1]))
+        me = data_index(mesh)
+        blk = slice(int(bounds[me]), int(bounds[me + 1]))
         ds = ds.rows(blk.start, blk.stop)
         tree_mesh = mesh
     n_loc = ds.num_rows
@@ -1382,9 +1386,12 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
     labels = torch.as_tensor(y[blk], dtype=torch.float32, device=dev_t)
     w_dev = (torch.as_tensor(weights[blk], dtype=torch.float32, device=dev_t)
              if weights is not None else None)
-    group_seg = (segment_groups(groups, dev_t)
-                 if groups is not None and params.objective == "lambdarank"
-                 else None)
+    group_seg = queries = None
+    if groups is not None and params.objective == "lambdarank":
+        if mesh is not None:
+            queries = ShardQueries(groups, y, bounds, me, dev_t)
+        else:
+            group_seg = segment_groups(groups, dev_t)
     rng = np.random.default_rng(params.seed or params.bagging_seed)
     train_rows = None      # CsrRows of the training set, staged on first use
 
@@ -1475,8 +1482,11 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
 
         score_dev = torch.as_tensor(scores[:, 0] if k == 1 else scores,
                                     dtype=torch.float32, device=dev_t)
-        g, h = grad_hess(params.objective, score_dev, labels, w_dev,
-                         params.alpha, groups, group_segments=group_seg)
+        if queries is not None:
+            g, h = queries.grad_hess(score_dev, tree_mesh)
+        else:
+            g, h = grad_hess(params.objective, score_dev, labels, w_dev,
+                             params.alpha, groups, group_segments=group_seg)
 
         row_mask = bag_mask
         if is_goss:

@@ -52,8 +52,9 @@ keeps its tier compaction, each process picking its tier from its own
 rows' count (the all-reduce is issued whatever the tier); the fused body
 compacts nothing under a mesh, as the reference turns compaction off
 under ``psum`` (on the card the sharded fused fit ran no faster with each
-shard compacting). A sharded tree runs eagerly: a collective is not
-captured in the per-tree CUDA graph.
+shard compacting). On NCCL the sharded tree is captured in the per-tree
+CUDA graph with its all-reduces, as one process's tree is; on gloo (its
+collectives go through host memory) it runs eagerly.
 """
 
 from __future__ import annotations
@@ -719,6 +720,20 @@ def _grow_tree_fused(bins_fm, grad, hess, row_mask, num_bins: int,
                       config, bin_mapper, cat_args is not None)
 
 
+def sharded_replayer(fn, on_card: bool, mesh=None):
+    """``graphs.Replayer`` of a grower step over ``mesh``'s row block (None:
+    one process): captured on the card where the mesh's collectives can be
+    (``parallel.mesh.collectives_capturable``: NCCL, or none), the mesh's
+    ranks agreeing on every capture through the store
+    (``parallel.mesh.agree``)."""
+    from ..parallel.mesh import agree, collectives_capturable
+    from . import graphs
+
+    return graphs.Replayer(
+        fn, on_card and collectives_capturable(mesh),
+        None if mesh is None else (lambda err: agree(mesh, "capture", err)))
+
+
 class FusedGrower:
     """The fused route for the trees of one fit over one binned matrix.
 
@@ -726,24 +741,24 @@ class FusedGrower:
     first call runs eagerly, which also warms up every kernel; the second
     captures the whole tree in a CUDA graph over static copies of its
     inputs, and every later call copies its inputs in and replays
-    (``graphs.Replayer``, ``run``). On the CPU every call runs eagerly, and
-    so does every call of a row-sharded grower (``mesh``: ``bins_fm`` is
-    this process's block; the reference's ``_grow_tree_device_sharded``). A
-    returned ``node_of_row`` of a replay is the graph's own output: use it
-    before the next ``grow``."""
+    (``graphs.Replayer``, ``run``). On the CPU every call runs eagerly. A
+    row-sharded grower (``mesh``: ``bins_fm`` is this process's block; the
+    reference's ``_grow_tree_device_sharded``) captures its all-reduces too
+    on NCCL, every rank at the same call, and the ranks agree that each
+    captured before any replays (``sharded_replayer``); on gloo it runs
+    eagerly. A returned ``node_of_row`` of a replay is the graph's own
+    output: use it before the next ``grow``."""
 
     def __init__(self, bins_fm: torch.Tensor, num_bins: int,
                  config: GrowerConfig, bin_mapper, cat_args=None, mesh=None):
-        from . import graphs
-
         self.config, self.bin_mapper, self.cat_args = config, bin_mapper, \
             cat_args
         reduce = H.shard_reduce(mesh)
-        self.run = graphs.Replayer(
+        self.run = sharded_replayer(
             lambda g, h, m, fm: _fused_tables(bins_fm, g, h, m, None,
                                               num_bins, config, fm, cat_args,
                                               reduce),
-            bins_fm.is_cuda and reduce is None)
+            bins_fm.is_cuda, mesh)
 
     def grow(self, grad: torch.Tensor, hess: torch.Tensor,
              row_mask: torch.Tensor,

@@ -17,8 +17,9 @@ uint8 -> f32 cast and an f32 multiply are exact). ``hostPreprocess=True``
 does them on the host and ships float32.
 
 The NCHW branch (``data_format == "NCHW"``) serves imported ONNX backbones
-(ROADMAP A7d). Scoring sharded over a mesh (the reference's ``MeshContext``)
-is ROADMAP A9h: the fused path here is always one device's.
+(ROADMAP A7d). Under a ``MeshContext`` whose data axis is above 1 the
+featurizer stays out of fusion (``device_fn`` is None), as the reference's
+does: its wrapped ``DNNModel`` shards the forward over the mesh.
 """
 
 from __future__ import annotations
@@ -171,6 +172,11 @@ class ImageFeaturizer(Transformer, HasInputCol, HasOutputCol):
         model: Optional[FunctionModel] = self.get("model")
         if model is None:
             return None
+        from ..parallel.mesh import DATA_AXIS, MeshContext
+
+        mesh = MeshContext.current()
+        if mesh is not None and mesh.shape.get(DATA_AXIS, 1) > 1:
+            return None  # mesh-sharded eval keeps the unfused path
         fmt = getattr(model, "data_format", "NHWC")
         if fmt == "NCHW":
             c, h, w = model.input_shape

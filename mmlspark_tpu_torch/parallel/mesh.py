@@ -36,15 +36,24 @@ call the differentiable collectives below on them (``all_gather_axis`` and
 ``ring_shift``, whose backward is the reverse shift): ``torch.distributed``
 carries no gradient of its own.
 
-The GBDT and VW fits run on the data axis only: a mesh with another axis
-larger than 1 raises ``NotImplementedError`` there (ROADMAP A9k).
+The GBDT and VW fits shard rows over the data axis alone, as the
+reference's do: a rank takes the block of its data coordinate
+(``row_block``) and sums and gathers over its data-axis group
+(``all_reduce_sum``, ``all_gather``); the ranks that share a data
+coordinate (the replicas along fsdp, tensor, seq, expert and pipe) hold
+the same block and compute the same trees. ``fsdp`` replicates here too,
+though the DNN's batch group is data x fsdp.
 
 The fusion planners (``parallel/shardplan.py``, ``parallel/pipeplan.py``)
 take sub-meshes of a mesh: ``sub_mesh(mesh, members, spec)`` lays a subset
 of its ranks out as a mesh of its own (a pipe stage's ranks with the other
 axes kept, the survivors of a wedged shard group), with a group on every
 axis made by its members alone. A rank outside a sub-mesh holds its
-description and no group.
+description and no group. The members of a group agree that each of them
+can form it before any blocks in the backend's rendezvous
+(``_member_group``): a failure on one member raises on all of them, and a
+member that never arrives ends the others' wait within
+``FORM_TIMEOUT_S``.
 ``send_tensors`` / ``recv_tensors`` move a dict of tensors from one rank to
 another (the pipe handoff: NCCL card to card, gloo through host memory);
 ``mesh_topology`` names a mesh's shape and card.
@@ -75,9 +84,11 @@ AXES = (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, SEQ_AXIS, EXPERT_AXIS, PIPE_AXIS)
 BATCH = "batch"        # the (data, fsdp) group: a batch's row blocks
 WORLD = "world"        # every rank of the mesh
 
-_GBDT_TODO = ("a GBDT or VW fit on a mesh with an fsdp, tensor, seq, expert "
-              "or pipe axis larger than 1 (ROADMAP A9k): the fits shard rows "
-              "over the data axis only")
+#: seconds the members of a sub-mesh group wait for one another to agree
+#: that every one can form it, and then for the group's rendezvous
+FORM_TIMEOUT_S = 60.0
+#: the default timeout of a sub-mesh group's collectives
+GROUP_TIMEOUT_S = 1800.0
 
 
 def _dist():
@@ -367,22 +378,105 @@ def _member_group(ranks: Tuple[int, ...], rank: int, backend: str):
     every member, which make them in one order). ``dist.new_group`` cannot
     serve: without every rank of the process group it names a group after
     how many groups the calling process holds, which differs from member
-    to member once sub-meshes leave some ranks out."""
-    import datetime
+    to member once sub-meshes leave some ranks out.
 
+    Before any member blocks in the backend's rendezvous, the members
+    agree that every one of them could prepare the group
+    (``_agree_on_store``): a failure on one raises the same error on all,
+    so every member falls back alike, and a member that never arrives
+    ends the others' wait within ``FORM_TIMEOUT_S``. The gloo rendezvous
+    after the agreement is bounded by the same time."""
     dist = _dist()
     n = _MEMBER_GROUPS.get(ranks, 0)
     _MEMBER_GROUPS[ranks] = n + 1
-    store = dist.PrefixStore(
-        f"mmlspark_sub/{'_'.join(map(str, ranks))}/{n}",
-        dist.distributed_c10d._get_default_store())
-    me, size = ranks.index(rank), len(ranks)
-    timeout = datetime.timedelta(seconds=1800)
+    name = f"mmlspark_sub/{'_'.join(map(str, ranks))}/{n}"
+    base = dist.distributed_c10d._get_default_store()
+    me = ranks.index(rank)
+    make, err = None, None
+    try:
+        make = _group_maker(dist.PrefixStore(name, base), me, len(ranks),
+                            backend)
+    except Exception as e:  # noqa: BLE001 — every member is told below
+        err = f"{type(e).__name__}: {e}"
+    _agree_on_store(base, f"{name}/ready", ranks, me, err,
+                    f"the sub-mesh group of ranks {list(ranks)} did not form")
+    return make()
+
+
+def _group_maker(store, me: int, size: int, backend: str):
+    """What a member prepares of its group before the agreement (the
+    options, gloo's device), and the call that then makes the group."""
+    import datetime
+
+    dist = _dist()
+    form = datetime.timedelta(seconds=FORM_TIMEOUT_S)
+    ops = datetime.timedelta(seconds=GROUP_TIMEOUT_S)
     if backend == "nccl":
+        # NCCL's communicator forms at the group's first collective
         opts = dist.ProcessGroupNCCL.Options()
-        opts._timeout = timeout
-        return dist.ProcessGroupNCCL(store, me, size, opts)
-    return dist.ProcessGroupGloo(store, me, size, timeout)
+        opts._timeout = ops
+        return lambda: dist.ProcessGroupNCCL(store, me, size, opts)
+    opts = dist.ProcessGroupGloo._Options()
+    opts._timeout = form
+    opts._devices = [dist.ProcessGroupGloo.create_default_device()]
+
+    def make():
+        pg = dist.ProcessGroupGloo(store, me, size, opts)
+        pg._set_default_timeout(ops)
+        return pg
+
+    return make
+
+
+def _agree_on_store(store, key: str, ranks: Tuple[int, ...], me: int,
+                    err: Optional[str], what: str) -> None:
+    """Post this member's outcome (``err`` None: it went well) under
+    ``key`` and read every member's within ``FORM_TIMEOUT_S``; raise the
+    same ``RuntimeError`` (``what`` and the failures) on every member that
+    arrived when one failed, and on each when one never arrived. Through
+    the store, not a communicator, which the failure may have left out of
+    step."""
+    import datetime
+
+    store.set(f"{key}/{me}", "ok" if err is None else err)
+    keys = [f"{key}/{i}" for i in range(len(ranks))]
+    try:
+        store.wait(keys, datetime.timedelta(seconds=FORM_TIMEOUT_S))
+    except Exception as e:  # noqa: BLE001 — the store's timeout
+        raise RuntimeError(f"{what}: a member did not arrive within "
+                           f"{FORM_TIMEOUT_S} s") from e
+    said = [store.get(k).decode() for k in keys]
+    failed = {ranks[i]: v for i, v in enumerate(said) if v != "ok"}
+    if failed:
+        raise RuntimeError(f"{what}: {failed}")
+
+
+_AGREEMENTS: Dict[Tuple[str, Tuple[int, ...]], int] = {}
+
+
+def agree(mesh, what: str, err: Optional[BaseException] = None) -> None:
+    """Every rank of ``mesh`` reports whether a step it took alone (``err``
+    None: it went well) succeeded, through the process group's store, and
+    every rank raises the same ``RuntimeError`` if one failed or did not
+    arrive within ``FORM_TIMEOUT_S``. The ranks call it in one order (a
+    count a step name and ranks keys each round). ``err`` itself is raised
+    without a process group."""
+    dist = _dist()
+    if not dist.is_initialized():
+        if err is not None:
+            raise err
+        return
+    ranks = mesh.ranks
+    n = _AGREEMENTS.get((what, ranks), 0)
+    _AGREEMENTS[(what, ranks)] = n + 1
+    try:
+        _agree_on_store(
+            dist.distributed_c10d._get_default_store(),
+            f"mmlspark_agree/{what}/{'_'.join(map(str, ranks))}/{n}", ranks,
+            mesh.index, None if err is None else f"{type(err).__name__}: "
+            f"{err}", f"{what} failed on a rank of {list(ranks)}")
+    except RuntimeError as e:
+        raise e from err
 
 
 def _local_rank(rank: int) -> int:
@@ -435,16 +529,14 @@ def make_mesh(spec: Optional[MeshSpec] = None,
 
 def mesh_shards(mesh) -> int:
     """Data shards of ``mesh`` for the GBDT and VW fits: 1 for None, else
-    the data axis of a port ``Mesh``. Raises ``TypeError`` for anything
-    else (a shard count, the reference's mesh) and ``NotImplementedError``
-    for an axis other than ``data`` larger than 1 (ROADMAP A9k)."""
+    the data axis of a port ``Mesh`` (the other axes replicate). Raises
+    ``TypeError`` for anything else (a shard count, the reference's
+    mesh)."""
     if mesh is None:
         return 1
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a mmlspark_tpu_torch.parallel.Mesh "
                         f"(make_mesh), got {type(mesh).__name__}")
-    if any(int(mesh.shape.get(a, 1)) > 1 for a in AXES[1:]):
-        raise NotImplementedError(_GBDT_TODO)
     return mesh.size
 
 
@@ -452,21 +544,38 @@ def num_data_shards(mesh) -> int:
     return int(mesh.shape.get(DATA_AXIS, 1) * mesh.shape.get(FSDP_AXIS, 1))
 
 
+def data_index(mesh) -> int:
+    """This rank's block of the GBDT and VW fits: its data coordinate (0
+    without a mesh)."""
+    if mesh is None or mesh_shards(mesh) == 1:
+        return 0
+    return mesh.coord(DATA_AXIS)
+
+
 def row_block(n: int, mesh) -> slice:
     """This rank's contiguous block of ``n`` rows (``n`` a multiple of the
-    shard count): the rows the reference's shard of the same index holds."""
+    shard count): the rows the reference's shard of the same data index
+    holds."""
     s = mesh_shards(mesh)
     if n % s:
         raise ValueError(f"{n} rows do not split into {s} equal blocks")
-    r = mesh.rank if mesh is not None else 0
+    r = data_index(mesh)
     return slice(r * (n // s), (r + 1) * (n // s))
 
 
-def _active(mesh) -> bool:
-    """Do collectives run for ``mesh``: a port ``Mesh`` in a process group
-    (one of a single process too, so its backend runs)."""
+def _data_group(mesh) -> Optional[AxisGroup]:
+    """The group the GBDT and VW collectives run over: ``mesh``'s data
+    axis (one of a single process too, so its backend runs); None (the
+    identity) without a mesh, a process group or a data axis above 1."""
     mesh_shards(mesh)
-    return mesh is not None and _dist().is_initialized()
+    return axis_group(mesh, DATA_AXIS)
+
+
+def collectives_capturable(mesh) -> bool:
+    """Whether the data-axis collectives of ``mesh`` can be captured in a
+    CUDA graph: NCCL's run on the card's streams; gloo's go through host
+    memory (a host read); none at all (the identity) can."""
+    return _data_group(mesh) is None or mesh.backend == "nccl"
 
 
 def _staged(mesh, t: torch.Tensor) -> torch.Tensor:
@@ -482,14 +591,15 @@ def _staged(mesh, t: torch.Tensor) -> torch.Tensor:
 
 def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
     """Sum ``t`` over the data axis, in place, any dtype; returns ``t``.
-    Every process must call it, in the same order. The identity without a
-    mesh or a process group."""
-    if not _active(mesh):
+    Every rank of the data group must call it, in the same order. The
+    identity without a mesh, a process group or a data group."""
+    g = _data_group(mesh)
+    if g is None:
         return t
     dist = _dist()
     t0 = time.perf_counter()
     work = _staged(mesh, t)
-    dist.all_reduce(work, op=dist.ReduceOp.SUM, group=mesh.group)
+    dist.all_reduce(work, op=dist.ReduceOp.SUM, group=g.handle)
     if work is not t:
         t.copy_(work)
     stats.calls += 1
@@ -500,27 +610,30 @@ def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
 
 def all_gather(t: torch.Tensor, mesh,
                sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along dim 0 in rank order (the rows
-    of the whole data set for row blocks). ``sizes``: each rank's dim 0,
-    when they differ (each rank knows them); equal by default. The
-    identity without a mesh or a process group. The gather runs where the
-    backend can (``_staged``) and returns a tensor on ``t``'s device."""
-    if not _active(mesh):
+    """Every data shard's ``t`` concatenated along dim 0 in data order (the
+    rows of the whole data set for row blocks). ``sizes``: each shard's
+    dim 0, when they differ (each rank knows them); equal by default. The
+    identity without a mesh, a process group or a data group. The gather
+    runs where the backend can (``_staged``) and returns a tensor on
+    ``t``'s device."""
+    g = _data_group(mesh)
+    if g is None:
         return t
-    s = mesh_shards(mesh)
+    s = g.size
     dist = _dist()
     t0 = time.perf_counter()
+    me = data_index(mesh)
     sizes = [int(t.shape[0])] * s if sizes is None else [int(v) for v in sizes]
-    if int(t.shape[0]) != sizes[mesh.rank]:
-        raise ValueError(f"rank {mesh.rank} holds {t.shape[0]} rows, sizes "
-                         f"say {sizes[mesh.rank]}")
+    if int(t.shape[0]) != sizes[me]:
+        raise ValueError(f"data shard {me} holds {t.shape[0]} rows, sizes "
+                         f"say {sizes[me]}")
     width = max(sizes)
     src = _staged(mesh, t.contiguous())
     if int(src.shape[0]) < width:
         pad = src.new_zeros((width - int(src.shape[0]), *src.shape[1:]))
         src = torch.cat([src, pad])
     parts = [torch.empty_like(src) for _ in range(s)]
-    dist.all_gather(parts, src, group=mesh.group)
+    dist.all_gather(parts, src, group=g.handle)
     out = torch.cat([p[:n] for p, n in zip(parts, sizes)])
     stats.calls += 1
     stats.bytes += src.numel() * src.element_size()
@@ -530,9 +643,9 @@ def all_gather(t: torch.Tensor, mesh,
 
 def fetch_global(x, mesh=None, sizes: Optional[Sequence[int]] = None):
     """Host numpy of a tensor (or a tuple/list of them) whose rows are split
-    over the mesh: the blocks gathered in rank order; a plain host copy for
-    one shard. Collective for more than one: every process calls it in
-    lockstep."""
+    over the mesh's data axis: the blocks gathered in data order; a plain
+    host copy for one shard. Collective for more than one: every rank of
+    the data group calls it in lockstep."""
     if isinstance(x, (tuple, list)):
         return type(x)(fetch_global(a, mesh, sizes) for a in x)
     if not isinstance(x, torch.Tensor):
@@ -774,11 +887,14 @@ def ring_shift(x: torch.Tensor, mesh, axis: str, offset: int = 1
 
 
 def barrier(mesh) -> None:
-    """Every rank of ``mesh`` has reached this call (a one-element sum over
-    the world); nothing without a process group."""
+    """Every rank of ``mesh`` has reached this call: a one-element sum over
+    the world, read back on the host, so the caller waits for every rank
+    (NCCL's collective alone returns before it runs, and a rank would read
+    a file its partner is still writing); nothing without a process
+    group."""
     g = axis_group(mesh, WORLD)
     if g is not None:
-        _sum_raw(torch.zeros(1, device=mesh.device), mesh, g)
+        _sum_raw(torch.zeros(1, device=mesh.device), mesh, g).item()
 
 
 def gather_blocks(t: torch.Tensor, mesh, axis: str, dim: int,
@@ -1081,7 +1197,8 @@ __all__: List[str] = [
     "EXPERT_AXIS", "FSDP_AXIS", "Mesh", "MeshContext", "MeshSpec",
     "PIPE_AXIS", "SEQ_AXIS", "ShardSpec", "TENSOR_AXIS", "WORLD",
     "all_gather", "all_gather_axis", "all_reduce_axis", "all_reduce_sum",
-    "any_failed", "axis_group", "barrier", "coords_of", "gather_blocks",
+    "agree", "any_failed", "axis_group", "barrier", "collectives_capturable",
+    "coords_of", "data_index", "gather_blocks",
     "gather_tree", "mesh_topology", "recv_tensors", "reduce_scatter_axis",
     "ring_shift", "send_tensors", "shard_tree", "share_objects", "sub_mesh",
     "explicit_mesh", "fetch_global", "initialize_distributed", "make_mesh",

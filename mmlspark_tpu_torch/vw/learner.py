@@ -16,11 +16,12 @@ Sparse rows are padded to a fixed nnz per row; padded slots (index 0, value
 != 0. ``predict_linear`` is a gather-sum on the device.
 
 The distributed fit (``train_linear(mesh=)``, VW's AllReduce spanning tree
-as the reference runs it): each process of the mesh scans its own block of
-the rows, padded with inert rows (weight 0, value 0) to a multiple of the
-shard count, and after every pass the state is averaged over the shards
-(``all_reduce_sum`` / shards, the reference's ``pmean``) and the loss
-summed; a mesh fit never takes the native pass.
+as the reference runs it): each process of the mesh scans the block of
+its data coordinate, the rows padded with inert rows (weight 0, value 0)
+to a multiple of the data axis, and after every pass the state is
+averaged over the data group (``all_reduce_sum`` / shards, the
+reference's ``pmean``) and the loss summed; the replicas along the other
+axes scan the same block. A mesh fit never takes the native pass.
 """
 
 from __future__ import annotations

@@ -1830,6 +1830,80 @@ def test_sharded_fused_body_reads_nothing_on_the_host_under_nccl(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+def test_sharded_fused_tree_replays_its_graph_under_nccl(cuda_device,
+                                                         tmp_path, kind):
+    """The row-sharded fused tree on a one-rank NCCL mesh as the growers run
+    it (``tree.sharded_replayer``): the first tree eager, the second
+    captured with its all-reduces in a CUDA graph, every later one a
+    replay under ``set_sync_debug_mode("error")``. Every tree's tables
+    equal the eager sharded body's on the same gradients byte for byte,
+    and K1 (dense) or K4 (sparse) launches through the replays."""
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.gbdt import histogram, sparse, sparse_hist_kernel
+    from mmlspark_tpu_torch.gbdt import tree
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, all_reduce_sum
+    from mmlspark_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = tree.GrowerConfig(num_leaves=15, min_data_in_leaf=20)
+    if kind == "dense":
+        n, f, b = 131_072, 12, 64
+        bins, _, _, _ = _inputs(n, f, b, 1.0, cuda_device, seed=6)
+        module, counter = hist_kernel, "launches"
+
+        def body(g, h, m, reduce):
+            return tree._fused_tables(bins, g, h, m, None, b, cfg,
+                                      reduce=reduce)
+    else:
+        d = _mesh_case(seed=6)
+        ds = sparse.SparseDataset.from_csr(d["indptr"], d["indices"],
+                                           d["values"], 512, 255)
+        dev = sparse.device_arrays(ds, cuda_device)
+        n = ds.num_rows
+        module, counter = sparse_hist_kernel, "launches"
+
+        def body(g, h, m, reduce):
+            return sparse._fused_sparse_tables(dev, g, h, m, cfg, None,
+                                               reduce)
+    rng = np.random.default_rng(7)
+    grads = [(torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+              .to(cuda_device),
+              torch.from_numpy(rng.uniform(0.1, 1.0, n).astype(np.float32))
+              .to(cuda_device),
+              torch.from_numpy(rng.random(n) < 0.8).to(cuda_device))
+             for _ in range(4)]
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(MeshSpec(data=1), device="cuda:0")
+        all_reduce_sum(torch.zeros(1, device=cuda_device), mesh)
+        reduce = histogram.shard_reduce(mesh)
+        want = [tuple(t.clone() for t in body(*gh, reduce)) for gh in grads]
+        run = tree.sharded_replayer(lambda *a: body(*a, reduce), True, mesh)
+        assert run.capture
+        before = getattr(module, counter)
+        for i, gh in enumerate(grads):
+            if i >= 2:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = run(*gh)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert torch.equal(got[0], want[i][0]), i
+            assert torch.equal(got[1], want[i][1]), i
+        torch.cuda.synchronize()
+        assert run.replays == len(grads) - 1
+        # the eager tree's launches, then the replays' (the capture's
+        # launches counted in its tally, once a replay)
+        per_tree = (getattr(module, counter) - before) // len(grads)
+        assert per_tree > 0
+        assert getattr(module, counter) - before == per_tree * len(grads)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
 def test_nccl_mesh_gathers_host_scores_for_logs_and_metrics(cuda_device,
                                                             tmp_path,
                                                             monkeypatch):

@@ -1088,6 +1088,28 @@ def test_dnn_model_unported_paths_raise():
     assert stats["tuning"]["sharding"] == {"DNNModel": "data"}
 
 
+@pytest.mark.parametrize("data", [1, 2])
+def test_image_featurizer_fuses_only_off_a_data_mesh(data):
+    """Under ``MeshContext.set`` of a mesh whose data axis is above 1 the
+    featurizer's ``device_fn`` is None (mesh-sharded eval keeps the unfused
+    path), as the reference's is; on a data axis of 1 both fuse."""
+    from mmlspark_tpu.parallel.mesh import MeshContext as RefMeshContext
+    from mmlspark_tpu_torch.parallel.mesh import Mesh, MeshContext
+
+    ref, port = _featurizer_pair()
+    schema = DataFrame.from_dict({"image": [None]}).schema
+    ref_schema = RefDataFrame.from_dict({"image": [None]}).schema
+    MeshContext.set(Mesh(shape={"data": data}))
+    RefMeshContext.set(_ref_mesh(data=data))
+    try:
+        got = port.device_fn(schema)
+        want = ref.device_fn(ref_schema)
+    finally:
+        MeshContext.reset()
+        RefMeshContext.reset()
+    assert (got is None) == (want is None) == (data > 1)
+
+
 def test_dnn_model_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour of a host without CUDA")
@@ -5763,10 +5785,18 @@ def case_rank_faults(case, mesh):
     spec (rank 1 raises: every rank unsharded), building the sharded
     program (rank 2 demotes it: every rank's host fallback; rank 3 raises:
     every rank raises), resolving the pipe plan (rank 1 raises: every rank
-    serial) and handing the placed plan to the supervisor (rank 2's hook
-    raises: every rank serial)."""
+    serial), handing the placed plan to the supervisor (rank 2's hook
+    raises: every rank serial) and forming a pipe stage's sub-mesh groups
+    (rank 1 fails to prepare its group, or never arrives at it: every rank
+    serial, its stage partner told at once or after ``FORM_TIMEOUT_S``,
+    lowered to 5 s here)."""
+    import time
+
+    import torch.distributed as dist
+
     from mmlspark_tpu_torch.core.device_stage import FusionUnsupported
     from mmlspark_tpu_torch.core.fusion import SegmentExecutor
+    from mmlspark_tpu_torch.parallel import mesh as pm
     from mmlspark_tpu_torch.parallel import pipeplan, shardplan
 
     rank = mesh.rank
@@ -5785,12 +5815,14 @@ def case_rank_faults(case, mesh):
         try:
             for obj, name, fn in patches:
                 setattr(obj, name, fn)
+            t0 = time.perf_counter()
             try:
                 got = _col(fused.transform(df), col)
                 res = {"err": float(np.abs(got - want).max()),
                        "bitwise": bool(np.array_equal(got, want))}
             except Exception as e:  # noqa: BLE001 — the case's outcome
                 res = {"raised": type(e).__name__, "message": str(e)}
+            res["seconds"] = time.perf_counter() - t0
         finally:
             for obj, name, fn in saved:
                 setattr(obj, name, fn)
@@ -5810,6 +5842,11 @@ def case_rank_faults(case, mesh):
             if rank == 2:
                 fail()
 
+    def absent(ranks, r, backend):
+        # a member that counts the group, then never posts (a crash there)
+        pm._MEMBER_GROUPS[ranks] = pm._MEMBER_GROUPS.get(ranks, 0) + 1
+        raise RuntimeError(f"rank {rank}: injected absence")
+
     image = functools.partial(_image_chain, case)
     chain = functools.partial(_image_chain, case, heads=1)
     out["resolve"] = once(
@@ -5826,6 +5863,13 @@ def case_rank_faults(case, mesh):
         chain, {"pipe_depth": 2}, "emb", _mesh(data=2, pipe=2))
     out["pipe_hook"] = once([], chain, {"pipe_depth": 2}, "emb",
                             _mesh(data=2, pipe=2), supervisor=Supervisor())
+    out["group_failed"] = once(
+        [(dist, "PrefixStore", fail)] if rank == 1 else [],
+        chain, {"pipe_depth": 2}, "emb", _mesh(data=2, pipe=2))
+    out["group_absent"] = once(
+        [(pm, "FORM_TIMEOUT_S", 5.0)]
+        + ([(pm, "_member_group", absent)] if rank == 1 else []),
+        chain, {"pipe_depth": 2}, "emb", _mesh(data=2, pipe=2))
     return out
 
 
@@ -6509,7 +6553,8 @@ def test_tuner_proposes_journals_and_rolls_back_the_mesh_knobs(
 
 
 @pytest.mark.parametrize("step", ["resolve", "build_demoted", "build_raised",
-                                  "pipe_run", "pipe_hook"])
+                                  "pipe_run", "pipe_hook", "group_failed",
+                                  "group_absent"])
 def test_a_failure_on_one_rank_takes_every_rank_the_same_way(
         fusion_mesh4, step):
     """One rank alone fails a step the ranks must agree on; every rank then
@@ -6518,11 +6563,15 @@ def test_a_failure_on_one_rank_takes_every_rank_the_same_way(
     resolve or to place, leaves every rank on the bitwise single-device or
     serial path; a sharded program demoted at build is every rank's host
     fallback, within SHARD_ATOL; one that raised at build raises on every
-    rank. (A failure inside the making of a sub-mesh's process groups is
-    not covered: its partners wait in the group's rendezvous until the
-    store's timeout.)"""
+    rank. A pipe stage's sub-mesh group that one member fails to prepare,
+    or never arrives at, is every rank's serial path too, well inside the
+    spawn's limit: the members agree before any blocks in the group's
+    rendezvous, and a missing member ends the wait after
+    ``FORM_TIMEOUT_S`` (5 s in the case)."""
     _, ranks = _ranks_of(fusion_mesh4, "rank_faults")
     outs = [r[step] for r in ranks]
+    if step.startswith("group_"):
+        assert max(r["seconds"] for r in outs) < 60, outs
     for rank, r in enumerate(outs):
         if step == "build_raised":
             assert r["raised"] == "RuntimeError"

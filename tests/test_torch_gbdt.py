@@ -1915,7 +1915,154 @@ def _stages(mesh, data):
     return out
 
 
-def run(mesh, inputs, dense, sparse, vw):
+def _ranker(mesh, data, params):
+    """The LambdaRank fits over the query groups ``q`` (queries straddling
+    the block edges): dense on both routes, sparse, and
+    ``LightGBMRanker.fit`` under ``MeshContext`` beside ``train(mesh=)``
+    with the stage's own params."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.gbdt import LightGBMRanker, booster, sparse
+    from mmlspark_tpu_torch.parallel import mesh as pm
+
+    X, y, q = data["rX"], data["ry"], data["rq"]
+    tp = booster.TrainParams(**params)
+    out = {}
+    for route in ("host", "fused"):
+        os.environ.pop("MMLSPARK_TPU_FUSED_TREE", None)
+        if route == "fused":
+            os.environ["MMLSPARK_TPU_FUSED_TREE"] = "1"
+        try:
+            b = booster.train(tp, X, y, groups=q, mesh=mesh)
+        finally:
+            os.environ.pop("MMLSPARK_TPU_FUSED_TREE", None)
+        out[("dense", route)] = (b.route, b.to_string())
+    ds = sparse.SparseDataset.from_csr(data["r_indptr"], data["r_indices"],
+                                       data["r_values"], X.shape[1], 64)
+    b = sparse.train_sparse(tp, ds, y, groups=q, mesh=mesh)
+    out["sparse"] = (b.route, b.to_string())
+    df = DataFrame.from_dict({"features": list(X), "label": y, "query": q},
+                             num_partitions=2)
+    pm.MeshContext.set(mesh)
+    try:
+        m = LightGBMRanker(groupCol="query", numIterations=3, numLeaves=7,
+                           minDataInLeaf=5).fit(df)
+    finally:
+        pm.MeshContext.reset()
+    again = booster.train(m.booster.params, X, y, groups=q, mesh=mesh)
+    out["stage"] = (m.booster.to_string(), again.to_string())
+    return out
+
+
+def _checkpointed(mesh, data, params, path):
+    """A checkpointed sharded fit preempted at iteration 3 and resumed,
+    beside the uninterrupted one; the checkpoint's path for the parent."""
+    from mmlspark_tpu_torch.core import faults
+    from mmlspark_tpu_torch.gbdt import booster
+    from mmlspark_tpu_torch.gbdt.checkpoint import CheckpointConfig
+
+    tp = booster.TrainParams(**params)
+    X, y = data["mX"], data["my"]
+    whole = booster.train(tp, X, y, mesh=mesh, checkpoint=CheckpointConfig(
+        path + ".whole", every_k=2))
+
+    def preempt(point, iteration=None, **ctx):
+        if point == faults.TRAIN_STEP and iteration == 3:
+            raise faults.InjectedFault("preempted")
+
+    prev = faults.install(preempt)
+    try:
+        booster.train(tp, X, y, mesh=mesh,
+                      checkpoint=CheckpointConfig(path, every_k=2))
+        stopped = None
+    except faults.InjectedFault:
+        from mmlspark_tpu_torch.gbdt.checkpoint import load_checkpoint
+
+        stopped = load_checkpoint(path)["iteration"]
+    finally:
+        faults.install(prev)
+    resumed = booster.train(tp, X, y, mesh=mesh,
+                            checkpoint=CheckpointConfig(path, every_k=2))
+    return {"whole": whole.to_string(), "resumed": resumed.to_string(),
+            "stopped_at": stopped, "path": path}
+
+
+def _other_axes(mesh, data, dense, sparse, vw):
+    """The fits on meshes with a tensor or an fsdp axis of 2 beside a data
+    axis of S / 2 (every rank of the world), and the base they must equal:
+    the data-2 fit on a sub-mesh of two ranks (S = 4), or one process's
+    (S = 2: a data axis of 1)."""
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh, sub_mesh
+
+    s = mesh.size
+    meshes = {axis: make_mesh(MeshSpec(data=s // 2, **{axis: 2}),
+                              device="cpu", backend="gloo")
+              for axis in ("tensor", "fsdp")}
+    if s == 4:
+        pair = [0, 1] if mesh.rank < 2 else [2, 3]
+        meshes["base"] = sub_mesh(mesh, pair, MeshSpec(data=2))
+    else:
+        meshes["base"] = None
+    os.environ["MMLSPARK_TPU_FUSED_TREE"] = "1"
+    os.environ["MMLSPARK_TPU_NATIVE_VW"] = "0"    # the base's VW: the scan
+    out = {}
+    try:
+        for name, m in meshes.items():
+            out[name] = {
+                "coords": None if m is None else (
+                    m.coord("data"), m.coord("tensor"), m.coord("fsdp")),
+                "dense": _dense_fit(m, data, dense),
+                "sparse": _sparse(m, data, sparse)[1],
+                "vw": _vw(m, data, vw)[0]}
+    finally:
+        os.environ.pop("MMLSPARK_TPU_FUSED_TREE", None)
+        os.environ.pop("MMLSPARK_TPU_NATIVE_VW", None)
+    return out
+
+
+def _capture_agreement(mesh):
+    """``graphs.Replayer`` of a sharded step whose capture fails on the
+    last rank alone (a stand-in for ``Captured``): every rank must raise
+    the same error, agreed through the store, before any replay."""
+    from mmlspark_tpu_torch.gbdt import graphs
+    from mmlspark_tpu_torch.parallel.mesh import agree
+
+    class Capture:
+        replays = 0
+
+        def __init__(self, fn):
+            if mesh.rank == mesh.size - 1:
+                raise RuntimeError("injected capture failure")
+            self.out = fn()
+
+        def replay(self):
+            self.replays += 1
+            return self.out
+
+    orig = graphs.Captured
+    graphs.Captured = Capture
+    try:
+        run = graphs.Replayer(lambda x: x + 1, True,
+                              lambda err: agree(mesh, "capture", err))
+        first = float(run(torch.zeros(1)))
+        try:
+            run(torch.zeros(1))
+            return first, None
+        except RuntimeError as e:
+            return first, str(e)
+    finally:
+        graphs.Captured = orig
+
+
+def _dense_fit(mesh, data, case):
+    from mmlspark_tpu_torch.gbdt import booster
+
+    kw = {} if mesh is not None else {"device": "cpu"}
+    return booster.train(booster.TrainParams(**case["params"]),
+                         data[case["X"]], data[case["y"]], mesh=mesh,
+                         **kw).to_string()
+
+
+def run(mesh, inputs, dense, sparse, vw, ranker, checkpoint):
     from mmlspark_tpu_torch.parallel import mesh as pm
 
     data = dict(np.load(inputs))
@@ -1929,6 +2076,13 @@ def run(mesh, inputs, dense, sparse, vw):
     for name, cfg in vw.items():
         out[("vw", name)] = _vw(mesh, data, cfg)
     out["sharded_body"] = _sharded_body(mesh, data)
+    out["ranker"] = _ranker(mesh, data, ranker)
+    out["checkpoint"] = _checkpointed(
+        mesh, data, checkpoint,
+        os.path.join(os.path.dirname(inputs), f"ckpt_{mesh.size}.json"))
+    out["other_axes"] = _other_axes(mesh, data, dense["graft"],
+                                    sparse["graft"], vw["adaptive"])
+    out["capture_agreement"] = _capture_agreement(mesh)
     os.environ.pop("MMLSPARK_TPU_NATIVE_TRAIN")
     out["stages"] = _stages(mesh, data)
     out["collectives"] = pm.stats.calls
@@ -1964,6 +2118,17 @@ _MESH_SPARSE = {
         objective="binary", num_iterations=4, num_leaves=15,
         min_data_in_leaf=20, learning_rate=0.2)),
 }
+# LambdaRank over 4,000 rows whose queries straddle every block edge at S =
+# 2 and 4 (1,024-row blocks at S = 4): a 1,300-row query over rows 900-2199
+# (across three blocks at S = 4), a 1,000-row one over 2600-3599, a
+# singleton beside them
+_MESH_RANKER = dict(objective="lambdarank", num_iterations=3, num_leaves=7,
+                    min_data_in_leaf=5)
+# bagging and feature fraction: the checkpoint holds the generator's state
+# and the bag mask (2,048 rows: every world size's padded count)
+_MESH_CKPT = dict(objective="multiclass", num_class=3, num_iterations=6,
+                  num_leaves=7, min_data_in_leaf=5, bagging_fraction=0.7,
+                  bagging_freq=1, feature_fraction=0.75, seed=2)
 _MESH_VW = {
     "adaptive": dict(num_bits=10, loss_function="logistic", num_passes=3),
     "ftrl": dict(num_bits=10, loss_function="logistic", num_passes=2,
@@ -2019,7 +2184,36 @@ def _mesh_inputs():
                             for _ in range(300)])
     d["st_val"] = rng.standard_normal((300, 6)).astype(np.float32)
     d["st_y"] = (d["st_val"][:, :3].sum(1) > 0).astype(np.float64)
+    d.update(_ranker_inputs())
     return d
+
+
+def _ranker_inputs(n=4000, seed=21):
+    """``_MESH_RANKER``'s rows: relevance 0-4 from the first two features,
+    queries of 1-40 rows around the long ones; the sparse copy keeps the
+    nonzeros (about 70%)."""
+    rng = np.random.default_rng(seed)
+    sizes = []
+    while sum(sizes) < 900:
+        sizes.append(int(rng.integers(1, 41)))
+    sizes[-1] -= sum(sizes) - 900
+    sizes += [1300, 1]
+    while sum(sizes) < 2600:
+        sizes.append(int(rng.integers(1, 41)))
+    sizes[-1] -= sum(sizes) - 2600
+    sizes += [1000]
+    while sum(sizes) < n:
+        sizes.append(int(rng.integers(1, 41)))
+    sizes[-1] -= sum(sizes) - n
+    sizes = [v for v in sizes if v > 0]
+    q = np.repeat(np.arange(len(sizes)), sizes)
+    X = rng.normal(size=(n, 5)) * (rng.random((n, 5)) < 0.7)
+    rel = X[:, 0] + 0.5 * X[:, 1] + 0.3 * rng.normal(size=n)
+    y = np.digitize(rel, [-0.5, 0.3, 1.0, 1.8]).astype(np.float64)
+    nzr, nzc = np.nonzero(X)
+    return {"rX": X, "ry": y, "rq": q,
+            "r_indptr": np.searchsorted(nzr, np.arange(n + 1)),
+            "r_indices": nzc, "r_values": X[nzr, nzc]}
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["S2", "S4"])
@@ -2035,8 +2229,8 @@ def mesh_run(request, tmp_path_factory):
     np.savez(work / "inputs.npz", **data)
     ranks = spawn("mesh_ranks:run", s, work, dict(
         inputs=str(work / "inputs.npz"), dense=_MESH_DENSE,
-        sparse=_MESH_SPARSE, vw=_MESH_VW), threads=1, timeout=120,
-        path=[str(work)])
+        sparse=_MESH_SPARSE, vw=_MESH_VW, ranker=_MESH_RANKER,
+        checkpoint=_MESH_CKPT), threads=1, timeout=300, path=[str(work)])
     return s, data, ranks
 
 
@@ -2349,6 +2543,174 @@ def test_mesh_stages_under_mesh_context(mesh_run, monkeypatch):
     np.testing.assert_allclose(out[0]["vw0"][0],
                                np.asarray(ref_v.get("weights")),
                                rtol=1e-3, atol=2e-4)
+
+
+def _straddlers(q, edges):
+    """For each block edge, the query that crosses it (None: the edge falls
+    between two queries)."""
+    out = []
+    for e in edges:
+        out.append(int(q[e]) if 0 < e < len(q) and q[e - 1] == q[e] else None)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["host", "fused", "sparse"])
+def test_mesh_ranker_matches_reference_and_single_process(mesh_run,
+                                                          monkeypatch, kind):
+    """LambdaRank under ``train(mesh=)`` / ``train_sparse(mesh=)``: queries
+    straddle every block edge (one across three blocks at S = 4, a 1,000-row
+    one, a singleton beside them), so each rank gathers the scores of the
+    queries crossing its edges. Every rank's model is the port's
+    single-process fit byte for byte (a query's g and h do not depend on
+    the queries that share its bucket), and the reference's sharded ranker
+    within its sharded-tree gate."""
+    from mmlspark_tpu.gbdt import sparse as ref_sparse
+    from mmlspark_tpu_torch.gbdt import sparse
+
+    s, data, ranks = mesh_run
+    X, y, q = data["rX"], data["ry"], data["rq"]
+    key = "sparse" if kind == "sparse" else ("dense", kind)
+    got_route, got = _assert_ranks_agree([r["ranker"] | {"rank": r["rank"]}
+                                          for r in ranks], key)
+    assert got_route == ("fused" if kind == "sparse" else kind)
+    csr = (data["r_indptr"], data["r_indices"], data["r_values"])
+    if kind == "sparse":
+        ds = sparse.SparseDataset.from_csr(*csr, X.shape[1], 64)
+        edges = sparse.shard_bounds(ds, s)[1:-1]
+    else:
+        edges = [len(q) * i // s for i in range(1, s)]
+    across = _straddlers(q, edges)
+    assert all(a is not None for a in across), (edges, across)
+    if s == 4 and kind != "sparse":
+        assert across[0] == across[1]                  # across three blocks
+    assert 1 in np.bincount(q)                          # a singleton
+    monkeypatch.setenv("MMLSPARK_TPU_NATIVE_TRAIN", "0")
+    params = booster.TrainParams(**_MESH_RANKER)
+    if kind == "sparse":
+        single = sparse.train_sparse(params, ds, y, groups=q, device="cpu")
+    else:
+        if kind == "fused":
+            monkeypatch.setenv("MMLSPARK_TPU_FUSED_TREE", "1")
+        single = booster.train(params, X, y, groups=q, device="cpu")
+    assert single.route == got_route
+    assert got == single.to_string()
+    monkeypatch.setenv("MMLSPARK_TPU_FUSED_TREE", "1")
+    rp = ref_booster.TrainParams(**_MESH_RANKER)
+    if kind == "sparse":
+        rds = ref_sparse.SparseDataset.from_csr(*csr, X.shape[1], 64)
+        ref = ref_sparse.train_sparse(rp, rds, y, groups=q, mesh=_ref_mesh(s))
+    else:
+        ref = ref_booster.train(rp, X, y, groups=q, mesh=_ref_mesh(s))
+    _assert_sharded_gate(ref, booster.Booster.from_string(got), X)
+
+
+def test_mesh_ranker_stage_under_mesh_context(mesh_run, monkeypatch):
+    """``LightGBMRanker.fit`` under ``MeshContext.set``: the sharded fit
+    (``train(mesh=)`` with the stage's params, byte for byte) and the
+    single-process stage fit byte for byte."""
+    from mmlspark_tpu_torch.gbdt import LightGBMRanker
+
+    s, data, ranks = mesh_run
+    stage_model, again = _assert_ranks_agree(
+        [r["ranker"] | {"rank": r["rank"]} for r in ranks], "stage")
+    assert stage_model == again
+    monkeypatch.setenv("MMLSPARK_TPU_NATIVE_TRAIN", "0")
+    df = DataFrame.from_dict({"features": list(data["rX"]),
+                              "label": data["ry"], "query": data["rq"]},
+                             num_partitions=2)
+    with use_device("cpu"):
+        one = LightGBMRanker(groupCol="query", numIterations=3, numLeaves=7,
+                             minDataInLeaf=5).fit(df)
+    assert stage_model == one.booster.to_string()
+
+
+def test_mesh_checkpoint_resumes_to_the_uninterrupted_fit(mesh_run,
+                                                          monkeypatch):
+    """A checkpointed sharded fit (bagging, feature fraction, three classes)
+    preempted at its fourth iteration resumes from the checkpoint of the
+    second to the uninterrupted sharded fit byte for byte, which is the
+    single-process fit. The file is the reference's format (its
+    ``load_checkpoint`` reads it) with every row's scores, padded
+    ``(n, k)``; a resume over another shard count raises."""
+    from mmlspark_tpu.gbdt.checkpoint import load_checkpoint as ref_load
+    from mmlspark_tpu_torch.gbdt.checkpoint import CheckpointConfig
+
+    s, data, ranks = mesh_run
+    outs = [r["checkpoint"] for r in ranks]
+    for o in outs:
+        assert o["stopped_at"] == 2
+        assert o["resumed"] == o["whole"] == outs[0]["whole"]
+    monkeypatch.setenv("MMLSPARK_TPU_NATIVE_TRAIN", "0")
+    params = booster.TrainParams(**_MESH_CKPT)
+    X, y = data["mX"], data["my"]
+    single = booster.train(params, X, y, device="cpu")
+    assert outs[0]["whole"] == single.to_string()
+    ck = ref_load(outs[0]["path"])
+    assert ck["iteration"] == _MESH_CKPT["num_iterations"]
+    assert ck["scores"].shape == (len(y), 3) and ck["data_shards"] == s
+    with pytest.raises(ValueError, match="same data and mesh"):
+        booster.train(params, X, y, device="cpu",
+                      checkpoint=CheckpointConfig(outs[0]["path"]))
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse", "vw"])
+def test_mesh_fits_on_a_tensor_or_fsdp_axis(mesh_run, monkeypatch, kind):
+    """GBDT and VW fits on a mesh whose tensor or fsdp axis is 2 beside the
+    data axis (S / 2): the ranks that share a data coordinate hold the same
+    block, and the fit is byte for byte the data-(S / 2) fit (at S = 4 on a
+    sub-mesh of two ranks, at S = 2 one process's); at S = 4 the
+    reference's data 2 x tensor 2 fit within its sharded-tree gate."""
+    s, data, ranks = mesh_run
+    for r in ranks:
+        got = r["other_axes"]
+        base = got["base"][kind]
+        for axis in ("tensor", "fsdp"):
+            d, t, f = got[axis]["coords"]
+            assert d == r["rank"] // 2 if s == 4 else d == 0
+            assert (t, f) == ((r["rank"] % 2, 0) if axis == "tensor"
+                              else (0, r["rank"] % 2))
+            if kind == "vw":
+                np.testing.assert_array_equal(
+                    got[axis][kind].view(np.uint32), base.view(np.uint32))
+            else:
+                assert got[axis][kind] == base, (r["rank"], axis)
+        if kind == "vw":
+            np.testing.assert_array_equal(
+                base, ranks[0]["other_axes"]["base"][kind])
+        else:
+            assert base == ranks[0]["other_axes"]["base"][kind]
+    if kind != "dense" or s != 4:
+        return
+    from mmlspark_tpu.parallel.mesh import MeshSpec as RefSpec
+    from mmlspark_tpu.parallel.mesh import make_mesh as ref_make
+
+    import jax
+
+    spec = _MESH_DENSE["graft"]
+    monkeypatch.setenv("MMLSPARK_TPU_NATIVE_TRAIN", "0")
+    monkeypatch.setenv("MMLSPARK_TPU_FUSED_TREE", "1")
+    X, y = data[spec["X"]], data[spec["y"]]
+    ref = ref_booster.train(ref_booster.TrainParams(**spec["params"]), X, y,
+                            mesh=ref_make(RefSpec(data=2, tensor=2),
+                                          device_list=jax.devices()[:4]))
+    _assert_sharded_gate(ref, booster.Booster.from_string(
+        ranks[0]["other_axes"]["tensor"]["dense"]), X)
+
+
+def test_mesh_capture_failure_on_one_rank_raises_on_every_rank(mesh_run):
+    """A sharded tree's CUDA-graph capture that fails on one rank alone
+    (the last; ``Captured`` stood in for on the CPU) raises the same error
+    on every rank before any replay: the ranks agree through the process
+    group's store (``parallel.mesh.agree``), not the communicator a failed
+    capture may leave out of step, so none waits in a replayed collective
+    for a partner that is not there. The eager first call ran on all."""
+    s, data, ranks = mesh_run
+    outs = [r["capture_agreement"] for r in ranks]
+    for first, err in outs:
+        assert first == 1.0
+        assert err is not None and "injected capture failure" in err
+        assert err == outs[0][1]
+    assert f"{s - 1}:" in outs[0][1]
 
 
 def test_mesh_collectives_stage_tensors_where_the_backend_runs():

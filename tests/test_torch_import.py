@@ -7,10 +7,12 @@ a host without it.
 """
 
 import json
+import os
 import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -285,35 +287,43 @@ def test_entry_points_raise_without_cuda(no_cuda):
 
 
 @pytest.mark.parametrize("option", ["mesh"])
-def test_later_slices_raise_not_implemented(option):
-    """What a later slice still owns: a GBDT fit on a mesh with a tensor,
-    fsdp, seq, expert or pipe axis larger than 1 (ROADMAP A9k: the fits
-    shard rows over the data axis only), and a sharded fit's query groups
-    and checkpoints (A9j); a ``mesh=`` that is not the port's ``Mesh`` is a
-    TypeError. ``make_mesh`` takes every axis: one process cannot hold a
-    mesh of two."""
+def test_later_slices_raise_not_implemented(option, monkeypatch):
+    """A ``mesh=`` that is not the port's ``Mesh`` is a TypeError, and
+    ``make_mesh`` takes every axis: one process cannot hold a mesh of two.
+    The sharded fits refuse nothing of the reference's since ROADMAP A9j
+    and A9k: a mesh described by hand with a tensor, fsdp, seq, expert or
+    pipe axis of 2 and a data axis of 1 fits every row on this process, the
+    one-process fit byte for byte, with query groups and a checkpoint."""
     from mmlspark_tpu_torch.gbdt import TrainParams, train
+    from mmlspark_tpu_torch.gbdt.checkpoint import CheckpointConfig
     from mmlspark_tpu_torch.parallel.mesh import Mesh, MeshSpec, make_mesh
 
-    X = np.zeros((64, 2))
-    y = np.zeros(64)
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(64, 2))
+    y = (X[:, 0] > 0).astype(np.float64)
+    monkeypatch.setenv("MMLSPARK_TPU_NATIVE_TRAIN", "0")
+    params = TrainParams(objective="binary", num_iterations=2,
+                         num_leaves=4, min_data_in_leaf=5)
+    want = train(params, X, y, device="cpu").to_string()
     for axis in ("tensor", "fsdp", "seq", "expert", "pipe"):
         with pytest.raises(ValueError, match="needs 2 devices"):
             make_mesh(MeshSpec(data=1, **{axis: 2}), device="cpu")
-        with pytest.raises(NotImplementedError, match="A9k"):
-            train(TrainParams(), X, y, device="cpu",
-                  mesh=Mesh(shape={"data": 1, axis: 2}))
+        got = train(params, X, y, device="cpu",
+                    mesh=Mesh(shape={"data": 1, axis: 2}))
+        assert got.to_string() == want
     with pytest.raises(TypeError, match="Mesh"):
         train(TrainParams(), X, y, device="cpu", mesh=object())
-    # the options a sharded fit refuses (ROADMAP A9j): query groups and
-    # checkpoints
-    one = Mesh(shape={"data": 1})
-    with pytest.raises(NotImplementedError, match="A9j"):
-        train(TrainParams(objective="lambdarank"), X, y, device="cpu",
-              groups=np.full(8, 8), mesh=one)
-    with pytest.raises(NotImplementedError, match="A9j"):
-        train(TrainParams(), X, y, device="cpu", mesh=one,
-              checkpoint=object())
+    one = Mesh(shape={"data": 1, "tensor": 2})
+    rank = TrainParams(objective="lambdarank", num_iterations=2,
+                       num_leaves=4, min_data_in_leaf=5)
+    q = np.repeat(np.arange(8), 8)
+    assert train(rank, X, y, device="cpu", groups=q,
+                 mesh=one).to_string() == \
+        train(rank, X, y, device="cpu", groups=q).to_string()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = CheckpointConfig(os.path.join(tmp, "fit.ckpt"), every_k=1)
+        assert train(params, X, y, device="cpu", mesh=one,
+                     checkpoint=ck).to_string() == want
 
 
 _LOAD_PROBE = r"""

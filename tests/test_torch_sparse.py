@@ -829,11 +829,12 @@ def test_train_sparse_variants_match_reference(numpy_csr_predict, case):
 
 @pytest.mark.parametrize("case", ["mesh", "categorical", "state_gate"])
 def test_train_sparse_later_slices_raise(monkeypatch, case):
-    """What the sparse fit refuses: a mesh with an fsdp axis (the DNN half
-    of ROADMAP A9, a later slice) and a ``mesh=`` that is not the port's
+    """What the sparse fit refuses: a ``mesh=`` that is not the port's
     ``Mesh`` (TypeError), and categorical features, which are not a later
     slice: the reference refuses them on sparse rows too (set splits need
-    the dense bin space), and the port keeps its error. Above the
+    the dense bin space), and the port keeps its error. A mesh with an
+    fsdp axis no longer raises (ROADMAP A9k): on a data axis of 1 the fit
+    holds every row and is the one-process fit byte for byte. Above the
     grower-state gate the fit no longer raises: it takes the per-split host
     loop (route ``host``), the reference's trees."""
     from mmlspark_tpu_torch.parallel.mesh import Mesh
@@ -844,7 +845,14 @@ def test_train_sparse_later_slices_raise(monkeypatch, case):
         with pytest.raises(TypeError, match="Mesh"):
             sparse.train_sparse(TrainParams(), pds, y, device="cpu",
                                 mesh=object())
-        kw["mesh"] = Mesh(shape={"data": 1, "fsdp": 2})
+        p = TrainParams(boosting_type="goss", num_iterations=2,
+                        num_leaves=4, min_data_in_leaf=10)
+        want = sparse.train_sparse(p, pds, y, device="cpu")
+        got = sparse.train_sparse(p, pds, y, device="cpu",
+                                  mesh=Mesh(shape={"data": 1, "fsdp": 2}))
+        assert got.route == want.route == "fused"
+        assert got.to_string() == want.to_string()
+        return
     elif case == "state_gate":
         monkeypatch.setenv("MMLSPARK_TPU_FUSED_TREE_BYTES", "1024")
         p = dict(num_iterations=2, num_leaves=4, min_data_in_leaf=10)
@@ -1389,23 +1397,36 @@ def test_vw_stages_fit_transform_save_load_match_reference(tmp_path, kind,
 
 
 def test_vw_mesh_requests_raise_naming_a9():
+    """The VW fits on meshes with an axis other than ``data`` above 1
+    (ROADMAP A9, raised before A9k): under a ``MeshContext`` whose data axis
+    is 1 the stage fits one shard, the fit without a mesh; on data 2 x
+    expert 2 a rank's block is its data coordinate's (each rank of a mesh
+    described by hand, with no process group, fits its own block). A
+    ``mesh=`` that is not the port's ``Mesh`` is a TypeError."""
     from mmlspark_tpu_torch.vw import (LearnerConfig, SparseDataset,
                                        VowpalWabbitClassifier, train_linear)
 
     from mmlspark_tpu_torch.parallel.mesh import Mesh, MeshContext
 
     df = _vw_stage_frame(DataFrame, n=20)
+    with use_device("cpu"):
+        want = VowpalWabbitClassifier(numWorkers=2).fit(df)
     MeshContext.set(Mesh(shape={"data": 1, "tensor": 2}))
     try:
-        with use_device("cpu"), pytest.raises(NotImplementedError,
-                                              match="A9"):
-            VowpalWabbitClassifier(numWorkers=2).fit(df)
+        with use_device("cpu"):
+            got = VowpalWabbitClassifier(numWorkers=2).fit(df)
     finally:
         MeshContext.reset()
+    np.testing.assert_array_equal(np.asarray(got.get("weights")),
+                                  np.asarray(want.get("weights")))
     ds = SparseDataset.from_rows(list(df.column("features")),
                                  np.ones(20), num_bits=9)
-    with pytest.raises(NotImplementedError, match="A9"):
-        train_linear(LearnerConfig(num_bits=9), ds,
-                     mesh=Mesh(shape={"data": 2, "expert": 2}))
+    cfg = LearnerConfig(num_bits=9)
+    for r in range(4):
+        w, _ = train_linear(cfg, ds, device="cpu",
+                            mesh=Mesh(shape={"data": 2, "expert": 2}, rank=r))
+        block, _ = train_linear(cfg, ds, device="cpu",
+                                mesh=Mesh(shape={"data": 2}, rank=r // 2))
+        np.testing.assert_array_equal(w, block)
     with pytest.raises(TypeError, match="Mesh"):
         train_linear(LearnerConfig(num_bits=9), ds, mesh=4)
