@@ -182,7 +182,12 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    a batch past grid.z's cap (B=65,537, T=128, H=1, D=64), held on its
    first and last 64 rows to the same per-element gates. In every case K5
    also runs with its lse output (training's): the same output bits, the
-   lse within ``LSE_TOL`` of the plain version's, timed both ways;
+   lse within ``LSE_TOL`` of the plain version's, timed both ways, and
+   two calls give the same bits. Also K5's general path above
+   D = 512 (``ATTN_WIDE_CASES``: D = 640, 768, 1024 at T=1024, causal and
+   not, and D = 2048), held to the same correctness gates without the
+   speed gate, each logging the library call's backend; no K5
+   instantiation built in the run may spill or serialise its ``wgmma``;
 9b. attn_bwd_kernel: K6 and K7 (the flash-attention backward,
    ``csrc/flash_attn_bwd.cu``: a TMA producer warp and two ``wgmma``
    consumer warpgroups each) on K5's own output and lse at the train
@@ -198,7 +203,10 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    At the train shape (K6 + K7) ms over library_ms must not pass
    ``BWD_LIBRARY_RATIO_MAX``, no K6/K7 instantiation may have its ``wgmma``
    pipeline serialised by ptxas (which cost up to 2x), and the train
-   path's (D=64) may not spill;
+   path's (D=64) may not spill. Also K6/K7 at D = 384, 512
+   and 640 (B=2 or 1, T=2048, H=4, causal and not) through their
+   128-column slices, whose instantiations may not spill either, each
+   logging the library call's backend;
 10. transformer_main: the reference's sequence-benchmark encoder
    (``tools/bench_seq.py:41``: dim 512, depth 4, 8 heads, vocab 32,000,
    seed 0) at seq_len 2048 served through
@@ -241,7 +249,8 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    frames held to the transformer gates of 10 against the transform of the
    same rows; K5 launched at least 2 x 4 times; tokens/s logged.
 16. mega_sparse (after 8): the fused CSR path over the 65,536 sparse rows
-   through ``transform_submit`` at K = 1, 4 and 8 (``set_tuning(mega_k=)``:
+   through ``transform_submit`` at K = 1 and 8 (``set_tuning(mega_k=)``;
+   K = 4 cut for the script's time:
    K batches a replay of a CUDA graph captured per stream), each twice
    (capture, then measured with every launch counter at 0 and, at K > 1,
    the dispatch under ``set_sync_debug_mode("error")``): the outputs at
@@ -289,6 +298,12 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
 23. bilstm_train: ``tools/bench_seq.py``'s tagger (seq 512, embed 128,
    hidden 256, 16 tags) on 64 rows: the card's forward within
    ``DEEP_BF16_TOL`` of the CPU's, then 5 train steps whose loss falls.
+23b. train_wide_d384, train_wide_d512, serve_wide_d640: the
+   encoder of 10 at dim 1536 and 2048 with 4 heads (head dims 384 and
+   512; depth 2) trained 3 steps through ``run_train_loop`` with gates (a)
+   and (b) of 22, and at dim 2560 (head dim 640; depth 2) served through
+   ``DNNModel`` over 16 rows in batches of 8: K5 launched 2 x 2 times, the
+   output within 10's gates of plain attention's.
 24. image_main: the north-star path, ``io.image.read_images`` ->
    ``ImageFeaturizer(batchSize=128, cutOutputLayers=1)`` over ResNet-50
    (the torchvision layout from a seeded state_dict through
@@ -2230,13 +2245,57 @@ def bf16_ulps(torch, a, b, scale):
     return ((a.float() - b.float()).abs() / ulp).max().item()
 
 
+def sdpa_backend(torch, q, k, v, causal) -> str:
+    """The backend PyTorch's dispatcher picks for
+    ``scaled_dot_product_attention`` on these [B, H, T, D] inputs (its
+    flash backend stops at head dim 256): logged beside every library time
+    at D >= 384, where the yardstick is another kernel."""
+    from torch.nn.attention import SDPBackend
+
+    choice = getattr(torch, "_fused_sdp_choice", None)
+    if choice is None:
+        return "not reported"
+    names = {int(m.value): n for n, m in SDPBackend.__members__.items()}
+    return names.get(int(choice(q, k, v, is_causal=causal)), "not reported")
+
+
+def k5_ptxas() -> dict:
+    """K5's instantiations as ptxas reported them in this run's build:
+    {(head dim or slice width, causal, sliced): {registers, spill_stores,
+    spill_loads, notes}}; empty when the library came from an earlier
+    build."""
+    from mmlspark_tpu_torch import _kernels
+
+    out = {}
+    for row in _kernels.ptxas_summary(_kernels.build_logs.get("flash_attn", "")):
+        m = re.search(r"flash_fwd_(sm90|sliced)ILi(\d+)ELb([01])E", row["function"] or "")
+        if m:
+            out[(int(m.group(2)), m.group(3) == "1", m.group(1) == "sliced")] = {
+                "registers": row.get("registers"),
+                "spill_stores": row.get("spill_stores"),
+                "spill_loads": row.get("spill_loads"), "notes": row["warnings"]}
+    return out
+
+
+# K5 above the tuned head dims (the general path: D streamed in 64-column
+# chunks, 128-column output slices): held to every correctness gate, timed
+# beside the plain version and the library call, no speed gate
+ATTN_WIDE_CASES = [(4, 1024, 8, 640, False), (4, 1024, 8, 640, True),
+                   (2, 1024, 8, 768, False), (2, 1024, 8, 768, True),
+                   (1, 1024, 8, 1024, False), (1, 1024, 8, 1024, True),
+                   (1, 1024, 4, 2048, False)]
+
+
 def attn_kernel_phase(torch) -> dict:
     """K5 against its plain version and both against an exact f64
     recomputation, in every case: the reference's A/B points, one main-path
-    batch, head dims 128-512, one head, and a sweep of short lengths that
+    batch, head dims 128-512, one head, a sweep of short lengths that
     checks the gate's default (K5 faster than its plain version at every
-    length the gate sends to it). Every case is logged before any check
-    fails."""
+    length the gate sends to it), and the general path above D = 512
+    (``ATTN_WIDE_CASES``: the same correctness gates, no speed gate). Two
+    calls give the same bits in every case; no K5 instantiation built in
+    this run spills or has its wgmma pipeline serialised. Every case is
+    logged before any check fails."""
     from mmlspark_tpu_torch.models import attention
     from mmlspark_tpu_torch.models import flash_kernel as fk
 
@@ -2252,19 +2311,33 @@ def attn_kernel_phase(torch) -> dict:
              # the gate's default: short lengths
              (4, 128, 8, 64, False), (4, 128, 8, 64, True),
              (4, 256, 8, 64, False), (4, 512, 8, 64, False),
-             (1, 128, 1, 64, False)]
+             (1, 128, 1, 64, False)] + ATTN_WIDE_CASES
     min_t = attention.FLASH_MIN_T_DEFAULT
     main, rows, bad = None, [], []
+    ptxas = k5_ptxas()
+    for (width, causal, sliced), info in sorted(ptxas.items()):
+        if info["spill_stores"] or info["spill_loads"] or any(
+                "Performance Loss" in n for n in info["notes"]):
+            bad.append(f"K5 {'sliced ' if sliced else ''}{width} causal={causal}: "
+                       f"ptxas spills or serialises its wgmma ({info})")
+    log({"phase": "attn_kernel", "ptxas": {
+        f"{'sliced' if sl else 'd'}{w}{'_causal' if c else ''}": info
+        for (w, c, sl), info in sorted(ptxas.items())}})
     for b, t, h, d, causal in cases:
+        t_case = time.perf_counter()
+        wide = d > fk.FWD_TUNED_MAX
         q, k, v = attn_inputs(torch, b, t, h, d, gen)
         o = fk.flash_attention_cuda(q, k, v, causal)
+        again = fk.flash_attention_cuda(q, k, v, causal)
         o_lse, lse = fk.flash_attention_cuda(q, k, v, causal, lse=True)
         p, p_lse = fk.flash_attention_plain(q, k, v, causal, return_lse=True)
         exact = attention_f64(torch, q, k, v, causal)
         scale = attention_f64(torch, q, k, v.abs(), causal)
         torch.cuda.synchronize()
         row = {"phase": "attn_kernel", "b": b, "t": t, "h": h, "d": d,
-               "causal": causal, "lse_output_bitwise": bool(torch.equal(o, o_lse)),
+               "causal": causal, "path": "sliced" if wide else "tuned",
+               "bitwise_two_calls": bool(torch.equal(o, again)),
+               "lse_output_bitwise": bool(torch.equal(o, o_lse)),
                "lse_max_abs_err_vs_plain": (lse - p_lse).abs().max().item(),
                "max_abs_err_vs_plain": (o.float() - p.float()).abs().max().item(),
                "max_ulps_vs_plain": bf16_ulps(torch, o, p, scale), "finite": bool(
@@ -2273,8 +2346,10 @@ def attn_kernel_phase(torch) -> dict:
             err = x.double() - exact
             row[f"{name}_err_vs_f64"] = err.abs().max().item()
             row[f"{name}_rms_vs_f64"] = err.square().mean().sqrt().item()
-        del o, p, exact, scale, o_lse, lse, p_lse
+        del o, again, p, exact, scale, o_lse, lse, p_lse
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        if d >= 384:
+            row["library_backend"] = sdpa_backend(torch, qt, kt, vt, causal)
         long = t >= 8192 or b >= 64
         row["ms"] = time_ms(torch, lambda: fk.flash_attention_cuda(q, k, v, causal),
                             10 if long else 20)
@@ -2289,6 +2364,7 @@ def attn_kernel_phase(torch) -> dict:
                                                     BF16_OPS_PER_S)
         row["tflops"] = flops / row["ms"] / 1e9
         row["ms_over_library"] = row["ms"] / row["library_ms"]
+        row["case_seconds"] = time.perf_counter() - t_case
         log(row)
         rows.append(row)
         if (b, t, causal) == (SEQ_BATCH, SEQ_LEN, False):
@@ -2297,6 +2373,8 @@ def attn_kernel_phase(torch) -> dict:
         torch.cuda.empty_cache()
         # the gates, each set from the readings (see the constants)
         msgs = []
+        if not row["bitwise_two_calls"]:
+            msgs.append("two calls differ")
         if not row["lse_output_bitwise"] or row["lse_max_abs_err_vs_plain"] > LSE_TOL:
             msgs.append(f"K5 with lse: output bitwise {row['lse_output_bitwise']}, "
                         f"lse {row['lse_max_abs_err_vs_plain']} from the plain "
@@ -2312,7 +2390,7 @@ def attn_kernel_phase(torch) -> dict:
             if k5 > F64_RATIO_MAX * plain:
                 msgs.append(f"K5's {stat} against f64, {k5}, exceeds "
                             f"{F64_RATIO_MAX}x the plain version's {plain}")
-        if t >= min_t and row["ms"] >= row["plain_ms"]:
+        if not wide and t >= min_t and row["ms"] >= row["plain_ms"]:
             msgs.append(f"K5 ({row['ms']} ms) is not faster than its plain "
                         f"version ({row['plain_ms']} ms) at a length the "
                         f"gate sends to it (FLASH_MIN_T_DEFAULT={min_t})")
@@ -2324,7 +2402,11 @@ def attn_kernel_phase(torch) -> dict:
                                  for r in rows),
         "max_f64_rms_ratio": max(r["k5_rms_vs_f64"] / r["plain_rms_vs_f64"]
                                  for r in rows),
-        "min_plain_over_k5_ms": min(r["plain_ms"] / r["ms"] for r in rows)}})
+        "min_plain_over_k5_ms": min(r["plain_ms"] / r["ms"] for r in rows),
+        "sliced_min_tflops": min(r["tflops"] for r in rows
+                                 if r["path"] == "sliced")},
+         "sliced_cases_seconds": sum(r["case_seconds"] for r in rows
+                                     if r["path"] == "sliced")})
     log({"phase": "attn_kernel", "main_path_ms": main["ms"],
          "main_path_library_ms": main["library_ms"],
          "main_path_ms_over_library": main["ms_over_library"],
@@ -2347,7 +2429,11 @@ def attn_kernel_phase(torch) -> dict:
                            "the timing)",
               shape=dict(b=SEQ_BATCH, t=SEQ_LEN, h=SEQ_HEADS,
                          d=SEQ_DIM // SEQ_HEADS, causal=False),
-              bound_peak="989 TFLOP/s bf16 dense (spec), 3.35 TB/s")
+              bound_peak="989 TFLOP/s bf16 dense (spec), 3.35 TB/s",
+              wide=[{key: r.get(key) for key in (
+                  "b", "t", "h", "d", "causal", "ms", "tflops", "bound_ms",
+                  "plain_ms", "library_ms", "library_backend",
+                  "max_abs_err_vs_plain")} for r in rows if r["path"] == "sliced"])
     log(dict(phase="kernels", **k5))
     return k5
 
@@ -4002,10 +4088,24 @@ TRAIN_LR = 0.01               # 0.1 diverges (train_transformer's docstring)
 TRAIN_RESUME_STEPS = 6        # gate (d): 6 steps against 3 + resume + 3
 TRAIN_SERVE_ROWS = 64         # gate (e): served through DNNModel
 TRAIN_GRAD_REL_L2 = 2e-2      # gate (b): per leaf, K5-K7 against plain
-# K6/K7 cases: the train shape, causal and not, and the other head dims
+# K6/K7 cases: the train shape, causal and not, and the other head dims;
+# from 384 up the 128-column slices (the wide train paths' 384 and 512)
 ATTN_BWD_CASES = [(8, 2048, 8, 64, False), (8, 2048, 8, 64, True),
                   (8, 2048, 8, 128, False), (8, 2048, 8, 128, True),
-                  (4, 2048, 8, 256, False), (4, 2048, 8, 256, True)]
+                  (4, 2048, 8, 256, False), (4, 2048, 8, 256, True),
+                  (2, 2048, 4, 384, False), (2, 2048, 4, 384, True),
+                  (2, 2048, 4, 512, False), (2, 2048, 4, 512, True),
+                  (1, 2048, 4, 640, False), (1, 2048, 4, 640, True)]
+# the encoder trained at the head dims of the sliced K6/K7 (dim, heads):
+# D = 384 and 512 at depth 2, a few steps each (gates a and b)
+WIDE_TRAIN = ((1536, 4), (2048, 4))
+WIDE_TRAIN_DEPTH = 2
+WIDE_TRAIN_STEPS = 3
+# the encoder served at D = 640 through K5's general path (dim, heads)
+WIDE_SERVE = (2560, 4)
+WIDE_SERVE_DEPTH = 2
+WIDE_SERVE_ROWS = 16
+WIDE_SERVE_BATCH = 8
 # the tools/bench_seq.py tagger at 64 rows
 LSTM_SEQ = 512
 LSTM_EMBED = 128
@@ -4041,15 +4141,18 @@ def attention_vjp_f64(torch, q, k, v, do, causal):
 
 def bwd_ptxas() -> dict:
     """K6's and K7's instantiations as ptxas reported them in this run's
-    build: {(which, d, causal): {registers, spill_stores, spill_loads,
-    notes}}; empty when the library came from an earlier build."""
+    build: {(which, head dim or slice width, causal, sliced): {registers,
+    spill_stores, spill_loads, notes}}; empty when the library came from an
+    earlier build."""
     from mmlspark_tpu_torch import _kernels
 
     out = {}
     for row in _kernels.ptxas_summary(_kernels.build_logs.get("flash_attn_bwd", "")):
-        m = re.search(r"flash_bwd_(dkv|dq)_sm90ILi(\d+)ELb([01])E", row["function"] or "")
+        m = re.search(r"flash_bwd_(dkv|dq)_(sm90|sliced)ILi(\d+)ELb([01])E",
+                      row["function"] or "")
         if m:
-            out[(m.group(1), int(m.group(2)), m.group(3) == "1")] = {
+            out[(m.group(1), int(m.group(3)), m.group(4) == "1",
+                 m.group(2) == "sliced")] = {
                 "registers": row.get("registers"),
                 "spill_stores": row.get("spill_stores"),
                 "spill_loads": row.get("spill_loads"), "notes": row["warnings"]}
@@ -4067,23 +4170,28 @@ def attn_bwd_kernel_phase(torch) -> dict:
     call (``bwd_total_ms``), the backward of ``scaled_dot_product_attention``
     on the same inputs (timed only), the bound (K6 8, K7 6 * B*H*T*T*D
     flops, halved under causal masking, at the bf16 peak) and the
-    instantiation's ptxas registers and spills. At the train shape (K6 +
-    K7) over the library call must not pass ``BWD_LIBRARY_RATIO_MAX``; no
-    instantiation built in this run may have its wgmma pipeline serialised,
-    and the train path's (its head dim) may not spill."""
+    instantiation's ptxas registers and spills; from D = 384 up (the
+    128-column slices) also the backend the library call took. At the
+    train shape (K6 + K7) over the library call must not pass
+    ``BWD_LIBRARY_RATIO_MAX``; no instantiation built in this run may have
+    its wgmma pipeline serialised, and the train paths' (D = 64, and the
+    sliced ones of the wide train paths' 384 and 512) may not spill."""
     from mmlspark_tpu_torch.models import flash_kernel as fk
 
     F = torch.nn.functional
     gen = torch.Generator().manual_seed(SEED + 14)
     ptxas = bwd_ptxas()
     main, rows, bad = None, [], []
-    for (which, d, causal), info in sorted(ptxas.items()):
+    for (which, d, causal, sliced), info in sorted(ptxas.items()):
         spills = info["spill_stores"] or info["spill_loads"]
-        if (spills and d == SEQ_DIM // SEQ_HEADS) or any(
+        if (spills and (sliced or d == SEQ_DIM // SEQ_HEADS)) or any(
                 "Performance Loss" in n for n in info["notes"]):
-            bad.append(f"K6/K7 {which} at d={d} causal={causal}: ptxas spills "
-                       f"on the train path or serialises its wgmma ({info})")
+            bad.append(f"K6/K7 {which} {'sliced ' if sliced else ''}at {d} "
+                       f"causal={causal}: ptxas spills on a train path or "
+                       f"serialises its wgmma ({info})")
     for b, t, h, d, causal in ATTN_BWD_CASES:
+        t_case = time.perf_counter()
+        sliced = d > fk.BWD_TUNED_MAX
         q, k, v = attn_inputs(torch, b, t, h, d, gen)
         do = torch.randn(b, t, h, d, generator=gen).to(DEVICE).to(torch.bfloat16)
         o, lse = fk.flash_attention_cuda(q, k, v, causal, lse=True)
@@ -4112,7 +4220,8 @@ def attn_bwd_kernel_phase(torch) -> dict:
             row[f"{which}_bound_ms"], row[f"{which}_bound_by"] = bound_ms(
                 nbytes, flops, BF16_OPS_PER_S)
             row[f"{which}_tflops"] = flops / row[f"{which}_ms"] / 1e9
-            row[f"{which}_ptxas"] = ptxas.get((which, d, causal))
+            row[f"{which}_ptxas"] = ptxas.get(
+                (which, fk.SLICE if sliced else d, causal, sliced))
         row["bwd_total_ms"] = time_ms(torch, lambda: fk.flash_attention_bwd_cuda(
             q, k, v, o, lse, do, causal), 10)
         row["plain_ms"] = time_ms(torch, lambda: fk.flash_attention_bwd_plain(
@@ -4120,11 +4229,14 @@ def attn_bwd_kernel_phase(torch) -> dict:
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                       for x in (q, k, v))
         ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        if d >= 384:
+            row["library_backend"] = sdpa_backend(torch, qt, kt, vt, causal)
         dot = do.transpose(1, 2).contiguous()
         row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
             ot, (qt, kt, vt), dot, retain_graph=True), 10)
         row["pair_over_library"] = (row["dkv_ms"] + row["dq_ms"]) / row["library_ms"]
         row["total_over_library"] = row["bwd_total_ms"] / row["library_ms"]
+        row["case_seconds"] = time.perf_counter() - t_case
         log(row)
         rows.append(row)
         if (b, t, h, d) == (TRAIN_ROWS, SEQ_LEN, SEQ_HEADS, SEQ_DIM // SEQ_HEADS) \
@@ -4150,7 +4262,11 @@ def attn_bwd_kernel_phase(torch) -> dict:
                                  for r in rows for n in ("dq", "dk", "dv")),
         "max_f64_rms_ratio": max(r[f"{n}_kernel_rms_vs_f64"] / r[f"{n}_plain_rms_vs_f64"]
                                  for r in rows for n in ("dq", "dk", "dv")),
-        "max_pair_over_library": max(r["pair_over_library"] for r in rows)}})
+        "max_pair_over_library": max(r["pair_over_library"] for r in rows),
+        "sliced_min_tflops": min(min(r["dkv_tflops"], r["dq_tflops"])
+                                 for r in rows if r["d"] > fk.BWD_TUNED_MAX)},
+         "sliced_cases_seconds": sum(r["case_seconds"] for r in rows
+                                     if r["d"] > fk.BWD_TUNED_MAX)})
     log({"phase": "attn_bwd_kernel", "main_path_pair_ms": main["dkv_ms"] + main["dq_ms"],
          "main_path_bwd_total_ms": main["bwd_total_ms"],
          "main_path_library_ms": main["library_ms"],
@@ -4164,7 +4280,9 @@ def attn_bwd_kernel_phase(torch) -> dict:
         fail("; ".join(bad))
     common = dict(route="cuda", source="mmlspark_tpu_torch/csrc/flash_attn_bwd.cu",
                   status="Hopper design: a TMA producer warp, two wgmma consumer "
-                         "warpgroups taking turns, no column split",
+                         "warpgroups taking turns, no column split up to D = 256; "
+                         "from 384 up 128-column slices with D streamed in "
+                         "64-column chunks",
                   plain_ms=main["plain_ms"], library_ms=main["library_ms"],
                   bwd_total_ms=main["bwd_total_ms"],
                   plain_call="flash_attention_bwd_plain: dq, dk and dv",
@@ -4180,12 +4298,21 @@ def attn_bwd_kernel_phase(torch) -> dict:
              "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
             ("flash_attn_bwd_dq", "dq", ("dq",),
              "jax/experimental/pallas/ops/tpu/flash_attention.py:1456")):
+        wide = [{"b": r["b"], "t": r["t"], "h": r["h"], "d": r["d"],
+                 "causal": r["causal"], "ms": r[f"{which}_ms"],
+                 "tflops": r[f"{which}_tflops"],
+                 "bound_ms": r[f"{which}_bound_ms"],
+                 "bwd_total_ms": r["bwd_total_ms"], "plain_ms": r["plain_ms"],
+                 "library_ms": r["library_ms"],
+                 "library_backend": r.get("library_backend"),
+                 "ptxas": r[f"{which}_ptxas"]}
+                for r in rows if r["d"] > fk.BWD_TUNED_MAX]
         out[name] = dict(name=name, replaces=replaces, ms=main[f"{which}_ms"],
                          tflops=main[f"{which}_tflops"],
                          max_abs_err=max(main[f"{g}_max_abs_err_vs_plain"]
                                          for g in grads),
                          bound_ms=main[f"{which}_bound_ms"],
-                         bound_by=main[f"{which}_bound_by"], **common)
+                         bound_by=main[f"{which}_bound_by"], wide=wide, **common)
         log(dict(phase="kernels", **out[name]))
     return out
 
@@ -4232,16 +4359,17 @@ def grads_rel_l2(torch, module, params, batch) -> dict:
                 / pl[n].double().norm().clamp_min(1e-30)).item() for n in pl}
 
 
-def train_run(torch, depth: int, causal: bool, steps: int, smi, what: str):
-    """``run_train_loop`` of the encoder at ``depth`` for ``steps`` steps:
-    gates (a) each of K5, K6 and K7 launched depth times a step, (b) step
-    1's gradients within ``TRAIN_GRAD_REL_L2`` of plain attention's.
-    Returns (launches, model, step fn, first state, batches, result,
-    losses)."""
+def train_run(torch, depth: int, causal: bool, steps: int, smi, what: str,
+              dim: int = SEQ_DIM, heads: int = SEQ_HEADS):
+    """``run_train_loop`` of the encoder (width ``dim``, ``heads`` heads) at
+    ``depth`` for ``steps`` steps: gates (a) each of K5, K6 and K7 launched
+    depth times a step, (b) step 1's gradients within ``TRAIN_GRAD_REL_L2``
+    of plain attention's. Returns (launches, model, step fn, first state,
+    batches, result, losses)."""
     from mmlspark_tpu_torch.models import training, transformer_encoder
 
-    model = transformer_encoder(seq_len=SEQ_LEN, dim=SEQ_DIM, depth=depth,
-                                num_heads=SEQ_HEADS, vocab_size=SEQ_VOCAB,
+    model = transformer_encoder(seq_len=SEQ_LEN, dim=dim, depth=depth,
+                                num_heads=heads, vocab_size=SEQ_VOCAB,
                                 num_classes=TRAIN_CLASSES, causal=causal, seed=0)
     opt = training.make_optimizer(learning_rate=TRAIN_LR, momentum=0.9)
     state0 = training.init_train_state(model.module, (SEQ_LEN,), opt, seed=0,
@@ -4269,7 +4397,8 @@ def train_run(torch, depth: int, causal: bool, steps: int, smi, what: str):
     launches = read_attn_launches()
     ms = sorted(x * 1e3 for x in times)
     step_ms = ms[len(ms) // 2]
-    log({"phase": what, "card": smi, "depth": depth, "causal": causal,
+    log({"phase": what, "card": smi, "dim": dim, "heads": heads,
+         "head_dim": dim // heads, "depth": depth, "causal": causal,
          "steps": steps, "rows": TRAIN_ROWS, "params": model.num_params(),
          "wall_seconds": wall, "first_step_ms": times[0] * 1e3,
          "median_step_ms": step_ms,
@@ -4378,6 +4507,86 @@ def train_transformer(torch, smi) -> tuple:
     return launches, causal
 
 
+def train_wide_heads(torch, smi) -> dict:
+    """The encoder (vocab 32,000, seq_len 2048, depth 2) trained by
+    ``run_train_loop`` at head dims 384 and 512 (``WIDE_TRAIN``: dim 1536
+    and 2048, 4 heads): K5 through its tuned 384/512 instantiations, K6 and
+    K7 through their 128-column slices, ``WIDE_TRAIN_STEPS`` steps of 8
+    rows each, gates (a) and (b) of ``train_run``. Returns each run's
+    launches by path name."""
+    out = {}
+    for dim, heads in WIDE_TRAIN:
+        what = f"train_wide_d{dim // heads}"
+        t0 = time.perf_counter()
+        out[what] = train_run(torch, WIDE_TRAIN_DEPTH, False, WIDE_TRAIN_STEPS,
+                              smi, what, dim=dim, heads=heads)[0]
+        torch.cuda.empty_cache()
+        log({"phase": what, "seconds": time.perf_counter() - t0})
+    return out
+
+
+def serve_wide_heads(torch, smi) -> dict:
+    """The encoder at head dim 640 (``WIDE_SERVE``: dim 2560, 4 heads,
+    depth 2, vocab 32,000, seq_len 2048) served through
+    ``DNNModel.transform`` over ``WIDE_SERVE_ROWS`` rows in batches of
+    ``WIDE_SERVE_BATCH``: K5's general path launched depth times a batch,
+    the output held against plain attention on the card
+    (``MMLSPARK_TPU_NO_FLASH=1``) with transformer_main's gates
+    (``COS_GAP_MAX``, ``OUT_MAX_DIFF``, ``OUT_MEAN_DIFF``)."""
+    import os
+
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.models import DNNModel, transformer_encoder
+
+    dim, heads = WIDE_SERVE
+    t0 = time.perf_counter()
+    model = transformer_encoder(seq_len=SEQ_LEN, dim=dim, depth=WIDE_SERVE_DEPTH,
+                                num_heads=heads, vocab_size=SEQ_VOCAB, seed=0)
+    ids = np.random.default_rng(SEED + 22).integers(
+        0, SEQ_VOCAB, (WIDE_SERVE_ROWS, SEQ_LEN))
+    df = DataFrame.from_dict({"tokens": ids})
+    stage = DNNModel(inputCol="tokens", outputCol="emb",
+                     batchSize=WIDE_SERVE_BATCH).set_model(model)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    zero_attn_launches()
+    t0 = time.perf_counter()
+    out = _emb(stage.transform(df))
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t0
+    launches = read_attn_launches()
+    os.environ["MMLSPARK_TPU_NO_FLASH"] = "1"
+    try:
+        plain = _emb(stage.transform(df))
+    finally:
+        del os.environ["MMLSPARK_TPU_NO_FLASH"]
+    cos = row_cosines(out, plain)
+    diff = np.abs(out - plain)
+    want = WIDE_SERVE_DEPTH * WIDE_SERVE_ROWS // WIDE_SERVE_BATCH
+    log({"phase": "serve_wide_d640", "card": smi, "dim": dim, "heads": heads,
+         "head_dim": dim // heads, "depth": WIDE_SERVE_DEPTH,
+         "rows": WIDE_SERVE_ROWS, "params": model.num_params(),
+         "setup_seconds": setup_s, "transform_seconds": transform_s,
+         "tokens_per_s": WIDE_SERVE_ROWS * SEQ_LEN / transform_s,
+         "launches": launches, "cos_vs_plain_min": float(cos.min()),
+         "max_abs_diff_vs_plain": float(diff.max()),
+         "mean_abs_diff_vs_plain": float(diff.mean())})
+    if launches["flash_attn"] != want or launches["flash_attn_bwd_dkv"] \
+            or launches["flash_attn_bwd_dq"]:
+        fail(f"serve_wide_d640: launched {launches}, expected K5 {want} times "
+             f"and K6/K7 never")
+    if out.shape != (WIDE_SERVE_ROWS, SEQ_LEN, dim) or not np.isfinite(out).all():
+        fail(f"serve_wide_d640: output shape {out.shape} or non-finite values")
+    if 1.0 - cos.min() > COS_GAP_MAX or diff.max() > OUT_MAX_DIFF \
+            or diff.mean() > OUT_MEAN_DIFF:
+        fail(f"serve_wide_d640 against plain attention: 1 - cosine "
+             f"{1.0 - cos.min()} (bound {COS_GAP_MAX}), max |d| {diff.max()} "
+             f"({OUT_MAX_DIFF}), mean |d| {diff.mean()} ({OUT_MEAN_DIFF})")
+    del model, stage, out, plain
+    torch.cuda.empty_cache()
+    return {"serve_wide_d640": {"flash_attn": launches["flash_attn"]}}
+
+
 def bilstm_train(torch, smi) -> None:
     """``tools/bench_seq.py``'s tagger (seq 512, vocab 32,000, embed 128,
     hidden 256, 16 tags) on 64 rows: the card's forward within
@@ -4428,7 +4637,9 @@ def bilstm_train(torch, smi) -> None:
 # serving with the Tuner, and slot-deposit staging
 # ---------------------------------------------------------------------------
 
-MEGA_KS = (1, 4, 8)           # the K of the GBDT mega phases
+# the K of the GBDT mega phases (K = 4 was cut for the script's time: K = 8
+# groups batches the same way, at twice the group length)
+MEGA_KS = (1, 8)
 MEGA_SEQ_KS = (1, 4)          # and of the transformer's (4 batches of 64)
 TUNER_STEPS = 3
 TUNER_ROWS = 16_384           # rows a Tuner measurement scores
@@ -4511,7 +4722,7 @@ def _mega_report(phase, runs, smi, extra=None) -> dict:
 
 def mega_sparse(torch, model, rows, smi) -> dict:
     """The fused CSR scoring path (``layout="csr"``, ``forest.csr``) over
-    the sparse rows through ``transform_submit`` at K = 1, 4 and 8: the
+    the sparse rows through ``transform_submit`` at ``MEGA_KS``: the
     outputs at K > 1 equal K=1's bit for bit and the unfused transform's
     within the fused-CSR gate (``SERVE_PROBA_TOL``; the fused CSR scores
     are not the unfused ones bit for bit, ``fused_sparse``), K3 launched
@@ -4549,7 +4760,7 @@ def mega_sparse(torch, model, rows, smi) -> dict:
 
 def mega_dense(torch, model, X, smi) -> dict:
     """The dense HIGGS-shaped rows fused, through ``transform_submit`` at
-    K = 1, 4 and 8: the GEMM traversal (an f32 cuBLAS GEMM, TF32 off) under
+    ``MEGA_KS``: the GEMM traversal (an f32 cuBLAS GEMM, TF32 off) under
     graph capture equals K=1 and the unfused transform bit for bit, and the
     replays make no host sync."""
     from mmlspark_tpu_torch.core.dataframe import DataFrame
@@ -8511,6 +8722,10 @@ def main() -> int:
     paths["train_transformer_causal"] = causal
     bilstm_train(torch, smi)
     log({"phase": "training", "seconds": time.perf_counter() - t_train})
+    t_wide = time.perf_counter()
+    paths.update(train_wide_heads(torch, smi))
+    paths.update(serve_wide_heads(torch, smi))
+    log({"phase": "wide_heads", "seconds": time.perf_counter() - t_wide})
     for phase in (image_main, resnet_train, moe_main, onnx_main,
                   onnx_multi_input):
         t_phase = time.perf_counter()
@@ -8558,7 +8773,7 @@ def main() -> int:
             new_paths.update({f"{p}.device_count_entry": c["hist_count"]
                               for p, c in paths.items() if "hist_count" in c})
         extra = {k: row[k] for k in ("compacted_stream", "status", "tflops",
-                                     "bwd_total_ms") if k in row}
+                                     "bwd_total_ms", "wide") if k in row}
         if name in ("hist", "sparse_hist"):
             # the f64 entry of the sharded fits, on a rank's own inputs
             extra["f64_entry"] = mesh["mesh_dense" if name == "hist"

@@ -24,7 +24,8 @@
 // each) take as many SFU cycles as the products take tensor-core cycles,
 // so they have to run beside the products, not between them.
 //
-// Design (flash_fwd_sm90, every head dim):
+// Design (flash_fwd_sm90, head dims 64-512; above 512 flash_fwd_sliced, the
+// general path described before it below):
 //   - one CTA per (64 * kWG query rows, head, batch): kWG consumer
 //     warpgroups of 64 rows each (3 at D = 64, 2 above, where the output
 //     accumulator is larger) and one producer warpgroup, of which one
@@ -413,6 +414,209 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::kThreads, 1)
   }
 }
 
+// ------------------------------------------- the general path: D above 512
+//
+// Every multiple of 128 above 512 the gate admits, with D a run-time count
+// of 64-column chunks: one instantiation per output slice width (kDV), not
+// per head dim. Beside two warpgroups' Q (2 x 64 x D x 2 bytes: 160 KB at
+// D = 640) no two K/V stages fit, and at D = 2048 even one warpgroup's Q
+// does not, so nothing of D stays resident:
+//   - a CTA owns 128 query rows (two consumer warpgroups of 64, one
+//     producer warpgroup of which one thread works) and one slice of kDV
+//     output columns; the slices of a row tile are D / kDV CTAs, each
+//     computing all of S = Q K^T and its own P V_slice (the recompute is
+//     (D / kDV) - 1 extra S products per key tile: counted as useful flops
+//     it shows as the kernel's gap to its bound, not hidden);
+//   - per key tile of kN keys, S accumulates over the D / 64 chunks: ring
+//     stage g = (tile * chunks + chunk) holds the chunk's 64-column box of
+//     the CTA's 128 queries and of the tile's kN keys (TMA, 128-byte
+//     swizzled), released by each consumer warp once the wgmma that reads
+//     it has landed (the next chunk's wgmma is issued first, so the tensor
+//     cores never wait on a release);
+//   - the V slice of the tile (kN x kDV) comes through a second ring, after
+//     the tile's chunks: the producer's order is the consumers', so neither
+//     ring can wait on the other;
+//   - the softmax, masking, causal skipping, lse and ragged edges are the
+//     tuned kernel's (online_softmax above); the output is divided by l,
+//     staged in a V stage once both warpgroups are done (named barrier 5)
+//     and stored by TMA, which drops rows past Tq.
+template <int kDV>
+struct SlicedCfg {
+  static constexpr int kWG = 2;
+  static constexpr int kM = 128;                     // query rows per CTA
+  static constexpr int kN = 128;                     // keys per tile
+  static constexpr int kThreads = 384;
+  static constexpr int kQBytes = kM * 128;           // a box of 128 queries
+  static constexpr int kKBytes = kN * 128;           // a box of kN keys
+  static constexpr int kChunkBytes = kQBytes + kKBytes;
+  static constexpr int kVBytes = kN * kDV * 2;       // a tile's V slice
+  static constexpr int kChunkStages = 4;
+  static constexpr int kVStages = 2;
+  static constexpr int kSmem =
+      kChunkStages * kChunkBytes + kVStages * kVBytes + 1024;
+  static_assert(kSmem + 256 <= 232448, "shared memory of a block");
+  static_assert(kVBytes >= 64 * kDV * 2, "a warpgroup's output in a V stage");
+  static constexpr int kConsumerRegs = 240;
+  static constexpr int kProducerRegs = 24;
+};
+
+constexpr int kBarConsumers = 5;  // both consumer warpgroups (named barrier)
+
+template <int kDV, bool kCausal>
+__global__ void __launch_bounds__(SlicedCfg<kDV>::kThreads, 1)
+    flash_fwd_sliced(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_o,
+                     float* __restrict__ lse, int tq, int tk, int heads,
+                     int d, float scale_log2) {
+  using C = SlicedCfg<kDV>;
+  constexpr int kN = C::kN;
+  constexpr int kCS = C::kChunkStages;
+  constexpr int kVS = C::kVStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_c[kCS];   // chunk stage full
+  __shared__ __align__(8) uint64_t bar_ec[kCS];  // chunk stage read
+  __shared__ __align__(8) uint64_t bar_v[kVS];
+  __shared__ __align__(8) uint64_t bar_ev[kVS];
+  // 128-byte swizzled tiles need 1024-byte alignment
+  uint8_t* sc = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sv = sc + kCS * C::kChunkBytes;  // [stage][kDV/64][kN][64]
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int n_chunks = d / 64;
+  const int n_slices = d / kDV;
+  // the tuned kernel's 1-D grid, with a head x slice slot (slices of a
+  // head adjacent): flash_kernel.launch_grid and grid_decode mirror it
+  const int m_blocks = ceil_div(tq, C::kM);
+  const int hc = heads * n_slices;
+  const int m_raw = (int)(blockIdx.x % (unsigned)m_blocks);
+  const int hy = (int)((blockIdx.x / (unsigned)m_blocks) % (unsigned)hc);
+  const int b = (int)(blockIdx.x / ((unsigned)m_blocks * (unsigned)hc));
+  const int m_block = kCausal ? m_blocks - 1 - m_raw : m_raw;
+  const int h = hy / n_slices;
+  const int col0 = (hy % n_slices) * kDV;
+  const int q0 = m_block * C::kM;
+  const int n_tiles = kCausal ? min(ceil_div(tk, kN), ceil_div(q0 + C::kM, kN))
+                              : ceil_div(tk, kN);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kCS; ++s) {
+      mbar_init(&bar_c[s], 1);
+      mbar_init(&bar_ec[s], C::kWG * 4);  // one arrival per consumer warp
+    }
+#pragma unroll
+    for (int s = 0; s < kVS; ++s) {
+      mbar_init(&bar_v[s], 1);
+      mbar_init(&bar_ev[s], C::kWG * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == C::kWG) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<C::kProducerRegs>();
+    if (tid == 0) {
+      for (int j = 0; j < n_tiles; ++j) {
+        for (int c = 0; c < n_chunks; ++c) {
+          const int g = j * n_chunks + c;
+          const int st = g % kCS;
+          uint8_t* dst = sc + st * C::kChunkBytes;
+          mbar_wait(&bar_ec[st], ((g / kCS) & 1) ^ 1);
+          mbar_expect_tx(&bar_c[st], C::kChunkBytes);
+          tma_load(dst, &tm_q, &bar_c[st], c * 64, q0, h, b);
+          tma_load(dst + 8192, &tm_q, &bar_c[st], c * 64, q0 + 64, h, b);
+          tma_load(dst + C::kQBytes, &tm_k, &bar_c[st], c * 64, j * kN, h, b);
+        }
+        const int vs = j % kVS;
+        mbar_wait(&bar_ev[vs], ((j / kVS) & 1) ^ 1);
+        mbar_expect_tx(&bar_v[vs], C::kVBytes);
+        for (int c = 0; c < kDV / 64; ++c) {
+          tma_load(sv + vs * C::kVBytes + c * kN * 128, &tm_v, &bar_v[vs],
+                   col0 + c * 64, j * kN, h, b);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    setmaxnreg_inc<C::kConsumerRegs>();
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int row_first = q0 + 64 * wg;
+    const int row0 = row_first + 16 * warp + lane / 4;  // this thread's: +0, +8
+    const int n_comp =
+        kCausal ? min(n_tiles, (row_first + 63) / kN + 1) : n_tiles;
+
+    float o[kDV / 2];
+#pragma unroll
+    for (int i = 0; i < kDV / 2; ++i) o[i] = 0.f;
+    float s[kN / 2];
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) s[i] = 0.f;
+    uint32_t p[kN / 16][4];
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};
+    float corr[2];
+
+    for (int j = 0; j < n_comp; ++j) {
+      // S = Q K^T of key tile j over the D / 64 chunks
+      sum_chunks<kCS>(bar_c, bar_ec, j, n_chunks, lane, [&](int st, int acc) {
+        const uint8_t* src = sc + st * C::kChunkBytes;
+        ss_box<kN>(s, src + wg * 8192, src + C::kQBytes, acc);
+      });
+      fence_regs(s);
+      online_softmax<kN, kCausal>(s, m_run, l_run, corr, j * kN, row0,
+                                  row_first, tk, scale_log2, lane);
+#pragma unroll
+      for (int i = 0; i < kDV / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      pack_p<kN>(s, p);
+      const int vs = j % kVS;
+      mbar_wait(&bar_v[vs], (j / kVS) & 1);
+      issue_pv<kDV, kN>(o, p, sv + vs * C::kVBytes);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(p);
+      release_stage(&bar_ev[vs], lane);
+    }
+    // under causal masking the later tiles lie wholly above this
+    // warpgroup's diagonal: waited for and released, not computed
+    for (int j = n_comp; j < n_tiles; ++j) {
+      skip_chunks<kCS>(bar_c, bar_ec, j, n_chunks, lane);
+      mbar_wait(&bar_v[j % kVS], (j / kVS) & 1);
+      release_stage(&bar_ev[j % kVS], lane);
+    }
+
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[r] = l > 0.f ? 1.f / l : 0.f;
+      const int row = row0 + 8 * r;
+      if (lse != nullptr && col0 == 0 && (lane & 3) == 0 && row < tq) {
+        lse[((int64_t)b * heads + h) * tq + row] =
+            (m_run[r] * scale_log2 + log2f(l)) * kLn2;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kDV / 2; ++i) o[i] *= inv[(i >> 1) & 1];
+    // every load has landed and every product read its stage: the V
+    // stages take the two warpgroups' outputs
+    named_sync(kBarConsumers);
+    uint8_t* out = sv + wg * C::kVBytes;
+    stage_rows<kDV>(o, out, warp, lane);
+    staged(wg);
+    if (tid == 0) {
+      store_cols<kDV / 64>(&tm_o, out, col0, row_first, h, b);
+      store_done();
+    }
+  }
+}
+
 // ------------------------------------------------------------------ host side
 
 template <int D>
@@ -439,13 +643,42 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   return (int)cudaGetLastError();
 }
 
+// D above 512: the general path, slices of kDV output columns
+template <int kDV>
+int launch_sliced(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int batch, int heads, int tq, int tk, int d,
+                  int causal, const Strides (&st)[4], float sm_scale,
+                  cudaStream_t stream) {
+  using C = SlicedCfg<kDV>;
+  if (d % kDV) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mo;
+  if (!make_map(&mq, q, batch, tq, heads, d, st[0], 64) ||
+      !make_map(&mk, k, batch, tk, heads, d, st[1], C::kN) ||
+      !make_map(&mv, v, batch, tk, heads, d, st[2], C::kN) ||
+      !make_map(&mo, o, batch, tq, heads, d, st[3], 64)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto* kernel =
+      causal ? flash_fwd_sliced<kDV, true> : flash_fwd_sliced<kDV, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t blocks =
+      (int64_t)ceil_div(tq, C::kM) * heads * (d / kDV) * batch;
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)blocks, C::kThreads, C::kSmem, stream>>>(
+      mq, mk, mv, mo, lse, tq, tk, heads, d, sm_scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, o: bf16 [B, T, H, D] with the given element strides (batch, time,
 // head per tensor, in that order: q, k, v, o; the last dimension is
 // contiguous, the strides multiples of 8 and the base 16-byte aligned). Tq
-// and Tk are multiples of 64, causal needs Tq == Tk, and D is 64, 128, 256,
-// 384 or 512. ``lse`` is null or an f32 [B, H, Tq] buffer for the rows'
+// and Tk are multiples of 64, causal needs Tq == Tk, and D is 64 or a
+// multiple of 128 (64-512 through their tuned instantiations, above 512 the
+// general path in 128-column slices). ``lse`` is null or an f32 [B, H, Tq] buffer for the rows'
 // log-sum-exp (natural log of sum_j exp(sm_scale * q.k_j)). Returns a
 // cudaError_t code.
 extern "C" int mmlspark_flash_attn_fwd(const void* q, const void* k,
@@ -480,6 +713,8 @@ extern "C" int mmlspark_flash_attn_fwd(const void* q, const void* k,
       return launch<512>(q, k, v, o, lse, batch, heads, tq, tk, causal, st,
                         sm_scale, s);
     default:
-      return (int)cudaErrorInvalidValue;
+      if (head_dim < 512 || head_dim % 128) return (int)cudaErrorInvalidValue;
+      return launch_sliced<128>(q, k, v, o, lse, batch, heads, tq, tk,
+                                head_dim, causal, st, sm_scale, s);
   }
 }

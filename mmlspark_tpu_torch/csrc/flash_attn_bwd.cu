@@ -89,6 +89,10 @@
 //     65,535 cap on B x H (flash_kernel.bwd_launch_grid and grid_decode
 //     mirror it, and flash_kernel.bwd_smem_bytes each kernel's shared
 //     memory).
+//   - from D = 384 up, flash_bwd_dkv_sliced and flash_bwd_dq_sliced (below):
+//     one instantiation per 128-column output slice, D a run-time count of
+//     64-column chunks streamed through the ring, P and dS recomputed in
+//     each slice.
 // No atomics: dQ has its own kernel (as in the library) instead of being
 // added up across key tiles, so every output element has one writer and two
 // calls give the same bits.
@@ -190,53 +194,11 @@ __device__ __forceinline__ void zero(float (&r)[N]) {
   for (int i = 0; i < N; ++i) r[i] = 0.f;
 }
 
-// a warpgroup's 64 x DV accumulator rounded to bf16 into [DV/64][64][64]
-// boxes in the TMA layout (row rr of a box at rr * 128 bytes, 16-byte unit
-// u at (u ^ rr % 8) * 16)
-template <int DV>
-__device__ __forceinline__ void stage_rows(const float (&o)[DV / 2],
-                                           uint8_t* dst, int warp, int lane) {
-#pragma unroll
-  for (int i = 0; i < DV / 8; ++i) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int rr = 16 * warp + lane / 4 + 8 * hf;
-      *reinterpret_cast<uint32_t*>(dst + (i / 8) * 8192 + rr * 128 +
-                                   (((i % 8) ^ (rr % 8)) * 16) +
-                                   (lane & 3) * 4) =
-          pack_f32(o[4 * i + 2 * hf], o[4 * i + 2 * hf + 1]);
-    }
-  }
-}
-
-// make a warpgroup's staged rows visible to TMA and wait for all of its
-// threads (its first thread then stores them)
-__device__ __forceinline__ void staged(int wg) {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("bar.sync %0, 128;" ::"r"(8 + wg) : "memory");
-}
-
 template <int kChunks>
 __device__ __forceinline__ void store_tile(const CUtensorMap* map,
                                            const uint8_t* src, int row, int h,
                                            int b) {
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    tma_store(map, src + c * 8192, c * 64, row, h, b);
-  }
-}
-
-__device__ __forceinline__ void store_done() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+  store_cols<kChunks>(map, src, 0, row, h, b);
 }
 
 // ------------------------------------------------------------------ K6: dK dV
@@ -734,6 +696,415 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
   }
 }
 
+// ----------------------------------- K6 and K7 at D >= 384: column slices
+//
+// At D = 384 K7's Q and dO of 128 queries (192 KB) leave no room for two
+// K/V stages, one f32 dQ accumulator of all D columns takes D / 2
+// registers a thread (256 at D = 512), and wgmma stops at N = 256. So at
+// every multiple of 128 from 384 up, D is a run-time count of 64-column
+// chunks and each CTA owns one slice of kDV output columns (one
+// instantiation per slice width, not per head dim):
+//   - the products reduced over all of D (K6: S^T = K Q^T and dP^T =
+//     V dO^T; K7: S = Q K^T and dP = dO V^T) stream their operands in
+//     64-column chunks through a ring: stage g = (tile * chunks + chunk)
+//     holds the chunk's box of every operand, and each consumer warp
+//     releases it once the wgmma that reads it has landed (the next
+//     chunk's is issued first);
+//   - P and dS are recomputed in each slice from those sums (the recompute
+//     is the slices' repeated S and dP products: counted as useful flops,
+//     it shows as the kernels' gap to their bound, not hidden); the
+//     register-A products that write the slice (K6: dV += P^T dO_slice,
+//     dK += dS^T Q_slice; K7: dQ += dS K_slice) read it from a second ring,
+//     loaded before the tile's chunks and released after those products;
+//   - every CTA writes only its own columns: no atomics, the same bits
+//     from call to call;
+//   - K6: a CTA per (b, h, slice, 128 keys), each consumer warpgroup 64
+//     keys, query tiles of 32 (the D = 128 layout's registers: dK and dV
+//     slices 128 a thread); K7: a CTA per (b, h, slice, 128 queries), key
+//     tiles of 64; the tuned kernels' masking, causal walk and ragged
+//     edges; the outputs staged in a ring stage once both warpgroups are
+//     done (named barrier 5) and stored by TMA.
+constexpr int kBarConsumers = 5;
+
+template <int kDV>
+struct DkvSlicedCfg {
+  static constexpr int kBk = 128;                  // keys per CTA
+  static constexpr int kBq = 32;                   // queries per tile
+  static constexpr int kThreads = 384;
+  static constexpr int kKBytes = kBk * 128;        // a box of K (or V)
+  static constexpr int kQBytes = kBq * 128;        // a box of Q (or dO)
+  static constexpr int kChunkBytes = 2 * kKBytes + 2 * kQBytes;
+  static constexpr int kSliceQBytes = kBq * kDV * 2;  // Q (or dO) slice
+  static constexpr int kRowBytes = 2 * kBq * 4;    // the tile's lse and di
+  static constexpr int kSliceBytes = 2 * kSliceQBytes + kRowBytes;
+  static constexpr int kChunkStages = 4;
+  static constexpr int kSliceStages = 2;
+  static constexpr int kSmem =
+      kChunkStages * kChunkBytes + kSliceStages * kSliceBytes + 1024;
+  static_assert(kSmem + 256 <= kSmemMax, "shared memory of a block");
+  static_assert(kChunkBytes >= 2 * 64 * kDV * 2,
+                "a warpgroup's dK and dV slices in a chunk stage");
+};
+
+template <int kDV>
+struct DqSlicedCfg {
+  static constexpr int kBm = 128;                  // queries per CTA
+  static constexpr int kBn = 64;                   // keys per tile
+  static constexpr int kThreads = 384;
+  static constexpr int kQBytes = kBm * 128;        // a box of Q (or dO)
+  static constexpr int kKBytes = kBn * 128;        // a box of K (or V)
+  static constexpr int kChunkBytes = 2 * kQBytes + 2 * kKBytes;
+  static constexpr int kSliceBytes = kBn * kDV * 2;  // the K slice
+  static constexpr int kChunkStages = 3;
+  static constexpr int kSliceStages = 2;
+  static constexpr int kSmem =
+      kChunkStages * kChunkBytes + kSliceStages * kSliceBytes + 1024;
+  static_assert(kSmem + 256 <= kSmemMax, "shared memory of a block");
+  static_assert(kSliceBytes >= 64 * kDV * 2, "a warpgroup's dQ slice");
+};
+
+template <int kDV, bool kCausal>
+__global__ void __launch_bounds__(DkvSlicedCfg<kDV>::kThreads, 1)
+    flash_bwd_dkv_sliced(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_dk,
+                         const __grid_constant__ CUtensorMap tm_dv,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ di, int tq, int tk,
+                         int heads, int d, float scale, float scale_log2) {
+  using C = DkvSlicedCfg<kDV>;
+  constexpr int kBq = C::kBq;
+  constexpr int kCS = C::kChunkStages;
+  constexpr int kSS = C::kSliceStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_c[kCS];
+  __shared__ __align__(8) uint64_t bar_ec[kCS];
+  __shared__ __align__(8) uint64_t bar_s[kSS];
+  __shared__ __align__(8) uint64_t bar_es[kSS];
+  // [stage][K box kBk rows | V box | Q box kBq rows | dO box]
+  uint8_t* sc = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // [stage][Q slice [kDV/64][kBq][64] | dO slice | lse kBq | di kBq]
+  uint8_t* ss = sc + kCS * C::kChunkBytes;
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int n_chunks = d / 64;
+  const int n_slices = d / kDV;
+  // blockIdx.x -> (batch, head x slice, key tile), key tiles fastest
+  const int k_tiles = ceil_div(tk, C::kBk);
+  const int hc = heads * n_slices;
+  const int kt = (int)(blockIdx.x % (unsigned)k_tiles);
+  const int hy = (int)((blockIdx.x / (unsigned)k_tiles) % (unsigned)hc);
+  const int b = (int)(blockIdx.x / ((unsigned)k_tiles * (unsigned)hc));
+  const int h = hy / n_slices;
+  const int col0 = (hy % n_slices) * kDV;
+  const int k0 = kt * C::kBk;
+  const int qi0 = kCausal ? k0 / kBq : 0;
+  const int q_first = qi0 * kBq;
+  const int n_tiles = tq / kBq - qi0;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kCS; ++s) {
+      mbar_init(&bar_c[s], 1);
+      mbar_init(&bar_ec[s], 8);  // one arrival per consumer warp
+    }
+#pragma unroll
+    for (int s = 0; s < kSS; ++s) {
+      mbar_init(&bar_s[s], 1);
+      mbar_init(&bar_es[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0) {
+      const int64_t row_bh = ((int64_t)b * heads + h) * tq;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int qs = q_first + i * kBq;
+        const int sl = i % kSS;
+        uint8_t* dst = ss + sl * C::kSliceBytes;
+        mbar_wait(&bar_es[sl], ((i / kSS) & 1) ^ 1);
+        mbar_expect_tx(&bar_s[sl], C::kSliceBytes);
+        for (int c = 0; c < kDV / 64; ++c) {
+          tma_load(dst + c * C::kQBytes, &tm_q, &bar_s[sl], col0 + c * 64, qs,
+                   h, b);
+          tma_load(dst + C::kSliceQBytes + c * C::kQBytes, &tm_do, &bar_s[sl],
+                   col0 + c * 64, qs, h, b);
+        }
+        float* rows = reinterpret_cast<float*>(dst + 2 * C::kSliceQBytes);
+        bulk_load(rows, lse + row_bh + qs, kBq * 4, &bar_s[sl]);
+        bulk_load(rows + kBq, di + row_bh + qs, kBq * 4, &bar_s[sl]);
+        for (int c = 0; c < n_chunks; ++c) {
+          const int g = i * n_chunks + c;
+          const int st = g % kCS;
+          uint8_t* cd = sc + st * C::kChunkBytes;
+          mbar_wait(&bar_ec[st], ((g / kCS) & 1) ^ 1);
+          mbar_expect_tx(&bar_c[st], C::kChunkBytes);
+          tma_load(cd, &tm_k, &bar_c[st], c * 64, k0, h, b);
+          tma_load(cd + C::kKBytes, &tm_v, &bar_c[st], c * 64, k0, h, b);
+          tma_load(cd + 2 * C::kKBytes, &tm_q, &bar_c[st], c * 64, qs, h, b);
+          tma_load(cd + 2 * C::kKBytes + C::kQBytes, &tm_do, &bar_c[st],
+                   c * 64, qs, h, b);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int key_first = k0 + 64 * wg;
+    const int key0 = key_first + 16 * warp + lane / 4;  // this thread's: +0, +8
+    float dv[kDV / 2];
+    float dk[kDV / 2];
+    float s[kBq / 2];
+    float dp[kBq / 2];
+    uint32_t pf[kBq / 16][4];
+    uint32_t df[kBq / 16][4];
+    zero(dv);
+    zero(dk);
+    zero(s);
+    zero(dp);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      // S^T = K Q^T and dP^T = V dO^T of query tile i over the D chunks
+      sum_chunks<kCS>(bar_c, bar_ec, i, n_chunks, lane, [&](int st, int acc) {
+        const uint8_t* src = sc + st * C::kChunkBytes;
+        ss_box<kBq>(s, src + wg * 8192, src + 2 * C::kKBytes, acc);
+        ss_box<kBq>(dp, src + C::kKBytes + wg * 8192,
+                    src + 2 * C::kKBytes + C::kQBytes, acc);
+      });
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P^T and dS^T: rows are keys, columns queries (element idx of this
+      // thread: key key0 + 8 * ((idx >> 1) & 1), query qs + col(idx))
+      const int sl = i % kSS;
+      const uint8_t* slice = ss + sl * C::kSliceBytes;
+      mbar_wait(&bar_s[sl], (i / kSS) & 1);
+      const float* rl = reinterpret_cast<const float*>(slice +
+                                                       2 * C::kSliceQBytes);
+      const float* rd = rl + kBq;
+      const int qs = q_first + i * kBq;
+      const bool need_mask =
+          (kCausal && qs < key_first + 63) || key_first + 64 > tk;
+#pragma unroll
+      for (int idx = 0; idx < kBq / 2; ++idx) {
+        const int col = 8 * (idx >> 2) + 2 * (lane & 3) + (idx & 1);
+        float p = ex2(fmaf(s[idx], scale_log2, -rl[col] * kLog2e));
+        if (need_mask) {
+          const int key = key0 + 8 * ((idx >> 1) & 1);
+          if ((kCausal && key > qs + col) || key >= tk) p = 0.f;
+        }
+        s[idx] = p;
+        dp[idx] = (dp[idx] - rd[col]) * p * scale;
+      }
+      pack_p<kBq>(s, pf);
+      pack_p<kBq>(dp, df);
+      wgmma_fence();
+      rs_nmajor<kDV, kBq>(dv, pf, slice + C::kSliceQBytes);  // dO slice
+      rs_nmajor<kDV, kBq>(dk, df, slice);                    // Q slice
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pf);
+      fence_regs(df);
+      release_stage(&bar_es[sl], lane);
+    }
+
+    // every load has landed and every product read its stage: chunk stage
+    // wg takes this warpgroup's dK and dV slices
+    named_sync(kBarConsumers);
+    uint8_t* out = sc + wg * C::kChunkBytes;
+    stage_rows<kDV>(dk, out, warp, lane);
+    stage_rows<kDV>(dv, out + 64 * kDV * 2, warp, lane);
+    staged(wg);
+    if (tid == 0) {
+      store_cols<kDV / 64>(&tm_dk, out, col0, key_first, h, b);
+      store_cols<kDV / 64>(&tm_dv, out + 64 * kDV * 2, col0, key_first, h, b);
+      store_done();
+    }
+  }
+}
+
+template <int kDV, bool kCausal>
+__global__ void __launch_bounds__(DqSlicedCfg<kDV>::kThreads, 1)
+    flash_bwd_dq_sliced(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_dq,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ di, int tq, int tk,
+                        int heads, int d, float scale, float scale_log2) {
+  using C = DqSlicedCfg<kDV>;
+  constexpr int kBn = C::kBn;
+  constexpr int kCS = C::kChunkStages;
+  constexpr int kSS = C::kSliceStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_c[kCS];
+  __shared__ __align__(8) uint64_t bar_ec[kCS];
+  __shared__ __align__(8) uint64_t bar_s[kSS];
+  __shared__ __align__(8) uint64_t bar_es[kSS];
+  // [stage][Q box 128 rows | dO box 128 rows | K box kBn rows | V box]
+  uint8_t* sc = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // [stage][K slice [kDV/64][kBn][64]]
+  uint8_t* ss = sc + kCS * C::kChunkBytes;
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int n_chunks = d / 64;
+  const int n_slices = d / kDV;
+  // blockIdx.x -> (batch, head x slice, query tile), query tiles fastest;
+  // under causal masking the high query tiles start first
+  const int m_tiles = ceil_div(tq, C::kBm);
+  const int hc = heads * n_slices;
+  const int raw = (int)(blockIdx.x % (unsigned)m_tiles);
+  const int hy = (int)((blockIdx.x / (unsigned)m_tiles) % (unsigned)hc);
+  const int b = (int)(blockIdx.x / ((unsigned)m_tiles * (unsigned)hc));
+  const int h = hy / n_slices;
+  const int col0 = (hy % n_slices) * kDV;
+  const int mt = kCausal ? m_tiles - 1 - raw : raw;
+  const int q0 = mt * C::kBm;
+  const int n_tiles = kCausal ? min(ceil_div(tk, kBn), ceil_div(q0 + C::kBm, kBn))
+                              : ceil_div(tk, kBn);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kCS; ++s) {
+      mbar_init(&bar_c[s], 1);
+      mbar_init(&bar_ec[s], 8);  // one arrival per consumer warp
+    }
+#pragma unroll
+    for (int s = 0; s < kSS; ++s) {
+      mbar_init(&bar_s[s], 1);
+      mbar_init(&bar_es[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0) {
+      for (int j = 0; j < n_tiles; ++j) {
+        const int sl = j % kSS;
+        mbar_wait(&bar_es[sl], ((j / kSS) & 1) ^ 1);
+        mbar_expect_tx(&bar_s[sl], C::kSliceBytes);
+        for (int c = 0; c < kDV / 64; ++c) {
+          tma_load(ss + sl * C::kSliceBytes + c * C::kKBytes, &tm_k, &bar_s[sl],
+                   col0 + c * 64, j * kBn, h, b);
+        }
+        for (int c = 0; c < n_chunks; ++c) {
+          const int g = j * n_chunks + c;
+          const int st = g % kCS;
+          uint8_t* cd = sc + st * C::kChunkBytes;
+          mbar_wait(&bar_ec[st], ((g / kCS) & 1) ^ 1);
+          mbar_expect_tx(&bar_c[st], C::kChunkBytes);
+          for (int w = 0; w < 2; ++w) {
+            tma_load(cd + w * 8192, &tm_q, &bar_c[st], c * 64, q0 + 64 * w, h,
+                     b);
+            tma_load(cd + C::kQBytes + w * 8192, &tm_do, &bar_c[st], c * 64,
+                     q0 + 64 * w, h, b);
+          }
+          tma_load(cd + 2 * C::kQBytes, &tm_k, &bar_c[st], c * 64, j * kBn, h,
+                   b);
+          tma_load(cd + 2 * C::kQBytes + C::kKBytes, &tm_v, &bar_c[st], c * 64,
+                   j * kBn, h, b);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int row_first = q0 + 64 * wg;
+    const int row0 = row_first + 16 * warp + lane / 4;  // this thread's: +0, +8
+    // rows past Tq (zero-filled Q and dO) read lse = di = 0: P = 1, dS = 0
+    const int64_t row_bh = ((int64_t)b * heads + h) * tq;
+    float lse2[2], dir[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      lse2[r] = row < tq ? lse[row_bh + row] * kLog2e : 0.f;
+      dir[r] = row < tq ? di[row_bh + row] : 0.f;
+    }
+    const int n_comp =
+        kCausal ? min(n_tiles, (row_first + 63) / kBn + 1) : n_tiles;
+    float dq[kDV / 2];
+    float s[kBn / 2];
+    float dp[kBn / 2];
+    uint32_t df[kBn / 16][4];
+    zero(dq);
+    zero(s);
+    zero(dp);
+
+    for (int j = 0; j < n_comp; ++j) {
+      // S = Q K^T and dP = dO V^T of key tile j over the D chunks
+      sum_chunks<kCS>(bar_c, bar_ec, j, n_chunks, lane, [&](int st, int acc) {
+        const uint8_t* src = sc + st * C::kChunkBytes;
+        ss_box<kBn>(s, src + wg * 8192, src + 2 * C::kQBytes, acc);
+        ss_box<kBn>(dp, src + C::kQBytes + wg * 8192,
+                    src + 2 * C::kQBytes + C::kKBytes, acc);
+      });
+      fence_regs(s);
+      fence_regs(dp);
+
+      // dS of key tile j, into dp
+      const int n0 = j * kBn;
+      const bool need_mask =
+          n0 + kBn > tk || (kCausal && n0 + kBn - 1 > row_first);
+#pragma unroll
+      for (int idx = 0; idx < kBn / 2; ++idx) {
+        const int r = (idx >> 1) & 1;
+        float p = ex2(fmaf(s[idx], scale_log2, -lse2[r]));
+        if (need_mask) {
+          const int key = n0 + 8 * (idx >> 2) + 2 * (lane & 3) + (idx & 1);
+          if (key >= tk || (kCausal && key > row0 + 8 * r)) p = 0.f;
+        }
+        dp[idx] = (dp[idx] - dir[r]) * p * scale;
+      }
+      pack_p<kBn>(dp, df);
+      const int sl = j % kSS;
+      mbar_wait(&bar_s[sl], (j / kSS) & 1);
+      wgmma_fence();
+      rs_nmajor<kDV, kBn>(dq, df, ss + sl * C::kSliceBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(df);
+      release_stage(&bar_es[sl], lane);
+    }
+    // under causal masking the later tiles lie wholly above this
+    // warpgroup's diagonal: waited for and released, not computed
+    for (int j = n_comp; j < n_tiles; ++j) {
+      skip_chunks<kCS>(bar_c, bar_ec, j, n_chunks, lane);
+      mbar_wait(&bar_s[j % kSS], (j / kSS) & 1);
+      release_stage(&bar_es[j % kSS], lane);
+    }
+
+    // every load has landed and every product read its stage: slice stage
+    // wg takes this warpgroup's dQ slice
+    named_sync(kBarConsumers);
+    uint8_t* out = ss + wg * C::kSliceBytes;
+    stage_rows<kDV>(dq, out, warp, lane);
+    staged(wg);
+    if (tid == 0) {
+      store_cols<kDV / 64>(&tm_dq, out, col0, row_first, h, b);
+      store_done();
+    }
+  }
+}
+
 // ------------------------------------------------------------------ host side
 
 struct BwdArgs {
@@ -809,6 +1180,53 @@ int launch(const BwdArgs& a, int causal, int which, cudaStream_t stream) {
                     : launch_dq<D>(a, causal, stream);
 }
 
+// D >= 384: K6 or K7 in slices of kDV columns
+template <int kDV>
+int launch_sliced(const BwdArgs& a, int d, int causal, int which,
+                  cudaStream_t stream) {
+  if (d % kDV) return (int)cudaErrorInvalidValue;
+  const int64_t slots = (int64_t)a.heads * (d / kDV) * a.batch;
+  if (which == 0) {
+    using C = DkvSlicedCfg<kDV>;
+    CUtensorMap mq, mk, mv, mdo, mdk, mdv;
+    if (!make_map(&mq, a.q, a.batch, a.tq, a.heads, d, a.sq, C::kBq) ||
+        !make_map(&mk, a.k, a.batch, a.tk, a.heads, d, a.sk, C::kBk) ||
+        !make_map(&mv, a.v, a.batch, a.tk, a.heads, d, a.sv, C::kBk) ||
+        !make_map(&mdo, a.dout, a.batch, a.tq, a.heads, d, a.sdo, C::kBq) ||
+        !make_map(&mdk, a.dk, a.batch, a.tk, a.heads, d, a.sdk, 64) ||
+        !make_map(&mdv, a.dv, a.batch, a.tk, a.heads, d, a.sdv, 64)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    auto* kernel = causal ? flash_bwd_dkv_sliced<kDV, true>
+                          : flash_bwd_dkv_sliced<kDV, false>;
+    const int64_t blocks = (int64_t)ceil_div(a.tk, C::kBk) * slots;
+    const int err = prepare(kernel, C::kSmem, blocks);
+    if (err != 0) return err;
+    kernel<<<(unsigned)blocks, C::kThreads, C::kSmem, stream>>>(
+        mq, mk, mv, mdo, mdk, mdv, a.lse, a.di, a.tq, a.tk, a.heads, d,
+        a.scale, a.scale * kLog2e);
+    return (int)cudaGetLastError();
+  }
+  using C = DqSlicedCfg<kDV>;
+  CUtensorMap mq, mk, mv, mdo, mdq;
+  if (!make_map(&mq, a.q, a.batch, a.tq, a.heads, d, a.sq, 64) ||
+      !make_map(&mk, a.k, a.batch, a.tk, a.heads, d, a.sk, C::kBn) ||
+      !make_map(&mv, a.v, a.batch, a.tk, a.heads, d, a.sv, C::kBn) ||
+      !make_map(&mdo, a.dout, a.batch, a.tq, a.heads, d, a.sdo, 64) ||
+      !make_map(&mdq, a.dq, a.batch, a.tq, a.heads, d, a.sdq, 64)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto* kernel = causal ? flash_bwd_dq_sliced<kDV, true>
+                        : flash_bwd_dq_sliced<kDV, false>;
+  const int64_t blocks = (int64_t)ceil_div(a.tq, C::kBm) * slots;
+  const int err = prepare(kernel, C::kSmem, blocks);
+  if (err != 0) return err;
+  kernel<<<(unsigned)blocks, C::kThreads, C::kSmem, stream>>>(
+      mq, mk, mv, mdo, mdq, a.lse, a.di, a.tq, a.tk, a.heads, d, a.scale,
+      a.scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // One launch of K6 (which = 0: dK and dV) or K7 (which = 1: dQ).
@@ -816,7 +1234,9 @@ int launch(const BwdArgs& a, int causal, int which, cudaStream_t stream) {
 // strides (batch, time, head per tensor, in that order; the last dimension
 // contiguous, the strides multiples of 8 and the bases 16-byte aligned);
 // lse, di: contiguous f32 [B, H, Tq]. Tq and Tk are multiples of 64, causal
-// needs Tq == Tk, and D is 64, 128 or 256. Returns a cudaError_t code.
+// needs Tq == Tk, and D is 64 or a multiple of 128 (64-256 through their
+// tuned instantiations, from 384 up in 128-column slices). Returns a
+// cudaError_t code.
 extern "C" int mmlspark_flash_attn_bwd(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const float* lse, const float* di,
@@ -858,6 +1278,7 @@ extern "C" int mmlspark_flash_attn_bwd(const void* q, const void* k,
     case 256:
       return launch<256>(a, causal, which, s);
     default:
-      return (int)cudaErrorInvalidValue;
+      if (head_dim < 384 || head_dim % 128) return (int)cudaErrorInvalidValue;
+      return launch_sliced<128>(a, head_dim, causal, which, s);
   }
 }

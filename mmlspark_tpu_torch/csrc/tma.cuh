@@ -10,7 +10,11 @@
 //     compiler from touching the registers an in-flight wgmma owns;
 //   - setmaxnreg, the 128-byte-swizzle shared-memory descriptor, exp2,
 //     f32 -> bf16x2 packing and the accumulator -> A-fragment conversion;
-//   - the consumer warpgroups' turns at the tensor cores (named barriers);
+//   - one 64-column box of a K-major product (ss_box, the D-chunk step of
+//     the sliced kernels), the bf16 staging of a warpgroup's accumulator in
+//     the TMA box layout and its TMA store (stage_rows, store_cols);
+//   - the consumer warpgroups' turns at the tensor cores and their other
+//     named barriers;
 //   - on the host, the 4-D tensor map over a strided bf16 [B, T, H, D]
 //     view, built with cuTensorMapEncodeTiled reached through
 //     cudaGetDriverEntryPoint (so no library links -lcuda).
@@ -24,6 +28,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -190,6 +196,117 @@ __device__ __forceinline__ void pack_p(const float (&s)[kN / 2],
       p[kk][c] = pack_f32(s[8 * kk + 2 * c], s[8 * kk + 2 * c + 1]);
     }
   }
+}
+
+// d (+)= A B^T over one 64-column box, four k16 steps: A a warpgroup's 64
+// rows and B N rows, both K-major in 128-byte swizzled boxes (rows of 128
+// bytes); ``acc`` = 0 overwrites d at the first step, 1 accumulates
+template <int N>
+__device__ __forceinline__ void ss_box(float (&d)[N / 2], const uint8_t* sa,
+                                       const uint8_t* sb, int acc) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_ss<N>(d, desc_sw128(sa + kk * 32, 16, 1024),
+                desc_sw128(sb + kk * 32, 16, 1024), acc | (kk != 0));
+  }
+}
+
+// one arrival of this warp on a ring stage's free barrier
+__device__ __forceinline__ void release_stage(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// Products summed over D's 64-column chunks, streamed through a ring of
+// kStages stages: chunk c of tile ``tile`` lies in stage g % kStages, g =
+// tile * n_chunks + c (phase (g / kStages) & 1). ``issue(stage, acc)``
+// issues the chunk's wgmmas (acc = 0 at the first chunk overwrites the
+// accumulators). A stage is released once the wgmma that reads it has
+// landed, the next chunk's being issued first; on return every wgmma has
+// landed (the caller fences its accumulators).
+template <int kStages, typename Issue>
+__device__ __forceinline__ void sum_chunks(uint64_t* full, uint64_t* free,
+                                           int tile, int n_chunks, int lane,
+                                           Issue&& issue) {
+  const int g0 = tile * n_chunks;
+  mbar_wait(&full[g0 % kStages], (g0 / kStages) & 1);
+  wgmma_fence();
+  issue(g0 % kStages, 0);
+  wgmma_commit();
+  for (int c = 1; c < n_chunks; ++c) {
+    const int g = g0 + c;
+    mbar_wait(&full[g % kStages], (g / kStages) & 1);
+    wgmma_fence();
+    issue(g % kStages, 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // chunk c - 1 has been read
+    release_stage(&free[(g - 1) % kStages], lane);
+  }
+  wgmma_wait<0>();
+  release_stage(&free[(g0 + n_chunks - 1) % kStages], lane);
+}
+
+// the chunk stages of a tile that is not computed: waited for, released
+template <int kStages>
+__device__ __forceinline__ void skip_chunks(uint64_t* full, uint64_t* free,
+                                            int tile, int n_chunks,
+                                            int lane) {
+  for (int c = 0; c < n_chunks; ++c) {
+    const int g = tile * n_chunks + c;
+    mbar_wait(&full[g % kStages], (g / kStages) & 1);
+    release_stage(&free[g % kStages], lane);
+  }
+}
+
+// a warpgroup's 64 x DV accumulator rounded to bf16 into [DV/64][64][64]
+// boxes in the TMA layout (row rr of a box at rr * 128 bytes, 16-byte unit
+// u at (u ^ rr % 8) * 16)
+template <int DV>
+__device__ __forceinline__ void stage_rows(const float (&o)[DV / 2],
+                                           uint8_t* dst, int warp, int lane) {
+#pragma unroll
+  for (int i = 0; i < DV / 8; ++i) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int rr = 16 * warp + lane / 4 + 8 * hf;
+      *reinterpret_cast<uint32_t*>(dst + (i / 8) * 8192 + rr * 128 +
+                                   (((i % 8) ^ (rr % 8)) * 16) +
+                                   (lane & 3) * 4) =
+          pack_f32(o[4 * i + 2 * hf], o[4 * i + 2 * hf + 1]);
+    }
+  }
+}
+
+// make a warpgroup's staged rows visible to TMA and wait for all of its
+// threads (its first thread then stores them)
+__device__ __forceinline__ void staged(int wg) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync %0, 128;" ::"r"(8 + wg) : "memory");
+}
+
+// kBoxes staged 64 x 64 boxes to columns col0, col0 + 64, .. of 64 rows
+template <int kBoxes>
+__device__ __forceinline__ void store_cols(const CUtensorMap* map,
+                                           const uint8_t* src, int col0,
+                                           int row, int h, int b) {
+#pragma unroll
+  for (int c = 0; c < kBoxes; ++c) {
+    tma_store(map, src + c * 8192, col0 + c * 64, row, h, b);
+  }
+}
+
+__device__ __forceinline__ void store_done() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// named barriers over the two consumer warpgroups (256 threads)
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
 }
 
 // The consumer warpgroups take turns to issue their products, in order

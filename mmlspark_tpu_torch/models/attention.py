@@ -7,11 +7,11 @@ reference's ``_flash_dispatch``) lets it, it runs K5, the hand-written
 flash-attention kernel (``flash_kernel.py``, ``csrc/flash_attn.cu``);
 everywhere else it runs K5's plain version, the reference's XLA path. The
 gate keeps the reference's conditions, with "the backend is a TPU" read as
-"the tensors are on a CUDA device", and two differences (ROADMAP B5): the
-shortest key length that takes the kernel was measured on the H100, not
-taken from the TPU, and the kernel is built for head dims up to 512, so a
-call the reference would send to its flash kernel with a larger head dim
-raises ``NotImplementedError`` rather than running the plain version.
+"the tensors are on a CUDA device", and one difference: the shortest key
+length that takes the kernel was measured on the H100, not taken from the
+TPU. Every head dim the gate admits (64 or a multiple of 128) runs through
+the kernels, forward and backward: above the tuned instantiations (K5 to
+512, K6 and K7 to 256) in column slices (``flash_kernel.col_slices``).
 
 Under autograd (grad enabled and an input requiring grad) a call the gate
 admits goes through ``flash_kernel.FlashAttention``: K5 forward with the
@@ -82,9 +82,7 @@ def flash_route(q: torch.Tensor, k: torch.Tensor, causal: bool,
     conditions: bf16 ``q`` on the kernel's device, no shard offsets,
     full-square causal only, Tq and Tk multiples of 128, head dim 64 or a
     multiple of 128, and Tk >= ``MMLSPARK_TPU_FLASH_MIN_T`` (default
-    ``FLASH_MIN_T_DEFAULT``). ``MMLSPARK_TPU_NO_FLASH=1`` turns it off. A
-    call that passes with a head dim the kernel is not built for raises
-    ``NotImplementedError``: there is no quiet route around the kernel."""
+    ``FLASH_MIN_T_DEFAULT``). ``MMLSPARK_TPU_NO_FLASH=1`` turns it off."""
     if os.environ.get("MMLSPARK_TPU_NO_FLASH", "") not in ("", "0"):
         return False
     if q.dtype != torch.bfloat16 or not _kernel_device(q):
@@ -95,16 +93,10 @@ def flash_route(q: torch.Tensor, k: torch.Tensor, causal: bool,
     tk = k.shape[1]
     if causal and tq != tk:
         return False
-    if tq % 128 or tk % 128 or (d != 64 and d % 128):
+    if tq % 128 or tk % 128 or not flash_kernel.head_dim_ok(d):
         return False
-    if tk < int(os.environ.get("MMLSPARK_TPU_FLASH_MIN_T",
-                               FLASH_MIN_T_DEFAULT)):
-        return False
-    if d not in flash_kernel.HEAD_DIMS:
-        raise NotImplementedError(
-            f"K5 is built for head dims {flash_kernel.HEAD_DIMS}, not {d} "
-            "(ROADMAP B5)")
-    return True
+    return tk >= int(os.environ.get("MMLSPARK_TPU_FLASH_MIN_T",
+                                    FLASH_MIN_T_DEFAULT))
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

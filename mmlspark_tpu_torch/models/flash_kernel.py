@@ -23,7 +23,10 @@ causal masking, against 8 bytes per element of q, k, v and o). The kernel
 is a Hopper design: TMA loads of K/V tiles into a ring of shared-memory
 stages by a producer warp, ``wgmma`` for both products in two or three
 consumer warpgroups of 64 query rows (at head dims 384 and 512 a CTA
-writes half the output columns). See the source for the design.
+writes half the output columns). It takes every head dim the gate admits:
+above 512 one instantiation takes D at run time, streaming Q and K through
+the ring in 64-column chunks and cutting the output into ``SLICE``-column
+slices, one a CTA (``col_slices``). See the source for the design.
 
 ``flash_attention`` is the wrapper: a CUDA tensor launches the kernel
 (there is no fallback: a build or launch failure propagates), a CPU tensor
@@ -49,8 +52,11 @@ consumer warpgroups taking turns, a ring of shared-memory stages): K6 a CTA
 per key tile (128 keys, 64 at D = 256, where its two warpgroups split the
 products instead of the columns) streaming query tiles (64 rows, 32 at
 D = 128) of Q, dO, lse and di; K7 a CTA per 128 queries streaming K/V
-tiles (128, 64 or 32 keys at D = 64, 128, 256). No CTA recomputes another's
-products and no output element has two writers (``bwd_launch_grid``,
+tiles (128, 64 or 32 keys at D = 64, 128, 256). Up to D = 256 no CTA
+recomputes another's products; from 384 up each CTA owns a ``SLICE`` of
+the output columns, streams the operands of the products reduced over D
+(K6: S^T and dP^T; K7: S and dP) in 64-column chunks and recomputes P and
+dS in each slice. No output element has two writers (``bwd_launch_grid``,
 ``bwd_smem_bytes`` and ``bwd_tiles`` mirror the source's grids, shared
 memory and tile schedules). ``bwd_dkv_launches`` and ``bwd_dq_launches``
 count K6's and K7's launches as ``launches`` counts K5's. While grad is
@@ -80,10 +86,12 @@ bwd_dq_launches = 0
 graphs.count_replays(__name__, "launches", "bwd_dkv_launches",
                      "bwd_dq_launches")
 
-#: head dims the kernel is built for
-HEAD_DIMS = (64, 128, 256, 384, 512)
-#: head dims K6 and K7 are built for (384 and 512: ROADMAP B5)
-BWD_HEAD_DIMS = (64, 128, 256)
+#: the largest head dims with tuned instantiations (K5; K6 and K7): above
+#: them each kernel takes D at run time in column slices of ``SLICE``
+FWD_TUNED_MAX = 512
+BWD_TUNED_MAX = 256
+#: output columns a CTA of the sliced layouts owns
+SLICE = 128
 #: query and key lengths must be multiples of 64 (the Hopper kernel's
 #: query tiles are 192 or 128 rows and its key tiles 128 or 64; a partial
 #: last tile is masked)
@@ -94,13 +102,29 @@ _PLAIN_CHUNK_ELEMENTS = 1 << 28
 MAX_GRID_BLOCKS = (1 << 31) - 1
 
 
+def head_dim_ok(d: int) -> bool:
+    """The head dims the kernels take: the gate's, 64 or a multiple of 128
+    (the reference's ``_flash_dispatch``)."""
+    return d == 64 or (d > 0 and d % 128 == 0)
+
+
+def col_slices(d: int, which: str = "fwd") -> int:
+    """CTAs that share a row tile, each writing its own output columns: K5
+    (``which="fwd"``) writes half of them at D = 384 and 512 and a
+    ``SLICE`` above (``Sm90Cfg``, ``SlicedCfg``); K6 and K7 (``"dkv"``,
+    ``"dq"``) a ``SLICE`` from 384 up (``DkvSlicedCfg``, ``DqSlicedCfg``)."""
+    if which == "fwd":
+        return d // SLICE if d > FWD_TUNED_MAX else 2 if d > 256 else 1
+    return d // SLICE if d > BWD_TUNED_MAX else 1
+
+
 def launch_grid(b: int, tq: int, h: int, d: int) -> Tuple[int, int, int]:
     """K5's 1-D grid for a [B, Tq, H, D] query: (query blocks, head x
-    column-split slots, total blocks). A CTA takes 192 query rows at D=64
-    and 128 above (3 or 2 consumer warpgroups), and half the output columns
-    at D=384 and 512 (``Sm90Cfg`` in the source)."""
+    column-slice slots, total blocks). A CTA takes 192 query rows at D=64
+    and 128 above (3 or 2 consumer warpgroups) and ``col_slices`` of the
+    output columns (``Sm90Cfg`` and ``SlicedCfg`` in the source)."""
     m_blocks = -(-tq // (192 if d == 64 else 128))
-    hc = h * (2 if d > 256 else 1)
+    hc = h * col_slices(d)
     return m_blocks, hc, m_blocks * hc * b
 
 
@@ -118,19 +142,20 @@ SMEM_MAX = 232_448
 def bwd_tile_rows(d: int, which: str) -> int:
     """Rows of the tile one CTA owns: K6's keys (``which="dkv"``: 128, two
     warpgroups of 64, or 64 at D = 256, where both warpgroups work on the
-    same keys) or K7's queries (``"dq"``: 128) (``DkvCfg``/``DqCfg``)."""
+    same keys) or K7's queries (``"dq"``: 128) (``DkvCfg``/``DqCfg``, and
+    from D = 384 up ``DkvSlicedCfg``/``DqSlicedCfg``)."""
     if which == "dkv":
-        return 128 if d <= 128 else 64
+        return 64 if d == 256 else 128
     return 128
 
 
 def bwd_stream_rows(d: int, which: str) -> int:
     """Rows of a tile a CTA streams through its ring: K6's query tiles (64;
-    32 at D = 128, for registers) or K7's key tiles (128 at D = 64, 64 at
-    128, 32 at 256)."""
+    32 at D = 128 and from 384 up, for registers) or K7's key tiles (128 at
+    D = 64, 64 at 128, 32 at 256, 64 from 384 up)."""
     if which == "dkv":
-        return 32 if d == 128 else 64
-    return {64: 128, 128: 64}.get(d, 32)
+        return 32 if d == 128 or d > BWD_TUNED_MAX else 64
+    return {64: 128, 128: 64, 256: 32}.get(d, 64)
 
 
 def bwd_smem_bytes(d: int, which: str, parts: bool = False):
@@ -138,7 +163,22 @@ def bwd_smem_bytes(d: int, which: str, parts: bool = False):
     the tiles loaded once (K6: K and V of its keys; K7: Q and dO of its 128
     queries), K6's P hand-over at D = 256 (f32, 64 x 64), the ring's stages
     (K6: a Q and a dO tile and their lse and di; K7: a K and a V tile)
-    and 1 KB of alignment slack. With ``parts`` also the stage count."""
+    and 1 KB of alignment slack. From D = 384 up (the sliced layouts)
+    nothing is loaded once: a ring of D-chunk stages (a 64-column box of
+    every operand of the products reduced over D: K6 K, V of 128 keys and
+    Q, dO of 32 queries; K7 Q, dO of 128 queries and K, V of 64 keys) and
+    one of two slice stages (K6 Q and dO of a query tile's ``SLICE``
+    columns, its lse and di; K7 K of a key tile's). With ``parts`` also the
+    stage count (of the D-chunk ring where sliced)."""
+    if d > BWD_TUNED_MAX:
+        if which == "dkv":
+            chunk = 2 * 128 * 128 + 2 * 32 * 128
+            stages, sl = 4, 2 * 32 * SLICE * 2 + 2 * 32 * 4
+        else:
+            chunk = 2 * 128 * 128 + 2 * 64 * 128
+            stages, sl = 3, 64 * SLICE * 2
+        total = stages * chunk + 2 * sl + 1024
+        return (total, stages) if parts else total
     if which == "dkv":
         once = 2 * bwd_tile_rows(d, which) * d * 2
         once += 64 * 64 * 4 if d == 256 else 0
@@ -155,10 +195,12 @@ def bwd_smem_bytes(d: int, which: str, parts: bool = False):
 def bwd_launch_grid(b: int, tq: int, tk: int, h: int, d: int,
                     which: str) -> Tuple[int, int, int]:
     """K6's (``which="dkv"``) or K7's (``"dq"``) 1-D grid: (key or query
-    tiles of ``bwd_tile_rows`` rows, heads, total blocks); no CTA splits the
-    output columns. ``grid_decode`` reads a block index of either."""
+    tiles of ``bwd_tile_rows`` rows, head x column-slice slots, total
+    blocks); up to D = 256 no CTA splits the output columns, from 384 up
+    each owns a ``SLICE``. ``grid_decode`` reads a block index of either."""
     tiles = -(-(tk if which == "dkv" else tq) // bwd_tile_rows(d, which))
-    return tiles, h, tiles * h * b
+    hc = h * col_slices(d, which)
+    return tiles, hc, tiles * hc * b
 
 
 def bwd_tiles(tq: int, tk: int, d: int, which: str, causal: bool):
@@ -315,8 +357,8 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
     tk = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if not head_dim_ok(d):
+        raise ValueError(f"head dim {d} is neither 64 nor a multiple of 128")
     if tq % TILE or tk % TILE or tk == 0:
         raise ValueError(f"Tq={tq} and Tk={tk} must be positive multiples "
                          f"of {TILE}")
@@ -423,10 +465,6 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     _check_inputs(q, k, v, causal, ("o", o), ("do", do))
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    if d not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"K6/K7 are built for head dims {BWD_HEAD_DIMS}, not {d} "
-            "(ROADMAP B5)")
     if tuple(do.shape) != tuple(o.shape) or tuple(o.shape) != tuple(q.shape):
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
                          f"have q's shape {tuple(q.shape)}")
@@ -492,11 +530,6 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal=False):
         if q.device.type == "cuda":
-            d = q.shape[-1]
-            if d not in BWD_HEAD_DIMS:
-                raise NotImplementedError(
-                    f"training through K5 at head dim {d}: K6/K7 are built "
-                    f"for {BWD_HEAD_DIMS} (ROADMAP B5)")
             o, lse = flash_attention_cuda(q, k, v, causal, lse=True)
         elif q.device.type == "cpu":
             o, lse = flash_attention_plain(q, k, v, causal, return_lse=True)

@@ -284,17 +284,24 @@ def _assert_k5_close(o, p, q, k, v, causal):
     (1, 1024, 1024, 2, 128, False), (1, 1024, 1024, 2, 128, True),
     (1, 512, 512, 2, 256, True), (3, 128, 256, 1, 64, False),
     (1, 64, 64, 1, 256, False), (1, 256, 256, 2, 384, False),
-    (1, 256, 256, 2, 512, True)])
+    (1, 256, 256, 2, 512, True), (1, 256, 256, 2, 640, False),
+    (1, 256, 256, 2, 640, True), (1, 256, 256, 1, 768, True),
+    (2, 128, 256, 1, 1024, False), (1, 192, 192, 1, 1024, True)])
 def test_flash_kernel_matches_plain(cuda_device, b, tq, tk, h, d, causal):
     """K5 against its plain version and exact f64 attention on bf16
-    normal(0, 1) inputs (``_assert_k5_close``)."""
+    normal(0, 1) inputs (``_assert_k5_close``), above D = 512 through the
+    general path (Q and K streamed in 64-column chunks, 128-column output
+    slices), ragged lengths and Tq != Tk included; two calls give the same
+    bits."""
     rng = np.random.default_rng(3)
     q = _bf16(rng, (b, tq, h, d), cuda_device)
     k, v = (_bf16(rng, (b, tk, h, d), cuda_device) for _ in range(2))
     o = flash_kernel.flash_attention_cuda(q, k, v, causal)
+    again = flash_kernel.flash_attention_cuda(q, k, v, causal)
     p = flash_kernel.flash_attention_plain(q, k, v, causal)
     torch.cuda.synchronize()
     assert o.shape == p.shape and o.dtype == torch.bfloat16
+    assert torch.equal(o, again)
     _assert_k5_close(o, p, q, k, v, causal)
 
 
@@ -397,11 +404,15 @@ def _bwd_inputs(rng, b, tq, tk, h, d, device):
     (1, 192, 320, 2, 64, False), (1, 512, 512, 2, 128, False),
     (1, 512, 512, 2, 128, True), (1, 320, 128, 2, 128, False),
     (1, 256, 256, 2, 256, False), (1, 256, 256, 2, 256, True),
-    (1, 128, 384, 1, 256, False)])
+    (1, 128, 384, 1, 256, False), (1, 256, 256, 2, 384, False),
+    (1, 256, 256, 2, 384, True), (1, 256, 256, 1, 512, False),
+    (1, 256, 256, 2, 512, True), (1, 256, 256, 1, 640, False),
+    (1, 256, 256, 1, 640, True)])
 def test_flash_bwd_kernels_match_plain(cuda_device, b, tq, tk, h, d, causal):
     """K6 and K7 against the plain backward on K5's own output and lse,
     and both against an exact f64 backward (``_assert_bwd_close``); two
-    calls give the same bits (no atomics)."""
+    calls give the same bits (no atomics), from D = 384 up through the
+    128-column slices too."""
     rng = np.random.default_rng(21)
     q, k, v, do = _bwd_inputs(rng, b, tq, tk, h, d, cuda_device)
     o, lse = flash_kernel.flash_attention_cuda(q, k, v, causal, lse=True)
@@ -418,15 +429,17 @@ def test_flash_bwd_kernels_match_plain(cuda_device, b, tq, tk, h, d, causal):
     (1, 192, 192, 2, 64, True), (1, 320, 320, 1, 128, True),
     (1, 192, 192, 2, 128, False), (1, 192, 192, 1, 256, True),
     (1, 320, 320, 2, 256, True), (1, 192, 320, 2, 256, False),
-    (2, 320, 128, 1, 256, False)])
+    (2, 320, 128, 1, 256, False), (1, 192, 192, 1, 384, True),
+    (1, 192, 320, 1, 512, False), (1, 320, 320, 1, 640, True)])
 def test_flash_bwd_kernels_ragged_tiles_and_no_column_split(cuda_device, b, tq,
                                                             tk, h, d, causal):
     """Lengths a multiple of 64 but not of the 128-row tiles (K6's second
     warpgroup past Tk, K7's past Tq: zero-filled rows that must add
     exactly 0), causal and not, and D = 256 through the design without a
     column split (K6's two warpgroups share a 64-key tile and hand P over;
-    K7 holds all 256 columns of dQ), Tq != Tk included: against the plain
-    backward and f64, two calls bit for bit."""
+    K7 holds all 256 columns of dQ), Tq != Tk included; from D = 384 up the
+    same edges through the 128-column slices: against the plain backward
+    and f64, two calls bit for bit."""
     rng = np.random.default_rng(27)
     q, k, v, do = _bwd_inputs(rng, b, tq, tk, h, d, cuda_device)
     o, lse = flash_kernel.flash_attention_cuda(q, k, v, causal, lse=True)
@@ -439,7 +452,7 @@ def test_flash_bwd_kernels_ragged_tiles_and_no_column_split(cuda_device, b, tq,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 384, 512, 640])
 def test_flash_bwd_kernels_read_strided_views(cuda_device, d):
     """q, k, v and dO as views into packed tensors: K6 and K7 read them
     through their strides."""
@@ -460,13 +473,14 @@ def test_flash_bwd_kernels_read_strided_views(cuda_device, d):
 @pytest.mark.parametrize("b,tq,tk,h,d,causal", [
     (2, 256, 256, 2, 64, True), (1, 192, 320, 2, 128, False),
     (1, 256, 256, 1, 256, True), (1, 256, 256, 2, 384, False),
-    (1, 192, 192, 1, 512, True)])
+    (1, 192, 192, 1, 512, True), (1, 256, 256, 2, 640, True),
+    (1, 192, 320, 1, 1024, False)])
 def test_k5_lse_matches_plain_and_leaves_the_output(cuda_device, b, tq, tk, h,
                                                     d, causal):
     """K5's row log-sum-exp against the plain version's (1e-4: both f32,
     the kernel's exp2/log2 approximations and summation order), written
-    once per row at D = 384/512; with and without it the same output
-    bits."""
+    once per row at D = 384/512 and above 512 (by the first column slice's
+    CTA); with and without it the same output bits."""
     rng = np.random.default_rng(23)
     q = _bf16(rng, (b, tq, h, d), cuda_device)
     k, v = (_bf16(rng, (b, tk, h, d), cuda_device) for _ in range(2))
@@ -525,13 +539,36 @@ def test_k5_refuses_inputs_that_require_grad(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_bwd_rejects_head_dims_it_is_not_built_for(cuda_device):
-    rng = np.random.default_rng(26)
-    q, k, v = (_bf16(rng, (1, 128, 1, 384), cuda_device).requires_grad_(True)
-               for _ in range(3))
+    """Every head dim the gate admits is one K5-K7 are built for: under
+    autograd ``dense_attention`` at D = 384 runs K5, K6 and K7 once each
+    (no raise, no plain route) and its gradients hold the f64 gate against
+    the plain backward. A head dim the gate does not admit (192) takes the
+    plain path under autograd, launching nothing, and the kernels' own
+    wrapper refuses it."""
     from mmlspark_tpu_torch.models import attention
 
-    with pytest.raises(NotImplementedError, match="B5"):
-        attention.dense_attention(q, k, v)
+    rng = np.random.default_rng(26)
+    q, k, v, do = _bwd_inputs(rng, 1, 256, 256, 2, 384, cuda_device)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    counters = ("launches", "bwd_dkv_launches", "bwd_dq_launches")
+    before = [getattr(flash_kernel, c) for c in counters]
+    attention.dense_attention(*leaves, causal=True).backward(do)
+    after = [getattr(flash_kernel, c) for c in counters]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    got = [x.grad for x in leaves]
+    o, lse = flash_kernel.flash_attention_cuda(q, k, v, True, lse=True)
+    plain = flash_kernel.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    _assert_bwd_close(got, plain, q, k, v, do, True)
+
+    q, k, v, do = _bwd_inputs(rng, 1, 128, 128, 1, 192, cuda_device)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = [getattr(flash_kernel, c) for c in counters]
+    attention.dense_attention(*leaves).backward(do)
+    assert [getattr(flash_kernel, c) for c in counters] == before
+    assert all(x.grad is not None for x in leaves)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_kernel.flash_attention_cuda(q, k, v)
 
 
 def _ring_run(device, depth, n_batches=6):

@@ -21,7 +21,10 @@ Tolerances, and why:
     The plain version is the reference's XLA path, whose own error against
     f64 reaches 0.0122 on causal rows that see few keys (its probabilities
     are rounded to bf16 after normalising): it is held within 0.0125 of f64
-    and within 0.001 of the XLA path's own error;
+    and within 0.001 of the XLA path's own error. Where that error itself
+    passes 0.0125 (causal rows at D = 512 and 640, T = 128: 0.0128,
+    0.0140), the plain version is held within 0.001 of it and the Pallas
+    kernel (0.0117 at D = 640) within it;
   - K5's plain version against the reference's ``dense_attention`` (its
     XLA path): 0.02 in bf16 (the same rounding steps; the f32 sums differ
     in order), 1e-5 in f32, the offset and all-masked cases included;
@@ -212,23 +215,48 @@ def test_hist_launch_geometry(f, b):
         assert rows * blocks >= n > rows * (blocks - 1)
 
 
+#: CTAs sharing a row tile, each writing its own output columns: K5 halves
+#: them at D = 384 and 512 and cuts 128-column slices above; K6 and K7 cut
+#: 128-column slices from 384 up (``Sm90Cfg``, ``SlicedCfg``,
+#: ``DkvSlicedCfg``, ``DqSlicedCfg``)
+FWD_SLICES = {384: 2, 512: 2, 640: 5, 768: 6, 1024: 8, 2048: 16}
+BWD_SLICES = {384: 3, 512: 4, 640: 5, 768: 6, 1024: 8, 2048: 16}
+
+
+def _columns_once(hy, h, slices, d):
+    """Every (head, output column) of a row tile written by exactly one
+    slot's slice, as the kernels decode a slot (slices of a head adjacent)."""
+    width = d // slices
+    cover = np.zeros((h, d), dtype=np.int64)
+    for slot in np.unique(hy):
+        head, sl = divmod(int(slot), slices)
+        cover[head, sl * width:(sl + 1) * width] += 1
+    np.testing.assert_array_equal(cover, np.ones((h, d), dtype=np.int64))
+
+
 @pytest.mark.parametrize("b,tq,h,d", [(1, 64, 1, 64), (3, 2048, 8, 64),
                                       (5, 1024, 3, 384), (2, 640, 2, 512),
+                                      (2, 320, 3, 640), (1, 1024, 2, 1024),
+                                      (3, 192, 1, 2048),
                                       (65_537, 128, 1, 64),
                                       (1 << 20, 128, 1, 64)])
 def test_flash_grid_decode_covers_every_block(b, tq, h, d):
-    """K5's 1-D grid: every (batch, head x column split, query block) once,
-    query blocks fastest (the order of the 3-D grid it replaces), and a
-    batch past grid.z's 65,535 cap."""
+    """K5's 1-D grid: every (batch, head x column slice, query block) once,
+    query blocks fastest (the order of the 3-D grid it replaces), each
+    head's output columns written once across its slices, and a batch past
+    grid.z's 65,535 cap."""
     m_blocks, hc, total = flash_kernel.launch_grid(b, tq, h, d)
-    assert m_blocks * (192 if d == 64 else 128) >= tq
-    assert hc == h * (2 if d > 256 else 1)
+    assert m_blocks * (192 if d == 64 else 128) >= tq > m_blocks * 128 - 192
+    slices = FWD_SLICES.get(d, 1)
+    assert flash_kernel.col_slices(d) == slices
+    assert hc == h * slices
     assert total == m_blocks * hc * b <= flash_kernel.MAX_GRID_BLOCKS
     block = np.arange(total, dtype=np.int64)
     bi, hy, m = flash_kernel.grid_decode(block, m_blocks, hc)
     assert bi.min() == 0 and bi.max() == b - 1
     np.testing.assert_array_equal((bi * hc + hy) * m_blocks + m, block)
     assert ((hy >= 0) & (hy < hc) & (m >= 0) & (m < m_blocks)).all()
+    _columns_once(hy, h, slices, d)
 
 
 def test_flash_grid_limit_raises():
@@ -301,7 +329,14 @@ def _pallas(q, k, v, causal):
 @pytest.mark.parametrize("shape,causal", [
     ((2, 256, 4, 64), False), ((2, 256, 4, 64), True),
     ((1, 1024, 2, 64), False), ((1, 1024, 2, 64), True),
-    ((1, 256, 1, 128), False), ((1, 256, 1, 128), True)])
+    ((1, 256, 1, 128), False), ((1, 256, 1, 128), True),
+    # every head dim the gate admits takes the kernels: the tuned ones and
+    # the sliced ones above them
+    ((1, 256, 1, 256), False), ((1, 256, 1, 256), True),
+    ((1, 128, 1, 384), False), ((1, 128, 1, 384), True),
+    ((1, 128, 1, 512), False), ((1, 128, 1, 512), True),
+    ((1, 128, 1, 640), False), ((1, 128, 1, 640), True),
+    ((1, 128, 1, 768), False), ((1, 128, 1, 768), True)])
 def test_plain_matches_pallas_flash_kernel(shape, causal):
     q, k, v = _qkv(shape, seed=3)
     ref = _pallas(q, k, v, causal)
@@ -314,8 +349,15 @@ def test_plain_matches_pallas_flash_kernel(shape, causal):
         *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
         causal=causal)
     xla_err = np.abs(np.asarray(xla.astype(jnp.float32)) - exact).max()
-    assert np.abs(ref - exact).max() <= F64_TOL
-    assert np.abs(got - exact).max() <= min(XLA_F64_TOL, xla_err + 1e-3)
+    # the caps hold where the reference's XLA path meets its own (every
+    # shape at D <= 256); on causal rows at D = 512 and 640 (T = 128) that
+    # path errs by 0.0128 and 0.0140 and the library's kernel by up to
+    # 0.0117, and both the kernel and the plain version are held to the XLA
+    # path's error instead
+    within = xla_err <= XLA_F64_TOL
+    assert np.abs(ref - exact).max() <= (F64_TOL if within else xla_err)
+    cap = XLA_F64_TOL if within else xla_err
+    assert np.abs(got - exact).max() <= min(cap, xla_err + 1e-3)
 
 
 @pytest.mark.parametrize("shape,tk,causal", [
@@ -376,6 +418,8 @@ GATE_CASES = [
     ((1, 128, 1, 64), "bfloat16", False, 0, 256),    # cross, accepted
     ((1, 128, 1, 128), "bfloat16", True, 0, None),   # D = 128, accepted
     ((1, 256, 1, 64), "bfloat16", True, 0, 32),      # Tk % 128
+    ((1, 128, 1, 640), "bfloat16", False, 0, None),  # D = 640, accepted
+    ((1, 128, 1, 192), "bfloat16", False, 0, None),  # D % 128
 ]
 
 
@@ -415,25 +459,28 @@ def test_gate_kill_switch_and_min_length(monkeypatch):
 def test_gate_keeps_cpu_tensors_on_the_plain_path(monkeypatch):
     """Without a CUDA device the gate never routes (the reference: not a
     TPU backend). On the kernel's device it routes every length the
-    reference's conditions admit (no length threshold by default), head
-    dims up to 512 included, and raises for a larger one rather than run
-    the plain version."""
+    reference's conditions admit (no length threshold by default) and
+    every head dim they admit, 64 or a multiple of 128: the tuned ones
+    (up to 512) and the sliced ones above, 640 to 2048 included, none
+    raising; 192 stays on the plain path, as in the reference."""
     q, k, _ = _port(_qkv((1, 128, 2, 64), seed=0))
     assert not flash_route(q, k, False)
     monkeypatch.setattr(attention, "_kernel_device", lambda q: True)
     assert flash_route(q, k, False)
-    for d in (384, 512):
+    for d in (384, 512, 640, 768, 1024, 2048):
         q, k, _ = _port(_qkv((1, 128, 1, d), seed=0))
-        assert flash_route(q, k, True)
-    q, k, _ = _port(_qkv((1, 128, 1, 640), seed=0))
-    with pytest.raises(NotImplementedError, match="B5"):
-        flash_route(q, k, False)
+        assert flash_route(q, k, True) and flash_route(q, k, False), d
+        assert flash_kernel.head_dim_ok(d)
+        flash_kernel._check_inputs(q, k, k, True)    # the wrapper takes it
+    q192, k192, _ = _port(_qkv((1, 128, 1, 192), seed=0))
+    assert not flash_route(q192, k192, False)
+    assert not flash_kernel.head_dim_ok(192)
     monkeypatch.setenv("MMLSPARK_TPU_NO_FLASH", "1")
     assert not flash_route(q, k, False)
 
 
 
-def _k5_tiled(q, k, v, causal, kn, rescale=True):
+def _k5_tiled(q, k, v, causal, kn, rescale=True, chunk=None, cols=None):
     """K5's arithmetic (``csrc/flash_attn.cu``) on the CPU, key tile by key
     tile of ``kn`` keys: f32 scores of the bf16 inputs, keys past Tk (the
     kernel's zero-filled loads) and, under causal masking, keys after the
@@ -443,21 +490,27 @@ def _k5_tiled(q, k, v, causal, kn, rescale=True):
     per tile, l summed from the unrounded p, P rounded to bf16 unnormalised
     before P V; the output divided by l once and rounded to bf16.
     ``rescale=False`` leaves the per-tile rescale out: the fault the ulp
-    gate exists to catch."""
+    gate exists to catch. ``chunk`` sums the scores over D in chunks of
+    that many columns, in order, and ``cols`` = (lo, hi) computes only
+    those output columns: one CTA of the general path above D = 512."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     c = math.log2(math.e) / math.sqrt(d)
     qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # [B, H, T, D]
+    lo, hi = cols or (0, d)
     pad = -tk % kn
     kf = torch.nn.functional.pad(kf, (0, 0, 0, pad))
-    vf = torch.nn.functional.pad(vf, (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(vf[..., lo:hi], (0, 0, 0, pad))
     m = torch.full((b, h, tq, 1), -math.inf)
     l = torch.zeros(b, h, tq, 1)
-    o = torch.zeros(b, h, tq, d)
+    o = torch.zeros(b, h, tq, hi - lo)
     rows = torch.arange(tq)[:, None]
     for n0 in range(0, tk + pad, kn):
         keys = torch.arange(n0, n0 + kn)[None, :]
-        s = qf @ kf[:, :, n0:n0 + kn].transpose(-1, -2)
+        s = torch.zeros(b, h, tq, kn)
+        for c0 in range(0, d, chunk or d):
+            s = s + qf[..., c0:c0 + (chunk or d)] @ \
+                kf[:, :, n0:n0 + kn, c0:c0 + (chunk or d)].transpose(-1, -2)
         hidden = (keys >= tk) | ((keys > rows) if causal else False)
         s = s.masked_fill(hidden, -math.inf)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
@@ -500,6 +553,47 @@ def test_k5_tiled_arithmetic_within_chip_gates(shape, tk, causal, kn):
         broken = _k5_tiled(q, k, v, causal, kn, rescale=False)
         broken = broken.double().numpy()
         assert (np.abs(broken - plain) / np.ldexp(1.0, e - 8)).max() > 4.0
+
+
+def _k5_sliced(q, k, v, causal, kdv=128, drop_chunk=False):
+    """K5's general path (``flash_fwd_sliced``, D above 512) on the CPU: one
+    ``_k5_tiled`` per ``kdv``-column slice of the output (a CTA's), 128-key
+    tiles, S summed over D's 64-column chunks in order. Every slice sums
+    the same S in the same order (the recompute gives the same bits);
+    ``drop_chunk`` leaves D's last chunk out of S (its K columns zeroed),
+    the fault a lost ring stage would be."""
+    d = q.shape[-1]
+    if drop_chunk:
+        k = k.clone()
+        k[..., d - 64:] = 0
+    return torch.cat([_k5_tiled(q, k, v, causal, 128, chunk=64,
+                                cols=(c0, c0 + kdv))
+                      for c0 in range(0, d, kdv)], dim=-1)
+
+
+@pytest.mark.parametrize("shape,tk,causal", [
+    ((1, 256, 2, 640), None, False), ((1, 256, 2, 640), None, True),
+    ((1, 192, 1, 768), 320, False), ((1, 128, 1, 1024), None, True)])
+def test_k5_sliced_arithmetic_within_chip_gates(shape, tk, causal):
+    """The chip's gates on K5 hold for the general path's arithmetic (S
+    summed over 64-column chunks, the output in 128-column slices), causal
+    rows that see few keys and a ragged last key tile included; a chunk
+    left out of S moves it far past the ulp gate."""
+    q, k, v = _port(_qkv(shape, seed=17, tk=tk))
+    got = _k5_sliced(q, k, v, causal)
+    plain = flash_kernel.flash_attention_plain(q, k, v, causal)
+    qn, kn_, vn = (x.float().numpy() for x in (q, k, v))
+    exact = _f64_attention(qn, kn_, vn, causal)
+    scale = _f64_attention(qn, kn_, np.abs(vn), causal)
+    got, plain = got.double().numpy(), plain.double().numpy()
+    _, e = np.frexp(scale.astype(np.float32))
+    ulp = np.ldexp(1.0, e - 8)
+    assert (np.abs(got - plain) / ulp).max() <= 4.0
+    k5_err, plain_err = got - exact, plain - exact
+    assert np.abs(k5_err).max() <= 1.5 * np.abs(plain_err).max()
+    assert np.square(k5_err).mean() <= 1.5 ** 2 * np.square(plain_err).mean()
+    broken = _k5_sliced(q, k, v, causal, drop_chunk=True).double().numpy()
+    assert (np.abs(broken - plain) / ulp).max() > 4.0
 
 
 def test_wrapper_checks_kernel_inputs():
@@ -596,7 +690,11 @@ def _f64_vjp(q, k, v, do, causal):
 
 BWD_SHAPES = [((2, 256, 4, 64), False), ((2, 256, 4, 64), True),
               ((1, 1024, 2, 64), False), ((1, 1024, 2, 64), True),
-              ((1, 256, 1, 128), False), ((1, 256, 1, 128), True)]
+              ((1, 256, 1, 128), False), ((1, 256, 1, 128), True),
+              ((1, 128, 1, 256), False), ((1, 128, 1, 256), True),
+              ((1, 128, 1, 384), False), ((1, 128, 1, 384), True),
+              ((1, 128, 1, 512), False), ((1, 128, 1, 512), True),
+              ((1, 128, 1, 640), False), ((1, 128, 1, 640), True)]
 
 
 @pytest.mark.parametrize("shape,causal", BWD_SHAPES)
@@ -651,34 +749,54 @@ def test_plain_lse_matches_library_residuals(shape, causal):
                                          (3, 2048, 2048, 8, 64),
                                          (2, 192, 320, 3, 128),
                                          (2, 640, 128, 2, 256),
+                                         (2, 320, 192, 3, 384),
+                                         (1, 2048, 2048, 4, 512),
+                                         (2, 192, 320, 2, 640),
+                                         (1, 256, 128, 2, 1024),
+                                         (3, 128, 192, 1, 2048),
                                          (65_537, 128, 128, 1, 64)])
 @pytest.mark.parametrize("which", ["dkv", "dq"])
 def test_bwd_grid_decode_covers_every_block(b, tq, tk, h, d, which):
-    """K6's and K7's 1-D grids: every (batch, head, tile) once, tiles
-    fastest, past grid.z's cap; K6 tiles the keys (128 a CTA, 64 at
-    D = 256), K7 the queries (128 a CTA); no CTA splits the columns."""
+    """K6's and K7's 1-D grids: every (batch, head x column slice, tile)
+    once, tiles fastest, past grid.z's cap; K6 tiles the keys (128 a CTA,
+    64 at D = 256), K7 the queries (128 a CTA); up to D = 256 no CTA splits
+    the columns, from 384 up each of a head's 128-column slices is written
+    by one slot."""
     tiles, hc, total = flash_kernel.bwd_launch_grid(b, tq, tk, h, d, which)
-    rows = 128 if which == "dq" or d <= 128 else 64
+    rows = 64 if which == "dkv" and d == 256 else 128
     assert flash_kernel.bwd_tile_rows(d, which) == rows
     assert tiles == -(-(tk if which == "dkv" else tq) // rows)
-    assert hc == h
+    slices = BWD_SLICES.get(d, 1)
+    assert flash_kernel.col_slices(d, which) == slices
+    assert hc == h * slices
     assert total == tiles * hc * b <= flash_kernel.MAX_GRID_BLOCKS
     block = np.arange(total, dtype=np.int64)
     bi, hy, m = flash_kernel.grid_decode(block, tiles, hc)
     assert bi.min() == 0 and bi.max() == b - 1
     np.testing.assert_array_equal((bi * hc + hy) * tiles + m, block)
+    _columns_once(hy, h, slices, d)
 
 
 @pytest.mark.parametrize("d,which,want", [
     (64, "dkv", (84_480, 3)), (128, "dkv", (116_480, 3)),
     (256, "dkv", (215_040, 2)), (64, "dq", (132_096, 3)),
-    (128, "dq", (164_864, 3)), (256, "dq", (230_400, 3))])
+    (128, "dq", (164_864, 3)), (256, "dq", (230_400, 3)),
+    (384, "dkv", (198_144, 4)), (512, "dkv", (198_144, 4)),
+    (640, "dkv", (198_144, 4)), (1024, "dkv", (198_144, 4)),
+    (2048, "dkv", (198_144, 4)), (384, "dq", (181_248, 3)),
+    (512, "dq", (181_248, 3)), (640, "dq", (181_248, 3)),
+    (1024, "dq", (181_248, 3)), (2048, "dq", (181_248, 3))])
 def test_bwd_smem_fits_a_block(d, which, want):
     """K6's and K7's shared memory, as the source sizes it, within the
     232,448 bytes a block takes: K6 K and V of 128 keys (64 and the 16 KB
     P hand-over at D = 256) and Q/dO/lse/di stages of 64 queries (32 at
     D = 128); K7 Q and dO of
-    128 queries and K/V stages of 128, 64 or 32 keys; at least 2 stages."""
+    128 queries and K/V stages of 128, 64 or 32 keys; at least 2 stages.
+    From D = 384 up the same at every head dim (D streams in 64-column
+    chunks): K6 4 chunk stages of 40 KB (K and V boxes of 128 keys, Q and
+    dO of 32 queries) and 2 slice stages of 16,640 bytes (Q and dO of 128
+    columns, lse, di); K7 3 of 48 KB (Q and dO of 128 queries, K and V of
+    64 keys) and 2 of 16 KB (K of 128 columns)."""
     got = flash_kernel.bwd_smem_bytes(d, which, parts=True)
     assert got == want
     assert got[0] + 256 <= flash_kernel.SMEM_MAX and got[1] >= 2
@@ -704,7 +822,7 @@ def _tile_coverage(tiles, tq, tk, causal):
 
 
 @pytest.mark.parametrize("t", [64, 192, 320, 512, 1024])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 384, 512, 640, 1024, 2048])
 @pytest.mark.parametrize("which", ["dkv", "dq"])
 def test_bwd_causal_schedule_covers_the_lower_triangle_once(t, d, which):
     """A numpy model of K6's and K7's causal tile walk (``bwd_tiles``, the
@@ -722,7 +840,7 @@ def test_bwd_causal_schedule_covers_the_lower_triangle_once(t, d, which):
     np.testing.assert_array_equal(count, np.ones((t, tk), dtype=np.int64))
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 384, 512, 640, 1024, 2048])
 @pytest.mark.parametrize("which", ["dkv", "dq"])
 def test_bwd_causal_schedule_starts_the_longest_first(d, which):
     """Under causal masking the CTAs with the most tiles launch first: K6's
@@ -745,6 +863,102 @@ def test_bwd_cost_counts_the_products():
     reads = 2 * 2 * 4 * 64 * (2 * 256 + 2 * 128) + 8 * 2 * 4 * 256
     assert b_dkv == reads + 2 * 2 * 4 * 64 * 2 * 128
     assert b_dq == reads + 2 * 2 * 4 * 64 * 256
+
+
+def _bwd_sliced(q, k, v, o, lse, do, causal, drop_chunk=False):
+    """K6's and K7's arithmetic from D = 384 up (``flash_bwd_dkv_sliced``,
+    ``flash_bwd_dq_sliced``) on the CPU: the products reduced over D (K6
+    S^T = K Q^T and dP^T = V dO^T per 32-query tile; K7 S = Q K^T and
+    dP = dO V^T per 64-key tile) summed in f32 over D's 64-column chunks
+    in the kernels' order; P = exp2(s * log2(e) / sqrt(D) - lse * log2(e))
+    (0 past Tk and, causal, above the diagonal), dS = (dP - di) P / sqrt(D);
+    P and dS rounded to bf16 before the register-A products, which add
+    tile by tile into each 128-column slice of dV, dK (K6: over the query
+    tiles from the key tile's first, causal) and dQ (K7: over the key
+    tiles); the results rounded to bf16 once. Each slice recomputes the
+    same sums in the same order (the same bits), so they are taken once
+    here. ``drop_chunk`` leaves D's last chunk out of the sums."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    c2 = scale * math.log2(math.e)
+    qf, kf, vf, dof = (x.float().transpose(1, 2) for x in (q, k, v, do))
+    pad = -tk % 128
+    kf = torch.nn.functional.pad(kf, (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(vf, (0, 0, 0, pad))
+    lse2 = lse.float() * math.log2(math.e)                  # [B, H, Tq]
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2)   # [B, H, Tq]
+    chunks = range(0, d - 64 if drop_chunk else d, 64)
+
+    def chunked(a, bt):
+        acc = torch.zeros(*a.shape[:-1], bt.shape[-2])
+        for ch in chunks:
+            acc = acc + a[..., ch:ch + 64] @ bt[..., ch:ch + 64].transpose(-1, -2)
+        return acc
+
+    def probs(s, qpos, kpos, lrow):
+        p = torch.exp2((s.double() * c2 - lrow.double()).float())
+        hidden = (kpos >= tk) | ((kpos > qpos) if causal else False)
+        return p.masked_fill(hidden, 0.0)
+
+    # K6: every key tile of 128 at once, query tiles of 32 in order (under
+    # causal masking a key tile starts at its own first query: the earlier
+    # tiles would add only P = 0)
+    keys = torch.arange(tk + pad)[:, None]
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for qs in range(0, tq, 32):
+        qpos = torch.arange(qs, qs + 32)[None, :]
+        st = chunked(kf, qf[:, :, qs:qs + 32])               # [B, H, Tk, 32]
+        dpt = chunked(vf, dof[:, :, qs:qs + 32])
+        pt = probs(st, qpos, keys, lse2[:, :, None, qs:qs + 32])
+        dst = (dpt - di[:, :, None, qs:qs + 32]) * pt * scale
+        if causal:
+            live = (keys // 128) * 128 <= qs   # the key tile reaches qs
+            pt, dst = pt * live, dst * live
+        dv = dv + pt.to(torch.bfloat16).float() @ dof[:, :, qs:qs + 32]
+        dk = dk + dst.to(torch.bfloat16).float() @ qf[:, :, qs:qs + 32]
+    # K7: all queries at once, key tiles of 64 in order
+    qpos = torch.arange(tq)[:, None]
+    dq = torch.zeros_like(qf)
+    for n0 in range(0, tk, 64):
+        kpos = torch.arange(n0, n0 + 64)[None, :]
+        s = chunked(qf, kf[:, :, n0:n0 + 64])
+        dp = chunked(dof, vf[:, :, n0:n0 + 64])
+        p = probs(s, qpos, kpos, lse2[..., None])
+        ds = (dp - di[..., None]) * p * scale
+        dq = dq + ds.to(torch.bfloat16).float() @ kf[:, :, n0:n0 + 64]
+    return tuple(x.transpose(1, 2).to(torch.bfloat16)
+                 for x in (dq, dk[:, :, :tk], dv[:, :, :tk]))
+
+
+@pytest.mark.parametrize("shape,tk,causal", [
+    ((1, 256, 1, 384), None, False), ((1, 256, 1, 384), None, True),
+    ((1, 192, 1, 512), None, True), ((1, 128, 1, 640), 192, False)])
+def test_bwd_sliced_arithmetic_within_chip_gates(shape, tk, causal):
+    """The chip's gates on K6 and K7 hold for their arithmetic from D = 384
+    up (the reductions over D in 64-column chunks, P and dS recomputed per
+    slice): per gradient, the max and rms error against an f64 backward at
+    most 1.5x the plain backward's, and within 2% of the plain backward's
+    magnitude; lengths past the 128-row tiles included. A chunk left out
+    of the sums moves it past the f64 gate."""
+    q, k, v = _port(_qkv(shape, seed=19, tk=tk))
+    do = _port([np.random.default_rng(20).standard_normal(
+        shape).astype(np.float32)])[0]
+    o, lse = flash_kernel.flash_attention_plain(q, k, v, causal,
+                                                return_lse=True)
+    plain = flash_kernel.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    got = _bwd_sliced(q, k, v, o, lse, do, causal)
+    exact = _f64_vjp(*(x.float().numpy() for x in (q, k, v, do)), causal)
+    broken = _bwd_sliced(q, k, v, o, lse, do, causal, drop_chunk=True)
+    for name, g, p, ex, bad in zip(("dq", "dk", "dv"), got, plain, exact,
+                                   broken):
+        g, p, bad = (x.double().numpy() for x in (g, p, bad))
+        assert np.abs(g - p).max() <= BWD_LIB_TOL * np.abs(p).max(), name
+        ge, pe = g - ex, p - ex
+        assert np.abs(ge).max() <= 1.5 * np.abs(pe).max(), name
+        assert np.square(ge).mean() <= 1.5 ** 2 * np.square(pe).mean(), name
+        assert np.abs(bad - ex).max() > 1.5 * np.abs(pe).max(), name
 
 
 def test_k5_refuses_to_detach_a_graph():
