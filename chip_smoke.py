@@ -266,7 +266,7 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    error, and each segment's roofline attribution, whose bound must not
    pass its measured wall per batch (``BOUND_RATIO_MAX``);
 19. serving_autotune: ``serve_pipeline(autotune=True, tune_every=50)`` on
-   the sparse CSR path (2,048 frames) against the same server without a
+   the sparse CSR path (1,024 frames) against the same server without a
    Tuner, pipelined and serial: a tuned server whose cost model declines
    every stitch replies byte for byte as the un-tuned one; a tuned server
    with the cost model as it comes replies byte for byte as the un-tuned
@@ -344,6 +344,23 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    prefix and the adaptive kernel fit against the native one within
    ``VW_RTOL``/``VW_ATOL``, two calls bit for bit, the transform within
    ``VW_PREDICT_REL`` of the host f64 dot.
+29b. text_main, adult_main, word2vec_main (the featurize, stages and train
+   layers): ``TextFeaturizer`` (2^18 features, IDF, stop words) fit and
+   transform on 50,000 seeded book-review-shaped texts, every token hashed
+   by the native ``murmur3_batch``, into ``LightGBMClassifier`` on the
+   sparse column (31 leaves, 50 iterations, the sparse scan: K4) and a
+   fused CSR transform of a 10,000-review holdout (K3) within 1e-6 of the
+   unfused one, its first 3 trees refit on the card and the CPU over 5,000
+   reviews the same; ``CleanMissingData`` -> ``TrainClassifier`` over
+   32,561 Adult-shaped rows (string label, 8 string columns with None,
+   100 iterations on the device route: K1, K2), the holdout scores within
+   1e-5 of the host f64 traversal, ``ComputeModelStatistics`` and
+   ``ComputePerInstanceStatistics`` on its 16,281-row holdout, a 3-tree
+   refit's trees, scores and statistics the CPU's; ``Word2Vec``
+   (vectorSize 100, window 3, 3 iterations, 4 negatives, batch 1,024) on
+   5,000 reviews on the card twice bit for bit, its initial matrix the
+   CPU's bit for bit, and on 500 reviews within ``W2V_VECTOR_TOL`` of the
+   CPU's;
 30. mesh_dense, mesh_sparse, mesh_vw: the data-parallel fits
    (``parallel/mesh.py``, ``parallel/launch.py``), their ranks spawned
    once from this process for the three phases (``mesh_phases``,
@@ -417,8 +434,9 @@ main path, error
 against its plain version, ms, plain_ms, bound_ms, bound_by and library_ms, and
 its launches on the new paths (``launches_on_new_paths``: dense_variants and
 its GOSS scan, ranker_main, categorical_main, sparse_variants and its compacted
-stream, sparse_wide, serving_sparse, serving_transformer, mega_sparse at K=8
-and mega_transformer at K=4, through the graph replays, serving_autotune,
+stream, sparse_wide, text_main (K3, K4), adult_main (K1, K2), serving_sparse,
+serving_transformer, mega_sparse at K=8 and mega_transformer at K=4, through
+the graph replays, serving_autotune,
 train_transformer (K5) and its causal run (K5-K7), moe_main's transform (K5)
 and training (K5-K7), and the mesh phases' runs, summed over their ranks);
 K1's and K4's rows carry their f64 entries' checks, ms and bounds on a mesh
@@ -4643,7 +4661,7 @@ MEGA_KS = (1, 8)
 MEGA_SEQ_KS = (1, 4)          # and of the transformer's (4 batches of 64)
 TUNER_STEPS = 3
 TUNER_ROWS = 16_384           # rows a Tuner measurement scores
-AUTOTUNE_REQUESTS = 2048
+AUTOTUNE_REQUESTS = 1024      # 2,048 until PR 23: cut for the script's time
 AUTOTUNE_EVERY = 50
 BOUND_RATIO_MAX = 1.05        # a segment's bound / measured wall per batch
 DEPOSIT_FRAMES = 512
@@ -6297,6 +6315,393 @@ def vw_main(torch, smi) -> tuple:
 # data-parallel fits across processes (parallel/mesh.py)
 # ---------------------------------------------------------------------------
 
+# the featurization and train layers (ROADMAP A 10.1-10.2): text_main
+# (TextFeaturizer -> the sparse fit, K4, and the fused CSR transform, K3),
+# adult_main (CleanMissingData -> TrainClassifier, K1 and K2) and
+# word2vec_main (Word2Vec's training step on the card)
+REVIEW_ROWS = 50_000          # 5x the notebook's 10,000 book reviews
+REVIEW_HOLDOUT = 10_000
+REVIEW_VOCAB = 30_000         # Zipf-distributed words (exponent 1.07)
+REVIEW_TOKENS = 80            # tokens a review (Poisson)
+REVIEW_SENTIMENT = 60         # sentiment words a class
+REVIEW_REFIT_ROWS = 5_000     # the card-against-CPU refit's prefix
+TEXT_ITERS = 50
+TEXT_STOPWORDS = ("a", "an", "and", "are", "as", "at", "be", "by", "for",
+                  "from", "has", "he", "in", "is", "it", "its", "of", "on",
+                  "that", "the", "to", "was", "were", "will", "with")
+ADULT_ROWS = 32_561           # the UCI Adult train split
+ADULT_HOLDOUT = 16_281        # and its test split
+ADULT_ITERS = 100
+ADULT_NUMERIC = ("age", "fnlwgt", "education_num", "capital_gain",
+                 "capital_loss", "hours_per_week")
+# (column, published cardinality with "?" counted, share of "?" -> None)
+ADULT_STRINGS = (("workclass", 9, 0.056), ("education", 16, 0.0),
+                 ("marital_status", 7, 0.0), ("occupation", 15, 0.057),
+                 ("relationship", 6, 0.0), ("race", 5, 0.0), ("sex", 2, 0.0),
+                 ("native_country", 42, 0.018))
+ADULT_AUC_TOL = 1e-6          # a swap of two scores within the 1e-5 gate
+W2V_REVIEWS = 5_000
+W2V_CPU_REVIEWS = 500         # the card-against-CPU run's prefix
+W2V_PARAMS = dict(vectorSize=100, windowSize=3, minCount=2, numIterations=3,
+                  numNegatives=4, batchSize=1024)
+# card against CPU, of max |v|: f32 sums of D = 100 products and of the
+# batch's mean in another order (~1e-7 relative a step), carried through a
+# prefix's ~700 SGD steps of lr 0.1 (measured on the CPU against the
+# reference's jitted step: 4.5e-7 of 1.0 after 300 steps)
+W2V_VECTOR_TOL = 1e-4
+
+
+def reviews_like(n: int, seed: int):
+    """Seeded stand-ins for the Amazon book reviews of the reference's
+    "TextAnalytics - Amazon Book Reviews" notebook: a vocabulary of
+    REVIEW_VOCAB made-up words (the stop words first) drawn with Zipf
+    frequencies, ~REVIEW_TOKENS tokens a review, two balanced classes
+    carried by REVIEW_SENTIMENT mid-frequency words each (~3 a review,
+    80% from the review's own class). Returns (texts, labels)."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", dtype=np.uint8)
+    cand = rng.choice(letters, (2 * REVIEW_VOCAB, 10)).view("S10")[:, 0]
+    cut = rng.integers(3, 11, 2 * REVIEW_VOCAB)
+    words = dict.fromkeys(TEXT_STOPWORDS)
+    for w, k in zip(cand, cut):
+        words.setdefault(w[:k].decode())
+        if len(words) == REVIEW_VOCAB:
+            break
+    vocab = np.array(list(words), dtype=object)
+    p = 1.0 / (np.arange(1, REVIEW_VOCAB + 1) + 2.7) ** 1.07
+    senti = rng.choice(np.arange(200, 2000), 2 * REVIEW_SENTIMENT,
+                       replace=False)
+    y = (rng.random(n) < 0.5).astype(np.float64)
+    n_tok = np.maximum(5, rng.poisson(REVIEW_TOKENS, n))
+    total = int(n_tok.sum())
+    toks = rng.choice(REVIEW_VOCAB, total, p=p / p.sum())
+    label = np.repeat(y, n_tok).astype(bool)
+    hit = rng.random(total) < 3.0 / REVIEW_TOKENS
+    side = np.where(rng.random(total) < 0.8, label, ~label)
+    word = rng.integers(0, REVIEW_SENTIMENT, total) + np.where(
+        side, 0, REVIEW_SENTIMENT)
+    toks = np.where(hit, senti[word], toks)
+    texts = np.empty(n, dtype=object)
+    texts[:] = [" ".join(ws) for ws in
+                np.split(vocab[toks], np.cumsum(n_tok)[:-1])]
+    return texts, y
+
+
+def text_main(torch, smi):
+    """``TextFeaturizer`` at its defaults (2^18 features, IDF) with the
+    stop-words remover, fit and transform on REVIEW_ROWS seeded reviews
+    (``reviews_like``), then ``LightGBMClassifier`` (31 leaves, TEXT_ITERS
+    iterations) on the sparse column on the card's route (the sparse
+    scan), and a fused transform of the REVIEW_HOLDOUT holdout with the
+    ``csr`` layout. Gates: every token hashed by the native
+    ``murmur3_batch``; K4 launched in the fit and K3 in the fused
+    transform, which falls back nowhere and is within SERVE_PROBA_TOL of
+    the unfused ``predict_csr`` scores; the first ITERS_REFIT trees of a
+    card fit on the first REVIEW_REFIT_ROWS rows equal a CPU fit's on the
+    same route. Returns (the launches, the texts)."""
+    from mmlspark_tpu_torch import native_loader
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.featurize import TextFeaturizer
+    from mmlspark_tpu_torch.gbdt import LightGBMClassifier
+    from mmlspark_tpu_torch.gbdt import gather_kernel as gk
+    from mmlspark_tpu_torch.gbdt import sparse_hist_kernel as shk
+
+    t0 = time.perf_counter()
+    texts, y = reviews_like(REVIEW_ROWS + REVIEW_HOLDOUT, SEED + 23)
+    gen_s = time.perf_counter() - t0
+    n = REVIEW_ROWS
+    train = DataFrame.from_dict({"text": texts[:n], "label": y[:n]})
+    hold = DataFrame.from_dict({"text": texts[n:]})
+    slow = native_loader.uses[("murmur3_batch", "numpy")]
+    t0 = time.perf_counter()
+    featurizer = TextFeaturizer(inputCol="text", outputCol="features",
+                                useStopWordsRemover=True).fit(train)
+    feat_fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feats = featurizer.transform(train).select("features", "label")
+    hold_rows = featurizer.transform(hold).select("features")
+    feat_tr_s = time.perf_counter() - t0
+    if native_loader.uses[("murmur3_batch", "numpy")] != slow:
+        fail("text_main: TextFeaturizer hashed tokens on the numpy path (the "
+             "native murmur3_batch did not load)")
+    rows = feats.column("features")
+    nnz = int(sum(len(r["indices"]) for r in rows))
+    shk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = LightGBMClassifier(numLeaves=31, numIterations=TEXT_ITERS,
+                               labelCol="label").fit(feats)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    k4 = shk.launches
+    check_route(model.booster, "scan", "text_main")
+    t0 = time.perf_counter()
+    unfused = _raw(model.transform(hold_rows))
+    unfused_s = time.perf_counter() - t0
+    label = "LightGBMClassificationModel"
+    fused = PipelineModel([model]).fuse()
+    fused.set_tuning(layout={label: "csr"},
+                     kernel_variants={label: {"*": "forest.csr"}})
+    gk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = _raw(fused.transform(hold_rows))
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    k3 = gk.launches
+    st = fused.fusion_stats()
+    diff = float(np.abs(raw - unfused).max())
+    holdout_auc = auc(raw[:, 1], y[n:])
+    cut = DataFrame.from_dict({"features": rows[:REVIEW_REFIT_ROWS],
+                               "label": y[:REVIEW_REFIT_ROWS]})
+    _, _, ref = refit_compare(
+        torch, lambda: LightGBMClassifier(numLeaves=31, labelCol="label",
+                                          numIterations=ITERS_REFIT),
+        cut, ITERS_REFIT, "text_main", route="scan")
+    log({"phase": "text_main", "card": smi, "rows": n,
+         "holdout_rows": len(texts) - n, "generate_seconds": gen_s,
+         "featurizer_fit_seconds": feat_fit_s,
+         "featurizer_transform_seconds": feat_tr_s,
+         "featurizer_rows_per_s": len(texts) / feat_tr_s,
+         "num_features": featurizer.get("numFeatures"), "nnz": nnz,
+         "fit_seconds": fit_s, "route": model.booster.route,
+         "unfused_transform_seconds": unfused_s,
+         "fused_transform_seconds": fused_s, "holdout_auc": holdout_auc,
+         "k4_launches": k4, "k3_launches": k3,
+         "max_abs_diff_fused_vs_unfused": diff,
+         "fallbacks": st["fallbacks"], "compile_cache": st["compile_cache"],
+         "ring": st["per_segment"].get(label, {}),
+         "refit_rows": REVIEW_REFIT_ROWS,
+         "trees_held": ITERS_REFIT, **ref,
+         "cuts": "REVIEW_ROWS 50,000 of generated reviews (5x the notebook's "
+                 "10,000); none of the widths"})
+    if k4 < 1 or k3 < 1:
+        fail(f"text_main: K4 launched {k4} times in the fit, K3 {k3} in the "
+             f"fused transform")
+    if st["fallbacks"]:
+        fail(f"text_main: the fused CSR transform fell back: {st['fallbacks']}")
+    if diff > SERVE_PROBA_TOL:
+        fail(f"text_main: fused CSR scores differ from the unfused "
+             f"predict_csr ones by {diff}")
+    bad = [d for d in ref["first_diff_per_tree"] if d is not None]
+    if bad:
+        fail(f"text_main: the card's trees part from the CPU's: {bad[0]}")
+    return {"sparse_hist": k4, "csr_gather": k3}, texts
+
+
+def adult_like(n: int, seed: int) -> dict:
+    """Seeded rows shaped like UCI Adult (census income): its 6 numeric
+    columns and 8 string columns at the published cardinalities, None where
+    Adult has "?" (workclass, occupation, native-country, at its rates),
+    Zipf-skewed levels, and the string label ``income`` (">50K" for the top
+    24% of a logistic score over the columns)."""
+    rng = np.random.default_rng(seed)
+    cols = {"age": rng.integers(17, 91, n).astype(np.float64),
+            "fnlwgt": np.round(rng.lognormal(12.0, 0.5, n)),
+            "education_num": rng.integers(1, 17, n).astype(np.float64),
+            "capital_gain": np.where(rng.random(n) < 0.08, np.round(
+                rng.lognormal(8.5, 1.0, n)), 0.0),
+            "capital_loss": np.where(rng.random(n) < 0.05, np.round(
+                rng.lognormal(7.4, 0.3, n)), 0.0),
+            "hours_per_week": np.clip(np.round(rng.normal(40, 12, n)), 1, 99)}
+    z = (0.04 * (cols["age"] - 38) + 0.3 * (cols["education_num"] - 10)
+         + 0.03 * (cols["hours_per_week"] - 40) + 4e-4 * cols["capital_gain"])
+    for name, k, missing in ADULT_STRINGS:
+        known = k - (1 if missing else 0)
+        w = rng.zipf(1.6, known).astype(np.float64)
+        idx = rng.choice(known, n, p=w / w.sum())
+        z = z + rng.normal(0.0, 0.6, known)[idx]
+        vals = np.array([f"{name}_{i}" for i in range(known)], object)[idx]
+        if missing:
+            vals[rng.random(n) < missing] = None
+        cols[name] = vals
+    z = z + rng.logistic(0.0, 1.0, n)
+    cols["income"] = np.where(z > np.quantile(z, 0.76), ">50K",
+                              "<=50K").astype(object)
+    return cols
+
+
+def _adult_fit(torch, train, hold, iters: int):
+    """CleanMissingData -> TrainClassifier(LightGBMClassifier) fit on
+    ``train`` and scored on ``hold``; returns (model, scored holdout with
+    the label indexed, fit seconds)."""
+    from mmlspark_tpu_torch.featurize import CleanMissingData, ValueIndexer
+    from mmlspark_tpu_torch.gbdt import LightGBMClassifier
+    from mmlspark_tpu_torch.train import TrainClassifier
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clean = CleanMissingData(inputCols=list(ADULT_NUMERIC)).fit(train)
+    model = TrainClassifier(labelCol="income").set_model(LightGBMClassifier(
+        numIterations=iters, numLeaves=31)).fit(clean.transform(train))
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    scored = model.transform(clean.transform(hold))
+    label = ValueIndexer(inputCol="income", outputCol="income").fit(train)
+    return model, label.transform(scored), fit_s
+
+
+def _adult_stats(scored) -> dict:
+    from mmlspark_tpu_torch.train import (ComputeModelStatistics,
+                                          ComputePerInstanceStatistics)
+
+    row = ComputeModelStatistics(labelCol="income").transform(scored).rows()[0]
+    loss = ComputePerInstanceStatistics(labelCol="income").transform(
+        scored).column("log_loss")
+    return {"confusion_matrix": np.asarray(row["confusion_matrix"]),
+            **{k: float(row[k]) for k in ("accuracy", "precision", "recall",
+                                          "AUC")},
+            "log_loss": np.asarray(loss, np.float64)}
+
+
+def adult_main(torch, smi) -> dict:
+    """``CleanMissingData`` -> ``TrainClassifier(LightGBMClassifier(
+    numIterations=ADULT_ITERS, numLeaves=31))`` on ADULT_ROWS seeded
+    Adult-shaped rows (``adult_like``; the string label reindexed, the 14
+    columns auto-featurized: 6 numeric, 99 one-hot slots) on the card's
+    device route (the native engine off: a fit this small would take it),
+    then ``ComputeModelStatistics`` and ``ComputePerInstanceStatistics``
+    on the ADULT_HOLDOUT holdout. Gates: K1 launched in the fit (and K2
+    logged); the holdout scores within 1e-5 of the host f64 traversal of
+    the card's model; a refit of ITERS_REFIT iterations on the card and on
+    the CPU (the scan pinned on both): the same trees, holdout scores
+    within 1e-5 and the statistics of both outputs equal (the confusion
+    matrix, accuracy, precision and recall exactly, AUC within
+    ADULT_AUC_TOL, every per-row log loss within 1e-5: its derivative in
+    the score is at most 1). Returns the launches."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.runtime import use_device
+
+    data = adult_like(ADULT_ROWS + ADULT_HOLDOUT, SEED + 24)
+    train = DataFrame.from_dict({k: v[:ADULT_ROWS] for k, v in data.items()})
+    hold = DataFrame.from_dict({k: v[ADULT_ROWS:] for k, v in data.items()})
+    with Env(**NATIVE_OFF):
+        zero_launches()
+        model, scored, fit_s = _adult_fit(torch, train, hold, ADULT_ITERS)
+        got = read_launches()
+    booster = model.get("model").booster
+    X = np.stack(list(scored.column("features")))
+    raw = np.stack(list(scored.column("scores")))[:, 1]
+    host_diff = float(np.abs(raw - host_raw32(booster, X)).max())
+    stats = _adult_stats(scored)
+    refit = {}
+    for dev, env in ((DEVICE, NATIVE_OFF), ("cpu", {**NATIVE_OFF, **CPU_SCAN})):
+        with use_device(dev), Env(**env):
+            m, s, secs = _adult_fit(torch, train, hold, ITERS_REFIT)
+        refit[dev] = (m.get("model").booster, s, secs)
+    (bc, sc, cuda_s), (bp, sp, cpu_s) = refit[DEVICE], refit["cpu"]
+    diffs = [first_diff(bc.trees[i][0], bp.trees[i][0])
+             for i in range(ITERS_REFIT)]
+    score_diff = float(np.abs(np.stack(list(sc.column("scores")))
+                              - np.stack(list(sp.column("scores")))).max())
+    st_c, st_p = _adult_stats(sc), _adult_stats(sp)
+    log({"phase": "adult_main", "card": smi, "rows": ADULT_ROWS,
+         "holdout_rows": ADULT_HOLDOUT, "features": X.shape[1],
+         "fit_seconds": fit_s, "route": booster.route, "launches": got,
+         "max_abs_diff_vs_host_f64": host_diff,
+         **{k: (v.tolist() if k == "confusion_matrix" else v)
+            for k, v in stats.items() if k != "log_loss"},
+         "mean_log_loss": float(stats["log_loss"].mean()),
+         "refit_iterations": ITERS_REFIT, "refit_cuda_seconds": cuda_s,
+         "refit_cpu_seconds": cpu_s, "refit_routes": [bc.route, bp.route],
+         "refit_first_diff_per_tree": diffs,
+         "refit_max_abs_score_diff": score_diff,
+         "refit_stats_cuda": {k: v for k, v in st_c.items()
+                              if k not in ("confusion_matrix", "log_loss")},
+         "refit_auc_diff": abs(st_c["AUC"] - st_p["AUC"]),
+         "refit_max_log_loss_diff": float(np.abs(
+             st_c["log_loss"] - st_p["log_loss"]).max()),
+         "cuts": "none (the Adult train and test splits' sizes)"})
+    check_route(booster, "scan", "adult_main")
+    if got["hist"] + got["hist_count"] < 1:
+        fail(f"adult_main: K1 never launched in the fit: {got}")
+    if host_diff > 1e-5:
+        fail(f"adult_main: card scores differ from the host f64 traversal "
+             f"by {host_diff}")
+    for b in (bc, bp):
+        check_route(b, "scan", "adult_main refit")
+    bad = [d for d in diffs if d is not None]
+    if bad:
+        fail(f"adult_main: the card's trees part from the CPU's: {bad[0]}")
+    if score_diff > 1e-5:
+        fail(f"adult_main: the card's refit scores differ from the CPU's by "
+             f"{score_diff}")
+    if not (np.array_equal(st_c["confusion_matrix"], st_p["confusion_matrix"])
+            and all(st_c[k] == st_p[k] for k in ("accuracy", "precision",
+                                                 "recall"))
+            and abs(st_c["AUC"] - st_p["AUC"]) <= ADULT_AUC_TOL
+            and np.abs(st_c["log_loss"] - st_p["log_loss"]).max() <= 1e-5):
+        fail(f"adult_main: the statistics of the card's refit differ from "
+             f"the CPU's: {st_c} vs {st_p}")
+    return got
+
+
+def word2vec_main(torch, smi, texts) -> None:
+    """``Word2Vec(**W2V_PARAMS)`` trained on the card over the first
+    W2V_REVIEWS reviews of text_main, twice. Gates: its initial matrix (the
+    threefry normal draw) equals the CPU's bit for bit; the two runs give
+    the same vectors and losses bit for bit; a fit on the first
+    W2V_CPU_REVIEWS reviews on the card and on the CPU within
+    W2V_VECTOR_TOL of max |v|."""
+    from mmlspark_tpu_torch.core import threefry
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.featurize import Word2Vec
+    from mmlspark_tpu_torch.runtime import use_device
+
+    df = DataFrame.from_dict({"text": texts[:W2V_REVIEWS]})
+    runs = []
+    for _ in range(2):
+        est = Word2Vec(inputCol="text", outputCol="vec", **W2V_PARAMS)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = est.fit(df)
+        runs.append((model, est.last_losses, time.perf_counter() - t0))
+    (m1, l1, s1), (m2, l2, s2) = runs
+    vocab, vecs = m1.get("vocab"), m1.get("vectors")
+    v, d = vecs.shape
+    key = threefry.split(threefry.prng_key(0, DEVICE), 2)[0]
+    init = threefry.normal(key, v * d).cpu().numpy()
+    init_cpu = threefry.normal(key.cpu(), v * d).numpy()
+    repeat = (np.array_equal(vecs.view(np.int32),
+                             m2.get("vectors").view(np.int32))
+              and np.array_equal(l1.view(np.int32), l2.view(np.int32)))
+    small = DataFrame.from_dict({"text": texts[:W2V_CPU_REVIEWS]})
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        with use_device(dev):
+            t0 = time.perf_counter()
+            got[dev] = (Word2Vec(inputCol="text", outputCol="vec",
+                                 **W2V_PARAMS).fit(small).get("vectors"),
+                        time.perf_counter() - t0)
+    (vc, small_s), (vp, cpu_s) = got[DEVICE], got["cpu"]
+    rel = float(np.abs(vc - vp).max() / np.abs(vp).max())
+    steps = len(l1)
+    log({"phase": "word2vec_main", "card": smi, "reviews": W2V_REVIEWS,
+         "vocab": v, "dim": d, "steps": steps,
+         "pairs_trained": steps * W2V_PARAMS["batchSize"],
+         "seconds": [s1, s2], "steps_per_s": steps / s1,
+         "loss_first": float(l1[0]), "loss_last": float(l1[-1]),
+         "init_bitwise_cpu": bool(np.array_equal(init.view(np.int32),
+                                                 init_cpu.view(np.int32))),
+         "bitwise_repeat": repeat, "cpu_reviews": W2V_CPU_REVIEWS,
+         "cpu_prefix_card_seconds": small_s, "cpu_prefix_cpu_seconds": cpu_s,
+         "max_rel_diff_vs_cpu": rel,
+         "synonyms": m1.find_synonyms(vocab[100], 3),
+         "cuts": "W2V_REVIEWS 5,000 of text_main's reviews (the issue's); "
+                 "the CPU comparison on its first 500"})
+    if not np.array_equal(init.view(np.int32), init_cpu.view(np.int32)):
+        fail("word2vec_main: the card's initial matrix is not the CPU's")
+    if not repeat:
+        fail("word2vec_main: two runs on the card gave different bits")
+    if rel > W2V_VECTOR_TOL:
+        fail(f"word2vec_main: card vectors differ from the CPU's by {rel} of "
+             f"max |v|")
+
+
 MESH_MAX_CARDS = 4
 MESH_LAUNCH_TIMEOUT = 300     # seconds a launch of ranks may take, then killed
 MESH_ITERS_DENSE = 20
@@ -6304,9 +6709,9 @@ MESH_PER_SPLIT_TREES = 3
 MESH_ITERS_SPARSE = 2
 MESH_VW_PASSES = 2
 MESH_F64_REL = 1e-9           # K1/K4 f64 entries against plain, of sum |v|
-MESH_RANKER_ITERS = 5         # ranker_main's 20, cut for the script's time
+MESH_RANKER_ITERS = 2         # ranker_main's 20, cut for the script's time
 MESH_CKPT_ROWS = 524_288      # the dense cell's first rows
-MESH_CKPT_ITERS = 10
+MESH_CKPT_ITERS = 6           # 10 until PR 23: cut for the script's time
 MESH_CKPT_EVERY = 4
 MESH_CKPT_STOP = 4            # preempted as iteration 4 (0-based) starts
 
@@ -8740,6 +9145,16 @@ def main() -> int:
                                   values=vw_ds.values, labels=vw_ds.labels,
                                   weights=vw_ds.weights)
     del vw_ds
+    for phase in (text_main, adult_main, word2vec_main):
+        t_phase = time.perf_counter()
+        if phase is text_main:
+            paths["text_main"], texts = text_main(torch, smi)
+        elif phase is adult_main:
+            paths["adult_main"] = adult_main(torch, smi)
+        else:
+            word2vec_main(torch, smi, texts)
+        log({"phase": phase.__name__, "seconds": time.perf_counter() - t_phase})
+    del texts
     try:
         # the DNN mesh's single-card references alone on the card, then its
         # ranks beside the GBDT mesh's (both sets of ranks contended); the

@@ -17,10 +17,15 @@ image stages (``mmlspark_tpu_torch.image``, ``ops.image``,
 ``io.image.read_images``); ONNX import and export (``mmlspark_tpu_torch.onnx``:
 an imported graph runs as a ``GraphModule``, with a multi-input
 ``feedDict``); the VW online learner (``mmlspark_tpu_torch.vw``: hashing,
-featurizer, the native pass and ``vw_scan`` on the card, stages); and serving
+featurizer, the native pass and ``vw_scan`` on the card, stages); serving
 of any fitted pipeline over HTTP (``mmlspark_tpu_torch.serving``, with the
 frame wire in ``mmlspark_tpu_torch.io`` and metrics, traces and SLOs in
-``mmlspark_tpu_torch.obs``).
+``mmlspark_tpu_torch.obs``); and the featurization, utility and train
+layers: ``mmlspark_tpu_torch.featurize`` (TextFeaturizer's hashed sparse
+rows, the assemblers, indexers and cleaners, Word2Vec trained on the card),
+``mmlspark_tpu_torch.stages`` (column and row plumbing, minibatching, text
+preprocessing) and ``mmlspark_tpu_torch.train`` (TrainClassifier,
+TrainRegressor and the model statistics), over ``core.utils``.
 """
 
 __version__ = "0.1.0"

@@ -2317,3 +2317,100 @@ def test_nccl_sub_meshes_on_four_cards(cuda_device, tmp_path):
         assert pipe["depth"] == 2 and pipe["serial_fallback_partitions"] == 0
         assert r["pipe_sharding"]["segments"]["DNNModel"]["shards"] == 2
         assert r["pipe_launches"] == (2 * 2 if pipe["stage"] == 0 else 0)
+
+
+# ------------------------------------------ featurize and train on the card
+#
+# Word2Vec's training step (one captured CUDA graph a step) and
+# TextFeaturizer's rows through the sparse fit (K4) and the fused CSR
+# transform (K3), against the port on the CPU.
+
+def _reviews(n, seed=0):
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(300)]
+    pos, neg = ["great", "love", "superb"], ["awful", "hate", "dull"]
+    texts, y = [], []
+    for i in range(n):
+        label = i % 2
+        toks = list(rng.choice(words, 12)) + list(rng.choice(
+            pos if label else neg, 2))
+        rng.shuffle(toks)
+        texts.append(" ".join(toks))
+        y.append(float(label))
+    return texts, np.asarray(y)
+
+
+@pytest.mark.cuda
+def test_word2vec_on_the_card_repeats_and_matches_the_cpu(cuda_device):
+    """Two fits on the card give the same bits (deterministic algorithms,
+    the same captured step); their initial matrix (``threefry.normal``) is
+    the CPU's bit for bit; the vectors are within 1e-4 of max |v| of a CPU
+    fit (f32 sums in another order over ~60 steps)."""
+    from mmlspark_tpu_torch.core import threefry
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.featurize import Word2Vec
+    from mmlspark_tpu_torch.runtime import use_device
+
+    texts, _ = _reviews(400)
+    df = DataFrame.from_dict({"text": texts})
+    kw = dict(inputCol="text", outputCol="v", vectorSize=32, minCount=2,
+              numIterations=2, batchSize=256, seed=3)
+    runs = []
+    for dev in ("cuda", "cuda", "cpu"):
+        with use_device(dev):
+            est = Word2Vec(**kw)
+            runs.append((est.fit(df).get("vectors"), est.last_losses))
+    (a, la), (b, lb), (c, _) = runs
+    np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+    np.testing.assert_array_equal(la.view(np.uint32), lb.view(np.uint32))
+    assert np.abs(a - c).max() <= 1e-4 * np.abs(c).max()
+    key = threefry.split(threefry.prng_key(3, "cuda"), 2)[0]
+    n = a.size
+    np.testing.assert_array_equal(
+        threefry.normal(key, n).cpu().numpy().view(np.uint32),
+        threefry.normal(key.cpu(), n).numpy().view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_text_featurizer_rows_through_k4_and_k3_on_the_card(cuda_device,
+                                                           monkeypatch):
+    """TextFeaturizer (2^18 features) -> LightGBMClassifier on the card's
+    sparse route launches K4; the fused CSR transform launches K3, falls
+    back nowhere and is within 1e-6 of the unfused one; the card's first
+    trees are the CPU's on the same route."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.featurize import TextFeaturizer
+    from mmlspark_tpu_torch.gbdt import LightGBMClassifier
+
+    texts, y = _reviews(3000, seed=1)
+    df = DataFrame.from_dict({"text": texts, "label": y})
+    feats = TextFeaturizer(inputCol="text", outputCol="features",
+                           useStopWordsRemover=True).fit(df).transform(df)
+    feats = feats.select("features", "label")
+    sparse_hist_kernel.launches = 0
+    model = LightGBMClassifier(numIterations=5, numLeaves=15,
+                               labelCol="label").fit(feats)
+    assert sparse_hist_kernel.launches > 0
+    unfused = np.stack(list(model.transform(feats).column("rawPrediction")))
+    label = "LightGBMClassificationModel"
+    fused = PipelineModel([model]).fuse()
+    fused.set_tuning(layout={label: "csr"},
+                     kernel_variants={label: {"*": "forest.csr"}})
+    gather_kernel.launches = 0
+    got = np.stack(list(fused.transform(feats.select("features")).column(
+        "rawPrediction")))
+    assert gather_kernel.launches >= len(texts) // 256
+    assert fused.fusion_stats()["fallbacks"] == []
+    assert np.abs(got - unfused).max() <= 1e-6
+    from mmlspark_tpu_torch.runtime import use_device
+
+    monkeypatch.setenv("MMLSPARK_TPU_SCAN_TRAIN", "1")
+    with use_device("cpu"):
+        cpu = LightGBMClassifier(numIterations=5, numLeaves=15,
+                                 labelCol="label").fit(feats)
+    assert model.booster.route == cpu.booster.route == "scan"
+    for ta, tb in zip(model.booster.trees, cpu.booster.trees):
+        for fld in ("feature", "threshold_bin", "left", "right"):
+            np.testing.assert_array_equal(getattr(ta[0], fld),
+                                          getattr(tb[0], fld))

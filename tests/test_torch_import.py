@@ -91,7 +91,19 @@ def test_clean_import_pulls_in_no_jax_and_no_reference():
                 "mmlspark_tpu_torch.vw.featurizer",
                 "mmlspark_tpu_torch.vw.learner",
                 "mmlspark_tpu_torch.vw.scan_kernel",
-                "mmlspark_tpu_torch.vw.stages"):
+                "mmlspark_tpu_torch.vw.stages",
+                "mmlspark_tpu_torch.core.utils",
+                "mmlspark_tpu_torch.featurize.indexers",
+                "mmlspark_tpu_torch.featurize.clean",
+                "mmlspark_tpu_torch.featurize.text",
+                "mmlspark_tpu_torch.featurize.assemble",
+                "mmlspark_tpu_torch.featurize.word2vec",
+                "mmlspark_tpu_torch.stages.basic",
+                "mmlspark_tpu_torch.stages.minibatch",
+                "mmlspark_tpu_torch.stages.text",
+                "mmlspark_tpu_torch.stages.udfs",
+                "mmlspark_tpu_torch.train.metrics",
+                "mmlspark_tpu_torch.train.stages"):
         assert mod in out["imported"]
 
 
@@ -508,6 +520,113 @@ def test_loading_saved_vw_and_onnx_stages_pulls_in_no_jax_and_no_reference(
     assert out["cls"] == ["VowpalWabbitClassificationModel", "DNNModel"]
     np.testing.assert_array_equal(np.asarray(out["raw"]), raw)
     np.testing.assert_array_equal(np.asarray(out["emb"], np.float32), emb)
+
+
+_TRAINED_PROBE = r"""
+import json, sys
+import numpy as np
+from mmlspark_tpu_torch.core.dataframe import DataFrame
+from mmlspark_tpu_torch.core.pipeline import PipelineStage
+from mmlspark_tpu_torch.runtime import use_device
+rows = json.loads(open(sys.argv[3]).read())
+clf = PipelineStage.load(sys.argv[1])
+text = PipelineStage.load(sys.argv[2])
+with use_device("cpu"):
+    scored = clf.transform(DataFrame.from_dict(rows["table"]))
+    feats = text.transform(DataFrame.from_dict({"t": rows["texts"]}))
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "jaxlib", "mmlspark_tpu")
+             or k.startswith(("jax.", "jaxlib.", "mmlspark_tpu.")))
+print(json.dumps({
+    "bad": bad, "cls": [type(clf).__name__, type(text).__name__],
+    "proba": np.stack(list(scored.column("scored_probabilities"))).tolist(),
+    "labels": list(scored.column("scored_labels_original")),
+    "rows": [[r["size"], r["indices"].tolist(), r["values"].tolist()]
+             for r in feats.column("f")]}))
+"""
+
+
+def test_loading_trained_classifier_and_text_featurizer_pulls_in_no_jax(
+        tmp_path):
+    """A ``TrainedClassifierModel`` (auto-featurized strings, reindexed
+    string labels, LightGBM) and a ``TextFeaturizerModel`` the port saved
+    load and run in a fresh process without importing ``jax`` or
+    ``mmlspark_tpu``, with the scores and rows they had."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.featurize import TextFeaturizer
+    from mmlspark_tpu_torch.gbdt import LightGBMClassifier
+    from mmlspark_tpu_torch.runtime import use_device
+    from mmlspark_tpu_torch.train import TrainClassifier
+
+    rng = np.random.default_rng(11)
+    n = 200
+    city = [str(c) for c in rng.choice(["nyc", "sf", "la"], n)]
+    age = rng.uniform(20, 70, n)
+    label = ["yes" if a > 45 or c == "sf" else "no" for a, c in zip(age, city)]
+    table = {"age": age.tolist(), "city": city, "label": label}
+    texts = ["the cat sat", "a dog, a cat", None, "", "café au lait x"] * 4
+    with use_device("cpu"):
+        clf = TrainClassifier(labelCol="label").set_model(LightGBMClassifier(
+            numIterations=4, numLeaves=4, minDataInLeaf=5)).fit(
+            DataFrame.from_dict(table))
+        scored = clf.transform(DataFrame.from_dict(table))
+        text = TextFeaturizer(inputCol="t", outputCol="f").fit(
+            DataFrame.from_dict({"t": texts}))
+        feats = text.transform(DataFrame.from_dict({"t": texts})).column("f")
+    clf.save(str(tmp_path / "clf"))
+    text.save(str(tmp_path / "text"))
+    (tmp_path / "rows.json").write_text(json.dumps({"table": table,
+                                                    "texts": texts}))
+    proc = subprocess.run([sys.executable, "-c", _TRAINED_PROBE,
+                           str(tmp_path / "clf"), str(tmp_path / "text"),
+                           str(tmp_path / "rows.json")], cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    assert out["cls"] == ["TrainedClassifierModel", "TextFeaturizerModel"]
+    np.testing.assert_array_equal(
+        np.asarray(out["proba"]),
+        np.stack(list(scored.column("scored_probabilities"))))
+    assert out["labels"] == list(scored.column("scored_labels_original"))
+    for got, want in zip(out["rows"], feats):
+        assert got[0] == want["size"] == 1 << 18
+        np.testing.assert_array_equal(np.asarray(got[1], np.int64),
+                                      want["indices"])
+        np.testing.assert_array_equal(np.asarray(got[2], np.float32),
+                                      want["values"])
+
+
+@pytest.mark.parametrize("module", ["mmlspark_tpu_torch.featurize",
+                                    "mmlspark_tpu_torch.stages",
+                                    "mmlspark_tpu_torch.train",
+                                    "mmlspark_tpu_torch.core.utils"])
+def test_featurize_stages_train_import_pulls_in_no_jax_and_no_reference(
+        module):
+    probe = (f"import json, sys; import {module}; "
+             "print(json.dumps(sorted(k for k in sys.modules if k in "
+             "('jax', 'jaxlib', 'mmlspark_tpu') or k.startswith(('jax.', "
+             "'jaxlib.', 'mmlspark_tpu.')))))")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_word2vec_fit_raises_without_cuda(no_cuda):
+    """Word2Vec trains on ``resolve_device()``: without a card and without
+    a request for the CPU it raises, as every entry point does."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.featurize import Word2Vec
+    from mmlspark_tpu_torch.runtime import use_device
+
+    df = DataFrame.from_dict({"t": ["a b a b", "b a b a"] * 3})
+    est = Word2Vec(inputCol="t", outputCol="v", vectorSize=4, minCount=1,
+                   numIterations=1, batchSize=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        est.fit(df)
+    with use_device("cpu"):
+        assert est.fit(df).get("vectors").shape == (2, 4)
 
 
 # ------------------------------------------------------------ native loader

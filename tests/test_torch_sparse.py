@@ -1430,3 +1430,76 @@ def test_vw_mesh_requests_raise_naming_a9():
         np.testing.assert_array_equal(w, block)
     with pytest.raises(TypeError, match="Mesh"):
         train_linear(LearnerConfig(num_bits=9), ds, mesh=4)
+
+
+# TextFeaturizer's 2^18-wide rows into the sparse fit (ROADMAP A 10.1):
+# ``tests/test_gbdt_sparse.py:141``'s journey in both packages. The port's
+# featurizer gives the reference's rows bit for bit, so the forests are
+# held as every sparse stage fit here is, and the fused CSR transform (K3's
+# plain version on the CPU, the forest summed in f32) within 1e-6 of the
+# unfused one (``predict_csr`` in f64), the reference's CSR_VS_HOST_ATOL
+# (``tests/test_sparse_e2e.py``). From the
+# second tree on, this journey's leaves are nearly pure and every split
+# left gains 4e-6 to 1.1e-5 (its f32 rounding in the reference, f64 in the
+# port), so which one a package takes is rounding noise: minGainToSplit
+# 1e-3 keeps such splits out of both fits.
+
+def _review_frames(idf: bool, parts: int):
+    from mmlspark_tpu.featurize import TextFeaturizer as RefTextFeaturizer
+    from mmlspark_tpu_torch.featurize import TextFeaturizer
+
+    rng = np.random.default_rng(0)
+    pos_words = ["great", "excellent", "love", "wonderful"]
+    neg_words = ["terrible", "awful", "hate", "broken"]
+    filler = [f"word{i}" for i in range(50)]
+    texts, labels = [], []
+    for i in range(300):
+        label = i % 2
+        words = list(rng.choice(filler, size=6))
+        words += list(rng.choice(pos_words if label else neg_words, size=3))
+        rng.shuffle(words)
+        texts.append(" ".join(words))
+        labels.append(float(label))
+    d = {"text": texts, "label": labels}
+    rdf = RefDataFrame.from_dict(d, num_partitions=parts)
+    pdf = DataFrame.from_dict(d, num_partitions=parts)
+    kw = dict(inputCol="text", outputCol="features", numFeatures=1 << 18,
+              useIDF=idf)
+    rf = RefTextFeaturizer(**kw).fit(rdf).transform(rdf)
+    pf = TextFeaturizer(**kw).fit(pdf).transform(pdf)
+    return rf, pf, np.asarray(labels)
+
+
+@pytest.mark.parametrize("idf", [False, True])
+def test_text_featurizer_into_the_sparse_fit_matches_reference(
+        numpy_csr_predict, idf):
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+
+    rf, pf, labels = _review_frames(idf, parts=2)
+    for a, b in zip(rf.column("features"), pf.column("features")):
+        assert a["size"] == b["size"] == 1 << 18
+        np.testing.assert_array_equal(a["indices"], b["indices"])
+        np.testing.assert_array_equal(a["values"].view(np.uint32),
+                                      b["values"].view(np.uint32))
+    params = dict(numIterations=10, numLeaves=7, minDataInLeaf=5,
+                  minGainToSplit=1e-3, labelCol="label")
+    rmodel = ref_stages.LightGBMClassifier(**params).fit(rf)
+    with use_device("cpu"):
+        pmodel = stages.LightGBMClassifier(**params).fit(pf)
+        pout = pmodel.transform(pf)
+        fused = PipelineModel([pmodel]).fuse()
+        label = "LightGBMClassificationModel"
+        fused.set_tuning(layout={label: "csr"},
+                         kernel_variants={label: {"*": "forest.csr"}})
+        fout = fused.transform(pf.select("features"))
+    _assert_same_forest(rmodel.booster, pmodel.booster)
+    rout = rmodel.transform(rf)
+    np.testing.assert_allclose(np.stack(list(pout.column("rawPrediction"))),
+                               np.stack(list(rout.column("rawPrediction"))),
+                               rtol=HIST_CSR_TOL, atol=HIST_CSR_TOL)
+    np.testing.assert_allclose(
+        np.stack(list(fout.column("rawPrediction"))),
+        np.stack(list(pout.column("rawPrediction"))), rtol=0, atol=1e-6)
+    assert fused.fusion_stats()["fallbacks"] == []
+    pred = np.asarray(pout.column("prediction"), np.float64)
+    assert (pred == labels).mean() > 0.9
