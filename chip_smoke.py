@@ -361,6 +361,21 @@ nothing of ``mmlspark_tpu``) and needs one CUDA device:
    5,000 reviews on the card twice bit for bit, its initial matrix the
    CPU's bit for bit, and on 500 reviews within ``W2V_VECTOR_TOL`` of the
    CPU's;
+29c. automl_main, sar_main, lime_main (the AutoML, recommendation and
+   LIME layers): ``TuneHyperparameters`` over ``LightGBMClassifier(
+   numIterations=25)`` with numLeaves in {15, 31}, 3 folds, AUC, on
+   adult_main's rows at parallelism 1 and 2 (K1, K2): bit for bit each
+   other, every fit's launches counted once, a fold's first trees the
+   CPU's, then ``FindBestModel`` on the holdout; SAR (jaccard, support 4,
+   30-day decay) through ``RankingTrainValidationSplit`` on 10,000,054
+   seeded MovieLens-10M-shaped ratings (69,878 users, 10,677 items), its
+   co-occurrence against exact counts, its similarity bitwise a host
+   recompute, its scores against a host f64 product, its top 10 by the tie
+   rule, the TLC fixtures on the card, NDCG@10; ``TabularLIME`` over the
+   tuned model (64 rows, 1,000 samples, one batched lasso) and
+   ``ImageLIME`` over the ResNet-50 featurizer (4 images, 100 samples),
+   the probes against the host traversal and the lassos against the CPU's
+   (``automl_main``'s, ``sar_main``'s and ``lime_main``'s docstrings);
 30. mesh_dense, mesh_sparse, mesh_vw: the data-parallel fits
    (``parallel/mesh.py``, ``parallel/launch.py``), their ranks spawned
    once from this process for the three phases (``mesh_phases``,
@@ -434,7 +449,8 @@ main path, error
 against its plain version, ms, plain_ms, bound_ms, bound_by and library_ms, and
 its launches on the new paths (``launches_on_new_paths``: dense_variants and
 its GOSS scan, ranker_main, categorical_main, sparse_variants and its compacted
-stream, sparse_wide, text_main (K3, K4), adult_main (K1, K2), serving_sparse,
+stream, sparse_wide, text_main (K3, K4), adult_main (K1, K2), automl_main
+(K1, K2, both tuning runs' fits), serving_sparse,
 serving_transformer, mega_sparse at K=8 and mega_transformer at K=4, through
 the graph replays, serving_autotune,
 train_transformer (K5) and its causal run (K5-K7), moe_main's transform (K5)
@@ -460,6 +476,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -855,12 +872,13 @@ def check_route(booster, want: str, what: str) -> None:
 
 
 class Watch:
-    """While active, the seconds and the return value of every call of
-    ``module.name`` (a module's function, or a class's static method)."""
+    """While active, the seconds, the arguments (``calls``: (args,
+    kwargs)) and the return value of every call of ``module.name`` (a
+    module's function, or a class's method)."""
 
     def __init__(self, module, name: str):
         self.module, self.name = module, name
-        self.seconds, self.results = [], []
+        self.seconds, self.results, self.calls = [], [], []
 
     def __enter__(self):
         import inspect
@@ -873,6 +891,7 @@ class Watch:
             res = self.orig(*a, **kw)
             self.seconds.append(time.perf_counter() - t0)
             self.results.append(res)
+            self.calls.append((a, kw))
             return res
 
         setattr(self.module, self.name, watched)
@@ -922,6 +941,7 @@ def scan_main(torch, smi):
     finally:
         bst.scan_loop_sync_mode = None
     fit_s = time.perf_counter() - t0
+    guarded = bool(bst.last_scan_guarded)
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     booster = model.booster
@@ -935,11 +955,15 @@ def scan_main(torch, smi):
          "binning_native": native_loader.uses[("bin_matrix", "native")]
          > native_before,
          "loop_seconds": loop_w.results[0] if loop_w.results else None,
-         "loop_sync_debug_mode": "error", "launches": launches,
+         "loop_sync_debug_mode": "error" if guarded else None,
+         "launches": launches,
          "launches_per_tree": {k: v / 20 for k, v in launches.items()},
          "peak_device_gb": peak_gb, "transform_rows": N_SCORE,
          "transform_seconds": score_s, "trees": len(booster.trees)})
     check_route(booster, "scan", "scan_main")
+    if not guarded:
+        fail("scan_main: the boosting loop ran without the sync debug mode "
+             "(another thread was working)")
     check_launches(launches, "scan_main")
     log({"phase": "scan_main", **check_dense_scores(scored, booster, X, y, "main"),
          "max_abs_diff_vs_host_f64_unrounded": float(np.abs(
@@ -6702,6 +6726,731 @@ def word2vec_main(torch, smi, texts) -> None:
              f"max |v|")
 
 
+# the AutoML, recommendation and LIME layers (ROADMAP A 10.3): automl_main
+# (TuneHyperparameters over LightGBMClassifier on adult_main's rows, K1 and
+# K2, at parallelism 1 and 2), sar_main (SAR at MovieLens-10M shape) and
+# lime_main (TabularLIME over automl_main's model, ImageLIME over
+# image_main's ResNet-50 featurizer, their lassos batched on the card)
+AUTOML_ITERS = 25
+AUTOML_LEAVES = (15, 31)
+AUTOML_FOLDS = 3
+ML_USERS = 69_878             # GroupLens MovieLens-10M (ml-10M100K)
+ML_ITEMS = 10_677
+ML_RATINGS = 10_000_054
+ML_MIN_RATINGS = 20           # every user rated at least 20 movies
+ML_MAX_RATINGS = 7_359        # the busiest user's ratings
+ML_TIME_RANGE = (789_652_009, 1_231_131_736)   # 1995-01-09 .. 2009-01-05
+ML_ZIPF_OFFSET = 60           # item popularity ~ 1 / (rank + 60): the most
+                              # rated ~0.2% of the ratings (MovieLens-10M's
+                              # most rated movie: 34,864 of 10,000,054)
+ML_INDEX_PREFIX = 1_000_000   # rows RecommendationIndexer is timed on
+SAR_CHECK_COLUMNS = 256       # C's columns against exact int64 counts
+SAR_CHECK_USERS = 1_024       # A @ S rows against a host f64 product
+SAR_SCORE_RTOL = 1e-5
+SAR_TOP_K = 10
+LIME_ROWS = 64                # holdout rows TabularLIME explains
+LIME_SAMPLES = 1_000          # the reference's nSamples default
+LIME_IMAGES = 4
+LIME_IMAGE_SAMPLES = 100
+LIME_LASSO_TOL = 1e-4         # of max(1, max |w|): card against CPU lasso
+LIME_PROBE_TOL = 1e-6         # probe scores against the host f64 traversal
+
+
+class FitLaunches:
+    """While active, each ``LightGBMClassifier.fit``'s K1/K2 launches (the
+    counters read before and after it: meaningful when fits run one at a
+    time), its frame and its model."""
+
+    def __enter__(self):
+        from mmlspark_tpu_torch.gbdt import LightGBMClassifier
+
+        self.cls, self.orig = LightGBMClassifier, LightGBMClassifier.fit
+        self.fits = []
+        orig = self.orig
+
+        def counted(est, df):
+            before = read_launches()
+            model = orig(est, df)
+            after = read_launches()
+            self.fits.append(({k: after[k] - before[k] for k in after}, df,
+                              model))
+            return model
+
+        self.cls.fit = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.fit = self.orig
+
+
+def _adult_frames():
+    """adult_main's rows (``adult_like``, the same seed) as ``features`` /
+    ``label`` frames: the numeric columns cleaned, every column assembled
+    (6 numeric, 99 one-hot slots), the label indexed (>50K = 1)."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.featurize import (AssembleFeatures,
+                                              CleanMissingData, ValueIndexer)
+
+    data = adult_like(ADULT_ROWS + ADULT_HOLDOUT, SEED + 24)
+    train = DataFrame.from_dict({k: v[:ADULT_ROWS] for k, v in data.items()})
+    hold = DataFrame.from_dict({k: v[ADULT_ROWS:] for k, v in data.items()})
+    clean = CleanMissingData(inputCols=list(ADULT_NUMERIC)).fit(train)
+    label = ValueIndexer(inputCol="income", outputCol="label").fit(train)
+    asm = AssembleFeatures(inputCols=[c for c in data if c != "income"],
+                           outputCol="features").fit(clean.transform(train))
+
+    def prep(df):
+        return asm.transform(label.transform(clean.transform(df))).select(
+            "features", "label")
+
+    return prep(train), prep(hold)
+
+
+def _tune(par: int):
+    from mmlspark_tpu_torch.automl import (DiscreteHyperParam, GridSpace,
+                                           HyperparamBuilder,
+                                           TuneHyperparameters)
+    from mmlspark_tpu_torch.gbdt import LightGBMClassifier
+
+    est = LightGBMClassifier(numIterations=AUTOML_ITERS)
+    space = GridSpace(HyperparamBuilder().add_hyperparam(
+        est, "numLeaves", DiscreteHyperParam(list(AUTOML_LEAVES))).build())
+    return TuneHyperparameters(models=[est], paramSpace=space,
+                               numFolds=AUTOML_FOLDS, evaluationMetric="AUC",
+                               parallelism=par)
+
+
+def _proba(df) -> np.ndarray:
+    return np.stack(list(df.column("probability")))
+
+
+def automl_main(torch, smi) -> tuple:
+    """``TuneHyperparameters(models=[LightGBMClassifier(numIterations=25)],
+    paramSpace=GridSpace(numLeaves in {15, 31}), numFolds=3,
+    evaluationMetric="AUC")`` on adult_main's 32,561 Adult-shaped rows
+    (``_adult_frames``), the native engine off (the card's scan route), at
+    parallelism 1 and 2 (7 fits each: 3 folds x 2 settings and the
+    winner's refit), then ``FindBestModel`` over the two settings'
+    full-data models (the tuned winner's and a fit of the other setting)
+    on the 16,281-row holdout. Gates: parallelism 2 bit
+    for bit parallelism 1 (``allMetrics``, ``bestParams``, the best model's
+    LightGBM text and its holdout probabilities); every fit on the scan;
+    K1's and K2's launches under parallelism 2 the sum of each fit's own
+    (counted fit by fit under parallelism 1); the first fold's first
+    ITERS_REFIT trees those of a CPU refit on the same rows (the forced
+    scan, on a thread beside the full-data fit); the best model's holdout
+    scores within 1e-5 of the host f64 traversal; ``FindBestModel`` picking
+    the better holdout AUC. Returns (the
+    launches, the best model, the holdout frame)."""
+    from mmlspark_tpu_torch.automl import FindBestModel, MetricEvaluator
+    from mmlspark_tpu_torch.gbdt import LightGBMClassifier
+    from mmlspark_tpu_torch.runtime import use_device
+
+    t0 = time.perf_counter()
+    tr, ho = _adult_frames()
+    frames_s = time.perf_counter() - t0
+    runs, fit_s = {}, {}
+    with Env(**NATIVE_OFF):
+        for par in (1, 2):
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with Watch(LightGBMClassifier, "fit") as fit_w:
+                if par == 1:
+                    with FitLaunches() as fl:
+                        model = _tune(par).fit(tr)
+                else:
+                    model = _tune(par).fit(tr)
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            fit_s[par] = fit_w.seconds
+            runs[par] = (model, read_launches(), secs, model.transform(ho))
+    fold_launches, fold_df, fold_model = fl.fits[0]
+    winner = runs[1][0].get("bestParams")["numLeaves"]
+
+    def cpu_refit():
+        with use_device("cpu"):
+            return LightGBMClassifier(numIterations=ITERS_REFIT,
+                                      numLeaves=AUTOML_LEAVES[0]).fit(fold_df)
+
+    # the first fold's CPU refit (the forced scan) on a thread of its own,
+    # beside the other setting's full-data fit on the card (where the scan
+    # is the default route) and FindBestModel over both settings' models
+    t0 = time.perf_counter()
+    with Env(**NATIVE_OFF, **CPU_SCAN), ThreadPoolExecutor(1) as pool:
+        refit = pool.submit(cpu_refit)
+        full = {v: runs[1][0].get("bestModel") if v == winner
+                else LightGBMClassifier(numIterations=AUTOML_ITERS,
+                                        numLeaves=v).fit(tr)
+                for v in AUTOML_LEAVES}
+        best = FindBestModel(models=[full[v] for v in AUTOML_LEAVES],
+                             evaluationMetric="AUC").fit(ho)
+        best_s = time.perf_counter() - t0
+        cpu = refit.result()
+    refit_s = time.perf_counter() - t0
+    diffs = [first_diff(fold_model.booster.trees[i][0], cpu.booster.trees[i][0])
+             for i in range(ITERS_REFIT)]
+    (m1, l1, s1, h1), (m2, l2, s2, h2) = runs[1], runs[2]
+    p1, p2 = _proba(h1), _proba(h2)
+    per_fit = [f[0] for f in fl.fits]
+    summed = {k: sum(f[k] for f in per_fit) for k in l1}
+    bm = m1.get("bestModel")
+    X_ho = np.stack(list(ho.column("features")))
+    host_diff = float(np.abs(np.stack(list(h1.column("rawPrediction")))[:, 1]
+                             - host_raw32(bm.booster, X_ho)).max())
+    aucs = [MetricEvaluator("AUC").evaluate(full[v].transform(ho))
+            for v in AUTOML_LEAVES]
+    log({"phase": "automl_main", "card": smi, "rows": tr.count(),
+         "holdout_rows": ho.count(),
+         "features": len(tr.column("features")[0]),
+         "fits_per_run": len(per_fit), "seconds_parallelism_1": s1,
+         "seconds_parallelism_2": s2, "fit_seconds_parallelism_1": fit_s[1],
+         "fit_seconds_parallelism_2": fit_s[2], "frames_seconds": frames_s,
+         "full_fit_and_find_best_seconds": best_s,
+         "with_cpu_refit_beside_seconds": refit_s, "all_metrics": m1.get("allMetrics"),
+         "best_params": m1.get("bestParams"),
+         "best_metric": m1.get("bestMetric"),
+         "routes": sorted({f[2].booster.route for f in fl.fits}),
+         "launches_parallelism_1": l1, "launches_parallelism_2": l2,
+         "launches_summed_per_fit": summed,
+         "allMetrics_equal": m1.get("allMetrics") == m2.get("allMetrics"),
+         "best_text_equal": bm.get_model_string()
+         == m2.get("bestModel").get_model_string(),
+         "holdout_proba_bitwise": bool(np.array_equal(p1, p2)),
+         "max_abs_diff_vs_host_f64": host_diff,
+         "fold_refit_first_diff_per_tree": diffs,
+         "holdout_auc_by_leaves": dict(zip(AUTOML_LEAVES, aucs)),
+         "find_best_metric": best.get("bestMetric"),
+         "cuts": f"CPU refit {ITERS_REFIT} of {AUTOML_ITERS} iterations (time)"})
+    if m1.get("allMetrics") != m2.get("allMetrics") \
+            or m1.get("bestParams") != m2.get("bestParams"):
+        fail(f"automl_main: parallelism 2 tuned {m2.get('allMetrics')} "
+             f"{m2.get('bestParams')}, parallelism 1 {m1.get('allMetrics')} "
+             f"{m1.get('bestParams')}")
+    if bm.get_model_string() != m2.get("bestModel").get_model_string() \
+            or not np.array_equal(p1, p2):
+        fail("automl_main: the best models of parallelism 1 and 2 differ")
+    if len(per_fit) != AUTOML_FOLDS * len(AUTOML_LEAVES) + 1:
+        fail(f"automl_main: {len(per_fit)} fits under parallelism 1")
+    for f in fl.fits:
+        check_route(f[2].booster, "scan", "automl_main")
+    for v in AUTOML_LEAVES:
+        check_route(full[v].booster, "scan", "automl_main")
+    if l2 != summed or l1 != summed:
+        fail(f"automl_main: K1/K2 launches {l2} (parallelism 2) and {l1} "
+             f"(1) against the fits' own {summed}")
+    check_launches({"hist": summed["hist"] + summed["hist_count"],
+                    "select": summed["select"]}, "automl_main")
+    bad = [d for d in diffs if d is not None]
+    if bad:
+        fail(f"automl_main: the fold's trees part from the CPU's: {bad[0]}")
+    if host_diff > 1e-5:
+        fail(f"automl_main: holdout scores {host_diff} from the host f64 "
+             f"traversal")
+    if best.get("bestMetric") != max(aucs) \
+            or best.get_or_throw("bestModel") is not full[
+                AUTOML_LEAVES[int(np.argmax(aucs))]]:
+        fail(f"automl_main: FindBestModel kept {best.get('bestMetric')} of "
+             f"{aucs}")
+    return {k: l1[k] + l2[k] for k in l1}, bm, ho
+
+
+def movielens_like(seed: int) -> dict:
+    """Seeded ratings shaped like GroupLens MovieLens-10M: ML_USERS users
+    each with at least ML_MIN_RATINGS ratings (a lognormal tail up to
+    ML_MAX_RATINGS), ML_RATINGS ratings in all over ML_ITEMS items of
+    Zipf-Mandelbrot popularity (``ML_ZIPF_OFFSET``), no (user, item) pair
+    twice (a repeated pair is redrawn, from the popularity at first, then
+    uniformly, then from the user's unrated items), half stars 0.5-5 at the
+    dataset's rough shares, timestamps uniform over ML_TIME_RANGE; indexed
+    users and items, rows by user."""
+    rng = np.random.default_rng(seed)
+    extra = rng.lognormal(3.6, 1.2, ML_USERS)
+    extra = extra / extra.sum() * (ML_RATINGS - ML_MIN_RATINGS * ML_USERS)
+    counts = np.minimum(ML_MIN_RATINGS + np.floor(extra).astype(np.int64),
+                        ML_MAX_RATINGS)
+    short = ML_RATINGS - int(counts.sum())
+    room = np.nonzero(counts < min(1_000, ML_MAX_RATINGS // 2))[0]
+    np.add.at(counts, rng.choice(room, short), 1)
+    ptr = np.concatenate([[0], np.cumsum(counts)])
+    users = np.repeat(np.arange(ML_USERS, dtype=np.int64), counts)
+    perm = rng.permutation(ML_ITEMS)            # popularity rank -> item id
+    q = 1.0 + ML_ZIPF_OFFSET
+    span = np.log((ML_ITEMS + q) / q)
+
+    def popular(n):
+        # rank r in [1, ML_ITEMS + 1) of density ~ 1 / (r + offset)
+        r = q * np.exp(rng.random(n) * span) - ML_ZIPF_OFFSET
+        return perm[np.minimum(r.astype(np.int64) - 1, ML_ITEMS - 1)]
+
+    items = popular(len(users))
+    active = np.arange(len(users))
+    for rnd in range(9):                        # redraw repeated pairs
+        # (pair, position) packed in one int64 and sorted: a pair's later
+        # rows follow its first (pair < 2^30, position < 2^24)
+        packed = np.sort(((users[active] * ML_ITEMS + items[active]) << 24)
+                         | np.arange(len(active)))
+        ks = packed >> 24
+        dup = active[(packed[1:] & 0xFFFFFF)[ks[1:] == ks[:-1]]]
+        if not len(dup):
+            break
+        bad = users[dup]
+        bad = bad[np.concatenate([[True], bad[1:] != bad[:-1]])]
+        if rnd == 8:
+            # the last repeats: drawn from each user's unrated items
+            for u in bad:
+                rows = dup[users[dup] == u]
+                free = np.setdiff1d(np.arange(ML_ITEMS),
+                                    items[ptr[u]:ptr[u + 1]])
+                items[rows] = rng.choice(free, len(rows), replace=False)
+            break
+        items[dup] = popular(len(dup)) if rnd < 4 \
+            else rng.integers(0, ML_ITEMS, len(dup))
+        active = np.concatenate([np.arange(ptr[u], ptr[u + 1]) for u in bad])
+    stars = rng.choice(np.arange(1, 11), len(users), p=np.array(
+        [1.0, 3.8, 1.2, 7.9, 3.7, 23.5, 8.8, 28.8, 7.7, 13.6]) / 100.0)
+    t = rng.integers(*ML_TIME_RANGE, len(users)).astype(np.float64)
+    return {"user": users, "item": items.astype(np.int64),
+            "rating": stars * 0.5, "time": t}
+
+
+def _tlc_on_card(torch) -> dict:
+    """The 6 similarity and 3 userpred TLC fixtures
+    (``tests/test_benchmarks.py``'s protocol and tolerances) through SAR
+    on the card; returns the largest deviation of each kind."""
+    import csv
+    import gzip
+    import os
+    from datetime import datetime, timezone
+
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.recommendation import RecommendationIndexer, SAR
+
+    res = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "resources")
+
+    def ts(s):
+        return datetime.strptime(s, "%Y/%m/%dT%H:%M:%S").replace(
+            tzinfo=timezone.utc).timestamp()
+
+    with gzip.open(os.path.join(res, "demoUsage.csv.gz"), "rt") as f:
+        rows = [r for r in csv.DictReader(f)
+                if r["userId"] and r["productId"] and r["timestamp"]]
+    df = DataFrame.from_dict({"userId": [r["userId"] for r in rows],
+                              "productId": [r["productId"] for r in rows],
+                              "ts": [ts(r["timestamp"]) for r in rows]})
+    ix = RecommendationIndexer(userInputCol="userId", userOutputCol="user",
+                               itemInputCol="productId",
+                               itemOutputCol="item").fit(df)
+    tdf = ix.transform(df)
+    item_index = {k: int(v) for k, v in ix.get("itemMap").items()}
+    inv_item = {v: k for k, v in item_index.items()}
+    uid = int(ix.get("userMap")["0003000098E85347"])
+    out = {"similarity_cells": 0, "similarity_max_abs_diff": 0.0,
+           "userpred_max_abs_diff": 0.0}
+    for thr, sim, fixture in (
+            (1, "cooccurrence", "sim_count1.csv.gz"),
+            (1, "lift", "sim_lift1.csv.gz"), (1, "jaccard", "sim_jac1.csv.gz"),
+            (3, "cooccurrence", "sim_count3.csv.gz"),
+            (3, "lift", "sim_lift3.csv.gz"), (3, "jaccard", "sim_jac3.csv.gz")):
+        model = SAR(userCol="user", itemCol="item", ratingCol="rating",
+                    timeCol="ts", supportThreshold=thr,
+                    similarityFunction=sim,
+                    startTime=ts("2015/06/09T19:39:37")).fit(tdf)
+        if not model.get("itemSimilarity").is_cuda:
+            fail("sar_main: the TLC fit did not run on the card")
+        S = model.get("itemSimilarity").cpu().numpy()
+        with gzip.open(os.path.join(res, fixture), "rt") as f:
+            fx = list(csv.reader(f))
+        header = [item_index[j] for j in fx[0][1:]]
+        for line in fx[1:]:
+            want = np.array([float(v) for v in line[1:]])
+            got = S[item_index[line[0]], header]
+            if not np.allclose(got, want, rtol=1e-5, atol=1e-6):
+                fail(f"sar_main: TLC {fixture} row {line[0]} differs")
+            out["similarity_cells"] += len(want)
+            out["similarity_max_abs_diff"] = max(
+                out["similarity_max_abs_diff"],
+                float(np.abs(got - want).max()))
+        if thr != 3:
+            continue
+        recs = model.recommend_for_all_users(num_items=40)
+        got_items = [inv_item[i] for i in recs.column("recommendations")[uid][:10]]
+        got_scores = np.asarray(recs.column("ratings")[uid][:10])
+        pred = fixture.replace("sim_", "userpred_").replace(
+            "count3", "count3_userid_only").replace(
+            "lift3", "lift3_userid_only").replace("jac3", "jac3_userid_only")
+        with gzip.open(os.path.join(res, pred), "rt") as f:
+            ans = list(csv.DictReader(f))[0]
+        want_items = [ans[f"rec{i}"] for i in range(1, 11)]
+        want_scores = np.array([float(ans[f"score{i}"]) for i in range(1, 11)])
+        ok = np.allclose(got_scores, want_scores, atol=1e-3) \
+            and set(got_items) == set(want_items)
+        for k in range(10):
+            if all(abs(want_scores[k] - want_scores[j]) > 1e-6
+                   for j in range(10) if j != k):
+                ok = ok and got_items[k] == want_items[k]
+        if not ok:
+            fail(f"sar_main: TLC {pred}: {got_items} {got_scores} against "
+                 f"{want_items} {want_scores}")
+        out["userpred_max_abs_diff"] = max(out["userpred_max_abs_diff"], float(
+            np.abs(got_scores - want_scores).max()))
+    return out
+
+
+def _sar_similarity_host(C: np.ndarray, diag: np.ndarray, row0: int,
+                         kind: str, thresh: float) -> np.ndarray:
+    """Rows row0.. of the reference's similarity, from those rows of C and
+    C's whole diagonal, in numpy f32 (``mmlspark_tpu/recommendation/sar.py``'s
+    lines, copied; each cell is elementwise, so a block of rows is the
+    whole matrix's bits)."""
+    d_r = diag[row0:row0 + len(C)]
+    if kind == "cooccurrence":
+        S = C.copy()
+    elif kind == "jaccard":
+        denom = d_r[:, None] + diag[None, :] - C
+        S = np.where(denom > 0, C / np.maximum(denom, 1e-12), 0.0)
+    else:
+        denom = d_r[:, None] * diag[None, :]
+        S = np.where(denom > 0, C / np.maximum(denom, 1e-12), 0.0)
+    S = np.where(C >= thresh, S, 0.0).astype(np.float32)
+    r = np.arange(len(C))
+    S[r, row0 + r] = np.where(d_r >= thresh, S[r, row0 + r], 0.0)
+    return S
+
+
+def _sar_s_cells_off(C: np.ndarray, S: np.ndarray, kind: str,
+                     thresh: float) -> int:
+    """Cells of S that are not bitwise the host f32 recompute from C
+    (``_sar_similarity_host``), in row blocks on a thread each (numpy's
+    loops let go of the GIL)."""
+    diag = np.diag(C).copy()
+    block = 512
+
+    def off(lo):
+        want = _sar_similarity_host(C[lo:lo + block], diag, lo, kind, thresh)
+        return int((want.view(np.int32)
+                    != S[lo:lo + block].view(np.int32)).sum())
+
+    with ThreadPoolExecutor(8) as pool:
+        return sum(pool.map(off, range(0, len(C), block)))
+
+
+def sar_main(torch, smi) -> None:
+    """SAR at MovieLens-10M shape (``movielens_like``: 69,878 users, 10,677
+    items, 10,000,054 ratings): ``RecommendationIndexer`` fit and transform
+    on a 1M-row prefix (timed), then ``RankingTrainValidationSplit(
+    trainRatio=0.75)`` over ``SAR(similarityFunction="jaccard",
+    supportThreshold=4, timeDecayCoeff=30, timeCol="time")``: the split, the
+    fit on the card (affinity [U, I], C = BᵀB, S), ``recommend_for_all_users(
+    10)`` and NDCG@10 on the held-out quarter. Logs fit, recommend and split
+    seconds (``Watch``), each GEMM's ms (CUDA events, the fit's own
+    tensors), NDCG@10 and peak memory. Gates: C equal to exact int64
+    co-occurrence counts on SAR_CHECK_COLUMNS sampled item columns (from a
+    host CSR of the training events); S bitwise a numpy f32 recompute from
+    C; A @ S within SAR_SCORE_RTOL of a host f64 product for
+    SAR_CHECK_USERS sampled users, and their top 10 the tie rule's (score
+    descending, item ascending); the TLC fixtures on the card
+    (``_tlc_on_card``)."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.recommendation import (RankingEvaluator,
+                                                   RankingTrainValidationSplit,
+                                                   RecommendationIndexer, SAR)
+    from mmlspark_tpu_torch.recommendation import ranking as rk
+    from mmlspark_tpu_torch.recommendation import sar as sar_mod
+
+    t0 = time.perf_counter()
+    cols = movielens_like(SEED + 25)
+    gen_s = time.perf_counter() - t0
+    df = DataFrame.from_dict(cols)
+    prefix = DataFrame.from_dict({k: v[:ML_INDEX_PREFIX]
+                                  for k, v in cols.items()})
+    t0 = time.perf_counter()
+    ix = RecommendationIndexer(userInputCol="user", userOutputCol="user_ix",
+                               itemInputCol="item",
+                               itemOutputCol="item_ix").fit(prefix)
+    ix.transform(prefix).column("item_ix")
+    index_s = time.perf_counter() - t0
+    tvs = RankingTrainValidationSplit(
+        estimator=SAR(similarityFunction="jaccard", supportThreshold=4,
+                      timeDecayCoeff=30, timeCol="time"),
+        evaluator=RankingEvaluator(k=SAR_TOP_K, metricName="ndcgAt"),
+        trainRatio=0.75, userCol="user", itemCol="item", ratingCol="rating")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with Watch(rk.RankingTrainValidationSplit, "split") as split_w, \
+            Watch(SAR, "fit") as fit_w, \
+            Watch(sar_mod.SARModel, "recommend_for_all_users") as rec_w:
+        result = tvs.fit(df)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model = fit_w.results[0]
+    train = split_w.results[0][0]
+    recs = rec_w.results[0]
+    A = model.get("userAffinity")
+    S = model.get("itemSimilarity")
+    U, I = A.shape
+    B = (A > 0).to(torch.float32)
+    C = sar_mod.cooccurrence(B)                 # the fit ran it: warm
+    cooc_ms = time_ms(torch, lambda: sar_mod.cooccurrence(B), 2, 0)
+    del B
+
+    # gate: C's sampled columns against exact int64 counts over the events
+    # whose f32 affinity is above 0 (the decay underflows f32 for events
+    # ~150 half-lives before the last), as the reference computes it
+    rng = np.random.default_rng(SEED + 26)
+    t0 = time.perf_counter()
+    tr = train.collect()
+    tt = np.asarray(tr["time"], np.float64)
+    decay = np.power(2.0, -(tt.max() - tt) / (30 * 86400.0))
+    kept = (np.asarray(tr["rating"], np.float64) * decay).astype(
+        np.float32) > 0
+    pairs = np.unique(np.asarray(tr["user"], np.int64)[kept] * I
+                      + np.asarray(tr["item"], np.int64)[kept])
+    tu, ti = pairs // I, pairs % I            # one entry a (user, item)
+    u_ptr = np.searchsorted(tu, np.arange(U + 1))
+    by_item = np.sort(ti * U + tu)            # (item, user) pairs, by item
+    i_ptr = np.searchsorted(by_item, np.arange(I + 1) * U)
+    cols_ = np.sort(rng.choice(I, SAR_CHECK_COLUMNS, replace=False))
+    C_cols = C[:, torch.as_tensor(cols_, device=C.device)].cpu().numpy()
+    bad_c = 0
+    for k, j in enumerate(cols_):
+        # every item of every user who has item j, counted
+        us = by_item[i_ptr[j]:i_ptr[j + 1]] - j * U
+        lo, lens = u_ptr[us], u_ptr[us + 1] - u_ptr[us]
+        at = np.repeat(lo - (np.cumsum(lens) - lens), lens) \
+            + np.arange(int(lens.sum()))
+        exact = np.bincount(ti[at], minlength=I).astype(np.int64)
+        bad_c += int((C_cols[:, k].astype(np.int64) != exact).sum())
+    c_s = time.perf_counter() - t0
+
+    # gate: S bitwise a host f32 recompute from C
+    t0 = time.perf_counter()
+    S_card = S.cpu().numpy()
+    bad_s = _sar_s_cells_off(C.cpu().numpy(), S_card, "jaccard", 4.0)
+    del C
+    s_s = time.perf_counter() - t0
+
+    # gate: the scores recommend ranked (A @ S, the same product) for
+    # sampled users against a host f64 product; their top 10 by the tie
+    # rule (relative error where the exact score is a normal f32)
+    t0 = time.perf_counter()
+    with sar_mod._full_f32():
+        score_ms = time_ms(torch, lambda: torch.matmul(A, S), 2, 0)
+    users = np.sort(rng.choice(U, SAR_CHECK_USERS, replace=False))
+    sel = torch.as_tensor(users, device=A.device)
+    full = model._scores(remove_seen=False)
+    rows = full[sel].cpu().numpy()
+    del full
+    A_rows = A[sel].cpu().numpy()
+    # the exact scores: A's sampled rows (sparse, f64) times S in f64
+    r_nz, c_nz = np.nonzero(A_rows)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")         # "CSR support is in beta"
+        a_csr = torch.sparse_csr_tensor(
+            torch.as_tensor(np.searchsorted(r_nz, np.arange(len(users) + 1))),
+            torch.as_tensor(c_nz), torch.as_tensor(A_rows[r_nz, c_nz],
+                                                   dtype=torch.float64),
+            (len(users), I))
+    exact = (a_csr @ torch.from_numpy(S_card).double()).numpy()
+    err = np.abs(rows - exact)
+    tiny = float(np.finfo(np.float32).tiny)
+    normal = np.abs(exact) >= tiny
+    worst = float((err[normal] / np.abs(exact[normal])).max(initial=0.0))
+    if (err[~normal] > tiny).any():
+        worst = np.inf
+    # the tie rule: a stable sort of -score keeps ties in item order
+    masked = np.where(A_rows > 0, -np.inf, rows)
+    order = torch.sort(torch.from_numpy(-masked), dim=1,
+                       stable=True).indices[:, :SAR_TOP_K].numpy()
+    got_all = recs.column("recommendations")
+    bad_top = 0
+    for r, u in enumerate(users):
+        want = order[r][np.isfinite(masked[r, order[r]])]
+        bad_top += int(not np.array_equal(got_all[u], want))
+    a_s = time.perf_counter() - t0
+    del A, S, S_card
+    tlc = _tlc_on_card(torch)
+    log({"phase": "sar_main", "card": smi, "users": U, "items": I,
+         "ratings": len(cols["user"]), "train_ratings": len(kept),
+         "train_ratings_above_0_in_f32": len(tu),
+         "datagen_seconds": gen_s, "indexer_seconds_1m_rows": index_s,
+         "split_seconds": split_w.seconds[0], "fit_seconds": fit_w.seconds[0],
+         "recommend_seconds": rec_w.seconds[0],
+         "pipeline_seconds": total_s,
+         "cooccurrence_gemm_ms": cooc_ms, "score_gemm_ms": score_ms,
+         "cooccurrence_tflops": 2.0 * U * I * I / cooc_ms / 1e9,
+         "score_tflops": 2.0 * U * I * I / score_ms / 1e9,
+         f"ndcg_at_{SAR_TOP_K}": result.get("validationMetric"),
+         "peak_device_gb": peak_gb, "c_columns_checked": SAR_CHECK_COLUMNS,
+         "c_cells_off": bad_c, "s_cells_off_bitwise": bad_s,
+         "score_users_checked": SAR_CHECK_USERS,
+         "score_max_rel_err": worst, "top10_off_tie_rule": bad_top,
+         "check_seconds": {"c": c_s, "s": s_s, "scores": a_s}, "tlc": tlc,
+         "cuts": "none (MovieLens-10M's users, items and ratings)"})
+    if bad_c:
+        fail(f"sar_main: {bad_c} cells of C's sampled columns differ from "
+             f"the exact counts")
+    if bad_s:
+        fail(f"sar_main: {bad_s} cells of S differ from the host f32 "
+             f"recompute")
+    if not worst <= SAR_SCORE_RTOL:
+        fail(f"sar_main: A @ S {worst} (relative) from the host f64 product")
+    if bad_top:
+        fail(f"sar_main: {bad_top} users' top {SAR_TOP_K} break the tie rule")
+    if not 0.0 < result.get("validationMetric") <= 1.0:
+        fail(f"sar_main: NDCG@{SAR_TOP_K} {result.get('validationMetric')}")
+    torch.cuda.empty_cache()
+
+
+def _lasso_times(torch, args) -> dict:
+    """The batched lasso's device ms on a LIME call's own inputs: eager
+    (the 200 iterations launched one by one) and as a CUDA-graph replay
+    (a shape's third call on), and whether the replay is the eager call
+    bit for bit."""
+    from mmlspark_tpu_torch.ops import lasso
+
+    X, y, reg = args
+    lasso.release_graphs()
+    w0, b0 = lasso.fit_lasso_batch(X, y, reg, device=DEVICE)
+    eager_ms = time_ms(torch, lambda: lasso.release_graphs()
+                       or lasso.fit_lasso_batch(X, y, reg, device=DEVICE), 3, 0)
+    lasso.fit_lasso_batch(X, y, reg, device=DEVICE)          # captures
+    graph_ms = time_ms(torch, lambda: lasso.fit_lasso_batch(
+        X, y, reg, device=DEVICE), 10, 1)
+    w1, b1 = lasso.fit_lasso_batch(X, y, reg, device=DEVICE)
+    lasso.release_graphs()
+    return {"eager_ms": eager_ms, "graph_ms": graph_ms,
+            "graph_bitwise_eager": bool(torch.equal(w0, w1)
+                                        and torch.equal(b0, b1))}
+
+
+def _lasso_gate(torch, args, result, what: str) -> float:
+    """The card's explanations against the port's CPU lasso on the same
+    draws and scores, relative to max(1, max |w|)."""
+    from mmlspark_tpu_torch.ops import lasso
+
+    X, y, reg = args
+    w_card = result[0].cpu()
+    w_cpu, _ = lasso.fit_lasso_batch(X, y, reg, device="cpu")
+    err = float(((w_card - w_cpu).abs().max(dim=1).values
+                 / w_cpu.abs().max(dim=1).values.clamp(min=1.0)).max())
+    if not w_card.shape == w_cpu.shape or not err <= LIME_LASSO_TOL:
+        fail(f"lime_main {what}: the card's lasso {err} (of max(1, max|w|)) "
+             f"from the CPU's")
+    return err
+
+
+def lime_main(torch, smi, best_model, holdout) -> None:
+    """``TabularLIME`` over automl_main's best LightGBM model on LIME_ROWS
+    holdout rows (nSamples 1,000: 64,000 probes, one batched lasso [64,
+    1000, 105]) and ``ImageLIME`` over image_main's ResNet-50
+    ``ImageFeaturizer`` (its last feature) on LIME_IMAGES of its seeded
+    256x256 images (nSamples 100, cellSize 16, modifier 130; slic's
+    assignments on the card, bitwise the host's). Logs seconds and the
+    lasso's eager and CUDA-graph ms per batch (``_lasso_times``). Gates:
+    the probe scores within LIME_PROBE_TOL of the host f64 traversal;
+    every explanation within LIME_LASSO_TOL of max(1, max |w|) of the
+    port's CPU lasso on the same draws and scores; the labels of the
+    card's slic bitwise the CPU's."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.core.schema import ImageSchema
+    from mmlspark_tpu_torch.image import ImageFeaturizer
+    from mmlspark_tpu_torch.lime import ImageLIME, TabularLIME, slic
+    from mmlspark_tpu_torch.lime import lime as lime_mod
+    from mmlspark_tpu_torch.models import from_torch_resnet
+    from mmlspark_tpu_torch.ops import lasso
+
+    rng = np.random.default_rng(0)              # image_main's images
+    imgs = [rng.integers(0, 256, (IMG_SRC, IMG_SRC, 3), dtype=np.uint8)
+            for _ in range(LIME_IMAGES)]
+    # the first image's slic on the CPU, the labels' reference, computed on
+    # a thread of its own while the phase runs
+    cpu_pool = ThreadPoolExecutor(1)
+    cpu_slic = cpu_pool.submit(slic, imgs[0], 16.0, 130.0, device="cpu")
+
+    # tabular
+    rows = holdout.limit(LIME_ROWS)
+    t0 = time.perf_counter()
+    with Watch(lime_mod, "_score_probes") as probes_w, \
+            Watch(lasso, "fit_lasso_batch") as lasso_w:
+        lime = TabularLIME(inputCol="features", outputCol="weights",
+                           predictionCol="probability",
+                           nSamples=LIME_SAMPLES).set("model", best_model)
+        out = lime.fit(holdout).transform(rows)
+        weights = np.stack(list(out.column("weights")))
+    tab_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ys = probes_w.results[0]
+    X_probe = np.stack(list(probes_w.calls[0][0][2]))
+    n_probe = len(ys)
+    tab_args = lasso_w.calls[0][0][:3]
+    raw = host_raw32(best_model.booster, X_probe)
+    host_p = 1.0 / (1.0 + np.exp(-raw))
+    probe_err = float(np.abs(ys - host_p).max())
+    tab_err = _lasso_gate(torch, tab_args, lasso_w.results[0], "tabular")
+    tab_times = _lasso_times(torch, tab_args)
+    tab_check_s = time.perf_counter() - t0
+
+    # image
+    t0 = time.perf_counter()
+    model = from_torch_resnet(torchvision_resnet_state(torch, 50, 1000, SEED))
+    structs = np.empty(LIME_IMAGES, dtype=object)
+    structs[:] = [ImageSchema.make(a) for a in imgs]
+    feat = ImageFeaturizer(inputCol="image", outputCol="features",
+                           scaleFactor=1 / 255,
+                           batchSize=IMG_BATCH).set_model(model)
+    torch.cuda.synchronize()
+    resnet_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with Watch(lasso, "fit_lasso_batch") as img_w:
+        iout = ImageLIME(inputCol="image", outputCol="weights",
+                         predictionCol="features",
+                         nSamples=LIME_IMAGE_SAMPLES, cellSize=16.0,
+                         modifier=130.0).set("model", feat).transform(
+            DataFrame([{"image": structs}]))
+        iw = list(iout.column("weights"))
+    img_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    img_args = img_w.calls[0][0][:3]
+    img_err = _lasso_gate(torch, img_args, img_w.results[0], "image")
+    img_times = _lasso_times(torch, img_args)
+    spx = iout.column("superpixels")
+    slic_bad = int(not np.array_equal(cpu_slic.result(), spx[0]["labels"]))
+    cpu_pool.shutdown()
+    img_check_s = time.perf_counter() - t0
+    log({"phase": "lime_main", "card": smi, "tabular_rows": LIME_ROWS,
+         "tabular_samples": LIME_SAMPLES, "probe_rows": n_probe,
+         "lasso_shape_tabular": list(tab_args[0].shape),
+         "tabular_seconds": tab_s, "probe_max_abs_diff_vs_host_f64":
+         probe_err, "tabular_lasso_rel_err_vs_cpu": tab_err,
+         "tabular_lasso_ms": tab_times, "image_rows": LIME_IMAGES,
+         "image_samples": LIME_IMAGE_SAMPLES,
+         "lasso_shape_image": list(img_args[0].shape),
+         "superpixels": [int(s["numClusters"]) for s in spx],
+         "image_seconds": img_s, "image_lasso_rel_err_vs_cpu": img_err,
+         "image_lasso_ms": img_times, "slic_labels_off_cpu": slic_bad,
+         "check_seconds": {"tabular": tab_check_s, "image": img_check_s},
+         "resnet_setup_seconds": resnet_s,
+         "lime_lasso_route": "eager (each LIME call is its shape's first)"})
+    if weights.shape != (LIME_ROWS, tab_args[0].shape[2]) \
+            or not np.isfinite(weights).all():
+        fail(f"lime_main: tabular weights {weights.shape}")
+    if not probe_err <= LIME_PROBE_TOL:
+        fail(f"lime_main: probe scores {probe_err} from the host f64 "
+             f"traversal")
+    if len(iw) != LIME_IMAGES or not all(np.isfinite(w).all() for w in iw):
+        fail("lime_main: image importances missing or not finite")
+    if slic_bad:
+        fail("lime_main: the card's slic labels differ from the CPU's")
+    if not (tab_times["graph_bitwise_eager"]
+            and img_times["graph_bitwise_eager"]):
+        fail("lime_main: a lasso graph replay differs from its eager call")
+    torch.cuda.empty_cache()
+
+
 MESH_MAX_CARDS = 4
 MESH_LAUNCH_TIMEOUT = 300     # seconds a launch of ranks may take, then killed
 MESH_ITERS_DENSE = 20
@@ -9155,6 +9904,18 @@ def main() -> int:
             word2vec_main(torch, smi, texts)
         log({"phase": phase.__name__, "seconds": time.perf_counter() - t_phase})
     del texts
+    t_new = time.perf_counter()
+    paths["automl_main"], best_model, holdout = automl_main(torch, smi)
+    log({"phase": "automl_main", "seconds": time.perf_counter() - t_new})
+    for phase in (sar_main, lime_main):
+        t_phase = time.perf_counter()
+        if phase is sar_main:
+            sar_main(torch, smi)
+        else:
+            lime_main(torch, smi, best_model, holdout)
+        log({"phase": phase.__name__, "seconds": time.perf_counter() - t_phase})
+    log({"phase": "automl_sar_lime", "seconds": time.perf_counter() - t_new})
+    del best_model, holdout
     try:
         # the DNN mesh's single-card references alone on the card, then its
         # ranks beside the GBDT mesh's (both sets of ranks contended); the

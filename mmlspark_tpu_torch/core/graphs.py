@@ -51,7 +51,8 @@ def capture_stream(device=None) -> "torch.cuda.ExternalStream":
     from .. import _kernels
 
     dev = torch.device("cuda", torch.cuda.current_device()) \
-        if device is None else torch.device(device)
+        if device is None or torch.device(device).index is None \
+        else torch.device(device)
     streams = getattr(_tls, "streams", None)
     if streams is None:
         streams = _tls.streams = {}
@@ -111,15 +112,18 @@ class Captured:
     nothing); ``replay()`` runs it on the current stream. ``out`` is what
     ``fn`` returned at capture: tensors that every replay rewrites in place.
 
-    ``stream`` is the stream to capture on (default: PyTorch's shared side
-    stream; a caller that may capture from several threads passes
-    ``capture_stream()``) and ``capture_error_mode`` is ``torch.cuda.graph``'s: with
-    ``"thread_local"`` other threads keep launching while this one
-    captures. Captures are serialised (``CAPTURE_LOCK``). ``release()``
-    frees the graph and its memory pool."""
+    ``stream`` is the stream to capture on (default: this thread's
+    ``capture_stream()``, after the current stream's queued work) and
+    ``capture_error_mode`` is ``torch.cuda.graph``'s: with the default
+    ``"thread_local"`` other threads keep launching, on their own streams,
+    while this one captures. Captures are serialised (``CAPTURE_LOCK``).
+    ``release()`` frees the graph and its memory pool."""
 
     def __init__(self, fn: Callable, stream=None,
-                 capture_error_mode: str = "global"):
+                 capture_error_mode: str = "thread_local"):
+        if stream is None:
+            stream = capture_stream()
+            stream.wait_stream(torch.cuda.current_stream())
         self.graph = torch.cuda.CUDAGraph()
         _tls.tally = tally = {}
         try:

@@ -83,6 +83,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import threading
 import time
 from typing import Callable, Iterator, List, Optional, Tuple
 
@@ -92,7 +93,8 @@ import torch
 from ..core import faults as _faults
 from ..parallel.mesh import (all_gather, barrier, data_index, fetch_global,
                              mesh_shards, row_block)
-from ..runtime import DeviceLike, resolve_device
+from ..runtime import (DeviceLike, device_work, resolve_device,
+                       sync_debug_mode)
 from .binning import BinMapper
 from . import select_kernel
 from .checkpoint import check_params_match, load_checkpoint, save_checkpoint
@@ -820,15 +822,26 @@ def _add_leaf_values(score: torch.Tensor, comp: torch.Tensor,
 # this many the fit takes the per-iteration loop
 _SCAN_MASK_BUDGET = 1 << 28
 
-#: the rows each iteration of the last ``_train_scan`` grew its trees on
-#: (the real rows, the bagged rows or GOSS's selection), fetched after its
-#: loop: a reading aid
-last_scan_rows: Optional[np.ndarray] = None
+#: per thread: ``last_scan_rows``, the rows each iteration of the thread's
+#: last ``_train_scan`` grew its trees on (the real rows, the bagged rows or
+#: GOSS's selection), fetched after its loop: a reading aid; and
+#: ``last_scan_guarded``, whether that loop ran under
+#: ``scan_loop_sync_mode`` (``runtime.sync_debug_mode``)
+_scan_tls = threading.local()
 
 #: ``torch.cuda.set_sync_debug_mode`` the scan's boosting loop runs under
 #: (None leaves it as it is); with "error" a synchronizing call inside the
-#: loop raises, which proves it reads nothing on the host
+#: loop raises, which proves it reads nothing on the host. The mode is the
+#: process's, so a loop sets it only while no other thread works
+#: (``runtime.sync_debug_mode``); the loop's capture proves the same on
+#: every thread (a host read fails a capture)
 scan_loop_sync_mode: Optional[str] = None
+
+
+def __getattr__(name: str):
+    if name in ("last_scan_rows", "last_scan_guarded"):
+        return getattr(_scan_tls, name, None)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _env_on(name: str) -> bool:
@@ -946,15 +959,11 @@ def _route_full(bins_dev: torch.Tensor, out: dict) -> torch.Tensor:
 
 @contextlib.contextmanager
 def _scan_loop_guard() -> Iterator[None]:
-    if scan_loop_sync_mode is None or not torch.cuda.is_available():
+    """The scan loop's part under ``scan_loop_sync_mode``; records in
+    ``last_scan_guarded`` whether the mode was set."""
+    with sync_debug_mode(scan_loop_sync_mode) as held:
+        _scan_tls.last_scan_guarded = held
         yield
-        return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode(scan_loop_sync_mode)
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
 
 
 def _train_scan(params: TrainParams, config: GrowerConfig, booster: Booster,
@@ -1089,13 +1098,17 @@ def _train_scan(params: TrainParams, config: GrowerConfig, booster: Booster,
         from . import graphs
 
         cap = graphs.Captured(step)
-        with _scan_loop_guard():
-            for _ in range(iters - 1):
-                cap.replay()
-    host = stacked.cpu().numpy()                 # the fit's one fetch
+        try:
+            with _scan_loop_guard():
+                for _ in range(iters - 1):
+                    cap.replay()
+            host = stacked.cpu().numpy()         # the fit's one fetch
+        finally:
+            cap.release()
+    else:
+        host = stacked.cpu().numpy()
     loop_s = time.perf_counter() - t0
-    global last_scan_rows
-    last_scan_rows = rows_grown.cpu().numpy()
+    _scan_tls.last_scan_rows = rows_grown.cpu().numpy()
     for it in range(iters):
         group = []
         for kk in range(k):
@@ -1366,6 +1379,7 @@ def _train_native(params: TrainParams, X: np.ndarray, y: np.ndarray,
     return booster
 
 
+@device_work
 def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
           weights: Optional[np.ndarray] = None,
           groups: Optional[np.ndarray] = None,
@@ -1602,139 +1616,147 @@ def train(params: TrainParams, X: np.ndarray, y: np.ndarray,
                              mesh=tree_mesh)
     booster.route = "fused" if grower is not None else "host"
     recorder.route(booster.route)
-    for it in range(start_it, params.num_iterations):
-        it_t0 = time.perf_counter()
-        _faults.fire(_faults.TRAIN_STEP, iteration=it)
-        # ----- dart: drop a subset of the existing trees from the scores
-        dropped: List[int] = []
-        if is_dart and booster.trees:
-            dropped = dart_drops(params, rng, len(booster.trees))
-            for di in dropped:
-                for kk in range(k):
-                    scores[:, kk] -= _tree_contrib(booster.trees[di][kk],
-                                                   X_loc)
+    try:
+        for it in range(start_it, params.num_iterations):
+            it_t0 = time.perf_counter()
+            _faults.fire(_faults.TRAIN_STEP, iteration=it)
+            # ----- dart: drop a subset of the existing trees from the scores
+            dropped: List[int] = []
+            if is_dart and booster.trees:
+                dropped = dart_drops(params, rng, len(booster.trees))
+                for di in dropped:
+                    for kk in range(k):
+                        scores[:, kk] -= _tree_contrib(booster.trees[di][kk],
+                                                       X_loc)
 
-        if not fast_scores:
-            score_dev = torch.as_tensor(scores[:, 0] if k == 1 else scores,
-                                        dtype=torch.float32, device=dev)
-        if queries is not None:
-            g, h = queries.grad_hess(score_dev, tree_mesh)
-        else:
-            g, h = grad_hess(objective, score_dev, labels, w_dev,
-                             params.alpha, groups, group_segments=group_seg)
-
-        # ----- bagging / goss row selection
-        row_mask = bag_mask
-        if is_goss:
-            # ranked over every row's gradients (gathered under a mesh)
-            row_mask, amp = goss_sample(all_gather(g, tree_mesh), n_real, n,
-                                        params, rng)
-            amp = amp[blk]
-            if g.dim() == 2:
-                amp = amp[:, None]
-            g, h = g * amp, h * amp
-        else:
-            drawn = bagging_draw(params, rng, n, y, it, is_rf)
-            if drawn is not None:
-                bag_mask = row_mask = drawn
-
-        # ----- feature subsampling
-        fm = feature_draw(params, rng, num_f)
-        feature_mask = torch.as_tensor(fm, device=dev) if fm is not None \
-            else None
-
-        row_mask = row_mask & pad_mask
-        mask_dev = torch.as_tensor(row_mask[blk], device=dev)
-        shrink = lr / (len(dropped) + lr) if dropped else lr  # dart's scale
-        group: List[Tree] = []
-        for kk in range(k):
-            gk = g if g.dim() == 1 else g[:, kk].contiguous()
-            hk = h if h.dim() == 1 else h[:, kk].contiguous()
-            if grower is not None:
-                tree, leaf_of_row = grower.grow(gk, hk, mask_dev,
-                                                feature_mask)
+            if not fast_scores:
+                score_dev = torch.as_tensor(scores[:, 0] if k == 1 else scores,
+                                            dtype=torch.float32, device=dev)
+            if queries is not None:
+                g, h = queries.grad_hess(score_dev, tree_mesh)
             else:
-                tree, leaf_of_row = grow_tree(bins_dev, gk, hk, mask_dev,
-                                              num_bins, config, mapper,
-                                              feature_mask, cat_args=cat_args,
-                                              mesh=tree_mesh)
-            tree.shrinkage = shrink
-            group.append(tree)
-            if fast_scores:
-                vals = np.zeros(max(max_nodes, len(tree.value)),
-                                dtype=np.float32)
-                vals[: len(tree.value)] = tree.value * shrink
-                score_dev, comp_dev = _add_leaf_values(
-                    score_dev, comp_dev, torch.as_tensor(vals, device=dev),
-                    leaf_of_row, kk if k > 1 else None)
-            else:
-                scores[:, kk] += tree.value[leaf_of_row.cpu().numpy()] * shrink
-        if dropped:
-            # scale the dropped trees and add them back
-            factor = len(dropped) / (len(dropped) + lr)
-            for di in dropped:
-                for kk in range(k):
-                    booster.trees[di][kk].shrinkage *= factor
-                    scores[:, kk] += _tree_contrib(booster.trees[di][kk],
-                                                   X_loc)
-        booster.trees.append(group)
+                g, h = grad_hess(objective, score_dev, labels, w_dev,
+                                 params.alpha, groups,
+                                 group_segments=group_seg)
 
-        # ----- eval + early stopping
-        if params.train_metric and log:
-            host_sc = _host_scores()[:n_real]
-            tm = eval_metric(metric, host_sc[:, 0] if k == 1 else host_sc,
-                             y_real, groups_real)
-            recorder.metric(f"train_{metric}", tm)
-            log(f"[{it + 1}] train {metric}={tm:.6f}")
-        if holdout is not None:
-            holdout.extend([group])
-            m = eval_metric(metric, holdout.raw(booster),
-                            np.asarray(holdout.y, dtype=np.float64),
-                            valid_groups)
-            recorder.metric(f"valid_{metric}", m)
-            stop = stopper.update(m, len(booster.trees))
-            if log:
-                log(f"[{it + 1}] valid {metric}={m:.6f}")
-            if stop:
-                booster.best_iteration = stopper.best_iter
+            # ----- bagging / goss row selection
+            row_mask = bag_mask
+            if is_goss:
+                # ranked over every row's gradients (gathered under a mesh)
+                row_mask, amp = goss_sample(all_gather(g, tree_mesh), n_real,
+                                            n, params, rng)
+                amp = amp[blk]
+                if g.dim() == 2:
+                    amp = amp[:, None]
+                g, h = g * amp, h * amp
+            else:
+                drawn = bagging_draw(params, rng, n, y, it, is_rf)
+                if drawn is not None:
+                    bag_mask = row_mask = drawn
+
+            # ----- feature subsampling
+            fm = feature_draw(params, rng, num_f)
+            feature_mask = torch.as_tensor(fm, device=dev) if fm is not None \
+                else None
+
+            row_mask = row_mask & pad_mask
+            mask_dev = torch.as_tensor(row_mask[blk], device=dev)
+            # dart's scale
+            shrink = lr / (len(dropped) + lr) if dropped else lr
+            group: List[Tree] = []
+            for kk in range(k):
+                gk = g if g.dim() == 1 else g[:, kk].contiguous()
+                hk = h if h.dim() == 1 else h[:, kk].contiguous()
+                if grower is not None:
+                    tree, leaf_of_row = grower.grow(gk, hk, mask_dev,
+                                                    feature_mask)
+                else:
+                    tree, leaf_of_row = grow_tree(bins_dev, gk, hk, mask_dev,
+                                                  num_bins, config, mapper,
+                                                  feature_mask,
+                                                  cat_args=cat_args,
+                                                  mesh=tree_mesh)
+                tree.shrinkage = shrink
+                group.append(tree)
+                if fast_scores:
+                    vals = np.zeros(max(max_nodes, len(tree.value)),
+                                    dtype=np.float32)
+                    vals[: len(tree.value)] = tree.value * shrink
+                    score_dev, comp_dev = _add_leaf_values(
+                        score_dev, comp_dev, torch.as_tensor(vals, device=dev),
+                        leaf_of_row, kk if k > 1 else None)
+                else:
+                    scores[:, kk] += \
+                        tree.value[leaf_of_row.cpu().numpy()] * shrink
+            if dropped:
+                # scale the dropped trees and add them back
+                factor = len(dropped) / (len(dropped) + lr)
+                for di in dropped:
+                    for kk in range(k):
+                        booster.trees[di][kk].shrinkage *= factor
+                        scores[:, kk] += _tree_contrib(booster.trees[di][kk],
+                                                       X_loc)
+            booster.trees.append(group)
+
+            # ----- eval + early stopping
+            if params.train_metric and log:
+                host_sc = _host_scores()[:n_real]
+                tm = eval_metric(metric, host_sc[:, 0] if k == 1 else host_sc,
+                                 y_real, groups_real)
+                recorder.metric(f"train_{metric}", tm)
+                log(f"[{it + 1}] train {metric}={tm:.6f}")
+            if holdout is not None:
+                holdout.extend([group])
+                m = eval_metric(metric, holdout.raw(booster),
+                                np.asarray(holdout.y, dtype=np.float64),
+                                valid_groups)
+                recorder.metric(f"valid_{metric}", m)
+                stop = stopper.update(m, len(booster.trees))
                 if log:
-                    log(f"early stopping at iteration {it + 1}, "
-                        f"best {stopper.best_iter}")
-                recorder.step(time.perf_counter() - it_t0, examples=n_real)
-                break
-        elif log and not params.train_metric and (it + 1) % 10 == 0:
-            host_sc = _host_scores()[:n_real]
-            m = eval_metric(metric, host_sc[:, 0] if k == 1 else host_sc,
-                            y_real, groups_real)
-            recorder.metric(f"train_{metric}", m)
-            log(f"[{it + 1}] train {metric}={m:.6f}")
+                    log(f"[{it + 1}] valid {metric}={m:.6f}")
+                if stop:
+                    booster.best_iteration = stopper.best_iter
+                    if log:
+                        log(f"early stopping at iteration {it + 1}, "
+                            f"best {stopper.best_iter}")
+                    recorder.step(time.perf_counter() - it_t0, examples=n_real)
+                    break
+            elif log and not params.train_metric and (it + 1) % 10 == 0:
+                host_sc = _host_scores()[:n_real]
+                m = eval_metric(metric, host_sc[:, 0] if k == 1 else host_sc,
+                                y_real, groups_real)
+                recorder.metric(f"train_{metric}", m)
+                log(f"[{it + 1}] train {metric}={m:.6f}")
 
-        # ----- atomic checkpoint every k iterations (and at the end); under
-        # a mesh every rank gathers the scores (and the card's Kahan pair)
-        # over its data group, the mesh's first rank writes, and the ranks
-        # wait for the file before going on
-        if checkpoint is not None and (
-                (it + 1) % max(checkpoint.every_k, 1) == 0
-                or it + 1 == params.num_iterations):
-            ck_t0 = time.perf_counter()
-            host_sc = _host_scores()
-            pair = (np.moveaxis(fetch_global(torch.stack(
-                [score_dev, comp_dev], dim=1), tree_mesh), 1, 0)
-                if fast_scores else None)
-            if not sharded or mesh.index == 0:
-                save_checkpoint(
-                    checkpoint.path, params_dict=dataclasses.asdict(params),
-                    model_string=booster.to_string(), iteration=it + 1,
-                    scores=host_sc, rng_state=rng.bit_generator.state,
-                    bag_mask=bag_mask, best_val=stopper.best_val,
-                    best_iter=stopper.best_iter,
-                    rounds_no_improve=stopper.no_improve, kahan=pair,
-                    data_shards=shards)
-            if sharded:
-                barrier(mesh)
-            recorder.checkpoint(time.perf_counter() - ck_t0)
-        recorder.step(time.perf_counter() - it_t0, examples=n_real)
-
+            # ----- atomic checkpoint every k iterations (and at the end);
+            # under a mesh every rank gathers the scores (and the card's
+            # Kahan pair) over its data group, the mesh's first rank
+            # writes, and the ranks wait for the file before going on
+            if checkpoint is not None and (
+                    (it + 1) % max(checkpoint.every_k, 1) == 0
+                    or it + 1 == params.num_iterations):
+                ck_t0 = time.perf_counter()
+                host_sc = _host_scores()
+                pair = (np.moveaxis(fetch_global(torch.stack(
+                    [score_dev, comp_dev], dim=1), tree_mesh), 1, 0)
+                    if fast_scores else None)
+                if not sharded or mesh.index == 0:
+                    save_checkpoint(
+                        checkpoint.path,
+                        params_dict=dataclasses.asdict(params),
+                        model_string=booster.to_string(), iteration=it + 1,
+                        scores=host_sc, rng_state=rng.bit_generator.state,
+                        bag_mask=bag_mask, best_val=stopper.best_val,
+                        best_iter=stopper.best_iter,
+                        rounds_no_improve=stopper.no_improve, kahan=pair,
+                        data_shards=shards)
+                if sharded:
+                    barrier(mesh)
+                recorder.checkpoint(time.perf_counter() - ck_t0)
+            recorder.step(time.perf_counter() - it_t0, examples=n_real)
+    finally:
+        if grower is not None:
+            grower.release()
     if is_rf:
         rf_average(booster)
     return booster

@@ -2,8 +2,9 @@
 
 The fused tree grower and the whole-run scan engine launch thousands of
 small kernels per tree at fixed shapes. ``Captured`` (core/graphs.py)
-records one call of such a function in a ``torch.cuda.CUDAGraph`` and
-replays it, with the kernels' launch counters counted through the replays
+records one call of such a function in a ``torch.cuda.CUDAGraph`` (on the
+calling thread's own capture stream, so fits on several threads capture
+beside each other's launches) and replays it, with the kernels' launch counters counted through the replays
 (``count_replays``); ``Replayer`` runs a grower step eagerly once, captures
 it on the second call and replays it after. A row-sharded step on NCCL is
 captured with its all-reduces: the eager call has formed the communicator,
@@ -63,6 +64,13 @@ class Replayer:
                 if dst is not None:
                     dst.copy_(src)
         return self.graphs[key][1].replay()
+
+    def release(self) -> None:
+        """Free every graph this step captured (``Captured.release``); the
+        next call runs eagerly again."""
+        graphs, self.graphs, self.calls = self.graphs, {}, 0
+        for _, graph in graphs.values():
+            graph.release()
 
     @property
     def replays(self) -> int:

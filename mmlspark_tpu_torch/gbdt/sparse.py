@@ -66,6 +66,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -74,7 +75,8 @@ import torch
 
 from ..parallel.batching import sparse_width
 from ..parallel.mesh import all_gather, data_index, fetch_global, mesh_shards
-from ..runtime import DeviceLike, default_device, resolve_device
+from ..runtime import (DeviceLike, default_device, device_work,
+                       resolve_device)
 from .booster import (Booster, EarlyStopping, ShardQueries, _env_on,
                       _scan_precompute_masks, bagging_draw, dart_drops,
                       default_metric, eval_metric, feature_draw, goss_sample,
@@ -890,6 +892,10 @@ class SparseFusedGrower:
         return _read_sparse_tree(*self.run(grad, hess, row_mask, bin_mask),
                                  self.config, self.ds.thresholds)
 
+    def release(self) -> None:
+        """Free the tree's CUDA graphs (the fit's end)."""
+        self.run.release()
+
 
 def _grow_tree_sparse_host(ds: SparseDataset, dev: Dict, grad: torch.Tensor,
                            hess: torch.Tensor, config: GrowerConfig,
@@ -1127,9 +1133,19 @@ def _sparse_compact_cap(params, ds: SparseDataset, row_masks,
     return cap, sel_cap
 
 
-#: the last sparse scan's selection, fetched after its loop (a reading
-#: aid): ``rows`` and ``entries`` selected each iteration, the capacities
-last_scan_stats: Dict = {}
+#: per thread: ``last_scan_stats``, the thread's last sparse scan's
+#: selection, fetched after its loop (a reading aid): ``rows`` and
+#: ``entries`` selected each iteration, the capacities
+_scan_tls = threading.local()
+
+
+def __getattr__(name: str):
+    if name == "last_scan_stats":
+        stats = getattr(_scan_tls, name, None)
+        if stats is None:
+            stats = _scan_tls.last_scan_stats = {}
+        return stats
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _compact_stream(dev: Dict, row_mask: torch.Tensor, cap: int,
@@ -1285,16 +1301,20 @@ def _train_scan_sparse(params, config: GrowerConfig, booster: Booster,
         from . import graphs
 
         cap = graphs.Captured(step)
-        with _scan_loop_guard():
-            for _ in range(iters - 1):
-                cap.replay()
-    host = stacked.cpu().numpy()                 # the fit's one fetch
+        try:
+            with _scan_loop_guard():
+                for _ in range(iters - 1):
+                    cap.replay()
+            host = stacked.cpu().numpy()         # the fit's one fetch
+        finally:
+            cap.release()
+    else:
+        host = stacked.cpu().numpy()
     loop_s = time.perf_counter() - t0
     sel = selected.cpu().numpy()
-    last_scan_stats.clear()
-    last_scan_stats.update(rows=sel[:, 0], entries=sel[:, 1],
-                           compact_cap=compact_cap, sel_cap=sel_cap,
-                           lazy=lazy)
+    _scan_tls.last_scan_stats = dict(
+        rows=sel[:, 0], entries=sel[:, 1], compact_cap=compact_cap,
+        sel_cap=sel_cap, lazy=lazy)
     for it in range(iters):
         group = []
         for kk in range(k):
@@ -1311,6 +1331,7 @@ def _train_scan_sparse(params, config: GrowerConfig, booster: Booster,
 # ---------------------------------------------------------------------------
 
 
+@device_work
 def train_sparse(params, ds: SparseDataset, y: np.ndarray,
                  weights: Optional[np.ndarray] = None,
                  groups: Optional[np.ndarray] = None,
@@ -1468,96 +1489,103 @@ def train_sparse(params, ds: SparseDataset, y: np.ndarray,
             val_scores += val_rows.predict(init_model.trees, k)
 
     bag_mask = np.ones(n, dtype=bool)
-    for it in range(params.num_iterations):
-        it_t0 = time.perf_counter()
-        dropped: List[int] = []
-        if is_dart and booster.trees:
-            dropped = dart_drops(params, rng, len(booster.trees))
-            for di in dropped:
-                scores -= _train_rows().predict([booster.trees[di]], k)
-                if val_rows is not None:
-                    # keep the holdout scores in lockstep (the dropped
-                    # trees are rescaled below)
-                    val_scores -= val_rows.predict([booster.trees[di]], k)
+    try:
+        for it in range(params.num_iterations):
+            it_t0 = time.perf_counter()
+            dropped: List[int] = []
+            if is_dart and booster.trees:
+                dropped = dart_drops(params, rng, len(booster.trees))
+                for di in dropped:
+                    scores -= _train_rows().predict([booster.trees[di]], k)
+                    if val_rows is not None:
+                        # keep the holdout scores in lockstep (the dropped
+                        # trees are rescaled below)
+                        val_scores -= val_rows.predict([booster.trees[di]], k)
 
-        score_dev = torch.as_tensor(scores[:, 0] if k == 1 else scores,
-                                    dtype=torch.float32, device=dev_t)
-        if queries is not None:
-            g, h = queries.grad_hess(score_dev, tree_mesh)
-        else:
-            g, h = grad_hess(params.objective, score_dev, labels, w_dev,
-                             params.alpha, groups, group_segments=group_seg)
-
-        row_mask = bag_mask
-        if is_goss:
-            # ranked over every row's gradients (gathered under a mesh)
-            row_mask, amp = goss_sample(all_gather(g, tree_mesh, sizes), n, n,
-                                        params, rng)
-            amp = amp[blk]
-            if g.dim() == 2:
-                amp = amp[:, None]
-            g, h = g * amp, h * amp
-        else:
-            drawn = bagging_draw(params, rng, n, y, it, is_rf)
-            if drawn is not None:
-                bag_mask = row_mask = drawn
-
-        bin_mask = None
-        fm = feature_draw(params, rng, ds.num_features)
-        if fm is not None:
-            bin_mask = torch.as_tensor(fm, device=dev_t).index_select(
-                0, dev["feat_of_bin"])
-
-        mask_dev = torch.as_tensor(row_mask[blk], device=dev_t)
-        shrink = lr / (len(dropped) + lr) if dropped else lr  # dart's scale
-        group: List[Tree] = []
-        for kk in range(k):
-            gk = g if g.dim() == 1 else g[:, kk].contiguous()
-            hk = h if h.dim() == 1 else h[:, kk].contiguous()
-            if grower is not None:
-                tree, leaf_of_row = grower.grow(gk, hk, mask_dev, bin_mask)
+            score_dev = torch.as_tensor(scores[:, 0] if k == 1 else scores,
+                                        dtype=torch.float32, device=dev_t)
+            if queries is not None:
+                g, h = queries.grad_hess(score_dev, tree_mesh)
             else:
-                tree, leaf_of_row = _grow_tree_sparse_host(
-                    ds, dev, gk, hk, config, mask_dev, bin_mask)
-            tree.shrinkage = shrink
-            group.append(tree)
-            scores[:, kk] += tree.value[leaf_of_row.cpu().numpy()] * shrink
-        if dropped:
-            factor = len(dropped) / (len(dropped) + lr)
-            for di in dropped:
-                for kk in range(k):
-                    booster.trees[di][kk].shrinkage *= factor
-                scores += _train_rows().predict([booster.trees[di]], k)
-                if val_rows is not None:
-                    val_scores += val_rows.predict([booster.trees[di]], k)
-        booster.trees.append(group)
+                g, h = grad_hess(params.objective, score_dev, labels, w_dev,
+                                 params.alpha, groups,
+                                 group_segments=group_seg)
 
-        # eval + early stopping on the CSR holdout
-        if val_rows is not None:
-            val_scores += val_rows.predict([group], k)
-            vs = val_scores[:, 0] if k == 1 else val_scores
-            m = eval_metric(metric, vs, np.asarray(val_y, dtype=np.float64),
-                            valid_groups)
-            recorder.metric(f"valid_{metric}", m)
-            stop = stopper.update(m, len(booster.trees))
-            if log:
-                log(f"[{it + 1}] valid {metric}={m:.6f}")
-            if stop:
-                booster.best_iteration = stopper.best_iter
+            row_mask = bag_mask
+            if is_goss:
+                # ranked over every row's gradients (gathered under a mesh)
+                row_mask, amp = goss_sample(all_gather(g, tree_mesh, sizes),
+                                            n, n, params, rng)
+                amp = amp[blk]
+                if g.dim() == 2:
+                    amp = amp[:, None]
+                g, h = g * amp, h * amp
+            else:
+                drawn = bagging_draw(params, rng, n, y, it, is_rf)
+                if drawn is not None:
+                    bag_mask = row_mask = drawn
+
+            bin_mask = None
+            fm = feature_draw(params, rng, ds.num_features)
+            if fm is not None:
+                bin_mask = torch.as_tensor(fm, device=dev_t).index_select(
+                    0, dev["feat_of_bin"])
+
+            mask_dev = torch.as_tensor(row_mask[blk], device=dev_t)
+            # dart's scale
+            shrink = lr / (len(dropped) + lr) if dropped else lr
+            group: List[Tree] = []
+            for kk in range(k):
+                gk = g if g.dim() == 1 else g[:, kk].contiguous()
+                hk = h if h.dim() == 1 else h[:, kk].contiguous()
+                if grower is not None:
+                    tree, leaf_of_row = grower.grow(gk, hk, mask_dev, bin_mask)
+                else:
+                    tree, leaf_of_row = _grow_tree_sparse_host(
+                        ds, dev, gk, hk, config, mask_dev, bin_mask)
+                tree.shrinkage = shrink
+                group.append(tree)
+                scores[:, kk] += \
+                    tree.value[leaf_of_row.cpu().numpy()] * shrink
+            if dropped:
+                factor = len(dropped) / (len(dropped) + lr)
+                for di in dropped:
+                    for kk in range(k):
+                        booster.trees[di][kk].shrinkage *= factor
+                    scores += _train_rows().predict([booster.trees[di]], k)
+                    if val_rows is not None:
+                        val_scores += val_rows.predict([booster.trees[di]], k)
+            booster.trees.append(group)
+
+            # eval + early stopping on the CSR holdout
+            if val_rows is not None:
+                val_scores += val_rows.predict([group], k)
+                vs = val_scores[:, 0] if k == 1 else val_scores
+                m = eval_metric(metric, vs,
+                                np.asarray(val_y, dtype=np.float64),
+                                valid_groups)
+                recorder.metric(f"valid_{metric}", m)
+                stop = stopper.update(m, len(booster.trees))
                 if log:
-                    log(f"early stopping at iteration {it + 1}, "
-                        f"best {stopper.best_iter}")
-                recorder.step(time.perf_counter() - it_t0, examples=n)
-                break
-        elif log and (it + 1) % 10 == 0:
-            sc = fetch_global(torch.from_numpy(scores), tree_mesh, sizes)
-            sc = sc[:, 0] if k == 1 else sc
-            m = eval_metric(metric, sc, np.asarray(y, dtype=np.float64),
-                            groups)
-            recorder.metric(f"train_{metric}", m)
-            log(f"[{it + 1}] train {metric}={m:.6f}")
-        recorder.step(time.perf_counter() - it_t0, examples=n)
-
+                    log(f"[{it + 1}] valid {metric}={m:.6f}")
+                if stop:
+                    booster.best_iteration = stopper.best_iter
+                    if log:
+                        log(f"early stopping at iteration {it + 1}, "
+                            f"best {stopper.best_iter}")
+                    recorder.step(time.perf_counter() - it_t0, examples=n)
+                    break
+            elif log and (it + 1) % 10 == 0:
+                sc = fetch_global(torch.from_numpy(scores), tree_mesh, sizes)
+                sc = sc[:, 0] if k == 1 else sc
+                m = eval_metric(metric, sc, np.asarray(y, dtype=np.float64),
+                                groups)
+                recorder.metric(f"train_{metric}", m)
+                log(f"[{it + 1}] train {metric}={m:.6f}")
+            recorder.step(time.perf_counter() - it_t0, examples=n)
+    finally:
+        if grower is not None:
+            grower.release()
     if is_rf:
         rf_average(booster)
     return booster

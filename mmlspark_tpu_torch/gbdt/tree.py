@@ -767,3 +767,7 @@ class FusedGrower:
         return _read_tree(*self.run(grad, hess, row_mask, feature_mask),
                           self.config, self.bin_mapper,
                           self.cat_args is not None)
+
+    def release(self) -> None:
+        """Free the tree's CUDA graphs (the fit's end)."""
+        self.run.release()

@@ -2414,3 +2414,213 @@ def test_text_featurizer_rows_through_k4_and_k3_on_the_card(cuda_device,
         for fld in ("feature", "threshold_bin", "left", "right"):
             np.testing.assert_array_equal(getattr(ta[0], fld),
                                           getattr(tb[0], fld))
+
+
+def _concurrent_case():
+    from mmlspark_tpu_torch.gbdt import booster
+
+    rng = np.random.default_rng(21)
+    X = rng.standard_normal((65_536, 12))
+    y = (X[:, 0] - X[:, 1] * X[:, 2] + rng.logistic(size=len(X)) > 0) * 1.0
+    scan = booster.TrainParams(objective="binary", num_iterations=8,
+                               num_leaves=31)
+    # a validation set keeps this one off the scan: the fused per-tree
+    # route, whose trees capture through graphs.Replayer
+    fused = booster.TrainParams(objective="binary", num_iterations=6,
+                                num_leaves=15)
+    return ((scan, X, y, None), (fused, X[:32_768], y[:32_768],
+                                 (X[-4096:], y[-4096:])))
+
+
+def _fit_counted(case):
+    from mmlspark_tpu_torch.gbdt import booster
+
+    params, X, y, valid = case
+    return booster.train(params, X, y, valid=valid, device="cuda")
+
+
+@pytest.fixture(scope="module")
+def serial_fits():
+    """Each fit of ``_concurrent_case`` alone on the main thread: its
+    LightGBM text and its K1 / K2 launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    from mmlspark_tpu_torch.core import graphs
+
+    os.environ["MMLSPARK_TPU_NATIVE_TRAIN"] = "0"
+    try:
+        out = []
+        for case in _concurrent_case():
+            graphs.set_counters({c: 0 for c in graphs.COUNTERS})
+            b = _fit_counted(case)
+            out.append((b.to_string(), b.route, graphs.read_counters()))
+    finally:
+        del os.environ["MMLSPARK_TPU_NATIVE_TRAIN"]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep", range(50))
+def test_two_fits_beside_a_third_capturing_thread(cuda_device, monkeypatch,
+                                                  serial_fits, rep):
+    """Two threads fit at once, each on its own stream (the scan route,
+    and the fused per-tree route), while a third captures, replays and
+    releases small graphs in a loop, under ``scan_loop_sync_mode="error"``:
+    no capture fails, no thread's host read raises, both models are the
+    serial fits' byte for byte, the third thread's replays are right, and
+    K1 / K2 count each fit's launches once. Fifty repetitions."""
+    import threading
+
+    from mmlspark_tpu_torch.core import graphs
+    from mmlspark_tpu_torch.gbdt import booster
+    from mmlspark_tpu_torch.runtime import on_device
+
+    monkeypatch.setenv("MMLSPARK_TPU_NATIVE_TRAIN", "0")
+    monkeypatch.setattr(booster, "scan_loop_sync_mode", "error")
+    cases = _concurrent_case()
+    models = [None, None]
+    errors, captures = [], []
+    done = threading.Event()
+
+    def fit(i):
+        try:
+            with on_device(cuda_device, graphs.capture_stream(cuda_device)):
+                models[i] = _fit_counted(cases[i])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    def capture():
+        try:
+            with on_device(cuda_device, graphs.capture_stream(cuda_device)):
+                x = torch.arange(4096, dtype=torch.float32,
+                                 device=cuda_device)
+                (x * 2 + 1).sum()
+                while not done.is_set():
+                    cap = graphs.Captured(lambda: (x * 2 + 1).sum())
+                    got = float(cap.replay())
+                    cap.release()
+                    captures.append(got == float(4096 * 4096))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    graphs.set_counters({c: 0 for c in graphs.COUNTERS})
+    third = threading.Thread(target=capture)
+    third.start()
+    fitters = [threading.Thread(target=fit, args=(i,)) for i in range(2)]
+    for t in fitters:
+        t.start()
+    for t in fitters:
+        t.join(timeout=120)
+    done.set()
+    third.join(timeout=60)
+    assert not any(t.is_alive() for t in fitters + [third])
+    assert not errors, errors
+    assert captures and all(captures)
+    got = graphs.read_counters()
+    for (text, route, counts), model in zip(serial_fits, models):
+        assert model.route == route
+        assert model.to_string() == text
+    assert [m.route for m in models] == ["scan", "fused"]
+    assert got == {c: serial_fits[0][2].get(c, 0)
+                   + serial_fits[1][2].get(c, 0) for c in got}
+    assert got[("mmlspark_tpu_torch.gbdt.hist_kernel", "launches")] \
+        + got[("mmlspark_tpu_torch.gbdt.hist_kernel", "count_launches")] > 0
+
+
+@pytest.mark.cuda
+def test_scan_keeps_its_sync_proof_alone_and_drops_it_beside_a_worker(
+        cuda_device, monkeypatch):
+    """Alone on the main thread the scan's loop runs under the sync debug
+    mode (``last_scan_guarded``); while another thread works it does not
+    set the process's mode, and that thread's host reads do not raise."""
+    import threading
+
+    from mmlspark_tpu_torch.gbdt import booster
+    from mmlspark_tpu_torch.runtime import working
+
+    monkeypatch.setenv("MMLSPARK_TPU_NATIVE_TRAIN", "0")
+    monkeypatch.setattr(booster, "scan_loop_sync_mode", "error")
+    params, X, y, _ = _concurrent_case()[0]
+    b = booster.train(params, X, y, device="cuda")
+    assert b.route == "scan" and booster.last_scan_guarded is True
+    busy, stop = threading.Event(), threading.Event()
+    reads = []
+
+    def reader():
+        with working():
+            busy.set()
+            t = torch.ones(8, device=cuda_device)
+            while not stop.is_set():
+                reads.append(float(t.sum()))
+
+    th = threading.Thread(target=reader)
+    th.start()
+    busy.wait(timeout=60)
+    try:
+        b2 = booster.train(params, X, y, device="cuda")
+    finally:
+        stop.set()
+        th.join(timeout=60)
+    assert booster.last_scan_guarded is False
+    assert b2.to_string() == b.to_string()
+    assert reads and all(r == 8.0 for r in reads)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.cuda
+def test_lasso_graph_replays_equal_eager_and_the_cpu(cuda_device):
+    """A shape's first call eager, its second captured, the later ones
+    replayed: the same bits; within 1e-4 * max(1, max|w|) of the CPU."""
+    from mmlspark_tpu_torch.ops import lasso
+
+    rng = np.random.default_rng(2)
+    X = rng.normal(size=(64, 1000, 12)).astype(np.float32)
+    y = (X @ rng.normal(size=12) + 0.1 * rng.normal(size=(64, 1000))
+         ).astype(np.float32)
+    runs = [lasso.fit_lasso_batch(X, y, 0.01, device="cuda")
+            for _ in range(4)]
+    for w, b in runs[1:]:
+        assert torch.equal(w, runs[0][0]) and torch.equal(b, runs[0][1])
+    cw, cb = lasso.fit_lasso_batch(X, y, 0.01, device="cpu")
+    tol = 1e-4 * max(1.0, float(cw.abs().max()))
+    assert float((runs[0][0].cpu() - cw).abs().max()) <= tol
+    assert float((runs[0][1].cpu() - cb).abs().max()) <= tol
+    lasso.release_graphs()
+
+
+@pytest.mark.cuda
+def test_sar_and_slic_on_the_card_equal_the_cpu(cuda_device):
+    """SAR's affinity and similarity on the card bitwise the CPU's (with
+    repeated events), its scores within rtol 1e-5 and its top 10 by the
+    tie rule; slic's labels on the card bitwise the CPU's."""
+    from mmlspark_tpu_torch.core.dataframe import DataFrame
+    from mmlspark_tpu_torch.lime import slic
+    from mmlspark_tpu_torch.recommendation import SAR
+    from mmlspark_tpu_torch.runtime import use_device
+
+    rng = np.random.default_rng(5)
+    n = 20_000
+    cols = {"user": rng.integers(0, 500, n), "item": rng.zipf(1.3, n) % 300,
+            "rating": rng.integers(1, 11, n) * 0.5,
+            "time": 1.2e9 + rng.integers(0, 4e8, n).astype(np.float64)}
+    df = DataFrame.from_dict(cols)
+    est = SAR(userCol="user", itemCol="item", ratingCol="rating",
+              timeCol="time", supportThreshold=4)
+    card = est.fit(df)
+    with use_device("cpu"):
+        cpu = est.fit(df)
+        cpu_recs = cpu.recommend_for_all_users(10)
+        cpu_scores = cpu._scores(remove_seen=False)
+    for p in ("userAffinity", "itemSimilarity"):
+        assert torch.equal(card.get(p).cpu(), cpu.get(p))
+    scores = card._scores(remove_seen=False).cpu()
+    assert bool(((scores - cpu_scores).abs()
+                 <= 1e-5 * cpu_scores.abs()).all())
+    recs = card.recommend_for_all_users(10)
+    for a, b in zip(recs.column("ratings"), cpu_recs.column("ratings")):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=0)
+    img = rng.integers(0, 255, (256, 256, 3)).astype(np.uint8)
+    np.testing.assert_array_equal(slic(img, device="cuda"),
+                                  slic(img, device="cpu"))

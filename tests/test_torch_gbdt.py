@@ -2757,3 +2757,484 @@ def test_mesh_spec_resolve_and_process_shard_match_reference():
     assert port_mesh.process_shard(df, 0, 1) is df
     assert port_mesh.process_shard(
         DataFrame.from_dict(rows, num_partitions=1), 2, 3).count() == 0
+
+
+# ---------------------------------------------------------------------------
+# AutoML, the lasso and LIME (``mmlspark_tpu_torch.automl``, ``.ops.lasso``,
+# ``.lime``) against the reference's, on the same numpy inputs. Tolerances:
+#   - the lasso: 1e-4 * max(1, max|w|) on w and b (f32 sums in another
+#     order over 200 nonexpansive ISTA steps; measured here <= 3e-7);
+#   - tuning on the device path of both packages (``ref_device_path``):
+#     ``allMetrics`` within 1e-12, ``bestParams`` and the best model's
+#     predicted labels equal, its probabilities within 1e-6 (the
+#     reference sums its trees in f32). ``evaluationMetric="AUC"`` is held
+#     so where no two of a fold's scores tie in the reference's f32 sums
+#     but not in the port's f64 ones (the grid case); the sampled case,
+#     whose 150 rows hold such a pair, is held on ``accuracy``;
+#   - ``MetricEvaluator`` and ``FindBestModel`` on the same scored
+#     frames: equal;
+#   - LIME: the reference's probes and a LightGBM model, explanations
+#     within the lasso's tolerance; ``slic`` labels bitwise.
+# ---------------------------------------------------------------------------
+
+import contextlib  # noqa: E402
+import threading  # noqa: E402
+
+from mmlspark_tpu import automl as ref_automl  # noqa: E402
+from mmlspark_tpu import lime as ref_lime  # noqa: E402
+from mmlspark_tpu.core.schema import ImageSchema as RefImageSchema  # noqa: E402
+from mmlspark_tpu.ops import lasso as ref_lasso  # noqa: E402
+from mmlspark_tpu_torch import automl, lime, runtime  # noqa: E402
+from mmlspark_tpu_torch.core.params import Param  # noqa: E402
+from mmlspark_tpu_torch.core.pipeline import (Estimator,  # noqa: E402
+                                              Model, PipelineStage)
+from mmlspark_tpu_torch.core.schema import ImageSchema  # noqa: E402
+from mmlspark_tpu_torch.ops import lasso  # noqa: E402
+
+LASSO_TOL = 1e-4
+
+
+def _lasso_tol(w):
+    return LASSO_TOL * max(1.0, float(np.abs(np.asarray(w)).max()))
+
+
+@pytest.mark.parametrize("b,n,d,reg,weighted", [
+    (3, 300, 10, 0.01, True), (4, 100, 20, 0.0, False),
+    (2, 1000, 7, 0.5, True), (64, 50, 3, 0.05, False)])
+def test_fit_lasso_matches_reference(b, n, d, reg, weighted):
+    rng = np.random.default_rng(b * 100 + d)
+    X = (rng.normal(size=(b, n, d))
+         * rng.uniform(0.1, 3.0, d)).astype(np.float32)
+    y = (X @ rng.normal(size=d) + 1.5
+         + 0.1 * rng.normal(size=(b, n))).astype(np.float32)
+    sw = rng.uniform(0.1, 1.0, (b, n)).astype(np.float32) if weighted \
+        else np.ones((b, n), np.float32)
+    wr, br = ref_lasso.fit_lasso_batch(X, y, np.float32(reg), sw)
+    wp, bp = lasso.fit_lasso_batch(X, y, reg, sw if weighted else None,
+                                   device="cpu")
+    tol = _lasso_tol(wr)
+    np.testing.assert_allclose(wp.numpy(), np.asarray(wr), rtol=0, atol=tol)
+    np.testing.assert_allclose(bp.numpy(), np.asarray(br), rtol=0, atol=tol)
+    w1, b1 = ref_lasso.fit_lasso(X[0], y[0], np.float32(reg),
+                                 fit_intercept=False)
+    w2, b2 = lasso.fit_lasso(torch.from_numpy(X[0]), y[0], reg,
+                             fit_intercept=False)
+    assert w2.device.type == "cpu" and float(b2) == 0.0 == float(b1)
+    np.testing.assert_allclose(w2.numpy(), np.asarray(w1), rtol=0,
+                               atol=_lasso_tol(w1))
+
+
+def test_lasso_reference_assertions():
+    """``tests/test_lime.py``'s two lasso cases, through the port."""
+    rng = np.random.default_rng(0)
+    n, d = 300, 10
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    w_true = np.zeros(d)
+    w_true[2], w_true[7] = 3.0, -2.0
+    y = X @ w_true + 1.5 + 0.01 * rng.normal(size=n)
+    with use_device("cpu"):
+        w, b = lasso.fit_lasso(X, y.astype(np.float32), 0.01, iters=500)
+        w = w.numpy()
+        np.testing.assert_allclose(w[[2, 7]], [3.0, -2.0], atol=0.15)
+        assert np.abs(w[[0, 1, 3, 4, 5, 6, 8, 9]]).max() < 0.1
+        assert abs(float(b) - 1.5) < 0.2
+        rng = np.random.default_rng(1)
+        X = rng.normal(size=(100, 20)).astype(np.float32)
+        y = (X[:, 0] + 0.01 * rng.normal(size=100)).astype(np.float32)
+        w_strong, _ = lasso.fit_lasso(X, y, 0.5, iters=300)
+        w_none, _ = lasso.fit_lasso(X, y, 0.0, iters=300)
+    assert (w_strong.abs() > 1e-4).sum() < (w_none.abs() > 1e-4).sum()
+
+
+def _clf_cols(n=250, seed=0):
+    """``tests/test_automl_recommendation.py``'s ``clf_df`` columns."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 5))
+    y = (X[:, 0] + 0.5 * X[:, 1]
+         + rng.normal(scale=0.3, size=n) > 0).astype(float)
+    return {"features": [X[i] for i in range(n)], "label": y}
+
+
+_AUTOML = {"ref": (ref_automl, RefDataFrame, ref_stages.LightGBMClassifier),
+           "port": (automl, DataFrame, stages.LightGBMClassifier)}
+
+
+def _tune(pkg, space_kind, metric, par, n):
+    A, DF, LC = _AUTOML[pkg]
+    df = DF.from_dict(_clf_cols(n), num_partitions=2)
+    if space_kind == "grid":
+        est = LC(numIterations=10, minDataInLeaf=5)
+        space = A.GridSpace(A.HyperparamBuilder().add_hyperparam(
+            est, "numLeaves", A.DiscreteHyperParam([7, 31])).build())
+        kw = {}
+    else:
+        est = LC(numIterations=5, minDataInLeaf=5)
+        space = A.ParamSpace(A.HyperparamBuilder().add_hyperparam(
+            est, "learningRate", A.RangeHyperParam(0.05, 0.3)).build(),
+            seed=1)
+        kw = {"numRuns": 3}
+    model = A.TuneHyperparameters(
+        models=[est], paramSpace=space, evaluationMetric=metric, numFolds=2,
+        parallelism=par, labelCol="label", **kw).fit(df)
+    return model, model.transform(df)
+
+
+def _same_tuning(ref, port):
+    (rm, rs), (pm, ps) = ref, port
+    np.testing.assert_allclose(pm.get("allMetrics"), rm.get("allMetrics"),
+                               rtol=0, atol=1e-12)
+    assert pm.get("bestParams") == rm.get("bestParams")
+    assert abs(pm.get("bestMetric") - rm.get("bestMetric")) <= 1e-12
+    np.testing.assert_array_equal(ps.column("prediction"),
+                                  rs.column("prediction"))
+    np.testing.assert_allclose(np.stack(list(ps.column("probability"))),
+                               np.stack(list(rs.column("probability"))),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("metric", ["accuracy", "AUC", "precision", "recall"])
+def test_tune_grid_matches_reference(ref_device_path, metric):
+    """The reference test's grid (numLeaves 7 or 31, two folds) with each
+    classification metric: the port at parallelism 1 and 2 against the
+    reference, and the two parallelisms bit for bit."""
+    ref = _tune("ref", "grid", metric, 1, 250)
+    with use_device("cpu"):
+        one = _tune("port", "grid", metric, 1, 250)
+        two = _tune("port", "grid", metric, 2, 250)
+    _same_tuning(ref, one)
+    _same_tuning(ref, two)
+    assert one[0].get("allMetrics") == two[0].get("allMetrics")
+    assert one[0].get("bestModel").get_model_string() == \
+        two[0].get("bestModel").get_model_string()
+    assert len(one[0].get("allMetrics")) == 2
+    assert "prediction" in one[1].columns
+
+
+def test_tune_sampled_space_matches_reference(ref_device_path):
+    """The reference test's sampled space (three learning rates drawn from
+    ``default_rng(1)``) at parallelism 2: the same draws, metrics and
+    best setting; on AUC the port's two parallelisms agree bit for bit."""
+    ref = _tune("ref", "sampled", "accuracy", 2, 150)
+    with use_device("cpu"):
+        port = _tune("port", "sampled", "accuracy", 2, 150)
+        auc_one = _tune("port", "sampled", "AUC", 1, 150)[0]
+        auc_two = _tune("port", "sampled", "AUC", 2, 150)[0]
+    _same_tuning(ref, port)
+    assert len(port[0].get("allMetrics")) == 3
+    assert auc_one.get("allMetrics") == auc_two.get("allMetrics")
+    assert auc_one.get("bestParams") == auc_two.get("bestParams")
+
+
+class _DeviceProbe(Estimator):
+    """Records, at each fit, the thread and the device it resolves."""
+
+    nothing = Param("nothing", "A setting to tune", 0, ptype=int)
+    seen: list = []
+
+    def fit(self, df):
+        _DeviceProbe.seen.append((threading.get_ident(),
+                                  runtime.default_device()))
+        return _ConstModel()
+
+
+class _ConstModel(Model):
+    def transform(self, df):
+        n = df.count()
+        return df.with_column("prediction", np.zeros(n)) \
+            .with_column("probability", [np.array([0.5, 0.5])] * n)
+
+
+def test_parallel_tune_workers_run_on_the_callers_device():
+    """A pool worker does not inherit ``use_device``: each enters the
+    caller's device, so a parallelism-2 tune under ``use_device("cpu")``
+    resolves the CPU in every worker (without the card it would raise)
+    and its LightGBM fits equal the serial tune's."""
+    _DeviceProbe.seen = []
+    df = DataFrame.from_dict(_clf_cols(80), num_partitions=2)
+    probe = _DeviceProbe()
+    space = automl.ParamSpace([(probe, "nothing", automl.DiscreteHyperParam(
+        [0]))], seed=0)
+    with use_device("cpu"):
+        automl.TuneHyperparameters(
+            models=[probe], paramSpace=space, evaluationMetric="accuracy",
+            numFolds=2, numRuns=4, parallelism=2).fit(df)
+    workers = {t for t, _ in _DeviceProbe.seen[:-1]}
+    assert threading.get_ident() not in workers
+    assert {d.type for _, d in _DeviceProbe.seen} == {"cpu"}
+    assert len(_DeviceProbe.seen) == 4 * 2 + 1
+    with use_device("cpu"):
+        one = _tune("port", "grid", "accuracy", 1, 120)[0]
+        two = _tune("port", "grid", "accuracy", 2, 120)[0]
+    assert one.get("allMetrics") == two.get("allMetrics")
+
+
+def test_automl_spaces_match_reference():
+    """Sampled settings, grids and the default ranges are the reference's
+    (numpy draws from the same seeds)."""
+    for A, LC in ((ref_automl, ref_stages.LightGBMClassifier),
+                  (automl, stages.LightGBMClassifier)):
+        with pytest.raises(KeyError):
+            A.HyperparamBuilder().add_hyperparam(LC(), "nope",
+                                                 A.DiscreteHyperParam([1]))
+    got = []
+    for A, LC in ((ref_automl, ref_stages.LightGBMClassifier),
+                  (automl, stages.LightGBMClassifier)):
+        est = LC()
+        b = (A.HyperparamBuilder()
+             .add_hyperparam(est, "numLeaves", A.RangeHyperParam(2, 64))
+             .add_hyperparam(est, "learningRate",
+                             A.RangeHyperParam(0.01, 0.3))
+             .add_hyperparam(est, "maxBin", A.DiscreteHyperParam([15, 63])))
+        gen = A.ParamSpace(b.build(), seed=7).param_maps()
+        draws = [[(n, v) for _, n, v in next(gen)] for _ in range(20)]
+        grid = A.GridSpace(b.build())
+        got.append((draws, grid.space_size(),
+                    [[(n, v) for _, n, v in s] for s in grid.param_maps()],
+                    [(n, d.grid_values()) for n, d in
+                     A.DefaultHyperparams.for_estimator(est)]))
+    assert got[0] == got[1]
+
+
+@pytest.mark.parametrize("metric", ["accuracy", "precision", "recall", "AUC",
+                                    "mean_squared_error",
+                                    "root_mean_squared_error",
+                                    "mean_absolute_error", "R^2"])
+def test_metric_evaluator_matches_reference(metric):
+    rng = np.random.default_rng(3)
+    y = rng.integers(0, 2, 300).astype(np.float64)
+    p1 = np.clip(0.6 * y + 0.5 * rng.random(300), 0, 1)
+    p1[:9] = 0.5                                  # tied scores
+    cols = {"label": y, "prediction": (p1 > 0.5).astype(np.float64),
+            "probability": [np.array([1 - v, v]) for v in p1]}
+    got = []
+    for A, DF in ((ref_automl, RefDataFrame), (automl, DataFrame)):
+        ev = A.MetricEvaluator(metric, labelCol="label")
+        got.append((ev.evaluate(DF.from_dict(dict(cols), num_partitions=2)),
+                    ev.is_larger_better()))
+    assert got[0] == got[1]
+
+
+def test_find_best_model_matches_reference(ref_device_path):
+    """``tests/test_automl_recommendation.py``'s FindBestModel case: the
+    same winner, metric and metrics table."""
+    out = []
+    for A, DF, LC in _AUTOML.values():
+        df = DF.from_dict(_clf_cols(), num_partitions=2)
+        ctx = use_device("cpu") if A is automl else contextlib.nullcontext()
+        with ctx:
+            good = LC(numIterations=20, numLeaves=15, minDataInLeaf=5).fit(df)
+            bad = LC(numIterations=1, numLeaves=2, learningRate=0.001,
+                     minDataInLeaf=100).fit(df)
+            best = A.FindBestModel(models=[bad, good],
+                                   evaluationMetric="accuracy",
+                                   labelCol="label").fit(df)
+        assert best.get_or_throw("bestModel") is good
+        assert best.get_evaluation_results().count() == 2
+        out.append((best.get("bestMetric"),
+                    best.get_evaluation_results().rows()))
+    assert out[0][0] == out[1][0]
+    assert [r["accuracy"] for r in out[0][1]] == \
+        [r["accuracy"] for r in out[1][1]]
+
+
+class _LinearProbe:
+    """``tests/test_lime.py``'s fake model: prediction = w . features."""
+
+    def __init__(self, w, col="features"):
+        self.w = np.asarray(w, dtype=np.float64)
+        self.col = col
+
+    def has_param(self, name):
+        return name == "featuresCol"
+
+    def get(self, name):
+        return self.col
+
+    def transform(self, df):
+        return df.with_column("prediction", lambda p: np.array(
+            [float(self.w @ np.asarray(v, dtype=np.float64).reshape(-1))
+             for v in p[self.col]]))
+
+
+class _BrightnessProbe:
+    """``tests/test_lime.py``'s fake image model: the mean pixel of the
+    left half."""
+
+    def __init__(self, schema):
+        self.schema = schema
+
+    def has_param(self, name):
+        return name == "inputCol"
+
+    def get(self, name):
+        return "image"
+
+    def transform(self, df):
+        def fn(p):
+            out = np.zeros(len(p["image"]))
+            for i, row in enumerate(p["image"]):
+                img = self.schema.to_array(row).astype(np.float64)
+                out[i] = img[:, : img.shape[1] // 2].mean()
+            return out
+        return df.with_column("prediction", fn)
+
+
+def _same_explanations(ref_col, port_col):
+    assert len(ref_col) == len(port_col)
+    for a, b in zip(ref_col, port_col):
+        if a is None:
+            assert b is None
+            continue
+        assert a.shape == b.shape
+        np.testing.assert_allclose(b, a, rtol=0, atol=_lasso_tol(a))
+
+
+def _tabular(pkg, kind):
+    L, DF = (ref_lime, RefDataFrame) if pkg == "ref" else (lime, DataFrame)
+    rng = np.random.default_rng(0)
+    n, d = 60, 4
+    X = rng.normal(size=(n, d)) * np.array([1.0, 2.0, 0.5, 1.0])
+    w_true = np.array([2.0, -1.0, 0.0, 3.0])
+    cols = {"features": [X[i] for i in range(n)]}
+    if kind == "linear":
+        model, pred, n_samples = _LinearProbe(w_true), "prediction", 400
+    else:
+        LC = ref_stages.LightGBMClassifier if pkg == "ref" \
+            else stages.LightGBMClassifier
+        cols["label"] = (X @ w_true > 0).astype(np.float64)
+        model = LC(numIterations=10, numLeaves=7, minDataInLeaf=5).fit(
+            DF.from_dict(dict(cols)))
+        pred, n_samples = "probability", 200
+    df = DF.from_dict(cols, num_partitions=2)
+    if kind == "linear":
+        df = df.with_column("features", lambda p: p["features"])
+    m = L.TabularLIME(inputCol="features", outputCol="weights",
+                      nSamples=n_samples, predictionCol=pred,
+                      regularization=0.001 if kind == "lgbm" else 0.0
+                      ).set("model", model).fit(df)
+    col = np.empty(6, dtype=object)
+    for i in range(6):
+        col[i] = None if i == 2 else X[i]
+    return m, m.transform(DF([{"features": col[:3]},
+                              {"features": col[3:]}]))
+
+
+@pytest.mark.parametrize("kind", ["linear", "lgbm"])
+def test_tabular_lime_matches_reference(ref_device_path, kind):
+    """The reference test's linear probe (weights recovered within 0.2),
+    and a LightGBM classifier's probability, explained over two partitions
+    with a missing row: the same draws, explanations within the lasso's
+    tolerance."""
+    _, ref = _tabular("ref", kind)
+    with use_device("cpu"):
+        _, port = _tabular("port", kind)
+    _same_explanations(ref.column("weights"), port.column("weights"))
+    if kind == "linear":
+        for w in port.column("weights"):
+            if w is not None:
+                np.testing.assert_allclose(w, [2.0, -1.0, 0.0, 3.0],
+                                           atol=0.2)
+
+
+def _images(schema):
+    rng = np.random.default_rng(3)
+    flat = np.full((24, 24, 3), 200, dtype=np.uint8)
+    noisy = rng.integers(0, 255, (24, 30, 3), dtype=np.uint8)
+    return [schema.make(flat), None, schema.make(noisy)]
+
+
+def test_image_lime_matches_reference():
+    """The reference test's left-half probe over a flat and a noisy image
+    (different superpixel counts: the batch pads the narrower) and a
+    missing row: superpixels bitwise, importances within the lasso's
+    tolerance, and the reference test's assertion."""
+    out = []
+    for L, DF, S in ((ref_lime, RefDataFrame, RefImageSchema),
+                     (lime, DataFrame, ImageSchema)):
+        df = DF.from_dict({"image": _images(S)})
+        with use_device("cpu"):
+            out.append(L.ImageLIME(
+                inputCol="image", outputCol="weights", nSamples=80,
+                cellSize=12.0).set("model", _BrightnessProbe(S)).transform(df))
+    ref, port = out
+    _same_explanations(ref.column("weights"), port.column("weights"))
+    for a, b in zip(ref.column("superpixels"), port.column("superpixels")):
+        if a is None:
+            assert b is None
+            continue
+        np.testing.assert_array_equal(a["labels"], b["labels"])
+        assert a["numClusters"] == b["numClusters"]
+    w = port.column("weights")[0]
+    labels = port.column("superpixels")[0]["labels"]
+    left_ids = set(labels[:, :10].ravel().tolist())
+    right_ids = set(labels[:, 14:].ravel().tolist()) - left_ids
+    left_imp = np.mean([w[i] for i in left_ids])
+    right_imp = np.mean([w[i] for i in right_ids]) if right_ids else 0.0
+    assert left_imp > right_imp + 1.0
+
+
+def _slic_image(kind):
+    rng = np.random.default_rng(11)
+    if kind == "noise":
+        return rng.integers(0, 255, (40, 52, 3)).astype(np.uint8)
+    if kind == "halves":
+        img = np.zeros((32, 32, 3))
+        img[:, 16:] = 255.0
+        return img
+    if kind == "gray":
+        return rng.normal(size=(33, 30)) * 50.0
+    yy, xx = np.mgrid[:64, :64]                  # smooth: tied distances
+    return np.stack([yy * 4, xx * 4, (yy + xx) * 2], -1).astype(np.uint8)
+
+
+@pytest.mark.parametrize("kind", ["noise", "halves", "gray", "ramp"])
+@pytest.mark.parametrize("cell,mod", [(16.0, 130.0), (8.0, 20.0),
+                                      (12.0, 130.0)])
+def test_slic_labels_match_reference_bitwise(kind, cell, mod):
+    img = _slic_image(kind)
+    want = ref_lime.slic(img, cell, mod)
+    got = lime.slic(img, cell, mod, device="cpu")
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_superpixel_transformer_matches_reference():
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 255, (24, 24, 3), dtype=np.uint8)
+    ref = ref_lime.SuperpixelTransformer(inputCol="image").transform(
+        RefDataFrame.from_dict({"image": [RefImageSchema.make(img), None]}))
+    with use_device("cpu"):
+        port = lime.SuperpixelTransformer(inputCol="image").transform(
+            DataFrame.from_dict({"image": [ImageSchema.make(img), None]}))
+    a, b = ref.column("superpixels")[0], port.column("superpixels")[0]
+    np.testing.assert_array_equal(a["labels"], b["labels"])
+    assert a["numClusters"] == b["numClusters"] > 1
+    assert port.column("superpixels")[1] is None
+
+
+@pytest.mark.parametrize("name", ["TuneHyperparametersModel",
+                                  "TabularLIMEModel"])
+def test_automl_and_lime_models_save_and_load(ref_device_path, tmp_path,
+                                              name):
+    """The tuned model and a TabularLIME model over the port's LightGBM
+    round-trip through ``core/serialize``: the same outputs bit for bit."""
+    with use_device("cpu"):
+        if name == "TuneHyperparametersModel":
+            stage, df = _tune("port", "grid", "accuracy", 1, 120)[0], \
+                DataFrame.from_dict(_clf_cols(40))
+        else:
+            stage, _ = _tabular("port", "lgbm")
+            df = DataFrame.from_dict({"features": [
+                np.arange(4.0) * 0.1, np.ones(4)]})
+        want = stage.transform(df)
+        stage.save(str(tmp_path / "s"))
+        loaded = PipelineStage.load(str(tmp_path / "s"))
+        assert type(loaded) is type(stage)
+        got = loaded.transform(df)
+    assert got.columns == want.columns
+    for c in want.columns:
+        for a, b in zip(want.column(c), got.column(c)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    if name == "TuneHyperparametersModel":
+        for p in ("bestParams", "allMetrics", "bestMetric"):
+            assert loaded.get(p) == stage.get(p)

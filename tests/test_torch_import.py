@@ -103,7 +103,16 @@ def test_clean_import_pulls_in_no_jax_and_no_reference():
                 "mmlspark_tpu_torch.stages.text",
                 "mmlspark_tpu_torch.stages.udfs",
                 "mmlspark_tpu_torch.train.metrics",
-                "mmlspark_tpu_torch.train.stages"):
+                "mmlspark_tpu_torch.train.stages",
+                "mmlspark_tpu_torch.ops.lasso",
+                "mmlspark_tpu_torch.automl.params",
+                "mmlspark_tpu_torch.automl.hyperparams",
+                "mmlspark_tpu_torch.automl.tuning",
+                "mmlspark_tpu_torch.recommendation.indexer",
+                "mmlspark_tpu_torch.recommendation.sar",
+                "mmlspark_tpu_torch.recommendation.ranking",
+                "mmlspark_tpu_torch.lime.superpixel",
+                "mmlspark_tpu_torch.lime.lime"):
         assert mod in out["imported"]
 
 

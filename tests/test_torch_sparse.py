@@ -1503,3 +1503,364 @@ def test_text_featurizer_into_the_sparse_fit_matches_reference(
     assert fused.fusion_stats()["fallbacks"] == []
     pred = np.asarray(pout.column("prediction"), np.float64)
     assert (pred == labels).mean() > 0.9
+
+
+# ---------------------------------------------------------------------------
+# Recommendation (``mmlspark_tpu_torch.recommendation``) against the
+# reference's, on the same inputs. SAR on the CPU runs the card's torch
+# ops. Tolerances: the affinity and the similarity bitwise (f32 adds in
+# ``np.add.at``'s order, exact 0/1 co-occurrence counts, the same f32
+# elementwise ops); the scores A @ S within rtol 1e-5 (f32 sums in another
+# order); the TLC fixtures at ``tests/test_benchmarks.py``'s tolerances; the
+# indexer's maps, the ranking split and every ranking metric equal. One
+# deliberate deviation: tied scores rank by item ascending (the reference's
+# ``np.argsort(-scores)`` leaves their order to the sort).
+# ---------------------------------------------------------------------------
+
+import csv  # noqa: E402
+import gzip  # noqa: E402
+import os  # noqa: E402
+
+from mmlspark_tpu import recommendation as ref_rec  # noqa: E402
+from mmlspark_tpu_torch import recommendation as rec  # noqa: E402
+from mmlspark_tpu_torch.core.pipeline import PipelineStage  # noqa: E402
+from mmlspark_tpu_torch.recommendation import sar as port_sar  # noqa: E402
+from test_benchmarks import (RES, _SIM_CASES, _USERPRED_CASES,  # noqa: E402
+                             _parse_ts)
+
+SCORE_RTOL = 1e-5
+_REC = {"ref": (ref_rec, RefDataFrame), "port": (rec, DataFrame)}
+
+
+@pytest.fixture(scope="module")
+def tlc_cols():
+    with gzip.open(os.path.join(RES, "demoUsage.csv.gz"), "rt") as f:
+        rows = [r for r in csv.DictReader(f)
+                if r["userId"] and r["productId"] and r["timestamp"]]
+    return {"userId": [r["userId"] for r in rows],
+            "productId": [r["productId"] for r in rows],
+            "ts": [_parse_ts(r["timestamp"]) for r in rows]}
+
+
+def _tlc_fit(pkg, cols, threshold, similarity):
+    R, DF = _REC[pkg]
+    df = DF.from_dict(dict(cols))
+    indexer = R.RecommendationIndexer(
+        userInputCol="userId", userOutputCol="user",
+        itemInputCol="productId", itemOutputCol="item").fit(df)
+    model = R.SAR(userCol="user", itemCol="item", ratingCol="rating",
+                  timeCol="ts", supportThreshold=threshold,
+                  similarityFunction=similarity,
+                  startTime=_parse_ts("2015/06/09T19:39:37")).fit(
+        indexer.transform(df))
+    return indexer, model
+
+
+def _f32_bits(a):
+    return np.asarray(a, dtype=np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("threshold,similarity,fixture", _SIM_CASES)
+def test_sar_similarity_matches_tlc_fixture(tlc_cols, threshold, similarity,
+                                            fixture):
+    """The six TLC similarity fixtures through the port (every cell at the
+    reference test's tolerance), S and the affinity bitwise the
+    reference's (the TLC events repeat (user, item) cells), the scores
+    within SCORE_RTOL."""
+    _, rm = _tlc_fit("ref", tlc_cols, threshold, similarity)
+    with use_device("cpu"):
+        ix, pm = _tlc_fit("port", tlc_cols, threshold, similarity)
+        scores = pm._scores().numpy()
+    S = pm.get("itemSimilarity").numpy()
+    np.testing.assert_array_equal(_f32_bits(S),
+                                  _f32_bits(rm.get("itemSimilarity")))
+    np.testing.assert_array_equal(_f32_bits(pm.get("userAffinity")),
+                                  _f32_bits(rm.get("userAffinity")))
+    want = rm._scores()
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(fin, np.isfinite(scores))
+    np.testing.assert_allclose(scores[fin], want[fin], rtol=SCORE_RTOL,
+                               atol=0)
+    item_index = {k: int(v) for k, v in ix.get("itemMap").items()}
+    with gzip.open(os.path.join(RES, fixture), "rt") as f:
+        fx = list(csv.reader(f))
+    header = fx[0][1:]
+    for line in fx[1:]:
+        got = S[item_index[line[0]], [item_index[j] for j in header]]
+        np.testing.assert_allclose(got, [float(v) for v in line[1:]],
+                                   rtol=1e-5, atol=1e-6,
+                                   err_msg=f"{fixture} row {line[0]}")
+    assert len(fx) - 1 == len(header) == 101
+
+
+@pytest.mark.parametrize("similarity,fixture", _USERPRED_CASES)
+def test_sar_userpred_matches_tlc_fixture(tlc_cols, similarity, fixture):
+    """The reference's userpred protocol (top 10 of the probe user: scores
+    within 1e-3, the same set, the same order where scores differ)."""
+    with use_device("cpu"):
+        ix, model = _tlc_fit("port", tlc_cols, 3, similarity)
+        recs = model.recommend_for_all_users(num_items=40, remove_seen=True)
+    uid = int(ix.get("userMap")["0003000098E85347"])
+    inv_item = {int(v): k for k, v in ix.get("itemMap").items()}
+    got_items = [inv_item[i] for i in recs.column("recommendations")[uid][:10]]
+    got_scores = np.asarray(recs.column("ratings")[uid][:10])
+    with gzip.open(os.path.join(RES, fixture), "rt") as f:
+        ans = list(csv.DictReader(f))[0]
+    want_items = [ans[f"rec{i}"] for i in range(1, 11)]
+    want_scores = np.array([float(ans[f"score{i}"]) for i in range(1, 11)])
+    np.testing.assert_allclose(got_scores, want_scores, atol=1e-3)
+    assert set(got_items) == set(want_items)
+    for k in range(10):
+        if all(abs(want_scores[k] - want_scores[j]) > 1e-6
+               for j in range(10) if j != k):
+            assert got_items[k] == want_items[k], k
+
+
+def _events(n_users=30, n_items=20, seed=0, repeats=False, time=True):
+    """``tests/test_automl_recommendation.py``'s two taste clusters, with
+    timestamps; with ``repeats`` every event of a user's first item again,
+    at ratings whose f32 sum depends on the order of the adds."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for u in range(n_users):
+        liked = [i for i in range(n_items) if i % 2 == u % 2]
+        chosen = rng.choice(liked, size=min(6, len(liked)), replace=False)
+        for i in chosen:
+            rows.append({"user": u, "item": int(i), "rating": 1.0,
+                         "time": 1_600_000_000
+                         + int(rng.integers(0, 86400 * 60))})
+        if repeats:
+            for r in (1e8, 1.0, -1e8, 3.0, 0.5):
+                rows.append({"user": u, "item": int(chosen[0]),
+                             "rating": r, "time": 1_600_000_000})
+    cols = {k: np.array([r[k] for r in rows]) for k in rows[0]}
+    if not time:
+        del cols["time"]
+    return cols
+
+
+def test_sar_affinity_sums_repeated_events_in_input_order():
+    """Repeated (user, item) events sum in input order, as ``np.add.at``
+    sums them: bitwise the reference's affinity where another order gives
+    other bits."""
+    cols = _events(repeats=True)
+    out = []
+    for pkg in ("ref", "port"):
+        R, DF = _REC[pkg]
+        with use_device("cpu"):
+            out.append(R.SAR(userCol="user", itemCol="item",
+                             ratingCol="rating", timeCol="time",
+                             supportThreshold=1).fit(
+                DF.from_dict(dict(cols))).get("userAffinity"))
+    ref, port = np.asarray(out[0]), out[1].numpy()
+    np.testing.assert_array_equal(_f32_bits(port), _f32_bits(ref))
+    vals = np.float32([1e8, 1.0, -1e8, 3.0, 0.5])
+    assert np.add.reduce(np.sort(vals)) != np.add.reduce(vals)
+    users = np.array([0, 1, 0, 0, 1, 0])
+    items = np.array([2, 0, 2, 2, 0, 2])
+    v = np.float32([1e8, 7.0, 1.0, -1e8, 0.25, 3.0])
+    want = np.zeros((2, 3), np.float32)
+    np.add.at(want, (users, items), v)
+    got = port_sar.affinity_matrix(users, items, v, 2, 3, "cpu")
+    np.testing.assert_array_equal(_f32_bits(got), _f32_bits(want))
+
+
+def test_sar_top_k_orders_ties_by_item():
+    """The deliberate deviation: scores descending, ties by item ascending.
+    Against the reference: the same lists where no scores tie, and each
+    tie group the same set apart from the group the cut at k splits."""
+    rng = np.random.default_rng(4)
+    scores = np.round(rng.random((50, 40)) * 4).astype(np.float32) / 4
+    scores[3] = 0.0
+    scores[5, ::3] = -np.inf
+    scores[7, 2], scores[7, 9] = -0.0, 0.0
+    items, vals = port_sar.top_k(torch.from_numpy(scores), 10)
+    items = items.numpy()
+    want = np.lexsort((np.arange(40)[None].repeat(50, 0), -scores))[:, :10]
+    np.testing.assert_array_equal(items, want)
+    np.testing.assert_array_equal(vals.numpy(),
+                                  np.take_along_axis(scores, want, 1))
+    A = (rng.random((50, 40)) < 0.3).astype(np.float32) * 2.0
+    S = np.round(rng.random((40, 40)) * 3).astype(np.float32)
+    ref = ref_rec.SARModel(userAffinity=A, itemSimilarity=S)
+    with use_device("cpu"):
+        port = rec.SARModel(userAffinity=A, itemSimilarity=S)
+        got = port.recommend_for_all_users(10)
+    want = ref.recommend_for_all_users(10)
+    _same_up_to_ties(want, got, 10)
+    full = np.where(A > 0, -np.inf, ref._scores(remove_seen=False))
+    for u in range(50):
+        gi = got.column("recommendations")[u]
+        np.testing.assert_array_equal(
+            gi, np.lexsort((np.arange(40), -full[u]))[:len(gi)])
+
+
+def _same_up_to_ties(want, got, k):
+    """Per user: the scores within SCORE_RTOL, and each group of equal
+    scores the same set of items, apart from the group the cut at k
+    splits (each package may keep other items of it)."""
+    for u in range(want.count()):
+        gi, wi = got.column("recommendations")[u], \
+            want.column("recommendations")[u]
+        gs, ws = got.column("ratings")[u], want.column("ratings")[u]
+        assert len(gi) == len(wi)
+        np.testing.assert_allclose(gs, ws, rtol=SCORE_RTOL, atol=0)
+        cut = ws[-1] if len(ws) == k else None
+        for s in np.unique(ws):
+            g, w = set(gi[ws == s]), set(wi[ws == s])
+            if s != cut:
+                assert g == w, (u, s)
+
+
+def test_sar_model_from_reference_arrays_scores_as_the_reference():
+    """A SARModel built from the reference's fitted ``userAffinity`` and
+    ``itemSimilarity`` arrays: the pair scores and every user's top-k
+    within SCORE_RTOL, and its similarity functions finite and >= 0."""
+    cols = _events()
+    R, RDF = _REC["ref"]
+    for sim in ("cooccurrence", "jaccard", "lift"):
+        rm = ref_rec.SAR(userCol="user", itemCol="item", ratingCol="rating",
+                         timeCol="time", similarityFunction=sim,
+                         supportThreshold=1).fit(RDF.from_dict(dict(cols)))
+        with use_device("cpu"):
+            pm = rec.SARModel(userCol="user", itemCol="item",
+                              userAffinity=rm.get("userAffinity"),
+                              itemSimilarity=rm.get("itemSimilarity"))
+            got = pm.transform(DataFrame.from_dict(dict(cols)))
+            recs = pm.recommend_for_all_users(5)
+        want = rm.transform(RDF.from_dict(dict(cols)))
+        np.testing.assert_allclose(got.column("prediction"),
+                                   want.column("prediction"),
+                                   rtol=SCORE_RTOL, atol=0)
+        wrecs = rm.recommend_for_all_users(5)
+        for a, b in zip(recs.column("ratings"), wrecs.column("ratings")):
+            np.testing.assert_allclose(a, b, rtol=SCORE_RTOL, atol=0)
+        S = rm.get("itemSimilarity")
+        assert np.isfinite(S).all() and (S >= 0).all()
+        row0 = recs.rows()[0]
+        evens = sum(1 for i in row0["recommendations"] if i % 2 == 0)
+        assert evens >= len(row0["recommendations"]) - 1
+
+
+def test_sar_time_decay_matches_reference():
+    rows = {"user": [0, 0, 1, 1], "item": [0, 1, 0, 1],
+            "rating": [1.0] * 4,
+            "time": [0.0, 86400.0 * 365, 86400.0 * 365, 86400.0 * 365]}
+    out = []
+    for pkg in ("ref", "port"):
+        R, DF = _REC[pkg]
+        with use_device("cpu"):
+            out.append(R.SAR(userCol="user", itemCol="item",
+                             ratingCol="rating", timeCol="time",
+                             supportThreshold=0, timeDecayCoeff=30).fit(
+                DF.from_dict(dict(rows))).get("userAffinity"))
+    np.testing.assert_array_equal(_f32_bits(out[1]), _f32_bits(out[0]))
+    assert out[1][0, 0] < out[1][0, 1] * 1e-3
+
+
+def test_recommendation_indexer_matches_reference():
+    cols = {"u": ["alice", "bob", "alice", "carol", None],
+            "i": ["x", "y", "y", 7, "x"], "rating": [1.0, 2.0, 3.0, 4, 5]}
+    out = []
+    for R, DF in _REC.values():
+        m = R.RecommendationIndexer(userInputCol="u", userOutputCol="user",
+                                    itemInputCol="i",
+                                    itemOutputCol="item").fit(
+            DF.from_dict(dict(cols)))
+        t = m.transform(DF.from_dict(dict(cols)))
+        out.append((m.get("userMap"), m.get("itemMap"),
+                    list(t.column("user")), list(t.column("item")),
+                    m.recover_user(0), m.recover_item(1)))
+    assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("min_r,ratio,seed", [(2, 0.75, 0), (3, 0.5, 5),
+                                              (1, 0.9, 2), (7, 0.75, 1)])
+def test_ranking_split_matches_reference_bitwise(min_r, ratio, seed):
+    """The O(N log N) split draws the reference's permutations for the same
+    users in the same order: the same train and validation rows."""
+    rng = np.random.default_rng(seed)
+    n = 3000
+    users = rng.zipf(1.5, n) % 211            # skewed, some users 1-2 rows
+    cols = {"user": users, "item": rng.integers(0, 90, n),
+            "rating": rng.random(n)}
+    out = []
+    for R, DF in _REC.values():
+        tvs = R.RankingTrainValidationSplit(
+            userCol="user", itemCol="item", ratingCol="rating",
+            minRatingsPerUser=min_r, trainRatio=ratio, seed=seed)
+        out.append(tvs.split(DF.from_dict(dict(cols), num_partitions=3)))
+    for a, b in zip(out[0], out[1]):
+        assert a.columns == b.columns
+        for c in a.columns:
+            np.testing.assert_array_equal(a.column(c), b.column(c))
+
+
+@pytest.mark.parametrize("metric", ["ndcgAt", "map", "precisionAtk",
+                                    "recallAtK"])
+def test_ranking_evaluator_matches_reference(metric):
+    rng = np.random.default_rng(9)
+    rows = []
+    for u in range(60):
+        rows.append({"recommendations": rng.choice(30, rng.integers(0, 12),
+                                                   replace=False),
+                     "label": rng.choice(30, rng.integers(0, 6),
+                                         replace=False)})
+    got = [R.RankingEvaluator(metricName=metric, k=5).evaluate(
+        DF.from_rows(rows)) for R, DF in _REC.values()]
+    assert got[0] == got[1]
+    small = [{"recommendations": np.array([1, 2, 3]),
+              "label": np.array([1, 9])},
+             {"recommendations": np.array([5, 6]), "label": np.array([7])}]
+    ref_small, port_small = [R.RankingEvaluator(metricName=metric, k=3)
+                             .evaluate(DF.from_rows(small))
+                             for R, DF in _REC.values()]
+    assert ref_small == port_small
+
+
+def test_ranking_flow_matches_reference():
+    """RankingTrainValidationSplit over SAR (time-decayed, so no scores
+    tie): the same validation metric, and the reference test's bar; the
+    adapter's per-user rows equal."""
+    cols = _events(40, 20)
+    out = []
+    for R, DF in _REC.values():
+        tvs = R.RankingTrainValidationSplit(
+            estimator=R.SAR(supportThreshold=1, timeCol="time"),
+            evaluator=R.RankingEvaluator(metricName="ndcgAt", k=5),
+            userCol="user", itemCol="item", ratingCol="rating",
+            minRatingsPerUser=3)
+        with use_device("cpu"):
+            model = tvs.fit(DF.from_dict(dict(cols)))
+            adapted = model.transform(tvs.split(DF.from_dict(dict(cols)))[1])
+        out.append((model.get("validationMetric"), model, adapted))
+    assert abs(out[0][0] - out[1][0]) <= 1e-12
+    assert out[1][0] > 0.2
+    (_, rm, a), (_, pm, b) = out
+    assert a.columns == b.columns
+    for c in ("user", "label"):
+        for x, y in zip(a.column(c), b.column(c)):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    # the recommendations: the tie rule (zero scores tie here)
+    want = rm.get("bestModel").get("recommenderModel") \
+        .recommend_for_all_users(10)
+    with use_device("cpu"):
+        got = pm.get("bestModel").get("recommenderModel") \
+            .recommend_for_all_users(10)
+    _same_up_to_ties(want, got, 10)
+
+
+def test_sar_model_save_and_load(tmp_path):
+    cols = _events()
+    with use_device("cpu"):
+        model = rec.SAR(userCol="user", itemCol="item", ratingCol="rating",
+                        timeCol="time", supportThreshold=1).fit(
+            DataFrame.from_dict(dict(cols)))
+        want = model.recommend_for_all_users(5)
+        model.save(str(tmp_path / "sar"))
+        loaded = PipelineStage.load(str(tmp_path / "sar"))
+        got = loaded.recommend_for_all_users(5)
+    assert type(loaded) is rec.SARModel
+    for c in want.columns:
+        for x, y in zip(want.column(c), got.column(c)):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
